@@ -1,0 +1,202 @@
+"""GQA attention with pluggable sparse decode backends.
+
+Port of the global-attention half of ``repro.models.attention``.
+
+Training/prefill: dense causal attention in plain PyTorch (the JAX
+package's XLA path), with queries processed in chunks of
+``cfg.attn_q_chunk`` so the live logits buffer is ``(chunk, S)``.
+
+Decode: global layers own no backend logic; every decode backend is one
+module in :mod:`repro_torch.models.backends`, reached through a
+:class:`~repro_torch.models.backends.ContiguousView` over the layer's
+``(B, KVH, N, ...)`` cache.  The view writes the new token's row in
+place.
+
+Sliding-window (local) layers come with the hybrid-layouts slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import backends
+from repro_torch.models.layers import (apply_rope, init_rmsnorm, normal,
+                                       rmsnorm, softcap)
+
+__all__ = ["init_attention", "attention_train", "attention_prefill",
+           "attention_decode", "init_attention_cache"]
+
+NEG_INF = -1e30
+
+
+def _require_global(attn_type: str) -> None:
+    if attn_type != "global":
+        raise NotImplementedError(
+            f"{attn_type!r} attention layers are not ported yet: "
+            "sliding-window (ring) layers come with the hybrid-layouts "
+            "slice (ROADMAP.md queue 1)")
+
+
+# ------------------------------------------------------------------ init
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+    d, hd, h, kv = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    s = 1.0 / math.sqrt(d)
+    params = {
+        "wq": normal(gen, (d, h, hd), s, cfg.param_dtype),
+        "wk": normal(gen, (d, kv, hd), s, cfg.param_dtype),
+        "wv": normal(gen, (d, kv, hd), s, cfg.param_dtype),
+        "wo": normal(gen, (h, hd, d), 1.0 / math.sqrt(h * hd),
+                     cfg.param_dtype),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = init_rmsnorm(hd, gen.device)
+        params["k_norm"] = init_rmsnorm(hd, gen.device)
+    # SOCKET hyperplanes (Algorithm 1): data-agnostic, never trained.
+    sset = cfg.socket
+    params["hash_w"] = normal(gen, (sset.num_tables, sset.num_planes, hd),
+                              1.0, "float32")
+    return params
+
+
+# ------------------------------------------------------------- projections
+
+def _project_qkv(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """x (B, T, d) -> q (B, T, H, hd), k/v (B, T, KV, hd)."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = x.to(cdt)
+    b, t, d = x.shape
+
+    def proj(w):
+        return (x @ w.to(cdt).reshape(d, -1)).reshape(b, t, w.shape[1],
+                                                     w.shape[2])
+
+    q, k, v = proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _merge_heads(cfg: ModelConfig, params: Dict, ctx: torch.Tensor
+                 ) -> torch.Tensor:
+    """ctx (B, T, H, hd) -> (B, T, d)."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    b, t, h, hd = ctx.shape
+    return ctx.to(cdt).reshape(b, t, h * hd) @ \
+        params["wo"].to(cdt).reshape(h * hd, -1)
+
+
+# ------------------------------------------------------------------ train
+
+def _attn_chunk(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, q_offset: int, scale: float) -> torch.Tensor:
+    """Causal attention of a block of queries against the full K/V.
+
+    qg (B, cq, KV, G, hd); k/v (B, S, KV, hd) -> (B, cq, KV, G, hd).
+    """
+    b, cq, kv, g, hd = qg.shape
+    s = k.shape[1]
+    q = qg.float().permute(0, 2, 3, 1, 4).reshape(b, kv, g * cq, hd)
+    kt = k.float().permute(0, 2, 3, 1)                  # (B, KV, hd, S)
+    logits = (q @ kt).reshape(b, kv, g, cq, s) * scale
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    ti = q_offset + torch.arange(cq, device=qg.device)[:, None]
+    si = torch.arange(s, device=qg.device)[None, :]
+    logits = torch.where(si <= ti, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).reshape(b, kv, g * cq, s)
+    ctx = w @ v.float().permute(0, 2, 1, 3)             # (B, KV, G*cq, hd)
+    return ctx.reshape(b, kv, g, cq, hd).permute(0, 3, 1, 2, 4)
+
+
+def _attend_prompt(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Causal attention over projected q/k/v; q-chunked when
+    ``cfg.attn_q_chunk`` divides T (the same rule as the JAX package)."""
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, t, kv, h // kv, hd)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    cq = cfg.attn_q_chunk
+    if cq and t > cq and t % cq == 0:
+        ctx = torch.cat([_attn_chunk(cfg, qg[:, i:i + cq], k, v, i, scale)
+                         for i in range(0, t, cq)], dim=1)
+    else:
+        ctx = _attn_chunk(cfg, qg, k, v, 0, scale)
+    return ctx.reshape(b, t, h, hd).to(dtype)
+
+
+def attention_train(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                    positions: torch.Tensor, attn_type: str) -> torch.Tensor:
+    """Dense causal attention.  x: (B, T, d); positions: (B, T)."""
+    _require_global(attn_type)
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    return _merge_heads(cfg, params, _attend_prompt(cfg, q, k, v, x.dtype))
+
+
+# ------------------------------------------------------------------ cache
+
+def init_attention_cache(cfg: ModelConfig, batch: int, capacity: int,
+                         attn_type: str, dtype=None, device="cpu") -> Dict:
+    """Allocate one layer's decode cache (zeros)."""
+    _require_global(attn_type)
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    backend = backends.get_backend(cfg.attention_backend)
+    return backend.init_cache(cfg, batch, cfg.num_kv_heads, capacity, dtype,
+                              device)
+
+
+# ---------------------------------------------------------------- prefill
+
+def attention_prefill(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                      positions: torch.Tensor, attn_type: str,
+                      capacity: int) -> Tuple[torch.Tensor, Dict]:
+    """Forward over the prompt + build this layer's decode cache; the
+    output matches :func:`attention_train` (the projections are computed
+    once and shared, where the JAX package recomputes them)."""
+    _require_global(attn_type)
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    y = _merge_heads(cfg, params, _attend_prompt(cfg, q, k, v, x.dtype))
+    kc = k.transpose(1, 2)                       # (B, KV, T, hd)
+    vc = v.transpose(1, 2)
+    cache = init_attention_cache(cfg, x.shape[0], capacity, attn_type,
+                                 dtype=kc.dtype, device=x.device)
+    backend = backends.get_backend(cfg.attention_backend)
+    return y, backend.prefill_build(cfg, params, cache, kc, vc)
+
+
+# ----------------------------------------------------------------- decode
+
+def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                     cache: Dict, pos, attn_type: str
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step.  x: (B, 1, d); pos: int (lockstep batch) or a
+    ``(B,)`` tensor of per-request positions.  The cache is updated in
+    place and returned.  Returns (y (B, 1, d), cache)."""
+    _require_global(attn_type)
+    b = x.shape[0]
+    hd = cfg.head_dim
+    h, kv = params["wq"].shape[1], params["wk"].shape[1]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        positions = pos.reshape(b, 1).to(device=x.device, dtype=torch.int64)
+    else:
+        positions = torch.full((b, 1), int(pos), dtype=torch.int64,
+                               device=x.device)
+    q, k_new, v_new = _project_qkv(cfg, params, x, positions)
+    qg = q.reshape(b, 1, kv, g, hd).permute(0, 2, 3, 1, 4)   # (B,KV,G,1,hd)
+    backend = backends.get_backend(cfg.attention_backend)
+    view = backends.ContiguousView(cache, backend.cache_spec(cfg))
+    backend.append(cfg, params, view, k_new.transpose(1, 2),
+                   v_new.transpose(1, 2), pos)
+    ctx = backend.attend(cfg, params, qg, view, length=pos + 1, scale=scale)
+    ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+    return _merge_heads(cfg, params, ctx.to(x.dtype)), view.arrays

@@ -1,0 +1,53 @@
+"""Decode-backend registry.
+
+Every global-attention decode backend is one module implementing the
+:class:`~repro_torch.models.backends.base.DecodeBackend` interface and
+registered here under its ``cfg.attention_backend`` name.  This slice
+ports ``socket`` and ``dense``; hard_lsh and quest come with the
+other-backends slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+from repro_torch.models.backends.base import (ContiguousView, DecodeBackend,
+                                              KVView, LeafSpec,
+                                              gather_kv_rows, kv_leaf_specs,
+                                              subset_attention,
+                                              write_prefill_kv,
+                                              write_token_kv)
+from repro_torch.models.backends.dense import DenseBackend
+from repro_torch.models.backends.socket import SocketBackend, socket_config_of
+
+__all__ = ["DecodeBackend", "KVView", "ContiguousView", "LeafSpec",
+           "kv_leaf_specs", "write_prefill_kv", "write_token_kv",
+           "gather_kv_rows", "subset_attention", "register", "get_backend",
+           "registered_backends", "socket_config_of"]
+
+_REGISTRY: Dict[str, DecodeBackend] = {}
+
+
+def register(cls):
+    """Class decorator: instantiate and register a backend by its name."""
+    assert cls.name, cls
+    _REGISTRY[cls.name] = cls()
+    return cls
+
+
+def get_backend(name: str) -> DecodeBackend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown attention backend {name!r}; registered: "
+            f"{registered_backends()}") from None
+
+
+def registered_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+for _cls in (SocketBackend, DenseBackend):
+    register(_cls)
+del _cls

@@ -1,0 +1,131 @@
+"""The decoder stack: init / prefill / decode entry points.
+
+Port of the serving half of ``repro.models.transformer``.  The JAX
+package scans over stacked layer groups; here the stack is a Python list
+of per-layer parameter dicts (``params["layers"]``, in ``cfg.layer_specs``
+order) walked by a loop, and the decode caches are a list of per-layer
+cache dicts updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, embed_tokens,
+                                       init_embedding, init_mlp,
+                                       init_rmsnorm, lm_head, rmsnorm)
+
+__all__ = ["init_model", "init_decode_caches", "prefill", "decode_step"]
+
+
+def _check_spec(spec: LayerSpec) -> None:
+    if spec.kind != "attn" or spec.mlp not in ("dense", "none"):
+        raise NotImplementedError(
+            f"{spec.kind}/{spec.mlp} layers are not ported yet: Mamba and "
+            "MoE layers come with the hybrid-layouts slice (ROADMAP.md "
+            "queue 1)")
+
+
+def _check_inputs(cfg: ModelConfig) -> None:
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"input_mode={cfg.input_mode!r}: embeddings-input frontends "
+            "come with a later slice (ROADMAP.md queue 1)")
+
+
+# ------------------------------------------------------------------ blocks
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator,
+                spec: LayerSpec) -> Dict:
+    _check_spec(spec)
+    params: Dict = {"norm_mix": init_rmsnorm(cfg.d_model, gen.device),
+                    "attn": attn.init_attention(cfg, gen)}
+    if spec.mlp == "dense":
+        params["norm_mlp"] = init_rmsnorm(cfg.d_model, gen.device)
+        params["mlp"] = init_mlp(cfg, gen)
+    return params
+
+
+def _mlp(cfg: ModelConfig, params: Dict, spec: LayerSpec,
+         x: torch.Tensor) -> torch.Tensor:
+    if spec.mlp == "dense":
+        x = x + apply_mlp(cfg, params["mlp"], rmsnorm(params["norm_mlp"], x))
+    return x
+
+
+def _block_prefill(cfg: ModelConfig, params: Dict, spec: LayerSpec,
+                   x: torch.Tensor, positions: torch.Tensor, capacity: int):
+    _check_spec(spec)
+    h, cache = attn.attention_prefill(cfg, params["attn"],
+                                      rmsnorm(params["norm_mix"], x),
+                                      positions, spec.attn_type, capacity)
+    return _mlp(cfg, params, spec, x + h), cache
+
+
+def _block_decode(cfg: ModelConfig, params: Dict, spec: LayerSpec,
+                  x: torch.Tensor, cache: Dict, pos):
+    _check_spec(spec)
+    h, cache = attn.attention_decode(cfg, params["attn"],
+                                     rmsnorm(params["norm_mix"], x), cache,
+                                     pos, spec.attn_type)
+    return _mlp(cfg, params, spec, x + h), cache
+
+
+# ------------------------------------------------------------------- model
+
+def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> Dict:
+    """Parameters ``{embed, layers, final_norm}`` drawn on ``device`` from
+    a ``torch.Generator`` seeded with ``seed``, with the JAX package's
+    distributions (``N(0, 1/fan_in)`` projections, ``N(0, 1)`` embedding
+    table and hash planes, unit norm scales).  The numbers differ from
+    the JAX package's for the same seed; the tests carry the JAX weights
+    across with :func:`repro_torch.models.weights.from_jax_params`."""
+    _check_inputs(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "embed": init_embedding(cfg, gen),
+        "layers": [_init_block(cfg, gen, spec) for spec in cfg.layer_specs],
+        "final_norm": init_rmsnorm(cfg.d_model, gen.device),
+    }
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
+                       device="cpu") -> List[Dict]:
+    """One zero cache dict per layer, at ``capacity`` tokens."""
+    for spec in cfg.layer_specs:
+        _check_spec(spec)
+    return [attn.init_attention_cache(cfg, batch, capacity, spec.attn_type,
+                                      device=device)
+            for spec in cfg.layer_specs]
+
+
+def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int):
+    """Process the prompt ``batch["tokens"]`` (B, T); returns
+    (last-token logits (B, 1, V_padded), per-layer caches)."""
+    _check_inputs(cfg)
+    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    caches = []
+    for spec, lp in zip(cfg.layer_specs, params["layers"]):
+        x, cache = _block_prefill(cfg, lp, spec, x, positions, capacity)
+        caches.append(cache)
+    x = rmsnorm(params["final_norm"], x[:, -1:])
+    return lm_head(cfg, params["embed"], x), caches
+
+
+def decode_step(cfg: ModelConfig, params: Dict, caches: List[Dict],
+                inputs: torch.Tensor, pos):
+    """One token for the whole stack.  inputs: (B, 1) token ids; pos: int
+    or a ``(B,)`` tensor.  The caches are updated in place.  Returns
+    (logits (B, 1, V_padded), caches)."""
+    _check_inputs(cfg)
+    x = embed_tokens(cfg, params["embed"], inputs)
+    for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
+        x, caches[i] = _block_decode(cfg, lp, spec, x, caches[i], pos)
+    x = rmsnorm(params["final_norm"], x)
+    return lm_head(cfg, params["embed"], x), caches

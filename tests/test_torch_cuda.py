@@ -1,0 +1,123 @@
+"""Card-only tests of the port: each Hopper kernel against its plain
+PyTorch version on the card, and the static serve path through both
+kernels.  They skip with a reason where there is no CUDA card; on the
+card run them with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: scores rtol 1e-5 / atol 1e-6, attention rtol 1e-4 /
+atol 1e-5 (float32 in another summation order).
+"""
+
+import math
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
+ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA and Triton kernels have no "
+                    "CPU mode (their plain versions are tested on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("fmt,g,n,l,p", [
+    ("packed", 4, 8224, 60, 10), ("packed", 1, 1001, 60, 10),
+    ("packed", 2, 77, 12, 6), ("int8", 4, 513, 60, 10)])
+def test_socket_score_kernel_matches_plain(dev, fmt, g, n, l, p):
+    from repro_torch.core import hashing, socket as sk
+    from repro_torch.kernels.socket_score import ops
+    from repro_torch.kernels.socket_score.ref import socket_score_ref
+    gen = torch.Generator(device=dev).manual_seed(n)
+    bh = 6
+    if fmt == "int8":
+        bits = torch.randint(0, 2, (bh, n, l * p), generator=gen, device=dev,
+                             dtype=torch.int8) * 2 - 1
+    else:
+        bits = torch.randint(-2 ** 31, 2 ** 31,
+                             (bh, n, hashing.num_words(l, p)), generator=gen,
+                             device=dev, dtype=torch.int32)
+    u = sk.soft_hash_query(torch.randn((l, p, 64), generator=gen, device=dev),
+                           torch.randn((bh, g, 64), generator=gen,
+                                       device=dev))
+    vnorm = torch.rand((bh, n), generator=gen, device=dev)
+    kw = dict(num_tables=l, num_planes=p, tau=0.4)
+    for vn in (None, vnorm):
+        before = ops.LAUNCHES
+        out = ops.socket_score(bits, u, vn, **kw)
+        assert ops.LAUNCHES == before + 1
+        torch.testing.assert_close(out, socket_score_ref(bits, u, vn, **kw),
+                                   **SCORE_TOL)
+
+
+@pytest.mark.parametrize("k,hd,dtype", [
+    (823, 128, torch.float32), (823, 160, torch.float32),
+    (77, 128, torch.float32), (9, 64, torch.bfloat16)])
+def test_flash_decode_kernel_matches_plain(dev, k, hd, dtype):
+    from repro_torch.kernels.flash_decode import ops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    gen = torch.Generator(device=dev).manual_seed(k + hd)
+    bh, g = 5, 4
+    q = torch.randn((bh, g, hd), generator=gen, device=dev)
+    kk = torch.randn((bh, k, hd), generator=gen, device=dev).to(dtype)
+    vv = torch.randn((bh, k, hd), generator=gen, device=dev).to(dtype)
+    mask = torch.rand((bh, k), generator=gen, device=dev) < 0.9
+    mask[3] = False
+    scale = 1.0 / math.sqrt(hd)
+    before = ops.LAUNCHES
+    out = ops.flash_decode(q, kk, vv, mask, scale=scale)
+    assert ops.LAUNCHES == before + 1
+    torch.testing.assert_close(out, flash_decode_ref(q, kk, vv, mask,
+                                                     scale=scale), **ATTN_TOL)
+    assert out[3].abs().max().item() == 0.0
+
+
+def test_wrappers_raise_on_unsupported_cuda_inputs(dev):
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.socket_score import ops as ss
+    with pytest.raises(TypeError):
+        ss.socket_score(torch.zeros((2, 8, 3), dtype=torch.uint8, device=dev),
+                        torch.zeros((2, 1, 12, 6), device=dev),
+                        num_tables=12, num_planes=6, tau=0.4)
+    with pytest.raises(ValueError):
+        fd.flash_decode(torch.zeros((2, 4, 16), device=dev),
+                        torch.zeros((2, 8, 16), device=dev),
+                        torch.zeros((2, 8, 16), device=dev),
+                        torch.ones((2, 8), dtype=torch.uint8, device=dev),
+                        scale=0.25)
+
+
+def test_static_serve_on_card_matches_cpu(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.socket_score import ops as ss
+    from repro_torch.launch.serve import apply_backend_arg, run_serve
+    from repro_torch.models import transformer as tfm
+    cfg = apply_backend_arg(get_config("llama31-8b").smoke(), "socket")
+    params = tfm.init_model(cfg, seed=0)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(0))
+    cpu, _, _ = run_serve(cfg, 2, 40, 6, prompt=prompt, params=params,
+                          device="cpu")
+    before = (ss.LAUNCHES, fd.LAUNCHES)
+    card_params = {"embed": {k: v.to(dev) for k, v in
+                             params["embed"].items()},
+                   "final_norm": {"scale": params["final_norm"]["scale"]
+                                  .to(dev)},
+                   "layers": [{name: ({k: v.to(dev) for k, v in sub.items()})
+                               for name, sub in layer.items()}
+                              for layer in params["layers"]]}
+    card, _, _ = run_serve(cfg, 2, 40, 6, prompt=prompt, params=card_params,
+                           device=dev)
+    calls = cfg.num_layers * 7                 # 6 steps + the warm-up
+    assert (ss.LAUNCHES - before[0], fd.LAUNCHES - before[1]) == (calls,
+                                                                  calls)
+    assert torch.equal(card.cpu(), cpu)

@@ -7,10 +7,11 @@ Phases, in order; the first failure raises and the script exits non-zero:
 
 1. device   — a CUDA card must be present; prints its name and power
               limit as nvidia-smi reports them.
-2. build    — builds the CUDA kernel (nvcc, sm_90a) and compiles the Triton
-              kernels from the sources in this checkout.
+2. build    — builds the CUDA kernels (nvcc, sm_90a, one process per source,
+              all started together) and compiles the Triton kernels from the
+              sources in this checkout.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and at edge shapes, with the tolerance
+              the main paths' shapes and at edge shapes, with the tolerance
               stated; times kernel, plain version and (where one exists) the
               one PyTorch call computing the same function on the device
               (CUDA-graph replay), beside the least time the card could
@@ -19,11 +20,23 @@ Phases, in order; the first failure raises and the script exits non-zero:
 4. main     — llama31-8b at full width and depth through
               ``repro_torch.launch.serve.run_serve``: batch 2, an 8192-token
               prompt drawn from --seed, 32 greedy decode steps, SOCKET with
-              both kernels on.  Each kernel's launch count must equal
-              layers x decode calls.  Decode step 0 is run again on a clone
-              of the prefilled cache through the plain versions; its logits
-              must agree with the kernel path's, and the greedy tokens of
-              the two paths are compared.
+              both contiguous-path kernels on.  Each kernel's launch count
+              must equal layers x decode calls.  Decode step 0 is run again
+              on a clone of the prefilled cache through the plain versions;
+              its logits must agree with the kernel path's, and the greedy
+              tokens of the two paths are compared.
+5. continuous — llama31-8b at full width and depth, the same weights,
+              through ``ContinuousBatchingEngine.warmup()`` and
+              ``run(realtime=False)`` with ``--backend socket_fused``: 8
+              requests (prompts of 1024/2048/3072/4096 tokens from --seed,
+              each twice), 32 greedy tokens each, chunked prefill of 512,
+              a pool that never preempts.  Every request must finish with
+              32 tokens; the paged kernel's launch count must equal layers x
+              (engine iterations + the 2 warm-up steps), with no launch of
+              the contiguous-path kernels.  One decode iteration of the
+              engine's state (the widest batch the run held, on a clone of
+              the pool) is run again through the kernel and through the
+              plain paged path; their logits must agree.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -32,6 +45,7 @@ it lists every kernel's numbers as JSON.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -162,17 +176,45 @@ def flash_decode_case(dev, gen, *, bh, k, g, hd, dtype, dead_row=None):
     return q, kk, vv, mask
 
 
+def check_paged(label, case, kw, ties):
+    """Kernel vs plain version on one input set (the check of
+    ``repro_torch.kernels.paged_attention.cases``)."""
+    from repro_torch.kernels.paged_attention import cases, ops as pa
+    q, kp, vp, bits, vnorm, u, bt, length, budget = case
+    out, sel = pa.launch_paged_socket_attend(
+        q, kp, vp, bits, vnorm, u, bt, length, budget, with_selection=True,
+        **kw)
+    torch.cuda.synchronize()
+    try:
+        err, near = cases.check_paged(out, sel, case, kw, ties=ties,
+                                      attn_tol=ATTN_TOL, score_tol=SCORE_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"[{label}] {e}") from None
+    log(f"paged_attention [{label}] lengths {length.tolist()} budgets "
+        f"{budget.tolist()}: max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, "
+        f"atol {ATTN_TOL['atol']}); selection equal"
+        + (f" but {near} rows within the threshold band" if near else ""))
+    return err
+
+
 def phase_kernels(dev, seed):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.cases import paged_case
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_socket_attend_ref
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.kernels.socket_score.ref import socket_score_ref
 
-    # -- build: nvcc for the CUDA source; Triton compiles at first launch
+    # -- build: one nvcc per CUDA source, all at once; Triton compiles at
+    # first launch
     t0 = time.perf_counter()
-    build.load_library(ss.SOURCE)
-    log(f"build socket_score.cu: {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor() as ex:
+        list(ex.map(build.load_library, (ss.SOURCE, pa.SOURCE)))
+    log(f"build socket_score.cu + paged_attention.cu: "
+        f"{time.perf_counter() - t0:.2f} s")
     for stem, (secs, report) in build.BUILD_LOGS.items():
         log(f"  nvcc {stem}: {secs:.2f} s\n  " +
             report.replace("\n", "\n  "))
@@ -282,6 +324,65 @@ def phase_kernels(dev, seed):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms,
                 back_to_back_ms=back_to_back_ms(kernel, sets))
+
+    # -- paged_attention: the continuous phase's shapes first, then edges
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    main_lens = [1024, 2048, 3072, 4096, 1024, 2048, 3072, 4096]
+    paged_cases = [
+        ("main path, ragged", dict(lengths=main_lens, nb=264)),
+        ("length 1, budget > valid rows", dict(lengths=[1, 7, 200, 130],
+                                               nb=264)),
+        ("short tables, sink/window 16", dict(lengths=[33, 600, 1500, 57],
+                                              nb=96, sink=16, window=16)),
+        ("tie-heavy", dict(lengths=[900, 2500], nb=200, sink=16,
+                           window=16, ties=True)),
+    ]
+    for label, kw in paged_cases:
+        sets, args = paged_case(gen, **kw)
+        err = check_paged(label, sets[0], args, kw.get("ties", False))
+        if label.startswith("main path"):
+            b, kvh, g, hd = sets[0][0].shape
+            w = sets[0][3].shape[-1]
+            sink, window = args["sink_tokens"], args["window_tokens"]
+            lens = torch.tensor(kw["lengths"])
+            sel = torch.minimum(sets[0][8].cpu().long(), lens)
+            # sink and window rows are selected by position: their bits
+            # and vnorm are never needed
+            scored = lens - torch.clamp(lens, max=sink + window)
+            # what the function must move: bits + vnorm of every scored
+            # token, the selected K/V rows (forced ones included), q, u,
+            # the table, the output; and do: one FMA per (scored token,
+            # g, l), q.k and p.v per selected row
+            per_head = scored.sum() * (w * 4 + 2) + sel.sum() * 2 * hd * 4
+            nbytes = float(kvh * per_head + b * kvh * (2 * g * hd * 4 +
+                           g * args["num_tables"] * args["num_planes"] * 4)
+                           + sets[0][6].numel() * 4)
+            flops = float(kvh * (scored.sum() * g * args["num_tables"] * 2 +
+                                 sel.sum() * g * 4 * hd))
+            touched = float(kvh * per_head)
+            sets, args = paged_case(gen, copies=rotations(touched), **kw)
+            kernel = functools.partial(pa.launch_paged_socket_attend,
+                                       **args)
+            ms = device_time_ms(kernel, sets)
+            top_k = min(kw["nb"] * 16, int(sets[0][8].max()))
+
+            def plain(q, kp, vp, bits, vnorm, u, bt, length, budget):
+                return paged_socket_attend_ref(
+                    q, kp, vp, bits, vnorm, u, bt, length=length,
+                    budget=budget, top_k=top_k, **args)
+
+            plain_ms = device_time_ms(plain, sets[:2])
+            bms, by = bound(nbytes, flops)
+            rows["paged_attention"] = dict(
+                name="paged_attention", route="cuda",
+                source="src/repro_torch/kernels/paged_attention/"
+                       "paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention/"
+                         "paged_attention.py:69",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None,
+                back_to_back_ms=back_to_back_ms(kernel, sets))
+            del sets
     return rows
 
 
@@ -370,7 +471,113 @@ def phase_main(dev, seed, card):
     log(f"greedy tokens shared by kernel and plain paths: "
         f"{int(same.sum().item())}/{same.numel()} (identical prefix per "
         f"request: {prefix})")
-    return launches
+    return launches, params
+
+
+# --------------------------------------------------------------- phase 5
+
+def phase_continuous(dev, seed, card, params):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.socket_score import ops as ss
+    from repro_torch.launch.serve import card_continuous_case
+    from repro_torch.runtime.steps import make_serve_step
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    arch, new_tokens = "llama31-8b", 32
+    cfg, reqs = card_continuous_case(get_config(arch), seed, new_tokens)
+    sv = cfg.serving
+    engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
+    # the widest decode batch of the run, captured with a clone of the
+    # pool for the kernel-vs-plain check below (never an iteration whose
+    # next decode opens a block: every write then lands in a real page)
+    snap = {}
+
+    def hook(eng, it):
+        running = [eng.scheduler.running[s]
+                   for s in sorted(eng.scheduler.running)]
+        if len(running) <= len(snap.get("reqs", ())) or any(
+                r.done or len(r.blocks) * sv.block_size <= r.pos
+                for r in running):
+            return
+        snap.update(reqs=[r.rid for r in running], iteration=it,
+                    inputs=eng._batch_inputs(running),
+                    pages=[{k: v.clone() for k, v in layer.items()}
+                           for layer in eng.pages])
+
+    engine.iter_hook = hook
+    torch.cuda.reset_peak_memory_stats(dev)
+    pa.LAUNCHES = ss.LAUNCHES = fd.LAUNCHES = 0
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    m = engine.run(reqs, realtime=False)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pa.LAUNCHES,
+                "socket_score": ss.LAUNCHES, "flash_decode": fd.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(dev)
+    bad = [r.rid for r in reqs if r.state != "finished"
+           or len(r.generated) != new_tokens]
+    if bad:
+        raise AssertionError(f"requests {bad} did not finish with "
+                             f"{new_tokens} tokens")
+    expected = cfg.num_layers * (m.decode_iters + 2)
+    if launches["paged_attention"] != expected:
+        raise AssertionError(f"paged_attention: {launches} launches, "
+                             f"expected {expected} (layers x engine "
+                             "iterations + 2 warm-up steps)")
+    if launches["socket_score"] or launches["flash_decode"]:
+        raise AssertionError(f"contiguous-path kernels ran on the paged "
+                             f"path: {launches}")
+    if m.preemptions:
+        raise AssertionError(f"{m.preemptions} preemptions in a pool sized "
+                             "to need none")
+    # offline run: every request arrives at the run's start, and the
+    # engine stamps no TTFT (0); take it from the first token's wall time
+    first = np.array([r.token_walls[0] for r in reqs])
+    report = dict(m.to_json(), ttft_s_mean=float(first.mean()),
+                  ttft_s_p99=float(np.percentile(first, 99)))
+    log(json.dumps({
+        "continuous_path": arch, "backend": "socket_fused",
+        "requests": len(reqs), "prompt_lens": [len(r.prompt) for r in reqs],
+        "max_new_tokens": new_tokens, "prefill_chunk": sv.prefill_chunk,
+        "num_blocks": sv.num_blocks, "warmup_s": warm_s,
+        **report, "max_memory_allocated_bytes": peak,
+        "launches": launches, "expected_launches": expected,
+        "card": card}))
+
+    # one decode iteration of the captured state, kernel vs plain path
+    if "pages" not in snap:
+        raise AssertionError("no decode iteration was captured")
+    engine.pages = None                                   # free the pool
+    tokens, bt, pos = snap["inputs"]
+    plain_pages = snap.pop("pages")
+    kernel_pages = [{k: v.clone() for k, v in layer.items()}
+                    for layer in plain_pages]
+    lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos, bt)
+    del kernel_pages
+    cfg_plain = cfg.replace(socket=dataclasses.replace(
+        cfg.socket, use_paged_kernel=False))
+    lp, _ = make_serve_step(cfg_plain)(params, plain_pages, tokens, pos, bt)
+    del plain_pages
+    live = pos > 0                   # idle slots decode the trash page
+    lk, lp = lk[live], lp[live]
+    for name, t in (("kernel", lk), ("plain", lp)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite logits on the {name} path")
+    err = (lk - lp).abs().max().item()
+    same = (lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
+    log(f"continuous decode iteration {snap['iteration'] + 1} "
+        f"({len(snap['reqs'])} requests), fused kernel vs plain paged path: "
+        f"max|logits err| {err:.3e} (atol {LOGITS_ATOL}; max|logits| "
+        f"{lp.abs().max().item():.3f}); greedy tokens shared "
+        f"{int(same.sum().item())}/{same.numel()}")
+    if err > LOGITS_ATOL:
+        raise AssertionError(f"continuous logits differ by {err:.3e} > "
+                             f"{LOGITS_ATOL}")
+    return {"paged_attention": launches["paged_attention"]}
 
 
 def main(argv=None) -> int:
@@ -394,8 +601,11 @@ def main(argv=None) -> int:
     rows = phase_kernels(dev, args.seed)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = phase_main(dev, args.seed, card)
+    launches, params = phase_main(dev, args.seed, card)
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(phase_continuous(dev, args.seed, card, params))
+    log(f"continuous phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

@@ -1,5 +1,6 @@
-from repro_torch.configs.base import LayerSpec, ModelConfig, SocketSettings
+from repro_torch.configs.base import (LayerCachePlan, LayerSpec, ModelConfig,
+                                     ServingSettings, SocketSettings)
 from repro_torch.configs.registry import ARCHITECTURES, get_config
 
-__all__ = ["LayerSpec", "ModelConfig", "SocketSettings", "ARCHITECTURES",
-           "get_config"]
+__all__ = ["LayerCachePlan", "LayerSpec", "ModelConfig", "ServingSettings",
+           "SocketSettings", "ARCHITECTURES", "get_config"]

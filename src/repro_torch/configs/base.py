@@ -1,14 +1,16 @@
 """Model configuration schema for the PyTorch port.
 
-A copy of the parts of ``repro.configs.base`` that the SOCKET static
-serving path reads: :class:`LayerSpec`, :class:`SocketSettings` and
-:class:`ModelConfig` with ``smoke()``, ``replace()``, ``padded_vocab()``
-and ``param_count()``.  Field names and defaults are the JAX package's,
-so a config built here and one built there describe the same model.
+A copy of the parts of ``repro.configs.base`` that the SOCKET serving
+paths read: :class:`LayerSpec`, :class:`SocketSettings`,
+:class:`ServingSettings` (the continuous engine's pool geometry),
+:class:`LayerCachePlan` and :class:`ModelConfig` with ``smoke()``,
+``replace()``, ``padded_vocab()``, ``param_count()``, ``validate()`` and
+``cache_plan()``.  Field names and defaults are the JAX package's, so a
+config built here and one built there describe the same model.
 
-Fields of layers the port does not run yet (MoE, Mamba, the serving
-engine's pool, Quest) are left out; they come with the slices that port
-those layers (see ROADMAP.md).
+Fields of layers the port does not run yet (MoE, Mamba, Quest) are left
+out, and cache plans resolve global-attention layers only; the rest
+comes with the slices that port those layers (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-__all__ = ["LayerSpec", "ModelConfig", "SocketSettings"]
+__all__ = ["LayerSpec", "LayerCachePlan", "ModelConfig", "ServingSettings",
+           "SocketSettings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +56,77 @@ class SocketSettings:
     # run their plain PyTorch versions.
     use_score_kernel: bool = False
     use_flash_decode: bool = False
+    # Route PagedView decode (the continuous engine) through the fused
+    # kernels/paged_attention pass (CUDA): score + select + attend in one
+    # sweep over the block table.  Contiguous callers keep the
+    # socket_score + flash_decode pair.  Requires packed bits and
+    # kvhead/pooled selection (validate() fails fast otherwise).
+    use_paged_kernel: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerCachePlan:
+    """How the continuous engine caches ONE layer.  The port resolves
+    global-attention layers only: ``kind == "paged"`` — the decode
+    backend's cache leaves live in pool pages, the request block table
+    is consumed linearly.  Ring (sliding-window) and state (Mamba) plans
+    come with the hybrid-layouts slice; ``kv_dtype`` other than
+    ``"auto"`` with the quantized-pages slice."""
+
+    kind: str
+    ring_blocks: int = 0
+    kv_dtype: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingSettings:
+    """Continuous-batching engine shape knobs (repro_torch.serving).
+
+    The paged pool holds ``num_blocks`` fixed-size pages shared by all
+    layers; block 0 is the trash page that masked slots and padded
+    block-table entries write into.  ``max_blocks_per_seq * block_size``
+    is the per-request context ceiling.  ``prefill_chunk > 0`` selects
+    the token-budget mixed step (one prefill chunk beside the ragged
+    decode batch per iteration), the only execution model the port has;
+    ``prefill_buckets`` belong to the legacy whole-prompt mode
+    (``prefill_chunk = 0``), which the port's engine refuses.
+    """
+
+    block_size: int = 16
+    num_blocks: int = 512
+    max_batch: int = 8
+    max_blocks_per_seq: int = 64
+    prefill_buckets: Tuple[int, ...] = (128, 256, 512, 1024)
+    max_prefill_per_iter: int = 1
+    prefill_chunk: int = 256
+    prefix_cache: bool = False
+    kv_dtype: str = "auto"
+
+    def validate(self) -> None:
+        assert self.num_blocks > 1, "need at least one non-trash block"
+        for b in self.prefill_buckets:
+            assert b % self.block_size == 0, (
+                f"prefill bucket {b} not a multiple of block_size "
+                f"{self.block_size}")
+        assert self.prefill_chunk >= 0, (
+            f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+        if self.prefill_chunk:
+            assert self.prefill_chunk % self.block_size == 0, (
+                f"prefill_chunk {self.prefill_chunk} not a multiple of "
+                f"block_size {self.block_size} (chunks write whole pages)")
+        else:
+            assert max(self.prefill_buckets) >= self.max_context, (
+                f"largest prefill bucket {max(self.prefill_buckets)} < "
+                f"max_context {self.max_context}: an admissible request "
+                "(prompt+generated after preemption) could fail prefill "
+                "bucketing mid-run")
+
+    @property
+    def max_context(self) -> int:
+        return self.max_blocks_per_seq * self.block_size
+
+    def replace(self, **kw) -> "ServingSettings":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +163,8 @@ class ModelConfig:
     # --- sparse attention (the paper's technique) --------------------------
     attention_backend: str = "socket"
     socket: SocketSettings = SocketSettings()
+    # --- continuous-batching engine ----------------------------------------
+    serving: ServingSettings = ServingSettings()
     # --- provenance ---------------------------------------------------------
     source: str = ""
 
@@ -106,6 +182,46 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def validate(self) -> None:
+        """Config-time fused-kernel eligibility: every combination the
+        paged kernel would reject is rejected here with the offending
+        flag pair named.  Called from :meth:`cache_plan`, so an engine
+        fails before its first step."""
+        if self.socket.use_paged_kernel:
+            if self.socket.bits_storage != "packed":
+                raise ValueError(
+                    "socket.use_paged_kernel=True is incompatible with "
+                    "socket.bits_storage='int8': the fused paged kernel "
+                    "streams packed hash words — set bits_storage='packed' "
+                    "or disable use_paged_kernel")
+            if self.socket.selection not in ("kvhead", "pooled"):
+                raise ValueError(
+                    f"socket.use_paged_kernel=True is incompatible with "
+                    f"socket.selection='{self.socket.selection}': the "
+                    "fused paged kernel group-sums scores — use "
+                    "selection='kvhead'/'pooled' or disable "
+                    "use_paged_kernel")
+            if self.serving.block_size % 8:
+                raise ValueError(
+                    f"socket.use_paged_kernel=True needs "
+                    f"serving.block_size % 8 == 0, got "
+                    f"block_size={self.serving.block_size}")
+
+    def plan_for(self, spec: LayerSpec) -> LayerCachePlan:
+        """One layer's cache plan (see :class:`LayerCachePlan`)."""
+        if spec.kind != "attn" or spec.attn_type != "global":
+            raise NotImplementedError(
+                f"{spec.kind}/{spec.attn_type} layers have no cache plan in "
+                "the port yet: ring and state plans come with the "
+                "hybrid-layouts slice (ROADMAP.md queue 1 item 7)")
+        return LayerCachePlan(kind="paged", kv_dtype=self.serving.kv_dtype)
+
+    def cache_plan(self) -> Tuple[LayerCachePlan, ...]:
+        """Per-layer cache plan (one entry per ``layer_specs``) for the
+        paged continuous-batching engine."""
+        self.validate()
+        return tuple(self.plan_for(s) for s in self.layer_specs)
 
     def padded_vocab(self, multiple: int = 128) -> int:
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
@@ -146,4 +262,8 @@ class ModelConfig:
             socket=dataclasses.replace(
                 self.socket, num_planes=6, num_tables=12, sink_tokens=4,
                 window_tokens=4, min_k=8, sparsity=4.0),
+            serving=dataclasses.replace(
+                self.serving, block_size=8, num_blocks=48, max_batch=4,
+                max_blocks_per_seq=8, prefill_buckets=(24, 32, 48, 64),
+                prefill_chunk=16),
         )

@@ -1,0 +1,391 @@
+// Fused SOCKET paged decode attention for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the Pallas TPU kernel repro/kernels/paged_attention/
+// paged_attention.py (_fused_kernel with mode="socket", launched by
+// _fused_call from paged_attention_pallas).  For one decode step of the
+// continuous engine it runs, per (request b, KV head h), the whole SOCKET
+// decode pipeline over the request's pages, reached through its block table:
+//
+//   1. score:  for every logical token t < length[b], follow
+//              bt[b, t / bs], unpack the token's packed sign words, form
+//                eff[t] = vnorm[t] * sum_g sum_l exp(<S_tl, u_gl> / tau - logZ_gl)
+//              and overlay the forced sink/window rows with FLT_MAX (rows at
+//              or past length are -1e30 and are not scored);
+//   2. select: a 32-step MSB-first radix descent over the order-preserving
+//              uint32 keys of eff finds the budget-th largest key thr, and
+//              ties_needed = budget - count(key > thr);
+//   3. attend: walk the tokens in logical order; token t is selected iff
+//              key > thr, or key == thr and fewer than ties_needed equal keys
+//              precede it (jax.lax.top_k's lowest-index-first order), and
+//              eff > -5e29.  Selected K/V rows fold into an fp32 online
+//              softmax (m, l, acc) for the G query heads of the group; the
+//              output is acc / max(l, 1e-30).
+//
+// Selection is exactly repro.core.socket.value_aware_topk's; nothing but the
+// output (and, for tests, the selection mask) leaves the kernel except the
+// eff scratch (B, KVH, nb*bs) f32 in device memory, which the wrapper
+// allocates: shared memory would cap the context near 56K tokens.
+//
+// What bounds it on this card: bytes.  The function must read, per request
+// and head, the bits and vnorm of every scored token (W*4 + 2 bytes: 82 B at
+// P=10, L=60; the sink and window rows are selected by position and need
+// neither) and only the selected K/V rows, forced ones included (2*hd*4
+// bytes each: 1 KB at hd=128 in fp32).  At the continuous path (8 requests
+// of 1-4K tokens, 8 KV heads, 256-410 rows selected per request and head)
+// that is 12.1 MB of bits/vnorm plus 20.2 MB of K/V rows: ~10 us at
+// 3.35 TB/s.  The kernel itself also reads the sink/window rows' bits (it
+// loads whole tiles).  The scoring needs one FMA per (scored token, g, l)
+// with P split into table lookups; this simple kernel spends G*l_pad*P
+// sign-adds and G*l_pad exponentials per token, like socket_score.cu, so
+// its score pass is bound by its own operations.
+//
+// What the design does about it (a simple, right first version):
+//   * grid = (KVH, B), one block of 512 threads per (request, head): the
+//     TPU's sequential page axis becomes loops inside the block, and 16
+//     warps per block hide the latency of the score pass's chains;
+//   * u and logZ (padded tables: u = 0, logZ = 1e30, computed by the
+//     wrapper) and q are staged in shared memory and read as broadcasts;
+//   * bit rows are copied tile by tile into shared memory with coalesced
+//     32-bit loads through the block table (a page's rows are contiguous);
+//   * rows at or past length are never read: their key is a constant, so
+//     the radix counts add n_total - length where it applies;
+//   * the attend pass compacts each tile's selected tokens (block-wide
+//     scans) with their pool row indices, scores them one warp per row
+//     with coalesced K loads, and accumulates P.V with threads over
+//     (g, d), so only selected K/V rows are read.
+// Faster versions (split-P table lookups, more blocks per request, keys kept
+// on chip) are later work.
+//
+// Layouts (all contiguous): q f32 (B, KVH, G, hd); k/v pages f32
+// (NB, KVH, bs, hd); bits uint32 (NB, KVH, bs, W) (the port stores int32
+// with the same bit pattern; flat bit f = l*P + p is bit f%32 of word f/32);
+// vnorm bf16 (NB, KVH, bs); u_pad f32 (B, KVH, GS, l_pad, P) with GS = G
+// (kvhead) or 1 (pooled); logz_pad f32 (B, KVH, GS, l_pad); bt int32
+// (B, nb); length, budget int32 (B,).  The pool holds fewer than 2^31 rows
+// (NB * KVH * bs; the wrapper checks), so a row index is an int.
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegInf = -1e30f;
+
+// Scoring mode of the fused pass; "hard_lsh" (hard collision counts from the
+// same packed bits) is a later specialization of table_term.
+enum class Mode { kSocket };
+
+template <Mode M>
+__device__ __forceinline__ float table_term(float dot, float logz, float tau);
+
+template <>
+__device__ __forceinline__ float table_term<Mode::kSocket>(float dot,
+                                                           float logz,
+                                                           float tau) {
+  return expf(dot / tau - logz);
+}
+
+// Order-preserving f32 -> uint32 map (the TPU kernel's _sort_key).
+__device__ __forceinline__ uint32_t sort_key(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u >> 31) ? ~u : (u ^ 0x80000000u);
+}
+
+__device__ __forceinline__ float bf16_to_float(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+// Block-wide sum; every thread gets the result.  red: kWarps ints.
+__device__ int block_sum(int v, int* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  __syncthreads();                        // earlier readers of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int s = 0;
+  for (int i = 0; i < kWarps; ++i) s += red[i];
+  return s;
+}
+
+// Block-wide exclusive prefix sum in thread order; *total gets the sum.
+__device__ int block_exclusive_scan(int v, int* red, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += n;
+  }
+  __syncthreads();
+  if (lane == 31) red[warp] = inc;
+  __syncthreads();
+  int before = 0, sum = 0;
+  for (int i = 0; i < kWarps; ++i) {
+    const int r = red[i];
+    if (i < warp) before += r;
+    sum += r;
+  }
+  *total = sum;
+  return before + inc - v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <Mode M>
+__global__ void __launch_bounds__(kThreads)
+paged_socket_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k_pages,
+                    const float* __restrict__ v_pages,
+                    const uint32_t* __restrict__ bits_pages,
+                    const uint16_t* __restrict__ vnorm_pages,
+                    const float* __restrict__ u_pad,
+                    const float* __restrict__ logz_pad,
+                    const int* __restrict__ bt,
+                    const int* __restrict__ lengths,
+                    const int* __restrict__ budgets,
+                    float* __restrict__ out, int* __restrict__ sel_out,
+                    float* __restrict__ eff_scr, int kvh, int g, int gs,
+                    int hd, int bs, int w, int nb, int l_pad, int p,
+                    float tau, float scale, int sink, int window) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* su = reinterpret_cast<float*>(smem);   // (GS, l_pad, P)
+  float* slogz = su + gs * l_pad * p;            // (GS, l_pad)
+  float* sq = slogz + gs * l_pad;                // (G, hd)
+  float* sacc = sq + g * hd;                     // (G, hd)
+  float* ss = sacc + g * hd;                     // (G, kThreads) tile scores
+  float* sm = ss + g * kThreads;                 // (G) running max
+  float* sl = sm + g;                            // (G) running sum
+  float* salpha = sl + g;                        // (G) rescale factor
+  int* srow = reinterpret_cast<int*>(salpha + g);  // (kThreads) selected
+                                                   // rows' pool indices
+  int* red = srow + kThreads;                    // (kWarps)
+  uint32_t* swords = reinterpret_cast<uint32_t*>(red + kWarps);  // tile bits
+
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int n_total = nb * bs;
+  const int length = max(0, min(lengths[b], n_total));
+  const int budget = budgets[b];
+  const size_t bh = static_cast<size_t>(b) * kvh + h;
+  const int* btb = bt + static_cast<size_t>(b) * nb;
+  float* eff = eff_scr + bh * n_total;
+
+  const float* ub = u_pad + bh * gs * l_pad * p;
+  for (int i = tid; i < gs * l_pad * p; i += kThreads) su[i] = ub[i];
+  const float* lb = logz_pad + bh * gs * l_pad;
+  for (int i = tid; i < gs * l_pad; i += kThreads) slogz[i] = lb[i];
+  const float* qb = q + bh * g * hd;
+  for (int i = tid; i < g * hd; i += kThreads) {
+    sq[i] = qb[i];
+    sacc[i] = 0.f;
+  }
+  if (tid < g) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.f;
+  }
+
+  // ---- 1. score every valid token into eff --------------------------------
+  for (int n0 = 0; n0 < length; n0 += kThreads) {
+    const int rows = min(kThreads, length - n0);
+    __syncthreads();                      // previous tile's words consumed
+    for (int i = tid; i < rows * w; i += kThreads) {
+      const int r = i / w, word = i - r * w, t = n0 + r;
+      const size_t row = (static_cast<size_t>(btb[t / bs]) * kvh + h) * bs +
+                         t % bs;
+      swords[i] = bits_pages[row * w + word];
+    }
+    __syncthreads();
+    if (tid < rows) {
+      const int t = n0 + tid;
+      float e;
+      if (t < sink || t >= length - window) {
+        e = FLT_MAX;
+      } else {
+        const uint32_t* row = swords + tid * w;
+        float score = 0.f;
+        for (int gg = 0; gg < gs; ++gg) {
+          float sg = 0.f;
+          for (int tb = 0; tb < l_pad; ++tb) {
+            const int f0 = tb * p, w0 = f0 >> 5, b0 = f0 & 31;
+            uint64_t two = row[w0];
+            if (b0 + p > 32) two |= static_cast<uint64_t>(row[w0 + 1]) << 32;
+            const uint32_t field = static_cast<uint32_t>(two >> b0);
+            const float* ut = su + (gg * l_pad + tb) * p;
+            float dot = 0.f;
+            for (int j = 0; j < p; ++j)
+              dot += ((field >> j) & 1u) ? ut[j] : -ut[j];
+            sg += table_term<M>(dot, slogz[gg * l_pad + tb], tau);
+          }
+          score += sg;
+        }
+        const size_t vrow = (static_cast<size_t>(btb[t / bs]) * kvh + h) *
+                                bs + t % bs;
+        e = score * bf16_to_float(vnorm_pages[vrow]);
+      }
+      eff[t] = e;
+    }
+  }
+  __syncthreads();                        // eff visible to the whole block
+
+  // ---- 2. radix-select the budget-th largest key --------------------------
+  // rows at or past length all hold eff = -1e30: one key, n_inv of them
+  const uint32_t k_inv = sort_key(kNegInf);
+  const int n_inv = n_total - length;
+  uint32_t prefix = 0;
+  for (int s = 31; s >= 0; --s) {
+    const uint32_t cand = prefix | (1u << s);
+    int c = 0;
+    for (int t = tid; t < length; t += kThreads) c += sort_key(eff[t]) >= cand;
+    c = block_sum(c, red) + (k_inv >= cand ? n_inv : 0);
+    if (c >= budget) prefix = cand;
+  }
+  const uint32_t thr = prefix;
+  int gt = 0;
+  for (int t = tid; t < length; t += kThreads) gt += sort_key(eff[t]) > thr;
+  const int ties_needed =
+      budget - (block_sum(gt, red) + (k_inv > thr ? n_inv : 0));
+
+  // ---- 3. attend over the selected rows, in logical order -----------------
+  const int warp = tid >> 5, lane = tid & 31;
+  int ties_seen = 0;
+  for (int n0 = 0; n0 < length; n0 += kThreads) {
+    const int t = n0 + tid;
+    float e = kNegInf;
+    uint32_t key = 0;
+    int is_eq = 0;
+    if (t < length) {
+      e = eff[t];
+      key = sort_key(e);
+      is_eq = key == thr;
+    }
+    int eq_total;
+    const int rank = ties_seen + block_exclusive_scan(is_eq, red, &eq_total);
+    ties_seen += eq_total;
+    const int is_sel = t < length &&
+                       (key > thr || (is_eq && rank < ties_needed)) &&
+                       e > -5e29f;
+    if (sel_out != nullptr && t < length) sel_out[bh * n_total + t] = is_sel;
+    int cnt;
+    const int slot = block_exclusive_scan(is_sel, red, &cnt);
+    if (is_sel) srow[slot] = (btb[t / bs] * kvh + h) * bs + t % bs;
+    __syncthreads();
+    if (cnt == 0) continue;               // uniform across the block
+
+    // scores of the tile's selected rows: one warp per row
+    for (int r = warp; r < cnt; r += kWarps) {
+      const float* kr = k_pages + static_cast<size_t>(srow[r]) * hd;
+      for (int gg = 0; gg < g; ++gg) {
+        float d = 0.f;
+        for (int i = lane; i < hd; i += 32) d += sq[gg * hd + i] * kr[i];
+        d = warp_sum(d);
+        if (lane == 0) ss[gg * kThreads + r] = d * scale;
+      }
+    }
+    __syncthreads();
+    // online-softmax statistics: one warp per query head
+    for (int gg = warp; gg < g; gg += kWarps) {
+      float mx = kNegInf;
+      for (int r = lane; r < cnt; r += 32) mx = fmaxf(mx, ss[gg * kThreads + r]);
+      mx = warp_max(mx);
+      const float m_prev = sm[gg];
+      const float m_new = fmaxf(m_prev, mx);
+      float ps = 0.f;
+      for (int r = lane; r < cnt; r += 32) {
+        const float pr = expf(ss[gg * kThreads + r] - m_new);
+        ss[gg * kThreads + r] = pr;
+        ps += pr;
+      }
+      ps = warp_sum(ps);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        salpha[gg] = alpha;
+        sl[gg] = sl[gg] * alpha + ps;
+        sm[gg] = m_new;
+      }
+    }
+    __syncthreads();
+    // acc = acc * alpha + P V, threads over (g, d)
+    for (int i = tid; i < g * hd; i += kThreads) {
+      const int gg = i / hd, d = i - gg * hd;
+      float a = sacc[i] * salpha[gg];
+      for (int r = 0; r < cnt; ++r)
+        a += ss[gg * kThreads + r] *
+             v_pages[static_cast<size_t>(srow[r]) * hd + d];
+      sacc[i] = a;
+    }
+  }
+  __syncthreads();
+  float* ob = out + bh * g * hd;
+  for (int i = tid; i < g * hd; i += kThreads)
+    ob[i] = sacc[i] / fmaxf(sl[i / hd], 1e-30f);
+  if (sel_out != nullptr)
+    for (int t = length + tid; t < n_total; t += kThreads)
+      sel_out[bh * n_total + t] = 0;
+}
+
+template <Mode M>
+int launch(const float* q, const float* k_pages, const float* v_pages,
+           const uint32_t* bits_pages, const uint16_t* vnorm_pages,
+           const float* u_pad, const float* logz_pad, const int* bt,
+           const int* lengths, const int* budgets, float* out, int* sel,
+           float* eff, int b, int kvh, int g, int gs, int hd, int bs, int w,
+           int nb, int l_pad, int p, float tau, float scale, int sink,
+           int window, cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(gs * l_pad * p + gs * l_pad + 2 * g * hd +
+                          g * kThreads + 3 * g) * sizeof(float) +
+      static_cast<size_t>(kThreads + kWarps) * sizeof(int) +
+      static_cast<size_t>(kThreads) * w * sizeof(uint32_t);
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_socket_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = smem;
+  }
+  const dim3 grid(kvh, b);
+  paged_socket_kernel<M><<<grid, kThreads, smem, stream>>>(
+      q, k_pages, v_pages, bits_pages, vnorm_pages, u_pad, logz_pad, bt,
+      lengths, budgets, out, sel, eff, kvh, g, gs, hd, bs, w, nb, l_pad, p,
+      tau, scale, sink, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Pointers as in the layouts above; sel is int32 (B, KVH, nb, bs) or NULL;
+// eff is f32 (B, KVH, nb*bs) scratch.  Returns the launch's cudaError_t.
+int paged_socket_attend_launch(const float* q, const float* k_pages,
+                               const float* v_pages, const void* bits_pages,
+                               const void* vnorm_pages, const float* u_pad,
+                               const float* logz_pad, const int* bt,
+                               const int* lengths, const int* budgets,
+                               float* out, int* sel, float* eff, int b,
+                               int kvh, int g, int gs, int hd, int bs, int w,
+                               int nb, int l_pad, int p, float tau,
+                               float scale, int sink, int window,
+                               void* stream) {
+  return launch<Mode::kSocket>(
+      q, k_pages, v_pages, static_cast<const uint32_t*>(bits_pages),
+      static_cast<const uint16_t*>(vnorm_pages), u_pad, logz_pad, bt,
+      lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, l_pad,
+      p, tau, scale, sink, window, static_cast<cudaStream_t>(stream));
+}
+
+const char* paged_socket_attend_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -33,7 +33,9 @@ def socket_score_ref(bits: torch.Tensor, u: torch.Tensor,
     logits = torch.einsum("bnlp,bglp->bgnl", signs, u.float()) / tau
     logz = socket.log_normalizer(u.float(), tau)                 # (BH,G,L)
     z = torch.exp(logits - logz[:, :, None, :])                  # (BH,G,N,L)
-    scores = torch.sum(z, dim=(1, 3))                            # (BH,N)
+    # tables first, then the group (the TPU kernel's order): each key's
+    # sum then runs the same code path, so keys with equal bits tie exactly
+    scores = z.sum(dim=3).sum(dim=1)                             # (BH,N)
     if vnorm is not None:
         scores = scores * vnorm.float()
     return scores

@@ -1,17 +1,24 @@
 """Where a decode step's time goes on the card.
 
-Prefills a batch through the static path, then times decode steps with
-CUDA events and traces a few of them with ``torch.profiler``: device time
-by kernel, grouped into the path's parts (cuBLAS/CUTLASS matrix
-products, SOCKET scoring, top-k sort, gathers, flash decode, the rest),
-and the device's busy share of a step.  Each backend in ``BACKENDS``
-(SOCKET with both kernels on, and dense) runs on the same weights and
-prompt:
+Static path: prefills a batch, then times decode steps with CUDA events
+and traces a few of them with ``torch.profiler``: device time by kernel,
+grouped into the path's parts (cuBLAS/CUTLASS matrix products, SOCKET
+scoring, top-k sort, gathers, flash decode, the fused paged kernel, the
+rest), and the device's busy share of a step.  Each backend in
+``BACKENDS`` (SOCKET with both kernels on, and dense) runs on the same
+weights and prompt, at chip_smoke.py's main-path shapes (llama31-8b,
+batch 2, prompt 8192).
+
+Continuous engine: the same weights through ``ContinuousBatchingEngine``
+at chip_smoke.py's continuous case (``launch.serve.card_continuous_case``:
+``socket_fused``, 8 requests of 1024-4096 prompt tokens, chunks of 512);
+the run ends once all 8 decode together, and that decode iteration is
+replayed (it rewrites the same rows) — timed and traced like a static
+step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode
 
-at chip_smoke.py's main-path shapes (llama31-8b, batch 2, prompt 8192).
-Needs a CUDA card.  Prints one JSON line per backend.
+Needs a CUDA card.  Prints one JSON line per path.
 """
 
 from __future__ import annotations
@@ -25,11 +32,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import (apply_backend_arg, card_line,
-                                      device_name, resolve_device)
+                                      card_continuous_case, device_name,
+                                      resolve_device)
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 
-__all__ = ["kernel_part", "main"]
+__all__ = ["kernel_part", "run_backend", "run_continuous", "main"]
 
 ARCH, BATCH, PROMPT_LEN, Q_CHUNK = "llama31-8b", 2, 8192, 512
 BACKENDS = ("socket", "dense")
@@ -37,6 +45,7 @@ TRACED_STEPS, TIMED_STEPS = 4, 16
 
 # kernel-name substrings -> part of the decode path (first match wins)
 PARTS = (
+    ("paged_attention", ("paged_socket_kernel",)),
     ("socket_score", ("socket_score",)),
     ("flash_decode", ("_split_kernel", "_combine_kernel")),
     ("topk_sort", ("sort", "radix", "scan")),
@@ -54,16 +63,17 @@ def kernel_part(name: str) -> str:
     return "other"
 
 
-def _profile_steps(serve, params, caches, tok, pos0, steps):
+def _profile(step, steps):
+    """Trace ``steps`` calls of ``step()``: (host wall ms, device ms by
+    kernel name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(steps):
-            logits, caches = serve(params, caches, tok, pos0 + t)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = defaultdict(float)
@@ -73,30 +83,20 @@ def _profile_steps(serve, params, caches, tok, pos0, steps):
     return wall_ms, dict(by_kernel)
 
 
-def run_backend(cfg, params, prompt, steps, timed_steps):
-    capacity = prompt.shape[1] + steps + timed_steps + 2
-    prefill = make_prefill_step(cfg, capacity)
-    serve = make_serve_step(cfg)
-    logits, caches = prefill(params, {"tokens": prompt})
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    pos = prompt.shape[1]
-    for _ in range(2):                                  # warm-up
-        logits, caches = serve(params, caches, tok, pos)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        pos += 1
+def _time_ms(step, steps):
+    """CUDA-event milliseconds per call of ``step()``."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(timed_steps):
-        logits, caches = serve(params, caches, tok, pos)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        pos += 1
+    for _ in range(steps):
+        step()
     end.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / timed_steps
-    wall_ms, by_kernel = _profile_steps(serve, params, caches, tok, pos,
-                                        steps)
+    return start.elapsed_time(end) / steps
+
+
+def _breakdown(step_ms, wall_ms, by_kernel, steps):
     parts = defaultdict(float)
     for name, ms in by_kernel.items():
         parts[kernel_part(name)] += ms / steps
@@ -110,6 +110,67 @@ def run_backend(cfg, params, prompt, steps, timed_steps):
         "parts_ms_per_step": dict(sorted(parts.items(),
                                          key=lambda kv: -kv[1])),
     }
+
+
+def run_backend(cfg, params, prompt, steps, timed_steps):
+    capacity = prompt.shape[1] + steps + timed_steps + 2
+    prefill = make_prefill_step(cfg, capacity)
+    serve = make_serve_step(cfg)
+    logits, caches = prefill(params, {"tokens": prompt})
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    pos = prompt.shape[1]
+    for _ in range(2):                                  # warm-up
+        logits, caches = serve(params, caches, tok, pos)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        pos += 1
+    state = {"tok": tok, "pos": pos}
+
+    def step():
+        logits, _ = serve(params, caches, state["tok"], state["pos"])
+        state["tok"] = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        state["pos"] += 1
+
+    step_ms = _time_ms(step, timed_steps)
+    wall_ms, by_kernel = _profile(step, steps)
+    return _breakdown(step_ms, wall_ms, by_kernel, steps)
+
+
+def run_continuous(params, seed, steps, timed_steps, device):
+    """The continuous engine's full-width decode iteration (see the module
+    docstring), replayed ``timed_steps`` times under CUDA events and
+    ``steps`` times under the profiler."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    cfg, reqs = card_continuous_case(get_config(ARCH), seed, 64)
+    engine = ContinuousBatchingEngine(cfg, params=params, device=device)
+    bs = cfg.serving.block_size
+    snap = {}
+
+    def hook(eng, it):
+        """Ends the run at the first iteration after which all requests
+        decode together and none opens a block on its next token."""
+        running = [eng.scheduler.running[s]
+                   for s in sorted(eng.scheduler.running)]
+        if len(running) < len(reqs) or any(len(r.blocks) * bs <= r.pos
+                                           for r in running):
+            return False
+        snap["inputs"] = eng._batch_inputs(running)
+        snap["context"] = [r.pos for r in running]
+        return True
+
+    engine.iter_hook = hook
+    engine.warmup()
+    engine.run(reqs, realtime=False)
+    tokens, bt, pos = snap["inputs"]
+
+    def step():
+        engine._decode_body(tokens, bt, pos)
+
+    for _ in range(2):                                  # warm-up
+        step()
+    step_ms = _time_ms(step, timed_steps)
+    wall_ms, by_kernel = _profile(step, steps)
+    return {"batch": len(reqs), "context": snap["context"],
+            **_breakdown(step_ms, wall_ms, by_kernel, steps)}
 
 
 def main(argv=None):
@@ -129,10 +190,15 @@ def main(argv=None):
     for backend in BACKENDS:
         cfg = apply_backend_arg(base, backend)
         row = run_backend(cfg, params, prompt, TRACED_STEPS, TIMED_STEPS)
-        print(json.dumps({"arch": ARCH, "backend": backend, "batch": BATCH,
+        print(json.dumps({"arch": ARCH, "engine": "static",
+                          "backend": backend, "batch": BATCH,
                           "prompt_len": PROMPT_LEN,
                           "device": device_name(dev), "card": card,
                           **row}), flush=True)
+    row = run_continuous(params, args.seed, TRACED_STEPS, TIMED_STEPS, dev)
+    print(json.dumps({"arch": ARCH, "engine": "continuous",
+                      "backend": "socket_fused", "device": device_name(dev),
+                      "card": card, **row}), flush=True)
 
 
 if __name__ == "__main__":

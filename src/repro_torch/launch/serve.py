@@ -1,16 +1,26 @@
-"""Serving launcher: the static engine (prefill one fixed-shape batch,
-decode greedily in lockstep, report throughput).
+"""Serving launcher.  Two engines:
 
-Port of ``repro.launch.serve --engine static``.  It runs on the card by
-default; with no card it raises unless ``--device cpu`` is given:
+* ``--engine static``: prefill one fixed-shape batch, decode greedily in
+  lockstep, report throughput.
+* ``--engine continuous``: the paged-KV continuous-batching engine
+  (:mod:`repro_torch.serving`) fed Poisson-arriving requests of mixed
+  prompt lengths; reports throughput, TTFT and p50/p99 token latency.
+
+Port of ``repro.launch.serve``.  It runs on the card by default; with no
+card it raises unless ``--device cpu`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
+        --smoke --device cpu --engine continuous --backend socket_fused
 
-For the ``socket`` backend both of the port's kernels are on
-(``socket.use_score_kernel`` and ``socket.use_flash_decode``); on the CPU
-their wrappers run the plain PyTorch versions.  The continuous engine
-comes with the next slice.
+Backends: ``socket`` turns on the contiguous-path kernels
+(``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
+Triton flash decode), which the continuous engine also runs on the
+gathered logical view; ``socket_fused`` (continuous engine only) routes
+paged decode through the fused CUDA kernel ``kernels/paged_attention``;
+``dense`` is full attention.  On the CPU every kernel wrapper runs its
+plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -22,27 +32,42 @@ import subprocess
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 
-__all__ = ["run_serve", "resolve_device", "apply_backend_arg",
-           "device_name", "card_line", "SERVING_BACKENDS"]
+__all__ = ["run_serve", "run_continuous", "make_poisson_requests",
+           "card_continuous_case",
+           "resolve_device", "apply_backend_arg", "device_name", "card_line",
+           "SERVING_BACKENDS"]
 
-SERVING_BACKENDS = ("socket", "dense")
+SERVING_BACKENDS = ("socket", "socket_fused", "dense")
+# serving backends of the JAX package that later slices bring
+LATER_BACKENDS = ("quest", "quest_fused", "hard_lsh", "hard_lsh_fused")
 
 
 def apply_backend_arg(cfg, backend: str):
     """Resolve a serving backend name onto the config: ``socket`` routes
-    scoring and subset attention through the port's kernels."""
+    scoring and subset attention through the port's contiguous-path
+    kernels, ``socket_fused`` routes paged decode through the fused paged
+    kernel (continuous engine)."""
+    if backend in LATER_BACKENDS:
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported yet: hard_lsh and quest "
+            "come with the other-backends slice (ROADMAP.md queue 1 item "
+            "6)")
     if backend not in SERVING_BACKENDS:
         raise ValueError(f"backend {backend!r} not in {SERVING_BACKENDS}")
     if backend == "socket":
         return cfg.replace(attention_backend="socket", socket=dataclasses
                            .replace(cfg.socket, use_score_kernel=True,
                                     use_flash_decode=True))
+    if backend == "socket_fused":
+        return cfg.replace(attention_backend="socket", socket=dataclasses
+                           .replace(cfg.socket, use_paged_kernel=True))
     return cfg.replace(attention_backend=backend)
 
 
@@ -124,26 +149,128 @@ def run_serve(cfg, batch: int, prompt_len: int, decode_steps: int,
     return torch.cat(toks, dim=1), prefill_s, decode_s
 
 
+def make_poisson_requests(cfg, num_requests: int, rate_rps: float,
+                          prompt_lens, max_new_tokens: int, seed: int = 0):
+    """Poisson arrival process with prompt lengths drawn from
+    ``prompt_lens`` (numpy-seeded, the JAX launcher's draw)."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    reqs = []
+    for _ in range(num_requests):
+        t += float(rng.exponential(1.0 / rate_rps))
+        plen = int(rng.choice(prompt_lens))
+        prompt = rng.integers(0, cfg.vocab_size, size=plen,
+                              dtype=np.int64).tolist()
+        reqs.append(Request(prompt=prompt, max_new_tokens=max_new_tokens,
+                            arrival=t))
+    return reqs
+
+
+def card_continuous_case(cfg, seed: int, max_new_tokens: int):
+    """The continuous engine's case at full width on the card, shared by
+    ``chip_smoke.py`` and ``profile_decode.py``: ``cfg`` with
+    ``socket_fused`` and serving settings for 8 requests (prompts of
+    1024/2048/3072/4096 tokens drawn from ``seed``, each twice, all
+    arriving at once), chunks of 512, 16-token blocks and a 1536-block
+    pool that needs no preemption.  Returns (cfg, requests)."""
+    from repro_torch.configs import ServingSettings
+    from repro_torch.serving import Request
+    lens = [1024, 2048, 3072, 4096] * 2
+    sv = ServingSettings(block_size=16, max_batch=8, prefill_chunk=512,
+                         max_blocks_per_seq=264, num_blocks=1536)
+    # 1 trash block + every request's lifetime
+    blocks = [-(-(n + max_new_tokens) // sv.block_size) for n in lens]
+    if 1 + sum(blocks) > sv.num_blocks or max(blocks) > \
+            sv.max_blocks_per_seq:
+        raise ValueError(f"max_new_tokens={max_new_tokens} does not fit "
+                         f"the case's pool without preemption")
+    cfg = apply_backend_arg(cfg, "socket_fused").replace(serving=sv)
+    rng = np.random.default_rng(seed + 2)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=max_new_tokens) for n in lens]
+    return cfg, reqs
+
+
+def run_continuous(cfg, num_requests: int, rate_rps: float, prompt_lens,
+                   max_new_tokens: int, seed: int = 0, realtime=True,
+                   warmup=False, params=None, device="cuda"):
+    """Continuous-batching serve of Poisson-arriving requests; returns
+    (requests, ServeMetrics, engine).  ``warmup=True`` runs the engine's
+    two step shapes first, so the reported latencies measure serving."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(cfg, params=params, seed=seed,
+                                      device=device)
+    reqs = make_poisson_requests(cfg, num_requests, rate_rps, prompt_lens,
+                                 max_new_tokens, seed=seed)
+    if warmup:
+        engine.warmup()
+    metrics = engine.run(reqs, realtime=realtime)
+    return reqs, metrics, engine
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--engine", default="static",
+                    choices=["static", "continuous"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--decode-steps", type=int, default=64)
     ap.add_argument("--backend", default="socket",
-                    choices=list(SERVING_BACKENDS))
+                    choices=list(SERVING_BACKENDS + LATER_BACKENDS),
+                    help="decode backend; socket_fused routes the "
+                         "continuous engine through the fused paged "
+                         "kernel (hard_lsh/quest are not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a "
                          "card unless 'cpu' is given)")
+    # continuous-engine knobs
+    ap.add_argument("--num-requests", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=20.0,
+                    help="Poisson arrival rate (requests/s)")
+    ap.add_argument("--max-new-tokens", type=int, default=None)
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked-prefill token budget per engine "
+                         "iteration (default: the config's "
+                         "serving.prefill_chunk; 0, the legacy bucketed "
+                         "prefill, is not ported)")
     args = ap.parse_args(argv)
 
+    if args.backend == "socket_fused" and args.engine != "continuous":
+        ap.error("--backend socket_fused requires --engine continuous: the "
+                 "fused kernel serves the paged decode path only")
+    if args.prefill_chunk is not None and args.engine != "continuous":
+        ap.error("--prefill-chunk requires --engine continuous")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     cfg = apply_backend_arg(cfg, args.backend)
+    if args.prefill_chunk is not None:
+        cfg = cfg.replace(serving=cfg.serving.replace(
+            prefill_chunk=args.prefill_chunk))
     dev = resolve_device(args.device)
+    if args.engine == "continuous":
+        max_new = args.max_new_tokens or (8 if args.smoke else 64)
+        top = cfg.serving.max_context - max_new
+        if top < 1:
+            ap.error(f"--max-new-tokens {max_new} leaves no prompt room "
+                     f"under the serving context ceiling "
+                     f"({cfg.serving.max_context} tokens)")
+        lens = sorted({max(1, top // 4), max(1, top // 2),
+                       max(1, (3 * top) // 4), top})
+        reqs, m, _ = run_continuous(cfg, args.num_requests, args.rate, lens,
+                                    max_new, seed=args.seed, device=dev)
+        print(json.dumps({
+            "arch": cfg.name, "backend": args.backend,
+            "engine": "continuous",
+            "prefill_chunk": cfg.serving.prefill_chunk,
+            "prompt_lens": lens, "max_new_tokens": max_new,
+            "finished": sum(r.state == "finished" for r in reqs),
+            **m.to_json(), "device": device_name(dev)}, indent=2))
+        return
     toks, prefill_s, decode_s = run_serve(cfg, args.batch, args.prompt_len,
                                           args.decode_steps, seed=args.seed,
                                           device=dev)

@@ -9,8 +9,14 @@ package's XLA path), with queries processed in chunks of
 Decode: global layers own no backend logic; every decode backend is one
 module in :mod:`repro_torch.models.backends`, reached through a
 :class:`~repro_torch.models.backends.ContiguousView` over the layer's
-``(B, KVH, N, ...)`` cache.  The view writes the new token's row in
-place.
+``(B, KVH, N, ...)`` cache, or a
+:class:`~repro_torch.models.backends.PagedView` over the continuous
+engine's page pool when block tables are given.  The view writes the new
+token's row in place.
+
+Chunked prefill (:func:`attention_prefill_chunk`): one prompt chunk
+writes its K/V and backend metadata straight into the pool, then
+attends causally over the request's logical view.
 
 Sliding-window (local) layers come with the hybrid-layouts slice.
 """
@@ -18,7 +24,7 @@ Sliding-window (local) layers come with the hybrid-layouts slice.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,7 +34,8 @@ from repro_torch.models.layers import (apply_rope, init_rmsnorm, normal,
                                        rmsnorm, softcap)
 
 __all__ = ["init_attention", "attention_train", "attention_prefill",
-           "attention_decode", "init_attention_cache"]
+           "attention_prefill_chunk", "attention_decode",
+           "init_attention_cache"]
 
 NEG_INF = -1e30
 
@@ -172,14 +179,74 @@ def attention_prefill(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     return y, backend.prefill_build(cfg, params, cache, kc, vc)
 
 
+def attention_prefill_chunk(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                            positions: torch.Tensor, attn_type: str,
+                            cache: Dict, bt_row: torch.Tensor, history: int,
+                            last_index: int) -> Tuple[torch.Tensor, Dict]:
+    """One **prefix-extension** prefill chunk straight against the pool.
+
+    ``x`` is ``(1, C, d)``, ``positions`` the absolute positions
+    ``history + [0, C)``, ``cache`` this layer's *pool* leaves (written in
+    place), ``bt_row`` the request's trash-padded block-id row,
+    ``history`` the prompt tokens committed by earlier chunks and
+    ``last_index`` the last *real* in-chunk index (the final chunk is
+    padded to C).
+
+    The chunk's K/V and backend metadata are built on a chunk-sized mini
+    cache by the backend's own ``prefill_build`` and committed row by row
+    (padding rows go to the trash page); then the chunk attends causally
+    over the paged logical view, whose ``si <= ti`` mask covers the
+    earlier chunks' pages and in-chunk causality alike.  The view is cut
+    at the chunk's end: rows past it are masked for every query anyway.
+    """
+    _require_global(attn_type)
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    kv = params["wk"].shape[1]
+    g = params["wq"].shape[1] // kv
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    kc, vc = k.transpose(1, 2), v.transpose(1, 2)     # (B, KV, C, hd)
+    bs = cfg.serving.block_size
+    backend = backends.get_backend(cfg.attention_backend)
+    mini = backend.init_cache(cfg, b, kv, t, getattr(torch, cfg.compute_dtype),
+                              x.device)
+    mini = backend.prefill_build(cfg, params, mini, kc, vc)
+    spec = backend.cache_spec(cfg)
+    for name in cache:
+        if spec[name].granularity == 1:
+            backends.write_chunk_rows(cache[name], mini[name], bt_row,
+                                      history, last_index)
+        else:
+            backends.write_chunk_blocks(cache[name], mini[name], bt_row,
+                                        history // bs)
+    nblk = -(-(history + t) // bs)
+    k_full = backends.gather_block_leaf(cache["k"], bt_row[None, :nblk])
+    v_full = backends.gather_block_leaf(cache["v"], bt_row[None, :nblk])
+    ctx = _attn_chunk(cfg, q.reshape(b, t, kv, g, hd),
+                      k_full.transpose(1, 2), v_full.transpose(1, 2),
+                      history, scale)
+    ctx = ctx.reshape(b, t, kv * g, hd)
+    return _merge_heads(cfg, params, ctx.to(x.dtype)), cache
+
+
 # ----------------------------------------------------------------- decode
 
 def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
-                     cache: Dict, pos, attn_type: str
+                     cache: Dict, pos, attn_type: str,
+                     block_tables: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  x: (B, 1, d); pos: int (lockstep batch) or a
-    ``(B,)`` tensor of per-request positions.  The cache is updated in
-    place and returned.  Returns (y (B, 1, d), cache)."""
+    ``(B,)`` tensor of per-request positions.
+
+    ``block_tables``: when given (``(B, blocks_per_seq)`` physical block
+    ids), ``cache`` is the serving engine's **page pool** — the backend
+    appends and attends through a
+    :class:`~repro_torch.models.backends.PagedView`, so paged-capable
+    backends never materialize the per-request K/V view.
+
+    The cache (or pool) is updated in place and returned.  Returns
+    (y (B, 1, d), cache)."""
     _require_global(attn_type)
     b = x.shape[0]
     hd = cfg.head_dim
@@ -194,7 +261,12 @@ def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     q, k_new, v_new = _project_qkv(cfg, params, x, positions)
     qg = q.reshape(b, 1, kv, g, hd).permute(0, 2, 3, 1, 4)   # (B,KV,G,1,hd)
     backend = backends.get_backend(cfg.attention_backend)
-    view = backends.ContiguousView(cache, backend.cache_spec(cfg))
+    spec = backend.cache_spec(cfg)
+    if block_tables is None:
+        view = backends.ContiguousView(cache, spec)
+    else:
+        view = backends.PagedView(cache, spec, block_tables,
+                                  cfg.serving.block_size)
     backend.append(cfg, params, view, k_new.transpose(1, 2),
                    v_new.transpose(1, 2), pos)
     ctx = backend.attend(cfg, params, qg, view, length=pos + 1, scale=scale)

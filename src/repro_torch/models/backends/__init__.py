@@ -11,18 +11,19 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from repro_torch.models.backends.base import (ContiguousView, DecodeBackend,
-                                              KVView, LeafSpec,
-                                              gather_kv_rows, kv_leaf_specs,
-                                              subset_attention,
-                                              write_prefill_kv,
-                                              write_token_kv)
+from repro_torch.models.backends.base import (
+    ContiguousView, DecodeBackend, KVView, LeafSpec, PagedView,
+    gather_block_leaf, gather_kv_rows,
+    kv_leaf_specs, kv_scales_of, subset_attention, write_chunk_blocks,
+    write_chunk_rows, write_prefill_kv, write_token_kv)
 from repro_torch.models.backends.dense import DenseBackend
 from repro_torch.models.backends.socket import SocketBackend, socket_config_of
 
-__all__ = ["DecodeBackend", "KVView", "ContiguousView", "LeafSpec",
-           "kv_leaf_specs", "write_prefill_kv", "write_token_kv",
-           "gather_kv_rows", "subset_attention", "register", "get_backend",
+__all__ = ["DecodeBackend", "KVView", "ContiguousView", "PagedView",
+           "LeafSpec", "kv_leaf_specs", "kv_scales_of",
+           "write_prefill_kv", "write_token_kv", "gather_kv_rows",
+           "gather_block_leaf", "write_chunk_blocks", "write_chunk_rows",
+           "subset_attention", "register", "get_backend",
            "registered_backends", "socket_config_of"]
 
 _REGISTRY: Dict[str, DecodeBackend] = {}

@@ -1,6 +1,6 @@
 """DecodeBackend protocol + KVView abstraction for sparse decode attention.
 
-Port of the contiguous half of ``repro.models.backends.base``.  A decode
+Port of ``repro.models.backends.base`` for global-attention layers.  A decode
 backend owns one global-attention layer's cache layout and the operations
 the model needs:
 
@@ -11,13 +11,20 @@ the model needs:
                            at position ``pos``.
 * ``attend(...)``        — decode attention for one query step.
 
-Unlike the JAX package, writes update the cache tensors **in place**
-(``KVView.arrays`` holds the very tensors of the caller's cache): a K/V
-cache is gigabytes at long context, and a functional copy per step
-would double it.
+Two views realize the interface: :class:`ContiguousView` over the
+static path's ``(B, KVH, N, ...)`` cache, and :class:`PagedView` over the
+continuous engine's page pool ``(num_blocks, KVH, block_size, ...)`` plus
+a per-request block table.  A backend whose ``attend`` reads K/V only
+through ``gather_rows`` is **paged-capable** (``supports_paged``).
 
-The paged views, the ring view, quantized leaves and the serving
-engine's cache handlers come with the continuous-engine slice.
+Unlike the JAX package, writes update the cache and pool tensors **in
+place** (``KVView.arrays`` holds the very tensors of the caller's cache
+or pool): a K/V pool is gigabytes at long context, and a functional copy
+per step would double it.
+
+The ring view, quantized leaves and the per-layer cache handlers of
+ring and state layers come with later slices (ROADMAP.md queue 1 items
+5 and 7).
 """
 
 from __future__ import annotations
@@ -29,11 +36,26 @@ import torch
 
 from repro_torch.core import socket as sk
 
-__all__ = ["LeafSpec", "KVView", "ContiguousView", "DecodeBackend",
-           "kv_leaf_specs", "write_prefill_kv", "write_token_kv",
-           "gather_kv_rows", "subset_attention"]
+__all__ = ["LeafSpec", "KVView", "ContiguousView", "PagedView",
+           "DecodeBackend", "kv_leaf_specs", "kv_scales_of",
+           "write_prefill_kv", "write_token_kv", "gather_kv_rows",
+           "subset_attention", "gather_block_leaf", "write_chunk_blocks",
+           "write_chunk_rows"]
 
 Pos = Union[int, torch.Tensor]
+
+
+def gather_block_leaf(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Materialize a paged leaf's logical view through a block table:
+    ``(NB, KVH, rows_pb, *rest), (B, nb) -> (B, KVH, nb*rows_pb, *rest)``
+    (a copy).  Shared by :meth:`PagedView.leaf`, the engine's dense
+    fallback, chunked-prefill attention and the paged kernel's plain
+    version."""
+    b, nb = bt.shape
+    g = pages[bt.long()]                   # (B, nb, KVH, rows_pb, *rest)
+    g = g.movedim(2, 1)                    # (B, KVH, nb, rows_pb, *rest)
+    return g.reshape(b, pages.shape[1], nb * pages.shape[2],
+                     *pages.shape[3:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +84,12 @@ def kv_leaf_specs(cfg) -> Dict[str, LeafSpec]:
     quantized-pages slice)."""
     hd = cfg.head_dim
     return {"k": LeafSpec(suffix=(hd,)), "v": LeafSpec(suffix=(hd,))}
+
+
+def kv_scales_of(arrays: Dict[str, torch.Tensor], name: str):
+    """The scale leaf paired with K/V leaf ``name`` (None when the cache
+    is unquantized, which in the port is always)."""
+    return arrays.get(name + "_scale")
 
 
 # --------------------------------------------------------------------- views
@@ -127,6 +155,58 @@ class ContiguousView(KVView):
             a[:, :, int(pos) // gran] = value.to(a.dtype)
 
 
+class PagedView(KVView):
+    """Serving-engine layout: each leaf is ``(num_blocks, KVH,
+    block_size / granularity, *suffix)`` plus a per-request block table
+    ``(B, blocks_per_seq)`` of physical block ids (trash-padded).
+
+    Logical token ``t`` of request ``b`` lives in physical block
+    ``block_table[b, t // block_size]`` at row ``(t % block_size) //
+    granularity``.  ``leaf()`` materializes the full logical view (cheap
+    for metadata leaves, what paged-capable backends avoid for K/V);
+    ``gather_rows`` translates selected logical indices through the table
+    and touches only those rows.  Writes land in the pool in place.
+    """
+
+    def __init__(self, arrays, spec, block_table: torch.Tensor,
+                 block_size: int):
+        super().__init__(arrays, spec)
+        self.block_table = block_table
+        self.block_size = block_size
+
+    @property
+    def n_tokens(self) -> int:
+        return self.block_table.shape[1] * self.block_size
+
+    def leaf(self, name: str) -> torch.Tensor:
+        return gather_block_leaf(self.arrays[name], self.block_table)
+
+    def gather_rows(self, name: str, idx: torch.Tensor) -> torch.Tensor:
+        assert self.spec[name].granularity == 1, name
+        pages = self.arrays[name]
+        bt = self.block_table.long()
+        b, kvh = bt.shape[0], pages.shape[1]
+        bidx = torch.arange(b, device=bt.device).reshape(
+            b, *([1] * (idx.ndim - 1)))
+        hidx = torch.arange(kvh, device=bt.device).reshape(
+            1, kvh, *([1] * (idx.ndim - 2)))
+        blk = bt[bidx, idx // self.block_size]
+        return pages[blk, hidx, idx % self.block_size]
+
+    def write_token(self, name: str, pos: Pos, value: torch.Tensor) -> None:
+        """Set the row of token ``pos`` (an int or a ``(B,)`` tensor) of
+        every request to ``value`` ``(B, KVH, *suffix)``, in the pool in
+        place.  Inactive slots point at the trash block; their duplicate
+        writes there are never read unmasked."""
+        pages = self.arrays[name]
+        bt = self.block_table.long()
+        b = bt.shape[0]
+        pos = torch.as_tensor(pos, device=bt.device).long().expand(b)
+        blk = bt[torch.arange(b, device=bt.device), pos // self.block_size]
+        row = (pos % self.block_size) // self.spec[name].granularity
+        pages[blk, :, row] = value.to(pages.dtype)
+
+
 # ------------------------------------------------------------------ helpers
 
 def write_prefill_kv(cfg, cache: Dict[str, torch.Tensor], kc: torch.Tensor,
@@ -170,9 +250,15 @@ def subset_attention(cfg, q: torch.Tensor, k_sel: torch.Tensor,
 # ------------------------------------------------------------------ backend
 
 class DecodeBackend:
-    """One decode-attention backend (see module docstring)."""
+    """One decode-attention backend (see module docstring).
+
+    Subclasses set ``name`` (registry key) and ``supports_paged`` (True
+    iff ``attend`` reads K/V only via ``gather_rows``, so the serving
+    engine hands it the pool and never materializes contiguous views).
+    """
 
     name: str = ""
+    supports_paged: bool = False
 
     def cache_spec(self, cfg) -> Dict[str, LeafSpec]:
         raise NotImplementedError
@@ -197,3 +283,38 @@ class DecodeBackend:
     def attend(self, cfg, params, q: torch.Tensor, view: KVView, *,
                length, scale: float) -> torch.Tensor:
         raise NotImplementedError
+
+
+# ------------------------------------------------------------ pool writes
+
+def write_chunk_blocks(pages: torch.Tensor, leaf: torch.Tensor,
+                       bt_row: torch.Tensor, block0: int) -> None:
+    """Scatter one prefill chunk's batch=1 cache leaf ``(1, KVH, rows,
+    *rest)`` into pool pages at block-table offset ``block0`` (the chunk's
+    first logical block), in place.  ``bt_row`` must be padded so
+    ``block0 + rows / rows_per_block`` never exceeds its length."""
+    kvh, rows = leaf.shape[1], leaf.shape[2]
+    rows_pb = pages.shape[2]
+    nb = rows // rows_pb
+    blocks = leaf[0].reshape(kvh, nb, rows_pb, *leaf.shape[3:])
+    blocks = blocks.movedim(1, 0)            # (nb, KVH, rows_pb, *rest)
+    ids = bt_row[int(block0):int(block0) + nb].long()
+    pages[ids] = blocks.to(pages.dtype)
+
+
+def write_chunk_rows(pages: torch.Tensor, leaf: torch.Tensor,
+                     bt_row: torch.Tensor, history: int,
+                     last_index: int) -> None:
+    """Row-granular variant of :func:`write_chunk_blocks`, in place: chunk
+    token ``i`` lands at logical position ``history + i``, i.e. row
+    ``(history + i) % rows_per_block`` of block ``bt_row[(history + i) //
+    rows_per_block]``.  Rows past ``last_index`` (final-chunk padding) go
+    to the trash page.  Granularity-1 leaves only."""
+    rows = leaf.shape[2]
+    rows_pb = pages.shape[2]
+    i = torch.arange(rows, device=pages.device)
+    ti = int(history) + i
+    blk = torch.where(i <= int(last_index), bt_row.long()[ti // rows_pb],
+                      torch.zeros_like(ti))
+    vals = leaf[0].movedim(1, 0)             # (rows, KVH, *rest)
+    pages[blk, :, ti % rows_pb] = vals.to(pages.dtype)

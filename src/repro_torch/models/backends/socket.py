@@ -1,15 +1,22 @@
 """SOCKET decode backend (the paper's technique, Algorithms 1-3).
 
-Port of ``repro.models.backends.socket`` for the contiguous cache.  Cache
-leaves: K/V plus the side-cache of packed hash bits (int32 words with
-the uint32 bit pattern) and bf16 value norms.  ``attend`` soft-hashes
-the query, scores every cached key — through the CUDA ``socket_score``
-kernel when ``cfg.socket.use_score_kernel`` is set — runs value-aware
-top-k, and attends exactly over the selected subset (the Triton
-``flash_decode`` kernel when ``cfg.socket.use_flash_decode``).
+Port of ``repro.models.backends.socket``.  Cache leaves: K/V plus the
+side-cache of packed hash bits (int32 words with the uint32 bit pattern)
+and bf16 value norms.  ``attend`` soft-hashes the query, scores every
+cached key — through the CUDA ``socket_score`` kernel when
+``cfg.socket.use_score_kernel`` is set — runs value-aware top-k, and
+attends exactly over the selected subset (the Triton ``flash_decode``
+kernel when ``cfg.socket.use_flash_decode``).
 
-The fused paged kernel, the selection probe and the context-parallel
-route come with later slices.
+Paged-capable: scoring reads only the bits/vnorm leaves and K/V are
+touched only at the selected rows, so the serving engine hands it the
+pool.  With ``cfg.socket.use_paged_kernel`` a PagedView attend runs as
+ONE fused CUDA pass (``kernels/paged_attention``) over the pool and the
+block table; contiguous callers keep the socket_score + flash_decode
+pair.
+
+The selection probe and the context-parallel route come with later
+slices.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ def socket_config_of(cfg) -> sk.SocketConfig:
 
 class SocketBackend(base.DecodeBackend):
     name = "socket"
+    supports_paged = True
 
     def cache_spec(self, cfg):
         scfg = socket_config_of(cfg)
@@ -104,12 +112,48 @@ class SocketBackend(base.DecodeBackend):
             scores = torch.sum(scores, dim=2)                 # (B,KVH,N)
         return scores
 
+    def _attend_fused(self, cfg, params, q, view, *, length, scale, budget):
+        """Fused paged path: one CUDA pass over the block table."""
+        scfg = socket_config_of(cfg)
+        if scfg.bits_storage != "packed":
+            raise NotImplementedError(
+                "the fused paged kernel streams packed hash words; "
+                "bits_storage='int8' must use the unfused paged path")
+        if scfg.selection not in ("kvhead", "pooled"):
+            raise NotImplementedError(
+                "the fused paged kernel group-sums scores (kvhead/pooled "
+                "selection); per-q-head selection has no fused path")
+        if view.block_size % 8:
+            raise NotImplementedError(
+                f"fused paged kernel needs block_size % 8 == 0, got "
+                f"{view.block_size}")
+        u = self._soft_hash(scfg, params, q)
+        if scfg.selection == "pooled":
+            u = u[:, :, None]                       # (B,KVH,1,L,P)
+        if budget is None:
+            budget = torch.full((q.shape[0],),
+                                sk.topk_budget(scfg, view.n_tokens),
+                                dtype=torch.int32, device=q.device)
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        out = pa_ops.paged_socket_attend(
+            q, view.arrays["k"], view.arrays["v"], view.arrays["bits"],
+            view.arrays["vnorm"], u, view.block_table, length=length,
+            budget=budget, num_tables=scfg.num_tables,
+            num_planes=scfg.num_planes, tau=scfg.tau, scale=scale,
+            sink_tokens=scfg.sink_tokens, window_tokens=scfg.window_tokens,
+            k_scale=base.kv_scales_of(view.arrays, "k"),
+            v_scale=base.kv_scales_of(view.arrays, "v"))
+        return out.to(q.dtype)
+
     def attend(self, cfg, params, q, view: KVView, *, length, scale):
         scfg = socket_config_of(cfg)
         if scfg.selection not in ("kvhead", "pooled", "qhead"):
             raise ValueError(scfg.selection)
         n = view.n_tokens
         budget = self._budget(cfg, length, n)
+        if cfg.socket.use_paged_kernel and isinstance(view, base.PagedView):
+            return self._attend_fused(cfg, params, q, view, length=length,
+                                      scale=scale, budget=budget)
         scores = self._scores(cfg, params, q, view)
         vnorm = view.leaf("vnorm").float()
         kq = sk.topk_budget(scfg, n)

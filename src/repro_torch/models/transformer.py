@@ -3,8 +3,10 @@
 Port of the serving half of ``repro.models.transformer``.  The JAX
 package scans over stacked layer groups; here the stack is a Python list
 of per-layer parameter dicts (``params["layers"]``, in ``cfg.layer_specs``
-order) walked by a loop, and the decode caches are a list of per-layer
-cache dicts updated in place.
+order) walked by a loop, and the decode caches — or the continuous
+engine's page pool, which has the same per-layer list layout with
+``(num_blocks, KVH, block_size, ...)`` leaves — are a list of per-layer
+dicts updated in place.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from repro_torch.models.layers import (apply_mlp, embed_tokens,
                                        init_embedding, init_mlp,
                                        init_rmsnorm, lm_head, rmsnorm)
 
-__all__ = ["init_model", "init_decode_caches", "prefill", "decode_step"]
+__all__ = ["init_model", "init_decode_caches", "prefill", "prefill_chunk",
+           "decode_step"]
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -66,12 +69,26 @@ def _block_prefill(cfg: ModelConfig, params: Dict, spec: LayerSpec,
     return _mlp(cfg, params, spec, x + h), cache
 
 
+def _block_prefill_chunk(cfg: ModelConfig, params: Dict, spec: LayerSpec,
+                         x: torch.Tensor, positions: torch.Tensor,
+                         cache: Dict, bt_row: torch.Tensor, history: int,
+                         last_index: int):
+    """One block's share of one prefill chunk, writing the pool in place
+    (see :func:`prefill_chunk`)."""
+    _check_spec(spec)
+    h, cache = attn.attention_prefill_chunk(
+        cfg, params["attn"], rmsnorm(params["norm_mix"], x), positions,
+        spec.attn_type, cache, bt_row, history, last_index)
+    return _mlp(cfg, params, spec, x + h), cache
+
+
 def _block_decode(cfg: ModelConfig, params: Dict, spec: LayerSpec,
-                  x: torch.Tensor, cache: Dict, pos):
+                  x: torch.Tensor, cache: Dict, pos, block_tables=None):
     _check_spec(spec)
     h, cache = attn.attention_decode(cfg, params["attn"],
                                      rmsnorm(params["norm_mix"], x), cache,
-                                     pos, spec.attn_type)
+                                     pos, spec.attn_type,
+                                     block_tables=block_tables)
     return _mlp(cfg, params, spec, x + h), cache
 
 
@@ -118,14 +135,46 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int):
     return lm_head(cfg, params["embed"], x), caches
 
 
+def prefill_chunk(cfg: ModelConfig, params: Dict, caches: List[Dict],
+                  tokens: torch.Tensor, *, bt_row: torch.Tensor, history: int,
+                  last_index: int):
+    """One prefix-extension prefill chunk for the whole stack, straight
+    against the serving engine's page pool.
+
+    ``tokens``: ``(1, C)`` chunk token ids (the final chunk zero-padded to
+    the chunk length); ``caches``: the pool (pages written in place);
+    ``bt_row``: ``(max_blocks_per_seq + C / block_size,)`` trash-padded
+    block ids; ``history``: prompt tokens committed by earlier chunks;
+    ``last_index``: the last real in-chunk index.
+
+    Returns ``(logits (1, 1, V_padded) at last_index, caches)`` — the
+    logits mean something only on the final chunk.
+    """
+    _check_inputs(cfg)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    b, c, _ = x.shape
+    positions = (history + torch.arange(c, device=x.device)).expand(b, c)
+    for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
+        x, caches[i] = _block_prefill_chunk(cfg, lp, spec, x, positions,
+                                            caches[i], bt_row, history,
+                                            last_index)
+    x = rmsnorm(params["final_norm"], x[:, last_index:last_index + 1])
+    return lm_head(cfg, params["embed"], x), caches
+
+
 def decode_step(cfg: ModelConfig, params: Dict, caches: List[Dict],
-                inputs: torch.Tensor, pos):
+                inputs: torch.Tensor, pos, block_tables=None):
     """One token for the whole stack.  inputs: (B, 1) token ids; pos: int
-    or a ``(B,)`` tensor.  The caches are updated in place.  Returns
-    (logits (B, 1, V_padded), caches)."""
+    or a ``(B,)`` tensor.
+
+    ``block_tables``: per-request ``(B, blocks_per_seq)`` physical block
+    ids — when given, ``caches`` is the serving engine's page pool and
+    attention layers read and write it through ``PagedView``.  The caches
+    are updated in place.  Returns (logits (B, 1, V_padded), caches)."""
     _check_inputs(cfg)
     x = embed_tokens(cfg, params["embed"], inputs)
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
-        x, caches[i] = _block_decode(cfg, lp, spec, x, caches[i], pos)
+        x, caches[i] = _block_decode(cfg, lp, spec, x, caches[i], pos,
+                                     block_tables)
     x = rmsnorm(params["final_norm"], x)
     return lm_head(cfg, params["embed"], x), caches

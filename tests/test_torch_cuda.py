@@ -1,12 +1,16 @@
 """Card-only tests of the port: each Hopper kernel against its plain
-PyTorch version on the card, and the static serve path through both
-kernels.  They skip with a reason where there is no CUDA card; on the
+PyTorch version on the card, the static serve path through the two
+contiguous-path kernels, and the continuous engine through the fused
+paged kernel.  They skip with a reason where there is no CUDA card; on the
 card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: scores rtol 1e-5 / atol 1e-6, attention rtol 1e-4 /
-atol 1e-5 (float32 in another summation order).
+atol 1e-5 (float32 in another summation order).  The paged kernel's
+selection equals the plain version's except at rows whose plain
+effective score lies within the score tolerance of the threshold, and
+bit for bit where the scores tie exactly.
 """
 
 import math
@@ -121,3 +125,58 @@ def test_static_serve_on_card_matches_cpu(dev):
     assert (ss.LAUNCHES - before[0], fd.LAUNCHES - before[1]) == (calls,
                                                                   calls)
     assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("case", ["ragged", "edges", "ties"])
+def test_paged_attention_kernel_matches_plain(dev, case):
+    from repro_torch.kernels.paged_attention import cases, ops
+    if case == "ragged":
+        lengths, nb = [1024, 3000, 2048, 4096], 264
+    elif case == "edges":       # length 1, budget above the valid rows
+        lengths, nb = [1, 5, 300, 257], 40
+    else:
+        lengths, nb = [700, 1500], 100
+    gen = torch.Generator(device=dev).manual_seed(len(lengths) + nb)
+    (args,), kw = cases.paged_case(gen, lengths, nb=nb, kvh=2, hd=64,
+                                   sink=16, window=16, ties=case == "ties")
+    q, kp, vp, bits, vnorm, u, bt, length, budget = args
+    before = ops.LAUNCHES
+    out, sel = ops.paged_socket_attend(q, kp, vp, bits, vnorm, u, bt,
+                                       length=length, budget=budget,
+                                       with_selection=True, **kw)
+    assert ops.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    cases.check_paged(out, sel, args, kw, ties=case == "ties",
+                      attn_tol=ATTN_TOL, score_tol=SCORE_TOL)
+
+
+def test_continuous_engine_fused_kernel_matches_cpu(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.launch.serve import apply_backend_arg
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    cfg = apply_backend_arg(get_config("llama31-8b").smoke(), "socket_fused")
+    params = tfm.init_model(cfg, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (8, 21, 37)]
+
+    def serve(device, p):
+        eng = ContinuousBatchingEngine(cfg, params=p, device=device)
+        reqs = [Request(prompt=pr, max_new_tokens=6) for pr in prompts]
+        eng.run(reqs, realtime=False)
+        return [r.generated for r in reqs]
+
+    cpu = serve("cpu", params)
+    card_params = {"embed": {k: v.to(dev) for k, v in
+                             params["embed"].items()},
+                   "final_norm": {"scale": params["final_norm"]["scale"]
+                                  .to(dev)},
+                   "layers": [{name: ({k: v.to(dev) for k, v in sub.items()})
+                               for name, sub in layer.items()}
+                              for layer in params["layers"]]}
+    before = ops.LAUNCHES
+    assert serve(dev, card_params) == cpu
+    assert ops.LAUNCHES > before

@@ -33,7 +33,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "repro") and sys.modules[m] is not None)
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -49,7 +49,13 @@ def test_port_imports_no_jax_and_no_repro():
          os.path.join(REPO, "chip_smoke.py")],
         env=_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20          # every module was walked
+    names = proc.stdout.split()
+    assert len(names) >= 30                        # every module was walked
+    for name in ("repro_torch.serving.engine", "repro_torch.serving.paged",
+                 "repro_torch.serving.scheduler",
+                 "repro_torch.serving.obs.metrics",
+                 "repro_torch.kernels.paged_attention.ops"):
+        assert name in names, name
 
 
 def _require_no_card():

@@ -61,14 +61,15 @@ def test_configs_match_jax(arch):
         jc, tc = jget(arch), tget(arch)
         if not full:
             jc, tc = jc.smoke(), tc.smoke()
+        nested = ("pattern", "remainder", "socket", "serving")
         for f in dataclasses.fields(tc):
             assert getattr(tc, f.name) == getattr(jc, f.name) or \
-                f.name in ("pattern", "remainder", "socket"), f.name
+                f.name in nested, f.name
         assert [dataclasses.asdict(s) for s in tc.layer_specs] == \
             [dataclasses.asdict(s) for s in jc.layer_specs]
-        js = dataclasses.asdict(jc.socket)
-        assert js.pop("use_paged_kernel") is False   # continuous engine
-        assert dataclasses.asdict(tc.socket) == js
+        assert dataclasses.asdict(tc.socket) == dataclasses.asdict(jc.socket)
+        assert dataclasses.asdict(tc.serving) == \
+            dataclasses.asdict(jc.serving)
         assert tc.param_count() == jc.param_count()
         assert tc.padded_vocab() == jc.padded_vocab()
         assert tc.num_layers == jc.num_layers

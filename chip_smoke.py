@@ -8,7 +8,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
 1. device   — a CUDA card must be present; prints its name and power
               limit as nvidia-smi reports them.
 2. build    — builds the CUDA kernels (nvcc, sm_90a, one process per source,
-              all started together) and compiles the Triton kernels from the
+              all started together: socket_score.cu, paged_attention.cu,
+              paged_quest.cu) and compiles the Triton kernel from the
               sources in this checkout.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge shapes, with the tolerance
@@ -27,16 +28,18 @@ Phases, in order; the first failure raises and the script exits non-zero:
               tokens of the two paths are compared.
 5. continuous — llama31-8b at full width and depth, the same weights,
               through ``ContinuousBatchingEngine.warmup()`` and
-              ``run(realtime=False)`` with ``--backend socket_fused``: 8
+              ``run(realtime=False)``, once with each fused backend
+              (``socket_fused``, ``hard_lsh_fused``, ``quest_fused``): 8
               requests (prompts of 1024/2048/3072/4096 tokens from --seed,
               each twice), 32 greedy tokens each, chunked prefill of 512,
               a pool that never preempts.  Every request must finish with
-              32 tokens; the paged kernel's launch count must equal layers x
-              (engine iterations + the 2 warm-up steps), with no launch of
-              the contiguous-path kernels.  One decode iteration of the
+              32 tokens; the backend's paged kernel must launch exactly
+              layers x (engine iterations + the 2 warm-up steps) times,
+              and no other kernel at all.  One decode iteration of the
               engine's state (the widest batch the run held, on a clone of
               the pool) is run again through the kernel and through the
-              plain paged path; their logits must agree.
+              plain paged path; their logits must agree.  Each run's pool
+              and snapshot are freed before the next.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -48,6 +51,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import functools
+import gc
 import json
 import math
 import sys
@@ -176,35 +180,11 @@ def flash_decode_case(dev, gen, *, bh, k, g, hd, dtype, dead_row=None):
     return q, kk, vv, mask
 
 
-def check_paged(label, case, kw, ties):
-    """Kernel vs plain version on one input set (the check of
-    ``repro_torch.kernels.paged_attention.cases``)."""
-    from repro_torch.kernels.paged_attention import cases, ops as pa
-    q, kp, vp, bits, vnorm, u, bt, length, budget = case
-    out, sel = pa.launch_paged_socket_attend(
-        q, kp, vp, bits, vnorm, u, bt, length, budget, with_selection=True,
-        **kw)
-    torch.cuda.synchronize()
-    try:
-        err, near = cases.check_paged(out, sel, case, kw, ties=ties,
-                                      attn_tol=ATTN_TOL, score_tol=SCORE_TOL)
-    except AssertionError as e:
-        raise AssertionError(f"[{label}] {e}") from None
-    log(f"paged_attention [{label}] lengths {length.tolist()} budgets "
-        f"{budget.tolist()}: max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, "
-        f"atol {ATTN_TOL['atol']}); selection equal"
-        + (f" but {near} rows within the threshold band" if near else ""))
-    return err
-
-
 def phase_kernels(dev, seed):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.paged_attention.cases import paged_case
-    from repro_torch.kernels.paged_attention.ref import \
-        paged_socket_attend_ref
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.kernels.socket_score.ref import socket_score_ref
 
@@ -212,8 +192,9 @@ def phase_kernels(dev, seed):
     # first launch
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as ex:
-        list(ex.map(build.load_library, (ss.SOURCE, pa.SOURCE)))
-    log(f"build socket_score.cu + paged_attention.cu: "
+        list(ex.map(build.load_library,
+                    (ss.SOURCE, pa.SOURCE, pa.QUEST_SOURCE)))
+    log(f"build socket_score.cu + paged_attention.cu + paged_quest.cu: "
         f"{time.perf_counter() - t0:.2f} s")
     for stem, (secs, report) in build.BUILD_LOGS.items():
         log(f"  nvcc {stem}: {secs:.2f} s\n  " +
@@ -325,60 +306,191 @@ def phase_kernels(dev, seed):
                 bound_by=by, library_ms=lib_ms,
                 back_to_back_ms=back_to_back_ms(kernel, sets))
 
-    # -- paged_attention: the continuous phase's shapes first, then edges
-    gen = torch.Generator(device=dev).manual_seed(seed + 7)
-    main_lens = [1024, 2048, 3072, 4096, 1024, 2048, 3072, 4096]
-    paged_cases = [
-        ("main path, ragged", dict(lengths=main_lens, nb=264)),
+    rows.update(paged_rows(dev, seed))
+    return rows
+
+
+# The fused paged kernels' cases: the continuous phase's shapes first
+# (8 KV heads, G=4, hd=128, bs=16; contexts 1-4K, a 264-block table), then
+# the edges.
+MAIN_LENS = [1024, 2048, 3072, 4096, 1024, 2048, 3072, 4096]
+PAGED_CASES = {
+    "paged_attention": [
+        ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
         ("length 1, budget > valid rows", dict(lengths=[1, 7, 200, 130],
                                                nb=264)),
         ("short tables, sink/window 16", dict(lengths=[33, 600, 1500, 57],
                                               nb=96, sink=16, window=16)),
         ("tie-heavy", dict(lengths=[900, 2500], nb=200, sink=16,
                            window=16, ties=True)),
-    ]
-    for label, kw in paged_cases:
-        sets, args = paged_case(gen, **kw)
-        err = check_paged(label, sets[0], args, kw.get("ties", False))
-        if label.startswith("main path"):
-            b, kvh, g, hd = sets[0][0].shape
-            w = sets[0][3].shape[-1]
-            sink, window = args["sink_tokens"], args["window_tokens"]
-            lens = torch.tensor(kw["lengths"])
-            sel = torch.minimum(sets[0][8].cpu().long(), lens)
-            # sink and window rows are selected by position: their bits
-            # and vnorm are never needed
-            scored = lens - torch.clamp(lens, max=sink + window)
-            # what the function must move: bits + vnorm of every scored
-            # token, the selected K/V rows (forced ones included), q, u,
-            # the table, the output; and do: one FMA per (scored token,
-            # g, l), q.k and p.v per selected row
-            per_head = scored.sum() * (w * 4 + 2) + sel.sum() * 2 * hd * 4
-            nbytes = float(kvh * per_head + b * kvh * (2 * g * hd * 4 +
-                           g * args["num_tables"] * args["num_planes"] * 4)
-                           + sets[0][6].numel() * 4)
-            flops = float(kvh * (scored.sum() * g * args["num_tables"] * 2 +
-                                 sel.sum() * g * 4 * hd))
-            touched = float(kvh * per_head)
-            sets, args = paged_case(gen, copies=rotations(touched), **kw)
-            kernel = functools.partial(pa.launch_paged_socket_attend,
-                                       **args)
+    ],
+    "paged_hard_lsh": [
+        ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
+        ("length 1, budget > valid rows", dict(lengths=[1, 7, 200, 130],
+                                               nb=264)),
+        ("tie-heavy", dict(lengths=[900, 2500], nb=200, sink=16, window=16,
+                           ties=True)),
+        ("l=37 unaligned tables", dict(lengths=[33, 600, 1500, 57], nb=96,
+                                       l=37, sink=16, window=16)),
+    ],
+    "paged_quest": [
+        ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
+        ("length 1, budget > live pages", dict(lengths=[1, 7, 200, 130],
+                                               nb=264)),
+        ("tie-heavy", dict(lengths=[900, 2500], nb=200, sink=16, window=16,
+                           ties=True)),
+        ("ps=8, two pages a block", dict(lengths=[33, 600, 1500, 57], nb=96,
+                                         ps=8, sink=16, window=16)),
+    ],
+}
+
+
+def lsh_cost(case, args, hard):
+    """Bytes and operations the SOCKET (or hard-LSH) function must spend
+    on ``case``: the bits and vnorm of each scored token, and the query
+    hash, only for requests whose budget exceeds their forced sink and
+    window rows (elsewhere the selection is those rows, whatever the
+    scores); the selected K/V rows, forced ones included; q, the table,
+    the output.  Operations: one FMA (P split into table lookups) or one
+    compare per (scored token, g, l); q.k and p.v per selected row.
+    Returns (bytes, operations, bytes of the pool rows touched)."""
+    q, bits, qhash, bt = case[0], case[3], case[5], case[6]
+    lens, budget = case[7].cpu().long(), case[8].cpu().long()
+    b, kvh, g, hd = q.shape
+    w = bits.shape[-1]
+    gs, l, p = qhash.shape[2:]
+    forced = torch.clamp(lens, max=args["sink_tokens"] + args["window_tokens"])
+    live = budget > forced
+    scored = int(torch.where(live, lens - forced, 0).sum())
+    nsel = int(torch.minimum(budget, lens).sum())
+    touched = kvh * (scored * (w * 4 + 2) + nsel * 2 * hd * 4)
+    nbytes = touched + kvh * (b * 2 * g * hd * 4 +
+                              int(live.sum()) * gs * l * p * 4) + \
+        bt.numel() * 4
+    flops = kvh * (scored * g * l * (1 if hard else 2) + nsel * g * 4 * hd)
+    return float(nbytes), float(flops), float(touched)
+
+
+def quest_cost(case, args, sel):
+    """As :func:`lsh_cost` for Quest: kmin and kmax of each live page that
+    is neither sink nor window (for requests whose page budget exceeds
+    those forced pages), the selected live K/V rows, q, the table, the
+    output; 4 operations per (scored page, g, d), q.k and p.v per row."""
+    q, bt, length, budget = case[0], case[5], case[6], case[7]
+    b, kvh, g, hd = q.shape
+    ps, sink = args["page_size"], args["sink_tokens"]
+    window = args["window_tokens"]
+    scored = 0
+    for n, kp in zip(length.tolist(), budget.tolist()):
+        start = torch.arange(-(-n // ps)) * ps
+        free = (start >= sink) & (start < n - window - ps)
+        if kp > len(start) - int(free.sum()):
+            scored += int(free.sum())
+    nsel = int(sel.sum())
+    touched = kvh * scored * 2 * hd * 4 + nsel * 2 * hd * 4
+    nbytes = touched + b * kvh * 2 * g * hd * 4 + bt.numel() * 4
+    flops = kvh * scored * g * hd * 4 + nsel * g * 4 * hd
+    return float(nbytes), float(flops), float(touched)
+
+
+def paged_kernels():
+    """name -> (source, replaces, seed offset, case builder, launch, check
+    returning (max |err|, note), plain version of a case's args, cost)."""
+    from repro_torch.kernels.paged_attention import cases, ops as pa
+    from repro_torch.kernels.paged_attention import ref
+
+    def top_k(sets, kw):
+        return min(kw["nb"] * 16, int(sets[0][8].max()))
+
+    def check_socket(out, sel, case, args, kw):
+        err, near = cases.check_paged(out, sel, case, args,
+                                      ties=kw.get("ties", False),
+                                      attn_tol=ATTN_TOL, score_tol=SCORE_TOL)
+        return err, (f"budgets {case[8].tolist()}; selection equal" +
+                     (f" but {near} rows within the threshold band"
+                      if near else ""))
+
+    def check_hard(out, sel, case, args, kw):
+        err = cases.check_hard_lsh(out, sel, case, args, attn_tol=ATTN_TOL)
+        eff = cases.plain_hard_eff(case, args)
+        return err, (f"budgets {case[8].tolist()}; selection equal bit for "
+                     f"bit; {int((eff == 0).sum())} of {eff.numel()} scored "
+                     "rows score exactly 0")
+
+    def check_quest(out, sel, case, args, kw):
+        err = cases.check_quest(out, sel, case, args, attn_tol=ATTN_TOL)
+        return err, (f"page budget {int(case[7][0])} of "
+                     f"{kw['nb'] * 16 // args['page_size']}; selection equal "
+                     f"bit for bit, {int(sel.sum().item())} rows")
+
+    def plain_socket(sets, args, kw):
+        tk = top_k(sets, kw)
+        return lambda q, kp, vp, bits, vn, u, bt, length, budget: \
+            ref.paged_socket_attend_ref(q, kp, vp, bits, vn, u, bt,
+                                        length=length, budget=budget,
+                                        top_k=tk, **args)
+
+    def plain_hard(sets, args, kw):
+        tk = top_k(sets, kw)
+        return lambda q, kp, vp, bits, vn, us, bt, length, budget: \
+            ref.paged_hard_lsh_attend_ref(q, kp, vp, bits, vn, us, bt,
+                                          length=length, budget=budget,
+                                          top_k=tk, **args)
+
+    def plain_quest(sets, args, kw):
+        pb = int(sets[0][7][0])
+        return lambda q, kp, vp, kmin, kmax, bt, length, _budget: \
+            ref.paged_quest_attend_ref(q, kp, vp, kmin, kmax, bt,
+                                       length=length, page_budget=pb, **args)
+
+    src = "src/repro_torch/kernels/paged_attention/"
+    tpu = "src/repro/kernels/paged_attention/"
+    return {
+        "paged_attention": (
+            src + "paged_attention.cu", tpu + "paged_attention.py:69", 7,
+            cases.paged_case, pa.launch_paged_socket_attend, check_socket,
+            plain_socket,
+            lambda case, args, sel: lsh_cost(case, args, hard=False)),
+        "paged_hard_lsh": (
+            src + "paged_attention.cu", tpu + "paged_hard_lsh.py:45", 11,
+            cases.hard_lsh_case, pa.launch_paged_hard_lsh_attend, check_hard,
+            plain_hard,
+            lambda case, args, sel: lsh_cost(case, args, hard=True)),
+        "paged_quest": (
+            src + "paged_quest.cu", tpu + "paged_quest.py:46", 13,
+            cases.quest_case, pa.launch_paged_quest_attend, check_quest,
+            plain_quest, quest_cost),
+    }
+
+
+def paged_rows(dev, seed):
+    """Each fused paged kernel against its plain version at the continuous
+    path's shapes and edges; times at the main shapes."""
+    rows = {}
+    for name, (source, replaces, offset, build, launch, check, plain,
+               cost) in paged_kernels().items():
+        gen = torch.Generator(device=dev).manual_seed(seed + offset)
+        for label, kw in PAGED_CASES[name]:
+            sets, args = build(gen, **kw)
+            out, sel = launch(*sets[0], with_selection=True, **args)
+            torch.cuda.synchronize()
+            try:
+                err, note = check(out, sel, sets[0], args, kw)
+            except AssertionError as e:
+                raise AssertionError(f"[{label}] {e}") from None
+            log(f"{name} [{label}] lengths {kw['lengths']}: max|err| "
+                f"{err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
+                f"{ATTN_TOL['atol']}); {note}")
+            if not label.startswith("main path"):
+                continue
+            nbytes, flops, touched = cost(sets[0], args, sel)
+            sets, args = build(gen, copies=rotations(touched), **kw)
+            kernel = functools.partial(launch, **args)
             ms = device_time_ms(kernel, sets)
-            top_k = min(kw["nb"] * 16, int(sets[0][8].max()))
-
-            def plain(q, kp, vp, bits, vnorm, u, bt, length, budget):
-                return paged_socket_attend_ref(
-                    q, kp, vp, bits, vnorm, u, bt, length=length,
-                    budget=budget, top_k=top_k, **args)
-
-            plain_ms = device_time_ms(plain, sets[:2])
+            plain_ms = device_time_ms(plain(sets, args, kw), sets[:2])
             bms, by = bound(nbytes, flops)
-            rows["paged_attention"] = dict(
-                name="paged_attention", route="cuda",
-                source="src/repro_torch/kernels/paged_attention/"
-                       "paged_attention.cu",
-                replaces="src/repro/kernels/paged_attention/"
-                         "paged_attention.py:69",
+            rows[name] = dict(
+                name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None,
                 back_to_back_ms=back_to_back_ms(kernel, sets))
@@ -476,7 +588,15 @@ def phase_main(dev, seed, card):
 
 # --------------------------------------------------------------- phase 5
 
-def phase_continuous(dev, seed, card, params):
+# fused backend -> (its paged kernel's row name, its counter in
+# kernels.paged_attention.ops, the config field whose use_paged_kernel
+# turns it on)
+FUSED = {"socket_fused": ("paged_attention", "LAUNCHES", "socket"),
+         "hard_lsh_fused": ("paged_hard_lsh", "HARD_LSH_LAUNCHES", "socket"),
+         "quest_fused": ("paged_quest", "QUEST_LAUNCHES", "quest")}
+
+
+def phase_continuous(dev, seed, card, params, backend):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
@@ -487,7 +607,9 @@ def phase_continuous(dev, seed, card, params):
     from repro_torch.serving.engine import ContinuousBatchingEngine
 
     arch, new_tokens = "llama31-8b", 32
-    cfg, reqs = card_continuous_case(get_config(arch), seed, new_tokens)
+    name, counter, gate = FUSED[backend]
+    cfg, reqs = card_continuous_case(get_config(arch), seed, new_tokens,
+                                     backend)
     sv = cfg.serving
     engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
     # the widest decode batch of the run, captured with a clone of the
@@ -509,28 +631,31 @@ def phase_continuous(dev, seed, card, params):
 
     engine.iter_hook = hook
     torch.cuda.reset_peak_memory_stats(dev)
-    pa.LAUNCHES = ss.LAUNCHES = fd.LAUNCHES = 0
+    for c in FUSED.values():
+        setattr(pa, c[1], 0)
+    ss.LAUNCHES = fd.LAUNCHES = 0
     t0 = time.perf_counter()
     engine.warmup()
     warm_s = time.perf_counter() - t0
     m = engine.run(reqs, realtime=False)
     torch.cuda.synchronize()
-    launches = {"paged_attention": pa.LAUNCHES,
-                "socket_score": ss.LAUNCHES, "flash_decode": fd.LAUNCHES}
+    launches = {c[0]: getattr(pa, c[1]) for c in FUSED.values()}
+    launches.update(socket_score=ss.LAUNCHES, flash_decode=fd.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     bad = [r.rid for r in reqs if r.state != "finished"
            or len(r.generated) != new_tokens]
     if bad:
-        raise AssertionError(f"requests {bad} did not finish with "
-                             f"{new_tokens} tokens")
+        raise AssertionError(f"{backend}: requests {bad} did not finish "
+                             f"with {new_tokens} tokens")
     expected = cfg.num_layers * (m.decode_iters + 2)
-    if launches["paged_attention"] != expected:
-        raise AssertionError(f"paged_attention: {launches} launches, "
-                             f"expected {expected} (layers x engine "
-                             "iterations + 2 warm-up steps)")
-    if launches["socket_score"] or launches["flash_decode"]:
-        raise AssertionError(f"contiguous-path kernels ran on the paged "
-                             f"path: {launches}")
+    if launches[name] != expected:
+        raise AssertionError(f"{name}: {launches[name]} launches, expected "
+                             f"{expected} (layers x engine iterations + 2 "
+                             "warm-up steps)")
+    others = {k: v for k, v in launches.items() if k != name and v}
+    if others:
+        raise AssertionError(f"{backend}: other kernels ran on its paged "
+                             f"path: {others}")
     if m.preemptions:
         raise AssertionError(f"{m.preemptions} preemptions in a pool sized "
                              "to need none")
@@ -540,7 +665,7 @@ def phase_continuous(dev, seed, card, params):
     report = dict(m.to_json(), ttft_s_mean=float(first.mean()),
                   ttft_s_p99=float(np.percentile(first, 99)))
     log(json.dumps({
-        "continuous_path": arch, "backend": "socket_fused",
+        "continuous_path": arch, "backend": backend,
         "requests": len(reqs), "prompt_lens": [len(r.prompt) for r in reqs],
         "max_new_tokens": new_tokens, "prefill_chunk": sv.prefill_chunk,
         "num_blocks": sv.num_blocks, "warmup_s": warm_s,
@@ -552,32 +677,33 @@ def phase_continuous(dev, seed, card, params):
     if "pages" not in snap:
         raise AssertionError("no decode iteration was captured")
     engine.pages = None                                   # free the pool
+    del engine
     tokens, bt, pos = snap["inputs"]
     plain_pages = snap.pop("pages")
     kernel_pages = [{k: v.clone() for k, v in layer.items()}
                     for layer in plain_pages]
     lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos, bt)
     del kernel_pages
-    cfg_plain = cfg.replace(socket=dataclasses.replace(
-        cfg.socket, use_paged_kernel=False))
+    cfg_plain = cfg.replace(**{gate: dataclasses.replace(
+        getattr(cfg, gate), use_paged_kernel=False)})
     lp, _ = make_serve_step(cfg_plain)(params, plain_pages, tokens, pos, bt)
     del plain_pages
     live = pos > 0                   # idle slots decode the trash page
     lk, lp = lk[live], lp[live]
-    for name, t in (("kernel", lk), ("plain", lp)):
+    for label, t in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"non-finite logits on the {name} path")
+            raise AssertionError(f"non-finite logits on the {label} path")
     err = (lk - lp).abs().max().item()
     same = (lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
     log(f"continuous decode iteration {snap['iteration'] + 1} "
-        f"({len(snap['reqs'])} requests), fused kernel vs plain paged path: "
-        f"max|logits err| {err:.3e} (atol {LOGITS_ATOL}; max|logits| "
+        f"({len(snap['reqs'])} requests), {backend} kernel vs plain paged "
+        f"path: max|logits err| {err:.3e} (atol {LOGITS_ATOL}; max|logits| "
         f"{lp.abs().max().item():.3f}); greedy tokens shared "
         f"{int(same.sum().item())}/{same.numel()}")
     if err > LOGITS_ATOL:
-        raise AssertionError(f"continuous logits differ by {err:.3e} > "
-                             f"{LOGITS_ATOL}")
-    return {"paged_attention": launches["paged_attention"]}
+        raise AssertionError(f"{backend}: continuous logits differ by "
+                             f"{err:.3e} > {LOGITS_ATOL}")
+    return {name: launches[name]}
 
 
 def main(argv=None) -> int:
@@ -603,9 +729,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches, params = phase_main(dev, args.seed, card)
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    launches.update(phase_continuous(dev, args.seed, card, params))
-    log(f"continuous phase: {time.perf_counter() - t0:.1f} s")
+    for backend in FUSED:
+        t0 = time.perf_counter()
+        launches.update(phase_continuous(dev, args.seed, card, params,
+                                         backend))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"continuous phase ({backend}): "
+            f"{time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

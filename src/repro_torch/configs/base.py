@@ -1,16 +1,17 @@
 """Model configuration schema for the PyTorch port.
 
-A copy of the parts of ``repro.configs.base`` that the SOCKET serving
+A copy of the parts of ``repro.configs.base`` that the sparse serving
 paths read: :class:`LayerSpec`, :class:`SocketSettings`,
+:class:`QuestSettings` (the Quest baseline's page geometry),
 :class:`ServingSettings` (the continuous engine's pool geometry),
 :class:`LayerCachePlan` and :class:`ModelConfig` with ``smoke()``,
 ``replace()``, ``padded_vocab()``, ``param_count()``, ``validate()`` and
 ``cache_plan()``.  Field names and defaults are the JAX package's, so a
 config built here and one built there describe the same model.
 
-Fields of layers the port does not run yet (MoE, Mamba, Quest) are left
-out, and cache plans resolve global-attention layers only; the rest
-comes with the slices that port those layers (see ROADMAP.md).
+Fields of layers the port does not run yet (MoE, Mamba) are left out,
+and cache plans resolve global-attention layers only; the rest comes
+with the slices that port those layers (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-__all__ = ["LayerSpec", "LayerCachePlan", "ModelConfig", "ServingSettings",
-           "SocketSettings"]
+__all__ = ["LayerSpec", "LayerCachePlan", "ModelConfig", "QuestSettings",
+           "ServingSettings", "SocketSettings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,29 @@ class SocketSettings:
     # socket_score + flash_decode pair.  Requires packed bits and
     # kvhead/pooled selection (validate() fails fast otherwise).
     use_paged_kernel: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class QuestSettings:
+    """Quest baseline page geometry (models.backends.quest).
+
+    ``page_size`` is the single source of truth for Quest's metadata
+    granularity; it must divide ``ServingSettings.block_size`` so each
+    paged-pool block carries whole min/max rows.
+    """
+
+    page_size: int = 16
+    min_pages: int = 4
+    # Route PagedView decode through the fused kernels/paged_attention
+    # quest pass (CUDA): page-bound scoring from the kmin/kmax leaves +
+    # page-granular radix select + attend in one sweep over the block
+    # table.
+    use_paged_kernel: bool = False
+    # Under quantized K/V pages, compute the kmin/kmax page stats from the
+    # dequantized keys the attend phase reads back, so the per-page bounds
+    # stay sound (read by backends.base.effective_keys; quantized pages
+    # come with ROADMAP.md queue 1 item 5).
+    stats_from_quantized: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +187,7 @@ class ModelConfig:
     # --- sparse attention (the paper's technique) --------------------------
     attention_backend: str = "socket"
     socket: SocketSettings = SocketSettings()
+    quest: QuestSettings = QuestSettings()
     # --- continuous-batching engine ----------------------------------------
     serving: ServingSettings = ServingSettings()
     # --- provenance ---------------------------------------------------------
@@ -207,6 +232,18 @@ class ModelConfig:
                     f"socket.use_paged_kernel=True needs "
                     f"serving.block_size % 8 == 0, got "
                     f"block_size={self.serving.block_size}")
+        if self.quest.use_paged_kernel:
+            if self.serving.block_size % 8:
+                raise ValueError(
+                    f"quest.use_paged_kernel=True needs "
+                    f"serving.block_size % 8 == 0, got "
+                    f"block_size={self.serving.block_size}")
+            if self.serving.block_size % self.quest.page_size:
+                raise ValueError(
+                    f"quest.use_paged_kernel=True needs quest.page_size "
+                    f"({self.quest.page_size}) to divide "
+                    f"serving.block_size ({self.serving.block_size}) so "
+                    "each pool block carries whole min/max pages")
 
     def plan_for(self, spec: LayerSpec) -> LayerCachePlan:
         """One layer's cache plan (see :class:`LayerCachePlan`)."""
@@ -262,6 +299,7 @@ class ModelConfig:
             socket=dataclasses.replace(
                 self.socket, num_planes=6, num_tables=12, sink_tokens=4,
                 window_tokens=4, min_k=8, sparsity=4.0),
+            quest=dataclasses.replace(self.quest, page_size=8),
             serving=dataclasses.replace(
                 self.serving, block_size=8, num_blocks=48, max_batch=4,
                 max_blocks_per_seq=8, prefill_buckets=(24, 32, 48, 64),

@@ -4,8 +4,9 @@ Each ``.cu`` source exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, loaded with ``ctypes``.
 This takes seconds; a build against PyTorch's C++ headers takes minutes.
 Libraries go to ``build/repro_torch/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the source and the flags,
-so an edited source is always rebuilt.  Nothing is compiled at import:
+(listed in ``.gitignore``), named by a hash of the source, the headers
+beside it (``*.cuh``, ``*.h``) and the flags, so an edited source or
+header is always rebuilt.  Nothing is compiled at import:
 :func:`load_library` builds on first use.
 """
 
@@ -51,8 +52,12 @@ def build_library(source: Path) -> Path:
     """Compile ``source`` into ``BUILD_DIR`` unless an identical build is
     already there; returns the library path."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted([*source.parent.glob("*.cuh"),
+                          *source.parent.glob("*.h")]):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{digest}.so"
     if out.exists():
         return out

@@ -1,13 +1,24 @@
-"""Inputs for the fused paged kernel, and the check that holds it to its
-plain version, shared by ``chip_smoke.py`` and the card tests
+"""Inputs for the fused paged kernels, and the checks that hold each to
+its plain version, shared by ``chip_smoke.py`` and the card tests
 (``tests/test_torch_cuda.py``).
 
-The check: the output within ``attn_tol`` of the plain version's, the
-count of selected rows exactly ``min(budget, length)`` per (request,
-head), and the selection equal to the plain version's — bit for bit
-where all scores tie exactly, elsewhere except at rows whose plain
-effective score lies within ``score_tol`` of the threshold (the kernel
-sums the same fp32 terms in another order).
+SOCKET (:func:`paged_case`, :func:`check_paged`): the output within
+``attn_tol`` of the plain version's, the count of selected rows exactly
+``min(budget, length)`` per (request, head), and the selection equal to
+the plain version's — bit for bit where all scores tie exactly,
+elsewhere except at rows whose plain effective score lies within
+``score_tol`` of the threshold (the kernel sums the same fp32 terms in
+another order).
+
+Hard LSH (:func:`hard_lsh_case`, :func:`check_hard_lsh`): collision
+counts are exact, so the selection must equal the plain version's bit
+for bit, with ``min(budget, length)`` rows.
+
+Quest (:func:`quest_case`, :func:`check_quest`): page bounds are summed
+in float64 on both sides, so the selection must equal the plain version's
+bit for bit; exactly ``page_budget`` pages are selected per (request,
+head) — pages past ``length`` included — and the selected rows are the
+live rows of those pages (not ``min(budget, length)``).
 """
 
 from __future__ import annotations
@@ -16,12 +27,15 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch.baselines import quest as quest_mod
 from repro_torch.core import hashing, socket as sk
-from repro_torch.kernels.paged_attention.ref import paged_socket_attend_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_socket_attend_ref)
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 from repro_torch.models.backends.base import gather_block_leaf
 
-__all__ = ["paged_case", "plain_eff", "check_paged"]
+__all__ = ["paged_case", "plain_eff", "check_paged", "hard_lsh_case",
+           "plain_hard_eff", "check_hard_lsh", "quest_case", "check_quest"]
 
 
 def paged_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
@@ -105,14 +119,7 @@ def check_paged(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
     ref, ref_sel = paged_socket_attend_ref(
         q, kp, vp, bits, vnorm, u, bt, length=length, budget=budget,
         top_k=min(n, int(budget.max())), **kw)
-    if not torch.isfinite(out).all():
-        raise AssertionError("paged_attention: non-finite kernel output")
-    err = (out.double() - ref.double()).abs()
-    lim = attn_tol["atol"] + attn_tol["rtol"] * ref.double().abs()
-    if not bool((err <= lim).all()):
-        raise AssertionError(
-            f"paged_attention: max |err| {err.max().item():.3e} exceeds "
-            f"atol {attn_tol['atol']} + rtol {attn_tol['rtol']} * |ref|")
+    err = _check_out("paged_attention", out, ref, attn_tol)
     sel = sel.reshape(*sel.shape[:2], -1).bool()
     want = torch.minimum(budget.long(), length.long())[:, None]
     if not torch.equal(sel.sum(-1), want.expand(-1, sel.shape[1])):
@@ -120,7 +127,7 @@ def check_paged(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
                              "from min(budget, length)")
     diff = sel != ref_sel
     if not diff.any():
-        return float(err.max().item()), 0
+        return err, 0
     if ties:
         raise AssertionError("paged_attention: tied scores must select bit "
                              "for bit")
@@ -133,4 +140,184 @@ def check_paged(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
     if (diff & ~close).any():
         raise AssertionError("paged_attention: selection differs beyond the "
                              "threshold band")
-    return float(err.max().item()), int(diff.sum().item())
+    return err, int(diff.sum().item())
+
+
+def _check_out(name: str, out: torch.Tensor, ref: torch.Tensor,
+               attn_tol: dict) -> float:
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (out.double() - ref.double()).abs()
+    lim = attn_tol["atol"] + attn_tol["rtol"] * ref.double().abs()
+    if not bool((err <= lim).all()):
+        raise AssertionError(
+            f"{name}: max |err| {err.max().item():.3e} exceeds "
+            f"atol {attn_tol['atol']} + rtol {attn_tol['rtol']} * |ref|")
+    return float(err.max().item())
+
+
+def hard_lsh_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
+                  near: float = 0.25, **kw) -> Tuple[List, dict]:
+    """:func:`paged_case`'s pool with the query hash replaced by its ±1
+    plane signs ``u_signs`` and, unless ``ties``, a ``near`` share of
+    each request's rows re-hashed to agree with its first query head's
+    sign pattern in a random half of the tables (random bits collide in
+    a table with probability 2^-P: without them nearly every score would
+    be 0).  Returns ``(sets, kw)`` like :func:`paged_case`, without
+    ``tau``."""
+    sets, args = paged_case(gen, lengths, nb=nb, **kw)
+    dev = gen.device
+    l, p = args["num_tables"], args["num_planes"]
+    out = []
+    for q, k_pages, v_pages, bits, vnorm, u, bt, length, budget in sets:
+        u_signs = torch.where(u >= 0, 1.0, -1.0)
+        if not kw.get("ties", False):
+            bs = bits.shape[2]
+            for i, n in enumerate(lengths):
+                t = torch.nonzero(torch.rand((n,), generator=gen,
+                                             device=dev) < near).flatten()
+                if not len(t):
+                    continue
+                pattern = u[i, :, 0] >= 0                  # (KVH, L, P)
+                rand = torch.rand((len(t), *pattern.shape), generator=gen,
+                                  device=dev) < 0.5
+                keep = torch.rand((len(t), pattern.shape[0], l, 1),
+                                  generator=gen, device=dev) < 0.5
+                signs = torch.where(keep, pattern[None], rand)
+                blk = bt[i].long()[t // bs]
+                bits[blk, :, t % bs] = hashing.pack_signs(signs)
+        out.append((q, k_pages, v_pages, bits, vnorm, u_signs, bt, length,
+                    budget))
+    del args["tau"]
+    return out, args
+
+
+def plain_hard_eff(case, kw) -> torch.Tensor:
+    """The plain version's effective scores ``count * vnorm`` of the rows
+    the kernel scores (live, neither sink nor window), flattened."""
+    from repro_torch.models.backends.hard_lsh import _hard_collision_scores
+    q, _, _, bits, vnorm, u_signs, bt, length, _ = case
+    cfg = sk.SocketConfig(num_planes=kw["num_planes"],
+                          num_tables=kw["num_tables"])
+    counts = _hard_collision_scores(cfg, gather_block_leaf(bits, bt),
+                                    u_signs).sum(dim=2)
+    eff = counts * gather_block_leaf(vnorm, bt).float()
+    pos = torch.arange(eff.shape[-1], device=q.device)
+    ln = length.long()[:, None, None]
+    scored = (pos >= kw["sink_tokens"]) & (pos < ln - kw["window_tokens"])
+    return eff[scored.expand_as(eff)]
+
+
+def check_hard_lsh(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
+                   attn_tol: dict) -> float:
+    """Hold the hard-LSH kernel's ``(out, sel)`` on ``case`` to the plain
+    version: selection bit for bit with ``min(budget, length)`` rows per
+    (request, head), output within ``attn_tol``.  Returns max |out
+    error|; raises AssertionError on a mismatch."""
+    q, kp, vp, bits, vnorm, u_signs, bt, length, budget = case
+    n = bt.shape[1] * bits.shape[2]
+    ref, ref_sel = paged_hard_lsh_attend_ref(
+        q, kp, vp, bits, vnorm, u_signs, bt, length=length, budget=budget,
+        top_k=min(n, int(budget.max())), **kw)
+    err = _check_out("paged_hard_lsh", out, ref, attn_tol)
+    sel = sel.reshape(*sel.shape[:2], -1).bool()
+    want = torch.minimum(budget.long(), length.long())[:, None]
+    if not torch.equal(sel.sum(-1), want.expand(-1, sel.shape[1])):
+        raise AssertionError("paged_hard_lsh: selected-row counts differ "
+                             "from min(budget, length)")
+    if not torch.equal(sel, ref_sel):
+        raise AssertionError("paged_hard_lsh: selection differs from the "
+                             "plain version's (it must select bit for bit)")
+    return err
+
+
+def quest_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
+               kvh: int = 8, g: int = 4, hd: int = 128, bs: int = 16,
+               ps: int = 16, sink: int = 128, window: int = 128,
+               sparsity: float = 10.0, min_pages: int = 4,
+               ties: bool = False, copies: int = 1) -> Tuple[List, dict]:
+    """Pool, per-page kmin/kmax stats, block tables and queries on
+    ``gen``'s device.  Each set is ``(q, k_pages, v_pages, kmin, kmax,
+    block_table, length, page_budget)``; ``kw`` the keyword arguments of
+    :func:`ops.paged_quest_attend`.  The stats are the min/max over each
+    page's rows; stat rows of pages past a request's length, and of the
+    trash block 0, hold the pool's +-inf fill, as unwritten pages do in
+    the engine.  ``ties``: every block's keys identical, so all scored
+    pages tie exactly.  ``page_budget`` is the static
+    ``quest.page_budget`` of the table's capacity; ``copies`` as in
+    :func:`paged_case`."""
+    dev = gen.device
+    b, ppb = len(lengths), bs // ps
+    need = [-(-n // bs) for n in lengths]
+    nblocks = 1 + copies * sum(need)
+    ids = (torch.randperm(nblocks - 1, generator=gen, device=dev) + 1
+           ).to(torch.int32)
+    k_pages = torch.randn((nblocks, kvh, bs, hd), generator=gen, device=dev)
+    v_pages = torch.randn((nblocks, kvh, bs, hd), generator=gen, device=dev)
+    if ties:
+        k_pages[:] = k_pages[1]
+    pages = k_pages.reshape(nblocks, kvh, ppb, ps, hd)
+    kmin, kmax = pages.amin(dim=3), pages.amax(dim=3)
+    kmin[0], kmax[0] = float("inf"), float("-inf")
+    qcfg = quest_mod.QuestConfig(page_size=ps, sparsity=sparsity,
+                                 sink_tokens=sink, window_tokens=window,
+                                 min_pages=min_pages)
+    n = nb * bs
+    budget = quest_mod.page_budget(qcfg, n // ps, n)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sets, off = [], 0
+    for _ in range(copies):
+        bt = torch.zeros((b, nb), dtype=torch.int32, device=dev)
+        for i, k in enumerate(need):
+            bt[i, :k] = ids[off:off + k]
+            off += k
+            dead = torch.arange(k * ppb, device=dev)
+            dead = dead[dead * ps >= lengths[i]]
+            blk = bt[i].long()[dead // ppb]
+            kmin[blk, :, dead % ppb] = float("inf")
+            kmax[blk, :, dead % ppb] = float("-inf")
+        q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+        sets.append((q, k_pages, v_pages, kmin, kmax, bt, length,
+                     torch.full((b,), budget, dtype=torch.int32,
+                                device=dev)))
+    kw = dict(page_size=ps, scale=hd ** -0.5, sink_tokens=sink,
+              window_tokens=window)
+    return sets, kw
+
+
+def check_quest(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
+                attn_tol: dict) -> float:
+    """Hold the Quest kernel's ``(out, sel)`` on ``case`` to the plain
+    version: exactly ``page_budget`` pages a (request, head) and their
+    live rows selected, the selection bit for bit, the output within
+    ``attn_tol``.  Returns max |out error|; raises AssertionError on a
+    mismatch."""
+    q, kp, vp, kmin, kmax, bt, length, budget = case
+    ps = kw["page_size"]
+    ref, ref_sel = paged_quest_attend_ref(
+        q, kp, vp, kmin, kmax, bt, length=length, page_budget=budget, **kw)
+    err = _check_out("paged_quest", out, ref, attn_tol)
+    sel = sel.reshape(*sel.shape[:2], -1).bool()
+    # page_budget pages, live rows within them (never min(budget, length))
+    state = quest_mod.QuestState(kmin=gather_block_leaf(kmin, bt),
+                                 kmax=gather_block_leaf(kmax, bt))
+    qcfg = quest_mod.QuestConfig(page_size=ps, sink_tokens=kw["sink_tokens"],
+                                 window_tokens=kw["window_tokens"])
+    eff = quest_mod.group_page_scores(qcfg, state, q[:, :, :, None], length)
+    top = torch.sort(eff, dim=-1, descending=True, stable=True).indices
+    kp_max = int(budget.max())
+    chosen = top[..., :kp_max] * ps                     # page starts
+    chosen = torch.where(torch.arange(kp_max, device=q.device)
+                         < budget.long()[:, None, None], chosen, -1)
+    if not bool(((chosen >= 0).sum(-1) == budget.long()[:, None]).all()):
+        raise AssertionError("paged_quest: plain version did not take "
+                             "page_budget pages")
+    live = (length.long()[:, None, None] - chosen).clamp(0, ps)
+    live = torch.where(chosen >= 0, live, 0).sum(-1)
+    if not torch.equal(sel.sum(-1), live):
+        raise AssertionError("paged_quest: selected-row counts differ from "
+                             "the live rows of page_budget pages")
+    if not torch.equal(sel, ref_sel):
+        raise AssertionError("paged_quest: selection differs from the plain "
+                             "version's (it must select bit for bit)")
+    return err

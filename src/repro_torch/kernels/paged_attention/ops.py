@@ -1,16 +1,21 @@
-"""Public wrapper of the fused SOCKET paged-attention kernel.
+"""Public wrappers of the fused paged-attention kernels.
 
-Accepts the serving engine's layouts (5-D decode query, pool leaves,
-per-request block table / length / budget vectors) with the JAX
-wrapper's signature (``repro.kernels.paged_attention.ops
-.paged_socket_attend``).  On CPU tensors it runs the plain version
-(:mod:`.ref`); on CUDA tensors it launches ``paged_attention.cu`` (built
-on first use by :mod:`repro_torch.kernels.build`) or raises.
-``LAUNCHES`` counts kernel launches, so a run can show that it went
-through the kernel.
+* :func:`paged_socket_attend`   — SOCKET (``paged_attention.cu``);
+* :func:`paged_hard_lsh_attend` — hard LSH (``paged_attention.cu``'s
+  hard-LSH mode);
+* :func:`paged_quest_attend`    — Quest (``paged_quest.cu``).
+
+Each accepts the serving engine's layouts (5-D decode query, pool
+leaves, per-request block table / length / budget vectors) with the JAX
+wrapper's signature (``repro.kernels.paged_attention.ops``).  On CPU
+tensors it runs the plain version (:mod:`.ref`); on CUDA tensors it
+launches its kernel (built on first use by
+:mod:`repro_torch.kernels.build`) or raises.  ``LAUNCHES``,
+``HARD_LSH_LAUNCHES`` and ``QUEST_LAUNCHES`` count each kernel's
+launches, so a run can show that it went through the kernel.
 
 The quantized pool mode (``k_scale``/``v_scale``, int8/fp8 pages) comes
-with the quantized-pages slice; given scales, the wrapper raises.
+with the quantized-pages slice; given scales, the wrappers raise.
 """
 
 from __future__ import annotations
@@ -24,25 +29,85 @@ import torch.nn.functional as F
 
 from repro_torch.core import socket as sk
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention.ref import paged_socket_attend_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_socket_attend_ref)
 
-__all__ = ["paged_socket_attend", "launch_paged_socket_attend", "LAUNCHES",
-           "SOURCE"]
+__all__ = ["paged_socket_attend", "launch_paged_socket_attend",
+           "paged_hard_lsh_attend", "launch_paged_hard_lsh_attend",
+           "paged_quest_attend", "launch_paged_quest_attend", "LAUNCHES",
+           "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "SOURCE", "QUEST_SOURCE"]
 
 SOURCE = Path(__file__).with_name("paged_attention.cu")
+QUEST_SOURCE = Path(__file__).with_name("paged_quest.cu")
 LAUNCHES = 0
+HARD_LSH_LAUNCHES = 0
+QUEST_LAUNCHES = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load_library(SOURCE)
     fn = lib.paged_socket_attend_launch
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 +
-                   [ctypes.c_float] * 2 + [ctypes.c_int] * 2 +
-                   [ctypes.c_void_p])
+    fn.argtypes = [_P] * 13 + [_I] * 10 + [_F] * 2 + [_I] * 2 + [_P]
+    fn.restype = ctypes.c_int
+    fn = lib.paged_hard_lsh_attend_launch
+    fn.argtypes = [_P] * 12 + [_I] * 10 + [_F] + [_I] * 2 + [_P]
     fn.restype = ctypes.c_int
     lib.paged_socket_attend_error_string.argtypes = [ctypes.c_int]
     lib.paged_socket_attend_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _quest_library() -> ctypes.CDLL:
+    lib = build.load_library(QUEST_SOURCE)
+    fn = lib.paged_quest_attend_launch
+    fn.argtypes = [_P] * 11 + [_I] * 7 + [_F] + [_I] * 2 + [_P]
+    fn.restype = ctypes.c_int
+    lib.paged_quest_attend_error_string.argtypes = [ctypes.c_int]
+    lib.paged_quest_attend_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _outputs(q, nb: int, bs: int, n_scratch: int, with_selection: bool):
+    """The output (B, KVH, G, hd) f32, the int32 (B, KVH, nb, bs) selection
+    mask or None, and the kernel's f32 (B, KVH, n_scratch) score scratch
+    in device memory (shared memory would cap the context near 56K
+    tokens)."""
+    b, kvh = q.shape[:2]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    sel = (torch.empty((b, kvh, nb, bs), dtype=torch.int32, device=q.device)
+           if with_selection else None)
+    eff = torch.empty((b, kvh, n_scratch), dtype=torch.float32,
+                      device=q.device)
+    return out, sel, eff
+
+
+def _call(fn, name: str, describe, tensors, sel, eff, *scalars) -> None:
+    """Launch ``fn`` on the current stream of the tensors' device; raises
+    with the CUDA error's text when the launch fails."""
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors],
+                 sel.data_ptr() if sel is not None else None, eff.data_ptr(),
+                 *scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: " +
+                           describe(err).decode())
+
+
+def _no_scales(k_scale, v_scale) -> None:
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized K/V pages (k_scale/v_scale) come with the "
+            "quantized-pages slice (ROADMAP.md queue 1 item 5)")
+
+
+def _per_request(x, b: int, dev) -> torch.Tensor:
+    """An int scalar or (B,) vector as a contiguous int32 (B,) tensor."""
+    return torch.as_tensor(x, device=dev).to(torch.int32).expand(
+        b).contiguous()
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
@@ -50,6 +115,92 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _check_pool(q, k_pages, v_pages, block_table) -> None:
+    b, kvh, g, hd = q.shape
+    nblocks, _, bs, _ = k_pages.shape
+    _check("q", q, torch.float32, (b, kvh, g, hd))
+    _check("k_pages", k_pages, torch.float32, (nblocks, kvh, bs, hd))
+    _check("v_pages", v_pages, torch.float32, (nblocks, kvh, bs, hd))
+    if block_table.ndim != 2 or block_table.shape[0] != b:
+        raise ValueError(f"block_table shape {tuple(block_table.shape)} "
+                         f"is not (B={b}, nb)")
+    if b > 65535:
+        raise ValueError(f"B={b} exceeds the grid's y limit 65535")
+    if nblocks * kvh * bs >= 2 ** 31:
+        raise ValueError("the kernel indexes pool rows with int32: "
+                         f"{nblocks * kvh * bs} rows")
+
+
+def _check_bits(bits_pages, vnorm_pages, qhash, num_tables: int,
+                num_planes: int, g: int) -> None:
+    nblocks, kvh, bs, w = bits_pages.shape
+    _check("bits_pages", bits_pages, torch.int32, (nblocks, kvh, bs, w))
+    _check("vnorm_pages", vnorm_pages, torch.bfloat16, (nblocks, kvh, bs))
+    gs, l, p = qhash.shape[2:]
+    if (l, p) != (num_tables, num_planes):
+        raise ValueError(f"query hash shape {tuple(qhash.shape)} does not "
+                         f"end in (L, P) = {(num_tables, num_planes)}")
+    if (w * 32) % p or w * 32 < l * p:
+        raise ValueError(f"packed width {w * 32} bits does not hold whole "
+                         f"tables of P={p} for L={l}")
+    if gs not in (1, g):
+        raise ValueError(f"query hash group axis {gs} must be 1 (pooled) or "
+                         f"G={g}")
+
+
+def _launch_fused(hard: bool, q, k_pages, v_pages, bits_pages, vnorm_pages,
+                  qhash, block_table, length, budget, *, num_tables: int,
+                  num_planes: int, tau: float, scale: float, sink_tokens: int,
+                  window_tokens: int, with_selection: bool):
+    """Launch ``paged_attention.cu`` in its SOCKET mode (``qhash`` = u)
+    or its hard-LSH mode (``qhash`` = u_signs)."""
+    global LAUNCHES, HARD_LSH_LAUNCHES
+    b, kvh, g, hd = q.shape
+    w = bits_pages.shape[3]
+    nb, bs = block_table.shape[1], bits_pages.shape[2]
+    _check_pool(q, k_pages, v_pages, block_table)
+    _check_bits(bits_pages, vnorm_pages, qhash, num_tables, num_planes, g)
+    gs, l, p = qhash.shape[2:]
+    dev = q.device
+    qhash = qhash.to(dtype=torch.float32)
+    if hard:
+        if p >= 32:
+            raise ValueError(f"P={p} planes do not fit a 32-bit sign "
+                             "pattern")
+        # the kernel packs each (g, l) sign pattern itself, over the L
+        # real tables only
+        hashes, tables = [qhash.contiguous()], l
+    else:
+        # the wrapper computes logZ (paged_attention.py:323-328); padded
+        # tables get u = 0 and logZ = 1e30, so they add exp(-1e30) = 0
+        l_pad = (w * 32) // p
+        logz = sk.log_normalizer(qhash, tau)                 # (B,KVH,GS,L)
+        hashes = [F.pad(qhash, (0, 0, 0, l_pad - l)).contiguous(),
+                  F.pad(logz, (0, l_pad - l), value=1e30).contiguous()]
+        tables = l_pad
+    bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
+    length, budget = _per_request(length, b, dev), _per_request(budget, b, dev)
+    out, sel, eff = _outputs(q, nb, bs, nb * bs, with_selection)
+    if b * kvh and nb:
+        lib = _library()
+        tensors = [q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+                   bits_pages.contiguous(), vnorm_pages.contiguous(), *hashes,
+                   bt, length, budget, out]
+        shape = (b, kvh, g, gs, hd, bs, w, nb, tables, p)
+        if hard:
+            _call(lib.paged_hard_lsh_attend_launch, "paged_hard_lsh",
+                  lib.paged_socket_attend_error_string, tensors, sel, eff,
+                  *shape, float(scale), int(sink_tokens), int(window_tokens))
+            HARD_LSH_LAUNCHES += 1
+        else:
+            _call(lib.paged_socket_attend_launch, "paged_attention",
+                  lib.paged_socket_attend_error_string, tensors, sel, eff,
+                  *shape, float(tau), float(scale), int(sink_tokens),
+                  int(window_tokens))
+            LAUNCHES += 1
+    return (out, sel) if with_selection else out
 
 
 def launch_paged_socket_attend(q, k_pages, v_pages, bits_pages, vnorm_pages,
@@ -63,67 +214,104 @@ def launch_paged_socket_attend(q, k_pages, v_pages, bits_pages, vnorm_pages,
     (NB, KVH, bs); u f32 (B, KVH, GS, L, P); block_table (B, nb);
     length, budget (B,).  Returns f32 (B, KVH, G, hd), plus the int32
     (B, KVH, nb, bs) selection mask when ``with_selection``."""
-    global LAUNCHES
+    return _launch_fused(
+        False, q, k_pages, v_pages, bits_pages, vnorm_pages, u, block_table,
+        length, budget, num_tables=num_tables, num_planes=num_planes,
+        tau=tau, scale=scale, sink_tokens=sink_tokens,
+        window_tokens=window_tokens, with_selection=with_selection)
+
+
+def launch_paged_hard_lsh_attend(q, k_pages, v_pages, bits_pages,
+                                 vnorm_pages, u_signs, block_table, length,
+                                 budget, *, num_tables: int, num_planes: int,
+                                 scale: float, sink_tokens: int,
+                                 window_tokens: int,
+                                 with_selection: bool = False):
+    """Launch the CUDA kernel's hard-LSH mode.  As
+    :func:`launch_paged_socket_attend`, with ``u_signs`` f32 ±1
+    ``(B, KVH, GS, L, P)`` in place of ``u``: the kernel packs each (g, l)
+    sign pattern (bit j set where the plane-j sign is +1), the layout of
+    the key's P-bit field."""
+    return _launch_fused(
+        True, q, k_pages, v_pages, bits_pages, vnorm_pages, u_signs,
+        block_table, length, budget, num_tables=num_tables,
+        num_planes=num_planes, tau=1.0, scale=scale, sink_tokens=sink_tokens,
+        window_tokens=window_tokens, with_selection=with_selection)
+
+
+def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
+                              block_table, length, page_budget, *,
+                              page_size: int, scale: float, sink_tokens: int,
+                              window_tokens: int,
+                              with_selection: bool = False):
+    """Launch the Quest CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
+    (NB, KVH, bs, hd) f32; kmin/kmax f32 (NB, KVH, bs / page_size, hd);
+    block_table (B, nb); length, page_budget (B,) or scalars.  Returns f32
+    (B, KVH, G, hd), plus the int32 (B, KVH, nb, bs) selected-rows mask
+    when ``with_selection``."""
+    global QUEST_LAUNCHES
     b, kvh, g, hd = q.shape
-    nblocks, _, bs, w = bits_pages.shape
+    nblocks, _, bs, _ = k_pages.shape
     nb = block_table.shape[1]
-    gs, l, p = u.shape[2:]
-    if (l, p) != (num_tables, num_planes):
-        raise ValueError(f"u shape {tuple(u.shape)} does not end in (L, P) "
-                         f"= {(num_tables, num_planes)}")
-    if (w * 32) % p or w * 32 < l * p:
-        raise ValueError(f"packed width {w * 32} bits does not hold whole "
-                         f"tables of P={p} for L={l}")
-    if gs not in (1, g):
-        raise ValueError(f"u group axis {gs} must be 1 (pooled) or G={g}")
-    _check("q", q, torch.float32, (b, kvh, g, hd))
-    _check("k_pages", k_pages, torch.float32, (nblocks, kvh, bs, hd))
-    _check("v_pages", v_pages, torch.float32, (nblocks, kvh, bs, hd))
-    _check("bits_pages", bits_pages, torch.int32, (nblocks, kvh, bs, w))
-    _check("vnorm_pages", vnorm_pages, torch.bfloat16, (nblocks, kvh, bs))
-    if b > 65535:
-        raise ValueError(f"B={b} exceeds the grid's y limit 65535")
-    if nblocks * kvh * bs >= 2 ** 31:
-        raise ValueError("the kernel indexes pool rows with int32: "
-                         f"{nblocks * kvh * bs} rows")
+    if page_size < 1 or bs % page_size:
+        raise ValueError(f"page_size {page_size} must divide block_size "
+                         f"{bs}")
+    ppb = bs // page_size
+    _check_pool(q, k_pages, v_pages, block_table)
+    _check("kmin_pages", kmin_pages, torch.float32, (nblocks, kvh, ppb, hd))
+    _check("kmax_pages", kmax_pages, torch.float32, (nblocks, kvh, ppb, hd))
     dev = q.device
-    l_pad = (w * 32) // p
-    u = u.to(dtype=torch.float32)
-    # the wrapper computes logZ (paged_attention.py:323-328); padded
-    # tables get u = 0 and logZ = 1e30, so they add exp(-1e30) = 0
-    logz = sk.log_normalizer(u, tau)                         # (B,KVH,GS,L)
-    u_pad = F.pad(u, (0, 0, 0, l_pad - l)).contiguous()
-    logz_pad = F.pad(logz, (0, l_pad - l), value=1e30).contiguous()
     bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
-    length = torch.as_tensor(length, device=dev).to(torch.int32).expand(
-        b).contiguous()
-    budget = torch.as_tensor(budget, device=dev).to(torch.int32).expand(
-        b).contiguous()
-    out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=dev)
-    sel = (torch.empty((b, kvh, nb, bs), dtype=torch.int32, device=dev)
-           if with_selection else None)
-    # per-(request, head) effective-score scratch in device memory: shared
-    # memory would cap the context at ~56K tokens
-    eff = torch.empty((b, kvh, nb * bs), dtype=torch.float32, device=dev)
+    length = _per_request(length, b, dev)
+    budget = _per_request(page_budget, b, dev)
+    # the scratch holds page scores, then selected-page flags
+    out, sel, eff = _outputs(q, nb, bs, nb * ppb, with_selection)
     if b * kvh and nb:
-        lib = _library()
-        args = [q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
-                bits_pages.contiguous(), vnorm_pages.contiguous(), u_pad,
-                logz_pad, bt, length, budget, out]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.paged_socket_attend_launch(
-                *[t.data_ptr() for t in args],
-                sel.data_ptr() if sel is not None else None, eff.data_ptr(),
-                b, kvh, g, gs, hd, bs, w, nb, l_pad, p,
-                float(tau), float(scale), int(sink_tokens),
-                int(window_tokens), stream)
-        if err != 0:
-            raise RuntimeError(
-                "paged_attention kernel launch failed: " +
-                lib.paged_socket_attend_error_string(err).decode())
-        LAUNCHES += 1
+        lib = _quest_library()
+        tensors = [q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+                   kmin_pages.contiguous(), kmax_pages.contiguous(), bt,
+                   length, budget, out]
+        _call(lib.paged_quest_attend_launch, "paged_quest",
+              lib.paged_quest_attend_error_string, tensors, sel, eff, b, kvh,
+              g, hd, bs, int(page_size), nb, float(scale), int(sink_tokens),
+              int(window_tokens))
+        QUEST_LAUNCHES += 1
     return (out, sel) if with_selection else out
+
+
+def _split_q(q):
+    """(B, KVH, G, 1, hd) -> (B, KVH, G, hd), and whether it was 5-D."""
+    if q.ndim != 5:
+        return q, False
+    b, kvh, g, t, hd = q.shape
+    if t != 1:
+        raise ValueError(f"one query step per request, got T={t}")
+    return q.reshape(b, kvh, g, hd), True
+
+
+def _dispatch(q, launch, plain, with_selection: bool):
+    """What the public wrappers share: q as (B, KVH, G, hd); on CUDA
+    tensors ``launch(q, with_selection=...)``, its selection as a bool
+    ``(B, KVH, nb * bs)`` mask; on CPU tensors ``plain(q)`` -> (out,
+    sel); the output back in q's layout."""
+    q, orig5 = _split_q(q)
+    if q.is_cuda:
+        res = launch(q, with_selection=with_selection)
+        out, sel = res if with_selection else (res, None)
+        if sel is not None:
+            sel = sel.reshape(*sel.shape[:2], -1).bool()
+    else:
+        out, sel = plain(q)
+    if orig5:
+        out = out[:, :, :, None]
+    return (out, sel) if with_selection else out
+
+
+def _plain_budget(budget, b: int, n: int) -> dict:
+    """The plain versions' (B,) ``budget`` and static ``top_k``."""
+    budget = torch.as_tensor(budget)
+    return dict(budget=budget.expand(b),
+                top_k=max(min(n, int(budget.max())), 1))
 
 
 def paged_socket_attend(q: torch.Tensor, k_pages: torch.Tensor,
@@ -151,34 +339,79 @@ def paged_socket_attend(q: torch.Tensor, k_pages: torch.Tensor,
     Returns the attention output in q's layout (f32), plus the bool
     ``(B, KVH, nb * bs)`` selection mask when ``with_selection``.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized K/V pages (k_scale/v_scale) come with the "
-            "quantized-pages slice (ROADMAP.md queue 1 item 5)")
-    orig5 = q.ndim == 5
-    if orig5:
-        b, kvh, g, t, hd = q.shape
-        if t != 1:
-            raise ValueError(f"one query step per request, got T={t}")
-        q = q.reshape(b, kvh, g, hd)
+    _no_scales(k_scale, v_scale)
     kw = dict(num_tables=num_tables, num_planes=num_planes, tau=tau,
               scale=scale, sink_tokens=sink_tokens,
               window_tokens=window_tokens)
-    if q.is_cuda:
-        res = launch_paged_socket_attend(
-            q, k_pages, v_pages, bits_pages, vnorm_pages, u, block_table,
-            length, budget, with_selection=with_selection, **kw)
-        out, sel = res if with_selection else (res, None)
-        if sel is not None:
-            sel = sel.reshape(*sel.shape[:2], -1).bool()
-    else:
-        b = q.shape[0]
-        n = block_table.shape[1] * bits_pages.shape[2]
-        top_k = min(n, int(torch.as_tensor(budget).max()))
-        out, sel = paged_socket_attend_ref(
-            q, k_pages, v_pages, bits_pages, vnorm_pages, u, block_table,
-            length=length, budget=torch.as_tensor(budget).expand(b),
-            top_k=max(top_k, 1), **kw)
-    if orig5:
-        out = out[:, :, :, None]
-    return (out, sel) if with_selection else out
+    args = (k_pages, v_pages, bits_pages, vnorm_pages, u, block_table)
+    n = block_table.shape[1] * bits_pages.shape[2]
+    return _dispatch(
+        q, lambda q, **o: launch_paged_socket_attend(
+            q, *args, length, budget, **kw, **o),
+        lambda q: paged_socket_attend_ref(
+            q, *args, length=length, **_plain_budget(budget, q.shape[0], n),
+            **kw),
+        with_selection)
+
+
+def paged_hard_lsh_attend(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, bits_pages: torch.Tensor,
+                          vnorm_pages: torch.Tensor, u_signs: torch.Tensor,
+                          block_table: torch.Tensor, *, length, budget,
+                          num_tables: int, num_planes: int, scale: float,
+                          sink_tokens: int, window_tokens: int,
+                          with_selection: bool = False,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None):
+    """Fused hard-collision score → select → attend for one decode step.
+
+    Same shapes as :func:`paged_socket_attend` except the query-side
+    hash is ``u_signs``: f32 ±1 plane signs ``(B, KVH, GS, L, P)``
+    (``where(u >= 0, +1, -1)`` of the soft hash).
+    """
+    _no_scales(k_scale, v_scale)
+    kw = dict(num_tables=num_tables, num_planes=num_planes, scale=scale,
+              sink_tokens=sink_tokens, window_tokens=window_tokens)
+    args = (k_pages, v_pages, bits_pages, vnorm_pages, u_signs, block_table)
+    n = block_table.shape[1] * bits_pages.shape[2]
+    return _dispatch(
+        q, lambda q, **o: launch_paged_hard_lsh_attend(
+            q, *args, length, budget, **kw, **o),
+        lambda q: paged_hard_lsh_attend_ref(
+            q, *args, length=length, **_plain_budget(budget, q.shape[0], n),
+            **kw),
+        with_selection)
+
+
+def paged_quest_attend(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, kmin_pages: torch.Tensor,
+                       kmax_pages: torch.Tensor, block_table: torch.Tensor, *,
+                       length, page_budget, page_size: int, scale: float,
+                       sink_tokens: int, window_tokens: int,
+                       with_selection: bool = False,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None):
+    """Fused page-granular Quest select → attend for one decode step.
+
+    Shapes:
+      q              (B, KVH, G, 1, hd) or (B, KVH, G, hd)
+      k/v_pages      (NB, KVH, bs, hd)
+      kmin/kmax      (NB, KVH, bs / page_size, hd) per-page key bounds
+      block_table    int (B, nb)  (trash-padded with block 0)
+      length         int scalar or (B,)
+      page_budget    int scalar or (B,): pages to attend (the static
+                     ``baselines.quest.page_budget``)
+
+    Returns the attention output in q's layout (f32), plus the bool
+    ``(B, KVH, nb * bs)`` selected-rows mask when ``with_selection``.
+    """
+    _no_scales(k_scale, v_scale)
+    kw = dict(page_size=page_size, scale=scale, sink_tokens=sink_tokens,
+              window_tokens=window_tokens)
+    args = (k_pages, v_pages, kmin_pages, kmax_pages, block_table)
+    return _dispatch(
+        q, lambda q, **o: launch_paged_quest_attend(
+            q, *args, length, page_budget, **kw, **o),
+        lambda q: paged_quest_attend_ref(
+            q, *args, length=length, page_budget=page_budget, **kw),
+        with_selection)

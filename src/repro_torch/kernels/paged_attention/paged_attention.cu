@@ -1,8 +1,11 @@
-// Fused SOCKET paged decode attention for Hopper (sm_90a), CUDA C++.
+// Fused SOCKET and hard-LSH paged decode attention for Hopper (sm_90a),
+// CUDA C++.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention/
 // paged_attention.py (_fused_kernel with mode="socket", launched by
-// _fused_call from paged_attention_pallas).  For one decode step of the
+// _fused_call from paged_attention_pallas) and, as Mode::kHardLsh, the
+// same kernel's mode="hard_lsh" reached from paged_hard_lsh.py
+// (paged_hard_lsh_pallas).  For one decode step of the
 // continuous engine it runs, per (request b, KV head h), the whole SOCKET
 // decode pipeline over the request's pages, reached through its block table:
 //
@@ -21,6 +24,18 @@
 //              softmax (m, l, acc) for the G query heads of the group; the
 //              output is acc / max(l, 1e-30).
 //
+// Hard LSH (Mode::kHardLsh) differs in the score term only: a table
+// collides when the key's P-bit field equals the query's sign pattern
+// (bit j set where the query's plane-j sign u_signs[g, l, j] is +1, packed
+// per (g, l) while the block stages it in shared memory), and
+//   eff[t] = vnorm[t] * sum_g sum_{l < L} 1[field_tl == pattern_gl],
+// one integer compare per (token, g, l) over the L real tables only (a
+// compare against a zero pattern would count the padded tables, whose
+// key bits are 0).  The counts are small integers, exact in f32, so the
+// scores and the selection equal the plain version's bit for bit.  The
+// hard-LSH pass moves the same bytes as the SOCKET one and is bound by
+// them.
+//
 // Selection is exactly repro.core.socket.value_aware_topk's; nothing but the
 // output (and, for tests, the selection mask) leaves the kernel except the
 // eff scratch (B, KVH, nb*bs) f32 in device memory, which the wrapper
@@ -29,12 +44,14 @@
 // What bounds it on this card: bytes.  The function must read, per request
 // and head, the bits and vnorm of every scored token (W*4 + 2 bytes: 82 B at
 // P=10, L=60; the sink and window rows are selected by position and need
-// neither) and only the selected K/V rows, forced ones included (2*hd*4
-// bytes each: 1 KB at hd=128 in fp32).  At the continuous path (8 requests
-// of 1-4K tokens, 8 KV heads, 256-410 rows selected per request and head)
-// that is 12.1 MB of bits/vnorm plus 20.2 MB of K/V rows: ~10 us at
-// 3.35 TB/s.  The kernel itself also reads the sink/window rows' bits (it
-// loads whole tiles).  The scoring needs one FMA per (scored token, g, l)
+// neither, nor does any row of a request whose budget is no more than its
+// sink and window rows) and only the selected K/V rows, forced ones
+// included (2*hd*4 bytes each: 1 KB at hd=128 in fp32).  At the continuous
+// path (8 requests of 1-4K tokens, 8 KV heads, 256-410 rows selected per
+// request and head; the 1K and 2K requests select only their 256 forced
+// rows) that is 8.7 MB of bits/vnorm plus 20.2 MB of K/V rows: ~9 us at
+// 3.35 TB/s.  The kernel itself also reads the forced rows' bits (it
+// loads whole tiles) and scores every request.  The scoring needs one FMA per (scored token, g, l)
 // with P split into table lookups; this simple kernel spends G*l_pad*P
 // sign-adds and G*l_pad exponentials per token, like socket_score.cu, so
 // its score pass is bound by its own operations.
@@ -44,7 +61,8 @@
 //     TPU's sequential page axis becomes loops inside the block, and 16
 //     warps per block hide the latency of the score pass's chains;
 //   * u and logZ (padded tables: u = 0, logZ = 1e30, computed by the
-//     wrapper) and q are staged in shared memory and read as broadcasts;
+//     wrapper), or hard LSH's sign patterns, and q are staged in shared
+//     memory and read as broadcasts;
 //   * bit rows are copied tile by tile into shared memory with coalesced
 //     32-bit loads through the block table (a page's rows are contiguous);
 //   * rows at or past length are never read: their key is a constant, so
@@ -60,86 +78,25 @@
 // (NB, KVH, bs, hd); bits uint32 (NB, KVH, bs, W) (the port stores int32
 // with the same bit pattern; flat bit f = l*P + p is bit f%32 of word f/32);
 // vnorm bf16 (NB, KVH, bs); u_pad f32 (B, KVH, GS, l_pad, P) with GS = G
-// (kvhead) or 1 (pooled); logz_pad f32 (B, KVH, GS, l_pad); bt int32
-// (B, nb); length, budget int32 (B,).  The pool holds fewer than 2^31 rows
+// (kvhead) or 1 (pooled); logz_pad f32 (B, KVH, GS, l_pad); hard LSH
+// takes u_signs f32 +-1 (B, KVH, GS, L, P) in u_pad's place and no logZ;
+// bt int32 (B, nb); length, budget int32 (B,).  The pool holds fewer than 2^31 rows
 // (NB * KVH * bs; the wrapper checks), so a row index is an int.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include "paged_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;
+using paged::kNegInf;
+using paged::kThreads;
+using paged::kWarps;
 
-// Scoring mode of the fused pass; "hard_lsh" (hard collision counts from the
-// same packed bits) is a later specialization of table_term.
-enum class Mode { kSocket };
-
-template <Mode M>
-__device__ __forceinline__ float table_term(float dot, float logz, float tau);
-
-template <>
-__device__ __forceinline__ float table_term<Mode::kSocket>(float dot,
-                                                           float logz,
-                                                           float tau) {
-  return expf(dot / tau - logz);
-}
-
-// Order-preserving f32 -> uint32 map (the TPU kernel's _sort_key).
-__device__ __forceinline__ uint32_t sort_key(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return (u >> 31) ? ~u : (u ^ 0x80000000u);
-}
-
-__device__ __forceinline__ float bf16_to_float(uint16_t h) {
-  return __uint_as_float(static_cast<uint32_t>(h) << 16);
-}
-
-// Block-wide sum; every thread gets the result.  red: kWarps ints.
-__device__ int block_sum(int v, int* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();                        // earlier readers of red are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int s = 0;
-  for (int i = 0; i < kWarps; ++i) s += red[i];
-  return s;
-}
-
-// Block-wide exclusive prefix sum in thread order; *total gets the sum.
-__device__ int block_exclusive_scan(int v, int* red, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += n;
-  }
-  __syncthreads();
-  if (lane == 31) red[warp] = inc;
-  __syncthreads();
-  int before = 0, sum = 0;
-  for (int i = 0; i < kWarps; ++i) {
-    const int r = red[i];
-    if (i < warp) before += r;
-    sum += r;
-  }
-  *total = sum;
-  return before + inc - v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// Scoring mode of the fused pass.
+enum class Mode { kSocket, kHardLsh };
 
 template <Mode M>
 __global__ void __launch_bounds__(kThreads)
@@ -148,28 +105,28 @@ paged_socket_kernel(const float* __restrict__ q,
                     const float* __restrict__ v_pages,
                     const uint32_t* __restrict__ bits_pages,
                     const uint16_t* __restrict__ vnorm_pages,
-                    const float* __restrict__ u_pad,
+                    const float* __restrict__ qhash,
                     const float* __restrict__ logz_pad,
                     const int* __restrict__ bt,
                     const int* __restrict__ lengths,
                     const int* __restrict__ budgets,
                     float* __restrict__ out, int* __restrict__ sel_out,
                     float* __restrict__ eff_scr, int kvh, int g, int gs,
-                    int hd, int bs, int w, int nb, int l_pad, int p,
+                    int hd, int bs, int w, int nb, int nl, int p,
                     float tau, float scale, int sink, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* su = reinterpret_cast<float*>(smem);   // (GS, l_pad, P)
-  float* slogz = su + gs * l_pad * p;            // (GS, l_pad)
-  float* sq = slogz + gs * l_pad;                // (G, hd)
-  float* sacc = sq + g * hd;                     // (G, hd)
-  float* ss = sacc + g * hd;                     // (G, kThreads) tile scores
-  float* sm = ss + g * kThreads;                 // (G) running max
-  float* sl = sm + g;                            // (G) running sum
-  float* salpha = sl + g;                        // (G) rescale factor
-  int* srow = reinterpret_cast<int*>(salpha + g);  // (kThreads) selected
-                                                   // rows' pool indices
-  int* red = srow + kThreads;                    // (kWarps)
-  uint32_t* swords = reinterpret_cast<uint32_t*>(red + kWarps);  // tile bits
+  paged::Softmax sm_state;
+  int *srow, *red;
+  unsigned char* rest =
+      paged::carve_softmax(smem, g, hd, &sm_state, &srow, &red);
+  // query hash over the nl tables scored (SOCKET: l_pad, hard LSH: L):
+  // u (GS, nl, P) and logZ (GS, nl), or the sign patterns (GS, nl)
+  const int u_words = M == Mode::kSocket ? gs * nl * p : gs * nl;
+  const int z_words = M == Mode::kSocket ? gs * nl : 0;
+  float* su = reinterpret_cast<float*>(rest);
+  uint32_t* spat = reinterpret_cast<uint32_t*>(rest);
+  float* slogz = su + u_words;
+  uint32_t* swords = reinterpret_cast<uint32_t*>(slogz + z_words);
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int n_total = nb * bs;
@@ -179,19 +136,20 @@ paged_socket_kernel(const float* __restrict__ q,
   const int* btb = bt + static_cast<size_t>(b) * nb;
   float* eff = eff_scr + bh * n_total;
 
-  const float* ub = u_pad + bh * gs * l_pad * p;
-  for (int i = tid; i < gs * l_pad * p; i += kThreads) su[i] = ub[i];
-  const float* lb = logz_pad + bh * gs * l_pad;
-  for (int i = tid; i < gs * l_pad; i += kThreads) slogz[i] = lb[i];
-  const float* qb = q + bh * g * hd;
-  for (int i = tid; i < g * hd; i += kThreads) {
-    sq[i] = qb[i];
-    sacc[i] = 0.f;
+  const float* ub = qhash + bh * gs * nl * p;
+  if (M == Mode::kSocket) {
+    for (int i = tid; i < u_words; i += kThreads) su[i] = ub[i];
+    const float* lb = logz_pad + bh * z_words;
+    for (int i = tid; i < z_words; i += kThreads) slogz[i] = lb[i];
+  } else {
+    for (int i = tid; i < u_words; i += kThreads) {
+      uint32_t pat = 0;
+      for (int j = 0; j < p; ++j) pat |= (ub[i * p + j] > 0.f ? 1u : 0u) << j;
+      spat[i] = pat;
+    }
   }
-  if (tid < g) {
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
-  }
+  paged::softmax_init(sm_state, q + bh * g * hd, g, hd);
+  const uint32_t pmask = p < 32 ? (1u << p) - 1u : 0xffffffffu;
 
   // ---- 1. score every valid token into eff --------------------------------
   for (int n0 = 0; n0 < length; n0 += kThreads) {
@@ -212,24 +170,30 @@ paged_socket_kernel(const float* __restrict__ q,
       } else {
         const uint32_t* row = swords + tid * w;
         float score = 0.f;
+        int hits = 0;
         for (int gg = 0; gg < gs; ++gg) {
           float sg = 0.f;
-          for (int tb = 0; tb < l_pad; ++tb) {
+          for (int tb = 0; tb < nl; ++tb) {
             const int f0 = tb * p, w0 = f0 >> 5, b0 = f0 & 31;
             uint64_t two = row[w0];
             if (b0 + p > 32) two |= static_cast<uint64_t>(row[w0 + 1]) << 32;
             const uint32_t field = static_cast<uint32_t>(two >> b0);
-            const float* ut = su + (gg * l_pad + tb) * p;
-            float dot = 0.f;
-            for (int j = 0; j < p; ++j)
-              dot += ((field >> j) & 1u) ? ut[j] : -ut[j];
-            sg += table_term<M>(dot, slogz[gg * l_pad + tb], tau);
+            if (M == Mode::kSocket) {
+              const float* ut = su + (gg * nl + tb) * p;
+              float dot = 0.f;
+              for (int j = 0; j < p; ++j)
+                dot += ((field >> j) & 1u) ? ut[j] : -ut[j];
+              sg += expf(dot / tau - slogz[gg * nl + tb]);
+            } else {
+              hits += (field & pmask) == spat[gg * nl + tb];
+            }
           }
           score += sg;
         }
         const size_t vrow = (static_cast<size_t>(btb[t / bs]) * kvh + h) *
                                 bs + t % bs;
-        e = score * bf16_to_float(vnorm_pages[vrow]);
+        const float vn = paged::bf16_to_float(vnorm_pages[vrow]);
+        e = M == Mode::kSocket ? score * vn : static_cast<float>(hits) * vn;
       }
       eff[t] = e;
     }
@@ -238,24 +202,25 @@ paged_socket_kernel(const float* __restrict__ q,
 
   // ---- 2. radix-select the budget-th largest key --------------------------
   // rows at or past length all hold eff = -1e30: one key, n_inv of them
-  const uint32_t k_inv = sort_key(kNegInf);
+  const uint32_t k_inv = paged::sort_key(kNegInf);
   const int n_inv = n_total - length;
   uint32_t prefix = 0;
   for (int s = 31; s >= 0; --s) {
     const uint32_t cand = prefix | (1u << s);
     int c = 0;
-    for (int t = tid; t < length; t += kThreads) c += sort_key(eff[t]) >= cand;
-    c = block_sum(c, red) + (k_inv >= cand ? n_inv : 0);
+    for (int t = tid; t < length; t += kThreads)
+      c += paged::sort_key(eff[t]) >= cand;
+    c = paged::block_sum(c, red) + (k_inv >= cand ? n_inv : 0);
     if (c >= budget) prefix = cand;
   }
   const uint32_t thr = prefix;
   int gt = 0;
-  for (int t = tid; t < length; t += kThreads) gt += sort_key(eff[t]) > thr;
+  for (int t = tid; t < length; t += kThreads)
+    gt += paged::sort_key(eff[t]) > thr;
   const int ties_needed =
-      budget - (block_sum(gt, red) + (k_inv > thr ? n_inv : 0));
+      budget - (paged::block_sum(gt, red) + (k_inv > thr ? n_inv : 0));
 
   // ---- 3. attend over the selected rows, in logical order -----------------
-  const int warp = tid >> 5, lane = tid & 31;
   int ties_seen = 0;
   for (int n0 = 0; n0 < length; n0 += kThreads) {
     const int t = n0 + tid;
@@ -264,69 +229,26 @@ paged_socket_kernel(const float* __restrict__ q,
     int is_eq = 0;
     if (t < length) {
       e = eff[t];
-      key = sort_key(e);
+      key = paged::sort_key(e);
       is_eq = key == thr;
     }
     int eq_total;
-    const int rank = ties_seen + block_exclusive_scan(is_eq, red, &eq_total);
+    const int rank =
+        ties_seen + paged::block_exclusive_scan(is_eq, red, &eq_total);
     ties_seen += eq_total;
     const int is_sel = t < length &&
                        (key > thr || (is_eq && rank < ties_needed)) &&
                        e > -5e29f;
     if (sel_out != nullptr && t < length) sel_out[bh * n_total + t] = is_sel;
     int cnt;
-    const int slot = block_exclusive_scan(is_sel, red, &cnt);
+    const int slot = paged::block_exclusive_scan(is_sel, red, &cnt);
     if (is_sel) srow[slot] = (btb[t / bs] * kvh + h) * bs + t % bs;
     __syncthreads();
     if (cnt == 0) continue;               // uniform across the block
-
-    // scores of the tile's selected rows: one warp per row
-    for (int r = warp; r < cnt; r += kWarps) {
-      const float* kr = k_pages + static_cast<size_t>(srow[r]) * hd;
-      for (int gg = 0; gg < g; ++gg) {
-        float d = 0.f;
-        for (int i = lane; i < hd; i += 32) d += sq[gg * hd + i] * kr[i];
-        d = warp_sum(d);
-        if (lane == 0) ss[gg * kThreads + r] = d * scale;
-      }
-    }
-    __syncthreads();
-    // online-softmax statistics: one warp per query head
-    for (int gg = warp; gg < g; gg += kWarps) {
-      float mx = kNegInf;
-      for (int r = lane; r < cnt; r += 32) mx = fmaxf(mx, ss[gg * kThreads + r]);
-      mx = warp_max(mx);
-      const float m_prev = sm[gg];
-      const float m_new = fmaxf(m_prev, mx);
-      float ps = 0.f;
-      for (int r = lane; r < cnt; r += 32) {
-        const float pr = expf(ss[gg * kThreads + r] - m_new);
-        ss[gg * kThreads + r] = pr;
-        ps += pr;
-      }
-      ps = warp_sum(ps);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        salpha[gg] = alpha;
-        sl[gg] = sl[gg] * alpha + ps;
-        sm[gg] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + P V, threads over (g, d)
-    for (int i = tid; i < g * hd; i += kThreads) {
-      const int gg = i / hd, d = i - gg * hd;
-      float a = sacc[i] * salpha[gg];
-      for (int r = 0; r < cnt; ++r)
-        a += ss[gg * kThreads + r] *
-             v_pages[static_cast<size_t>(srow[r]) * hd + d];
-      sacc[i] = a;
-    }
+    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, g, hd, scale);
   }
   __syncthreads();
-  float* ob = out + bh * g * hd;
-  for (int i = tid; i < g * hd; i += kThreads)
-    ob[i] = sacc[i] / fmaxf(sl[i / hd], 1e-30f);
+  paged::softmax_store(sm_state, out + bh * g * hd, g, hd);
   if (sel_out != nullptr)
     for (int t = length + tid; t < n_total; t += kThreads)
       sel_out[bh * n_total + t] = 0;
@@ -335,16 +257,16 @@ paged_socket_kernel(const float* __restrict__ q,
 template <Mode M>
 int launch(const float* q, const float* k_pages, const float* v_pages,
            const uint32_t* bits_pages, const uint16_t* vnorm_pages,
-           const float* u_pad, const float* logz_pad, const int* bt,
+           const float* qhash, const float* logz_pad, const int* bt,
            const int* lengths, const int* budgets, float* out, int* sel,
            float* eff, int b, int kvh, int g, int gs, int hd, int bs, int w,
-           int nb, int l_pad, int p, float tau, float scale, int sink,
+           int nb, int nl, int p, float tau, float scale, int sink,
            int window, cudaStream_t stream) {
+  const int u_words = M == Mode::kSocket ? gs * nl * p : gs * nl;
+  const int z_words = M == Mode::kSocket ? gs * nl : 0;
   const size_t smem =
-      static_cast<size_t>(gs * l_pad * p + gs * l_pad + 2 * g * hd +
-                          g * kThreads + 3 * g) * sizeof(float) +
-      static_cast<size_t>(kThreads + kWarps) * sizeof(int) +
-      static_cast<size_t>(kThreads) * w * sizeof(uint32_t);
+      paged::softmax_smem_bytes(g, hd) +
+      static_cast<size_t>(u_words + z_words + kThreads * w) * 4;
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -355,9 +277,9 @@ int launch(const float* q, const float* k_pages, const float* v_pages,
   }
   const dim3 grid(kvh, b);
   paged_socket_kernel<M><<<grid, kThreads, smem, stream>>>(
-      q, k_pages, v_pages, bits_pages, vnorm_pages, u_pad, logz_pad, bt,
-      lengths, budgets, out, sel, eff, kvh, g, gs, hd, bs, w, nb, l_pad, p,
-      tau, scale, sink, window);
+      q, k_pages, v_pages, bits_pages, vnorm_pages, qhash, logz_pad, bt,
+      lengths, budgets, out, sel, eff, kvh, g, gs, hd, bs, w, nb, nl, p, tau,
+      scale, sink, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,8 +302,27 @@ int paged_socket_attend_launch(const float* q, const float* k_pages,
   return launch<Mode::kSocket>(
       q, k_pages, v_pages, static_cast<const uint32_t*>(bits_pages),
       static_cast<const uint16_t*>(vnorm_pages), u_pad, logz_pad, bt,
-      lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, l_pad,
-      p, tau, scale, sink, window, static_cast<cudaStream_t>(stream));
+      lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, l_pad, p,
+      tau, scale, sink, window, static_cast<cudaStream_t>(stream));
+}
+
+// As paged_socket_attend_launch, with u_signs f32 +-1 (B, KVH, GS, l, P)
+// (the query's plane signs; only the l real tables, so padded tables are
+// never scored) in place of u and logZ.
+int paged_hard_lsh_attend_launch(const float* q, const float* k_pages,
+                                 const float* v_pages, const void* bits_pages,
+                                 const void* vnorm_pages,
+                                 const float* u_signs, const int* bt,
+                                 const int* lengths, const int* budgets,
+                                 float* out, int* sel, float* eff, int b,
+                                 int kvh, int g, int gs, int hd, int bs,
+                                 int w, int nb, int l, int p, float scale,
+                                 int sink, int window, void* stream) {
+  return launch<Mode::kHardLsh>(
+      q, k_pages, v_pages, static_cast<const uint32_t*>(bits_pages),
+      static_cast<const uint16_t*>(vnorm_pages), u_signs, nullptr, bt,
+      lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, l, p,
+      1.f, scale, sink, window, static_cast<cudaStream_t>(stream));
 }
 
 const char* paged_socket_attend_error_string(int code) {

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the fused SOCKET paged-attention kernel.
+"""Plain PyTorch versions of the fused paged-attention kernels.
 
-Mirrors ``repro.kernels.paged_attention.ref.paged_socket_attend_ref``:
+:func:`paged_socket_attend_ref` mirrors
+``repro.kernels.paged_attention.ref.paged_socket_attend_ref``:
 it materializes the logical per-request views that the kernel never
 builds, then runs the unfused composition the kernel replaces —
 factorized soft-collision scoring (:func:`socket_score_ref`) →
@@ -12,6 +13,11 @@ It returns the attention output and the selected-token mask, so a test
 can hold the kernel's *selection* to this one bit for bit and its output
 to a float tolerance (the kernel folds rows in logical order, this
 version in selection-rank order).
+
+:func:`paged_hard_lsh_attend_ref` swaps the soft score for the hard-LSH
+backend's collision counts, and :func:`paged_quest_attend_ref` runs
+Quest's page selection (:func:`repro_torch.baselines.quest.select_tokens`)
+in place of scoring and top-k; both mirror their JAX namesakes.
 """
 
 from __future__ import annotations
@@ -20,12 +26,14 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.baselines import quest as quest_mod
 from repro_torch.core import socket as sk
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 from repro_torch.models.backends.base import gather_block_leaf
 
-__all__ = ["paged_socket_attend_ref"]
+__all__ = ["paged_socket_attend_ref", "paged_hard_lsh_attend_ref",
+           "paged_quest_attend_ref"]
 
 
 def paged_socket_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -60,21 +68,102 @@ def paged_socket_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
     cfg = sk.SocketConfig(num_planes=num_planes, num_tables=num_tables,
                           tau=tau, sink_tokens=sink_tokens,
                           window_tokens=window_tokens)
-    dev = q.device
+    return _select_attend(cfg, q, kc, vc, scores, vnorm, length=length,
+                          budget=budget, top_k=top_k, scale=scale)
+
+
+def _select_attend(cfg, q, kc, vc, scores, vnorm, *, length, budget,
+                   top_k, scale):
+    """value_aware_topk over ``scores * vnorm`` ``(B, KVH, N)``, then
+    attention over the selected rows of the logical K/V views."""
+    b, kvh, g, hd = q.shape
+    n = scores.shape[-1]
     length = torch.as_tensor(length, dtype=torch.int32,
-                             device=dev).expand(b)
+                             device=q.device).expand(b)
     budget = torch.as_tensor(budget, dtype=torch.int32,
-                             device=dev).expand(b)
+                             device=q.device).expand(b)
     idx, mask = sk.value_aware_topk(cfg, scores, vnorm, k=top_k,
                                     length=length, n_total=n, budget=budget)
+    return _attend_rows(q, kc, vc, idx, mask, scale=scale)
 
+
+def _attend_rows(q, kc, vc, idx, mask, *, scale):
+    """Masked attention of q ``(B, KVH, G, hd)`` over rows ``idx`` ``(B,
+    KVH, K)`` of the logical views; returns (out, selected row mask)."""
+    b, kvh, g, hd = q.shape
+    k = idx.shape[-1]
     rows = idx[..., None].expand(*idx.shape, hd)
     k_sel = torch.gather(kc, 2, rows)
     v_sel = torch.gather(vc, 2, rows)
     out = flash_decode_ref(q.reshape(b * kvh, g, hd),
-                           k_sel.reshape(b * kvh, top_k, hd),
-                           v_sel.reshape(b * kvh, top_k, hd),
-                           mask.reshape(b * kvh, top_k), scale=scale)
-    selected = torch.zeros((b, kvh, n), dtype=torch.bool, device=dev)
+                           k_sel.reshape(b * kvh, k, hd),
+                           v_sel.reshape(b * kvh, k, hd),
+                           mask.reshape(b * kvh, k), scale=scale)
+    selected = torch.zeros((b, kvh, kc.shape[2]), dtype=torch.bool,
+                           device=q.device)
     selected.scatter_(2, idx, mask)
     return out.reshape(b, kvh, g, hd), selected
+
+
+def paged_hard_lsh_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, bits_pages: torch.Tensor,
+                              vnorm_pages: torch.Tensor, u_signs: torch.Tensor,
+                              block_table: torch.Tensor, *, length, budget,
+                              num_tables: int, num_planes: int, scale: float,
+                              sink_tokens: int, window_tokens: int, top_k: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same shapes as :func:`ops.paged_hard_lsh_attend` plus ``top_k``:
+    the socket composition with the soft score replaced by the backend's
+    hard collision counts (``u_signs`` f32 ±1 ``(B, KVH, G, L, P)``)."""
+    from repro_torch.models.backends.hard_lsh import _hard_collision_scores
+    if q.ndim == 5:
+        q = q[:, :, :, 0]
+    bits = gather_block_leaf(bits_pages, block_table)        # (B,KVH,N,W)
+    vnorm = gather_block_leaf(vnorm_pages, block_table).float()
+    kc = gather_block_leaf(k_pages, block_table)
+    vc = gather_block_leaf(v_pages, block_table)
+    cfg = sk.SocketConfig(num_planes=num_planes, num_tables=num_tables,
+                          tau=1.0, sink_tokens=sink_tokens,
+                          window_tokens=window_tokens)
+    scores = _hard_collision_scores(cfg, bits, u_signs).sum(dim=2)
+    return _select_attend(cfg, q, kc, vc, scores, vnorm, length=length,
+                          budget=budget, top_k=top_k, scale=scale)
+
+
+def paged_quest_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, kmin_pages: torch.Tensor,
+                           kmax_pages: torch.Tensor,
+                           block_table: torch.Tensor, *, length, page_budget,
+                           page_size: int, scale: float, sink_tokens: int,
+                           window_tokens: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same arguments as :func:`ops.paged_quest_attend`: the logical
+    kmin/kmax views through ``select_tokens`` (``page_budget`` pages;
+    a ``(B,)`` budget takes its largest and masks each request's pages
+    past its own), then masked attention over the selected rows.  Where
+    the JAX oracle takes ``sparsity``/``min_pages``, this one takes the
+    budget they give (``quest.page_budget``), as the kernel does."""
+    if q.ndim == 4:
+        q = q[:, :, :, None]                          # (B,KVH,G,1,hd)
+    b = q.shape[0]
+    kc = gather_block_leaf(k_pages, block_table)      # (B,KVH,N,hd)
+    vc = gather_block_leaf(v_pages, block_table)
+    state = quest_mod.QuestState(
+        kmin=gather_block_leaf(kmin_pages, block_table),
+        kmax=gather_block_leaf(kmax_pages, block_table))
+    n = kc.shape[2]
+    qcfg = quest_mod.QuestConfig(page_size=page_size,
+                                 sink_tokens=sink_tokens,
+                                 window_tokens=window_tokens)
+    length = torch.as_tensor(length, dtype=torch.int32,
+                             device=q.device).expand(b)
+    if isinstance(page_budget, int):     # no host sync: CUDA-graph safe
+        idx, mask = quest_mod.select_tokens(qcfg, state, q, length=length,
+                                            n=n, k_pages=page_budget)
+    else:
+        budget = torch.as_tensor(page_budget, device=q.device).expand(b)
+        idx, mask = quest_mod.select_tokens(qcfg, state, q, length=length,
+                                            n=n, k_pages=int(budget.max()))
+        rank = torch.arange(idx.shape[-1], device=q.device) // page_size
+        mask = mask & (rank < budget[:, None, None])
+    return _attend_rows(q[:, :, :, 0], kc, vc, idx, mask, scale=scale)

@@ -3,7 +3,7 @@
 Static path: prefills a batch, then times decode steps with CUDA events
 and traces a few of them with ``torch.profiler``: device time by kernel,
 grouped into the path's parts (cuBLAS/CUTLASS matrix products, SOCKET
-scoring, top-k sort, gathers, flash decode, the fused paged kernel, the
+scoring, top-k sort, gathers, flash decode, the fused paged kernels, the
 rest), and the device's busy share of a step.  Each backend in
 ``BACKENDS`` (SOCKET with both kernels on, and dense) runs on the same
 weights and prompt, at chip_smoke.py's main-path shapes (llama31-8b,
@@ -11,8 +11,9 @@ batch 2, prompt 8192).
 
 Continuous engine: the same weights through ``ContinuousBatchingEngine``
 at chip_smoke.py's continuous case (``launch.serve.card_continuous_case``:
-``socket_fused``, 8 requests of 1024-4096 prompt tokens, chunks of 512);
-the run ends once all 8 decode together, and that decode iteration is
+8 requests of 1024-4096 prompt tokens, chunks of 512), once for each
+fused backend in ``CONTINUOUS_BACKENDS`` (SOCKET, hard LSH, Quest); each
+run ends once all 8 decode together, and that decode iteration is
 replayed (it rewrites the same rows) — timed and traced like a static
 step.
 
@@ -24,6 +25,7 @@ Needs a CUDA card.  Prints one JSON line per path.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 from collections import defaultdict
@@ -41,10 +43,13 @@ __all__ = ["kernel_part", "run_backend", "run_continuous", "main"]
 
 ARCH, BATCH, PROMPT_LEN, Q_CHUNK = "llama31-8b", 2, 8192, 512
 BACKENDS = ("socket", "dense")
+CONTINUOUS_BACKENDS = ("socket_fused", "hard_lsh_fused", "quest_fused")
 TRACED_STEPS, TIMED_STEPS = 4, 16
 
 # kernel-name substrings -> part of the decode path (first match wins)
 PARTS = (
+    ("paged_quest", ("paged_quest_kernel",)),
+    # paged_attention.cu's kernel, in SOCKET or hard-LSH mode
     ("paged_attention", ("paged_socket_kernel",)),
     ("socket_score", ("socket_score",)),
     ("flash_decode", ("_split_kernel", "_combine_kernel")),
@@ -135,12 +140,13 @@ def run_backend(cfg, params, prompt, steps, timed_steps):
     return _breakdown(step_ms, wall_ms, by_kernel, steps)
 
 
-def run_continuous(params, seed, steps, timed_steps, device):
-    """The continuous engine's full-width decode iteration (see the module
-    docstring), replayed ``timed_steps`` times under CUDA events and
-    ``steps`` times under the profiler."""
+def run_continuous(params, seed, steps, timed_steps, device,
+                   backend="socket_fused"):
+    """The continuous engine's full-width decode iteration with
+    ``backend`` (see the module docstring), replayed ``timed_steps``
+    times under CUDA events and ``steps`` times under the profiler."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
-    cfg, reqs = card_continuous_case(get_config(ARCH), seed, 64)
+    cfg, reqs = card_continuous_case(get_config(ARCH), seed, 64, backend)
     engine = ContinuousBatchingEngine(cfg, params=params, device=device)
     bs = cfg.serving.block_size
     snap = {}
@@ -195,10 +201,14 @@ def main(argv=None):
                           "prompt_len": PROMPT_LEN,
                           "device": device_name(dev), "card": card,
                           **row}), flush=True)
-    row = run_continuous(params, args.seed, TRACED_STEPS, TIMED_STEPS, dev)
-    print(json.dumps({"arch": ARCH, "engine": "continuous",
-                      "backend": "socket_fused", "device": device_name(dev),
-                      "card": card, **row}), flush=True)
+    for backend in CONTINUOUS_BACKENDS:
+        row = run_continuous(params, args.seed, TRACED_STEPS, TIMED_STEPS,
+                             dev, backend)
+        print(json.dumps({"arch": ARCH, "engine": "continuous",
+                          "backend": backend, "device": device_name(dev),
+                          "card": card, **row}), flush=True)
+        gc.collect()                     # the engine's pool, before the next
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -17,10 +17,13 @@ card it raises unless ``--device cpu`` is given:
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
 Triton flash decode), which the continuous engine also runs on the
-gathered logical view; ``socket_fused`` (continuous engine only) routes
-paged decode through the fused CUDA kernel ``kernels/paged_attention``;
-``dense`` is full attention.  On the CPU every kernel wrapper runs its
-plain PyTorch version.
+gathered logical view; ``hard_lsh`` and ``quest`` are the paper's
+baselines in plain PyTorch; the ``*_fused`` names (continuous engine
+only) route paged decode through their fused CUDA kernel in
+``kernels/paged_attention`` (``socket.use_paged_kernel`` for socket and
+hard_lsh, ``quest.use_paged_kernel`` for quest); ``dense`` is full
+attention.  On the CPU every kernel wrapper runs its plain PyTorch
+version.
 """
 
 from __future__ import annotations
@@ -44,30 +47,33 @@ __all__ = ["run_serve", "run_continuous", "make_poisson_requests",
            "resolve_device", "apply_backend_arg", "device_name", "card_line",
            "SERVING_BACKENDS"]
 
-SERVING_BACKENDS = ("socket", "socket_fused", "dense")
-# serving backends of the JAX package that later slices bring
-LATER_BACKENDS = ("quest", "quest_fused", "hard_lsh", "hard_lsh_fused")
+# the DecodeBackend registry's names plus the *_fused pseudo-backends
+# (backend + its use_paged_kernel gate: continuous engine only)
+SERVING_BACKENDS = ("socket", "socket_fused", "dense", "quest",
+                    "quest_fused", "hard_lsh", "hard_lsh_fused")
 
 
 def apply_backend_arg(cfg, backend: str):
     """Resolve a serving backend name onto the config: ``socket`` routes
     scoring and subset attention through the port's contiguous-path
-    kernels, ``socket_fused`` routes paged decode through the fused paged
-    kernel (continuous engine)."""
-    if backend in LATER_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: hard_lsh and quest "
-            "come with the other-backends slice (ROADMAP.md queue 1 item "
-            "6)")
+    kernels; ``socket_fused`` and ``hard_lsh_fused`` set
+    ``socket.use_paged_kernel`` (hard_lsh shares SOCKET's cache layout
+    and kernel gate), ``quest_fused`` sets ``quest.use_paged_kernel``;
+    the rest name the backend (the JAX launcher's mapping)."""
     if backend not in SERVING_BACKENDS:
         raise ValueError(f"backend {backend!r} not in {SERVING_BACKENDS}")
     if backend == "socket":
         return cfg.replace(attention_backend="socket", socket=dataclasses
                            .replace(cfg.socket, use_score_kernel=True,
                                     use_flash_decode=True))
-    if backend == "socket_fused":
-        return cfg.replace(attention_backend="socket", socket=dataclasses
-                           .replace(cfg.socket, use_paged_kernel=True))
+    if backend in ("socket_fused", "hard_lsh_fused"):
+        return cfg.replace(
+            attention_backend=backend[: -len("_fused")],
+            socket=dataclasses.replace(cfg.socket, use_paged_kernel=True))
+    if backend == "quest_fused":
+        return cfg.replace(
+            attention_backend="quest",
+            quest=dataclasses.replace(cfg.quest, use_paged_kernel=True))
     return cfg.replace(attention_backend=backend)
 
 
@@ -167,10 +173,12 @@ def make_poisson_requests(cfg, num_requests: int, rate_rps: float,
     return reqs
 
 
-def card_continuous_case(cfg, seed: int, max_new_tokens: int):
+def card_continuous_case(cfg, seed: int, max_new_tokens: int,
+                         backend: str = "socket_fused"):
     """The continuous engine's case at full width on the card, shared by
-    ``chip_smoke.py`` and ``profile_decode.py``: ``cfg`` with
-    ``socket_fused`` and serving settings for 8 requests (prompts of
+    ``chip_smoke.py``, the card tests and ``profile_decode.py``: ``cfg``
+    with ``backend`` (a fused name) and serving settings for 8 requests
+    (prompts of
     1024/2048/3072/4096 tokens drawn from ``seed``, each twice, all
     arriving at once), chunks of 512, 16-token blocks and a 1536-block
     pool that needs no preemption.  Returns (cfg, requests)."""
@@ -185,7 +193,7 @@ def card_continuous_case(cfg, seed: int, max_new_tokens: int):
             sv.max_blocks_per_seq:
         raise ValueError(f"max_new_tokens={max_new_tokens} does not fit "
                          f"the case's pool without preemption")
-    cfg = apply_backend_arg(cfg, "socket_fused").replace(serving=sv)
+    cfg = apply_backend_arg(cfg, backend).replace(serving=sv)
     rng = np.random.default_rng(seed + 2)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=max_new_tokens) for n in lens]
@@ -219,10 +227,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--decode-steps", type=int, default=64)
     ap.add_argument("--backend", default="socket",
-                    choices=list(SERVING_BACKENDS + LATER_BACKENDS),
-                    help="decode backend; socket_fused routes the "
-                         "continuous engine through the fused paged "
-                         "kernel (hard_lsh/quest are not ported yet)")
+                    choices=list(SERVING_BACKENDS),
+                    help="decode backend; the *_fused names route the "
+                         "continuous engine through a fused paged kernel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a "
@@ -239,9 +246,9 @@ def main(argv=None):
                          "prefill, is not ported)")
     args = ap.parse_args(argv)
 
-    if args.backend == "socket_fused" and args.engine != "continuous":
-        ap.error("--backend socket_fused requires --engine continuous: the "
-                 "fused kernel serves the paged decode path only")
+    if args.backend.endswith("_fused") and args.engine != "continuous":
+        ap.error(f"--backend {args.backend} requires --engine continuous: "
+                 "the fused kernels serve the paged decode path only")
     if args.prefill_chunk is not None and args.engine != "continuous":
         ap.error("--prefill-chunk requires --engine continuous")
     cfg = get_config(args.arch)

@@ -2,9 +2,8 @@
 
 Every global-attention decode backend is one module implementing the
 :class:`~repro_torch.models.backends.base.DecodeBackend` interface and
-registered here under its ``cfg.attention_backend`` name.  This slice
-ports ``socket`` and ``dense``; hard_lsh and quest come with the
-other-backends slice.
+registered here under its ``cfg.attention_backend`` name: ``socket``,
+``hard_lsh``, ``quest`` and ``dense``.
 """
 
 from __future__ import annotations
@@ -13,14 +12,16 @@ from typing import Dict, Tuple
 
 from repro_torch.models.backends.base import (
     ContiguousView, DecodeBackend, KVView, LeafSpec, PagedView,
-    gather_block_leaf, gather_kv_rows,
+    effective_keys, gather_block_leaf, gather_kv_rows,
     kv_leaf_specs, kv_scales_of, subset_attention, write_chunk_blocks,
     write_chunk_rows, write_prefill_kv, write_token_kv)
 from repro_torch.models.backends.dense import DenseBackend
+from repro_torch.models.backends.hard_lsh import HardLSHBackend
+from repro_torch.models.backends.quest import QuestBackend
 from repro_torch.models.backends.socket import SocketBackend, socket_config_of
 
 __all__ = ["DecodeBackend", "KVView", "ContiguousView", "PagedView",
-           "LeafSpec", "kv_leaf_specs", "kv_scales_of",
+           "LeafSpec", "kv_leaf_specs", "kv_scales_of", "effective_keys",
            "write_prefill_kv", "write_token_kv", "gather_kv_rows",
            "gather_block_leaf", "write_chunk_blocks", "write_chunk_rows",
            "subset_attention", "register", "get_backend",
@@ -49,6 +50,6 @@ def registered_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-for _cls in (SocketBackend, DenseBackend):
+for _cls in (SocketBackend, HardLSHBackend, QuestBackend, DenseBackend):
     register(_cls)
 del _cls

@@ -8,7 +8,8 @@ the model needs:
 * ``prefill_build(...)`` — write the prompt's K/V rows + backend metadata
                            into a freshly allocated contiguous cache.
 * ``append(...)``        — write one new token through a :class:`KVView`
-                           at position ``pos``.
+                           at position ``pos`` (``write_token``, or
+                           ``rmw_token`` for Quest's page min/max).
 * ``attend(...)``        — decode attention for one query step.
 
 Two views realize the interface: :class:`ContiguousView` over the
@@ -38,7 +39,8 @@ from repro_torch.core import socket as sk
 
 __all__ = ["LeafSpec", "KVView", "ContiguousView", "PagedView",
            "DecodeBackend", "kv_leaf_specs", "kv_scales_of",
-           "write_prefill_kv", "write_token_kv", "gather_kv_rows",
+           "effective_keys", "write_prefill_kv", "write_token_kv",
+           "gather_kv_rows",
            "subset_attention", "gather_block_leaf", "write_chunk_blocks",
            "write_chunk_rows"]
 
@@ -119,6 +121,12 @@ class KVView:
     def write_token(self, name: str, pos: Pos, value: torch.Tensor) -> None:
         raise NotImplementedError
 
+    def rmw_token(self, name: str, pos: Pos, fn) -> None:
+        """Read-modify-write the row covering token ``pos`` (Quest
+        min/max): ``row <- fn(row)``, ``row`` ``(B, KVH, *suffix)``, in
+        place."""
+        raise NotImplementedError
+
 
 class ContiguousView(KVView):
     """Each leaf is ``(B, KVH, rows, *suffix)``."""
@@ -153,6 +161,17 @@ class ContiguousView(KVView):
             a[bidx, :, pos.to(a.device) // gran] = value.to(a.dtype)
         else:
             a[:, :, int(pos) // gran] = value.to(a.dtype)
+
+    def rmw_token(self, name: str, pos: Pos, fn) -> None:
+        a = self.arrays[name]
+        gran = self.spec[name].granularity
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            bidx = torch.arange(a.shape[0], device=a.device)
+            row = pos.to(a.device) // gran
+            a[bidx, :, row] = fn(a[bidx, :, row]).to(a.dtype)
+        else:
+            row = int(pos) // gran
+            a[:, :, row] = fn(a[:, :, row]).to(a.dtype)
 
 
 class PagedView(KVView):
@@ -199,12 +218,21 @@ class PagedView(KVView):
         place.  Inactive slots point at the trash block; their duplicate
         writes there are never read unmasked."""
         pages = self.arrays[name]
+        blk, row = self._addr(name, pos)
+        pages[blk, :, row] = value.to(pages.dtype)
+
+    def _addr(self, name: str, pos: Pos):
+        """Physical block and row of token ``pos`` of every request."""
         bt = self.block_table.long()
         b = bt.shape[0]
         pos = torch.as_tensor(pos, device=bt.device).long().expand(b)
         blk = bt[torch.arange(b, device=bt.device), pos // self.block_size]
-        row = (pos % self.block_size) // self.spec[name].granularity
-        pages[blk, :, row] = value.to(pages.dtype)
+        return blk, (pos % self.block_size) // self.spec[name].granularity
+
+    def rmw_token(self, name: str, pos: Pos, fn) -> None:
+        pages = self.arrays[name]
+        blk, row = self._addr(name, pos)
+        pages[blk, :, row] = fn(pages[blk, :, row]).to(pages.dtype)
 
 
 # ------------------------------------------------------------------ helpers
@@ -218,6 +246,21 @@ def write_prefill_kv(cfg, cache: Dict[str, torch.Tensor], kc: torch.Tensor,
     cache["k"][:, :, :t] = kc.to(cache["k"].dtype)
     cache["v"][:, :, :t] = vc.to(cache["v"].dtype)
     return cache
+
+
+def effective_keys(cfg, kc: torch.Tensor) -> torch.Tensor:
+    """The key values the attend phase will read back: ``kc`` itself
+    under unquantized pages (the only kind the port stores yet).  Quest's
+    kmin/kmax page stats are computed from this, so under quantized
+    pages they would bound the dequantized keys
+    (``quest.stats_from_quantized``); that round trip comes with the
+    quantized-pages slice and raises here until then."""
+    if cfg.serving.kv_dtype != "auto" and cfg.quest.stats_from_quantized:
+        raise NotImplementedError(
+            f"kv_dtype={cfg.serving.kv_dtype!r}: the quantization round "
+            "trip of the page stats comes with the quantized-pages slice "
+            "(ROADMAP.md queue 1 item 5)")
+    return kc
 
 
 def write_token_kv(cfg, view: KVView, pos: Pos, kc: torch.Tensor,

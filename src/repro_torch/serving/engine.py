@@ -10,11 +10,12 @@ decode batch runs one token.  Iterations with no chunk run the
 decode-only step.  A long prompt stalls in-flight decodes by at most one
 chunk.
 
-For paged-capable backends (``DecodeBackend.supports_paged``: socket)
-the decode step hands the pool and block tables straight to the model:
-appends write pages in place and attention reads the metadata leaves
-plus the selected K/V rows — with ``socket.use_paged_kernel`` all of it
-in one CUDA pass (``kernels/paged_attention``).  Otherwise (dense) the
+For paged-capable backends (``DecodeBackend.supports_paged``: socket,
+hard_lsh, quest) the decode step hands the pool and block tables straight
+to the model: appends write pages in place and attention reads the
+metadata leaves plus the selected K/V rows — with ``use_paged_kernel``
+(``cfg.socket`` for socket and hard_lsh, ``cfg.quest`` for quest) all of
+it in one CUDA pass (``kernels/paged_attention``).  Otherwise (dense) the
 engine falls back to the gather/scatter round trip
 (``paged.gather_views`` / ``scatter_token``).
 

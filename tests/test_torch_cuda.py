@@ -1,8 +1,8 @@
 """Card-only tests of the port: each Hopper kernel against its plain
 PyTorch version on the card, the static serve path through the two
-contiguous-path kernels, and the continuous engine through the fused
-paged kernel.  They skip with a reason where there is no CUDA card; on the
-card run them with
+contiguous-path kernels, and the continuous engine through each fused
+paged kernel (SOCKET, hard LSH, Quest).  They skip with a reason where
+there is no CUDA card; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -10,7 +10,8 @@ Tolerances: scores rtol 1e-5 / atol 1e-6, attention rtol 1e-4 /
 atol 1e-5 (float32 in another summation order).  The paged kernel's
 selection equals the plain version's except at rows whose plain
 effective score lies within the score tolerance of the threshold, and
-bit for bit where the scores tie exactly.
+bit for bit where the scores tie exactly; the hard-LSH and Quest
+kernels' selections equal their plain versions' bit for bit.
 """
 
 import math
@@ -150,14 +151,65 @@ def test_paged_attention_kernel_matches_plain(dev, case):
                       attn_tol=ATTN_TOL, score_tol=SCORE_TOL)
 
 
-def test_continuous_engine_fused_kernel_matches_cpu(dev):
+@pytest.mark.parametrize("case", ["ragged", "edges", "ties",
+                                  "unaligned-tables"])
+def test_paged_hard_lsh_kernel_matches_plain(dev, case):
+    from repro_torch.kernels.paged_attention import cases, ops
+    kw = dict(kvh=2, hd=64, sink=16, window=16)
+    if case == "ragged":
+        lengths, nb = [1024, 3000, 2048, 4096], 264
+    elif case == "edges":       # length 1, budget above the valid rows
+        lengths, nb = [1, 5, 300, 257], 40
+    elif case == "ties":
+        lengths, nb, kw = [700, 1500], 100, dict(kw, ties=True)
+    else:
+        lengths, nb, kw = [300, 31], 24, dict(kw, l=37)
+    gen = torch.Generator(device=dev).manual_seed(len(lengths) + nb)
+    (args,), akw = cases.hard_lsh_case(gen, lengths, nb=nb, **kw)
+    q, kp, vp, bits, vnorm, u_signs, bt, length, budget = args
+    before = ops.HARD_LSH_LAUNCHES
+    out, sel = ops.paged_hard_lsh_attend(q, kp, vp, bits, vnorm, u_signs,
+                                         bt, length=length, budget=budget,
+                                         with_selection=True, **akw)
+    assert ops.HARD_LSH_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    cases.check_hard_lsh(out, sel, args, akw, attn_tol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("case", ["ragged", "edges", "ties", "ppb2"])
+def test_paged_quest_kernel_matches_plain(dev, case):
+    from repro_torch.kernels.paged_attention import cases, ops
+    kw = dict(kvh=2, hd=64, sink=16, window=16)
+    if case == "ragged":
+        lengths, nb = [1024, 3000, 2048, 4096], 264
+    elif case == "edges":       # length 1, page budget above the live pages
+        lengths, nb = [1, 5, 300, 257], 40
+    elif case == "ties":
+        lengths, nb, kw = [700, 1500], 100, dict(kw, ties=True)
+    else:                       # two 8-token pages a 16-token block
+        lengths, nb, kw = [333, 1000], 80, dict(kw, ps=8)
+    gen = torch.Generator(device=dev).manual_seed(len(lengths) + nb)
+    (args,), akw = cases.quest_case(gen, lengths, nb=nb, **kw)
+    before = ops.QUEST_LAUNCHES
+    out, sel = ops.paged_quest_attend(*args[:6], length=args[6],
+                                      page_budget=args[7],
+                                      with_selection=True, **akw)
+    assert ops.QUEST_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    cases.check_quest(out, sel, args, akw, attn_tol=ATTN_TOL)
+
+
+def _engine_on_card_matches_cpu(dev, backend):
+    """Greedy tokens of the continuous engine at smoke size with
+    ``backend``: on the card (through its fused kernel) equal to the CPU
+    run (through the kernel's plain version).  Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.launch.serve import apply_backend_arg
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import Request
     from repro_torch.serving.engine import ContinuousBatchingEngine
-    cfg = apply_backend_arg(get_config("llama31-8b").smoke(), "socket_fused")
+    cfg = apply_backend_arg(get_config("llama31-8b").smoke(), backend)
     params = tfm.init_model(cfg, seed=0)
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
@@ -177,6 +229,20 @@ def test_continuous_engine_fused_kernel_matches_cpu(dev):
                    "layers": [{name: ({k: v.to(dev) for k, v in sub.items()})
                                for name, sub in layer.items()}
                               for layer in params["layers"]]}
-    before = ops.LAUNCHES
+    before = (ops.LAUNCHES, ops.HARD_LSH_LAUNCHES, ops.QUEST_LAUNCHES)
     assert serve(dev, card_params) == cpu
-    assert ops.LAUNCHES > before
+    return [after - b for after, b in zip(
+        (ops.LAUNCHES, ops.HARD_LSH_LAUNCHES, ops.QUEST_LAUNCHES), before)]
+
+
+def test_continuous_engine_fused_kernel_matches_cpu(dev):
+    socket, hard, quest = _engine_on_card_matches_cpu(dev, "socket_fused")
+    assert socket > 0 and hard == quest == 0
+
+
+@pytest.mark.parametrize("backend", ["hard_lsh_fused", "quest_fused"])
+def test_continuous_engine_baseline_kernels_match_cpu(dev, backend):
+    socket, hard, quest = _engine_on_card_matches_cpu(dev, backend)
+    assert socket == 0
+    assert (hard > 0, quest > 0) == (backend == "hard_lsh_fused",
+                                     backend == "quest_fused")

@@ -143,8 +143,8 @@ def test_engine_raises_for_unported_parts():
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(tc.replace(attention_backend="flashinfer"),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        apply_backend_arg(tc, "hard_lsh_fused")
+    with pytest.raises(ValueError, match="not in"):
+        apply_backend_arg(tc, "flashinfer_fused")
 
 
 def test_engine_default_device_raises_without_card():

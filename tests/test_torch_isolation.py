@@ -54,7 +54,11 @@ def test_port_imports_no_jax_and_no_repro():
     for name in ("repro_torch.serving.engine", "repro_torch.serving.paged",
                  "repro_torch.serving.scheduler",
                  "repro_torch.serving.obs.metrics",
-                 "repro_torch.kernels.paged_attention.ops"):
+                 "repro_torch.kernels.paged_attention.ops",
+                 "repro_torch.kernels.paged_attention.cases",
+                 "repro_torch.baselines.quest",
+                 "repro_torch.models.backends.hard_lsh",
+                 "repro_torch.models.backends.quest"):
         assert name in names, name
 
 

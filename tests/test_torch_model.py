@@ -61,13 +61,14 @@ def test_configs_match_jax(arch):
         jc, tc = jget(arch), tget(arch)
         if not full:
             jc, tc = jc.smoke(), tc.smoke()
-        nested = ("pattern", "remainder", "socket", "serving")
+        nested = ("pattern", "remainder", "socket", "quest", "serving")
         for f in dataclasses.fields(tc):
             assert getattr(tc, f.name) == getattr(jc, f.name) or \
                 f.name in nested, f.name
         assert [dataclasses.asdict(s) for s in tc.layer_specs] == \
             [dataclasses.asdict(s) for s in jc.layer_specs]
         assert dataclasses.asdict(tc.socket) == dataclasses.asdict(jc.socket)
+        assert dataclasses.asdict(tc.quest) == dataclasses.asdict(jc.quest)
         assert dataclasses.asdict(tc.serving) == \
             dataclasses.asdict(jc.serving)
         assert tc.param_count() == jc.param_count()

@@ -9,8 +9,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               limit as nvidia-smi reports them.
 2. build    — builds the CUDA kernels (nvcc, sm_90a, one process per source,
               all started together: socket_score.cu, paged_attention.cu,
-              paged_quest.cu) and compiles the Triton kernel from the
-              sources in this checkout.
+              paged_quest.cu, paged_ring.cu) and compiles the Triton kernel
+              from the sources in this checkout.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge shapes, with the tolerance
               stated; times kernel, plain version and (where one exists) the
@@ -40,6 +40,18 @@ Phases, in order; the first failure raises and the script exits non-zero:
               the pool) is run again through the kernel and through the
               plain paged path; their logits must agree.  Each run's pool
               and snapshot are freed before the next.
+6. gemma3-continuous — after llama31-8b's weights are freed, gemma3-27b
+              at full width (d_model 5376, 32/16 heads, d_ff 21504, vocab
+              262144, window 1024) with its depth cut to 2 groups: 14 of
+              its 62 layers, 12 local and 2 global (all 62 do not fit the
+              card in fp32), through the same engine entry points with
+              ``socket_fused`` and ``use_ring_kernel``: 8 requests (prompts
+              of 2048/3072/4096/6144 tokens from --seed, each twice), 32
+              greedy tokens each, a 2048-block pool that never preempts.
+              ``paged_ring`` must launch exactly 12 x decode calls, the
+              paged SOCKET kernel 2 x decode calls, no other kernel at all;
+              one decode iteration runs again through the plain routes
+              (ring and global), and the logits must agree.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -193,9 +205,9 @@ def phase_kernels(dev, seed):
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as ex:
         list(ex.map(build.load_library,
-                    (ss.SOURCE, pa.SOURCE, pa.QUEST_SOURCE)))
-    log(f"build socket_score.cu + paged_attention.cu + paged_quest.cu: "
-        f"{time.perf_counter() - t0:.2f} s")
+                    (ss.SOURCE, pa.SOURCE, pa.QUEST_SOURCE, pa.RING_SOURCE)))
+    log(f"build socket_score.cu + paged_attention.cu + paged_quest.cu + "
+        f"paged_ring.cu: {time.perf_counter() - t0:.2f} s")
     for stem, (secs, report) in build.BUILD_LOGS.items():
         log(f"  nvcc {stem}: {secs:.2f} s\n  " +
             report.replace("\n", "\n  "))
@@ -307,6 +319,7 @@ def phase_kernels(dev, seed):
                 back_to_back_ms=back_to_back_ms(kernel, sets))
 
     rows.update(paged_rows(dev, seed))
+    rows.update(ring_rows(dev, seed))
     return rows
 
 
@@ -323,6 +336,10 @@ PAGED_CASES = {
                                               nb=96, sink=16, window=16)),
         ("tie-heavy", dict(lengths=[900, 2500], nb=200, sink=16,
                            window=16, ties=True)),
+        # the gemma3 continuous phase's global layers: KVH 16, G 2
+        ("gemma3 global layers, KVH 16 G 2",
+         dict(lengths=[2080, 3104, 4128, 6176, 2079, 3103, 4127, 6175],
+              nb=392, kvh=16, g=2)),
     ],
     "paged_hard_lsh": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -498,6 +515,75 @@ def paged_rows(dev, seed):
     return rows
 
 
+def ring_rows(dev, seed):
+    """The ring kernel against its plain version on ``cases.RING_CASES``
+    (dead slots and the trash page hold NaN, which the kernel must skip);
+    times at the main shapes beside the bound, the plain version and
+    ``scaled_dot_product_attention`` over the pre-gathered ring views."""
+    from repro_torch.kernels.paged_attention import cases, ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_ring_attend_ref
+    from repro_torch.models.backends.base import gather_block_leaf
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    for label, kw in cases.RING_CASES:
+        (case,), args = cases.ring_case(gen, **kw)
+        out = pa.launch_paged_ring_attend(*case, **args)
+        torch.cuda.synchronize()
+        try:
+            err = cases.check_ring(out, case, args, attn_tol=ATTN_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"[{label}] {e}") from None
+        q, kp, _, bt, pos = case
+        b, kvh, g, hd = q.shape
+        cap = bt.shape[1] * kp.shape[2]
+        live = cases.ring_live(pos, cap, args["window"])
+        log(f"paged_ring [{label}] positions {kw['positions']} KVH {kvh} G "
+            f"{g} window {args['window']} softcap {args['softcap']}: max|err| "
+            f"{err:.3e} (rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); "
+            f"{int(live.sum())} live of {b * cap} slots, dead ones NaN")
+        if not label.startswith("main path"):
+            continue
+        nlive = int(live.sum())
+        # the live K/V rows once, q, the output, the table and positions
+        nbytes = kvh * nlive * 2 * hd * 4 + 2 * b * kvh * g * hd * 4 + \
+            bt.numel() * 4 + b * 4
+        flops = kvh * nlive * g * 4 * hd
+        sets, args = cases.ring_case(gen, copies=rotations(nbytes), **kw)
+        kernel = functools.partial(pa.launch_paged_ring_attend, **args)
+        ms = device_time_ms(kernel, sets)
+        plain_ms = device_time_ms(
+            lambda q, kp, vp, bt, pos: paged_ring_attend_ref(
+                q, kp, vp, bt, pos=pos, **args), sets[:2])
+        # the library call: SDPA over the ring views gathered beforehand
+        # (the gather, which the kernel does itself, is not timed), the
+        # query group as SDPA's L axis, the window mask as a bool mask
+        views = [(q, gather_block_leaf(kp, bt).nan_to_num(0.0),
+                  gather_block_leaf(vp, bt).nan_to_num(0.0),
+                  cases.ring_live(pos, cap, args["window"])[:, None, None])
+                 for q, kp, vp, bt, pos in sets]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = functools.partial(sdpa, scale=args["scale"])
+        check_close("paged_ring[SDPA yardstick]",
+                    lib(*views[0][:3], attn_mask=views[0][3]),
+                    cases.plain_ring(sets[0], args), ATTN_TOL)
+        lib_ms = device_time_ms(lambda q, k, v, m: lib(q, k, v, attn_mask=m),
+                                views)
+        del views
+        bms, by = bound(nbytes, flops)
+        row = dict(
+            name="paged_ring", route="cuda",
+            source="src/repro_torch/kernels/paged_attention/paged_ring.cu",
+            replaces="src/repro/kernels/paged_attention/paged_ring.py:42",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms,
+            library_call="scaled_dot_product_attention over the ring views "
+                         "gathered beforehand (gather not timed), bool "
+                         "window mask",
+            back_to_back_ms=back_to_back_ms(kernel, sets))
+        del sets
+    return {"paged_ring": row}
+
+
+
 # --------------------------------------------------------------- phase 4
 
 def phase_main(dev, seed, card):
@@ -596,21 +682,40 @@ FUSED = {"socket_fused": ("paged_attention", "LAUNCHES", "socket"),
          "quest_fused": ("paged_quest", "QUEST_LAUNCHES", "quest")}
 
 
-def phase_continuous(dev, seed, card, params, backend):
+def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b"):
+    """One continuous run of ``arch`` with ``backend`` (see the module
+    docstring, phases 5 and 6); ``params`` None draws the card case's
+    weights from ``seed``.  Returns the launches of the kernels the run
+    is read for."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import card_continuous_case
+    from repro_torch.models import transformer as tfm
     from repro_torch.runtime.steps import make_serve_step
     from repro_torch.serving.engine import ContinuousBatchingEngine
 
-    arch, new_tokens = "llama31-8b", 32
+    new_tokens = 32
     name, counter, gate = FUSED[backend]
-    cfg, reqs = card_continuous_case(get_config(arch), seed, new_tokens,
-                                     backend)
+    full = get_config(arch)
+    cfg, reqs = card_continuous_case(full, seed, new_tokens, backend)
     sv = cfg.serving
+    kinds = [s.attn_type for s in cfg.layer_specs]
+    # kernel -> layers it runs on
+    layers = {name: kinds.count("global")}
+    if cfg.use_ring_kernel:
+        layers["paged_ring"] = kinds.count("local")
+    if params is None:
+        t0 = time.perf_counter()
+        params = tfm.init_model(cfg, seed, dev)
+        torch.cuda.synchronize()
+        log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params (fp32) drawn "
+            f"in {time.perf_counter() - t0:.1f} s; {cfg.num_layers} of "
+            f"{full.num_layers} layers ({kinds.count('local')} local, "
+            f"{kinds.count('global')} global): depth cut to num_groups "
+            f"{cfg.num_groups} of {full.num_groups}, widths as published")
     engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
     # the widest decode batch of the run, captured with a clone of the
     # pool for the kernel-vs-plain check below (never an iteration whose
@@ -633,26 +738,29 @@ def phase_continuous(dev, seed, card, params, backend):
     torch.cuda.reset_peak_memory_stats(dev)
     for c in FUSED.values():
         setattr(pa, c[1], 0)
-    ss.LAUNCHES = fd.LAUNCHES = 0
+    ss.LAUNCHES = fd.LAUNCHES = pa.RING_LAUNCHES = 0
     t0 = time.perf_counter()
     engine.warmup()
     warm_s = time.perf_counter() - t0
     m = engine.run(reqs, realtime=False)
     torch.cuda.synchronize()
     launches = {c[0]: getattr(pa, c[1]) for c in FUSED.values()}
-    launches.update(socket_score=ss.LAUNCHES, flash_decode=fd.LAUNCHES)
+    launches.update(socket_score=ss.LAUNCHES, flash_decode=fd.LAUNCHES,
+                    paged_ring=pa.RING_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     bad = [r.rid for r in reqs if r.state != "finished"
            or len(r.generated) != new_tokens]
     if bad:
         raise AssertionError(f"{backend}: requests {bad} did not finish "
                              f"with {new_tokens} tokens")
-    expected = cfg.num_layers * (m.decode_iters + 2)
-    if launches[name] != expected:
-        raise AssertionError(f"{name}: {launches[name]} launches, expected "
-                             f"{expected} (layers x engine iterations + 2 "
-                             "warm-up steps)")
-    others = {k: v for k, v in launches.items() if k != name and v}
+    calls = m.decode_iters + 2
+    expected = {k: n * calls for k, n in layers.items()}
+    for k, want in expected.items():
+        if launches[k] != want:
+            raise AssertionError(
+                f"{k}: {launches[k]} launches, expected {want} ({layers[k]} "
+                "layers x (engine iterations + 2 warm-up steps))")
+    others = {k: v for k, v in launches.items() if k not in layers and v}
     if others:
         raise AssertionError(f"{backend}: other kernels ran on its paged "
                              f"path: {others}")
@@ -666,6 +774,11 @@ def phase_continuous(dev, seed, card, params, backend):
                   ttft_s_p99=float(np.percentile(first, 99)))
     log(json.dumps({
         "continuous_path": arch, "backend": backend,
+        "use_ring_kernel": cfg.use_ring_kernel,
+        "layers": cfg.num_layers, "reduced": (
+            None if cfg.num_groups == full.num_groups else
+            f"num_groups {cfg.num_groups} of {full.num_groups}: "
+            f"{cfg.num_layers} of {full.num_layers} layers"),
         "requests": len(reqs), "prompt_lens": [len(r.prompt) for r in reqs],
         "max_new_tokens": new_tokens, "prefill_chunk": sv.prefill_chunk,
         "num_blocks": sv.num_blocks, "warmup_s": warm_s,
@@ -684,8 +797,9 @@ def phase_continuous(dev, seed, card, params, backend):
                     for layer in plain_pages]
     lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos, bt)
     del kernel_pages
-    cfg_plain = cfg.replace(**{gate: dataclasses.replace(
-        getattr(cfg, gate), use_paged_kernel=False)})
+    cfg_plain = cfg.replace(use_ring_kernel=False, **{
+        gate: dataclasses.replace(getattr(cfg, gate),
+                                  use_paged_kernel=False)})
     lp, _ = make_serve_step(cfg_plain)(params, plain_pages, tokens, pos, bt)
     del plain_pages
     live = pos > 0                   # idle slots decode the trash page
@@ -695,15 +809,15 @@ def phase_continuous(dev, seed, card, params, backend):
             raise AssertionError(f"non-finite logits on the {label} path")
     err = (lk - lp).abs().max().item()
     same = (lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
-    log(f"continuous decode iteration {snap['iteration'] + 1} "
-        f"({len(snap['reqs'])} requests), {backend} kernel vs plain paged "
+    log(f"{arch} continuous decode iteration {snap['iteration'] + 1} "
+        f"({len(snap['reqs'])} requests), {backend} kernels vs plain paged "
         f"path: max|logits err| {err:.3e} (atol {LOGITS_ATOL}; max|logits| "
         f"{lp.abs().max().item():.3f}); greedy tokens shared "
         f"{int(same.sum().item())}/{same.numel()}")
     if err > LOGITS_ATOL:
-        raise AssertionError(f"{backend}: continuous logits differ by "
-                             f"{err:.3e} > {LOGITS_ATOL}")
-    return {name: launches[name]}
+        raise AssertionError(f"{arch} {backend}: continuous logits differ "
+                             f"by {err:.3e} > {LOGITS_ATOL}")
+    return {k: launches[k] for k in layers}
 
 
 def main(argv=None) -> int:
@@ -737,6 +851,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"continuous phase ({backend}): "
             f"{time.perf_counter() - t0:.1f} s")
+    del params                                  # llama31-8b's 32 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gemma = phase_continuous(dev, args.seed, card, None, "socket_fused",
+                             arch="gemma3-27b")
+    launches["paged_ring"] = gemma["paged_ring"]
+    log(f"gemma3-continuous phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

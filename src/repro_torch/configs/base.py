@@ -10,8 +10,9 @@ paths read: :class:`LayerSpec`, :class:`SocketSettings`,
 config built here and one built there describe the same model.
 
 Fields of layers the port does not run yet (MoE, Mamba) are left out,
-and cache plans resolve global-attention layers only; the rest comes
-with the slices that port those layers (see ROADMAP.md).
+and cache plans resolve attention layers only (kind ``paged`` for global
+layers, ``ring`` for sliding-window ones); state plans come with the
+slice that ports Mamba layers (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -90,12 +91,16 @@ class QuestSettings:
 
 @dataclasses.dataclass(frozen=True)
 class LayerCachePlan:
-    """How the continuous engine caches ONE layer.  The port resolves
-    global-attention layers only: ``kind == "paged"`` — the decode
-    backend's cache leaves live in pool pages, the request block table
-    is consumed linearly.  Ring (sliding-window) and state (Mamba) plans
-    come with the hybrid-layouts slice; ``kv_dtype`` other than
-    ``"auto"`` with the quantized-pages slice."""
+    """How the continuous engine caches ONE layer.
+
+    * ``kind == "paged"`` (global attention) — the decode backend's cache
+      leaves live in pool pages, the request block table is consumed
+      linearly.
+    * ``kind == "ring"`` (sliding-window attention) — K/V pages addressed
+      circularly through the first ``ring_blocks`` block-table entries.
+
+    State (Mamba) plans come with ROADMAP.md queue 1 item 7; ``kv_dtype``
+    other than ``"auto"`` with item 5."""
 
     kind: str
     ring_blocks: int = 0
@@ -188,6 +193,11 @@ class ModelConfig:
     attention_backend: str = "socket"
     socket: SocketSettings = SocketSettings()
     quest: QuestSettings = QuestSettings()
+    # Route sliding-window (ring) layer decode on the continuous engine
+    # through the fused kernels/paged_attention ring pass (CUDA): stream
+    # the circular page list straight from the pool with the window mask
+    # applied in-kernel instead of gathering the ring K/V.
+    use_ring_kernel: bool = False
     # --- continuous-batching engine ----------------------------------------
     serving: ServingSettings = ServingSettings()
     # --- provenance ---------------------------------------------------------
@@ -244,14 +254,31 @@ class ModelConfig:
                     f"({self.quest.page_size}) to divide "
                     f"serving.block_size ({self.serving.block_size}) so "
                     "each pool block carries whole min/max pages")
+        if self.use_ring_kernel and self.serving.block_size % 8:
+            raise ValueError(
+                f"use_ring_kernel=True needs serving.block_size % 8 == 0, "
+                f"got block_size={self.serving.block_size}")
+
+    def ring_geometry(self) -> Tuple[int, int]:
+        """(blocks, rows) of the paged sliding-window ring: the circular
+        page list covers the window (``ceil(window / block_size)`` pool
+        blocks, clamped to the per-request block table)."""
+        sv = self.serving
+        blocks = min(-(-self.sliding_window // sv.block_size),
+                     sv.max_blocks_per_seq)
+        return blocks, blocks * sv.block_size
 
     def plan_for(self, spec: LayerSpec) -> LayerCachePlan:
         """One layer's cache plan (see :class:`LayerCachePlan`)."""
-        if spec.kind != "attn" or spec.attn_type != "global":
+        if spec.kind != "attn":
             raise NotImplementedError(
-                f"{spec.kind}/{spec.attn_type} layers have no cache plan in "
-                "the port yet: ring and state plans come with the "
-                "hybrid-layouts slice (ROADMAP.md queue 1 item 7)")
+                f"{spec.kind} layers have no cache plan in the port yet: "
+                "state plans come with Mamba layers (ROADMAP.md queue 1 "
+                "item 7)")
+        if spec.attn_type == "local":
+            return LayerCachePlan(kind="ring",
+                                  ring_blocks=self.ring_geometry()[0],
+                                  kv_dtype=self.serving.kv_dtype)
         return LayerCachePlan(kind="paged", kv_dtype=self.serving.kv_dtype)
 
     def cache_plan(self) -> Tuple[LayerCachePlan, ...]:

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
 The port serves the all-global-attention decoders of the SOCKET static
-path.  The JAX package's other architectures need layers that later
-slices bring; asking for one raises :class:`NotImplementedError` naming
-that slice.
+path and gemma3's 5:1 sliding-window (local) : global layout.  The JAX
+package's other architectures need layers that later slices bring;
+asking for one raises :class:`NotImplementedError` naming that slice.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3_27B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 
 # The paper evaluates SOCKET on Llama-3.1-8B-Instruct; this reference
@@ -35,6 +36,7 @@ LLAMA31_8B = ModelConfig(
 ARCHITECTURES: Dict[str, ModelConfig] = {
     "stablelm-12b": STABLELM_12B,
     "llama31-8b": LLAMA31_8B,
+    "gemma3-27b": GEMMA3_27B,
 }
 
 # Architectures of the JAX package that the port does not build yet, with
@@ -42,11 +44,10 @@ ARCHITECTURES: Dict[str, ModelConfig] = {
 LATER: Dict[str, str] = {
     "minitron-8b": "the other-backends slice (further all-global configs)",
     "gemma-7b": "the other-backends slice (further all-global configs)",
-    "gemma3-27b": "the hybrid-layouts slice (sliding-window ring layers)",
-    "mixtral-8x22b": "the hybrid-layouts slice (MoE and ring layers)",
-    "llama4-maverick-400b-a17b": "the hybrid-layouts slice (MoE layers)",
-    "jamba-v0.1-52b": "the hybrid-layouts slice (Mamba and MoE layers)",
-    "mamba2-780m": "the hybrid-layouts slice (Mamba layers)",
+    "mixtral-8x22b": "ROADMAP.md queue 1 item 7 (MoE layers)",
+    "llama4-maverick-400b-a17b": "ROADMAP.md queue 1 item 7 (MoE layers)",
+    "jamba-v0.1-52b": "ROADMAP.md queue 1 item 7 (Mamba and MoE layers)",
+    "mamba2-780m": "ROADMAP.md queue 1 item 7 (Mamba layers)",
     "musicgen-medium": "the embeddings-input slice (audio frontend)",
     "internvl2-26b": "the embeddings-input slice (vision frontend)",
 }

@@ -19,6 +19,12 @@ in float64 on both sides, so the selection must equal the plain version's
 bit for bit; exactly ``page_budget`` pages are selected per (request,
 head) — pages past ``length`` included — and the selected rows are the
 live rows of those pages (not ``min(budget, length)``).
+
+Ring (:func:`ring_case`, :func:`check_ring`): every dead slot (never
+written, or out of the window) and the trash page hold NaN, which the
+kernel must skip; the plain version, which masks logits and would carry
+0 · NaN into p · V, runs on the pool with the NaN rows zeroed.  The
+output within ``attn_tol``.
 """
 
 from __future__ import annotations
@@ -30,12 +36,15 @@ import torch
 from repro_torch.baselines import quest as quest_mod
 from repro_torch.core import hashing, socket as sk
 from repro_torch.kernels.paged_attention.ref import (
-    paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_socket_attend_ref)
+    paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_ring_attend_ref,
+    paged_socket_attend_ref)
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 from repro_torch.models.backends.base import gather_block_leaf
 
 __all__ = ["paged_case", "plain_eff", "check_paged", "hard_lsh_case",
-           "plain_hard_eff", "check_hard_lsh", "quest_case", "check_quest"]
+           "plain_hard_eff", "check_hard_lsh", "quest_case", "check_quest",
+           "RING_CASES", "ring_live", "ring_case", "plain_ring",
+           "check_ring"]
 
 
 def paged_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
@@ -321,3 +330,83 @@ def check_quest(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
         raise AssertionError("paged_quest: selection differs from the plain "
                              "version's (it must select bit for bit)")
     return err
+
+
+# The ring kernel's card cases (chip_smoke.py and the card tests): the
+# gemma3 continuous shapes first (8 requests, KVH 16, G 2, hd 128, 16-token
+# blocks, 64 ring blocks, window 1024; positions unwrapped and wrapped),
+# then the edges.
+RING_CASES = [
+    ("main path, gemma3 continuous",
+     dict(positions=[700, 1023, 2080, 3103, 4127, 4200, 6175, 6200])),
+    ("softcap 50", dict(positions=[300, 1500, 2047, 5000], softcap=50.0)),
+    ("window 1000 < cap", dict(positions=[999, 1000, 1030, 4321],
+                               window=1000)),
+    ("pos < block_size", dict(positions=[0, 1, 7, 15])),
+    ("G 4, KVH 8", dict(positions=[100, 1024, 3333], kvh=8, g=4)),
+]
+
+
+def ring_live(pos: torch.Tensor, cap: int, window: int) -> torch.Tensor:
+    """(B, cap) bool: ring slot ``s`` of each request holds a live row —
+    its position ``pos - ((pos - s) mod cap)`` is >= 0 and in the
+    window."""
+    back = torch.remainder(pos.long()[:, None] -
+                           torch.arange(cap, device=pos.device), cap)
+    return (pos.long()[:, None] - back >= 0) & (back < window)
+
+
+def ring_case(gen: torch.Generator, positions: Sequence[int], *,
+              kvh: int = 16, g: int = 2, hd: int = 128, bs: int = 16,
+              rb: int = 64, window: int = 1024, softcap: float = 0.0,
+              copies: int = 1) -> Tuple[List, dict]:
+    """Ring pool, shuffled ring tables and queries on ``gen``'s device.
+    Each set is ``(q, k_pages, v_pages, block_table, pos)`` with
+    ``block_table`` the ``(B, rb)`` ring slice; ``kw`` the keyword
+    arguments of :func:`ops.paged_ring_attend`.  A request at position
+    ``p`` holds ``min(rb, p // bs + 1)`` blocks of shuffled ids, its
+    first ring entries; the rest are the trash page (block 0), as in the
+    engine.  Dead slots and the trash page hold NaN.  ``copies`` as in
+    :func:`paged_case`."""
+    dev = gen.device
+    b, cap = len(positions), rb * bs
+    need = [min(rb, p // bs + 1) for p in positions]
+    nblocks = 1 + copies * sum(need)
+    ids = (torch.randperm(nblocks - 1, generator=gen, device=dev) + 1
+           ).to(torch.int32)
+    k_pages = torch.randn((nblocks, kvh, bs, hd), generator=gen, device=dev)
+    v_pages = torch.randn((nblocks, kvh, bs, hd), generator=gen, device=dev)
+    k_pages[0] = v_pages[0] = float("nan")
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    dead = ~ring_live(pos, cap, window)                     # (B, cap)
+    sets, off = [], 0
+    for _ in range(copies):
+        bt = torch.zeros((b, rb), dtype=torch.int32, device=dev)
+        for i, k in enumerate(need):
+            bt[i, :k] = ids[off:off + k]        # the rest: trash
+            off += k
+            s = dead[i].nonzero(as_tuple=True)[0]
+            blk = bt[i].long()[s // bs]
+            k_pages[blk, :, s % bs] = float("nan")
+            v_pages[blk, :, s % bs] = float("nan")
+        q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+        sets.append((q, k_pages, v_pages, bt, pos))
+    kw = dict(window=window, softcap=softcap, scale=hd ** -0.5)
+    return sets, kw
+
+
+def plain_ring(case, kw) -> torch.Tensor:
+    """The plain version's output on ``case``, its NaN (dead) rows
+    zeroed."""
+    q, kp, vp, bt, pos = case
+    return paged_ring_attend_ref(q, kp.nan_to_num(0.0), vp.nan_to_num(0.0),
+                                 bt, pos=pos, **kw)
+
+
+def check_ring(out: torch.Tensor, case, kw, *, attn_tol: dict) -> float:
+    """Hold the ring kernel's ``out`` on ``case`` to :func:`plain_ring`.
+    Returns max |out error|; raises AssertionError on a mismatch."""
+    ref = plain_ring(case, kw)
+    if not torch.isfinite(ref).all():
+        raise AssertionError("paged_ring: a live row of the case is NaN")
+    return _check_out("paged_ring", out, ref, attn_tol)

@@ -3,7 +3,9 @@
 * :func:`paged_socket_attend`   — SOCKET (``paged_attention.cu``);
 * :func:`paged_hard_lsh_attend` — hard LSH (``paged_attention.cu``'s
   hard-LSH mode);
-* :func:`paged_quest_attend`    — Quest (``paged_quest.cu``).
+* :func:`paged_quest_attend`    — Quest (``paged_quest.cu``);
+* :func:`paged_ring_attend`     — the sliding-window ring
+  (``paged_ring.cu``).
 
 Each accepts the serving engine's layouts (5-D decode query, pool
 leaves, per-request block table / length / budget vectors) with the JAX
@@ -11,8 +13,8 @@ wrapper's signature (``repro.kernels.paged_attention.ops``).  On CPU
 tensors it runs the plain version (:mod:`.ref`); on CUDA tensors it
 launches its kernel (built on first use by
 :mod:`repro_torch.kernels.build`) or raises.  ``LAUNCHES``,
-``HARD_LSH_LAUNCHES`` and ``QUEST_LAUNCHES`` count each kernel's
-launches, so a run can show that it went through the kernel.
+``HARD_LSH_LAUNCHES``, ``QUEST_LAUNCHES`` and ``RING_LAUNCHES`` count each
+kernel's launches, so a run can show that it went through the kernel.
 
 The quantized pool mode (``k_scale``/``v_scale``, int8/fp8 pages) comes
 with the quantized-pages slice; given scales, the wrappers raise.
@@ -30,18 +32,23 @@ import torch.nn.functional as F
 from repro_torch.core import socket as sk
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import (
-    paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_socket_attend_ref)
+    paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_ring_attend_ref,
+    paged_socket_attend_ref)
 
 __all__ = ["paged_socket_attend", "launch_paged_socket_attend",
            "paged_hard_lsh_attend", "launch_paged_hard_lsh_attend",
-           "paged_quest_attend", "launch_paged_quest_attend", "LAUNCHES",
-           "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "SOURCE", "QUEST_SOURCE"]
+           "paged_quest_attend", "launch_paged_quest_attend",
+           "paged_ring_attend", "launch_paged_ring_attend", "LAUNCHES",
+           "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "RING_LAUNCHES", "SOURCE",
+           "QUEST_SOURCE", "RING_SOURCE"]
 
 SOURCE = Path(__file__).with_name("paged_attention.cu")
 QUEST_SOURCE = Path(__file__).with_name("paged_quest.cu")
+RING_SOURCE = Path(__file__).with_name("paged_ring.cu")
 LAUNCHES = 0
 HARD_LSH_LAUNCHES = 0
 QUEST_LAUNCHES = 0
+RING_LAUNCHES = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -69,6 +76,16 @@ def _quest_library() -> ctypes.CDLL:
     return lib
 
 
+def _ring_library() -> ctypes.CDLL:
+    lib = build.load_library(RING_SOURCE)
+    fn = lib.paged_ring_attend_launch
+    fn.argtypes = [_P] * 6 + [_I] * 6 + [_F, _I, _F, _P]
+    fn.restype = ctypes.c_int
+    lib.paged_ring_attend_error_string.argtypes = [ctypes.c_int]
+    lib.paged_ring_attend_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _outputs(q, nb: int, bs: int, n_scratch: int, with_selection: bool):
     """The output (B, KVH, G, hd) f32, the int32 (B, KVH, nb, bs) selection
     mask or None, and the kernel's f32 (B, KVH, n_scratch) score scratch
@@ -83,15 +100,15 @@ def _outputs(q, nb: int, bs: int, n_scratch: int, with_selection: bool):
     return out, sel, eff
 
 
-def _call(fn, name: str, describe, tensors, sel, eff, *scalars) -> None:
-    """Launch ``fn`` on the current stream of the tensors' device; raises
-    with the CUDA error's text when the launch fails."""
+def _call(fn, name: str, describe, tensors, *scalars) -> None:
+    """Launch ``fn`` on the current stream of the tensors' device (a None
+    among ``tensors`` passes a null pointer); raises with the CUDA error's
+    text when the launch fails."""
     dev = tensors[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors],
-                 sel.data_ptr() if sel is not None else None, eff.data_ptr(),
-                 *scalars, stream)
+        err = fn(*[t.data_ptr() if t is not None else None
+                   for t in tensors], *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: " +
                            describe(err).decode())
@@ -191,12 +208,12 @@ def _launch_fused(hard: bool, q, k_pages, v_pages, bits_pages, vnorm_pages,
         shape = (b, kvh, g, gs, hd, bs, w, nb, tables, p)
         if hard:
             _call(lib.paged_hard_lsh_attend_launch, "paged_hard_lsh",
-                  lib.paged_socket_attend_error_string, tensors, sel, eff,
+                  lib.paged_socket_attend_error_string, [*tensors, sel, eff],
                   *shape, float(scale), int(sink_tokens), int(window_tokens))
             HARD_LSH_LAUNCHES += 1
         else:
             _call(lib.paged_socket_attend_launch, "paged_attention",
-                  lib.paged_socket_attend_error_string, tensors, sel, eff,
+                  lib.paged_socket_attend_error_string, [*tensors, sel, eff],
                   *shape, float(tau), float(scale), int(sink_tokens),
                   int(window_tokens))
             LAUNCHES += 1
@@ -272,11 +289,37 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
                    kmin_pages.contiguous(), kmax_pages.contiguous(), bt,
                    length, budget, out]
         _call(lib.paged_quest_attend_launch, "paged_quest",
-              lib.paged_quest_attend_error_string, tensors, sel, eff, b, kvh,
-              g, hd, bs, int(page_size), nb, float(scale), int(sink_tokens),
-              int(window_tokens))
+              lib.paged_quest_attend_error_string, [*tensors, sel, eff], b,
+              kvh, g, hd, bs, int(page_size), nb, float(scale),
+              int(sink_tokens), int(window_tokens))
         QUEST_LAUNCHES += 1
     return (out, sel) if with_selection else out
+
+
+def launch_paged_ring_attend(q, k_pages, v_pages, block_table, pos, *,
+                             window: int, softcap: float, scale: float):
+    """Launch the ring CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
+    (NB, KVH, bs, hd) f32; block_table (B, ring_blocks), the ring slice;
+    pos (B,) or a scalar.  Returns f32 (B, KVH, G, hd)."""
+    global RING_LAUNCHES
+    b, kvh, g, hd = q.shape
+    bs, rb = k_pages.shape[2], block_table.shape[1]
+    _check_pool(q, k_pages, v_pages, block_table)
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    dev = q.device
+    bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
+    pos = _per_request(pos, b, dev)
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    if b * kvh and rb:
+        lib = _ring_library()
+        tensors = [q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+                   bt, pos, out]
+        _call(lib.paged_ring_attend_launch, "paged_ring",
+              lib.paged_ring_attend_error_string, tensors, b, kvh, g, hd,
+              bs, rb, float(scale), int(window), float(softcap))
+        RING_LAUNCHES += 1
+    return out
 
 
 def _split_q(q):
@@ -415,3 +458,29 @@ def paged_quest_attend(q: torch.Tensor, k_pages: torch.Tensor,
         lambda q: paged_quest_attend_ref(
             q, *args, length=length, page_budget=page_budget, **kw),
         with_selection)
+
+
+def paged_ring_attend(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, block_table: torch.Tensor, *,
+                      pos, window: int, softcap: float, scale: float,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None):
+    """Fused sliding-window decode over the circular page list.
+
+    Shapes:
+      q            (B, KVH, G, 1, hd) or (B, KVH, G, hd)
+      k/v_pages    (NB, KVH, bs, hd)
+      block_table  int (B, ring_blocks) — the ring slice of the table
+      pos          int scalar or (B,) — the decode token's position
+                   (already written to its ring slot)
+
+    Returns the attention output in q's layout (f32).
+    """
+    _no_scales(k_scale, v_scale)
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    return _dispatch(
+        q, lambda q, **o: launch_paged_ring_attend(
+            q, k_pages, v_pages, block_table, pos, **kw),
+        lambda q: (paged_ring_attend_ref(q, k_pages, v_pages, block_table,
+                                         pos=pos, **kw), None),
+        False)

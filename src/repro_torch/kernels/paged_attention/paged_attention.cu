@@ -245,7 +245,8 @@ paged_socket_kernel(const float* __restrict__ q,
     if (is_sel) srow[slot] = (btb[t / bs] * kvh + h) * bs + t % bs;
     __syncthreads();
     if (cnt == 0) continue;               // uniform across the block
-    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, g, hd, scale);
+    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, g, hd, scale,
+                     0.f);
   }
   __syncthreads();
   paged::softmax_store(sm_state, out + bh * g * hd, g, hd);

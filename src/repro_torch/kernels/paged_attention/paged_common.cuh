@@ -1,6 +1,6 @@
 // Block-wide helpers shared by the fused paged decode kernels
 // (paged_attention.cu: SOCKET and hard-LSH scoring; paged_quest.cu: Quest
-// page selection).  Every kernel runs one block of kThreads threads per
+// page selection; paged_ring.cu: the sliding-window ring).  Every kernel runs one block of kThreads threads per
 // (request, KV head); all helpers below are called by every thread of the
 // block (they synchronize).
 
@@ -89,20 +89,24 @@ struct Softmax {
 // Fold the cnt compacted rows srow[0, cnt) (pool row indices) of one tile
 // into the online softmax: scores one warp per row with coalesced K
 // loads, the statistics one warp per query head, acc = acc * alpha + P V
-// with threads over (g, d).  Only these rows of K and V are read.
+// with threads over (g, d).  Only these rows of K and V are read.  A
+// softcap > 0 caps each scaled logit s to softcap * tanh(s / softcap)
+// (Gemma-style); 0 leaves it as it is.
 __device__ __forceinline__ void fold_rows(const Softmax& s, int cnt,
                                           const int* srow,
                                           const float* __restrict__ k_pages,
                                           const float* __restrict__ v_pages,
-                                          int g, int hd, float scale) {
+                                          int g, int hd, float scale,
+                                          float softcap) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   for (int r = warp; r < cnt; r += kWarps) {
     const float* kr = k_pages + static_cast<size_t>(srow[r]) * hd;
     for (int gg = 0; gg < g; ++gg) {
       float d = 0.f;
       for (int i = lane; i < hd; i += 32) d += s.sq[gg * hd + i] * kr[i];
-      d = warp_sum(d);
-      if (lane == 0) s.ss[gg * kThreads + r] = d * scale;
+      d = warp_sum(d) * scale;
+      if (softcap > 0.f) d = softcap * tanhf(d / softcap);
+      if (lane == 0) s.ss[gg * kThreads + r] = d;
     }
   }
   __syncthreads();

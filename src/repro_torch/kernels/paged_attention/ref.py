@@ -18,6 +18,8 @@ version in selection-rank order).
 backend's collision counts, and :func:`paged_quest_attend_ref` runs
 Quest's page selection (:func:`repro_torch.baselines.quest.select_tokens`)
 in place of scoring and top-k; both mirror their JAX namesakes.
+:func:`paged_ring_attend_ref` is the sliding-window decode over a
+request's circular page list (no selection: every in-window row).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from repro_torch.kernels.socket_score.ref import socket_score_ref
 from repro_torch.models.backends.base import gather_block_leaf
 
 __all__ = ["paged_socket_attend_ref", "paged_hard_lsh_attend_ref",
-           "paged_quest_attend_ref"]
+           "paged_quest_attend_ref", "paged_ring_attend_ref"]
 
 
 def paged_socket_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -167,3 +169,33 @@ def paged_quest_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
         rank = torch.arange(idx.shape[-1], device=q.device) // page_size
         mask = mask & (rank < budget[:, None, None])
     return _attend_rows(q[:, :, :, 0], kc, vc, idx, mask, scale=scale)
+
+
+def paged_ring_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_table: torch.Tensor, *,
+                          pos, window: int, softcap: float,
+                          scale: float) -> torch.Tensor:
+    """Plain version of :func:`ops.paged_ring_attend`, mirroring
+    ``repro.kernels.paged_attention.ref.paged_ring_attend_ref``: gather
+    the circular page list (``block_table`` is the ring slice, ``(B,
+    ring_blocks)``), then logits·scale → softcap → window mask → softmax.
+
+    Slot ``s`` of the ring holds position ``pos - ((pos - s) mod cap)``
+    (a non-negative modulo); slots before position 0 or out of the window
+    (``pos - ring_pos >= window``) are masked.  Returns f32 (B, KVH, G,
+    hd)."""
+    if q.ndim == 5:
+        q = q[:, :, :, 0]
+    b = q.shape[0]
+    kc = gather_block_leaf(k_pages, block_table).float()   # (B,KVH,cap,hd)
+    vc = gather_block_leaf(v_pages, block_table).float()
+    cap = kc.shape[2]
+    pos = torch.as_tensor(pos, device=q.device).long().expand(b)
+    sl = torch.arange(cap, device=q.device)
+    ring_pos = pos[:, None] - torch.remainder(pos[:, None] - sl, cap)
+    valid = (ring_pos >= 0) & (pos[:, None] - ring_pos < window)
+    s = torch.einsum("bhgd,bhnd->bhgn", q.float(), kc) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    return torch.einsum("bhgn,bhnd->bhgd", torch.softmax(s, dim=-1), vc)

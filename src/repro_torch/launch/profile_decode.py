@@ -15,7 +15,10 @@ at chip_smoke.py's continuous case (``launch.serve.card_continuous_case``:
 fused backend in ``CONTINUOUS_BACKENDS`` (SOCKET, hard LSH, Quest); each
 run ends once all 8 decode together, and that decode iteration is
 replayed (it rewrites the same rows) — timed and traced like a static
-step.
+step.  Then, with llama31-8b's weights freed, gemma3-27b's case (full
+width, 14 of 62 layers: 12 local through ``paged_ring``, 2 global
+through the paged SOCKET kernel; 8 requests of 2048-6144 tokens) the
+same way.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode
 
@@ -48,6 +51,7 @@ TRACED_STEPS, TIMED_STEPS = 4, 16
 
 # kernel-name substrings -> part of the decode path (first match wins)
 PARTS = (
+    ("paged_ring", ("paged_ring_kernel",)),
     ("paged_quest", ("paged_quest_kernel",)),
     # paged_attention.cu's kernel, in SOCKET or hard-LSH mode
     ("paged_attention", ("paged_socket_kernel",)),
@@ -141,12 +145,15 @@ def run_backend(cfg, params, prompt, steps, timed_steps):
 
 
 def run_continuous(params, seed, steps, timed_steps, device,
-                   backend="socket_fused"):
-    """The continuous engine's full-width decode iteration with
-    ``backend`` (see the module docstring), replayed ``timed_steps``
-    times under CUDA events and ``steps`` times under the profiler."""
+                   backend="socket_fused", arch=ARCH):
+    """The continuous engine's full-width decode iteration of ``arch``
+    with ``backend`` (see the module docstring), replayed ``timed_steps``
+    times under CUDA events and ``steps`` times under the profiler;
+    ``params`` None draws the case's weights from ``seed``."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
-    cfg, reqs = card_continuous_case(get_config(ARCH), seed, 64, backend)
+    cfg, reqs = card_continuous_case(get_config(arch), seed, 64, backend)
+    if params is None:
+        params = tfm.init_model(cfg, seed, device)
     engine = ContinuousBatchingEngine(cfg, params=params, device=device)
     bs = cfg.serving.block_size
     snap = {}
@@ -176,6 +183,7 @@ def run_continuous(params, seed, steps, timed_steps, device,
     step_ms = _time_ms(step, timed_steps)
     wall_ms, by_kernel = _profile(step, steps)
     return {"batch": len(reqs), "context": snap["context"],
+            "layers": cfg.num_layers,
             **_breakdown(step_ms, wall_ms, by_kernel, steps)}
 
 
@@ -209,6 +217,15 @@ def main(argv=None):
                           "card": card, **row}), flush=True)
         gc.collect()                     # the engine's pool, before the next
         torch.cuda.empty_cache()
+    del params                           # llama31-8b's weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = run_continuous(None, args.seed, TRACED_STEPS, TIMED_STEPS, dev,
+                         "socket_fused", arch="gemma3-27b")
+    print(json.dumps({"arch": "gemma3-27b", "engine": "continuous",
+                      "backend": "socket_fused", "use_ring_kernel": True,
+                      "device": device_name(dev), "card": card, **row}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,9 @@ card it raises unless ``--device cpu`` is given:
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
         --smoke --device cpu --engine continuous --backend socket_fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \\
+        --smoke --device cpu --engine continuous --backend socket_fused \\
+        --ring-kernel
 
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
@@ -22,8 +25,10 @@ baselines in plain PyTorch; the ``*_fused`` names (continuous engine
 only) route paged decode through their fused CUDA kernel in
 ``kernels/paged_attention`` (``socket.use_paged_kernel`` for socket and
 hard_lsh, ``quest.use_paged_kernel`` for quest); ``dense`` is full
-attention.  On the CPU every kernel wrapper runs its plain PyTorch
-version.
+attention.  ``--ring-kernel`` (continuous engine only) routes the
+sliding-window layers' decode (gemma3-27b's local layers) through the
+fused CUDA ring kernel.  On the CPU every kernel wrapper runs its plain
+PyTorch version.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 
 __all__ = ["run_serve", "run_continuous", "make_poisson_requests",
-           "card_continuous_case",
+           "card_continuous_case", "CARD_CASES",
            "resolve_device", "apply_backend_arg", "device_name", "card_line",
            "SERVING_BACKENDS"]
 
@@ -173,20 +178,37 @@ def make_poisson_requests(cfg, num_requests: int, rate_rps: float,
     return reqs
 
 
+# arch -> (prompt lengths, max_blocks_per_seq, num_blocks, num_groups or
+# None) of the continuous card case; gemma3-27b's depth is cut to 2
+# groups (14 of 62 layers: 12 local, 2 global), as all 62 do not fit the
+# card's 80 GB in fp32
+CARD_CASES = {
+    "llama31-8b": ([1024, 2048, 3072, 4096], 264, 1536, None),
+    "gemma3-27b": ([2048, 3072, 4096, 6144], 392, 2048, 2),
+}
+
+
 def card_continuous_case(cfg, seed: int, max_new_tokens: int,
                          backend: str = "socket_fused"):
     """The continuous engine's case at full width on the card, shared by
     ``chip_smoke.py``, the card tests and ``profile_decode.py``: ``cfg``
     with ``backend`` (a fused name) and serving settings for 8 requests
-    (prompts of
-    1024/2048/3072/4096 tokens drawn from ``seed``, each twice, all
-    arriving at once), chunks of 512, 16-token blocks and a 1536-block
-    pool that needs no preemption.  Returns (cfg, requests)."""
+    (the prompt lengths of ``CARD_CASES[cfg.name]`` drawn from ``seed``,
+    each twice, all arriving at once), chunks of 512, 16-token blocks and
+    a pool that needs no preemption.  Sliding-window layers decode
+    through the ring kernel (``use_ring_kernel``).  Returns (cfg,
+    requests)."""
     from repro_torch.configs import ServingSettings
     from repro_torch.serving import Request
-    lens = [1024, 2048, 3072, 4096] * 2
+    base_lens, max_blocks, num_blocks, groups = CARD_CASES[cfg.name]
+    lens = base_lens * 2
+    if groups is not None:
+        cfg = cfg.replace(num_groups=groups)
+    if any(s.attn_type == "local" for s in cfg.layer_specs):
+        cfg = cfg.replace(use_ring_kernel=True)
     sv = ServingSettings(block_size=16, max_batch=8, prefill_chunk=512,
-                         max_blocks_per_seq=264, num_blocks=1536)
+                         max_blocks_per_seq=max_blocks,
+                         num_blocks=num_blocks)
     # 1 trash block + every request's lifetime
     blocks = [-(-(n + max_new_tokens) // sv.block_size) for n in lens]
     if 1 + sum(blocks) > sv.num_blocks or max(blocks) > \
@@ -230,6 +252,10 @@ def main(argv=None):
                     choices=list(SERVING_BACKENDS),
                     help="decode backend; the *_fused names route the "
                          "continuous engine through a fused paged kernel")
+    ap.add_argument("--ring-kernel", action="store_true",
+                    help="route sliding-window (local) layer decode "
+                         "through the fused CUDA ring kernel (continuous "
+                         "engine; no-op for all-global architectures)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a "
@@ -249,12 +275,17 @@ def main(argv=None):
     if args.backend.endswith("_fused") and args.engine != "continuous":
         ap.error(f"--backend {args.backend} requires --engine continuous: "
                  "the fused kernels serve the paged decode path only")
+    if args.ring_kernel and args.engine != "continuous":
+        ap.error("--ring-kernel requires --engine continuous: the ring "
+                 "kernel streams the paged pool's circular page lists")
     if args.prefill_chunk is not None and args.engine != "continuous":
         ap.error("--prefill-chunk requires --engine continuous")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     cfg = apply_backend_arg(cfg, args.backend)
+    if args.ring_kernel:
+        cfg = cfg.replace(use_ring_kernel=True)
     if args.prefill_chunk is not None:
         cfg = cfg.replace(serving=cfg.serving.replace(
             prefill_chunk=args.prefill_chunk))

@@ -1,10 +1,12 @@
 """GQA attention with pluggable sparse decode backends.
 
-Port of the global-attention half of ``repro.models.attention``.
+Port of ``repro.models.attention`` for global and sliding-window (local)
+attention layers.
 
 Training/prefill: dense causal attention in plain PyTorch (the JAX
 package's XLA path), with queries processed in chunks of
-``cfg.attn_q_chunk`` so the live logits buffer is ``(chunk, S)``.
+``cfg.attn_q_chunk`` so the live logits buffer is ``(chunk, S)``.  Local
+layers apply the sliding-window mask.
 
 Decode: global layers own no backend logic; every decode backend is one
 module in :mod:`repro_torch.models.backends`, reached through a
@@ -16,9 +18,18 @@ token's row in place.
 
 Chunked prefill (:func:`attention_prefill_chunk`): one prompt chunk
 writes its K/V and backend metadata straight into the pool, then
-attends causally over the request's logical view.
+attends causally over the request's logical view.  Local layers attend
+over the pre-write ring plus the in-chunk K/V under the window mask,
+then write the chunk's real rows into the ring.
 
-Sliding-window (local) layers come with the hybrid-layouts slice.
+Local layers decode from a ring of ``window`` slots: a contiguous
+``(B, KVH, cap, hd)`` ring on the static path, and on the continuous
+engine the circular page list of a
+:class:`~repro_torch.models.backends.RingView` — attended with a plain
+masked softmax, or with ``cfg.use_ring_kernel`` by the fused CUDA ring
+kernel (``kernels/paged_attention/paged_ring.cu``) straight from the
+pool.  Quantized ring pages come with ROADMAP.md queue 1 item 5, the
+legacy whole-prompt prefill into pool rings with item 8.
 """
 
 from __future__ import annotations
@@ -40,12 +51,11 @@ __all__ = ["init_attention", "attention_train", "attention_prefill",
 NEG_INF = -1e30
 
 
-def _require_global(attn_type: str) -> None:
-    if attn_type != "global":
-        raise NotImplementedError(
-            f"{attn_type!r} attention layers are not ported yet: "
-            "sliding-window (ring) layers come with the hybrid-layouts "
-            "slice (ROADMAP.md queue 1)")
+def _window(cfg: ModelConfig, attn_type: str) -> Optional[int]:
+    """The sliding window of a layer (None for global attention)."""
+    if attn_type not in ("global", "local"):
+        raise ValueError(f"unknown attn_type {attn_type!r}")
+    return cfg.sliding_window if attn_type == "local" else None
 
 
 # ------------------------------------------------------------------ init
@@ -104,8 +114,10 @@ def _merge_heads(cfg: ModelConfig, params: Dict, ctx: torch.Tensor
 # ------------------------------------------------------------------ train
 
 def _attn_chunk(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor, q_offset: int, scale: float) -> torch.Tensor:
-    """Causal attention of a block of queries against the full K/V.
+                v: torch.Tensor, q_offset: int, scale: float,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention of a block of queries against the full K/V, within
+    ``window`` tokens when one is given (local layers).
 
     qg (B, cq, KV, G, hd); k/v (B, S, KV, hd) -> (B, cq, KV, G, hd).
     """
@@ -117,44 +129,61 @@ def _attn_chunk(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
     logits = softcap(logits, cfg.attn_logit_softcap)
     ti = q_offset + torch.arange(cq, device=qg.device)[:, None]
     si = torch.arange(s, device=qg.device)[None, :]
-    logits = torch.where(si <= ti, logits, NEG_INF)
+    mask = si <= ti
+    if window is not None:
+        mask &= (ti - si) < window
+    logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).reshape(b, kv, g * cq, s)
     ctx = w @ v.float().permute(0, 2, 1, 3)             # (B, KV, G*cq, hd)
     return ctx.reshape(b, kv, g, cq, hd).permute(0, 3, 1, 2, 4)
 
 
 def _attend_prompt(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Causal attention over projected q/k/v; q-chunked when
-    ``cfg.attn_q_chunk`` divides T (the same rule as the JAX package)."""
+                   v: torch.Tensor, dtype: torch.dtype,
+                   window: Optional[int]) -> torch.Tensor:
+    """Causal (sliding-window when ``window`` is given) attention over
+    projected q/k/v; q-chunked when ``cfg.attn_q_chunk`` divides T (the
+    same rule as the JAX package)."""
     b, t, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, t, kv, h // kv, hd)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     cq = cfg.attn_q_chunk
     if cq and t > cq and t % cq == 0:
-        ctx = torch.cat([_attn_chunk(cfg, qg[:, i:i + cq], k, v, i, scale)
+        ctx = torch.cat([_attn_chunk(cfg, qg[:, i:i + cq], k, v, i, scale,
+                                     window)
                          for i in range(0, t, cq)], dim=1)
     else:
-        ctx = _attn_chunk(cfg, qg, k, v, 0, scale)
+        ctx = _attn_chunk(cfg, qg, k, v, 0, scale, window)
     return ctx.reshape(b, t, h, hd).to(dtype)
 
 
 def attention_train(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                     positions: torch.Tensor, attn_type: str) -> torch.Tensor:
-    """Dense causal attention.  x: (B, T, d); positions: (B, T)."""
-    _require_global(attn_type)
+    """Dense causal (optionally sliding-window) attention.  x: (B, T, d);
+    positions: (B, T)."""
+    window = _window(cfg, attn_type)
     q, k, v = _project_qkv(cfg, params, x, positions)
-    return _merge_heads(cfg, params, _attend_prompt(cfg, q, k, v, x.dtype))
+    return _merge_heads(cfg, params,
+                        _attend_prompt(cfg, q, k, v, x.dtype, window))
 
 
 # ------------------------------------------------------------------ cache
 
 def init_attention_cache(cfg: ModelConfig, batch: int, capacity: int,
-                         attn_type: str, dtype=None, device="cpu") -> Dict:
-    """Allocate one layer's decode cache (zeros)."""
-    _require_global(attn_type)
+                         attn_type: str, dtype=None, device="cpu",
+                         ring_capacity: Optional[int] = None) -> Dict:
+    """Allocate one layer's decode cache (zeros).  Local layers get a ring
+    of ``min(capacity, window)`` K/V slots, or ``ring_capacity`` (the pool
+    layout's ``block_size``-row pages)."""
     dtype = dtype or getattr(torch, cfg.compute_dtype)
+    if _window(cfg, attn_type) is not None:
+        cap = ring_capacity if ring_capacity is not None else \
+            min(capacity, cfg.sliding_window)
+        return {name: torch.full((batch, cfg.num_kv_heads, cap, *s.suffix),
+                                 s.fill, dtype=s.leaf_dtype(dtype),
+                                 device=device)
+                for name, s in backends.kv_leaf_specs(cfg).items()}
     backend = backends.get_backend(cfg.attention_backend)
     return backend.init_cache(cfg, batch, cfg.num_kv_heads, capacity, dtype,
                               device)
@@ -167,12 +196,24 @@ def attention_prefill(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                       capacity: int) -> Tuple[torch.Tensor, Dict]:
     """Forward over the prompt + build this layer's decode cache; the
     output matches :func:`attention_train` (the projections are computed
-    once and shared, where the JAX package recomputes them)."""
-    _require_global(attn_type)
+    once and shared, where the JAX package recomputes them).  Local
+    layers build the contiguous ring of ``min(capacity, window)`` slots:
+    slot ``s`` holds the newest prompt position ``p ≡ s (mod cap)``."""
+    window = _window(cfg, attn_type)
     q, k, v = _project_qkv(cfg, params, x, positions)
-    y = _merge_heads(cfg, params, _attend_prompt(cfg, q, k, v, x.dtype))
+    y = _merge_heads(cfg, params,
+                     _attend_prompt(cfg, q, k, v, x.dtype, window))
     kc = k.transpose(1, 2)                       # (B, KV, T, hd)
     vc = v.transpose(1, 2)
+    if window is not None:
+        t = x.shape[1]
+        cap = min(capacity, window)
+        sl = torch.arange(cap, device=x.device)
+        ring_pos = (t - 1) - torch.remainder((t - 1) - sl, cap)   # (cap,)
+        valid = (ring_pos >= 0)[None, None, :, None]
+        idx = ring_pos.clamp(0, t - 1)
+        return y, {"k": torch.where(valid, kc[:, :, idx], 0),
+                   "v": torch.where(valid, vc[:, :, idx], 0)}
     cache = init_attention_cache(cfg, x.shape[0], capacity, attn_type,
                                  dtype=kc.dtype, device=x.device)
     backend = backends.get_backend(cfg.attention_backend)
@@ -198,8 +239,14 @@ def attention_prefill_chunk(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     over the paged logical view, whose ``si <= ti`` mask covers the
     earlier chunks' pages and in-chunk causality alike.  The view is cut
     at the chunk's end: rows past it are masked for every query anyway.
+
+    Local layers attend over the pre-write ring (history) plus the
+    in-chunk K/V under the window mask, then write the chunk's real rows
+    into the ring in token order with the page-opening scrub; padded rows
+    go to the trash page, so ring slots only ever hold positions the
+    decode-side ring arithmetic can reconstruct.
     """
-    _require_global(attn_type)
+    window = _window(cfg, attn_type)
     b, t, _ = x.shape
     hd = cfg.head_dim
     kv = params["wk"].shape[1]
@@ -207,6 +254,11 @@ def attention_prefill_chunk(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     scale = 1.0 / math.sqrt(hd)
     q, k, v = _project_qkv(cfg, params, x, positions)
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)     # (B, KV, C, hd)
+    if window is not None:
+        ctx = _prefill_chunk_ring(cfg, q.reshape(b, t, kv, g, hd), kc, vc,
+                                  cache, bt_row, history, last_index, scale)
+        return _merge_heads(cfg, params,
+                            ctx.reshape(b, t, kv * g, hd).to(x.dtype)), cache
     bs = cfg.serving.block_size
     backend = backends.get_backend(cfg.attention_backend)
     mini = backend.init_cache(cfg, b, kv, t, getattr(torch, cfg.compute_dtype),
@@ -230,6 +282,47 @@ def attention_prefill_chunk(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     return _merge_heads(cfg, params, ctx.to(x.dtype)), cache
 
 
+def _prefill_chunk_ring(cfg: ModelConfig, qg: torch.Tensor,
+                        kc: torch.Tensor, vc: torch.Tensor, cache: Dict,
+                        bt_row: torch.Tensor, history: int, last_index: int,
+                        scale: float) -> torch.Tensor:
+    """A local layer's share of one prefill chunk (see
+    :func:`attention_prefill_chunk`).  qg (1, C, KV, G, hd); kc/vc (1, KV,
+    C, hd).  Returns ctx (1, C, KV, G, hd); the ring pages of ``cache``
+    are written in place."""
+    t = qg.shape[1]
+    rb, cap = cfg.ring_geometry()
+    w = cfg.sliding_window
+    dev = qg.device
+    # the ring as of position history-1: slot s holds the newest committed
+    # position p ≡ s (mod cap); slots never written (or out of the window)
+    # mask out.  Gathered BEFORE the chunk writes, so early chunk queries
+    # still see positions a later in-chunk token recycles.
+    ring_k = backends.gather_block_leaf(cache["k"], bt_row[None, :rb])
+    ring_v = backends.gather_block_leaf(cache["v"], bt_row[None, :rb])
+    sl = torch.arange(cap, device=dev)
+    lp = int(history) - 1
+    rp = lp - torch.remainder(lp - sl, cap)                     # (cap,)
+    ti = int(history) + torch.arange(t, device=dev)             # (t,)
+    ring_mask = (rp[None, :] >= 0) & (ti[:, None] - rp[None, :] < w)
+    ij = torch.arange(t, device=dev)
+    in_mask = (ij[None, :] <= ij[:, None]) & (ij[:, None] - ij[None, :] < w)
+    k_all = torch.cat([ring_k, kc], dim=2).float()      # (1, KV, cap+C, hd)
+    v_all = torch.cat([ring_v, vc], dim=2).float()
+    logits = torch.einsum("btkgd,bknd->bkgtn", qg.float(), k_all) * scale
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    mask = torch.cat([ring_mask, in_mask], dim=1)             # (t, cap+C)
+    logits = torch.where(mask, logits, NEG_INF)
+    ctx = torch.einsum("bkgtn,bknd->btkgd", torch.softmax(logits, dim=-1),
+                       v_all)
+    for name, val in (("k", kc), ("v", vc)):
+        backends.ring_write_chunk(cache[name], val, bt_row, history,
+                                  last_index,
+                                  block_size=cfg.serving.block_size,
+                                  ring_blocks=rb, window=w)
+    return ctx
+
+
 # ----------------------------------------------------------------- decode
 
 def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
@@ -245,9 +338,15 @@ def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     :class:`~repro_torch.models.backends.PagedView`, so paged-capable
     backends never materialize the per-request K/V view.
 
+    Local layers write and attend their ring: the contiguous ring of the
+    static path (``block_tables`` None), or the pool's circular page list
+    through a :class:`~repro_torch.models.backends.RingView`, attended by
+    the plain masked softmax or, with ``cfg.use_ring_kernel``, by the
+    fused ring kernel.
+
     The cache (or pool) is updated in place and returned.  Returns
     (y (B, 1, d), cache)."""
-    _require_global(attn_type)
+    window = _window(cfg, attn_type)
     b = x.shape[0]
     hd = cfg.head_dim
     h, kv = params["wq"].shape[1], params["wk"].shape[1]
@@ -260,6 +359,11 @@ def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                                device=x.device)
     q, k_new, v_new = _project_qkv(cfg, params, x, positions)
     qg = q.reshape(b, 1, kv, g, hd).permute(0, 2, 3, 1, 4)   # (B,KV,G,1,hd)
+    if window is not None:
+        ctx = _decode_ring(cfg, qg, k_new[:, 0], v_new[:, 0], cache, pos,
+                           block_tables, scale)
+        ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+        return _merge_heads(cfg, params, ctx.to(x.dtype)), cache
     backend = backends.get_backend(cfg.attention_backend)
     spec = backend.cache_spec(cfg)
     if block_tables is None:
@@ -272,3 +376,43 @@ def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     ctx = backend.attend(cfg, params, qg, view, length=pos + 1, scale=scale)
     ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
     return _merge_heads(cfg, params, ctx.to(x.dtype)), view.arrays
+
+
+def _decode_ring(cfg: ModelConfig, qg: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor, cache: Dict, pos, block_tables,
+                 scale: float) -> torch.Tensor:
+    """A local layer's decode step (see :func:`attention_decode`): write
+    the token's K/V ``(B, KV, hd)`` into its ring slot, then attend over
+    the ring.  qg (B, KV, G, 1, hd) -> ctx (B, KV, G, 1, hd) f32."""
+    w = cfg.sliding_window
+    if block_tables is None:
+        cap = cache["k"].shape[2]
+        view = backends.ContiguousView(cache, backends.kv_leaf_specs(cfg))
+        slot = pos % cap
+    else:
+        rb, cap = cfg.ring_geometry()
+        view = backends.RingView(cache, backends.kv_leaf_specs(cfg),
+                                 block_tables, cfg.serving.block_size, rb, w)
+        slot = pos
+    backends.write_token_kv(cfg, view, slot, k_new, v_new)
+    if block_tables is not None and cfg.use_ring_kernel:
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        return pa_ops.paged_ring_attend(
+            qg, cache["k"], cache["v"], block_tables[:, :rb], pos=pos,
+            window=w, softcap=cfg.attn_logit_softcap, scale=scale)
+    # ring-slot absolute positions; the window bound is a no-op when cap
+    # <= window (static path) but trims page-aligned rings that hold
+    # slightly more than a window
+    sl = torch.arange(cap, device=qg.device)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        pos_b = pos.to(qg.device).long()[:, None]                # (B, 1)
+    else:
+        pos_b = torch.full((1, 1), int(pos), device=qg.device)
+    ring_pos = pos_b - torch.remainder(pos_b - sl, cap)           # (B|1, cap)
+    valid = (ring_pos >= 0) & (pos_b - ring_pos < w)
+    logits = torch.einsum("bkgtd,bknd->bkgtn", qg.float(),
+                          view.leaf("k").float()) * scale
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
+    return torch.einsum("bkgtn,bknd->bkgtd", torch.softmax(logits, dim=-1),
+                        view.leaf("v").float())

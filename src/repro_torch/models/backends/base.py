@@ -12,20 +12,26 @@ the model needs:
                            ``rmw_token`` for Quest's page min/max).
 * ``attend(...)``        — decode attention for one query step.
 
-Two views realize the interface: :class:`ContiguousView` over the
-static path's ``(B, KVH, N, ...)`` cache, and :class:`PagedView` over the
+Three views realize the interface: :class:`ContiguousView` over the
+static path's ``(B, KVH, N, ...)`` cache, :class:`PagedView` over the
 continuous engine's page pool ``(num_blocks, KVH, block_size, ...)`` plus
-a per-request block table.  A backend whose ``attend`` reads K/V only
-through ``gather_rows`` is **paged-capable** (``supports_paged``).
+a per-request block table, and :class:`RingView`, the sliding-window
+layers' circular page list over the same pool.  A backend whose
+``attend`` reads K/V only through ``gather_rows`` is **paged-capable**
+(``supports_paged``).
+
+The pool side of the per-layer cache plan is a :class:`LayerCacheHandler`
+per layer: :class:`PagedKVCacheHandler` for global layers here,
+``RingCacheHandler`` (``backends/ring.py``) for sliding-window ones.
 
 Unlike the JAX package, writes update the cache and pool tensors **in
 place** (``KVView.arrays`` holds the very tensors of the caller's cache
 or pool): a K/V pool is gigabytes at long context, and a functional copy
 per step would double it.
 
-The ring view, quantized leaves and the per-layer cache handlers of
-ring and state layers come with later slices (ROADMAP.md queue 1 items
-5 and 7).
+Quantized leaves come with ROADMAP.md queue 1 item 5, the state (Mamba)
+handler with item 7, the handlers' ``write_prefill`` (the legacy
+whole-prompt prefill) with item 8.
 """
 
 from __future__ import annotations
@@ -37,12 +43,13 @@ import torch
 
 from repro_torch.core import socket as sk
 
-__all__ = ["LeafSpec", "KVView", "ContiguousView", "PagedView",
-           "DecodeBackend", "kv_leaf_specs", "kv_scales_of",
+__all__ = ["LeafSpec", "LayerCacheSpec", "KVView", "ContiguousView",
+           "PagedView", "RingView", "DecodeBackend", "LayerCacheHandler",
+           "PagedKVCacheHandler", "kv_leaf_specs", "kv_scales_of",
            "effective_keys", "write_prefill_kv", "write_token_kv",
-           "gather_kv_rows",
-           "subset_attention", "gather_block_leaf", "write_chunk_blocks",
-           "write_chunk_rows"]
+           "gather_kv_rows", "subset_attention", "gather_block_leaf",
+           "write_chunk_blocks", "write_chunk_rows", "ring_write_page",
+           "ring_write_chunk"]
 
 Pos = Union[int, torch.Tensor]
 
@@ -78,6 +85,21 @@ class LeafSpec:
 
     def leaf_dtype(self, cache_dtype: torch.dtype) -> torch.dtype:
         return cache_dtype if self.dtype is None else self.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerCacheSpec:
+    """One layer's resolved cache layout on the serving engine's pool.
+
+    * ``kind == "paged"`` — leaves live in pool pages addressed linearly
+      through the request block table (global-attention backends).
+    * ``kind == "ring"`` — K/V pages addressed circularly through the
+      first ``ring_blocks`` block-table entries (sliding-window layers).
+    """
+
+    kind: str
+    leaves: Dict[str, LeafSpec]
+    ring_blocks: int = 0
 
 
 def kv_leaf_specs(cfg) -> Dict[str, LeafSpec]:
@@ -235,6 +257,156 @@ class PagedView(KVView):
         pages[blk, :, row] = fn(pages[blk, :, row]).to(pages.dtype)
 
 
+def ring_write_page(pages: torch.Tensor, blk: torch.Tensor, pos: Pos,
+                    value: torch.Tensor, *, block_size: int,
+                    ring_blocks: int, window: int) -> torch.Tensor:
+    """Write token ``pos``'s ``value`` (B, KVH, *suffix) into its circular
+    page ``blk`` (B,) at row ``pos % block_size``, in place, **scrubbing
+    rows that cannot hold in-window tokens at page-opening writes** (row
+    0):
+
+    * first pass over the ring (``pos < ring capacity``): the page is a
+      freshly allocated pool block still carrying its previous owner's
+      data, and no row past the one written can be valid yet — zero it
+      all;
+    * later passes: rows ``[1, capacity - window]`` hold positions that
+      fell out of the window the moment this page reopened — zero that
+      dead band, keep the still-live window rows.
+
+    Ring validity masking already excludes every scrubbed row from
+    attention; the scrub keeps pool contents a pure function of the live
+    requests.  Active slots hold disjoint blocks; only trash-page writes
+    alias (the last one wins, as in the JAX package).  Returns
+    ``pages``."""
+    b = blk.shape[0]
+    blk = blk.long()
+    pos = torch.as_tensor(pos, device=blk.device).long().expand(b)
+    cap = ring_blocks * block_size
+    row = pos % block_size
+    page = pages[blk]                      # (B, KVH, block_size, *suffix)
+    r = torch.arange(block_size, device=blk.device)
+    scrub = (row == 0)[:, None] & (r[None] >= 1) & (
+        (r[None] <= cap - window) | (pos < cap)[:, None])     # (B, bs)
+    page.masked_fill_(scrub.reshape(b, 1, block_size,
+                                    *([1] * (page.ndim - 3))), 0)
+    page[torch.arange(b, device=blk.device), :, row] = value.to(page.dtype)
+    pages[blk] = page
+    return pages
+
+
+def ring_write_chunk(pages: torch.Tensor, vals: torch.Tensor,
+                     bt_row: torch.Tensor, history: int, last_index: int, *,
+                     block_size: int, ring_blocks: int,
+                     window: int) -> torch.Tensor:
+    """The pool after :func:`ring_write_page` wrote chunk tokens ``j = 0
+    .. C-1`` (positions ``history + j``, values ``vals`` ``(1, KVH, C,
+    *suffix)``) one after the other, batch 1, in place: real rows (``j
+    <= last_index``) to ring entry ``(pos // block_size) % ring_blocks``
+    of ``bt_row``, padded rows to the trash page (block 0), each
+    page-opening write scrubbing as that function does.
+
+    One pass instead of C: each (page, row) ends with the last event
+    that touched it — a token's write, or a later page-opening scrub —
+    so the result is bit for bit that of the sequential loop."""
+    c = vals.shape[2]
+    dev = pages.device
+    cap = ring_blocks * block_size
+    j = torch.arange(c, device=dev)
+    pos = int(history) + j
+    row = pos % block_size
+    # virtual page of each token: its ring entry, or ring_blocks (trash)
+    vpage = torch.where(j <= int(last_index), (pos // block_size) %
+                        ring_blocks, ring_blocks)
+    r = torch.arange(block_size, device=dev)
+    scrub = (row == 0)[:, None] & (r[None] >= 1) & (
+        (r[None] <= cap - window) | (pos < cap)[:, None])     # (C, bs)
+    # last event per (vpage, row): 2j + 1 for a write, 2j for a scrub
+    nkey = (ring_blocks + 1) * block_size
+    last = torch.full((nkey,), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(
+        0, (vpage[:, None] * block_size + r[None]).flatten(),
+        torch.where(scrub, 2 * j[:, None], -1).flatten(), reduce="amax")
+    last.scatter_reduce_(0, vpage * block_size + row, 2 * j + 1,
+                         reduce="amax")
+    # the pages the chunk touches, from host integers (no device sync):
+    # the real rows' ring entries, and the trash page under padding
+    first, end = int(history), int(history) + int(last_index)
+    touched = sorted({b % ring_blocks for b in range(
+        first // block_size, end // block_size + 1)})
+    if int(last_index) + 1 < c:
+        touched.append(ring_blocks)
+    touched = torch.tensor(touched, device=dev)
+    blk = torch.cat([bt_row[:ring_blocks].long(),
+                     torch.zeros(1, dtype=torch.long, device=dev)])[touched]
+    last = last.reshape(ring_blocks + 1, block_size)[touched]   # (P, bs)
+    page = pages[blk]                           # (P, KVH, bs, *suffix)
+    src = vals[0].movedim(1, 0)[(last // 2).clamp(min=0)]  # (P,bs,KVH,...)
+    src = src.movedim(2, 1).to(page.dtype)                 # (P,KVH,bs,...)
+    shape = (*last.shape[:1], 1, block_size, *([1] * (page.ndim - 3)))
+    wrote = (last >= 0) & (last % 2 == 1)
+    scrubbed = (last >= 0) & (last % 2 == 0)
+    page = torch.where(wrote.reshape(shape), src, page)
+    page.masked_fill_(scrubbed.reshape(shape), 0)
+    pages[blk] = page
+    return pages
+
+
+class RingView(PagedView):
+    """Sliding-window ring over pool pages: the first ``ring_blocks``
+    block-table entries form a circular page list — logical token ``t``
+    lives at entry ``(t // block_size) % ring_blocks``, row ``t %
+    block_size`` (so flat ring slot ``t % (ring_blocks * block_size)``).
+    Old pages are recycled in place; per-slot block demand never exceeds
+    ``ring_blocks``.
+
+    ``leaf()`` materializes the *bounded* ring view (``ring_blocks *
+    block_size`` rows — window-sized, never context-sized).  ``window``
+    drives the page-opening scrub of :func:`ring_write_page`.
+    """
+
+    def __init__(self, arrays, spec, block_table: torch.Tensor,
+                 block_size: int, ring_blocks: int, window: int):
+        super().__init__(arrays, spec, block_table, block_size)
+        self.ring_blocks = ring_blocks
+        self.window = window
+
+    @property
+    def n_tokens(self) -> int:
+        return self.ring_blocks * self.block_size
+
+    def leaf(self, name: str) -> torch.Tensor:
+        return gather_block_leaf(self.arrays[name],
+                                 self.block_table[:, :self.ring_blocks])
+
+    def _addr(self, name: str, pos: Pos):
+        assert self.spec[name].granularity == 1, name
+        bt = self.block_table.long()
+        b = bt.shape[0]
+        pos = torch.as_tensor(pos, device=bt.device).long().expand(b)
+        blk = bt[torch.arange(b, device=bt.device),
+                 (pos // self.block_size) % self.ring_blocks]
+        return blk, pos % self.block_size
+
+    def gather_rows(self, name: str, idx: torch.Tensor) -> torch.Tensor:
+        pages = self.arrays[name]
+        bt = self.block_table.long()
+        b, kvh = bt.shape[0], pages.shape[1]
+        bidx = torch.arange(b, device=bt.device).reshape(
+            b, *([1] * (idx.ndim - 1)))
+        hidx = torch.arange(kvh, device=bt.device).reshape(
+            1, kvh, *([1] * (idx.ndim - 2)))
+        blk = bt[bidx, (idx // self.block_size) % self.ring_blocks]
+        return pages[blk, hidx, idx % self.block_size]
+
+    def write_token(self, name: str, pos: Pos, value: torch.Tensor) -> None:
+        """Write token ``pos``'s row with the page-opening scrub (see
+        :func:`ring_write_page`), in the pool in place."""
+        blk, _ = self._addr(name, pos)
+        ring_write_page(self.arrays[name], blk, pos, value,
+                        block_size=self.block_size,
+                        ring_blocks=self.ring_blocks, window=self.window)
+
+
 # ------------------------------------------------------------------ helpers
 
 def write_prefill_kv(cfg, cache: Dict[str, torch.Tensor], kc: torch.Tensor,
@@ -361,3 +533,75 @@ def write_chunk_rows(pages: torch.Tensor, leaf: torch.Tensor,
                       torch.zeros_like(ti))
     vals = leaf[0].movedim(1, 0)             # (rows, KVH, *rest)
     pages[blk, :, ti % rows_pb] = vals.to(pages.dtype)
+
+
+# --------------------------------------------------------- cache handlers
+
+class LayerCacheHandler:
+    """Pool-side operations for ONE layer of the per-layer cache plan.
+
+    The serving engine's pool helpers (:mod:`repro_torch.serving.paged`)
+    resolve each layer to a handler (``layer_cache_handler``) and
+    dispatch through this interface; every method works on one layer's
+    leaf dict (name -> tensor) and writes the pool in place.
+
+    * ``spec``    — declarative :class:`LayerCacheSpec`.
+    * ``gather``  — materialize the contiguous per-slot views the
+                    unmodified (non-paged) decode path consumes.
+    * ``scatter`` — write the row(s) a decode step updated in those views
+                    back into the pool.
+    * ``write_prefill`` — the legacy whole-prompt prefill's scatter of a
+                    fresh batch=1 cache (ROADMAP.md queue 1 item 8).
+    """
+
+    kind: str = ""
+
+    def spec(self, cfg) -> LayerCacheSpec:
+        raise NotImplementedError
+
+    def write_prefill(self, cfg, pages, cache, bt_row, slot):
+        raise NotImplementedError(
+            "write_prefill belongs to the legacy whole-prompt bucketed "
+            "prefill, which comes with ROADMAP.md queue 1 item 8")
+
+    def gather(self, cfg, pages: Dict[str, torch.Tensor],
+               bt: torch.Tensor) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def scatter(self, cfg, pages: Dict[str, torch.Tensor],
+                views: Dict[str, torch.Tensor], bt: torch.Tensor,
+                pos: torch.Tensor) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+
+class PagedKVCacheHandler(LayerCacheHandler):
+    """Global-attention layers: the decode backend's ``cache_spec`` leaves
+    in pool pages, the block table consumed linearly."""
+
+    kind = "paged"
+
+    def __init__(self, backend: DecodeBackend):
+        self.backend = backend
+
+    def spec(self, cfg) -> LayerCacheSpec:
+        return LayerCacheSpec(kind="paged",
+                              leaves=self.backend.cache_spec(cfg))
+
+    def gather(self, cfg, pages, bt):
+        return {name: gather_block_leaf(p, bt) for name, p in pages.items()}
+
+    def scatter(self, cfg, pages, views, bt, pos):
+        """Write the row each slot updated at token ``pos[b]`` (view row
+        ``pos // granularity``) into physical page ``bt[b, pos //
+        block_size]``, in place.  Inactive slots point at the trash block;
+        duplicate trash writes are benign."""
+        bs = cfg.serving.block_size
+        spec = self.backend.cache_spec(cfg)
+        bt, pos = bt.long(), pos.long()
+        bidx = torch.arange(bt.shape[0], device=bt.device)
+        blk = bt[bidx, pos // bs]
+        for name, p in pages.items():
+            gran = spec[name].granularity
+            row = views[name][bidx, :, pos // gran]      # (B, KVH, *rest)
+            p[blk, :, (pos % bs) // gran] = row.to(p.dtype)
+        return pages

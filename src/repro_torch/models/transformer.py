@@ -26,11 +26,12 @@ __all__ = ["init_model", "init_decode_caches", "prefill", "prefill_chunk",
 
 
 def _check_spec(spec: LayerSpec) -> None:
+    """Attention layers (global or sliding-window) with a dense MLP or
+    none; Mamba and MoE layers raise."""
     if spec.kind != "attn" or spec.mlp not in ("dense", "none"):
         raise NotImplementedError(
             f"{spec.kind}/{spec.mlp} layers are not ported yet: Mamba and "
-            "MoE layers come with the hybrid-layouts slice (ROADMAP.md "
-            "queue 1)")
+            "MoE layers come with ROADMAP.md queue 1 item 7")
 
 
 def _check_inputs(cfg: ModelConfig) -> None:
@@ -111,13 +112,20 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> Dict:
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
-                       device="cpu") -> List[Dict]:
-    """One zero cache dict per layer, at ``capacity`` tokens."""
+                       device="cpu", pool=None) -> List[Dict]:
+    """One zero cache dict per layer, at ``capacity`` tokens.  ``pool`` (a
+    ``ServingSettings``) switches to the paged-pool layout: local layers
+    get full ``block_size``-row pages (the ring handler addresses them
+    circularly; no window truncation)."""
+    caches = []
     for spec in cfg.layer_specs:
         _check_spec(spec)
-    return [attn.init_attention_cache(cfg, batch, capacity, spec.attn_type,
-                                      device=device)
-            for spec in cfg.layer_specs]
+        ring_cap = pool.block_size if (
+            pool is not None and spec.attn_type == "local") else None
+        caches.append(attn.init_attention_cache(
+            cfg, batch, capacity, spec.attn_type, device=device,
+            ring_capacity=ring_cap))
+    return caches
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int):
@@ -169,7 +177,8 @@ def decode_step(cfg: ModelConfig, params: Dict, caches: List[Dict],
 
     ``block_tables``: per-request ``(B, blocks_per_seq)`` physical block
     ids — when given, ``caches`` is the serving engine's page pool and
-    attention layers read and write it through ``PagedView``.  The caches
+    attention layers read and write it through ``PagedView`` (global) or
+    ``RingView`` (local).  The caches
     are updated in place.  Returns (logits (B, 1, V_padded), caches)."""
     _check_inputs(cfg)
     x = embed_tokens(cfg, params["embed"], inputs)

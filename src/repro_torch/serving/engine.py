@@ -1,12 +1,12 @@
 """Continuous-batching serving engine on a paged K/V pool.
 
 Port of ``repro.serving.engine`` (the token-budget mixed step, greedy
-decoding, all-global-attention layouts).  Each iteration the scheduler
-grants at most ONE fixed-size prefill chunk alongside the full ragged
-decode batch, and one mixed step runs both: the chunk writes its pages
-and attends over the pages earlier chunks committed
-(:func:`repro_torch.models.attention.attention_prefill_chunk`), then the
-decode batch runs one token.  Iterations with no chunk run the
+decoding, layouts of global and sliding-window attention layers).  Each
+iteration the scheduler grants at most ONE fixed-size prefill chunk
+alongside the full ragged decode batch, and one mixed step runs both:
+the chunk writes its pages and attends over the pages earlier chunks
+committed (:func:`repro_torch.models.attention.attention_prefill_chunk`),
+then the decode batch runs one token.  Iterations with no chunk run the
 decode-only step.  A long prompt stalls in-flight decodes by at most one
 chunk.
 
@@ -15,9 +15,13 @@ hard_lsh, quest) the decode step hands the pool and block tables straight
 to the model: appends write pages in place and attention reads the
 metadata leaves plus the selected K/V rows — with ``use_paged_kernel``
 (``cfg.socket`` for socket and hard_lsh, ``cfg.quest`` for quest) all of
-it in one CUDA pass (``kernels/paged_attention``).  Otherwise (dense) the
-engine falls back to the gather/scatter round trip
-(``paged.gather_views`` / ``scatter_token``).
+it in one CUDA pass (``kernels/paged_attention``).  Sliding-window
+layers keep a circular page list of ``ring_blocks`` pages per request
+(``cfg.cache_plan()`` kind ``ring``) and decode from it in place, with
+``cfg.use_ring_kernel`` through the fused CUDA ring kernel.  Otherwise
+(dense) the engine falls back to the gather/scatter round trip
+(``paged.gather_views`` / ``scatter_token``), window-bounded for ring
+layers.
 
 Where the JAX engine jits and donates the pool, the port runs eagerly
 and updates the pool in place.  Preemption is recompute-style and
@@ -27,8 +31,8 @@ recorded tokens through the decode path.
 Not ported yet, each raising :class:`NotImplementedError` naming its
 ROADMAP.md queue 1 item: legacy whole-prompt bucketed prefill
 (``prefill_chunk == 0``), the prefix cache and sampling (item 8),
-observability (item 9), ring and state layers (item 7), and quantized
-or bf16 K/V pages (item 5).
+observability (item 9), state (Mamba) and MoE layers (item 7), and
+quantized or bf16 K/V pages (item 5).
 """
 
 from __future__ import annotations
@@ -117,13 +121,20 @@ class ContinuousBatchingEngine:
             params = tfm.init_model(cfg, seed, self.device)
         self.params = params
         self.backend = bk.get_backend(cfg.attention_backend)
-        self._paged_native = self.backend.supports_paged
+        plan = cfg.cache_plan()
+        has_paged = any(p.kind == "paged" for p in plan)
+        ring_blocks = max((p.ring_blocks for p in plan
+                           if p.kind == "ring"), default=0)
+        # page-native decode: a paged-capable backend, or no global layer
+        # consumes the backend at all (ring layers are page-native)
+        self._paged_native = self.backend.supports_paged or not has_paged
         self.pages = paged.init_paged_caches(cfg, self.serving, self.device)
         self.pool = BlockPool(self.serving.num_blocks)
         self.scheduler = Scheduler(
             self.pool, max_batch=self.serving.max_batch,
             max_blocks_per_seq=self.serving.max_blocks_per_seq,
             block_size=self.serving.block_size,
+            has_paged_layers=has_paged, ring_blocks=ring_blocks,
             prefill_chunk=self.serving.prefill_chunk)
         self._serve = make_serve_step(cfg)
         self._chunk = make_chunk_prefill_step(cfg)
@@ -156,10 +167,9 @@ class ContinuousBatchingEngine:
             raise _not_ported("serving observability (obs)", 9)
         if sv.kv_dtype != "auto":
             raise _not_ported(f"kv_dtype={sv.kv_dtype!r} pool pages", 5)
-        if any(s.kind != "attn" or s.attn_type != "global"
+        if any(s.kind != "attn" or s.mlp not in ("dense", "none")
                for s in cfg.layer_specs):
-            raise _not_ported("ring (sliding-window) and state (Mamba) "
-                              "layers", 7)
+            raise _not_ported("state (Mamba) and MoE layers", 7)
         # resolves the backend (ValueError on unknown names)
         bk.get_backend(cfg.attention_backend).cache_spec(cfg)
 
@@ -228,7 +238,10 @@ class ContinuousBatchingEngine:
     def _chunk_bt_len(self) -> int:
         """Chunk block-table row length: the full per-request table plus
         one chunk of slack, so the final (padded) chunk's block window
-        never clamps — its overhang entries are trash."""
+        never clamps — its overhang entries are trash.  It always covers
+        the ring's ``ring_blocks`` entries (``ring_geometry`` clamps them
+        to ``max_blocks_per_seq``), also when a ring is shorter than one
+        chunk: ring layers address entries modulo ``ring_blocks``."""
         sv = self.serving
         return sv.max_blocks_per_seq + sv.prefill_chunk // sv.block_size
 

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each Hopper kernel against its plain
 PyTorch version on the card, the static serve path through the two
 contiguous-path kernels, and the continuous engine through each fused
-paged kernel (SOCKET, hard LSH, Quest).  They skip with a reason where
+paged kernel (SOCKET, hard LSH, Quest) and, on gemma3's local:global
+layout, through the sliding-window ring kernel.  They skip with a reason where
 there is no CUDA card; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,7 +12,8 @@ atol 1e-5 (float32 in another summation order).  The paged kernel's
 selection equals the plain version's except at rows whose plain
 effective score lies within the score tolerance of the threshold, and
 bit for bit where the scores tie exactly; the hard-LSH and Quest
-kernels' selections equal their plain versions' bit for bit.
+kernels' selections equal their plain versions' bit for bit.  The ring
+kernel must skip the NaN rows its cases put in dead slots.
 """
 
 import math
@@ -21,8 +23,19 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+from repro_torch.kernels.paged_attention.cases import RING_CASES
+
 SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _to(tree, dev):
+    """A parameter tree (dicts and lists of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 @pytest.fixture
@@ -113,13 +126,7 @@ def test_static_serve_on_card_matches_cpu(dev):
     cpu, _, _ = run_serve(cfg, 2, 40, 6, prompt=prompt, params=params,
                           device="cpu")
     before = (ss.LAUNCHES, fd.LAUNCHES)
-    card_params = {"embed": {k: v.to(dev) for k, v in
-                             params["embed"].items()},
-                   "final_norm": {"scale": params["final_norm"]["scale"]
-                                  .to(dev)},
-                   "layers": [{name: ({k: v.to(dev) for k, v in sub.items()})
-                               for name, sub in layer.items()}
-                              for layer in params["layers"]]}
+    card_params = _to(params, dev)
     card, _, _ = run_serve(cfg, 2, 40, 6, prompt=prompt, params=card_params,
                            device=dev)
     calls = cfg.num_layers * 7                 # 6 steps + the warm-up
@@ -199,17 +206,46 @@ def test_paged_quest_kernel_matches_plain(dev, case):
     cases.check_quest(out, sel, args, akw, attn_tol=ATTN_TOL)
 
 
-def _engine_on_card_matches_cpu(dev, backend):
+@pytest.mark.parametrize("label", [c[0] for c in RING_CASES])
+def test_paged_ring_kernel_matches_plain(dev, label):
+    from repro_torch.kernels.paged_attention import cases, ops
+    kw = dict(cases.RING_CASES)[label]
+    gen = torch.Generator(device=dev).manual_seed(len(label))
+    (case,), akw = cases.ring_case(gen, **kw)
+    before = ops.RING_LAUNCHES
+    out = ops.paged_ring_attend(*case[:4], pos=case[4], **akw)
+    assert ops.RING_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    cases.check_ring(out, case, akw, attn_tol=ATTN_TOL)
+
+
+def test_paged_ring_check_catches_wrong_position_or_window(dev):
+    from repro_torch.kernels.paged_attention import cases, ops
+    gen = torch.Generator(device=dev).manual_seed(3)
+    (case,), akw = cases.ring_case(gen, [40, 700, 2000, 3001], window=1000)
+    q, kp, vp, bt, pos = case
+    for wrong in (dict(akw, window=990), dict(akw, pos=pos + 1)):
+        bad = ops.paged_ring_attend(q, kp, vp, bt, **dict(dict(pos=pos),
+                                                          **wrong))
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError, match="paged_ring"):
+            cases.check_ring(bad, case, akw, attn_tol=ATTN_TOL)
+
+
+def _engine_on_card_matches_cpu(dev, backend, arch="llama31-8b",
+                                ring_kernel=False):
     """Greedy tokens of the continuous engine at smoke size with
-    ``backend``: on the card (through its fused kernel) equal to the CPU
-    run (through the kernel's plain version).  Returns the launches."""
+    ``backend``: on the card (through its fused kernels) equal to the CPU
+    run (through the kernels' plain versions).  Returns the launches of
+    the SOCKET, hard-LSH, Quest and ring kernels."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.launch.serve import apply_backend_arg
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import Request
     from repro_torch.serving.engine import ContinuousBatchingEngine
-    cfg = apply_backend_arg(get_config("llama31-8b").smoke(), backend)
+    cfg = apply_backend_arg(get_config(arch).smoke(), backend).replace(
+        use_ring_kernel=ring_kernel)
     params = tfm.init_model(cfg, seed=0)
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
@@ -222,27 +258,31 @@ def _engine_on_card_matches_cpu(dev, backend):
         return [r.generated for r in reqs]
 
     cpu = serve("cpu", params)
-    card_params = {"embed": {k: v.to(dev) for k, v in
-                             params["embed"].items()},
-                   "final_norm": {"scale": params["final_norm"]["scale"]
-                                  .to(dev)},
-                   "layers": [{name: ({k: v.to(dev) for k, v in sub.items()})
-                               for name, sub in layer.items()}
-                              for layer in params["layers"]]}
-    before = (ops.LAUNCHES, ops.HARD_LSH_LAUNCHES, ops.QUEST_LAUNCHES)
+    card_params = _to(params, dev)
+    counters = ("LAUNCHES", "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES",
+                "RING_LAUNCHES")
+    before = [getattr(ops, c) for c in counters]
     assert serve(dev, card_params) == cpu
-    return [after - b for after, b in zip(
-        (ops.LAUNCHES, ops.HARD_LSH_LAUNCHES, ops.QUEST_LAUNCHES), before)]
+    return [getattr(ops, c) - b for c, b in zip(counters, before)]
 
 
 def test_continuous_engine_fused_kernel_matches_cpu(dev):
-    socket, hard, quest = _engine_on_card_matches_cpu(dev, "socket_fused")
-    assert socket > 0 and hard == quest == 0
+    socket, hard, quest, ring = _engine_on_card_matches_cpu(dev,
+                                                            "socket_fused")
+    assert socket > 0 and hard == quest == ring == 0
 
 
 @pytest.mark.parametrize("backend", ["hard_lsh_fused", "quest_fused"])
 def test_continuous_engine_baseline_kernels_match_cpu(dev, backend):
-    socket, hard, quest = _engine_on_card_matches_cpu(dev, backend)
-    assert socket == 0
+    socket, hard, quest, ring = _engine_on_card_matches_cpu(dev, backend)
+    assert socket == ring == 0
     assert (hard > 0, quest > 0) == (backend == "hard_lsh_fused",
                                      backend == "quest_fused")
+
+
+def test_continuous_engine_ring_kernel_matches_cpu(dev):
+    """gemma3 smoke (11 local, 2 global layers): the ring kernel on every
+    local layer, the paged SOCKET kernel on the global ones."""
+    socket, hard, quest, ring = _engine_on_card_matches_cpu(
+        dev, "socket_fused", arch="gemma3-27b", ring_kernel=True)
+    assert 2 * ring == 11 * socket > 0 and hard == quest == 0

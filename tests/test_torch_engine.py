@@ -135,7 +135,10 @@ def test_engine_raises_for_unported_parts():
         (tc, dict(obs=object()), "item 9"),
         (tc.replace(serving=tc.serving.replace(kv_dtype="int8")), {},
          "item 5"),
-        (tc.replace(pattern=(LayerSpec(attn_type="local"),)), {}, "item 7"),
+        (tc.replace(pattern=(LayerSpec(kind="mamba", mlp="none"),)), {},
+         "item 7"),
+        (tc.replace(pattern=(LayerSpec(attn_type="local", mlp="moe"),)), {},
+         "item 7"),
     ]
     for cfg, kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -55,7 +55,7 @@ def _jax_params(jc, seed=0):
     return pm.unbox(jtfm.init_model(jc, jax.random.PRNGKey(seed)))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["gemma3-27b"])
 def test_configs_match_jax(arch):
     for full in (True, False):
         jc, tc = jget(arch), tget(arch)
@@ -77,8 +77,8 @@ def test_configs_match_jax(arch):
 
 
 def test_registry_names_later_slices():
-    with pytest.raises(NotImplementedError, match="hybrid-layouts"):
-        tget("gemma3-27b")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tget("mixtral-8x22b")
     with pytest.raises(KeyError):
         tget("no-such-arch")
 
@@ -126,15 +126,21 @@ def test_attention_train_chunked_allclose(q_chunk):
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 32, 64)).astype(np.float32)
     pos = np.broadcast_to(np.arange(32, dtype=np.int32), (2, 32))
-    out = tattn.attention_train(tc, {k: (_t(v) if not isinstance(v, dict)
-                                         else {"scale": _t(v["scale"])})
-                                     for k, v in params.items()},
-                                _t(x), _t(pos), "global")
+    tparams = {k: (_t(v) if not isinstance(v, dict)
+                   else {"scale": _t(v["scale"])})
+               for k, v in params.items()}
+    out = tattn.attention_train(tc, tparams, _t(x), _t(pos), "global")
     ref = jattn.attention_train(jc, params, jnp.asarray(x),
                                 jnp.asarray(pos), "global")
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
-    with pytest.raises(NotImplementedError, match="hybrid-layouts"):
-        tattn.attention_train(tc, {}, _t(x), _t(pos), "local")
+    # sliding-window (local) layers: a 5-token window on both sides
+    jl, tl = jc.replace(sliding_window=5), tc.replace(sliding_window=5)
+    out = tattn.attention_train(tl, tparams, _t(x), _t(pos), "local")
+    ref = jattn.attention_train(jl, params, jnp.asarray(x),
+                                jnp.asarray(pos), "local")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    with pytest.raises(ValueError, match="attn_type"):
+        tattn.attention_train(tc, tparams, _t(x), _t(pos), "sparse")
 
 
 def test_weight_bridge_keeps_layouts_and_hash_planes():

@@ -17,7 +17,12 @@ Phases, in order; the first failure raises and the script exits non-zero:
               one PyTorch call computing the same function on the device
               (CUDA-graph replay), beside the least time the card could
               take, and the kernel once more launched back to back from
-              Python (the host's launch rate).
+              Python (the host's launch rate).  The four fused paged
+              kernels again on pools stored as bf16, int8 and fp8 (the main
+              case and an edge: ties, or a ring whose dead rows hold NaN in
+              scales and fp8 payloads), SOCKET's and hard LSH's selections
+              also equal to their own on the f32 pages; int8 and fp8 are
+              timed as entries ``name[int8]``, ``name[fp8]``.
 4. main     — llama31-8b at full width and depth through
               ``repro_torch.launch.serve.run_serve``: batch 2, an 8192-token
               prompt drawn from --seed, 32 greedy decode steps, SOCKET with
@@ -39,7 +44,11 @@ Phases, in order; the first failure raises and the script exits non-zero:
               engine's state (the widest batch the run held, on a clone of
               the pool) is run again through the kernel and through the
               plain paged path; their logits must agree.  Each run's pool
-              and snapshot are freed before the next.
+              and snapshot are freed before the next.  Each backend then
+              runs again, the same weights and traffic, on int8 and on fp8
+              K/V pages (``serving.kv_dtype``), with the same gates; the
+              K/V bytes a block id holds and the greedy tokens' agreement
+              with the f32 run are logged (a number, not a gate).
 6. gemma3-continuous — after llama31-8b's weights are freed, gemma3-27b
               at full width (d_model 5376, 32/16 heads, d_ff 21504, vocab
               262144, window 1024) with its depth cut to 2 groups: 14 of
@@ -51,7 +60,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               ``paged_ring`` must launch exactly 12 x decode calls, the
               paged SOCKET kernel 2 x decode calls, no other kernel at all;
               one decode iteration runs again through the plain routes
-              (ring and global), and the logits must agree.
+              (ring and global), and the logits must agree.  Then again on
+              int8 and on fp8 pages, both kernels in that mode.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -84,6 +94,10 @@ ATTN_TOL = dict(rtol=1e-4, atol=1e-5)     # fp32 online vs two-pass softmax
 # on an H100 (|logits| <= 9.3, seed 0); the limit leaves 20x headroom, well
 # below the ~1e-2 that one dropped or swapped top-k row moves them.
 LOGITS_ATOL = 1e-4
+# the stored K/V page modes the paged kernels are checked in besides f32
+# (serving.kv_dtype); int8 and fp8 also get timed entries and main-path
+# runs
+QUANT_KV_DTYPES = ("bf16", "int8", "fp8")
 TIMED_ITERS = 50
 GRAPH_REPLAYS = 4
 L2_BYTES = 50 * 2 ** 20
@@ -318,8 +332,9 @@ def phase_kernels(dev, seed):
                 bound_by=by, library_ms=lib_ms,
                 back_to_back_ms=back_to_back_ms(kernel, sets))
 
-    rows.update(paged_rows(dev, seed))
-    rows.update(ring_rows(dev, seed))
+    for kv_dtype in ("auto",) + QUANT_KV_DTYPES:
+        rows.update(paged_rows(dev, seed, kv_dtype))
+        rows.update(ring_rows(dev, seed, kv_dtype))
     return rows
 
 
@@ -362,15 +377,23 @@ PAGED_CASES = {
 }
 
 
-def lsh_cost(case, args, hard):
+def kv_row_bytes(case, scales) -> int:
+    """Bytes of one K and one V row of ``case``'s pool, with their scales
+    when it has them (int8/fp8: 2 * (hd + 4))."""
+    kp = case[1]
+    return 2 * (kp.shape[-1] * kp.element_size() + (4 if scales else 0))
+
+
+def lsh_cost(case, args, hard, row_bytes):
     """Bytes and operations the SOCKET (or hard-LSH) function must spend
     on ``case``: the bits and vnorm of each scored token, and the query
     hash, only for requests whose budget exceeds their forced sink and
     window rows (elsewhere the selection is those rows, whatever the
-    scores); the selected K/V rows, forced ones included; q, the table,
-    the output.  Operations: one FMA (P split into table lookups) or one
-    compare per (scored token, g, l); q.k and p.v per selected row.
-    Returns (bytes, operations, bytes of the pool rows touched)."""
+    scores); the selected K/V rows (``row_bytes`` each, scales included),
+    forced ones included; q, the table, the output.  Operations: one FMA
+    (P split into table lookups) or one compare per (scored token, g, l);
+    q.k and p.v per selected row.  Returns (bytes, operations, bytes of
+    the pool rows touched)."""
     q, bits, qhash, bt = case[0], case[3], case[5], case[6]
     lens, budget = case[7].cpu().long(), case[8].cpu().long()
     b, kvh, g, hd = q.shape
@@ -380,7 +403,7 @@ def lsh_cost(case, args, hard):
     live = budget > forced
     scored = int(torch.where(live, lens - forced, 0).sum())
     nsel = int(torch.minimum(budget, lens).sum())
-    touched = kvh * (scored * (w * 4 + 2) + nsel * 2 * hd * 4)
+    touched = kvh * (scored * (w * 4 + 2) + nsel * row_bytes)
     nbytes = touched + kvh * (b * 2 * g * hd * 4 +
                               int(live.sum()) * gs * l * p * 4) + \
         bt.numel() * 4
@@ -388,11 +411,12 @@ def lsh_cost(case, args, hard):
     return float(nbytes), float(flops), float(touched)
 
 
-def quest_cost(case, args, sel):
-    """As :func:`lsh_cost` for Quest: kmin and kmax of each live page that
-    is neither sink nor window (for requests whose page budget exceeds
-    those forced pages), the selected live K/V rows, q, the table, the
-    output; 4 operations per (scored page, g, d), q.k and p.v per row."""
+def quest_cost(case, args, sel, row_bytes):
+    """As :func:`lsh_cost` for Quest: kmin and kmax (f32) of each live
+    page that is neither sink nor window (for requests whose page budget
+    exceeds those forced pages), the selected live K/V rows, q, the
+    table, the output; 4 operations per (scored page, g, d), q.k and p.v
+    per row."""
     q, bt, length, budget = case[0], case[5], case[6], case[7]
     b, kvh, g, hd = q.shape
     ps, sink = args["page_size"], args["sink_tokens"]
@@ -404,7 +428,7 @@ def quest_cost(case, args, sel):
         if kp > len(start) - int(free.sum()):
             scored += int(free.sum())
     nsel = int(sel.sum())
-    touched = kvh * scored * 2 * hd * 4 + nsel * 2 * hd * 4
+    touched = kvh * scored * 2 * hd * 4 + nsel * row_bytes
     nbytes = touched + b * kvh * 2 * g * hd * 4 + bt.numel() * 4
     flops = kvh * scored * g * hd * 4 + nsel * g * 4 * hd
     return float(nbytes), float(flops), float(touched)
@@ -412,53 +436,59 @@ def quest_cost(case, args, sel):
 
 def paged_kernels():
     """name -> (source, replaces, seed offset, case builder, launch, check
-    returning (max |err|, note), plain version of a case's args, cost)."""
+    returning (max |err|, note), plain version of a case's args, cost).
+    Checks take the case's scale pools (``cases.store_kv``), plain versions
+    and costs the same, costs the bytes of one K and V row too."""
     from repro_torch.kernels.paged_attention import cases, ops as pa
     from repro_torch.kernels.paged_attention import ref
 
     def top_k(sets, kw):
         return min(kw["nb"] * 16, int(sets[0][8].max()))
 
-    def check_socket(out, sel, case, args, kw):
+    def check_socket(out, sel, case, args, kw, scales):
         err, near = cases.check_paged(out, sel, case, args,
                                       ties=kw.get("ties", False),
-                                      attn_tol=ATTN_TOL, score_tol=SCORE_TOL)
+                                      attn_tol=ATTN_TOL, score_tol=SCORE_TOL,
+                                      scales=scales)
         return err, (f"budgets {case[8].tolist()}; selection equal" +
                      (f" but {near} rows within the threshold band"
                       if near else ""))
 
-    def check_hard(out, sel, case, args, kw):
-        err = cases.check_hard_lsh(out, sel, case, args, attn_tol=ATTN_TOL)
+    def check_hard(out, sel, case, args, kw, scales):
+        err = cases.check_hard_lsh(out, sel, case, args, attn_tol=ATTN_TOL,
+                                   scales=scales)
         eff = cases.plain_hard_eff(case, args)
         return err, (f"budgets {case[8].tolist()}; selection equal bit for "
                      f"bit; {int((eff == 0).sum())} of {eff.numel()} scored "
                      "rows score exactly 0")
 
-    def check_quest(out, sel, case, args, kw):
-        err = cases.check_quest(out, sel, case, args, attn_tol=ATTN_TOL)
+    def check_quest(out, sel, case, args, kw, scales):
+        err = cases.check_quest(out, sel, case, args, attn_tol=ATTN_TOL,
+                                scales=scales)
         return err, (f"page budget {int(case[7][0])} of "
                      f"{kw['nb'] * 16 // args['page_size']}; selection equal "
                      f"bit for bit, {int(sel.sum().item())} rows")
 
-    def plain_socket(sets, args, kw):
+    def plain_socket(sets, args, kw, scales):
         tk = top_k(sets, kw)
         return lambda q, kp, vp, bits, vn, u, bt, length, budget: \
             ref.paged_socket_attend_ref(q, kp, vp, bits, vn, u, bt,
                                         length=length, budget=budget,
-                                        top_k=tk, **args)
+                                        top_k=tk, **args, **scales)
 
-    def plain_hard(sets, args, kw):
+    def plain_hard(sets, args, kw, scales):
         tk = top_k(sets, kw)
         return lambda q, kp, vp, bits, vn, us, bt, length, budget: \
             ref.paged_hard_lsh_attend_ref(q, kp, vp, bits, vn, us, bt,
                                           length=length, budget=budget,
-                                          top_k=tk, **args)
+                                          top_k=tk, **args, **scales)
 
-    def plain_quest(sets, args, kw):
+    def plain_quest(sets, args, kw, scales):
         pb = int(sets[0][7][0])
         return lambda q, kp, vp, kmin, kmax, bt, length, _budget: \
             ref.paged_quest_attend_ref(q, kp, vp, kmin, kmax, bt,
-                                       length=length, page_budget=pb, **args)
+                                       length=length, page_budget=pb, **args,
+                                       **scales)
 
     src = "src/repro_torch/kernels/paged_attention/"
     tpu = "src/repro/kernels/paged_attention/"
@@ -467,12 +497,12 @@ def paged_kernels():
             src + "paged_attention.cu", tpu + "paged_attention.py:69", 7,
             cases.paged_case, pa.launch_paged_socket_attend, check_socket,
             plain_socket,
-            lambda case, args, sel: lsh_cost(case, args, hard=False)),
+            lambda case, args, sel, rb: lsh_cost(case, args, False, rb)),
         "paged_hard_lsh": (
             src + "paged_attention.cu", tpu + "paged_hard_lsh.py:45", 11,
             cases.hard_lsh_case, pa.launch_paged_hard_lsh_attend, check_hard,
             plain_hard,
-            lambda case, args, sel: lsh_cost(case, args, hard=True)),
+            lambda case, args, sel, rb: lsh_cost(case, args, True, rb)),
         "paged_quest": (
             src + "paged_quest.cu", tpu + "paged_quest.py:46", 13,
             cases.quest_case, pa.launch_paged_quest_attend, check_quest,
@@ -480,34 +510,64 @@ def paged_kernels():
     }
 
 
-def paged_rows(dev, seed):
+def paged_rows(dev, seed, kv_dtype="auto"):
     """Each fused paged kernel against its plain version at the continuous
-    path's shapes and edges; times at the main shapes."""
+    path's shapes and edges, its pool's K/V pages stored as ``kv_dtype``
+    (``auto``: f32 and every case of ``PAGED_CASES``; else the main case
+    and the tie-heavy one, stored by ``cases.store_kv``, where SOCKET's
+    and hard LSH's selections must also equal the kernel's on the f32
+    pages of the same case); times at the main shapes, entries named
+    ``name`` or ``name[kv_dtype]``."""
+    from repro_torch.kernels.paged_attention import cases
     rows = {}
     for name, (source, replaces, offset, build, launch, check, plain,
                cost) in paged_kernels().items():
         gen = torch.Generator(device=dev).manual_seed(seed + offset)
+        quest = name == "paged_quest"
         for label, kw in PAGED_CASES[name]:
+            if kv_dtype != "auto" and not label.startswith(("main path",
+                                                             "tie-heavy")):
+                continue
             sets, args = build(gen, **kw)
-            out, sel = launch(*sets[0], with_selection=True, **args)
+            out32, sel32 = None, None
+            scales = {}
+            if kv_dtype != "auto":
+                if not quest:
+                    out32, sel32 = launch(*sets[0], with_selection=True,
+                                          **args)
+                sets, scales = cases.store_kv(sets, kv_dtype, quest=quest)
+            out, sel = launch(*sets[0], with_selection=True, **args,
+                              **scales)
             torch.cuda.synchronize()
             try:
-                err, note = check(out, sel, sets[0], args, kw)
+                err, note = check(out, sel, sets[0], args, kw, scales)
+                if sel32 is not None and not torch.equal(sel, sel32):
+                    raise AssertionError(
+                        f"{name}: the selection on {kv_dtype} pages differs "
+                        "from the one on the f32 pages of the same case")
             except AssertionError as e:
-                raise AssertionError(f"[{label}] {e}") from None
-            log(f"{name} [{label}] lengths {kw['lengths']}: max|err| "
-                f"{err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
+                raise AssertionError(f"[{kv_dtype}, {label}] {e}") from None
+            if sel32 is not None:
+                note += "; selection equal to the f32 pages' bit for bit"
+            log(f"{name} [{kv_dtype}, {label}] lengths {kw['lengths']}: "
+                f"max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
                 f"{ATTN_TOL['atol']}); {note}")
-            if not label.startswith("main path"):
+            del out32, sel32
+            if not label.startswith("main path") or kv_dtype == "bf16":
                 continue
-            nbytes, flops, touched = cost(sets[0], args, sel)
+            row_b = kv_row_bytes(sets[0], scales)
+            nbytes, flops, touched = cost(sets[0], args, sel, row_b)
             sets, args = build(gen, copies=rotations(touched), **kw)
-            kernel = functools.partial(launch, **args)
+            if kv_dtype != "auto":
+                sets, scales = cases.store_kv(sets, kv_dtype, quest=quest)
+            kernel = functools.partial(launch, **args, **scales)
             ms = device_time_ms(kernel, sets)
-            plain_ms = device_time_ms(plain(sets, args, kw), sets[:2])
+            plain_ms = device_time_ms(plain(sets, args, kw, scales),
+                                      sets[:2])
             bms, by = bound(nbytes, flops)
-            rows[name] = dict(
-                name=name, route="cuda", source=source, replaces=replaces,
+            key = name if kv_dtype == "auto" else f"{name}[{kv_dtype}]"
+            rows[key] = dict(
+                name=key, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None,
                 back_to_back_ms=back_to_back_ms(kernel, sets))
@@ -515,72 +575,95 @@ def paged_rows(dev, seed):
     return rows
 
 
-def ring_rows(dev, seed):
+def ring_rows(dev, seed, kv_dtype="auto"):
     """The ring kernel against its plain version on ``cases.RING_CASES``
-    (dead slots and the trash page hold NaN, which the kernel must skip);
-    times at the main shapes beside the bound, the plain version and
-    ``scaled_dot_product_attention`` over the pre-gathered ring views."""
+    (dead slots and the trash page hold NaN, which the kernel must skip),
+    its pool stored as ``kv_dtype`` (``auto``: f32 and every case; else
+    the main case and the window-1000 one, stored by ``cases.store_kv``,
+    dead rows NaN in their scales and fp8 payloads too); times at the
+    main shapes beside the bound, the plain version and, for f32 pages,
+    ``scaled_dot_product_attention`` over the pre-gathered ring views (no
+    one PyTorch call dequantizes and attends: ``library_ms`` null)."""
     from repro_torch.kernels.paged_attention import cases, ops as pa
     from repro_torch.kernels.paged_attention.ref import paged_ring_attend_ref
     from repro_torch.models.backends.base import gather_block_leaf
     gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    rows = {}
     for label, kw in cases.RING_CASES:
-        (case,), args = cases.ring_case(gen, **kw)
-        out = pa.launch_paged_ring_attend(*case, **args)
+        if kv_dtype != "auto" and not label.startswith(("main path",
+                                                        "window 1000")):
+            continue
+        sets, args = cases.ring_case(gen, **kw)
+        sets, scales = (sets, {}) if kv_dtype == "auto" else \
+            cases.store_kv(sets, kv_dtype)
+        case = sets[0]
+        out = pa.launch_paged_ring_attend(*case, **args, **scales)
         torch.cuda.synchronize()
         try:
-            err = cases.check_ring(out, case, args, attn_tol=ATTN_TOL)
+            err = cases.check_ring(out, case, args, attn_tol=ATTN_TOL,
+                                   scales=scales)
         except AssertionError as e:
-            raise AssertionError(f"[{label}] {e}") from None
+            raise AssertionError(f"[{kv_dtype}, {label}] {e}") from None
         q, kp, _, bt, pos = case
         b, kvh, g, hd = q.shape
         cap = bt.shape[1] * kp.shape[2]
         live = cases.ring_live(pos, cap, args["window"])
-        log(f"paged_ring [{label}] positions {kw['positions']} KVH {kvh} G "
-            f"{g} window {args['window']} softcap {args['softcap']}: max|err| "
-            f"{err:.3e} (rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); "
+        log(f"paged_ring [{kv_dtype}, {label}] positions {kw['positions']} "
+            f"KVH {kvh} G {g} window {args['window']} softcap "
+            f"{args['softcap']}: max|err| {err:.3e} (rtol "
+            f"{ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); "
             f"{int(live.sum())} live of {b * cap} slots, dead ones NaN")
-        if not label.startswith("main path"):
+        if not label.startswith("main path") or kv_dtype == "bf16":
             continue
         nlive = int(live.sum())
-        # the live K/V rows once, q, the output, the table and positions
-        nbytes = kvh * nlive * 2 * hd * 4 + 2 * b * kvh * g * hd * 4 + \
-            bt.numel() * 4 + b * 4
+        # the live K/V rows once (scales included), q, the output, the
+        # table and positions
+        nbytes = kvh * nlive * kv_row_bytes(case, scales) + \
+            2 * b * kvh * g * hd * 4 + bt.numel() * 4 + b * 4
         flops = kvh * nlive * g * 4 * hd
         sets, args = cases.ring_case(gen, copies=rotations(nbytes), **kw)
-        kernel = functools.partial(pa.launch_paged_ring_attend, **args)
+        if kv_dtype != "auto":
+            sets, scales = cases.store_kv(sets, kv_dtype)
+        kernel = functools.partial(pa.launch_paged_ring_attend, **args,
+                                   **scales)
         ms = device_time_ms(kernel, sets)
         plain_ms = device_time_ms(
             lambda q, kp, vp, bt, pos: paged_ring_attend_ref(
-                q, kp, vp, bt, pos=pos, **args), sets[:2])
-        # the library call: SDPA over the ring views gathered beforehand
-        # (the gather, which the kernel does itself, is not timed), the
-        # query group as SDPA's L axis, the window mask as a bool mask
-        views = [(q, gather_block_leaf(kp, bt).nan_to_num(0.0),
-                  gather_block_leaf(vp, bt).nan_to_num(0.0),
-                  cases.ring_live(pos, cap, args["window"])[:, None, None])
-                 for q, kp, vp, bt, pos in sets]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = functools.partial(sdpa, scale=args["scale"])
-        check_close("paged_ring[SDPA yardstick]",
-                    lib(*views[0][:3], attn_mask=views[0][3]),
-                    cases.plain_ring(sets[0], args), ATTN_TOL)
-        lib_ms = device_time_ms(lambda q, k, v, m: lib(q, k, v, attn_mask=m),
-                                views)
-        del views
+                q, kp, vp, bt, pos=pos, **args, **scales), sets[:2])
+        lib_ms, extra = None, {}
+        if kv_dtype == "auto":
+            # the library call: SDPA over the ring views gathered
+            # beforehand (the gather, which the kernel does itself, is not
+            # timed), the query group as SDPA's L axis, the window mask as
+            # a bool mask
+            views = [(q, gather_block_leaf(kp, bt).nan_to_num(0.0),
+                      gather_block_leaf(vp, bt).nan_to_num(0.0),
+                      cases.ring_live(pos, cap, args["window"])[:, None,
+                                                                None])
+                     for q, kp, vp, bt, pos in sets]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = functools.partial(sdpa, scale=args["scale"])
+            check_close("paged_ring[SDPA yardstick]",
+                        lib(*views[0][:3], attn_mask=views[0][3]),
+                        cases.plain_ring(sets[0], args), ATTN_TOL)
+            lib_ms = device_time_ms(
+                lambda q, k, v, m: lib(q, k, v, attn_mask=m), views)
+            del views
+            extra = dict(library_call="scaled_dot_product_attention over "
+                         "the ring views gathered beforehand (gather not "
+                         "timed), bool window mask")
         bms, by = bound(nbytes, flops)
-        row = dict(
-            name="paged_ring", route="cuda",
+        key = "paged_ring" if kv_dtype == "auto" else \
+            f"paged_ring[{kv_dtype}]"
+        rows[key] = dict(
+            name=key, route="cuda",
             source="src/repro_torch/kernels/paged_attention/paged_ring.cu",
             replaces="src/repro/kernels/paged_attention/paged_ring.py:42",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=lib_ms,
-            library_call="scaled_dot_product_attention over the ring views "
-                         "gathered beforehand (gather not timed), bool "
-                         "window mask",
+            bound_by=by, library_ms=lib_ms, **extra,
             back_to_back_ms=back_to_back_ms(kernel, sets))
         del sets
-    return {"paged_ring": row}
+    return rows
 
 
 
@@ -682,41 +765,93 @@ FUSED = {"socket_fused": ("paged_attention", "LAUNCHES", "socket"),
          "quest_fused": ("paged_quest", "QUEST_LAUNCHES", "quest")}
 
 
-def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b"):
-    """One continuous run of ``arch`` with ``backend`` (see the module
-    docstring, phases 5 and 6); ``params`` None draws the card case's
-    weights from ``seed``.  Returns the launches of the kernels the run
-    is read for."""
+def draw_params(dev, seed, arch):
+    """The continuous card case's weights of ``arch``, drawn from
+    ``seed`` (logged with the depth the case cuts to)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import card_continuous_case
+    from repro_torch.models import transformer as tfm
+    full = get_config(arch)
+    cfg, _ = card_continuous_case(full, seed, 32)
+    kinds = [s.attn_type for s in cfg.layer_specs]
+    t0 = time.perf_counter()
+    params = tfm.init_model(cfg, seed, dev)
+    torch.cuda.synchronize()
+    log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params (fp32) drawn "
+        f"in {time.perf_counter() - t0:.1f} s; {cfg.num_layers} of "
+        f"{full.num_layers} layers ({kinds.count('local')} local, "
+        f"{kinds.count('global')} global): depth cut to num_groups "
+        f"{cfg.num_groups} of {full.num_groups}, widths as published")
+    return params
+
+
+@torch.no_grad()
+def forced_logits_err(cfg, cfg_plain, params, kernel_pages, plain_pages,
+                      tokens, pos, bt, live):
+    """One decode iteration through the kernel route and the plain route
+    layer by layer, each layer of both routes fed the kernel route's
+    input to it (teacher forcing): both append the same quantized row,
+    so only the attention routes differ.  Every layer's two outputs go
+    through the final norm and the head; returns the largest |logits
+    difference| over layers and the live requests."""
+    from repro_torch.models import transformer as tfm
+    x = tfm.embed_tokens(cfg, params["embed"], tokens)
+    worst = 0.0
+    for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
+        xk, _ = tfm._block_decode(cfg, lp, spec, x, kernel_pages[i], pos, bt)
+        xp, _ = tfm._block_decode(cfg_plain, lp, spec, x, plain_pages[i],
+                                  pos, bt)
+        lk, lp_ = (tfm.lm_head(cfg, params["embed"],
+                               tfm.rmsnorm(params["final_norm"], y))[live]
+                   for y in (xk, xp))
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp_).all()):
+            raise AssertionError(f"non-finite logits at layer {i}")
+        worst = max(worst, (lk - lp_).abs().max().item())
+        x = xk
+    return worst
+
+
+def kv_block_bytes(pages):
+    """Bytes of the K/V leaves (scales included) one block id holds
+    across all layers: as stored, and as ``auto`` (f32) would store
+    them."""
+    names = ("k", "v", "k_scale", "v_scale")
+    stored = sum(layer[n][0].numel() * layer[n].element_size()
+                 for layer in pages for n in names if n in layer)
+    auto = sum(2 * layer["k"][0].numel() * 4 for layer in pages)
+    return stored, auto
+
+
+def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
+                     kv_dtype="auto", auto_tokens=None):
+    """One continuous run of ``arch`` with ``backend`` on K/V pages stored
+    as ``kv_dtype`` (see the module docstring, phases 5 and 6), on the
+    card case's weights ``params``.  ``auto_tokens``: the generated
+    tokens of the ``auto`` run of the same case, whose agreement with
+    this run's is logged (a number, not a gate).  Returns (the launches
+    of the kernels the run is read for, the generated tokens)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import card_continuous_case
-    from repro_torch.models import transformer as tfm
     from repro_torch.runtime.steps import make_serve_step
     from repro_torch.serving.engine import ContinuousBatchingEngine
 
     new_tokens = 32
     name, counter, gate = FUSED[backend]
     full = get_config(arch)
-    cfg, reqs = card_continuous_case(full, seed, new_tokens, backend)
+    cfg, reqs = card_continuous_case(full, seed, new_tokens, backend,
+                                     kv_dtype)
     sv = cfg.serving
     kinds = [s.attn_type for s in cfg.layer_specs]
     # kernel -> layers it runs on
     layers = {name: kinds.count("global")}
     if cfg.use_ring_kernel:
         layers["paged_ring"] = kinds.count("local")
-    if params is None:
-        t0 = time.perf_counter()
-        params = tfm.init_model(cfg, seed, dev)
-        torch.cuda.synchronize()
-        log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params (fp32) drawn "
-            f"in {time.perf_counter() - t0:.1f} s; {cfg.num_layers} of "
-            f"{full.num_layers} layers ({kinds.count('local')} local, "
-            f"{kinds.count('global')} global): depth cut to num_groups "
-            f"{cfg.num_groups} of {full.num_groups}, widths as published")
     engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
+    block_bytes, block_bytes_auto = kv_block_bytes(engine.pages)
     # the widest decode batch of the run, captured with a clone of the
     # pool for the kernel-vs-plain check below (never an iteration whose
     # next decode opens a block: every write then lands in a real page)
@@ -772,8 +907,17 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b"):
     first = np.array([r.token_walls[0] for r in reqs])
     report = dict(m.to_json(), ttft_s_mean=float(first.mean()),
                   ttft_s_p99=float(np.percentile(first, 99)))
+    generated = [list(r.generated) for r in reqs]
+    if auto_tokens is not None:
+        same = np.array(generated) == np.array(auto_tokens)
+        report.update(
+            tokens_equal_to_auto=f"{int(same.sum())}/{same.size}",
+            identical_prefix_with_auto=[int(np.cumprod(row).sum())
+                                        for row in same])
     log(json.dumps({
-        "continuous_path": arch, "backend": backend,
+        "continuous_path": arch, "backend": backend, "kv_dtype": kv_dtype,
+        "kv_bytes_per_block_id": block_bytes,
+        "kv_bytes_per_block_id_auto": block_bytes_auto,
         "use_ring_kernel": cfg.use_ring_kernel,
         "layers": cfg.num_layers, "reduced": (
             None if cfg.num_groups == full.num_groups else
@@ -793,16 +937,22 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b"):
     del engine
     tokens, bt, pos = snap["inputs"]
     plain_pages = snap.pop("pages")
-    kernel_pages = [{k: v.clone() for k, v in layer.items()}
-                    for layer in plain_pages]
-    lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos, bt)
-    del kernel_pages
+    clone = lambda pool: [{k: v.clone() for k, v in layer.items()}  # noqa
+                          for layer in pool]
+    kernel_pages = clone(plain_pages)
     cfg_plain = cfg.replace(use_ring_kernel=False, **{
         gate: dataclasses.replace(getattr(cfg, gate),
                                   use_paged_kernel=False)})
+    live = pos > 0                   # idle slots decode the trash page
+    forced = None
+    if kv_dtype != "auto":
+        forced = forced_logits_err(cfg, cfg_plain, params, kernel_pages,
+                                   clone(plain_pages), tokens, pos, bt, live)
+        kernel_pages = clone(plain_pages)
+    lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos, bt)
+    del kernel_pages
     lp, _ = make_serve_step(cfg_plain)(params, plain_pages, tokens, pos, bt)
     del plain_pages
-    live = pos > 0                   # idle slots decode the trash page
     lk, lp = lk[live], lp[live]
     for label, t in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(t).all()):
@@ -810,14 +960,19 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b"):
     err = (lk - lp).abs().max().item()
     same = (lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
     log(f"{arch} continuous decode iteration {snap['iteration'] + 1} "
-        f"({len(snap['reqs'])} requests), {backend} kernels vs plain paged "
-        f"path: max|logits err| {err:.3e} (atol {LOGITS_ATOL}; max|logits| "
-        f"{lp.abs().max().item():.3f}); greedy tokens shared "
-        f"{int(same.sum().item())}/{same.numel()}")
-    if err > LOGITS_ATOL:
-        raise AssertionError(f"{arch} {backend}: continuous logits differ "
-                             f"by {err:.3e} > {LOGITS_ATOL}")
-    return {k: launches[k] for k in layers}
+        f"({len(snap['reqs'])} requests), {backend} on {kv_dtype} pages, "
+        f"kernels vs plain paged path: max|logits err| {err:.3e} "
+        + (f"(atol {LOGITS_ATOL}; " if forced is None else
+           "(not a gate: the two routes' rows round to the quantization "
+           f"grid apart; layer by layer, teacher-forced: {forced:.3e}, "
+           f"atol {LOGITS_ATOL}; ")
+        + f"max|logits| {lp.abs().max().item():.3f}); greedy tokens "
+        f"shared {int(same.sum().item())}/{same.numel()}")
+    gated = err if forced is None else forced
+    if gated > LOGITS_ATOL:
+        raise AssertionError(f"{arch} {backend} {kv_dtype}: continuous "
+                             f"logits differ by {gated:.3e} > {LOGITS_ATOL}")
+    return {k: launches[k] for k in layers}, generated
 
 
 def main(argv=None) -> int:
@@ -843,22 +998,39 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches, params = phase_main(dev, args.seed, card)
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
+    # the continuous runs: each fused backend on f32 pages, then on int8
+    # and fp8 pages (entries name[int8], name[fp8]) on the same weights
     for backend in FUSED:
-        t0 = time.perf_counter()
-        launches.update(phase_continuous(dev, args.seed, card, params,
-                                         backend))
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"continuous phase ({backend}): "
-            f"{time.perf_counter() - t0:.1f} s")
+        auto = None
+        for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:
+            t0 = time.perf_counter()
+            counts, tokens = phase_continuous(
+                dev, args.seed, card, params, backend, kv_dtype=kv_dtype,
+                auto_tokens=auto)
+            auto = auto or tokens
+            suffix = "" if kv_dtype == "auto" else f"[{kv_dtype}]"
+            launches.update({k + suffix: v for k, v in counts.items()})
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"continuous phase ({backend}, {kv_dtype}): "
+                f"{time.perf_counter() - t0:.1f} s")
     del params                                  # llama31-8b's 32 GB
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    gemma = phase_continuous(dev, args.seed, card, None, "socket_fused",
-                             arch="gemma3-27b")
-    launches["paged_ring"] = gemma["paged_ring"]
-    log(f"gemma3-continuous phase: {time.perf_counter() - t0:.1f} s")
+    params = draw_params(dev, args.seed, "gemma3-27b")
+    auto = None
+    for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:
+        t0 = time.perf_counter()
+        gemma, tokens = phase_continuous(
+            dev, args.seed, card, params, "socket_fused", arch="gemma3-27b",
+            kv_dtype=kv_dtype, auto_tokens=auto)
+        auto = auto or tokens
+        suffix = "" if kv_dtype == "auto" else f"[{kv_dtype}]"
+        launches["paged_ring" + suffix] = gemma["paged_ring"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"gemma3-continuous phase ({kv_dtype}): "
+            f"{time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

@@ -11,8 +11,9 @@ config built here and one built there describe the same model.
 
 Fields of layers the port does not run yet (MoE, Mamba) are left out,
 and cache plans resolve attention layers only (kind ``paged`` for global
-layers, ``ring`` for sliding-window ones); state plans come with the
-slice that ports Mamba layers (ROADMAP.md queue 1 item 7).
+layers, ``ring`` for sliding-window ones, each with the K/V page storage
+mode ``serving.kv_dtype``); state plans come with the slice that ports
+Mamba layers (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from typing import Tuple
 
 __all__ = ["LayerSpec", "LayerCachePlan", "ModelConfig", "QuestSettings",
            "ServingSettings", "SocketSettings"]
+
+# serving.kv_dtype vocabulary (models.backends.kvquant.KV_DTYPES)
+_KV_DTYPES = ("auto", "bf16", "int8", "fp8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,10 +86,11 @@ class QuestSettings:
     # page-granular radix select + attend in one sweep over the block
     # table.
     use_paged_kernel: bool = False
-    # Under quantized K/V pages, compute the kmin/kmax page stats from the
-    # dequantized keys the attend phase reads back, so the per-page bounds
-    # stay sound (read by backends.base.effective_keys; quantized pages
-    # come with ROADMAP.md queue 1 item 5).
+    # Under quantized K/V pages (serving.kv_dtype int8/fp8), compute the
+    # kmin/kmax page stats from the dequantized keys the attend phase
+    # reads back, so the per-page bounds stay sound (read by
+    # backends.base.effective_keys; validate() requires it whenever the
+    # quest backend runs on quantized pages).
     stats_from_quantized: bool = True
 
 
@@ -99,8 +104,10 @@ class LayerCachePlan:
     * ``kind == "ring"`` (sliding-window attention) — K/V pages addressed
       circularly through the first ``ring_blocks`` block-table entries.
 
-    State (Mamba) plans come with ROADMAP.md queue 1 item 7; ``kv_dtype``
-    other than ``"auto"`` with item 5."""
+    ``kv_dtype`` is the layer's K/V page storage mode, resolved from
+    ``ServingSettings.kv_dtype`` (``"auto"``, ``"bf16"``, or quantized
+    ``"int8"``/``"fp8"`` pages with per-row scale leaves).  State (Mamba)
+    plans come with ROADMAP.md queue 1 item 7."""
 
     kind: str
     ring_blocks: int = 0
@@ -129,6 +136,11 @@ class ServingSettings:
     max_prefill_per_iter: int = 1
     prefill_chunk: int = 256
     prefix_cache: bool = False
+    # K/V pool-page storage mode: "auto" (compute dtype), "bf16" (plain
+    # cast, no scales), or "int8"/"fp8" (symmetric per-row absmax with
+    # float32 scale leaves beside K/V; models.backends.kvquant).  Applies
+    # to paged and ring attention layers.  Selection metadata (SOCKET
+    # bits/vnorms, Quest kmin/kmax) stays full precision.
     kv_dtype: str = "auto"
 
     def validate(self) -> None:
@@ -219,10 +231,12 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> None:
-        """Config-time fused-kernel eligibility: every combination the
-        paged kernel would reject is rejected here with the offending
-        flag pair named.  Called from :meth:`cache_plan`, so an engine
-        fails before its first step."""
+        """Config-time fused-kernel eligibility and the K/V page dtype
+        matrix: every combination the paged kernels would reject, and
+        every ``serving.kv_dtype`` a path cannot consume, is rejected here
+        with the offending flag pair named (the JAX package's rules and
+        messages).  Called from :meth:`cache_plan`, so an engine fails
+        before its first step."""
         if self.socket.use_paged_kernel:
             if self.socket.bits_storage != "packed":
                 raise ValueError(
@@ -258,6 +272,56 @@ class ModelConfig:
             raise ValueError(
                 f"use_ring_kernel=True needs serving.block_size % 8 == 0, "
                 f"got block_size={self.serving.block_size}")
+        # --- quantized K/V page matrix (serving.kv_dtype) ----------------
+        kvd = self.serving.kv_dtype
+        if kvd not in _KV_DTYPES:
+            raise ValueError(
+                f"serving.kv_dtype={kvd!r} is not a known K/V page storage "
+                f"mode — expected one of {_KV_DTYPES}")
+        if kvd == "fp8":
+            # fp8 rows are consumed in-register by the fused kernels; demand
+            # the fused consumer for every layer kind this config has
+            if any(s.kind == "attn" and s.attn_type == "global"
+                   for s in self.layer_specs):
+                if self.attention_backend in ("socket", "hard_lsh") \
+                        and not self.socket.use_paged_kernel:
+                    raise ValueError(
+                        f"serving.kv_dtype='fp8' with attention_backend="
+                        f"'{self.attention_backend}' requires "
+                        "socket.use_paged_kernel=True: fp8 rows are only "
+                        "dequantized in-register by the fused paged kernel "
+                        "— enable use_paged_kernel or use kv_dtype='int8'")
+                if self.attention_backend == "quest" \
+                        and not self.quest.use_paged_kernel:
+                    raise ValueError(
+                        "serving.kv_dtype='fp8' with attention_backend="
+                        "'quest' requires quest.use_paged_kernel=True: fp8 "
+                        "rows are only dequantized in-register by the fused "
+                        "paged kernel — enable use_paged_kernel or use "
+                        "kv_dtype='int8'")
+                if self.attention_backend == "dense":
+                    raise ValueError(
+                        "serving.kv_dtype='fp8' is incompatible with "
+                        "attention_backend='dense': dense decode has no "
+                        "fused paged path to dequantize fp8 in-register — "
+                        "use kv_dtype='int8' or 'bf16'")
+            if any(s.kind == "attn" and s.attn_type == "local"
+                   for s in self.layer_specs) and not self.use_ring_kernel:
+                raise ValueError(
+                    "serving.kv_dtype='fp8' with sliding-window (local) "
+                    "layers requires use_ring_kernel=True: fp8 ring pages "
+                    "are only dequantized in-register by the fused ring "
+                    "kernel — enable use_ring_kernel or use kv_dtype="
+                    "'int8'")
+        if kvd in ("int8", "fp8") and self.attention_backend == "quest" \
+                and not self.quest.stats_from_quantized:
+            raise ValueError(
+                f"serving.kv_dtype='{kvd}' with attention_backend='quest' "
+                "requires quest.stats_from_quantized=True: page kmin/kmax "
+                "bounds must be computed from the dequantized quantized "
+                "keys the attend phase reads, or Quest's upper bound is "
+                "unsound — set stats_from_quantized=True or kv_dtype="
+                "'auto'/'bf16'")
 
     def ring_geometry(self) -> Tuple[int, int]:
         """(blocks, rows) of the paged sliding-window ring: the circular
@@ -269,7 +333,8 @@ class ModelConfig:
         return blocks, blocks * sv.block_size
 
     def plan_for(self, spec: LayerSpec) -> LayerCachePlan:
-        """One layer's cache plan (see :class:`LayerCachePlan`)."""
+        """One layer's cache plan (see :class:`LayerCachePlan`): paged and
+        ring K/V both take ``serving.kv_dtype``."""
         if spec.kind != "attn":
             raise NotImplementedError(
                 f"{spec.kind} layers have no cache plan in the port yet: "

@@ -25,6 +25,14 @@ written, or out of the window) and the trash page hold NaN, which the
 kernel must skip; the plain version, which masks logits and would carry
 0 · NaN into p · V, runs on the pool with the NaN rows zeroed.  The
 output within ``attn_tol``.
+
+Stored pools (:func:`store_kv`): any case's K/V pages as bf16, or as
+int8 / fp8 rows with per-row scale pools (``serving.kv_dtype``'s
+quantization), shared by every set of the case.  Each check takes the
+scale pools as ``scales`` and holds the kernel to the plain version on
+the same stored pages; Quest's page stats become those of the keys'
+quantization round trip (``quest.stats_from_quantized``), and a ring's
+dead rows hold NaN in their scales and fp8 payloads too.
 """
 
 from __future__ import annotations
@@ -39,12 +47,60 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_ring_attend_ref,
     paged_socket_attend_ref)
 from repro_torch.kernels.socket_score.ref import socket_score_ref
+from repro_torch.models.backends import kvquant
 from repro_torch.models.backends.base import gather_block_leaf
 
 __all__ = ["paged_case", "plain_eff", "check_paged", "hard_lsh_case",
            "plain_hard_eff", "check_hard_lsh", "quest_case", "check_quest",
            "RING_CASES", "ring_live", "ring_case", "plain_ring",
-           "check_ring"]
+           "check_ring", "store_kv"]
+
+
+def store_kv(sets, kv_dtype: str, *, quest: bool = False):
+    """``sets`` (of any case builder here: K/V pages at positions 1 and 2,
+    one pool shared by every set) with the K/V pages stored as
+    ``kv_dtype``: ``"bf16"`` (a cast), or ``"int8"`` / ``"fp8"``
+    (:func:`kvquant.quantize` per row).  Returns ``(sets, scales)``, the
+    scale pools as ``dict(k_scale=..., v_scale=...)`` (empty for bf16).
+
+    Rows holding NaN (a ring's dead slots, the trash page) are quantized
+    as zeros and then get NaN scales, and NaN (fp8) or -128 (int8)
+    payloads: the kernels must skip them.  ``quest``: positions 3 and 4
+    are the kmin/kmax stats, recomputed from the keys' quantization round
+    trip (unwritten ±inf stat rows kept)."""
+    kp, vp = sets[0][1], sets[0][2]
+    scales = {}
+    if kv_dtype == "bf16":
+        kq, vq = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    else:
+        out = []
+        for x in (kp, vp):
+            nan = torch.isnan(x).any(-1)
+            q, sc = kvquant.quantize(torch.nan_to_num(x, nan=0.0), kv_dtype)
+            sc[nan] = float("nan")
+            if kv_dtype == "fp8":
+                q.view(torch.uint8)[nan] = 0x7F           # e4m3fn NaN
+            else:
+                q[nan] = -128
+            out.append((q, sc))
+        (kq, ks), (vq, vs) = out
+        scales = dict(k_scale=ks, v_scale=vs)
+    stats = None
+    if quest and scales:
+        kmin, kmax = sets[0][3], sets[0][4]
+        nblocks, kvh, ppb, hd = kmin.shape
+        rt = kvquant.dequantize(kq, scales["k_scale"]).reshape(
+            nblocks, kvh, ppb, -1, hd)
+        stats = (torch.where(torch.isinf(kmin), kmin, rt.amin(dim=3)),
+                 torch.where(torch.isinf(kmax), kmax, rt.amax(dim=3)))
+    new = []
+    for st in sets:
+        st = list(st)
+        st[1], st[2] = kq, vq
+        if stats is not None:
+            st[3], st[4] = stats
+        new.append(tuple(st))
+    return new, scales
 
 
 def paged_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
@@ -117,17 +173,18 @@ def plain_eff(case, kw) -> torch.Tensor:
 
 
 def check_paged(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
-                ties: bool, attn_tol: dict, score_tol: dict
-                ) -> Tuple[float, int]:
-    """Hold the kernel's ``(out, sel)`` on ``case`` to the plain version
-    (see the module docstring); raises AssertionError on a mismatch.
-    Returns (max |out error|, selected rows that differ inside the
-    threshold band)."""
+                ties: bool, attn_tol: dict, score_tol: dict,
+                scales=None) -> Tuple[float, int]:
+    """Hold the kernel's ``(out, sel)`` on ``case`` (its K/V pages'
+    ``scales`` as :func:`store_kv` gives them) to the plain version (see
+    the module docstring); raises AssertionError on a mismatch.  Returns
+    (max |out error|, selected rows that differ inside the threshold
+    band)."""
     q, kp, vp, bits, vnorm, u, bt, length, budget = case
     n = bt.shape[1] * bits.shape[2]
     ref, ref_sel = paged_socket_attend_ref(
         q, kp, vp, bits, vnorm, u, bt, length=length, budget=budget,
-        top_k=min(n, int(budget.max())), **kw)
+        top_k=min(n, int(budget.max())), **kw, **(scales or {}))
     err = _check_out("paged_attention", out, ref, attn_tol)
     sel = sel.reshape(*sel.shape[:2], -1).bool()
     want = torch.minimum(budget.long(), length.long())[:, None]
@@ -218,16 +275,17 @@ def plain_hard_eff(case, kw) -> torch.Tensor:
 
 
 def check_hard_lsh(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
-                   attn_tol: dict) -> float:
-    """Hold the hard-LSH kernel's ``(out, sel)`` on ``case`` to the plain
-    version: selection bit for bit with ``min(budget, length)`` rows per
-    (request, head), output within ``attn_tol``.  Returns max |out
-    error|; raises AssertionError on a mismatch."""
+                   attn_tol: dict, scales=None) -> float:
+    """Hold the hard-LSH kernel's ``(out, sel)`` on ``case`` (with its
+    ``scales``) to the plain version: selection bit for bit with
+    ``min(budget, length)`` rows per (request, head), output within
+    ``attn_tol``.  Returns max |out error|; raises AssertionError on a
+    mismatch."""
     q, kp, vp, bits, vnorm, u_signs, bt, length, budget = case
     n = bt.shape[1] * bits.shape[2]
     ref, ref_sel = paged_hard_lsh_attend_ref(
         q, kp, vp, bits, vnorm, u_signs, bt, length=length, budget=budget,
-        top_k=min(n, int(budget.max())), **kw)
+        top_k=min(n, int(budget.max())), **kw, **(scales or {}))
     err = _check_out("paged_hard_lsh", out, ref, attn_tol)
     sel = sel.reshape(*sel.shape[:2], -1).bool()
     want = torch.minimum(budget.long(), length.long())[:, None]
@@ -295,16 +353,17 @@ def quest_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
 
 
 def check_quest(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
-                attn_tol: dict) -> float:
-    """Hold the Quest kernel's ``(out, sel)`` on ``case`` to the plain
-    version: exactly ``page_budget`` pages a (request, head) and their
-    live rows selected, the selection bit for bit, the output within
-    ``attn_tol``.  Returns max |out error|; raises AssertionError on a
-    mismatch."""
+                attn_tol: dict, scales=None) -> float:
+    """Hold the Quest kernel's ``(out, sel)`` on ``case`` (with its
+    ``scales``) to the plain version: exactly ``page_budget`` pages a
+    (request, head) and their live rows selected, the selection bit for
+    bit, the output within ``attn_tol``.  Returns max |out error|; raises
+    AssertionError on a mismatch."""
     q, kp, vp, kmin, kmax, bt, length, budget = case
     ps = kw["page_size"]
     ref, ref_sel = paged_quest_attend_ref(
-        q, kp, vp, kmin, kmax, bt, length=length, page_budget=budget, **kw)
+        q, kp, vp, kmin, kmax, bt, length=length, page_budget=budget, **kw,
+        **(scales or {}))
     err = _check_out("paged_quest", out, ref, attn_tol)
     sel = sel.reshape(*sel.shape[:2], -1).bool()
     # page_budget pages, live rows within them (never min(budget, length))
@@ -395,18 +454,24 @@ def ring_case(gen: torch.Generator, positions: Sequence[int], *,
     return sets, kw
 
 
-def plain_ring(case, kw) -> torch.Tensor:
-    """The plain version's output on ``case``, its NaN (dead) rows
-    zeroed."""
+def plain_ring(case, kw, scales=None) -> torch.Tensor:
+    """The plain version's output on ``case`` (its K/V pages dequantized
+    with ``scales`` when given), its NaN (dead) rows zeroed."""
     q, kp, vp, bt, pos = case
-    return paged_ring_attend_ref(q, kp.nan_to_num(0.0), vp.nan_to_num(0.0),
-                                 bt, pos=pos, **kw)
+    if scales:
+        kp = kvquant.dequantize(kp, scales["k_scale"])
+        vp = kvquant.dequantize(vp, scales["v_scale"])
+    return paged_ring_attend_ref(q, kp.float().nan_to_num(0.0),
+                                 vp.float().nan_to_num(0.0), bt, pos=pos,
+                                 **kw)
 
 
-def check_ring(out: torch.Tensor, case, kw, *, attn_tol: dict) -> float:
-    """Hold the ring kernel's ``out`` on ``case`` to :func:`plain_ring`.
-    Returns max |out error|; raises AssertionError on a mismatch."""
-    ref = plain_ring(case, kw)
+def check_ring(out: torch.Tensor, case, kw, *, attn_tol: dict,
+               scales=None) -> float:
+    """Hold the ring kernel's ``out`` on ``case`` (with its ``scales``) to
+    :func:`plain_ring`.  Returns max |out error|; raises AssertionError on
+    a mismatch."""
+    ref = plain_ring(case, kw, scales)
     if not torch.isfinite(ref).all():
         raise AssertionError("paged_ring: a live row of the case is NaN")
     return _check_out("paged_ring", out, ref, attn_tol)

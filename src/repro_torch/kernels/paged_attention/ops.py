@@ -16,8 +16,12 @@ launches its kernel (built on first use by
 ``HARD_LSH_LAUNCHES``, ``QUEST_LAUNCHES`` and ``RING_LAUNCHES`` count each
 kernel's launches, so a run can show that it went through the kernel.
 
-The quantized pool mode (``k_scale``/``v_scale``, int8/fp8 pages) comes
-with the quantized-pages slice; given scales, the wrappers raise.
+K/V pages may be float32, bf16, int8 or ``float8_e4m3fn``, with the f32
+per-row scale pools ``k_scale``/``v_scale`` ``(NB, KVH, bs)`` (both or
+neither; the quantized pools of ``serving.kv_dtype`` int8/fp8): each
+kernel reads a row as ``float(q) * scale[row]``, each plain version
+dequantizes the logical view the same way.  A lone scale pool raises the
+JAX wrappers' ``ValueError``.
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ from repro_torch.kernels.paged_attention.ref import (
 __all__ = ["paged_socket_attend", "launch_paged_socket_attend",
            "paged_hard_lsh_attend", "launch_paged_hard_lsh_attend",
            "paged_quest_attend", "launch_paged_quest_attend",
-           "paged_ring_attend", "launch_paged_ring_attend", "LAUNCHES",
-           "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "RING_LAUNCHES", "SOURCE",
-           "QUEST_SOURCE", "RING_SOURCE"]
+           "paged_ring_attend", "launch_paged_ring_attend", "KV_TYPES",
+           "LAUNCHES", "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "RING_LAUNCHES",
+           "SOURCE", "QUEST_SOURCE", "RING_SOURCE"]
 
 SOURCE = Path(__file__).with_name("paged_attention.cu")
 QUEST_SOURCE = Path(__file__).with_name("paged_quest.cu")
@@ -53,13 +57,19 @@ RING_LAUNCHES = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+# the kernels' element type codes of the K/V pages (paged_common.cuh's
+# KvType)
+KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+            torch.float8_e4m3fn: 3}
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load_library(SOURCE)
     fn = lib.paged_socket_attend_launch
-    fn.argtypes = [_P] * 13 + [_I] * 10 + [_F] * 2 + [_I] * 2 + [_P]
+    fn.argtypes = [_P] * 15 + [_I] * 11 + [_F] * 2 + [_I] * 2 + [_P]
     fn.restype = ctypes.c_int
     fn = lib.paged_hard_lsh_attend_launch
-    fn.argtypes = [_P] * 12 + [_I] * 10 + [_F] + [_I] * 2 + [_P]
+    fn.argtypes = [_P] * 14 + [_I] * 11 + [_F] + [_I] * 2 + [_P]
     fn.restype = ctypes.c_int
     lib.paged_socket_attend_error_string.argtypes = [ctypes.c_int]
     lib.paged_socket_attend_error_string.restype = ctypes.c_char_p
@@ -69,7 +79,7 @@ def _library() -> ctypes.CDLL:
 def _quest_library() -> ctypes.CDLL:
     lib = build.load_library(QUEST_SOURCE)
     fn = lib.paged_quest_attend_launch
-    fn.argtypes = [_P] * 11 + [_I] * 7 + [_F] + [_I] * 2 + [_P]
+    fn.argtypes = [_P] * 13 + [_I] * 8 + [_F] + [_I] * 2 + [_P]
     fn.restype = ctypes.c_int
     lib.paged_quest_attend_error_string.argtypes = [ctypes.c_int]
     lib.paged_quest_attend_error_string.restype = ctypes.c_char_p
@@ -79,7 +89,7 @@ def _quest_library() -> ctypes.CDLL:
 def _ring_library() -> ctypes.CDLL:
     lib = build.load_library(RING_SOURCE)
     fn = lib.paged_ring_attend_launch
-    fn.argtypes = [_P] * 6 + [_I] * 6 + [_F, _I, _F, _P]
+    fn.argtypes = [_P] * 8 + [_I] * 7 + [_F, _I, _F, _P]
     fn.restype = ctypes.c_int
     lib.paged_ring_attend_error_string.argtypes = [ctypes.c_int]
     lib.paged_ring_attend_error_string.restype = ctypes.c_char_p
@@ -114,11 +124,9 @@ def _call(fn, name: str, describe, tensors, *scalars) -> None:
                            describe(err).decode())
 
 
-def _no_scales(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized K/V pages (k_scale/v_scale) come with the "
-            "quantized-pages slice (ROADMAP.md queue 1 item 5)")
+def _paired(k_scale, v_scale) -> None:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale/v_scale must be given together")
 
 
 def _per_request(x, b: int, dev) -> torch.Tensor:
@@ -134,12 +142,21 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
 
 
-def _check_pool(q, k_pages, v_pages, block_table) -> None:
+def _check_pool(q, k_pages, v_pages, block_table, k_scale, v_scale) -> int:
+    """Checks q, the K/V pools (one of the KV_TYPES), their scale pools
+    and the table; returns the K/V element type code."""
     b, kvh, g, hd = q.shape
     nblocks, _, bs, _ = k_pages.shape
     _check("q", q, torch.float32, (b, kvh, g, hd))
-    _check("k_pages", k_pages, torch.float32, (nblocks, kvh, bs, hd))
-    _check("v_pages", v_pages, torch.float32, (nblocks, kvh, bs, hd))
+    if k_pages.dtype not in KV_TYPES:
+        raise TypeError(f"k_pages must be one of {list(KV_TYPES)}, got "
+                        f"{k_pages.dtype}")
+    _check("k_pages", k_pages, k_pages.dtype, (nblocks, kvh, bs, hd))
+    _check("v_pages", v_pages, k_pages.dtype, (nblocks, kvh, bs, hd))
+    _paired(k_scale, v_scale)
+    if k_scale is not None:
+        _check("k_scale", k_scale, torch.float32, (nblocks, kvh, bs))
+        _check("v_scale", v_scale, torch.float32, (nblocks, kvh, bs))
     if block_table.ndim != 2 or block_table.shape[0] != b:
         raise ValueError(f"block_table shape {tuple(block_table.shape)} "
                          f"is not (B={b}, nb)")
@@ -148,6 +165,14 @@ def _check_pool(q, k_pages, v_pages, block_table) -> None:
     if nblocks * kvh * bs >= 2 ** 31:
         raise ValueError("the kernel indexes pool rows with int32: "
                          f"{nblocks * kvh * bs} rows")
+    return KV_TYPES[k_pages.dtype]
+
+
+def _pools(k_pages, v_pages, k_scale, v_scale):
+    """The K/V pools and their scale pools (None: a null pointer) as the
+    kernels take them: contiguous."""
+    return [t.contiguous() if t is not None else None
+            for t in (k_pages, v_pages, k_scale, v_scale)]
 
 
 def _check_bits(bits_pages, vnorm_pages, qhash, num_tables: int,
@@ -168,16 +193,16 @@ def _check_bits(bits_pages, vnorm_pages, qhash, num_tables: int,
 
 
 def _launch_fused(hard: bool, q, k_pages, v_pages, bits_pages, vnorm_pages,
-                  qhash, block_table, length, budget, *, num_tables: int,
-                  num_planes: int, tau: float, scale: float, sink_tokens: int,
-                  window_tokens: int, with_selection: bool):
+                  qhash, block_table, length, budget, k_scale, v_scale, *,
+                  num_tables: int, num_planes: int, tau: float, scale: float,
+                  sink_tokens: int, window_tokens: int, with_selection: bool):
     """Launch ``paged_attention.cu`` in its SOCKET mode (``qhash`` = u)
     or its hard-LSH mode (``qhash`` = u_signs)."""
     global LAUNCHES, HARD_LSH_LAUNCHES
     b, kvh, g, hd = q.shape
     w = bits_pages.shape[3]
     nb, bs = block_table.shape[1], bits_pages.shape[2]
-    _check_pool(q, k_pages, v_pages, block_table)
+    kv_type = _check_pool(q, k_pages, v_pages, block_table, k_scale, v_scale)
     _check_bits(bits_pages, vnorm_pages, qhash, num_tables, num_planes, g)
     gs, l, p = qhash.shape[2:]
     dev = q.device
@@ -202,10 +227,10 @@ def _launch_fused(hard: bool, q, k_pages, v_pages, bits_pages, vnorm_pages,
     out, sel, eff = _outputs(q, nb, bs, nb * bs, with_selection)
     if b * kvh and nb:
         lib = _library()
-        tensors = [q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+        tensors = [q.contiguous(), *_pools(k_pages, v_pages, k_scale, v_scale),
                    bits_pages.contiguous(), vnorm_pages.contiguous(), *hashes,
                    bt, length, budget, out]
-        shape = (b, kvh, g, gs, hd, bs, w, nb, tables, p)
+        shape = (kv_type, b, kvh, g, gs, hd, bs, w, nb, tables, p)
         if hard:
             _call(lib.paged_hard_lsh_attend_launch, "paged_hard_lsh",
                   lib.paged_socket_attend_error_string, [*tensors, sel, eff],
@@ -225,15 +250,18 @@ def launch_paged_socket_attend(q, k_pages, v_pages, bits_pages, vnorm_pages,
                                num_tables: int, num_planes: int, tau: float,
                                scale: float, sink_tokens: int,
                                window_tokens: int,
-                               with_selection: bool = False):
+                               with_selection: bool = False,
+                               k_scale=None, v_scale=None):
     """Launch the CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
-    (NB, KVH, bs, hd) f32; bits int32 (NB, KVH, bs, W); vnorm bf16
-    (NB, KVH, bs); u f32 (B, KVH, GS, L, P); block_table (B, nb);
+    (NB, KVH, bs, hd) f32, bf16, int8 or float8_e4m3fn, with f32
+    (NB, KVH, bs) k/v scales or none; bits int32 (NB, KVH, bs, W); vnorm
+    bf16 (NB, KVH, bs); u f32 (B, KVH, GS, L, P); block_table (B, nb);
     length, budget (B,).  Returns f32 (B, KVH, G, hd), plus the int32
     (B, KVH, nb, bs) selection mask when ``with_selection``."""
     return _launch_fused(
         False, q, k_pages, v_pages, bits_pages, vnorm_pages, u, block_table,
-        length, budget, num_tables=num_tables, num_planes=num_planes,
+        length, budget, k_scale, v_scale, num_tables=num_tables,
+        num_planes=num_planes,
         tau=tau, scale=scale, sink_tokens=sink_tokens,
         window_tokens=window_tokens, with_selection=with_selection)
 
@@ -243,7 +271,8 @@ def launch_paged_hard_lsh_attend(q, k_pages, v_pages, bits_pages,
                                  budget, *, num_tables: int, num_planes: int,
                                  scale: float, sink_tokens: int,
                                  window_tokens: int,
-                                 with_selection: bool = False):
+                                 with_selection: bool = False,
+                                 k_scale=None, v_scale=None):
     """Launch the CUDA kernel's hard-LSH mode.  As
     :func:`launch_paged_socket_attend`, with ``u_signs`` f32 ±1
     ``(B, KVH, GS, L, P)`` in place of ``u``: the kernel packs each (g, l)
@@ -251,7 +280,7 @@ def launch_paged_hard_lsh_attend(q, k_pages, v_pages, bits_pages,
     the key's P-bit field."""
     return _launch_fused(
         True, q, k_pages, v_pages, bits_pages, vnorm_pages, u_signs,
-        block_table, length, budget, num_tables=num_tables,
+        block_table, length, budget, k_scale, v_scale, num_tables=num_tables,
         num_planes=num_planes, tau=1.0, scale=scale, sink_tokens=sink_tokens,
         window_tokens=window_tokens, with_selection=with_selection)
 
@@ -260,9 +289,12 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
                               block_table, length, page_budget, *,
                               page_size: int, scale: float, sink_tokens: int,
                               window_tokens: int,
-                              with_selection: bool = False):
+                              with_selection: bool = False,
+                              k_scale=None, v_scale=None):
     """Launch the Quest CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
-    (NB, KVH, bs, hd) f32; kmin/kmax f32 (NB, KVH, bs / page_size, hd);
+    (NB, KVH, bs, hd) and their scales as in
+    :func:`launch_paged_socket_attend`; kmin/kmax f32 (NB, KVH,
+    bs / page_size, hd);
     block_table (B, nb); length, page_budget (B,) or scalars.  Returns f32
     (B, KVH, G, hd), plus the int32 (B, KVH, nb, bs) selected-rows mask
     when ``with_selection``."""
@@ -274,7 +306,7 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
         raise ValueError(f"page_size {page_size} must divide block_size "
                          f"{bs}")
     ppb = bs // page_size
-    _check_pool(q, k_pages, v_pages, block_table)
+    kv_type = _check_pool(q, k_pages, v_pages, block_table, k_scale, v_scale)
     _check("kmin_pages", kmin_pages, torch.float32, (nblocks, kvh, ppb, hd))
     _check("kmax_pages", kmax_pages, torch.float32, (nblocks, kvh, ppb, hd))
     dev = q.device
@@ -285,26 +317,28 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
     out, sel, eff = _outputs(q, nb, bs, nb * ppb, with_selection)
     if b * kvh and nb:
         lib = _quest_library()
-        tensors = [q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+        tensors = [q.contiguous(), *_pools(k_pages, v_pages, k_scale, v_scale),
                    kmin_pages.contiguous(), kmax_pages.contiguous(), bt,
                    length, budget, out]
         _call(lib.paged_quest_attend_launch, "paged_quest",
-              lib.paged_quest_attend_error_string, [*tensors, sel, eff], b,
-              kvh, g, hd, bs, int(page_size), nb, float(scale),
+              lib.paged_quest_attend_error_string, [*tensors, sel, eff],
+              kv_type, b, kvh, g, hd, bs, int(page_size), nb, float(scale),
               int(sink_tokens), int(window_tokens))
         QUEST_LAUNCHES += 1
     return (out, sel) if with_selection else out
 
 
 def launch_paged_ring_attend(q, k_pages, v_pages, block_table, pos, *,
-                             window: int, softcap: float, scale: float):
+                             window: int, softcap: float, scale: float,
+                             k_scale=None, v_scale=None):
     """Launch the ring CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
-    (NB, KVH, bs, hd) f32; block_table (B, ring_blocks), the ring slice;
-    pos (B,) or a scalar.  Returns f32 (B, KVH, G, hd)."""
+    (NB, KVH, bs, hd) and their scales as in
+    :func:`launch_paged_socket_attend`; block_table (B, ring_blocks), the
+    ring slice; pos (B,) or a scalar.  Returns f32 (B, KVH, G, hd)."""
     global RING_LAUNCHES
     b, kvh, g, hd = q.shape
     bs, rb = k_pages.shape[2], block_table.shape[1]
-    _check_pool(q, k_pages, v_pages, block_table)
+    kv_type = _check_pool(q, k_pages, v_pages, block_table, k_scale, v_scale)
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     dev = q.device
@@ -313,11 +347,11 @@ def launch_paged_ring_attend(q, k_pages, v_pages, block_table, pos, *,
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
     if b * kvh and rb:
         lib = _ring_library()
-        tensors = [q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+        tensors = [q.contiguous(), *_pools(k_pages, v_pages, k_scale, v_scale),
                    bt, pos, out]
         _call(lib.paged_ring_attend_launch, "paged_ring",
-              lib.paged_ring_attend_error_string, tensors, b, kvh, g, hd,
-              bs, rb, float(scale), int(window), float(softcap))
+              lib.paged_ring_attend_error_string, tensors, kv_type, b, kvh, g,
+              hd, bs, rb, float(scale), int(window), float(softcap))
         RING_LAUNCHES += 1
     return out
 
@@ -372,6 +406,7 @@ def paged_socket_attend(q: torch.Tensor, k_pages: torch.Tensor,
     Shapes:
       q            (B, KVH, G, 1, hd) or (B, KVH, G, hd)
       k/v_pages    (NB, KVH, bs, hd)
+      k/v_scale    f32 (NB, KVH, bs) per-row scales, or None
       bits_pages   int32 (NB, KVH, bs, W)  (uint32 bit pattern)
       vnorm_pages  bf16 (NB, KVH, bs)
       u            f32 (B, KVH, GS, L, P)  (GS=1 for pooled selection)
@@ -379,13 +414,17 @@ def paged_socket_attend(q: torch.Tensor, k_pages: torch.Tensor,
       length       int scalar or (B,)
       budget       int scalar or (B,)  (dynamic top-k budget)
 
+    ``k_pages``/``v_pages`` are f32, bf16, int8 or float8_e4m3fn, with
+    the f32 ``(NB, KVH, bs)`` per-row scale pools ``k_scale``/``v_scale``
+    (both or neither).
+
     Returns the attention output in q's layout (f32), plus the bool
     ``(B, KVH, nb * bs)`` selection mask when ``with_selection``.
     """
-    _no_scales(k_scale, v_scale)
+    _paired(k_scale, v_scale)
     kw = dict(num_tables=num_tables, num_planes=num_planes, tau=tau,
               scale=scale, sink_tokens=sink_tokens,
-              window_tokens=window_tokens)
+              window_tokens=window_tokens, k_scale=k_scale, v_scale=v_scale)
     args = (k_pages, v_pages, bits_pages, vnorm_pages, u, block_table)
     n = block_table.shape[1] * bits_pages.shape[2]
     return _dispatch(
@@ -412,9 +451,10 @@ def paged_hard_lsh_attend(q: torch.Tensor, k_pages: torch.Tensor,
     hash is ``u_signs``: f32 ±1 plane signs ``(B, KVH, GS, L, P)``
     (``where(u >= 0, +1, -1)`` of the soft hash).
     """
-    _no_scales(k_scale, v_scale)
+    _paired(k_scale, v_scale)
     kw = dict(num_tables=num_tables, num_planes=num_planes, scale=scale,
-              sink_tokens=sink_tokens, window_tokens=window_tokens)
+              sink_tokens=sink_tokens, window_tokens=window_tokens,
+              k_scale=k_scale, v_scale=v_scale)
     args = (k_pages, v_pages, bits_pages, vnorm_pages, u_signs, block_table)
     n = block_table.shape[1] * bits_pages.shape[2]
     return _dispatch(
@@ -444,13 +484,14 @@ def paged_quest_attend(q: torch.Tensor, k_pages: torch.Tensor,
       length         int scalar or (B,)
       page_budget    int scalar or (B,): pages to attend (the static
                      ``baselines.quest.page_budget``)
+      k/v_scale      f32 (NB, KVH, bs) per-row scales, both or neither
 
     Returns the attention output in q's layout (f32), plus the bool
     ``(B, KVH, nb * bs)`` selected-rows mask when ``with_selection``.
     """
-    _no_scales(k_scale, v_scale)
+    _paired(k_scale, v_scale)
     kw = dict(page_size=page_size, scale=scale, sink_tokens=sink_tokens,
-              window_tokens=window_tokens)
+              window_tokens=window_tokens, k_scale=k_scale, v_scale=v_scale)
     args = (k_pages, v_pages, kmin_pages, kmax_pages, block_table)
     return _dispatch(
         q, lambda q, **o: launch_paged_quest_attend(
@@ -473,11 +514,13 @@ def paged_ring_attend(q: torch.Tensor, k_pages: torch.Tensor,
       block_table  int (B, ring_blocks) — the ring slice of the table
       pos          int scalar or (B,) — the decode token's position
                    (already written to its ring slot)
+      k/v_scale    f32 (NB, KVH, bs) per-row scales, both or neither
 
     Returns the attention output in q's layout (f32).
     """
-    _no_scales(k_scale, v_scale)
-    kw = dict(window=window, softcap=softcap, scale=scale)
+    _paired(k_scale, v_scale)
+    kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
     return _dispatch(
         q, lambda q, **o: launch_paged_ring_attend(
             q, k_pages, v_pages, block_table, pos, **kw),

@@ -24,6 +24,13 @@
 //              softmax (m, l, acc) for the G query heads of the group; the
 //              output is acc / max(l, 1e-30).
 //
+// K/V pages are f32, bf16, int8 or fp8 e4m3fn (the _fused_kernel's
+// `quantized` branch, paged_attention.py:176-180): with the per-row scale
+// pools k_scale / v_scale each selected row is dequantized in-register as
+// float(q) * scale[row] (paged_common.cuh's fold_rows, a template on the
+// element type).  Scoring reads only bits and vnorm, so the selection on
+// quantized pages is bit for bit the selection on f32 pages.
+//
 // Hard LSH (Mode::kHardLsh) differs in the score term only: a table
 // collides when the key's P-bit field equals the query's sign pattern
 // (bit j set where the query's plane-j sign u_signs[g, l, j] is +1, packed
@@ -46,7 +53,8 @@
 // P=10, L=60; the sink and window rows are selected by position and need
 // neither, nor does any row of a request whose budget is no more than its
 // sink and window rows) and only the selected K/V rows, forced ones
-// included (2*hd*4 bytes each: 1 KB at hd=128 in fp32).  At the continuous
+// included (2*hd*4 bytes each: 1 KB at hd=128 in fp32; 2*(hd+4) bytes, 264 B,
+// as int8 or fp8 with their scales).  At the continuous
 // path (8 requests of 1-4K tokens, 8 KV heads, 256-410 rows selected per
 // request and head; the 1K and 2K requests select only their 256 forced
 // rows) that is 8.7 MB of bits/vnorm plus 20.2 MB of K/V rows: ~9 us at
@@ -74,8 +82,9 @@
 // Faster versions (split-P table lookups, more blocks per request, keys kept
 // on chip) are later work.
 //
-// Layouts (all contiguous): q f32 (B, KVH, G, hd); k/v pages f32
-// (NB, KVH, bs, hd); bits uint32 (NB, KVH, bs, W) (the port stores int32
+// Layouts (all contiguous): q f32 (B, KVH, G, hd); k/v pages T
+// (NB, KVH, bs, hd) with T per kv_type (paged_common.cuh's KvType); k/v
+// scales f32 (NB, KVH, bs) or null; bits uint32 (NB, KVH, bs, W) (the port stores int32
 // with the same bit pattern; flat bit f = l*P + p is bit f%32 of word f/32);
 // vnorm bf16 (NB, KVH, bs); u_pad f32 (B, KVH, GS, l_pad, P) with GS = G
 // (kvhead) or 1 (pooled); logz_pad f32 (B, KVH, GS, l_pad); hard LSH
@@ -86,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "paged_common.cuh"
 
@@ -98,11 +109,13 @@ using paged::kWarps;
 // Scoring mode of the fused pass.
 enum class Mode { kSocket, kHardLsh };
 
-template <Mode M>
+template <Mode M, typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_socket_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k_pages,
-                    const float* __restrict__ v_pages,
+                    const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const uint32_t* __restrict__ bits_pages,
                     const uint16_t* __restrict__ vnorm_pages,
                     const float* __restrict__ qhash,
@@ -245,8 +258,8 @@ paged_socket_kernel(const float* __restrict__ q,
     if (is_sel) srow[slot] = (btb[t / bs] * kvh + h) * bs + t % bs;
     __syncthreads();
     if (cnt == 0) continue;               // uniform across the block
-    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, g, hd, scale,
-                     0.f);
+    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, k_scale, v_scale,
+                     g, hd, scale, 0.f);
   }
   __syncthreads();
   paged::softmax_store(sm_state, out + bh * g * hd, g, hd);
@@ -255,8 +268,9 @@ paged_socket_kernel(const float* __restrict__ q,
       sel_out[bh * n_total + t] = 0;
 }
 
-template <Mode M>
-int launch(const float* q, const float* k_pages, const float* v_pages,
+template <Mode M, typename T>
+int launch(const float* q, const T* k_pages, const T* v_pages,
+           const float* k_scale, const float* v_scale,
            const uint32_t* bits_pages, const uint16_t* vnorm_pages,
            const float* qhash, const float* logz_pad, const int* bt,
            const int* lengths, const int* budgets, float* out, int* sel,
@@ -271,59 +285,85 @@ int launch(const float* q, const float* k_pages, const float* v_pages,
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_socket_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        paged_socket_kernel<M, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }
   const dim3 grid(kvh, b);
-  paged_socket_kernel<M><<<grid, kThreads, smem, stream>>>(
-      q, k_pages, v_pages, bits_pages, vnorm_pages, qhash, logz_pad, bt,
+  paged_socket_kernel<M, T><<<grid, kThreads, smem, stream>>>(
+      q, k_pages, v_pages, k_scale, v_scale, bits_pages, vnorm_pages, qhash,
+      logz_pad, bt,
       lengths, budgets, out, sel, eff, kvh, g, gs, hd, bs, w, nb, nl, p, tau,
       scale, sink, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch<M, T> with T the element type of kv_type.
+template <Mode M>
+int launch_kv(int kv_type, const float* q, const void* k_pages,
+              const void* v_pages, const float* k_scale,
+              const float* v_scale, const void* bits_pages,
+              const void* vnorm_pages, const float* qhash,
+              const float* logz_pad, const int* bt, const int* lengths,
+              const int* budgets, float* out, int* sel, float* eff, int b,
+              int kvh, int g, int gs, int hd, int bs, int w, int nb, int nl,
+              int p, float tau, float scale, int sink, int window,
+              void* stream) {
+  return paged::with_kv_type(kv_type, [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return launch<M, T>(
+        q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+        k_scale, v_scale, static_cast<const uint32_t*>(bits_pages),
+        static_cast<const uint16_t*>(vnorm_pages), qhash, logz_pad, bt,
+        lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, nl, p,
+        tau, scale, sink, window, static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Pointers as in the layouts above; sel is int32 (B, KVH, nb, bs) or NULL;
-// eff is f32 (B, KVH, nb*bs) scratch.  Returns the launch's cudaError_t.
-int paged_socket_attend_launch(const float* q, const float* k_pages,
-                               const float* v_pages, const void* bits_pages,
+// Pointers as in the layouts above; k_pages / v_pages of the element type
+// kv_type names, k_scale / v_scale NULL for unscaled pages; sel is int32
+// (B, KVH, nb, bs) or NULL; eff is f32 (B, KVH, nb*bs) scratch.  Returns
+// the launch's cudaError_t (cudaErrorInvalidValue for an unknown kv_type).
+int paged_socket_attend_launch(const float* q, const void* k_pages,
+                               const void* v_pages, const float* k_scale,
+                               const float* v_scale, const void* bits_pages,
                                const void* vnorm_pages, const float* u_pad,
                                const float* logz_pad, const int* bt,
                                const int* lengths, const int* budgets,
-                               float* out, int* sel, float* eff, int b,
-                               int kvh, int g, int gs, int hd, int bs, int w,
-                               int nb, int l_pad, int p, float tau,
+                               float* out, int* sel, float* eff, int kv_type,
+                               int b, int kvh, int g, int gs, int hd, int bs,
+                               int w, int nb, int l_pad, int p, float tau,
                                float scale, int sink, int window,
                                void* stream) {
-  return launch<Mode::kSocket>(
-      q, k_pages, v_pages, static_cast<const uint32_t*>(bits_pages),
-      static_cast<const uint16_t*>(vnorm_pages), u_pad, logz_pad, bt,
-      lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, l_pad, p,
-      tau, scale, sink, window, static_cast<cudaStream_t>(stream));
+  return launch_kv<Mode::kSocket>(
+      kv_type, q, k_pages, v_pages, k_scale, v_scale, bits_pages,
+      vnorm_pages, u_pad, logz_pad, bt, lengths, budgets, out, sel, eff, b,
+      kvh, g, gs, hd, bs, w, nb, l_pad, p, tau, scale, sink, window, stream);
 }
 
 // As paged_socket_attend_launch, with u_signs f32 +-1 (B, KVH, GS, l, P)
 // (the query's plane signs; only the l real tables, so padded tables are
 // never scored) in place of u and logZ.
-int paged_hard_lsh_attend_launch(const float* q, const float* k_pages,
-                                 const float* v_pages, const void* bits_pages,
+int paged_hard_lsh_attend_launch(const float* q, const void* k_pages,
+                                 const void* v_pages, const float* k_scale,
+                                 const float* v_scale, const void* bits_pages,
                                  const void* vnorm_pages,
                                  const float* u_signs, const int* bt,
                                  const int* lengths, const int* budgets,
-                                 float* out, int* sel, float* eff, int b,
-                                 int kvh, int g, int gs, int hd, int bs,
-                                 int w, int nb, int l, int p, float scale,
-                                 int sink, int window, void* stream) {
-  return launch<Mode::kHardLsh>(
-      q, k_pages, v_pages, static_cast<const uint32_t*>(bits_pages),
-      static_cast<const uint16_t*>(vnorm_pages), u_signs, nullptr, bt,
-      lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, l, p,
-      1.f, scale, sink, window, static_cast<cudaStream_t>(stream));
+                                 float* out, int* sel, float* eff,
+                                 int kv_type, int b, int kvh, int g, int gs,
+                                 int hd, int bs, int w, int nb, int l, int p,
+                                 float scale, int sink, int window,
+                                 void* stream) {
+  return launch_kv<Mode::kHardLsh>(
+      kv_type, q, k_pages, v_pages, k_scale, v_scale, bits_pages,
+      vnorm_pages, u_signs, nullptr, bt, lengths, budgets, out, sel, eff, b,
+      kvh, g, gs, hd, bs, w, nb, l, p, 1.f, scale, sink, window, stream);
 }
 
 const char* paged_socket_attend_error_string(int code) {

@@ -1,11 +1,20 @@
 // Block-wide helpers shared by the fused paged decode kernels
 // (paged_attention.cu: SOCKET and hard-LSH scoring; paged_quest.cu: Quest
-// page selection; paged_ring.cu: the sliding-window ring).  Every kernel runs one block of kThreads threads per
-// (request, KV head); all helpers below are called by every thread of the
-// block (they synchronize).
+// page selection; paged_ring.cu: the sliding-window ring).  Every kernel
+// runs one block of kThreads threads per (request, KV head); all helpers
+// below are called by every thread of the block (they synchronize).
+//
+// K/V pool pages come in four element types (the wrappers' kv_type codes,
+// KvType): f32, bf16 (stored as its 16 bits), int8, and fp8 e4m3fn
+// (__nv_fp8_e4m3: the finite-only encoding of torch.float8_e4m3fn).  With
+// the f32 per-row scale pools k_scale / v_scale (NB, KVH, bs) a K/V value
+// is read as float(q) * scale[row], one rounding, the plain version's
+// q.float() * s; without them (null pointers) the scale is 1, and
+// float(q) * 1 is float(q) exactly.
 
 #pragma once
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,6 +32,34 @@ __device__ __forceinline__ uint32_t sort_key(float x) {
 
 __device__ __forceinline__ float bf16_to_float(uint16_t h) {
   return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+// Element types of the K/V pool pages, as the wrappers code them.
+enum KvType { kKvF32 = 0, kKvBf16 = 1, kKvInt8 = 2, kKvFp8 = 3 };
+
+// One stored K/V element as f32 (exact for every storage type).
+__device__ __forceinline__ float kv_to_float(float x) { return x; }
+__device__ __forceinline__ float kv_to_float(uint16_t h) {
+  return bf16_to_float(h);
+}
+__device__ __forceinline__ float kv_to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float kv_to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
+// Calls f(static_cast<T*>(nullptr)) with T the element type of kv_type
+// and returns its result; an unknown code gives cudaErrorInvalidValue.
+template <typename F>
+int with_kv_type(int kv_type, F&& f) {
+  switch (kv_type) {
+    case kKvF32: return f(static_cast<float*>(nullptr));
+    case kKvBf16: return f(static_cast<uint16_t*>(nullptr));
+    case kKvInt8: return f(static_cast<int8_t*>(nullptr));
+    case kKvFp8: return f(static_cast<__nv_fp8_e4m3*>(nullptr));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Block-wide sum; every thread gets the result.  red: kWarps ints.
@@ -75,12 +112,14 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Online-softmax state of one block in shared memory: the G query heads
-// sq (G, hd), the accumulator sacc (G, hd), tile scores ss (G, kThreads)
-// and the running max sm, sum sl and rescale factor salpha (G each).
+// sq (G, hd), the accumulator sacc (G, hd), tile scores ss (G, kThreads),
+// the V scales of the tile's rows svs (kThreads) and the running max sm,
+// sum sl and rescale factor salpha (G each).
 struct Softmax {
   const float* sq;
   float* sacc;
   float* ss;
+  float* svs;
   float* sm;
   float* sl;
   float* salpha;
@@ -88,22 +127,34 @@ struct Softmax {
 
 // Fold the cnt compacted rows srow[0, cnt) (pool row indices) of one tile
 // into the online softmax: scores one warp per row with coalesced K
-// loads, the statistics one warp per query head, acc = acc * alpha + P V
-// with threads over (g, d).  Only these rows of K and V are read.  A
-// softcap > 0 caps each scaled logit s to softcap * tanh(s / softcap)
+// loads (one element per lane: 4 bytes of f32, 1 of int8 or fp8), the
+// statistics one warp per query head, acc = acc * alpha + P V with
+// threads over (g, d).  Only these rows of K and V, and of the scale
+// pools when given (k_scale / v_scale, null for unscaled pages), are
+// read; each value is dequantized in-register as kv_to_float(q) * scale.
+// A softcap > 0 caps each scaled logit s to softcap * tanh(s / softcap)
 // (Gemma-style); 0 leaves it as it is.
+template <typename T>
 __device__ __forceinline__ void fold_rows(const Softmax& s, int cnt,
                                           const int* srow,
-                                          const float* __restrict__ k_pages,
-                                          const float* __restrict__ v_pages,
+                                          const T* __restrict__ k_pages,
+                                          const T* __restrict__ v_pages,
+                                          const float* __restrict__ k_scale,
+                                          const float* __restrict__ v_scale,
                                           int g, int hd, float scale,
                                           float softcap) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   for (int r = warp; r < cnt; r += kWarps) {
-    const float* kr = k_pages + static_cast<size_t>(srow[r]) * hd;
+    const int row = srow[r];
+    const T* kr = k_pages + static_cast<size_t>(row) * hd;
+    const float ks = k_scale != nullptr ? k_scale[row] : 1.f;
+    if (lane == 0) s.svs[r] = v_scale != nullptr ? v_scale[row] : 1.f;
     for (int gg = 0; gg < g; ++gg) {
       float d = 0.f;
-      for (int i = lane; i < hd; i += 32) d += s.sq[gg * hd + i] * kr[i];
+      for (int i = lane; i < hd; i += 32) {
+        const float k = kv_to_float(kr[i]) * ks;
+        d += s.sq[gg * hd + i] * k;
+      }
       d = warp_sum(d) * scale;
       if (softcap > 0.f) d = softcap * tanhf(d / softcap);
       if (lane == 0) s.ss[gg * kThreads + r] = d;
@@ -135,9 +186,12 @@ __device__ __forceinline__ void fold_rows(const Softmax& s, int cnt,
   for (int i = tid; i < g * hd; i += kThreads) {
     const int gg = i / hd, d = i - gg * hd;
     float a = s.sacc[i] * s.salpha[gg];
-    for (int r = 0; r < cnt; ++r)
-      a += s.ss[gg * kThreads + r] *
-           v_pages[static_cast<size_t>(srow[r]) * hd + d];
+    for (int r = 0; r < cnt; ++r) {
+      const float v =
+          kv_to_float(v_pages[static_cast<size_t>(srow[r]) * hd + d]) *
+          s.svs[r];
+      a += s.ss[gg * kThreads + r] * v;
+    }
     s.sacc[i] = a;
   }
 }
@@ -168,7 +222,7 @@ __device__ __forceinline__ void softmax_store(const Softmax& s, float* ob,
 // Shared-memory bytes of the Softmax state plus srow (kThreads ints) and
 // red (kWarps ints), laid out by carve_softmax.
 __host__ __device__ constexpr size_t softmax_smem_bytes(int g, int hd) {
-  return static_cast<size_t>(2 * g * hd + g * kThreads + 3 * g) *
+  return static_cast<size_t>(2 * g * hd + (g + 1) * kThreads + 3 * g) *
              sizeof(float) +
          static_cast<size_t>(kThreads + kWarps) * sizeof(int);
 }
@@ -184,7 +238,8 @@ __device__ __forceinline__ unsigned char* carve_softmax(unsigned char* base,
   s->sq = f;
   s->sacc = f + g * hd;
   s->ss = s->sacc + g * hd;
-  s->sm = s->ss + g * kThreads;
+  s->svs = s->ss + g * kThreads;
+  s->sm = s->svs + kThreads;
   s->sl = s->sm + g;
   s->salpha = s->sl + g;
   *srow = reinterpret_cast<int*>(s->salpha + g);

@@ -30,6 +30,14 @@
 //              pages fold into an fp32 online softmax (m, l, acc) for the
 //              G query heads, and the output is acc / max(l, 1e-30).
 //
+// K/V pages are f32, bf16, int8 or fp8 e4m3fn (the _quest_kernel's
+// `quantized` branch, paged_quest.py:142-149): with the per-row scale pools
+// k_scale / v_scale each attended row is dequantized in-register as
+// float(q) * scale[row] by paged_common.cuh's fold_rows.  The page stats
+// stay f32; under quantized pages the engine computes them from the
+// quantization round trip of the keys (quest.stats_from_quantized), so
+// the bounds cover the values attended.
+//
 // Selection is exactly repro_torch.baselines.quest.select_tokens's; the page
 // scores (and then the selected flags) go to an f32 scratch (B, KVH,
 // nb * ppb) in device memory, which the wrapper allocates.
@@ -37,7 +45,8 @@
 // What bounds it on this card: bytes.  The function must read the kmin and
 // kmax rows of every live page that is not forced (2 * hd * 4 bytes per
 // page and head: 1 KB at hd = 128) and the K/V rows of the selected pages'
-// live tokens (2 * hd * 4 bytes each), plus q and the output.  Its
+// live tokens (2 * hd * 4 bytes each in f32, 2 * (hd + 4) as int8 or fp8
+// with their scales), plus q and the output.  Its
 // operations (4 per (page, g, d) and 4 * hd per selected row and g) take
 // far less than the bytes at fp32 rates.
 //
@@ -56,14 +65,17 @@
 // Faster versions (more blocks per request, page stats kept on chip) are
 // later work.
 //
-// Layouts (all contiguous): q f32 (B, KVH, G, hd); k/v pages f32
-// (NB, KVH, bs, hd); kmin/kmax pages f32 (NB, KVH, ppb, hd); bt int32
+// Layouts (all contiguous): q f32 (B, KVH, G, hd); k/v pages T
+// (NB, KVH, bs, hd) with T per kv_type (paged_common.cuh's KvType); k/v
+// scales f32 (NB, KVH, bs) or null; kmin/kmax pages f32 (NB, KVH, ppb, hd); bt int32
 // (B, nb); length, budget int32 (B,) (budget in pages).  The pool holds
 // fewer than 2^31 rows (NB * KVH * bs; the wrapper checks).
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "paged_common.cuh"
 
@@ -73,10 +85,13 @@ using paged::kNegInf;
 using paged::kThreads;
 using paged::kWarps;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_quest_kernel(const float* __restrict__ q,
-                   const float* __restrict__ k_pages,
-                   const float* __restrict__ v_pages,
+                   const T* __restrict__ k_pages,
+                   const T* __restrict__ v_pages,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
                    const float* __restrict__ kmin_pages,
                    const float* __restrict__ kmax_pages,
                    const int* __restrict__ bt,
@@ -180,8 +195,8 @@ paged_quest_kernel(const float* __restrict__ q,
     if (is_sel) srow[slot] = (btb[t / bs] * kvh + h) * bs + t % bs;
     __syncthreads();
     if (cnt == 0) continue;               // uniform across the block
-    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, g, hd, scale,
-                     0.f);
+    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, k_scale, v_scale,
+                     g, hd, scale, 0.f);
   }
   __syncthreads();
   paged::softmax_store(sm_state, out + bh * g * hd, g, hd);
@@ -190,36 +205,56 @@ paged_quest_kernel(const float* __restrict__ q,
       sel_out[bh * n_total + t] = 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Pointers as in the layouts above; sel is int32 (B, KVH, nb, bs) or NULL;
-// eff is f32 (B, KVH, nb * bs / ps) scratch.  Returns the launch's
-// cudaError_t.
-int paged_quest_attend_launch(const float* q, const float* k_pages,
-                              const float* v_pages, const float* kmin_pages,
-                              const float* kmax_pages, const int* bt,
-                              const int* lengths, const int* budgets,
-                              float* out, int* sel, float* eff, int b,
-                              int kvh, int g, int hd, int bs, int ps, int nb,
-                              float scale, int sink, int window,
-                              void* stream) {
+template <typename T>
+int launch(const float* q, const T* k_pages, const T* v_pages,
+           const float* k_scale, const float* v_scale,
+           const float* kmin_pages, const float* kmax_pages, const int* bt,
+           const int* lengths, const int* budgets, float* out, int* sel,
+           float* eff, int b, int kvh, int g, int hd, int bs, int ps, int nb,
+           float scale, int sink, int window, cudaStream_t stream) {
   const size_t smem = paged::softmax_smem_bytes(g, hd);
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_quest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_quest_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }
   const dim3 grid(kvh, b);
-  paged_quest_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q, k_pages, v_pages, kmin_pages, kmax_pages, bt, lengths, budgets, out,
-      sel, eff, kvh, g, hd, bs, ps, nb, scale, sink, window);
+  paged_quest_kernel<T><<<grid, kThreads, smem, stream>>>(
+      q, k_pages, v_pages, k_scale, v_scale, kmin_pages, kmax_pages, bt,
+      lengths, budgets, out, sel, eff, kvh, g, hd, bs, ps, nb, scale, sink,
+      window);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Pointers as in the layouts above; k_pages / v_pages of the element type
+// kv_type names, k_scale / v_scale NULL for unscaled pages; sel is int32
+// (B, KVH, nb, bs) or NULL; eff is f32 (B, KVH, nb * bs / ps) scratch.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for an unknown
+// kv_type).
+int paged_quest_attend_launch(const float* q, const void* k_pages,
+                              const void* v_pages, const float* k_scale,
+                              const float* v_scale, const float* kmin_pages,
+                              const float* kmax_pages, const int* bt,
+                              const int* lengths, const int* budgets,
+                              float* out, int* sel, float* eff, int kv_type,
+                              int b, int kvh, int g, int hd, int bs, int ps,
+                              int nb, float scale, int sink, int window,
+                              void* stream) {
+  return paged::with_kv_type(kv_type, [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return launch<T>(q, static_cast<const T*>(k_pages),
+                     static_cast<const T*>(v_pages), k_scale, v_scale,
+                     kmin_pages, kmax_pages, bt, lengths, budgets, out, sel,
+                     eff, b, kvh, g, hd, bs, ps, nb, scale, sink, window,
+                     static_cast<cudaStream_t>(stream));
+  });
 }
 
 const char* paged_quest_attend_error_string(int code) {

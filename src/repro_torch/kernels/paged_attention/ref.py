@@ -20,6 +20,13 @@ Quest's page selection (:func:`repro_torch.baselines.quest.select_tokens`)
 in place of scoring and top-k; both mirror their JAX namesakes.
 :func:`paged_ring_attend_ref` is the sliding-window decode over a
 request's circular page list (no selection: every in-window row).
+
+K/V pages may be float32, bf16, int8 or ``float8_e4m3fn``.  Given the
+per-row scale pools ``k_scale``/``v_scale`` ``(NB, KVH, bs)``, every
+version reads the logical view dequantized, ``q.float() * s`` (the JAX
+oracles' ``_logical_kv``); without them, ``float(q)``.  Scoring never
+reads K/V, so SOCKET's and hard LSH's selections do not depend on the
+storage dtype.
 """
 
 from __future__ import annotations
@@ -33,9 +40,20 @@ from repro_torch.core import socket as sk
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 from repro_torch.models.backends.base import gather_block_leaf
+from repro_torch.models.backends.kvquant import dequantize
 
 __all__ = ["paged_socket_attend_ref", "paged_hard_lsh_attend_ref",
            "paged_quest_attend_ref", "paged_ring_attend_ref"]
+
+
+def _logical_kv(pages: torch.Tensor, scale_pages, bt: torch.Tensor
+                ) -> torch.Tensor:
+    """The logical K/V view ``(B, KVH, nb*bs, hd)`` in float32,
+    dequantized when per-row scales are given."""
+    x = gather_block_leaf(pages, bt)
+    if scale_pages is None:
+        return x.float()
+    return dequantize(x, gather_block_leaf(scale_pages, bt))
 
 
 def paged_socket_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -44,7 +62,8 @@ def paged_socket_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
                             block_table: torch.Tensor, *, length, budget,
                             num_tables: int, num_planes: int, tau: float,
                             scale: float, sink_tokens: int,
-                            window_tokens: int, top_k: int
+                            window_tokens: int, top_k: int, k_scale=None,
+                            v_scale=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same shapes as :func:`ops.paged_socket_attend` plus ``top_k``, the
     static selection cap (any value >= max(budget)).
@@ -57,8 +76,8 @@ def paged_socket_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
     b, kvh, g, hd = q.shape
     bits = gather_block_leaf(bits_pages, block_table)        # (B,KVH,N,W)
     vnorm = gather_block_leaf(vnorm_pages, block_table).float()
-    kc = gather_block_leaf(k_pages, block_table)
-    vc = gather_block_leaf(v_pages, block_table)
+    kc = _logical_kv(k_pages, k_scale, block_table)
+    vc = _logical_kv(v_pages, v_scale, block_table)
     n = bits.shape[2]
 
     gs = u.shape[2]
@@ -112,7 +131,8 @@ def paged_hard_lsh_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
                               vnorm_pages: torch.Tensor, u_signs: torch.Tensor,
                               block_table: torch.Tensor, *, length, budget,
                               num_tables: int, num_planes: int, scale: float,
-                              sink_tokens: int, window_tokens: int, top_k: int
+                              sink_tokens: int, window_tokens: int, top_k: int,
+                              k_scale=None, v_scale=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same shapes as :func:`ops.paged_hard_lsh_attend` plus ``top_k``:
     the socket composition with the soft score replaced by the backend's
@@ -122,8 +142,8 @@ def paged_hard_lsh_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
         q = q[:, :, :, 0]
     bits = gather_block_leaf(bits_pages, block_table)        # (B,KVH,N,W)
     vnorm = gather_block_leaf(vnorm_pages, block_table).float()
-    kc = gather_block_leaf(k_pages, block_table)
-    vc = gather_block_leaf(v_pages, block_table)
+    kc = _logical_kv(k_pages, k_scale, block_table)
+    vc = _logical_kv(v_pages, v_scale, block_table)
     cfg = sk.SocketConfig(num_planes=num_planes, num_tables=num_tables,
                           tau=1.0, sink_tokens=sink_tokens,
                           window_tokens=window_tokens)
@@ -137,7 +157,7 @@ def paged_quest_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
                            kmax_pages: torch.Tensor,
                            block_table: torch.Tensor, *, length, page_budget,
                            page_size: int, scale: float, sink_tokens: int,
-                           window_tokens: int
+                           window_tokens: int, k_scale=None, v_scale=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same arguments as :func:`ops.paged_quest_attend`: the logical
     kmin/kmax views through ``select_tokens`` (``page_budget`` pages;
@@ -148,8 +168,8 @@ def paged_quest_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
     if q.ndim == 4:
         q = q[:, :, :, None]                          # (B,KVH,G,1,hd)
     b = q.shape[0]
-    kc = gather_block_leaf(k_pages, block_table)      # (B,KVH,N,hd)
-    vc = gather_block_leaf(v_pages, block_table)
+    kc = _logical_kv(k_pages, k_scale, block_table)   # (B,KVH,N,hd)
+    vc = _logical_kv(v_pages, v_scale, block_table)
     state = quest_mod.QuestState(
         kmin=gather_block_leaf(kmin_pages, block_table),
         kmax=gather_block_leaf(kmax_pages, block_table))
@@ -173,8 +193,8 @@ def paged_quest_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_ring_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_table: torch.Tensor, *,
-                          pos, window: int, softcap: float,
-                          scale: float) -> torch.Tensor:
+                          pos, window: int, softcap: float, scale: float,
+                          k_scale=None, v_scale=None) -> torch.Tensor:
     """Plain version of :func:`ops.paged_ring_attend`, mirroring
     ``repro.kernels.paged_attention.ref.paged_ring_attend_ref``: gather
     the circular page list (``block_table`` is the ring slice, ``(B,
@@ -187,8 +207,8 @@ def paged_ring_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,
     if q.ndim == 5:
         q = q[:, :, :, 0]
     b = q.shape[0]
-    kc = gather_block_leaf(k_pages, block_table).float()   # (B,KVH,cap,hd)
-    vc = gather_block_leaf(v_pages, block_table).float()
+    kc = _logical_kv(k_pages, k_scale, block_table)    # (B,KVH,cap,hd)
+    vc = _logical_kv(v_pages, v_scale, block_table)
     cap = kc.shape[2]
     pos = torch.as_tensor(pos, device=q.device).long().expand(b)
     sl = torch.arange(cap, device=q.device)

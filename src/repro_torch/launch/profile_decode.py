@@ -12,10 +12,11 @@ batch 2, prompt 8192).
 Continuous engine: the same weights through ``ContinuousBatchingEngine``
 at chip_smoke.py's continuous case (``launch.serve.card_continuous_case``:
 8 requests of 1024-4096 prompt tokens, chunks of 512), once for each
-fused backend in ``CONTINUOUS_BACKENDS`` (SOCKET, hard LSH, Quest); each
-run ends once all 8 decode together, and that decode iteration is
-replayed (it rewrites the same rows) — timed and traced like a static
-step.  Then, with llama31-8b's weights freed, gemma3-27b's case (full
+fused backend in ``CONTINUOUS_BACKENDS`` (SOCKET, hard LSH, Quest), and
+for SOCKET once more on int8 and on fp8 K/V pages
+(``CONTINUOUS_QUANT``, ``serving.kv_dtype``); each run ends once all 8
+decode together, and that decode iteration is replayed (it rewrites the
+same rows) — timed and traced like a static step.  Then, with llama31-8b's weights freed, gemma3-27b's case (full
 width, 14 of 62 layers: 12 local through ``paged_ring``, 2 global
 through the paged SOCKET kernel; 8 requests of 2048-6144 tokens) the
 same way.
@@ -47,6 +48,8 @@ __all__ = ["kernel_part", "run_backend", "run_continuous", "main"]
 ARCH, BATCH, PROMPT_LEN, Q_CHUNK = "llama31-8b", 2, 8192, 512
 BACKENDS = ("socket", "dense")
 CONTINUOUS_BACKENDS = ("socket_fused", "hard_lsh_fused", "quest_fused")
+# (backend, kv_dtype) of the quantized-page rows
+CONTINUOUS_QUANT = (("socket_fused", "int8"), ("socket_fused", "fp8"))
 TRACED_STEPS, TIMED_STEPS = 4, 16
 
 # kernel-name substrings -> part of the decode path (first match wins)
@@ -145,13 +148,15 @@ def run_backend(cfg, params, prompt, steps, timed_steps):
 
 
 def run_continuous(params, seed, steps, timed_steps, device,
-                   backend="socket_fused", arch=ARCH):
+                   backend="socket_fused", arch=ARCH, kv_dtype="auto"):
     """The continuous engine's full-width decode iteration of ``arch``
-    with ``backend`` (see the module docstring), replayed ``timed_steps``
-    times under CUDA events and ``steps`` times under the profiler;
-    ``params`` None draws the case's weights from ``seed``."""
+    with ``backend`` on K/V pages stored as ``kv_dtype`` (see the module
+    docstring), replayed ``timed_steps`` times under CUDA events and
+    ``steps`` times under the profiler; ``params`` None draws the case's
+    weights from ``seed``."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
-    cfg, reqs = card_continuous_case(get_config(arch), seed, 64, backend)
+    cfg, reqs = card_continuous_case(get_config(arch), seed, 64, backend,
+                                     kv_dtype)
     if params is None:
         params = tfm.init_model(cfg, seed, device)
     engine = ContinuousBatchingEngine(cfg, params=params, device=device)
@@ -209,12 +214,15 @@ def main(argv=None):
                           "prompt_len": PROMPT_LEN,
                           "device": device_name(dev), "card": card,
                           **row}), flush=True)
-    for backend in CONTINUOUS_BACKENDS:
+    runs = [(b, "auto") for b in CONTINUOUS_BACKENDS] + \
+        list(CONTINUOUS_QUANT)
+    for backend, kv_dtype in runs:
         row = run_continuous(params, args.seed, TRACED_STEPS, TIMED_STEPS,
-                             dev, backend)
+                             dev, backend, kv_dtype=kv_dtype)
         print(json.dumps({"arch": ARCH, "engine": "continuous",
-                          "backend": backend, "device": device_name(dev),
-                          "card": card, **row}), flush=True)
+                          "backend": backend, "kv_dtype": kv_dtype,
+                          "device": device_name(dev), "card": card, **row}),
+              flush=True)
         gc.collect()                     # the engine's pool, before the next
         torch.cuda.empty_cache()
     del params                           # llama31-8b's weights

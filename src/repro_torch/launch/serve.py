@@ -16,6 +16,9 @@ card it raises unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \\
         --smoke --device cpu --engine continuous --backend socket_fused \\
         --ring-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
+        --smoke --device cpu --engine continuous --backend socket_fused \\
+        --kv-dtype fp8
 
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
@@ -27,8 +30,12 @@ only) route paged decode through their fused CUDA kernel in
 hard_lsh, ``quest.use_paged_kernel`` for quest); ``dense`` is full
 attention.  ``--ring-kernel`` (continuous engine only) routes the
 sliding-window layers' decode (gemma3-27b's local layers) through the
-fused CUDA ring kernel.  On the CPU every kernel wrapper runs its plain
-PyTorch version.
+fused CUDA ring kernel.  ``--kv-dtype`` sets the K/V page storage
+(``serving.kv_dtype``): ``auto`` (the compute dtype), ``bf16``, or
+``int8``/``fp8`` rows with per-row scales, dequantized in-register by the
+fused kernels; the config refuses what a path cannot consume (fp8 needs
+the fused kernels, dense takes no fp8).  On the CPU every kernel wrapper
+runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -45,12 +52,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as tfm
+from repro_torch.models.backends.kvquant import KV_DTYPES
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 
 __all__ = ["run_serve", "run_continuous", "make_poisson_requests",
            "card_continuous_case", "CARD_CASES",
-           "resolve_device", "apply_backend_arg", "device_name", "card_line",
-           "SERVING_BACKENDS"]
+           "resolve_device", "apply_backend_arg", "apply_kv_dtype",
+           "device_name", "card_line", "SERVING_BACKENDS", "KV_DTYPES"]
 
 # the DecodeBackend registry's names plus the *_fused pseudo-backends
 # (backend + its use_paged_kernel gate: continuous engine only)
@@ -80,6 +88,19 @@ def apply_backend_arg(cfg, backend: str):
             attention_backend="quest",
             quest=dataclasses.replace(cfg.quest, use_paged_kernel=True))
     return cfg.replace(attention_backend=backend)
+
+
+def apply_kv_dtype(cfg, kv_dtype):
+    """Resolve a ``--kv-dtype`` value onto the config's serving settings
+    (the JAX launcher's resolver).  ``None`` keeps the config's own
+    ``serving.kv_dtype``; the dtype matrix itself (fp8 needs the fused
+    kernels, quest needs round-trip stats, ...) is enforced by
+    ``cfg.validate()``."""
+    if kv_dtype is None:
+        return cfg
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r} not in {KV_DTYPES}")
+    return cfg.replace(serving=cfg.serving.replace(kv_dtype=kv_dtype))
 
 
 def resolve_device(device) -> torch.device:
@@ -189,15 +210,16 @@ CARD_CASES = {
 
 
 def card_continuous_case(cfg, seed: int, max_new_tokens: int,
-                         backend: str = "socket_fused"):
+                         backend: str = "socket_fused",
+                         kv_dtype: str = "auto"):
     """The continuous engine's case at full width on the card, shared by
     ``chip_smoke.py``, the card tests and ``profile_decode.py``: ``cfg``
     with ``backend`` (a fused name) and serving settings for 8 requests
     (the prompt lengths of ``CARD_CASES[cfg.name]`` drawn from ``seed``,
-    each twice, all arriving at once), chunks of 512, 16-token blocks and
-    a pool that needs no preemption.  Sliding-window layers decode
-    through the ring kernel (``use_ring_kernel``).  Returns (cfg,
-    requests)."""
+    each twice, all arriving at once), chunks of 512, 16-token blocks, K/V
+    pages stored as ``kv_dtype`` and a pool that needs no preemption.
+    Sliding-window layers decode through the ring kernel
+    (``use_ring_kernel``).  Returns (cfg, requests)."""
     from repro_torch.configs import ServingSettings
     from repro_torch.serving import Request
     base_lens, max_blocks, num_blocks, groups = CARD_CASES[cfg.name]
@@ -208,7 +230,7 @@ def card_continuous_case(cfg, seed: int, max_new_tokens: int,
         cfg = cfg.replace(use_ring_kernel=True)
     sv = ServingSettings(block_size=16, max_batch=8, prefill_chunk=512,
                          max_blocks_per_seq=max_blocks,
-                         num_blocks=num_blocks)
+                         num_blocks=num_blocks, kv_dtype=kv_dtype)
     # 1 trash block + every request's lifetime
     blocks = [-(-(n + max_new_tokens) // sv.block_size) for n in lens]
     if 1 + sum(blocks) > sv.num_blocks or max(blocks) > \
@@ -252,6 +274,11 @@ def main(argv=None):
                     choices=list(SERVING_BACKENDS),
                     help="decode backend; the *_fused names route the "
                          "continuous engine through a fused paged kernel")
+    ap.add_argument("--kv-dtype", default=None, choices=list(KV_DTYPES),
+                    help="K/V pool page storage: 'auto' (compute dtype), "
+                         "'bf16', or quantized 'int8'/'fp8' pages with "
+                         "per-row scales dequantized in-kernel (default: "
+                         "the config's serving.kv_dtype)")
     ap.add_argument("--ring-kernel", action="store_true",
                     help="route sliding-window (local) layer decode "
                          "through the fused CUDA ring kernel (continuous "
@@ -284,6 +311,7 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     cfg = apply_backend_arg(cfg, args.backend)
+    cfg = apply_kv_dtype(cfg, args.kv_dtype)
     if args.ring_kernel:
         cfg = cfg.replace(use_ring_kernel=True)
     if args.prefill_chunk is not None:
@@ -304,6 +332,7 @@ def main(argv=None):
         print(json.dumps({
             "arch": cfg.name, "backend": args.backend,
             "engine": "continuous",
+            "kv_dtype": cfg.serving.kv_dtype,
             "prefill_chunk": cfg.serving.prefill_chunk,
             "prompt_lens": lens, "max_new_tokens": max_new,
             "finished": sum(r.state == "finished" for r in reqs),

@@ -28,8 +28,14 @@ engine the circular page list of a
 :class:`~repro_torch.models.backends.RingView` — attended with a plain
 masked softmax, or with ``cfg.use_ring_kernel`` by the fused CUDA ring
 kernel (``kernels/paged_attention/paged_ring.cu``) straight from the
-pool.  Quantized ring pages come with ROADMAP.md queue 1 item 5, the
-legacy whole-prompt prefill into pool rings with item 8.
+pool.  The legacy whole-prompt prefill into pool rings comes with
+ROADMAP.md queue 1 item 8.
+
+K/V are stored at ``serving.kv_dtype`` everywhere (static caches, pool
+pages and rings): int8/fp8 rows are quantized on write with per-row
+scales and dequantized where they are read — the chunk prefill attends
+over the dequantized pool rows, its own just-committed rows included, as
+the JAX package does; the fused kernels dequantize in-register.
 """
 
 from __future__ import annotations
@@ -212,8 +218,9 @@ def attention_prefill(cfg: ModelConfig, params: Dict, x: torch.Tensor,
         ring_pos = (t - 1) - torch.remainder((t - 1) - sl, cap)   # (cap,)
         valid = (ring_pos >= 0)[None, None, :, None]
         idx = ring_pos.clamp(0, t - 1)
-        return y, {"k": torch.where(valid, kc[:, :, idx], 0),
-                   "v": torch.where(valid, vc[:, :, idx], 0)}
+        return y, backends.quantize_kv(
+            cfg, torch.where(valid, kc[:, :, idx], 0),
+            torch.where(valid, vc[:, :, idx], 0))
     cache = init_attention_cache(cfg, x.shape[0], capacity, attn_type,
                                  dtype=kc.dtype, device=x.device)
     backend = backends.get_backend(cfg.attention_backend)
@@ -272,9 +279,12 @@ def attention_prefill_chunk(cfg: ModelConfig, params: Dict, x: torch.Tensor,
         else:
             backends.write_chunk_blocks(cache[name], mini[name], bt_row,
                                         history // bs)
+    # the chunk attends over the pool rows as stored (dequantized), its
+    # own just-committed rows included
     nblk = -(-(history + t) // bs)
-    k_full = backends.gather_block_leaf(cache["k"], bt_row[None, :nblk])
-    v_full = backends.gather_block_leaf(cache["v"], bt_row[None, :nblk])
+    view = backends.PagedView(cache, spec, bt_row[None, :nblk], bs)
+    k_full = backends.dequant_leaf(cfg, view, "k")
+    v_full = backends.dequant_leaf(cfg, view, "v")
     ctx = _attn_chunk(cfg, q.reshape(b, t, kv, g, hd),
                       k_full.transpose(1, 2), v_full.transpose(1, 2),
                       history, scale)
@@ -296,10 +306,13 @@ def _prefill_chunk_ring(cfg: ModelConfig, qg: torch.Tensor,
     dev = qg.device
     # the ring as of position history-1: slot s holds the newest committed
     # position p ≡ s (mod cap); slots never written (or out of the window)
-    # mask out.  Gathered BEFORE the chunk writes, so early chunk queries
-    # still see positions a later in-chunk token recycles.
-    ring_k = backends.gather_block_leaf(cache["k"], bt_row[None, :rb])
-    ring_v = backends.gather_block_leaf(cache["v"], bt_row[None, :rb])
+    # mask out.  Gathered (and dequantized) BEFORE the chunk writes, so
+    # early chunk queries still see positions a later in-chunk token
+    # recycles.
+    view = backends.RingView(cache, backends.kv_leaf_specs(cfg),
+                             bt_row[None], cfg.serving.block_size, rb, w)
+    ring_k = backends.dequant_leaf(cfg, view, "k")
+    ring_v = backends.dequant_leaf(cfg, view, "v")
     sl = torch.arange(cap, device=dev)
     lp = int(history) - 1
     rp = lp - torch.remainder(lp - sl, cap)                     # (cap,)
@@ -315,7 +328,7 @@ def _prefill_chunk_ring(cfg: ModelConfig, qg: torch.Tensor,
     logits = torch.where(mask, logits, NEG_INF)
     ctx = torch.einsum("bkgtn,bknd->btkgd", torch.softmax(logits, dim=-1),
                        v_all)
-    for name, val in (("k", kc), ("v", vc)):
+    for name, val in backends.quantize_kv(cfg, kc, vc).items():
         backends.ring_write_chunk(cache[name], val, bt_row, history,
                                   last_index,
                                   block_size=cfg.serving.block_size,
@@ -399,7 +412,9 @@ def _decode_ring(cfg: ModelConfig, qg: torch.Tensor, k_new: torch.Tensor,
         from repro_torch.kernels.paged_attention import ops as pa_ops
         return pa_ops.paged_ring_attend(
             qg, cache["k"], cache["v"], block_tables[:, :rb], pos=pos,
-            window=w, softcap=cfg.attn_logit_softcap, scale=scale)
+            window=w, softcap=cfg.attn_logit_softcap, scale=scale,
+            k_scale=backends.kv_scales_of(cache, "k"),
+            v_scale=backends.kv_scales_of(cache, "v"))
     # ring-slot absolute positions; the window bound is a no-op when cap
     # <= window (static path) but trims page-aligned rings that hold
     # slightly more than a window
@@ -411,8 +426,9 @@ def _decode_ring(cfg: ModelConfig, qg: torch.Tensor, k_new: torch.Tensor,
     ring_pos = pos_b - torch.remainder(pos_b - sl, cap)           # (B|1, cap)
     valid = (ring_pos >= 0) & (pos_b - ring_pos < w)
     logits = torch.einsum("bkgtd,bknd->bkgtn", qg.float(),
-                          view.leaf("k").float()) * scale
+                          backends.dequant_leaf(cfg, view, "k").float()
+                          ) * scale
     logits = softcap(logits, cfg.attn_logit_softcap)
     logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
     return torch.einsum("bkgtn,bknd->bkgtd", torch.softmax(logits, dim=-1),
-                        view.leaf("v").float())
+                        backends.dequant_leaf(cfg, view, "v").float())

@@ -13,10 +13,11 @@ from typing import Dict, Tuple
 
 from repro_torch.models.backends.base import (
     ContiguousView, DecodeBackend, KVView, LayerCacheHandler, LayerCacheSpec,
-    LeafSpec, PagedKVCacheHandler, PagedView, RingView, effective_keys,
-    gather_block_leaf, gather_kv_rows, kv_leaf_specs, kv_scales_of,
-    ring_write_chunk, ring_write_page, subset_attention, write_chunk_blocks,
-    write_chunk_rows, write_prefill_kv, write_token_kv)
+    LeafSpec, PagedKVCacheHandler, PagedView, RingView, dequant_leaf,
+    effective_keys, gather_block_leaf, gather_kv_rows, kv_leaf_specs,
+    kv_quant_mode, kv_scales_of, quantize_kv, ring_write_chunk,
+    ring_write_page, subset_attention, write_chunk_blocks, write_chunk_rows,
+    write_prefill_kv, write_token_kv)
 from repro_torch.models.backends.dense import DenseBackend
 from repro_torch.models.backends.hard_lsh import HardLSHBackend
 from repro_torch.models.backends.quest import QuestBackend
@@ -26,9 +27,10 @@ from repro_torch.models.backends.socket import SocketBackend, socket_config_of
 __all__ = ["DecodeBackend", "KVView", "ContiguousView", "PagedView",
            "RingView", "LeafSpec", "LayerCacheSpec", "LayerCacheHandler",
            "PagedKVCacheHandler", "RingCacheHandler", "layer_cache_handler",
-           "layer_cache_spec", "kv_leaf_specs", "kv_scales_of",
-           "effective_keys", "write_prefill_kv", "write_token_kv",
-           "gather_kv_rows", "gather_block_leaf", "write_chunk_blocks",
+           "layer_cache_spec", "kv_quant_mode", "kv_leaf_specs",
+           "kv_scales_of", "effective_keys", "quantize_kv",
+           "write_prefill_kv", "write_token_kv", "gather_kv_rows",
+           "dequant_leaf", "gather_block_leaf", "write_chunk_blocks",
            "write_chunk_rows", "ring_write_page", "ring_write_chunk",
            "subset_attention", "register", "get_backend",
            "registered_backends", "socket_config_of"]

@@ -29,9 +29,19 @@ place** (``KVView.arrays`` holds the very tensors of the caller's cache
 or pool): a K/V pool is gigabytes at long context, and a functional copy
 per step would double it.
 
-Quantized leaves come with ROADMAP.md queue 1 item 5, the state (Mamba)
-handler with item 7, the handlers' ``write_prefill`` (the legacy
-whole-prompt prefill) with item 8.
+K/V leaves are stored at ``serving.kv_dtype`` (:func:`kv_leaf_specs`):
+the compute dtype, a bf16 cast, or int8/fp8 rows with float32 per-row
+``k_scale``/``v_scale`` leaves (:mod:`.kvquant`).  Rows are quantized on
+write (:func:`write_prefill_kv`, :func:`write_token_kv`) and dequantized
+where they are read (:func:`gather_kv_rows` for the selected rows,
+:func:`dequant_leaf` for a whole view).  The CPU build of torch has no
+fp8 ``masked_fill_``, ``gather`` or ``scatter_``, so every pool and cache
+read and write here moves fp8 payloads through a same-size ``uint8``
+view (bitwise on every device; byte 0 is +0.0).
+
+The state (Mamba) handler comes with ROADMAP.md queue 1 item 7, the
+handlers' ``write_prefill`` (the legacy whole-prompt prefill) with item
+8.
 """
 
 from __future__ import annotations
@@ -42,16 +52,37 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core import socket as sk
+from repro_torch.models.backends import kvquant
 
 __all__ = ["LeafSpec", "LayerCacheSpec", "KVView", "ContiguousView",
            "PagedView", "RingView", "DecodeBackend", "LayerCacheHandler",
-           "PagedKVCacheHandler", "kv_leaf_specs", "kv_scales_of",
-           "effective_keys", "write_prefill_kv", "write_token_kv",
-           "gather_kv_rows", "subset_attention", "gather_block_leaf",
+           "PagedKVCacheHandler", "kv_quant_mode", "kv_leaf_specs",
+           "kv_scales_of", "effective_keys", "write_prefill_kv",
+           "quantize_kv", "write_token_kv", "gather_kv_rows",
+           "dequant_leaf", "subset_attention", "gather_block_leaf",
            "write_chunk_blocks", "write_chunk_rows", "ring_write_page",
            "ring_write_chunk"]
 
 Pos = Union[int, torch.Tensor]
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for fp8 its same-size ``uint8`` view (shares the
+    storage): fp8 payloads are moved, scrubbed and gathered as bytes — the
+    CPU build has no fp8 ``masked_fill_``, ``gather`` or ``scatter_``, and
+    a byte copy is bitwise on every device (byte 0 is +0.0)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _put(a: torch.Tensor, index, value: torch.Tensor) -> None:
+    """``a[index] = value`` in place, ``value`` cast to ``a``'s dtype (fp8
+    through the byte views)."""
+    _raw(a)[index] = _raw(value.to(a.dtype))
+
+
+def _take(a: torch.Tensor, index) -> torch.Tensor:
+    """``a[index]`` (fp8 through the byte view)."""
+    return _raw(a)[index].view(a.dtype)
 
 
 def gather_block_leaf(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -61,7 +92,7 @@ def gather_block_leaf(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     fallback, chunked-prefill attention and the paged kernel's plain
     version."""
     b, nb = bt.shape
-    g = pages[bt.long()]                   # (B, nb, KVH, rows_pb, *rest)
+    g = _take(pages, bt.long())            # (B, nb, KVH, rows_pb, *rest)
     g = g.movedim(2, 1)                    # (B, KVH, nb, rows_pb, *rest)
     return g.reshape(b, pages.shape[1], nb * pages.shape[2],
                      *pages.shape[3:])
@@ -102,17 +133,37 @@ class LayerCacheSpec:
     ring_blocks: int = 0
 
 
+def kv_quant_mode(cfg) -> str:
+    """The K/V storage mode of attention layers, paged and ring alike
+    (``serving.kv_dtype``)."""
+    return cfg.serving.kv_dtype
+
+
 def kv_leaf_specs(cfg) -> Dict[str, LeafSpec]:
-    """The K/V leaves every backend stores, at the compute dtype (the JAX
-    package's ``serving.kv_dtype="auto"``; quantized pages come with the
-    quantized-pages slice)."""
+    """The K/V leaves every backend stores.
+
+    Under ``serving.kv_dtype`` ``"int8"``/``"fp8"`` the k/v leaves hold
+    quantized rows and a float32 per-row scale leaf rides along
+    (``k_scale``/``v_scale``: empty suffix, granularity 1, the way the
+    SOCKET vnorm side-cache rides along).  ``"bf16"`` is a plain storage
+    cast (no scales); ``"auto"`` keeps the compute dtype.
+    """
     hd = cfg.head_dim
-    return {"k": LeafSpec(suffix=(hd,)), "v": LeafSpec(suffix=(hd,))}
+    kvd = kv_quant_mode(cfg)
+    if kvd == "auto":
+        return {"k": LeafSpec(suffix=(hd,)), "v": LeafSpec(suffix=(hd,))}
+    sdt = kvquant.storage_dtype(kvd, None)
+    spec = {"k": LeafSpec(suffix=(hd,), dtype=sdt),
+            "v": LeafSpec(suffix=(hd,), dtype=sdt)}
+    if kvquant.is_quantized(kvd):
+        spec["k_scale"] = LeafSpec(suffix=(), dtype=kvquant.scale_dtype())
+        spec["v_scale"] = LeafSpec(suffix=(), dtype=kvquant.scale_dtype())
+    return spec
 
 
 def kv_scales_of(arrays: Dict[str, torch.Tensor], name: str):
     """The scale leaf paired with K/V leaf ``name`` (None when the cache
-    is unquantized, which in the port is always)."""
+    is unquantized)."""
     return arrays.get(name + "_scale")
 
 
@@ -170,7 +221,7 @@ class ContiguousView(KVView):
             b, *([1] * (idx.ndim - 1)))
         hidx = torch.arange(kvh, device=a.device).reshape(
             1, kvh, *([1] * (idx.ndim - 2)))
-        return a[bidx, hidx, idx]
+        return _take(a, (bidx, hidx, idx))
 
     def write_token(self, name: str, pos: Pos, value: torch.Tensor) -> None:
         """Set the row of token ``pos`` (an int, or a ``(B,)`` tensor of
@@ -180,9 +231,9 @@ class ContiguousView(KVView):
         gran = self.spec[name].granularity
         if isinstance(pos, torch.Tensor) and pos.ndim == 1:
             bidx = torch.arange(a.shape[0], device=a.device)
-            a[bidx, :, pos.to(a.device) // gran] = value.to(a.dtype)
+            _put(a, (bidx, slice(None), pos.to(a.device) // gran), value)
         else:
-            a[:, :, int(pos) // gran] = value.to(a.dtype)
+            _put(a, (slice(None), slice(None), int(pos) // gran), value)
 
     def rmw_token(self, name: str, pos: Pos, fn) -> None:
         a = self.arrays[name]
@@ -232,16 +283,15 @@ class PagedView(KVView):
         hidx = torch.arange(kvh, device=bt.device).reshape(
             1, kvh, *([1] * (idx.ndim - 2)))
         blk = bt[bidx, idx // self.block_size]
-        return pages[blk, hidx, idx % self.block_size]
+        return _take(pages, (blk, hidx, idx % self.block_size))
 
     def write_token(self, name: str, pos: Pos, value: torch.Tensor) -> None:
         """Set the row of token ``pos`` (an int or a ``(B,)`` tensor) of
         every request to ``value`` ``(B, KVH, *suffix)``, in the pool in
         place.  Inactive slots point at the trash block; their duplicate
         writes there are never read unmasked."""
-        pages = self.arrays[name]
         blk, row = self._addr(name, pos)
-        pages[blk, :, row] = value.to(pages.dtype)
+        _put(self.arrays[name], (blk, slice(None), row), value)
 
     def _addr(self, name: str, pos: Pos):
         """Physical block and row of token ``pos`` of every request."""
@@ -283,14 +333,16 @@ def ring_write_page(pages: torch.Tensor, blk: torch.Tensor, pos: Pos,
     pos = torch.as_tensor(pos, device=blk.device).long().expand(b)
     cap = ring_blocks * block_size
     row = pos % block_size
-    page = pages[blk]                      # (B, KVH, block_size, *suffix)
+    raw = _raw(pages)
+    page = raw[blk]                        # (B, KVH, block_size, *suffix)
     r = torch.arange(block_size, device=blk.device)
     scrub = (row == 0)[:, None] & (r[None] >= 1) & (
         (r[None] <= cap - window) | (pos < cap)[:, None])     # (B, bs)
     page.masked_fill_(scrub.reshape(b, 1, block_size,
                                     *([1] * (page.ndim - 3))), 0)
-    page[torch.arange(b, device=blk.device), :, row] = value.to(page.dtype)
-    pages[blk] = page
+    page[torch.arange(b, device=blk.device), :, row] = _raw(
+        value.to(pages.dtype))
+    raw[blk] = page
     return pages
 
 
@@ -339,15 +391,17 @@ def ring_write_chunk(pages: torch.Tensor, vals: torch.Tensor,
     blk = torch.cat([bt_row[:ring_blocks].long(),
                      torch.zeros(1, dtype=torch.long, device=dev)])[touched]
     last = last.reshape(ring_blocks + 1, block_size)[touched]   # (P, bs)
-    page = pages[blk]                           # (P, KVH, bs, *suffix)
-    src = vals[0].movedim(1, 0)[(last // 2).clamp(min=0)]  # (P,bs,KVH,...)
-    src = src.movedim(2, 1).to(page.dtype)                 # (P,KVH,bs,...)
+    raw = _raw(pages)
+    page = raw[blk]                             # (P, KVH, bs, *suffix)
+    src = _raw(vals[0].to(pages.dtype)).movedim(1, 0)[
+        (last // 2).clamp(min=0)]                          # (P,bs,KVH,...)
+    src = src.movedim(2, 1)                                # (P,KVH,bs,...)
     shape = (*last.shape[:1], 1, block_size, *([1] * (page.ndim - 3)))
     wrote = (last >= 0) & (last % 2 == 1)
     scrubbed = (last >= 0) & (last % 2 == 0)
     page = torch.where(wrote.reshape(shape), src, page)
     page.masked_fill_(scrubbed.reshape(shape), 0)
-    pages[blk] = page
+    raw[blk] = page
     return pages
 
 
@@ -396,7 +450,7 @@ class RingView(PagedView):
         hidx = torch.arange(kvh, device=bt.device).reshape(
             1, kvh, *([1] * (idx.ndim - 2)))
         blk = bt[bidx, (idx // self.block_size) % self.ring_blocks]
-        return pages[blk, hidx, idx % self.block_size]
+        return _take(pages, (blk, hidx, idx % self.block_size))
 
     def write_token(self, name: str, pos: Pos, value: torch.Tensor) -> None:
         """Write token ``pos``'s row with the page-opening scrub (see
@@ -409,44 +463,70 @@ class RingView(PagedView):
 
 # ------------------------------------------------------------------ helpers
 
+def quantize_kv(cfg, kc: torch.Tensor, vc: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """The K/V rows ``(..., hd)`` as the cache stores them: ``{"k", "v"}``
+    at the storage dtype, plus ``k_scale``/``v_scale`` under int8/fp8."""
+    kvd = kv_quant_mode(cfg)
+    if kvquant.is_quantized(kvd):
+        kq, ks = kvquant.quantize(kc, kvd)
+        vq, vs = kvquant.quantize(vc, kvd)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    if kvd == "bf16":
+        return {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16)}
+    return {"k": kc, "v": vc}
+
+
 def write_prefill_kv(cfg, cache: Dict[str, torch.Tensor], kc: torch.Tensor,
                      vc: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Write the prompt K/V ``(B, KVH, T, hd)`` into rows [0, T), in
-    place."""
-    del cfg
+    place, quantizing on write when the cache carries scale leaves."""
     t = kc.shape[2]
-    cache["k"][:, :, :t] = kc.to(cache["k"].dtype)
-    cache["v"][:, :, :t] = vc.to(cache["v"].dtype)
+    for name, val in quantize_kv(cfg, kc, vc).items():
+        _put(cache[name], (slice(None), slice(None), slice(0, t)), val)
     return cache
 
 
 def effective_keys(cfg, kc: torch.Tensor) -> torch.Tensor:
-    """The key values the attend phase will read back: ``kc`` itself
-    under unquantized pages (the only kind the port stores yet).  Quest's
-    kmin/kmax page stats are computed from this, so under quantized
-    pages they would bound the dequantized keys
-    (``quest.stats_from_quantized``); that round trip comes with the
-    quantized-pages slice and raises here until then."""
-    if cfg.serving.kv_dtype != "auto" and cfg.quest.stats_from_quantized:
-        raise NotImplementedError(
-            f"kv_dtype={cfg.serving.kv_dtype!r}: the quantization round "
-            "trip of the page stats comes with the quantized-pages slice "
-            "(ROADMAP.md queue 1 item 5)")
+    """The key values the attend phase will read back: the quantization
+    round trip of ``kc`` under int8/fp8 storage, ``kc`` itself otherwise.
+    Quest's kmin/kmax page stats are computed from this
+    (``quest.stats_from_quantized``), so the per-page bounds cover the
+    dequantized keys and the upper-bound score stays sound."""
+    kvd = kv_quant_mode(cfg)
+    if kvquant.is_quantized(kvd) and cfg.quest.stats_from_quantized:
+        return kvquant.dequantize(*kvquant.quantize(kc, kvd))
     return kc
 
 
 def write_token_kv(cfg, view: KVView, pos: Pos, kc: torch.Tensor,
                    vc: torch.Tensor) -> None:
-    """Append-side K/V write of one token ``(B, KVH, hd)`` through a view."""
-    del cfg
-    view.write_token("k", pos, kc)
-    view.write_token("v", pos, vc)
+    """Append-side K/V write of one token ``(B, KVH, hd)`` through a view,
+    quantizing on write when the cache carries scale leaves."""
+    for name, val in quantize_kv(cfg, kc, vc).items():
+        view.write_token(name, pos, val)
 
 
 def gather_kv_rows(cfg, view: KVView, idx: torch.Tensor):
-    """Gather the selected K/V rows: ``(k_sel, v_sel)``."""
-    del cfg
-    return view.gather_rows("k", idx), view.gather_rows("v", idx)
+    """The unfused paths' K/V read: gather the selected rows and
+    dequantize only those.  Returns ``(k_sel, v_sel)``: float32 under
+    int8/fp8, the storage dtype otherwise."""
+    k_sel = view.gather_rows("k", idx)
+    v_sel = view.gather_rows("v", idx)
+    if kvquant.is_quantized(kv_quant_mode(cfg)):
+        k_sel = kvquant.dequantize(k_sel, view.gather_rows("k_scale", idx))
+        v_sel = kvquant.dequantize(v_sel, view.gather_rows("v_scale", idx))
+    return k_sel, v_sel
+
+
+def dequant_leaf(cfg, view: KVView, name: str) -> torch.Tensor:
+    """Full logical K/V leaf ``name``, dequantized when the cache carries
+    scale leaves (the dense backend and the plain ring route; the fused
+    kernels never take it)."""
+    a = view.leaf(name)
+    if name in ("k", "v") and kvquant.is_quantized(kv_quant_mode(cfg)):
+        return kvquant.dequantize(a, view.leaf(name + "_scale"))
+    return a
 
 
 def subset_attention(cfg, q: torch.Tensor, k_sel: torch.Tensor,
@@ -514,7 +594,7 @@ def write_chunk_blocks(pages: torch.Tensor, leaf: torch.Tensor,
     blocks = leaf[0].reshape(kvh, nb, rows_pb, *leaf.shape[3:])
     blocks = blocks.movedim(1, 0)            # (nb, KVH, rows_pb, *rest)
     ids = bt_row[int(block0):int(block0) + nb].long()
-    pages[ids] = blocks.to(pages.dtype)
+    _put(pages, ids, blocks)
 
 
 def write_chunk_rows(pages: torch.Tensor, leaf: torch.Tensor,
@@ -532,7 +612,7 @@ def write_chunk_rows(pages: torch.Tensor, leaf: torch.Tensor,
     blk = torch.where(i <= int(last_index), bt_row.long()[ti // rows_pb],
                       torch.zeros_like(ti))
     vals = leaf[0].movedim(1, 0)             # (rows, KVH, *rest)
-    pages[blk, :, ti % rows_pb] = vals.to(pages.dtype)
+    _put(pages, (blk, slice(None), ti % rows_pb), vals)
 
 
 # --------------------------------------------------------- cache handlers
@@ -602,6 +682,6 @@ class PagedKVCacheHandler(LayerCacheHandler):
         blk = bt[bidx, pos // bs]
         for name, p in pages.items():
             gran = spec[name].granularity
-            row = views[name][bidx, :, pos // gran]      # (B, KVH, *rest)
-            p[blk, :, (pos % bs) // gran] = row.to(p.dtype)
+            row = _take(views[name], (bidx, slice(None), pos // gran))
+            _put(p, (blk, slice(None), (pos % bs) // gran), row)
         return pages

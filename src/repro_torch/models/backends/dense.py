@@ -1,7 +1,9 @@
 """Dense decode backend (full attention; baseline / reference).
 
-Every step reads the whole K/V context.  ``dense_attention`` is the
-port's own copy of ``repro.baselines.oracle.dense_attention``.
+Every step reads the whole K/V context, dequantized under int8 pages
+(``serving.kv_dtype='fp8'`` is refused for dense by the config).
+``dense_attention`` is the port's own copy of
+``repro.baselines.oracle.dense_attention``.
 """
 
 from __future__ import annotations
@@ -46,5 +48,6 @@ class DenseBackend(base.DecodeBackend):
 
     def attend(self, cfg, params, q, view: KVView, *, length, scale):
         del params
-        return dense_attention(q, view.leaf("k"), view.leaf("v"),
+        return dense_attention(q, base.dequant_leaf(cfg, view, "k"),
+                               base.dequant_leaf(cfg, view, "v"),
                                scale=scale, length=length)

@@ -51,7 +51,7 @@ class RingCacheHandler(base.LayerCacheHandler):
         bidx = torch.arange(bt.shape[0], device=bt.device)
         blk = bt[bidx, (pos // bs) % rb]
         for name, p in pages.items():
-            val = views[name][bidx, :, pos % rows]       # (B, KVH, *rest)
+            val = base._take(views[name], (bidx, slice(None), pos % rows))
             base.ring_write_page(p, blk, pos, val, block_size=bs,
                                  ring_blocks=rb, window=cfg.sliding_window)
         return pages

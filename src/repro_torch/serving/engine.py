@@ -28,11 +28,16 @@ and updates the pool in place.  Preemption is recompute-style and
 token-exact: a resumed request re-prefills its prompt and replays its
 recorded tokens through the decode path.
 
+The pool's K/V pages are stored at ``serving.kv_dtype`` (``auto``,
+``bf16``, or int8/fp8 rows with per-row scale leaves; see
+:mod:`repro_torch.models.backends.kvquant`): every write quantizes, every
+read dequantizes, the fused kernels in-register, and a preempted request
+re-quantizes the same prompt rows when it is prefilled again.
+
 Not ported yet, each raising :class:`NotImplementedError` naming its
 ROADMAP.md queue 1 item: legacy whole-prompt bucketed prefill
 (``prefill_chunk == 0``), the prefix cache and sampling (item 8),
-observability (item 9), state (Mamba) and MoE layers (item 7), and
-quantized or bf16 K/V pages (item 5).
+observability (item 9), state (Mamba) and MoE layers (item 7).
 """
 
 from __future__ import annotations
@@ -165,8 +170,6 @@ class ContinuousBatchingEngine:
                 "streams that replay across preemption,", 8)
         if obs is not None:
             raise _not_ported("serving observability (obs)", 9)
-        if sv.kv_dtype != "auto":
-            raise _not_ported(f"kv_dtype={sv.kv_dtype!r} pool pages", 5)
         if any(s.kind != "attn" or s.mlp not in ("dense", "none")
                for s in cfg.layer_specs):
             raise _not_ported("state (Mamba) and MoE layers", 7)

@@ -8,9 +8,13 @@ mirroring ``cfg.cache_plan()``):
   ``cache_spec`` re-homed with the batch axis replaced by the physical
   block axis and the capacity axis by the block size::
 
-      k / v : (num_blocks, KVH, block_size, hd)
-      bits  : (num_blocks, KVH, block_size, W)   (SOCKET hash bits, int32)
-      vnorm : (num_blocks, KVH, block_size)      (SOCKET value norms, bf16)
+      k / v             : (num_blocks, KVH, block_size, hd)
+      k_scale / v_scale : (num_blocks, KVH, block_size)  (int8/fp8 only)
+      bits              : (num_blocks, KVH, block_size, W)  (int32)
+      vnorm             : (num_blocks, KVH, block_size)     (bf16)
+
+  K/V at ``serving.kv_dtype``'s storage dtype (the compute dtype, bf16,
+  int8 or ``float8_e4m3fn``); the scale leaves are float32.
 
 * **ring** (sliding-window attention) — ``k``/``v`` pages of the same
   geometry, addressed circularly through the first ``ring_blocks``
@@ -50,8 +54,10 @@ def init_paged_caches(cfg: ModelConfig, serving: ServingSettings,
                       device="cpu") -> List[Dict[str, torch.Tensor]]:
     """Pool initialized to each leaf's fill value: one leaf dict per
     layer at batch=num_blocks, capacity=block_size (``pool=serving``
-    layout: ring layers get full block_size-row pages).  Raises for
-    layers the cache plan cannot place (``cfg.cache_plan()``)."""
+    layout: ring layers get full block_size-row pages), each leaf at its
+    storage dtype (zero K/V payloads and zero scale rows, the trash page
+    included).  Raises for layers the cache plan cannot place
+    (``cfg.cache_plan()``)."""
     serving.validate()
     cfg.cache_plan()
     return tfm.init_decode_caches(cfg, serving.num_blocks,

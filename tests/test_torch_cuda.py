@@ -13,7 +13,11 @@ selection equals the plain version's except at rows whose plain
 effective score lies within the score tolerance of the threshold, and
 bit for bit where the scores tie exactly; the hard-LSH and Quest
 kernels' selections equal their plain versions' bit for bit.  The ring
-kernel must skip the NaN rows its cases put in dead slots.
+kernel must skip the NaN rows its cases put in dead slots.  On pools
+stored as bf16, int8 or fp8 (``serving.kv_dtype``) each kernel is held
+to its plain version on the same stored pages, SOCKET's and hard LSH's
+selections to the kernel's own on the f32 pages, and the engine on
+quantized pages to its CPU run.
 """
 
 import math
@@ -232,12 +236,61 @@ def test_paged_ring_check_catches_wrong_position_or_window(dev):
             cases.check_ring(bad, case, akw, attn_tol=ATTN_TOL)
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("kind", ["socket", "hard_lsh", "quest", "ring"])
+def test_paged_kernels_on_stored_pools_match_plain(dev, kind, kv_dtype):
+    from repro_torch.kernels.paged_attention import cases, ops
+    gen = torch.Generator(device=dev).manual_seed(len(kind + kv_dtype))
+    common = dict(kvh=2, hd=64, sink=16, window=16)
+    if kind == "ring":
+        sets, akw = cases.ring_case(gen, [40, 700, 2000, 3001], window=1000)
+        (case,), scales = cases.store_kv(sets, kv_dtype)
+        before = ops.RING_LAUNCHES
+        out = ops.paged_ring_attend(*case[:4], pos=case[4], **akw, **scales)
+        assert ops.RING_LAUNCHES == before + 1
+        torch.cuda.synchronize()
+        cases.check_ring(out, case, akw, attn_tol=ATTN_TOL, scales=scales)
+        return
+    if kind == "quest":
+        sets, akw = cases.quest_case(gen, [1024, 3000, 2048, 5], nb=264,
+                                     **common)
+        (case,), scales = cases.store_kv(sets, kv_dtype, quest=True)
+        before = ops.QUEST_LAUNCHES
+        out, sel = ops.paged_quest_attend(*case[:6], length=case[6],
+                                          page_budget=case[7],
+                                          with_selection=True, **akw,
+                                          **scales)
+        assert ops.QUEST_LAUNCHES == before + 1
+        torch.cuda.synchronize()
+        cases.check_quest(out, sel, case, akw, attn_tol=ATTN_TOL,
+                          scales=scales)
+        return
+    build = cases.paged_case if kind == "socket" else cases.hard_lsh_case
+    fn = (ops.paged_socket_attend if kind == "socket"
+          else ops.paged_hard_lsh_attend)
+    sets, akw = build(gen, [1024, 3000, 2048, 5], nb=264, **common)
+    _, sel32 = fn(*sets[0][:7], length=sets[0][7], budget=sets[0][8],
+                  with_selection=True, **akw)
+    (case,), scales = cases.store_kv(sets, kv_dtype)
+    out, sel = fn(*case[:7], length=case[7], budget=case[8],
+                  with_selection=True, **akw, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(sel, sel32)
+    if kind == "socket":
+        cases.check_paged(out, sel, case, akw, ties=False, attn_tol=ATTN_TOL,
+                          score_tol=SCORE_TOL, scales=scales)
+    else:
+        cases.check_hard_lsh(out, sel, case, akw, attn_tol=ATTN_TOL,
+                             scales=scales)
+
+
 def _engine_on_card_matches_cpu(dev, backend, arch="llama31-8b",
-                                ring_kernel=False):
+                                ring_kernel=False, kv_dtype="auto"):
     """Greedy tokens of the continuous engine at smoke size with
-    ``backend``: on the card (through its fused kernels) equal to the CPU
-    run (through the kernels' plain versions).  Returns the launches of
-    the SOCKET, hard-LSH, Quest and ring kernels."""
+    ``backend`` on K/V pages stored as ``kv_dtype``: on the card (through
+    its fused kernels) equal to the CPU run (through the kernels' plain
+    versions).  Returns the launches of the SOCKET, hard-LSH, Quest and
+    ring kernels."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.launch.serve import apply_backend_arg
@@ -246,6 +299,7 @@ def _engine_on_card_matches_cpu(dev, backend, arch="llama31-8b",
     from repro_torch.serving.engine import ContinuousBatchingEngine
     cfg = apply_backend_arg(get_config(arch).smoke(), backend).replace(
         use_ring_kernel=ring_kernel)
+    cfg = cfg.replace(serving=cfg.serving.replace(kv_dtype=kv_dtype))
     params = tfm.init_model(cfg, seed=0)
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
@@ -285,4 +339,25 @@ def test_continuous_engine_ring_kernel_matches_cpu(dev):
     local layer, the paged SOCKET kernel on the global ones."""
     socket, hard, quest, ring = _engine_on_card_matches_cpu(
         dev, "socket_fused", arch="gemma3-27b", ring_kernel=True)
+    assert 2 * ring == 11 * socket > 0 and hard == quest == 0
+
+
+@pytest.mark.parametrize("backend,kv_dtype", [
+    ("socket_fused", "int8"), ("socket_fused", "fp8"),
+    ("hard_lsh_fused", "fp8"), ("quest_fused", "int8")])
+def test_continuous_engine_quantized_kernels_match_cpu(dev, backend,
+                                                       kv_dtype):
+    counts = dict(zip(("socket_fused", "hard_lsh_fused", "quest_fused",
+                       "ring"),
+                      _engine_on_card_matches_cpu(dev, backend,
+                                                  kv_dtype=kv_dtype)))
+    assert counts.pop(backend) > 0 and not any(counts.values())
+
+
+def test_continuous_engine_ring_kernel_fp8_matches_cpu(dev):
+    """gemma3 smoke on fp8 pages: the ring kernel and the paged SOCKET
+    kernel, both in their fp8 mode."""
+    socket, hard, quest, ring = _engine_on_card_matches_cpu(
+        dev, "socket_fused", arch="gemma3-27b", ring_kernel=True,
+        kv_dtype="fp8")
     assert 2 * ring == 11 * socket > 0 and hard == quest == 0

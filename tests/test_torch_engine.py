@@ -133,8 +133,6 @@ def test_engine_raises_for_unported_parts():
          "item 8"),
         (tc, dict(temperature=0.7), "item 8"),
         (tc, dict(obs=object()), "item 9"),
-        (tc.replace(serving=tc.serving.replace(kv_dtype="int8")), {},
-         "item 5"),
         (tc.replace(pattern=(LayerSpec(kind="mamba", mlp="none"),)), {},
          "item 7"),
         (tc.replace(pattern=(LayerSpec(attn_type="local", mlp="moe"),)), {},
@@ -146,6 +144,15 @@ def test_engine_raises_for_unported_parts():
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(tc.replace(attention_backend="flashinfer"),
                                  device="cpu")
+    # quantized pages are ported; what the dtype matrix refuses raises
+    # ValueError at construction, as in the JAX package
+    with pytest.raises(ValueError, match="kv_dtype"):
+        ContinuousBatchingEngine(tc.replace(
+            serving=tc.serving.replace(kv_dtype="int4")), device="cpu")
+    with pytest.raises(ValueError, match="dense"):
+        ContinuousBatchingEngine(tc.replace(
+            attention_backend="dense",
+            serving=tc.serving.replace(kv_dtype="fp8")), device="cpu")
     with pytest.raises(ValueError, match="not in"):
         apply_backend_arg(tc, "flashinfer_fused")
 

@@ -136,8 +136,8 @@ def test_plain_matches_pallas_and_oracle(case):
 
 def test_wrapper_layouts_and_cpu_route():
     """5-D queries keep their layout, the wrapper on CPU tensors is the
-    plain version exactly and launches nothing, and quantized scales
-    raise (the quantized-pages slice)."""
+    plain version exactly and launches nothing, and a lone scale pool
+    raises the JAX wrapper's ValueError (scales come in pairs)."""
     arrays, length, budget, kw = _case(3, [30, 12], nb=5)
     q, kp, vp, bits, vnorm, u, bt = arrays
     t = [_t(q), _t(kp), _t(vp), _t(bits.view(np.int32)),
@@ -152,10 +152,9 @@ def test_wrapper_layouts_and_cpu_route():
                                      top_k=int(budget.max()), **kw)
     torch.testing.assert_close(out5[:, :, :, 0], ref, rtol=0, atol=0)
     assert tpa.LAUNCHES == before
-    with pytest.raises(NotImplementedError, match="quantized-pages"):
+    with pytest.raises(ValueError, match="given together"):
         tpa.paged_socket_attend(*t, length=_t(length), budget=_t(budget),
-                                k_scale=torch.ones(1), v_scale=torch.ones(1),
-                                **kw)
+                                k_scale=torch.ones(1), **kw)
 
 
 def test_fused_gates_fail_fast():

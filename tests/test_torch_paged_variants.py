@@ -243,11 +243,11 @@ def test_quest_gates_and_smoke_geometry():
             quest=dataclasses.replace(cfg.quest, page_size=3)))
     for name in ("hard_lsh", "quest"):
         assert get_backend(name).supports_paged
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="given together"):
         tpa.paged_quest_attend(*[torch.zeros(1)] * 6, length=1,
                                page_budget=1, page_size=8, scale=1.0,
                                sink_tokens=0, window_tokens=0,
-                               k_scale=torch.ones(1), v_scale=torch.ones(1))
+                               v_scale=torch.ones(1))
 
 
 @pytest.mark.parametrize("kind", ["hard_lsh", "quest"])

@@ -121,11 +121,12 @@ def test_ring_card_check_holds_plain_and_rejects_faults(positions, window):
 
 
 def test_ring_wrapper_rejects_scales():
+    """A lone scale pool raises the JAX wrapper's ValueError."""
     args, kw = jk._ring_fixture(**_ring_case("wrap-mix"))
     targs = [_t(a) for a in args]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="given together"):
         tpa.paged_ring_attend(*targs, **dict(kw, pos=_t(kw["pos"])),
-                              k_scale=torch.ones(1), v_scale=torch.ones(1))
+                              k_scale=torch.ones(1))
 
 
 # ------------------------------------------------------------ page writes

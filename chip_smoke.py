@@ -9,8 +9,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               limit as nvidia-smi reports them.
 2. build    — builds the CUDA kernels (nvcc, sm_90a, one process per source,
               all started together: socket_score.cu, paged_attention.cu,
-              paged_quest.cu, paged_ring.cu) and compiles the Triton kernel
-              from the sources in this checkout.
+              paged_quest.cu, paged_ring.cu, flash_prefill.cu) and compiles
+              the Triton kernel from the sources in this checkout.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge shapes, with the tolerance
               stated; times kernel, plain version and (where one exists) the
@@ -22,12 +22,30 @@ Phases, in order; the first failure raises and the script exits non-zero:
               case and an edge: ties, or a ring whose dead rows hold NaN in
               scales and fp8 payloads), SOCKET's and hard LSH's selections
               also equal to their own on the f32 pages; int8 and fp8 are
-              timed as entries ``name[int8]``, ``name[fp8]``.
+              timed as entries ``name[int8]``, ``name[fp8]``.  The prefill
+              kernel ``flash_prefill`` at llama31-8b's prefill (BH 64, BKV
+              16, S 8192, hd 128; timed with its plain version and
+              ``scaled_dot_product_attention``), gemma3's local layers
+              (window 1024, S 4096; timed), hd 160 (G 4), hd 256 (G 1), bf16
+              inputs, a ragged S of 4100 and a score cap (softcap 2,
+              window 512).
 4. main     — llama31-8b at full width and depth through
               ``repro_torch.launch.serve.run_serve``: batch 2, an 8192-token
               prompt drawn from --seed, 32 greedy decode steps, SOCKET with
-              both contiguous-path kernels on.  Each kernel's launch count
-              must equal layers x decode calls.  Decode step 0 is run again
+              both contiguous-path kernels on.  The decode kernels' launch
+              counts must equal layers x decode calls, ``flash_prefill``'s
+              layers x 1 (the one whole-prompt prefill).  The prefill runs
+              again through the kernel and once through its plain version
+              (the same layout code, the op swapped for its plain version):
+              last-token logits within LOGITS_ATOL, layer 0's K/V bit for
+              bit, SOCKET bits equal outside |proj| ~ 0; the times and
+              peak memory of both are logged.  Then layer by layer, each
+              layer's kernel and plain op fed the kernel route's q/k/v:
+              every layer's K/V within PREFILL_TOL (atol 1e-5) and
+              attention output within ATTN_TOL and, measured from a
+              float64 version, within F64_RATIO of the plain op's
+              distance; a wrong head order and a mask one key too wide
+              must fail ATTN_TOL on every layer.  Decode step 0 is run again
               on a clone of the prefilled cache through the plain versions;
               its logits must agree with the kernel path's, and the greedy
               tokens of the two paths are compared.
@@ -40,7 +58,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               a pool that never preempts.  Every request must finish with
               32 tokens; the backend's paged kernel must launch exactly
               layers x (engine iterations + the 2 warm-up steps) times,
-              and no other kernel at all.  One decode iteration of the
+              and no other kernel at all (``flash_prefill`` 0 times: chunks
+              attend over the pool).  One decode iteration of the
               engine's state (the widest batch the run held, on a clone of
               the pool) is run again through the kernel and through the
               plain paged path; their logits must agree.  Each run's pool
@@ -62,6 +81,21 @@ Phases, in order; the first failure raises and the script exits non-zero:
               one decode iteration runs again through the plain routes
               (ring and global), and the logits must agree.  Then again on
               int8 and on fp8 pages, both kernels in that mode.
+7. legacy   — the continuous engine's legacy whole-prompt bucketed prefill
+              (``prefill_chunk`` 0), f32 pages, ``socket_fused``: llama31-8b
+              (after phase 5, the same weights and the 8 requests of its
+              case) and gemma3-27b (after phase 6, 14 layers, the ring
+              kernel), both in buckets of 2048, 4096 and max_context (4224,
+              6272), so half the prompts run padded (llama31-8b's 1024 and
+              3072, gemma3's 3072 and 6144) and are read at their last real
+              token; each prefill's padded share is logged.
+              ``engine.warmup(requests)`` prefills each bucket the prompts
+              hit once.  ``flash_prefill``
+              must launch layers x (prefills + warm-up buckets) times, the
+              paged kernels layers x (engine iterations + the 1 warm-up
+              decode step); the decode-iteration logits check of phase 5;
+              wall, TTFT, tokens/s and the greedy tokens' agreement with the
+              chunked run of the same case (a number, not a gate) logged.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -78,6 +112,7 @@ import json
 import math
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -94,6 +129,24 @@ ATTN_TOL = dict(rtol=1e-4, atol=1e-5)     # fp32 online vs two-pass softmax
 # on an H100 (|logits| <= 9.3, seed 0); the limit leaves 20x headroom, well
 # below the ~1e-2 that one dropped or swapped top-k row moves them.
 LOGITS_ATOL = 1e-4
+# The prefill kernel against its plain version on N(0, 1) cases: the
+# harness's f32 tolerance, for bf16 inputs too (both sides read the same
+# bf16 values and compute in f32).  The main phase holds every layer's
+# K/V to it layer by layer, both routes fed the kernel route's input to
+# the layer (free-running, the routes' float32 differences compound with
+# depth: K/V up to 1.8e-5 apart in deep layers, logged, not gated), and
+# the layer's attention output to ATTN_TOL: the model's scores are far
+# larger than N(0, 1) ones, and the two float32 routes differ by up to
+# 4.6e-5 there (0.90 of ATTN_TOL on an H100), each as far from a float64
+# version as the other (3.0e-5 to 4.1e-5).  So the kernel's distance from
+# the float64 version must also stay within F64_RATIO of the plain
+# version's (measured 0.82 to 1.36; a wrong head order or mask reads
+# above 1e5 x ATTN_TOL).
+PREFILL_TOL = dict(rtol=0.0, atol=1e-5)
+F64_RATIO = 2.0
+# H100 SXM data sheet, dense tensor-core rates: the later redesign's target
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 # the stored K/V page modes the paged kernels are checked in besides f32
 # (serving.kv_dtype); int8 and fp8 also get timed entries and main-path
 # runs
@@ -107,12 +160,13 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def device_time_ms(fn, input_sets) -> float:
-    """Device milliseconds of one ``fn(*inputs)``.  TIMED_ITERS calls,
+def device_time_ms(fn, input_sets, iters=TIMED_ITERS,
+                   replays=GRAPH_REPLAYS) -> float:
+    """Device milliseconds of one ``fn(*inputs)``.  ``iters`` calls,
     cycling through ``input_sets`` (sized together past the L2 cache, so
     every call reads its inputs from device memory), are captured in one
-    CUDA graph; its replays are timed with CUDA events, which leaves the
-    host's launch cost out."""
+    CUDA graph; its ``replays`` are timed with CUDA events, which leaves
+    the host's launch cost out."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):                # warm-up before capture
@@ -121,24 +175,24 @@ def device_time_ms(fn, input_sets) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for i in range(TIMED_ITERS):
+        for i in range(iters):
             fn(*input_sets[i % len(input_sets)])
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(GRAPH_REPLAYS):
+    for _ in range(replays):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (GRAPH_REPLAYS * TIMED_ITERS)
+    ms = start.elapsed_time(end) / (replays * iters)
     del graph
     return ms
 
 
-def back_to_back_ms(fn, input_sets) -> float:
-    """Milliseconds per call of TIMED_ITERS calls launched one after the
+def back_to_back_ms(fn, input_sets, iters=TIMED_ITERS) -> float:
+    """Milliseconds per call of ``iters`` calls launched one after the
     other from Python (CUDA events): the host's launch rate wherever it
     exceeds the device time."""
     for inputs in input_sets[:3]:
@@ -147,11 +201,11 @@ def back_to_back_ms(fn, input_sets) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(TIMED_ITERS):
+    for i in range(iters):
         fn(*input_sets[i % len(input_sets)])
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMED_ITERS
+    return start.elapsed_time(end) / iters
 
 
 def rotations(bytes_per_set: int) -> int:
@@ -210,6 +264,7 @@ def phase_kernels(dev, seed):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.kernels.socket_score.ref import socket_score_ref
@@ -219,9 +274,10 @@ def phase_kernels(dev, seed):
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as ex:
         list(ex.map(build.load_library,
-                    (ss.SOURCE, pa.SOURCE, pa.QUEST_SOURCE, pa.RING_SOURCE)))
+                    (ss.SOURCE, pa.SOURCE, pa.QUEST_SOURCE, pa.RING_SOURCE,
+                     fp.SOURCE)))
     log(f"build socket_score.cu + paged_attention.cu + paged_quest.cu + "
-        f"paged_ring.cu: {time.perf_counter() - t0:.2f} s")
+        f"paged_ring.cu + flash_prefill.cu: {time.perf_counter() - t0:.2f} s")
     for stem, (secs, report) in build.BUILD_LOGS.items():
         log(f"  nvcc {stem}: {secs:.2f} s\n  " +
             report.replace("\n", "\n  "))
@@ -332,9 +388,139 @@ def phase_kernels(dev, seed):
                 bound_by=by, library_ms=lib_ms,
                 back_to_back_ms=back_to_back_ms(kernel, sets))
 
+    rows.update(flash_prefill_rows(dev, seed))
     for kv_dtype in ("auto",) + QUANT_KV_DTYPES:
         rows.update(paged_rows(dev, seed, kv_dtype))
         rows.update(ring_rows(dev, seed, kv_dtype))
+    return rows
+
+
+# The prefill kernel's cases, (label, BH, BKV, S, hd, window, softcap,
+# dtype): the main paths' shapes first (llama31-8b's static prefill of
+# batch 2; one gemma3 local layer's prompt of 4096), then the edges.
+PREFILL_CASES = [
+    ("main path: llama31-8b prefill", 64, 16, 8192, 128, 0, 0.0,
+     torch.float32),
+    ("gemma3 local, window 1024", 32, 16, 4096, 128, 1024, 0.0,
+     torch.float32),
+    ("stablelm hd 160, G 4", 32, 8, 2048, 160, 0, 0.0, torch.float32),
+    ("gemma-7b hd 256, G 1", 16, 16, 2048, 256, 0, 0.0, torch.float32),
+    ("bf16 inputs", 64, 16, 2048, 128, 0, 0.0, torch.bfloat16),
+    ("ragged S 4100", 32, 8, 4100, 128, 0, 0.0, torch.float32),
+    ("softcap 2, window 512", 32, 16, 2048, 128, 512, 2.0, torch.float32),
+]
+PREFILL_PLAIN_CHUNK = 512        # the plain version's query chunk
+
+
+def prefill_cost(bh, bkv, s, hd, window, dtype):
+    """Bytes (q and out at BH, k and v at BKV, each once) and operations
+    (4 * hd a kept (query, key) pair: q.k and p.v) of the causal
+    function."""
+    keys = s * (s + 1) // 2 if not window else sum(
+        min(i + 1, window) for i in range(s))
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = bh * s * hd * (esize + 4) + 2 * bkv * s * hd * esize
+    return float(nbytes), float(4 * hd * bh * keys)
+
+
+def flash_prefill_rows(dev, seed):
+    """The prefill kernel against its plain version on ``PREFILL_CASES``;
+    the main case (and gemma3's local one, logged) timed beside its
+    bound, the plain version and ``scaled_dot_product_attention`` (causal,
+    or a bool window mask; GQA by ``enable_gqa``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    log(f"  flash_prefill ptxas: {build.BUILD_LOGS.get('flash_prefill')}")
+
+    def inputs(bh, bkv, s, hd, dtype):
+        return tuple(torch.randn((n, s, hd), generator=gen, device=dev)
+                     .to(dtype) for n in (bh, bkv, bkv))
+
+    rows = {}
+    for label, bh, bkv, s, hd, window, cap, dtype in PREFILL_CASES:
+        scale = 1.0 / math.sqrt(hd)
+        kw = dict(scale=scale, window=window, softcap=cap)
+        plain = functools.partial(flash_prefill_ref, q_chunk=PREFILL_PLAIN_CHUNK,
+                                  **kw)
+        case = inputs(bh, bkv, s, hd, dtype)
+        out = fp.launch_flash_prefill(*case, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_prefill[{label}]", out, plain(*case),
+                          PREFILL_TOL)
+        nbytes, flops = prefill_cost(bh, bkv, s, hd, window, dtype)
+        bms, by = bound(nbytes, flops)
+        log(f"flash_prefill [{label}] BH {bh} BKV {bkv} S {s} hd {hd} window "
+            f"{window} softcap {cap} {str(dtype)[6:]}: max|err| {err:.3e} "
+            f"(atol {PREFILL_TOL['atol']}); bound {bms:.3f} ms ({by})")
+        del out
+        if not label.startswith(("main path", "gemma3 local")):
+            continue
+        sets = [case] + [inputs(bh, bkv, s, hd, dtype)
+                         for _ in range(rotations(nbytes) - 1)]
+        kernel = functools.partial(fp.launch_flash_prefill, **kw)
+        ms = device_time_ms(kernel, sets, iters=4, replays=2)
+        plain_ms = device_time_ms(plain, sets, iters=2, replays=1)
+        # the library call: SDPA in fp32 through the memory-efficient
+        # backend (fp32 rules out flash; the math backend would build the
+        # (BH, S, S) logits), GQA by enable_gqa, the window as a bool mask
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        mask = None
+        if window:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & \
+                (i[:, None] - i[None, :] < window)
+
+        def lib(q, k, v, gqa=True):
+            return sdpa(q[None], k[None], v[None], attn_mask=mask,
+                        is_causal=mask is None, scale=scale,
+                        enable_gqa=gqa)[0]
+
+        lib_sets, call = sets, "enable_gqa"
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")   # why each backend
+                    want = lib(*case)                 # declined
+            except RuntimeError as e:
+                # this backend takes no GQA: K/V repeated to the query
+                # heads beforehand (not timed)
+                log(f"  SDPA with enable_gqa: {e}".splitlines()[0])
+                g = bh // bkv
+                lib_sets = [(q, k.repeat_interleave(g, 0),
+                             v.repeat_interleave(g, 0)) for q, k, v in sets]
+                lib = functools.partial(lib, gqa=False)
+                call = "K/V repeated to the query heads beforehand"
+                want = lib(*lib_sets[0])
+            check_close(f"flash_prefill[{label}, SDPA yardstick]", want,
+                        plain(*case), ATTN_TOL)
+            del want
+            lib_ms = device_time_ms(lib, lib_sets, iters=4, replays=2)
+        del lib_sets
+        b2b = back_to_back_ms(kernel, sets, iters=4)
+        log(f"flash_prefill [{label}] kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+            f" ms, SDPA {lib_ms:.3f} ms, back to back {b2b:.3f} ms; bound "
+            f"{bms:.3f} ms by {by} (f32 {flops / FP32_FLOP_PER_S * 1e3:.3f}, "
+            f"TF32 {flops / TF32_FLOP_PER_S * 1e3:.3f}, bf16 "
+            f"{flops / BF16_FLOP_PER_S * 1e3:.3f} ms on the tensor cores)")
+        if label.startswith("main path"):
+            rows["flash_prefill"] = dict(
+                name="flash_prefill", route="cuda",
+                source="src/repro_torch/kernels/flash_prefill/"
+                       "flash_prefill.cu",
+                replaces="src/repro/kernels/flash_prefill/"
+                         "flash_prefill.py:32",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms,
+                library_call="scaled_dot_product_attention, fp32, "
+                             f"is_causal, {call} (memory-efficient "
+                             "backend)",
+                bound_tf32_ms=flops / TF32_FLOP_PER_S * 1e3,
+                bound_bf16_ms=flops / BF16_FLOP_PER_S * 1e3,
+                back_to_back_ms=b2b)
+        del sets, case
     return rows
 
 
@@ -666,16 +852,176 @@ def ring_rows(dev, seed, kv_dtype="auto"):
     return rows
 
 
-
 # --------------------------------------------------------------- phase 4
+
+@torch.no_grad()
+def prefill_routes(cfg, params, prompt, capacity, dev):
+    """The static prefill three more times, the plain op swapped in for
+    ``attention``'s reference to ``flash_prefill`` (the same head layout,
+    flattening and merge):
+
+    * through the kernel and through the plain op, each route's layers fed
+      by its own earlier layers: the last-token logits within
+      LOGITS_ATOL, layer 0's K/V bit for bit, SOCKET bits bitwise outside
+      |proj| ~ 0; the deeper layers' K/V drift logged;
+    * layer by layer: every layer's call runs the kernel and the plain op
+      on the same q/k/v, the kernel route's, and goes on with the
+      kernel's output.  Both routes' K/V of a layer are then projected
+      from the same input before any attention (equal to the kernel
+      route's bit for bit, gated at PREFILL_TOL), and the attention
+      outputs must agree within ATTN_TOL, the kernel's distance from the
+      plain version in float64 within F64_RATIO of the plain op's.  The same inputs through two
+      deliberately wrong ops (K/V row ``bh % BKV`` for ``bh // G``, a
+      head order G = 1 cannot tell apart; each query seeing one key too
+      many) give the readings a fault would, which must fail ATTN_TOL.
+
+    Returns the kernel route's (logits, caches) and the stats (times and
+    peak memory of the first two)."""
+    from unittest import mock
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    from repro_torch.models import attention
+    from repro_torch.runtime.steps import make_prefill_step
+
+    def plain_op(q, k, v, *, scale, window=0, softcap=0.0, q_chunk=0):
+        return flash_prefill_ref(q, k, v, scale=scale, window=window,
+                                 softcap=softcap,
+                                 q_chunk=q_chunk or PREFILL_PLAIN_CHUNK)
+
+    layers = []
+
+    def both_ops(q, k, v, *, scale, window=0, softcap=0.0, q_chunk=0):
+        kw = dict(scale=scale, window=window, softcap=softcap)
+        out = fp.launch_flash_prefill(q, k, v, **kw)
+        plain = plain_op(q, k, v, **kw)
+        exact = plain_op(q.double(), k.double(), v.double(), **kw)
+        row = dict(err=(out - plain).abs().max().item(),
+                   ratio=tol_ratio(out, plain),
+                   max_abs=plain.abs().max().item(),
+                   kernel_vs_f64=(out - exact).abs().max().item(),
+                   plain_vs_f64=(plain - exact).abs().max().item())
+        del plain, exact
+        # two faults a kernel could have: K/V row bh % BKV for bh // G (a
+        # head order G = 1 cannot tell apart), and one key too many (each
+        # query also sees the next: the mask shifted by one)
+        g = q.shape[0] // k.shape[0]
+        wrong = plain_op(q, k.repeat(g, 1, 1), v.repeat(g, 1, 1), **kw)
+        row["head_order_ratio"] = tol_ratio(out, wrong)
+        ahead = torch.cat([q[:, :1], q[:, :-1]], dim=1)
+        wrong = plain_op(ahead, k, v, **kw)[:, 1:]
+        row["next_key_ratio"] = tol_ratio(out[:, :-1], wrong)
+        layers.append(row)
+        return out
+
+    def prefill(op):
+        with mock.patch.object(attention.fp_ops, "flash_prefill", op):
+            return make_prefill_step(cfg, capacity)(params,
+                                                    {"tokens": prompt})
+
+    stats, routes = {}, {}
+    for route, op in (("kernel", fp.flash_prefill), ("plain", plain_op)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        routes[route] = prefill(op)
+        torch.cuda.synchronize()
+        stats[f"prefill_s_{route}"] = time.perf_counter() - t0
+        stats[f"prefill_peak_bytes_above_weights_{route}"] = \
+            torch.cuda.max_memory_allocated(dev) - base
+    (lk, ck), (lp, cp) = routes.pop("kernel"), routes.pop("plain")
+    err = (lk - lp).abs().max().item()
+    drift = [max((a[n] - b[n]).abs().max().item() for n in "kv")
+             for a, b in zip(ck, cp)]
+    stats.update(prefill_socket_checks(cfg, params, prompt, ck, cp))
+    del lp, cp                  # before the layer-by-layer caches
+    _, cf = prefill(both_ops)
+    kv_err = [max((a[n] - b[n]).abs().max().item() for n in "kv")
+              for a, b in zip(ck, cf)]
+    del cf
+    worst = max(range(len(layers)), key=lambda i: layers[i]["ratio"])
+    f64 = max(r["kernel_vs_f64"] / r["plain_vs_f64"] for r in layers)
+    stats.update(prefill_logits_err=err, prefill_kv_drift_by_layer=drift,
+                 prefill_kv_err_by_layer=kv_err,
+                 prefill_attention_by_layer=layers)
+    w = layers[worst]
+    log(f"prefill, kernel vs plain op: max|logits err| {err:.3e} (atol "
+        f"{LOGITS_ATOL}); layer 0 K/V {drift[0]:.1e}; free-running K/V "
+        f"drift {max(drift):.3e} (not a gate); "
+        f"{stats['prefill_bit_flips']} SOCKET signs flipped, all among the "
+        f"{stats['prefill_bits_near_zero']} with |proj| ~ 0; kernel "
+        f"{stats['prefill_s_kernel']:.3f} s, plain "
+        f"{stats['prefill_s_plain']:.3f} s")
+    log(f"prefill layer by layer, both ops fed the kernel route's q/k/v: "
+        f"max|K/V err| {max(kv_err):.1e} (atol {PREFILL_TOL['atol']}); "
+        f"attention output max|err| {max(r['err'] for r in layers):.3e}, "
+        f"at most {w['ratio']:.3f} of ATTN_TOL (rtol {ATTN_TOL['rtol']}, "
+        f"atol {ATTN_TOL['atol']}; layer {worst}: max|out| "
+        f"{w['max_abs']:.3f}, kernel vs f64 {w['kernel_vs_f64']:.3e}, "
+        f"plain vs f64 {w['plain_vs_f64']:.3e}; over all layers kernel vs "
+        f"f64 at most {f64:.3f}x plain vs f64, limit {F64_RATIO}); a wrong "
+        f"head order reads "
+        f"{min(r['head_order_ratio'] for r in layers):.3g}x ATTN_TOL or "
+        f"more, one key too many "
+        f"{min(r['next_key_ratio'] for r in layers):.3g}x or more")
+    if err > LOGITS_ATOL or drift[0] != 0.0 or \
+            max(kv_err) > PREFILL_TOL["atol"] or w["ratio"] > 1.0 or \
+            f64 > F64_RATIO:
+        raise AssertionError(f"prefill routes differ: logits {err:.3e}, "
+                             f"layer 0 K/V {drift[0]:.3e}, layer by layer "
+                             f"K/V {max(kv_err):.3e}, attention at "
+                             f"{w['ratio']:.3f} of ATTN_TOL, {f64:.3f}x the "
+                             "plain op's distance from float64")
+    if len(layers) != cfg.num_layers or min(
+            min(r["head_order_ratio"], r["next_key_ratio"])
+            for r in layers) <= 1.0:
+        raise AssertionError("the layer-by-layer gate cannot see a wrong "
+                             "head order or mask")
+    return lk, ck, stats
+
+
+def tol_ratio(out, ref, tol=ATTN_TOL) -> float:
+    """max |out - ref| / (atol + rtol |ref|): above 1 fails ``tol``."""
+    err = (out.double() - ref.double()).abs()
+    return (err / (tol["atol"] + tol["rtol"] * ref.double().abs())) \
+        .max().item()
+
+
+def prefill_socket_checks(cfg, params, prompt, ck, cp):
+    """SOCKET bits of the kernel route's caches ``ck`` and the plain
+    route's ``cp``: equal wherever a key's projection is clear of
+    rounding (|proj| > 1e-5 x the sum of |terms|)."""
+    from repro_torch.core import hashing
+    s, t = cfg.socket, prompt.shape[1]
+    flips, band = 0, 0
+    for i, (a, b) in enumerate(zip(ck, cp)):
+        sa = hashing.unpack_signs(a["bits"], s.num_tables,
+                                  s.num_planes)[:, :, :t]
+        sb = hashing.unpack_signs(b["bits"], s.num_tables,
+                                  s.num_planes)[:, :, :t]
+        w = params["layers"][i]["attn"]["hash_w"].double()
+        keys = a["k"][:, :, :t].double()
+        proj = torch.einsum("bhnd,lpd->bhnlp", keys, w)
+        mag = torch.einsum("bhnd,lpd->bhnlp", keys.abs(), w.abs())
+        near = proj.abs() <= 1e-5 * mag
+        if bool((sa != sb)[~near].any()):
+            raise AssertionError(f"layer {i}: SOCKET bits of the kernel and "
+                                 "plain prefills differ where |proj| is "
+                                 "clear of rounding")
+        flips += int((sa != sb).sum().item())
+        band += int(near.sum().item())
+        del sa, sb, proj, mag, near
+    return dict(prefill_bit_flips=flips, prefill_bits_near_zero=band)
+
 
 def phase_main(dev, seed, card):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import apply_backend_arg, run_serve
     from repro_torch.models import transformer as tfm
-    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    from repro_torch.runtime.steps import make_serve_step
 
     arch, batch, prompt_len, steps = "llama31-8b", 2, 8192, 32
     cfg = apply_backend_arg(get_config(arch), "socket").replace(
@@ -691,18 +1037,22 @@ def phase_main(dev, seed, card):
         f"prompt {prompt_len}, {steps} decode steps")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    ss.LAUNCHES = 0
-    fd.LAUNCHES = 0
+    ss.LAUNCHES = fd.LAUNCHES = fp.LAUNCHES = 0
     toks, prefill_s, decode_s = run_serve(cfg, batch, prompt_len, steps,
                                           seed=seed, prompt=prompt,
                                           params=params, device=dev)
-    launches = {"socket_score": ss.LAUNCHES, "flash_decode": fd.LAUNCHES}
+    launches = {"socket_score": ss.LAUNCHES, "flash_decode": fd.LAUNCHES,
+                "flash_prefill": fp.LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
-    expected = cfg.num_layers * (steps + 1)          # + the warm-up step
+    # the decode kernels: layers x (steps + the warm-up step); the
+    # prefill kernel: layers x the one whole-prompt prefill
+    expected = {"socket_score": cfg.num_layers * (steps + 1),
+                "flash_decode": cfg.num_layers * (steps + 1),
+                "flash_prefill": cfg.num_layers}
     for name, count in launches.items():
-        if count != expected:
+        if count != expected[name]:
             raise AssertionError(f"{name}: {count} launches on the main "
-                                 f"path, expected {expected}")
+                                 f"path, expected {expected[name]}")
     if tuple(toks.shape) != (batch, steps + 1) or not bool(
             ((toks >= 0) & (toks < cfg.padded_vocab())).all()):
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
@@ -714,13 +1064,15 @@ def phase_main(dev, seed, card):
         "max_memory_allocated_bytes": peak, "launches": launches,
         "expected_launches": expected, "card": card}))
 
+    # the prefill through the kernel and through the plain op
+    capacity = prompt_len + steps
+    logits, caches, stats = prefill_routes(cfg, params, prompt, capacity,
+                                           dev)
+    log(json.dumps({"main_path_prefill": arch, **stats, "card": card}))
     # decode step 0 again on a clone of the prefilled cache, kernel path vs
     # the plain versions (both kernel flags off)
     cfg_plain = cfg.replace(socket=dataclasses.replace(
         cfg.socket, use_score_kernel=False, use_flash_decode=False))
-    capacity = prompt_len + steps
-    logits, caches = make_prefill_step(cfg, capacity)(
-        params, {"tokens": prompt})
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     if not torch.equal(tok[:, 0], toks[:, 0]):
         raise AssertionError("prefill is not deterministic: first token "
@@ -823,16 +1175,18 @@ def kv_block_bytes(pages):
 
 
 def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
-                     kv_dtype="auto", auto_tokens=None):
+                     kv_dtype="auto", ref_tokens=None, legacy=False):
     """One continuous run of ``arch`` with ``backend`` on K/V pages stored
-    as ``kv_dtype`` (see the module docstring, phases 5 and 6), on the
-    card case's weights ``params``.  ``auto_tokens``: the generated
-    tokens of the ``auto`` run of the same case, whose agreement with
-    this run's is logged (a number, not a gate).  Returns (the launches
-    of the kernels the run is read for, the generated tokens)."""
+    as ``kv_dtype`` (see the module docstring, phases 5 to 7), on the
+    card case's weights ``params``; ``legacy``: whole-prompt bucketed
+    prefill.  ``ref_tokens``: (label, the generated tokens of another run
+    of the same case), whose agreement with this run's is logged (a
+    number, not a gate).  Returns (the launches of the kernels the run is
+    read for, the generated tokens)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import card_continuous_case
@@ -843,13 +1197,15 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     name, counter, gate = FUSED[backend]
     full = get_config(arch)
     cfg, reqs = card_continuous_case(full, seed, new_tokens, backend,
-                                     kv_dtype)
+                                     kv_dtype, legacy=legacy)
     sv = cfg.serving
     kinds = [s.attn_type for s in cfg.layer_specs]
     # kernel -> layers it runs on
     layers = {name: kinds.count("global")}
     if cfg.use_ring_kernel:
         layers["paged_ring"] = kinds.count("local")
+    if legacy:
+        layers["flash_prefill"] = cfg.num_layers
     engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
     block_bytes, block_bytes_auto = kv_block_bytes(engine.pages)
     # the widest decode batch of the run, captured with a clone of the
@@ -873,28 +1229,38 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     torch.cuda.reset_peak_memory_stats(dev)
     for c in FUSED.values():
         setattr(pa, c[1], 0)
-    ss.LAUNCHES = fd.LAUNCHES = pa.RING_LAUNCHES = 0
+    ss.LAUNCHES = fd.LAUNCHES = pa.RING_LAUNCHES = fp.LAUNCHES = 0
     t0 = time.perf_counter()
-    engine.warmup()
+    engine.warmup(reqs)
     warm_s = time.perf_counter() - t0
     m = engine.run(reqs, realtime=False)
     torch.cuda.synchronize()
     launches = {c[0]: getattr(pa, c[1]) for c in FUSED.values()}
     launches.update(socket_score=ss.LAUNCHES, flash_decode=fd.LAUNCHES,
-                    paged_ring=pa.RING_LAUNCHES)
+                    paged_ring=pa.RING_LAUNCHES, flash_prefill=fp.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     bad = [r.rid for r in reqs if r.state != "finished"
            or len(r.generated) != new_tokens]
     if bad:
         raise AssertionError(f"{backend}: requests {bad} did not finish "
                              f"with {new_tokens} tokens")
-    calls = m.decode_iters + 2
-    expected = {k: n * calls for k, n in layers.items()}
+    # decode calls: the engine's iterations + the warm-up's decode step
+    # (chunked: + its mixed step); whole-prompt prefills: the run's + one
+    # a warm-up bucket
+    warm_prefills = sum(k.startswith("prefill_") for k in engine.warmup_s)
+    warm_steps = len(engine.warmup_s) - warm_prefills
+    calls = {k: m.decode_iters + warm_steps for k in layers}
+    if legacy:
+        calls["flash_prefill"] = len(engine.prefill_trace) + warm_prefills
+        if len(engine.prefill_trace) != len(reqs):
+            raise AssertionError(f"{len(engine.prefill_trace)} whole-prompt "
+                                 f"prefills for {len(reqs)} requests")
+    expected = {k: n * calls[k] for k, n in layers.items()}
     for k, want in expected.items():
         if launches[k] != want:
             raise AssertionError(
                 f"{k}: {launches[k]} launches, expected {want} ({layers[k]} "
-                "layers x (engine iterations + 2 warm-up steps))")
+                f"layers x {calls[k]} calls)")
     others = {k: v for k, v in launches.items() if k not in layers and v}
     if others:
         raise AssertionError(f"{backend}: other kernels ran on its paged "
@@ -908,14 +1274,28 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     report = dict(m.to_json(), ttft_s_mean=float(first.mean()),
                   ttft_s_p99=float(np.percentile(first, 99)))
     generated = [list(r.generated) for r in reqs]
-    if auto_tokens is not None:
-        same = np.array(generated) == np.array(auto_tokens)
-        report.update(
-            tokens_equal_to_auto=f"{int(same.sum())}/{same.size}",
-            identical_prefix_with_auto=[int(np.cumprod(row).sum())
-                                        for row in same])
+    if ref_tokens is not None:
+        label, tokens = ref_tokens
+        same = np.array(generated) == np.array(tokens)
+        report.update({
+            f"tokens_equal_to_{label}": f"{int(same.sum())}/{same.size}",
+            f"identical_prefix_with_{label}": [int(np.cumprod(row).sum())
+                                               for row in same]})
+    if legacy:
+        per_bucket = {}
+        for _, _, bucket, secs in engine.prefill_trace:
+            per_bucket.setdefault(bucket, []).append(secs)
+        prompt_len = {r.rid: len(r.prompt) for r in reqs}
+        padded = [1 - prompt_len[rid] / bucket
+                  for _, rid, bucket, _ in engine.prefill_trace]
+        report.update(prefill_buckets=list(sv.prefill_buckets),
+                      prefill_s_by_bucket={b: v for b, v in
+                                           sorted(per_bucket.items())},
+                      prefill_padded_share=padded,
+                      warmup_call_s=engine.warmup_s)
     log(json.dumps({
         "continuous_path": arch, "backend": backend, "kv_dtype": kv_dtype,
+        "prefill": "whole-prompt buckets" if legacy else "chunked",
         "kv_bytes_per_block_id": block_bytes,
         "kv_bytes_per_block_id_auto": block_bytes_auto,
         "use_ring_kernel": cfg.use_ring_kernel,
@@ -959,8 +1339,9 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
             raise AssertionError(f"non-finite logits on the {label} path")
     err = (lk - lp).abs().max().item()
     same = (lk[:, -1].argmax(-1) == lp[:, -1].argmax(-1))
-    log(f"{arch} continuous decode iteration {snap['iteration'] + 1} "
-        f"({len(snap['reqs'])} requests), {backend} on {kv_dtype} pages, "
+    log(f"{arch} continuous{' legacy' if legacy else ''} decode iteration "
+        f"{snap['iteration'] + 1} ({len(snap['reqs'])} requests), {backend} "
+        f"on {kv_dtype} pages, "
         f"kernels vs plain paged path: max|logits err| {err:.3e} "
         + (f"(atol {LOGITS_ATOL}; " if forced is None else
            "(not a gate: the two routes' rows round to the quantization "
@@ -973,6 +1354,20 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         raise AssertionError(f"{arch} {backend} {kv_dtype}: continuous "
                              f"logits differ by {gated:.3e} > {LOGITS_ATOL}")
     return {k: launches[k] for k in layers}, generated
+
+
+def legacy_phase(dev, seed, card, params, arch, chunked, launches):
+    """Phase 7 for ``arch``: the legacy whole-prompt prefill run, its
+    tokens compared with the chunked f32 run's (``chunked[arch]``); its
+    launches land in ``launches`` as ``name[legacy arch]``."""
+    t0 = time.perf_counter()
+    counts, _ = phase_continuous(dev, seed, card, params, "socket_fused",
+                                 arch=arch, legacy=True,
+                                 ref_tokens=("chunked", chunked[arch]))
+    launches.update({f"{k}[legacy {arch}]": v for k, v in counts.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"legacy phase ({arch}): {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1000,13 +1395,14 @@ def main(argv=None) -> int:
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
     # the continuous runs: each fused backend on f32 pages, then on int8
     # and fp8 pages (entries name[int8], name[fp8]) on the same weights
+    chunked = {}                # arch -> socket_fused f32 run's tokens
     for backend in FUSED:
         auto = None
         for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:
             t0 = time.perf_counter()
             counts, tokens = phase_continuous(
                 dev, args.seed, card, params, backend, kv_dtype=kv_dtype,
-                auto_tokens=auto)
+                ref_tokens=auto and ("auto", auto))
             auto = auto or tokens
             suffix = "" if kv_dtype == "auto" else f"[{kv_dtype}]"
             launches.update({k + suffix: v for k, v in counts.items()})
@@ -1014,6 +1410,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             log(f"continuous phase ({backend}, {kv_dtype}): "
                 f"{time.perf_counter() - t0:.1f} s")
+        if backend == "socket_fused":
+            chunked["llama31-8b"] = auto
+    legacy_phase(dev, args.seed, card, params, "llama31-8b", chunked,
+                 launches)
     del params                                  # llama31-8b's 32 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -1023,7 +1423,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         gemma, tokens = phase_continuous(
             dev, args.seed, card, params, "socket_fused", arch="gemma3-27b",
-            kv_dtype=kv_dtype, auto_tokens=auto)
+            kv_dtype=kv_dtype, ref_tokens=auto and ("auto", auto))
         auto = auto or tokens
         suffix = "" if kv_dtype == "auto" else f"[{kv_dtype}]"
         launches["paged_ring" + suffix] = gemma["paged_ring"]
@@ -1031,6 +1431,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         log(f"gemma3-continuous phase ({kv_dtype}): "
             f"{time.perf_counter() - t0:.1f} s")
+    chunked["gemma3-27b"] = auto
+    legacy_phase(dev, args.seed, card, params, "gemma3-27b", chunked,
+                 launches)
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

@@ -123,9 +123,10 @@ class ServingSettings:
     block-table entries write into.  ``max_blocks_per_seq * block_size``
     is the per-request context ceiling.  ``prefill_chunk > 0`` selects
     the token-budget mixed step (one prefill chunk beside the ragged
-    decode batch per iteration), the only execution model the port has;
-    ``prefill_buckets`` belong to the legacy whole-prompt mode
-    (``prefill_chunk = 0``), which the port's engine refuses.
+    decode batch per iteration); ``prefill_chunk = 0`` the legacy
+    whole-prompt mode, which pads each prompt to the smallest of
+    ``prefill_buckets`` that holds it (the largest must cover
+    ``max_context``).
     """
 
     block_size: int = 16

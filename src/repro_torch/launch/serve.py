@@ -5,6 +5,8 @@
 * ``--engine continuous``: the paged-KV continuous-batching engine
   (:mod:`repro_torch.serving`) fed Poisson-arriving requests of mixed
   prompt lengths; reports throughput, TTFT and p50/p99 token latency.
+  ``--prefill-chunk 0`` serves through the legacy whole-prompt bucketed
+  prefill (``serving.prefill_buckets``) instead of chunked prefill.
 
 Port of ``repro.launch.serve``.  It runs on the card by default; with no
 card it raises unless ``--device cpu`` is given:
@@ -19,6 +21,9 @@ card it raises unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
         --smoke --device cpu --engine continuous --backend socket_fused \\
         --kv-dtype fp8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
+        --smoke --device cpu --engine continuous --backend socket_fused \\
+        --prefill-chunk 0
 
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
@@ -34,8 +39,10 @@ fused CUDA ring kernel.  ``--kv-dtype`` sets the K/V page storage
 (``serving.kv_dtype``): ``auto`` (the compute dtype), ``bf16``, or
 ``int8``/``fp8`` rows with per-row scales, dequantized in-register by the
 fused kernels; the config refuses what a path cannot consume (fp8 needs
-the fused kernels, dense takes no fp8).  On the CPU every kernel wrapper
-runs its plain PyTorch version.
+the fused kernels, dense takes no fp8).  Whole-prompt prefill (the static
+engine, and the continuous engine's legacy mode) attends through the
+``flash_prefill`` CUDA kernel.  On the CPU every kernel wrapper runs its
+plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -202,7 +209,10 @@ def make_poisson_requests(cfg, num_requests: int, rate_rps: float,
 # arch -> (prompt lengths, max_blocks_per_seq, num_blocks, num_groups or
 # None) of the continuous card case; gemma3-27b's depth is cut to 2
 # groups (14 of 62 layers: 12 local, 2 global), as all 62 do not fit the
-# card's 80 GB in fp32
+# card's 80 GB in fp32.  The legacy case's prefill buckets are 2048, 4096
+# and max_context, so most prompts run padded (llama31-8b: 1024 and 3072;
+# gemma3-27b: 3072 and 6144) and their logits and rings are taken at the
+# last real token, short of the bucket's end.
 CARD_CASES = {
     "llama31-8b": ([1024, 2048, 3072, 4096], 264, 1536, None),
     "gemma3-27b": ([2048, 3072, 4096, 6144], 392, 2048, 2),
@@ -211,15 +221,17 @@ CARD_CASES = {
 
 def card_continuous_case(cfg, seed: int, max_new_tokens: int,
                          backend: str = "socket_fused",
-                         kv_dtype: str = "auto"):
+                         kv_dtype: str = "auto", legacy: bool = False):
     """The continuous engine's case at full width on the card, shared by
     ``chip_smoke.py``, the card tests and ``profile_decode.py``: ``cfg``
     with ``backend`` (a fused name) and serving settings for 8 requests
     (the prompt lengths of ``CARD_CASES[cfg.name]`` drawn from ``seed``,
-    each twice, all arriving at once), chunks of 512, 16-token blocks, K/V
-    pages stored as ``kv_dtype`` and a pool that needs no preemption.
-    Sliding-window layers decode through the ring kernel
-    (``use_ring_kernel``).  Returns (cfg, requests)."""
+    each twice, all arriving at once), chunks of 512 (``legacy``:
+    whole-prompt prefill in buckets of 2048, 4096 and ``max_context``),
+    16-token blocks, K/V pages stored as ``kv_dtype``
+    and a pool that needs no preemption.  Sliding-window layers decode
+    through the ring kernel (``use_ring_kernel``).  Returns (cfg,
+    requests)."""
     from repro_torch.configs import ServingSettings
     from repro_torch.serving import Request
     base_lens, max_blocks, num_blocks, groups = CARD_CASES[cfg.name]
@@ -231,6 +243,9 @@ def card_continuous_case(cfg, seed: int, max_new_tokens: int,
     sv = ServingSettings(block_size=16, max_batch=8, prefill_chunk=512,
                          max_blocks_per_seq=max_blocks,
                          num_blocks=num_blocks, kv_dtype=kv_dtype)
+    if legacy:
+        sv = sv.replace(prefill_chunk=0,
+                        prefill_buckets=(2048, 4096, sv.max_context))
     # 1 trash block + every request's lifetime
     blocks = [-(-(n + max_new_tokens) // sv.block_size) for n in lens]
     if 1 + sum(blocks) > sv.num_blocks or max(blocks) > \
@@ -248,15 +263,17 @@ def run_continuous(cfg, num_requests: int, rate_rps: float, prompt_lens,
                    max_new_tokens: int, seed: int = 0, realtime=True,
                    warmup=False, params=None, device="cuda"):
     """Continuous-batching serve of Poisson-arriving requests; returns
-    (requests, ServeMetrics, engine).  ``warmup=True`` runs the engine's
-    two step shapes first, so the reported latencies measure serving."""
+    (requests, ServeMetrics, engine).  ``warmup=True`` runs the step
+    shapes the workload needs first (chunked: the mixed and decode steps;
+    legacy: the decode step and the buckets the prompts hit), so the
+    reported latencies measure serving."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
     engine = ContinuousBatchingEngine(cfg, params=params, seed=seed,
                                       device=device)
     reqs = make_poisson_requests(cfg, num_requests, rate_rps, prompt_lens,
                                  max_new_tokens, seed=seed)
     if warmup:
-        engine.warmup()
+        engine.warmup(reqs)
     metrics = engine.run(reqs, realtime=realtime)
     return reqs, metrics, engine
 
@@ -294,9 +311,9 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked-prefill token budget per engine "
-                         "iteration (default: the config's "
-                         "serving.prefill_chunk; 0, the legacy bucketed "
-                         "prefill, is not ported)")
+                         "iteration (0 = legacy whole-prompt bucketed "
+                         "prefill; default: the config's "
+                         "serving.prefill_chunk)")
     args = ap.parse_args(argv)
 
     if args.backend.endswith("_fused") and args.engine != "continuous":
@@ -320,6 +337,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.engine == "continuous":
         max_new = args.max_new_tokens or (8 if args.smoke else 64)
+        # legacy mode's largest bucket covers max_context (validate())
         top = cfg.serving.max_context - max_new
         if top < 1:
             ap.error(f"--max-new-tokens {max_new} leaves no prompt room "

@@ -3,10 +3,15 @@
 Port of ``repro.models.attention`` for global and sliding-window (local)
 attention layers.
 
-Training/prefill: dense causal attention in plain PyTorch (the JAX
-package's XLA path), with queries processed in chunks of
-``cfg.attn_q_chunk`` so the live logits buffer is ``(chunk, S)``.  Local
-layers apply the sliding-window mask.
+Training/prefill over a whole prompt: causal attention through
+``kernels/flash_prefill`` (the JAX package names its Pallas
+``flash_prefill`` kernel as this attention's TPU fast path): the CUDA
+kernel on the card, its plain version, query-chunked by
+``cfg.attn_q_chunk``, on CPU tensors.  Local layers pass the sliding
+window to it, and ``cfg.attn_logit_softcap`` its score cap.  The
+prefix-extension chunks of the chunked prefill attend with the plain
+masked softmax of :func:`_attn_chunk` (the TPU kernel computes no such
+chunk either).
 
 Decode: global layers own no backend logic; every decode backend is one
 module in :mod:`repro_torch.models.backends`, reached through a
@@ -28,8 +33,9 @@ engine the circular page list of a
 :class:`~repro_torch.models.backends.RingView` — attended with a plain
 masked softmax, or with ``cfg.use_ring_kernel`` by the fused CUDA ring
 kernel (``kernels/paged_attention/paged_ring.cu``) straight from the
-pool.  The legacy whole-prompt prefill into pool rings comes with
-ROADMAP.md queue 1 item 8.
+pool.  The continuous engine's legacy whole-prompt prefill builds the
+ring at the pool's page-aligned capacity (``attention_prefill(...,
+paged=True)``), at each prompt's last real token.
 
 K/V are stored at ``serving.kv_dtype`` everywhere (static caches, pool
 pages and rings): int8/fp8 rows are quantized on write with per-row
@@ -46,6 +52,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.models import backends
 from repro_torch.models.layers import (apply_rope, init_rmsnorm, normal,
                                        rmsnorm, softcap)
@@ -123,7 +130,9 @@ def _attn_chunk(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, q_offset: int, scale: float,
                 window: Optional[int] = None) -> torch.Tensor:
     """Causal attention of a block of queries against the full K/V, within
-    ``window`` tokens when one is given (local layers).
+    ``window`` tokens when one is given (local layers), as a plain masked
+    softmax with the config's logit softcap: the prefix-extension chunks
+    of :func:`attention_prefill_chunk`.
 
     qg (B, cq, KV, G, hd); k/v (B, S, KV, hd) -> (B, cq, KV, G, hd).
     """
@@ -147,21 +156,26 @@ def _attn_chunk(cfg: ModelConfig, qg: torch.Tensor, k: torch.Tensor,
 def _attend_prompt(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, dtype: torch.dtype,
                    window: Optional[int]) -> torch.Tensor:
-    """Causal (sliding-window when ``window`` is given) attention over
-    projected q/k/v; q-chunked when ``cfg.attn_q_chunk`` divides T (the
-    same rule as the JAX package)."""
+    """Causal (sliding-window when ``window`` is given) attention over a
+    whole prompt's projected q (B, T, H, hd) and k/v (B, T, KV, hd).
+
+    Heads are flattened to the kernel's rows, q to ``b*H + h`` and k/v to
+    ``b*KV + kv``; with ``h = kv*G + g`` (the grouped order of
+    ``q.reshape(b, t, kv, g, hd)``) q row ``bh`` reads k/v row ``bh //
+    G``.  ``flash_prefill`` launches the CUDA kernel for CUDA tensors and
+    runs its plain version, in query chunks of ``cfg.attn_q_chunk``, for
+    CPU ones."""
     b, t, h, hd = q.shape
-    kv = k.shape[2]
-    qg = q.reshape(b, t, kv, h // kv, hd)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    cq = cfg.attn_q_chunk
-    if cq and t > cq and t % cq == 0:
-        ctx = torch.cat([_attn_chunk(cfg, qg[:, i:i + cq], k, v, i, scale,
-                                     window)
-                         for i in range(0, t, cq)], dim=1)
-    else:
-        ctx = _attn_chunk(cfg, qg, k, v, 0, scale, window)
-    return ctx.reshape(b, t, h, hd).to(dtype)
+
+    def rows(x):
+        return x.permute(0, 2, 1, 3).reshape(-1, t, hd)
+
+    ctx = fp_ops.flash_prefill(rows(q), rows(k), rows(v),
+                               scale=1.0 / math.sqrt(cfg.head_dim),
+                               window=window or 0,
+                               softcap=cfg.attn_logit_softcap,
+                               q_chunk=cfg.attn_q_chunk)
+    return ctx.reshape(b, h, t, hd).transpose(1, 2).to(dtype)
 
 
 def attention_train(cfg: ModelConfig, params: Dict, x: torch.Tensor,
@@ -199,12 +213,19 @@ def init_attention_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 def attention_prefill(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                       positions: torch.Tensor, attn_type: str,
-                      capacity: int) -> Tuple[torch.Tensor, Dict]:
+                      capacity: int, last_index=None,
+                      paged: bool = False) -> Tuple[torch.Tensor, Dict]:
     """Forward over the prompt + build this layer's decode cache; the
     output matches :func:`attention_train` (the projections are computed
-    once and shared, where the JAX package recomputes them).  Local
-    layers build the contiguous ring of ``min(capacity, window)`` slots:
-    slot ``s`` holds the newest prompt position ``p ≡ s (mod cap)``."""
+    once and shared, where the JAX package recomputes them).
+
+    Local layers build the contiguous ring of ``min(capacity, window)``
+    slots, or with ``paged`` of the pool's page-aligned
+    ``cfg.ring_geometry()`` capacity, so it scatters 1:1 into pool
+    pages: slot ``s`` holds the newest prompt position ``p ≡ s (mod
+    cap)`` up to ``last_index``, a ``(B,)`` tensor of each row's last
+    *real* position (bucket-padded prompts; the last position when
+    None)."""
     window = _window(cfg, attn_type)
     q, k, v = _project_qkv(cfg, params, x, positions)
     y = _merge_heads(cfg, params,
@@ -212,15 +233,18 @@ def attention_prefill(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     kc = k.transpose(1, 2)                       # (B, KV, T, hd)
     vc = v.transpose(1, 2)
     if window is not None:
-        t = x.shape[1]
-        cap = min(capacity, window)
+        b, t = x.shape[:2]
+        cap = cfg.ring_geometry()[1] if paged else min(capacity, window)
+        li = torch.full((b,), t - 1, device=x.device) if last_index is None \
+            else torch.as_tensor(last_index, device=x.device).long()
         sl = torch.arange(cap, device=x.device)
-        ring_pos = (t - 1) - torch.remainder((t - 1) - sl, cap)   # (cap,)
-        valid = (ring_pos >= 0)[None, None, :, None]
-        idx = ring_pos.clamp(0, t - 1)
+        ring_pos = li[:, None] - torch.remainder(li[:, None] - sl, cap)
+        valid = (ring_pos >= 0)[:, None, :, None]            # (B, 1, cap, 1)
+        idx = ring_pos.clamp(0, t - 1)[:, None, :, None].expand(
+            b, kc.shape[1], cap, kc.shape[3])
         return y, backends.quantize_kv(
-            cfg, torch.where(valid, kc[:, :, idx], 0),
-            torch.where(valid, vc[:, :, idx], 0))
+            cfg, torch.where(valid, kc.gather(2, idx), 0),
+            torch.where(valid, vc.gather(2, idx), 0))
     cache = init_attention_cache(cfg, x.shape[0], capacity, attn_type,
                                  dtype=kc.dtype, device=x.device)
     backend = backends.get_backend(cfg.attention_backend)

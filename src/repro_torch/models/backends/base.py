@@ -39,9 +39,7 @@ fp8 ``masked_fill_``, ``gather`` or ``scatter_``, so every pool and cache
 read and write here moves fp8 payloads through a same-size ``uint8``
 view (bitwise on every device; byte 0 is +0.0).
 
-The state (Mamba) handler comes with ROADMAP.md queue 1 item 7, the
-handlers' ``write_prefill`` (the legacy whole-prompt prefill) with item
-8.
+The state (Mamba) handler comes with ROADMAP.md queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -630,8 +628,14 @@ class LayerCacheHandler:
                     unmodified (non-paged) decode path consumes.
     * ``scatter`` — write the row(s) a decode step updated in those views
                     back into the pool.
-    * ``write_prefill`` — the legacy whole-prompt prefill's scatter of a
-                    fresh batch=1 cache (ROADMAP.md queue 1 item 8).
+    * ``write_prefill`` — scatter a fresh batch=1 whole-prompt prefill
+                    cache (the legacy bucketed prefill) into the pool
+                    pages of ``bt_row``; ``slot`` (the request's decode
+                    slot) is for per-slot state rows, which the port's
+                    handlers do not have yet.  Paged layers' leaves and
+                    ring layers' page-aligned rings (``ring_blocks *
+                    block_size`` rows, already in flat ring layout) both
+                    scatter block for block.
     """
 
     kind: str = ""
@@ -639,10 +643,16 @@ class LayerCacheHandler:
     def spec(self, cfg) -> LayerCacheSpec:
         raise NotImplementedError
 
-    def write_prefill(self, cfg, pages, cache, bt_row, slot):
-        raise NotImplementedError(
-            "write_prefill belongs to the legacy whole-prompt bucketed "
-            "prefill, which comes with ROADMAP.md queue 1 item 8")
+    def write_prefill(self, cfg, pages: Dict[str, torch.Tensor],
+                      cache: Dict[str, torch.Tensor], bt_row: torch.Tensor,
+                      slot: int) -> Dict[str, torch.Tensor]:
+        """Every leaf (K/V, their scales under int8/fp8, the backend's
+        metadata) block for block into the pages of ``bt_row`` (block ids,
+        trash-padded: entries past the request's allocated blocks absorb
+        rows it cannot reach), in place."""
+        for name, p in pages.items():
+            write_chunk_blocks(p, cache[name], bt_row, 0)
+        return pages
 
     def gather(self, cfg, pages: Dict[str, torch.Tensor],
                bt: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -10,11 +10,17 @@ block demand is bounded by ``ring_blocks`` regardless of context length.
 
 Decode-side reads and writes go through
 :class:`~repro_torch.models.backends.base.RingView`
-(``models/attention.py``); this handler owns the pool-side half of the
-dense fallback: the bounded contiguous ring views, and the write-back of
-decode-updated ring rows, which **scrubs at page-opening writes** (see
-:func:`~repro_torch.models.backends.base.ring_write_page`): recycled pool
-blocks carry the previous owner's data and are never zeroed otherwise.
+(``models/attention.py``); this handler owns the pool-side half: the
+legacy whole-prompt prefill's scatter (the base class's block-for-block
+one: the prefill ring is already in flat ring layout, slot ``s`` the
+newest prompt position ``p ≡ s (mod capacity)``, so each ring block goes
+to exactly one page of ``bt_row[:ring_blocks]``), the bounded contiguous
+ring views of the dense fallback, and the write-back of decode-updated
+ring rows.
+Both write paths **scrub at page-opening writes** (see
+:func:`~repro_torch.models.backends.base.ring_write_page`; the prefill
+scatter writes every row of every page it touches): recycled pool blocks
+carry the previous owner's data and are never zeroed otherwise.
 """
 
 from __future__ import annotations

@@ -62,11 +62,13 @@ def _mlp(cfg: ModelConfig, params: Dict, spec: LayerSpec,
 
 
 def _block_prefill(cfg: ModelConfig, params: Dict, spec: LayerSpec,
-                   x: torch.Tensor, positions: torch.Tensor, capacity: int):
+                   x: torch.Tensor, positions: torch.Tensor, capacity: int,
+                   last_index=None, paged: bool = False):
     _check_spec(spec)
     h, cache = attn.attention_prefill(cfg, params["attn"],
                                       rmsnorm(params["norm_mix"], x),
-                                      positions, spec.attn_type, capacity)
+                                      positions, spec.attn_type, capacity,
+                                      last_index=last_index, paged=paged)
     return _mlp(cfg, params, spec, x + h), cache
 
 
@@ -128,18 +130,31 @@ def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
     return caches
 
 
-def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int):
-    """Process the prompt ``batch["tokens"]`` (B, T); returns
-    (last-token logits (B, 1, V_padded), per-layer caches)."""
+def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int,
+            last_index=None, paged: bool = False):
+    """Process the prompt ``batch["tokens"]`` (B, T); returns (last-token
+    logits (B, 1, V_padded), per-layer caches).
+
+    ``last_index``: optional ``(B,)`` last *real* prompt positions of
+    bucket-padded prompts (the continuous engine's legacy whole-prompt
+    prefill): the logits are taken there, and sliding-window rings are
+    built at it, not at the padding's end.  ``paged``: build the caches
+    in the pool's geometry (page-aligned local rings)."""
     _check_inputs(cfg)
     x = embed_tokens(cfg, params["embed"], batch["tokens"])
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches = []
     for spec, lp in zip(cfg.layer_specs, params["layers"]):
-        x, cache = _block_prefill(cfg, lp, spec, x, positions, capacity)
+        x, cache = _block_prefill(cfg, lp, spec, x, positions, capacity,
+                                  last_index, paged)
         caches.append(cache)
-    x = rmsnorm(params["final_norm"], x[:, -1:])
+    if last_index is None:
+        x = x[:, -1:]
+    else:
+        li = torch.as_tensor(last_index, device=x.device).long()
+        x = x[torch.arange(b, device=x.device), li][:, None]
+    x = rmsnorm(params["final_norm"], x)
     return lm_head(cfg, params["embed"], x), caches
 
 

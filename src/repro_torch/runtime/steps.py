@@ -1,9 +1,8 @@
 """Step functions shared by the serve loop.
 
-Port of ``make_prefill_step``, ``make_chunk_prefill_step`` and
-``make_serve_step`` of ``repro.runtime.steps`` (no bucketed prefill).
-PyTorch runs eagerly, so where the JAX package jits these closures the
-port runs them under ``torch.no_grad()``.
+Port of ``make_prefill_step``, ``make_chunk_prefill_step`` and ``make_serve_step`` of
+``repro.runtime.steps``.  PyTorch runs eagerly, so where the JAX package
+jits these closures the port runs them under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -19,11 +18,18 @@ __all__ = ["make_prefill_step", "make_chunk_prefill_step",
            "make_serve_step"]
 
 
-def make_prefill_step(cfg: ModelConfig, capacity: int) -> Callable:
-    """(params, batch) -> (last-token logits, caches)."""
+def make_prefill_step(cfg: ModelConfig, capacity: int,
+                      paged: bool = False) -> Callable:
+    """(params, batch, last_index=None) -> (last-token logits, caches).
+    The continuous engine's legacy prefill pads prompts to a bucket and
+    passes each prompt's last *real* position as ``last_index`` (see
+    :func:`tfm.prefill`), which also pins sliding-window rings to the
+    prompt's true end.  ``paged=True`` builds caches in pool geometry
+    (page-aligned rings)."""
     @torch.no_grad()
-    def prefill_step(params, batch):
-        return tfm.prefill(cfg, params, batch, capacity=capacity)
+    def prefill_step(params, batch, last_index=None):
+        return tfm.prefill(cfg, params, batch, capacity=capacity,
+                           last_index=last_index, paged=paged)
     return prefill_step
 
 

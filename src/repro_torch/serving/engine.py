@@ -1,14 +1,27 @@
 """Continuous-batching serving engine on a paged K/V pool.
 
-Port of ``repro.serving.engine`` (the token-budget mixed step, greedy
-decoding, layouts of global and sliding-window attention layers).  Each
-iteration the scheduler grants at most ONE fixed-size prefill chunk
-alongside the full ragged decode batch, and one mixed step runs both:
-the chunk writes its pages and attends over the pages earlier chunks
-committed (:func:`repro_torch.models.attention.attention_prefill_chunk`),
-then the decode batch runs one token.  Iterations with no chunk run the
-decode-only step.  A long prompt stalls in-flight decodes by at most one
-chunk.
+Port of ``repro.serving.engine`` (greedy decoding, layouts of global and
+sliding-window attention layers) with its two execution models:
+
+* **chunked prefill** (``serving.prefill_chunk > 0``, the default): the
+  token-budget mixed step.  Each iteration the scheduler grants at most
+  ONE fixed-size prefill chunk alongside the full ragged decode batch,
+  and one mixed step runs both: the chunk writes its pages and attends
+  over the pages earlier chunks committed
+  (:func:`repro_torch.models.attention.attention_prefill_chunk`), then
+  the decode batch runs one token.  Iterations with no chunk run the
+  decode-only step.  A long prompt stalls in-flight decodes by at most
+  one chunk.
+* **legacy whole-prompt prefill** (``prefill_chunk == 0``): each
+  iteration admits up to ``max_prefill_per_iter`` requests and prefills
+  each whole prompt, zero-padded to the smallest of
+  ``serving.prefill_buckets`` that holds it, through the static stack
+  (causal attention through the ``flash_prefill`` CUDA kernel on the
+  card) into a fresh batch=1 cache, which ``paged.write_prefill``
+  scatters into the request's pages; the request then joins the same
+  iteration's decode.  Logits and sliding-window rings are taken at the
+  prompt's last real token.  The largest bucket must cover
+  ``max_context`` (``ServingSettings.validate``).
 
 For paged-capable backends (``DecodeBackend.supports_paged``: socket,
 hard_lsh, quest) the decode step hands the pool and block tables straight
@@ -35,8 +48,7 @@ read dequantizes, the fused kernels in-register, and a preempted request
 re-quantizes the same prompt rows when it is prefilled again.
 
 Not ported yet, each raising :class:`NotImplementedError` naming its
-ROADMAP.md queue 1 item: legacy whole-prompt bucketed prefill
-(``prefill_chunk == 0``), the prefix cache and sampling (item 8),
+ROADMAP.md queue 1 item: the prefix cache and sampling (item 8),
 observability (item 9), state (Mamba) and MoE layers (item 7).
 """
 
@@ -53,7 +65,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import backends as bk
 from repro_torch.models import transformer as tfm
-from repro_torch.runtime.steps import make_chunk_prefill_step, make_serve_step
+from repro_torch.runtime.steps import (make_chunk_prefill_step,
+                                      make_prefill_step, make_serve_step)
 from repro_torch.serving import paged
 from repro_torch.serving.block_pool import TRASH_BLOCK, BlockPool
 from repro_torch.serving.obs.metrics import Registry
@@ -150,6 +163,12 @@ class ContinuousBatchingEngine:
         self.iter_hook = None
         # (iteration, rid, chunk.start, chunk.tokens) per chunk co-run
         self.chunk_trace: List[Tuple[int, int, int, int]] = []
+        # legacy mode: (iteration, rid, bucket, host seconds) per
+        # whole-prompt prefill of the run
+        self.prefill_trace: List[Tuple[int, int, int, float]] = []
+        # host seconds of each step call warmup() made, by shape:
+        # "decode", "mixed" or "prefill_{bucket}"
+        self.warmup_s: Dict[str, float] = {}
         self.registry = Registry()
         self._bind_instruments(self.registry)
 
@@ -159,9 +178,6 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "continuous engine serves token models only")
         sv = cfg.serving
-        if sv.prefill_chunk == 0:
-            raise _not_ported("legacy whole-prompt bucketed prefill "
-                              "(serving.prefill_chunk == 0)", 8)
         if sv.prefix_cache:
             raise _not_ported("the prefix cache (serving.prefix_cache)", 8)
         if temperature > 0:
@@ -175,6 +191,10 @@ class ContinuousBatchingEngine:
             raise _not_ported("state (Mamba) and MoE layers", 7)
         # resolves the backend (ValueError on unknown names)
         bk.get_backend(cfg.attention_backend).cache_spec(cfg)
+
+    @property
+    def chunked(self) -> bool:
+        return self.serving.prefill_chunk > 0
 
     # ------------------------------------------------------ metrics
     def _bind_instruments(self, reg: Registry) -> None:
@@ -260,18 +280,93 @@ class ContinuousBatchingEngine:
             pos[r.slot] = r.pos
         return self._to_dev(tokens), self._to_dev(bt), self._to_dev(pos)
 
-    def warmup(self) -> None:
-        """Run the two step shapes a run needs (mixed + decode-only)
-        against the trash page, so a following run's latencies measure
-        serving, not kernel builds and allocator growth."""
+    def _bt_row_len(self, bucket: int) -> int:
+        """Legacy prefill block-table row length: the bucket's blocks, but
+        at least the circular window pages (a short prompt's ring still
+        spans ``ring_blocks`` table entries; unallocated ones are
+        trash)."""
+        return max(bucket // self.serving.block_size,
+                   self.scheduler.ring_blocks)
+
+    def _bucket_for(self, n: int) -> int:
+        for b in sorted(self.serving.prefill_buckets):
+            if b >= n:
+                return b
+        raise ValueError(
+            f"prompt of {n} tokens exceeds largest prefill bucket "
+            f"{max(self.serving.prefill_buckets)} (chunked prefill — "
+            f"serving.prefill_chunk > 0 — serves prompts up to "
+            f"max_context {self.serving.max_context})")
+
+    def _prefill_step(self, tokens: torch.Tensor, last_index: int,
+                      bt_row: torch.Tensor, slot: int) -> torch.Tensor:
+        """One whole-prompt prefill of a bucket-padded ``(1, bucket)``
+        prompt into a fresh cache, scattered into the pages of
+        ``bt_row``; returns the greedy token at ``last_index``."""
+        bucket = tokens.shape[1]
+        prefill = make_prefill_step(self.cfg, bucket, paged=True)
+        logits, caches = prefill(self.params, {"tokens": tokens},
+                                 torch.tensor([last_index],
+                                              device=self.device))
+        paged.write_prefill(self.cfg, self.pages, caches, bt_row, slot)
+        return self._pick(logits)[0]
+
+    def _prefill_one(self, req: Request, wall, iteration: int) -> None:
+        """Legacy mode: prefill ``req``'s whole prompt into its pages and
+        record its first token (unless replay already holds it)."""
+        prompt = req.prefill_tokens
+        bucket = self._bucket_for(len(prompt))
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :len(prompt)] = prompt
+        bt_row = np.full((self._bt_row_len(bucket),), TRASH_BLOCK, np.int32)
+        bt_row[:len(req.blocks)] = req.blocks
+        t_p = time.perf_counter()
+        first_tok = int(self._prefill_step(self._to_dev(tokens),
+                                           len(prompt) - 1,
+                                           self._to_dev(bt_row), req.slot))
+        self.prefill_trace.append((iteration, req.rid, bucket,
+                                   time.perf_counter() - t_p))
+        if not req.generated:
+            req.generated.append(first_tok)
+            self._note_token(req, wall())
+        # resumed after preemption: the prefill only rebuilt the prompt's
+        # pages and window rings (bit-exact recomputation); the recorded
+        # tokens now replay through the decode path, which produced them,
+        # so generation is token-exact regardless of pool pressure
+
+    def warmup(self, requests: Optional[List[Request]] = None) -> None:
+        """Run the step shapes a run needs against the trash page, so a
+        following run's latencies measure serving, not kernel builds and
+        allocator growth: the decode-only step, then the mixed step
+        (chunked mode) or one whole-prompt prefill a bucket (legacy mode:
+        only the buckets ``requests`` hit when given, all of them
+        otherwise).  Each call's host seconds land in ``warmup_s``."""
         sv = self.serving
+
+        def timed(tag, fn, *args):
+            t_w = time.perf_counter()
+            fn(*args)
+            self._sync()
+            self.warmup_s[tag] = time.perf_counter() - t_w
+
         tokens, bt, pos = self._batch_inputs([])
-        self._decode_body(tokens, bt, pos)
-        ch_bt = self._to_dev(np.full((self._chunk_bt_len(),), TRASH_BLOCK,
-                                     np.int32))
-        ch_tokens = self._to_dev(np.zeros((1, sv.prefill_chunk), np.int64))
-        self._mixed_step(ch_tokens, ch_bt, 0, 0, tokens, bt, pos)
-        self._sync()
+        timed("decode", self._decode_body, tokens, bt, pos)
+        if self.chunked:
+            ch_bt = self._to_dev(np.full((self._chunk_bt_len(),),
+                                         TRASH_BLOCK, np.int32))
+            ch_tokens = self._to_dev(np.zeros((1, sv.prefill_chunk),
+                                              np.int64))
+            timed("mixed", self._mixed_step, ch_tokens, ch_bt, 0, 0, tokens,
+                  bt, pos)
+            return
+        buckets = sv.prefill_buckets if requests is None else sorted(
+            {self._bucket_for(len(r.prefill_tokens)) for r in requests})
+        for bucket in buckets:
+            bt_row = self._to_dev(np.full((self._bt_row_len(bucket),),
+                                          TRASH_BLOCK, np.int32))
+            timed(f"prefill_{bucket}", self._prefill_step,
+                  self._to_dev(np.zeros((1, bucket), np.int64)), 0, bt_row,
+                  0)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -288,6 +383,7 @@ class ContinuousBatchingEngine:
         self._bind_instruments(reg)
         sched.bind_obs(reg, None)
         self.chunk_trace = []
+        self.prefill_trace = []
         for r in requests:
             sched.submit(r)
         t0 = time.perf_counter()
@@ -301,19 +397,36 @@ class ContinuousBatchingEngine:
 
         while sched.has_work:
             chunk: Optional[PrefillChunk] = None
-            # decode-table growth FIRST (it may evict the prefiller, which
-            # must not happen after a chunk has been granted)...
-            runnable = sched.ensure_decode_blocks()
-            if self._prefilling is not None and \
-                    self._prefilling.state != PREFILL:
-                self._prefilling = None      # evicted by decode growth
-            # ...then the chunk grant (alloc-only)
-            if self._prefilling is None:
-                self._prefilling = sched.try_admit(now())
-            if self._prefilling is not None:
-                chunk = sched.grant_chunk(self._prefilling)
-                if chunk is None and self._prefilling.state != PREFILL:
-                    self._prefilling = None   # safety self-preempt
+            if self.chunked:
+                # decode-table growth FIRST (it may evict the prefiller,
+                # which must not happen after a chunk has been granted)...
+                runnable = sched.ensure_decode_blocks()
+                if self._prefilling is not None and \
+                        self._prefilling.state != PREFILL:
+                    self._prefilling = None  # evicted by decode growth
+                # ...then the chunk grant (alloc-only)
+                if self._prefilling is None:
+                    self._prefilling = sched.try_admit(now())
+                if self._prefilling is not None:
+                    chunk = sched.grant_chunk(self._prefilling)
+                    if chunk is None and \
+                            self._prefilling.state != PREFILL:
+                        self._prefilling = None   # safety self-preempt
+            else:
+                # legacy order: whole-prompt prefill phase, then growth —
+                # a request admitted this iteration decodes this
+                # iteration
+                for _ in range(self.serving.max_prefill_per_iter):
+                    req = sched.try_admit(now())
+                    if req is None:
+                        break
+                    self._prefill_one(req, wall, decode_iters)
+                    if req.t_first_token is None:
+                        self._note_first_token(req, stamp())
+                    sched.activate(req)
+                    if req.done:      # max_new_tokens == 1 degenerate case
+                        sched.finish(req, stamp())
+                runnable = sched.ensure_decode_blocks()
 
             if not runnable and chunk is None:
                 if sched.waiting and not sched.running and \

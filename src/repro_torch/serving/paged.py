@@ -30,11 +30,12 @@ stack — ring layers simply recycle the list's head.  The pool is updated
 Paged-capable backends (``DecodeBackend.supports_paged``) consume the
 pool directly through ``PagedView``/``RingView``; for the rest (dense)
 the engine falls back to the gather/scatter round trip below, which is
-window-bounded for ring layers.  State (Mamba) layers come with
-ROADMAP.md queue 1 item 7; the legacy whole-prompt ``write_prefill``,
-``keep_state_rows`` and the prefix cache's ``clone_block`` with item 8;
-the byte accounting the serving benchmark reads (``pool_block_bytes``,
-``gather_footprint``) with item 10.
+window-bounded for ring layers.  The legacy whole-prompt prefill writes
+its fresh caches in with :func:`write_prefill`.  State (Mamba) layers
+and ``keep_state_rows`` come with ROADMAP.md queue 1 item 7; the prefix
+cache's ``clone_block`` with item 8; the byte accounting the serving
+benchmark reads (``pool_block_bytes``, ``gather_footprint``) with item
+10.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from repro_torch.configs.base import ModelConfig, ServingSettings
 from repro_torch.models import backends as bk
 from repro_torch.models import transformer as tfm
 
-__all__ = ["init_paged_caches", "gather_views", "scatter_token"]
+__all__ = ["init_paged_caches", "gather_views", "scatter_token",
+           "write_prefill"]
 
 
 def init_paged_caches(cfg: ModelConfig, serving: ServingSettings,
@@ -82,4 +84,17 @@ def scatter_token(cfg: ModelConfig, pages, views, bt: torch.Tensor,
     at the trash block.  Returns the pool."""
     for spec, layer, view in zip(cfg.layer_specs, pages, views):
         bk.layer_cache_handler(cfg, spec).scatter(cfg, layer, view, bt, pos)
+    return pages
+
+
+def write_prefill(cfg: ModelConfig, pages, caches, bt_row: torch.Tensor,
+                  slot: int):
+    """Scatter a freshly prefilled (batch=1, capacity=bucket) per-layer
+    cache list into the pool, in place.  ``bt_row``: block ids sized
+    ``max(bucket / block_size, ring_blocks)``; entries past the request's
+    real block count point at the trash page.  ``slot``: the request's
+    decode slot (for per-slot state rows).  Returns the pool."""
+    for spec, layer, cache in zip(cfg.layer_specs, pages, caches):
+        bk.layer_cache_handler(cfg, spec).write_prefill(cfg, layer, cache,
+                                                        bt_row, slot)
     return pages

@@ -1,14 +1,17 @@
 """Card-only tests of the port: each Hopper kernel against its plain
-PyTorch version on the card, the static serve path through the two
-contiguous-path kernels, and the continuous engine through each fused
-paged kernel (SOCKET, hard LSH, Quest) and, on gemma3's local:global
-layout, through the sliding-window ring kernel.  They skip with a reason where
+PyTorch version on the card, the static serve path through the prefill
+kernel and the two contiguous-path kernels, and the continuous engine
+through each fused paged kernel (SOCKET, hard LSH, Quest) and, on
+gemma3's local:global layout, through the sliding-window ring kernel,
+with chunked prefill and with the legacy whole-prompt prefill.  They skip with a reason where
 there is no CUDA card; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: scores rtol 1e-5 / atol 1e-6, attention rtol 1e-4 /
-atol 1e-5 (float32 in another summation order).  The paged kernel's
+atol 1e-5 (float32 in another summation order); the prefill kernel
+atol 1e-5, bf16 inputs too (both sides compute in f32 from the same
+values).  The paged kernel's
 selection equals the plain version's except at rows whose plain
 effective score lies within the score tolerance of the threshold, and
 bit for bit where the scores tie exactly; the hard-LSH and Quest
@@ -120,6 +123,7 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(dev):
 def test_static_serve_on_card_matches_cpu(dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import apply_backend_arg, run_serve
     from repro_torch.models import transformer as tfm
@@ -129,14 +133,60 @@ def test_static_serve_on_card_matches_cpu(dev):
                            generator=torch.Generator().manual_seed(0))
     cpu, _, _ = run_serve(cfg, 2, 40, 6, prompt=prompt, params=params,
                           device="cpu")
-    before = (ss.LAUNCHES, fd.LAUNCHES)
+    before = (ss.LAUNCHES, fd.LAUNCHES, fp.LAUNCHES)
     card_params = _to(params, dev)
     card, _, _ = run_serve(cfg, 2, 40, 6, prompt=prompt, params=card_params,
                            device=dev)
     calls = cfg.num_layers * 7                 # 6 steps + the warm-up
-    assert (ss.LAUNCHES - before[0], fd.LAUNCHES - before[1]) == (calls,
-                                                                  calls)
+    assert (ss.LAUNCHES - before[0], fd.LAUNCHES - before[1],
+            fp.LAUNCHES - before[2]) == (calls, calls, cfg.num_layers)
     assert torch.equal(card.cpu(), cpu)
+
+
+# (bh, bkv, s, hd, window, softcap, dtype): GQA at G 4, ragged last
+# tiles, the window mode, the score cap, every head dim the port's
+# configs use, bf16 inputs
+FLASH_PREFILL_CASES = {
+    "hd128 G4 ragged": (8, 2, 300, 128, 0, 0.0, torch.float32),
+    "hd128 window 100": (4, 2, 1000, 128, 100, 0.0, torch.float32),
+    "hd128 softcap 2 window 100": (8, 2, 500, 128, 100, 2.0, torch.float32),
+    "hd160 G4": (8, 2, 257, 160, 0, 0.0, torch.float32),
+    "hd256 G1": (2, 2, 129, 256, 0, 0.0, torch.float32),
+    "hd16 smoke window": (4, 2, 40, 16, 32, 0.0, torch.float32),
+    "hd32 S 1": (4, 1, 1, 32, 0, 0.0, torch.float32),
+    "hd64 bf16": (4, 4, 200, 64, 0, 0.0, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("label", list(FLASH_PREFILL_CASES))
+def test_flash_prefill_kernel_matches_plain(dev, label):
+    from repro_torch.kernels.flash_prefill import ops
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    bh, bkv, s, hd, window, cap, dtype = FLASH_PREFILL_CASES[label]
+    gen = torch.Generator(device=dev).manual_seed(s + hd)
+    q, k, v = (torch.randn((n, s, hd), generator=gen, device=dev).to(dtype)
+               for n in (bh, bkv, bkv))
+    kw = dict(scale=1.0 / math.sqrt(hd), window=window, softcap=cap)
+    before = ops.LAUNCHES
+    out = ops.flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    # bf16 too: both sides read the same bf16 values and compute in f32
+    torch.testing.assert_close(
+        out, flash_prefill_ref(q, k, v, q_chunk=128, **kw), rtol=0,
+        atol=1e-5)
+
+
+def test_flash_prefill_wrapper_raises_on_unsupported_cuda_inputs(dev):
+    from repro_torch.kernels.flash_prefill import ops
+    x = torch.zeros((4, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_prefill(x, x[:2], x[:2], scale=0.1)
+    x = torch.zeros((4, 8, 64), device=dev)
+    with pytest.raises(TypeError):
+        ops.flash_prefill(x, x[:2].half(), x[:2].half(), scale=0.1)
+    with pytest.raises(ValueError, match="multiple of BKV"):
+        ops.flash_prefill(x, x[:3], x[:3], scale=0.1)
 
 
 @pytest.mark.parametrize("case", ["ragged", "edges", "ties"])
@@ -285,12 +335,14 @@ def test_paged_kernels_on_stored_pools_match_plain(dev, kind, kv_dtype):
 
 
 def _engine_on_card_matches_cpu(dev, backend, arch="llama31-8b",
-                                ring_kernel=False, kv_dtype="auto"):
+                                ring_kernel=False, kv_dtype="auto",
+                                legacy=False):
     """Greedy tokens of the continuous engine at smoke size with
-    ``backend`` on K/V pages stored as ``kv_dtype``: on the card (through
-    its fused kernels) equal to the CPU run (through the kernels' plain
-    versions).  Returns the launches of the SOCKET, hard-LSH, Quest and
-    ring kernels."""
+    ``backend`` on K/V pages stored as ``kv_dtype`` (``legacy``:
+    whole-prompt bucketed prefill): on the card (through its fused
+    kernels) equal to the CPU run (through the kernels' plain versions).
+    Returns the launches of the SOCKET, hard-LSH, Quest and ring
+    kernels."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.launch.serve import apply_backend_arg
@@ -300,6 +352,8 @@ def _engine_on_card_matches_cpu(dev, backend, arch="llama31-8b",
     cfg = apply_backend_arg(get_config(arch).smoke(), backend).replace(
         use_ring_kernel=ring_kernel)
     cfg = cfg.replace(serving=cfg.serving.replace(kv_dtype=kv_dtype))
+    if legacy:
+        cfg = cfg.replace(serving=cfg.serving.replace(prefill_chunk=0))
     params = tfm.init_model(cfg, seed=0)
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
@@ -352,6 +406,18 @@ def test_continuous_engine_quantized_kernels_match_cpu(dev, backend,
                       _engine_on_card_matches_cpu(dev, backend,
                                                   kv_dtype=kv_dtype)))
     assert counts.pop(backend) > 0 and not any(counts.values())
+
+
+@pytest.mark.parametrize("arch", ["llama31-8b", "gemma3-27b"])
+def test_continuous_engine_legacy_prefill_matches_cpu(dev, arch):
+    """The legacy whole-prompt bucketed prefill: flash_prefill on every
+    layer of every prefill, then the fused decode kernels, equal to the
+    CPU run."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    before = fp.LAUNCHES
+    socket, hard, quest, ring = _engine_on_card_matches_cpu(
+        dev, "socket_fused", arch=arch, ring_kernel=True, legacy=True)
+    assert socket > 0 and hard == quest == 0 and fp.LAUNCHES > before
 
 
 def test_continuous_engine_ring_kernel_fp8_matches_cpu(dev):

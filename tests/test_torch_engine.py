@@ -126,9 +126,6 @@ def test_continuous_matches_own_static_engine(backend):
 def test_engine_raises_for_unported_parts():
     _, tc = _configs("llama31-8b", "socket_fused")
     cases = [
-        (tc.replace(serving=tc.serving.replace(prefill_chunk=0,
-                                               prefill_buckets=(64,))),
-         {}, "item 8"),
         (tc.replace(serving=tc.serving.replace(prefix_cache=True)), {},
          "item 8"),
         (tc, dict(temperature=0.7), "item 8"),

@@ -227,7 +227,8 @@ def test_ring_handler_gather_scatter_bitwise():
     """The dense fallback's round trip through ``RingCacheHandler`` on the
     gemma3 smoke geometry (rb 4, bs 8, window 32): the bounded views, and
     the write-back with scrub of one row per slot (slot 2 inactive, on
-    the trash page)."""
+    the trash page); then the legacy whole-prompt prefill's scatter of a
+    flat 32-slot ring into a request's pages."""
     jc, tc = jget("gemma3-27b").smoke(), tget("gemma3-27b").smoke()
     rng = np.random.default_rng(6)
     pools = {n: rng.standard_normal((9, 2, 8, 16)).astype(np.float32)
@@ -255,8 +256,17 @@ def test_ring_handler_gather_scatter_bitwise():
     th.scatter(tc, tpool, tviews, _t(bt), _t(pos))
     for n in pools:
         np.testing.assert_array_equal(tpool[n].numpy(), np.asarray(want[n]))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        th.write_prefill(tc, tpool, {}, _t(bt[0]), 0)
+    ring = {n: rng.standard_normal((1, 2, 32, 16)).astype(np.float32)
+            for n in pools}
+    row = np.array([5, 1, 0, 0, 0], np.int32)        # a 2-page allocation
+    want = jh.write_prefill(jc, want, {n: jnp.asarray(a)
+                                       for n, a in ring.items()},
+                            jnp.asarray(row), jnp.int32(1))
+    th.write_prefill(tc, tpool, {n: _t(a) for n, a in ring.items()},
+                     _t(row), 1)
+    for n in pools:
+        np.testing.assert_array_equal(tpool[n][1:].numpy(),
+                                      np.asarray(want[n])[1:])
 
 
 # ------------------------------------------------------------- cache plan

@@ -25,7 +25,7 @@ LAUNCHES = 0
 # the head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_Q = 64
+BLOCK_Q = 64                    # the smallest query tile of any head dim
 
 
 def _library() -> ctypes.CDLL:

@@ -155,6 +155,18 @@ FLASH_PREFILL_CASES = {
     "hd16 smoke window": (4, 2, 40, 16, 32, 0.0, torch.float32),
     "hd32 S 1": (4, 1, 1, 32, 0, 0.0, torch.float32),
     "hd64 bf16": (4, 4, 200, 64, 0, 0.0, torch.bfloat16),
+    # ragged edges of the tensor-core tiles (128 queries x 48 keys at hd
+    # 128: S 9 and 4100 = 85 x 48 + 20 = 32 x 128 + 4, where V's
+    # zero-filled rows meet P's zeros), a window whose first key is off
+    # the key tiles, hd 256's 64 x 16 tiles at G 4 (S 300 = 18 x 16 + 12
+    # = 4 x 64 + 44), bf16 (exact TF32 operands) with a window
+    "hd128 G4 ragged S 9": (8, 2, 9, 128, 0, 0.0, torch.float32),
+    "hd128 G4 ragged S 4100": (8, 2, 4100, 128, 0, 0.0, torch.float32),
+    "hd128 window 1000 S 2100": (4, 2, 2100, 128, 1000, 0.0, torch.float32),
+    "hd256 G4": (8, 2, 300, 256, 0, 0.0, torch.float32),
+    "hd128 bf16 window 200": (8, 2, 700, 128, 200, 0.0, torch.bfloat16),
+    "hd160 bf16 window 70": (8, 2, 333, 160, 70, 0.0, torch.bfloat16),
+    "hd256 bf16 G2": (4, 2, 200, 256, 0, 0.0, torch.bfloat16),
 }
 
 

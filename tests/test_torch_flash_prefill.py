@@ -6,10 +6,21 @@ attention (``attention_train``, softcapped too, ``attention_prefill``
 with ``last_index`` and ``paged``), which now goes through it, against
 the JAX package on the same numpy inputs.
 
+The CUDA kernel's 3xTF32 arithmetic (its products from TF32 operands,
+each f32 value split into a big and a small part) is emulated in torch:
+the TF32 rounding, the split's residual, and the whole attention through
+it held to ATTN_TOL of the plain op and to F64_RATIO of the plain op's
+distance from float64, which one TF32 product alone fails.  (At these
+scores the plain op is itself well within ATTN_TOL of float64; at the
+full-size model's it is not, and the card holds the kernel to the
+float64 version instead: chip_smoke.py.)
+
 Tolerances: the harness's flash_prefill policy, atol 1e-5 (bf16 inputs
 3e-2: the two frameworks round bf16 products at other places); the model
 outputs rtol 1e-5 / atol 1e-4 (float32 projections in another summation
-order, values up to ~10), the rings' K/V the same.
+order, values up to ~10), the rings' K/V the same; the emulation
+chip_smoke.py's attention gates, ATTN_TOL rtol 1e-4 / atol 1e-5 and
+F64_RATIO 2.
 """
 
 import numpy as np
@@ -250,3 +261,174 @@ def test_cpu_tensors_never_reach_nvcc(monkeypatch):
     y = tattn.attention_train(tc, tp, x, torch.arange(12)[None], "local")
     assert torch.isfinite(y).all()
     assert ops.LAUNCHES == before
+
+
+# --- the CUDA kernel's 3xTF32 arithmetic, emulated here (the kernel runs
+# only on the card).  Gates: every output within ATTN_TOL of the plain
+# op, and its largest distance from a float64 version within F64_RATIO
+# of the plain op's (chip_smoke.py's tolerances).
+
+ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+F64_RATIO = 2.0
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to
+    nearest, ties away from zero, on the 13 mantissa bits TF32 drops."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _tf32_mm(a, b, products):
+    """``a @ b`` from TF32 operands: 3 products, ``a_small b_big + a_big
+    b_small + a_big b_big`` summed small terms first (the kernel's), or
+    ``a_big b_big`` alone (1xTF32)."""
+    ab, a_small = _split(a)
+    bb, b_small = _split(b)
+    if products == 1:
+        return ab @ bb
+    return (a_small @ bb + ab @ b_small) + ab @ bb
+
+
+def _tf32_prefill(q, k, v, *, scale, window=0, softcap=0.0, products=3):
+    """The kernel's function with its arithmetic: S = Q K^T and P V from
+    TF32 operands, p = exp(s - max) unnormalized, out = (P V) / sum p."""
+    g = q.shape[0] // k.shape[0]
+    k, v = (t.float().repeat_interleave(g, 0) for t in (k, v))
+    logits = _tf32_mm(q.float(), k.transpose(1, 2), products) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    i = torch.arange(q.shape[1])[:, None]
+    j = torch.arange(q.shape[1])[None, :]
+    keep = (j <= i) & ((i - j < window) if window > 0 else True)
+    logits = torch.where(keep, logits, -1e30)
+    p = torch.where(keep, torch.exp(logits - logits.amax(-1, keepdim=True)),
+                    0.0)
+    return _tf32_mm(p, v, products) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def _tol_ratio(out, ref):
+    lim = ATTN_TOL["atol"] + ATTN_TOL["rtol"] * ref.abs()
+    return ((out.double() - ref).abs() / lim).max().item()
+
+
+def _gate(out, q, k, v, **kw):
+    """The gate's readings: max |out - plain| / (atol + rtol |plain|),
+    and max |out - f64| / max |plain - f64|.  It holds when they are
+    within 1 and F64_RATIO.  Third, the plain op's own reading from
+    float64 in ATTN_TOL units."""
+    plain = flash_prefill_ref(q, k, v, **kw).double()
+    exact = flash_prefill_ref(q.double(), k.double(), v.double(), **kw)
+    f64 = ((out.double() - exact).abs().max() /
+           (plain - exact).abs().max()).item()
+    return _tol_ratio(out, plain), f64, _tol_ratio(plain, exact)
+
+
+def _smoke_layer_qkv():
+    """q/k/v of llama31-8b's smoke attention (4 query heads on 2 KV heads,
+    hd 16) from the JAX package's weights, as the port's whole-prompt
+    attention hands them to the op."""
+    jc = jget("llama31-8b").smoke()
+    tc = tget("llama31-8b").smoke()
+    _, tp = _attention_params(jc, 11)
+    x = np.random.default_rng(11).standard_normal((2, 256, 64))
+    pos = torch.arange(256)[None].expand(2, 256)
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((q, k, v, kw))
+        return flash_prefill_ref(q, k, v, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "flash_prefill", spy)
+        tattn.attention_train(tc, tp, _t(x.astype(np.float32)), pos,
+                              "global")
+    (q, k, v, kw), = seen
+    return q, k, v, dict(scale=kw["scale"], window=kw["window"],
+                         softcap=kw["softcap"])
+
+
+def _scaled_normal(seed, gain, window=0, softcap=0.0):
+    """N(0, 1) q/k/v (BH 8, BKV 2, S 384, hd 128) with q scaled by
+    ``gain``: scores of standard deviation ``gain`` rather than N(0,
+    1)'s.  Up to 3 the plain op's own float32 error stays within a third
+    of ATTN_TOL from float64; from 4 on it nears ATTN_TOL, and on the
+    card's llama31-8b layers it is 2.4 to 3 times ATTN_TOL (see
+    test_attn_tol_of_the_plain_op_is_float32_noise_at_large_scores)."""
+    q, k, v = (_t(a) for a in _inputs(seed, 8, 2, 384, 128))
+    return q * gain, k, v, dict(scale=1 / np.sqrt(128), window=window,
+                                softcap=softcap)
+
+
+_SPLIT_CASES = {
+    "llama31-8b smoke layer": _smoke_layer_qkv,
+    "scores x2": lambda: _scaled_normal(21, 2.0),
+    "scores x3": lambda: _scaled_normal(22, 3.0),
+    "scores x3, window 100": lambda: _scaled_normal(23, 3.0, window=100),
+    "scores x3, softcap 5": lambda: _scaled_normal(24, 3.0, softcap=5.0),
+}
+
+
+def test_tf32_rounding_is_exact_on_bf16_and_rounds_ties_away():
+    """Every bf16 value (all 65536 bit patterns) is exact in TF32, so the
+    kernel's bf16 inputs need no small part; a tie rounds away from zero,
+    as cvt.rna does."""
+    bf16 = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).float()
+    assert torch.equal(_tf32(bf16).view(torch.int32), bf16.view(torch.int32))
+    one = 1.0 + 2.0 ** -11                       # halfway between TF32s
+    x = torch.tensor([one, -one, one - 2.0 ** -23, 1.0 + 2.0 ** -10])
+    assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                 1.0, 1.0 + 2.0 ** -10]
+
+
+def test_split_keeps_x_to_2_pow_minus_21():
+    """big + small recovers x to 2^-21 |x| over 60 decades, both parts
+    TF32 (their 13 low mantissa bits zero)."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(200_000) *
+         10.0 ** rng.uniform(-30, 30, 200_000)).astype(np.float32)
+    big, small = _split(_t(x))
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    resid = np.abs(x.astype(np.float64) - big.double().numpy() -
+                   small.double().numpy())
+    assert (resid <= 2.0 ** -21 * np.abs(x.astype(np.float64))).all()
+
+
+@pytest.mark.parametrize("label", list(_SPLIT_CASES))
+def test_3xtf32_attention_meets_the_card_gates(label):
+    """The 3-product split through the whole attention stays within
+    ATTN_TOL of the plain op and within F64_RATIO of its distance from
+    float64."""
+    q, k, v, kw = _SPLIT_CASES[label]()
+    ratio, f64, _ = _gate(_tf32_prefill(q, k, v, **kw), q, k, v, **kw)
+    assert ratio <= 1.0 and f64 <= F64_RATIO, (ratio, f64)
+
+
+@pytest.mark.parametrize("label", list(_SPLIT_CASES))
+def test_1xtf32_attention_fails_the_card_gates(label):
+    """TF32 alone (big x big) keeps ~3 digits: on the same inputs it is
+    far from float64 next to the plain op, so the split is needed."""
+    q, k, v, kw = _SPLIT_CASES[label]()
+    ratio, f64, _ = _gate(_tf32_prefill(q, k, v, products=1, **kw), q, k, v,
+                          **kw)
+    assert ratio > 10 and f64 > 10 * F64_RATIO, (ratio, f64)
+
+
+def test_attn_tol_of_the_plain_op_is_float32_noise_at_large_scores():
+    """At scores x8 (seed 22) the plain op's own float32 error is more
+    than ATTN_TOL from float64, so the 3-product split, closer to
+    float64 than the plain op, still reads more than ATTN_TOL from it:
+    within ATTN_TOL of the plain op then asks for the plain op's float32
+    score rounding, not for accuracy."""
+    q, k, v, kw = _scaled_normal(22, 8.0)
+    ratio, f64, plain_ratio = _gate(_tf32_prefill(q, k, v, **kw), q, k, v,
+                                    **kw)
+    assert plain_ratio > 1.0 and ratio > 1.0 and f64 < 1.0, \
+        (plain_ratio, ratio, f64)

@@ -22,7 +22,13 @@ Phases, in order; the first failure raises and the script exits non-zero:
               case and an edge: ties, or a ring whose dead rows hold NaN in
               scales and fp8 payloads), SOCKET's and hard LSH's selections
               also equal to their own on the f32 pages; int8 and fp8 are
-              timed as entries ``name[int8]``, ``name[fp8]``.  The ring
+              timed as entries ``name[int8]``, ``name[fp8]``.  SOCKET and
+              hard LSH also run, on every pool, the cases of the cluster
+              split (32K contexts, selected ties across ranks, idle ranks,
+              pooled selection), each logged with the split it ran (C,
+              clusters the card holds at once, shared memory a CTA); the
+              tie case must put selected ties on two ranks or more, the
+              idle case leave a rank idle.  The ring
               kernel's yardstick is timed twice: SDPA over views gathered
               beforehand, and the gather, mask and SDPA as one callable
               (``library_with_gather_ms``).  The prefill
@@ -622,8 +628,22 @@ def flash_prefill_rows(dev, seed):
 
 # The fused paged kernels' cases: the continuous phase's shapes first
 # (8 KV heads, G=4, hd=128, bs=16; contexts 1-4K, a 264-block table), then
-# the edges.
+# the edges.  SOCKET's and hard LSH's last four exercise the cluster split
+# of paged_attention.cu: 32K contexts (several tiles a rank), a tie-heavy
+# case at sparsity 2 whose selected ties span ranks, requests shorter
+# than one rank's range (whole ranks idle), pooled selection (GS 1).
 MAIN_LENS = [1024, 2048, 3072, 4096, 1024, 2048, 3072, 4096]
+_CLUSTER_CASES = [
+    ("32K contexts", dict(lengths=[32768, 20000, 9000, 32000], nb=2048)),
+    ("ties across ranks", dict(lengths=[600, 1500, 2900, 333], nb=200,
+                               sink=16, window=16, ties=True,
+                               sparsity=2.0)),
+    ("idle ranks", dict(lengths=[5, 4096, 17, 1000], nb=264)),
+    ("pooled GS 1", dict(lengths=MAIN_LENS, nb=264, pooled=True)),
+]
+# the cases also run on stored pools (bf16, int8, fp8)
+STORED_CASES = ("main path", "tie-heavy") + tuple(c[0] for c in
+                                                  _CLUSTER_CASES)
 PAGED_CASES = {
     "paged_attention": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -637,6 +657,7 @@ PAGED_CASES = {
         ("gemma3 global layers, KVH 16 G 2",
          dict(lengths=[2080, 3104, 4128, 6176, 2079, 3103, 4127, 6175],
               nb=392, kvh=16, g=2)),
+        *_CLUSTER_CASES,
     ],
     "paged_hard_lsh": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -646,6 +667,7 @@ PAGED_CASES = {
                            ties=True)),
         ("l=37 unaligned tables", dict(lengths=[33, 600, 1500, 57], nb=96,
                                        l=37, sink=16, window=16)),
+        *_CLUSTER_CASES,
     ],
     "paged_quest": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -792,6 +814,36 @@ def paged_kernels():
     }
 
 
+def cluster_note(name, label, case, args, sel) -> str:
+    """The cluster split ``paged_attention.cu`` ran ``case`` with, and
+    that the cluster cases exercise it: selected ties of one (request,
+    head) on two or more ranks; ranks with no live block."""
+    from repro_torch.kernels.paged_attention import cases, ops as pa
+    q, kp, bits, qhash, bt, length, budget = (case[0], case[1], case[3],
+                                               case[5], case[6], case[7],
+                                               case[8])
+    plan = pa.paged_attention_plan(q, kp, bits, qhash, bt,
+                                   hard=name == "paged_hard_lsh")
+    c, bs = plan["cluster"], bits.shape[2]
+    note = (f"C {c} ({plan['clusters_at_once']} clusters at once), "
+            f"{plan['smem_bytes']} B a CTA, {plan['stages']} K/V stages")
+    if label == "ties across ranks" and name == "paged_attention":
+        eff = cases.plain_eff(case, args).cpu()
+        spread = cases.tie_ranks(eff, sel.reshape(eff.shape).cpu(),
+                                 length.cpu(), budget.cpu(), bs=bs, c=c)
+        if spread < 2:
+            raise AssertionError("the tie case's selected ties lie on one "
+                                 "rank: it does not test the carried count")
+        note += f"; selected ties on up to {spread} ranks"
+    if label == "idle ranks":
+        idle = sum(r0 == r1 for n in length.tolist()
+                   for r0, r1 in cases.cta_ranges(n, bs, c))
+        if not idle:
+            raise AssertionError("the idle-ranks case left no rank idle")
+        note += f"; {idle} idle ranks"
+    return note
+
+
 def paged_rows(dev, seed, kv_dtype="auto"):
     """Each fused paged kernel against its plain version at the continuous
     path's shapes and edges, its pool's K/V pages stored as ``kv_dtype``
@@ -807,8 +859,7 @@ def paged_rows(dev, seed, kv_dtype="auto"):
         gen = torch.Generator(device=dev).manual_seed(seed + offset)
         quest = name == "paged_quest"
         for label, kw in PAGED_CASES[name]:
-            if kv_dtype != "auto" and not label.startswith(("main path",
-                                                             "tie-heavy")):
+            if kv_dtype != "auto" and not label.startswith(STORED_CASES):
                 continue
             sets, args = build(gen, **kw)
             out32, sel32 = None, None
@@ -831,6 +882,8 @@ def paged_rows(dev, seed, kv_dtype="auto"):
                 raise AssertionError(f"[{kv_dtype}, {label}] {e}") from None
             if sel32 is not None:
                 note += "; selection equal to the f32 pages' bit for bit"
+            if not quest:
+                note += "; " + cluster_note(name, label, sets[0], args, sel)
             log(f"{name} [{kv_dtype}, {label}] lengths {kw['lengths']}: "
                 f"max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
                 f"{ATTN_TOL['atol']}); {note}")

@@ -2,13 +2,15 @@
 its plain version, shared by ``chip_smoke.py`` and the card tests
 (``tests/test_torch_cuda.py``).
 
-SOCKET (:func:`paged_case`, :func:`check_paged`): the output within
-``attn_tol`` of the plain version's, the count of selected rows exactly
-``min(budget, length)`` per (request, head), and the selection equal to
-the plain version's — bit for bit where all scores tie exactly,
+SOCKET (:func:`paged_case`, :func:`check_paged`): the count of selected
+rows exactly ``min(budget, length)`` per (request, head), the selection
+equal to the plain version's — bit for bit where all scores tie exactly,
 elsewhere except at rows whose plain effective score lies within
-``score_tol`` of the threshold (the kernel sums the same fp32 terms in
-another order).
+``score_tol`` of the threshold (the kernel forms each term as
+exp(a) * exp(b) from its split tables, a few ulps from exp(a + b), and
+sums in another order) — and the output within ``attn_tol`` of the plain
+version's; where rows inside that band were swapped, of the plain
+attention over the kernel's own selection (``ref.attend_selected``).
 
 Hard LSH (:func:`hard_lsh_case`, :func:`check_hard_lsh`): collision
 counts are exact, so the selection must equal the plain version's bit
@@ -44,8 +46,8 @@ import torch
 from repro_torch.baselines import quest as quest_mod
 from repro_torch.core import hashing, socket as sk
 from repro_torch.kernels.paged_attention.ref import (
-    paged_hard_lsh_attend_ref, paged_quest_attend_ref, paged_ring_attend_ref,
-    paged_socket_attend_ref)
+    attend_selected, paged_hard_lsh_attend_ref, paged_quest_attend_ref,
+    paged_ring_attend_ref, paged_socket_attend_ref)
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 from repro_torch.models.backends import kvquant
 from repro_torch.models.backends.base import gather_block_leaf
@@ -53,7 +55,8 @@ from repro_torch.models.backends.base import gather_block_leaf
 __all__ = ["paged_case", "plain_eff", "check_paged", "hard_lsh_case",
            "plain_hard_eff", "check_hard_lsh", "quest_case", "check_quest",
            "RING_CASES", "ring_live", "ring_case", "plain_ring",
-           "check_ring", "store_kv"]
+           "check_ring", "store_kv", "sort_key", "split_table_scores",
+           "cta_ranges", "cluster_select", "tie_ranks"]
 
 
 def store_kv(sets, kv_dtype: str, *, quest: bool = False):
@@ -106,16 +109,20 @@ def store_kv(sets, kv_dtype: str, *, quest: bool = False):
 def paged_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
                kvh: int = 8, g: int = 4, hd: int = 128, l: int = 60,
                p: int = 10, bs: int = 16, sink: int = 128, window: int = 128,
-               ties: bool = False, copies: int = 1) -> Tuple[List, dict]:
+               ties: bool = False, pooled: bool = False,
+               sparsity: float = 10.0, copies: int = 1
+               ) -> Tuple[List, dict]:
     """Pool, block tables and queries on ``gen``'s device; budgets from
-    ``dynamic_topk_budget`` (sparsity 10).  Returns ``(sets, kw)``: each
+    ``dynamic_topk_budget`` at ``sparsity``.  Returns ``(sets, kw)``: each
     set is the positional arguments ``(q, k_pages, v_pages, bits, vnorm,
     u, block_table, length, budget)``, ``kw`` the keyword ones.
 
     ``copies`` sets share one pool, each set's requests on blocks of
     their own (so rotating through the sets reads fresh memory); tables
     are trash-padded (block 0) past each request's blocks.  ``ties``:
-    every bits and vnorm row identical, so all scored rows tie exactly."""
+    every bits and vnorm row identical, so all scored rows tie exactly.
+    ``pooled``: one query hash per KV head (GS 1, of the group's mean
+    query), as pooled selection hashes."""
     dev = gen.device
     b, w = len(lengths), hashing.num_words(l, p)
     need = [-(-n // bs) for n in lengths]
@@ -133,7 +140,8 @@ def paged_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
         vnorm[:] = vnorm[1, 0, 0]
     planes = torch.randn((l, p, hd), generator=gen, device=dev)
     scfg = sk.SocketConfig(num_planes=p, num_tables=l, tau=0.4,
-                           sink_tokens=sink, window_tokens=window)
+                           sink_tokens=sink, window_tokens=window,
+                           sparsity=sparsity)
     length = torch.tensor(lengths, dtype=torch.int32, device=dev)
     budget = sk.dynamic_topk_budget(scfg, length,
                                     sk.topk_budget(scfg, nb * bs)).to(dev)
@@ -144,7 +152,8 @@ def paged_case(gen: torch.Generator, lengths: Sequence[int], *, nb: int,
             bt[i, :k] = ids[off:off + k]
             off += k
         q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
-        u = sk.soft_hash_query(planes, q)                # (B, KVH, G, L, P)
+        u = sk.soft_hash_query(planes, q.mean(dim=2, keepdim=True)
+                               if pooled else q)          # (B, KVH, GS, L, P)
         sets.append((q, k_pages, v_pages, bits, vnorm, u, bt, length,
                      budget))
     kw = dict(num_tables=l, num_planes=p, tau=0.4, scale=hd ** -0.5,
@@ -177,36 +186,41 @@ def check_paged(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
                 scales=None) -> Tuple[float, int]:
     """Hold the kernel's ``(out, sel)`` on ``case`` (its K/V pages'
     ``scales`` as :func:`store_kv` gives them) to the plain version (see
-    the module docstring); raises AssertionError on a mismatch.  Returns
-    (max |out error|, selected rows that differ inside the threshold
-    band)."""
+    the module docstring): the selection first, then the output, against
+    the plain attention over the kernel's selection where rows inside the
+    threshold band were swapped.  Raises AssertionError on a mismatch.
+    Returns (max |out error|, selected rows that differ inside the
+    threshold band)."""
     q, kp, vp, bits, vnorm, u, bt, length, budget = case
     n = bt.shape[1] * bits.shape[2]
     ref, ref_sel = paged_socket_attend_ref(
         q, kp, vp, bits, vnorm, u, bt, length=length, budget=budget,
         top_k=min(n, int(budget.max())), **kw, **(scales or {}))
-    err = _check_out("paged_attention", out, ref, attn_tol)
     sel = sel.reshape(*sel.shape[:2], -1).bool()
     want = torch.minimum(budget.long(), length.long())[:, None]
     if not torch.equal(sel.sum(-1), want.expand(-1, sel.shape[1])):
         raise AssertionError("paged_attention: selected-row counts differ "
                              "from min(budget, length)")
     diff = sel != ref_sel
-    if not diff.any():
-        return err, 0
-    if ties:
-        raise AssertionError("paged_attention: tied scores must select bit "
-                             "for bit")
-    eff = plain_eff(case, kw)
-    k = (budget.long() - 1).clamp(max=n - 1).reshape(-1, 1, 1)
-    thr = torch.sort(eff, dim=-1, descending=True).values.gather(
-        -1, k.expand(-1, eff.shape[1], 1))
-    close = (eff - thr).abs() <= score_tol["atol"] + \
-        score_tol["rtol"] * thr.abs()
-    if (diff & ~close).any():
-        raise AssertionError("paged_attention: selection differs beyond the "
-                             "threshold band")
-    return err, int(diff.sum().item())
+    near = int(diff.sum().item())
+    if near:
+        if ties:
+            raise AssertionError("paged_attention: tied scores must select "
+                                 "bit for bit")
+        eff = plain_eff(case, kw)
+        k = (budget.long() - 1).clamp(max=n - 1).reshape(-1, 1, 1)
+        thr = torch.sort(eff, dim=-1, descending=True).values.gather(
+            -1, k.expand(-1, eff.shape[1], 1))
+        close = (eff - thr).abs() <= score_tol["atol"] + \
+            score_tol["rtol"] * thr.abs()
+        if (diff & ~close).any():
+            raise AssertionError("paged_attention: selection differs beyond "
+                                 "the threshold band")
+        # rows swapped inside the band: the output is held to the plain
+        # attention over the kernel's own selection
+        ref = attend_selected(q, kp, vp, bt, sel, scale=kw["scale"],
+                              **(scales or {}))
+    return _check_out("paged_attention", out, ref, attn_tol), near
 
 
 def _check_out(name: str, out: torch.Tensor, ref: torch.Tensor,
@@ -389,6 +403,141 @@ def check_quest(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
         raise AssertionError("paged_quest: selection differs from the plain "
                              "version's (it must select bit for bit)")
     return err
+
+
+# ---- the SOCKET kernel's algorithm in plain torch ---------------------
+# (paged_attention.cu: split-table scoring, the per-rank 8-bit-digit
+# select; the CPU tests hold these to the JAX package)
+
+def sort_key(eff: torch.Tensor) -> torch.Tensor:
+    """The kernels' order-preserving f32 -> uint32 map, as int64."""
+    u = eff.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(u >> 31 == 1, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+
+
+def split_table_scores(bits: torch.Tensor, u: torch.Tensor, *,
+                       num_tables: int, num_planes: int,
+                       tau: float) -> torch.Tensor:
+    """SOCKET scores ``(BH, N)`` f32 as the kernel forms them: bits int32
+    ``(BH, N, W)``, u ``(BH, GS, L, P)``.  Each (g, l) gets two f32
+    tables over the low ceil(P/2) and high floor(P/2) planes,
+    ``T_lo[c] = exp(sum_j +-u_j / tau - logZ)`` and ``T_hi[c] =
+    exp(sum_j +-u_j / tau)`` (logZ from ``log_normalizer``, as the wrapper
+    computes it); a term is ``T_lo[lo] * T_hi[hi]``, summed over the
+    tables in order, then over the groups."""
+    l, p = num_tables, num_planes
+    lo_bits = (p + 1) // 2
+    logz = sk.log_normalizer(u, tau)                       # (BH, GS, L)
+    code = torch.arange(1 << lo_bits)
+    sign = (code[:, None] >> torch.arange(lo_bits)) & 1    # (2^lo, lo)
+    sign = sign.float() * 2 - 1
+
+    def table(planes):                                     # (BH, GS, L, 2^n)
+        n = planes.shape[-1]
+        s = torch.zeros((*planes.shape[:-1], 1 << n))
+        for j in range(n):                                 # plane order
+            s = s + sign[:1 << n, j] * planes[..., j:j + 1]
+        return s / tau
+
+    t_lo = torch.exp(table(u[..., :lo_bits]) - logz[..., None])
+    t_hi = torch.exp(table(u[..., lo_bits:]))
+    words = bits.long() & 0xFFFFFFFF                       # (BH, N, W)
+    flat = (words[..., :, None] >> torch.arange(32)) & 1
+    flat = flat.reshape(*bits.shape[:2], -1)[..., :l * p].reshape(
+        *bits.shape[:2], l, p)
+    codes = (flat << torch.arange(p)).sum(-1)              # (BH, N, L)
+    lo = codes & ((1 << lo_bits) - 1)
+    hi = codes >> lo_bits
+    bh, n = bits.shape[:2]
+    score = torch.zeros((bh, n))
+    for gg in range(u.shape[1]):
+        sg = torch.zeros((bh, n))
+        for tb in range(l):
+            a = torch.gather(t_lo[:, gg, tb], 1, lo[..., tb])
+            b = torch.gather(t_hi[:, gg, tb], 1, hi[..., tb])
+            sg = sg + a * b
+        score = score + sg
+    return score
+
+
+def cta_ranges(length: int, bs: int, c: int) -> List[Tuple[int, int]]:
+    """The token range ``[r0, r1)`` of each of the C ranks of a request:
+    rank r owns the r-th run of ceil(blocks / C) of its live blocks."""
+    used = -(-max(length, 0) // bs)
+    per = -(-used // c)
+    return [(min(length, r * per * bs), min(length, (r + 1) * per * bs))
+            for r in range(c)]
+
+
+def cluster_select(eff: torch.Tensor, length, budget, *, bs: int,
+                   c: int) -> torch.Tensor:
+    """The selection ``(B, KVH, N)`` bool of ``eff`` (the plain effective
+    scores, rows past length -1e30) as C ranks find it: four rounds of
+    8-bit digits, each a histogram per rank of the keys matching the
+    prefix so far, summed over the ranks with the rows past length
+    counted once; then rank r counts its ties from the keys equal to the
+    threshold in ranks < r (the last round's bins)."""
+    b, kvh, n = eff.shape
+    keys = sort_key(eff)
+    k_inv = int(sort_key(torch.tensor([sk.NEG_INF]))[0])
+    sel = torch.zeros((b, kvh, n), dtype=torch.bool)
+    for i in range(b):
+        ln, bud = int(length[i]), int(budget[i])
+        ranges = cta_ranges(ln, bs, c)
+        for h in range(kvh):
+            ranks = [keys[i, h, r0:r1] for r0, r1 in ranges]
+            prefix, above, hists = 0, 0, None
+            for rnd in (3, 2, 1, 0):
+                shift = 8 * rnd
+                hi_mask = 0 if rnd == 3 else (0xFFFFFFFF << (shift + 8)) \
+                    & 0xFFFFFFFF
+                hists = []
+                for kr in ranks:
+                    m = kr[((kr ^ prefix) & hi_mask) == 0]
+                    hists.append(torch.bincount((m >> shift) & 0xFF,
+                                                minlength=256))
+                tot = sum(hists)
+                if (k_inv ^ prefix) & hi_mask == 0:
+                    tot[(k_inv >> shift) & 0xFF] += n - ln
+                digit, gt = 0, above + int(tot[1:].sum())
+                run = above
+                for d in range(255, -1, -1):
+                    if run + int(tot[d]) >= bud:
+                        digit, gt = d, run
+                        break
+                    run += int(tot[d])
+                prefix |= digit << shift
+                above = gt
+            thr, ties_needed = prefix, bud - above
+            seen = 0
+            for (r0, r1), kr, hist in zip(ranges, ranks, hists):
+                eq = kr == thr
+                rank_eq = seen + torch.cumsum(eq.long(), 0) - eq.long()
+                sel[i, h, r0:r1] = ((kr > thr) | (eq & (rank_eq <
+                                                        ties_needed))) & \
+                    (eff[i, h, r0:r1] > -5e29)
+                seen += int(hist[thr & 0xFF])
+    return sel
+
+
+def tie_ranks(eff: torch.Tensor, sel: torch.Tensor, length, budget, *,
+              bs: int, c: int) -> int:
+    """The most ranks over which one (request, head)'s selected rows that
+    tie at the threshold lie (2 or more: the tie count crosses ranks)."""
+    most = 0
+    b, kvh, n = eff.shape
+    keys = sort_key(eff)
+    for i in range(b):
+        ranges = cta_ranges(int(length[i]), bs, c)
+        for h in range(kvh):
+            chosen = keys[i, h][sel[i, h]]
+            if not len(chosen):
+                continue
+            thr = chosen.min()
+            tied = sel[i, h] & (keys[i, h] == thr)
+            most = max(most, sum(bool(tied[r0:r1].any())
+                                 for r0, r1 in ranges))
+    return most
 
 
 # The ring kernel's card cases (chip_smoke.py and the card tests): the

@@ -31,7 +31,6 @@ from pathlib import Path
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import socket as sk
 from repro_torch.kernels import build
@@ -40,6 +39,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_socket_attend_ref)
 
 __all__ = ["paged_socket_attend", "launch_paged_socket_attend",
+           "paged_attention_plan",
            "paged_hard_lsh_attend", "launch_paged_hard_lsh_attend",
            "paged_quest_attend", "launch_paged_quest_attend",
            "paged_ring_attend", "launch_paged_ring_attend", "KV_TYPES",
@@ -73,7 +73,33 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.paged_socket_attend_error_string.argtypes = [ctypes.c_int]
     lib.paged_socket_attend_error_string.restype = ctypes.c_char_p
+    lib.paged_socket_attend_plan.argtypes = [_I] * 12 + [_P]
+    lib.paged_socket_attend_plan.restype = ctypes.c_int
     return lib
+
+
+def paged_attention_plan(q, k_pages, bits_pages, qhash, block_table, *,
+                         hard: bool = False) -> dict:
+    """How ``paged_attention.cu`` launches on these shapes (CUDA only):
+    ``cluster``, the C ranks a (request, KV head) is split over (the
+    largest whose B * KVH clusters the card holds at once, at most one
+    rank a 512 table positions; else the fewest waves times positions a
+    rank); ``smem_bytes`` a CTA; ``clusters_at_once`` at that C;
+    ``stages``, the K/V chunk stages of the attend pass."""
+    q, _ = _split_q(q)
+    b, kvh, g, hd = q.shape
+    bs, w = bits_pages.shape[2:]
+    gs, l, p = qhash.shape[2:]
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(q.device):
+        err = _library().paged_socket_attend_plan(
+            int(hard), KV_TYPES[k_pages.dtype], b, kvh, g, gs, hd, bs, w,
+            block_table.shape[1], l, p, info)
+    if err != 0:
+        raise RuntimeError("paged_attention plan failed: " + _library()
+                           .paged_socket_attend_error_string(err).decode())
+    return dict(zip(("cluster", "smem_bytes", "clusters_at_once", "stages"),
+                    info))
 
 
 def _quest_library() -> ctypes.CDLL:
@@ -211,17 +237,13 @@ def _launch_fused(hard: bool, q, k_pages, v_pages, bits_pages, vnorm_pages,
         if p >= 32:
             raise ValueError(f"P={p} planes do not fit a 32-bit sign "
                              "pattern")
-        # the kernel packs each (g, l) sign pattern itself, over the L
-        # real tables only
-        hashes, tables = [qhash.contiguous()], l
+        # the kernel packs each (g, l) sign pattern itself
+        hashes = [qhash.contiguous()]
     else:
-        # the wrapper computes logZ (paged_attention.py:323-328); padded
-        # tables get u = 0 and logZ = 1e30, so they add exp(-1e30) = 0
-        l_pad = (w * 32) // p
-        logz = sk.log_normalizer(qhash, tau)                 # (B,KVH,GS,L)
-        hashes = [F.pad(qhash, (0, 0, 0, l_pad - l)).contiguous(),
-                  F.pad(logz, (0, l_pad - l), value=1e30).contiguous()]
-        tables = l_pad
+        # the wrapper computes logZ (paged_attention.py:323-328); the
+        # kernel scores the L real tables only
+        hashes = [qhash.contiguous(),
+                  sk.log_normalizer(qhash, tau).contiguous()]  # (B,KVH,GS,L)
     bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
     length, budget = _per_request(length, b, dev), _per_request(budget, b, dev)
     out, sel, eff = _outputs(q, nb, bs, nb * bs, with_selection)
@@ -230,7 +252,7 @@ def _launch_fused(hard: bool, q, k_pages, v_pages, bits_pages, vnorm_pages,
         tensors = [q.contiguous(), *_pools(k_pages, v_pages, k_scale, v_scale),
                    bits_pages.contiguous(), vnorm_pages.contiguous(), *hashes,
                    bt, length, budget, out]
-        shape = (kv_type, b, kvh, g, gs, hd, bs, w, nb, tables, p)
+        shape = (kv_type, b, kvh, g, gs, hd, bs, w, nb, l, p)
         if hard:
             _call(lib.paged_hard_lsh_attend_launch, "paged_hard_lsh",
                   lib.paged_socket_attend_error_string, [*tensors, sel, eff],

@@ -5,112 +5,299 @@
 // paged_attention.py (_fused_kernel with mode="socket", launched by
 // _fused_call from paged_attention_pallas) and, as Mode::kHardLsh, the
 // same kernel's mode="hard_lsh" reached from paged_hard_lsh.py
-// (paged_hard_lsh_pallas).  For one decode step of the
-// continuous engine it runs, per (request b, KV head h), the whole SOCKET
-// decode pipeline over the request's pages, reached through its block table:
+// (paged_hard_lsh_pallas).  For one decode step of the continuous engine
+// it runs, per (request b, KV head h), the whole SOCKET decode pipeline
+// over the request's pages, reached through its block table:
 //
 //   1. score:  for every logical token t < length[b], follow
 //              bt[b, t / bs], unpack the token's packed sign words, form
 //                eff[t] = vnorm[t] * sum_g sum_l exp(<S_tl, u_gl> / tau - logZ_gl)
-//              and overlay the forced sink/window rows with FLT_MAX (rows at
-//              or past length are -1e30 and are not scored);
-//   2. select: a 32-step MSB-first radix descent over the order-preserving
-//              uint32 keys of eff finds the budget-th largest key thr, and
-//              ties_needed = budget - count(key > thr);
-//   3. attend: walk the tokens in logical order; token t is selected iff
-//              key > thr, or key == thr and fewer than ties_needed equal keys
-//              precede it (jax.lax.top_k's lowest-index-first order), and
-//              eff > -5e29.  Selected K/V rows fold into an fp32 online
-//              softmax (m, l, acc) for the G query heads of the group; the
-//              output is acc / max(l, 1e-30).
+//              over the L real tables, and overlay the forced sink/window
+//              rows with FLT_MAX (rows at or past length are -1e30 and are
+//              not scored);
+//   2. select: the budget-th largest order-preserving uint32 key thr of
+//              eff, and ties_needed = budget - count(key > thr);
+//   3. attend: token t is selected iff key > thr, or key == thr and fewer
+//              than ties_needed equal keys precede it (jax.lax.top_k's
+//              lowest-index-first order), and eff > -5e29.  Selected K/V
+//              rows fold into an fp32 online softmax (m, l, acc) for the G
+//              query heads of the group; the output is acc / max(l, 1e-30).
 //
 // K/V pages are f32, bf16, int8 or fp8 e4m3fn (the _fused_kernel's
 // `quantized` branch, paged_attention.py:176-180): with the per-row scale
-// pools k_scale / v_scale each selected row is dequantized in-register as
-// float(q) * scale[row] (paged_common.cuh's fold_rows, a template on the
-// element type).  Scoring reads only bits and vnorm, so the selection on
-// quantized pages is bit for bit the selection on f32 pages.
+// pools k_scale / v_scale each selected row is dequantized as
+// float(q) * scale[row].  Scoring reads only bits and vnorm, so the
+// selection on quantized pages is bit for bit the selection on f32 pages.
 //
 // Hard LSH (Mode::kHardLsh) differs in the score term only: a table
 // collides when the key's P-bit field equals the query's sign pattern
 // (bit j set where the query's plane-j sign u_signs[g, l, j] is +1, packed
 // per (g, l) while the block stages it in shared memory), and
 //   eff[t] = vnorm[t] * sum_g sum_{l < L} 1[field_tl == pattern_gl],
-// one integer compare per (token, g, l) over the L real tables only (a
-// compare against a zero pattern would count the padded tables, whose
-// key bits are 0).  The counts are small integers, exact in f32, so the
-// scores and the selection equal the plain version's bit for bit.  The
-// hard-LSH pass moves the same bytes as the SOCKET one and is bound by
-// them.
+// one integer compare per (token, g, l).  The counts are small integers,
+// exact in f32, so the scores and the selection equal the plain version's
+// bit for bit.
 //
 // Selection is exactly repro.core.socket.value_aware_topk's; nothing but the
 // output (and, for tests, the selection mask) leaves the kernel except the
 // eff scratch (B, KVH, nb*bs) f32 in device memory, which the wrapper
-// allocates: shared memory would cap the context near 56K tokens.
+// allocates and which stays in L2: it serves every context the engine
+// admits, where shared memory would cap it.
 //
 // What bounds it on this card: bytes.  The function must read, per request
 // and head, the bits and vnorm of every scored token (W*4 + 2 bytes: 82 B at
 // P=10, L=60; the sink and window rows are selected by position and need
-// neither, nor does any row of a request whose budget is no more than its
-// sink and window rows) and only the selected K/V rows, forced ones
-// included (2*hd*4 bytes each: 1 KB at hd=128 in fp32; 2*(hd+4) bytes, 264 B,
-// as int8 or fp8 with their scales).  At the continuous
-// path (8 requests of 1-4K tokens, 8 KV heads, 256-410 rows selected per
-// request and head; the 1K and 2K requests select only their 256 forced
-// rows) that is 8.7 MB of bits/vnorm plus 20.2 MB of K/V rows: ~9 us at
-// 3.35 TB/s.  The kernel itself also reads the forced rows' bits (it
-// loads whole tiles) and scores every request.  The scoring needs one FMA per (scored token, g, l)
-// with P split into table lookups; this simple kernel spends G*l_pad*P
-// sign-adds and G*l_pad exponentials per token, like socket_score.cu, so
-// its score pass is bound by its own operations.
+// neither) and only the selected K/V rows (2*hd*4 bytes each in fp32;
+// 2*(hd+4) as int8 or fp8 with their scales): at the continuous path (8
+// requests of 1-4K tokens, 8 KV heads) 8.7 MB of bits/vnorm plus 20.2 MB
+// of K/V rows, ~9 us at 3.35 TB/s.  The scoring needs one FMA per (scored
+// token, g, l) once P is split into table lookups, which this kernel does.
 //
-// What the design does about it (a simple, right first version):
-//   * grid = (KVH, B), one block of 512 threads per (request, head): the
-//     TPU's sequential page axis becomes loops inside the block, and 16
-//     warps per block hide the latency of the score pass's chains;
-//   * u and logZ (padded tables: u = 0, logZ = 1e30, computed by the
-//     wrapper), or hard LSH's sign patterns, and q are staged in shared
-//     memory and read as broadcasts;
-//   * bit rows are copied tile by tile into shared memory with coalesced
-//     32-bit loads through the block table (a page's rows are contiguous);
-//   * rows at or past length are never read: their key is a constant, so
-//     the radix counts add n_total - length where it applies;
-//   * the attend pass compacts each tile's selected tokens (block-wide
-//     scans) with their pool row indices, scores them one warp per row
-//     with coalesced K loads, and accumulates P.V with threads over
-//     (g, d), so only selected K/V rows are read.
-// Faster versions (split-P table lookups, more blocks per request, keys kept
-// on chip) are later work.
-//
+// What the design does about it:
+//   * cluster split: grid (C, KVH, B), one thread-block cluster of C CTAs
+//     per (request, head), launched with cudaLaunchKernelEx.  The host
+//     takes the largest C <= 8, and at most one rank per kPositions table
+//     positions, whose B * KVH clusters the card holds at once
+//     (cudaOccupancyMaxActiveClusters, asked once per size; both known
+//     without a device sync); where none does, the C with the fewest
+//     waves times positions a CTA; if no cluster fits, the launch fails.
+//     Rank r owns the r-th contiguous run of the request's live blocks; a
+//     rank past length only takes part in the barriers.  The ranks meet
+//     through distributed shared memory (cluster.sync, map_shared_rank);
+//   * split-table scoring (SOCKET): for each (g, l), two f32 tables over
+//     the low ceil(P/2) and the high floor(P/2) planes,
+//       T_lo[c] = exp(sum_j +-u_j / tau - logZ),  T_hi[c] = exp(sum_j +-u_j / tau),
+//     so a term is T_lo[lo] * T_hi[hi]: two shared-memory lookups and one
+//     FMA, no exponential and no sign-adds.  Each rank builds 1/C of the
+//     tables (a warp a table, the query hash loaded ahead of the bits) and
+//     copies the rest from the other ranks.  Lanes read one table with
+//     arbitrary codes; 32 consecutive words span the 32 banks, so no bank
+//     conflicts.  The tables of (l, g .. g + kG - 1) are adjacent and the
+//     group chunk kG is a template, so a lookup needs no guard and one
+//     add.  exp(a) * exp(b) differs from exp(a + b) by a few ulps: the
+//     scores stay within the kernel check's score tolerance;
+//   * bits: each tile's rows are copied into shared memory with cp.async
+//     (16-byte copies where W % 4 == 0, the forced rows skipped), the
+//     tile's block ids staged once, and a token's fields are shifted out
+//     of a two-word window;
+//   * select: four rounds of 8-bit radix digits.  Each CTA histograms the
+//     digit of its keys that match the prefix so far (warp-aggregated
+//     shared atomics), the cluster sums the C histograms over distributed
+//     shared memory, and every CTA picks the same digit where the count
+//     from the top reaches budget (the n_total - length rows past length
+//     hold one key, sort_key(-1e30), and are counted there).  The result
+//     is the one-bit descent's thr and ties_needed; rank r starts its tie
+//     count at the keys equal to thr in ranks < r (the last round's bins);
+//   * attend: each rank compacts its selected rows in logical order and
+//     writes their pool rows over the consumed head of its eff range; then
+//     every rank folds an even share of the cluster's list, so the sink
+//     and window rows do not pile on ranks 0 and C-1.  K/V rows (and
+//     scales) go to shared memory by cp.async in a ring of chunk stages
+//     (16-byte copies where the row and the pools allow, 8, 4, 2 or 1
+//     otherwise); q.k one warp a row, p.v with threads over (g, d), both
+//     from shared memory; then the C partial (m, l, acc) states merge over
+//     distributed shared memory, each rank writing its share of the output.
+// Barriers a launch: one cluster barrier for the tables (SOCKET), four
+// for the select, one for the lists, two around the merge.
+
 // Layouts (all contiguous): q f32 (B, KVH, G, hd); k/v pages T
 // (NB, KVH, bs, hd) with T per kv_type (paged_common.cuh's KvType); k/v
 // scales f32 (NB, KVH, bs) or null; bits uint32 (NB, KVH, bs, W) (the port stores int32
 // with the same bit pattern; flat bit f = l*P + p is bit f%32 of word f/32);
-// vnorm bf16 (NB, KVH, bs); u_pad f32 (B, KVH, GS, l_pad, P) with GS = G
-// (kvhead) or 1 (pooled); logz_pad f32 (B, KVH, GS, l_pad); hard LSH
-// takes u_signs f32 +-1 (B, KVH, GS, L, P) in u_pad's place and no logZ;
-// bt int32 (B, nb); length, budget int32 (B,).  The pool holds fewer than 2^31 rows
-// (NB * KVH * bs; the wrapper checks), so a row index is an int.
+// vnorm bf16 (NB, KVH, bs); u f32 (B, KVH, GS, L, P) with GS = G (kvhead)
+// or 1 (pooled); logz f32 (B, KVH, GS, L); hard LSH takes u_signs f32 +-1
+// (B, KVH, GS, L, P) in u's place and no logZ; bt int32 (B, nb); length,
+// budget int32 (B,).  The pool holds fewer than 2^31 rows (NB * KVH * bs;
+// the wrapper checks), so a row index is an int.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "paged_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using paged::kNegInf;
-using paged::kThreads;
-using paged::kWarps;
+using paged::kv_to_float;
+using paged::sort_key;
+
+constexpr int kThreads = 512;        // one token a thread in every tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 2;        // CTAs an SM must fit (registers)
+constexpr int kPositions = 512;      // table positions a CTA, choosing C
+constexpr int kMaxCluster = 8;       // the portable cluster size
+constexpr int kGroups = 4;           // query heads a pass over a K row
+constexpr int kChunkRows = 32;       // K/V rows a chunk holds, at most
+constexpr int kChunkBytes = 64 * 1024;   // two stages of K/V chunks, at most
+constexpr int kMaxStages = 8;        // K/V chunks in flight, at most
+constexpr int kBins = 256;           // 8-bit radix digits
+constexpr int kTableBatch = 8;      // tables a warp loads at once
+constexpr unsigned kFull = 0xffffffffu;
+// errors of the launch besides cudaError_t values
+constexpr int kErrClusterFit = -1;
+constexpr int kErrSmem = -2;
 
 // Scoring mode of the fused pass.
 enum class Mode { kSocket, kHardLsh };
 
-template <Mode M, typename T>
-__global__ void __launch_bounds__(kThreads)
+// n / d for n, d < 2^16 as one multiply-high (exact in that range).
+struct FastDiv {
+  uint32_t d, m;
+  __host__ __device__ explicit FastDiv(uint32_t d_)
+      : d(d_), m(d_ > 1 ? 0xffffffffu / d_ + 1 : 0) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    return d > 1 ? static_cast<int>(__umulhi(static_cast<uint32_t>(n), m))
+                 : n;
+  }
+};
+
+// Byte offsets of the shared-memory arrays (all 16-byte aligned).  The
+// score pass's tables and bits tile and the attend pass's ring of K/V
+// chunk stages share one region.
+struct Layout {
+  size_t q, acc, ss, scales, stats, srow, red, hist, misc, blk, tables, bits,
+      kv, kv_buf, total;
+  int stages;
+};
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+__host__ __device__ inline size_t take(size_t* at, size_t bytes) {
+  const size_t o = *at;
+  *at = align16(o + bytes);
+  return o;
+}
+
+// Floats one (g, l) table set takes: 2^ceil(P/2) + 2^floor(P/2) entries
+// rounded up to whole 16-byte words (SOCKET); one sign pattern (hard LSH).
+template <Mode M>
+__host__ __device__ inline int table_stride(int p) {
+  return M == Mode::kSocket
+             ? (((1 << ((p + 1) / 2)) + (1 << (p / 2)) + 3) & ~3)
+             : 1;
+}
+
+template <Mode M>
+__host__ __device__ inline Layout layout(int g, int gs, int hd, int bs,
+                                         int w, int nl, int p, int rows,
+                                         int tsize) {
+  Layout s;
+  size_t o = 0;
+  s.q = take(&o, static_cast<size_t>(g) * hd * 4);
+  s.acc = take(&o, static_cast<size_t>(g) * hd * 4);
+  s.ss = take(&o, static_cast<size_t>(g) * rows * 4);
+  s.scales = take(&o, static_cast<size_t>(2 * kMaxStages) * rows * 4);
+  s.stats = take(&o, static_cast<size_t>(3) * g * 4);
+  s.srow = take(&o, kThreads * 4);
+  s.red = take(&o, (kWarps + 1) * 4);
+  s.hist = take(&o, 2 * kBins * 4);
+  s.misc = take(&o, (4 + kMaxCluster) * 4);
+  s.blk = take(&o, static_cast<size_t>(2) * (kThreads / bs + 2) * 4);
+  size_t score = o;
+  s.tables = take(&score, static_cast<size_t>(gs) * nl * table_stride<M>(p) *
+                              4);
+  s.bits = take(&score, static_cast<size_t>(kThreads) * w * 4);
+  s.kv = o;
+  s.kv_buf = align16(static_cast<size_t>(rows) * hd * tsize);
+  const size_t fit = (score - o) / (2 * s.kv_buf);
+  s.stages = fit < 2 ? 2 : fit > kMaxStages ? kMaxStages : static_cast<int>(fit);
+  const size_t ring = o + 2 * s.kv_buf * s.stages;
+  s.total = score > ring ? score : ring;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  switch (bytes) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(src));
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                   "l"(src));
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                   "l"(src));
+      break;
+    case 2:
+      *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+      break;
+    default:
+      *static_cast<uint8_t*>(dst) = *static_cast<const uint8_t*>(src);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most n of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::);
+  }
+}
+
+// Block-wide exclusive prefix sum in thread order; *total gets the sum.
+// red: kWarps ints.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* red,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += n;
+  }
+  __syncthreads();
+  if (lane == 31) red[warp] = inc;
+  __syncthreads();
+  int before = 0, sum = 0;
+  for (int i = 0; i < kWarps; ++i) {
+    const int r = red[i];
+    if (i < warp) before += r;
+    sum += r;
+  }
+  *total = sum;
+  return before + inc - v;
+}
+
+// A row of packed words in shared memory, read in order: as 16-byte words
+// where the stride allows (w % 4 == 0), else one word at a time.
+struct RowWords {
+  const uint32_t* row;
+  bool quad;
+  uint4 cur;
+  __device__ __forceinline__ uint32_t at(int i) {
+    if (!quad) return row[i];
+    if ((i & 3) == 0) cur = reinterpret_cast<const uint4*>(row)[i >> 2];
+    const int k = i & 3;
+    return k == 0 ? cur.x : k == 1 ? cur.y : k == 2 ? cur.z : cur.w;
+  }
+};
+
+// kG: query-hash groups scored a pass over a token's bits (1, 2 or 4,
+// dividing GS; the host picks the largest)
+template <Mode M, typename T, int kG>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 paged_socket_kernel(const float* __restrict__ q,
                     const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
@@ -119,184 +306,666 @@ paged_socket_kernel(const float* __restrict__ q,
                     const uint32_t* __restrict__ bits_pages,
                     const uint16_t* __restrict__ vnorm_pages,
                     const float* __restrict__ qhash,
-                    const float* __restrict__ logz_pad,
+                    const float* __restrict__ logz,
                     const int* __restrict__ bt,
                     const int* __restrict__ lengths,
                     const int* __restrict__ budgets,
                     float* __restrict__ out, int* __restrict__ sel_out,
                     float* __restrict__ eff_scr, int kvh, int g, int gs,
                     int hd, int bs, int w, int nb, int nl, int p,
-                    float tau, float scale, int sink, int window) {
+                    float tau, float scale, int sink, int window, int rows,
+                    int vec, int bits_vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  paged::Softmax sm_state;
-  int *srow, *red;
-  unsigned char* rest =
-      paged::carve_softmax(smem, g, hd, &sm_state, &srow, &red);
-  // query hash over the nl tables scored (SOCKET: l_pad, hard LSH: L):
-  // u (GS, nl, P) and logZ (GS, nl), or the sign patterns (GS, nl)
-  const int u_words = M == Mode::kSocket ? gs * nl * p : gs * nl;
-  const int z_words = M == Mode::kSocket ? gs * nl : 0;
-  float* su = reinterpret_cast<float*>(rest);
-  uint32_t* spat = reinterpret_cast<uint32_t*>(rest);
-  float* slogz = su + u_words;
-  uint32_t* swords = reinterpret_cast<uint32_t*>(slogz + z_words);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int nranks = static_cast<int>(cluster.num_blocks());
+  const Layout lay = layout<M>(g, gs, hd, bs, w, nl, p, rows, sizeof(T));
+  float* sq = reinterpret_cast<float*>(smem + lay.q);
+  float* sacc = reinterpret_cast<float*>(smem + lay.acc);
+  float* ss = reinterpret_cast<float*>(smem + lay.ss);
+  float* sscale = reinterpret_cast<float*>(smem + lay.scales);
+  float* sm = reinterpret_cast<float*>(smem + lay.stats);   // m, l, alpha
+  float* sl = sm + g;
+  float* salpha = sl + g;
+  int* srow = reinterpret_cast<int*>(smem + lay.srow);
+  int* red = reinterpret_cast<int*>(smem + lay.red);
+  int* shist = reinterpret_cast<int*>(smem + lay.hist);
+  int* smisc = reinterpret_cast<int*>(smem + lay.misc);
+  float* stab = reinterpret_cast<float*>(smem + lay.tables);
+  uint32_t* spat = reinterpret_cast<uint32_t*>(smem + lay.tables);
+  uint32_t* sbits = reinterpret_cast<uint32_t*>(smem + lay.bits);
+  unsigned char* skv = smem + lay.kv;
 
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int n_total = nb * bs;
   const int length = max(0, min(lengths[b], n_total));
   const int budget = budgets[b];
   const size_t bh = static_cast<size_t>(b) * kvh + h;
   const int* btb = bt + static_cast<size_t>(b) * nb;
   float* eff = eff_scr + bh * n_total;
+  // this rank's run of the request's live blocks, as token positions
+  const int used = (length + bs - 1) / bs;
+  const int per = (used + nranks - 1) / nranks;
+  const int r0 = min(length, rank * per * bs);
+  const int r1 = min(length, (rank + 1) * per * bs);
+  const FastDiv div_bs(bs);
+  // the pool row of token t of the tile starting at n0
+  auto pool_row = [&](int n0, int t) {
+    const int o = (n0 % bs) + (t - n0), ob = div_bs(o);
+    return (btb[n0 / bs + ob] * kvh + h) * bs + (o - ob * bs);
+  };
+  auto forced = [&](int t) { return t < sink || t >= length - window; };
+  // the block ids of a tile in shared memory (two buffers: the tile being
+  // scored and the next), so its copies wait on no table load
+  int* sblk = reinterpret_cast<int*>(smem + lay.blk);
+  const int blk_n = kThreads / bs + 2;
+  auto load_blocks = [&](int n0, int* dst) {
+    const int first = n0 / bs;
+    const int last = (min(r1, n0 + kThreads) - 1) / bs + 1;
+    for (int i = tid; i < last - first; i += kThreads) dst[i] = btb[first + i];
+  };
+  auto tile_row = [&](const int* blk, int n0, int t) {
+    const int o = (n0 % bs) + (t - n0), ob = div_bs(o);
+    return (blk[ob] * kvh + h) * bs + (o - ob * bs);
+  };
 
-  const float* ub = qhash + bh * gs * nl * p;
-  if (M == Mode::kSocket) {
-    for (int i = tid; i < u_words; i += kThreads) su[i] = ub[i];
-    const float* lb = logz_pad + bh * z_words;
-    for (int i = tid; i < z_words; i += kThreads) slogz[i] = lb[i];
+  // ---- 0. the query hash's first loads; q; the first tile's bits; this
+  // rank's share of the tables
+  const int lo_bits = (p + 1) / 2, n_lo = 1 << lo_bits;
+  const uint32_t lo_mask = n_lo - 1u;
+  const int stride = table_stride<M>(p), tables = gs * nl;
+  const float* ub = qhash + bh * tables * p;
+  // one warp a (g, l), kTableBatch of them at once: rank r builds tables
+  // r + C * warp + C * kWarps * k; their u and logZ loads go out first,
+  // ahead of the bits
+  const int step = nranks * kWarps;
+  int gl0 = rank + nranks * warp;
+  float uj[kTableBatch], z[kTableBatch];
+  if constexpr (M == Mode::kSocket) {
+#pragma unroll
+    for (int k = 0; k < kTableBatch; ++k) {
+      const int gl = gl0 + k * step, at = (gl % gs) * nl + gl / gs;
+      uj[k] = gl < tables && lane < p ? ub[at * p + lane] : 0.f;
+      z[k] = gl < tables ? logz[bh * tables + at] : 0.f;
+    }
+  }
+  if (r0 < r1) load_blocks(r0, sblk);
+  const float* qb = q + bh * g * hd;
+  for (int i = tid; i < g * hd; i += kThreads) {
+    sq[i] = qb[i];
+    sacc[i] = 0.f;
+  }
+  if (tid < g) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.f;
+  }
+  __syncthreads();                        // the first tile's block ids in
+  // the tile's rows at stride w, in bits_vec-word copies (4 where w and the
+  // pool allow); a copy never crosses a row
+  const int units = w / bits_vec;
+  const FastDiv div_units(units);
+  const bool fast_units = kThreads * units <= 65536;
+  auto stage_bits = [&](int n0, const int* blk) {
+    const int n = min(kThreads, r1 - n0);
+    for (int i = tid; i < n * units; i += kThreads) {
+      const int r = fast_units ? div_units(i) : i / units, t = n0 + r;
+      if (forced(t)) continue;
+      const int word = (i - r * units) * bits_vec;
+      cp_async(sbits + r * w + word,
+               bits_pages + static_cast<size_t>(tile_row(blk, n0, t)) * w +
+                   word,
+               4 * bits_vec);
+    }
+    cp_async_commit();
+  };
+  if (r0 < r1) stage_bits(r0, sblk);
+
+  if constexpr (M == Mode::kSocket) {
+    // entry c of the low table sums the signs of c's bits over planes
+    // 0 .. lo_bits-1 (lane j holds u_j), of the high table over planes
+    // lo_bits .. p-1
+    const int entries = n_lo + (1 << (p - lo_bits));
+    while (gl0 < tables) {
+#pragma unroll
+      for (int k = 0; k < kTableBatch; ++k) {
+        const int gl = gl0 + k * step;
+        if (gl >= tables) break;          // uniform across the warp
+        for (int c0 = 0; c0 < entries; c0 += 32) {
+          const int c = c0 + lane;
+          const bool low = c < n_lo;
+          const int code = low ? c : c - n_lo, j0 = low ? 0 : lo_bits;
+          const int nj = low ? lo_bits : p - lo_bits;
+          float s = 0.f;
+          for (int j = 0; j < lo_bits; ++j) {
+            const float x = __shfl_sync(kFull, uj[k], (j0 + j) & 31);
+            if (j < nj) s += ((code >> j) & 1) ? x : -x;
+          }
+          if (c < entries)
+            stab[gl * stride + c] =
+                low ? expf(s / tau - z[k]) : expf(s / tau);
+        }
+      }
+      gl0 += kTableBatch * step;
+#pragma unroll
+      for (int k = 0; k < kTableBatch; ++k) {
+        const int gl = gl0 + k * step, at = (gl % gs) * nl + gl / gs;
+        uj[k] = gl < tables && lane < p ? ub[at * p + lane] : 0.f;
+        z[k] = gl < tables ? logz[bh * tables + at] : 0.f;
+      }
+    }
   } else {
-    for (int i = tid; i < u_words; i += kThreads) {
+    for (int i = tid; i < tables; i += kThreads) {
+      const float* ut = ub + ((i % gs) * nl + i / gs) * p;
       uint32_t pat = 0;
-      for (int j = 0; j < p; ++j) pat |= (ub[i * p + j] > 0.f ? 1u : 0u) << j;
+      for (int j = 0; j < p; ++j) pat |= (ut[j] > 0.f ? 1u : 0u) << j;
       spat[i] = pat;
     }
   }
-  paged::softmax_init(sm_state, q + bh * g * hd, g, hd);
-  const uint32_t pmask = p < 32 ? (1u << p) - 1u : 0xffffffffu;
-
-  // ---- 1. score every valid token into eff --------------------------------
-  for (int n0 = 0; n0 < length; n0 += kThreads) {
-    const int rows = min(kThreads, length - n0);
-    __syncthreads();                      // previous tile's words consumed
-    for (int i = tid; i < rows * w; i += kThreads) {
-      const int r = i / w, word = i - r * w, t = n0 + r;
-      const size_t row = (static_cast<size_t>(btb[t / bs]) * kvh + h) * bs +
-                         t % bs;
-      swords[i] = bits_pages[row * w + word];
+  if constexpr (M == Mode::kSocket) {
+    // every rank's share built: copy the other ranks' tables in
+    cluster.sync();
+    const int quads = stride / 4;
+    const FastDiv div_quads(quads);
+    float4* own = reinterpret_cast<float4*>(stab);
+    for (int i = tid; i < tables * quads; i += kThreads) {
+      const int gl = div_quads(i), owner = gl % nranks;
+      if (owner != rank)
+        own[i] = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(stab, owner))[i];
     }
-    __syncthreads();
-    if (tid < rows) {
-      const int t = n0 + tid;
+  }
+  const uint32_t pmask = p < 32 ? (1u << p) - 1u : kFull;
+
+  // ---- 1. score this rank's tokens into eff --------------------------------
+  for (int n0 = r0, cur = 0; n0 < r1; n0 += kThreads, cur ^= 1) {
+    const int* blk = sblk + cur * blk_n;
+    int* next_blk = sblk + (cur ^ 1) * blk_n;
+    if (n0 + kThreads < r1) load_blocks(n0 + kThreads, next_blk);
+    cp_async_wait(0);
+    __syncthreads();                      // the tile's bits (and tables) in
+    const int t = n0 + tid;
+    if (t < r1) {
       float e;
-      if (t < sink || t >= length - window) {
+      if (forced(t)) {
         e = FLT_MAX;
       } else {
-        const uint32_t* row = swords + tid * w;
+        RowWords row{sbits + tid * w, bits_vec == 4, {}};
         float score = 0.f;
         int hits = 0;
-        for (int gg = 0; gg < gs; ++gg) {
-          float sg = 0.f;
-          for (int tb = 0; tb < nl; ++tb) {
-            const int f0 = tb * p, w0 = f0 >> 5, b0 = f0 & 31;
-            uint64_t two = row[w0];
-            if (b0 + p > 32) two |= static_cast<uint64_t>(row[w0 + 1]) << 32;
-            const uint32_t field = static_cast<uint32_t>(two >> b0);
-            if (M == Mode::kSocket) {
-              const float* ut = su + (gg * nl + tb) * p;
-              float dot = 0.f;
-              for (int j = 0; j < p; ++j)
-                dot += ((field >> j) & 1u) ? ut[j] : -ut[j];
-              sg += expf(dot / tau - slogz[gg * nl + tb]);
+        for (int g0 = 0; g0 < gs; g0 += kG) {
+          float sg[kG] = {};
+          uint32_t lo = row.at(0), hi = w > 1 ? row.at(1) : 0u;
+          int bit = 0, wi = 1;
+          // the tables of (l, g0 .. g0 + kG - 1) are adjacent
+          const float* tl = stab + g0 * stride;
+          const uint32_t* pl = spat + g0;
+          for (int l = 0; l < nl; ++l, tl += gs * stride, pl += gs) {
+            const uint32_t f = __funnelshift_r(lo, hi, bit) & pmask;
+            bit += p;
+            if (bit >= 32) {
+              bit -= 32;
+              lo = hi;
+              ++wi;
+              hi = wi < w ? row.at(wi) : 0u;
+            }
+            if constexpr (M == Mode::kSocket) {
+              const float* a = tl + (f & lo_mask);
+              const float* c = tl + n_lo + (f >> lo_bits);
+#pragma unroll
+              for (int j = 0; j < kG; ++j)
+                sg[j] = fmaf(a[j * stride], c[j * stride], sg[j]);
             } else {
-              hits += (field & pmask) == spat[gg * nl + tb];
+#pragma unroll
+              for (int j = 0; j < kG; ++j) hits += f == pl[j];
             }
           }
-          score += sg;
+#pragma unroll
+          for (int j = 0; j < kG; ++j) score += sg[j];
         }
-        const size_t vrow = (static_cast<size_t>(btb[t / bs]) * kvh + h) *
-                                bs + t % bs;
-        const float vn = paged::bf16_to_float(vnorm_pages[vrow]);
+        const float vn =
+            paged::bf16_to_float(vnorm_pages[tile_row(blk, n0, t)]);
         e = M == Mode::kSocket ? score * vn : static_cast<float>(hits) * vn;
       }
       eff[t] = e;
     }
+    __syncthreads();                      // bits consumed, next ids in
+    if (n0 + kThreads < r1) stage_bits(n0 + kThreads, next_blk);
   }
-  __syncthreads();                        // eff visible to the whole block
 
-  // ---- 2. radix-select the budget-th largest key --------------------------
+  // ---- 2. select: 8-bit radix digits over the cluster ----------------------
   // rows at or past length all hold eff = -1e30: one key, n_inv of them
-  const uint32_t k_inv = paged::sort_key(kNegInf);
+  const uint32_t k_inv = sort_key(kNegInf);
   const int n_inv = n_total - length;
   uint32_t prefix = 0;
-  for (int s = 31; s >= 0; --s) {
-    const uint32_t cand = prefix | (1u << s);
-    int c = 0;
-    for (int t = tid; t < length; t += kThreads)
-      c += paged::sort_key(eff[t]) >= cand;
-    c = paged::block_sum(c, red) + (k_inv >= cand ? n_inv : 0);
-    if (c >= budget) prefix = cand;
+  int above = 0;            // keys of the cluster above the prefix's bucket
+  int eq_before = 0;        // keys equal to thr in ranks < rank
+  for (int round = 3; round >= 0; --round) {
+    const int shift = 8 * round;
+    const uint32_t hi_mask = round == 3 ? 0u : kFull << (shift + 8);
+    int* hist = shist + (round & 1) * kBins;
+    for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
+    __syncthreads();                      // eff written; hist cleared
+    for (int t0 = r0; t0 < r1; t0 += kThreads) {
+      const int t = t0 + tid;
+      bool in = false;
+      uint32_t digit = 0;
+      if (t < r1) {
+        const uint32_t key = sort_key(eff[t]);
+        in = ((key ^ prefix) & hi_mask) == 0;
+        digit = (key >> shift) & 0xffu;
+      }
+      const unsigned active = __ballot_sync(kFull, in);
+      if (in) {
+        const unsigned same = __match_any_sync(active, digit);
+        if ((same & ((1u << lane) - 1u)) == 0)
+          atomicAdd(&hist[digit], __popc(same));
+      }
+    }
+    cluster.sync();                       // every rank's histogram done
+    if (warp == 0) {
+      // bins 8*lane .. 8*lane+7, summed over the ranks
+      int c[8] = {};
+#pragma unroll
+      for (int rr = 0; rr < kMaxCluster; ++rr) {
+        if (rr < nranks) {
+          const int4* hr = reinterpret_cast<const int4*>(
+                               cluster.map_shared_rank(hist, rr)) + 2 * lane;
+          const int4 x = hr[0], y = hr[1];
+          c[0] += x.x; c[1] += x.y; c[2] += x.z; c[3] += x.w;
+          c[4] += y.x; c[5] += y.y; c[6] += y.z; c[7] += y.w;
+        }
+      }
+      const uint32_t inv_digit = (k_inv >> shift) & 0xffu;
+      if (((k_inv ^ prefix) & hi_mask) == 0 &&
+          static_cast<int>(inv_digit >> 3) == lane)
+        c[inv_digit & 7] += n_inv;
+      int lane_sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) lane_sum += c[j];
+      int suffix = lane_sum;              // bins of lanes >= lane
+      for (int o = 1; o < 32; o <<= 1) {
+        const int x = __shfl_down_sync(kFull, suffix, o);
+        if (lane + o < 32) suffix += x;
+      }
+      // the largest digit whose count from the top reaches budget, and
+      // the count above it; none (fewer keys than budget): digit 0
+      int run = above + suffix - lane_sum, found = -1, gt = 0, gt0 = 0;
+#pragma unroll
+      for (int j = 7; j >= 0; --j) {
+        if (found < 0 && run + c[j] >= budget) {
+          found = j;
+          gt = run;
+        }
+        if (j == 0) gt0 = run;
+        run += c[j];
+      }
+      const unsigned any = __ballot_sync(kFull, found >= 0);
+      const int src = any ? 31 - __clz(any) : 0;
+      const int dj = __shfl_sync(kFull, any ? found : 0, src);
+      const int dgt = __shfl_sync(kFull, any ? gt : gt0, src);
+      const uint32_t digit = static_cast<uint32_t>(src * 8 + dj);
+      int eb = 0;
+      if (round == 0 && lane < rank)
+        eb = cluster.map_shared_rank(hist, lane)[digit];
+      for (int o = 16; o > 0; o >>= 1) eb += __shfl_xor_sync(kFull, eb, o);
+      if (lane == 0) {
+        smisc[0] = static_cast<int>(prefix | (digit << shift));
+        smisc[1] = dgt;
+        smisc[2] = eb;
+      }
+    }
+    __syncthreads();
+    prefix = static_cast<uint32_t>(smisc[0]);
+    above = smisc[1];
+    eq_before = smisc[2];
   }
   const uint32_t thr = prefix;
-  int gt = 0;
-  for (int t = tid; t < length; t += kThreads)
-    gt += paged::sort_key(eff[t]) > thr;
-  const int ties_needed =
-      budget - (paged::block_sum(gt, red) + (k_inv > thr ? n_inv : 0));
+  const int ties_needed = budget - above;
 
-  // ---- 3. attend over the selected rows, in logical order -----------------
-  int ties_seen = 0;
-  for (int n0 = 0; n0 < length; n0 += kThreads) {
+  // ---- 3. attend over the selected rows, in logical order ------------------
+  const int row_bytes = hd * static_cast<int>(sizeof(T));
+  const int pieces = row_bytes / vec, stages = lay.stages;
+  const FastDiv div_pieces(pieces);
+  const bool scaled = k_scale != nullptr;
+  // K/V rows (and scales) of srow[c0, c0 + rows) into stage st
+  auto issue = [&](int c0, int cnt, int st) {
+    const int n = min(rows, cnt - c0), per_kv = n * pieces;
+    unsigned char* kb = skv + st * 2 * lay.kv_buf;
+    for (int i = tid; i < 2 * per_kv; i += kThreads) {
+      const int which = i >= per_kv, j = i - which * per_kv;
+      const int r = div_pieces(j), piece = j - r * pieces;
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(which ? v_pages : k_pages) +
+          static_cast<size_t>(srow[c0 + r]) * row_bytes + piece * vec;
+      cp_async(kb + which * lay.kv_buf + r * row_bytes + piece * vec, src,
+               vec);
+    }
+    if (scaled)
+      for (int i = tid; i < 2 * n; i += kThreads) {
+        const int which = i >= n, r = i - which * n;
+        cp_async(sscale + (st * 2 + which) * rows + r,
+                 (which ? v_scale : k_scale) + srow[c0 + r], 4);
+      }
+    cp_async_commit();
+  };
+
+  // 3a. this rank's selected rows, in logical order: sel_out, and their
+  // pool rows written over the consumed head of the rank's eff range
+  // (position r0 + k holds the k-th; k never passes the token being read)
+  int* list = reinterpret_cast<int*>(eff);
+  int ties_seen = eq_before, found = 0;
+  for (int n0 = r0; n0 < r1; n0 += kThreads) {
     const int t = n0 + tid;
     float e = kNegInf;
     uint32_t key = 0;
     int is_eq = 0;
-    if (t < length) {
+    if (t < r1) {
       e = eff[t];
-      key = paged::sort_key(e);
+      key = sort_key(e);
       is_eq = key == thr;
     }
     int eq_total;
-    const int rank =
-        ties_seen + paged::block_exclusive_scan(is_eq, red, &eq_total);
+    const int rank_eq =
+        ties_seen + block_exclusive_scan(is_eq, red, &eq_total);
     ties_seen += eq_total;
-    const int is_sel = t < length &&
-                       (key > thr || (is_eq && rank < ties_needed)) &&
+    const int is_sel = t < r1 &&
+                       (key > thr || (is_eq && rank_eq < ties_needed)) &&
                        e > -5e29f;
-    if (sel_out != nullptr && t < length) sel_out[bh * n_total + t] = is_sel;
+    if (sel_out != nullptr && t < r1) sel_out[bh * n_total + t] = is_sel;
     int cnt;
-    const int slot = paged::block_exclusive_scan(is_sel, red, &cnt);
-    if (is_sel) srow[slot] = (btb[t / bs] * kvh + h) * bs + t % bs;
-    __syncthreads();
-    if (cnt == 0) continue;               // uniform across the block
-    paged::fold_rows(sm_state, cnt, srow, k_pages, v_pages, k_scale, v_scale,
-                     g, hd, scale, 0.f);
+    const int slot = block_exclusive_scan(is_sel, red, &cnt);
+    if (is_sel) list[r0 + found + slot] = pool_row(n0, t);
+    found += cnt;
   }
+  if (tid == 0) smisc[3] = found;
+  cluster.sync();                         // every rank's list written
+
+  // 3b. an even share of the cluster's list: rank r folds list entries
+  // [r * S / C, (r + 1) * S / C) of the S selected rows, whichever rank
+  // found them, so the sink and window rows do not pile on two ranks
+  int* sbase = smisc + 4;                 // each rank's count, then offsets
+  if (tid < nranks) sbase[tid] = cluster.map_shared_rank(smisc, tid)[3];
   __syncthreads();
-  paged::softmax_store(sm_state, out + bh * g * hd, g, hd);
+  int total = 0;
+  for (int rr = 0; rr < nranks; ++rr) total += sbase[rr];
+  const int k_lo = static_cast<int>(static_cast<long long>(total) * rank /
+                                    nranks);
+  const int k_hi = static_cast<int>(static_cast<long long>(total) *
+                                    (rank + 1) / nranks);
+  // the pool row of the cluster's k-th selected row, read from L2: ranks'
+  // ranges are whole blocks, not whole 128-byte lines, so this SM's L1 may
+  // hold a stale copy of a line where another rank wrote its list
+  auto list_row = [&](int k) {
+    int rr = 0;
+    while (rr + 1 < nranks && k >= sbase[rr]) k -= sbase[rr++];
+    return __ldcg(list + min(length, rr * per * bs) + k);
+  };
+  for (int k0 = k_lo; k0 < k_hi; k0 += kThreads) {
+    const int cnt = min(kThreads, k_hi - k0);
+    __syncthreads();                      // the previous batch's rows read
+    if (tid < cnt) srow[tid] = list_row(k0 + tid);
+    __syncthreads();
+    // a ring of `stages` chunk stages, stages - 1 chunks in flight
+    const int chunks = (cnt + rows - 1) / rows;
+    for (int k = 0; k < min(stages - 1, chunks); ++k)
+      issue(k * rows, cnt, k);
+    for (int c = 0; c < chunks; ++c) {
+      const int ahead = c + stages - 1;
+      if (ahead < chunks) issue(ahead * rows, cnt, ahead % stages);
+      cp_async_wait(min(chunks, c + stages) - c - 1);
+      __syncthreads();                    // chunk c's rows in
+      const int st = c % stages, n = min(rows, cnt - c * rows);
+      const T* kc = reinterpret_cast<const T*>(skv + st * 2 * lay.kv_buf);
+      const T* vc = reinterpret_cast<const T*>(skv + (st * 2 + 1) *
+                                                         lay.kv_buf);
+      const float* ksc = sscale + st * 2 * rows;
+      const float* vsc = ksc + rows;
+      // q.k: one warp a row, kGroups heads' sums at once
+      for (int r = warp; r < n; r += kWarps) {
+        const T* kr = kc + r * hd;
+        const float ks = scaled ? ksc[r] : 1.f;
+        for (int g0 = 0; g0 < g; g0 += kGroups) {
+          float d[kGroups] = {};
+          for (int i = lane; i < hd; i += 32) {
+            const float kv = kv_to_float(kr[i]) * ks;
+#pragma unroll
+            for (int j = 0; j < kGroups; ++j)
+              if (g0 + j < g) d[j] += sq[(g0 + j) * hd + i] * kv;
+          }
+#pragma unroll
+          for (int j = 0; j < kGroups; ++j) d[j] = paged::warp_sum(d[j]);
+          if (lane == 0)
+#pragma unroll
+            for (int j = 0; j < kGroups; ++j)
+              if (g0 + j < g) ss[(g0 + j) * rows + r] = d[j] * scale;
+        }
+      }
+      __syncthreads();
+      for (int gg = warp; gg < g; gg += kWarps) {
+        float mx = kNegInf;
+        for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ss[gg * rows + r]);
+        mx = paged::warp_max(mx);
+        const float m_prev = sm[gg];
+        const float m_new = fmaxf(m_prev, mx);
+        float ps = 0.f;
+        for (int r = lane; r < n; r += 32) {
+          const float pr = expf(ss[gg * rows + r] - m_new);
+          ss[gg * rows + r] = pr;
+          ps += pr;
+        }
+        ps = paged::warp_sum(ps);
+        if (lane == 0) {
+          const float alpha = expf(m_prev - m_new);
+          salpha[gg] = alpha;
+          sl[gg] = sl[gg] * alpha + ps;
+          sm[gg] = m_new;
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < g * hd; i += kThreads) {
+        const int gg = i / hd, d = i - gg * hd;
+        float a = sacc[i] * salpha[gg];
+        for (int r = 0; r < n; ++r)
+          a += ss[gg * rows + r] *
+               (kv_to_float(vc[r * hd + d]) * (scaled ? vsc[r] : 1.f));
+        sacc[i] = a;
+      }
+      __syncthreads();                    // stage st and ss free again
+    }
+  }
   if (sel_out != nullptr)
-    for (int t = length + tid; t < n_total; t += kThreads)
+    for (int t = length + rank * kThreads + tid; t < n_total;
+         t += nranks * kThreads)
       sel_out[bh * n_total + t] = 0;
+
+  // ---- 4. merge the ranks' (m, l, acc) and write the output ---------------
+  __syncthreads();
+  cluster.sync();                         // every rank's state final
+  const int ne = g * hd, share = (ne + nranks - 1) / nranks;
+  const int e1 = min(ne, (rank + 1) * share);
+  float* ob = out + bh * ne;
+  for (int i = rank * share + tid; i < e1; i += kThreads) {
+    const int gg = i / hd;
+    float m = kNegInf;
+    for (int rr = 0; rr < nranks; ++rr)
+      m = fmaxf(m, cluster.map_shared_rank(sm, rr)[gg]);
+    float l = 0.f, a = 0.f;
+    for (int rr = 0; rr < nranks; ++rr) {
+      const float* st = cluster.map_shared_rank(sm, rr);
+      const float f = expf(st[gg] - m);
+      l += st[g + gg] * f;
+      a += cluster.map_shared_rank(sacc, rr)[i] * f;
+    }
+    ob[i] = a / fmaxf(l, 1e-30f);
+  }
+  cluster.sync();                         // no rank leaves while read
+}
+
+// The largest cluster size worth taking for a table of n_total
+// positions: about kPositions positions a CTA, at most kMaxCluster.
+inline int cluster_cap(int n_total) {
+  return std::max(1, std::min(kMaxCluster,
+                              (n_total + kPositions - 1) / kPositions));
+}
+
+// How a launch is shaped: its configuration (grid, cluster, shared
+// memory), the chunk rows, copy widths and layout, and how many of its
+// clusters the card holds at once.
+struct Plan {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Layout lay;
+  int rows, vec, bits_vec, fit;
+};
+
+// Clusters of c CTAs with smem bytes each that the card holds at once
+// (cudaOccupancyMaxActiveClusters), asked once per (c, smem).
+template <Mode M, typename T, int kG>
+int clusters_at_once(int c, size_t smem, int* fit) {
+  static size_t asked[kMaxCluster + 1] = {};
+  static int fits[kMaxCluster + 1] = {};
+  if (asked[c] != smem) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    cfg.gridDim = dim3(c, 1, 1);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(
+        &fits[c], paged_socket_kernel<M, T, kG>, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    asked[c] = smem;
+  }
+  *fit = fits[c];
+  return 0;
+}
+
+template <Mode M, typename T, int kG>
+int make_plan(Plan* pl, const T* k_pages, const T* v_pages,
+              const uint32_t* bits_pages, int b, int kvh, int g, int gs,
+              int hd, int bs, int w, int nb, int nl, int p,
+              cudaStream_t stream) {
+  const int tsize = static_cast<int>(sizeof(T));
+  pl->rows =
+      std::min(kChunkRows, std::max(1, kChunkBytes / (4 * hd * tsize)));
+  // the widest copy the row length and both pools' alignment allow
+  const uintptr_t align = reinterpret_cast<uintptr_t>(k_pages) |
+                          reinterpret_cast<uintptr_t>(v_pages) |
+                          static_cast<uintptr_t>(hd * tsize);
+  pl->vec = 16;
+  while (pl->vec > 1 && align % pl->vec) pl->vec >>= 1;
+  pl->bits_vec =
+      w % 4 == 0 && reinterpret_cast<uintptr_t>(bits_pages) % 16 == 0 ? 4 : 1;
+  pl->lay = layout<M>(g, gs, hd, bs, w, nl, p, pl->rows, tsize);
+  static int optin = 0;                  // queried once, outside any capture
+  if (optin == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (pl->lay.total > static_cast<size_t>(optin)) return kErrSmem;
+  auto kernel = paged_socket_kernel<M, T, kG>;
+  static size_t smem_set = 0;
+  if (pl->lay.total > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(pl->lay.total));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = pl->lay.total;
+  }
+  // C: the largest whose B * KVH clusters the card holds at once (one
+  // wave); if none, the fewest waves times positions a CTA.  Both are known
+  // without a device sync.
+  const int n_total = nb * bs, clusters = b * kvh;
+  int c = 0;
+  long long best = 0;
+  for (int cc = 1; cc <= cluster_cap(n_total); ++cc) {
+    int fit = 0;
+    const int e = clusters_at_once<M, T, kG>(cc, pl->lay.total, &fit);
+    if (e != 0) return e;
+    if (fit < 1) continue;
+    const long long waves = (clusters + fit - 1) / fit;
+    const long long cost = waves == 1 ? -cc : waves * ((n_total + cc - 1) / cc);
+    if (c == 0 || cost < best) {
+      c = cc;
+      best = cost;
+      pl->fit = fit;
+    }
+  }
+  if (c == 0) return kErrClusterFit;
+  pl->cfg = cudaLaunchConfig_t{};
+  pl->cfg.gridDim = dim3(c, kvh, b);
+  pl->cfg.blockDim = dim3(kThreads);
+  pl->cfg.dynamicSmemBytes = pl->lay.total;
+  pl->cfg.stream = stream;
+  pl->attr[0].id = cudaLaunchAttributeClusterDimension;
+  pl->attr[0].val.clusterDim.x = c;
+  pl->attr[0].val.clusterDim.y = 1;
+  pl->attr[0].val.clusterDim.z = 1;
+  pl->cfg.attrs = pl->attr;
+  pl->cfg.numAttrs = 1;
+  return 0;
+}
+
+template <Mode M, typename T, int kG>
+int launch_g(const float* q, const T* k_pages, const T* v_pages,
+             const float* k_scale, const float* v_scale,
+             const uint32_t* bits_pages, const uint16_t* vnorm_pages,
+             const float* qhash, const float* logz, const int* bt,
+             const int* lengths, const int* budgets, float* out, int* sel,
+             float* eff, int b, int kvh, int g, int gs, int hd, int bs, int w,
+             int nb, int nl, int p, float tau, float scale, int sink,
+             int window, cudaStream_t stream) {
+  Plan pl;
+  const int e = make_plan<M, T, kG>(&pl, k_pages, v_pages, bits_pages, b,
+                                    kvh, g, gs, hd, bs, w, nb, nl, p, stream);
+  if (e != 0) return e;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &pl.cfg, paged_socket_kernel<M, T, kG>, q, k_pages, v_pages, k_scale,
+      v_scale, bits_pages, vnorm_pages, qhash, logz, bt, lengths, budgets,
+      out, sel, eff, kvh, g, gs, hd, bs, w, nb, nl, p, tau, scale, sink,
+      window, pl.rows, pl.vec, pl.bits_vec);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls f(std::integral_constant<int, kG>{}) with kG the largest of 4, 2, 1
+// dividing gs.
+template <typename F>
+int with_groups(int gs, F&& f) {
+  if (gs % 4 == 0) return f(std::integral_constant<int, 4>{});
+  if (gs % 2 == 0) return f(std::integral_constant<int, 2>{});
+  return f(std::integral_constant<int, 1>{});
 }
 
 template <Mode M, typename T>
 int launch(const float* q, const T* k_pages, const T* v_pages,
            const float* k_scale, const float* v_scale,
            const uint32_t* bits_pages, const uint16_t* vnorm_pages,
-           const float* qhash, const float* logz_pad, const int* bt,
+           const float* qhash, const float* logz, const int* bt,
            const int* lengths, const int* budgets, float* out, int* sel,
            float* eff, int b, int kvh, int g, int gs, int hd, int bs, int w,
            int nb, int nl, int p, float tau, float scale, int sink,
            int window, cudaStream_t stream) {
-  const int u_words = M == Mode::kSocket ? gs * nl * p : gs * nl;
-  const int z_words = M == Mode::kSocket ? gs * nl : 0;
-  const size_t smem =
-      paged::softmax_smem_bytes(g, hd) +
-      static_cast<size_t>(u_words + z_words + kThreads * w) * 4;
-  static size_t smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_socket_kernel<M, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = smem;
-  }
-  const dim3 grid(kvh, b);
-  paged_socket_kernel<M, T><<<grid, kThreads, smem, stream>>>(
-      q, k_pages, v_pages, k_scale, v_scale, bits_pages, vnorm_pages, qhash,
-      logz_pad, bt,
-      lengths, budgets, out, sel, eff, kvh, g, gs, hd, bs, w, nb, nl, p, tau,
-      scale, sink, window);
-  return static_cast<int>(cudaGetLastError());
+  return with_groups(gs, [&](auto kg) {
+    return launch_g<M, T, decltype(kg)::value>(
+        q, k_pages, v_pages, k_scale, v_scale, bits_pages, vnorm_pages, qhash,
+        logz, bt, lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w,
+        nb, nl, p, tau, scale, sink, window, stream);
+  });
 }
 
 // launch<M, T> with T the element type of kv_type.
@@ -304,20 +973,19 @@ template <Mode M>
 int launch_kv(int kv_type, const float* q, const void* k_pages,
               const void* v_pages, const float* k_scale,
               const float* v_scale, const void* bits_pages,
-              const void* vnorm_pages, const float* qhash,
-              const float* logz_pad, const int* bt, const int* lengths,
-              const int* budgets, float* out, int* sel, float* eff, int b,
-              int kvh, int g, int gs, int hd, int bs, int w, int nb, int nl,
-              int p, float tau, float scale, int sink, int window,
-              void* stream) {
+              const void* vnorm_pages, const float* qhash, const float* logz,
+              const int* bt, const int* lengths, const int* budgets,
+              float* out, int* sel, float* eff, int b, int kvh, int g,
+              int gs, int hd, int bs, int w, int nb, int nl, int p,
+              float tau, float scale, int sink, int window, void* stream) {
   return paged::with_kv_type(kv_type, [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return launch<M, T>(
         q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
         k_scale, v_scale, static_cast<const uint32_t*>(bits_pages),
-        static_cast<const uint16_t*>(vnorm_pages), qhash, logz_pad, bt,
-        lengths, budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, nl, p,
-        tau, scale, sink, window, static_cast<cudaStream_t>(stream));
+        static_cast<const uint16_t*>(vnorm_pages), qhash, logz, bt, lengths,
+        budgets, out, sel, eff, b, kvh, g, gs, hd, bs, w, nb, nl, p, tau,
+        scale, sink, window, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -326,29 +994,30 @@ int launch_kv(int kv_type, const float* q, const void* k_pages,
 extern "C" {
 
 // Pointers as in the layouts above; k_pages / v_pages of the element type
-// kv_type names, k_scale / v_scale NULL for unscaled pages; sel is int32
+// kv_type names, k_scale / v_scale NULL for unscaled pages; u (B, KVH, GS,
+// l, P) and logz (B, KVH, GS, l) over the l real tables; sel is int32
 // (B, KVH, nb, bs) or NULL; eff is f32 (B, KVH, nb*bs) scratch.  Returns
-// the launch's cudaError_t (cudaErrorInvalidValue for an unknown kv_type).
+// the launch's cudaError_t (cudaErrorInvalidValue for an unknown kv_type),
+// or a negative code that paged_socket_attend_error_string explains.
 int paged_socket_attend_launch(const float* q, const void* k_pages,
                                const void* v_pages, const float* k_scale,
                                const float* v_scale, const void* bits_pages,
-                               const void* vnorm_pages, const float* u_pad,
-                               const float* logz_pad, const int* bt,
+                               const void* vnorm_pages, const float* u,
+                               const float* logz, const int* bt,
                                const int* lengths, const int* budgets,
                                float* out, int* sel, float* eff, int kv_type,
                                int b, int kvh, int g, int gs, int hd, int bs,
-                               int w, int nb, int l_pad, int p, float tau,
+                               int w, int nb, int l, int p, float tau,
                                float scale, int sink, int window,
                                void* stream) {
   return launch_kv<Mode::kSocket>(
       kv_type, q, k_pages, v_pages, k_scale, v_scale, bits_pages,
-      vnorm_pages, u_pad, logz_pad, bt, lengths, budgets, out, sel, eff, b,
-      kvh, g, gs, hd, bs, w, nb, l_pad, p, tau, scale, sink, window, stream);
+      vnorm_pages, u, logz, bt, lengths, budgets, out, sel, eff, b, kvh, g,
+      gs, hd, bs, w, nb, l, p, tau, scale, sink, window, stream);
 }
 
 // As paged_socket_attend_launch, with u_signs f32 +-1 (B, KVH, GS, l, P)
-// (the query's plane signs; only the l real tables, so padded tables are
-// never scored) in place of u and logZ.
+// (the query's plane signs) in place of u and logZ.
 int paged_hard_lsh_attend_launch(const float* q, const void* k_pages,
                                  const void* v_pages, const float* k_scale,
                                  const float* v_scale, const void* bits_pages,
@@ -366,7 +1035,44 @@ int paged_hard_lsh_attend_launch(const float* q, const void* k_pages,
       kvh, g, gs, hd, bs, w, nb, l, p, 1.f, scale, sink, window, stream);
 }
 
+// The shape of a launch with these arguments (pool pointers null: the
+// widest copies): info[0] the cluster size C, info[1] the dynamic shared
+// memory of a CTA in bytes, info[2] the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters), info[3] the K/V chunk stages.
+// Returns 0 or an error code as the launches do.
+int paged_socket_attend_plan(int hard, int kv_type, int b, int kvh, int g,
+                             int gs, int hd, int bs, int w, int nb, int l,
+                             int p, int* info) {
+  auto run = [&](auto mode) {
+    return paged::with_kv_type(kv_type, [&](auto* tag) {
+      using T = std::remove_pointer_t<decltype(tag)>;
+      constexpr Mode M = decltype(mode)::value;
+      return with_groups(gs, [&](auto kg) {
+        Plan pl;
+        const int e = make_plan<M, T, decltype(kg)::value>(
+            &pl, nullptr, nullptr, nullptr, b, kvh, g, gs, hd, bs, w, nb, l,
+            p, nullptr);
+        if (e != 0) return e;
+        info[0] = static_cast<int>(pl.cfg.gridDim.x);
+        info[1] = static_cast<int>(pl.lay.total);
+        info[2] = pl.fit;
+        info[3] = pl.lay.stages;
+        return 0;
+      });
+    });
+  };
+  return hard ? run(std::integral_constant<Mode, Mode::kHardLsh>{})
+              : run(std::integral_constant<Mode, Mode::kSocket>{});
+}
+
 const char* paged_socket_attend_error_string(int code) {
+  if (code == kErrClusterFit)
+    return "the kernel's thread-block cluster does not fit on the device "
+           "(cudaOccupancyMaxActiveClusters is 0)";
+  if (code == kErrSmem)
+    return "the split score tables, bits tile and K/V chunks need more "
+           "shared memory than a block may have (GS * L * 2^(P/2) too "
+           "large)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

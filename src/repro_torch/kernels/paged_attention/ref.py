@@ -43,7 +43,8 @@ from repro_torch.models.backends.base import gather_block_leaf
 from repro_torch.models.backends.kvquant import dequantize
 
 __all__ = ["paged_socket_attend_ref", "paged_hard_lsh_attend_ref",
-           "paged_quest_attend_ref", "paged_ring_attend_ref"]
+           "paged_quest_attend_ref", "paged_ring_attend_ref",
+           "attend_selected"]
 
 
 def _logical_kv(pages: torch.Tensor, scale_pages, bt: torch.Tensor
@@ -124,6 +125,23 @@ def _attend_rows(q, kc, vc, idx, mask, *, scale):
                            device=q.device)
     selected.scatter_(2, idx, mask)
     return out.reshape(b, kvh, g, hd), selected
+
+
+def attend_selected(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_table: torch.Tensor,
+                    selected: torch.Tensor, *, scale: float, k_scale=None,
+                    v_scale=None) -> torch.Tensor:
+    """The plain attention of q ``(B, KVH, G, hd)`` over the rows that the
+    bool ``selected`` ``(B, KVH, nb*bs)`` marks in the logical K/V views
+    (dequantized when scale pools are given); f32 ``(B, KVH, G, hd)``."""
+    kc = _logical_kv(k_pages, k_scale, block_table)
+    vc = _logical_kv(v_pages, v_scale, block_table)
+    count = selected.sum(-1, keepdim=True)
+    k = max(int(count.max()), 1)
+    idx = torch.sort(selected.int(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    mask = torch.arange(k, device=q.device) < count
+    return _attend_rows(q, kc, vc, idx, mask, scale=scale)[0]
 
 
 def paged_hard_lsh_attend_ref(q: torch.Tensor, k_pages: torch.Tensor,

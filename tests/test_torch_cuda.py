@@ -15,7 +15,10 @@ values).  The paged kernel's
 selection equals the plain version's except at rows whose plain
 effective score lies within the score tolerance of the threshold, and
 bit for bit where the scores tie exactly; the hard-LSH and Quest
-kernels' selections equal their plain versions' bit for bit.  The ring
+kernels' selections equal their plain versions' bit for bit.  The
+SOCKET and hard-LSH kernel splits each (request, head) over a
+thread-block cluster; ``CLUSTER_CASES`` exercise it (32K contexts, ties
+across ranks, idle ranks, pooled selection), on f32 and stored pools.  The ring
 kernel must skip the NaN rows its cases put in dead slots.  On pools
 stored as bf16, int8 or fp8 (``serving.kv_dtype``) each kernel is held
 to its plain version on the same stored pages, SOCKET's and hard LSH's
@@ -201,18 +204,38 @@ def test_flash_prefill_wrapper_raises_on_unsupported_cuda_inputs(dev):
         ops.flash_prefill(x, x[:3], x[:3], scale=0.1)
 
 
-@pytest.mark.parametrize("case", ["ragged", "edges", "ties"])
+# The cluster split of paged_attention.cu (C ranks a (request, head)):
+# 32K contexts (several tiles a rank), selected ties across ranks
+# (sparsity 2), requests shorter than one rank's range (idle ranks),
+# pooled selection (GS 1).  name -> (lengths, nb, paged_case keywords)
+CLUSTER_CASES = {
+    "32K": ([32768, 9000, 20000], 2048, {}),
+    "ties-across-ranks": ([600, 1500, 333], 200,
+                          dict(ties=True, sparsity=2.0)),
+    "idle-ranks": ([5, 3000, 17], 264, {}),
+    "pooled": ([1024, 3000, 2048, 4096], 264, dict(pooled=True)),
+}
+
+
+def _paged_lengths(case):
+    """(lengths, nb, keywords) of a paged SOCKET / hard-LSH case."""
+    if case in CLUSTER_CASES:
+        return CLUSTER_CASES[case]
+    if case == "ragged":
+        return [1024, 3000, 2048, 4096], 264, {}
+    if case == "edges":         # length 1, budget above the valid rows
+        return [1, 5, 300, 257], 40, {}
+    return [700, 1500], 100, dict(ties=True)
+
+
+@pytest.mark.parametrize("case", ["ragged", "edges", "ties",
+                                  *CLUSTER_CASES])
 def test_paged_attention_kernel_matches_plain(dev, case):
     from repro_torch.kernels.paged_attention import cases, ops
-    if case == "ragged":
-        lengths, nb = [1024, 3000, 2048, 4096], 264
-    elif case == "edges":       # length 1, budget above the valid rows
-        lengths, nb = [1, 5, 300, 257], 40
-    else:
-        lengths, nb = [700, 1500], 100
+    lengths, nb, extra = _paged_lengths(case)
     gen = torch.Generator(device=dev).manual_seed(len(lengths) + nb)
     (args,), kw = cases.paged_case(gen, lengths, nb=nb, kvh=2, hd=64,
-                                   sink=16, window=16, ties=case == "ties")
+                                   sink=16, window=16, **extra)
     q, kp, vp, bits, vnorm, u, bt, length, budget = args
     before = ops.LAUNCHES
     out, sel = ops.paged_socket_attend(q, kp, vp, bits, vnorm, u, bt,
@@ -220,23 +243,27 @@ def test_paged_attention_kernel_matches_plain(dev, case):
                                        with_selection=True, **kw)
     assert ops.LAUNCHES == before + 1
     torch.cuda.synchronize()
-    cases.check_paged(out, sel, args, kw, ties=case == "ties",
+    cases.check_paged(out, sel, args, kw, ties=extra.get("ties", False),
                       attn_tol=ATTN_TOL, score_tol=SCORE_TOL)
+    c = ops.paged_attention_plan(q, kp, bits, u, bt)["cluster"]
+    if case == "ties-across-ranks":
+        eff = cases.plain_eff(args, kw).cpu()
+        assert cases.tie_ranks(eff, sel.reshape(eff.shape).cpu(),
+                               length.cpu(), budget.cpu(), bs=16, c=c) >= 2
+    if case == "idle-ranks":
+        assert c > 1 and cases.cta_ranges(5, 16, c)[-1] == (5, 5)
 
 
 @pytest.mark.parametrize("case", ["ragged", "edges", "ties",
-                                  "unaligned-tables"])
+                                  "unaligned-tables", *CLUSTER_CASES])
 def test_paged_hard_lsh_kernel_matches_plain(dev, case):
     from repro_torch.kernels.paged_attention import cases, ops
     kw = dict(kvh=2, hd=64, sink=16, window=16)
-    if case == "ragged":
-        lengths, nb = [1024, 3000, 2048, 4096], 264
-    elif case == "edges":       # length 1, budget above the valid rows
-        lengths, nb = [1, 5, 300, 257], 40
-    elif case == "ties":
-        lengths, nb, kw = [700, 1500], 100, dict(kw, ties=True)
-    else:
+    if case == "unaligned-tables":
         lengths, nb, kw = [300, 31], 24, dict(kw, l=37)
+    else:
+        lengths, nb, extra = _paged_lengths(case)
+        kw = dict(kw, **extra)
     gen = torch.Generator(device=dev).manual_seed(len(lengths) + nb)
     (args,), akw = cases.hard_lsh_case(gen, lengths, nb=nb, **kw)
     q, kp, vp, bits, vnorm, u_signs, bt, length, budget = args
@@ -343,6 +370,38 @@ def test_paged_kernels_on_stored_pools_match_plain(dev, kind, kv_dtype):
                           score_tol=SCORE_TOL, scales=scales)
     else:
         cases.check_hard_lsh(out, sel, case, akw, attn_tol=ATTN_TOL,
+                             scales=scales)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+@pytest.mark.parametrize("kind", ["socket", "hard_lsh"])
+def test_paged_cluster_cases_on_stored_pools_match_plain(dev, kind, case,
+                                                         kv_dtype):
+    """The cluster split's cases on pools stored as bf16, int8 or fp8:
+    held to the plain version on the same stored pages, the selection
+    equal to the kernel's own on the f32 pages."""
+    from repro_torch.kernels.paged_attention import cases, ops
+    lengths, nb, extra = CLUSTER_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(kind + case))
+    build = cases.paged_case if kind == "socket" else cases.hard_lsh_case
+    fn = (ops.paged_socket_attend if kind == "socket"
+          else ops.paged_hard_lsh_attend)
+    sets, akw = build(gen, lengths, nb=nb, kvh=2, hd=64, sink=16, window=16,
+                      **extra)
+    _, sel32 = fn(*sets[0][:7], length=sets[0][7], budget=sets[0][8],
+                  with_selection=True, **akw)
+    (stored,), scales = cases.store_kv(sets, kv_dtype)
+    out, sel = fn(*stored[:7], length=stored[7], budget=stored[8],
+                  with_selection=True, **akw, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(sel, sel32)
+    if kind == "socket":
+        cases.check_paged(out, sel, stored, akw,
+                          ties=extra.get("ties", False), attn_tol=ATTN_TOL,
+                          score_tol=SCORE_TOL, scales=scales)
+    else:
+        cases.check_hard_lsh(out, sel, stored, akw, attn_tol=ATTN_TOL,
                              scales=scales)
 
 

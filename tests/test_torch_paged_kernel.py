@@ -216,3 +216,126 @@ def test_card_check_accepts_plain_and_rejects_faults(ties):
         cases.check_paged(out, moved, case, kw, **tol)
     with pytest.raises(AssertionError, match="exceeds"):
         cases.check_paged(out + 1e-3, sel, case, kw, **tol)
+
+
+def test_card_check_holds_band_swaps_to_the_kernels_selection():
+    """Where the kernel swaps rows inside the threshold band (here: a band
+    that holds every row), the card check holds its output to the plain
+    attention over the kernel's own selection: that output passes, the
+    plain version's own output (over the other rows) does not."""
+    from repro_torch.kernels.paged_attention import cases
+    from repro_torch.kernels.paged_attention.ref import attend_selected
+    gen = torch.Generator().manual_seed(5)
+    (case,), kw = cases.paged_case(gen, [300, 77], nb=24, kvh=2, hd=16,
+                                   l=12, p=6, sink=4, window=4)
+    q, kp, vp, bits, vnorm, u, bt, length, budget = case
+    out, sel = tpa.paged_socket_attend(q, kp, vp, bits, vnorm, u, bt,
+                                       length=length, budget=budget,
+                                       with_selection=True, **kw)
+    row = sel[0, 1, :300]
+    on, off = torch.nonzero(row).flatten(), torch.nonzero(~row).flatten()
+    row[on[len(on) // 2]], row[off[0]] = False, True
+    swapped = attend_selected(q, kp, vp, bt, sel, scale=kw["scale"])
+    tol = dict(ties=False, attn_tol=ATTN_TOL,
+               score_tol=dict(rtol=10.0, atol=1e9))
+    err, near = cases.check_paged(swapped, sel, case, kw, **tol)
+    assert near == 2 and err < 1e-6
+    with pytest.raises(AssertionError, match="exceeds"):
+        cases.check_paged(out, sel, case, kw, **tol)
+
+
+# ---- the CUDA kernel's algorithm, pinned on the CPU ------------------------
+# ``cases.split_table_scores`` and ``cases.cluster_select`` emulate in plain
+# torch how paged_attention.cu scores (two f32 tables a (g, l) over the low
+# and high half of the planes) and selects (C ranks, four rounds of 8-bit
+# radix digits, tie counts carried across ranks).
+
+SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("l,p,gs", [(60, 10, 4), (12, 6, 2), (9, 7, 3),
+                                    (60, 10, 1), (5, 1, 2)])
+def test_split_table_scores_match_jax(l, p, gs):
+    """The kernel's split-table scores against the scores of the JAX fused
+    kernel's reference (``socket_score_ref``, the scoring its oracle
+    runs), within the score tolerance: T_lo * T_hi = exp(a) * exp(b) in
+    place of exp(a + b)."""
+    from repro.kernels.socket_score.ref import socket_score_ref as j_score
+    from repro_torch.kernels.paged_attention import cases
+    rng = np.random.default_rng(l * 31 + p * 7 + gs)
+    bh, n, hd = 3, 97, 64
+    w = jh.num_words(l, p)
+    bits = rng.integers(0, 2 ** 32, (bh, n, w), dtype=np.uint32)
+    u = np.asarray(jsk.soft_hash_query(
+        jnp.asarray(rng.standard_normal((l, p, hd)).astype(np.float32)),
+        jnp.asarray(rng.standard_normal((bh, gs, hd)).astype(np.float32))))
+    kw = dict(num_tables=l, num_planes=p, tau=0.4)
+    want = np.asarray(j_score(jnp.asarray(bits), jnp.asarray(u), None, **kw))
+    got = cases.split_table_scores(_t(bits.view(np.int32)), _t(u), **kw)
+    np.testing.assert_allclose(got.numpy(), want, **SCORE_TOL)
+
+
+def _select_case(seed, ties):
+    """Scores, vnorm, ragged lengths (0 and 1 among them) and budgets
+    (below, at and above the forced rows and the valid rows) of a
+    (B=6, KVH=2, N=48*8) pool; ``ties``: every score equal."""
+    rng = np.random.default_rng(seed)
+    b, kvh, bs, nb = 6, 2, 8, 48
+    n = bs * nb
+    # few distinct values, so ties at the threshold are common
+    scores = rng.integers(0, 7, (b, kvh, n)).astype(np.float32) / 4
+    if ties:
+        scores[:] = 0.75
+    vnorm = np.array(jnp.asarray(rng.integers(1, 4, (b, kvh, n)),
+                                 jnp.bfloat16).astype(jnp.float32))
+    length = np.array([0, 1, 77, 200, 383, n], np.int32)
+    budget = np.array([5, 3, 60, 13, 150, 384], np.int32)
+    rng.shuffle(length)
+    return scores, vnorm, length, budget, bs
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["ragged", "all-ties"])
+@pytest.mark.parametrize("c", range(1, 9))
+def test_cluster_select_matches_value_aware_topk(c, ties):
+    """The kernel's select with C ranks equals ``value_aware_topk`` (JAX)
+    bit for bit, lowest-index-first ties included, over seeds, ragged
+    lengths and an all-ties pool; where the threshold's tied rows span
+    several ranks, each rank's tie count starts after the ranks before
+    it."""
+    from repro_torch.kernels.paged_attention import cases
+    most = 0
+    for seed in range(3):
+        scores, vnorm, length, budget, bs = _select_case(seed * 9 + c, ties)
+        b, kvh, n = scores.shape
+        cfg = jsk.SocketConfig(sink_tokens=4, window_tokens=4)
+        idx, mask = jsk.value_aware_topk(
+            cfg, jnp.asarray(scores), jnp.asarray(vnorm), k=int(budget.max()),
+            length=jnp.asarray(length), n_total=n, budget=jnp.asarray(budget))
+        want = np.zeros((b, kvh, n), bool)
+        bi, hi, ki = np.nonzero(np.asarray(mask))
+        want[bi, hi, np.asarray(idx)[bi, hi, ki]] = True
+        pos = np.arange(n)
+        ln = length[:, None, None]
+        eff = np.where((pos < 4) | (pos >= ln - 4), np.float32(tsk.FLT_MAX),
+                       scores * vnorm)
+        eff = torch.from_numpy(np.where(pos < ln, eff,
+                                        np.float32(tsk.NEG_INF)))
+        got = cases.cluster_select(eff, length, budget, bs=bs, c=c)
+        np.testing.assert_array_equal(got.numpy(), want)
+        most = max(most, cases.tie_ranks(eff, got, length, budget, bs=bs,
+                                         c=c))
+    if c > 1:
+        assert most >= 2, "no case put the threshold's ties on two ranks"
+
+
+def test_cta_ranges_cover_the_live_blocks():
+    """The ranks' ranges tile [0, length) in whole blocks, in order; ranks
+    past the live blocks are empty."""
+    from repro_torch.kernels.paged_attention import cases
+    for length in (0, 1, 15, 16, 17, 1000, 4096):
+        for c in range(1, 9):
+            rs = cases.cta_ranges(length, 16, c)
+            assert rs[0][0] == 0 and rs[-1][1] == length
+            assert all(a[1] == b[0] for a, b in zip(rs, rs[1:]))
+            assert all(r0 % 16 == 0 for r0, r1 in rs if r0 < length)
+    assert cases.cta_ranges(5, 16, 4) == [(0, 5), (5, 5), (5, 5), (5, 5)]

@@ -22,13 +22,15 @@ Phases, in order; the first failure raises and the script exits non-zero:
               case and an edge: ties, or a ring whose dead rows hold NaN in
               scales and fp8 payloads), SOCKET's and hard LSH's selections
               also equal to their own on the f32 pages; int8 and fp8 are
-              timed as entries ``name[int8]``, ``name[fp8]``.  SOCKET and
-              hard LSH also run, on every pool, the cases of the cluster
-              split (32K contexts, selected ties across ranks, idle ranks,
-              pooled selection), each logged with the split it ran (C,
-              clusters the card holds at once, shared memory a CTA); the
-              tie case must put selected ties on two ranks or more, the
-              idle case leave a rank idle.  The ring
+              timed as entries ``name[int8]``, ``name[fp8]``.  SOCKET,
+              hard LSH and Quest also run, on every pool, the cases of the
+              cluster split (32K contexts, selected ties across ranks, idle
+              ranks and, but for Quest, pooled selection), every case
+              logged with the split it ran (C, clusters the card holds at
+              once, shared memory a CTA, K/V stages); the tie case must
+              put selected ties on two ranks or more (Quest's must also
+              leave a tied page out), the idle case leave a rank idle, and
+              Quest's main path run on two ranks or more.  The ring
               kernel's yardstick is timed twice: SDPA over views gathered
               beforehand, and the gather, mask and SDPA as one callable
               (``library_with_gather_ms``).  The prefill
@@ -628,10 +630,11 @@ def flash_prefill_rows(dev, seed):
 
 # The fused paged kernels' cases: the continuous phase's shapes first
 # (8 KV heads, G=4, hd=128, bs=16; contexts 1-4K, a 264-block table), then
-# the edges.  SOCKET's and hard LSH's last four exercise the cluster split
-# of paged_attention.cu: 32K contexts (several tiles a rank), a tie-heavy
-# case at sparsity 2 whose selected ties span ranks, requests shorter
-# than one rank's range (whole ranks idle), pooled selection (GS 1).
+# the edges.  The last ones exercise the cluster split of
+# paged_attention.cu and paged_quest.cu: 32K contexts (several tiles or
+# chunks of bounds a rank), a tie-heavy case at sparsity 2 whose selected
+# ties span ranks, requests shorter than one rank's range (whole ranks
+# idle) and, for SOCKET and hard LSH, pooled selection (GS 1).
 MAIN_LENS = [1024, 2048, 3072, 4096, 1024, 2048, 3072, 4096]
 _CLUSTER_CASES = [
     ("32K contexts", dict(lengths=[32768, 20000, 9000, 32000], nb=2048)),
@@ -677,6 +680,13 @@ PAGED_CASES = {
                            ties=True)),
         ("ps=8, two pages a block", dict(lengths=[33, 600, 1500, 57], nb=96,
                                          ps=8, sink=16, window=16)),
+        _CLUSTER_CASES[0],
+        # a table of more than 256 pages (two ranks or more) and a request
+        # with more live pages than the budget, so ties are cut
+        ("ties across ranks", dict(lengths=[600, 1500, 5800, 333], nb=520,
+                                   sink=16, window=16, ties=True,
+                                   sparsity=2.0)),
+        _CLUSTER_CASES[2],
     ],
 }
 
@@ -815,25 +825,42 @@ def paged_kernels():
 
 
 def cluster_note(name, label, case, args, sel) -> str:
-    """The cluster split ``paged_attention.cu`` ran ``case`` with, and
-    that the cluster cases exercise it: selected ties of one (request,
-    head) on two or more ranks; ranks with no live block."""
+    """The cluster split ``paged_attention.cu`` or ``paged_quest.cu`` ran
+    ``case`` with, and that the cluster cases exercise it: selected ties
+    of one (request, head) on two or more ranks; ranks with no live
+    block; Quest's main path split over two ranks or more."""
     from repro_torch.kernels.paged_attention import cases, ops as pa
-    q, kp, bits, qhash, bt, length, budget = (case[0], case[1], case[3],
-                                               case[5], case[6], case[7],
-                                               case[8])
-    plan = pa.paged_attention_plan(q, kp, bits, qhash, bt,
-                                   hard=name == "paged_hard_lsh")
-    c, bs = plan["cluster"], bits.shape[2]
+    quest = name == "paged_quest"
+    q, kp = case[0], case[1]
+    bt, length, budget = case[5:8] if quest else case[6:9]
+    if quest:
+        plan = pa.paged_quest_plan(q, kp, bt, page_size=args["page_size"])
+    else:
+        plan = pa.paged_attention_plan(q, kp, case[3], case[5], bt,
+                                       hard=name == "paged_hard_lsh")
+    c, bs = plan["cluster"], kp.shape[2]
     note = (f"C {c} ({plan['clusters_at_once']} clusters at once), "
             f"{plan['smem_bytes']} B a CTA, {plan['stages']} K/V stages")
-    if label == "ties across ranks" and name == "paged_attention":
-        eff = cases.plain_eff(case, args).cpu()
-        spread = cases.tie_ranks(eff, sel.reshape(eff.shape).cpu(),
-                                 length.cpu(), budget.cpu(), bs=bs, c=c)
-        if spread < 2:
+    if quest and label.startswith("main path") and c < 2:
+        raise AssertionError("paged_quest: the main path ran on one rank a "
+                             "(request, head), not a cluster")
+    if label == "ties across ranks" and name != "paged_hard_lsh":
+        if quest:
+            ps = args["page_size"]
+            eff = cases.quest_page_eff(case, args).cpu()
+            spread = cases.tie_ranks(
+                eff, cases.quest_page_selection(sel.cpu(), ps),
+                (length.cpu() + ps - 1) // ps, budget.cpu(), bs=bs // ps,
+                c=c)
+        else:
+            eff = cases.plain_eff(case, args).cpu()
+            spread = cases.tie_ranks(eff, sel.reshape(eff.shape).cpu(),
+                                     length.cpu(), budget.cpu(), bs=bs, c=c)
+        if spread < 2 or quest and not cases.ties_cut(
+                eff, cases.quest_page_selection(sel.cpu(), args["page_size"])):
             raise AssertionError("the tie case's selected ties lie on one "
-                                 "rank: it does not test the carried count")
+                                 "rank, or all of them are selected: it does "
+                                 "not test the carried count")
         note += f"; selected ties on up to {spread} ranks"
     if label == "idle ranks":
         idle = sum(r0 == r1 for n in length.tolist()
@@ -882,8 +909,7 @@ def paged_rows(dev, seed, kv_dtype="auto"):
                 raise AssertionError(f"[{kv_dtype}, {label}] {e}") from None
             if sel32 is not None:
                 note += "; selection equal to the f32 pages' bit for bit"
-            if not quest:
-                note += "; " + cluster_note(name, label, sets[0], args, sel)
+            note += "; " + cluster_note(name, label, sets[0], args, sel)
             log(f"{name} [{kv_dtype}, {label}] lengths {kw['lengths']}: "
                 f"max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
                 f"{ATTN_TOL['atol']}); {note}")

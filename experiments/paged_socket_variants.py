@@ -19,7 +19,11 @@ beforehand.
 ``old`` variants are the design before the redesign (one block of 512
 threads per (request, head), 32 one-bit radix passes, exponentials in
 the score loop), read from commit ``OLD_COMMIT``: ``--save-old`` copies
-its two sources into ``build/`` for a machine without git.  Variants
+its two sources into ``build/`` for a machine without git.  A variant's
+substitutions apply to whichever of its design's files holds the text
+(the kernel's source first, then the headers beside it, where the
+select, the list fold and the merge live since they are shared with the
+Quest kernel).  Variants
 named ``drop ...`` leave a pass out to show what it costs; their outputs
 are wrong by design and only timed.  ``drop select`` selects the forced
 rows alone (the attend pass then folds 256 rows a request).
@@ -48,7 +52,7 @@ import torch  # noqa: E402
 OUT = REPO / "build" / "paged_socket_variants"
 OLD_COMMIT = "acc5ac004d5a1eff2158ea38b29226d9424eab75"
 KERNEL_DIR = "src/repro_torch/kernels/paged_attention"
-SOURCES = ("paged_attention.cu", "paged_common.cuh")
+SOURCES = ("paged_attention.cu", "paged_common.cuh")       # the old design's
 MAIN_LENS = [1024, 2048, 3072, 4096, 1024, 2048, 3072, 4096]
 SHAPES = {
     "main path": dict(lengths=MAIN_LENS, nb=264),
@@ -71,18 +75,17 @@ _NO_TABLES = [
 # thread 0 of every CTA stamps %globaltimer at the phase boundaries:
 # 0 entry, 1 tables and q in, 2 scored, 3 selected, 4 attended, 5 merged
 _CLOCK = [
-    ("namespace cg = cooperative_groups;\n",
+    ("namespace cg = cooperative_groups;\n\nnamespace {\n",
      "namespace cg = cooperative_groups;\n"
      "__device__ unsigned long long g_clk[1 << 16];\n"
      "#define CLK(k) if (threadIdx.x == 0) { unsigned long long t_; "
      "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
      "g_clk[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + "
-     "blockIdx.x) * 10 + (k)] = t_; }\n"),
+     "blockIdx.x) * 10 + (k)] = t_; }\n\nnamespace {\n"),
     ("  const int warp = tid >> 5, lane = tid & 31;\n  const int n_total",
      "  const int warp = tid >> 5, lane = tid & 31;\n  CLK(0);\n"
      "  const int n_total"),
-    ("  const float* qb = q + bh * g * hd;\n",
-     "  CLK(6);\n  const float* qb = q + bh * g * hd;\n"),
+    ("  paged::init_fold(fold, q", "  CLK(6);\n  paged::init_fold(fold, q"),
     ("    // every rank's share built: copy the other ranks' tables in\n"
      "    cluster.sync();\n",
      "    __syncthreads();\n    CLK(7);\n"
@@ -93,9 +96,8 @@ _CLOCK = [
     ("  // ---- 3. attend", "  CLK(3);\n  // ---- 3. attend"),
     ("  // ---- 4. merge", "  CLK(4);\n  // ---- 4. merge"),
     ("  int* sbase = smisc + 4;", "  CLK(9);\n  int* sbase = smisc + 4;"),
-    ("  cluster.sync();                         // no rank leaves while read\n}",
-     "  cluster.sync();                         // no rank leaves while read\n"
-     "  CLK(5);\n}"),
+    ("fold, g, hd, out + bh * g * hd);\n}",
+     "fold, g, hd, out + bh * g * hd);\n  CLK(5);\n}"),
     ("const char* paged_socket_attend_error_string(int code) {",
      "int paged_phase_clock(unsigned long long* host, int n) {\n"
      "  return static_cast<int>(cudaMemcpyFromSymbol(host, g_clk, n * 8));\n"
@@ -110,8 +112,8 @@ _INV_TAU = [("                low ? expf(s / tau - z[k]) : expf(s / tau);",
 
 def _cluster(c):
     # C forced to c in place of the host's choice
-    return [("for (int cc = 1; cc <= cluster_cap(n_total); ++cc) {",
-             f"for (int cc = {c}; cc <= {c}; ++cc) {{")]
+    return [("for (int cc = 1; cc <= std::max(1, std::min(kMaxCluster, cap));",
+             f"for (int cc = {c}; cc <= {c};")]
 
 
 VARIANTS = {
@@ -129,14 +131,14 @@ VARIANTS = {
     "drop select": [
         ("for (int round = 3; round >= 0; --round) {",
          "for (int round = 3; round >= 4; --round) {"),
-        ("const uint32_t thr = prefix;",
+        ("const uint32_t thr = sel.thr;",
          "const uint32_t thr = sort_key(FLT_MAX);"),
-        ("const int ties_needed = budget - above;",
+        ("const int ties_needed = sel.ties_needed;",
          "const int ties_needed = 1 << 30;")],
     "drop attend": [("for (int k0 = k_lo; k0 < k_hi; k0 += kThreads) {",
                      "for (int k0 = k_lo; k0 < k_lo; k0 += kThreads) {")],
-    "drop merge": [("for (int i = rank * share + tid; i < e1;",
-                    "for (int i = rank * share + tid; i < 0;")],
+    "drop merge": [("for (int i = rank * share + threadIdx.x; i < e1;",
+                    "for (int i = rank * share + threadIdx.x; i < 0;")],
     "phase clock": _CLOCK,
     "phase clock, tables before bits": _CLOCK + [
         ("  if (r0 < r1) stage_bits(r0, sblk);\n", ""),
@@ -175,23 +177,63 @@ OLD_VARIANTS = {
 }
 
 
-def save_old() -> None:
-    dst = OUT / OLD_COMMIT[:7]
+def save_sources(commit: str, names, dst: Path) -> None:
+    """The files ``names`` of the kernel directory at ``commit`` (git) into
+    ``dst``."""
     dst.mkdir(parents=True, exist_ok=True)
-    for name in SOURCES:
+    for name in names:
         text = subprocess.run(
-            ["git", "show", f"{OLD_COMMIT}:{KERNEL_DIR}/{name}"], cwd=REPO,
+            ["git", "show", f"{commit}:{KERNEL_DIR}/{name}"], cwd=REPO,
             check=True, capture_output=True, text=True).stdout
         (dst / name).write_text(text)
-    print(f"saved {', '.join(SOURCES)} of {OLD_COMMIT[:7]} to {dst}")
+    print(f"saved {', '.join(names)} of {commit[:7]} to {dst}")
 
 
-def old_source() -> str:
-    saved = OUT / OLD_COMMIT[:7] / SOURCES[0]
-    if not saved.exists():
-        raise SystemExit(f"{saved} missing: run with --save-old in a git "
-                         "checkout first")
-    return saved.read_text()
+def save_old() -> None:
+    save_sources(OLD_COMMIT, SOURCES, OUT / OLD_COMMIT[:7])
+
+
+def design(main: str, saved=None) -> dict:
+    """name -> text of a design's files, ``main`` (the kernel's source)
+    first, then the headers beside it: the checkout's, or those saved in
+    ``saved`` (raises where they are missing: run ``--save-old`` first)."""
+    src = REPO / KERNEL_DIR if saved is None else saved
+    if not (src / main).exists():
+        raise SystemExit(f"{src / main} missing: run with --save-old in a "
+                         "git checkout first")
+    names = [main] + sorted(p.name for p in src.glob("*.cuh"))
+    return {name: (src / name).read_text() for name in names}
+
+
+def substitute(name: str, files: dict, subs) -> dict:
+    """``files`` with each substitution of variant ``name`` made in the
+    first file (in order) that holds its text; raises where none does."""
+    files = dict(files)
+    for a, b in subs:
+        where = next((f for f, t in files.items() if a in t), None)
+        if where is None:
+            raise RuntimeError(f"variant {name!r}: {a[:60]!r} not in the "
+                               "sources")
+        files[where] = files[where].replace(a, b)
+    return files
+
+
+def build_variants(items, designs: dict, out: Path) -> list:
+    """(name, old?, library, ptxas summary) of each (name, old?, subs) of
+    ``items``, built in parallel; ``designs[old]`` is the design's files
+    (:func:`design`), the first the source that nvcc compiles.  Each
+    variant's files go into a directory of their own."""
+    def one(k_item):
+        k, (name, old, subs) = k_item
+        files = substitute(name, designs[old], subs)
+        d = out / f"v{k}"
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in files.items():
+            (d / f).write_text(text)
+        return (name, old, *_nvcc(d / next(iter(files))))
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        return list(ex.map(one, enumerate(items)))
 
 
 def _nvcc(src: Path) -> tuple:
@@ -229,35 +271,14 @@ def local_memory(lib: Path) -> dict:
 
 
 def build_all(only) -> list:
-    """(name, old?, library, ptxas summary) of every chosen variant; the
-    sources of a variant go into a directory of their own with the header
-    of their design."""
-    from repro_torch.kernels.paged_attention import ops
-    new = ops.SOURCE.read_text()
-    header = {False: ops.SOURCE.with_name(SOURCES[1]).read_text(),
-              True: (OUT / OLD_COMMIT[:7] / SOURCES[1]).read_text()
-              if (OUT / OLD_COMMIT[:7] / SOURCES[1]).exists() else None}
+    """(name, old?, library, ptxas summary) of every chosen variant."""
     items = [(n, False, s) for n, s in VARIANTS.items()] + \
         [(n, True, s) for n, s in OLD_VARIANTS.items()]
     items = [it for it in items if not only or it[0] in only]
-
-    def one(item):
-        name, old, subs = item
-        text = old_source() if old else new
-        for a, b in subs:
-            if a not in text:
-                raise RuntimeError(f"variant {name!r}: {a[:60]!r} not in "
-                                   "the source")
-            text = text.replace(a, b)
-        d = OUT / f"v{[it[0] for it in items].index(name)}"
-        d.mkdir(parents=True, exist_ok=True)
-        (d / SOURCES[1]).write_text(header[old])
-        src = d / SOURCES[0]
-        src.write_text(text)
-        return (name, old, *_nvcc(src))
-
-    with concurrent.futures.ThreadPoolExecutor(8) as ex:
-        return list(ex.map(one, items))
+    designs = {False: design(SOURCES[0])}
+    if any(old for _, old, _ in items):
+        designs[True] = design(SOURCES[0], OUT / OLD_COMMIT[:7])
+    return build_variants(items, designs, OUT)
 
 
 def bind(lib_path: Path):
@@ -346,9 +367,16 @@ def plan_info(lib, hard: bool, case, kw) -> list:
     return list(info)
 
 
-def phase_clock(lib, run, prepared, info, b, kvh) -> dict:
-    """Per-phase device nanoseconds of one launch from its CTAs' clock
-    stamps (see ``_CLOCK``): mean and max over CTAs, and by rank."""
+PHASES = ["tables+q", "score", "select", "attend", "merge"]
+STEPS = ["bits issued", "tables built", "cluster synced", "rows listed"]
+
+
+def phase_clock(lib, run, prepared, info, b, kvh, names=PHASES,
+                steps=STEPS) -> dict:
+    """Per-phase device microseconds of one launch from its CTAs' clock
+    stamps (see ``_CLOCK``: stamps 0-5 bound the five ``names`` phases,
+    6-9 are the ``steps`` from entry): mean and max over CTAs, and by
+    rank."""
     import numpy as np
     run(*prepared)
     torch.cuda.synchronize()
@@ -360,15 +388,12 @@ def phase_clock(lib, run, prepared, info, b, kvh) -> dict:
         raise RuntimeError("reading the phase clock failed")
     full = np.array(buf, dtype=np.float64).reshape(n, 10)
     t = full[:, :6] - full[:, :1].min()
-    sub = (full[:, 6:10] - full[:, :1]) / 1e3    # bits issued, built, synced
+    sub = (full[:, 6:10] - full[:, :1]) / 1e3          # steps from entry
     d = np.diff(t, axis=1) / 1e3                       # microseconds
-    names = ["tables+q", "score", "select", "attend", "merge"]
     by_rank = d.reshape(b * kvh, c, 5)
     return dict(
         span_us=float(t[:, 5].max() / 1e3),
-        steps_us={k: float(sub[:, i].mean()) for i, k in enumerate(
-            ["bits issued", "tables built", "cluster synced",
-             "rows listed"])},
+        steps_us={k: float(sub[:, i].mean()) for i, k in enumerate(steps)},
         start_us=[float(np.quantile(t[:, 0], x) / 1e3)
                   for x in (0, .5, .9, 1)],
         mean_us={k: float(d[:, i].mean()) for i, k in enumerate(names)},

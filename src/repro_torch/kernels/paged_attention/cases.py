@@ -56,7 +56,8 @@ __all__ = ["paged_case", "plain_eff", "check_paged", "hard_lsh_case",
            "plain_hard_eff", "check_hard_lsh", "quest_case", "check_quest",
            "RING_CASES", "ring_live", "ring_case", "plain_ring",
            "check_ring", "store_kv", "sort_key", "split_table_scores",
-           "cta_ranges", "cluster_select", "tie_ranks"]
+           "cta_ranges", "cluster_select", "tie_ranks", "quest_page_eff",
+           "quest_cluster_select", "quest_page_selection", "ties_cut"]
 
 
 def store_kv(sets, kv_dtype: str, *, quest: bool = False):
@@ -381,11 +382,7 @@ def check_quest(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
     err = _check_out("paged_quest", out, ref, attn_tol)
     sel = sel.reshape(*sel.shape[:2], -1).bool()
     # page_budget pages, live rows within them (never min(budget, length))
-    state = quest_mod.QuestState(kmin=gather_block_leaf(kmin, bt),
-                                 kmax=gather_block_leaf(kmax, bt))
-    qcfg = quest_mod.QuestConfig(page_size=ps, sink_tokens=kw["sink_tokens"],
-                                 window_tokens=kw["window_tokens"])
-    eff = quest_mod.group_page_scores(qcfg, state, q[:, :, :, None], length)
+    eff = quest_page_eff(case, kw)
     top = torch.sort(eff, dim=-1, descending=True, stable=True).indices
     kp_max = int(budget.max())
     chosen = top[..., :kp_max] * ps                     # page starts
@@ -470,13 +467,14 @@ def cta_ranges(length: int, bs: int, c: int) -> List[Tuple[int, int]]:
 
 
 def cluster_select(eff: torch.Tensor, length, budget, *, bs: int,
-                   c: int) -> torch.Tensor:
+                   c: int, floor=-5e29) -> torch.Tensor:
     """The selection ``(B, KVH, N)`` bool of ``eff`` (the plain effective
     scores, rows past length -1e30) as C ranks find it: four rounds of
     8-bit digits, each a histogram per rank of the keys matching the
     prefix so far, summed over the ranks with the rows past length
     counted once; then rank r counts its ties from the keys equal to the
-    threshold in ranks < r (the last round's bins)."""
+    threshold in ranks < r (the last round's bins).  A selected row also
+    scores above ``floor`` (SOCKET's -5e29; None: no floor, as Quest)."""
     b, kvh, n = eff.shape
     keys = sort_key(eff)
     k_inv = int(sort_key(torch.tensor([sk.NEG_INF]))[0])
@@ -513,9 +511,10 @@ def cluster_select(eff: torch.Tensor, length, budget, *, bs: int,
             for (r0, r1), kr, hist in zip(ranges, ranks, hists):
                 eq = kr == thr
                 rank_eq = seen + torch.cumsum(eq.long(), 0) - eq.long()
-                sel[i, h, r0:r1] = ((kr > thr) | (eq & (rank_eq <
-                                                        ties_needed))) & \
-                    (eff[i, h, r0:r1] > -5e29)
+                take = (kr > thr) | (eq & (rank_eq < ties_needed))
+                if floor is not None:
+                    take &= eff[i, h, r0:r1] > floor
+                sel[i, h, r0:r1] = take
                 seen += int(hist[thr & 0xFF])
     return sel
 
@@ -538,6 +537,61 @@ def tie_ranks(eff: torch.Tensor, sel: torch.Tensor, length, budget, *,
             most = max(most, sum(bool(tied[r0:r1].any())
                                  for r0, r1 in ranges))
     return most
+
+
+def ties_cut(eff: torch.Tensor, sel: torch.Tensor) -> bool:
+    """Whether some (request, head) left a live entry (score above -5e29)
+    that ties its threshold unselected: the tie count, not the key,
+    decided there."""
+    keys = sort_key(eff)
+    for i in range(eff.shape[0]):
+        for h in range(eff.shape[1]):
+            chosen = keys[i, h][sel[i, h]]
+            if len(chosen):
+                tied = (keys[i, h] == chosen.min()) & ~sel[i, h]
+                if bool((tied & (eff[i, h] > -5e29)).any()):
+                    return True
+    return False
+
+
+# ---- the Quest kernel's select in plain torch -------------------------
+# (paged_quest.cu: cluster_select on page scores, ranks in page units)
+
+def quest_page_eff(case, kw) -> torch.Tensor:
+    """The plain version's page scores ``(B, KVH, nb * ppb)`` of a
+    :func:`quest_case` set: float64 bounds rounded once, sink and window
+    pages FLT_MAX, pages past length -1e30."""
+    q, _, _, kmin, kmax, bt, length, _ = case
+    state = quest_mod.QuestState(kmin=gather_block_leaf(kmin, bt),
+                                 kmax=gather_block_leaf(kmax, bt))
+    qcfg = quest_mod.QuestConfig(page_size=kw["page_size"],
+                                 sink_tokens=kw["sink_tokens"],
+                                 window_tokens=kw["window_tokens"])
+    return quest_mod.group_page_scores(qcfg, state, q[:, :, :, None], length)
+
+
+def quest_page_selection(sel: torch.Tensor, ps: int) -> torch.Tensor:
+    """A selected-rows mask ``(B, KVH, N)`` as its selected pages ``(B,
+    KVH, N / ps)``: pages with a selected row (the live ones)."""
+    return sel.reshape(*sel.shape[:2], -1, ps).any(-1)
+
+
+def quest_cluster_select(eff: torch.Tensor, length, budget, *, ps: int,
+                         bs: int, c: int) -> torch.Tensor:
+    """Quest's selected rows ``(B, KVH, n_pages * ps)`` as the kernel's C
+    ranks find them from the page scores ``eff`` ``(B, KVH, n_pages)``:
+    :func:`cluster_select` with ranks in page units (rank r owns the pages
+    of the r-th run of live blocks, bs / ps pages a block), the live page
+    count as the length (pages past it are counted, never read, and come
+    last among ties) and no floor; then each selected page's rows before
+    ``length``."""
+    length = torch.as_tensor(length).long()
+    n_live = (length + ps - 1) // ps
+    pages = cluster_select(eff, n_live, budget, bs=bs // ps, c=c,
+                           floor=None)
+    rows = pages.repeat_interleave(ps, dim=-1)
+    pos = torch.arange(rows.shape[-1], device=rows.device)
+    return rows & (pos < length.to(rows.device)[:, None, None])
 
 
 # The ring kernel's card cases (chip_smoke.py and the card tests): the

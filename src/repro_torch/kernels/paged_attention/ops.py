@@ -42,6 +42,7 @@ __all__ = ["paged_socket_attend", "launch_paged_socket_attend",
            "paged_attention_plan",
            "paged_hard_lsh_attend", "launch_paged_hard_lsh_attend",
            "paged_quest_attend", "launch_paged_quest_attend",
+           "paged_quest_plan",
            "paged_ring_attend", "launch_paged_ring_attend", "KV_TYPES",
            "LAUNCHES", "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "RING_LAUNCHES",
            "SOURCE", "QUEST_SOURCE", "RING_SOURCE"]
@@ -109,7 +110,32 @@ def _quest_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.paged_quest_attend_error_string.argtypes = [ctypes.c_int]
     lib.paged_quest_attend_error_string.restype = ctypes.c_char_p
+    lib.paged_quest_attend_plan.argtypes = [_I] * 8 + [_P]
+    lib.paged_quest_attend_plan.restype = ctypes.c_int
     return lib
+
+
+def paged_quest_plan(q, k_pages, block_table, *, page_size: int) -> dict:
+    """How ``paged_quest.cu`` launches on these shapes (CUDA only):
+    ``cluster``, the C ranks a (request, KV head) is split over (the
+    largest whose B * KVH clusters the card holds at once, at most one
+    rank a 256 table pages; else the fewest waves times pages a rank);
+    ``smem_bytes`` a CTA; ``clusters_at_once`` at that C; ``stages``, the
+    K/V chunk stages of the attend pass."""
+    q, _ = _split_q(q)
+    b, kvh, g, hd = q.shape
+    bs = k_pages.shape[2]
+    info = (ctypes.c_int * 4)()
+    lib = _quest_library()
+    with torch.cuda.device(q.device):
+        err = lib.paged_quest_attend_plan(
+            KV_TYPES[k_pages.dtype], b, kvh, g, hd, bs, int(page_size),
+            block_table.shape[1], info)
+    if err != 0:
+        raise RuntimeError("paged_quest plan failed: " +
+                           lib.paged_quest_attend_error_string(err).decode())
+    return dict(zip(("cluster", "smem_bytes", "clusters_at_once", "stages"),
+                    info))
 
 
 def _ring_library() -> ctypes.CDLL:

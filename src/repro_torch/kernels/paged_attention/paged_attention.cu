@@ -98,7 +98,9 @@
 //     from shared memory; then the C partial (m, l, acc) states merge over
 //     distributed shared memory, each rank writing its share of the output.
 // Barriers a launch: one cluster barrier for the tables (SOCKET), four
-// for the select, one for the lists, two around the merge.
+// for the select, one for the lists, two around the merge.  The select,
+// the list fold, the merge and the choice of C are paged_cluster.cuh's,
+// shared with paged_quest.cu.
 
 // Layouts (all contiguous): q f32 (B, KVH, G, hd); k/v pages T
 // (NB, KVH, bs, hd) with T per kv_type (paged_common.cuh's KvType); k/v
@@ -118,64 +120,40 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "paged_common.cuh"
+#include "paged_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using paged::FastDiv;
+using paged::align16;
+using paged::cp_async;
+using paged::cp_async_commit;
+using paged::cp_async_wait;
+using paged::kFull;
 using paged::kNegInf;
-using paged::kv_to_float;
+using paged::kThreads;
+using paged::kWarps;
 using paged::sort_key;
+using paged::take;
 
-constexpr int kThreads = 512;        // one token a thread in every tile
-constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 2;        // CTAs an SM must fit (registers)
 constexpr int kPositions = 512;      // table positions a CTA, choosing C
-constexpr int kMaxCluster = 8;       // the portable cluster size
-constexpr int kGroups = 4;           // query heads a pass over a K row
-constexpr int kChunkRows = 32;       // K/V rows a chunk holds, at most
-constexpr int kChunkBytes = 64 * 1024;   // two stages of K/V chunks, at most
-constexpr int kMaxStages = 8;        // K/V chunks in flight, at most
-constexpr int kBins = 256;           // 8-bit radix digits
 constexpr int kTableBatch = 8;      // tables a warp loads at once
-constexpr unsigned kFull = 0xffffffffu;
-// errors of the launch besides cudaError_t values
-constexpr int kErrClusterFit = -1;
-constexpr int kErrSmem = -2;
 
 // Scoring mode of the fused pass.
 enum class Mode { kSocket, kHardLsh };
 
-// n / d for n, d < 2^16 as one multiply-high (exact in that range).
-struct FastDiv {
-  uint32_t d, m;
-  __host__ __device__ explicit FastDiv(uint32_t d_)
-      : d(d_), m(d_ > 1 ? 0xffffffffu / d_ + 1 : 0) {}
-  __device__ __forceinline__ int operator()(int n) const {
-    return d > 1 ? static_cast<int>(__umulhi(static_cast<uint32_t>(n), m))
-                 : n;
-  }
-};
-
-// Byte offsets of the shared-memory arrays (all 16-byte aligned).  The
-// score pass's tables and bits tile and the attend pass's ring of K/V
+// Byte offsets of the shared-memory arrays (all 16-byte aligned): those
+// every cluster kernel has (paged_cluster.cuh), then the tile's block ids.
+// The score pass's tables and bits tile and the attend pass's ring of K/V
 // chunk stages share one region.
 struct Layout {
-  size_t q, acc, ss, scales, stats, srow, red, hist, misc, blk, tables, bits,
-      kv, kv_buf, total;
+  paged::ClusterSmem head;
+  size_t blk, tables, bits, kv, kv_buf, total;
   int stages;
 };
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~static_cast<size_t>(15);
-}
-
-__host__ __device__ inline size_t take(size_t* at, size_t bytes) {
-  const size_t o = *at;
-  *at = align16(o + bytes);
-  return o;
-}
 
 // Floats one (g, l) table set takes: 2^ceil(P/2) + 2^floor(P/2) entries
 // rounded up to whole 16-byte words (SOCKET); one sign pattern (hard LSH).
@@ -192,15 +170,7 @@ __host__ __device__ inline Layout layout(int g, int gs, int hd, int bs,
                                          int tsize) {
   Layout s;
   size_t o = 0;
-  s.q = take(&o, static_cast<size_t>(g) * hd * 4);
-  s.acc = take(&o, static_cast<size_t>(g) * hd * 4);
-  s.ss = take(&o, static_cast<size_t>(g) * rows * 4);
-  s.scales = take(&o, static_cast<size_t>(2 * kMaxStages) * rows * 4);
-  s.stats = take(&o, static_cast<size_t>(3) * g * 4);
-  s.srow = take(&o, kThreads * 4);
-  s.red = take(&o, (kWarps + 1) * 4);
-  s.hist = take(&o, 2 * kBins * 4);
-  s.misc = take(&o, (4 + kMaxCluster) * 4);
+  s.head = paged::cluster_smem(g, hd, rows, &o);
   s.blk = take(&o, static_cast<size_t>(2) * (kThreads / bs + 2) * 4);
   size_t score = o;
   s.tables = take(&score, static_cast<size_t>(gs) * nl * table_stride<M>(p) *
@@ -208,76 +178,10 @@ __host__ __device__ inline Layout layout(int g, int gs, int hd, int bs,
   s.bits = take(&score, static_cast<size_t>(kThreads) * w * 4);
   s.kv = o;
   s.kv_buf = align16(static_cast<size_t>(rows) * hd * tsize);
-  const size_t fit = (score - o) / (2 * s.kv_buf);
-  s.stages = fit < 2 ? 2 : fit > kMaxStages ? kMaxStages : static_cast<int>(fit);
+  s.stages = paged::ring_stages(score - o, s.kv_buf);
   const size_t ring = o + 2 * s.kv_buf * s.stages;
   s.total = score > ring ? score : ring;
   return s;
-}
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  switch (bytes) {
-    case 16:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                   "l"(src));
-      break;
-    case 8:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                   "l"(src));
-      break;
-    case 4:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                   "l"(src));
-      break;
-    case 2:
-      *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
-      break;
-    default:
-      *static_cast<uint8_t*>(dst) = *static_cast<const uint8_t*>(src);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most n of this thread's copy groups are pending.
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::);
-  }
-}
-
-// Block-wide exclusive prefix sum in thread order; *total gets the sum.
-// red: kWarps ints.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* red,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_up_sync(kFull, inc, o);
-    if (lane >= o) inc += n;
-  }
-  __syncthreads();
-  if (lane == 31) red[warp] = inc;
-  __syncthreads();
-  int before = 0, sum = 0;
-  for (int i = 0; i < kWarps; ++i) {
-    const int r = red[i];
-    if (i < warp) before += r;
-    sum += r;
-  }
-  *total = sum;
-  return before + inc - v;
 }
 
 // A row of packed words in shared memory, read in order: as 16-byte words
@@ -320,21 +224,14 @@ paged_socket_kernel(const float* __restrict__ q,
   const int rank = static_cast<int>(cluster.block_rank());
   const int nranks = static_cast<int>(cluster.num_blocks());
   const Layout lay = layout<M>(g, gs, hd, bs, w, nl, p, rows, sizeof(T));
-  float* sq = reinterpret_cast<float*>(smem + lay.q);
-  float* sacc = reinterpret_cast<float*>(smem + lay.acc);
-  float* ss = reinterpret_cast<float*>(smem + lay.ss);
-  float* sscale = reinterpret_cast<float*>(smem + lay.scales);
-  float* sm = reinterpret_cast<float*>(smem + lay.stats);   // m, l, alpha
-  float* sl = sm + g;
-  float* salpha = sl + g;
-  int* srow = reinterpret_cast<int*>(smem + lay.srow);
-  int* red = reinterpret_cast<int*>(smem + lay.red);
-  int* shist = reinterpret_cast<int*>(smem + lay.hist);
-  int* smisc = reinterpret_cast<int*>(smem + lay.misc);
+  const paged::Fold fold = paged::carve_fold(
+      smem, lay.head, g, lay.kv, lay.kv_buf, rows, lay.stages);
+  int* red = reinterpret_cast<int*>(smem + lay.head.red);
+  int* shist = reinterpret_cast<int*>(smem + lay.head.hist);
+  int* smisc = reinterpret_cast<int*>(smem + lay.head.misc);
   float* stab = reinterpret_cast<float*>(smem + lay.tables);
   uint32_t* spat = reinterpret_cast<uint32_t*>(smem + lay.tables);
   uint32_t* sbits = reinterpret_cast<uint32_t*>(smem + lay.bits);
-  unsigned char* skv = smem + lay.kv;
 
   const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -391,15 +288,7 @@ paged_socket_kernel(const float* __restrict__ q,
     }
   }
   if (r0 < r1) load_blocks(r0, sblk);
-  const float* qb = q + bh * g * hd;
-  for (int i = tid; i < g * hd; i += kThreads) {
-    sq[i] = qb[i];
-    sacc[i] = 0.f;
-  }
-  if (tid < g) {
-    sm[tid] = kNegInf;
-    sl[tid] = 0.f;
-  }
+  paged::init_fold(fold, q + bh * g * hd, g, hd);
   __syncthreads();                        // the first tile's block ids in
   // the tile's rows at stride w, in bits_vec-word copies (4 where w and the
   // pool allow); a copy never crosses a row
@@ -534,127 +423,20 @@ paged_socket_kernel(const float* __restrict__ q,
   }
 
   // ---- 2. select: 8-bit radix digits over the cluster ----------------------
-  // rows at or past length all hold eff = -1e30: one key, n_inv of them
-  const uint32_t k_inv = sort_key(kNegInf);
-  const int n_inv = n_total - length;
-  uint32_t prefix = 0;
-  int above = 0;            // keys of the cluster above the prefix's bucket
-  int eq_before = 0;        // keys equal to thr in ranks < rank
-  for (int round = 3; round >= 0; --round) {
-    const int shift = 8 * round;
-    const uint32_t hi_mask = round == 3 ? 0u : kFull << (shift + 8);
-    int* hist = shist + (round & 1) * kBins;
-    for (int i = tid; i < kBins; i += kThreads) hist[i] = 0;
-    __syncthreads();                      // eff written; hist cleared
-    for (int t0 = r0; t0 < r1; t0 += kThreads) {
-      const int t = t0 + tid;
-      bool in = false;
-      uint32_t digit = 0;
-      if (t < r1) {
-        const uint32_t key = sort_key(eff[t]);
-        in = ((key ^ prefix) & hi_mask) == 0;
-        digit = (key >> shift) & 0xffu;
-      }
-      const unsigned active = __ballot_sync(kFull, in);
-      if (in) {
-        const unsigned same = __match_any_sync(active, digit);
-        if ((same & ((1u << lane) - 1u)) == 0)
-          atomicAdd(&hist[digit], __popc(same));
-      }
-    }
-    cluster.sync();                       // every rank's histogram done
-    if (warp == 0) {
-      // bins 8*lane .. 8*lane+7, summed over the ranks
-      int c[8] = {};
-#pragma unroll
-      for (int rr = 0; rr < kMaxCluster; ++rr) {
-        if (rr < nranks) {
-          const int4* hr = reinterpret_cast<const int4*>(
-                               cluster.map_shared_rank(hist, rr)) + 2 * lane;
-          const int4 x = hr[0], y = hr[1];
-          c[0] += x.x; c[1] += x.y; c[2] += x.z; c[3] += x.w;
-          c[4] += y.x; c[5] += y.y; c[6] += y.z; c[7] += y.w;
-        }
-      }
-      const uint32_t inv_digit = (k_inv >> shift) & 0xffu;
-      if (((k_inv ^ prefix) & hi_mask) == 0 &&
-          static_cast<int>(inv_digit >> 3) == lane)
-        c[inv_digit & 7] += n_inv;
-      int lane_sum = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) lane_sum += c[j];
-      int suffix = lane_sum;              // bins of lanes >= lane
-      for (int o = 1; o < 32; o <<= 1) {
-        const int x = __shfl_down_sync(kFull, suffix, o);
-        if (lane + o < 32) suffix += x;
-      }
-      // the largest digit whose count from the top reaches budget, and
-      // the count above it; none (fewer keys than budget): digit 0
-      int run = above + suffix - lane_sum, found = -1, gt = 0, gt0 = 0;
-#pragma unroll
-      for (int j = 7; j >= 0; --j) {
-        if (found < 0 && run + c[j] >= budget) {
-          found = j;
-          gt = run;
-        }
-        if (j == 0) gt0 = run;
-        run += c[j];
-      }
-      const unsigned any = __ballot_sync(kFull, found >= 0);
-      const int src = any ? 31 - __clz(any) : 0;
-      const int dj = __shfl_sync(kFull, any ? found : 0, src);
-      const int dgt = __shfl_sync(kFull, any ? gt : gt0, src);
-      const uint32_t digit = static_cast<uint32_t>(src * 8 + dj);
-      int eb = 0;
-      if (round == 0 && lane < rank)
-        eb = cluster.map_shared_rank(hist, lane)[digit];
-      for (int o = 16; o > 0; o >>= 1) eb += __shfl_xor_sync(kFull, eb, o);
-      if (lane == 0) {
-        smisc[0] = static_cast<int>(prefix | (digit << shift));
-        smisc[1] = dgt;
-        smisc[2] = eb;
-      }
-    }
-    __syncthreads();
-    prefix = static_cast<uint32_t>(smisc[0]);
-    above = smisc[1];
-    eq_before = smisc[2];
-  }
-  const uint32_t thr = prefix;
-  const int ties_needed = budget - above;
+  // rows at or past length all hold eff = -1e30: one key, counted once
+  const paged::Threshold sel = paged::cluster_select(
+      cluster, rank, nranks, r0, r1,
+      [&](int t) { return sort_key(eff[t]); }, n_total - length, budget,
+      shist, smisc);
+  const uint32_t thr = sel.thr;
+  const int ties_needed = sel.ties_needed;
 
   // ---- 3. attend over the selected rows, in logical order ------------------
-  const int row_bytes = hd * static_cast<int>(sizeof(T));
-  const int pieces = row_bytes / vec, stages = lay.stages;
-  const FastDiv div_pieces(pieces);
-  const bool scaled = k_scale != nullptr;
-  // K/V rows (and scales) of srow[c0, c0 + rows) into stage st
-  auto issue = [&](int c0, int cnt, int st) {
-    const int n = min(rows, cnt - c0), per_kv = n * pieces;
-    unsigned char* kb = skv + st * 2 * lay.kv_buf;
-    for (int i = tid; i < 2 * per_kv; i += kThreads) {
-      const int which = i >= per_kv, j = i - which * per_kv;
-      const int r = div_pieces(j), piece = j - r * pieces;
-      const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(which ? v_pages : k_pages) +
-          static_cast<size_t>(srow[c0 + r]) * row_bytes + piece * vec;
-      cp_async(kb + which * lay.kv_buf + r * row_bytes + piece * vec, src,
-               vec);
-    }
-    if (scaled)
-      for (int i = tid; i < 2 * n; i += kThreads) {
-        const int which = i >= n, r = i - which * n;
-        cp_async(sscale + (st * 2 + which) * rows + r,
-                 (which ? v_scale : k_scale) + srow[c0 + r], 4);
-      }
-    cp_async_commit();
-  };
-
   // 3a. this rank's selected rows, in logical order: sel_out, and their
   // pool rows written over the consumed head of the rank's eff range
   // (position r0 + k holds the k-th; k never passes the token being read)
   int* list = reinterpret_cast<int*>(eff);
-  int ties_seen = eq_before, found = 0;
+  int ties_seen = sel.eq_before, found = 0;
   for (int n0 = r0; n0 < r1; n0 += kThreads) {
     const int t = n0 + tid;
     float e = kNegInf;
@@ -667,14 +449,14 @@ paged_socket_kernel(const float* __restrict__ q,
     }
     int eq_total;
     const int rank_eq =
-        ties_seen + block_exclusive_scan(is_eq, red, &eq_total);
+        ties_seen + paged::block_exclusive_scan(is_eq, red, &eq_total);
     ties_seen += eq_total;
     const int is_sel = t < r1 &&
                        (key > thr || (is_eq && rank_eq < ties_needed)) &&
                        e > -5e29f;
     if (sel_out != nullptr && t < r1) sel_out[bh * n_total + t] = is_sel;
     int cnt;
-    const int slot = block_exclusive_scan(is_sel, red, &cnt);
+    const int slot = paged::block_exclusive_scan(is_sel, red, &cnt);
     if (is_sel) list[r0 + found + slot] = pool_row(n0, t);
     found += cnt;
   }
@@ -684,15 +466,9 @@ paged_socket_kernel(const float* __restrict__ q,
   // 3b. an even share of the cluster's list: rank r folds list entries
   // [r * S / C, (r + 1) * S / C) of the S selected rows, whichever rank
   // found them, so the sink and window rows do not pile on two ranks
-  int* sbase = smisc + 4;                 // each rank's count, then offsets
-  if (tid < nranks) sbase[tid] = cluster.map_shared_rank(smisc, tid)[3];
-  __syncthreads();
-  int total = 0;
-  for (int rr = 0; rr < nranks; ++rr) total += sbase[rr];
-  const int k_lo = static_cast<int>(static_cast<long long>(total) * rank /
-                                    nranks);
-  const int k_hi = static_cast<int>(static_cast<long long>(total) *
-                                    (rank + 1) / nranks);
+  int* sbase = smisc + 4;                 // each rank's count
+  int k_lo, k_hi;
+  paged::share_rows(cluster, rank, nranks, smisc, sbase, &k_lo, &k_hi);
   // the pool row of the cluster's k-th selected row, read from L2: ranks'
   // ranges are whole blocks, not whole 128-byte lines, so this SM's L1 may
   // hold a stale copy of a line where another rank wrote its list
@@ -701,150 +477,31 @@ paged_socket_kernel(const float* __restrict__ q,
     while (rr + 1 < nranks && k >= sbase[rr]) k -= sbase[rr++];
     return __ldcg(list + min(length, rr * per * bs) + k);
   };
-  for (int k0 = k_lo; k0 < k_hi; k0 += kThreads) {
-    const int cnt = min(kThreads, k_hi - k0);
-    __syncthreads();                      // the previous batch's rows read
-    if (tid < cnt) srow[tid] = list_row(k0 + tid);
-    __syncthreads();
-    // a ring of `stages` chunk stages, stages - 1 chunks in flight
-    const int chunks = (cnt + rows - 1) / rows;
-    for (int k = 0; k < min(stages - 1, chunks); ++k)
-      issue(k * rows, cnt, k);
-    for (int c = 0; c < chunks; ++c) {
-      const int ahead = c + stages - 1;
-      if (ahead < chunks) issue(ahead * rows, cnt, ahead % stages);
-      cp_async_wait(min(chunks, c + stages) - c - 1);
-      __syncthreads();                    // chunk c's rows in
-      const int st = c % stages, n = min(rows, cnt - c * rows);
-      const T* kc = reinterpret_cast<const T*>(skv + st * 2 * lay.kv_buf);
-      const T* vc = reinterpret_cast<const T*>(skv + (st * 2 + 1) *
-                                                         lay.kv_buf);
-      const float* ksc = sscale + st * 2 * rows;
-      const float* vsc = ksc + rows;
-      // q.k: one warp a row, kGroups heads' sums at once
-      for (int r = warp; r < n; r += kWarps) {
-        const T* kr = kc + r * hd;
-        const float ks = scaled ? ksc[r] : 1.f;
-        for (int g0 = 0; g0 < g; g0 += kGroups) {
-          float d[kGroups] = {};
-          for (int i = lane; i < hd; i += 32) {
-            const float kv = kv_to_float(kr[i]) * ks;
-#pragma unroll
-            for (int j = 0; j < kGroups; ++j)
-              if (g0 + j < g) d[j] += sq[(g0 + j) * hd + i] * kv;
-          }
-#pragma unroll
-          for (int j = 0; j < kGroups; ++j) d[j] = paged::warp_sum(d[j]);
-          if (lane == 0)
-#pragma unroll
-            for (int j = 0; j < kGroups; ++j)
-              if (g0 + j < g) ss[(g0 + j) * rows + r] = d[j] * scale;
-        }
-      }
-      __syncthreads();
-      for (int gg = warp; gg < g; gg += kWarps) {
-        float mx = kNegInf;
-        for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ss[gg * rows + r]);
-        mx = paged::warp_max(mx);
-        const float m_prev = sm[gg];
-        const float m_new = fmaxf(m_prev, mx);
-        float ps = 0.f;
-        for (int r = lane; r < n; r += 32) {
-          const float pr = expf(ss[gg * rows + r] - m_new);
-          ss[gg * rows + r] = pr;
-          ps += pr;
-        }
-        ps = paged::warp_sum(ps);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          salpha[gg] = alpha;
-          sl[gg] = sl[gg] * alpha + ps;
-          sm[gg] = m_new;
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < g * hd; i += kThreads) {
-        const int gg = i / hd, d = i - gg * hd;
-        float a = sacc[i] * salpha[gg];
-        for (int r = 0; r < n; ++r)
-          a += ss[gg * rows + r] *
-               (kv_to_float(vc[r * hd + d]) * (scaled ? vsc[r] : 1.f));
-        sacc[i] = a;
-      }
-      __syncthreads();                    // stage st and ss free again
-    }
-  }
+  paged::fold_list(fold, k_lo, k_hi, list_row, k_pages, v_pages, k_scale,
+                   v_scale, g, hd, scale, vec);
   if (sel_out != nullptr)
     for (int t = length + rank * kThreads + tid; t < n_total;
          t += nranks * kThreads)
       sel_out[bh * n_total + t] = 0;
 
   // ---- 4. merge the ranks' (m, l, acc) and write the output ---------------
-  __syncthreads();
-  cluster.sync();                         // every rank's state final
-  const int ne = g * hd, share = (ne + nranks - 1) / nranks;
-  const int e1 = min(ne, (rank + 1) * share);
-  float* ob = out + bh * ne;
-  for (int i = rank * share + tid; i < e1; i += kThreads) {
-    const int gg = i / hd;
-    float m = kNegInf;
-    for (int rr = 0; rr < nranks; ++rr)
-      m = fmaxf(m, cluster.map_shared_rank(sm, rr)[gg]);
-    float l = 0.f, a = 0.f;
-    for (int rr = 0; rr < nranks; ++rr) {
-      const float* st = cluster.map_shared_rank(sm, rr);
-      const float f = expf(st[gg] - m);
-      l += st[g + gg] * f;
-      a += cluster.map_shared_rank(sacc, rr)[i] * f;
-    }
-    ob[i] = a / fmaxf(l, 1e-30f);
-  }
-  cluster.sync();                         // no rank leaves while read
+  paged::merge_ranks(cluster, rank, nranks, fold, g, hd, out + bh * g * hd);
 }
 
 // The largest cluster size worth taking for a table of n_total
 // positions: about kPositions positions a CTA, at most kMaxCluster.
 inline int cluster_cap(int n_total) {
-  return std::max(1, std::min(kMaxCluster,
+  return std::max(1, std::min(paged::kMaxCluster,
                               (n_total + kPositions - 1) / kPositions));
 }
 
 // How a launch is shaped: its configuration (grid, cluster, shared
-// memory), the chunk rows, copy widths and layout, and how many of its
-// clusters the card holds at once.
+// memory) and clusters at once, the chunk rows, copy widths and layout.
 struct Plan {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
+  paged::ClusterLaunch launch;
   Layout lay;
-  int rows, vec, bits_vec, fit;
+  int rows, vec, bits_vec;
 };
-
-// Clusters of c CTAs with smem bytes each that the card holds at once
-// (cudaOccupancyMaxActiveClusters), asked once per (c, smem).
-template <Mode M, typename T, int kG>
-int clusters_at_once(int c, size_t smem, int* fit) {
-  static size_t asked[kMaxCluster + 1] = {};
-  static int fits[kMaxCluster + 1] = {};
-  if (asked[c] != smem) {
-    cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr[1];
-    cfg.gridDim = dim3(c, 1, 1);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t e = cudaOccupancyMaxActiveClusters(
-        &fits[c], paged_socket_kernel<M, T, kG>, &cfg);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    asked[c] = smem;
-  }
-  *fit = fits[c];
-  return 0;
-}
 
 template <Mode M, typename T, int kG>
 int make_plan(Plan* pl, const T* k_pages, const T* v_pages,
@@ -852,72 +509,16 @@ int make_plan(Plan* pl, const T* k_pages, const T* v_pages,
               int hd, int bs, int w, int nb, int nl, int p,
               cudaStream_t stream) {
   const int tsize = static_cast<int>(sizeof(T));
-  pl->rows =
-      std::min(kChunkRows, std::max(1, kChunkBytes / (4 * hd * tsize)));
-  // the widest copy the row length and both pools' alignment allow
-  const uintptr_t align = reinterpret_cast<uintptr_t>(k_pages) |
-                          reinterpret_cast<uintptr_t>(v_pages) |
-                          static_cast<uintptr_t>(hd * tsize);
-  pl->vec = 16;
-  while (pl->vec > 1 && align % pl->vec) pl->vec >>= 1;
+  pl->rows = paged::chunk_rows(hd, tsize);
+  pl->vec = paged::copy_width(k_pages, v_pages, hd * tsize);
   pl->bits_vec =
       w % 4 == 0 && reinterpret_cast<uintptr_t>(bits_pages) % 16 == 0 ? 4 : 1;
   pl->lay = layout<M>(g, gs, hd, bs, w, nl, p, pl->rows, tsize);
-  static int optin = 0;                  // queried once, outside any capture
-  if (optin == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (pl->lay.total > static_cast<size_t>(optin)) return kErrSmem;
-  auto kernel = paged_socket_kernel<M, T, kG>;
-  static size_t smem_set = 0;
-  if (pl->lay.total > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(pl->lay.total));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = pl->lay.total;
-  }
-  // C: the largest whose B * KVH clusters the card holds at once (one
-  // wave); if none, the fewest waves times positions a CTA.  Both are known
-  // without a device sync.
-  const int n_total = nb * bs, clusters = b * kvh;
-  int c = 0;
-  long long best = 0;
-  for (int cc = 1; cc <= cluster_cap(n_total); ++cc) {
-    int fit = 0;
-    const int e = clusters_at_once<M, T, kG>(cc, pl->lay.total, &fit);
-    if (e != 0) return e;
-    if (fit < 1) continue;
-    const long long waves = (clusters + fit - 1) / fit;
-    const long long cost = waves == 1 ? -cc : waves * ((n_total + cc - 1) / cc);
-    if (c == 0 || cost < best) {
-      c = cc;
-      best = cost;
-      pl->fit = fit;
-    }
-  }
-  if (c == 0) return kErrClusterFit;
-  pl->cfg = cudaLaunchConfig_t{};
-  pl->cfg.gridDim = dim3(c, kvh, b);
-  pl->cfg.blockDim = dim3(kThreads);
-  pl->cfg.dynamicSmemBytes = pl->lay.total;
-  pl->cfg.stream = stream;
-  pl->attr[0].id = cudaLaunchAttributeClusterDimension;
-  pl->attr[0].val.clusterDim.x = c;
-  pl->attr[0].val.clusterDim.y = 1;
-  pl->attr[0].val.clusterDim.z = 1;
-  pl->cfg.attrs = pl->attr;
-  pl->cfg.numAttrs = 1;
-  return 0;
+  const int n_total = nb * bs;
+  return paged::plan_cluster(
+      &pl->launch,
+      reinterpret_cast<const void*>(&paged_socket_kernel<M, T, kG>),
+      pl->lay.total, b, kvh, cluster_cap(n_total), n_total, stream);
 }
 
 template <Mode M, typename T, int kG>
@@ -934,10 +535,10 @@ int launch_g(const float* q, const T* k_pages, const T* v_pages,
                                     kvh, g, gs, hd, bs, w, nb, nl, p, stream);
   if (e != 0) return e;
   const cudaError_t err = cudaLaunchKernelEx(
-      &pl.cfg, paged_socket_kernel<M, T, kG>, q, k_pages, v_pages, k_scale,
-      v_scale, bits_pages, vnorm_pages, qhash, logz, bt, lengths, budgets,
-      out, sel, eff, kvh, g, gs, hd, bs, w, nb, nl, p, tau, scale, sink,
-      window, pl.rows, pl.vec, pl.bits_vec);
+      &pl.launch.cfg, paged_socket_kernel<M, T, kG>, q, k_pages, v_pages,
+      k_scale, v_scale, bits_pages, vnorm_pages, qhash, logz, bt, lengths,
+      budgets, out, sel, eff, kvh, g, gs, hd, bs, w, nb, nl, p, tau, scale,
+      sink, window, pl.rows, pl.vec, pl.bits_vec);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1053,9 +654,9 @@ int paged_socket_attend_plan(int hard, int kv_type, int b, int kvh, int g,
             &pl, nullptr, nullptr, nullptr, b, kvh, g, gs, hd, bs, w, nb, l,
             p, nullptr);
         if (e != 0) return e;
-        info[0] = static_cast<int>(pl.cfg.gridDim.x);
+        info[0] = static_cast<int>(pl.launch.cfg.gridDim.x);
         info[1] = static_cast<int>(pl.lay.total);
-        info[2] = pl.fit;
+        info[2] = pl.launch.fit;
         info[3] = pl.lay.stages;
         return 0;
       });
@@ -1066,10 +667,10 @@ int paged_socket_attend_plan(int hard, int kv_type, int b, int kvh, int g,
 }
 
 const char* paged_socket_attend_error_string(int code) {
-  if (code == kErrClusterFit)
+  if (code == paged::kErrClusterFit)
     return "the kernel's thread-block cluster does not fit on the device "
            "(cudaOccupancyMaxActiveClusters is 0)";
-  if (code == kErrSmem)
+  if (code == paged::kErrSmem)
     return "the split score tables, bits tile and K/V chunks need more "
            "shared memory than a block may have (GS * L * 2^(P/2) too "
            "large)";

@@ -1,8 +1,11 @@
 // Block-wide helpers shared by the fused paged decode kernels
-// (paged_attention.cu: SOCKET and hard-LSH scoring; paged_quest.cu: Quest
-// page selection; paged_ring.cu: the sliding-window ring).  Every kernel
-// runs one block of kThreads threads per (request, KV head); all helpers
-// below are called by every thread of the block (they synchronize).
+// (paged_attention.cu: SOCKET and hard LSH; paged_quest.cu: Quest;
+// paged_ring.cu: the sliding-window ring).  Every kernel runs blocks of
+// kThreads threads: the ring one per (request, KV head), the other two a
+// thread-block cluster of them (paged_cluster.cuh).  The block-wide
+// helpers below are called by every thread of the block (they
+// synchronize); the online softmax over compacted rows (Softmax,
+// fold_rows) is the ring's.
 //
 // K/V pool pages come in four element types (the wrappers' kv_type codes,
 // KvType): f32, bf16 (stored as its 16 bits), int8, and fp8 e4m3fn

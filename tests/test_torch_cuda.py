@@ -16,9 +16,11 @@ selection equals the plain version's except at rows whose plain
 effective score lies within the score tolerance of the threshold, and
 bit for bit where the scores tie exactly; the hard-LSH and Quest
 kernels' selections equal their plain versions' bit for bit.  The
-SOCKET and hard-LSH kernel splits each (request, head) over a
-thread-block cluster; ``CLUSTER_CASES`` exercise it (32K contexts, ties
-across ranks, idle ranks, pooled selection), on f32 and stored pools.  The ring
+SOCKET and hard-LSH kernel and the Quest kernel split each (request,
+head) over a thread-block cluster; ``CLUSTER_CASES`` exercise it (32K
+contexts, ties across ranks, idle ranks and, but for Quest, pooled
+selection) on f32 pools here, and on stored pools too in
+``chip_smoke.py``.  The ring
 kernel must skip the NaN rows its cases put in dead slots.  On pools
 stored as bf16, int8 or fp8 (``serving.kv_dtype``) each kernel is held
 to its plain version on the same stored pages, SOCKET's and hard LSH's
@@ -204,7 +206,8 @@ def test_flash_prefill_wrapper_raises_on_unsupported_cuda_inputs(dev):
         ops.flash_prefill(x, x[:3], x[:3], scale=0.1)
 
 
-# The cluster split of paged_attention.cu (C ranks a (request, head)):
+# The cluster split of paged_attention.cu and paged_quest.cu (C ranks a
+# (request, head)):
 # 32K contexts (several tiles a rank), selected ties across ranks
 # (sparsity 2), requests shorter than one rank's range (idle ranks),
 # pooled selection (GS 1).  name -> (lengths, nb, paged_case keywords)
@@ -276,11 +279,17 @@ def test_paged_hard_lsh_kernel_matches_plain(dev, case):
     cases.check_hard_lsh(out, sel, args, akw, attn_tol=ATTN_TOL)
 
 
-@pytest.mark.parametrize("case", ["ragged", "edges", "ties", "ppb2"])
+@pytest.mark.parametrize("case", ["ragged", "edges", "ties", "ppb2",
+                                  *list(CLUSTER_CASES)[:3]])
 def test_paged_quest_kernel_matches_plain(dev, case):
     from repro_torch.kernels.paged_attention import cases, ops
     kw = dict(kvh=2, hd=64, sink=16, window=16)
-    if case == "ragged":
+    if case in CLUSTER_CASES:
+        lengths, nb, extra = CLUSTER_CASES[case]
+        kw = dict(kw, **extra)
+        if case == "ties-across-ranks":   # 520 pages: C >= 2; a request
+            lengths, nb = [600, 1500, 5800, 333], 520  # past the budget
+    elif case == "ragged":
         lengths, nb = [1024, 3000, 2048, 4096], 264
     elif case == "edges":       # length 1, page budget above the live pages
         lengths, nb = [1, 5, 300, 257], 40
@@ -297,6 +306,19 @@ def test_paged_quest_kernel_matches_plain(dev, case):
     assert ops.QUEST_LAUNCHES == before + 1
     torch.cuda.synchronize()
     cases.check_quest(out, sel, args, akw, attn_tol=ATTN_TOL)
+    c = ops.paged_quest_plan(args[0], args[1], args[5],
+                             page_size=akw["page_size"])["cluster"]
+    if case == "ragged":
+        assert c > 1
+    if case == "ties-across-ranks":
+        ps, length = akw["page_size"], args[6].cpu()
+        eff = cases.quest_page_eff(args, akw).cpu()
+        pages = cases.quest_page_selection(sel.cpu(), ps)
+        assert cases.tie_ranks(eff, pages, (length + ps - 1) // ps,
+                               args[7].cpu(), bs=16 // ps, c=c) >= 2
+        assert cases.ties_cut(eff, pages)
+    if case == "idle-ranks":
+        assert c > 1 and cases.cta_ranges(5, 16, c)[-1] == (5, 5)
 
 
 @pytest.mark.parametrize("label", [c[0] for c in RING_CASES])

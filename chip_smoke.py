@@ -17,7 +17,16 @@ Phases, in order; the first failure raises and the script exits non-zero:
               one PyTorch call computing the same function on the device
               (CUDA-graph replay), beside the least time the card could
               take, and the kernel once more launched back to back from
-              Python (the host's launch rate).  The four fused paged
+              Python (the host's launch rate).  ``socket_score`` at the
+              static path's shape (f32 words, with vnorm, int8 planes,
+              pooled G 1; f32 words and int8 planes timed) and at its
+              edges (G 3 / P 7, P 1, P 20 on the sign-add instance, BH
+              256 on C 1 in several waves, tables in chunks at P 16 and
+              at P 24 / L 600), every case logged with its launch plan
+              (C, clusters at once, shared memory, instance) and failing
+              where the plan does not exercise its label; keys given
+              equal bits on every rank of the cluster must score
+              bit-equal (f32 words and int8 planes).  The four fused paged
               kernels again on pools stored as bf16, int8 and fp8 (the main
               case and an edge: ties, or a ring whose dead rows hold NaN in
               scales and fp8 payloads), SOCKET's and hard LSH's selections
@@ -51,7 +60,10 @@ Phases, in order; the first failure raises and the script exits non-zero:
               prompt drawn from --seed, 32 greedy decode steps, SOCKET with
               both contiguous-path kernels on.  The decode kernels' launch
               counts must equal layers x decode calls, ``flash_prefill``'s
-              layers x 1 (the one whole-prompt prefill).  The prefill runs
+              layers x 1 (the one whole-prompt prefill).  The same run on
+              int8 plane bytes (``socket.bits_storage`` "int8"; the
+              ``socket_score[int8]`` entry's launches) must give the same
+              greedy tokens as packed words.  The prefill runs
               again through the kernel and once through its plain version
               (the same layout code, the op swapped for its plain version):
               last-token logits within LOGITS_ATOL, layer 0's K/V bit for
@@ -69,7 +81,13 @@ Phases, in order; the first failure raises and the script exits non-zero:
               Decode step 0 is run again
               on a clone of the prefilled cache through the plain versions;
               its logits must agree with the kernel path's, and the greedy
-              tokens of the two paths are compared.
+              tokens of the two paths are compared.  Where the plain
+              route's SOCKET top-k differs from the kernel route's only at
+              rows whose effective scores lie within SCORE_TOL of the
+              threshold, it takes the kernel route's selection there
+              (``static_ties_shared``; the split tables move scores a few
+              ulps) and the swapped rows are logged; a difference outside
+              the band fails.
 5. continuous — llama31-8b at full width and depth, the same weights,
               through ``ContinuousBatchingEngine.warmup()`` and
               ``run(realtime=False)``, once with each fused backend
@@ -287,6 +305,75 @@ def socket_score_case(dev, gen, *, bh, n, g, l, p, int8, vnorm):
     return bits, u, vn
 
 
+def score_plan_note(ss, label, bits, kw) -> str:
+    """The launch plan of a socket_score case, as a log note; raises where
+    the case does not exercise what its label names."""
+    pl = ss.socket_score_plan(bits, kw["g"], num_tables=kw["l"],
+                              num_planes=kw["p"])
+    wants = {"main path": pl["C"] > 1 and pl["resident"],
+             "BH=256 N=513": pl["C"] == 1 and
+             kw["bh"] > pl["clusters_at_once"],
+             "P=20 sign-add": pl["instance"] == "sign-add",
+             "chunked tables P=16": pl["instance"] == "split" and
+             not pl["resident"],
+             "chunked sign-add P=24 L=600": pl["instance"] == "sign-add" and
+             not pl["resident"]}
+    if not wants.get(label, True):
+        raise AssertionError(f"socket_score[{label}]: plan {pl} does not "
+                             "exercise the case")
+    return (f"C {pl['C']}, {pl['clusters_at_once']} clusters at once, "
+            f"{pl['smem']} B a CTA, {pl['instance']} instance, tiles of "
+            f"<= {pl['tile']} keys, " +
+            ("tables resident" if pl["resident"] else
+             f"tables in chunks of {pl['tables_a_chunk']}"))
+
+
+def equal_rows_check(ss, bits, u, args) -> None:
+    """Keys given equal bits on every rank of the cluster (and in two
+    tiles of a rank) must score bit for bit the same."""
+    g = u.shape[1]
+    c = ss.socket_score_plan(bits, g, num_tables=args["num_tables"],
+                             num_planes=args["num_planes"])["C"]
+    rows, runs = ss.key_runs(bits.shape[1], c)
+    at = [r0 + k for r0, r1 in runs for k in (0, rows + 3) if r0 + k < r1]
+    bits = bits.clone()
+    bits[:, at] = bits[:, at[:1]]
+    out = ss.launch_socket_score(bits, u, None, **args)
+    torch.cuda.synchronize()
+    fmt = str(bits.dtype)[6:]
+    if not torch.equal(out[:, at], out[:, at[:1]].expand(-1, len(at))):
+        raise AssertionError(f"socket_score ({fmt}): keys with equal bits "
+                             "on different ranks score differently")
+    log(f"socket_score ({fmt}): equal bit rows at keys {at} (C {c}, tiles "
+        f"of {rows}) score bit-equal")
+
+
+def socket_score_row(ss, ref_fn, dev, gen, name, kw, args, bits, u, vn,
+                     err) -> dict:
+    """The timed entry of a socket_score case: kernel and plain version
+    over inputs rotated past the L2 cache, beside the bound."""
+    bh, n, g = kw["bh"], kw["n"], kw["g"]
+    nbytes = bits.numel() * bits.element_size() + u.numel() * 4 + \
+        bh * n * 4 * (2 if vn is not None else 1)
+    # what the function needs, not what this kernel does: with P split
+    # into two halves, each looked up in a per-(g, l) table of exp(.), a
+    # (key, g, l) term is one FMA
+    flops = bh * n * g * kw["l"] * 2
+    sets = [socket_score_case(dev, gen, **kw)
+            for _ in range(rotations(nbytes))]
+    kernel = functools.partial(ss.launch_socket_score, **args)
+    ms = device_time_ms(kernel, sets)
+    plain_ms = device_time_ms(functools.partial(ref_fn, **args), sets)
+    bms, by = bound(nbytes, flops)
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/socket_score/socket_score.cu",
+        replaces="src/repro/kernels/socket_score/socket_score.py:45",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
+        back_to_back_ms=back_to_back_ms(kernel, sets))
+
+
 def flash_decode_case(dev, gen, *, bh, k, g, hd, dtype, dead_row=None):
     q = torch.randn((bh, g, hd), generator=gen, device=dev)
     kk = torch.randn((bh, k, hd), generator=gen, device=dev).to(dtype)
@@ -330,17 +417,29 @@ def phase_kernels(dev, seed):
     rows = {}
     # -- socket_score: main-path shapes first, then the edges
     L, P, G = 60, 10, 4
+    main = dict(bh=16, n=8224, g=G, l=L, p=P)
     score_cases = [
-        ("main path", dict(bh=16, n=8224, g=G, l=L, p=P, int8=False,
-                           vnorm=False)),
-        ("main path + vnorm", dict(bh=16, n=8224, g=G, l=L, p=P, int8=False,
-                                   vnorm=True)),
-        ("int8 planes", dict(bh=16, n=8224, g=G, l=L, p=P, int8=True,
-                             vnorm=True)),
+        ("main path", dict(main, int8=False, vnorm=False)),
+        ("main path + vnorm", dict(main, int8=False, vnorm=True)),
+        ("int8 planes", dict(main, int8=True, vnorm=True)),
+        ("pooled G=1", dict(main, g=1, int8=False, vnorm=False)),
         ("ragged N, G=1", dict(bh=3, n=1001, g=1, l=L, p=P, int8=False,
                                vnorm=True)),
         ("smoke P=6 L=12", dict(bh=4, n=77, g=2, l=12, p=6, int8=False,
                                 vnorm=False)),
+        ("G=3 L=9 P=7", dict(bh=6, n=300, g=3, l=9, p=7, int8=False,
+                             vnorm=True)),
+        ("int8 G=3 L=9 P=7", dict(bh=6, n=300, g=3, l=9, p=7, int8=True,
+                                  vnorm=False)),
+        ("P=1", dict(bh=6, n=300, g=2, l=5, p=1, int8=False, vnorm=True)),
+        ("P=20 sign-add", dict(bh=6, n=300, g=2, l=3, p=20, int8=False,
+                               vnorm=True)),
+        ("BH=256 N=513", dict(bh=256, n=513, g=G, l=L, p=P, int8=False,
+                              vnorm=False)),
+        ("chunked tables P=16", dict(bh=4, n=700, g=G, l=L, p=16,
+                                     int8=False, vnorm=True)),
+        ("chunked sign-add P=24 L=600", dict(bh=2, n=300, g=G, l=600, p=24,
+                                             int8=False, vnorm=False)),
     ]
     for label, kw in score_cases:
         bits, u, vn = socket_score_case(dev, gen, **kw)
@@ -350,30 +449,14 @@ def phase_kernels(dev, seed):
         ref = socket_score_ref(bits, u, vn, **args)
         err = check_close(f"socket_score[{label}]", out, ref, SCORE_TOL)
         log(f"socket_score [{label}] {tuple(bits.shape)} "
-            f"{str(bits.dtype)[6:]}: max|err| {err:.3e} "
-            f"(rtol {SCORE_TOL['rtol']}, atol {SCORE_TOL['atol']})")
-        if label == "main path":
-            bh, n, g = kw["bh"], kw["n"], kw["g"]
-            nbytes = bits.numel() * bits.element_size() + u.numel() * 4 + \
-                bh * n * 4
-            # what the function needs, not what this kernel does: with P
-            # split into two halves, each looked up in a per-(g, l) table
-            # of exp(.), a (key, g, l) term is one FMA
-            flops = bh * n * g * L * 2
-            sets = [socket_score_case(dev, gen, **kw)
-                    for _ in range(rotations(nbytes))]
-            kernel = functools.partial(ss.launch_socket_score, **args)
-            ms = device_time_ms(kernel, sets)
-            plain_ms = device_time_ms(
-                functools.partial(socket_score_ref, **args), sets)
-            bms, by = bound(nbytes, flops)
-            rows["socket_score"] = dict(
-                name="socket_score", route="cuda",
-                source="src/repro_torch/kernels/socket_score/socket_score.cu",
-                replaces="src/repro/kernels/socket_score/socket_score.py:45",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None,
-                back_to_back_ms=back_to_back_ms(kernel, sets))
+            f"{str(bits.dtype)[6:]} G={kw['g']}: max|err| {err:.3e} "
+            f"(rtol {SCORE_TOL['rtol']}, atol {SCORE_TOL['atol']}); "
+            f"{score_plan_note(ss, label, bits, kw)}")
+        if label in ("main path", "int8 planes"):
+            equal_rows_check(ss, bits, u, args)
+            name = "socket_score" + ("[int8]" if kw["int8"] else "")
+            rows[name] = socket_score_row(ss, socket_score_ref, dev, gen,
+                                          name, kw, args, bits, u, vn, err)
 
     # -- flash_decode
     fd_cases = [
@@ -1279,6 +1362,26 @@ def phase_main(dev, seed, card):
         "max_memory_allocated_bytes": peak, "launches": launches,
         "expected_launches": expected, "card": card}))
 
+    # the same run on int8 plane bytes (socket.bits_storage "int8"): the
+    # kernel forms the same words from their sign bits, so the scores, and
+    # with them every greedy token, equal the packed run's
+    cfg8 = cfg.replace(socket=dataclasses.replace(cfg.socket,
+                                                  bits_storage="int8"))
+    ss.LAUNCHES = 0
+    toks8, _, decode8_s = run_serve(cfg8, batch, prompt_len, steps,
+                                    seed=seed, prompt=prompt, params=params,
+                                    device=dev)
+    launches["socket_score[int8]"] = ss.LAUNCHES
+    if ss.LAUNCHES != expected["socket_score"]:
+        raise AssertionError(f"socket_score[int8]: {ss.LAUNCHES} launches, "
+                             f"expected {expected['socket_score']}")
+    if not torch.equal(toks8, toks):
+        raise AssertionError("int8 plane bytes gave other greedy tokens "
+                             "than packed words")
+    log(f"main path on int8 plane bytes: {ss.LAUNCHES} socket_score "
+        f"launches, greedy tokens equal to the packed run's; decode "
+        f"{batch * steps / decode8_s:.2f} tokens/s")
+
     # the prefill through the kernel and through the plain op
     capacity = prompt_len + steps
     logits, caches, stats = prefill_routes(cfg, params, prompt, capacity,
@@ -1293,10 +1396,16 @@ def phase_main(dev, seed, card):
         raise AssertionError("prefill is not deterministic: first token "
                              "differs between two runs")
     plain_caches = [{k: v.clone() for k, v in c.items()} for c in caches]
-    lk, _ = make_serve_step(cfg)(params, caches, tok, prompt_len)
-    del caches
     serve_plain = make_serve_step(cfg_plain)
-    lp, _ = serve_plain(params, plain_caches, tok, prompt_len)
+    swapped = []
+    with static_ties_shared(swapped) as to_plain:
+        lk, _ = make_serve_step(cfg)(params, caches, tok, prompt_len)
+        to_plain()
+        lp, _ = serve_plain(params, plain_caches, tok, prompt_len)
+    del caches
+    log(f"decode step 0: the plain top-k took the kernel route's selection "
+        f"in {len(swapped)} of {cfg.num_layers} layers (rows inside the "
+        f"score band: {swapped})")
     for name, t in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"non-finite logits on the {name} path")
@@ -1378,17 +1487,52 @@ def forced_logits_err(cfg, cfg_plain, params, kernel_pages, plain_pages,
     return worst
 
 
+def share_in_band(cfg, scores, vnorm, ksel, idx, mask, *, k, length,
+                  n_total, budget, swapped):
+    """The plain SOCKET top-k ``(idx, mask)`` of ``scores`` against the
+    kernel route's selection ``ksel`` (B, KVH, N) bool.  Where the two
+    differ only at rows whose plain effective score lies within SCORE_TOL
+    of the top-k threshold (the kernel check's band: both sum the same
+    fp32 terms in other orders), returns the kernel's selection and
+    appends the count of differing rows to ``swapped``; a difference
+    outside the band raises."""
+    from repro_torch.core import socket as sk
+    if ksel.shape != scores.shape or scores.shape[-1] != n_total:
+        raise AssertionError(f"kernel selection {tuple(ksel.shape)} vs "
+                             f"plain scores {tuple(scores.shape)}")
+    psel = torch.zeros_like(ksel).scatter_(-1, idx, mask)
+    diff = psel != ksel
+    if not bool(diff.any()):
+        return idx, mask
+    # the plain effective scores and the k-th largest, as value_aware_topk
+    # ranks them
+    pos = torch.arange(n_total, device=scores.device)
+    ln = sk.per_batch(length, scores.ndim)
+    eff = scores.float() * vnorm.float()
+    eff = torch.where((pos < cfg.sink_tokens) |
+                      (pos >= ln - cfg.window_tokens), sk.FLT_MAX, eff)
+    eff = torch.where(pos < ln, eff, sk.NEG_INF)
+    top = torch.as_tensor(k if budget is None else budget,
+                          device=scores.device).long().clamp(1, k) - 1
+    top = top.reshape(-1, 1, 1).expand(*scores.shape[:2], 1)
+    thr = torch.sort(eff, dim=-1, descending=True).values.gather(-1, top)
+    close = (eff - thr).abs() <= SCORE_TOL["atol"] + \
+        SCORE_TOL["rtol"] * thr.abs()
+    if bool((diff & ~close).any()) or int(ksel.sum(-1).max()) > k:
+        raise AssertionError("the plain and kernel SOCKET selections "
+                             "differ outside the threshold band")
+    swapped.append(int(diff.sum().item()))
+    vals, order = torch.sort(ksel.int(), dim=-1, descending=True,
+                             stable=True)
+    return order[..., :k], vals[..., :k].bool()
+
+
 @contextlib.contextmanager
 def socket_ties_shared(swapped):
     """While active, each call of the fused paged SOCKET kernel keeps its
     selection, and the plain SOCKET top-k (``core.socket.
     value_aware_topk``) of the call it pairs with (the same layer: calls
-    pair in order) checks its selection against it.  Where the two differ
-    only at rows whose plain effective score lies within SCORE_TOL of the
-    top-k threshold (the kernel check's band: both sum the same fp32 terms
-    in other orders), the plain top-k returns the kernel's selection and
-    the count of differing rows goes to ``swapped``; a difference outside
-    the band raises."""
+    pair in order) is held to it by :func:`share_in_band`."""
     from repro_torch.core import socket as sk
     from repro_torch.kernels.paged_attention import ops as pa
     kernel, topk = pa.paged_socket_attend, sk.value_aware_topk
@@ -1413,34 +1557,9 @@ def socket_ties_shared(swapped):
                                  "to pair with")
         ksel = pending.popleft()
         ksel = ksel.reshape(*ksel.shape[:2], -1).bool()
-        if ksel.shape != scores.shape or scores.shape[-1] != n_total:
-            raise AssertionError(f"kernel selection {tuple(ksel.shape)} vs "
-                                 f"plain scores {tuple(scores.shape)}")
-        psel = torch.zeros_like(ksel).scatter_(-1, idx, mask)
-        diff = psel != ksel
-        if not bool(diff.any()):
-            return idx, mask
-        # the plain effective scores and the k-th largest, as
-        # value_aware_topk ranks them
-        pos = torch.arange(n_total, device=scores.device)
-        ln = sk.per_batch(length, scores.ndim)
-        eff = scores.float() * vnorm.float()
-        eff = torch.where((pos < cfg.sink_tokens) |
-                          (pos >= ln - cfg.window_tokens), sk.FLT_MAX, eff)
-        eff = torch.where(pos < ln, eff, sk.NEG_INF)
-        top = torch.as_tensor(k if budget is None else budget,
-                              device=scores.device).long().clamp(1, k) - 1
-        top = top.reshape(-1, 1, 1).expand(*scores.shape[:2], 1)
-        thr = torch.sort(eff, dim=-1, descending=True).values.gather(-1, top)
-        close = (eff - thr).abs() <= SCORE_TOL["atol"] + \
-            SCORE_TOL["rtol"] * thr.abs()
-        if bool((diff & ~close).any()) or int(ksel.sum(-1).max()) > k:
-            raise AssertionError("the plain and kernel SOCKET selections "
-                                 "differ outside the threshold band")
-        swapped.append(int(diff.sum().item()))
-        vals, order = torch.sort(ksel.int(), dim=-1, descending=True,
-                                 stable=True)
-        return order[..., :k], vals[..., :k].bool()
+        return share_in_band(cfg, scores, vnorm, ksel, idx, mask, k=k,
+                             length=length, n_total=n_total, budget=budget,
+                             swapped=swapped)
 
     with mock.patch.object(pa, "paged_socket_attend", spy), \
             mock.patch.object(sk, "value_aware_topk", shared_topk):
@@ -1448,6 +1567,40 @@ def socket_ties_shared(swapped):
     if pending:
         raise AssertionError(f"{len(pending)} kernel SOCKET calls with no "
                              "plain top-k to pair with")
+
+
+@contextlib.contextmanager
+def static_ties_shared(swapped):
+    """The static path's step-0 gate: while active, the SOCKET top-k
+    (``core.socket.value_aware_topk``) calls made before the yielded
+    ``to_plain()`` is called are the kernel route's (``socket_score``'s
+    scores) and keep their selections; each call after it is the plain
+    route's, pairs in order with one of them (the same layer) and is held
+    to it by :func:`share_in_band`."""
+    from repro_torch.core import socket as sk
+    topk = sk.value_aware_topk
+    kept, plain = collections.deque(), []
+
+    def shared_topk(cfg, scores, vnorm, *, k, length, n_total, budget=None):
+        idx, mask = topk(cfg, scores, vnorm, k=k, length=length,
+                         n_total=n_total, budget=budget)
+        if not plain:
+            kept.append(torch.zeros(scores.shape, dtype=torch.bool,
+                                    device=scores.device)
+                        .scatter_(-1, idx, mask))
+            return idx, mask
+        if not kept:
+            raise AssertionError("a plain SOCKET top-k with no kernel-route "
+                                 "top-k to pair with")
+        return share_in_band(cfg, scores, vnorm, kept.popleft(), idx, mask,
+                             k=k, length=length, n_total=n_total,
+                             budget=budget, swapped=swapped)
+
+    with mock.patch.object(sk, "value_aware_topk", shared_topk):
+        yield lambda: plain.append(True)
+    if kept:
+        raise AssertionError(f"{len(kept)} kernel-route SOCKET top-k calls "
+                             "with no plain top-k to pair with")
 
 
 def kv_block_bytes(pages):

@@ -4,9 +4,10 @@ Each ``.cu`` source exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, loaded with ``ctypes``.
 This takes seconds; a build against PyTorch's C++ headers takes minutes.
 Libraries go to ``build/repro_torch/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the source, the headers
-beside it (``*.cuh``, ``*.h``) and the flags, so an edited source or
-header is always rebuilt.  Nothing is compiled at import:
+(listed in ``.gitignore``), named by a hash of the source, every header
+it includes with ``#include "..."`` (followed recursively, across
+directories) and the flags, so an edited source or header is always
+rebuilt.  Nothing is compiled at import:
 :func:`load_library` builds on first use.
 """
 
@@ -15,14 +16,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "build_library",
-           "load_library", "BUILD_LOGS"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "included_headers",
+           "build_library", "load_library", "BUILD_LOGS"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS: List[str] = [
@@ -48,13 +50,28 @@ def nvcc_path() -> str:
     return found
 
 
+def included_headers(source: Path) -> List[Path]:
+    """The headers ``source`` includes with ``#include "..."``, and those
+    they include, resolved against the including file's directory."""
+    found: List[Path] = []
+    todo = [Path(source).resolve()]
+    while todo:
+        path = todo.pop()
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                               path.read_text(), re.M):
+            header = (path.parent / name).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def build_library(source: Path) -> Path:
     """Compile ``source`` into ``BUILD_DIR`` unless an identical build is
     already there; returns the library path."""
     source = Path(source)
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted([*source.parent.glob("*.cuh"),
-                          *source.parent.glob("*.h")]):
+    for header in sorted(included_headers(source)):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]

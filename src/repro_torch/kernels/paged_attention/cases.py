@@ -48,7 +48,8 @@ from repro_torch.core import hashing, socket as sk
 from repro_torch.kernels.paged_attention.ref import (
     attend_selected, paged_hard_lsh_attend_ref, paged_quest_attend_ref,
     paged_ring_attend_ref, paged_socket_attend_ref)
-from repro_torch.kernels.socket_score.ref import socket_score_ref
+from repro_torch.kernels.socket_score.ref import (socket_score_ref,
+                                                  split_table_scores)
 from repro_torch.models.backends import kvquant
 from repro_torch.models.backends.base import gather_block_leaf
 
@@ -403,58 +404,14 @@ def check_quest(out: torch.Tensor, sel: torch.Tensor, case, kw, *,
 
 
 # ---- the SOCKET kernel's algorithm in plain torch ---------------------
-# (paged_attention.cu: split-table scoring, the per-rank 8-bit-digit
-# select; the CPU tests hold these to the JAX package)
+# (paged_attention.cu: the per-rank 8-bit-digit select; its split-table
+# scoring is socket_score/ref.py's split_table_scores, shared with
+# socket_score.cu; the CPU tests hold these to the JAX package)
 
 def sort_key(eff: torch.Tensor) -> torch.Tensor:
     """The kernels' order-preserving f32 -> uint32 map, as int64."""
     u = eff.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
     return torch.where(u >> 31 == 1, u ^ 0xFFFFFFFF, u ^ 0x80000000)
-
-
-def split_table_scores(bits: torch.Tensor, u: torch.Tensor, *,
-                       num_tables: int, num_planes: int,
-                       tau: float) -> torch.Tensor:
-    """SOCKET scores ``(BH, N)`` f32 as the kernel forms them: bits int32
-    ``(BH, N, W)``, u ``(BH, GS, L, P)``.  Each (g, l) gets two f32
-    tables over the low ceil(P/2) and high floor(P/2) planes,
-    ``T_lo[c] = exp(sum_j +-u_j / tau - logZ)`` and ``T_hi[c] =
-    exp(sum_j +-u_j / tau)`` (logZ from ``log_normalizer``, as the wrapper
-    computes it); a term is ``T_lo[lo] * T_hi[hi]``, summed over the
-    tables in order, then over the groups."""
-    l, p = num_tables, num_planes
-    lo_bits = (p + 1) // 2
-    logz = sk.log_normalizer(u, tau)                       # (BH, GS, L)
-    code = torch.arange(1 << lo_bits)
-    sign = (code[:, None] >> torch.arange(lo_bits)) & 1    # (2^lo, lo)
-    sign = sign.float() * 2 - 1
-
-    def table(planes):                                     # (BH, GS, L, 2^n)
-        n = planes.shape[-1]
-        s = torch.zeros((*planes.shape[:-1], 1 << n))
-        for j in range(n):                                 # plane order
-            s = s + sign[:1 << n, j] * planes[..., j:j + 1]
-        return s / tau
-
-    t_lo = torch.exp(table(u[..., :lo_bits]) - logz[..., None])
-    t_hi = torch.exp(table(u[..., lo_bits:]))
-    words = bits.long() & 0xFFFFFFFF                       # (BH, N, W)
-    flat = (words[..., :, None] >> torch.arange(32)) & 1
-    flat = flat.reshape(*bits.shape[:2], -1)[..., :l * p].reshape(
-        *bits.shape[:2], l, p)
-    codes = (flat << torch.arange(p)).sum(-1)              # (BH, N, L)
-    lo = codes & ((1 << lo_bits) - 1)
-    hi = codes >> lo_bits
-    bh, n = bits.shape[:2]
-    score = torch.zeros((bh, n))
-    for gg in range(u.shape[1]):
-        sg = torch.zeros((bh, n))
-        for tb in range(l):
-            a = torch.gather(t_lo[:, gg, tb], 1, lo[..., tb])
-            b = torch.gather(t_hi[:, gg, tb], 1, hi[..., tb])
-            sg = sg + a * b
-        score = score + sg
-    return score
 
 
 def cta_ranges(length: int, bs: int, c: int) -> List[Tuple[int, int]]:

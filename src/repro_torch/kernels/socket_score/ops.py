@@ -5,24 +5,42 @@ convention.  On CPU tensors it runs the plain version (:mod:`.ref`); on
 CUDA tensors it launches the CUDA kernel (``socket_score.cu``, built on
 first use by :mod:`repro_torch.kernels.build`) or raises.  ``LAUNCHES``
 counts kernel launches, so a run can show that it went through the
-kernel.
+kernel.  :func:`key_runs` is the host's copy of how the kernel splits a
+row's keys over the C ranks of its cluster, :func:`socket_score_plan`
+the shape a launch takes (C, shared memory, the instance).
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 
-__all__ = ["socket_score", "launch_socket_score", "LAUNCHES", "SOURCE"]
+__all__ = ["socket_score", "launch_socket_score", "socket_score_plan",
+           "key_runs", "LAUNCHES", "SOURCE", "THREADS"]
 
 SOURCE = Path(__file__).with_name("socket_score.cu")
 LAUNCHES = 0
+THREADS = 512          # threads a CTA, the most keys a tile (kThreads)
+
+
+def key_runs(n: int, c: int,
+             tile: int = THREADS) -> Tuple[int, List[Tuple[int, int]]]:
+    """How the kernel splits a row's ``n`` keys over ``c`` ranks
+    (``key_run`` in ``socket_score.cu``): rank r scores the r-th run
+    ``[r0, r1)`` of ceil(n / c) keys, in tiles of ``rows`` keys (at most
+    ``tile``, whole warps, spread evenly over a run).  Returns ``(rows,
+    runs)``."""
+    per = -(-n // c)                        # keys a rank
+    tiles = max(1, -(-per // tile))         # tiles a rank
+    keys = -(-per // tiles)                 # keys a tile
+    rows = min(tile, -(-keys // 32) * 32)
+    return rows, [(min(n, r * per), min(n, (r + 1) * per)) for r in range(c)]
 
 
 def _library() -> ctypes.CDLL:
@@ -35,7 +53,29 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.socket_score_error_string.argtypes = [ctypes.c_int]
     lib.socket_score_error_string.restype = ctypes.c_char_p
+    lib.socket_score_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.socket_score_plan.restype = ctypes.c_int
     return lib
+
+
+def socket_score_plan(bits: torch.Tensor, g: int, *, num_tables: int,
+                      num_planes: int) -> dict:
+    """The shape the kernel's launch takes on ``bits`` (BH, N, ·) with
+    ``g`` query-hash groups: cluster size ``C``, ``smem`` bytes a CTA,
+    the ``clusters_at_once`` the card holds, the ``instance`` (split
+    tables for P <= 16, else sign-add), the most ``tile`` rows, and
+    whether all tables stay ``resident`` (else ``tables_a_chunk``)."""
+    bh, n, w = bits.shape
+    lib = _library()
+    info = (ctypes.c_int * 7)()
+    err = lib.socket_score_plan(int(bits.dtype == torch.int8), bh, n, w, g,
+                                num_tables, num_planes, info)
+    if err != 0:
+        raise RuntimeError("socket_score plan failed: " +
+                           lib.socket_score_error_string(err).decode())
+    return dict(C=info[0], smem=info[1], clusters_at_once=info[2],
+                instance="split" if info[3] else "sign-add", tile=info[4],
+                resident=bool(info[5]), tables_a_chunk=info[6])
 
 
 def launch_socket_score(bits: torch.Tensor, u: torch.Tensor,

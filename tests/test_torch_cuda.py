@@ -59,15 +59,32 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("fmt,g,n,l,p", [
-    ("packed", 4, 8224, 60, 10), ("packed", 1, 1001, 60, 10),
-    ("packed", 2, 77, 12, 6), ("int8", 4, 513, 60, 10)])
-def test_socket_score_kernel_matches_plain(dev, fmt, g, n, l, p):
-    from repro_torch.core import hashing, socket as sk
+@pytest.mark.parametrize("fmt,g,n,l,p,bh", [
+    ("packed", 4, 8224, 60, 10, 6), ("packed", 1, 1001, 60, 10, 6),
+    ("packed", 2, 77, 12, 6, 6), ("int8", 4, 513, 60, 10, 6),
+    # pooled G 1 at the main path; odd G and P; P 1; P 20 (the sign-add
+    # instance); BH 256 (C 1, several waves); tables in chunks (P 16 split
+    # tables, P 24 sign-add with L 600)
+    ("packed", 1, 8224, 60, 10, 16), ("packed", 3, 300, 9, 7, 6),
+    ("int8", 3, 300, 9, 7, 6), ("packed", 2, 300, 5, 1, 6),
+    ("packed", 2, 300, 3, 20, 6), ("packed", 4, 513, 60, 10, 256),
+    ("packed", 4, 700, 60, 16, 4), ("packed", 4, 300, 600, 24, 2)])
+def test_socket_score_kernel_matches_plain(dev, fmt, g, n, l, p, bh):
     from repro_torch.kernels.socket_score import ops
     from repro_torch.kernels.socket_score.ref import socket_score_ref
     gen = torch.Generator(device=dev).manual_seed(n)
-    bh = 6
+    bits, u, vnorm = _score_inputs(dev, gen, fmt, bh, g, n, l, p)
+    kw = dict(num_tables=l, num_planes=p, tau=0.4)
+    for vn in (None, vnorm):
+        before = ops.LAUNCHES
+        out = ops.socket_score(bits, u, vn, **kw)
+        assert ops.LAUNCHES == before + 1
+        torch.testing.assert_close(out, socket_score_ref(bits, u, vn, **kw),
+                                   **SCORE_TOL)
+
+
+def _score_inputs(dev, gen, fmt, bh, g, n, l, p):
+    from repro_torch.core import hashing, socket as sk
     if fmt == "int8":
         bits = torch.randint(0, 2, (bh, n, l * p), generator=gen, device=dev,
                              dtype=torch.int8) * 2 - 1
@@ -79,13 +96,25 @@ def test_socket_score_kernel_matches_plain(dev, fmt, g, n, l, p):
                            torch.randn((bh, g, 64), generator=gen,
                                        device=dev))
     vnorm = torch.rand((bh, n), generator=gen, device=dev)
-    kw = dict(num_tables=l, num_planes=p, tau=0.4)
-    for vn in (None, vnorm):
-        before = ops.LAUNCHES
-        out = ops.socket_score(bits, u, vn, **kw)
-        assert ops.LAUNCHES == before + 1
-        torch.testing.assert_close(out, socket_score_ref(bits, u, vn, **kw),
-                                   **SCORE_TOL)
+    return bits, u, vnorm
+
+
+@pytest.mark.parametrize("fmt", ["packed", "int8"])
+def test_socket_score_equal_rows_score_bit_equal(dev, fmt):
+    """Keys with equal bits on different ranks of the cluster (and in
+    different tiles of a rank) score bit for bit the same."""
+    from repro_torch.kernels.socket_score import ops
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bh, n, g, l, p = 16, 8224, 4, 60, 10
+    bits, u, _ = _score_inputs(dev, gen, fmt, bh, g, n, l, p)
+    c = ops.socket_score_plan(bits, g, num_tables=l, num_planes=p)["C"]
+    rows, runs = ops.key_runs(n, c)
+    assert c > 1 and sum(r1 > r0 for r0, r1 in runs) > 1
+    at = [r0 + k for r0, r1 in runs if r1 > r0 for k in (0, rows + 3)
+          if r0 + k < r1]
+    bits[:, at] = bits[:, at[:1]]
+    out = ops.socket_score(bits, u, num_tables=l, num_planes=p, tau=0.4)
+    assert torch.equal(out[:, at], out[:, at[:1]].expand(-1, len(at)))
 
 
 @pytest.mark.parametrize("k,hd,dtype", [

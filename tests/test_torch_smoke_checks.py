@@ -8,6 +8,10 @@ whose plain effective score lies within SCORE_TOL of the top-k threshold
 (the kernel check's band), the plain path takes the kernel's selection;
 any other difference raises.  Here the kernel's selection is given
 directly (no card), on hand-made scores with a tie at the threshold.
+
+The static phase's step-0 gate does the same with ``static_ties_shared``:
+the top-k calls of the kernel route (``socket_score``'s scores) keep
+their selections, and the plain route's calls pair with them in order.
 """
 
 from __future__ import annotations
@@ -102,3 +106,53 @@ def test_calls_must_pair(kernel_calls):
                 for _ in range(kernel_calls):
                     pa.paged_socket_attend()
                 _plain_topk(_scores())
+
+
+def _kernel_route_scores(row, value):
+    """The hand-made scores with ``row`` set to ``value``: what the kernel
+    route's ``socket_score`` hands its top-k."""
+    scores = _scores()
+    scores[0, 0, row] = value
+    return scores
+
+
+@pytest.mark.parametrize("tie, want, swapped", [
+    (False, [0, 1, 2, 3], []),            # the same scores: plain's
+    (True, [0, 1, 2, 4], [2]),            # a tie swapped: the kernel's
+], ids=["same", "tie"])
+def test_static_plain_topk_takes_the_kernel_route_selection_inside_the_band(
+        tie, want, swapped):
+    cs = _chip_smoke()
+    got = []
+    # the tie: the kernel route ranks row 4 a few ulps above row 3
+    kernel_scores = _kernel_route_scores(
+        4, float(_scores()[0, 0, 3]) * (1 + 2e-7)) if tie else _scores()
+    with cs.static_ties_shared(got) as to_plain:
+        assert _plain_topk(kernel_scores) == want
+        to_plain()
+        assert _plain_topk(_scores()) == want
+    assert got == swapped
+    assert _plain_topk(_scores()) == [0, 1, 2, 3]    # unpatched again
+
+
+def test_a_static_selection_outside_the_band_fails():
+    """The kernel route selecting row 9 (plain score 1.1, far below the
+    threshold 1.7) in place of row 3 fails the gate."""
+    cs = _chip_smoke()
+    with pytest.raises(AssertionError, match="outside the threshold"):
+        with cs.static_ties_shared([]) as to_plain:
+            assert _plain_topk(_kernel_route_scores(9, 1.75)) == [0, 1, 2, 9]
+            to_plain()
+            _plain_topk(_scores())
+
+
+@pytest.mark.parametrize("kernel_calls", [0, 2], ids=["no kernel call",
+                                                       "a kernel call left"])
+def test_static_calls_must_pair(kernel_calls):
+    cs = _chip_smoke()
+    with pytest.raises(AssertionError, match="pair with"):
+        with cs.static_ties_shared([]) as to_plain:
+            for _ in range(kernel_calls):
+                _plain_topk(_scores())
+            to_plain()
+            _plain_topk(_scores())

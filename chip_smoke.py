@@ -40,10 +40,17 @@ Phases, in order; the first failure raises and the script exits non-zero:
               put selected ties on two ranks or more (Quest's must also
               leave a tied page out), the idle case leave a rank idle, and
               Quest's main path run on two ranks or more.  The ring
-              kernel's yardstick is timed twice: SDPA over views gathered
-              beforehand, and the gather, mask and SDPA as one callable
-              (``library_with_gather_ms``).  The prefill
-              kernel ``flash_prefill`` at llama31-8b's prefill (BH 64, BKV
+              kernel runs every case of ``cases.RING_CASES`` on f32,
+              bf16, int8 and fp8 pools, each logged with its launch plan
+              (``ops.paged_ring_plan``: C, shared memory, stages, the
+              fold's lanes) and failing where the plan does not exercise
+              its label (a cluster split at B 1 and B 2, empty ranks,
+              windows from inside a page, padded rows); it is timed at
+              the main shape and at B 2 (``b2``), and its yardstick twice:
+              SDPA over views gathered beforehand, and the gather, mask
+              and SDPA as one callable (``library_with_gather_ms``).
+              The prefill kernel ``flash_prefill`` at llama31-8b's
+              prefill (BH 64, BKV
               16, S 8192, hd 128; timed with its plain version and
               ``scaled_dot_product_attention``, beside its bound, that of
               the 3xTF32 products it runs on the tensor cores, and the f32
@@ -1022,23 +1029,20 @@ def paged_rows(dev, seed, kv_dtype="auto"):
 def ring_rows(dev, seed, kv_dtype="auto"):
     """The ring kernel against its plain version on ``cases.RING_CASES``
     (dead slots and the trash page hold NaN, which the kernel must skip),
-    its pool stored as ``kv_dtype`` (``auto``: f32 and every case; else
-    the main case and the window-1000 one, stored by ``cases.store_kv``,
-    dead rows NaN in their scales and fp8 payloads too); times at the
-    main shapes beside the bound, the plain version and, for f32 pages,
-    ``scaled_dot_product_attention`` over the pre-gathered ring views
-    (``library_ms``) and the gather from the pool, the window mask and
-    SDPA timed as one callable (``library_with_gather_ms``; no one
-    PyTorch call dequantizes and attends: ``library_ms`` null)."""
+    its pool stored as ``kv_dtype`` (``auto``: f32; else stored by
+    ``cases.store_kv``, dead rows NaN in their scales and fp8 payloads
+    too), each case logged with its launch plan (``ops.paged_ring_plan``,
+    raising where it does not exercise the case's label); times at the
+    main shape, and at B 2 (``b2``), beside the bound, the plain version
+    and, for f32 pages, ``scaled_dot_product_attention`` over the
+    pre-gathered ring views (``library_ms``) and the gather from the
+    pool, the window mask and SDPA timed as one callable
+    (``library_with_gather_ms``; no one PyTorch call dequantizes and
+    attends: ``library_ms`` null)."""
     from repro_torch.kernels.paged_attention import cases, ops as pa
-    from repro_torch.kernels.paged_attention.ref import paged_ring_attend_ref
-    from repro_torch.models.backends.base import gather_block_leaf
     gen = torch.Generator(device=dev).manual_seed(seed + 17)
-    rows = {}
+    timed = {}
     for label, kw in cases.RING_CASES:
-        if kv_dtype != "auto" and not label.startswith(("main path",
-                                                        "window 1000")):
-            continue
         sets, args = cases.ring_case(gen, **kw)
         sets, scales = (sets, {}) if kv_dtype == "auto" else \
             cases.store_kv(sets, kv_dtype)
@@ -1048,6 +1052,9 @@ def ring_rows(dev, seed, kv_dtype="auto"):
         try:
             err = cases.check_ring(out, case, args, attn_tol=ATTN_TOL,
                                    scales=scales)
+            note = cases.ring_plan_note(
+                pa.paged_ring_plan(case[0], case[1], case[3],
+                                   window=args["window"]), case, args, label)
         except AssertionError as e:
             raise AssertionError(f"[{kv_dtype}, {label}] {e}") from None
         q, kp, _, bt, pos = case
@@ -1055,81 +1062,98 @@ def ring_rows(dev, seed, kv_dtype="auto"):
         cap = bt.shape[1] * kp.shape[2]
         live = cases.ring_live(pos, cap, args["window"])
         log(f"paged_ring [{kv_dtype}, {label}] positions {kw['positions']} "
-            f"KVH {kvh} G {g} window {args['window']} softcap "
+            f"KVH {kvh} G {g} hd {hd} window {args['window']} softcap "
             f"{args['softcap']}: max|err| {err:.3e} (rtol "
             f"{ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); "
-            f"{int(live.sum())} live of {b * cap} slots, dead ones NaN")
-        if not label.startswith("main path") or kv_dtype == "bf16":
-            continue
-        nlive = int(live.sum())
-        # the live K/V rows once (scales included), q, the output, the
-        # table and positions
-        nbytes = kvh * nlive * kv_row_bytes(case, scales) + \
-            2 * b * kvh * g * hd * 4 + bt.numel() * 4 + b * 4
-        flops = kvh * nlive * g * 4 * hd
-        sets, args = cases.ring_case(gen, copies=rotations(nbytes), **kw)
-        if kv_dtype != "auto":
-            sets, scales = cases.store_kv(sets, kv_dtype)
-        kernel = functools.partial(pa.launch_paged_ring_attend, **args,
-                                   **scales)
-        ms = device_time_ms(kernel, sets)
-        plain_ms = device_time_ms(
-            lambda q, kp, vp, bt, pos: paged_ring_attend_ref(
-                q, kp, vp, bt, pos=pos, **args, **scales), sets[:2])
-        lib_ms, extra = None, {}
-        if kv_dtype == "auto":
-            # the library call: SDPA over the ring views gathered
-            # beforehand (the gather, which the kernel does itself, is not
-            # timed), the query group as SDPA's L axis, the window mask as
-            # a bool mask
-            views = [(q, gather_block_leaf(kp, bt).nan_to_num(0.0),
-                      gather_block_leaf(vp, bt).nan_to_num(0.0),
-                      cases.ring_live(pos, cap, args["window"])[:, None,
-                                                                None])
-                     for q, kp, vp, bt, pos in sets]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = functools.partial(sdpa, scale=args["scale"])
-            check_close("paged_ring[SDPA yardstick]",
-                        lib(*views[0][:3], attn_mask=views[0][3]),
-                        cases.plain_ring(sets[0], args), ATTN_TOL)
-            lib_ms = device_time_ms(
-                lambda q, k, v, m: lib(q, k, v, attn_mask=m), views)
-            del views
+            f"{int(live.sum())} live of {b * cap} slots, dead ones NaN; "
+            f"{note}")
+        if label.startswith(cases.RING_TIMED) and kv_dtype != "bf16":
+            timed[label] = ring_timing(dev, gen, kw, kv_dtype, case, scales,
+                                       err, note)
+    if not timed:                         # bf16: checked, not timed
+        return {}
+    row = timed.pop(next(k for k in timed if k.startswith("main path")))
+    row["b2"] = timed.pop("B 2")
+    key = "paged_ring" if kv_dtype == "auto" else f"paged_ring[{kv_dtype}]"
+    return {key: dict(
+        name=key, route="cuda",
+        source="src/repro_torch/kernels/paged_attention/paged_ring.cu",
+        replaces="src/repro/kernels/paged_attention/paged_ring.py:42",
+        **row)}
 
-            # the same call with the gather from the pool and the window
-            # mask inside it: the whole function, as the kernel does it
-            def gather_sdpa(q, kp, vp, bt, pos):
-                live = cases.ring_live(pos, cap, args["window"])
-                return lib(q, gather_block_leaf(kp, bt).nan_to_num(0.0),
-                           gather_block_leaf(vp, bt).nan_to_num(0.0),
-                           attn_mask=live[:, None, None])
 
-            check_close("paged_ring[gather + SDPA yardstick]",
-                        gather_sdpa(*sets[0]),
-                        cases.plain_ring(sets[0], args), ATTN_TOL)
-            gather_ms = device_time_ms(gather_sdpa, sets)
-            log(f"paged_ring [main path] SDPA over gathered views "
-                f"{lib_ms:.4f} ms, gather + mask + SDPA {gather_ms:.4f} ms, "
-                f"kernel {ms:.4f} ms")
-            extra = dict(library_call="scaled_dot_product_attention over "
-                         "the ring views gathered beforehand (gather not "
-                         "timed), bool window mask",
-                         library_with_gather_ms=gather_ms,
-                         library_with_gather_call="gather_block_leaf of "
-                         "K and V, nan_to_num, the window mask and "
-                         "scaled_dot_product_attention, one callable")
-        bms, by = bound(nbytes, flops)
-        key = "paged_ring" if kv_dtype == "auto" else \
-            f"paged_ring[{kv_dtype}]"
-        rows[key] = dict(
-            name=key, route="cuda",
-            source="src/repro_torch/kernels/paged_attention/paged_ring.cu",
-            replaces="src/repro/kernels/paged_attention/paged_ring.py:42",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=lib_ms, **extra,
-            back_to_back_ms=back_to_back_ms(kernel, sets))
-        del sets
-    return rows
+def ring_timing(dev, gen, kw, kv_dtype, case, scales, err, note) -> dict:
+    """The ring kernel's time on the shape of ``case`` (a ring case's
+    ``kw``, inputs rotated past the L2 cache) beside its bound, its plain
+    version and, on f32 pages, SDPA without and with the gather (see
+    :func:`ring_rows`)."""
+    from repro_torch.kernels.paged_attention import cases, ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_ring_attend_ref
+    from repro_torch.models.backends.base import gather_block_leaf
+    q, kp, _, bt, pos = case
+    b, kvh, g, hd = q.shape
+    cap = bt.shape[1] * kp.shape[2]
+    window = kw.get("window", 1024)
+    nlive = int(cases.ring_live(pos, cap, window).sum())
+    # the live K/V rows once (scales included), q, the output, the table
+    # and positions
+    nbytes = kvh * nlive * kv_row_bytes(case, scales) + \
+        2 * b * kvh * g * hd * 4 + bt.numel() * 4 + b * 4
+    flops = kvh * nlive * g * 4 * hd
+    sets, args = cases.ring_case(gen, copies=rotations(nbytes), **kw)
+    if kv_dtype != "auto":
+        sets, scales = cases.store_kv(sets, kv_dtype)
+    kernel = functools.partial(pa.launch_paged_ring_attend, **args, **scales)
+    ms = device_time_ms(kernel, sets)
+    plain_ms = device_time_ms(
+        lambda q, kp, vp, bt, pos: paged_ring_attend_ref(
+            q, kp, vp, bt, pos=pos, **args, **scales), sets[:2])
+    lib_ms, extra = None, {}
+    if kv_dtype == "auto":
+        # the library call: SDPA over the ring views gathered beforehand
+        # (the gather, which the kernel does itself, is not timed), the
+        # query group as SDPA's L axis, the window mask as a bool mask
+        views = [(q, gather_block_leaf(kp, bt).nan_to_num(0.0),
+                  gather_block_leaf(vp, bt).nan_to_num(0.0),
+                  cases.ring_live(pos, cap, args["window"])[:, None, None])
+                 for q, kp, vp, bt, pos in sets]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = functools.partial(sdpa, scale=args["scale"])
+        check_close("paged_ring[SDPA yardstick]",
+                    lib(*views[0][:3], attn_mask=views[0][3]),
+                    cases.plain_ring(sets[0], args), ATTN_TOL)
+        lib_ms = device_time_ms(
+            lambda q, k, v, m: lib(q, k, v, attn_mask=m), views)
+        del views
+
+        # the same call with the gather from the pool and the window mask
+        # inside it: the whole function, as the kernel does it
+        def gather_sdpa(q, kp, vp, bt, pos):
+            live = cases.ring_live(pos, cap, args["window"])
+            return lib(q, gather_block_leaf(kp, bt).nan_to_num(0.0),
+                       gather_block_leaf(vp, bt).nan_to_num(0.0),
+                       attn_mask=live[:, None, None])
+
+        check_close("paged_ring[gather + SDPA yardstick]",
+                    gather_sdpa(*sets[0]), cases.plain_ring(sets[0], args),
+                    ATTN_TOL)
+        gather_ms = device_time_ms(gather_sdpa, sets)
+        extra = dict(library_call="scaled_dot_product_attention over "
+                     "the ring views gathered beforehand (gather not "
+                     "timed), bool window mask",
+                     library_with_gather_ms=gather_ms,
+                     library_with_gather_call="gather_block_leaf of "
+                     "K and V, nan_to_num, the window mask and "
+                     "scaled_dot_product_attention, one callable")
+    bms, by = bound(nbytes, flops)
+    log(f"paged_ring [{kv_dtype}] B {b} timed: kernel {ms:.4f} ms, bound "
+        f"{bms:.4f} ({by}), plain {plain_ms:.4f}" +
+        (f", SDPA over gathered views {lib_ms:.4f}, gather + mask + SDPA "
+         f"{extra['library_with_gather_ms']:.4f}" if lib_ms else "") +
+        f"; {note}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, **extra,
+                back_to_back_ms=back_to_back_ms(kernel, sets))
 
 
 # --------------------------------------------------------------- phase 4

@@ -55,8 +55,10 @@ from repro_torch.models.backends.base import gather_block_leaf
 
 __all__ = ["paged_case", "plain_eff", "check_paged", "hard_lsh_case",
            "plain_hard_eff", "check_hard_lsh", "quest_case", "check_quest",
-           "RING_CASES", "ring_live", "ring_case", "plain_ring",
-           "check_ring", "store_kv", "sort_key", "split_table_scores",
+           "RING_CASES", "RING_TIMED", "ring_live", "ring_case",
+           "plain_ring", "check_ring", "ring_live_rows", "ring_share",
+           "ring_geometry", "ring_cluster_fold", "ring_plan_note",
+           "store_kv", "sort_key", "split_table_scores",
            "cta_ranges", "cluster_select", "tie_ranks", "quest_page_eff",
            "quest_cluster_select", "quest_page_selection", "ties_cut"]
 
@@ -563,7 +565,23 @@ RING_CASES = [
                                window=1000)),
     ("pos < block_size", dict(positions=[0, 1, 7, 15])),
     ("G 4, KVH 8", dict(positions=[100, 1024, 3333], kvh=8, g=4)),
+    # few requests: the planner splits each (request, head) over C >= 2
+    # ranks (B 2 is also timed)
+    ("B 1", dict(positions=[5000])),
+    ("B 2", dict(positions=[3000, 7000])),
+    # a request whose live rows are fewer than the ranks: empty ranks
+    ("pos < C", dict(positions=[0, 2])),
+    ("hd 256, G 1", dict(positions=[300, 1500, 2047, 5000], hd=256, g=1)),
+    ("hd 64", dict(positions=[100, 1024, 3333, 6001], hd=64)),
+    # rows padded in shared memory (80 of 128 elements), copied in pieces
+    # that do not divide the block's threads
+    ("hd 80, padded rows", dict(positions=[100, 1024, 3333, 6001], hd=80)),
+    # every window starts inside a page
+    ("window 1000, partial first page",
+     dict(positions=[1003, 2050, 3333, 4444], window=1000)),
 ]
+# the ring cases timed besides their checks
+RING_TIMED = ("main path", "B 2")
 
 
 def ring_live(pos: torch.Tensor, cap: int, window: int) -> torch.Tensor:
@@ -635,3 +653,156 @@ def check_ring(out: torch.Tensor, case, kw, *, attn_tol: dict,
     if not torch.isfinite(ref).all():
         raise AssertionError("paged_ring: a live row of the case is NaN")
     return _check_out("paged_ring", out, ref, attn_tol)
+
+
+# ---- the ring kernel's algorithm in plain torch -----------------------
+# (paged_ring.cu: the live rows in closed form, the ranks' even shares,
+# staged rows folded by units of their own, the units' and the ranks'
+# merges; the CPU tests hold these to ring_live and to the JAX package)
+
+def ring_live_rows(pos: int, cap: int, window: int) -> torch.Tensor:
+    """The ring slots of a request at position ``pos`` that hold live
+    rows, in position order: n_live = min(pos + 1, window, cap) of them
+    from p0 = pos - n_live + 1, the k-th in slot (p0 + k) mod cap."""
+    n_live = max(0, min(pos + 1, window, cap))
+    p0 = pos - n_live + 1
+    return (p0 + torch.arange(n_live)) % cap
+
+
+def ring_share(n_live: int, c: int, rank: int) -> Tuple[int, int]:
+    """Rank ``rank``'s even share ``[k_lo, k_hi)`` of a request's
+    ``n_live`` live rows over C ranks."""
+    return n_live * rank // c, n_live * (rank + 1) // c
+
+
+def ring_geometry(hd: int, g: int, tsize: int) -> dict:
+    """The fold's shape ``paged_ring.cu``'s plan gives: ``elems`` a lane
+    holds of a row (8 f32, 16 of the narrower types), ``lanes`` a row
+    (the least power of two holding hd), ``heads`` a unit (2 for G >= 2,
+    else 1), ``units`` a head group (512 / lanes over the groups) and
+    ``stage_rows`` (a multiple of the rows the units fold at once, two a
+    unit, about 32 KB of K and V rows padded to elems * lanes elements of
+    ``tsize`` bytes) and ``row_elems`` (elems * lanes, the padded row)."""
+    elems = 8 if tsize == 4 else 16
+    lanes = 1
+    while elems * lanes < hd:
+        lanes *= 2
+    heads = 2 if g >= 2 else 1
+    units = (512 // lanes) // (-(-g // heads))
+    at_once, stride = 2 * units, elems * lanes * tsize
+    return dict(elems=elems, lanes=lanes, heads=heads, units=units,
+                stage_rows=at_once * max(1, 32 * 1024 //
+                                         (2 * at_once * stride)),
+                row_elems=elems * lanes)
+
+
+def ring_cluster_fold(case, kw, *, c: int, stage_rows: int, units: int,
+                      scales=None) -> torch.Tensor:
+    """``paged_ring.cu``'s output on ``case`` as its C ranks compute it,
+    in float32: rank r takes its even share of the live rows
+    (:func:`ring_share`), counted as slots from the start of the share's
+    first page and staged ``stage_rows`` at a time (stage boundaries at
+    multiples of ``stage_rows``, the first and last pages partial); row
+    r of a stage goes to unit (r - first live row) mod ``units``, each
+    unit an online softmax of its own (logit q.k times the row's K scale
+    and ``scale``, capped, max, exp; the V scale folded into p); the
+    units merge, then the ranks (m -1e30, l 0 where a share is empty).
+    Dead rows are never read."""
+    q, kp, vp, bt, pos = case
+    b, kvh, g, hd = q.shape
+    bs, rb = kp.shape[2], bt.shape[1]
+    cap, window, softcap = rb * bs, kw["window"], kw["softcap"]
+    ks_pool = scales["k_scale"] if scales else None
+    vs_pool = scales["v_scale"] if scales else None
+    out = torch.empty((b, kvh, g, hd), dtype=torch.float32)
+    neg = torch.tensor(-1e30)
+    for i in range(b):
+        p = int(pos[i])
+        n_live = max(0, min(p + 1, window, cap))
+        ranks = []
+        for rank in range(c):
+            k_lo, k_hi = ring_share(n_live, c, rank)
+            m = neg.expand(units, kvh, g).clone()
+            l = torch.zeros((units, kvh, g))
+            acc = torch.zeros((units, kvh, g, hd))
+            if k_hi > k_lo:
+                sf = (p - n_live + 1 + k_lo) % cap
+                pg0, off0 = divmod(sf, bs)
+                t_end = off0 + k_hi - k_lo
+                for q0 in range(off0 // stage_rows, -(-t_end // stage_rows)):
+                    t0 = q0 * stage_rows
+                    r_lo, r_hi = max(off0 - t0, 0), min(t_end - t0,
+                                                        stage_rows)
+                    for r in range(r_lo, r_hi):
+                        u = (r - r_lo) % units
+                        pg, o = divmod(t0 + r, bs)
+                        blk = int(bt[i, (pg0 + pg) % rb])
+                        k = kp[blk, :, o].float()                 # (KVH, hd)
+                        v = vp[blk, :, o].float()
+                        ks = ks_pool[blk, :, o] if scales else 1.0
+                        vs = vs_pool[blk, :, o] if scales else 1.0
+                        s = torch.einsum("hgd,hd->hg", q[i].float(), k)
+                        s = s * (ks * torch.ones(kvh))[:, None] * kw["scale"]
+                        if softcap > 0:
+                            s = softcap * torch.tanh(s / softcap)
+                        mn = torch.maximum(m[u], s)
+                        alpha, pr = torch.exp(m[u] - mn), torch.exp(s - mn)
+                        l[u] = l[u] * alpha + pr
+                        m[u] = mn
+                        pv = pr * (vs * torch.ones(kvh))[:, None]
+                        acc[u] = acc[u] * alpha[..., None] + \
+                            pv[..., None] * v[:, None, :]
+            mx = m.max(0).values
+            w = torch.exp(m - mx)
+            ranks.append((mx, (l * w).sum(0), (acc * w[..., None]).sum(0)))
+        mx = torch.stack([r[0] for r in ranks]).max(0).values
+        ll = torch.zeros((kvh, g))
+        aa = torch.zeros((kvh, g, hd))
+        for mr, lr, ar in ranks:
+            e = torch.exp(mr - mx)
+            ll = ll + lr * e
+            aa = aa + ar * e[..., None]
+        out[i] = aa / torch.clamp(ll, min=1e-30)[..., None]
+    return out
+
+
+def ring_plan_note(plan: dict, case, kw, label: str) -> str:
+    """The plan ``ops.paged_ring_plan`` gave for a ring card case, and
+    that the case exercises what its label names: C >= 2 at "B 1" and "B
+    2", empty ranks at "pos < C", a first page partial at "window 1000,
+    partial first page", padded rows at "hd 80, padded rows", and the
+    fold's lanes, heads a unit, stage rows and padded row as
+    :func:`ring_geometry` has them."""
+    q, kp, _, bt, pos = case
+    bs = kp.shape[2]
+    cap = bt.shape[1] * bs
+    c = plan["cluster"]
+    geo = ring_geometry(q.shape[-1], q.shape[2], kp.element_size())
+    if (plan["lanes_per_row"], plan["heads_per_unit"], plan["stage_rows"],
+            plan["row_elems"]) != (geo["lanes"], geo["heads"],
+                                   geo["stage_rows"], geo["row_elems"]):
+        raise AssertionError(f"paged_ring [{label}]: plan {plan} is not the "
+                             f"fold's geometry {geo}")
+    lives = [max(0, min(p + 1, kw["window"], cap)) for p in pos.tolist()]
+    empty = sum(ring_share(n, c, r)[0] == ring_share(n, c, r)[1]
+                for n in lives for r in range(c))
+    partial = sum((p - n + 1) % cap % bs != 0
+                  for p, n in zip(pos.tolist(), lives))
+    note = (f"C {c} ({plan['clusters_at_once']} clusters at once), "
+            f"{plan['smem_bytes']} B a CTA, {plan['stages']} stages of "
+            f"{plan['stage_rows']} rows, {plan['lanes_per_row']} lanes a "
+            f"row, {plan['heads_per_unit']} heads a unit, rows of "
+            f"{plan['row_elems']}; {empty} empty ranks, {partial} windows "
+            f"from inside a page")
+    if label in ("B 1", "B 2") and c < 2:
+        raise AssertionError(f"paged_ring [{label}]: planned on one rank a "
+                             "(request, head), not a cluster")
+    if label == "pos < C" and not empty:
+        raise AssertionError("paged_ring [pos < C]: no rank's share is "
+                             "empty")
+    if label.startswith("hd 80") and plan["row_elems"] == q.shape[-1]:
+        raise AssertionError("paged_ring [hd 80]: the rows are not padded")
+    if label.startswith("window 1000, partial") and partial < len(lives):
+        raise AssertionError("paged_ring: a window of the partial-page "
+                             "case starts on a page boundary")
+    return note

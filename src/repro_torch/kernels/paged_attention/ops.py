@@ -43,7 +43,8 @@ __all__ = ["paged_socket_attend", "launch_paged_socket_attend",
            "paged_hard_lsh_attend", "launch_paged_hard_lsh_attend",
            "paged_quest_attend", "launch_paged_quest_attend",
            "paged_quest_plan",
-           "paged_ring_attend", "launch_paged_ring_attend", "KV_TYPES",
+           "paged_ring_attend", "launch_paged_ring_attend",
+           "paged_ring_plan", "KV_TYPES",
            "LAUNCHES", "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "RING_LAUNCHES",
            "SOURCE", "QUEST_SOURCE", "RING_SOURCE"]
 
@@ -145,7 +146,35 @@ def _ring_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.paged_ring_attend_error_string.argtypes = [ctypes.c_int]
     lib.paged_ring_attend_error_string.restype = ctypes.c_char_p
+    lib.paged_ring_attend_plan.argtypes = [_I] * 8 + [_P]
+    lib.paged_ring_attend_plan.restype = ctypes.c_int
     return lib
+
+
+def paged_ring_plan(q, k_pages, block_table, *, window: int) -> dict:
+    """How ``paged_ring.cu`` launches on these shapes (CUDA only):
+    ``cluster``, the C ranks a (request, KV head) is split over (the
+    largest whose B * KVH clusters the card holds at once, at most one
+    rank a 128 rows of the window); ``smem_bytes`` a CTA;
+    ``clusters_at_once`` at that C; ``stages``, the K/V stages of its
+    ring and ``stage_rows`` a stage; ``lanes_per_row``, the lanes that
+    hold a K/V row in the fold, and ``heads_per_unit``, the query heads
+    each of its units holds; ``row_elems``, the elements a staged K/V
+    row takes (hd padded to the lanes' width)."""
+    q, _ = _split_q(q)
+    b, kvh, g, hd = q.shape
+    info = (ctypes.c_int * 8)()
+    lib = _ring_library()
+    with torch.cuda.device(q.device):
+        err = lib.paged_ring_attend_plan(
+            KV_TYPES[k_pages.dtype], b, kvh, g, hd, k_pages.shape[2],
+            block_table.shape[1], int(window), info)
+    if err != 0:
+        raise RuntimeError("paged_ring plan failed: " +
+                           lib.paged_ring_attend_error_string(err).decode())
+    return dict(zip(("cluster", "smem_bytes", "clusters_at_once", "stages",
+                     "stage_rows", "lanes_per_row", "heads_per_unit",
+                     "row_elems"), info))
 
 
 def _outputs(q, nb: int, bs: int, n_scratch: int, with_selection: bool):

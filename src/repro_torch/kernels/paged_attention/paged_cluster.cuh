@@ -1,8 +1,10 @@
 // What the fused paged decode kernels that split each (request, KV head)
 // over a thread-block cluster share (paged_attention.cu: SOCKET and hard
-// LSH; paged_quest.cu: Quest).  A cluster is C CTAs of kThreads threads
-// (grid (C, KVH, B)); rank r owns the r-th contiguous run of the request's
-// live blocks, and the ranks meet through distributed shared memory.
+// LSH; paged_quest.cu: Quest; paged_ring.cu, the sliding-window ring,
+// takes cp_async, merge_ranks and plan_cluster).  A cluster is C CTAs of
+// kThreads threads (grid (C, KVH, B)); rank r owns the r-th contiguous
+// run of the request's live blocks (the ring: of its live rows), and the
+// ranks meet through distributed shared memory.
 //
 //   * cp_async / cp_async_commit / cp_async_wait: 16-, 8- or 4-byte
 //     asynchronous copies into shared memory (2 and 1 bytes are copied by

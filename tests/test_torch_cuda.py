@@ -21,7 +21,9 @@ head) over a thread-block cluster; ``CLUSTER_CASES`` exercise it (32K
 contexts, ties across ranks, idle ranks and, but for Quest, pooled
 selection) on f32 pools here, and on stored pools too in
 ``chip_smoke.py``.  The ring
-kernel must skip the NaN rows its cases put in dead slots.  On pools
+kernel must skip the NaN rows its cases put in dead slots, and each ring
+case's launch plan must exercise what its label names (a cluster split
+at B 1 and B 2, empty ranks, padded rows).  On pools
 stored as bf16, int8 or fp8 (``serving.kv_dtype``) each kernel is held
 to its plain version on the same stored pages, SOCKET's and hard LSH's
 selections to the kernel's own on the f32 pages, and the engine on
@@ -361,6 +363,21 @@ def test_paged_ring_kernel_matches_plain(dev, label):
     assert ops.RING_LAUNCHES == before + 1
     torch.cuda.synchronize()
     cases.check_ring(out, case, akw, attn_tol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in RING_CASES])
+def test_paged_ring_plan_exercises_its_case(dev, label):
+    """The launch plan of each ring case (``ops.paged_ring_plan``) is the
+    fold's geometry and exercises what the label names: C >= 2 at B 1
+    and B 2, empty ranks at pos < C, a window from inside a page, padded
+    rows at hd 80."""
+    from repro_torch.kernels.paged_attention import cases, ops
+    kw = dict(cases.RING_CASES)[label]
+    gen = torch.Generator(device=dev).manual_seed(len(label))
+    (case,), akw = cases.ring_case(gen, **kw)
+    plan = ops.paged_ring_plan(case[0], case[1], case[3],
+                               window=akw["window"])
+    cases.ring_plan_note(plan, case, akw, label)
 
 
 def test_paged_ring_check_catches_wrong_position_or_window(dev):

@@ -7,10 +7,10 @@ Phases, in order; the first failure raises and the script exits non-zero:
 
 1. device   — a CUDA card must be present; prints its name and power
               limit as nvidia-smi reports them.
-2. build    — builds the CUDA kernels (nvcc, sm_90a, one process per source,
-              all started together: socket_score.cu, paged_attention.cu,
-              paged_quest.cu, paged_ring.cu, flash_prefill.cu) and compiles
-              the Triton kernel from the sources in this checkout.
+2. build    — builds the CUDA kernels from the sources in this checkout
+              (nvcc, sm_90a, one process per source, all started together:
+              socket_score.cu, flash_decode.cu, paged_attention.cu,
+              paged_quest.cu, paged_ring.cu, flash_prefill.cu).
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge shapes, with the tolerance
               stated; times kernel, plain version and (where one exists) the
@@ -26,7 +26,17 @@ Phases, in order; the first failure raises and the script exits non-zero:
               (C, clusters at once, shared memory, instance) and failing
               where the plan does not exercise its label; keys given
               equal bits on every rank of the cluster must score
-              bit-equal (f32 words and int8 planes).  The four fused paged
+              bit-equal (f32 words and int8 planes).  ``flash_decode`` on
+              every case of its ``cases.CARD_CASES`` (the static path's
+              shape, B 1, stablelm hd 160, gemma-7b hd 256 / G 1, mixtral
+              G 6, K < C, BH 256 / K 64, bf16 and f16 K/V, fully masked
+              rows, which must return exactly 0), each logged with its
+              launch plan (``ops.flash_decode_plan``: C, clusters at once,
+              shared memory, stages) and failing where the plan does not
+              exercise its label; timed at the main shape with the host's
+              microseconds a call; its build's ptxas registers and spills
+              are logged, and ``cuobjdump -sass`` of the library must show
+              asynchronous copies (``LDGSTS`` or ``UTMALDG``).  The four fused paged
               kernels again on pools stored as bf16, int8 and fp8 (the main
               case and an edge: ties, or a ring whose dead rows hold NaN in
               scales and fp8 payloads), SOCKET's and hard LSH's selections
@@ -381,45 +391,143 @@ def socket_score_row(ss, ref_fn, dev, gen, name, kw, args, bits, u, vn,
         back_to_back_ms=back_to_back_ms(kernel, sets))
 
 
-def flash_decode_case(dev, gen, *, bh, k, g, hd, dtype, dead_row=None):
-    q = torch.randn((bh, g, hd), generator=gen, device=dev)
-    kk = torch.randn((bh, k, hd), generator=gen, device=dev).to(dtype)
-    vv = torch.randn((bh, k, hd), generator=gen, device=dev).to(dtype)
-    mask = torch.rand((bh, k), generator=gen, device=dev) < 0.9
-    if dead_row is not None:
-        mask[dead_row] = False
-    return q, kk, vv, mask
+def host_us(fn, input_sets, calls=TIMED_ITERS) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` calls issued one after
+    the other with no synchronize between them (the host's cost to issue
+    one, allocations included)."""
+    for inputs in input_sets[:3]:
+        fn(*inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(*input_sets[i % len(input_sets)])
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+# the SASS opcodes of asynchronous global-to-shared copies (cp.async, or
+# TMA's bulk copies)
+ASYNC_COPY_SASS = ("LDGSTS", "UTMALDG")
+
+
+def sass_counts(lib, opcodes, name) -> dict:
+    """How often each of ``opcodes`` appears in ``cuobjdump -sass`` of the
+    library ``lib`` (all its kernels), logged; raises if the tool is
+    missing."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        raise RuntimeError(f"{tool} not found: the {name} SASS cannot be "
+                           "checked")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    ops = re.findall(r"\b(" + "|".join(opcodes) + r")\b", sass)
+    counts = {op: ops.count(op) for op in opcodes}
+    log(f"  {name} SASS (cuobjdump -sass, all instantiations): " +
+        ", ".join(f"{op} {n}" for op, n in counts.items()))
+    return counts
+
+
+def build_report(source, name):
+    """A library's build: ptxas's registers and spills (its build log,
+    logged), and its SASS, which must hold asynchronous copies
+    (``ASYNC_COPY_SASS``)."""
+    from repro_torch.kernels import build
+    lib = build.build_library(source)
+    log_text = lib.with_suffix(".log").read_text()
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log_text)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                         log_text)]
+    log(f"  {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+        f"spill stores <= {max(spills)} B")
+    counts = sass_counts(lib, ASYNC_COPY_SASS, name)
+    if not any(counts.values()):
+        raise AssertionError(f"{name} SASS has no asynchronous copies: "
+                             f"{counts}")
+    return counts, dict(registers=max(regs), spill_stores=max(spills))
+
+
+def flash_decode_rows(dev, gen):
+    """``flash_decode`` against its plain version on every case of
+    ``cases.CARD_CASES`` (within ATTN_TOL; a fully masked row must return
+    exactly 0), each logged with its launch plan and failing where the
+    plan does not exercise its label; the main case timed beside its
+    bound, the plain version, SDPA with a bool mask and the host's
+    microseconds a call."""
+    from repro_torch.kernels.flash_decode import cases, ops as fd
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    sass, ptxas = build_report(fd.SOURCE, "flash_decode.cu")
+    rows = {}
+    for label, kw in cases.CARD_CASES:
+        q, kk, vv, mask = cases.card_case(gen, **kw)
+        scale = 1.0 / math.sqrt(kw["hd"])
+        out = fd.launch_flash_decode(q, kk, vv, mask, scale=scale)
+        torch.cuda.synchronize()
+        ref = flash_decode_ref(q, kk, vv, mask, scale=scale)
+        err = check_close(f"flash_decode[{label}]", out, ref, ATTN_TOL)
+        if kw.get("dead_row") is not None and \
+                out[kw["dead_row"]].abs().max().item() != 0.0:
+            raise AssertionError(f"flash_decode[{label}]: a fully masked "
+                                 "row must return 0")
+        note = cases.plan_note(fd.flash_decode_plan(q, kk), label, **kw)
+        log(f"flash_decode [{label}] BH={kw['bh']} K={kw['k']} G={kw['g']} "
+            f"hd={kw['hd']} {str(kw['dtype'])[6:]}: max|err| {err:.3e} "
+            f"(rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); {note}")
+        if label == "main path":
+            bh, k, g, hd = kw["bh"], kw["k"], kw["g"], kw["hd"]
+            sets = [cases.card_case(gen, **kw)
+                    for _ in range(rotations(2 * bh * k * hd * 4))]
+            # only the rows the mask keeps need reading and multiplying
+            valid = sum(int(s[3].sum().item()) for s in sets) / len(sets)
+            nbytes = 2 * bh * g * hd * 4 + 2 * valid * hd * 4 + bh * k
+            flops = valid * g * (4 * hd + 4)
+            kernel = functools.partial(fd.launch_flash_decode, scale=scale)
+            ms = device_time_ms(kernel, sets)
+            plain_ms = device_time_ms(
+                functools.partial(flash_decode_ref, scale=scale), sets)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_ms = device_time_ms(
+                lambda a, b, c, m: sdpa(a[:, None], b[:, None], c[:, None],
+                                        attn_mask=m[:, None, None, :],
+                                        scale=scale), sets)
+            bms, by = bound(nbytes, flops)
+            rows["flash_decode"] = dict(
+                name="flash_decode", route="cuda",
+                source="src/repro_torch/kernels/flash_decode/flash_decode.cu",
+                replaces="src/repro/kernels/flash_decode/flash_decode.py:32",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms,
+                library_call="scaled_dot_product_attention, bool mask",
+                back_to_back_ms=back_to_back_ms(kernel, sets),
+                host_us=host_us(kernel, sets), plan=note, sass=sass,
+                ptxas=ptxas)
+            log(f"flash_decode timed: kernel {ms:.4f} ms, bound {bms:.5f} "
+                f"({by}), plain {plain_ms:.4f}, SDPA {lib_ms:.4f}, host "
+                f"{rows['flash_decode']['host_us']:.1f} us a call")
+    return rows
 
 
 def phase_kernels(dev, seed):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import ops as fd
-    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.kernels.socket_score.ref import socket_score_ref
 
-    # -- build: one nvcc per CUDA source, all at once; Triton compiles at
-    # first launch
+    # -- build: one nvcc per CUDA source, all at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor() as ex:
-        list(ex.map(build.load_library,
-                    (ss.SOURCE, pa.SOURCE, pa.QUEST_SOURCE, pa.RING_SOURCE,
-                     fp.SOURCE)))
-    log(f"build socket_score.cu + paged_attention.cu + paged_quest.cu + "
-        f"paged_ring.cu + flash_prefill.cu: {time.perf_counter() - t0:.2f} s")
+    sources = (ss.SOURCE, fd.SOURCE, pa.SOURCE, pa.QUEST_SOURCE,
+               pa.RING_SOURCE, fp.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(build.load_library, sources))
+    log(f"build {' + '.join(s.name for s in sources)}: "
+        f"{time.perf_counter() - t0:.2f} s")
     for stem, (secs, report) in build.BUILD_LOGS.items():
         log(f"  nvcc {stem}: {secs:.2f} s\n  " +
             report.replace("\n", "\n  "))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    t0 = time.perf_counter()
-    fd.launch_flash_decode(*flash_decode_case(
-        dev, gen, bh=2, k=40, g=4, hd=128, dtype=torch.float32), scale=0.1)
-    torch.cuda.synchronize()
-    import triton
-    log(f"build flash_decode (Triton {triton.__version__} compile + first "
-        f"launch): {time.perf_counter() - t0:.2f} s")
 
     rows = {}
     # -- socket_score: main-path shapes first, then the edges
@@ -465,56 +573,7 @@ def phase_kernels(dev, seed):
             rows[name] = socket_score_row(ss, socket_score_ref, dev, gen,
                                           name, kw, args, bits, u, vn, err)
 
-    # -- flash_decode
-    fd_cases = [
-        ("main path", dict(bh=16, k=823, g=4, hd=128, dtype=torch.float32)),
-        ("stablelm hd=160", dict(bh=16, k=823, g=4, hd=160,
-                                 dtype=torch.float32)),
-        ("ragged K, dead row", dict(bh=5, k=77, g=4, hd=128,
-                                    dtype=torch.float32, dead_row=2)),
-        ("K < block, bf16 K/V", dict(bh=3, k=9, g=2, hd=64,
-                                     dtype=torch.bfloat16, dead_row=0)),
-    ]
-    for label, kw in fd_cases:
-        q, kk, vv, mask = flash_decode_case(dev, gen, **kw)
-        scale = 1.0 / math.sqrt(kw["hd"])
-        out = fd.launch_flash_decode(q, kk, vv, mask, scale=scale)
-        torch.cuda.synchronize()
-        ref = flash_decode_ref(q, kk, vv, mask, scale=scale)
-        err = check_close(f"flash_decode[{label}]", out, ref, ATTN_TOL)
-        if kw.get("dead_row") is not None and \
-                out[kw["dead_row"]].abs().max().item() != 0.0:
-            raise AssertionError(f"flash_decode[{label}]: a fully masked "
-                                 "row must return 0")
-        log(f"flash_decode [{label}] K={kw['k']} hd={kw['hd']} "
-            f"{str(kw['dtype'])[6:]}: max|err| {err:.3e} "
-            f"(rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']})")
-        if label == "main path":
-            bh, k, g, hd = kw["bh"], kw["k"], kw["g"], kw["hd"]
-            sets = [flash_decode_case(dev, gen, **kw)
-                    for _ in range(rotations(2 * bh * k * hd * 4))]
-            # only the rows the mask keeps need reading and multiplying
-            valid = sum(int(s[3].sum().item()) for s in sets) / len(sets)
-            nbytes = 2 * bh * g * hd * 4 + 2 * valid * hd * 4 + bh * k
-            flops = valid * g * (4 * hd + 4)
-            kernel = functools.partial(fd.launch_flash_decode, scale=scale)
-            ms = device_time_ms(kernel, sets)
-            plain_ms = device_time_ms(
-                functools.partial(flash_decode_ref, scale=scale), sets)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib_ms = device_time_ms(
-                lambda a, b, c, m: sdpa(a[:, None], b[:, None], c[:, None],
-                                        attn_mask=m[:, None, None, :],
-                                        scale=scale), sets)
-            bms, by = bound(nbytes, flops)
-            rows["flash_decode"] = dict(
-                name="flash_decode", route="triton",
-                source="src/repro_torch/kernels/flash_decode/flash_decode.py",
-                replaces="src/repro/kernels/flash_decode/flash_decode.py:32",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms,
-                back_to_back_ms=back_to_back_ms(kernel, sets))
-
+    rows.update(flash_decode_rows(dev, gen))
     rows.update(flash_prefill_rows(dev, seed))
     for kv_dtype in ("auto",) + QUANT_KV_DTYPES:
         rows.update(paged_rows(dev, seed, kv_dtype))
@@ -543,9 +602,8 @@ PREFILL_CASES = [
 ]
 PREFILL_PLAIN_CHUNK = 512        # the plain version's query chunk
 # the SASS opcodes of the prefill kernel's design: tensor-core mma
-# (HMMA) and asynchronous global-to-shared copies (LDGSTS, or UTMALDG
-# for TMA)
-PREFILL_SASS = ("HMMA", "LDGSTS", "UTMALDG")
+# (HMMA) and asynchronous global-to-shared copies
+PREFILL_SASS = ("HMMA",) + ASYNC_COPY_SASS
 
 
 def prefill_build_report(fp):
@@ -576,16 +634,7 @@ def prefill_build_report(fp):
     if len(per_kernel) != 2 * len(fp.HEAD_DIMS):
         raise AssertionError(f"flash_prefill build log names "
                              f"{sorted(per_kernel)}, not every head dim")
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    if not tool.exists():
-        raise RuntimeError(f"{tool} not found: the prefill kernel's SASS "
-                           "cannot be checked")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    ops = re.findall(r"\b(" + "|".join(PREFILL_SASS) + r")\b", sass)
-    counts = {op: ops.count(op) for op in PREFILL_SASS}
-    log(f"  flash_prefill SASS (cuobjdump -sass, all instantiations): "
-        + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    counts = sass_counts(lib, PREFILL_SASS, "flash_prefill")
     if not counts["HMMA"] or not (counts["LDGSTS"] or counts["UTMALDG"]):
         raise AssertionError(f"flash_prefill SASS lacks tensor-core mma or "
                              f"asynchronous copies: {counts}")

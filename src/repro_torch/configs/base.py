@@ -58,7 +58,7 @@ class SocketSettings:
     selection: str = "kvhead"
     # Kernel routing for the decode path (models.backends.socket): score
     # through kernels/socket_score (CUDA) and attend the selected subset
-    # through kernels/flash_decode (Triton).  On CPU tensors both wrappers
+    # through kernels/flash_decode (CUDA).  On CPU tensors both wrappers
     # run their plain PyTorch versions.
     use_score_kernel: bool = False
     use_flash_decode: bool = False

@@ -1,1 +1,1 @@
-"""Flash decode over the selected KV subset: Triton kernel."""
+"""Flash decode over the selected KV subset: CUDA kernel."""

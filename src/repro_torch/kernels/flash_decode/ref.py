@@ -1,7 +1,7 @@
 """Plain PyTorch version of the flash-decode kernel: masked softmax
 attention of G query heads against K gathered key/value rows (one KV head).
 
-It follows the *kernel* (``flash_decode.py`` here, and the TPU kernel it
+It follows the *kernel* (``flash_decode.cu`` here, and the TPU kernel it
 replaces), not ``repro.kernels.flash_decode.ref``: masked rows get zero
 weight and the output is ``acc / max(l, 1e-30)``, so a row whose mask is
 all false returns 0 (a plain softmax would return the mean of V).

@@ -59,7 +59,7 @@ PARTS = (
     # paged_attention.cu's kernel, in SOCKET or hard-LSH mode
     ("paged_attention", ("paged_socket_kernel",)),
     ("socket_score", ("socket_score",)),
-    ("flash_decode", ("_split_kernel", "_combine_kernel")),
+    ("flash_decode", ("flash_decode_kernel",)),
     ("topk_sort", ("sort", "radix", "scan")),
     ("matmuls", ("gemm", "gemv", "sm90", "xmma", "cutlass", "splitk",
                  "dot_kernel")),

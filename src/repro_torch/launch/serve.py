@@ -27,7 +27,7 @@ card it raises unless ``--device cpu`` is given:
 
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
-Triton flash decode), which the continuous engine also runs on the
+CUDA flash decode), which the continuous engine also runs on the
 gathered logical view; ``hard_lsh`` and ``quest`` are the paper's
 baselines in plain PyTorch; the ``*_fused`` names (continuous engine
 only) route paged decode through their fused CUDA kernel in

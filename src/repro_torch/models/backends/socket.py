@@ -5,7 +5,7 @@ side-cache of packed hash bits (int32 words with the uint32 bit pattern)
 and bf16 value norms.  ``attend`` soft-hashes the query, scores every
 cached key — through the CUDA ``socket_score`` kernel when
 ``cfg.socket.use_score_kernel`` is set — runs value-aware top-k, and
-attends exactly over the selected subset (the Triton ``flash_decode``
+attends exactly over the selected subset (the CUDA ``flash_decode``
 kernel when ``cfg.socket.use_flash_decode``).
 
 Paged-capable: scoring reads only the bits/vnorm leaves and K/V are

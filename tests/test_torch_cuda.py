@@ -20,7 +20,9 @@ SOCKET and hard-LSH kernel and the Quest kernel split each (request,
 head) over a thread-block cluster; ``CLUSTER_CASES`` exercise it (32K
 contexts, ties across ranks, idle ranks and, but for Quest, pooled
 selection) on f32 pools here, and on stored pools too in
-``chip_smoke.py``.  The ring
+``chip_smoke.py``.  ``flash_decode``'s card cases
+(``kernels/flash_decode/cases.py``) must each plan what their label
+names (a cluster split, empty ranks, several waves).  The ring
 kernel must skip the NaN rows its cases put in dead slots, and each ring
 case's launch plan must exercise what its label names (a cluster split
 at B 1 and B 2, empty ranks, padded rows).  On pools
@@ -37,6 +39,7 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+from repro_torch.kernels.flash_decode.cases import CARD_CASES as FD_CASES
 from repro_torch.kernels.paged_attention.cases import RING_CASES
 
 SCORE_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -55,7 +58,7 @@ def _to(tree, dev):
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA and Triton kernels have no "
+        pytest.skip("needs a CUDA card: the CUDA kernels have no "
                     "CPU mode (their plain versions are tested on the CPU)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
@@ -139,6 +142,28 @@ def test_flash_decode_kernel_matches_plain(dev, k, hd, dtype):
     torch.testing.assert_close(out, flash_decode_ref(q, kk, vv, mask,
                                                      scale=scale), **ATTN_TOL)
     assert out[3].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("label", [lab for lab, _ in FD_CASES])
+def test_flash_decode_card_cases(dev, label):
+    """Every card case of ``flash_decode``: one launch, within ATTN_TOL of
+    the plain version, a fully masked row exactly 0, and a launch plan
+    that exercises what the label names (a cluster split, empty ranks,
+    several waves, head groups, 2-byte rows)."""
+    from repro_torch.kernels.flash_decode import cases, ops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    kw = dict(FD_CASES)[label]
+    gen = torch.Generator(device=dev).manual_seed(len(label))
+    q, kk, vv, mask = cases.card_case(gen, **kw)
+    scale = 1.0 / math.sqrt(kw["hd"])
+    before = ops.LAUNCHES
+    out = ops.flash_decode(q, kk, vv, mask, scale=scale)
+    assert ops.LAUNCHES == before + 1
+    torch.testing.assert_close(out, flash_decode_ref(q, kk, vv, mask,
+                                                     scale=scale), **ATTN_TOL)
+    if kw.get("dead_row") is not None:
+        assert out[kw["dead_row"]].abs().max().item() == 0.0
+    cases.plan_note(ops.flash_decode_plan(q, kk), label, **kw)
 
 
 def test_wrappers_raise_on_unsupported_cuda_inputs(dev):

@@ -1,8 +1,9 @@
 """The port stands alone and never falls back to the CPU silently.
 
-* Every ``repro_torch`` module and ``chip_smoke.py`` import with ``jax``
-  and ``repro`` blocked (``sys.modules[name] = None`` makes any import of
-  them raise).
+* Every ``repro_torch`` module and ``chip_smoke.py`` import with ``jax``,
+  ``repro`` and ``triton`` blocked (``sys.modules[name] = None`` makes any
+  import of them raise), and no source of the port imports ``triton``,
+  not even inside a function: its kernels are CUDA C++.
 * With no CUDA card, ``run_serve`` and the serve CLI on their default
   device raise, and ``python chip_smoke.py`` exits non-zero without
   printing ``"ok": true``.
@@ -10,6 +11,7 @@
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -23,6 +25,7 @@ _IMPORT_ALL = r"""
 import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["triton"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
@@ -31,7 +34,8 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "repro") and sys.modules[m] is not None)
+             ("jax", "jaxlib", "repro", "triton") and
+             sys.modules[m] is not None)
 assert not bad, bad
 print(" ".join(names))
 """
@@ -60,6 +64,18 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.models.backends.hard_lsh",
                  "repro_torch.models.backends.quest"):
         assert name in names, name
+
+
+def test_port_sources_import_no_triton():
+    """No module of the port and no line of ``chip_smoke.py`` imports
+    ``triton``, at the top or inside a function."""
+    pattern = re.compile(r"^\s*(import\s+triton|from\s+triton\b)", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(SRC, "repro_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 30
+    found = [f for f in files if pattern.search(open(f).read())]
+    assert not found, found
 
 
 def _require_no_card():

@@ -152,11 +152,3 @@ def test_plain_versions_are_the_cpu_route():
         flash_decode_ref(_t(q), _t(kk), _t(vv), _t(mask), scale=0.3),
         rtol=0, atol=0)
     assert (tss.LAUNCHES, tfd.LAUNCHES) == before
-
-
-@pytest.mark.parametrize("bh,k", [(16, 823), (1, 5000), (200, 40), (3, 1)])
-def test_flash_decode_split_plan_covers_k(bh, k):
-    splits, per = tfd.split_plan(bh, k)
-    blocks = -(-k // tfd.BLOCK_K)
-    assert splits * per >= blocks > (splits - 1) * per
-    assert splits >= 1 and per >= 1

@@ -72,6 +72,14 @@ Phases, in order; the first failure raises and the script exits non-zero:
               logged per head dim, and ``cuobjdump -sass`` of the
               library must show tensor-core mma (``HMMA``) and
               asynchronous copies (``LDGSTS`` or ``UTMALDG``).
+              Where ``socket_score``'s keys with equal bits on
+              different ranks score differently, the check first
+              relaunches the same inputs 200 times and logs how many
+              launches differ and where (bh, key, rank, by how much),
+              each rank's split tables as it held them (a build with
+              -DSOCKET_SCORE_DUMP_TABLES, ``ops.table_dump``) against the
+              other ranks' and the plain ``exp`` tables, and the card's
+              uuid, name and power limit; then it fails.
 4. main     — llama31-8b at full width and depth through
               ``repro_torch.launch.serve.run_serve``: batch 2, an 8192-token
               prompt drawn from --seed, 32 greedy decode steps, SOCKET with
@@ -130,6 +138,38 @@ Phases, in order; the first failure raises and the script exits non-zero:
               K/V pages (``serving.kv_dtype``), with the same gates; the
               K/V bytes a block id holds and the greedy tokens' agreement
               with the f32 run are logged (a number, not a gate).
+5a. prefix — the prefix cache on the same weights: 8 requests of
+              ``rag_prompts`` (``launch/serve.py::card_prefix_case``),
+              prompts of 3072 tokens sharing a 2300-token template (not a
+              multiple of the 16-token page), chunks of 512, 16 greedy
+              tokens, a pool that never preempts; ``socket_fused`` and
+              ``quest_fused`` on f32 pages and ``socket_fused`` on int8
+              pages, each cold (cache off) and then warm (cache on: the
+              template served alone first, so its partial tail page is
+              indexed, then the 8 requests).  Every request must finish;
+              the warm tokens must equal the cold ones token for token;
+              the warm run must hit >= 7 times with >= 7 x 2300 cached
+              tokens (Quest: page-aligned, 7 x 2288); SOCKET must clone a
+              page (its hits share the template's tail page) and Quest
+              must not; each run's paged kernel must launch exactly
+              layers x (engine iterations + warm-up steps) and no other
+              kernel at all; every page shared at an iteration's end must
+              be bitwise equal, in every leaf, to its copy taken when it
+              was first seen shared (``SharedPagesFrozen``); each clone
+              must leave every leaf's rows past ``keep`` at the leaf's
+              fill and the rows before it the source's (int8: the clones
+              must reach ``k_scale`` and ``v_scale``).  The chunks saved,
+              cold and warm TTFT and each clone's host ms are logged.
+5b. sampling — the 8 requests of phase 5 through ``socket_fused`` at
+              temperature 0.8, top-p 0.95, sample seed --seed, 32 tokens,
+              twice: the tokens must be identical and every id inside the
+              vocabulary; then on the pool ``CARD_PREEMPT_BLOCKS`` names
+              (840 blocks), which must preempt, and every emitted token's
+              draw index must equal the index it had in the first run.
+              How far the preempting run's tokens agree with the first
+              run's is logged (a number: another batch composition
+              reorders the device's sums, which can flip a near-tied draw).
+              The paged SOCKET kernel's launch count is gated as in 5a.
 6. gemma3-continuous — after llama31-8b's weights are freed, gemma3-27b
               at full width (d_model 5376, 32/16 heads, d_ff 21504, vocab
               262144, window 1024) with its depth cut to 2 groups: 14 of
@@ -345,9 +385,10 @@ def score_plan_note(ss, label, bits, kw) -> str:
              f"tables in chunks of {pl['tables_a_chunk']}"))
 
 
-def equal_rows_check(ss, bits, u, args) -> None:
-    """Keys given equal bits on every rank of the cluster (and in two
-    tiles of a rank) must score bit for bit the same."""
+def equal_rows(ss, bits, u, args):
+    """A copy of ``bits`` whose keys ``at`` (the first key of every rank's
+    run and a key of its second tile) hold key at[0]'s bits; returns
+    (bits, at, the cluster size C, the rows a tile)."""
     g = u.shape[1]
     c = ss.socket_score_plan(bits, g, num_tables=args["num_tables"],
                              num_planes=args["num_planes"])["C"]
@@ -355,14 +396,110 @@ def equal_rows_check(ss, bits, u, args) -> None:
     at = [r0 + k for r0, r1 in runs for k in (0, rows + 3) if r0 + k < r1]
     bits = bits.clone()
     bits[:, at] = bits[:, at[:1]]
+    return bits, at, c, rows
+
+
+def equal_rows_check(ss, bits, u, args) -> None:
+    """Keys given equal bits on every rank of the cluster (and in two
+    tiles of a rank) must score bit for bit the same.  Where they do not,
+    :func:`equal_rows_report` logs what the failure shows before it
+    raises."""
+    bits, at, c, rows = equal_rows(ss, bits, u, args)
     out = ss.launch_socket_score(bits, u, None, **args)
-    torch.cuda.synchronize()
+    if out.is_cuda:
+        torch.cuda.synchronize()
     fmt = str(bits.dtype)[6:]
     if not torch.equal(out[:, at], out[:, at[:1]].expand(-1, len(at))):
+        for line in equal_rows_report(ss, bits, u, args, at, out):
+            log(f"  socket_score ({fmt}) equal rows: {line}")
         raise AssertionError(f"socket_score ({fmt}): keys with equal bits "
                              "on different ranks score differently")
     log(f"socket_score ({fmt}): equal bit rows at keys {at} (C {c}, tiles "
         f"of {rows}) score bit-equal")
+
+
+EQUAL_ROWS_RELAUNCHES = 200
+
+
+def _unequal(out, at):
+    """|score of key at[j] - score of key at[0]| (BH, len(at))."""
+    return (out[:, at] - out[:, at[:1]]).abs()
+
+
+def equal_rows_report(ss, bits, u, args, at, out) -> list:
+    """What a failed equal-bits check shows, as log lines: in the failing
+    launch ``out``, which (bh, key, rank) scores differ from key at[0]'s
+    and by how much; over ``EQUAL_ROWS_RELAUNCHES`` launches of the same
+    inputs, how many differ from the first bit for bit (and where, by
+    rank), and how many break the equal rows again; each rank's split
+    tables as it held them (the diagnostic build, ``ops.table_dump``)
+    against rank 0's copy bit for bit, against the owner's, and against
+    the plain version's ``exp`` tables (``ref.split_tables``); the card as
+    ``nvidia-smi --query-gpu=uuid,name,power.limit`` names it."""
+    from repro_torch.kernels.socket_score.ref import split_tables
+    g, l, p = u.shape[1], args["num_tables"], args["num_planes"]
+    plan = ss.socket_score_plan(bits, g, num_tables=l, num_planes=p)
+    c = plan["C"]
+    per = -(-bits.shape[1] // c)
+    lines = []
+    d = _unequal(out, at)
+    bad = d.nonzero().tolist()
+    lines.append(f"failing launch: {len(bad)} (bh, key) of {d.numel()} "
+                 f"differ from key {at[0]} (rank 0): " + ", ".join(
+                     f"bh {b} key {at[j]} rank {at[j] // per} "
+                     f"|diff| {d[b, j].item():.3e}" for b, j in bad[:16]))
+    outs = [ss.launch_socket_score(bits, u, None, **args)
+            for _ in range(EQUAL_ROWS_RELAUNCHES)]
+    if bits.is_cuda:
+        torch.cuda.synchronize()
+    first = outs[0]
+    differ = [o for o in outs if not torch.equal(o, first)]
+    broken = sum(bool((_unequal(o, at) != 0).any()) for o in outs)
+    lines.append(f"{EQUAL_ROWS_RELAUNCHES} relaunches: {len(differ)} differ "
+                 f"from the first bit for bit, {broken} break the equal "
+                 f"rows, {sum(not torch.equal(o, out) for o in outs)} "
+                 "differ from the failing launch")
+    if differ:
+        where = torch.stack([(o != first) for o in differ]).any(0)
+        keys = where.nonzero()
+        ranks = sorted({int(k) // per for k in keys[:, 1].tolist()})
+        worst = max((o - first).abs().max().item() for o in differ)
+        lines.append(f"relaunches differ at {keys.shape[0]} (bh, key) on "
+                     f"ranks {ranks}, by up to {worst:.3e}")
+    if p <= 16 and plan["resident"]:
+        scores, dump = ss.table_dump(bits, u, **args)
+        if bits.is_cuda:
+            torch.cuda.synchronize()
+        t_lo, t_hi = ss.tables_of_dump(dump, g, p)  # (BH, C, G, L, 2^k)
+        p_lo, p_hi = split_tables(u, args["tau"])   # (BH, G, L, 2^k)
+        held = torch.cat([t_lo, t_hi], -1)
+        plain = torch.cat([p_lo, p_hi], -1)
+        owner = (torch.arange(l, device=u.device)[None, :] * g +
+                 torch.arange(g, device=u.device)[:, None]) % c  # (G, L)
+        own = held.gather(1, owner[None, None, :, :, None].expand(
+            held.shape[0], 1, g, l, held.shape[-1])).squeeze(1)
+        for r in range(c):
+            same0 = torch.equal(held[:, r], held[:, 0])
+            same_owner = torch.equal(held[:, r], own)
+            rel = ((held[:, r] - plain).abs() /
+                   plain.abs().clamp_min(1e-30)).max().item()
+            lines.append(f"rank {r}'s tables: equal to rank 0's {same0}, to "
+                         f"each set's owner's {same_owner}, max rel. "
+                         f"difference from the plain exp tables {rel:.3e}")
+        lines.append("the diagnostic build's scores equal the first "
+                     f"relaunch's: {torch.equal(scores, first)}; its rows "
+                     "unequal: "
+                     f"{bool((_unequal(scores, at) != 0).any())}")
+    try:
+        smi = subprocess.run(["nvidia-smi",
+                              "--query-gpu=uuid,name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True)
+        card = smi.stdout.strip() or smi.stderr.strip()
+    except FileNotFoundError:
+        card = "nvidia-smi not found"
+    lines.append("card: " + card)
+    return lines
 
 
 def socket_score_row(ss, ref_fn, dev, gen, name, kw, args, bits, u, vn,
@@ -1676,6 +1813,41 @@ def static_ties_shared(swapped):
                              "with no plain top-k to pair with")
 
 
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.socket_score import ops as ss
+    for c in FUSED.values():
+        setattr(pa, c[1], 0)
+    ss.LAUNCHES = fd.LAUNCHES = pa.RING_LAUNCHES = fp.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launches since :func:`reset_launches`, by row name."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.socket_score import ops as ss
+    launches = {c[0]: getattr(pa, c[1]) for c in FUSED.values()}
+    launches.update(socket_score=ss.LAUNCHES, flash_decode=fd.LAUNCHES,
+                    paged_ring=pa.RING_LAUNCHES, flash_prefill=fp.LAUNCHES)
+    return launches
+
+
+def launch_gate(label, launches, name, layers, calls) -> None:
+    """The paged kernel ``name`` launched exactly ``layers`` x ``calls``
+    times, and no other kernel at all."""
+    if launches[name] != layers * calls:
+        raise AssertionError(f"{label}: {name} launched {launches[name]} "
+                             f"times, expected {layers * calls} ({layers} "
+                             f"layers x {calls} calls)")
+    others = {k: v for k, v in launches.items() if k != name and v}
+    if others:
+        raise AssertionError(f"{label}: other kernels ran: {others}")
+
+
 def kv_block_bytes(pages):
     """Bytes of the K/V leaves (scales included) one block id holds
     across all layers: as stored, and as ``auto`` (f32) would store
@@ -1698,10 +1870,6 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     read for, the generated tokens)."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_decode import ops as fd
-    from repro_torch.kernels.flash_prefill import ops as fp
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import card_continuous_case
     from repro_torch.runtime.steps import make_serve_step
     from repro_torch.serving.engine import ContinuousBatchingEngine
@@ -1740,17 +1908,13 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
 
     engine.iter_hook = hook
     torch.cuda.reset_peak_memory_stats(dev)
-    for c in FUSED.values():
-        setattr(pa, c[1], 0)
-    ss.LAUNCHES = fd.LAUNCHES = pa.RING_LAUNCHES = fp.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     engine.warmup(reqs)
     warm_s = time.perf_counter() - t0
     m = engine.run(reqs, realtime=False)
     torch.cuda.synchronize()
-    launches = {c[0]: getattr(pa, c[1]) for c in FUSED.values()}
-    launches.update(socket_score=ss.LAUNCHES, flash_decode=fd.LAUNCHES,
-                    paged_ring=pa.RING_LAUNCHES, flash_prefill=fp.LAUNCHES)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     bad = [r.rid for r in reqs if r.state != "finished"
            or len(r.generated) != new_tokens]
@@ -1877,6 +2041,312 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     return {k: launches[k] for k in layers}, generated
 
 
+# ------------------------------------------------------------ prefix phase
+
+class SharedPagesFrozen:
+    """The prefix phase's ``iter_hook``: the CoW invariant of the JAX
+    package's ``test_cow_invariant_shared_pages_bitwise_frozen``.  Every
+    page shared (pool refcount > 1) at an iteration's end must be bitwise
+    equal, in every leaf of every layer, to its copy taken at the first
+    iteration end it was seen shared (the iteration that indexed or
+    matched it); a page that stops being shared is dropped.  The copies
+    live in a mirror of the pool."""
+
+    def __init__(self, engine):
+        from repro_torch.serving import paged
+        self.raw = paged.raw_view
+        self.mirror = [{k: torch.empty_like(self.raw(v))
+                        for k, v in layer.items()} for layer in engine.pages]
+        self.frozen = set()
+        self.checked = 0          # (page, iteration) pairs held equal
+        self.most = 0             # most pages shared at once
+
+    def __call__(self, eng, _it):
+        pool = eng.pool
+        shared = {b for b in range(1, pool.num_blocks) if pool.is_shared(b)}
+        self.frozen &= shared
+        fresh = shared - self.frozen
+        old, new = (torch.tensor(sorted(b), dtype=torch.long,
+                                 device=eng.device)
+                    for b in (self.frozen, fresh))
+        for i, (layer, mirror) in enumerate(zip(eng.pages, self.mirror)):
+            for k, leaf in layer.items():
+                raw = self.raw(leaf)
+                if len(old) and not torch.equal(raw[old], mirror[k][old]):
+                    raise AssertionError(f"a shared page was written in "
+                                         f"place (layer {i}, leaf {k})")
+                if len(new):
+                    mirror[k][new] = raw[new]
+        self.checked += len(old)
+        self.frozen |= fresh
+        self.most = max(self.most, len(shared))
+
+
+@contextlib.contextmanager
+def clone_spy(clones):
+    """While active, each copy-on-write clone the engine makes
+    (``serving.paged.clone_block``) is timed on the host (synchronized
+    before and after) and checked: in every leaf of every layer the rows
+    past ``keep`` hold the leaf's fill value and the rows before it the
+    source page's.  Appends ``dict(ms, keep, leaves)`` to ``clones``."""
+    from repro_torch.models import backends as bk
+    from repro_torch.serving import paged
+    real = paged.clone_block
+
+    def spy(cfg, pages, src, dst, keep):
+        sync = torch.cuda.synchronize if pages[0]["k"].is_cuda else \
+            (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = real(cfg, pages, src, dst, keep)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        ok, names = [], set()
+        for spec, layer in zip(cfg.layer_specs, pages):
+            leaves = bk.layer_cache_handler(cfg, spec).spec(cfg).leaves
+            for name, leaf in layer.items():
+                raw = paged.raw_view(leaf)
+                fill = paged.raw_view(torch.full(
+                    (), leaves[name].fill, dtype=leaf.dtype,
+                    device=leaf.device))
+                ok += [(raw[dst, :, keep:] == fill).all(),
+                       (raw[dst, :, :keep] == raw[src, :, :keep]).all()]
+                names.add(name)
+        if not bool(torch.stack(ok).all()):
+            raise AssertionError(f"clone of page {src} into {dst} (keep "
+                                 f"{keep}): rows past keep not at the fill "
+                                 "value, or rows before it not the source's")
+        clones.append(dict(ms=ms, keep=keep, leaves=sorted(names)))
+        return out
+
+    with mock.patch.object(paged, "clone_block", spy):
+        yield
+
+
+def first_parting(a, b):
+    """(request, token) where two runs' token lists first differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for t, (p, q) in enumerate(zip(x, y)):
+            if p != q:
+                return i, t
+    return None
+
+
+def free_engine(engine) -> None:
+    engine.iter_hook = None
+    engine.pages = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_prefix(dev, seed, card, params, backend, kv_dtype="auto") -> dict:
+    """The prefix phase for ``backend`` on ``kv_dtype`` pages (see the
+    module docstring): the RAG traffic of ``card_prefix_case`` cold (cache
+    off), then warm (cache on: the shared template served alone first,
+    then the 8 requests, ``SharedPagesFrozen`` and ``clone_spy`` on).
+    Returns the launches of each run's paged kernel."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import PREFIX_CASE, card_prefix_case
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    new_tokens = 16
+    name = FUSED[backend][0]
+    cfg, template, prompts = card_prefix_case(get_config("llama31-8b"),
+                                              seed, new_tokens, backend,
+                                              kv_dtype)
+    bs = cfg.serving.block_size
+    tail = backend != "quest_fused"      # Quest's bounds: page-aligned
+    matched = PREFIX_CASE["template"] if tail else \
+        PREFIX_CASE["template"] // bs * bs
+    label = f"prefix phase ({backend}, {kv_dtype})"
+    runs = {}
+    for warm in (False, True):
+        run_cfg = cfg if warm else cfg.replace(
+            serving=cfg.serving.replace(prefix_cache=False))
+        engine = ContinuousBatchingEngine(run_cfg, params=params, device=dev)
+        reset_launches()
+        engine.warmup()
+        iters, clones, frozen, prime = 0, [], None, None
+        with clone_spy(clones):
+            if warm:
+                prime = Request(prompt=list(template),
+                                max_new_tokens=new_tokens)
+                mp = engine.run([prime], realtime=False)
+                iters += mp.decode_iters
+                if engine.prefix_cache.index.num_tail_blocks != int(tail):
+                    raise AssertionError(
+                        f"{label}: the template indexed "
+                        f"{engine.prefix_cache.index.num_tail_blocks} tail "
+                        f"pages, expected {int(tail)}")
+                frozen = SharedPagesFrozen(engine)
+                engine.iter_hook = frozen
+            reqs = [Request(prompt=list(p), max_new_tokens=new_tokens)
+                    for p in prompts]
+            m = engine.run(reqs, realtime=False)
+        torch.cuda.synchronize()
+        iters += m.decode_iters
+        launches = read_launches()
+        launch_gate(label, launches, name, cfg.num_layers,
+                    iters + len(engine.warmup_s))
+        bad = [r.rid for r in reqs + ([prime] if prime else [])
+               if r.state != "finished" or len(r.generated) != new_tokens]
+        if bad or m.preemptions:
+            raise AssertionError(f"{label}: requests {bad} unfinished, "
+                                 f"{m.preemptions} preemptions")
+        reg = engine.registry
+        first = np.array([r.token_walls[0] for r in reqs])
+        runs[warm] = dict(
+            tokens=[list(r.generated) for r in reqs],
+            prefill_chunks=m.prefill_chunks, decode_iters=m.decode_iters,
+            wall_s=m.wall_s, ttft_s_mean=float(first.mean()),
+            ttft_s_p99=float(np.percentile(first, 99)),
+            hits=reg.value("prefix_cache_hits_total"),
+            cached_tokens=reg.value("prefix_cache_cached_tokens_total"),
+            cow=reg.value("prefix_cache_cow_total"),
+            clones=clones, launches={name: launches[name]},
+            expected_launches={name: cfg.num_layers * (
+                iters + len(engine.warmup_s))})
+        if warm:
+            runs[warm].update(template_chunks=mp.prefill_chunks,
+                              shared_pages_checked=frozen.checked,
+                              most_pages_shared=frozen.most)
+        free_engine(engine)
+        del engine
+    cold, warm = runs[False], runs[True]
+    clone_ms = [c["ms"] for c in warm["clones"]]
+    log(json.dumps({
+        "prefix_path": "llama31-8b", "backend": backend,
+        "kv_dtype": kv_dtype, "requests": len(prompts),
+        "prompt_len": PREFIX_CASE["prompt_len"],
+        "template_len": PREFIX_CASE["template"],
+        "max_new_tokens": new_tokens,
+        "prefill_chunk": cfg.serving.prefill_chunk,
+        "num_blocks": cfg.serving.num_blocks,
+        "cold": {k: v for k, v in cold.items() if k != "tokens"},
+        "warm": {k: v for k, v in warm.items() if k != "tokens"},
+        "chunks_saved": cold["prefill_chunks"] - warm["prefill_chunks"],
+        "clone_host_ms": clone_ms, "card": card}))
+    parted = first_parting(cold["tokens"], warm["tokens"])
+    if parted is not None:
+        raise AssertionError(f"{label}: warm tokens part from cold at "
+                             f"request {parted[0]}, token {parted[1]}")
+    n = len(prompts)
+    if warm["hits"] < n - 1 or warm["cached_tokens"] < (n - 1) * matched:
+        raise AssertionError(f"{label}: {warm['hits']} hits, "
+                             f"{warm['cached_tokens']} cached tokens; "
+                             f"expected >= {n - 1} and >= {(n - 1) * matched}")
+    if (warm["cow"] >= 1) != tail or len(clone_ms) != warm["cow"]:
+        raise AssertionError(f"{label}: {warm['cow']} copy-on-write clones "
+                             f"({len(clone_ms)} seen): expected " +
+                             ("at least 1" if tail else "none"))
+    if warm["shared_pages_checked"] == 0:
+        raise AssertionError(f"{label}: no shared page was held across "
+                             "iterations")
+    scales = {"k_scale", "v_scale"}
+    if kv_dtype == "int8" and not all(scales <= set(c["leaves"])
+                                      for c in warm["clones"]):
+        raise AssertionError(f"{label}: a clone did not reach the scale "
+                             "leaves")
+    log(f"{label}: warm tokens equal the cold run's "
+        f"({n} x {new_tokens}); {warm['hits']} hits, "
+        f"{warm['cached_tokens']} cached tokens, {warm['cow']} clones"
+        + (f" ({min(clone_ms):.2f}-{max(clone_ms):.2f} host ms each)"
+           if clone_ms else "") +
+        f"; chunks {cold['prefill_chunks']} cold, {warm['prefill_chunks']} "
+        f"warm (+{warm['template_chunks']} for the template); TTFT mean "
+        f"{cold['ttft_s_mean']:.3f} s cold, {warm['ttft_s_mean']:.3f} s warm;"
+        f" {warm['shared_pages_checked']} shared-page checks, at most "
+        f"{warm['most_pages_shared']} pages shared")
+    suffix = "" if kv_dtype == "auto" else f"[{kv_dtype}]"
+    return {f"{name}{suffix}[prefix {k}]": runs[w]["launches"][name]
+            for k, w in (("cold", False), ("warm", True))}
+
+
+# ---------------------------------------------------------- sampling phase
+
+def phase_sampling(dev, seed, card, params) -> dict:
+    """The sampling phase (see the module docstring): phase 5's traffic
+    through ``socket_fused`` at temperature 0.8, top-p 0.95, seeded from
+    ``seed``, twice, then on the pool ``CARD_PREEMPT_BLOCKS`` names, which
+    preempts.  Returns each run's paged-kernel launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (CARD_PREEMPT_BLOCKS,
+                                          card_continuous_case)
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    new_tokens, temperature, top_p = 32, 0.8, 0.95
+    full = get_config("llama31-8b")
+    name = FUSED["socket_fused"][0]
+    runs = {}
+    for label, blocks in (("first", None), ("again", None),
+                          ("preempting", CARD_PREEMPT_BLOCKS)):
+        cfg, reqs = card_continuous_case(full, seed, new_tokens,
+                                         num_blocks=blocks)
+        engine = ContinuousBatchingEngine(
+            cfg, params=params, device=dev, temperature=temperature,
+            top_p=top_p, sample_seed=seed)
+        reset_launches()
+        engine.warmup()
+        m = engine.run(reqs, realtime=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        launch_gate(f"sampling phase ({label})", launches, name,
+                    cfg.num_layers, m.decode_iters + len(engine.warmup_s))
+        tokens = [list(r.generated) for r in reqs]
+        if any(r.state != "finished" or len(t) != new_tokens
+               for r, t in zip(reqs, tokens)):
+            raise AssertionError(f"sampling phase ({label}): a request did "
+                                 f"not finish with {new_tokens} tokens")
+        if max(max(t) for t in tokens) >= cfg.vocab_size or \
+                min(min(t) for t in tokens) < 0:
+            raise AssertionError(f"sampling phase ({label}): an id outside "
+                                 f"the vocabulary ({cfg.vocab_size})")
+        runs[label] = dict(
+            tokens=tokens, emitted=[list(r.sample_key.emitted) for r in reqs],
+            preemptions=m.preemptions,
+            preempted=[r.preemptions for r in reqs],
+            decode_iters=m.decode_iters, prefill_chunks=m.prefill_chunks,
+            wall_s=m.wall_s, num_blocks=cfg.serving.num_blocks,
+            launches=launches[name])
+        free_engine(engine)
+        del engine
+    first, again, hot = runs["first"], runs["again"], runs["preempting"]
+    same = np.array(hot["tokens"]) == np.array(first["tokens"])
+    log(json.dumps({
+        "sampling_path": "llama31-8b", "backend": "socket_fused",
+        "temperature": temperature, "top_p": top_p, "sample_seed": seed,
+        "max_new_tokens": new_tokens, **{
+            label: {k: v for k, v in r.items()
+                    if k not in ("tokens", "emitted")}
+            for label, r in runs.items()},
+        "preempting_tokens_equal_to_first": f"{int(same.sum())}/{same.size}",
+        "preempting_identical_prefix": [int(np.cumprod(row).sum())
+                                        for row in same],
+        "card": card}))
+    if again["tokens"] != first["tokens"]:
+        parted = first_parting(first["tokens"], again["tokens"])
+        raise AssertionError("sampling phase: two runs with the same seed "
+                             f"part at request {parted[0]}, token "
+                             f"{parted[1]}")
+    if hot["preemptions"] == 0:
+        raise AssertionError("sampling phase: the cut pool did not preempt")
+    if hot["emitted"] != first["emitted"] or any(
+            e != list(range(new_tokens)) for e in first["emitted"]):
+        raise AssertionError("sampling phase: an emitted token's draw index "
+                             "differs from the unpreempted run's")
+    log(f"sampling phase: same-seed runs identical ({same.size} tokens); "
+        f"the {hot['num_blocks']}-block pool preempted "
+        f"{hot['preemptions']} times (requests {hot['preempted']}), every "
+        f"emitted token at the draw index of the unpreempted run; tokens "
+        f"equal to the first run's {int(same.sum())}/{same.size} (not a "
+        "gate: another batch composition reorders the device's sums)")
+    return {f"{name}[sampling {label}]": r["launches"]
+            for label, r in runs.items()}
+
+
 def legacy_phase(dev, seed, card, params, arch, chunked, launches):
     """Phase 7 for ``arch``: the legacy whole-prompt prefill run, its
     tokens compared with the chunked f32 run's (``chunked[arch]``); its
@@ -1933,6 +2403,18 @@ def main(argv=None) -> int:
                 f"{time.perf_counter() - t0:.1f} s")
         if backend == "socket_fused":
             chunked["llama31-8b"] = auto
+    # the prefix cache and sampling on the same weights
+    for backend, kv_dtype in (("socket_fused", "auto"),
+                              ("quest_fused", "auto"),
+                              ("socket_fused", "int8")):
+        t0 = time.perf_counter()
+        launches.update(phase_prefix(dev, args.seed, card, params, backend,
+                                     kv_dtype))
+        log(f"prefix phase ({backend}, {kv_dtype}): "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(phase_sampling(dev, args.seed, card, params))
+    log(f"sampling phase: {time.perf_counter() - t0:.1f} s")
     legacy_phase(dev, args.seed, card, params, "llama31-8b", chunked,
                  launches)
     del params                                  # llama31-8b's 32 GB

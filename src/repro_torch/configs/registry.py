@@ -42,14 +42,16 @@ ARCHITECTURES: Dict[str, ModelConfig] = {
 # Architectures of the JAX package that the port does not build yet, with
 # the later slice (ROADMAP.md queue 1) that brings what each needs.
 LATER: Dict[str, str] = {
-    "minitron-8b": "the other-backends slice (further all-global configs)",
-    "gemma-7b": "the other-backends slice (further all-global configs)",
+    "minitron-8b": "ROADMAP.md queue 1 item 12 (further all-global configs)",
+    "gemma-7b": "ROADMAP.md queue 1 item 12 (further all-global configs)",
     "mixtral-8x22b": "ROADMAP.md queue 1 item 7 (MoE layers)",
     "llama4-maverick-400b-a17b": "ROADMAP.md queue 1 item 7 (MoE layers)",
     "jamba-v0.1-52b": "ROADMAP.md queue 1 item 7 (Mamba and MoE layers)",
     "mamba2-780m": "ROADMAP.md queue 1 item 7 (Mamba layers)",
-    "musicgen-medium": "the embeddings-input slice (audio frontend)",
-    "internvl2-26b": "the embeddings-input slice (vision frontend)",
+    "musicgen-medium": "ROADMAP.md queue 1 item 11 (embeddings-input "
+                       "frontends: audio)",
+    "internvl2-26b": "ROADMAP.md queue 1 item 11 (embeddings-input "
+                     "frontends: vision)",
 }
 
 

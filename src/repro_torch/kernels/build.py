@@ -7,8 +7,9 @@ Libraries go to ``build/repro_torch/`` at the root of the checkout
 (listed in ``.gitignore``), named by a hash of the source, every header
 it includes with ``#include "..."`` (followed recursively, across
 directories) and the flags, so an edited source or header is always
-rebuilt.  Nothing is compiled at import:
-:func:`load_library` builds on first use.
+rebuilt.  A build may add preprocessor ``defines`` (a diagnostic build
+of a source beside its shipped one; they enter the hash too).  Nothing
+is compiled at import: :func:`load_library` builds on first use.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "included_headers",
            "build_library", "load_library", "BUILD_LOGS"]
@@ -33,7 +34,7 @@ NVCC_FLAGS: List[str] = [
 
 # source stem -> (build seconds, ptxas report) of the builds this process ran
 BUILD_LOGS: Dict[str, tuple] = {}
-_LOADED: Dict[Path, ctypes.CDLL] = {}
+_LOADED: Dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -66,14 +67,16 @@ def included_headers(source: Path) -> List[Path]:
     return found
 
 
-def build_library(source: Path) -> Path:
-    """Compile ``source`` into ``BUILD_DIR`` unless an identical build is
-    already there; returns the library path."""
+def build_library(source: Path, defines: Tuple[str, ...] = ()) -> Path:
+    """Compile ``source`` (with ``-D`` each of ``defines``) into
+    ``BUILD_DIR`` unless an identical build is already there; returns the
+    library path."""
     source = Path(source)
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(included_headers(source)):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{digest}.so"
     if out.exists():
@@ -81,7 +84,7 @@ def build_library(source: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    proc = subprocess.run([nvcc_path(), *flags, "-o", str(tmp),
                            str(source)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -91,14 +94,15 @@ def build_library(source: Path) -> Path:
     report = "\n".join(line for line in proc.stderr.splitlines()
                        if "ptxas info" in line or "spill" in line)
     out.with_suffix(".log").write_text(report + "\n")
-    BUILD_LOGS[source.stem] = (seconds, report)
+    if not defines:
+        BUILD_LOGS[source.stem] = (seconds, report)
     return out
 
 
-def load_library(source: Path) -> ctypes.CDLL:
-    """Build (if needed) and load the library of ``source``, once per
-    process."""
-    source = Path(source)
-    if source not in _LOADED:
-        _LOADED[source] = ctypes.CDLL(str(build_library(source)))
-    return _LOADED[source]
+def load_library(source: Path, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``source`` (built with
+    ``defines``), once per process."""
+    key = (Path(source), tuple(defines))
+    if key not in _LOADED:
+        _LOADED[key] = ctypes.CDLL(str(build_library(*key)))
+    return _LOADED[key]

@@ -8,6 +8,9 @@ counts kernel launches, so a run can show that it went through the
 kernel.  :func:`key_runs` is the host's copy of how the kernel splits a
 row's keys over the C ranks of its cluster, :func:`socket_score_plan`
 the shape a launch takes (C, shared memory, the instance).
+:func:`table_dump` runs a diagnostic build of the same source that also
+returns each rank's split tables as it held them (``tables_of_dump``
+reads them out).
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 
 __all__ = ["socket_score", "launch_socket_score", "socket_score_plan",
-           "key_runs", "LAUNCHES", "SOURCE", "THREADS"]
+           "key_runs", "table_dump", "tables_of_dump", "LAUNCHES", "SOURCE",
+           "THREADS", "DUMP_DEFINE"]
 
 SOURCE = Path(__file__).with_name("socket_score.cu")
+DUMP_DEFINE = "SOCKET_SCORE_DUMP_TABLES"     # the diagnostic build's define
 LAUNCHES = 0
 THREADS = 512          # threads a CTA, the most keys a tile (kThreads)
 
@@ -43,8 +48,8 @@ def key_runs(n: int, c: int,
     return rows, [(min(n, r * per), min(n, (r + 1) * per)) for r in range(c)]
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load_library(SOURCE)
+def _library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = build.load_library(SOURCE, defines)
     fn = lib.socket_score_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -55,6 +60,11 @@ def _library() -> ctypes.CDLL:
     lib.socket_score_error_string.restype = ctypes.c_char_p
     lib.socket_score_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.socket_score_plan.restype = ctypes.c_int
+    if defines:
+        lib.socket_score_set_table_dump.argtypes = [ctypes.c_void_p]
+        lib.socket_score_set_table_dump.restype = ctypes.c_int
+        lib.socket_score_table_stride.argtypes = [ctypes.c_int]
+        lib.socket_score_table_stride.restype = ctypes.c_int
     return lib
 
 
@@ -80,8 +90,10 @@ def socket_score_plan(bits: torch.Tensor, g: int, *, num_tables: int,
 
 def launch_socket_score(bits: torch.Tensor, u: torch.Tensor,
                         vnorm: Optional[torch.Tensor], *, num_tables: int,
-                        num_planes: int, tau: float) -> torch.Tensor:
-    """Launch the CUDA kernel on flat ``(BH, ...)`` CUDA tensors."""
+                        num_planes: int, tau: float,
+                        _lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """Launch the CUDA kernel on flat ``(BH, ...)`` CUDA tensors
+    (``_lib``: another build of the source, which counts no launch)."""
     global LAUNCHES
     bh, n, w = bits.shape
     g = u.shape[1]
@@ -110,7 +122,7 @@ def launch_socket_score(bits: torch.Tensor, u: torch.Tensor,
     out = torch.empty((bh, n), dtype=torch.float32, device=dev)
     if n == 0 or bh == 0:
         return out
-    lib = _library()
+    lib = _library() if _lib is None else _lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.socket_score_launch(
@@ -120,8 +132,47 @@ def launch_socket_score(bits: torch.Tensor, u: torch.Tensor,
     if err != 0:
         raise RuntimeError("socket_score kernel launch failed: " +
                            lib.socket_score_error_string(err).decode())
-    LAUNCHES += 1
+    if _lib is None:
+        LAUNCHES += 1
     return out
+
+
+def table_dump(bits: torch.Tensor, u: torch.Tensor, *, num_tables: int,
+               num_planes: int, tau: float):
+    """One launch of the diagnostic build (``-D`` :data:`DUMP_DEFINE`) on
+    flat CUDA tensors, no vnorm.  Returns ``(scores (BH, N), dump (BH, C,
+    G * L, stride))``: each rank's table sets as it held them when it
+    began to score (set k = l * G + g; split tables: ``T_lo`` then
+    ``T_hi``, then padding).  Only where all tables stay resident."""
+    g = u.shape[1]
+    pl = socket_score_plan(bits, g, num_tables=num_tables,
+                           num_planes=num_planes)
+    if not pl["resident"]:
+        raise ValueError("the tables are not resident: built a chunk at a "
+                         "time, nothing stays to dump")
+    lib = _library((DUMP_DEFINE,))
+    stride = lib.socket_score_table_stride(num_planes)
+    dump = torch.full((bits.shape[0], pl["C"], g * num_tables, stride),
+                      float("nan"), device=bits.device)
+    with torch.cuda.device(bits.device):
+        err = lib.socket_score_set_table_dump(dump.data_ptr())
+    if err != 0:
+        raise RuntimeError("socket_score table dump: " +
+                           lib.socket_score_error_string(err).decode())
+    out = launch_socket_score(bits, u, None, num_tables=num_tables,
+                              num_planes=num_planes, tau=tau, _lib=lib)
+    return out, dump
+
+
+def tables_of_dump(dump: torch.Tensor, g: int, num_planes: int):
+    """The split tables of a :func:`table_dump` dump, ``(T_lo, T_hi)`` of
+    shapes ``(BH, C, G, L, 2^ceil(P/2))`` and ``(..., 2^floor(P/2))``, to
+    hold against ``ref.split_tables`` (P <= 16)."""
+    bh, c, gl, stride = dump.shape
+    sets = dump.reshape(bh, c, gl // g, g, stride).transpose(2, 3)
+    n_lo = 1 << ((num_planes + 1) // 2)
+    n_hi = 1 << (num_planes // 2)
+    return sets[..., :n_lo], sets[..., n_lo:n_lo + n_hi]
 
 
 def socket_score(bits: torch.Tensor, u: torch.Tensor,

@@ -66,6 +66,33 @@ def _fields(bits: torch.Tensor, num_tables: int, num_planes: int):
     return flat, (flat << torch.arange(p, device=dev)).sum(-1)
 
 
+def split_tables(u: torch.Tensor, tau: float):
+    """The split tables of exp(.) the kernels score with, ``(T_lo, T_hi)``
+    of shapes ``(BH, G, L, 2^ceil(P/2))`` and ``(BH, G, L, 2^floor(P/2))``
+    for u ``(BH, G, L, P)``, P <= 16: entry c sums +-u_j / tau over the
+    low (high) planes, bit j of c giving plane j's sign, in plane order;
+    the low table also subtracts logZ (see :func:`split_table_scores`)."""
+    u = u.float()
+    p = u.shape[-1]
+    assert p <= SPLIT_MAX_PLANES, p
+    dev = u.device
+    logz = socket.log_normalizer(u, tau)                   # (BH, G, L)
+    lo_bits = (p + 1) // 2
+    code = torch.arange(1 << lo_bits, device=dev)
+    sign = ((code[:, None] >> torch.arange(lo_bits, device=dev)) & 1)
+    sign = sign.float() * 2 - 1                            # (2^lo, lo)
+
+    def table(planes):                                     # (BH, G, L, 2^n)
+        k = planes.shape[-1]
+        s = torch.zeros((*planes.shape[:-1], 1 << k), device=dev)
+        for j in range(k):                                 # plane order
+            s = s + sign[:1 << k, j] * planes[..., j:j + 1]
+        return s / tau
+
+    return (torch.exp(table(u[..., :lo_bits]) - logz[..., None]),
+            torch.exp(table(u[..., lo_bits:])))
+
+
 def split_table_scores(bits: torch.Tensor, u: torch.Tensor,
                        vnorm: Optional[torch.Tensor] = None, *,
                        num_tables: int, num_planes: int,
@@ -87,19 +114,7 @@ def split_table_scores(bits: torch.Tensor, u: torch.Tensor,
     bh, n = bits.shape[:2]
     if p <= SPLIT_MAX_PLANES:
         lo_bits = (p + 1) // 2
-        code = torch.arange(1 << lo_bits, device=dev)
-        sign = ((code[:, None] >> torch.arange(lo_bits, device=dev)) & 1)
-        sign = sign.float() * 2 - 1                        # (2^lo, lo)
-
-        def table(planes):                                 # (BH, G, L, 2^n)
-            k = planes.shape[-1]
-            s = torch.zeros((*planes.shape[:-1], 1 << k), device=dev)
-            for j in range(k):                             # plane order
-                s = s + sign[:1 << k, j] * planes[..., j:j + 1]
-            return s / tau
-
-        t_lo = torch.exp(table(u[..., :lo_bits]) - logz[..., None])
-        t_hi = torch.exp(table(u[..., lo_bits:]))
+        t_lo, t_hi = split_tables(u, tau)
         lo = codes & ((1 << lo_bits) - 1)
         hi = codes >> lo_bits
 

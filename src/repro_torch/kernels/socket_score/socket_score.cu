@@ -70,6 +70,12 @@
 //     (g, l) in shared memory and sums P sign-adds and one expf a (key,
 //     g, l), in the same order.
 //
+// Diagnostic build (-DSOCKET_SCORE_DUMP_TABLES, never the shipped one;
+// ops.table_dump): where all tables are resident, each CTA writes its
+// table sets, as it holds them once built and shared, to the buffer that
+// socket_score_set_table_dump names, at ((bh * C + rank) * G * L + k) *
+// stride for set k = l * G + g, before it scores.
+//
 // Bit layout (repro.core.hashing.pack_signs): flat bit f = l*P + p is bit
 // f % 32 of word f / 32.  The port stores the words as int32 with the same
 // bit pattern; they are read here as uint32.  The int8 format stores the
@@ -99,6 +105,10 @@ using paged::kWarps;
 
 constexpr int kTableBatch = 8;       // tables a warp loads u for at once
 constexpr int kMaxSplitPlanes = 16;  // the largest P the split tables take
+
+#ifdef SOCKET_SCORE_DUMP_TABLES
+__device__ float* g_table_dump;      // (BH, C, G * L, stride) floats
+#endif
 
 // Floats one (g, l) table set takes, rounded up to whole 16-byte words:
 // the split tables' 2^ceil(P/2) + 2^floor(P/2) entries, or (sign-add) u's
@@ -347,6 +357,13 @@ socket_score_kernel(const void* __restrict__ bits,
       }
       cluster_arrive();                   // done reading the other ranks
     }
+#ifdef SOCKET_SCORE_DUMP_TABLES
+    __syncthreads();                      // every thread's copies written
+    const int floats = g * nl * stride;
+    float* dump = g_table_dump +
+                  (static_cast<size_t>(bh) * nranks + rank) * floats;
+    for (int i = tid; i < floats; i += kThreads) dump[i] = stab[i];
+#endif
   }
 
   // ---- 1. score the run, tile by tile -------------------------------------
@@ -544,6 +561,19 @@ int socket_score_plan(int bits_int8, int bh, int n, int w, int g, int l,
     return 0;
   });
 }
+
+#ifdef SOCKET_SCORE_DUMP_TABLES
+// Names the buffer the next launches dump their tables to.
+int socket_score_set_table_dump(float* dump) {
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_table_dump, &dump, sizeof(dump)));
+}
+
+// Floats one (g, l) table set takes in the dump (as in shared memory).
+int socket_score_table_stride(int p) {
+  return p <= kMaxSplitPlanes ? table_stride<true>(p) : table_stride<false>(p);
+}
+#endif
 
 const char* socket_score_error_string(int code) {
   if (code == paged::kErrClusterFit)

@@ -6,7 +6,10 @@
   (:mod:`repro_torch.serving`) fed Poisson-arriving requests of mixed
   prompt lengths; reports throughput, TTFT and p50/p99 token latency.
   ``--prefill-chunk 0`` serves through the legacy whole-prompt bucketed
-  prefill (``serving.prefill_buckets``) instead of chunked prefill.
+  prefill (``serving.prefill_buckets``) instead of chunked prefill;
+  ``--temperature``/``--top-p`` sample instead of decoding greedily;
+  ``--prefix-cache`` shares the pages of cached prompt prefixes, and
+  ``--workload chatbot|rag`` sends traffic that has such prefixes.
 
 Port of ``repro.launch.serve``.  It runs on the card by default; with no
 card it raises unless ``--device cpu`` is given:
@@ -24,6 +27,9 @@ card it raises unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
         --smoke --device cpu --engine continuous --backend socket_fused \\
         --prefill-chunk 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \\
+        --smoke --device cpu --engine continuous --backend socket_fused \\
+        --prefix-cache --workload rag --temperature 0.8 --top-p 0.9
 
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
@@ -63,7 +69,8 @@ from repro_torch.models.backends.kvquant import KV_DTYPES
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 
 __all__ = ["run_serve", "run_continuous", "make_poisson_requests",
-           "card_continuous_case", "CARD_CASES",
+           "card_continuous_case", "card_prefix_case", "CARD_CASES",
+           "CARD_PREEMPT_BLOCKS", "PREFIX_CASE",
            "resolve_device", "apply_backend_arg", "apply_kv_dtype",
            "device_name", "card_line", "SERVING_BACKENDS", "KV_DTYPES"]
 
@@ -219,9 +226,16 @@ CARD_CASES = {
 }
 
 
+# a pool llama31-8b's continuous card case (32 new tokens) preempts
+# decoders in, not only requests mid-prefill (the schedule depends on the
+# lengths alone; tests/test_torch_sampling.py pins it at smoke width)
+CARD_PREEMPT_BLOCKS = 840
+
+
 def card_continuous_case(cfg, seed: int, max_new_tokens: int,
                          backend: str = "socket_fused",
-                         kv_dtype: str = "auto", legacy: bool = False):
+                         kv_dtype: str = "auto", legacy: bool = False,
+                         num_blocks: Optional[int] = None):
     """The continuous engine's case at full width on the card, shared by
     ``chip_smoke.py``, the card tests and ``profile_decode.py``: ``cfg``
     with ``backend`` (a fused name) and serving settings for 8 requests
@@ -229,12 +243,12 @@ def card_continuous_case(cfg, seed: int, max_new_tokens: int,
     each twice, all arriving at once), chunks of 512 (``legacy``:
     whole-prompt prefill in buckets of 2048, 4096 and ``max_context``),
     16-token blocks, K/V pages stored as ``kv_dtype``
-    and a pool that needs no preemption.  Sliding-window layers decode
-    through the ring kernel (``use_ring_kernel``).  Returns (cfg,
-    requests)."""
+    and a pool that needs no preemption (``num_blocks``: another pool,
+    which may preempt).  Sliding-window layers decode through the ring
+    kernel (``use_ring_kernel``).  Returns (cfg, requests)."""
     from repro_torch.configs import ServingSettings
     from repro_torch.serving import Request
-    base_lens, max_blocks, num_blocks, groups = CARD_CASES[cfg.name]
+    base_lens, max_blocks, case_blocks, groups = CARD_CASES[cfg.name]
     lens = base_lens * 2
     if groups is not None:
         cfg = cfg.replace(num_groups=groups)
@@ -242,7 +256,7 @@ def card_continuous_case(cfg, seed: int, max_new_tokens: int,
         cfg = cfg.replace(use_ring_kernel=True)
     sv = ServingSettings(block_size=16, max_batch=8, prefill_chunk=512,
                          max_blocks_per_seq=max_blocks,
-                         num_blocks=num_blocks, kv_dtype=kv_dtype)
+                         num_blocks=case_blocks, kv_dtype=kv_dtype)
     if legacy:
         sv = sv.replace(prefill_chunk=0,
                         prefill_buckets=(2048, 4096, sv.max_context))
@@ -252,6 +266,8 @@ def card_continuous_case(cfg, seed: int, max_new_tokens: int,
             sv.max_blocks_per_seq:
         raise ValueError(f"max_new_tokens={max_new_tokens} does not fit "
                          f"the case's pool without preemption")
+    if num_blocks is not None:
+        sv = sv.replace(num_blocks=num_blocks)
     cfg = apply_backend_arg(cfg, backend).replace(serving=sv)
     rng = np.random.default_rng(seed + 2)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
@@ -259,19 +275,72 @@ def card_continuous_case(cfg, seed: int, max_new_tokens: int,
     return cfg, reqs
 
 
+# the prefix-cache card case: RAG traffic of 8 prompts of 3072 tokens
+# sharing a 2300-token template (not a multiple of the 16-token page: a
+# SOCKET hit shares a partial tail page, Quest's page-aligns down to 2288)
+PREFIX_CASE = dict(requests=8, prompt_len=3072, template=2300)
+
+
+def card_prefix_case(cfg, seed: int, max_new_tokens: int = 16,
+                     backend: str = "socket_fused", kv_dtype: str = "auto"):
+    """The prefix cache's case at full width on the card, shared by
+    ``chip_smoke.py`` and its CPU tests: ``cfg`` with ``backend`` (a
+    fused name) and the prefix cache on, chunks of 512, 16-token blocks,
+    K/V pages stored as ``kv_dtype`` and a pool that needs no preemption
+    even with the cache off; the prompts of
+    :func:`~repro_torch.serving.prefix_cache.rag_prompts` (``PREFIX_CASE``,
+    drawn from ``seed``).  Returns (cfg, template, prompts): the shared
+    template is served alone first to seed the cache with its tail page
+    (the radix index shares a partial page only as a finished prompt's
+    tail)."""
+    from repro_torch.configs import ServingSettings
+    from repro_torch.serving.prefix_cache import rag_prompts
+    n, plen, tlen = (PREFIX_CASE[k] for k in ("requests", "prompt_len",
+                                              "template"))
+    prompts = rag_prompts(n, prompt_len=plen, overlap=tlen / plen,
+                          vocab_size=cfg.vocab_size, seed=seed)
+    bs = 16
+    per = -(-(plen + max_new_tokens) // bs)
+    # 1 trash block + every request's lifetime, cold, + the template's
+    num_blocks = 1 + n * per + -(-(tlen + max_new_tokens) // bs)
+    sv = ServingSettings(block_size=bs, max_batch=n, prefill_chunk=512,
+                         max_blocks_per_seq=per, num_blocks=num_blocks,
+                         kv_dtype=kv_dtype, prefix_cache=True)
+    cfg = apply_backend_arg(cfg, backend).replace(serving=sv)
+    return cfg, prompts[0][:tlen], prompts
+
+
 def run_continuous(cfg, num_requests: int, rate_rps: float, prompt_lens,
                    max_new_tokens: int, seed: int = 0, realtime=True,
-                   warmup=False, params=None, device="cuda"):
+                   warmup=False, params=None, device="cuda",
+                   temperature: float = 0.0, top_p: float = 1.0,
+                   prompts=None):
     """Continuous-batching serve of Poisson-arriving requests; returns
     (requests, ServeMetrics, engine).  ``warmup=True`` runs the step
     shapes the workload needs first (chunked: the mixed and decode steps;
     legacy: the decode step and the buckets the prompts hit), so the
-    reported latencies measure serving."""
+    reported latencies measure serving.  ``temperature > 0`` samples
+    with ``top_p`` from per-request streams seeded from ``seed``.
+    ``prompts``: explicit token lists (e.g. from
+    :mod:`repro_torch.serving.prefix_cache.workloads`, whose shared
+    prefixes independent random prompts never have) in place of the
+    random draw; ``prompt_lens`` is then ignored."""
+    from repro_torch.serving import Request
     from repro_torch.serving.engine import ContinuousBatchingEngine
     engine = ContinuousBatchingEngine(cfg, params=params, seed=seed,
-                                      device=device)
-    reqs = make_poisson_requests(cfg, num_requests, rate_rps, prompt_lens,
-                                 max_new_tokens, seed=seed)
+                                      device=device, temperature=temperature,
+                                      top_p=top_p, sample_seed=seed)
+    if prompts is None:
+        reqs = make_poisson_requests(cfg, num_requests, rate_rps,
+                                     prompt_lens, max_new_tokens, seed=seed)
+    else:
+        if len(prompts) != num_requests:
+            raise ValueError(f"prompts ({len(prompts)}) must match "
+                             f"num_requests ({num_requests})")
+        rng = np.random.default_rng(seed)
+        arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, num_requests))
+        reqs = [Request(prompt=list(p), max_new_tokens=max_new_tokens,
+                        arrival=float(t)) for p, t in zip(prompts, arrivals)]
     if warmup:
         engine.warmup(reqs)
     metrics = engine.run(reqs, realtime=realtime)
@@ -314,6 +383,27 @@ def main(argv=None):
                          "iteration (0 = legacy whole-prompt bucketed "
                          "prefill; default: the config's "
                          "serving.prefill_chunk)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 = greedy (default)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (with --temperature > 0)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="enable the radix-tree prefix cache (continuous "
+                         "engine, chunked prefill, all-paged plans; "
+                         "hybrid/ring plans fall back to no sharing)")
+    ap.add_argument("--workload", default="mixed",
+                    choices=["mixed", "chatbot", "rag"],
+                    help="request generator: 'mixed' = independent "
+                         "random prompts of mixed lengths (default); "
+                         "'chatbot' = multi-turn sessions whose prompts "
+                         "share growing histories; 'rag' = shared "
+                         "template + unique suffix")
+    ap.add_argument("--overlap", type=float, default=0.6,
+                    help="shared-template fraction of each prompt "
+                         "(--workload rag)")
+    ap.add_argument("--sessions", type=int, default=2,
+                    help="number of concurrent chat sessions "
+                         "(--workload chatbot)")
     args = ap.parse_args(argv)
 
     if args.backend.endswith("_fused") and args.engine != "continuous":
@@ -324,6 +414,19 @@ def main(argv=None):
                  "kernel streams the paged pool's circular page lists")
     if args.prefill_chunk is not None and args.engine != "continuous":
         ap.error("--prefill-chunk requires --engine continuous")
+    if args.temperature > 0 and args.engine != "continuous":
+        ap.error("--temperature requires --engine continuous: sampling "
+                 "lives in the continuous engine's decode step (the static "
+                 "engine would silently decode greedily)")
+    if not 0.0 < args.top_p <= 1.0:
+        ap.error(f"--top-p must be in (0, 1], got {args.top_p}")
+    if args.prefix_cache and args.engine != "continuous":
+        ap.error("--prefix-cache requires --engine continuous: the prefix "
+                 "cache shares pages of the continuous engine's paged pool")
+    if args.workload != "mixed" and args.engine != "continuous":
+        ap.error("--workload chatbot/rag requires --engine continuous")
+    if not 0.0 <= args.overlap < 1.0:
+        ap.error(f"--overlap must be in [0, 1), got {args.overlap}")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -334,6 +437,8 @@ def main(argv=None):
     if args.prefill_chunk is not None:
         cfg = cfg.replace(serving=cfg.serving.replace(
             prefill_chunk=args.prefill_chunk))
+    if args.prefix_cache:
+        cfg = cfg.replace(serving=cfg.serving.replace(prefix_cache=True))
     dev = resolve_device(args.device)
     if args.engine == "continuous":
         max_new = args.max_new_tokens or (8 if args.smoke else 64)
@@ -345,16 +450,54 @@ def main(argv=None):
                      f"({cfg.serving.max_context} tokens)")
         lens = sorted({max(1, top // 4), max(1, top // 2),
                        max(1, (3 * top) // 4), top})
-        reqs, m, _ = run_continuous(cfg, args.num_requests, args.rate, lens,
-                                    max_new, seed=args.seed, device=dev)
-        print(json.dumps({
+        prompts = None
+        if args.workload == "chatbot":
+            from repro_torch.serving.prefix_cache import chatbot_prompts
+            prompts = chatbot_prompts(args.num_requests,
+                                      sessions=args.sessions,
+                                      max_prompt_len=top,
+                                      vocab_size=cfg.vocab_size,
+                                      seed=args.seed)
+        elif args.workload == "rag":
+            from repro_torch.serving.prefix_cache import rag_prompts
+            prompts = rag_prompts(args.num_requests, prompt_len=top,
+                                  overlap=args.overlap,
+                                  vocab_size=cfg.vocab_size, seed=args.seed)
+        reqs, m, engine = run_continuous(
+            cfg, args.num_requests, args.rate, lens, max_new, seed=args.seed,
+            device=dev, temperature=args.temperature, top_p=args.top_p,
+            prompts=prompts)
+        report = {
             "arch": cfg.name, "backend": args.backend,
             "engine": "continuous",
             "kv_dtype": cfg.serving.kv_dtype,
             "prefill_chunk": cfg.serving.prefill_chunk,
-            "prompt_lens": lens, "max_new_tokens": max_new,
+            "workload": args.workload,
+            "prompt_lens": lens if prompts is None else sorted(
+                {len(p) for p in prompts}),
+            "max_new_tokens": max_new,
+            "temperature": args.temperature, "top_p": args.top_p,
             "finished": sum(r.state == "finished" for r in reqs),
-            **m.to_json(), "device": device_name(dev)}, indent=2))
+            **m.to_json(), "device": device_name(dev)}
+        if args.prefix_cache:
+            reg = engine.registry
+            hits = reg.value("prefix_cache_hits_total")
+            misses = reg.value("prefix_cache_misses_total")
+            report["prefix_cache"] = {
+                # None where the plan cannot share (hybrid or ring plans,
+                # legacy prefill): the flag is then a no-op
+                "active": engine.prefix_cache is not None,
+                "hits": hits, "misses": misses,
+                "hit_rate": hits / (hits + misses) if hits + misses
+                else None,
+                "cached_tokens": reg.value(
+                    "prefix_cache_cached_tokens_total"),
+                "prompt_tokens": reg.value(
+                    "prefix_cache_prompt_tokens_total"),
+                "cow_copies": reg.value("prefix_cache_cow_total"),
+                "evicted_blocks": reg.value("prefix_cache_evicted_total"),
+            }
+        print(json.dumps(report, indent=2))
         return
     toks, prefill_s, decode_s = run_serve(cfg, args.batch, args.prompt_len,
                                           args.decode_steps, seed=args.seed,

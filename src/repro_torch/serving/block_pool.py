@@ -35,7 +35,7 @@ class BlockPool:
     only returns the block to the free list when the count reaches zero.
     The copy-on-write invariant lives one layer up (engine/scheduler): a
     block with refcount > 1 is never written in place — writers clone it
-    first (the prefix cache, which the port does not carry yet).
+    first (see :mod:`repro_torch.serving.prefix_cache`).
     """
 
     def __init__(self, num_blocks: int):

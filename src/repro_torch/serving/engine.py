@@ -1,7 +1,7 @@
 """Continuous-batching serving engine on a paged K/V pool.
 
-Port of ``repro.serving.engine`` (greedy decoding, layouts of global and
-sliding-window attention layers) with its two execution models:
+Port of ``repro.serving.engine`` (layouts of global and sliding-window
+attention layers) with its two execution models:
 
 * **chunked prefill** (``serving.prefill_chunk > 0``, the default): the
   token-budget mixed step.  Each iteration the scheduler grants at most
@@ -47,9 +47,34 @@ The pool's K/V pages are stored at ``serving.kv_dtype`` (``auto``,
 read dequantizes, the fused kernels in-register, and a preempted request
 re-quantizes the same prompt rows when it is prefilled again.
 
+**Prefix cache** (``serving.prefix_cache``): where the plan can share
+pages — chunked prefill and every layer paged (ring layers recycle their
+pages in place; legacy whole-prompt prefill has no chunk cursor; hybrid
+and legacy plans keep the flag and serve with no sharing) — admission
+matches each prompt against a radix index of committed prompt pages
+(:mod:`repro_torch.serving.prefix_cache`) and starts the prefill cursor
+past the cached prefix.  A page with pool refcount > 1 is never written
+in place: before a chunk or decode write lands in a shared page, the
+engine clones it (:func:`repro_torch.serving.paged.clone_block`, keeping
+the matched rows and scrubbing the rest) and swaps the clone into the
+request's table.  Plans with page-granular leaves (Quest's page bounds)
+share page-aligned prefixes only and never clone.
+
+**Sampling** is greedy by default (``torch.argmax``, bit for bit);
+``temperature > 0`` samples with temperature and top-p
+(:func:`repro_torch.serving.sampling.sample_tokens`).  Each request owns
+a Gumbel noise stream (:class:`~repro_torch.serving.sampling
+.GumbelStream`: a ``torch.Generator`` on the engine's device seeded from
+``sample_seed`` and the request's submission index), restarted at every
+admission and drawn once for each token its slot consumes: one draw an
+active decode step, one on the final prefill chunk (the whole-prompt
+prefill in legacy mode), replayed tokens after a preemption included
+(the draw is made and the token discarded).  A request's draw for token
+``t`` is therefore a pure function of (seed, submission index, t).
+
 Not ported yet, each raising :class:`NotImplementedError` naming its
-ROADMAP.md queue 1 item: the prefix cache and sampling (item 8),
-observability (item 9), state (Mamba) and MoE layers (item 7).
+ROADMAP.md queue 1 item: observability (item 9), state (Mamba) and MoE
+layers (item 7).
 """
 
 from __future__ import annotations
@@ -67,9 +92,10 @@ from repro_torch.models import backends as bk
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.steps import (make_chunk_prefill_step,
                                       make_prefill_step, make_serve_step)
-from repro_torch.serving import paged
+from repro_torch.serving import paged, sampling
 from repro_torch.serving.block_pool import TRASH_BLOCK, BlockPool
 from repro_torch.serving.obs.metrics import Registry
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import (PREFILL, PrefillChunk, Request,
                                            Scheduler)
 
@@ -119,14 +145,16 @@ class ContinuousBatchingEngine:
 
     ``params``: the port's parameters (drawn from ``seed`` on ``device``
     when None).  ``device``: where the pool lives and the steps run,
-    ``"cuda"`` by default (a CUDA device with no card raises).  Decoding
-    is greedy.
+    ``"cuda"`` by default (a CUDA device with no card raises).
+    ``temperature`` 0 decodes greedily; above 0 it samples with ``top_p``
+    from per-request noise streams seeded from ``sample_seed``.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, seed: int = 0, *,
-                 device="cuda", temperature: float = 0.0, obs=None):
+                 device="cuda", temperature: float = 0.0, top_p: float = 1.0,
+                 sample_seed: int = 0, obs=None):
         from repro_torch.launch.serve import resolve_device
-        self._validate(cfg, temperature, obs)
+        self._validate(cfg, obs)
         self.cfg = cfg
         self.serving = cfg.serving
         self.serving.validate()
@@ -146,6 +174,13 @@ class ContinuousBatchingEngine:
         # page-native decode: a paged-capable backend, or no global layer
         # consumes the backend at all (ring layers are page-native)
         self._paged_native = self.backend.supports_paged or not has_paged
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.sample_seed = sample_seed
+        self._submitted = 0
+        # the class of the per-request noise streams (tests feed another
+        # noise source through a subclass)
+        self.stream_cls = sampling.GumbelStream
         self.pages = paged.init_paged_caches(cfg, self.serving, self.device)
         self.pool = BlockPool(self.serving.num_blocks)
         self.scheduler = Scheduler(
@@ -157,6 +192,24 @@ class ContinuousBatchingEngine:
         self._serve = make_serve_step(cfg)
         self._chunk = make_chunk_prefill_step(cfg)
         self._prefilling: Optional[Request] = None
+        # Cross-request page reuse is valid exactly when chunked prefill is
+        # on (a hit IS a prefill starting at a nonzero cursor) and every
+        # layer is paged (ring layers recycle their block-table prefix
+        # circularly, so a "shared prefix" would be rewritten in place).
+        # Other plans fall back to no sharing: the flag stays on, no cache
+        # is built, serving is unchanged.
+        self.prefix_cache = None
+        if self.serving.prefix_cache and self.chunked and \
+                all(p.kind == "paged" for p in plan):
+            # granularity > 1 leaves (Quest's page bounds) summarize every
+            # row of a page: such plans share page-aligned prefixes only
+            # and never reach the CoW clone
+            tail_ok = all(s.granularity == 1 for s in
+                          self.backend.cache_spec(cfg).values())
+            self.prefix_cache = PrefixCache(
+                self.pool, block_size=self.serving.block_size,
+                tail_shareable=tail_ok)
+            self.scheduler.prefix_cache = self.prefix_cache
         # called as iter_hook(engine, iteration) at the end of every engine
         # iteration (tests, profiling); a true return ends the run there.
         # None in production
@@ -173,17 +226,10 @@ class ContinuousBatchingEngine:
         self._bind_instruments(self.registry)
 
     @staticmethod
-    def _validate(cfg: ModelConfig, temperature, obs) -> None:
+    def _validate(cfg: ModelConfig, obs) -> None:
         if cfg.input_mode != "tokens":
             raise NotImplementedError(
                 "continuous engine serves token models only")
-        sv = cfg.serving
-        if sv.prefix_cache:
-            raise _not_ported("the prefix cache (serving.prefix_cache)", 8)
-        if temperature > 0:
-            raise _not_ported(
-                "sampling (temperature > 0): it needs per-request generator "
-                "streams that replay across preemption,", 8)
         if obs is not None:
             raise _not_ported("serving observability (obs)", 9)
         if any(s.kind != "attn" or s.mlp not in ("dense", "none")
@@ -216,8 +262,17 @@ class ContinuousBatchingEngine:
         reg.gauge("batch_running").set(len(sched.running))
         reg.gauge("batch_prefilling").set(len(sched.prefilling))
         reg.gauge("batch_waiting").set(len(sched.waiting))
+        if self.prefix_cache is not None:
+            reg.gauge("prefix_cache_shared_blocks").set(
+                self.prefix_cache.shared_blocks)
+            reg.gauge("prefix_cache_evictable_blocks").set(
+                self.prefix_cache.evictable_blocks())
 
     def _note_token(self, req: Request, w: float) -> None:
+        """Per-emitted-token bookkeeping (the token is already appended);
+        when sampling, the index of the draw it was sampled with."""
+        if self.temperature > 0:
+            req.sample_key.emitted.append(req.sample_key.draws - 1)
         self._c_tokens.inc()
         req.token_walls.append(w)
         if len(req.token_walls) >= 2:
@@ -231,32 +286,49 @@ class ContinuousBatchingEngine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    @staticmethod
-    def _pick(logits: torch.Tensor) -> torch.Tensor:
-        """Greedy next token from one step's ``(B, 1, V)`` logits (the
-        first maximum, as ``jnp.argmax``)."""
-        return torch.argmax(logits[:, -1], dim=-1)
+    def _pick(self, logits: torch.Tensor, reqs=()) -> torch.Tensor:
+        """Next token of each row of one step's ``(B, 1, V)`` logits:
+        greedy at temperature 0 (the first maximum, as ``jnp.argmax``);
+        otherwise sampled, each row with one draw of its request's noise
+        stream (``reqs[i]``; None, or past the end of ``reqs``: an idle
+        row, which draws nothing)."""
+        last = logits[:, -1]
+        if self.temperature <= 0:
+            return torch.argmax(last, dim=-1)
+        gumbel = torch.zeros(last.shape, dtype=torch.float32,
+                             device=last.device)
+        for i, r in enumerate(reqs):
+            if r is not None:
+                gumbel[i] = r.sample_key.draw(last.shape[-1])
+        return sampling.sample_tokens(last, gumbel,
+                                      temperature=self.temperature,
+                                      top_p=self.top_p,
+                                      vocab_size=self.cfg.vocab_size)
 
-    def _decode_body(self, tokens, bt, pos) -> torch.Tensor:
+    def _decode_body(self, tokens, bt, pos, reqs=()) -> torch.Tensor:
         """The ragged decode shared by the decode-only and mixed steps;
         inactive slots hold trash-page block tables, so their writes land
-        in block 0."""
+        in block 0.  ``reqs``: the request of each slot (None where idle),
+        whose noise streams a sampling engine draws from."""
         if self._paged_native:
             logits, _ = self._serve(self.params, self.pages, tokens, pos, bt)
         else:
             views = paged.gather_views(self.cfg, self.pages, bt)
             logits, views = self._serve(self.params, views, tokens, pos)
             paged.scatter_token(self.cfg, self.pages, views, bt, pos)
-        return self._pick(logits)
+        return self._pick(logits, reqs)
 
     def _mixed_step(self, ch_tokens, ch_bt, ch_hist: int, ch_last: int,
-                    tokens, bt, pos) -> Tuple[torch.Tensor, torch.Tensor]:
+                    tokens, bt, pos, ch_req=None,
+                    reqs=()) -> Tuple[torch.Tensor, torch.Tensor]:
         """One prefill chunk + the ragged decode batch.  The chunk runs
         first (its writes land in blocks disjoint from every decoding
-        request)."""
+        request).  ``ch_req``: the chunk's request where the chunk is its
+        final one (it draws for the first token), else None."""
         logits_c, _ = self._chunk(self.params, self.pages, ch_tokens, ch_bt,
                                   ch_hist, ch_last)
-        return self._pick(logits_c)[0], self._decode_body(tokens, bt, pos)
+        return (self._pick(logits_c, [ch_req])[0],
+                self._decode_body(tokens, bt, pos, reqs))
 
     def _chunk_bt_len(self) -> int:
         """Chunk block-table row length: the full per-request table plus
@@ -299,17 +371,20 @@ class ContinuousBatchingEngine:
             f"max_context {self.serving.max_context})")
 
     def _prefill_step(self, tokens: torch.Tensor, last_index: int,
-                      bt_row: torch.Tensor, slot: int) -> torch.Tensor:
+                      bt_row: torch.Tensor, slot: int,
+                      req: Optional[Request] = None) -> torch.Tensor:
         """One whole-prompt prefill of a bucket-padded ``(1, bucket)``
         prompt into a fresh cache, scattered into the pages of
-        ``bt_row``; returns the greedy token at ``last_index``."""
+        ``bt_row``; returns the token picked at ``last_index`` (a sampling
+        engine draws once from ``req``'s stream; the warm-up passes
+        None and draws nothing)."""
         bucket = tokens.shape[1]
         prefill = make_prefill_step(self.cfg, bucket, paged=True)
         logits, caches = prefill(self.params, {"tokens": tokens},
                                  torch.tensor([last_index],
                                               device=self.device))
         paged.write_prefill(self.cfg, self.pages, caches, bt_row, slot)
-        return self._pick(logits)[0]
+        return self._pick(logits, [req])[0]
 
     def _prefill_one(self, req: Request, wall, iteration: int) -> None:
         """Legacy mode: prefill ``req``'s whole prompt into its pages and
@@ -323,7 +398,8 @@ class ContinuousBatchingEngine:
         t_p = time.perf_counter()
         first_tok = int(self._prefill_step(self._to_dev(tokens),
                                            len(prompt) - 1,
-                                           self._to_dev(bt_row), req.slot))
+                                           self._to_dev(bt_row), req.slot,
+                                           req))
         self.prefill_trace.append((iteration, req.rid, bucket,
                                    time.perf_counter() - t_p))
         if not req.generated:
@@ -340,7 +416,8 @@ class ContinuousBatchingEngine:
         allocator growth: the decode-only step, then the mixed step
         (chunked mode) or one whole-prompt prefill a bucket (legacy mode:
         only the buckets ``requests`` hit when given, all of them
-        otherwise).  Each call's host seconds land in ``warmup_s``."""
+        otherwise).  Each call's host seconds land in ``warmup_s``.  No
+        noise stream is drawn from."""
         sv = self.serving
 
         def timed(tag, fn, *args):
@@ -372,6 +449,24 @@ class ContinuousBatchingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ------------------------------------------------------ noise streams
+    def _register(self, req: Request) -> None:
+        """Count the request's submission and, when sampling, give it its
+        noise stream at its first submission (a re-submission after a
+        preemption keeps the stream it has)."""
+        if self.temperature > 0 and req.sample_key is None:
+            req.sample_key = self.stream_cls(self.sample_seed,
+                                             self._submitted, self.device)
+        self._submitted += 1
+
+    def _admitted(self, req: Optional[Request]) -> Optional[Request]:
+        """Restart an admitted request's noise stream: a replay after a
+        preemption then draws exactly as the original run did, one draw
+        for each token its slot consumes."""
+        if req is not None and self.temperature > 0:
+            req.sample_key.restart()
+        return req
+
     # ------------------------------------------------------ run
     def run(self, requests: List[Request],
             realtime: bool = True) -> ServeMetrics:
@@ -385,6 +480,7 @@ class ContinuousBatchingEngine:
         self.chunk_trace = []
         self.prefill_trace = []
         for r in requests:
+            self._register(r)
             sched.submit(r)
         t0 = time.perf_counter()
         wall = lambda: time.perf_counter() - t0
@@ -401,23 +497,38 @@ class ContinuousBatchingEngine:
                 # decode-table growth FIRST (it may evict the prefiller,
                 # which must not happen after a chunk has been granted)...
                 runnable = sched.ensure_decode_blocks()
+                if self.prefix_cache is not None:
+                    self._resolve_decode_cow(runnable)
                 if self._prefilling is not None and \
                         self._prefilling.state != PREFILL:
-                    self._prefilling = None  # evicted by decode growth
-                # ...then the chunk grant (alloc-only)
+                    self._prefilling = None  # evicted by decode growth/CoW
+                # ...then the chunk grant (alloc-only: its cache-evict tier
+                # frees refcount-1 pages, never a live request)
                 if self._prefilling is None:
-                    self._prefilling = sched.try_admit(now())
+                    self._prefilling = self._admitted(sched.try_admit(now()))
                 if self._prefilling is not None:
                     chunk = sched.grant_chunk(self._prefilling)
                     if chunk is None and \
                             self._prefilling.state != PREFILL:
                         self._prefilling = None   # safety self-preempt
+                if chunk is not None and self.prefix_cache is not None \
+                        and not self._resolve_chunk_cow(self._prefilling,
+                                                        chunk):
+                    # the prefiller itself was preempted making room for
+                    # its CoW clone: the granted chunk is void
+                    chunk = None
+                    self._prefilling = None
+                if self.prefix_cache is not None:
+                    # a CoW allocation may have LRU-preempted decoders out
+                    # of the snapshot taken above
+                    runnable = [r for r in runnable
+                                if sched.running.get(r.slot) is r]
             else:
                 # legacy order: whole-prompt prefill phase, then growth —
                 # a request admitted this iteration decodes this
                 # iteration
                 for _ in range(self.serving.max_prefill_per_iter):
-                    req = sched.try_admit(now())
+                    req = self._admitted(sched.try_admit(now()))
                     if req is None:
                         break
                     self._prefill_one(req, wall, decode_iters)
@@ -438,14 +549,18 @@ class ContinuousBatchingEngine:
                 continue
             t_it = time.perf_counter()
             tokens, bt, pos = self._batch_inputs(runnable)
+            reqs = [None] * self.serving.max_batch
+            for r in runnable:
+                reqs[r.slot] = r
             if chunk is not None:
-                first_tok, next_tok = self._run_mixed(chunk, tokens, bt, pos)
+                first_tok, next_tok = self._run_mixed(chunk, tokens, bt, pos,
+                                                      reqs)
                 self.chunk_trace.append((decode_iters, self._prefilling.rid,
                                          chunk.start, chunk.tokens))
                 c_chunks.inc()
                 self._finish_chunk(chunk, first_tok, wall, stamp)
             else:
-                next_tok = self._decode_body(tokens, bt, pos)
+                next_tok = self._decode_body(tokens, bt, pos, reqs)
             next_tok = next_tok.cpu().numpy()
             it_s = time.perf_counter() - t_it
             self._h_iter.record(it_s)
@@ -453,7 +568,7 @@ class ContinuousBatchingEngine:
             for r in runnable:
                 # post-preemption replay: steps whose output token is
                 # already recorded only rebuild the cache; the produced
-                # token is discarded (token-exact resume)
+                # token (and its draw) is discarded (token-exact resume)
                 replaying = r.pos - len(r.prompt) + 1 < len(r.generated)
                 if not replaying:
                     r.generated.append(int(next_tok[r.slot]))
@@ -472,9 +587,58 @@ class ContinuousBatchingEngine:
         wall_total = time.perf_counter() - t0
         return self._metrics(requests, wall_total)
 
+    # ------------------------------------------------------ cow
+    def _cow(self, req: Request, idx: int, keep: int) -> bool:
+        """Un-share block ``idx`` of ``req`` before a write: allocate a
+        fresh block (cache-evict, then LRU-preempt tiers), clone the
+        page's first ``keep`` token rows into it across every paged leaf
+        — scrubbing the rest to the fill value, so the donor's tokens past
+        the matched prefix (or its generated continuation) never leak into
+        the new owner — and swap it into the request's table.  The old
+        block is deref'd, never written: the CoW invariant.  Returns False
+        iff ``req`` itself was preempted to make room."""
+        old = req.blocks[idx]
+        new = self.scheduler.cow_alloc(req)
+        if new is None:
+            return False
+        paged.clone_block(self.cfg, self.pages, old, new, keep)
+        req.blocks[idx] = new
+        self.pool.free([old])
+        self.registry.counter("prefix_cache_cow_total").inc()
+        return True
+
+    def _resolve_chunk_cow(self, req: Request,
+                           chunk: PrefillChunk) -> bool:
+        """Clone any shared block the granted chunk would write.  Only the
+        chunk's first block can be shared (a cache hit's cursor may sit
+        mid-way through the matched tail page), but every touched block
+        is checked.  Returns False iff ``req`` was preempted while
+        allocating a clone."""
+        bs = self.serving.block_size
+        first = chunk.start // bs
+        last = (chunk.start + chunk.tokens - 1) // bs
+        for idx in range(first, min(last + 1, len(req.blocks))):
+            if self.pool.is_shared(req.blocks[idx]):
+                if not self._cow(req, idx,
+                                 keep=max(0, chunk.start - idx * bs)):
+                    return False
+        return True
+
+    def _resolve_decode_cow(self, runnable: List[Request]) -> None:
+        """The CoW invariant for the decode batch.  A decode write
+        (``pos >= prompt_len``) cannot land in a shared page — the cache
+        indexes prompt-pure pages only, and a hit's tail page is un-shared
+        by the first chunk write — but the check is local and cheap."""
+        bs = self.serving.block_size
+        for r in runnable:
+            idx = r.pos // bs
+            if idx < len(r.blocks) and self.pool.is_shared(r.blocks[idx]):
+                self._cow(r, idx, keep=r.pos % bs)
+
     # ------------------------------------------------------ chunk
-    def _run_mixed(self, chunk: PrefillChunk, tokens, bt, pos):
-        """Dispatch the mixed step for ``chunk`` plus the decode batch."""
+    def _run_mixed(self, chunk: PrefillChunk, tokens, bt, pos, reqs):
+        """Dispatch the mixed step for ``chunk`` plus the decode batch
+        (``reqs``: the request of each decode slot, None where idle)."""
         req = self._prefilling
         c = self.serving.prefill_chunk
         ch_tokens = np.zeros((1, c), np.int64)
@@ -484,7 +648,7 @@ class ContinuousBatchingEngine:
         ch_bt[:len(req.blocks)] = req.blocks
         return self._mixed_step(self._to_dev(ch_tokens), self._to_dev(ch_bt),
                                 chunk.start, chunk.tokens - 1, tokens, bt,
-                                pos)
+                                pos, req if chunk.final else None, reqs)
 
     def _finish_chunk(self, chunk: PrefillChunk, first_tok, wall,
                       stamp) -> None:

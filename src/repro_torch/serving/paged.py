@@ -31,11 +31,11 @@ Paged-capable backends (``DecodeBackend.supports_paged``) consume the
 pool directly through ``PagedView``/``RingView``; for the rest (dense)
 the engine falls back to the gather/scatter round trip below, which is
 window-bounded for ring layers.  The legacy whole-prompt prefill writes
-its fresh caches in with :func:`write_prefill`.  State (Mamba) layers
-and ``keep_state_rows`` come with ROADMAP.md queue 1 item 7; the prefix
-cache's ``clone_block`` with item 8; the byte accounting the serving
-benchmark reads (``pool_block_bytes``, ``gather_footprint``) with item
-10.
+its fresh caches in with :func:`write_prefill`; the prefix cache un-shares
+a page with :func:`clone_block`.  State (Mamba) layers and
+``keep_state_rows`` come with ROADMAP.md queue 1 item 7; the byte
+accounting the serving benchmark reads (``pool_block_bytes``,
+``gather_footprint``) with item 10.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from repro_torch.models import backends as bk
 from repro_torch.models import transformer as tfm
 
 __all__ = ["init_paged_caches", "gather_views", "scatter_token",
-           "write_prefill"]
+           "write_prefill", "clone_block", "raw_view"]
 
 
 def init_paged_caches(cfg: ModelConfig, serving: ServingSettings,
@@ -97,4 +97,51 @@ def write_prefill(cfg: ModelConfig, pages, caches, bt_row: torch.Tensor,
     for spec, layer, cache in zip(cfg.layer_specs, pages, caches):
         bk.layer_cache_handler(cfg, spec).write_prefill(cfg, layer, cache,
                                                         bt_row, slot)
+    return pages
+
+
+def raw_view(leaf: torch.Tensor) -> torch.Tensor:
+    """``leaf`` as bytes where it is fp8 (the CPU build has no fp8
+    ``index_put_``, ``fill_`` or ``==``); other dtypes as they are."""
+    if leaf.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return leaf.view(torch.uint8)
+    return leaf
+
+
+def clone_block(cfg: ModelConfig, pages, src: int, dst: int,
+                keep_tokens: int):
+    """Copy-on-write clone: duplicate physical page ``src`` into ``dst``
+    across every **paged**-kind leaf of every layer (K/V, their int8/fp8
+    ``k_scale``/``v_scale`` rows, SOCKET's ``bits`` and ``vnorm``), keeping
+    only the rows of the first ``keep_tokens`` tokens and resetting the
+    rest to the leaf's fill value, in place.  The scrub is what makes
+    sharing safe: a shared tail page's rows past the matched prefix hold
+    the *donor's* tokens (or its generated continuation), and the pool
+    never scrubs device memory on free, so without it stale rows would
+    leak into the clone's owner.
+
+    Ring leaves pass through (the prefix cache is off for plans that have
+    any).  Leaves with ``granularity > 1`` (Quest's per-page bounds)
+    cannot keep a partial page soundly, so this raises, before it writes
+    anything, where one is present — the cache policy page-aligns matches
+    for such plans, making the CoW path unreachable.  Returns the pool."""
+    todo = []
+    for spec, layer in zip(cfg.layer_specs, pages):
+        h = bk.layer_cache_handler(cfg, spec)
+        if h.kind != "paged":
+            continue
+        leaves = h.spec(cfg).leaves
+        for name in layer:
+            if leaves[name].granularity != 1:
+                raise ValueError(
+                    f"CoW clone of page-granular leaf {name!r} is unsound "
+                    "(partial-page stats would cover scrubbed rows); the "
+                    "prefix cache must page-align matches for this plan")
+        todo += [(layer[name], leaves[name].fill) for name in layer]
+    for leaf, fill in todo:
+        raw = raw_view(leaf)
+        page = raw[src].clone()                   # (KVH, rows, *suffix)
+        page[:, keep_tokens:] = raw_view(torch.full((), fill,
+                                                    dtype=leaf.dtype))
+        raw[dst] = page
     return pages

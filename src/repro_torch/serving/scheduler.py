@@ -2,8 +2,8 @@
 
 A copy of ``repro.serving.scheduler``: the same lifecycle, admission,
 chunk grants and preemption, so the port schedules exactly as the JAX
-engine does.  The prefix-cache hooks stay (``prefix_cache`` is always
-``None`` here until the prefix-cache slice), and ``bind_obs`` takes the
+engine does, with the same prefix-cache hooks (the engine sets
+``prefix_cache`` where the plan can share pages); ``bind_obs`` takes the
 port's metrics :class:`~repro_torch.serving.obs.metrics.Registry` with no
 tracer.
 
@@ -90,10 +90,11 @@ class Request:
     cached_tokens: int = 0
     last_used: int = 0                     # scheduler clock, for LRU
     preemptions: int = 0
-    # per-request sampling PRNG key (np.ndarray (2,) uint32), assigned by
-    # the engine at first submission and RE-installed on every admission,
-    # so temperature/top-p streams replay bit-exactly after preemption
-    # and never depend on the slot's previous occupants.
+    # per-request sampling noise stream (the port's
+    # :class:`~repro_torch.serving.sampling.GumbelStream`), assigned by
+    # the engine at first submission and restarted on every admission, so
+    # temperature/top-p streams replay bit-exactly after preemption and
+    # never depend on the slot's previous occupants.
     sample_key: Optional[object] = None
 
     # metrics (seconds relative to run start)

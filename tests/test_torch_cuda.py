@@ -591,3 +591,45 @@ def test_continuous_engine_ring_kernel_fp8_matches_cpu(dev):
         dev, "socket_fused", arch="gemma3-27b", ring_kernel=True,
         kv_dtype="fp8")
     assert 2 * ring == 11 * socket > 0 and hard == quest == 0
+
+
+def test_continuous_engine_prefix_cache_matches_cpu(dev):
+    """socket_fused with the prefix cache on, at smoke size: a finished
+    21-token prompt, then its extension past the tail page (a tail hit and
+    one copy-on-write clone) beside two prompts sharing a 17-token prefix.
+    Greedy tokens and the cache's counters on the card equal the CPU
+    run's, and the paged SOCKET kernel ran on the shared pages."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.launch.serve import apply_backend_arg
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    cfg = apply_backend_arg(get_config("stablelm-12b").smoke(),
+                            "socket_fused")
+    cfg = cfg.replace(serving=cfg.serving.replace(prefix_cache=True))
+    params = tfm.init_model(cfg, seed=0)
+    gen = torch.Generator().manual_seed(2)
+
+    def draw(n):
+        return torch.randint(0, 256, (n,), generator=gen).tolist()
+
+    first, base = draw(21), draw(17)
+    batches = [[first], [first + draw(11), base + draw(7), base + draw(9)]]
+
+    def serve(device, p):
+        eng = ContinuousBatchingEngine(cfg, params=p, device=device)
+        out = []
+        for prompts in batches:
+            reqs = [Request(prompt=pr, max_new_tokens=6) for pr in prompts]
+            eng.run(reqs, realtime=False)
+            out.append([r.generated for r in reqs])
+        names = ("hits", "cached_tokens", "cow")
+        return out, {k: eng.registry.value(f"prefix_cache_{k}_total")
+                     for k in names}
+
+    cpu = serve("cpu", params)
+    before = ops.LAUNCHES
+    assert serve(dev, _to(params, dev)) == cpu
+    assert ops.LAUNCHES > before
+    assert cpu[1]["hits"] >= 2 and cpu[1]["cow"] >= 1

@@ -13,6 +13,7 @@ norms equal; greedy tokens equal.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -81,6 +82,21 @@ def test_registry_names_later_slices():
         tget("mixtral-8x22b")
     with pytest.raises(KeyError):
         tget("no-such-arch")
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("minitron-8b", 12), ("gemma-7b", 12), ("mixtral-8x22b", 7),
+    ("llama4-maverick-400b-a17b", 7), ("jamba-v0.1-52b", 7),
+    ("mamba2-780m", 7), ("musicgen-medium", 11), ("internvl2-26b", 11)])
+def test_later_archs_name_their_roadmap_item(arch, item):
+    """Every architecture the port does not build yet names the ROADMAP.md
+    queue 1 item that brings it, in the registry and in the error."""
+    from repro.configs.registry import ARCHITECTURES as JAX_ARCHS
+    from repro_torch.configs.registry import ARCHITECTURES, LATER
+    assert set(LATER) == set(JAX_ARCHS) - set(ARCHITECTURES)
+    assert re.search(rf"ROADMAP\.md queue 1 item {item}\b", LATER[arch])
+    with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
+        tget(arch)
 
 
 @pytest.mark.parametrize("activation", ["swiglu", "geglu"])

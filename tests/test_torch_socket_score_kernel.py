@@ -124,3 +124,28 @@ def test_key_runs_main_path_split():
     rows, runs = tss.key_runs(8224, 6)
     assert rows == 480
     assert [r1 - r0 for r0, r1 in runs] == [1371] * 5 + [1369]
+
+
+@pytest.mark.parametrize("l,p,g,c", [(60, 10, 4, 6), (9, 7, 3, 2),
+                                     (5, 1, 2, 1)])
+def test_table_dump_layout_reads_back_the_split_tables(l, p, g, c):
+    """``ops.tables_of_dump`` reads the diagnostic build's dump layout
+    (each rank's table sets, set k = l * G + g at k * stride: T_lo, then
+    T_hi, then padding to whole 16-byte words) back into ``(BH, C, G, L,
+    entries)`` tables: a dump laid out from ``ref.split_tables`` reads
+    back as them on every rank."""
+    from repro_torch.kernels.socket_score.ref import split_tables
+    _, _, u, _ = _inputs(5, "packed", l, p, g)
+    t_lo, t_hi = split_tables(_t(u), 0.4)            # (BH, G, L, 2^k)
+    bh = t_lo.shape[0]
+    n_lo, n_hi = 1 << ((p + 1) // 2), 1 << (p // 2)
+    stride = (n_lo + n_hi + 3) & ~3                  # table_stride<true>
+    dump = torch.full((bh, c, g * l, stride), float("nan"))
+    for k in range(g * l):
+        gg, ll = k % g, k // g
+        dump[:, :, k, :n_lo] = t_lo[:, None, gg, ll]
+        dump[:, :, k, n_lo:n_lo + n_hi] = t_hi[:, None, gg, ll]
+    lo, hi = tss.tables_of_dump(dump, g, p)
+    assert lo.shape == (bh, c, g, l, n_lo) and hi.shape == (bh, c, g, l, n_hi)
+    for r in range(c):
+        assert torch.equal(lo[:, r], t_lo) and torch.equal(hi[:, r], t_hi)

@@ -170,6 +170,31 @@ Phases, in order; the first failure raises and the script exits non-zero:
               run's is logged (a number: another batch composition
               reorders the device's sums, which can flip a near-tied draw).
               The paged SOCKET kernel's launch count is gated as in 5a.
+5c. observability — phase 5's traffic (8 requests, 32 greedy tokens, f32
+              pages) through ``socket_fused`` with the serving observability
+              on (``Observability``: the JSONL event trace, the selection
+              probe every 8 iterations, a 4-iteration ``torch.profiler``
+              window from the first decode-only iteration, logged).  The
+              tokens must equal phase 5's ``socket_fused`` tokens bit for
+              bit; the trace file must validate and equal the tracer's
+              events, every request carry submit/admit/first_token/finish
+              and the step events number 0..iterations-1; every probed
+              iteration must have a row for each of the 32 layers, each
+              with recall in [0, 1], 0 < budget utilization <= 1 and 0 <
+              selected <= budget <= static k; the paged SOCKET kernel must
+              launch exactly layers x (iterations + warm-up steps) and no
+              other kernel at all (the probe's shadow steps take the plain
+              route); the window's Chrome trace must hold the kernel as
+              device kernel events exactly 32 x the window's iterations
+              times, the launch counter's change over the window; the pool
+              must be empty at the end.  Then ``hard_lsh_fused`` and
+              ``quest_fused`` with the probe alone: their tokens must equal
+              their phase-5 f32 tokens (the Quest run is the one where a
+              shadow step leaking into the page bounds would show), the
+              rows pass the same checks, the launches the same gate.  Mean
+              recall, budget utilization and forced share per backend
+              (random fp32 weights), the probe's host ms, the traced run's
+              wall against phase 5's and the trace's size are logged.
 6. gemma3-continuous — after llama31-8b's weights are freed, gemma3-27b
               at full width (d_model 5376, 32/16 heads, d_ff 21504, vocab
               262144, window 1024) with its depth cut to 2 groups: 14 of
@@ -1867,7 +1892,7 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     prefill.  ``ref_tokens``: (label, the generated tokens of another run
     of the same case), whose agreement with this run's is logged (a
     number, not a gate).  Returns (the launches of the kernels the run is
-    read for, the generated tokens)."""
+    read for, the generated tokens, the run's wall seconds)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import card_continuous_case
@@ -2038,7 +2063,7 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     if gated > LOGITS_ATOL:
         raise AssertionError(f"{arch} {backend} {kv_dtype}: continuous "
                              f"logits differ by {gated:.3e} > {LOGITS_ATOL}")
-    return {k: launches[k] for k in layers}, generated
+    return {k: launches[k] for k in layers}, generated, m.wall_s
 
 
 # ------------------------------------------------------------ prefix phase
@@ -2264,6 +2289,222 @@ def phase_prefix(dev, seed, card, params, backend, kv_dtype="auto") -> dict:
             for k, w in (("cold", False), ("warm", True))}
 
 
+# ----------------------------------------------------- observability phase
+
+OBS_PROBE_EVERY = 8
+OBS_PROFILE_STEPS = 4
+
+
+def profiled_kernel_events(trace: dict, kernel: str) -> int:
+    """Device kernel events of a ``torch.profiler`` Chrome trace whose
+    (demangled or mangled) name holds ``kernel``."""
+    return sum(1 for e in trace.get("traceEvents", ())
+               if e.get("cat") == "kernel" and kernel in e.get("name", ""))
+
+
+def window_steps(events) -> list:
+    """The ``step`` events between the trace's ``profile_start`` and
+    ``profile_stop`` events."""
+    kinds = [e["ev"] for e in events]
+    if kinds.count("profile_start") != 1 or kinds.count("profile_stop") != 1:
+        raise AssertionError(f"{kinds.count('profile_start')} profile_start "
+                             f"and {kinds.count('profile_stop')} "
+                             "profile_stop events, expected one of each")
+    lo, hi = kinds.index("profile_start"), kinds.index("profile_stop")
+    return [e for e in events[lo:hi] if e["ev"] == "step"]
+
+
+def trace_check(label, events, reqs, iterations) -> None:
+    """Every request's lifecycle (submit, admit, first_token, finish) is
+    in the trace and the step events number 0..iterations-1."""
+    rids = sorted(r.rid for r in reqs)
+    for kind in ("submit", "admit", "first_token", "finish"):
+        got = sorted(e["rid"] for e in events if e["ev"] == kind)
+        if got != rids:
+            raise AssertionError(f"{label}: {kind} events for requests "
+                                 f"{got}, expected {rids}")
+    steps = [e["iter"] for e in events if e["ev"] == "step"]
+    if steps != list(range(iterations)):
+        raise AssertionError(f"{label}: step events {steps[:8]}... do not "
+                             f"number 0..{iterations - 1}")
+
+
+def probe_rows_check(label, rows, events, layers, every) -> None:
+    """A row for each of ``layers`` layers at every iteration the probe
+    was due with a decode batch (``every``), and each row in range:
+    recall in [0, 1], 0 < budget utilization <= 1, 0 < selected <=
+    budget <= static k."""
+    due = {e["iter"] for e in events if e["ev"] == "step"
+           and e["iter"] % every == 0 and e["occupancy"] > 0}
+    by_iter = collections.defaultdict(list)
+    for r in rows:
+        by_iter[r["iter"]].append(r["layer"])
+    if set(by_iter) != due or not due:
+        raise AssertionError(f"{label}: probed iterations "
+                             f"{sorted(by_iter)}, expected {sorted(due)}")
+    for it, got in by_iter.items():
+        if sorted(got) != list(range(layers)):
+            raise AssertionError(f"{label}: iteration {it} probed layers "
+                                 f"{sorted(got)}, expected 0..{layers - 1}")
+    for r in rows:
+        if not (0.0 <= r["recall"] <= 1.0
+                and 0.0 < r["budget_utilization"] <= 1.0
+                and 0 < r["selected_mean"] <= r["budget_mean"]
+                <= r["static_k"]):
+            raise AssertionError(f"{label}: probe row out of range: {r}")
+
+
+def phase_observability(dev, seed, card, params, f32_runs) -> dict:
+    """Phase 5c (see the module docstring): ``socket_fused`` fully
+    observed, then ``hard_lsh_fused`` and ``quest_fused`` with the probe;
+    ``f32_runs``: each backend's phase-5 f32 (tokens, wall seconds).
+    Returns each run's paged-kernel launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.launch.serve import card_continuous_case
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.obs import Observability, Profiler, events
+
+    class WindowProfiler(Profiler):
+        """The engine's profiler, reading the paged SOCKET kernel's launch
+        counter as its window opens and as it closes."""
+        launches = ()
+
+        def maybe_start(self, iteration, tracer=None):
+            was = self.active
+            super().maybe_start(iteration, tracer)
+            if self.active and not was:
+                self.launches = [pa.LAUNCHES]
+
+        def stop(self, tracer=None):
+            if self.active:
+                self.launches.append(pa.LAUNCHES)
+            super().stop(tracer)
+
+    new_tokens = 32
+    full = get_config("llama31-8b")
+    out, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ("socket_fused", "hard_lsh_fused", "quest_fused"):
+            t0 = time.perf_counter()
+            name = FUSED[backend][0]
+            label = f"observability phase ({backend})"
+            cfg, reqs = card_continuous_case(full, seed, new_tokens, backend)
+            layers = cfg.num_layers
+            traced = backend == "socket_fused"
+            trace_path = os.path.join(tmp, f"{backend}.jsonl")
+            prof_dir = os.path.join(tmp, "prof")
+            # the first decode-only iteration: every chunk before it
+            start = sum(-(-len(r.prompt) // cfg.serving.prefill_chunk)
+                        for r in reqs)
+            obs = Observability(trace_path if traced else None,
+                                probe_every=OBS_PROBE_EVERY)
+            if traced:
+                obs.profiler = WindowProfiler(prof_dir,
+                                              steps=OBS_PROFILE_STEPS,
+                                              start_step=start)
+            engine = ContinuousBatchingEngine(cfg, params=params, device=dev,
+                                              obs=obs)
+            probe_s = []                 # each probe step's host seconds
+            inner = engine._run_probe
+
+            def run_probe(*args, inner=inner, probe_s=probe_s):
+                probe_s.append(inner(*args))
+                return probe_s[-1]
+
+            engine._run_probe = run_probe
+            reset_launches()
+            engine.warmup(reqs)
+            m = engine.run(reqs, realtime=False)
+            torch.cuda.synchronize()
+            obs.close()
+            launches = read_launches()
+            launch_gate(label, launches, name, layers,
+                        m.decode_iters + len(engine.warmup_s))
+            tokens = [list(r.generated) for r in reqs]
+            want, phase5_wall = f32_runs[backend]
+            if tokens != want:
+                raise AssertionError(f"{label}: tokens part from phase 5's "
+                                     f"at {first_parting(tokens, want)}")
+            evs = obs.tracer.events
+            probe_rows_check(label, obs.probe.rows, evs, layers,
+                             OBS_PROBE_EVERY)
+            if engine.registry.get("pool_blocks_used").value != 0:
+                raise AssertionError(f"{label}: blocks still used at the end")
+            row = obs.probe_summary()
+            row.update(probe_ms=[1e3 * x for x in probe_s],
+                       wall_s=m.wall_s, phase5_wall_s=phase5_wall,
+                       decode_iters=m.decode_iters, launches=launches[name])
+            if traced:
+                with open(trace_path) as f:
+                    if events.validate_jsonl(f) != evs:
+                        raise AssertionError(f"{label}: the trace file "
+                                             "differs from tracer.events")
+                trace_check(label, evs, reqs, m.decode_iters)
+                window = window_steps(evs)
+                prof = obs.profiler
+                with open(prof.trace_path) as f:
+                    chrome = json.load(f)
+                seen = profiled_kernel_events(chrome, "paged_socket_kernel")
+                delta = prof.launches[1] - prof.launches[0]
+                want_seen = layers * len(window)
+                if not (seen == delta == want_seen):
+                    raise AssertionError(
+                        f"{label}: the profiler saw {seen} paged SOCKET "
+                        f"kernels, the counter moved {delta}, expected "
+                        f"{want_seen} ({layers} layers x {len(window)} "
+                        "window iterations)")
+                spans = collections.Counter(
+                    e["name"] for e in chrome["traceEvents"]
+                    if e.get("name") in ("mixed", "decode", "probe")
+                    and e.get("cat") == "user_annotation")
+                at = {e["ev"]: e["ts"] for e in evs
+                      if e["ev"] in ("profile_start", "profile_stop")}
+                before = next(e["ts"] for e in evs if e["ev"] == "step"
+                              and e["iter"] == start - 1)
+                outside = [e["step_s"] for e in evs if e["ev"] == "step"
+                           and e["kind"] == "decode" and e not in window]
+                row.update(
+                    profile_start_step=start,
+                    # the previous step's event to profile_start: the
+                    # profiler's start; the window's end to profile_stop:
+                    # its export
+                    profile_start_s=at["profile_start"] - before,
+                    profile_export_s=at["profile_stop"] - window[-1]["ts"],
+                    window_step_s=[e["step_s"] for e in window],
+                    decode_step_s_outside_mean=float(np.mean(outside)),
+                    window_iterations=[e["iter"] for e in window],
+                    window_kinds=[e["kind"] for e in window],
+                    profiled_kernel_events=seen, annotations=dict(spans),
+                    trace_events=len(evs),
+                    trace_bytes=os.path.getsize(trace_path),
+                    chrome_trace_bytes=os.path.getsize(prof.trace_path),
+                    compile_s={e["fn"]: e["seconds"] for e in evs
+                               if e["ev"] == "compile"})
+            row["phase_s"] = time.perf_counter() - t0
+            summary[backend] = row
+            out[f"{name}[observability]"] = launches[name]
+            free_engine(engine)
+            del engine
+    log(json.dumps({"observability_path": "llama31-8b",
+                    "probe_every": OBS_PROBE_EVERY,
+                    "weights": "random fp32 (seeded), not trained",
+                    **summary, "card": card}))
+    for backend, row in summary.items():
+        log(f"observability phase ({backend}): probe on random fp32 "
+            f"weights: recall {row['recall']}, budget utilization "
+            f"{row['budget_utilization']}, forced share "
+            f"{row['forced_share']} over {row['rows']} rows; probe step "
+            f"{np.mean(row['probe_ms']):.1f} host ms (mean of "
+            f"{len(row['probe_ms'])}); wall {row['wall_s']:.3f} s against "
+            f"phase 5's {row['phase5_wall_s']:.3f} s")
+    return out
+
+
 # ---------------------------------------------------------- sampling phase
 
 def phase_sampling(dev, seed, card, params) -> dict:
@@ -2352,9 +2593,9 @@ def legacy_phase(dev, seed, card, params, arch, chunked, launches):
     tokens compared with the chunked f32 run's (``chunked[arch]``); its
     launches land in ``launches`` as ``name[legacy arch]``."""
     t0 = time.perf_counter()
-    counts, _ = phase_continuous(dev, seed, card, params, "socket_fused",
-                                 arch=arch, legacy=True,
-                                 ref_tokens=("chunked", chunked[arch]))
+    counts, _, _ = phase_continuous(dev, seed, card, params, "socket_fused",
+                                    arch=arch, legacy=True,
+                                    ref_tokens=("chunked", chunked[arch]))
     launches.update({f"{k}[legacy {arch}]": v for k, v in counts.items()})
     gc.collect()
     torch.cuda.empty_cache()
@@ -2387,13 +2628,16 @@ def main(argv=None) -> int:
     # the continuous runs: each fused backend on f32 pages, then on int8
     # and fp8 pages (entries name[int8], name[fp8]) on the same weights
     chunked = {}                # arch -> socket_fused f32 run's tokens
+    f32_runs = {}               # backend -> its f32 run's (tokens, wall s)
     for backend in FUSED:
         auto = None
         for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:
             t0 = time.perf_counter()
-            counts, tokens = phase_continuous(
+            counts, tokens, wall_s = phase_continuous(
                 dev, args.seed, card, params, backend, kv_dtype=kv_dtype,
                 ref_tokens=auto and ("auto", auto))
+            if auto is None:
+                f32_runs[backend] = (tokens, wall_s)
             auto = auto or tokens
             suffix = "" if kv_dtype == "auto" else f"[{kv_dtype}]"
             launches.update({k + suffix: v for k, v in counts.items()})
@@ -2415,6 +2659,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches.update(phase_sampling(dev, args.seed, card, params))
     log(f"sampling phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(phase_observability(dev, args.seed, card, params,
+                                        f32_runs))
+    log(f"observability phase: {time.perf_counter() - t0:.1f} s")
     legacy_phase(dev, args.seed, card, params, "llama31-8b", chunked,
                  launches)
     del params                                  # llama31-8b's 32 GB
@@ -2424,7 +2672,7 @@ def main(argv=None) -> int:
     auto = None
     for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:
         t0 = time.perf_counter()
-        gemma, tokens = phase_continuous(
+        gemma, tokens, _ = phase_continuous(
             dev, args.seed, card, params, "socket_fused", arch="gemma3-27b",
             kv_dtype=kv_dtype, ref_tokens=auto and ("auto", auto))
         auto = auto or tokens

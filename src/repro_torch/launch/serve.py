@@ -10,6 +10,12 @@
   ``--temperature``/``--top-p`` sample instead of decoding greedily;
   ``--prefix-cache`` shares the pages of cached prompt prefixes, and
   ``--workload chatbot|rag`` sends traffic that has such prefixes.
+  Observability: ``--trace`` streams the JSONL event trace
+  (``--perfetto`` also exports it as Chrome trace-event JSON),
+  ``--metrics-json``/``--metrics-prom`` write the run's metrics,
+  ``--probe-every N`` samples the selection-quality probe (its summary
+  lands in the report) and ``--profile-dir`` captures a
+  ``torch.profiler`` window of ``--profile-steps`` iterations.
 
 Port of ``repro.launch.serve``.  It runs on the card by default; with no
 card it raises unless ``--device cpu`` is given:
@@ -30,6 +36,10 @@ card it raises unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \\
         --smoke --device cpu --engine continuous --backend socket_fused \\
         --prefix-cache --workload rag --temperature 0.8 --top-p 0.9
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama31-8b \\
+        --smoke --device cpu --engine continuous --backend socket_fused \\
+        --trace t.jsonl --perfetto t.perfetto.json --probe-every 2 \\
+        --metrics-json m.json --metrics-prom m.prom --profile-dir prof
 
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
@@ -67,6 +77,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import transformer as tfm
 from repro_torch.models.backends.kvquant import KV_DTYPES
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+from repro_torch.serving.obs.events import strict_dumps
 
 __all__ = ["run_serve", "run_continuous", "make_poisson_requests",
            "card_continuous_case", "card_prefix_case", "CARD_CASES",
@@ -314,7 +325,7 @@ def run_continuous(cfg, num_requests: int, rate_rps: float, prompt_lens,
                    max_new_tokens: int, seed: int = 0, realtime=True,
                    warmup=False, params=None, device="cuda",
                    temperature: float = 0.0, top_p: float = 1.0,
-                   prompts=None):
+                   prompts=None, obs=None):
     """Continuous-batching serve of Poisson-arriving requests; returns
     (requests, ServeMetrics, engine).  ``warmup=True`` runs the step
     shapes the workload needs first (chunked: the mixed and decode steps;
@@ -324,12 +335,16 @@ def run_continuous(cfg, num_requests: int, rate_rps: float, prompt_lens,
     ``prompts``: explicit token lists (e.g. from
     :mod:`repro_torch.serving.prefix_cache.workloads`, whose shared
     prefixes independent random prompts never have) in place of the
-    random draw; ``prompt_lens`` is then ignored."""
+    random draw; ``prompt_lens`` is then ignored.  ``obs``: an optional
+    :class:`~repro_torch.serving.obs.Observability` bundle (event trace,
+    selection probe, profiler) handed to the engine, whose run's metrics
+    registry (``engine.registry``) gives the snapshot and Prometheus
+    exposition."""
     from repro_torch.serving import Request
     from repro_torch.serving.engine import ContinuousBatchingEngine
     engine = ContinuousBatchingEngine(cfg, params=params, seed=seed,
                                       device=device, temperature=temperature,
-                                      top_p=top_p, sample_seed=seed)
+                                      top_p=top_p, sample_seed=seed, obs=obs)
     if prompts is None:
         reqs = make_poisson_requests(cfg, num_requests, rate_rps,
                                      prompt_lens, max_new_tokens, seed=seed)
@@ -404,6 +419,30 @@ def main(argv=None):
     ap.add_argument("--sessions", type=int, default=2,
                     help="number of concurrent chat sessions "
                          "(--workload chatbot)")
+    # observability (continuous engine)
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="stream a schema-validated JSONL event trace "
+                         "of the run to FILE")
+    ap.add_argument("--perfetto", default=None, metavar="FILE",
+                    help="also export the trace as Chrome trace-event "
+                         "JSON (open at https://ui.perfetto.dev); "
+                         "requires --trace")
+    ap.add_argument("--metrics-json", default=None, metavar="FILE",
+                    help="write the run's metrics-registry snapshot as "
+                         "strict JSON")
+    ap.add_argument("--metrics-prom", default=None, metavar="FILE",
+                    help="write the run's metrics registry in "
+                         "Prometheus text exposition format")
+    ap.add_argument("--probe-every", type=int, default=0,
+                    help="sample the selection-quality probe every N "
+                         "engine iterations (0 = off; socket with "
+                         "kvhead/pooled selection, hard_lsh, quest)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of the engine "
+                         "loop into this directory (engine.trace.json)")
+    ap.add_argument("--profile-steps", type=int, default=20,
+                    help="profiled window length in engine iterations "
+                         "(with --profile-dir)")
     args = ap.parse_args(argv)
 
     if args.backend.endswith("_fused") and args.engine != "continuous":
@@ -427,6 +466,15 @@ def main(argv=None):
         ap.error("--workload chatbot/rag requires --engine continuous")
     if not 0.0 <= args.overlap < 1.0:
         ap.error(f"--overlap must be in [0, 1), got {args.overlap}")
+    obs_flags = (args.trace, args.perfetto, args.metrics_json,
+                 args.metrics_prom, args.profile_dir)
+    if (any(f is not None for f in obs_flags) or args.probe_every) \
+            and args.engine != "continuous":
+        ap.error("observability flags (--trace/--perfetto/--metrics-*/"
+                 "--probe-every/--profile-dir) require --engine "
+                 "continuous")
+    if args.perfetto and not args.trace:
+        ap.error("--perfetto needs --trace (it exports the event trace)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -463,10 +511,16 @@ def main(argv=None):
             prompts = rag_prompts(args.num_requests, prompt_len=top,
                                   overlap=args.overlap,
                                   vocab_size=cfg.vocab_size, seed=args.seed)
+        obs = None
+        if any(f is not None for f in obs_flags) or args.probe_every:
+            from repro_torch.serving.obs import Observability
+            obs = Observability(args.trace, probe_every=args.probe_every,
+                                profile_dir=args.profile_dir,
+                                profile_steps=args.profile_steps)
         reqs, m, engine = run_continuous(
             cfg, args.num_requests, args.rate, lens, max_new, seed=args.seed,
             device=dev, temperature=args.temperature, top_p=args.top_p,
-            prompts=prompts)
+            prompts=prompts, obs=obs)
         report = {
             "arch": cfg.name, "backend": args.backend,
             "engine": "continuous",
@@ -497,7 +551,21 @@ def main(argv=None):
                 "cow_copies": reg.value("prefix_cache_cow_total"),
                 "evicted_blocks": reg.value("prefix_cache_evicted_total"),
             }
-        print(json.dumps(report, indent=2))
+        if obs is not None:
+            obs.close()
+            if args.probe_every:
+                report["probe"] = obs.probe_summary()
+            if args.perfetto:
+                from repro_torch.serving.obs import write_chrome_trace
+                write_chrome_trace(args.trace, args.perfetto)
+            if args.metrics_json:
+                with open(args.metrics_json, "w") as f:
+                    f.write(strict_dumps(engine.registry.snapshot(),
+                                         indent=2, sort_keys=True))
+            if args.metrics_prom:
+                with open(args.metrics_prom, "w") as f:
+                    f.write(engine.registry.prometheus_text())
+        print(strict_dumps(report, indent=2))
         return
     toks, prefill_s, decode_s = run_serve(cfg, args.batch, args.prompt_len,
                                           args.decode_steps, seed=args.seed,

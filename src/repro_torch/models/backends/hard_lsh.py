@@ -12,8 +12,9 @@ backends share the cache layout and every other eligibility rule) a
 PagedView decode runs as ONE fused CUDA pass
 (``kernels/paged_attention.paged_hard_lsh_attend``).
 
-The selection probe comes with the observability slice (ROADMAP.md queue
-1 item 9).
+A probe shadow step (``probe.capturing()``) takes the plain route and
+records :func:`~repro_torch.models.backends.probe.selection_stats`; the
+plain selection is the fused kernel's bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core import hashing
 from repro_torch.core import socket as sk
 from repro_torch.models.backends import base
+from repro_torch.models.backends import probe as bprobe
 from repro_torch.models.backends.socket import SocketBackend, socket_config_of
 
 __all__ = ["HardLSHBackend"]
@@ -80,7 +82,8 @@ class HardLSHBackend(SocketBackend):
         scfg = socket_config_of(cfg)
         n = view.n_tokens
         budget = self._budget(cfg, length, n)
-        if cfg.socket.use_paged_kernel and isinstance(view, base.PagedView):
+        if cfg.socket.use_paged_kernel and isinstance(view, base.PagedView) \
+                and not bprobe.capturing():
             return self._attend_fused(cfg, params, q, view, length=length,
                                       scale=scale, budget=budget)
         scores = _hard_collision_scores(scfg, view.leaf("bits"),
@@ -91,6 +94,11 @@ class HardLSHBackend(SocketBackend):
         idx, sel_mask = sk.value_aware_topk(
             scfg, scores, vnorm, k=kq, length=length, n_total=n,
             budget=budget)
+        if bprobe.capturing():
+            bprobe.emit(bprobe.selection_stats(
+                scfg, q, base.dequant_leaf(cfg, view, "k"), vnorm,
+                idx, sel_mask, length=length, budget=budget,
+                static_k=kq, scale=scale))
         k_sel, v_sel = base.gather_kv_rows(cfg, view, idx)
         return base.subset_attention(cfg, q, k_sel, v_sel, sel_mask,
                                      scale=scale)

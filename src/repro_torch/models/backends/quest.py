@@ -11,9 +11,13 @@ are gathered only for the selected pages.  With
 ``cfg.quest.use_paged_kernel`` a PagedView decode runs as ONE fused CUDA
 pass (``kernels/paged_attention.paged_quest_attend``).
 
-The selection probe and the byte accounting the serving benchmark reads
-(``selected_rows``, ``fused_paged``) come with later slices (ROADMAP.md
-queue 1 items 9 and 10).
+A probe shadow step (``probe.capturing()``) takes the plain route and
+records :func:`~repro_torch.models.backends.probe.selection_stats` (the
+budget is page-granular and folded into the selection mask, so the
+reported budget is the static selection width); the plain page
+selection is the fused kernel's bit for bit.  The byte accounting the
+serving benchmark reads (``selected_rows``, ``fused_paged``) comes with
+a later slice (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.baselines import quest as quest_mod
 from repro_torch.models.backends import base
+from repro_torch.models.backends import probe as bprobe
 from repro_torch.models.backends.base import KVView, LeafSpec
 
 __all__ = ["QuestBackend"]
@@ -108,7 +113,8 @@ class QuestBackend(base.DecodeBackend):
         return out.to(q.dtype)
 
     def attend(self, cfg, params, q, view: KVView, *, length, scale):
-        if cfg.quest.use_paged_kernel and isinstance(view, base.PagedView):
+        if cfg.quest.use_paged_kernel and isinstance(view, base.PagedView) \
+                and not bprobe.capturing():
             return self._attend_fused(cfg, params, q, view, length=length,
                                       scale=scale)
         del params
@@ -117,6 +123,11 @@ class QuestBackend(base.DecodeBackend):
                                      kmax=view.leaf("kmax"))
         idx, sel_mask = quest_mod.select_tokens(
             qcfg, state, q, length=length, n=view.n_tokens)
+        if bprobe.capturing():
+            bprobe.emit(bprobe.selection_stats(
+                qcfg, q, base.dequant_leaf(cfg, view, "k"), None,
+                idx, sel_mask, length=length, budget=None,
+                static_k=idx.shape[-1], scale=scale))
         k_sel, v_sel = base.gather_kv_rows(cfg, view, idx)
         return base.subset_attention(cfg, q, k_sel, v_sel, sel_mask,
                                      scale=scale)

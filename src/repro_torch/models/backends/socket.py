@@ -15,8 +15,14 @@ ONE fused CUDA pass (``kernels/paged_attention``) over the pool and the
 block table; contiguous callers keep the socket_score + flash_decode
 pair.
 
-The selection probe and the context-parallel route come with later
-slices.
+Selection probe: in a probe shadow step (``probe.capturing()``) a
+PagedView attend takes the plain route even where the fused kernel is
+on, and kvhead/pooled selection records
+:func:`~repro_torch.models.backends.probe.selection_stats` against the
+dequantized cached keys.  The plain selection is the fused kernel's but
+for rows inside the top-k threshold band (float rounding of the same
+fp32 sums in another order).  The context-parallel route comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from repro_torch.core import hashing
 from repro_torch.core import socket as sk
 from repro_torch.models.backends import base
+from repro_torch.models.backends import probe as bprobe
 from repro_torch.models.backends.base import KVView, LeafSpec
 
 __all__ = ["SocketBackend", "socket_config_of"]
@@ -151,7 +158,10 @@ class SocketBackend(base.DecodeBackend):
             raise ValueError(scfg.selection)
         n = view.n_tokens
         budget = self._budget(cfg, length, n)
-        if cfg.socket.use_paged_kernel and isinstance(view, base.PagedView):
+        # probe shadow steps take the plain route: the fused pass never
+        # materializes its selection
+        if cfg.socket.use_paged_kernel and isinstance(view, base.PagedView) \
+                and not bprobe.capturing():
             return self._attend_fused(cfg, params, q, view, length=length,
                                       scale=scale, budget=budget)
         scores = self._scores(cfg, params, q, view)
@@ -161,6 +171,13 @@ class SocketBackend(base.DecodeBackend):
             idx, sel_mask = sk.value_aware_topk(
                 scfg, scores, vnorm, k=kq, length=length, n_total=n,
                 budget=budget)
+            if bprobe.capturing():
+                # the reference reads the dequantized cached keys, the
+                # values the attend phase sees
+                bprobe.emit(bprobe.selection_stats(
+                    scfg, q, base.dequant_leaf(cfg, view, "k"), vnorm,
+                    idx, sel_mask, length=length, budget=budget,
+                    static_k=kq, scale=scale))
             k_sel, v_sel = base.gather_kv_rows(cfg, view, idx)
             return base.subset_attention(cfg, q, k_sel, v_sel, sel_mask,
                                          scale=scale)

@@ -72,13 +72,34 @@ prefill in legacy mode), replayed tokens after a preemption included
 (the draw is made and the token discarded).  A request's draw for token
 ``t`` is therefore a pure function of (seed, submission index, t).
 
-Not ported yet, each raising :class:`NotImplementedError` naming its
-ROADMAP.md queue 1 item: observability (item 9), state (Mamba) and MoE
-layers (item 7).
+**Observability** (``obs=``, a :class:`~repro_torch.serving.obs
+.Observability`; the JAX engine's): a schema-validated JSONL event trace
+(``trace_start``, ``run_start``/``run_end``, request lifecycles from the
+scheduler and the prefix cache, one ``step`` record an iteration, a
+``compile`` event at the first dispatch of each step shape — in the port
+that dispatch includes the lazy ``nvcc`` builds and library set-up —
+and ``cow_copy``), the sampled selection-quality probe and a
+``torch.profiler`` window.  The probe re-runs the decode batch before
+the production step as a shadow step with the capture flag up
+(:mod:`repro_torch.models.backends.probe`): the plain selection route,
+which is the fused kernels' selection bit for bit (SOCKET: but for rows
+inside the top-k threshold band).  Its host seconds are left out of the
+iteration's ``step_s``.  Since the port's pool updates in place, the
+shadow step's appends would stay in the pool (Quest's page bounds are
+read-modify-write, so a shadow write could move a later selection): the
+engine saves every block the shadow step can write (each active slot's
+current page, its ring page, the trash page) in every leaf and restores
+them, so the pool is bitwise what it was.  The shadow step picks no
+token and draws no noise.  With ``obs=None`` the engine holds no tracer,
+probe or profiler, and greedy tokens are bit-identical either way.
+
+Not ported yet, raising :class:`NotImplementedError` naming ROADMAP.md
+queue 1 item 7: state (Mamba) and MoE layers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -94,6 +115,7 @@ from repro_torch.runtime.steps import (make_chunk_prefill_step,
                                       make_prefill_step, make_serve_step)
 from repro_torch.serving import paged, sampling
 from repro_torch.serving.block_pool import TRASH_BLOCK, BlockPool
+from repro_torch.serving.obs import Observability
 from repro_torch.serving.obs.metrics import Registry
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import (PREFILL, PrefillChunk, Request,
@@ -147,14 +169,16 @@ class ContinuousBatchingEngine:
     when None).  ``device``: where the pool lives and the steps run,
     ``"cuda"`` by default (a CUDA device with no card raises).
     ``temperature`` 0 decodes greedily; above 0 it samples with ``top_p``
-    from per-request noise streams seeded from ``sample_seed``.
+    from per-request noise streams seeded from ``sample_seed``.  ``obs``:
+    an :class:`~repro_torch.serving.obs.Observability` bundle (event
+    trace, selection probe, profiler), or None for none of it.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, seed: int = 0, *,
                  device="cuda", temperature: float = 0.0, top_p: float = 1.0,
-                 sample_seed: int = 0, obs=None):
+                 sample_seed: int = 0, obs: Optional[Observability] = None):
         from repro_torch.launch.serve import resolve_device
-        self._validate(cfg, obs)
+        self._validate(cfg)
         self.cfg = cfg
         self.serving = cfg.serving
         self.serving.validate()
@@ -168,7 +192,7 @@ class ContinuousBatchingEngine:
         self.params = params
         self.backend = bk.get_backend(cfg.attention_backend)
         plan = cfg.cache_plan()
-        has_paged = any(p.kind == "paged" for p in plan)
+        has_paged = self._has_paged = any(p.kind == "paged" for p in plan)
         ring_blocks = max((p.ring_blocks for p in plan
                            if p.kind == "ring"), default=0)
         # page-native decode: a paged-capable backend, or no global layer
@@ -222,16 +246,34 @@ class ContinuousBatchingEngine:
         # host seconds of each step call warmup() made, by shape:
         # "decode", "mixed" or "prefill_{bucket}"
         self.warmup_s: Dict[str, float] = {}
+        # ---- observability: the metrics registry is always on (the
+        # end-of-run ServeMetrics derive from it); tracer, probe and
+        # profiler exist only when ``obs`` is given
+        self.obs = obs
         self.registry = Registry()
         self._bind_instruments(self.registry)
+        self._compile_seen: set = set()
+        self._probe_capable = (
+            (cfg.attention_backend in ("hard_lsh", "quest")
+             or (cfg.attention_backend == "socket"
+                 and cfg.socket.selection in ("kvhead", "pooled")))
+            and has_paged)
+        if obs is not None:
+            if obs.profiler is not None:
+                obs.profiler.device = self.device
+            counts = paged.cache_kind_counts(cfg)
+            obs.tracer.ensure_start(
+                arch=cfg.name, backend=cfg.attention_backend,
+                prefill_chunk=self.serving.prefill_chunk,
+                layers_paged=counts["paged"], layers_ring=counts["ring"],
+                layers_state=counts["state"],
+                prefix_cache=self.prefix_cache is not None)
 
     @staticmethod
-    def _validate(cfg: ModelConfig, obs) -> None:
+    def _validate(cfg: ModelConfig) -> None:
         if cfg.input_mode != "tokens":
             raise NotImplementedError(
                 "continuous engine serves token models only")
-        if obs is not None:
-            raise _not_ported("serving observability (obs)", 9)
         if any(s.kind != "attn" or s.mlp not in ("dense", "none")
                for s in cfg.layer_specs):
             raise _not_ported("state (Mamba) and MoE layers", 7)
@@ -268,6 +310,26 @@ class ContinuousBatchingEngine:
             reg.gauge("prefix_cache_evictable_blocks").set(
                 self.prefix_cache.evictable_blocks())
 
+    def _note_call(self, tag: str, seconds: float) -> None:
+        """The first dispatch of a step shape (``decode``, ``mixed``,
+        ``probe``, ``cow_clone``, ``prefill_{bucket}``) includes the lazy
+        kernel builds and library set-up: record it as a ``compile`` event
+        so latency analysis can discount it (warm-up marks the shapes it
+        covers)."""
+        if tag in self._compile_seen:
+            return
+        self._compile_seen.add(tag)
+        if self.obs is not None:
+            self.obs.tracer.emit("compile", fn=tag,
+                                 seconds=round(seconds, 6))
+
+    def _annotate(self, name: str):
+        """The profiler's ``record_function`` for ``name`` inside its
+        window, a null context otherwise."""
+        if self.obs is None or self.obs.profiler is None:
+            return contextlib.nullcontext()
+        return self.obs.profiler.annotate(name)
+
     def _note_token(self, req: Request, w: float) -> None:
         """Per-emitted-token bookkeeping (the token is already appended);
         when sampling, the index of the draw it was sampled with."""
@@ -280,7 +342,11 @@ class ContinuousBatchingEngine:
 
     def _note_first_token(self, req: Request, t: float) -> None:
         req.t_first_token = t
-        self._h_ttft.record(t - req.arrival)
+        ttft = t - req.arrival
+        self._h_ttft.record(ttft)
+        if self.obs is not None:
+            self.obs.tracer.emit("first_token", rid=req.rid,
+                                 ttft_s=round(ttft, 6))
 
     # ------------------------------------------------------ steps
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -400,8 +466,9 @@ class ContinuousBatchingEngine:
                                            len(prompt) - 1,
                                            self._to_dev(bt_row), req.slot,
                                            req))
-        self.prefill_trace.append((iteration, req.rid, bucket,
-                                   time.perf_counter() - t_p))
+        secs = time.perf_counter() - t_p
+        self.prefill_trace.append((iteration, req.rid, bucket, secs))
+        self._note_call(f"prefill_{bucket}", secs)
         if not req.generated:
             req.generated.append(first_tok)
             self._note_token(req, wall())
@@ -416,8 +483,8 @@ class ContinuousBatchingEngine:
         allocator growth: the decode-only step, then the mixed step
         (chunked mode) or one whole-prompt prefill a bucket (legacy mode:
         only the buckets ``requests`` hit when given, all of them
-        otherwise).  Each call's host seconds land in ``warmup_s``.  No
-        noise stream is drawn from."""
+        otherwise).  Each call's host seconds land in ``warmup_s`` (and,
+        traced, in a ``compile`` event).  No noise stream is drawn from."""
         sv = self.serving
 
         def timed(tag, fn, *args):
@@ -425,6 +492,7 @@ class ContinuousBatchingEngine:
             fn(*args)
             self._sync()
             self.warmup_s[tag] = time.perf_counter() - t_w
+            self._note_call(tag, self.warmup_s[tag])
 
         tokens, bt, pos = self._batch_inputs([])
         timed("decode", self._decode_body, tokens, bt, pos)
@@ -474,14 +542,26 @@ class ContinuousBatchingEngine:
         start) to completion.  ``realtime=False`` treats arrivals as
         already-arrived (offline batch; deterministic)."""
         sched = self.scheduler
+        obs = self.obs
+        tracer = obs.tracer if obs is not None else None
+        probe = obs.probe if obs is not None and obs.probe.every > 0 \
+            and self._probe_capable else None
+        profiler = obs.profiler if obs is not None else None
         reg = self.registry = Registry()     # run-scoped
         self._bind_instruments(reg)
-        sched.bind_obs(reg, None)
+        sched.bind_obs(reg, tracer)
         self.chunk_trace = []
         self.prefill_trace = []
+        run_ord = tracer.begin_run(requests=len(requests)) if tracer \
+            else 0
         for r in requests:
             self._register(r)
             sched.submit(r)
+            if tracer:
+                tracer.emit("submit", rid=r.rid,
+                            prompt_tokens=len(r.prompt),
+                            max_new_tokens=r.max_new_tokens,
+                            arrival=float(r.arrival))
         t0 = time.perf_counter()
         wall = lambda: time.perf_counter() - t0
         now = wall if realtime else (lambda: float("inf"))
@@ -547,22 +627,33 @@ class ContinuousBatchingEngine:
                     if realtime and wait > 0:
                         time.sleep(min(wait, 0.05))
                 continue
+            if profiler is not None:
+                profiler.maybe_start(decode_iters, tracer)
             t_it = time.perf_counter()
             tokens, bt, pos = self._batch_inputs(runnable)
             reqs = [None] * self.serving.max_batch
             for r in runnable:
                 reqs[r.slot] = r
+            probe_s = 0.0
+            if probe is not None and runnable and probe.due(decode_iters):
+                probe_s = self._run_probe(decode_iters, tokens, bt, pos,
+                                          runnable)
+            kind = "decode" if chunk is None else "mixed"
+            with self._annotate(kind):
+                if chunk is not None:
+                    first_tok, next_tok = self._run_mixed(chunk, tokens, bt,
+                                                          pos, reqs)
+                else:
+                    next_tok = self._decode_body(tokens, bt, pos, reqs)
             if chunk is not None:
-                first_tok, next_tok = self._run_mixed(chunk, tokens, bt, pos,
-                                                      reqs)
                 self.chunk_trace.append((decode_iters, self._prefilling.rid,
                                          chunk.start, chunk.tokens))
                 c_chunks.inc()
                 self._finish_chunk(chunk, first_tok, wall, stamp)
-            else:
-                next_tok = self._decode_body(tokens, bt, pos, reqs)
             next_tok = next_tok.cpu().numpy()
-            it_s = time.perf_counter() - t_it
+            # the probe's host seconds are not the iteration's
+            it_s = time.perf_counter() - t_it - probe_s
+            self._note_call(kind, it_s)
             self._h_iter.record(it_s)
             (c_iters_mixed if chunk is not None else c_iters_decode).inc()
             for r in runnable:
@@ -579,13 +670,34 @@ class ContinuousBatchingEngine:
                 if r.done and not replaying:
                     sched.finish(r, stamp())
             self._set_gauges(reg)
+            if tracer:
+                st = self.pool.stats()
+                tracer.emit(
+                    "step", iter=decode_iters, kind=kind,
+                    occupancy=len(runnable),
+                    chunk_tokens=chunk.tokens if chunk is not None else 0,
+                    step_s=round(it_s, 6), pool_free=st["free"],
+                    pool_used=st["used"],
+                    pool_high_water=st["high_water"],
+                    waiting=len(sched.waiting),
+                    prefilling=len(sched.prefilling),
+                    running=len(sched.running))
             decode_iters += 1
             if self.iter_hook is not None and \
                     self.iter_hook(self, decode_iters):
                 break
+            if profiler is not None:
+                profiler.maybe_stop(decode_iters, tracer)
 
+        if profiler is not None:
+            profiler.stop(tracer)           # run shorter than the window
         wall_total = time.perf_counter() - t0
-        return self._metrics(requests, wall_total)
+        m = self._metrics(requests, wall_total)
+        if tracer:
+            tracer.end_run(run_ord, requests=len(requests),
+                           generated=m.total_generated,
+                           wall_s=round(wall_total, 6))
+        return m
 
     # ------------------------------------------------------ cow
     def _cow(self, req: Request, idx: int, keep: int) -> bool:
@@ -601,10 +713,15 @@ class ContinuousBatchingEngine:
         new = self.scheduler.cow_alloc(req)
         if new is None:
             return False
+        t_c = time.perf_counter()
         paged.clone_block(self.cfg, self.pages, old, new, keep)
+        self._note_call("cow_clone", time.perf_counter() - t_c)
         req.blocks[idx] = new
         self.pool.free([old])
         self.registry.counter("prefix_cache_cow_total").inc()
+        if self.obs is not None:
+            self.obs.tracer.emit("cow_copy", rid=req.rid, block=old,
+                                 clone=new, keep_tokens=keep)
         return True
 
     def _resolve_chunk_cow(self, req: Request,
@@ -668,6 +785,68 @@ class ContinuousBatchingEngine:
         if req.done:                  # max_new_tokens == 1 degenerate case
             sched.finish(req, stamp())
         self._prefilling = None
+
+    # ------------------------------------------------------ probe
+    def _written_blocks(self, runnable: List[Request]) -> torch.Tensor:
+        """Every block a decode step of ``runnable`` writes: each active
+        slot's page at ``pos`` (paged layers) and its ring page (ring
+        layers), and the trash page the idle slots write; from host
+        state, so no device sync."""
+        bs = self.serving.block_size
+        rb = self.scheduler.ring_blocks
+        blocks = {TRASH_BLOCK}
+        for r in runnable:
+            if self._has_paged:
+                blocks.add(r.blocks[r.pos // bs])
+            if rb:
+                blocks.add(r.blocks[(r.pos // bs) % rb])
+        return torch.tensor(sorted(blocks), device=self.device)
+
+    def _run_probe(self, iteration: int, tokens, bt, pos,
+                   runnable: List[Request]) -> float:
+        """Sampled selection-quality probe: re-run the current decode
+        batch as a shadow step with the capture flag up
+        (:mod:`repro_torch.models.backends.probe`), so every sparse layer
+        records its per-request recall / budget-utilization /
+        forced-share stats on the plain selection route, then reduce them
+        over the active slots and emit one ``probe`` event per layer.
+
+        The shadow step appends this token's rows to the pool in place,
+        as every step does; the production step that follows writes the
+        same rows again, but not every leaf is overwritten whole (Quest's
+        page bounds merge with what they hold).  So the blocks the step
+        writes are saved in every leaf first and restored after: the pool
+        is left bitwise as it was.  The shadow step's logits are dropped:
+        no token is picked and no noise stream drawn from.  Returns the
+        probe's host seconds."""
+        from repro_torch.models.backends import probe as bprobe
+        t_p = time.perf_counter()
+        blocks = self._written_blocks(runnable)
+        saved = [(raw, raw[blocks].clone()) for layer in self.pages
+                 for raw in map(paged.raw_view, layer.values())]
+        bprobe.drain()                       # drop anything stale
+        with self._annotate("probe"), bprobe.capture():
+            if self._paged_native:
+                self._serve(self.params, self.pages, tokens, pos, bt)
+            else:                            # the views are copies
+                views = paged.gather_views(self.cfg, self.pages, bt)
+                self._serve(self.params, views, tokens, pos)
+        stats = bprobe.drain()               # one transfer, synchronizes
+        for raw, rows in saved:
+            raw[blocks] = rows
+        probe_s = time.perf_counter() - t_p
+        self._note_call("probe", probe_s)
+        rows = self.obs.probe.add(iteration, stats,
+                                  [r.slot for r in runnable])
+        for row in rows:
+            self.obs.tracer.emit("probe", **row)
+            if row["recall"] is not None:
+                self.registry.histogram("probe_recall").record(
+                    row["recall"])
+                self.registry.histogram(
+                    "probe_budget_utilization").record(
+                        row["budget_utilization"])
+        return probe_s
 
     # ------------------------------------------------------ metrics
     def _metrics(self, requests: List[Request],

@@ -1,18 +1,20 @@
 """Streaming metrics registry: counters, gauges, log-bucket histograms.
 
-A copy of the ``Counter``, ``Gauge``, ``Histogram`` and ``Registry``
-classes of ``repro.serving.obs.metrics`` (numpy only), the part of the
-observability layer that the continuous engine and the scheduler read:
-the engine derives its end-of-run :class:`~repro_torch.serving.engine
-.ServeMetrics` from the run's registry.  The exposition formats
-(Prometheus text, strict-JSON snapshots) and the rest of ``obs`` come
-with the observability slice (ROADMAP.md queue 1 item 9).
+A copy of ``repro.serving.obs.metrics`` (numpy only).  Pure host
+Python, cheap enough to stay always-on in the serving hot loop: the
+engine derives its end-of-run :class:`~repro_torch.serving.engine
+.ServeMetrics` from the run's registry.
 
 Histograms are **log-bucketed**: values land in geometric buckets
 ``growth^i``, so p50/p99 stream without retaining samples, with relative
 error bounded by ``growth - 1`` (default 5%).  ``exact=True`` also keeps
 the raw samples, so the engine's percentiles equal a direct
 ``np.percentile`` over the recorded series.
+
+Exposition: :meth:`Registry.prometheus_text` (text format 0.0.4) and
+:meth:`Registry.snapshot` (strict JSON — NaN never appears; see
+:mod:`repro_torch.serving.obs.events`); both equal the JAX package's
+string for string on the same series.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ LabelKey = Tuple[Tuple[str, str], ...]
 
 def _labels_key(labels: Dict[str, str]) -> LabelKey:
     return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+
+def _labels_str(key: LabelKey) -> str:
+    if not key:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in key) + "}"
 
 
 class Counter:
@@ -145,6 +153,18 @@ class Histogram:
             "p99": self.percentile(99) if self.count else None,
         }
 
+    def prometheus_buckets(self):
+        """Cumulative ``(le, count)`` pairs for text exposition."""
+        out = []
+        cum = self.underflow
+        if self.underflow:
+            out.append((0.0, cum))
+        for i in sorted(self.buckets):
+            cum += self.buckets[i]
+            out.append((self.growth ** i, cum))
+        out.append((math.inf, self.count))
+        return out
+
 
 class Registry:
     """Named instrument registry with labels.
@@ -152,8 +172,8 @@ class Registry:
     ``counter/gauge/histogram(name, **labels)`` create-or-return the
     instrument for that (name, labels) pair; all instruments under one
     name must share a kind.  One registry instance covers one engine run
-    (the engine creates a fresh one per ``run()``), so it is run-scoped
-    like :class:`~repro_torch.serving.engine.ServeMetrics`."""
+    (the engine creates a fresh one per ``run()``), so snapshots are
+    run-scoped like :class:`~repro_torch.serving.engine.ServeMetrics`."""
 
     def __init__(self):
         # name -> (kind, {labels_key -> instrument})
@@ -198,3 +218,44 @@ class Registry:
         """The existing instrument, or None."""
         fam = self._families.get(name)
         return None if fam is None else fam[1].get(_labels_key(labels))
+
+    # ---- exposition ------------------------------------------------------
+    def snapshot(self) -> Dict:
+        """Strict-JSON-safe nested dict of every instrument."""
+        from repro_torch.serving.obs.events import sanitize
+        out = {}
+        for name, (kind, children) in sorted(self._families.items()):
+            fam = {}
+            for key, inst in sorted(children.items()):
+                fam[_labels_str(key) or "_"] = inst.to_json()
+            out[name] = {"kind": kind, "values": fam}
+        return sanitize(out)
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        lines = []
+        for name, (kind, children) in sorted(self._families.items()):
+            lines.append(f"# TYPE {name} {kind}")
+            for key, inst in sorted(children.items()):
+                ls = _labels_str(key)
+                if kind in ("counter", "gauge"):
+                    lines.append(f"{name}{ls} {_fmt(inst.value)}")
+                    continue
+                for le, cum in inst.prometheus_buckets():
+                    le_s = "+Inf" if math.isinf(le) else _fmt(le)
+                    blabels = dict(key)
+                    blabels["le"] = le_s
+                    lines.append(
+                        f"{name}_bucket{_labels_str(_labels_key(blabels))}"
+                        f" {cum}")
+                lines.append(f"{name}_sum{ls} {_fmt(inst.total)}")
+                lines.append(f"{name}_count{ls} {inst.count}")
+        return "\n".join(lines) + "\n"
+
+
+def _fmt(v) -> str:
+    if isinstance(v, float) and not math.isfinite(v):
+        # prometheus text allows +Inf/-Inf/NaN spellings
+        return "+Inf" if v == math.inf else ("-Inf" if v == -math.inf
+                                             else "NaN")
+    return repr(v) if isinstance(v, float) else str(v)

@@ -32,10 +32,11 @@ pool directly through ``PagedView``/``RingView``; for the rest (dense)
 the engine falls back to the gather/scatter round trip below, which is
 window-bounded for ring layers.  The legacy whole-prompt prefill writes
 its fresh caches in with :func:`write_prefill`; the prefix cache un-shares
-a page with :func:`clone_block`.  State (Mamba) layers and
-``keep_state_rows`` come with ROADMAP.md queue 1 item 7; the byte
-accounting the serving benchmark reads (``pool_block_bytes``,
-``gather_footprint``) with item 10.
+a page with :func:`clone_block`.  :func:`cache_kind_counts` counts the
+layers of each kind (the trace's ``trace_start`` metadata).  State
+(Mamba) layers and ``keep_state_rows`` come with ROADMAP.md queue 1 item
+7; the byte accounting the serving benchmark reads
+(``pool_block_bytes``, ``gather_footprint``) with item 10.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from repro_torch.models import backends as bk
 from repro_torch.models import transformer as tfm
 
 __all__ = ["init_paged_caches", "gather_views", "scatter_token",
-           "write_prefill", "clone_block", "raw_view"]
+           "write_prefill", "clone_block", "raw_view", "cache_kind_counts"]
 
 
 def init_paged_caches(cfg: ModelConfig, serving: ServingSettings,
@@ -145,3 +146,13 @@ def clone_block(cfg: ModelConfig, pages, src: int, dst: int,
                                                     dtype=leaf.dtype))
         raw[dst] = page
     return pages
+
+
+def cache_kind_counts(cfg: ModelConfig) -> Dict[str, int]:
+    """Layer count per cache kind (``paged``/``ring``/``state``) under the
+    per-layer plan (``cfg.cache_plan()``), as the JAX package counts
+    them."""
+    counts = {"paged": 0, "ring": 0, "state": 0}
+    for spec in cfg.layer_specs:
+        counts[cfg.plan_for(spec).kind] += 1
+    return counts

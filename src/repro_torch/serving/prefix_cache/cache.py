@@ -1,8 +1,8 @@
 """Prefix cache facade: radix index + pool refcounts + CoW policy.
 
 A copy of ``repro.serving.prefix_cache.cache`` (it imports nothing of the
-JAX package); ``bind_obs`` takes the port's metrics registry and, until
-the observability slice (ROADMAP.md queue 1 item 9), no tracer.
+JAX package); ``bind_obs`` takes the port's metrics registry and event
+tracer.
 
 Ties the token-keyed :class:`~repro_torch.serving.prefix_cache.radix
 .RadixIndex` to the refcounted :class:`~repro_torch.serving.block_pool

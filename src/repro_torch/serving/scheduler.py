@@ -4,8 +4,8 @@ A copy of ``repro.serving.scheduler``: the same lifecycle, admission,
 chunk grants and preemption, so the port schedules exactly as the JAX
 engine does, with the same prefix-cache hooks (the engine sets
 ``prefix_cache`` where the plan can share pages); ``bind_obs`` takes the
-port's metrics :class:`~repro_torch.serving.obs.metrics.Registry` with no
-tracer.
+port's metrics :class:`~repro_torch.serving.obs.metrics.Registry` and
+event :class:`~repro_torch.serving.obs.tracing.Tracer`.
 
 Lifecycle::
 

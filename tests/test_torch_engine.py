@@ -126,7 +126,6 @@ def test_continuous_matches_own_static_engine(backend):
 def test_engine_raises_for_unported_parts():
     _, tc = _configs("llama31-8b", "socket_fused")
     cases = [
-        (tc, dict(obs=object()), "item 9"),
         (tc.replace(pattern=(LayerSpec(kind="mamba", mlp="none"),)), {},
          "item 7"),
         (tc.replace(pattern=(LayerSpec(attn_type="local", mlp="moe"),)), {},

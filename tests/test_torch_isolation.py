@@ -58,6 +58,13 @@ def test_port_imports_no_jax_and_no_repro():
     for name in ("repro_torch.serving.engine", "repro_torch.serving.paged",
                  "repro_torch.serving.scheduler",
                  "repro_torch.serving.obs.metrics",
+                 "repro_torch.serving.obs.events",
+                 "repro_torch.serving.obs.tracing",
+                 "repro_torch.serving.obs.perfetto",
+                 "repro_torch.serving.obs.probe",
+                 "repro_torch.serving.obs.profiling",
+                 "repro_torch.serving.obs.validate",
+                 "repro_torch.models.backends.probe",
                  "repro_torch.kernels.paged_attention.ops",
                  "repro_torch.kernels.paged_attention.cases",
                  "repro_torch.baselines.quest",

@@ -368,3 +368,76 @@ def test_equal_rows_check_reports_then_fails(capsys):
         assert f"rank {r}'s tables: equal to rank 0's True, to each set's " \
                "owner's True" in out
     assert "card: " in out
+
+
+# ------------------------------------------------ observability phase
+
+
+def _observed_run(tmp_path, every=2):
+    """An observed socket_fused run at smoke width: trace, the probe
+    every ``every`` iterations, a 3-iteration profiler window from 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import apply_backend_arg
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.obs import Observability
+    cfg = apply_backend_arg(get_config("llama31-8b").smoke(), "socket_fused")
+    obs = Observability(probe_every=every, profile_dir=str(tmp_path),
+                        profile_steps=3, profile_start_step=2)
+    engine = ContinuousBatchingEngine(cfg, device="cpu", obs=obs)
+    gen = torch.Generator().manual_seed(4)
+    reqs = [Request(prompt=torch.randint(0, 256, (n,), generator=gen)
+                    .tolist(), max_new_tokens=5) for n in (9, 20, 30)]
+    m = engine.run(reqs, realtime=False)
+    return cfg, obs, reqs, m
+
+
+def test_observability_checks_pass_an_observed_run(tmp_path):
+    """Phase 5c's trace and probe checks pass a CPU run, and the window's
+    steps are the profiler's iterations."""
+    cs = _chip_smoke()
+    cfg, obs, reqs, m = _observed_run(tmp_path)
+    evs = obs.tracer.events
+    cs.trace_check("cpu", evs, reqs, m.decode_iters)
+    cs.probe_rows_check("cpu", obs.probe.rows, evs, cfg.num_layers, 2)
+    assert [e["iter"] for e in cs.window_steps(evs)] == [2, 3, 4]
+
+
+def test_observability_checks_catch_faults(tmp_path):
+    cs = _chip_smoke()
+    cfg, obs, reqs, m = _observed_run(tmp_path)
+    evs, rows = obs.tracer.events, obs.probe.rows
+    with pytest.raises(AssertionError, match="first_token"):
+        cs.trace_check("cpu", [e for e in evs if e["ev"] != "first_token"],
+                       reqs, m.decode_iters)
+    with pytest.raises(AssertionError, match="number"):
+        cs.trace_check("cpu", evs, reqs, m.decode_iters + 1)
+    with pytest.raises(AssertionError, match="probed layers"):
+        cs.probe_rows_check("cpu", rows[1:], evs, cfg.num_layers, 2)
+    with pytest.raises(AssertionError, match="probed iterations"):
+        cs.probe_rows_check("cpu", rows, evs, cfg.num_layers, 4)
+    bad = [dict(rows[0], recall=1.5)] + rows[1:]
+    with pytest.raises(AssertionError, match="out of range"):
+        cs.probe_rows_check("cpu", bad, evs, cfg.num_layers, 2)
+    with pytest.raises(AssertionError, match="profile_start"):
+        cs.window_steps([e for e in evs if e["ev"] != "profile_stop"])
+
+
+def test_profiled_kernel_events_counts_device_kernels():
+    """On a canned Chrome trace: device kernel events whose demangled or
+    mangled name holds the kernel's; CPU ops and launches of that name,
+    and other kernels, are not counted."""
+    cs = _chip_smoke()
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel",
+         "name": "void paged_socket_kernel<(Mode)0, float, 4>(float const*)"},
+        {"ph": "X", "cat": "kernel",
+         "name": "_Z19paged_socket_kernelIL4Mode0EfLi4EEvPKf"},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernelExC",
+         "args": {"kernel": "paged_socket_kernel"}},
+        {"ph": "X", "cat": "cpu_op", "name": "paged_socket_kernel"},
+        {"ph": "X", "cat": "kernel", "name": "void paged_quest_kernel<float>"},
+        {"ph": "i", "name": "decode"}]}
+    assert cs.profiled_kernel_events(trace, "paged_socket_kernel") == 2
+    assert cs.profiled_kernel_events(trace, "paged_ring_kernel") == 0
+    assert cs.profiled_kernel_events({}, "paged_socket_kernel") == 0

@@ -44,9 +44,13 @@ Phases, in order; the first failure raises and the script exits non-zero:
               timed as entries ``name[int8]``, ``name[fp8]``.  SOCKET,
               hard LSH and Quest also run, on every pool, the cases of the
               cluster split (32K contexts, selected ties across ranks, idle
-              ranks and, but for Quest, pooled selection), every case
-              logged with the split it ran (C, clusters the card holds at
-              once, shared memory a CTA, K/V stages); the tie case must
+              ranks and, but for Quest, pooled selection) and the head
+              dims of the all-global architectures (gemma-7b's hd 256 at
+              KVH 16, G 1; stablelm's hd 160 at G 4; the gemma-7b case
+              also timed on f32 pages, entry ``gemma7b`` of the kernel's
+              row), every case logged with the split it ran (C, clusters
+              the card holds at once, shared memory a CTA, K/V stages and
+              the rows a stage holds); the tie case must
               put selected ties on two ranks or more (Quest's must also
               leave a tied page out), the idle case leave a rank idle, and
               Quest's main path run on two ranks or more.  The ring
@@ -134,10 +138,12 @@ Phases, in order; the first failure raises and the script exits non-zero:
               kernel's selection there, and the swapped rows are logged;
               a difference outside the band fails.  Each run's pool
               and snapshot are freed before the next.  Each backend then
-              runs again, the same weights and traffic, on int8 and on fp8
-              K/V pages (``serving.kv_dtype``), with the same gates; the
-              K/V bytes a block id holds and the greedy tokens' agreement
-              with the f32 run are logged (a number, not a gate).
+              runs again, the same traffic, on int8 and on fp8 K/V pages
+              (``serving.kv_dtype``) with the depth cut to the first
+              ``QUANT_DEPTH`` (8) of the 32 layers (the script's time
+              limit; gemma-7b's phase 5d runs quantized pages at full
+              depth), with the same gates; the K/V bytes a block id holds
+              are logged.
 5a. prefix — the prefix cache on the same weights: 8 requests of
               ``rag_prompts`` (``launch/serve.py::card_prefix_case``),
               prompts of 3072 tokens sharing a 2300-token template (not a
@@ -195,7 +201,30 @@ Phases, in order; the first failure raises and the script exits non-zero:
               recall, budget utilization and forced share per backend
               (random fp32 weights), the probe's host ms, the traced run's
               wall against phase 5's and the trace's size are logged.
-6. gemma3-continuous — after llama31-8b's weights are freed, gemma3-27b
+5d. all-global — after llama31-8b's weights are freed (and its legacy
+              run, phase 7, is done), gemma-7b (MHA: 16 KV heads, G 1, hd
+              256, geglu, vocab 256000; 9.32 B parameters) at full width
+              and depth through the static path of phase 4 with its gates
+              (``STATIC_CASES``: batch 2, a 4096-token prompt, 16 greedy
+              steps; at G 1 the wrong head order the prefill gate must
+              catch reads the next head's K/V); then through the
+              continuous engine with phase 5's traffic and gates
+              (``socket_fused``, ``hard_lsh_fused`` and ``quest_fused`` on
+              f32 pages; then ``socket_fused`` on bf16, int8 and fp8
+              pages; 1536 blocks each); the resident requests
+              each page dtype fits in the bf16 pool's byte budget are
+              logged and int8 must hold ``RESIDENCY_BAR`` (1.8) x bf16's;
+              each run's greedy tokens' agreement with the bf16 run is
+              logged (a number).  Then minitron-8b (9.88 B parameters) at
+              full width and depth, ``socket_fused`` on f32 pages.  Every
+              continuous run (of every phase) also holds the bytes a block
+              id takes in the engine's pool to
+              ``serving.paged.pool_block_bytes``, and its kernel-vs-plain
+              check copies only the blocks the captured batch reads
+              (``compact_pool``: gemma-7b's f32 pool, 23.5 GB, and a
+              clone of it do not fit beside its 37.3 GB of weights).
+              Seconds and peak memory are logged per run.
+6. gemma3-continuous — after the all-global phase, gemma3-27b
               at full width (d_model 5376, 32/16 heads, d_ff 21504, vocab
               262144, window 1024) with its depth cut to 2 groups: 14 of
               its 62 layers, 12 local and 2 global (all 62 do not fit the
@@ -288,6 +317,11 @@ BF16_FLOP_PER_S = 989e12
 # (serving.kv_dtype); int8 and fp8 also get timed entries and main-path
 # runs
 QUANT_KV_DTYPES = ("bf16", "int8", "fp8")
+# llama31-8b's continuous runs on int8 and fp8 pages take its first 8 of
+# 32 layers: with gemma-7b's phase (5d, at full depth on bf16, int8 and
+# fp8 pages too) the script must stay well inside its time limit on a
+# slow host
+QUANT_DEPTH = 8
 TIMED_ITERS = 50
 GRAPH_REPLAYS = 4
 L2_BYTES = 50 * 2 ** 20
@@ -553,6 +587,25 @@ def socket_score_row(ss, ref_fn, dev, gen, name, kw, args, bits, u, vn,
         back_to_back_ms=back_to_back_ms(kernel, sets))
 
 
+# the label of each kernel's case at gemma-7b's shapes (its static path's
+# for socket_score, flash_decode and flash_prefill; its continuous
+# lengths for the paged kernels), timed into entry ``gemma7b`` of the
+# kernel's row
+GEMMA7B_TIMED = "gemma-7b hd 256, G 1"
+
+
+def gemma7b_entry(label, row) -> dict:
+    """Entry ``gemma7b`` of a kernel's row: the case, its error and its
+    times beside its bound (the row's name, route and sources are the
+    kernel's)."""
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "back_to_back_ms", "bound_f32_ms")
+    log(f"{label} timed: kernel {row['ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}), plain "
+        f"{row['plain_ms']:.4f}")
+    return dict(case=label, **{k: row[k] for k in keep if k in row})
+
+
 def host_us(fn, input_sets, calls=TIMED_ITERS) -> float:
     """Host microseconds a call of ``fn``: ``calls`` calls issued one after
     the other with no synchronize between them (the host's cost to issue
@@ -636,7 +689,7 @@ def flash_decode_rows(dev, gen):
         log(f"flash_decode [{label}] BH={kw['bh']} K={kw['k']} G={kw['g']} "
             f"hd={kw['hd']} {str(kw['dtype'])[6:]}: max|err| {err:.3e} "
             f"(rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); {note}")
-        if label == "main path":
+        if label in ("main path", GEMMA7B_TIMED):
             bh, k, g, hd = kw["bh"], kw["k"], kw["g"], kw["hd"]
             sets = [cases.card_case(gen, **kw)
                     for _ in range(rotations(2 * bh * k * hd * 4))]
@@ -654,6 +707,13 @@ def flash_decode_rows(dev, gen):
                                         attn_mask=m[:, None, None, :],
                                         scale=scale), sets)
             bms, by = bound(nbytes, flops)
+            if label == GEMMA7B_TIMED:
+                # the main case's row comes first in CARD_CASES
+                rows["flash_decode"]["gemma7b"] = gemma7b_entry(label, dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms,
+                    back_to_back_ms=back_to_back_ms(kernel, sets)))
+                continue
             rows["flash_decode"] = dict(
                 name="flash_decode", route="cuda",
                 source="src/repro_torch/kernels/flash_decode/flash_decode.cu",
@@ -717,6 +777,9 @@ def phase_kernels(dev, seed):
                                      int8=False, vnorm=True)),
         ("chunked sign-add P=24 L=600", dict(bh=2, n=300, g=G, l=600, p=24,
                                              int8=False, vnorm=False)),
+        # gemma-7b's static path: batch 2 x 16 KV heads, 4112 rows, G 1
+        (GEMMA7B_TIMED, dict(bh=32, n=4112, g=1, l=L, p=P, int8=False,
+                             vnorm=False)),
     ]
     for label, kw in score_cases:
         bits, u, vn = socket_score_case(dev, gen, **kw)
@@ -734,6 +797,11 @@ def phase_kernels(dev, seed):
             name = "socket_score" + ("[int8]" if kw["int8"] else "")
             rows[name] = socket_score_row(ss, socket_score_ref, dev, gen,
                                           name, kw, args, bits, u, vn, err)
+        if label == GEMMA7B_TIMED:
+            rows["socket_score"]["gemma7b"] = gemma7b_entry(
+                label, socket_score_row(ss, socket_score_ref, dev, gen,
+                                        "socket_score", kw, args, bits, u,
+                                        vn, err))
 
     rows.update(flash_decode_rows(dev, gen))
     rows.update(flash_prefill_rows(dev, seed))
@@ -752,7 +820,8 @@ PREFILL_CASES = [
     ("gemma3 local, window 1024", 32, 16, 4096, 128, 1024, 0.0,
      torch.float32),
     ("stablelm hd 160, G 4", 32, 8, 2048, 160, 0, 0.0, torch.float32),
-    ("gemma-7b hd 256, G 1", 16, 16, 2048, 256, 0, 0.0, torch.float32),
+    # gemma-7b's static prefill: batch 2 x 16 heads, MHA
+    ("gemma-7b hd 256, G 1", 32, 32, 4096, 256, 0, 0.0, torch.float32),
     ("bf16 inputs", 64, 16, 2048, 128, 0, 0.0, torch.bfloat16),
     ("ragged S 4100", 32, 8, 4100, 128, 0, 0.0, torch.float32),
     ("softcap 2, window 512", 32, 16, 2048, 128, 512, 2.0, torch.float32),
@@ -857,7 +926,8 @@ def flash_prefill_rows(dev, seed):
             f"{window} softcap {cap} {str(dtype)[6:]}: max|err| {err:.3e} "
             f"(atol {PREFILL_TOL['atol']}); bound {bms:.3f} ms ({by})")
         del out
-        if not label.startswith(("main path", "gemma3 local")):
+        if not label.startswith(("main path", "gemma3 local",
+                                 GEMMA7B_TIMED)):
             continue
         sets = [case] + [inputs(bh, bkv, s, hd, dtype)
                          for _ in range(rotations(nbytes) - 1)]
@@ -908,6 +978,12 @@ def flash_prefill_rows(dev, seed):
             f"{flops / TF32_FLOP_PER_S * 1e3:.3f}, bf16 "
             f"{flops / BF16_FLOP_PER_S * 1e3:.3f} ms; f32 outside them "
             f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms)")
+        if label == GEMMA7B_TIMED:
+            rows["flash_prefill"]["gemma7b"] = gemma7b_entry(label, dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms,
+                bound_f32_ms=flops / FP32_FLOP_PER_S * 1e3,
+                back_to_back_ms=b2b))
         if label.startswith("main path"):
             rows["flash_prefill"] = dict(
                 name="flash_prefill", route="cuda",
@@ -945,9 +1021,19 @@ _CLUSTER_CASES = [
     ("idle ranks", dict(lengths=[5, 4096, 17, 1000], nb=264)),
     ("pooled GS 1", dict(lengths=MAIN_LENS, nb=264, pooled=True)),
 ]
+# the head dims of the all-global architectures the continuous phases
+# serve besides llama31-8b's hd 128: gemma-7b (MHA, KVH 16, G 1, hd 256;
+# its continuous lengths are MAIN_LENS) and stablelm-12b (G 4, hd 160).
+# The kernels size their K/V chunk stages by hd (25 rows a chunk at hd 160
+# on f32 pages: no multiple of the 16-row page).
+_HEAD_DIM_CASES = [
+    (GEMMA7B_TIMED, dict(lengths=MAIN_LENS, nb=264, kvh=16, g=1, hd=256)),
+    ("stablelm hd 160, G 4", dict(lengths=MAIN_LENS, nb=264, kvh=8, g=4,
+                                  hd=160)),
+]
 # the cases also run on stored pools (bf16, int8, fp8)
-STORED_CASES = ("main path", "tie-heavy") + tuple(c[0] for c in
-                                                  _CLUSTER_CASES)
+STORED_CASES = ("main path", "tie-heavy") + tuple(
+    c[0] for c in _CLUSTER_CASES + _HEAD_DIM_CASES)
 PAGED_CASES = {
     "paged_attention": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -962,6 +1048,7 @@ PAGED_CASES = {
          dict(lengths=[2080, 3104, 4128, 6176, 2079, 3103, 4127, 6175],
               nb=392, kvh=16, g=2)),
         *_CLUSTER_CASES,
+        *_HEAD_DIM_CASES,
     ],
     "paged_hard_lsh": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -972,6 +1059,7 @@ PAGED_CASES = {
         ("l=37 unaligned tables", dict(lengths=[33, 600, 1500, 57], nb=96,
                                        l=37, sink=16, window=16)),
         *_CLUSTER_CASES,
+        *_HEAD_DIM_CASES,
     ],
     "paged_quest": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -988,6 +1076,7 @@ PAGED_CASES = {
                                    sink=16, window=16, ties=True,
                                    sparsity=2.0)),
         _CLUSTER_CASES[2],
+        *_HEAD_DIM_CASES,
     ],
 }
 
@@ -1140,8 +1229,10 @@ def cluster_note(name, label, case, args, sel) -> str:
         plan = pa.paged_attention_plan(q, kp, case[3], case[5], bt,
                                        hard=name == "paged_hard_lsh")
     c, bs = plan["cluster"], kp.shape[2]
-    note = (f"C {c} ({plan['clusters_at_once']} clusters at once), "
-            f"{plan['smem_bytes']} B a CTA, {plan['stages']} K/V stages")
+    note = (f"KVH {q.shape[1]} G {q.shape[2]} hd {q.shape[3]}: C {c} "
+            f"({plan['clusters_at_once']} clusters at once), "
+            f"{plan['smem_bytes']} B a CTA, {plan['stages']} K/V stages of "
+            f"{plan['chunk_rows']} rows")
     if quest and label.startswith("main path") and c < 2:
         raise AssertionError("paged_quest: the main path ran on one rank a "
                              "(request, head), not a cluster")
@@ -1215,7 +1306,9 @@ def paged_rows(dev, seed, kv_dtype="auto"):
                 f"max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
                 f"{ATTN_TOL['atol']}); {note}")
             del out32, sel32
-            if not label.startswith("main path") or kv_dtype == "bf16":
+            hd_timed = label == GEMMA7B_TIMED and kv_dtype == "auto"
+            if not (label.startswith("main path") or hd_timed) or \
+                    kv_dtype == "bf16":
                 continue
             row_b = kv_row_bytes(sets[0], scales)
             nbytes, flops, touched = cost(sets[0], args, sel, row_b)
@@ -1228,6 +1321,14 @@ def paged_rows(dev, seed, kv_dtype="auto"):
                                       sets[:2])
             bms, by = bound(nbytes, flops)
             key = name if kv_dtype == "auto" else f"{name}[{kv_dtype}]"
+            if hd_timed:
+                # the main case's row comes first in PAGED_CASES
+                rows[key]["gemma7b"] = gemma7b_entry(label, dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    back_to_back_ms=back_to_back_ms(kernel, sets)))
+                del sets
+                continue
             rows[key] = dict(
                 name=key, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -1420,11 +1521,13 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
                    kernel_vs_f64=(out - exact).abs().max().item(),
                    plain_vs_f64=(plain - exact).abs().max().item())
         del plain
-        # two faults a kernel could have: K/V row bh % BKV for bh // G (a
-        # head order G = 1 cannot tell apart), and one key too many (each
-        # query also sees the next: the mask shifted by one)
+        # two faults a kernel could have: K/V row bh % BKV for bh // G (at
+        # G 1, where the two agree: K/V row bh + 1, the next head's), and
+        # one key too many (each query also sees the next: the mask
+        # shifted by one)
         g = q.shape[0] // k.shape[0]
-        wrong = plain_op(q, k.repeat(g, 1, 1), v.repeat(g, 1, 1), **kw)
+        wrong = plain_op(q, *((k.repeat(g, 1, 1), v.repeat(g, 1, 1)) if g > 1
+                              else (k.roll(-1, 0), v.roll(-1, 0))), **kw)
         row["head_order_ratio"] = tol_ratio(wrong, exact)
         ahead = torch.cat([q[:, :1], q[:, :-1]], dim=1)
         wrong = plain_op(ahead, k, v, **kw)[:, 1:]
@@ -1547,7 +1650,14 @@ def prefill_socket_checks(cfg, params, prompt, ck, cp):
     return dict(prefill_bit_flips=flips, prefill_bits_near_zero=band)
 
 
-def phase_main(dev, seed, card):
+# arch -> (batch, prompt length, greedy decode steps) of the static path:
+# llama31-8b (phase 4) and gemma-7b, MHA at hd 256 (phase 5d)
+STATIC_CASES = {"llama31-8b": (2, 8192, 32), "gemma-7b": (2, 4096, 16)}
+
+
+def phase_main(dev, seed, card, arch="llama31-8b"):
+    """The static path of ``arch`` at full width and depth (see the
+    module docstring, phases 4 and 5d); returns (launches, the weights)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_prefill import ops as fp
@@ -1556,7 +1666,7 @@ def phase_main(dev, seed, card):
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.steps import make_serve_step
 
-    arch, batch, prompt_len, steps = "llama31-8b", 2, 8192, 32
+    batch, prompt_len, steps = STATIC_CASES[arch]
     cfg = apply_backend_arg(get_config(arch), "socket").replace(
         attn_q_chunk=512)
     t0 = time.perf_counter()
@@ -1884,15 +1994,52 @@ def kv_block_bytes(pages):
     return stored, auto
 
 
+def compact_pool(pages, bt):
+    """A copy of the blocks of the pool ``pages`` that the block tables
+    ``bt`` (trash-padded) name, the trash block 0 first, and ``bt``
+    renumbered onto it: a decode step over the copy computes what it
+    would over the pool, for the bytes of the batch's blocks alone (the
+    pool of gemma-7b's f32 case, 23.5 GB, and a clone of it do not fit
+    beside its 37.3 GB of weights)."""
+    from repro_torch.serving.paged import raw_view
+    ids = torch.unique(torch.cat([torch.zeros(1, dtype=bt.dtype,
+                                              device=bt.device),
+                                  bt.flatten()]))
+    renumber = torch.zeros(pages[0]["k"].shape[0], dtype=bt.dtype,
+                           device=bt.device)
+    renumber[ids.long()] = torch.arange(len(ids), dtype=bt.dtype,
+                                        device=bt.device)
+    copy = [{k: raw_view(v)[ids.long()].view(v.dtype)
+             for k, v in layer.items()} for layer in pages]
+    return copy, renumber[bt.long()]
+
+
+def pool_block_bytes_check(cfg, pages) -> int:
+    """The bytes one block id holds in every leaf of the engine's pool
+    ``pages``, which must equal ``serving.paged.pool_block_bytes``'s
+    ``per_block_id`` (the accounting the serving benchmark reads)."""
+    from repro_torch.serving.paged import pool_block_bytes
+    held = sum(leaf[0].numel() * leaf.element_size()
+               for layer in pages for leaf in layer.values())
+    want = pool_block_bytes(cfg)["per_block_id"]
+    if held != want:
+        raise AssertionError(f"a block id holds {held} B in the pool, "
+                             f"pool_block_bytes reckons {want}")
+    return held
+
+
 def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
-                     kv_dtype="auto", ref_tokens=None, legacy=False):
+                     kv_dtype="auto", ref_tokens=None, legacy=False,
+                     num_groups=None):
     """One continuous run of ``arch`` with ``backend`` on K/V pages stored
     as ``kv_dtype`` (see the module docstring, phases 5 to 7), on the
     card case's weights ``params``; ``legacy``: whole-prompt bucketed
-    prefill.  ``ref_tokens``: (label, the generated tokens of another run
-    of the same case), whose agreement with this run's is logged (a
-    number, not a gate).  Returns (the launches of the kernels the run is
-    read for, the generated tokens, the run's wall seconds)."""
+    prefill; ``num_groups``: the depth cut to that many groups, on the
+    first layers of ``params``.  ``ref_tokens``: (label, the generated
+    tokens of another run of the same case), whose agreement with this
+    run's is logged (a number, not a gate).  Returns (the launches of
+    the kernels the run is read for, the generated tokens, the run's
+    wall seconds)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import card_continuous_case
@@ -1904,6 +2051,9 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     full = get_config(arch)
     cfg, reqs = card_continuous_case(full, seed, new_tokens, backend,
                                      kv_dtype, legacy=legacy)
+    if num_groups is not None:
+        cfg = cfg.replace(num_groups=num_groups)
+        params = dict(params, layers=params["layers"][:cfg.num_layers])
     sv = cfg.serving
     kinds = [s.attn_type for s in cfg.layer_specs]
     # kernel -> layers it runs on
@@ -1914,9 +2064,11 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         layers["flash_prefill"] = cfg.num_layers
     engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
     block_bytes, block_bytes_auto = kv_block_bytes(engine.pages)
-    # the widest decode batch of the run, captured with a clone of the
-    # pool for the kernel-vs-plain check below (never an iteration whose
-    # next decode opens a block: every write then lands in a real page)
+    pool_bytes = pool_block_bytes_check(cfg, engine.pages)
+    # the widest decode batch of the run, captured with a copy of the
+    # pool's blocks it reads for the kernel-vs-plain check below (never
+    # an iteration whose next decode opens a block: every write then
+    # lands in a real page)
     snap = {}
 
     def hook(eng, it):
@@ -1926,10 +2078,11 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
                 r.done or len(r.blocks) * sv.block_size <= r.pos
                 for r in running):
             return
+        snap.pop("pages", None)          # the last capture's, before this
+        tokens, bt, pos = eng._batch_inputs(running)
+        pages, bt = compact_pool(eng.pages, bt)
         snap.update(reqs=[r.rid for r in running], iteration=it,
-                    inputs=eng._batch_inputs(running),
-                    pages=[{k: v.clone() for k, v in layer.items()}
-                           for layer in eng.pages])
+                    inputs=(tokens, bt, pos), pages=pages)
 
     engine.iter_hook = hook
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1982,7 +2135,9 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         report.update({
             f"tokens_equal_to_{label}": f"{int(same.sum())}/{same.size}",
             f"identical_prefix_with_{label}": [int(np.cumprod(row).sum())
-                                               for row in same]})
+                                               for row in same],
+            f"first_parting_with_{label}": first_parting(generated,
+                                                         tokens)})
     if legacy:
         per_bucket = {}
         for _, _, bucket, secs in engine.prefill_trace:
@@ -2000,6 +2155,7 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         "prefill": "whole-prompt buckets" if legacy else "chunked",
         "kv_bytes_per_block_id": block_bytes,
         "kv_bytes_per_block_id_auto": block_bytes_auto,
+        "pool_bytes_per_block_id": pool_bytes,
         "use_ring_kernel": cfg.use_ring_kernel,
         "layers": cfg.num_layers, "reduced": (
             None if cfg.num_groups == full.num_groups else
@@ -2588,6 +2744,122 @@ def phase_sampling(dev, seed, card, params) -> dict:
             for label, r in runs.items()}
 
 
+# ------------------------------------------- all-global architectures
+
+# int8 pages must hold this many times bf16's resident requests in the
+# bf16 pool's byte budget (the serving benchmark's bar for quantized
+# pages, benchmarks/bench_serving.py)
+RESIDENCY_BAR = 1.8
+GEMMA7B_RUNS = (("socket_fused", "auto"), ("hard_lsh_fused", "auto"),
+                ("quest_fused", "auto"), ("socket_fused", "bf16"),
+                ("socket_fused", "int8"), ("socket_fused", "fp8"))
+
+
+def residency(block_bytes, pool_blocks, blocks_per_request) -> dict:
+    """Requests of ``blocks_per_request`` blocks each that the byte
+    budget of a ``pool_blocks``-block pool of bf16 pages holds when the
+    pages are stored as each dtype of ``block_bytes`` (dtype -> bytes a
+    block id)."""
+    budget = pool_blocks * block_bytes["bf16"]
+    return {k: int(budget // (blocks_per_request * v))
+            for k, v in block_bytes.items()}
+
+
+def residency_check(resident) -> float:
+    """int8 pages must hold ``RESIDENCY_BAR`` x the resident requests of
+    bf16 pages (:func:`residency`); returns the ratio."""
+    ratio = resident["int8"] / resident["bf16"]
+    if resident["int8"] < RESIDENCY_BAR * resident["bf16"]:
+        raise AssertionError(
+            f"int8 pages hold {resident['int8']} resident requests in the "
+            f"bf16 pool's byte budget against {resident['bf16']} at bf16: "
+            f"{ratio:.3f}x, below the {RESIDENCY_BAR}x bar")
+    return ratio
+
+
+def gemma7b_residency(seed, new_tokens=32) -> dict:
+    """The residency of gemma-7b's continuous card case (its 1536-block
+    pool of bf16 pages, requests of the case's mean context) at each page
+    dtype, from ``pool_block_bytes``; logged, int8 held to the bar."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import card_continuous_case
+    from repro_torch.serving.paged import pool_block_bytes
+    block_bytes, pool_blocks, per_req = {}, None, None
+    for kv_dtype in ("auto",) + QUANT_KV_DTYPES:
+        cfg, reqs = card_continuous_case(get_config("gemma-7b"), seed,
+                                         new_tokens, kv_dtype=kv_dtype)
+        block_bytes[kv_dtype] = pool_block_bytes(cfg)["per_block_id"]
+        pool_blocks = cfg.serving.num_blocks
+        mean_ctx = np.mean([len(r.prompt) for r in reqs]) + new_tokens
+        per_req = -(-int(mean_ctx) // cfg.serving.block_size)
+    resident = residency(block_bytes, pool_blocks, per_req)
+    ratio = residency_check(resident)
+    log(json.dumps({"gemma7b_residency": resident,
+                    "pool_bytes_per_block_id": block_bytes,
+                    "bf16_pool_blocks": pool_blocks,
+                    "blocks_per_request": per_req,
+                    "int8_over_bf16": ratio, "bar": RESIDENCY_BAR}))
+    return resident
+
+
+@contextlib.contextmanager
+def phase_clock(label, dev):
+    """Logs the seconds and the peak device memory of the phase run in
+    its body."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    log(f"{label}: {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB allocated")
+
+
+def phase_all_global(dev, seed, card) -> dict:
+    """Phase 5d (see the module docstring): gemma-7b through the static
+    path, then its continuous runs (three fused backends on f32 pages,
+    ``socket_fused`` on bf16, int8 and fp8), then minitron-8b's; each
+    architecture's weights freed after it.  Returns the runs' launches,
+    named ``kernel[arch ...]``."""
+    launches = {}
+    with phase_clock("gemma-7b static phase", dev):
+        counts, params = phase_main(dev, seed, card, "gemma-7b")
+    launches.update({f"{k}[gemma-7b static]": v for k, v in counts.items()})
+    gemma7b_residency(seed)
+    tokens = {}
+    for backend, kv_dtype in GEMMA7B_RUNS:
+        label = f"gemma-7b {backend}, {kv_dtype}"
+        with phase_clock(f"continuous phase ({label})", dev):
+            counts, tokens[backend, kv_dtype], _ = phase_continuous(
+                dev, seed, card, params, backend, arch="gemma-7b",
+                kv_dtype=kv_dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches.update({f"{k}[gemma-7b {kv_dtype}]": v
+                         for k, v in counts.items()})
+    ref = tokens["socket_fused", "bf16"]
+    for (backend, kv_dtype), toks in tokens.items():
+        same = sum(a == b for x, y in zip(toks, ref) for a, b in zip(x, y))
+        log(f"gemma-7b {backend} on {kv_dtype} pages, greedy tokens equal "
+            f"to socket_fused on bf16 pages: {same}/{32 * len(ref)} (first "
+            f"parting {first_parting(toks, ref)}; a number, not a gate)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = draw_params(dev, seed, "minitron-8b")
+    with phase_clock("continuous phase (minitron-8b socket_fused, auto)",
+                     dev):
+        counts, _, _ = phase_continuous(dev, seed, card, params,
+                                        "socket_fused", arch="minitron-8b")
+    launches.update({f"{k}[minitron-8b auto]": v for k, v in counts.items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"all_global_launches": launches}))
+    return launches
+
+
 def legacy_phase(dev, seed, card, params, arch, chunked, launches):
     """Phase 7 for ``arch``: the legacy whole-prompt prefill run, its
     tokens compared with the chunked f32 run's (``chunked[arch]``); its
@@ -2626,7 +2898,8 @@ def main(argv=None) -> int:
     launches, params = phase_main(dev, args.seed, card)
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
     # the continuous runs: each fused backend on f32 pages, then on int8
-    # and fp8 pages (entries name[int8], name[fp8]) on the same weights
+    # and fp8 pages (entries name[int8], name[fp8]) on the same weights,
+    # those at QUANT_DEPTH layers
     chunked = {}                # arch -> socket_fused f32 run's tokens
     f32_runs = {}               # backend -> its f32 run's (tokens, wall s)
     for backend in FUSED:
@@ -2635,7 +2908,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             counts, tokens, wall_s = phase_continuous(
                 dev, args.seed, card, params, backend, kv_dtype=kv_dtype,
-                ref_tokens=auto and ("auto", auto))
+                num_groups=None if kv_dtype == "auto" else QUANT_DEPTH)
             if auto is None:
                 f32_runs[backend] = (tokens, wall_s)
             auto = auto or tokens
@@ -2668,6 +2941,9 @@ def main(argv=None) -> int:
     del params                                  # llama31-8b's 32 GB
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches.update(phase_all_global(dev, args.seed, card))
+    log(f"all-global phase: {time.perf_counter() - t0:.1f} s")
     params = draw_params(dev, args.seed, "gemma3-27b")
     auto = None
     for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:

@@ -243,7 +243,8 @@ def plan_info(lib, case, kw) -> list:
     from repro_torch.kernels.paged_attention.ops import KV_TYPES
     q, kp, bt = case[0], case[1], case[5]
     b, kvh, g, hd = q.shape
-    info = (ctypes.c_int * 4)()
+    # the current source also writes info[4] (rows a chunk)
+    info = (ctypes.c_int * 5)()
     lib.paged_quest_attend_plan.argtypes = [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     err = lib.paged_quest_attend_plan(KV_TYPES[kp.dtype], b, kvh, g, hd,
@@ -251,7 +252,7 @@ def plan_info(lib, case, kw) -> list:
                                       bt.shape[1], info)
     if err:
         raise RuntimeError(f"plan error {err}")
-    return list(info)
+    return list(info)[:4]
 
 
 def measure(results: dict, built: list) -> None:

@@ -355,7 +355,8 @@ def plan_info(lib, hard: bool, case, kw) -> list:
     from repro_torch.kernels.paged_attention.ops import KV_TYPES
     q, kp, bits, u, bt = case[0], case[1], case[3], case[5], case[6]
     b, kvh, g, hd = q.shape
-    info = (ctypes.c_int * 4)()
+    # the current source also writes info[4] (rows a chunk)
+    info = (ctypes.c_int * 5)()
     lib.paged_socket_attend_plan.argtypes = [ctypes.c_int] * 12 + \
         [ctypes.c_void_p]
     err = lib.paged_socket_attend_plan(
@@ -364,7 +365,7 @@ def plan_info(lib, hard: bool, case, kw) -> list:
         kw["num_planes"], info)
     if err:
         raise RuntimeError(f"plan error {err}")
-    return list(info)
+    return list(info)[:4]
 
 
 PHASES = ["tables+q", "score", "select", "attend", "merge"]

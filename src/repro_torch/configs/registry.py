@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-The port serves the all-global-attention decoders of the SOCKET static
-path and gemma3's 5:1 sliding-window (local) : global layout.  The JAX
+The port serves the all-global-attention decoders (llama31-8b, the
+paper's eval model; stablelm-12b; minitron-8b; gemma-7b, MHA at head dim
+256) and gemma3's 5:1 sliding-window (local) : global layout.  The JAX
 package's other architectures need layers that later slices bring;
 asking for one raises :class:`NotImplementedError` naming that slice.
 """
@@ -12,6 +13,8 @@ from typing import Dict
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3_27B
+from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
+from repro_torch.configs.minitron_8b import CONFIG as MINITRON_8B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 
 # The paper evaluates SOCKET on Llama-3.1-8B-Instruct; this reference
@@ -37,13 +40,13 @@ ARCHITECTURES: Dict[str, ModelConfig] = {
     "stablelm-12b": STABLELM_12B,
     "llama31-8b": LLAMA31_8B,
     "gemma3-27b": GEMMA3_27B,
+    "minitron-8b": MINITRON_8B,
+    "gemma-7b": GEMMA_7B,
 }
 
 # Architectures of the JAX package that the port does not build yet, with
 # the later slice (ROADMAP.md queue 1) that brings what each needs.
 LATER: Dict[str, str] = {
-    "minitron-8b": "ROADMAP.md queue 1 item 12 (further all-global configs)",
-    "gemma-7b": "ROADMAP.md queue 1 item 12 (further all-global configs)",
     "mixtral-8x22b": "ROADMAP.md queue 1 item 7 (MoE layers)",
     "llama4-maverick-400b-a17b": "ROADMAP.md queue 1 item 7 (MoE layers)",
     "jamba-v0.1-52b": "ROADMAP.md queue 1 item 7 (Mamba and MoE layers)",

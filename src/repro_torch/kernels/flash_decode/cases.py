@@ -37,8 +37,9 @@ CARD_CASES = [
                                  dtype=torch.bfloat16, dead_row=0)),
     # batch 1: 8 rows, split over more ranks
     ("B 1", dict(bh=8, k=823, g=4, hd=128, dtype=torch.float32)),
-    # gemma-7b: 16 KV heads of hd 256, one query head each
-    ("gemma-7b hd 256, G 1", dict(bh=32, k=823, g=1, hd=256,
+    # gemma-7b's static path (batch 2, 4112 rows): 16 KV heads of hd 256,
+    # one query head each, budget 412
+    ("gemma-7b hd 256, G 1", dict(bh=32, k=412, g=1, hd=256,
                                   dtype=torch.float32)),
     # mixtral 8x22b: 48 query heads over 8 KV heads
     ("mixtral G 6", dict(bh=16, k=823, g=6, hd=128, dtype=torch.float32)),

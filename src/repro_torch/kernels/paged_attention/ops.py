@@ -92,7 +92,7 @@ def paged_attention_plan(q, k_pages, bits_pages, qhash, block_table, *,
     b, kvh, g, hd = q.shape
     bs, w = bits_pages.shape[2:]
     gs, l, p = qhash.shape[2:]
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 5)()
     with torch.cuda.device(q.device):
         err = _library().paged_socket_attend_plan(
             int(hard), KV_TYPES[k_pages.dtype], b, kvh, g, gs, hd, bs, w,
@@ -100,8 +100,8 @@ def paged_attention_plan(q, k_pages, bits_pages, qhash, block_table, *,
     if err != 0:
         raise RuntimeError("paged_attention plan failed: " + _library()
                            .paged_socket_attend_error_string(err).decode())
-    return dict(zip(("cluster", "smem_bytes", "clusters_at_once", "stages"),
-                    info))
+    return dict(zip(("cluster", "smem_bytes", "clusters_at_once", "stages",
+                     "chunk_rows"), info))
 
 
 def _quest_library() -> ctypes.CDLL:
@@ -122,11 +122,12 @@ def paged_quest_plan(q, k_pages, block_table, *, page_size: int) -> dict:
     largest whose B * KVH clusters the card holds at once, at most one
     rank a 256 table pages; else the fewest waves times pages a rank);
     ``smem_bytes`` a CTA; ``clusters_at_once`` at that C; ``stages``, the
-    K/V chunk stages of the attend pass."""
+    K/V chunk stages of the attend pass, and ``chunk_rows``, the K/V rows
+    a stage holds (by hd and page type)."""
     q, _ = _split_q(q)
     b, kvh, g, hd = q.shape
     bs = k_pages.shape[2]
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 5)()
     lib = _quest_library()
     with torch.cuda.device(q.device):
         err = lib.paged_quest_attend_plan(
@@ -135,8 +136,8 @@ def paged_quest_plan(q, k_pages, block_table, *, page_size: int) -> dict:
     if err != 0:
         raise RuntimeError("paged_quest plan failed: " +
                            lib.paged_quest_attend_error_string(err).decode())
-    return dict(zip(("cluster", "smem_bytes", "clusters_at_once", "stages"),
-                    info))
+    return dict(zip(("cluster", "smem_bytes", "clusters_at_once", "stages",
+                     "chunk_rows"), info))
 
 
 def _ring_library() -> ctypes.CDLL:

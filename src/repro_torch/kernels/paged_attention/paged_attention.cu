@@ -639,7 +639,8 @@ int paged_hard_lsh_attend_launch(const float* q, const void* k_pages,
 // The shape of a launch with these arguments (pool pointers null: the
 // widest copies): info[0] the cluster size C, info[1] the dynamic shared
 // memory of a CTA in bytes, info[2] the clusters the card holds at once
-// (cudaOccupancyMaxActiveClusters), info[3] the K/V chunk stages.
+// (cudaOccupancyMaxActiveClusters), info[3] the K/V chunk stages, info[4]
+// the K/V rows a chunk stage holds.
 // Returns 0 or an error code as the launches do.
 int paged_socket_attend_plan(int hard, int kv_type, int b, int kvh, int g,
                              int gs, int hd, int bs, int w, int nb, int l,
@@ -658,6 +659,7 @@ int paged_socket_attend_plan(int hard, int kv_type, int b, int kvh, int g,
         info[1] = static_cast<int>(pl.lay.total);
         info[2] = pl.launch.fit;
         info[3] = pl.lay.stages;
+        info[4] = pl.rows;
         return 0;
       });
     });

@@ -16,10 +16,12 @@ fused backend in ``CONTINUOUS_BACKENDS`` (SOCKET, hard LSH, Quest), and
 for SOCKET once more on int8 and on fp8 K/V pages
 (``CONTINUOUS_QUANT``, ``serving.kv_dtype``); each run ends once all 8
 decode together, and that decode iteration is replayed (it rewrites the
-same rows) — timed and traced like a static step.  Then, with llama31-8b's weights freed, gemma3-27b's case (full
-width, 14 of 62 layers: 12 local through ``paged_ring``, 2 global
-through the paged SOCKET kernel; 8 requests of 2048-6144 tokens) the
-same way.
+same rows) — timed and traced like a static step.  Then, with llama31-8b's weights freed, gemma-7b's case
+(full width and depth, MHA at hd 256: 28 layers through the paged
+SOCKET kernel at 16 KV heads, G 1; llama31-8b's traffic) and
+gemma3-27b's (full width, 14 of 62 layers: 12 local through
+``paged_ring``, 2 global through the paged SOCKET kernel; 8 requests of
+2048-6144 tokens) the same way, each on weights of its own.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode
 
@@ -228,12 +230,16 @@ def main(argv=None):
     del params                           # llama31-8b's weights
     gc.collect()
     torch.cuda.empty_cache()
-    row = run_continuous(None, args.seed, TRACED_STEPS, TIMED_STEPS, dev,
-                         "socket_fused", arch="gemma3-27b")
-    print(json.dumps({"arch": "gemma3-27b", "engine": "continuous",
-                      "backend": "socket_fused", "use_ring_kernel": True,
-                      "device": device_name(dev), "card": card, **row}),
-          flush=True)
+    for arch in ("gemma-7b", "gemma3-27b"):
+        row = run_continuous(None, args.seed, TRACED_STEPS, TIMED_STEPS,
+                             dev, "socket_fused", arch=arch)
+        print(json.dumps({"arch": arch, "engine": "continuous",
+                          "backend": "socket_fused",
+                          "use_ring_kernel": arch == "gemma3-27b",
+                          "device": device_name(dev), "card": card, **row}),
+              flush=True)
+        gc.collect()                     # the arch's weights and pool
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

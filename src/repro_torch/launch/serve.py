@@ -79,7 +79,8 @@ from repro_torch.models.backends.kvquant import KV_DTYPES
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 from repro_torch.serving.obs.events import strict_dumps
 
-__all__ = ["run_serve", "run_continuous", "make_poisson_requests",
+__all__ = ["run_serve", "run_continuous", "serving_ceiling",
+           "make_poisson_requests",
            "card_continuous_case", "card_prefix_case", "CARD_CASES",
            "CARD_PREEMPT_BLOCKS", "PREFIX_CASE",
            "resolve_device", "apply_backend_arg", "apply_kv_dtype",
@@ -227,13 +228,17 @@ def make_poisson_requests(cfg, num_requests: int, rate_rps: float,
 # arch -> (prompt lengths, max_blocks_per_seq, num_blocks, num_groups or
 # None) of the continuous card case; gemma3-27b's depth is cut to 2
 # groups (14 of 62 layers: 12 local, 2 global), as all 62 do not fit the
-# card's 80 GB in fp32.  The legacy case's prefill buckets are 2048, 4096
+# card's 80 GB in fp32.  minitron-8b and gemma-7b run llama31-8b's
+# traffic at full depth (9.88 B and 9.32 B parameters, 39.5 and 37.3 GB
+# in fp32).  The legacy case's prefill buckets are 2048, 4096
 # and max_context, so most prompts run padded (llama31-8b: 1024 and 3072;
 # gemma3-27b: 3072 and 6144) and their logits and rings are taken at the
 # last real token, short of the bucket's end.
 CARD_CASES = {
     "llama31-8b": ([1024, 2048, 3072, 4096], 264, 1536, None),
     "gemma3-27b": ([2048, 3072, 4096, 6144], 392, 2048, 2),
+    "minitron-8b": ([1024, 2048, 3072, 4096], 264, 1536, None),
+    "gemma-7b": ([1024, 2048, 3072, 4096], 264, 1536, None),
 }
 
 
@@ -321,21 +326,33 @@ def card_prefix_case(cfg, seed: int, max_new_tokens: int = 16,
     return cfg, prompts[0][:tlen], prompts
 
 
+def serving_ceiling(cfg) -> int:
+    """Largest servable prompt+generated context: the block table alone
+    under chunked prefill, also the largest prefill bucket in legacy
+    whole-prompt mode."""
+    sv = cfg.serving
+    if sv.prefill_chunk:
+        return sv.max_context
+    return min(max(sv.prefill_buckets), sv.max_context)
+
+
 def run_continuous(cfg, num_requests: int, rate_rps: float, prompt_lens,
                    max_new_tokens: int, seed: int = 0, realtime=True,
                    warmup=False, params=None, device="cuda",
                    temperature: float = 0.0, top_p: float = 1.0,
-                   prompts=None, obs=None):
+                   arrivals=None, prompts=None, obs=None):
     """Continuous-batching serve of Poisson-arriving requests; returns
     (requests, ServeMetrics, engine).  ``warmup=True`` runs the step
     shapes the workload needs first (chunked: the mixed and decode steps;
     legacy: the decode step and the buckets the prompts hit), so the
     reported latencies measure serving.  ``temperature > 0`` samples
     with ``top_p`` from per-request streams seeded from ``seed``.
-    ``prompts``: explicit token lists (e.g. from
-    :mod:`repro_torch.serving.prefix_cache.workloads`, whose shared
-    prefixes independent random prompts never have) in place of the
-    random draw; ``prompt_lens`` is then ignored.  ``obs``: an optional
+    ``arrivals``: explicit per-request arrival times in place of the
+    Poisson draw; without ``prompts`` the prompt lengths then cycle
+    through ``prompt_lens`` in order.  ``prompts``: explicit token lists
+    (e.g. from :mod:`repro_torch.serving.prefix_cache.workloads`, whose
+    shared prefixes independent random prompts never have) in place of
+    the random draw; ``prompt_lens`` is then ignored.  ``obs``: an optional
     :class:`~repro_torch.serving.obs.Observability` bundle (event trace,
     selection probe, profiler) handed to the engine, whose run's metrics
     registry (``engine.registry``) gives the snapshot and Prometheus
@@ -345,17 +362,29 @@ def run_continuous(cfg, num_requests: int, rate_rps: float, prompt_lens,
     engine = ContinuousBatchingEngine(cfg, params=params, seed=seed,
                                       device=device, temperature=temperature,
                                       top_p=top_p, sample_seed=seed, obs=obs)
-    if prompts is None:
-        reqs = make_poisson_requests(cfg, num_requests, rate_rps,
-                                     prompt_lens, max_new_tokens, seed=seed)
-    else:
+    if arrivals is not None and len(arrivals) != num_requests:
+        raise ValueError(f"arrivals ({len(arrivals)}) must match "
+                         f"num_requests ({num_requests})")
+    if prompts is not None:
         if len(prompts) != num_requests:
             raise ValueError(f"prompts ({len(prompts)}) must match "
                              f"num_requests ({num_requests})")
-        rng = np.random.default_rng(seed)
-        arrivals = np.cumsum(rng.exponential(1.0 / rate_rps, num_requests))
+        if arrivals is None:
+            rng = np.random.default_rng(seed)
+            arrivals = np.cumsum(rng.exponential(1.0 / rate_rps,
+                                                 num_requests))
         reqs = [Request(prompt=list(p), max_new_tokens=max_new_tokens,
                         arrival=float(t)) for p, t in zip(prompts, arrivals)]
+    elif arrivals is None:
+        reqs = make_poisson_requests(cfg, num_requests, rate_rps,
+                                     prompt_lens, max_new_tokens, seed=seed)
+    else:
+        rng = np.random.default_rng(seed)
+        reqs = [Request(prompt=rng.integers(
+                    0, cfg.vocab_size,
+                    size=prompt_lens[i % len(prompt_lens)]).tolist(),
+                        max_new_tokens=max_new_tokens, arrival=float(t))
+                for i, t in enumerate(arrivals)]
     if warmup:
         engine.warmup(reqs)
     metrics = engine.run(reqs, realtime=realtime)
@@ -490,12 +519,14 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.engine == "continuous":
         max_new = args.max_new_tokens or (8 if args.smoke else 64)
-        # legacy mode's largest bucket covers max_context (validate())
-        top = cfg.serving.max_context - max_new
+        # prompt+generated fits the serving ceiling (the block table when
+        # chunked; also the largest prefill bucket in legacy mode)
+        ceiling = serving_ceiling(cfg)
+        top = ceiling - max_new
         if top < 1:
             ap.error(f"--max-new-tokens {max_new} leaves no prompt room "
                      f"under the serving context ceiling "
-                     f"({cfg.serving.max_context} tokens)")
+                     f"({ceiling} tokens)")
         lens = sorted({max(1, top // 4), max(1, top // 2),
                        max(1, (3 * top) // 4), top})
         prompts = None

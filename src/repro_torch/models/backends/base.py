@@ -577,6 +577,19 @@ class DecodeBackend:
                length, scale: float) -> torch.Tensor:
         raise NotImplementedError
 
+    # ---- accounting -----------------------------------------------------
+    def selected_rows(self, cfg, n: int) -> int:
+        """Static K/V rows gathered per step at capacity ``n`` (for the
+        memory-traffic accounting in :func:`repro_torch.serving.paged
+        .gather_footprint`)."""
+        return n
+
+    def fused_paged(self, cfg) -> bool:
+        """True when this backend's PagedView attend runs as one fused
+        kernel over the pool: no gathers and no materialized views, so
+        the gather-footprint accounting reports 0."""
+        return False
+
 
 # ------------------------------------------------------------ pool writes
 

@@ -15,9 +15,7 @@ A probe shadow step (``probe.capturing()``) takes the plain route and
 records :func:`~repro_torch.models.backends.probe.selection_stats` (the
 budget is page-granular and folded into the selection mask, so the
 reported budget is the static selection width); the plain page
-selection is the fused kernel's bit for bit.  The byte accounting the
-serving benchmark reads (``selected_rows``, ``fused_paged``) comes with
-a later slice (ROADMAP.md queue 1 item 10).
+selection is the fused kernel's bit for bit.
 """
 
 from __future__ import annotations
@@ -111,6 +109,14 @@ class QuestBackend(base.DecodeBackend):
             k_scale=base.kv_scales_of(view.arrays, "k"),
             v_scale=base.kv_scales_of(view.arrays, "v"))
         return out.to(q.dtype)
+
+    def selected_rows(self, cfg, n):
+        qcfg = self.quest_config(cfg)
+        n_pages = -(-n // qcfg.page_size)
+        return quest_mod.page_budget(qcfg, n_pages, n) * qcfg.page_size
+
+    def fused_paged(self, cfg):
+        return bool(cfg.quest.use_paged_kernel)
 
     def attend(self, cfg, params, q, view: KVView, *, length, scale):
         if cfg.quest.use_paged_kernel and isinstance(view, base.PagedView) \

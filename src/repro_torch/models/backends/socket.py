@@ -152,6 +152,12 @@ class SocketBackend(base.DecodeBackend):
             v_scale=base.kv_scales_of(view.arrays, "v"))
         return out.to(q.dtype)
 
+    def selected_rows(self, cfg, n):
+        return sk.topk_budget(socket_config_of(cfg), n)
+
+    def fused_paged(self, cfg):
+        return bool(cfg.socket.use_paged_kernel)
+
     def attend(self, cfg, params, q, view: KVView, *, length, scale):
         scfg = socket_config_of(cfg)
         if scfg.selection not in ("kvhead", "pooled", "qhead"):

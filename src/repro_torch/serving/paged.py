@@ -33,16 +33,18 @@ the engine falls back to the gather/scatter round trip below, which is
 window-bounded for ring layers.  The legacy whole-prompt prefill writes
 its fresh caches in with :func:`write_prefill`; the prefix cache un-shares
 a page with :func:`clone_block`.  :func:`cache_kind_counts` counts the
-layers of each kind (the trace's ``trace_start`` metadata).  State
-(Mamba) layers and ``keep_state_rows`` come with ROADMAP.md queue 1 item
-7; the byte accounting the serving benchmark reads
-(``pool_block_bytes``, ``gather_footprint``) with item 10.
+layers of each kind (the trace's ``trace_start`` metadata), and
+:func:`kv_row_bytes`, :func:`pool_block_bytes` and
+:func:`gather_footprint` are the byte accounting the serving benchmark
+reads (each equal to the JAX package's).  State (Mamba) layers and
+``keep_state_rows`` come with ROADMAP.md queue 1 item 7.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServingSettings
@@ -50,7 +52,8 @@ from repro_torch.models import backends as bk
 from repro_torch.models import transformer as tfm
 
 __all__ = ["init_paged_caches", "gather_views", "scatter_token",
-           "write_prefill", "clone_block", "raw_view", "cache_kind_counts"]
+           "write_prefill", "clone_block", "raw_view", "cache_kind_counts",
+           "kv_row_bytes", "pool_block_bytes", "gather_footprint"]
 
 
 def init_paged_caches(cfg: ModelConfig, serving: ServingSettings,
@@ -156,3 +159,121 @@ def cache_kind_counts(cfg: ModelConfig) -> Dict[str, int]:
     for spec in cfg.layer_specs:
         counts[cfg.plan_for(spec).kind] += 1
     return counts
+
+
+# -------------------------------------------------------------- accounting
+
+def _leaf_row_bytes(s, cdt: torch.dtype) -> float:
+    """Bytes one *token* of leaf ``s`` occupies (suffix width x storage
+    itemsize, amortized over the leaf's sequence granularity)."""
+    width = int(np.prod(s.suffix, dtype=np.int64)) if s.suffix else 1
+    return width * s.leaf_dtype(cdt).itemsize / s.granularity
+
+
+def kv_row_bytes(cfg: ModelConfig, names=("k", "v", "k_scale",
+                                          "v_scale")) -> int:
+    """Per-token K/V storage bytes across one KV head set: the
+    dtype-sized payload plus the float32 per-row scale leaves when the
+    pages are stored as int8/fp8."""
+    spec = bk.kv_leaf_specs(cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    return int(cfg.num_kv_heads * sum(
+        _leaf_row_bytes(spec[nm], cdt) for nm in names if nm in spec))
+
+
+def pool_block_bytes(cfg: ModelConfig) -> Dict[str, int]:
+    """Bytes one physical pool block occupies, per layer kind and in
+    total per block id (a block id addresses the same page in every
+    paged and ring layer): every leaf of the resolved cache spec at its
+    own storage dtype (int8/fp8 K/V pages, float32 scale rows, uint32
+    hash words, page-granular stats), so the pool's capacity follows
+    ``cfg.serving.kv_dtype``."""
+    sv = cfg.serving
+    cdt = getattr(torch, cfg.compute_dtype)
+    counts = cache_kind_counts(cfg)
+    out = {"paged": 0, "ring": 0}
+    for spec_l in cfg.layer_specs:
+        kind = cfg.plan_for(spec_l).kind
+        leaves = bk.layer_cache_spec(cfg, spec_l).leaves
+        out[kind] += int(cfg.num_kv_heads * sv.block_size * sum(
+            _leaf_row_bytes(s, cdt) for s in leaves.values()))
+    out["per_block_id"] = out["paged"] + out["ring"]
+    out["num_paged_layers"] = counts["paged"]
+    out["num_ring_layers"] = counts["ring"]
+    return out
+
+
+def gather_footprint(cfg: ModelConfig) -> Dict[str, int]:
+    """Per-decode-step gathered bytes for the whole stack, full-view vs
+    paged, by layer kind (what the serving benchmark reports).
+
+    ``full_view_bytes_per_step``: every global-attention cache leaf
+    materialized at ``(max_batch, KVH, max_context, ...)`` plus
+    context-length K/V views for the window layers, what a plan-less
+    pager would move.  ``paged_bytes_per_step``: global layers move
+    their metadata leaves plus the backend's ``selected_rows`` K/V rows
+    (0 with the fused paged kernel), window layers their bounded ring
+    views (``window_bytes_per_step``; 0 with the ring kernel).  The port
+    has no state (Mamba) layers yet (ROADMAP.md queue 1 item 7), so
+    ``state_bytes_per_step`` is 0.
+    """
+    sv = cfg.serving
+    b, n = sv.max_batch, sv.max_context
+    kvh = cfg.num_kv_heads
+    cdt = getattr(torch, cfg.compute_dtype)
+    counts = cache_kind_counts(cfg)
+
+    full = paged = window = 0
+    selected = 0
+    fused = False
+    if counts["paged"]:
+        backend = bk.get_backend(cfg.attention_backend)
+        spec = backend.cache_spec(cfg)
+
+        def leaf_bytes(s):
+            width = int(np.prod(s.suffix, dtype=np.int64)) if s.suffix \
+                else 1
+            return b * kvh * s.rows(n) * width * s.leaf_dtype(cdt).itemsize
+
+        full_l = sum(leaf_bytes(s) for s in spec.values())
+        # the K/V storage leaves (payload and scale rows) are gathered on
+        # demand; the metadata leaves stream in full
+        kv_names = [nm for nm in ("k", "v", "k_scale", "v_scale")
+                    if nm in spec]
+        kv_bytes = sum(leaf_bytes(spec[nm]) for nm in kv_names)
+        selected = backend.selected_rows(cfg, n)
+        row_b = kvh * sum(_leaf_row_bytes(spec[nm], cdt)
+                          for nm in kv_names)
+        paged_l = (full_l - kv_bytes) + int(b * selected * row_b)
+        fused = backend.supports_paged and backend.fused_paged(cfg)
+        if fused:
+            paged_l = 0
+        if not backend.supports_paged:
+            paged_l = full_l
+        full += full_l * counts["paged"]
+        paged += paged_l * counts["paged"]
+    ring_fused = False
+    if counts["ring"]:
+        ring_rows = cfg.ring_geometry()[1]
+        row_b = kv_row_bytes(cfg)
+        ring_l = b * ring_rows * row_b
+        full_l = b * n * row_b
+        ring_fused = bool(cfg.use_ring_kernel)
+        # the ring kernel streams the circular page list itself: no
+        # gather materializes the bounded window view
+        window = 0 if ring_fused else ring_l * counts["ring"]
+        full += full_l * counts["ring"]
+        paged += window
+
+    return {
+        "full_view_bytes_per_step": int(full),
+        "paged_bytes_per_step": int(paged),
+        "window_bytes_per_step": int(window),
+        "state_bytes_per_step": 0,
+        "selected_rows": int(selected),
+        "fused_paged_kernel": bool(fused),
+        "fused_ring_kernel": bool(ring_fused),
+        "num_paged_layers": counts["paged"],
+        "num_ring_layers": counts["ring"],
+        "num_state_layers": counts["state"],
+    }

@@ -20,7 +20,8 @@ SOCKET and hard-LSH kernel and the Quest kernel split each (request,
 head) over a thread-block cluster; ``CLUSTER_CASES`` exercise it (32K
 contexts, ties across ranks, idle ranks and, but for Quest, pooled
 selection) on f32 pools here, and on stored pools too in
-``chip_smoke.py``.  ``flash_decode``'s card cases
+``chip_smoke.py``; ``HEAD_DIM_CASES`` run the three at gemma-7b's hd 256
+(KVH 16, G 1) and stablelm's hd 160 (G 4) on every pool.  ``flash_decode``'s card cases
 (``kernels/flash_decode/cases.py``) must each plan what their label
 names (a cluster split, empty ranks, several waves).  The ring
 kernel must skip the NaN rows its cases put in dead slots, and each ring
@@ -458,6 +459,53 @@ def test_paged_kernels_on_stored_pools_match_plain(dev, kind, kv_dtype):
                   with_selection=True, **akw, **scales)
     torch.cuda.synchronize()
     assert torch.equal(sel, sel32)
+    if kind == "socket":
+        cases.check_paged(out, sel, case, akw, ties=False, attn_tol=ATTN_TOL,
+                          score_tol=SCORE_TOL, scales=scales)
+    else:
+        cases.check_hard_lsh(out, sel, case, akw, attn_tol=ATTN_TOL,
+                             scales=scales)
+
+
+# the head dims of the all-global architectures: gemma-7b (MHA, KVH 16,
+# G 1, hd 256) and stablelm-12b (G 4, hd 160); the kernels size their
+# K/V chunk stages by hd (25 rows at hd 160 on f32 pages)
+HEAD_DIM_CASES = {"gemma-7b-hd256-g1": dict(kvh=16, g=1, hd=256),
+                  "stablelm-hd160-g4": dict(kvh=8, g=4, hd=160)}
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("shape", list(HEAD_DIM_CASES))
+@pytest.mark.parametrize("kind", ["socket", "hard_lsh", "quest"])
+def test_paged_kernels_at_head_dims_match_plain(dev, kind, shape,
+                                                kv_dtype):
+    from repro_torch.kernels.paged_attention import cases, ops
+    gen = torch.Generator(device=dev).manual_seed(len(kind + shape))
+    lengths = [1024, 3000, 2048, 4096]
+    common = HEAD_DIM_CASES[shape]
+    if kind == "quest":
+        sets, akw = cases.quest_case(gen, lengths, nb=264, **common)
+        (case,), scales = (sets, {}) if kv_dtype == "auto" else \
+            cases.store_kv(sets, kv_dtype, quest=True)
+        before = ops.QUEST_LAUNCHES
+        out, sel = ops.paged_quest_attend(*case[:6], length=case[6],
+                                          page_budget=case[7],
+                                          with_selection=True, **akw,
+                                          **scales)
+        assert ops.QUEST_LAUNCHES == before + 1
+        torch.cuda.synchronize()
+        cases.check_quest(out, sel, case, akw, attn_tol=ATTN_TOL,
+                          scales=scales)
+        return
+    build = cases.paged_case if kind == "socket" else cases.hard_lsh_case
+    fn = (ops.paged_socket_attend if kind == "socket"
+          else ops.paged_hard_lsh_attend)
+    sets, akw = build(gen, lengths, nb=264, **common)
+    (case,), scales = (sets, {}) if kv_dtype == "auto" else \
+        cases.store_kv(sets, kv_dtype)
+    out, sel = fn(*case[:7], length=case[7], budget=case[8],
+                  with_selection=True, **akw, **scales)
+    torch.cuda.synchronize()
     if kind == "socket":
         cases.check_paged(out, sel, case, akw, ties=False, attn_tol=ATTN_TOL,
                           score_tol=SCORE_TOL, scales=scales)

@@ -1,7 +1,9 @@
 """Port parity for the continuous-batching engine: greedy tokens of the
 port's ``ContinuousBatchingEngine`` against the JAX package's engine on
 the same weights and prompts (``stablelm-12b`` and ``llama31-8b``
-``.smoke()``; backends ``socket``, ``socket_fused`` and ``dense``), with
+``.smoke()``; backends ``socket``, ``socket_fused`` and ``dense``; and
+gemma-7b's smoke at G 1, MHA as the full model, through ``socket_fused``
+and ``quest_fused``), with
 mixed prompt lengths and under forced preemption, and against the
 port's own static ``run_serve``.  The JAX side's ``socket_fused`` runs
 the Pallas paged kernel in interpret mode; the port's runs its plain
@@ -78,6 +80,28 @@ def test_mixed_lengths_match_jax_engine(arch, backend):
                                                     jm.prefill_chunks)
     iters = [it for it, *_ in engine.chunk_trace]
     assert len(iters) == len(set(iters)) == tm.prefill_chunks
+    assert engine.pool.num_used == 0
+
+
+@pytest.mark.parametrize("backend", ["socket_fused", "quest_fused"])
+def test_gemma7b_mha_matches_jax_engine(backend):
+    """gemma-7b's smoke with as many KV heads as query heads (MHA, G 1,
+    as the full model is; geglu, sqrt(d_model) embedding scale): every
+    request's greedy tokens and the iteration and chunk counts equal the
+    JAX engine's (its fused paged kernels in interpret mode)."""
+    jc, tc = _configs("gemma-7b", backend)
+    jc = jc.replace(num_kv_heads=jc.num_heads)
+    tc = tc.replace(num_kv_heads=tc.num_heads)
+    assert tc.num_heads // tc.num_kv_heads == 1
+    assert tc.mlp_activation == "geglu"
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (9, 26, 44)]
+    (jreqs, jm), (treqs, tm), engine = _serve_both(jc, tc, prompts, 6)
+    for j, t in zip(jreqs, treqs):
+        assert t.state == FINISHED and len(t.generated) == 6
+        assert t.generated == j.generated, (t.generated, j.generated)
+    assert (tm.decode_iters, tm.prefill_chunks) == (jm.decode_iters,
+                                                    jm.prefill_chunks)
     assert engine.pool.num_used == 0
 
 

@@ -441,3 +441,136 @@ def test_profiled_kernel_events_counts_device_kernels():
     assert cs.profiled_kernel_events(trace, "paged_socket_kernel") == 2
     assert cs.profiled_kernel_events(trace, "paged_ring_kernel") == 0
     assert cs.profiled_kernel_events({}, "paged_socket_kernel") == 0
+
+
+def test_residency_math_and_bar():
+    """Resident requests in the bf16 pool's byte budget, and the 1.8x bar
+    int8 pages must clear (floored request counts: 17 of 9 pass, 14 of 8
+    do not)."""
+    cs = _chip_smoke()
+    per = {"bf16": 7927808, "int8": 4315136, "auto": 15267840}
+    res = cs.residency(per, 1536, 162)
+    assert res == {"bf16": 9, "int8": 17, "auto": 4}
+    assert cs.residency_check(res) == 17 / 9
+    with pytest.raises(AssertionError, match="below the 1.8x bar"):
+        cs.residency_check(cs.residency(per, 1297, 162))
+
+
+def test_gemma7b_residency_clears_the_bar(capsys):
+    """gemma-7b's continuous card case at full width, host-only: the
+    pool_block_bytes of each page dtype and the resident requests in its
+    1536-block bf16 pool's budget (8 requests of 1K-4K tokens and 32 new:
+    162 blocks each) are logged, and int8 holds >= 1.8x bf16."""
+    cs = _chip_smoke()
+    res = cs.gemma7b_residency(0)
+    assert res == {"auto": 4, "bf16": 9, "int8": 17, "fp8": 17}
+    assert '"gemma7b_residency"' in capsys.readouterr().out
+
+
+def test_pool_block_bytes_check_reads_every_leaf():
+    """The bytes a block id holds in an engine's pool equal
+    ``pool_block_bytes`` (f32 SOCKET pages, int8 pages with scales,
+    Quest's page stats, gemma3's ring layers); a pool missing a leaf
+    fails."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import apply_backend_arg, apply_kv_dtype
+    from repro_torch.serving.paged import init_paged_caches
+    for arch, backend, kv in (("llama31-8b", "socket_fused", "auto"),
+                              ("gemma-7b", "socket_fused", "int8"),
+                              ("gemma-7b", "quest_fused", "bf16"),
+                              ("gemma3-27b", "socket_fused", "fp8")):
+        cfg = apply_kv_dtype(apply_backend_arg(get_config(arch).smoke(),
+                                               backend), kv)
+        cfg = cfg.replace(use_ring_kernel=arch == "gemma3-27b")
+        pages = init_paged_caches(cfg, cfg.serving)
+        assert cs.pool_block_bytes_check(cfg, pages) > 0
+    del pages[0]["k_scale"]
+    with pytest.raises(AssertionError, match="pool_block_bytes"):
+        cs.pool_block_bytes_check(cfg, pages)
+
+
+def test_all_global_cases():
+    """The card's gemma-7b and minitron-8b cases: llama31-8b's traffic at
+    full depth; the paged kernels' head-dim cases (hd 256 at G 1, hd 160
+    at G 4) run on every pool of all three kernels, the hd 256 one
+    timed."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import CARD_CASES, card_continuous_case
+    assert CARD_CASES["gemma-7b"] == CARD_CASES["minitron-8b"] == \
+        CARD_CASES["llama31-8b"]
+    cfg, reqs = card_continuous_case(get_config("gemma-7b"), 0, 32)
+    assert cfg.serving.num_blocks == 1536 and cfg.num_layers == 28
+    assert sorted(len(r.prompt) for r in reqs) == sorted(cs.MAIN_LENS)
+    for name, cases in cs.PAGED_CASES.items():
+        labels = [label for label, _ in cases]
+        for label, kw in cs._HEAD_DIM_CASES:
+            assert label in labels and label.startswith(cs.STORED_CASES)
+        assert cs.GEMMA7B_TIMED in labels
+    gemma = dict(cs._HEAD_DIM_CASES)[cs.GEMMA7B_TIMED]
+    g7 = get_config("gemma-7b")
+    assert (gemma["kvh"], gemma["g"], gemma["hd"]) == (
+        g7.num_kv_heads, g7.num_heads // g7.num_kv_heads, g7.head_dim)
+    assert cs.STATIC_CASES["gemma-7b"] == (2, 4096, 16)
+    # the other kernels' gemma-7b cases are its static path's shapes
+    from repro_torch.core import socket as sk
+    from repro_torch.kernels.flash_decode.cases import CARD_CASES
+    fd = dict(CARD_CASES)[cs.GEMMA7B_TIMED]
+    scfg = sk.SocketConfig(sink_tokens=128, window_tokens=128)
+    assert (fd["bh"], fd["g"], fd["hd"], fd["k"]) == (
+        32, 1, 256, sk.topk_budget(scfg, 4096 + 16))
+    prefill = [c for c in cs.PREFILL_CASES if c[0] == cs.GEMMA7B_TIMED]
+    assert [c[1:5] for c in prefill] == [(32, 32, 4096, 256)]
+
+
+@pytest.mark.parametrize("arch,backend,kv_dtype", [
+    ("gemma-7b", "quest_fused", "auto"), ("llama31-8b", "socket_fused",
+                                          "fp8"),
+    ("gemma3-27b", "socket_fused", "int8")])
+def test_compact_pool_decodes_as_the_pool(arch, backend, kv_dtype):
+    """The continuous check's snapshot (``compact_pool``: the blocks the
+    batch's tables name, renumbered) gives the decode step's logits and
+    writes of the whole pool bit for bit, and holds fewer blocks."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import apply_backend_arg, apply_kv_dtype
+    from repro_torch.runtime.steps import make_serve_step
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.paged import raw_view
+    cfg = apply_kv_dtype(apply_backend_arg(get_config(arch).smoke(),
+                                           backend), kv_dtype)
+    cfg = cfg.replace(use_ring_kernel=arch == "gemma3-27b")
+    engine = ContinuousBatchingEngine(cfg, device="cpu")
+    seen = {}
+
+    def hook(eng, it):
+        running = [eng.scheduler.running[s]
+                   for s in sorted(eng.scheduler.running)]
+        if len(running) < 2 or any(len(r.blocks) * cfg.serving.block_size
+                                   <= r.pos for r in running) or seen:
+            return
+        tokens, bt, pos = eng._batch_inputs(running)
+        pages, cbt = cs.compact_pool(eng.pages, bt)
+        full = [{k: v.clone() for k, v in layer.items()}
+                for layer in eng.pages]
+        step = make_serve_step(cfg)
+        lf, _ = step(eng.params, full, tokens, pos, bt)
+        lc, _ = step(eng.params, pages, tokens, pos, cbt)
+        seen.update(blocks=pages[0]["k"].shape[0],
+                    pool=full[0]["k"].shape[0], same=torch.equal(lf, lc))
+        ids = torch.unique(torch.cat([torch.zeros(1, dtype=bt.dtype),
+                                      bt.flatten()]))
+        for a, b in zip(full, pages):
+            for name in a:
+                assert torch.equal(raw_view(a[name])[ids.long()],
+                                   raw_view(b[name])), name
+
+    engine.iter_hook = hook
+    rng = torch.Generator().manual_seed(3)
+    reqs = [Request(prompt=torch.randint(0, 256, (n,), generator=rng)
+                    .tolist(), max_new_tokens=6) for n in (20, 37, 9)]
+    with one_thread():
+        engine.run(reqs, realtime=False)
+    assert seen["same"] and seen["blocks"] < seen["pool"]

@@ -224,6 +224,37 @@ Phases, in order; the first failure raises and the script exits non-zero:
               (``compact_pool``: gemma-7b's f32 pool, 23.5 GB, and a
               clone of it do not fit beside its 37.3 GB of weights).
               Seconds and peak memory are logged per run.
+5e. state and MoE — after gemma-7b's and minitron-8b's weights are freed:
+              jamba-v0.1-52b (d_model 4096, 32/8 heads, 16 experts top-2
+              of d_ff 14336, Mamba-2 with d_state 16) at full width on 1
+              of its 4 groups (8 layers: 1 attention, 7 Mamba, 4 MoE;
+              13.27 B parameters, 53.1 GB) through phase 4's static path
+              and gates (batch 2, prompt 4096, 16 steps; the attention
+              kernels counted on its one attention layer), then through
+              the engine with phase 5's traffic and gates
+              (``socket_fused``: the paged SOCKET kernel 1 x decode
+              calls; the captured decode iteration's snapshot holds the
+              Mamba layers' state rows, which the step moves in place).
+              Where the kernel and plain routes' MoE routers send a token
+              to other experts only inside ``ROUTE_TOL`` of a tie, the
+              plain route takes the kernel route's experts
+              (``moe_routes_shared``), as SOCKET's band swaps.  Then
+              mamba2-780m at full width and depth (48 Mamba layers) with
+              phase 5's traffic: every request finishes, the pool holds 0
+              blocks at every iteration, no kernel runs, and each
+              request's last-step logits lie within ``STATE_CARRY_ATOL``
+              of a whole-sequence prefill of its prompt and generated
+              tokens (the state carried across 512-token chunks and 31
+              recurrent steps against one chunked SSD).  Then
+              mixtral-8x22b at full width on 4 of its 56 layers (10.42 B,
+              41.7 GB): prompts of 2048/4096/6144/8192 tokens each twice,
+              ``socket_fused`` with ``use_ring_kernel``: ``paged_ring``
+              exactly 4 x decode calls, the SOCKET kernel 0; the 6144- and
+              8192-token prompts' chunks run past the 4096-token ring
+              (``ring_wrap_check``); the ring logits check of phase 6.
+              Each run's seconds and peak memory are logged.
+              ``--only state-moe`` builds the kernels and runs this phase
+              alone (no kernels or ok line).
 6. gemma3-continuous — after the all-global phase, gemma3-27b
               at full width (d_model 5376, 32/16 heads, d_ff 21504, vocab
               262144, window 1024) with its depth cut to 2 groups: 14 of
@@ -730,15 +761,14 @@ def flash_decode_rows(dev, gen):
     return rows
 
 
-def phase_kernels(dev, seed):
+def build_kernels() -> None:
+    """One nvcc per CUDA source, all started together; logs the times and
+    ptxas reports."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.socket_score import ops as ss
-    from repro_torch.kernels.socket_score.ref import socket_score_ref
-
-    # -- build: one nvcc per CUDA source, all at once
     t0 = time.perf_counter()
     sources = (ss.SOURCE, fd.SOURCE, pa.SOURCE, pa.QUEST_SOURCE,
                pa.RING_SOURCE, fp.SOURCE)
@@ -749,6 +779,13 @@ def phase_kernels(dev, seed):
     for stem, (secs, report) in build.BUILD_LOGS.items():
         log(f"  nvcc {stem}: {secs:.2f} s\n  " +
             report.replace("\n", "\n  "))
+
+
+def phase_kernels(dev, seed):
+    from repro_torch.kernels.socket_score import ops as ss
+    from repro_torch.kernels.socket_score.ref import socket_score_ref
+
+    build_kernels()
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     rows = {}
@@ -1542,26 +1579,35 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
             return make_prefill_step(cfg, capacity)(params,
                                                     {"tokens": prompt})
 
-    stats, routes = {}, {}
-    for route, op in (("kernel", fp.flash_prefill), ("plain", plain_op)):
+    def timed_prefill(route, op, stats):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
-        routes[route] = prefill(op)
+        out = prefill(op)
         torch.cuda.synchronize()
         stats[f"prefill_s_{route}"] = time.perf_counter() - t0
         stats[f"prefill_peak_bytes_above_weights_{route}"] = \
             torch.cuda.max_memory_allocated(dev) - base
+        return out
+
+    stats, routes, rerouted = {}, {}, []
+    with moe_routes_shared(rerouted) as to_plain:
+        for route, op in (("kernel", fp.flash_prefill), ("plain", plain_op)):
+            if route == "plain":
+                to_plain()
+            routes[route] = timed_prefill(route, op, stats)
+    stats["prefill_moe_tokens_rerouted"] = rerouted
     (lk, ck), (lp, cp) = routes.pop("kernel"), routes.pop("plain")
     err = (lk - lp).abs().max().item()
+    # attention layers only (a Mamba layer's cache is its state)
     drift = [max((a[n] - b[n]).abs().max().item() for n in "kv")
-             for a, b in zip(ck, cp)]
+             for a, b in zip(ck, cp) if "k" in a]
     stats.update(prefill_socket_checks(cfg, params, prompt, ck, cp))
     del lp, cp                  # before the layer-by-layer caches
     _, cf = prefill(both_ops)
     kv_err = [max((a[n] - b[n]).abs().max().item() for n in "kv")
-              for a, b in zip(ck, cf)]
+              for a, b in zip(ck, cf) if "k" in a]
     del cf
     worst = max(range(len(layers)),
                 key=lambda i: layers[i]["ratio_f64"] / layers[i]["limit"])
@@ -1608,7 +1654,7 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
                              f"{w['ratio_f64']:.3f} of ATTN_TOL, limit "
                              f"{w['limit']:.3f}; the kernel's max|err| "
                              f"{f64:.3f}x the plain op's")
-    if len(layers) != cfg.num_layers or min(
+    if len(layers) != len(drift) or min(
             min(r["head_order_ratio"], r["next_key_ratio"]) / r["limit"]
             for r in layers) <= 1.0:
         raise AssertionError("the layer-by-layer gate cannot see a wrong "
@@ -1631,6 +1677,8 @@ def prefill_socket_checks(cfg, params, prompt, ck, cp):
     s, t = cfg.socket, prompt.shape[1]
     flips, band = 0, 0
     for i, (a, b) in enumerate(zip(ck, cp)):
+        if "bits" not in a:                     # a Mamba layer's state
+            continue
         sa = hashing.unpack_signs(a["bits"], s.num_tables,
                                   s.num_planes)[:, :, :t]
         sb = hashing.unpack_signs(b["bits"], s.num_tables,
@@ -1651,24 +1699,34 @@ def prefill_socket_checks(cfg, params, prompt, ck, cp):
 
 
 # arch -> (batch, prompt length, greedy decode steps) of the static path:
-# llama31-8b (phase 4) and gemma-7b, MHA at hd 256 (phase 5d)
-STATIC_CASES = {"llama31-8b": (2, 8192, 32), "gemma-7b": (2, 4096, 16)}
+# llama31-8b (phase 4), gemma-7b, MHA at hd 256 (phase 5d), and jamba's
+# one attention layer among Mamba and MoE layers (phase 5e)
+STATIC_CASES = {"llama31-8b": (2, 8192, 32), "gemma-7b": (2, 4096, 16),
+                "jamba-v0.1-52b": (2, 4096, 16)}
 
 
 def phase_main(dev, seed, card, arch="llama31-8b"):
-    """The static path of ``arch`` at full width and depth (see the
-    module docstring, phases 4 and 5d); returns (launches, the weights)."""
+    """The static path of ``arch`` at full width, and at the depth of its
+    continuous card case (``CARD_CASES``: all of it but for jamba's one
+    group; see the module docstring, phases 4, 5d and 5e); returns
+    (launches, the weights).  The attention kernels' gates count the
+    attention layers alone."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.socket_score import ops as ss
-    from repro_torch.launch.serve import apply_backend_arg, run_serve
+    from repro_torch.launch.serve import (CARD_CASES, apply_backend_arg,
+                                          run_serve)
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.steps import make_serve_step
 
     batch, prompt_len, steps = STATIC_CASES[arch]
     cfg = apply_backend_arg(get_config(arch), "socket").replace(
         attn_q_chunk=512)
+    groups = CARD_CASES[arch][3]
+    if groups is not None:
+        cfg = cfg.replace(num_groups=groups)
+    n_attn = sum(s.kind == "attn" for s in cfg.layer_specs)
     t0 = time.perf_counter()
     params = tfm.init_model(cfg, seed, dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -1676,7 +1734,8 @@ def phase_main(dev, seed, card, arch="llama31-8b"):
                            generator=gen, device=dev)
     torch.cuda.synchronize()
     log(f"main: {arch} {cfg.param_count() / 1e9:.3f} B params "
-        f"(fp32) drawn in {time.perf_counter() - t0:.1f} s; batch {batch}, "
+        f"(fp32) drawn in {time.perf_counter() - t0:.1f} s; "
+        f"{cfg.num_layers} layers ({n_attn} attention); batch {batch}, "
         f"prompt {prompt_len}, {steps} decode steps")
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1687,11 +1746,11 @@ def phase_main(dev, seed, card, arch="llama31-8b"):
     launches = {"socket_score": ss.LAUNCHES, "flash_decode": fd.LAUNCHES,
                 "flash_prefill": fp.LAUNCHES}
     peak = torch.cuda.max_memory_allocated(dev)
-    # the decode kernels: layers x (steps + the warm-up step); the
-    # prefill kernel: layers x the one whole-prompt prefill
-    expected = {"socket_score": cfg.num_layers * (steps + 1),
-                "flash_decode": cfg.num_layers * (steps + 1),
-                "flash_prefill": cfg.num_layers}
+    # the decode kernels: attention layers x (steps + the warm-up step);
+    # the prefill kernel: attention layers x the one whole-prompt prefill
+    expected = {"socket_score": n_attn * (steps + 1),
+                "flash_decode": n_attn * (steps + 1),
+                "flash_prefill": n_attn}
     for name, count in launches.items():
         if count != expected[name]:
             raise AssertionError(f"{name}: {count} launches on the main "
@@ -1742,15 +1801,19 @@ def phase_main(dev, seed, card, arch="llama31-8b"):
                              "differs between two runs")
     plain_caches = [{k: v.clone() for k, v in c.items()} for c in caches]
     serve_plain = make_serve_step(cfg_plain)
-    swapped = []
-    with static_ties_shared(swapped) as to_plain:
+    swapped, rerouted = [], []
+    with static_ties_shared(swapped) as to_plain, \
+            moe_routes_shared(rerouted) as moe_to_plain:
         lk, _ = make_serve_step(cfg)(params, caches, tok, prompt_len)
         to_plain()
+        moe_to_plain()
         lp, _ = serve_plain(params, plain_caches, tok, prompt_len)
     del caches
     log(f"decode step 0: the plain top-k took the kernel route's selection "
-        f"in {len(swapped)} of {cfg.num_layers} layers (rows inside the "
-        f"score band: {swapped})")
+        f"in {len(swapped)} of {n_attn} layers (rows inside the "
+        f"score band: {swapped})"
+        + (f"; MoE tokens the plain route sent to the kernel route's "
+           f"experts: {rerouted}" if cfg.uses_moe else ""))
     for name, t in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"non-finite logits on the {name} path")
@@ -1786,6 +1849,13 @@ FUSED = {"socket_fused": ("paged_attention", "LAUNCHES", "socket"),
          "quest_fused": ("paged_quest", "QUEST_LAUNCHES", "quest")}
 
 
+def layer_kinds(cfg) -> list:
+    """Each layer's kind: ``local`` or ``global`` attention, or
+    ``mamba``."""
+    return [s.attn_type if s.kind == "attn" else s.kind
+            for s in cfg.layer_specs]
+
+
 def draw_params(dev, seed, arch):
     """The continuous card case's weights of ``arch``, drawn from
     ``seed`` (logged with the depth the case cuts to)."""
@@ -1794,15 +1864,20 @@ def draw_params(dev, seed, arch):
     from repro_torch.models import transformer as tfm
     full = get_config(arch)
     cfg, _ = card_continuous_case(full, seed, 32)
-    kinds = [s.attn_type for s in cfg.layer_specs]
     t0 = time.perf_counter()
     params = tfm.init_model(cfg, seed, dev)
     torch.cuda.synchronize()
+    kinds = layer_kinds(cfg)
+    moe = sum(s.mlp == "moe" for s in cfg.layer_specs)
     log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params (fp32) drawn "
         f"in {time.perf_counter() - t0:.1f} s; {cfg.num_layers} of "
-        f"{full.num_layers} layers ({kinds.count('local')} local, "
-        f"{kinds.count('global')} global): depth cut to num_groups "
-        f"{cfg.num_groups} of {full.num_groups}, widths as published")
+        f"{full.num_layers} layers ("
+        + ", ".join(f"{kinds.count(k)} {k}" for k in
+                    ("local", "global", "mamba") if k in kinds)
+        + (f"; {moe} MoE" if moe else "") + ")"
+        + ("" if cfg.num_groups == full.num_groups else
+           f": depth cut to num_groups {cfg.num_groups} of "
+           f"{full.num_groups}, widths as published"))
     return params
 
 
@@ -1948,6 +2023,63 @@ def static_ties_shared(swapped):
                              "with no plain top-k to pair with")
 
 
+# An MoE token's route may differ between two routes of one computation
+# (kernel and plain attention feed the router inputs a few ulps apart) only
+# where its k-th and (k+1)-th router probabilities are this close: then the
+# plain route takes the kernel route's experts (``moe_routes_shared``).
+ROUTE_TOL = dict(rtol=1e-5, atol=1e-7)
+
+
+@contextlib.contextmanager
+def moe_routes_shared(swapped):
+    """The MoE counterpart of :func:`static_ties_shared`: while active,
+    the router calls (``models.moe._router``) made before the yielded
+    ``to_plain()`` is called are the kernel route's and keep their expert
+    choices; each call after it is the plain route's and pairs in order
+    with one of them (the same layer).  Where the two choices differ only
+    at tokens whose plain probabilities at the choice boundary (the k-th
+    and (k+1)-th largest) lie within ROUTE_TOL of each other, the plain
+    route takes the kernel route's experts, weighted by its own
+    probabilities, and the count of such tokens is appended to
+    ``swapped``; any other difference raises.  A model without MoE layers
+    never calls the router."""
+    from repro_torch.models import moe
+    router = moe._router
+    kept, plain = collections.deque(), []
+
+    def shared(cfg, params, x2d):
+        idx, probs, aux = router(cfg, params, x2d)
+        if not plain:
+            kept.append(idx)
+            return idx, probs, aux
+        if not kept:
+            raise AssertionError("a plain MoE routing with no kernel-route "
+                                 "routing to pair with")
+        kidx = kept.popleft()
+        diff = (torch.sort(idx, -1).values !=
+                torch.sort(kidx, -1).values).any(-1)
+        if not bool(diff.any()):
+            return idx, probs, aux
+        full = torch.softmax(x2d.float() @ params["router"].float(), -1)
+        k = cfg.num_experts_per_tok
+        top = torch.sort(full[diff], -1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k]).abs()
+        if bool((gap > ROUTE_TOL["atol"] +
+                 ROUTE_TOL["rtol"] * top[:, k - 1]).any()):
+            raise AssertionError("the plain and kernel routes send MoE "
+                                 "tokens to other experts outside the "
+                                 "probability band")
+        swapped.append(int(diff.sum().item()))
+        p = full.gather(-1, kidx)
+        return kidx, p / torch.clamp(p.sum(-1, keepdim=True), min=1e-9), aux
+
+    with mock.patch.object(moe, "_router", shared):
+        yield lambda: plain.append(True)
+    if plain and kept:
+        raise AssertionError(f"{len(kept)} kernel-route MoE routings with "
+                             "no plain routing to pair with")
+
+
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from repro_torch.kernels.flash_decode import ops as fd
@@ -1990,37 +2122,45 @@ def kv_block_bytes(pages):
     names = ("k", "v", "k_scale", "v_scale")
     stored = sum(layer[n][0].numel() * layer[n].element_size()
                  for layer in pages for n in names if n in layer)
-    auto = sum(2 * layer["k"][0].numel() * 4 for layer in pages)
+    auto = sum(2 * layer["k"][0].numel() * 4 for layer in pages
+               if "k" in layer)
     return stored, auto
 
 
-def compact_pool(pages, bt):
+def compact_pool(cfg, pages, bt):
     """A copy of the blocks of the pool ``pages`` that the block tables
     ``bt`` (trash-padded) name, the trash block 0 first, and ``bt``
-    renumbered onto it: a decode step over the copy computes what it
-    would over the pool, for the bytes of the batch's blocks alone (the
-    pool of gemma-7b's f32 case, 23.5 GB, and a clone of it do not fit
-    beside its 37.3 GB of weights)."""
+    renumbered onto it, with a copy of every state (Mamba) layer's slot
+    rows whole (the step moves them on in place): a decode step over the
+    copy computes what it would over the pool, for the bytes of the
+    batch's blocks alone (the pool of gemma-7b's f32 case, 23.5 GB, and a
+    clone of it do not fit beside its 37.3 GB of weights)."""
     from repro_torch.serving.paged import raw_view
     ids = torch.unique(torch.cat([torch.zeros(1, dtype=bt.dtype,
                                               device=bt.device),
                                   bt.flatten()]))
-    renumber = torch.zeros(pages[0]["k"].shape[0], dtype=bt.dtype,
+    renumber = torch.zeros(cfg.serving.num_blocks, dtype=bt.dtype,
                            device=bt.device)
     renumber[ids.long()] = torch.arange(len(ids), dtype=bt.dtype,
                                         device=bt.device)
-    copy = [{k: raw_view(v)[ids.long()].view(v.dtype)
-             for k, v in layer.items()} for layer in pages]
+    copy = [{k: v.clone() for k, v in layer.items()}
+            if cfg.plan_for(spec).kind == "state" else
+            {k: raw_view(v)[ids.long()].view(v.dtype)
+             for k, v in layer.items()}
+            for spec, layer in zip(cfg.layer_specs, pages)]
     return copy, renumber[bt.long()]
 
 
 def pool_block_bytes_check(cfg, pages) -> int:
     """The bytes one block id holds in every leaf of the engine's pool
-    ``pages``, which must equal ``serving.paged.pool_block_bytes``'s
-    ``per_block_id`` (the accounting the serving benchmark reads)."""
+    ``pages`` (state layers' slot rows are no block's), which must equal
+    ``serving.paged.pool_block_bytes``'s ``per_block_id`` (the accounting
+    the serving benchmark reads)."""
     from repro_torch.serving.paged import pool_block_bytes
     held = sum(leaf[0].numel() * leaf.element_size()
-               for layer in pages for leaf in layer.values())
+               for spec, layer in zip(cfg.layer_specs, pages)
+               if cfg.plan_for(spec).kind != "state"
+               for leaf in layer.values())
     want = pool_block_bytes(cfg)["per_block_id"]
     if held != want:
         raise AssertionError(f"a block id holds {held} B in the pool, "
@@ -2030,16 +2170,17 @@ def pool_block_bytes_check(cfg, pages) -> int:
 
 def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
                      kv_dtype="auto", ref_tokens=None, legacy=False,
-                     num_groups=None):
+                     num_groups=None, after=None):
     """One continuous run of ``arch`` with ``backend`` on K/V pages stored
-    as ``kv_dtype`` (see the module docstring, phases 5 to 7), on the
-    card case's weights ``params``; ``legacy``: whole-prompt bucketed
+    as ``kv_dtype`` (see the module docstring, phases 5 to 7 and 5e), on
+    the card case's weights ``params``; ``legacy``: whole-prompt bucketed
     prefill; ``num_groups``: the depth cut to that many groups, on the
     first layers of ``params``.  ``ref_tokens``: (label, the generated
     tokens of another run of the same case), whose agreement with this
-    run's is logged (a number, not a gate).  Returns (the launches of
-    the kernels the run is read for, the generated tokens, the run's
-    wall seconds)."""
+    run's is logged (a number, not a gate).  ``after(engine, reqs)``: a
+    further check of the finished run.  Returns (the launches of the
+    kernels the run is read for, the generated tokens, the run's wall
+    seconds)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import card_continuous_case
@@ -2055,32 +2196,32 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         cfg = cfg.replace(num_groups=num_groups)
         params = dict(params, layers=params["layers"][:cfg.num_layers])
     sv = cfg.serving
-    kinds = [s.attn_type for s in cfg.layer_specs]
+    kinds = layer_kinds(cfg)
     # kernel -> layers it runs on
     layers = {name: kinds.count("global")}
     if cfg.use_ring_kernel:
         layers["paged_ring"] = kinds.count("local")
     if legacy:
-        layers["flash_prefill"] = cfg.num_layers
+        layers["flash_prefill"] = len(kinds) - kinds.count("mamba")
     engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
     block_bytes, block_bytes_auto = kv_block_bytes(engine.pages)
     pool_bytes = pool_block_bytes_check(cfg, engine.pages)
     # the widest decode batch of the run, captured with a copy of the
-    # pool's blocks it reads for the kernel-vs-plain check below (never
-    # an iteration whose next decode opens a block: every write then
-    # lands in a real page)
+    # pool's blocks it reads and of its state rows for the kernel-vs-plain
+    # check below (never an iteration whose next decode opens a block:
+    # every write then lands in a real page)
     snap = {}
 
     def hook(eng, it):
         running = [eng.scheduler.running[s]
                    for s in sorted(eng.scheduler.running)]
         if len(running) <= len(snap.get("reqs", ())) or any(
-                r.done or len(r.blocks) * sv.block_size <= r.pos
-                for r in running):
+                r.done or eng.scheduler._blocks_for(r.pos + 1) >
+                len(r.blocks) for r in running):
             return
         snap.pop("pages", None)          # the last capture's, before this
         tokens, bt, pos = eng._batch_inputs(running)
-        pages, bt = compact_pool(eng.pages, bt)
+        pages, bt = compact_pool(cfg, eng.pages, bt)
         snap.update(reqs=[r.rid for r in running], iteration=it,
                     inputs=(tokens, bt, pos), pages=pages)
 
@@ -2123,6 +2264,8 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     if m.preemptions:
         raise AssertionError(f"{m.preemptions} preemptions in a pool sized "
                              "to need none")
+    if after is not None:
+        after(engine, reqs)
     # offline run: every request arrives at the run's start, and the
     # engine stamps no TTFT (0); take it from the first token's wall time
     first = np.array([r.token_walls[0] for r in reqs])
@@ -2182,7 +2325,7 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         gate: dataclasses.replace(getattr(cfg, gate),
                                   use_paged_kernel=False)})
     live = pos > 0                   # idle slots decode the trash page
-    forced, swapped = None, []
+    forced, swapped, rerouted = None, [], []
     with (socket_ties_shared(swapped) if backend == "socket_fused" else
           contextlib.nullcontext()):
         if kv_dtype != "auto":
@@ -2190,11 +2333,14 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
                                        clone(plain_pages), tokens, pos, bt,
                                        live)
             kernel_pages = clone(plain_pages)
-        lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos, bt)
-        del kernel_pages
-        lp, _ = make_serve_step(cfg_plain)(params, plain_pages, tokens, pos,
-                                           bt)
-        del plain_pages
+        with moe_routes_shared(rerouted) as moe_to_plain:
+            lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos,
+                                         bt)
+            del kernel_pages
+            moe_to_plain()
+            lp, _ = make_serve_step(cfg_plain)(params, plain_pages, tokens,
+                                               pos, bt)
+            del plain_pages
     lk, lp = lk[live], lp[live]
     for label, t in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(t).all()):
@@ -2214,7 +2360,10 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         + ("" if backend != "socket_fused" else
            f"; SOCKET rows inside the top-k threshold band that the plain "
            f"path took from the kernel's selection: {sum(swapped)} in "
-           f"{len(swapped)} calls"))
+           f"{len(swapped)} calls")
+        + ("" if not cfg.uses_moe else
+           f"; MoE tokens the plain path sent to the kernel path's "
+           f"experts: {sum(rerouted)}"))
     gated = err if forced is None else forced
     if gated > LOGITS_ATOL:
         raise AssertionError(f"{arch} {backend} {kv_dtype}: continuous "
@@ -2874,9 +3023,179 @@ def legacy_phase(dev, seed, card, params, arch, chunked, launches):
     log(f"legacy phase ({arch}): {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ phase 5e
+
+# mamba2's state carry (phase 5e): each request's logits of its last
+# engine step (chunks of 512 = 4 x ssm_chunk carried through its slot's
+# state rows, then 31 recurrent decode steps) against one whole-sequence
+# prefill of its prompt and all but its last token (one chunked SSD).
+# Measured 6.4e-6 to 1.03e-5 on an H100 (|logits| <= 9.8, seed 0); the
+# limit leaves ~10x headroom, and a carry zeroed at a chunk boundary
+# moves the logits far past it (tests/test_torch_smoke_checks.py).
+STATE_CARRY_ATOL = 1e-4
+
+
+def last_step_logits(engine) -> dict:
+    """Wraps ``engine._pick``: fills rid -> the logits row (padded vocab)
+    of the last step that picked a token for the request (its final
+    prefill chunk, then each decode step), and returns that dict."""
+    inner, last = engine._pick, {}
+
+    def pick(logits, reqs=()):
+        for i, r in enumerate(reqs):
+            if r is not None:
+                last[r.rid] = logits[i, -1].detach().clone()
+        return inner(logits, reqs)
+
+    engine._pick = pick
+    return last
+
+
+@torch.no_grad()
+def state_carry_check(cfg, params, reqs, last, atol=STATE_CARRY_ATOL):
+    """Each finished request's last-step logits ``last[rid]`` against a
+    whole-sequence prefill of its prompt and all but its last generated
+    token: the state the engine carried across chunks and decode steps
+    against the state one chunked SSD builds.  Returns the max |logits
+    error| of each request; raises above ``atol``."""
+    from repro_torch.runtime.steps import make_prefill_step
+    errs = []
+    for r in reqs:
+        seq = list(r.prompt) + list(r.generated[:-1])
+        ref = last[r.rid]
+        logits, _ = make_prefill_step(cfg, len(seq))(
+            params, {"tokens": torch.tensor([seq], device=ref.device)})
+        errs.append((logits[0, -1] - ref).abs().max().item())
+        del logits
+    if max(errs) > atol:
+        raise AssertionError(f"the engine's carried state gives last-step "
+                             f"logits {max(errs):.3e} from a whole-sequence "
+                             f"prefill's (atol {atol}): {errs}")
+    return errs
+
+
+def ring_wrap_check(cfg, engine, reqs) -> dict:
+    """Every request whose prompt is longer than its ring (``cfg.
+    ring_geometry()``'s rows) wrapped it: its prefill chunks ran past the
+    ring's rows, into pages the ring had already written.  Returns rid ->
+    (prompt length, the last chunk's end)."""
+    rows = cfg.ring_geometry()[1]
+    ends = {}
+    for _, rid, start, n in engine.chunk_trace:
+        ends[rid] = max(ends.get(rid, 0), start + n)
+    long = {r.rid: (len(r.prompt), ends.get(r.rid, 0)) for r in reqs
+            if len(r.prompt) > rows}
+    bad = [rid for rid, (_, end) in long.items() if end <= rows]
+    if not long or bad:
+        raise AssertionError(f"rings that did not wrap: {bad} of "
+                             f"{sorted(long)} (ring rows {rows})")
+    return long
+
+
+def phase_state_carry(dev, seed, card, params) -> None:
+    """mamba2-780m at full width and depth through the continuous engine
+    (see the module docstring, phase 5e)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import card_continuous_case
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.paged import gather_footprint
+    new_tokens = 32
+    cfg, reqs = card_continuous_case(get_config("mamba2-780m"), seed,
+                                     new_tokens)
+    engine = ContinuousBatchingEngine(cfg, params=params, device=dev)
+    used = []
+    engine.iter_hook = lambda eng, it: used.append(eng.pool.num_used)
+    last = last_step_logits(engine)
+    reset_launches()
+    t0 = time.perf_counter()
+    engine.warmup(reqs)
+    warm_s = time.perf_counter() - t0
+    m = engine.run(reqs, realtime=False)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    bad = [r.rid for r in reqs if r.state != "finished"
+           or len(r.generated) != new_tokens]
+    if bad or launches or m.preemptions or not used or max(used):
+        raise AssertionError(
+            f"mamba2-780m: unfinished {bad}, kernels {launches}, "
+            f"{m.preemptions} preemptions, pool blocks used up to "
+            f"{max(used, default=None)}")
+    t0 = time.perf_counter()
+    errs = state_carry_check(cfg, params, reqs, last)
+    check_s = time.perf_counter() - t0
+    first = np.array([r.token_walls[0] for r in reqs])
+    log(json.dumps({
+        "continuous_path": cfg.name, "backend": None,
+        "layers": cfg.num_layers, "requests": len(reqs),
+        "prompt_lens": [len(r.prompt) for r in reqs],
+        "max_new_tokens": new_tokens,
+        "prefill_chunk": cfg.serving.prefill_chunk,
+        "ssm_chunk": cfg.ssm_chunk, "warmup_s": warm_s,
+        **dict(m.to_json(), ttft_s_mean=float(first.mean())),
+        "pool_blocks_used_max": max(used),
+        "state_bytes_per_step":
+        gather_footprint(cfg)["state_bytes_per_step"],
+        "last_step_logits_err_by_request": errs,
+        "state_carry_atol": STATE_CARRY_ATOL,
+        "max_abs_logits": max(v.abs().max().item() for v in last.values()),
+        "whole_sequence_check_s": check_s,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+        "card": card}))
+
+
+def phase_state_moe(dev, seed, card) -> dict:
+    """Phase 5e (see the module docstring): jamba through the static path
+    and the engine, mamba2's state carry, mixtral's MoE on wrapped rings;
+    each architecture's weights freed after it.  Returns the runs'
+    launches, named ``kernel[arch ...]``."""
+    launches = {}
+    jamba = "jamba-v0.1-52b"
+    with phase_clock(f"{jamba} static phase", dev):
+        counts, params = phase_main(dev, seed, card, jamba)
+    launches.update({f"{k}[{jamba} static]": v for k, v in counts.items()})
+    with phase_clock(f"continuous phase ({jamba} socket_fused, auto)", dev):
+        counts, _, _ = phase_continuous(dev, seed, card, params,
+                                        "socket_fused", arch=jamba)
+    launches.update({f"{k}[{jamba} auto]": v for k, v in counts.items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = draw_params(dev, seed, "mamba2-780m")
+    with phase_clock("state-carry phase (mamba2-780m)", dev):
+        phase_state_carry(dev, seed, card, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral = "mixtral-8x22b"
+    params = draw_params(dev, seed, mixtral)
+    wraps = {}
+
+    def after(engine, reqs):
+        wraps.update(ring_wrap_check(engine.cfg, engine, reqs))
+
+    with phase_clock(f"continuous phase ({mixtral} socket_fused, ring "
+                     "kernel)", dev):
+        counts, _, _ = phase_continuous(dev, seed, card, params,
+                                        "socket_fused", arch=mixtral,
+                                        after=after)
+    log(f"{mixtral}: rings wrapped by the prompts longer than the window "
+        f"(rid: prompt, last chunk's end): {wraps}")
+    launches.update({f"{k}[{mixtral} auto]": v for k, v in counts.items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"state_moe_launches": launches}))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["state-moe"], default=None,
+                    help="build the kernels and run this phase alone "
+                         "(5e); prints neither the kernels line nor the "
+                         "ok line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2891,6 +3210,12 @@ def main(argv=None) -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+    if args.only == "state-moe":
+        build_kernels()
+        t0 = time.perf_counter()
+        phase_state_moe(dev, args.seed, card)
+        log(f"state and MoE phase: {time.perf_counter() - t0:.1f} s")
+        return 0
     t0 = time.perf_counter()
     rows = phase_kernels(dev, args.seed)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
@@ -2944,6 +3269,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches.update(phase_all_global(dev, args.seed, card))
     log(f"all-global phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(phase_state_moe(dev, args.seed, card))
+    log(f"state and MoE phase: {time.perf_counter() - t0:.1f} s")
     params = draw_params(dev, args.seed, "gemma3-27b")
     auto = None
     for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:

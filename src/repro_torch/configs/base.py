@@ -5,15 +5,16 @@ paths read: :class:`LayerSpec`, :class:`SocketSettings`,
 :class:`QuestSettings` (the Quest baseline's page geometry),
 :class:`ServingSettings` (the continuous engine's pool geometry),
 :class:`LayerCachePlan` and :class:`ModelConfig` with ``smoke()``,
-``replace()``, ``padded_vocab()``, ``param_count()``, ``validate()`` and
+``replace()``, ``padded_vocab()``, ``param_count()``,
+``active_param_count()``, ``validate()`` and
 ``cache_plan()``.  Field names and defaults are the JAX package's, so a
 config built here and one built there describe the same model.
 
-Fields of layers the port does not run yet (MoE, Mamba) are left out,
-and cache plans resolve attention layers only (kind ``paged`` for global
-layers, ``ring`` for sliding-window ones, each with the K/V page storage
-mode ``serving.kv_dtype``); state plans come with the slice that ports
-Mamba layers (ROADMAP.md queue 1 item 7).
+Cache plans resolve global attention layers to kind ``paged``,
+sliding-window ones to ``ring`` (each with the K/V page storage mode
+``serving.kv_dtype``) and Mamba layers to ``state`` (never quantized).
+The JAX package's training and sharding knobs (``remat_policy``,
+``logical_pad_heads``, ``decode_cp_*``) are left out.
 """
 
 from __future__ import annotations
@@ -103,11 +104,13 @@ class LayerCachePlan:
       linearly.
     * ``kind == "ring"`` (sliding-window attention) — K/V pages addressed
       circularly through the first ``ring_blocks`` block-table entries.
+    * ``kind == "state"`` (Mamba/SSD) — conv tail + recurrent state held
+      as one row per decode slot; consumes no pool blocks at all.
 
     ``kv_dtype`` is the layer's K/V page storage mode, resolved from
     ``ServingSettings.kv_dtype`` (``"auto"``, ``"bf16"``, or quantized
-    ``"int8"``/``"fp8"`` pages with per-row scale leaves).  State (Mamba)
-    plans come with ROADMAP.md queue 1 item 7."""
+    ``"int8"``/``"fp8"`` pages with per-row scale leaves); state layers
+    always resolve to ``"auto"`` (recurrent state is never quantized)."""
 
     kind: str
     ring_blocks: int = 0
@@ -196,6 +199,19 @@ class ModelConfig:
     attn_q_chunk: int = 0
     # --- mlp ------------------------------------------------------------
     mlp_activation: str = "swiglu"  # "swiglu" | "geglu"
+    # --- moe ------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_parallelism: str = "ep"     # "ep" | "tp": the JAX package's sharding
+    moe_dispatch: str = "global"    # "global" | "batch" (see models.moe)
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    # --- mamba (SSD) ------------------------------------------------------
+    ssm_state: int = 128
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
     # --- io -------------------------------------------------------------
     input_mode: str = "tokens"
     tie_embeddings: bool = False
@@ -227,6 +243,18 @@ class ModelConfig:
     @property
     def gqa_groups(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    @property
+    def d_inner(self) -> int:  # mamba inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def uses_moe(self) -> bool:
+        return any(s.mlp == "moe" for s in self.layer_specs)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -335,12 +363,10 @@ class ModelConfig:
 
     def plan_for(self, spec: LayerSpec) -> LayerCachePlan:
         """One layer's cache plan (see :class:`LayerCachePlan`): paged and
-        ring K/V both take ``serving.kv_dtype``."""
+        ring K/V both take ``serving.kv_dtype``; state rows are never
+        quantized."""
         if spec.kind != "attn":
-            raise NotImplementedError(
-                f"{spec.kind} layers have no cache plan in the port yet: "
-                "state plans come with Mamba layers (ROADMAP.md queue 1 "
-                "item 7)")
+            return LayerCachePlan(kind="state")
         if spec.attn_type == "local":
             return LayerCachePlan(kind="ring",
                                   ring_blocks=self.ring_geometry()[0],
@@ -357,24 +383,42 @@ class ModelConfig:
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
 
     def param_count(self) -> int:
-        """Exact parameter count (embeddings included) of an attention +
-        dense-MLP stack, the only layer kinds this port builds."""
+        """Exact parameter count of this config (embeddings included)."""
         d, h, kv, hd, ff = (self.d_model, self.num_heads, self.num_kv_heads,
                             self.head_dim, self.d_ff)
-        n = self.padded_vocab() * d
+        n = self.padded_vocab() * d                        # embed
         if not self.tie_embeddings:
-            n += d * self.padded_vocab()
+            n += d * self.padded_vocab()                   # lm head
         for spec in self.layer_specs:
-            if spec.kind != "attn" or spec.mlp not in ("dense", "none"):
-                raise NotImplementedError(
-                    f"param_count of a {spec.kind}/{spec.mlp} layer: the "
-                    "port counts attention + dense MLP layers only")
-            n += d + d * (h + 2 * kv) * hd + h * hd * d
-            if self.qk_norm:
-                n += 2 * hd
+            n += d                                          # pre norm
+            if spec.kind == "attn":
+                n += d * (h + 2 * kv) * hd + h * hd * d
+                if self.qk_norm:
+                    n += 2 * hd
+            else:
+                di, st, nh = self.d_inner, self.ssm_state, self.ssm_heads
+                conv_dim = di + 2 * st
+                n += d * (2 * di + 2 * st + nh)            # in_proj
+                n += conv_dim * self.ssm_conv_width + conv_dim
+                n += nh * 2 + nh                           # A_log, dt_bias, D
+                n += di                                    # gated norm
+                n += di * d                                # out_proj
             if spec.mlp == "dense":
                 n += d + 3 * d * ff
-        return n + d
+            elif spec.mlp == "moe":
+                n += d + d * self.num_experts              # norm + router
+                n += self.num_experts * 3 * d * ff
+        return n + d                                       # final norm
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.uses_moe:
+            return self.param_count()
+        full_moe = sum(1 for s in self.layer_specs if s.mlp == "moe")
+        per_expert = 3 * self.d_model * self.d_ff
+        inactive = full_moe * (self.num_experts -
+                               self.num_experts_per_tok) * per_expert
+        return self.param_count() - inactive
 
     def smoke(self) -> "ModelConfig":
         """A drastically reduced config of the same family for CPU tests:
@@ -388,6 +432,12 @@ class ModelConfig:
             vocab_size=256,
             num_groups=min(self.num_groups, 2),
             remainder=self.remainder[: min(len(self.remainder), 1)],
+            num_experts=min(self.num_experts, 4) if self.num_experts else 0,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2)
+            if self.num_experts_per_tok else 0,
+            ssm_state=16,
+            ssm_head_dim=16,
+            ssm_chunk=16,
             sliding_window=32,
             socket=dataclasses.replace(
                 self.socket, num_planes=6, num_tables=12, sink_tokens=4,
@@ -396,5 +446,8 @@ class ModelConfig:
             serving=dataclasses.replace(
                 self.serving, block_size=8, num_blocks=48, max_batch=4,
                 max_blocks_per_seq=8, prefill_buckets=(24, 32, 48, 64),
+                # prefill_chunk == smoke ssm_chunk: chunk boundaries land
+                # on the SSD grid, so chunked prefill carries Mamba state
+                # across chunks bit-exactly vs the whole-bucket path
                 prefill_chunk=16),
         )

@@ -2,9 +2,12 @@
 
 The port serves the all-global-attention decoders (llama31-8b, the
 paper's eval model; stablelm-12b; minitron-8b; gemma-7b, MHA at head dim
-256) and gemma3's 5:1 sliding-window (local) : global layout.  The JAX
-package's other architectures need layers that later slices bring;
-asking for one raises :class:`NotImplementedError` naming that slice.
+256), gemma3's 5:1 sliding-window (local) : global layout, the MoE
+decoders (mixtral-8x22b on sliding-window layers, llama4-maverick's
+interleaved dense/MoE layers), jamba's 1:7 attention : Mamba hybrid with
+MoE, and the attention-free mamba2.  The JAX package's embeddings-input
+architectures need frontends that a later slice brings; asking for one
+raises :class:`NotImplementedError` naming that slice.
 """
 
 from __future__ import annotations
@@ -14,7 +17,12 @@ from typing import Dict
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3_27B
 from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
+from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA_V01_52B
+from repro_torch.configs.llama4_maverick_400b import CONFIG as \
+    LLAMA4_MAVERICK
+from repro_torch.configs.mamba2_780m import CONFIG as MAMBA2_780M
 from repro_torch.configs.minitron_8b import CONFIG as MINITRON_8B
+from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL_8X22B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 
 # The paper evaluates SOCKET on Llama-3.1-8B-Instruct; this reference
@@ -42,15 +50,15 @@ ARCHITECTURES: Dict[str, ModelConfig] = {
     "gemma3-27b": GEMMA3_27B,
     "minitron-8b": MINITRON_8B,
     "gemma-7b": GEMMA_7B,
+    "mixtral-8x22b": MIXTRAL_8X22B,
+    "llama4-maverick-400b-a17b": LLAMA4_MAVERICK,
+    "jamba-v0.1-52b": JAMBA_V01_52B,
+    "mamba2-780m": MAMBA2_780M,
 }
 
 # Architectures of the JAX package that the port does not build yet, with
 # the later slice (ROADMAP.md queue 1) that brings what each needs.
 LATER: Dict[str, str] = {
-    "mixtral-8x22b": "ROADMAP.md queue 1 item 7 (MoE layers)",
-    "llama4-maverick-400b-a17b": "ROADMAP.md queue 1 item 7 (MoE layers)",
-    "jamba-v0.1-52b": "ROADMAP.md queue 1 item 7 (Mamba and MoE layers)",
-    "mamba2-780m": "ROADMAP.md queue 1 item 7 (Mamba layers)",
     "musicgen-medium": "ROADMAP.md queue 1 item 11 (embeddings-input "
                        "frontends: audio)",
     "internvl2-26b": "ROADMAP.md queue 1 item 11 (embeddings-input "

@@ -21,9 +21,20 @@ same rows) — timed and traced like a static step.  Then, with llama31-8b's wei
 SOCKET kernel at 16 KV heads, G 1; llama31-8b's traffic) and
 gemma3-27b's (full width, 14 of 62 layers: 12 local through
 ``paged_ring``, 2 global through the paged SOCKET kernel; 8 requests of
-2048-6144 tokens) the same way, each on weights of its own.
+2048-6144 tokens) the same way, each on weights of its own.  Last,
+jamba-v0.1-52b's case (full width, 8 of 32 layers: 1 attention through
+the paged SOCKET kernel, 7 Mamba, 4 MoE of 16 experts; llama31-8b's
+traffic), its MoE expert products (``moe_experts``), the rest of its MoE
+layers (``moe``: routing, dispatch, combine) and its Mamba layers
+(``mamba``) as their own parts: each is a ``torch.profiler``
+``record_function`` span while traced, and a device kernel belongs to
+the innermost span whose device-side range holds its start
+(``spans_seen`` lists the spans the trace held); then mamba2-780m's (48
+Mamba layers at full width, no pool blocks; the same traffic and spans).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
+        --arch jamba-v0.1-52b --arch mamba2-780m
 
 Needs a CUDA card.  Prints one JSON line per path.
 """
@@ -31,6 +42,7 @@ Needs a CUDA card.  Prints one JSON line per path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import time
@@ -45,7 +57,8 @@ from repro_torch.launch.serve import (apply_backend_arg, card_line,
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 
-__all__ = ["kernel_part", "run_backend", "run_continuous", "main"]
+__all__ = ["kernel_part", "run_backend", "run_continuous", "run_llama",
+           "span_part", "main"]
 
 ARCH, BATCH, PROMPT_LEN, Q_CHUNK = "llama31-8b", 2, 8192, 512
 BACKENDS = ("socket", "dense")
@@ -53,6 +66,8 @@ CONTINUOUS_BACKENDS = ("socket_fused", "hard_lsh_fused", "quest_fused")
 # (backend, kv_dtype) of the quantized-page rows
 CONTINUOUS_QUANT = (("socket_fused", "int8"), ("socket_fused", "fp8"))
 TRACED_STEPS, TIMED_STEPS = 4, 16
+# the continuous cases run after llama31-8b's, each on weights of its own
+LATER_ARCHS = ("gemma-7b", "gemma3-27b", "jamba-v0.1-52b", "mamba2-780m")
 
 # kernel-name substrings -> part of the decode path (first match wins)
 PARTS = (
@@ -69,7 +84,17 @@ PARTS = (
 )
 
 
+# (span name, module, function) traced as their own parts: a device
+# kernel inside one of these ``record_function`` spans is its part
+SPANS = (("moe_experts", "repro_torch.models.moe", "_expert_ffn"),
+         ("moe", "repro_torch.models.moe", "apply_moe"),
+         ("mamba", "repro_torch.models.mamba", "mamba_decode"))
+SPAN_PREFIX = "span:"
+
+
 def kernel_part(name: str) -> str:
+    if name.startswith(SPAN_PREFIX):
+        return name[len(SPAN_PREFIX):].split("|", 1)[0]
     low = name.lower()
     for part, keys in PARTS:
         if any(k in low for k in keys):
@@ -77,24 +102,72 @@ def kernel_part(name: str) -> str:
     return "other"
 
 
-def _profile(step, steps):
+@contextlib.contextmanager
+def _spans():
+    """Each function of ``SPANS`` wrapped in a ``record_function`` span of
+    its name."""
+    import importlib
+    saved = []
+    for label, mod_name, fn_name in SPANS:
+        mod = importlib.import_module(mod_name)
+        inner = getattr(mod, fn_name)
+
+        def wrapped(*args, _inner=inner, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _inner(*args, **kw)
+
+        saved.append((mod, fn_name, inner))
+        setattr(mod, fn_name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, fn_name, inner in saved:
+            setattr(mod, fn_name, inner)
+
+
+def span_part(kernels, spans):
+    """``kernels``: (name, start, ms) device kernels; ``spans``: (label,
+    start, end) device-side ``record_function`` ranges.  Each kernel
+    inside a span is renamed ``span:<label>|<name>`` after the innermost
+    (shortest) span holding its start.  Returns name -> ms."""
+    by_kernel = defaultdict(float)
+    for name, start, ms in kernels:
+        inside = [(end - s0, label) for label, s0, end in spans
+                  if s0 <= start < end]
+        if inside:
+            name = f"{SPAN_PREFIX}{min(inside)[1]}|{name}"
+        by_kernel[name] += ms
+    return dict(by_kernel)
+
+
+def _profile(step, steps, spans=False):
     """Trace ``steps`` calls of ``step()``: (host wall ms, device ms by
-    kernel name)."""
+    kernel name, the span labels the trace held).  ``spans``: trace the
+    functions of ``SPANS`` as their own parts (:func:`span_part`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            (_spans() if spans else contextlib.nullcontext()):
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = defaultdict(float)
+    labels = {label for label, _, _ in SPANS}
+    kernels, ranges = [], []
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_kernel[evt.name] += evt.time_range.elapsed_us() / 1e3
-    return wall_ms, dict(by_kernel)
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        tr = evt.time_range
+        if evt.is_user_annotation:
+            if evt.name in labels:
+                ranges.append((evt.name, tr.start, tr.end))
+            continue
+        kernels.append((evt.name, tr.start, tr.elapsed_us() / 1e3))
+    return wall_ms, span_part(kernels, ranges), \
+        sorted({label for label, _, _ in ranges})
 
 
 def _time_ms(step, steps):
@@ -145,7 +218,7 @@ def run_backend(cfg, params, prompt, steps, timed_steps):
         state["pos"] += 1
 
     step_ms = _time_ms(step, timed_steps)
-    wall_ms, by_kernel = _profile(step, steps)
+    wall_ms, by_kernel, _ = _profile(step, steps)
     return _breakdown(step_ms, wall_ms, by_kernel, steps)
 
 
@@ -162,7 +235,6 @@ def run_continuous(params, seed, steps, timed_steps, device,
     if params is None:
         params = tfm.init_model(cfg, seed, device)
     engine = ContinuousBatchingEngine(cfg, params=params, device=device)
-    bs = cfg.serving.block_size
     snap = {}
 
     def hook(eng, it):
@@ -170,10 +242,13 @@ def run_continuous(params, seed, steps, timed_steps, device,
         decode together and none opens a block on its next token."""
         running = [eng.scheduler.running[s]
                    for s in sorted(eng.scheduler.running)]
-        if len(running) < len(reqs) or any(len(r.blocks) * bs <= r.pos
-                                           for r in running):
+        if len(running) < len(reqs) or any(
+                eng.scheduler._blocks_for(r.pos + 1) > len(r.blocks)
+                for r in running):
             return False
         snap["inputs"] = eng._batch_inputs(running)
+        snap["reqs"] = [eng.scheduler.running.get(i)
+                        for i in range(cfg.serving.max_batch)]
         snap["context"] = [r.pos for r in running]
         return True
 
@@ -183,31 +258,53 @@ def run_continuous(params, seed, steps, timed_steps, device,
     tokens, bt, pos = snap["inputs"]
 
     def step():
-        engine._decode_body(tokens, bt, pos)
+        engine._decode_body(tokens, bt, pos, snap["reqs"])
 
     for _ in range(2):                                  # warm-up
         step()
     step_ms = _time_ms(step, timed_steps)
-    wall_ms, by_kernel = _profile(step, steps)
+    spans = cfg.uses_moe or any(s.kind == "mamba" for s in cfg.layer_specs)
+    wall_ms, by_kernel, seen = _profile(step, steps, spans=spans)
     return {"batch": len(reqs), "context": snap["context"],
             "layers": cfg.num_layers,
+            **({"spans_seen": seen} if spans else {}),
             **_breakdown(step_ms, wall_ms, by_kernel, steps)}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", action="append", choices=LATER_ARCHS,
+                    help="run only these later continuous cases (again "
+                         "for more), not llama31-8b's")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    if not args.arch:
+        run_llama(args.seed, dev, card)
+    for arch in args.arch or LATER_ARCHS:
+        row = run_continuous(None, args.seed, TRACED_STEPS, TIMED_STEPS,
+                             dev, "socket_fused", arch=arch)
+        print(json.dumps({"arch": arch, "engine": "continuous",
+                          "backend": "socket_fused",
+                          "use_ring_kernel": arch == "gemma3-27b",
+                          "device": device_name(dev), "card": card, **row}),
+              flush=True)
+        gc.collect()                     # the arch's weights and pool
+        torch.cuda.empty_cache()
+
+
+def run_llama(seed, dev, card):
+    """llama31-8b's static and continuous rows (see the module
+    docstring); its weights are freed at the end."""
     base = get_config(ARCH).replace(attn_q_chunk=Q_CHUNK)
-    params = tfm.init_model(base, args.seed, dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    params = tfm.init_model(base, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
     prompt = torch.randint(0, base.vocab_size, (BATCH, PROMPT_LEN),
                            generator=gen, device=dev)
-    card = card_line()
     for backend in BACKENDS:
         cfg = apply_backend_arg(base, backend)
         row = run_backend(cfg, params, prompt, TRACED_STEPS, TIMED_STEPS)
@@ -219,7 +316,7 @@ def main(argv=None):
     runs = [(b, "auto") for b in CONTINUOUS_BACKENDS] + \
         list(CONTINUOUS_QUANT)
     for backend, kv_dtype in runs:
-        row = run_continuous(params, args.seed, TRACED_STEPS, TIMED_STEPS,
+        row = run_continuous(params, seed, TRACED_STEPS, TIMED_STEPS,
                              dev, backend, kv_dtype=kv_dtype)
         print(json.dumps({"arch": ARCH, "engine": "continuous",
                           "backend": backend, "kv_dtype": kv_dtype,
@@ -230,16 +327,6 @@ def main(argv=None):
     del params                           # llama31-8b's weights
     gc.collect()
     torch.cuda.empty_cache()
-    for arch in ("gemma-7b", "gemma3-27b"):
-        row = run_continuous(None, args.seed, TRACED_STEPS, TIMED_STEPS,
-                             dev, "socket_fused", arch=arch)
-        print(json.dumps({"arch": arch, "engine": "continuous",
-                          "backend": "socket_fused",
-                          "use_ring_kernel": arch == "gemma3-27b",
-                          "device": device_name(dev), "card": card, **row}),
-              flush=True)
-        gc.collect()                     # the arch's weights and pool
-        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

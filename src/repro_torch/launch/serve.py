@@ -194,8 +194,12 @@ def run_serve(cfg, batch: int, prompt_len: int, decode_steps: int,
     toks = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
     # warm-up step outside the timed loop (kernel builds, allocator); it
     # writes row prompt_len in place, which timed step 0 rewrites with
-    # the same values
-    serve(params, caches, toks[-1], prompt_len)
+    # the same values, and moves copies of the Mamba layers' states on
+    warm = [c if spec.kind == "attn" else {k: v.clone() for k, v in
+                                           c.items()}
+            for spec, c in zip(cfg.layer_specs, caches)]
+    serve(params, warm, toks[-1], prompt_len)
+    del warm
     _sync(dev)
 
     t0 = time.perf_counter()
@@ -230,7 +234,13 @@ def make_poisson_requests(cfg, num_requests: int, rate_rps: float,
 # groups (14 of 62 layers: 12 local, 2 global), as all 62 do not fit the
 # card's 80 GB in fp32.  minitron-8b and gemma-7b run llama31-8b's
 # traffic at full depth (9.88 B and 9.32 B parameters, 39.5 and 37.3 GB
-# in fp32).  The legacy case's prefill buckets are 2048, 4096
+# in fp32).  jamba-v0.1-52b runs it on 1 of its 4 groups (8 of 32
+# layers: 1 attention, 7 Mamba, 4 MoE; 13.27 B parameters, 53.1 GB in
+# fp32, where all 51.46 B would take 206 GB); mamba2-780m at full depth
+# (48 Mamba layers, 0.857 B, 3.4 GB; it holds no pool blocks at all);
+# mixtral-8x22b on 4 of its 56 layers (10.42 B, 41.7 GB), its prompts of
+# 6144 and 8192 tokens wrapping the 4096-token window's 256-block ring.
+# The legacy case's prefill buckets are 2048, 4096
 # and max_context, so most prompts run padded (llama31-8b: 1024 and 3072;
 # gemma3-27b: 3072 and 6144) and their logits and rings are taken at the
 # last real token, short of the bucket's end.
@@ -239,6 +249,9 @@ CARD_CASES = {
     "gemma3-27b": ([2048, 3072, 4096, 6144], 392, 2048, 2),
     "minitron-8b": ([1024, 2048, 3072, 4096], 264, 1536, None),
     "gemma-7b": ([1024, 2048, 3072, 4096], 264, 1536, None),
+    "jamba-v0.1-52b": ([1024, 2048, 3072, 4096], 264, 1536, 1),
+    "mamba2-780m": ([1024, 2048, 3072, 4096], 264, 1536, None),
+    "mixtral-8x22b": ([2048, 4096, 6144, 8192], 520, 2600, 4),
 }
 
 

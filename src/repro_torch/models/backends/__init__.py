@@ -23,10 +23,12 @@ from repro_torch.models.backends.hard_lsh import HardLSHBackend
 from repro_torch.models.backends.quest import QuestBackend
 from repro_torch.models.backends.ring import RingCacheHandler
 from repro_torch.models.backends.socket import SocketBackend, socket_config_of
+from repro_torch.models.backends.state import StateCacheHandler
 
 __all__ = ["DecodeBackend", "KVView", "ContiguousView", "PagedView",
            "RingView", "LeafSpec", "LayerCacheSpec", "LayerCacheHandler",
-           "PagedKVCacheHandler", "RingCacheHandler", "layer_cache_handler",
+           "PagedKVCacheHandler", "RingCacheHandler", "StateCacheHandler",
+           "layer_cache_handler",
            "layer_cache_spec", "kv_quant_mode", "kv_leaf_specs",
            "kv_scales_of", "effective_keys", "quantize_kv",
            "write_prefill_kv", "write_token_kv", "gather_kv_rows",
@@ -67,13 +69,10 @@ def layer_cache_handler(cfg, spec) -> LayerCacheHandler:
     """Resolve one :class:`~repro_torch.configs.base.LayerSpec` to its
     pool-side cache handler — the device half of ``cfg.cache_plan()``:
     global attention layers get the decode backend's paged-KV layout,
-    sliding-window layers a bounded circular page ring.  Mamba (state)
-    layers come with ROADMAP.md queue 1 item 7."""
+    sliding-window layers a bounded circular page ring, Mamba layers
+    per-slot state rows."""
     if spec.kind != "attn":
-        raise NotImplementedError(
-            f"{spec.kind} layers have no cache handler in the port yet: the "
-            "state handler comes with Mamba layers (ROADMAP.md queue 1 "
-            "item 7)")
+        return StateCacheHandler()
     if spec.attn_type == "local":
         return RingCacheHandler()
     return PagedKVCacheHandler(get_backend(cfg.attention_backend))

@@ -124,6 +124,8 @@ class LayerCacheSpec:
       through the request block table (global-attention backends).
     * ``kind == "ring"`` — K/V pages addressed circularly through the
       first ``ring_blocks`` block-table entries (sliding-window layers).
+    * ``kind == "state"`` — no leaves: Mamba state rows, one per decode
+      slot (``backends.state``).
     """
 
     kind: str
@@ -644,8 +646,8 @@ class LayerCacheHandler:
     * ``write_prefill`` — scatter a fresh batch=1 whole-prompt prefill
                     cache (the legacy bucketed prefill) into the pool
                     pages of ``bt_row``; ``slot`` (the request's decode
-                    slot) is for per-slot state rows, which the port's
-                    handlers do not have yet.  Paged layers' leaves and
+                    slot) receives per-slot state rows (Mamba layers'
+                    handler).  Paged layers' leaves and
                     ring layers' page-aligned rings (``ring_blocks *
                     block_size`` rows, already in flat ring layout) both
                     scatter block for block.

@@ -6,7 +6,9 @@ of per-layer parameter dicts (``params["layers"]``, in ``cfg.layer_specs``
 order) walked by a loop, and the decode caches — or the continuous
 engine's page pool, which has the same per-layer list layout with
 ``(num_blocks, KVH, block_size, ...)`` leaves — are a list of per-layer
-dicts updated in place.
+dicts updated in place.  Mamba layers' caches are their recurrent
+state (``{"ssm", "conv"}``, one row per batch row, or in the pool one
+row per decode slot), also updated in place.
 """
 
 from __future__ import annotations
@@ -17,21 +19,14 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, embed_tokens,
                                        init_embedding, init_mlp,
                                        init_rmsnorm, lm_head, rmsnorm)
 
 __all__ = ["init_model", "init_decode_caches", "prefill", "prefill_chunk",
            "decode_step"]
-
-
-def _check_spec(spec: LayerSpec) -> None:
-    """Attention layers (global or sliding-window) with a dense MLP or
-    none; Mamba and MoE layers raise."""
-    if spec.kind != "attn" or spec.mlp not in ("dense", "none"):
-        raise NotImplementedError(
-            f"{spec.kind}/{spec.mlp} layers are not ported yet: Mamba and "
-            "MoE layers come with ROADMAP.md queue 1 item 7")
 
 
 def _check_inputs(cfg: ModelConfig) -> None:
@@ -45,12 +40,17 @@ def _check_inputs(cfg: ModelConfig) -> None:
 
 def _init_block(cfg: ModelConfig, gen: torch.Generator,
                 spec: LayerSpec) -> Dict:
-    _check_spec(spec)
-    params: Dict = {"norm_mix": init_rmsnorm(cfg.d_model, gen.device),
-                    "attn": attn.init_attention(cfg, gen)}
+    params: Dict = {"norm_mix": init_rmsnorm(cfg.d_model, gen.device)}
+    if spec.kind == "attn":
+        params["attn"] = attn.init_attention(cfg, gen)
+    else:
+        params["mamba"] = mb.init_mamba(cfg, gen)
     if spec.mlp == "dense":
         params["norm_mlp"] = init_rmsnorm(cfg.d_model, gen.device)
         params["mlp"] = init_mlp(cfg, gen)
+    elif spec.mlp == "moe":
+        params["norm_mlp"] = init_rmsnorm(cfg.d_model, gen.device)
+        params["moe"] = moe_mod.init_moe(cfg, gen)
     return params
 
 
@@ -58,40 +58,68 @@ def _mlp(cfg: ModelConfig, params: Dict, spec: LayerSpec,
          x: torch.Tensor) -> torch.Tensor:
     if spec.mlp == "dense":
         x = x + apply_mlp(cfg, params["mlp"], rmsnorm(params["norm_mlp"], x))
+    elif spec.mlp == "moe":
+        y, _ = moe_mod.apply_moe(cfg, params["moe"],
+                                 rmsnorm(params["norm_mlp"], x))
+        x = x + y
     return x
 
 
 def _block_prefill(cfg: ModelConfig, params: Dict, spec: LayerSpec,
                    x: torch.Tensor, positions: torch.Tensor, capacity: int,
                    last_index=None, paged: bool = False):
-    _check_spec(spec)
-    h, cache = attn.attention_prefill(cfg, params["attn"],
-                                      rmsnorm(params["norm_mix"], x),
-                                      positions, spec.attn_type, capacity,
-                                      last_index=last_index, paged=paged)
+    h = rmsnorm(params["norm_mix"], x)
+    if spec.kind == "attn":
+        h, cache = attn.attention_prefill(cfg, params["attn"], h, positions,
+                                          spec.attn_type, capacity,
+                                          last_index=last_index, paged=paged)
+    else:
+        h, cache = mb.mamba_train(cfg, params["mamba"], h,
+                                  return_state=True, last_index=last_index)
     return _mlp(cfg, params, spec, x + h), cache
 
 
 def _block_prefill_chunk(cfg: ModelConfig, params: Dict, spec: LayerSpec,
                          x: torch.Tensor, positions: torch.Tensor,
-                         cache: Dict, bt_row: torch.Tensor, history: int,
-                         last_index: int):
+                         cache: Dict, bt_row: torch.Tensor, slot: int,
+                         history: int, last_index: int):
     """One block's share of one prefill chunk, writing the pool in place
     (see :func:`prefill_chunk`)."""
-    _check_spec(spec)
-    h, cache = attn.attention_prefill_chunk(
-        cfg, params["attn"], rmsnorm(params["norm_mix"], x), positions,
-        spec.attn_type, cache, bt_row, history, last_index)
+    h = rmsnorm(params["norm_mix"], x)
+    if spec.kind == "attn":
+        h, cache = attn.attention_prefill_chunk(
+            cfg, params["attn"], h, positions, spec.attn_type, cache,
+            bt_row, history, last_index)
+    else:
+        # Mamba state carries across chunks through the slot's rows: read
+        # the previous chunk's SSD state and conv tail, run the chunk
+        # (padding past last_index is exact identity steps), write back.
+        # The first chunk starts from zeros: the slot row still holds the
+        # previous occupant's state (nothing scrubs it on free).
+        first = history == 0
+        h, st = mb.mamba_train(
+            cfg, params["mamba"], h,
+            h0=None if first else cache["ssm"][slot][None],
+            conv0=None if first else cache["conv"][slot][None],
+            return_state=True, last_index=[last_index])
+        for name in ("ssm", "conv"):
+            cache[name][slot] = st[name][0]
     return _mlp(cfg, params, spec, x + h), cache
 
 
 def _block_decode(cfg: ModelConfig, params: Dict, spec: LayerSpec,
                   x: torch.Tensor, cache: Dict, pos, block_tables=None):
-    _check_spec(spec)
-    h, cache = attn.attention_decode(cfg, params["attn"],
-                                     rmsnorm(params["norm_mix"], x), cache,
-                                     pos, spec.attn_type,
-                                     block_tables=block_tables)
+    h = rmsnorm(params["norm_mix"], x)
+    if spec.kind == "attn":
+        h, cache = attn.attention_decode(cfg, params["attn"], h, cache, pos,
+                                         spec.attn_type,
+                                         block_tables=block_tables)
+    else:
+        # every row's state moves on (in the pool: every decode slot's);
+        # the engine keeps idle slots' rows (paged.keep_state_rows)
+        h, new = mb.mamba_decode(cfg, params["mamba"], h, cache)
+        for name in ("ssm", "conv"):
+            cache[name].copy_(new[name])
     return _mlp(cfg, params, spec, x + h), cache
 
 
@@ -118,10 +146,15 @@ def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
     """One zero cache dict per layer, at ``capacity`` tokens.  ``pool`` (a
     ``ServingSettings``) switches to the paged-pool layout: local layers
     get full ``block_size``-row pages (the ring handler addresses them
-    circularly; no window truncation)."""
+    circularly; no window truncation) and Mamba layers one state row per
+    decode slot (``pool.max_batch``) instead of one per block."""
     caches = []
     for spec in cfg.layer_specs:
-        _check_spec(spec)
+        if spec.kind != "attn":
+            caches.append(mb.init_mamba_cache(
+                cfg, batch if pool is None else pool.max_batch,
+                device=device))
+            continue
         ring_cap = pool.block_size if (
             pool is not None and spec.attn_type == "local") else None
         caches.append(attn.init_attention_cache(
@@ -159,15 +192,16 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int,
 
 
 def prefill_chunk(cfg: ModelConfig, params: Dict, caches: List[Dict],
-                  tokens: torch.Tensor, *, bt_row: torch.Tensor, history: int,
-                  last_index: int):
+                  tokens: torch.Tensor, *, bt_row: torch.Tensor, slot: int,
+                  history: int, last_index: int):
     """One prefix-extension prefill chunk for the whole stack, straight
     against the serving engine's page pool.
 
     ``tokens``: ``(1, C)`` chunk token ids (the final chunk zero-padded to
     the chunk length); ``caches``: the pool (pages written in place);
     ``bt_row``: ``(max_blocks_per_seq + C / block_size,)`` trash-padded
-    block ids; ``history``: prompt tokens committed by earlier chunks;
+    block ids; ``slot``: the request's decode slot (carries Mamba state
+    across chunks); ``history``: prompt tokens committed by earlier chunks;
     ``last_index``: the last real in-chunk index.
 
     Returns ``(logits (1, 1, V_padded) at last_index, caches)`` — the
@@ -179,8 +213,8 @@ def prefill_chunk(cfg: ModelConfig, params: Dict, caches: List[Dict],
     positions = (history + torch.arange(c, device=x.device)).expand(b, c)
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
         x, caches[i] = _block_prefill_chunk(cfg, lp, spec, x, positions,
-                                            caches[i], bt_row, history,
-                                            last_index)
+                                            caches[i], bt_row, slot,
+                                            history, last_index)
     x = rmsnorm(params["final_norm"], x[:, last_index:last_index + 1])
     return lm_head(cfg, params["embed"], x), caches
 

@@ -5,11 +5,14 @@ layer groups stacked along a leading axis (``repro.models.param``); the
 port keeps a plain dict with a per-layer list.  :func:`from_jax_params`
 takes the unboxed JAX tree **as numpy arrays** (the caller converts with
 ``np.asarray``; this module imports no JAX) and unstacks the groups,
-keeping every leaf's layout (``wq (d, h, hd)``, ``wo (h, hd, d)``,
-``hash_w (L, P, hd)``): the hash planes are copied, never re-sampled.
-:func:`caches_to_numpy` lays the port's per-layer caches out as the JAX
-package's ``{"groups": {"slot_i": ...}, "remainder": ...}`` tree, so the
-two can be compared leaf by leaf.
+keeping every leaf's layout and dtype (``wq (d, h, hd)``, ``wo (h, hd,
+d)``, ``hash_w (L, P, hd)``; a Mamba layer's ``mamba`` subtree with its
+float32 ``A_log``, ``dt_bias`` and ``D``; an MoE layer's ``moe`` subtree
+with its float32 router and ``(E, d, ff)`` experts): the hash planes are
+copied, never re-sampled.  :func:`caches_to_numpy` lays the port's
+per-layer caches (Mamba layers' ``ssm``/``conv`` state among them) out as
+the JAX package's ``{"groups": {"slot_i": ...}, "remainder": ...}`` tree,
+so the two can be compared leaf by leaf.
 """
 
 from __future__ import annotations

@@ -34,15 +34,17 @@ def make_prefill_step(cfg: ModelConfig, capacity: int,
 
 
 def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
-    """(params, pages, tokens, bt_row, history, last_index) ->
+    """(params, pages, tokens, bt_row, slot, history, last_index) ->
     (last-real-token logits, pages).  One prefix-extension prefill chunk
     straight against the paged pool (see :func:`tfm.prefill_chunk`); the
-    pages are updated in place.  The JAX step's ``slot`` argument carries
-    Mamba state, which the port does not serve yet, so it is left out."""
+    pages are updated in place, and the request's decode ``slot`` carries
+    its Mamba state across chunks."""
     @torch.no_grad()
-    def chunk_step(params, pages, tokens, bt_row, history, last_index):
+    def chunk_step(params, pages, tokens, bt_row, slot, history,
+                   last_index):
         return tfm.prefill_chunk(cfg, params, pages, tokens, bt_row=bt_row,
-                                 history=history, last_index=last_index)
+                                 slot=slot, history=history,
+                                 last_index=last_index)
     return chunk_step
 
 

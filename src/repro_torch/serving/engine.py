@@ -1,7 +1,8 @@
 """Continuous-batching serving engine on a paged K/V pool.
 
-Port of ``repro.serving.engine`` (layouts of global and sliding-window
-attention layers) with its two execution models:
+Port of ``repro.serving.engine`` (global and sliding-window attention
+layers, Mamba state layers, dense and MoE FFNs) with its two execution
+models:
 
 * **chunked prefill** (``serving.prefill_chunk > 0``, the default): the
   token-budget mixed step.  Each iteration the scheduler grants at most
@@ -31,15 +32,22 @@ metadata leaves plus the selected K/V rows — with ``use_paged_kernel``
 it in one CUDA pass (``kernels/paged_attention``).  Sliding-window
 layers keep a circular page list of ``ring_blocks`` pages per request
 (``cfg.cache_plan()`` kind ``ring``) and decode from it in place, with
-``cfg.use_ring_kernel`` through the fused CUDA ring kernel.  Otherwise
+``cfg.use_ring_kernel`` through the fused CUDA ring kernel.  Mamba layers
+(kind ``state``) hold one state row per decode slot and no pool blocks:
+a chunk reads its slot's row and writes it back (the first chunk starts
+from zeros), a legacy prefill overwrites it, and a decode step moves
+every slot's row on, so the engine puts back the rows of slots holding
+no runnable request (``paged.keep_state_rows``): a prefilling request's
+state survives the decode iterations between its chunks.  Otherwise
 (dense) the engine falls back to the gather/scatter round trip
 (``paged.gather_views`` / ``scatter_token``), window-bounded for ring
 layers.
 
 Where the JAX engine jits and donates the pool, the port runs eagerly
 and updates the pool in place.  Preemption is recompute-style and
-token-exact: a resumed request re-prefills its prompt and replays its
-recorded tokens through the decode path.
+token-exact: a resumed request re-prefills its prompt (Mamba state
+included, recomputed from zeros) and replays its recorded tokens through
+the decode path.
 
 The pool's K/V pages are stored at ``serving.kv_dtype`` (``auto``,
 ``bf16``, or int8/fp8 rows with per-row scale leaves; see
@@ -49,8 +57,10 @@ re-quantizes the same prompt rows when it is prefilled again.
 
 **Prefix cache** (``serving.prefix_cache``): where the plan can share
 pages — chunked prefill and every layer paged (ring layers recycle their
-pages in place; legacy whole-prompt prefill has no chunk cursor; hybrid
-and legacy plans keep the flag and serve with no sharing) — admission
+pages in place; Mamba state is per slot, not per page, so a cached prefix
+would resume with the wrong state; legacy whole-prompt prefill has no
+chunk cursor; such plans keep the flag and serve with no sharing) —
+admission
 matches each prompt against a radix index of committed prompt pages
 (:mod:`repro_torch.serving.prefix_cache`) and starts the prefill cursor
 past the cached prefix.  A page with pool refcount > 1 is never written
@@ -88,13 +98,11 @@ iteration's ``step_s``.  Since the port's pool updates in place, the
 shadow step's appends would stay in the pool (Quest's page bounds are
 read-modify-write, so a shadow write could move a later selection): the
 engine saves every block the shadow step can write (each active slot's
-current page, its ring page, the trash page) in every leaf and restores
-them, so the pool is bitwise what it was.  The shadow step picks no
+current page, its ring page, the trash page) in every leaf, and every
+state row (a Mamba layer moves all of them), and restores them, so the
+pool is bitwise what it was.  The shadow step picks no
 token and draws no noise.  With ``obs=None`` the engine holds no tracer,
 probe or profiler, and greedy tokens are bit-identical either way.
-
-Not ported yet, raising :class:`NotImplementedError` naming ROADMAP.md
-queue 1 item 7: state (Mamba) and MoE layers.
 """
 
 from __future__ import annotations
@@ -156,12 +164,6 @@ class ServeMetrics:
         return out
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md queue 1 item "
-        f"{item}")
-
-
 class ContinuousBatchingEngine:
     """Paged-cache continuous batching over one model replica.
 
@@ -195,8 +197,10 @@ class ContinuousBatchingEngine:
         has_paged = self._has_paged = any(p.kind == "paged" for p in plan)
         ring_blocks = max((p.ring_blocks for p in plan
                            if p.kind == "ring"), default=0)
+        self._has_state = any(p.kind == "state" for p in plan)
         # page-native decode: a paged-capable backend, or no global layer
-        # consumes the backend at all (ring layers are page-native)
+        # consumes the backend at all (ring and state layers are
+        # page-native)
         self._paged_native = self.backend.supports_paged or not has_paged
         self.temperature = float(temperature)
         self.top_p = float(top_p)
@@ -221,7 +225,9 @@ class ContinuousBatchingEngine:
         # layer is paged (ring layers recycle their block-table prefix
         # circularly, so a "shared prefix" would be rewritten in place).
         # Other plans fall back to no sharing: the flag stays on, no cache
-        # is built, serving is unchanged.
+        # is built, serving is unchanged.  Mamba state is per slot, not per
+        # page: a cached prefix would resume with the wrong state, so state
+        # plans fall back too.
         self.prefix_cache = None
         if self.serving.prefix_cache and self.chunked and \
                 all(p.kind == "paged" for p in plan):
@@ -274,11 +280,10 @@ class ContinuousBatchingEngine:
         if cfg.input_mode != "tokens":
             raise NotImplementedError(
                 "continuous engine serves token models only")
-        if any(s.kind != "attn" or s.mlp not in ("dense", "none")
+        if any(s.kind == "attn" and s.attn_type == "global"
                for s in cfg.layer_specs):
-            raise _not_ported("state (Mamba) and MoE layers", 7)
-        # resolves the backend (ValueError on unknown names)
-        bk.get_backend(cfg.attention_backend).cache_spec(cfg)
+            # resolves the backend (ValueError on unknown names)
+            bk.get_backend(cfg.attention_backend).cache_spec(cfg)
 
     @property
     def chunked(self) -> bool:
@@ -374,25 +379,33 @@ class ContinuousBatchingEngine:
     def _decode_body(self, tokens, bt, pos, reqs=()) -> torch.Tensor:
         """The ragged decode shared by the decode-only and mixed steps;
         inactive slots hold trash-page block tables, so their writes land
-        in block 0.  ``reqs``: the request of each slot (None where idle),
-        whose noise streams a sampling engine draws from."""
-        if self._paged_native:
-            logits, _ = self._serve(self.params, self.pages, tokens, pos, bt)
-        else:
-            views = paged.gather_views(self.cfg, self.pages, bt)
-            logits, views = self._serve(self.params, views, tokens, pos)
-            paged.scatter_token(self.cfg, self.pages, views, bt, pos)
+        in block 0, and keep their state rows (a prefilling request's Mamba
+        state must survive the decode iterations between its chunks).
+        ``reqs``: the request of each slot (None where idle), whose noise
+        streams a sampling engine draws from."""
+        idle = [i for i in range(self.serving.max_batch)
+                if i >= len(reqs) or reqs[i] is None] \
+            if self._has_state else []
+        with paged.keep_state_rows(self.cfg, self.pages, idle):
+            if self._paged_native:
+                logits, _ = self._serve(self.params, self.pages, tokens, pos,
+                                        bt)
+            else:
+                views = paged.gather_views(self.cfg, self.pages, bt)
+                logits, views = self._serve(self.params, views, tokens, pos)
+                paged.scatter_token(self.cfg, self.pages, views, bt, pos)
         return self._pick(logits, reqs)
 
-    def _mixed_step(self, ch_tokens, ch_bt, ch_hist: int, ch_last: int,
-                    tokens, bt, pos, ch_req=None,
+    def _mixed_step(self, ch_tokens, ch_bt, ch_slot: int, ch_hist: int,
+                    ch_last: int, tokens, bt, pos, ch_req=None,
                     reqs=()) -> Tuple[torch.Tensor, torch.Tensor]:
         """One prefill chunk + the ragged decode batch.  The chunk runs
         first (its writes land in blocks disjoint from every decoding
-        request).  ``ch_req``: the chunk's request where the chunk is its
-        final one (it draws for the first token), else None."""
+        request, and in its slot's state rows).  ``ch_req``: the chunk's
+        request where the chunk is its final one (it draws for the first
+        token), else None."""
         logits_c, _ = self._chunk(self.params, self.pages, ch_tokens, ch_bt,
-                                  ch_hist, ch_last)
+                                  ch_slot, ch_hist, ch_last)
         return (self._pick(logits_c, [ch_req])[0],
                 self._decode_body(tokens, bt, pos, reqs))
 
@@ -501,8 +514,8 @@ class ContinuousBatchingEngine:
                                          TRASH_BLOCK, np.int32))
             ch_tokens = self._to_dev(np.zeros((1, sv.prefill_chunk),
                                               np.int64))
-            timed("mixed", self._mixed_step, ch_tokens, ch_bt, 0, 0, tokens,
-                  bt, pos)
+            timed("mixed", self._mixed_step, ch_tokens, ch_bt, 0, 0, 0,
+                  tokens, bt, pos)
             return
         buckets = sv.prefill_buckets if requests is None else sorted(
             {self._bucket_for(len(r.prefill_tokens)) for r in requests})
@@ -764,8 +777,9 @@ class ContinuousBatchingEngine:
         ch_bt = np.full((self._chunk_bt_len(),), TRASH_BLOCK, np.int32)
         ch_bt[:len(req.blocks)] = req.blocks
         return self._mixed_step(self._to_dev(ch_tokens), self._to_dev(ch_bt),
-                                chunk.start, chunk.tokens - 1, tokens, bt,
-                                pos, req if chunk.final else None, reqs)
+                                req.slot, chunk.start, chunk.tokens - 1,
+                                tokens, bt, pos,
+                                req if chunk.final else None, reqs)
 
     def _finish_chunk(self, chunk: PrefillChunk, first_tok, wall,
                       stamp) -> None:
@@ -814,16 +828,21 @@ class ContinuousBatchingEngine:
         The shadow step appends this token's rows to the pool in place,
         as every step does; the production step that follows writes the
         same rows again, but not every leaf is overwritten whole (Quest's
-        page bounds merge with what they hold).  So the blocks the step
-        writes are saved in every leaf first and restored after: the pool
-        is left bitwise as it was.  The shadow step's logits are dropped:
+        page bounds merge with what they hold), and a Mamba layer moves
+        every state row on.  So the blocks the step writes are saved in
+        every leaf first, and the state rows whole, and restored after: the
+        pool is left bitwise as it was.  The shadow step's logits are dropped:
         no token is picked and no noise stream drawn from.  Returns the
         probe's host seconds."""
         from repro_torch.models.backends import probe as bprobe
         t_p = time.perf_counter()
         blocks = self._written_blocks(runnable)
-        saved = [(raw, raw[blocks].clone()) for layer in self.pages
-                 for raw in map(paged.raw_view, layer.values())]
+        saved = []
+        for spec, layer in zip(self.cfg.layer_specs, self.pages):
+            rows = slice(None) if self.cfg.plan_for(spec).kind == "state" \
+                else blocks
+            saved += [(raw, rows, raw[rows].clone())
+                      for raw in map(paged.raw_view, layer.values())]
         bprobe.drain()                       # drop anything stale
         with self._annotate("probe"), bprobe.capture():
             if self._paged_native:
@@ -832,8 +851,8 @@ class ContinuousBatchingEngine:
                 views = paged.gather_views(self.cfg, self.pages, bt)
                 self._serve(self.params, views, tokens, pos)
         stats = bprobe.drain()               # one transfer, synchronizes
-        for raw, rows in saved:
-            raw[blocks] = rows
+        for raw, rows, kept in saved:
+            raw[rows] = kept
         probe_s = time.perf_counter() - t_p
         self._note_call("probe", probe_s)
         rows = self.obs.probe.add(iteration, stats,

@@ -21,6 +21,9 @@ mirroring ``cfg.cache_plan()``):
   block-table entries, so per-slot block demand is bounded by the
   window.
 
+* **state** (Mamba/SSD) — conv tail + recurrent state as one row per
+  decode slot (``(max_batch, ...)``), no block table at all.
+
 The pool is a list of per-layer leaf dicts (the layout of the static
 path's caches); one block id addresses the same page in every layer, so
 the host allocator hands out one id list per request for the whole
@@ -30,19 +33,21 @@ stack — ring layers simply recycle the list's head.  The pool is updated
 Paged-capable backends (``DecodeBackend.supports_paged``) consume the
 pool directly through ``PagedView``/``RingView``; for the rest (dense)
 the engine falls back to the gather/scatter round trip below, which is
-window-bounded for ring layers.  The legacy whole-prompt prefill writes
-its fresh caches in with :func:`write_prefill`; the prefix cache un-shares
-a page with :func:`clone_block`.  :func:`cache_kind_counts` counts the
-layers of each kind (the trace's ``trace_start`` metadata), and
-:func:`kv_row_bytes`, :func:`pool_block_bytes` and
+window-bounded for ring layers (state rows need no view at all).  The
+legacy whole-prompt prefill writes its fresh caches in with
+:func:`write_prefill`; the prefix cache un-shares a page with
+:func:`clone_block`; :func:`keep_state_rows` keeps idle decode slots'
+state rows across a step that moves every row.  :func:`cache_kind_counts`
+counts the layers of each kind (the trace's ``trace_start`` metadata),
+and :func:`kv_row_bytes`, :func:`pool_block_bytes` and
 :func:`gather_footprint` are the byte accounting the serving benchmark
-reads (each equal to the JAX package's).  State (Mamba) layers and
-``keep_state_rows`` come with ROADMAP.md queue 1 item 7.
+reads (each equal to the JAX package's).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import contextlib
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -52,7 +57,8 @@ from repro_torch.models import backends as bk
 from repro_torch.models import transformer as tfm
 
 __all__ = ["init_paged_caches", "gather_views", "scatter_token",
-           "write_prefill", "clone_block", "raw_view", "cache_kind_counts",
+           "write_prefill", "keep_state_rows", "state_leaves", "clone_block",
+           "raw_view", "cache_kind_counts",
            "kv_row_bytes", "pool_block_bytes", "gather_footprint"]
 
 
@@ -74,7 +80,8 @@ def init_paged_caches(cfg: ModelConfig, serving: ServingSettings,
 def gather_views(cfg: ModelConfig, pages, bt: torch.Tensor):
     """Materialize the ragged batch's contiguous cache views (the dense
     fallback): full logical views of paged layers, window-bounded rings
-    of ring layers.  bt: (B, max_blocks_per_seq) physical block ids
+    of ring layers, the per-slot state rows themselves of state layers.
+    bt: (B, max_blocks_per_seq) physical block ids
     (trash-padded)."""
     return [bk.layer_cache_handler(cfg, spec).gather(cfg, layer, bt)
             for spec, layer in zip(cfg.layer_specs, pages)]
@@ -84,8 +91,9 @@ def scatter_token(cfg: ModelConfig, pages, views, bt: torch.Tensor,
                   pos: torch.Tensor):
     """Write what a decode step updated in the contiguous views back into
     the pool, in place: the one new row of paged layers, the one ring row
-    (with the page-opening scrub) of ring layers.  Inactive slots point
-    at the trash block.  Returns the pool."""
+    (with the page-opening scrub) of ring layers; state layers' rows were
+    moved on in place.  Inactive slots point at the trash block.  Returns
+    the pool."""
     for spec, layer, view in zip(cfg.layer_specs, pages, views):
         bk.layer_cache_handler(cfg, spec).scatter(cfg, layer, view, bt, pos)
     return pages
@@ -102,6 +110,34 @@ def write_prefill(cfg: ModelConfig, pages, caches, bt_row: torch.Tensor,
         bk.layer_cache_handler(cfg, spec).write_prefill(cfg, layer, cache,
                                                         bt_row, slot)
     return pages
+
+
+def state_leaves(cfg: ModelConfig, pages) -> List[torch.Tensor]:
+    """Every leaf of the pool's state (Mamba) layers: ``(max_batch, ...)``
+    rows, one per decode slot."""
+    return [leaf for spec, layer in zip(cfg.layer_specs, pages)
+            if cfg.plan_for(spec).kind == "state" for leaf in layer.values()]
+
+
+@contextlib.contextmanager
+def keep_state_rows(cfg: ModelConfig, pages, slots: Sequence[int]):
+    """Keep the decode slots ``slots``' **state** rows across the step run
+    in the body: the ragged decode step moves every Mamba slot row on
+    (masked attention slots write the trash page, but state rows have no
+    trash row to absorb the garbage).  Under chunked prefill a slot's
+    state must survive the decode iterations run *between* its chunks, so
+    the rows of the slots holding no runnable request are saved on entry
+    and put back on exit, in place; paged and ring leaves are left alone
+    (their idle slots' writes land in the trash page).  The JAX package's
+    ``keep_state_rows`` selects the same rows from the step's input and
+    output pools."""
+    leaves = state_leaves(cfg, pages) if len(slots) else []
+    if leaves:
+        idx = torch.tensor(list(slots), device=leaves[0].device)
+        saved = [(leaf, leaf[idx]) for leaf in leaves]
+    yield
+    for leaf, rows in (saved if leaves else ()):
+        leaf[idx] = rows
 
 
 def raw_view(leaf: torch.Tensor) -> torch.Tensor:
@@ -124,8 +160,8 @@ def clone_block(cfg: ModelConfig, pages, src: int, dst: int,
     never scrubs device memory on free, so without it stale rows would
     leak into the clone's owner.
 
-    Ring leaves pass through (the prefix cache is off for plans that have
-    any).  Leaves with ``granularity > 1`` (Quest's per-page bounds)
+    Ring and state leaves pass through (the prefix cache is off for plans
+    that have any).  Leaves with ``granularity > 1`` (Quest's per-page bounds)
     cannot keep a partial page soundly, so this raises, before it writes
     anything, where one is present — the cache policy page-aligns matches
     for such plans, making the CoW path unreachable.  Returns the pool."""
@@ -194,6 +230,8 @@ def pool_block_bytes(cfg: ModelConfig) -> Dict[str, int]:
     out = {"paged": 0, "ring": 0}
     for spec_l in cfg.layer_specs:
         kind = cfg.plan_for(spec_l).kind
+        if kind == "state":
+            continue
         leaves = bk.layer_cache_spec(cfg, spec_l).leaves
         out[kind] += int(cfg.num_kv_heads * sv.block_size * sum(
             _leaf_row_bytes(s, cdt) for s in leaves.values()))
@@ -213,9 +251,10 @@ def gather_footprint(cfg: ModelConfig) -> Dict[str, int]:
     pager would move.  ``paged_bytes_per_step``: global layers move
     their metadata leaves plus the backend's ``selected_rows`` K/V rows
     (0 with the fused paged kernel), window layers their bounded ring
-    views (``window_bytes_per_step``; 0 with the ring kernel).  The port
-    has no state (Mamba) layers yet (ROADMAP.md queue 1 item 7), so
-    ``state_bytes_per_step`` is 0.
+    views (``window_bytes_per_step``; 0 with the ring kernel), Mamba
+    layers nothing (``state_bytes_per_step`` reports the per-slot state
+    size a decode step reads and writes regardless: no gather, no growth
+    with context).
     """
     sv = cfg.serving
     b, n = sv.max_batch, sv.max_context
@@ -264,12 +303,19 @@ def gather_footprint(cfg: ModelConfig) -> Dict[str, int]:
         window = 0 if ring_fused else ring_l * counts["ring"]
         full += full_l * counts["ring"]
         paged += window
+    state = 0
+    if counts["state"]:
+        di, hd, st = cfg.d_inner, cfg.ssm_head_dim, cfg.ssm_state
+        conv_dim = di + 2 * st
+        state_l = b * (cfg.ssm_heads * hd * st * 4 +
+                       (cfg.ssm_conv_width - 1) * conv_dim * cdt.itemsize)
+        state = state_l * counts["state"]
 
     return {
         "full_view_bytes_per_step": int(full),
         "paged_bytes_per_step": int(paged),
         "window_bytes_per_step": int(window),
-        "state_bytes_per_step": 0,
+        "state_bytes_per_step": int(state),
         "selected_rows": int(selected),
         "fused_paged_kernel": bool(fused),
         "fused_ring_kernel": bool(ring_fused),

@@ -125,6 +125,35 @@ def test_gemma7b_int8_pages_hold_1p8x_bf16_residency():
     assert int8 >= 1.8 * bf16, (int8, bf16)
 
 
+@pytest.mark.parametrize("full", [True, False], ids=["full", "smoke"])
+def test_state_and_moe_archs_accounting(full):
+    """The four architectures of Mamba and MoE layers (what the serving
+    benchmark's ``hybrid_jamba`` row reads): the state terms of
+    ``gather_footprint`` (the per-slot state bytes a step moves, the
+    state layer count) and ``pool_block_bytes`` equal the JAX package's,
+    the state term counted from the pool's own state rows; state layers
+    take no bytes of a block id."""
+    # arch -> state layers at full size, at smoke (two groups)
+    for arch, n_state in (("jamba-v0.1-52b", (28, 14)),
+                          ("mamba2-780m", (48, 2)), ("mixtral-8x22b", (0, 0)),
+                          ("llama4-maverick-400b-a17b", (0, 0))):
+        jc, tc = _configs(arch, full, "socket_fused", "auto", False)
+        j, t = jpaged.gather_footprint(jc), tpaged.gather_footprint(tc)
+        assert j == t, arch
+        assert jpaged.pool_block_bytes(jc) == tpaged.pool_block_bytes(tc)
+        state_layers = sum(s.kind == "mamba" for s in tc.layer_specs)
+        assert t["num_state_layers"] == state_layers == \
+            n_state[0 if full else 1], arch
+        assert (t["state_bytes_per_step"] > 0) == (state_layers > 0)
+        if not full and state_layers:
+            pages = tpaged.init_paged_caches(tc, tc.serving)
+            held = sum(leaf.numel() * leaf.element_size()
+                       for leaf in tpaged.state_leaves(tc, pages))
+            assert held == t["state_bytes_per_step"], arch
+        if state_layers == tc.num_layers:
+            assert tpaged.pool_block_bytes(tc)["per_block_id"] == 0
+
+
 def _jax_requests(cfg, num_requests, rate_rps, prompt_lens, max_new, seed,
                   arrivals, prompts):
     """The request list ``repro.launch.serve.run_continuous`` builds,

@@ -149,15 +149,18 @@ def test_continuous_matches_own_static_engine(backend):
 
 def test_engine_raises_for_unported_parts():
     _, tc = _configs("llama31-8b", "socket_fused")
+    # Mamba (state) and MoE layers are ported: these construct an engine
+    # (tests/test_torch_engine_state.py serves them against the JAX one)
     cases = [
-        (tc.replace(pattern=(LayerSpec(kind="mamba", mlp="none"),)), {},
-         "item 7"),
-        (tc.replace(pattern=(LayerSpec(attn_type="local", mlp="moe"),)), {},
-         "item 7"),
+        (tc.replace(pattern=(LayerSpec(kind="mamba", mlp="none"),)),
+         {"state"}),
+        (tc.replace(pattern=(LayerSpec(attn_type="local", mlp="moe"),),
+                    num_experts=4, num_experts_per_tok=2), {"ring"}),
     ]
-    for cfg, kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousBatchingEngine(cfg, device="cpu", **kw)
+    for cfg, kinds in cases:
+        engine = ContinuousBatchingEngine(cfg, device="cpu")
+        assert {p.kind for p in cfg.cache_plan()} == kinds
+        assert len(engine.pages) == cfg.num_layers
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(tc.replace(attention_backend="flashinfer"),
                                  device="cpu")

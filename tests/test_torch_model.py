@@ -1,6 +1,8 @@
 """Port parity for the slice as a whole: configs, layers, the weight
 bridge, prefill (logits and caches) and greedy decode through
-``run_serve``, against the JAX package on the same weights and prompts.
+``run_serve``, against the JAX package on the same weights and prompts;
+also for the Mamba and MoE architectures (jamba, mamba2, mixtral,
+llama4), whose caches hold Mamba state leaves.
 
 The JAX weights are drawn by ``tfm.init_model`` and carried across with
 ``from_jax_params``.  The JAX side runs with the Pallas kernel flags on
@@ -56,8 +58,7 @@ def _jax_params(jc, seed=0):
     return pm.unbox(jtfm.init_model(jc, jax.random.PRNGKey(seed)))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["gemma3-27b"])
-def test_configs_match_jax(arch):
+def _assert_config_matches_jax(arch):
     for full in (True, False):
         jc, tc = jget(arch), tget(arch)
         if not full:
@@ -73,13 +74,21 @@ def test_configs_match_jax(arch):
         assert dataclasses.asdict(tc.serving) == \
             dataclasses.asdict(jc.serving)
         assert tc.param_count() == jc.param_count()
+        assert tc.active_param_count() == jc.active_param_count()
         assert tc.padded_vocab() == jc.padded_vocab()
         assert tc.num_layers == jc.num_layers
+        assert [dataclasses.asdict(p) for p in tc.cache_plan()] == \
+            [dataclasses.asdict(p) for p in jc.cache_plan()]
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["gemma3-27b"])
+def test_configs_match_jax(arch):
+    _assert_config_matches_jax(arch)
 
 
 def test_registry_names_later_slices():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tget("mixtral-8x22b")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tget("musicgen-medium")
     with pytest.raises(KeyError):
         tget("no-such-arch")
 
@@ -89,11 +98,20 @@ def test_registry_names_later_slices():
     ("llama4-maverick-400b-a17b", 7), ("jamba-v0.1-52b", 7),
     ("mamba2-780m", 7), ("musicgen-medium", 11), ("internvl2-26b", 11)])
 def test_later_archs_name_their_roadmap_item(arch, item):
-    """Every architecture the port does not build yet names the ROADMAP.md
-    queue 1 item that brings it, in the registry and in the error."""
+    """The architectures of ROADMAP.md queue 1 item 7 (Mamba and MoE
+    layers) are registered, their configs (full and smoke), parameter
+    counts and cache plans equal to the JAX package's; every architecture
+    the port does not build yet names the item that brings it, in the
+    registry and in the error."""
     from repro.configs.registry import ARCHITECTURES as JAX_ARCHS
     from repro_torch.configs.registry import ARCHITECTURES, LATER
-    assert set(LATER) == set(JAX_ARCHS) - set(ARCHITECTURES)
+    assert set(LATER) == set(JAX_ARCHS) - set(ARCHITECTURES) == \
+        {"musicgen-medium", "internvl2-26b"}
+    if item == 7:
+        assert arch in ARCHITECTURES and tget(arch).source == \
+            jget(arch).source
+        _assert_config_matches_jax(arch)
+        return
     assert re.search(rf"ROADMAP\.md queue 1 item {item}\b", LATER[arch])
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         tget(arch)
@@ -258,3 +276,85 @@ def test_ragged_decode_step_matches_jax(backend):
     np.testing.assert_allclose(tn["groups"]["slot_0"]["k"],
                                np.asarray(jcache["groups"]["slot_0"]["k"]),
                                **TOL)
+
+
+# ------------------------------------------------- Mamba and MoE stacks
+
+STATE_MOE_ARCHS = ["jamba-v0.1-52b", "mamba2-780m", "mixtral-8x22b",
+                   "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.parametrize("arch", STATE_MOE_ARCHS)
+def test_state_and_moe_prefill_and_greedy_tokens_match_jax(arch):
+    """The four smoke configs (jamba at one group): the weight bridge
+    carries the ``mamba`` and ``moe`` subtrees across (the f32 ``A_log``,
+    ``dt_bias``, ``D`` and router as f32), prefill logits and every cache
+    leaf (Mamba ``ssm``/``conv`` state, attention K/V, SOCKET bits) equal
+    JAX's, and the static path's greedy tokens (``run_serve``, its prefill
+    through MoE capacity drops at the default factor) equal JAX
+    ``run_serve``'s."""
+    kw = {"num_groups": 1} if arch == "jamba-v0.1-52b" else {}
+    jc, tc = _configs(arch, "socket", **kw)
+    jparams = _jax_params(jc)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    params = from_jax_params(tc, tree)
+    for i, spec in enumerate(tc.layer_specs):
+        lp = params["layers"][i]
+        assert ("mamba" in lp) == (spec.kind == "mamba")
+        assert ("moe" in lp) == (spec.mlp == "moe")
+        for sub in ("mamba", "moe"):
+            for name, leaf in lp.get(sub, {}).items():
+                j = tree["groups"][f"slot_{i % len(tc.pattern)}"][sub][name]
+                np.testing.assert_array_equal(
+                    leaf.numpy(), j[i // len(tc.pattern)])
+        if "mamba" in lp:
+            assert {lp["mamba"][n].dtype for n in ("A_log", "dt_bias", "D")} \
+                == {torch.float32}
+        if "moe" in lp:
+            assert lp["moe"]["router"].dtype == torch.float32
+    batch, plen, steps = 2, 24, 6
+    prompt = np.random.default_rng(7).integers(
+        0, tc.vocab_size, (batch, plen)).astype(np.int32)
+    jl, jcache = jax.jit(lambda p, b: jtfm.prefill(
+        jc, p, b, capacity=plen + steps))(jparams,
+                                          {"tokens": jnp.asarray(prompt)})
+    tl, tcache = ttfm.prefill(tc, params, {"tokens": _t(prompt).long()},
+                              plen + steps)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    tn = caches_to_numpy(tc, tcache)
+    jn = jax.tree_util.tree_map(np.asarray, jcache)
+    assert jax.tree_util.tree_structure(tn) == \
+        jax.tree_util.tree_structure(jn)
+    for path, a in jax.tree_util.tree_leaves_with_path(jn):
+        b = tn
+        for key in path:
+            b = b[key.key]
+        assert a.shape == b.shape, path
+        if a.dtype == np.uint32:
+            np.testing.assert_array_equal(b, a)
+        else:
+            np.testing.assert_allclose(b, a.astype(np.float32), **TOL)
+
+    jt, _, _ = j_run_serve(jc, batch, plen, steps, seed=0, prompt=prompt)
+    tt, _, _ = run_serve(tc, batch, plen, steps, prompt=prompt,
+                         params=params, device="cpu")
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+def test_static_warmup_leaves_mamba_state_alone():
+    """``run_serve``'s warm-up decode step runs on copies of the Mamba
+    layers' states: the greedy tokens equal a loop over ``decode_step``
+    with no warm-up."""
+    _, tc = _configs("mamba2-780m", "socket")
+    params = ttfm.init_model(tc, seed=3)
+    prompt = torch.randint(0, 256, (2, 20),
+                           generator=torch.Generator().manual_seed(1))
+    toks, _, _ = run_serve(tc, 2, 20, 5, prompt=prompt, params=params,
+                           device="cpu")
+    logits, caches = ttfm.prefill(tc, params, {"tokens": prompt}, 25)
+    want = [logits[:, -1].argmax(-1)[:, None]]
+    for t in range(5):
+        logits, caches = ttfm.decode_step(tc, params, caches, want[-1],
+                                          20 + t)
+        want.append(logits[:, -1].argmax(-1)[:, None])
+    assert torch.equal(toks, torch.cat(want, dim=1))

@@ -296,8 +296,9 @@ def test_gemma3_cache_plan_and_ring_geometry_match_jax():
                 bad.cache_plan()
             c.replace(use_ring_kernel=True).cache_plan()
     mamba = LayerSpec(kind="mamba", mlp="none")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbk.layer_cache_handler(tget("gemma3-27b"), mamba)
+    h = tbk.layer_cache_handler(tget("gemma3-27b"), mamba)
+    assert isinstance(h, tbk.StateCacheHandler) and h.kind == "state"
+    assert h.spec(tget("gemma3-27b")).leaves == {}
 
 
 def test_pool_layout_matches_jax():

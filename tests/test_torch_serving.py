@@ -192,10 +192,10 @@ def test_serving_settings_and_plan_match_jax(arch):
             assert tuple(tpool[0][name].shape) == tuple(leaf.shape[1:])
             assert tpool[0][name].element_size() == leaf.dtype.itemsize
         assert set(tpool[0]) == set(jpool)
-    bad = tget(arch).smoke().replace(
+    ssm = tget(arch).smoke().replace(
         pattern=(LayerSpec(kind="mamba", mlp="none"),))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bad.cache_plan()
+    assert {dataclasses.astuple(p) for p in ssm.cache_plan()} == \
+        {("state", 0, "auto")}
 
 
 # ---------------------------------------------------------- paged view + io

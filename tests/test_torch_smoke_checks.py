@@ -470,8 +470,9 @@ def test_gemma7b_residency_clears_the_bar(capsys):
 def test_pool_block_bytes_check_reads_every_leaf():
     """The bytes a block id holds in an engine's pool equal
     ``pool_block_bytes`` (f32 SOCKET pages, int8 pages with scales,
-    Quest's page stats, gemma3's ring layers); a pool missing a leaf
-    fails."""
+    Quest's page stats, jamba's one paged layer beside its Mamba layers'
+    slot rows, mamba2's pool of state rows alone: 0, gemma3's ring
+    layers); a pool missing a leaf fails."""
     cs = _chip_smoke()
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import apply_backend_arg, apply_kv_dtype
@@ -479,12 +480,15 @@ def test_pool_block_bytes_check_reads_every_leaf():
     for arch, backend, kv in (("llama31-8b", "socket_fused", "auto"),
                               ("gemma-7b", "socket_fused", "int8"),
                               ("gemma-7b", "quest_fused", "bf16"),
+                              ("jamba-v0.1-52b", "socket_fused", "int8"),
+                              ("mamba2-780m", "socket_fused", "auto"),
                               ("gemma3-27b", "socket_fused", "fp8")):
         cfg = apply_kv_dtype(apply_backend_arg(get_config(arch).smoke(),
                                                backend), kv)
         cfg = cfg.replace(use_ring_kernel=arch == "gemma3-27b")
         pages = init_paged_caches(cfg, cfg.serving)
-        assert cs.pool_block_bytes_check(cfg, pages) > 0
+        assert (cs.pool_block_bytes_check(cfg, pages) > 0) == \
+            (arch != "mamba2-780m")
     del pages[0]["k_scale"]
     with pytest.raises(AssertionError, match="pool_block_bytes"):
         cs.pool_block_bytes_check(cfg, pages)
@@ -527,11 +531,13 @@ def test_all_global_cases():
 @pytest.mark.parametrize("arch,backend,kv_dtype", [
     ("gemma-7b", "quest_fused", "auto"), ("llama31-8b", "socket_fused",
                                           "fp8"),
-    ("gemma3-27b", "socket_fused", "int8")])
+    ("gemma3-27b", "socket_fused", "int8"),
+    ("jamba-v0.1-52b", "socket_fused", "auto")])
 def test_compact_pool_decodes_as_the_pool(arch, backend, kv_dtype):
     """The continuous check's snapshot (``compact_pool``: the blocks the
-    batch's tables name, renumbered) gives the decode step's logits and
-    writes of the whole pool bit for bit, and holds fewer blocks."""
+    batch's tables name, renumbered, and every Mamba layer's slot rows
+    whole) gives the decode step's logits and writes of the whole pool
+    bit for bit, and holds fewer blocks."""
     cs = _chip_smoke()
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import apply_backend_arg, apply_kv_dtype
@@ -552,19 +558,24 @@ def test_compact_pool_decodes_as_the_pool(arch, backend, kv_dtype):
                                    <= r.pos for r in running) or seen:
             return
         tokens, bt, pos = eng._batch_inputs(running)
-        pages, cbt = cs.compact_pool(eng.pages, bt)
+        pages, cbt = cs.compact_pool(cfg, eng.pages, bt)
         full = [{k: v.clone() for k, v in layer.items()}
                 for layer in eng.pages]
         step = make_serve_step(cfg)
         lf, _ = step(eng.params, full, tokens, pos, bt)
         lc, _ = step(eng.params, pages, tokens, pos, cbt)
-        seen.update(blocks=pages[0]["k"].shape[0],
-                    pool=full[0]["k"].shape[0], same=torch.equal(lf, lc))
+        att = next(i for i, s in enumerate(cfg.layer_specs)
+                   if s.kind == "attn")
+        seen.update(blocks=pages[att]["k"].shape[0],
+                    pool=full[att]["k"].shape[0], same=torch.equal(lf, lc),
+                    state=sum("ssm" in layer for layer in pages))
         ids = torch.unique(torch.cat([torch.zeros(1, dtype=bt.dtype),
                                       bt.flatten()]))
         for a, b in zip(full, pages):
             for name in a:
-                assert torch.equal(raw_view(a[name])[ids.long()],
+                rows = slice(None) if name in ("ssm", "conv") else \
+                    ids.long()
+                assert torch.equal(raw_view(a[name])[rows],
                                    raw_view(b[name])), name
 
     engine.iter_hook = hook
@@ -574,3 +585,151 @@ def test_compact_pool_decodes_as_the_pool(arch, backend, kv_dtype):
     with one_thread():
         engine.run(reqs, realtime=False)
     assert seen["same"] and seen["blocks"] < seen["pool"]
+    assert seen["state"] == sum(s.kind == "mamba" for s in cfg.layer_specs)
+
+
+# ------------------------------------------------------ state and MoE
+
+def test_state_carry_check_fails_on_a_zeroed_carry():
+    """Phase 5e's mamba2 check at smoke width: each request's last-step
+    logits (``last_step_logits``) held to a whole-sequence prefill of its
+    prompt and generated tokens pass ``STATE_CARRY_ATOL``; with the carry
+    between chunks zeroed (every chunk starting from zero state) they
+    fail it."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    cfg = get_config("mamba2-780m").smoke()
+    params = tfm.init_model(cfg, 0)
+    prompts = [torch.randint(0, 256, (n,), generator=torch.Generator()
+                             .manual_seed(n)).tolist() for n in (40, 23)]
+    real = tfm.mb.mamba_train
+
+    def zeroed(cfg, params, x, h0=None, conv0=None, **kw):
+        return real(cfg, params, x, **kw)
+
+    errs = {}
+    for label in ("carried", "zeroed"):
+        engine = ContinuousBatchingEngine(cfg, params=params, device="cpu")
+        last = cs.last_step_logits(engine)
+        reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        with one_thread(), mock.patch.object(
+                tfm.mb, "mamba_train",
+                zeroed if label == "zeroed" else real):
+            engine.run(reqs, realtime=False)
+        assert set(last) == {r.rid for r in reqs}
+        if label == "carried":
+            errs[label] = cs.state_carry_check(cfg, params, reqs, last)
+            assert max(errs[label]) < cs.STATE_CARRY_ATOL / 10
+        else:
+            with pytest.raises(AssertionError, match="whole-sequence"):
+                cs.state_carry_check(cfg, params, reqs, last)
+
+
+def test_ring_wrap_check_reads_the_chunk_trace():
+    """Mixtral's gate: a prompt longer than its ring must have chunks
+    ending past the ring's rows; a trace that stops short fails."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import CARD_CASES, card_continuous_case
+    from repro_torch.serving import Request
+    cfg, reqs = card_continuous_case(get_config("mixtral-8x22b"), 0, 32)
+    assert cfg.num_layers == 4 and cfg.use_ring_kernel
+    assert cfg.ring_geometry() == (256, 4096)
+    assert sorted({len(r.prompt) for r in reqs}) == \
+        CARD_CASES["mixtral-8x22b"][0]
+    rows = 4096
+
+    class Trace:
+        chunk_trace = [(0, 0, 0, 512), (1, 0, 4096, 512), (2, 1, 0, 512)]
+
+    long = [Request(prompt=[1] * 6144, max_new_tokens=1),
+            Request(prompt=[1] * 100, max_new_tokens=1)]
+    long[0].rid, long[1].rid = 0, 1
+    assert cs.ring_wrap_check(cfg, Trace, long) == {0: (6144, rows + 512)}
+    Trace.chunk_trace = [(0, 0, 0, 512)]
+    with pytest.raises(AssertionError, match="did not wrap"):
+        cs.ring_wrap_check(cfg, Trace, long)
+
+
+def test_moe_routes_shared_takes_the_kernel_route_inside_the_band():
+    """The static and continuous checks' MoE pairing: where the plain
+    route's router sends a token elsewhere only because its k-th and
+    (k+1)-th probabilities tie within ROUTE_TOL, it takes the kernel
+    route's experts; a difference outside the band raises."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("mixtral-8x22b").smoke()
+    params = moe.init_moe(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn(64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    # experts 0 and 2 score equally: the kernel route keeps expert 0 (the
+    # lower index), the plain route, its column 1e-7 lower, expert 2
+    tied = params["router"].clone()
+    tied[:, 2] = tied[:, 0]
+    flip = tied.clone()
+    flip[:, 0] *= 1 - 1e-7
+    k_idx, _, _ = moe._router(cfg, dict(params, router=tied), x)
+    p_own, _, _ = moe._router(cfg, dict(params, router=flip), x)
+    differ = int((k_idx.sort(-1).values != p_own.sort(-1).values)
+                 .any(-1).sum())
+    assert differ > 0
+    swapped = []
+    with cs.moe_routes_shared(swapped) as to_plain:
+        moe._router(cfg, dict(params, router=tied), x)
+        to_plain()
+        p_idx, p_probs, _ = moe._router(cfg, dict(params, router=flip), x)
+    assert torch.equal(p_idx.sort(-1).values, k_idx.sort(-1).values)
+    assert swapped == [differ]
+    assert torch.allclose(p_probs.sum(-1), torch.ones(64))
+    with pytest.raises(AssertionError, match="probability band"):
+        with cs.moe_routes_shared([]) as to_plain:
+            moe._router(cfg, params, x)
+            to_plain()
+            moe._router(cfg, params, -x)
+
+
+def test_state_and_moe_card_cases():
+    """Phase 5e's cases: jamba at 1 of 4 groups (8 layers: 1 attention, 7
+    Mamba, 4 MoE; 13.27 B parameters), mamba2 at full depth (48 Mamba
+    layers), mixtral at 4 of 56 layers (10.42 B, prompts to 8192 on a
+    4096-token window); none preempts at 32 or 64 new tokens; jamba's
+    static case as gemma-7b's."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import card_continuous_case
+    got = {}
+    for arch in ("jamba-v0.1-52b", "mamba2-780m", "mixtral-8x22b"):
+        for new in (32, 64):
+            cfg, reqs = card_continuous_case(get_config(arch), 0, new)
+            cfg.serving.validate()
+            assert all(r.max_new_tokens == new for r in reqs)
+        kinds = cs.layer_kinds(cfg)
+        got[arch] = (cfg.num_layers, kinds.count("mamba"),
+                     sum(s.mlp == "moe" for s in cfg.layer_specs),
+                     round(cfg.param_count() / 1e9, 2))
+    assert got == {"jamba-v0.1-52b": (8, 7, 4, 13.27),
+                   "mamba2-780m": (48, 48, 0, 0.86),
+                   "mixtral-8x22b": (4, 0, 4, 10.42)}
+    assert cs.STATIC_CASES["jamba-v0.1-52b"] == (2, 4096, 16)
+
+
+def test_profile_decode_span_part():
+    """``profile_decode``'s spans: a device kernel belongs to the
+    innermost span whose range holds its start, and names its part."""
+    from repro_torch.launch import profile_decode as pd
+    spans = [("moe", 10.0, 50.0), ("moe_experts", 20.0, 40.0),
+             ("mamba", 60.0, 70.0)]
+    kernels = [("sm90_gemm", 25.0, 1.5), ("index_put", 12.0, 0.25),
+               ("sm90_gemm", 30.0, 1.0), ("elementwise", 61.0, 0.5),
+               ("paged_socket_kernel", 80.0, 0.125)]
+    by = pd.span_part(kernels, spans)
+    parts = {}
+    for name, ms in by.items():
+        parts[pd.kernel_part(name)] = parts.get(pd.kernel_part(name),
+                                                0) + ms
+    assert parts == {"moe_experts": 2.5, "moe": 0.25, "mamba": 0.5,
+                     "paged_attention": 0.125}

@@ -117,8 +117,10 @@ Phases, in order; the first failure raises and the script exits non-zero:
               (``static_ties_shared``; the split tables move scores a few
               ulps) and the swapped rows are logged; a difference outside
               the band fails.
-5. continuous — llama31-8b at full width and depth, the same weights,
-              through ``ContinuousBatchingEngine.warmup()`` and
+5. continuous — llama31-8b at full width on its first ``QUANT_DEPTH``
+              (8) of 32 layers (the script's time limit: phase 5f runs
+              the three fused backends at full depth, at bf16), the same
+              weights, through ``ContinuousBatchingEngine.warmup()`` and
               ``run(realtime=False)``, once with each fused backend
               (``socket_fused``, ``hard_lsh_fused``, ``quest_fused``): 8
               requests (prompts of 1024/2048/3072/4096 tokens from --seed,
@@ -138,12 +140,10 @@ Phases, in order; the first failure raises and the script exits non-zero:
               kernel's selection there, and the swapped rows are logged;
               a difference outside the band fails.  Each run's pool
               and snapshot are freed before the next.  Each backend then
-              runs again, the same traffic, on int8 and on fp8 K/V pages
-              (``serving.kv_dtype``) with the depth cut to the first
-              ``QUANT_DEPTH`` (8) of the 32 layers (the script's time
-              limit; gemma-7b's phase 5d runs quantized pages at full
-              depth), with the same gates; the K/V bytes a block id holds
-              are logged.
+              runs again, the same traffic and depth, on int8 and on fp8
+              K/V pages (``serving.kv_dtype``; gemma-7b's phase 5d runs
+              quantized pages at full depth), with the same gates; the
+              K/V bytes a block id holds are logged.
 5a. prefix — the prefix cache on the same weights: 8 requests of
               ``rag_prompts`` (``launch/serve.py::card_prefix_case``),
               prompts of 3072 tokens sharing a 2300-token template (not a
@@ -176,8 +176,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
               run's is logged (a number: another batch composition
               reorders the device's sums, which can flip a near-tied draw).
               The paged SOCKET kernel's launch count is gated as in 5a.
-5c. observability — phase 5's traffic (8 requests, 32 greedy tokens, f32
-              pages) through ``socket_fused`` with the serving observability
+5c. observability — phase 5's traffic and depth (8 requests, 32 greedy
+              tokens, f32 pages, ``QUANT_DEPTH`` layers) through
+              ``socket_fused`` with the serving observability
               on (``Observability``: the JSONL event trace, the selection
               probe every 8 iterations, a 4-iteration ``torch.profiler``
               window from the first decode-only iteration, logged).  The
@@ -185,13 +186,13 @@ Phases, in order; the first failure raises and the script exits non-zero:
               bit; the trace file must validate and equal the tracer's
               events, every request carry submit/admit/first_token/finish
               and the step events number 0..iterations-1; every probed
-              iteration must have a row for each of the 32 layers, each
+              iteration must have a row for each layer, each
               with recall in [0, 1], 0 < budget utilization <= 1 and 0 <
               selected <= budget <= static k; the paged SOCKET kernel must
               launch exactly layers x (iterations + warm-up steps) and no
               other kernel at all (the probe's shadow steps take the plain
               route); the window's Chrome trace must hold the kernel as
-              device kernel events exactly 32 x the window's iterations
+              device kernel events exactly layers x the window's iterations
               times, the launch counter's change over the window; the pool
               must be empty at the end.  Then ``hard_lsh_fused`` and
               ``quest_fused`` with the probe alone: their tokens must equal
@@ -255,6 +256,42 @@ Phases, in order; the first failure raises and the script exits non-zero:
               Each run's seconds and peak memory are logged.
               ``--only state-moe`` builds the kernels and runs this phase
               alone (no kernels or ok line).
+5f. bf16    — after phase 5e, the deployment numerics of
+              ``launch/specs.py``'s ``dryrun_model_config`` for a 32K
+              decode (bf16 weights and compute, bf16 SOCKET scores in
+              chunks of 16384, prefill attention in query chunks of 1024).
+              Kernels first: the four paged kernels with a bf16 query on
+              bf16 pages (the main case, gemma-7b's hd 256 / G 1 and
+              llama4's G 5; the ring on its main case and hd 256 / G 1)
+              against their plain versions at the float32 tolerances,
+              SOCKET's and hard LSH's selections equal to their own on
+              the float32 query, each timed at the main and gemma-7b
+              shapes; ``flash_decode`` and ``flash_prefill`` on bf16
+              q/k/v (and at llama4's G 5) against their plain versions,
+              timed beside SDPA on the same bf16 inputs (its flash
+              backend allowed); bounds at the bf16 tensor rate (entry
+              ``bf16`` of each kernel's row).  Then llama31-8b at full
+              width and depth (8.03 B, 16.1 GB) through phase 4's static
+              path and launch gates and the engine with ``socket_fused``,
+              ``hard_lsh_fused`` and ``quest_fused`` (phase 5's traffic,
+              bf16 pages), and llama4-maverick-400b-a17b at full width on
+              1 of its 24 groups (a dense and an MoE layer of 128 experts:
+              18.43 B, 36.9 GB) through the static path (jamba's case)
+              and ``socket_fused``; the MoE decode step's expert bytes are
+              logged beside its time.  The two routes round to bf16
+              between layers in other places, so where phases 4 and 5
+              hold the kernel route's logits to the plain route's within
+              LOGITS_ATOL, phase 5f holds both to a float32 run of the
+              same weights through the plain versions: the kernel route
+              no farther from it than F64_RATIO x the plain route
+              (``f32_distance_check``; the plain route scores SOCKET from
+              float32 u, as the kernels do; its selections and MoE routes
+              are not paired).  The layer-by-layer prefill gate runs as
+              in phase 4, both ops fed the same bf16 q/k/v; SOCKET bits
+              are compared on the layers whose keys the free-running
+              routes share.  Greedy tokens against the plain and float32
+              routes are logged.  ``--only bf16`` builds the kernels and
+              runs this phase alone.
 6. gemma3-continuous — after the all-global phase, gemma3-27b
               at full width (d_model 5376, 32/16 heads, d_ff 21504, vocab
               262144, window 1024) with its depth cut to 2 groups: 14 of
@@ -270,8 +307,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               int8 and on fp8 pages, both kernels in that mode.
 7. legacy   — the continuous engine's legacy whole-prompt bucketed prefill
               (``prefill_chunk`` 0), f32 pages, ``socket_fused``: llama31-8b
-              (after phase 5, the same weights and the 8 requests of its
-              case) and gemma3-27b (after phase 6, 14 layers, the ring
+              (after phase 5, the same weights, depth and the 8 requests
+              of its case) and gemma3-27b (after phase 6, 14 layers, the ring
               kernel), both in buckets of 2048, 4096 and max_context (4224,
               6272), so half the prompts run padded (llama31-8b's 1024 and
               3072, gemma3's 3072 and 6144) and are read at their last real
@@ -340,6 +377,11 @@ LOGITS_ATOL = 1e-4
 # the limit.
 PREFILL_TOL = dict(rtol=0.0, atol=1e-5)
 F64_RATIO = 2.0
+# SDPA on bf16 inputs returns bf16 (and its flash backend rounds the
+# softmax weights to bf16 before P.V): its output against the float32
+# plain version, checked before it is timed, within two bf16 ulps of the
+# value and 2**-8 absolute (a wrong mask or head order is off by ~0.1)
+BF16_SDPA_TOL = dict(rtol=2 ** -6, atol=2 ** -8)
 # H100 SXM data sheet, dense tensor-core rates (the prefill kernel's
 # 3xTF32 products run at TF32's)
 TF32_FLOP_PER_S = 495e12
@@ -348,10 +390,12 @@ BF16_FLOP_PER_S = 989e12
 # (serving.kv_dtype); int8 and fp8 also get timed entries and main-path
 # runs
 QUANT_KV_DTYPES = ("bf16", "int8", "fp8")
-# llama31-8b's continuous runs on int8 and fp8 pages take its first 8 of
-# 32 layers: with gemma-7b's phase (5d, at full depth on bf16, int8 and
-# fp8 pages too) the script must stay well inside its time limit on a
-# slow host
+# llama31-8b's continuous runs at fp32 (phase 5 on f32, int8 and fp8
+# pages, and the observability and legacy runs read against them) take
+# its first 8 of 32 layers: with gemma-7b's phase (5d, at full depth on
+# bf16, int8 and fp8 pages too) and phase 5f (llama31-8b's three fused
+# backends at full depth at bf16) the script must stay well inside its
+# time limit on a slow host
 QUANT_DEPTH = 8
 TIMED_ITERS = 50
 GRAPH_REPLAYS = 4
@@ -1042,6 +1086,159 @@ def flash_prefill_rows(dev, seed):
     return rows
 
 
+# phase 5f: the contiguous attention kernels on a bf16 model's inputs,
+# (label, shape): the static paths' shapes (llama31-8b's, gemma-7b's hd
+# 256 / G 1, timed) and llama4-maverick's G 5 (checked)
+BF16_DECODE_CASES = [
+    ("main path", dict(bh=16, k=823, g=4, hd=128)),
+    (GEMMA7B_TIMED, dict(bh=32, k=412, g=1, hd=256)),
+    ("llama4 G 5", dict(bh=16, k=412, g=5, hd=128)),
+]
+BF16_PREFILL_CASES = [
+    ("main path: llama31-8b prefill", dict(bh=64, bkv=16, s=8192, hd=128)),
+    (GEMMA7B_TIMED, dict(bh=32, bkv=32, s=4096, hd=256)),
+    ("llama4 G 5", dict(bh=80, bkv=16, s=4096, hd=128)),
+]
+
+
+def sdpa_bf16(q, k, v, *, scale, mask=None, causal=False):
+    """``scaled_dot_product_attention`` on bf16 inputs, its flash backend
+    allowed (the memory-efficient one where flash declines), GQA by
+    ``enable_gqa``: the library call for a bf16 attention."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal, scale=scale,
+            enable_gqa=q.shape[-3] != k.shape[-3])
+
+
+def bf16_attention_rows(dev, seed):
+    """Phase 5f's ``flash_decode`` and ``flash_prefill`` entries: each
+    kernel on bf16 q/k/v against its plain version (ATTN_TOL, PREFILL_TOL:
+    both compute in float32 on the same bf16 values) on
+    ``BF16_DECODE_CASES`` and ``BF16_PREFILL_CASES``; the main and
+    gemma-7b cases timed beside their bound (bytes at the HBM rate,
+    operations at the bf16 tensor rate), the plain version and SDPA on
+    the same bf16 inputs.  Returns {kernel: its ``bf16`` entry}."""
+    from repro_torch.kernels.flash_decode import cases, ops as fd
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    bf = torch.bfloat16
+    out = {}
+
+    def decode_case(bh, k, g, hd):
+        q, kk, vv, mask = cases.card_case(gen, bh=bh, k=k, g=g, hd=hd,
+                                          dtype=bf)
+        return q.to(bf), kk, vv, mask
+
+    for label, kw in BF16_DECODE_CASES:
+        bh, k, g, hd = kw["bh"], kw["k"], kw["g"], kw["hd"]
+        scale = 1.0 / math.sqrt(hd)
+        case = decode_case(**kw)
+        got = fd.launch_flash_decode(*case, scale=scale)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_decode[bf16, {label}]", got,
+                          flash_decode_ref(*case, scale=scale), ATTN_TOL)
+        log(f"flash_decode [bf16, {label}] BH={bh} K={k} G={g} hd={hd}: "
+            f"max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
+            f"{ATTN_TOL['atol']})")
+        if label.startswith("llama4"):
+            continue
+        sets = [case] + [decode_case(**kw) for _ in
+                         range(rotations(2 * bh * k * hd * 2) - 1)]
+        valid = sum(int(c[3].sum().item()) for c in sets) / len(sets)
+        nbytes = bh * g * hd * (2 + 4) + 2 * valid * hd * 2 + bh * k
+        flops = valid * g * (4 * hd + 4)
+        kernel = functools.partial(fd.launch_flash_decode, scale=scale)
+        entry = dict(
+            case=label, max_abs_err=err, ms=device_time_ms(kernel, sets),
+            plain_ms=device_time_ms(
+                functools.partial(flash_decode_ref, scale=scale), sets),
+            library_ms=device_time_ms(
+                lambda a, b, c, m: sdpa_bf16(
+                    a[:, None], b[:, None], c[:, None],
+                    mask=m[:, None, None, :], scale=scale), sets),
+            library_call="scaled_dot_product_attention, bf16, bool mask",
+            back_to_back_ms=back_to_back_ms(kernel, sets))
+        entry["bound_ms"], entry["bound_by"] = bound_bf16(nbytes, flops)
+        log(f"flash_decode [bf16, {label}] timed: kernel {entry['ms']:.4f} "
+            f"ms, bound {entry['bound_ms']:.5f} ({entry['bound_by']}), "
+            f"plain {entry['plain_ms']:.4f}, SDPA {entry['library_ms']:.4f}")
+        if label == GEMMA7B_TIMED:
+            out["flash_decode"]["gemma7b"] = entry
+        else:
+            out["flash_decode"] = entry
+        del sets
+
+    def prefill_case(bh, bkv, s, hd):
+        return tuple(torch.randn((n, s, hd), generator=gen, device=dev)
+                     .to(bf) for n in (bh, bkv, bkv))
+
+    for label, kw in BF16_PREFILL_CASES:
+        bh, bkv, s, hd = kw["bh"], kw["bkv"], kw["s"], kw["hd"]
+        scale = 1.0 / math.sqrt(hd)
+        plain = functools.partial(flash_prefill_ref, scale=scale,
+                                  q_chunk=PREFILL_PLAIN_CHUNK)
+        case = prefill_case(**kw)
+        got = fp.launch_flash_prefill(*case, scale=scale)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_prefill[bf16, {label}]", got,
+                          plain(*case), PREFILL_TOL)
+        log(f"flash_prefill [bf16, {label}] BH {bh} BKV {bkv} S {s} hd "
+            f"{hd}: max|err| {err:.3e} (atol {PREFILL_TOL['atol']})")
+        del got
+        if label.startswith("llama4"):
+            continue
+        nbytes, flops = prefill_cost(bh, bkv, s, hd, 0, bf)
+        sets = [case] + [prefill_case(**kw)
+                         for _ in range(rotations(nbytes) - 1)]
+        kernel = functools.partial(fp.launch_flash_prefill, scale=scale)
+
+        def lib(q, k, v):
+            return sdpa_bf16(q[None], k[None], v[None], scale=scale,
+                             causal=True)[0]
+
+        lib_sets, call = sets, "enable_gqa"
+        try:
+            want = lib(*case)
+        except RuntimeError as e:
+            # no backend took GQA: K/V repeated to the query heads
+            # beforehand (not timed)
+            log(f"  SDPA bf16 with enable_gqa: {e}".splitlines()[0])
+            lib_sets = [(q, k.repeat_interleave(bh // bkv, 0),
+                         v.repeat_interleave(bh // bkv, 0))
+                        for q, k, v in sets]
+            call = "K/V repeated to the query heads beforehand"
+            want = lib(*lib_sets[0])
+        check_close(f"flash_prefill[bf16, {label}, SDPA yardstick]",
+                    want.float(), plain(*case), BF16_SDPA_TOL)
+        del want
+        entry = dict(
+            case=label, max_abs_err=err,
+            ms=device_time_ms(kernel, sets, iters=4, replays=2),
+            plain_ms=device_time_ms(plain, sets, iters=2, replays=1),
+            library_ms=device_time_ms(lib, lib_sets, iters=4, replays=2),
+            library_call="scaled_dot_product_attention, bf16, is_causal, "
+                         f"{call} (flash or memory-efficient backend)",
+            bound_design_ms=prefill_bound(nbytes, flops, bf)[0],
+            back_to_back_ms=back_to_back_ms(kernel, sets, iters=4))
+        entry["bound_ms"], entry["bound_by"] = bound_bf16(nbytes, flops)
+        log(f"flash_prefill [bf16, {label}] timed: kernel {entry['ms']:.3f} "
+            f"ms, bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}, "
+            f"bf16 rate; on TF32 products as the kernel runs them "
+            f"{entry['bound_design_ms']:.3f}), plain "
+            f"{entry['plain_ms']:.3f}, SDPA {entry['library_ms']:.3f}")
+        if label == GEMMA7B_TIMED:
+            out["flash_prefill"]["gemma7b"] = entry
+        else:
+            out["flash_prefill"] = entry
+        del sets, case, lib_sets
+    return out
+
+
 # The fused paged kernels' cases: the continuous phase's shapes first
 # (8 KV heads, G=4, hd=128, bs=16; contexts 1-4K, a 264-block table), then
 # the edges.  The last ones exercise the cluster split of
@@ -1071,6 +1268,12 @@ _HEAD_DIM_CASES = [
 # the cases also run on stored pools (bf16, int8, fp8)
 STORED_CASES = ("main path", "tie-heavy") + tuple(
     c[0] for c in _CLUSTER_CASES + _HEAD_DIM_CASES)
+# phase 5f's bf16-query cases (on bf16 pages): the main case, gemma-7b's
+# hd 256 / G 1, and llama4-maverick's G 5 (40 query heads over 8 KV heads,
+# the engine's shape of its phase-5f run)
+BF16_Q_EXTRA = [("llama4 G 5", dict(lengths=MAIN_LENS, nb=264, kvh=8,
+                                    g=5))]
+BF16_Q_CASES = ("main path", GEMMA7B_TIMED, "llama4 G 5")
 PAGED_CASES = {
     "paged_attention": [
         ("main path, ragged", dict(lengths=MAIN_LENS, nb=264)),
@@ -1118,6 +1321,25 @@ PAGED_CASES = {
 }
 
 
+def bf16_queries(sets, quest=False):
+    """The input sets of a paged case with the query (first input) in
+    bf16, and for Quest (``quest``) its page bounds too, as a bf16 model's
+    pool holds them."""
+    bf = torch.bfloat16
+    if quest:
+        return [(q.to(bf), kp, vp, kmin.to(bf), kmax.to(bf), *rest)
+                for q, kp, vp, kmin, kmax, *rest in sets]
+    return [(q.to(bf), *rest) for q, *rest in sets]
+
+
+def bound_bf16(nbytes: float, flops: float):
+    """:func:`bound` for bf16 inputs: their operations at the data sheet's
+    dense bf16 tensor rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kv_row_bytes(case, scales) -> int:
     """Bytes of one K and one V row of ``case``'s pool, with their scales
     when it has them (int8/fp8: 2 * (hd + 4))."""
@@ -1145,7 +1367,7 @@ def lsh_cost(case, args, hard, row_bytes):
     scored = int(torch.where(live, lens - forced, 0).sum())
     nsel = int(torch.minimum(budget, lens).sum())
     touched = kvh * (scored * (w * 4 + 2) + nsel * row_bytes)
-    nbytes = touched + kvh * (b * 2 * g * hd * 4 +
+    nbytes = touched + kvh * (b * g * hd * (q.element_size() + 4) +
                               int(live.sum()) * gs * l * p * 4) + \
         bt.numel() * 4
     flops = kvh * (scored * g * l * (1 if hard else 2) + nsel * g * 4 * hd)
@@ -1153,11 +1375,11 @@ def lsh_cost(case, args, hard, row_bytes):
 
 
 def quest_cost(case, args, sel, row_bytes):
-    """As :func:`lsh_cost` for Quest: kmin and kmax (f32) of each live
-    page that is neither sink nor window (for requests whose page budget
-    exceeds those forced pages), the selected live K/V rows, q, the
-    table, the output; 4 operations per (scored page, g, d), q.k and p.v
-    per row."""
+    """As :func:`lsh_cost` for Quest: kmin and kmax (in their dtype) of
+    each live page that is neither sink nor window (for requests whose
+    page budget exceeds those forced pages), the selected live K/V rows,
+    q, the table, the output; 4 operations per (scored page, g, d), q.k
+    and p.v per row."""
     q, bt, length, budget = case[0], case[5], case[6], case[7]
     b, kvh, g, hd = q.shape
     ps, sink = args["page_size"], args["sink_tokens"]
@@ -1169,8 +1391,10 @@ def quest_cost(case, args, sel, row_bytes):
         if kp > len(start) - int(free.sum()):
             scored += int(free.sum())
     nsel = int(sel.sum())
-    touched = kvh * scored * 2 * hd * 4 + nsel * row_bytes
-    nbytes = touched + b * kvh * 2 * g * hd * 4 + bt.numel() * 4
+    touched = kvh * scored * 2 * hd * case[3].element_size() + \
+        nsel * row_bytes
+    nbytes = touched + b * kvh * g * hd * (q.element_size() + 4) + \
+        bt.numel() * 4
     flops = kvh * scored * g * hd * 4 + nsel * g * 4 * hd
     return float(nbytes), float(flops), float(touched)
 
@@ -1300,22 +1524,30 @@ def cluster_note(name, label, case, args, sel) -> str:
     return note
 
 
-def paged_rows(dev, seed, kv_dtype="auto"):
+def paged_rows(dev, seed, kv_dtype="auto", q_bf16=False):
     """Each fused paged kernel against its plain version at the continuous
     path's shapes and edges, its pool's K/V pages stored as ``kv_dtype``
     (``auto``: f32 and every case of ``PAGED_CASES``; else the main case
     and the tie-heavy one, stored by ``cases.store_kv``, where SOCKET's
     and hard LSH's selections must also equal the kernel's on the f32
     pages of the same case); times at the main shapes, entries named
-    ``name`` or ``name[kv_dtype]``."""
+    ``name`` or ``name[kv_dtype]``.  ``q_bf16`` (phase 5f, on bf16 pages):
+    the query (and Quest's page bounds) in bf16, as a bf16 model passes
+    them, on the main case,
+    gemma-7b's hd 256 / G 1 and llama4's G 5, both of the first timed
+    (entries ``name[bf16]``, bound at the bf16 rate)."""
     from repro_torch.kernels.paged_attention import cases
     rows = {}
     for name, (source, replaces, offset, build, launch, check, plain,
                cost) in paged_kernels().items():
         gen = torch.Generator(device=dev).manual_seed(seed + offset)
         quest = name == "paged_quest"
-        for label, kw in PAGED_CASES[name]:
-            if kv_dtype != "auto" and not label.startswith(STORED_CASES):
+        for label, kw in PAGED_CASES[name] + (BF16_Q_EXTRA if q_bf16
+                                              else []):
+            if q_bf16:
+                if not label.startswith(BF16_Q_CASES):
+                    continue
+            elif kv_dtype != "auto" and not label.startswith(STORED_CASES):
                 continue
             sets, args = build(gen, **kw)
             out32, sel32 = None, None
@@ -1325,6 +1557,8 @@ def paged_rows(dev, seed, kv_dtype="auto"):
                     out32, sel32 = launch(*sets[0], with_selection=True,
                                           **args)
                 sets, scales = cases.store_kv(sets, kv_dtype, quest=quest)
+            if q_bf16:
+                sets = bf16_queries(sets, quest)
             out, sel = launch(*sets[0], with_selection=True, **args,
                               **scales)
             torch.cuda.synchronize()
@@ -1339,24 +1573,28 @@ def paged_rows(dev, seed, kv_dtype="auto"):
             if sel32 is not None:
                 note += "; selection equal to the f32 pages' bit for bit"
             note += "; " + cluster_note(name, label, sets[0], args, sel)
-            log(f"{name} [{kv_dtype}, {label}] lengths {kw['lengths']}: "
+            log(f"{name} [{kv_dtype}{', bf16 q' if q_bf16 else ''}, "
+                f"{label}] lengths {kw['lengths']}: "
                 f"max|err| {err:.3e} (rtol {ATTN_TOL['rtol']}, atol "
                 f"{ATTN_TOL['atol']}); {note}")
             del out32, sel32
-            hd_timed = label == GEMMA7B_TIMED and kv_dtype == "auto"
+            hd_timed = label == GEMMA7B_TIMED and (kv_dtype == "auto" or
+                                                   q_bf16)
             if not (label.startswith("main path") or hd_timed) or \
-                    kv_dtype == "bf16":
+                    kv_dtype == "bf16" and not q_bf16:
                 continue
             row_b = kv_row_bytes(sets[0], scales)
             nbytes, flops, touched = cost(sets[0], args, sel, row_b)
             sets, args = build(gen, copies=rotations(touched), **kw)
             if kv_dtype != "auto":
                 sets, scales = cases.store_kv(sets, kv_dtype, quest=quest)
+            if q_bf16:
+                sets = bf16_queries(sets, quest)
             kernel = functools.partial(launch, **args, **scales)
             ms = device_time_ms(kernel, sets)
             plain_ms = device_time_ms(plain(sets, args, kw, scales),
                                       sets[:2])
-            bms, by = bound(nbytes, flops)
+            bms, by = (bound_bf16 if q_bf16 else bound)(nbytes, flops)
             key = name if kv_dtype == "auto" else f"{name}[{kv_dtype}]"
             if hd_timed:
                 # the main case's row comes first in PAGED_CASES
@@ -1375,7 +1613,7 @@ def paged_rows(dev, seed, kv_dtype="auto"):
     return rows
 
 
-def ring_rows(dev, seed, kv_dtype="auto"):
+def ring_rows(dev, seed, kv_dtype="auto", q_bf16=False):
     """The ring kernel against its plain version on ``cases.RING_CASES``
     (dead slots and the trash page hold NaN, which the kernel must skip),
     its pool stored as ``kv_dtype`` (``auto``: f32; else stored by
@@ -1387,14 +1625,20 @@ def ring_rows(dev, seed, kv_dtype="auto"):
     pre-gathered ring views (``library_ms``) and the gather from the
     pool, the window mask and SDPA timed as one callable
     (``library_with_gather_ms``; no one PyTorch call dequantizes and
-    attends: ``library_ms`` null)."""
+    attends: ``library_ms`` null).  ``q_bf16`` (phase 5f, on bf16 pages):
+    the query in bf16 on the main case and hd 256 / G 1, the main case
+    timed (entry ``paged_ring[bf16]``, bound at the bf16 rate)."""
     from repro_torch.kernels.paged_attention import cases, ops as pa
     gen = torch.Generator(device=dev).manual_seed(seed + 17)
     timed = {}
     for label, kw in cases.RING_CASES:
+        if q_bf16 and not label.startswith(("main path", "hd 256")):
+            continue
         sets, args = cases.ring_case(gen, **kw)
         sets, scales = (sets, {}) if kv_dtype == "auto" else \
             cases.store_kv(sets, kv_dtype)
+        if q_bf16:
+            sets = bf16_queries(sets)
         case = sets[0]
         out = pa.launch_paged_ring_attend(*case, **args, **scales)
         torch.cuda.synchronize()
@@ -1410,19 +1654,22 @@ def ring_rows(dev, seed, kv_dtype="auto"):
         b, kvh, g, hd = q.shape
         cap = bt.shape[1] * kp.shape[2]
         live = cases.ring_live(pos, cap, args["window"])
-        log(f"paged_ring [{kv_dtype}, {label}] positions {kw['positions']} "
+        log(f"paged_ring [{kv_dtype}{', bf16 q' if q_bf16 else ''}, "
+            f"{label}] positions {kw['positions']} "
             f"KVH {kvh} G {g} hd {hd} window {args['window']} softcap "
             f"{args['softcap']}: max|err| {err:.3e} (rtol "
             f"{ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); "
             f"{int(live.sum())} live of {b * cap} slots, dead ones NaN; "
             f"{note}")
-        if label.startswith(cases.RING_TIMED) and kv_dtype != "bf16":
+        if label.startswith(cases.RING_TIMED) and (kv_dtype != "bf16" or
+                                                   q_bf16):
             timed[label] = ring_timing(dev, gen, kw, kv_dtype, case, scales,
-                                       err, note)
+                                       err, note, q_bf16)
     if not timed:                         # bf16: checked, not timed
         return {}
     row = timed.pop(next(k for k in timed if k.startswith("main path")))
-    row["b2"] = timed.pop("B 2")
+    if not q_bf16:
+        row["b2"] = timed.pop("B 2")
     key = "paged_ring" if kv_dtype == "auto" else f"paged_ring[{kv_dtype}]"
     return {key: dict(
         name=key, route="cuda",
@@ -1431,7 +1678,8 @@ def ring_rows(dev, seed, kv_dtype="auto"):
         **row)}
 
 
-def ring_timing(dev, gen, kw, kv_dtype, case, scales, err, note) -> dict:
+def ring_timing(dev, gen, kw, kv_dtype, case, scales, err, note,
+                q_bf16=False) -> dict:
     """The ring kernel's time on the shape of ``case`` (a ring case's
     ``kw``, inputs rotated past the L2 cache) beside its bound, its plain
     version and, on f32 pages, SDPA without and with the gather (see
@@ -1447,11 +1695,13 @@ def ring_timing(dev, gen, kw, kv_dtype, case, scales, err, note) -> dict:
     # the live K/V rows once (scales included), q, the output, the table
     # and positions
     nbytes = kvh * nlive * kv_row_bytes(case, scales) + \
-        2 * b * kvh * g * hd * 4 + bt.numel() * 4 + b * 4
+        b * kvh * g * hd * (q.element_size() + 4) + bt.numel() * 4 + b * 4
     flops = kvh * nlive * g * 4 * hd
     sets, args = cases.ring_case(gen, copies=rotations(nbytes), **kw)
     if kv_dtype != "auto":
         sets, scales = cases.store_kv(sets, kv_dtype)
+    if q_bf16:
+        sets = bf16_queries(sets)
     kernel = functools.partial(pa.launch_paged_ring_attend, **args, **scales)
     ms = device_time_ms(kernel, sets)
     plain_ms = device_time_ms(
@@ -1494,8 +1744,9 @@ def ring_timing(dev, gen, kw, kv_dtype, case, scales, err, note) -> dict:
                      library_with_gather_call="gather_block_leaf of "
                      "K and V, nan_to_num, the window mask and "
                      "scaled_dot_product_attention, one callable")
-    bms, by = bound(nbytes, flops)
-    log(f"paged_ring [{kv_dtype}] B {b} timed: kernel {ms:.4f} ms, bound "
+    bms, by = (bound_bf16 if q_bf16 else bound)(nbytes, flops)
+    log(f"paged_ring [{kv_dtype}{', bf16 q' if q_bf16 else ''}] B {b} "
+        f"timed: kernel {ms:.4f} ms, bound "
         f"{bms:.4f} ({by}), plain {plain_ms:.4f}" +
         (f", SDPA over gathered views {lib_ms:.4f}, gather + mask + SDPA "
          f"{extra['library_with_gather_ms']:.4f}" if lib_ms else "") +
@@ -1531,8 +1782,15 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
       tell apart; each query seeing one key too many) give the readings
       a fault would, which must fail that gate.
 
-    Returns the kernel route's (logits, caches) and the stats (times and
-    peak memory of the first two)."""
+    At bf16 compute (phase 5f) the two free-running routes round to bf16
+    between layers in other places, so their logits are held to a
+    float32 run of the same weights through the plain op instead
+    (:func:`f32_distance_check`), and SOCKET's bits compare outside the
+    band of the K rows' bf16 difference.
+
+    Returns the kernel route's (logits, caches), the stats (times and
+    peak memory of the first two) and, at bf16, the float32 run's
+    (logits, caches) (else None)."""
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
     from repro_torch.models import attention
@@ -1574,10 +1832,10 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
         layers.append(row)
         return out
 
-    def prefill(op):
+    def prefill(op, config=cfg):
         with mock.patch.object(attention.fp_ops, "flash_prefill", op):
-            return make_prefill_step(cfg, capacity)(params,
-                                                    {"tokens": prompt})
+            return make_prefill_step(config, capacity)(params,
+                                                       {"tokens": prompt})
 
     def timed_prefill(route, op, stats):
         torch.cuda.synchronize()
@@ -1592,7 +1850,7 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
         return out
 
     stats, routes, rerouted = {}, {}, []
-    with moe_routes_shared(rerouted) as to_plain:
+    with paired(moe_routes_shared, cfg, rerouted) as to_plain:
         for route, op in (("kernel", fp.flash_prefill), ("plain", plain_op)):
             if route == "plain":
                 to_plain()
@@ -1600,6 +1858,12 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
     stats["prefill_moe_tokens_rerouted"] = rerouted
     (lk, ck), (lp, cp) = routes.pop("kernel"), routes.pop("plain")
     err = (lk - lp).abs().max().item()
+    ref = None
+    if is_bf16(cfg):
+        torch.cuda.empty_cache()     # room for a widened expert stack
+        ref = prefill(plain_op, f32_reference(cfg))
+        stats["prefill_bf16_vs_f32"] = f32_distance_check(
+            "prefill", lk, lp, ref[0])
     # attention layers only (a Mamba layer's cache is its state)
     drift = [max((a[n] - b[n]).abs().max().item() for n in "kv")
              for a, b in zip(ck, cp) if "k" in a]
@@ -1616,11 +1880,13 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
                  prefill_kv_err_by_layer=kv_err,
                  prefill_attention_by_layer=layers)
     w = layers[worst]
-    log(f"prefill, kernel vs plain op: max|logits err| {err:.3e} (atol "
-        f"{LOGITS_ATOL}); layer 0 K/V {drift[0]:.1e}; free-running K/V "
+    log(f"prefill, kernel vs plain op: max|logits err| {err:.3e} ("
+        + ("not a gate at bf16" if ref else f"atol {LOGITS_ATOL}")
+        + f"); layer 0 K/V {drift[0]:.1e}; free-running K/V "
         f"drift {max(drift):.3e} (not a gate); "
         f"{stats['prefill_bit_flips']} SOCKET signs flipped, all among the "
-        f"{stats['prefill_bits_near_zero']} with |proj| ~ 0; kernel "
+        f"{stats['prefill_bits_near_zero']} with |proj| ~ 0 (of "
+        f"{stats['prefill_bits_layers_compared']} layers); kernel "
         f"{stats['prefill_s_kernel']:.3f} s, plain "
         f"{stats['prefill_s_plain']:.3f} s")
     log(f"prefill layer by layer, both ops fed the kernel route's q/k/v: "
@@ -1644,7 +1910,7 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
         f"the limit or more, one key too many "
         f"{min(r['next_key_ratio'] / r['limit'] for r in layers):.3g}x or "
         f"more")
-    if err > LOGITS_ATOL or drift[0] != 0.0 or \
+    if (err > LOGITS_ATOL and ref is None) or drift[0] != 0.0 or \
             max(kv_err) > PREFILL_TOL["atol"] or \
             w["ratio_f64"] > w["limit"] or f64 > F64_RATIO:
         raise AssertionError(f"prefill routes differ: logits {err:.3e}, "
@@ -1659,7 +1925,7 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
             for r in layers) <= 1.0:
         raise AssertionError("the layer-by-layer gate cannot see a wrong "
                              "head order or mask")
-    return lk, ck, stats
+    return lk, ck, stats, ref
 
 
 def tol_ratio(out, ref, tol=ATTN_TOL) -> float:
@@ -1672,13 +1938,20 @@ def tol_ratio(out, ref, tol=ATTN_TOL) -> float:
 def prefill_socket_checks(cfg, params, prompt, ck, cp):
     """SOCKET bits of the kernel route's caches ``ck`` and the plain
     route's ``cp``: equal wherever a key's projection is clear of
-    rounding (|proj| > 1e-5 x the sum of |terms|)."""
+    rounding (|proj| > 1e-5 x the sum of |terms|).  At bf16 the
+    free-running routes' keys part after layer 0 (see
+    :func:`f32_distance_check`), so only the layers whose K rows the two
+    routes share are compared (layer 0 at least; the layer-by-layer run
+    holds every layer's K/V)."""
     from repro_torch.core import hashing
     s, t = cfg.socket, prompt.shape[1]
-    flips, band = 0, 0
+    flips, band, compared = 0, 0, 0
     for i, (a, b) in enumerate(zip(ck, cp)):
         if "bits" not in a:                     # a Mamba layer's state
             continue
+        if is_bf16(cfg) and not torch.equal(a["k"], b["k"]):
+            continue
+        compared += 1
         sa = hashing.unpack_signs(a["bits"], s.num_tables,
                                   s.num_planes)[:, :, :t]
         sb = hashing.unpack_signs(b["bits"], s.num_tables,
@@ -1695,34 +1968,116 @@ def prefill_socket_checks(cfg, params, prompt, ck, cp):
         flips += int((sa != sb).sum().item())
         band += int(near.sum().item())
         del sa, sb, proj, mag, near
-    return dict(prefill_bit_flips=flips, prefill_bits_near_zero=band)
+    if not compared:
+        raise AssertionError("no layer's SOCKET bits were compared")
+    return dict(prefill_bit_flips=flips, prefill_bits_near_zero=band,
+                prefill_bits_layers_compared=compared)
+
+
+# ------------------------------------------------ bf16 numerics (5f)
+
+def is_bf16(cfg) -> bool:
+    return cfg.compute_dtype == "bfloat16"
+
+
+def kernel_scoring(cfg):
+    """``cfg`` with SOCKET's plain scores taken from float32 u: the
+    kernels score from float32 u whatever ``score_dtype`` says (as the TPU
+    kernels do), so the plain route they are held to does too; the
+    model's own bf16 scores are held to the JAX package on the CPU."""
+    return cfg.replace(socket=dataclasses.replace(cfg.socket,
+                                                  score_dtype="float32"))
+
+
+def f32_reference(cfg):
+    """``cfg`` computing in float32 through the plain versions (no
+    kernel flag on): run on the same bf16 weights, which every product
+    widens, it is the yardstick both bf16 routes are held to."""
+    return cfg.replace(
+        compute_dtype="float32", use_ring_kernel=False,
+        socket=dataclasses.replace(cfg.socket, score_dtype="float32",
+                                   use_score_kernel=False,
+                                   use_flash_decode=False,
+                                   use_paged_kernel=False),
+        quest=dataclasses.replace(cfg.quest, use_paged_kernel=False))
+
+
+def f32_distance_check(label, kernel, plain, ref, ratio=F64_RATIO) -> dict:
+    """At bf16 the kernel and plain routes round to bf16 between layers
+    in other places: from the first layer on, a few float32 ulps between
+    the two attentions round, here and there, to neighbouring bf16
+    values, so later layers see other queries, SOCKET selections and MoE
+    routes may part outside any rounding band (the routes are not paired,
+    :func:`paired`), and the logits cannot meet LOGITS_ATOL.  Each route
+    is held to a float32 run of the same weights instead: the kernel
+    route's largest |logits error| from it no more than ``ratio``
+    (F64_RATIO) times the plain route's.  Returns the three distances."""
+    kernel, plain, ref = kernel.float(), plain.float(), ref.float()
+    for name, t in (("kernel", kernel), ("plain", plain), ("f32", ref)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: non-finite {name} logits")
+    out = dict(kernel_vs_f32=(kernel - ref).abs().max().item(),
+               plain_vs_f32=(plain - ref).abs().max().item(),
+               kernel_vs_plain=(kernel - plain).abs().max().item(),
+               max_abs_f32=ref.abs().max().item())
+    log(f"{label}, bf16 routes against a float32 run of the same weights: "
+        f"max|logits err| kernel {out['kernel_vs_f32']:.3e}, plain "
+        f"{out['plain_vs_f32']:.3e} (the kernel's at most {ratio}x the "
+        f"plain's); kernel vs plain {out['kernel_vs_plain']:.3e} (not a "
+        f"gate); max|logits| {out['max_abs_f32']:.3f}")
+    if not out["kernel_vs_f32"] <= ratio * out["plain_vs_f32"]:
+        raise AssertionError(f"{label}: the bf16 kernel route lies "
+                             f"{out['kernel_vs_f32']:.3e} from float32, more "
+                             f"than {ratio}x the plain route's "
+                             f"{out['plain_vs_f32']:.3e}")
+    return out
+
+
+def paired(pairing, cfg, swapped):
+    """``pairing(swapped)`` (a context pairing the kernel route's SOCKET
+    selections or MoE routes with the plain route's) at float32 compute;
+    at bf16 a context that pairs nothing (:func:`f32_distance_check`)."""
+    if is_bf16(cfg):
+        return contextlib.nullcontext(lambda: None)
+    return pairing(swapped)
+
+
+def widened(pages):
+    """A float32 copy of a pool or per-layer caches: bf16 leaves widened
+    (K/V), the others cloned (bits, bf16 value norms, scales, state)."""
+    return [{k: v.float() if v.dtype == torch.bfloat16 and k != "vnorm"
+             else v.clone() for k, v in layer.items()} for layer in pages]
 
 
 # arch -> (batch, prompt length, greedy decode steps) of the static path:
-# llama31-8b (phase 4), gemma-7b, MHA at hd 256 (phase 5d), and jamba's
-# one attention layer among Mamba and MoE layers (phase 5e)
+# llama31-8b (phases 4 and 5f), gemma-7b, MHA at hd 256 (phase 5d),
+# jamba's one attention layer among Mamba and MoE layers (phase 5e) and
+# llama4's group of a dense and an MoE layer (phase 5f, jamba's traffic)
 STATIC_CASES = {"llama31-8b": (2, 8192, 32), "gemma-7b": (2, 4096, 16),
-                "jamba-v0.1-52b": (2, 4096, 16)}
+                "jamba-v0.1-52b": (2, 4096, 16),
+                "llama4-maverick-400b-a17b": (2, 4096, 16)}
 
 
-def phase_main(dev, seed, card, arch="llama31-8b"):
+def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
     """The static path of ``arch`` at full width, and at the depth of its
-    continuous card case (``CARD_CASES``: all of it but for jamba's one
-    group; see the module docstring, phases 4, 5d and 5e); returns
-    (launches, the weights).  The attention kernels' gates count the
-    attention layers alone."""
-    from repro_torch.configs import get_config
+    continuous card case (``CARD_CASES``: all of it but for jamba's and
+    llama4's one group; see the module docstring, phases 4, 5d, 5e and
+    5f), at ``numerics`` ("f32", or "bf16": the deployment's, phase 5f,
+    where the kernel and plain routes are held to a float32 run of the
+    same weights); returns (launches, the weights).  The attention
+    kernels' gates count the attention layers alone."""
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import (CARD_CASES, apply_backend_arg,
-                                          run_serve)
+                                          card_config, run_serve)
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.steps import make_serve_step
 
     batch, prompt_len, steps = STATIC_CASES[arch]
-    cfg = apply_backend_arg(get_config(arch), "socket").replace(
-        attn_q_chunk=512)
+    cfg = apply_backend_arg(card_config(arch, numerics), "socket")
+    if numerics == "f32":
+        cfg = cfg.replace(attn_q_chunk=512)
     groups = CARD_CASES[arch][3]
     if groups is not None:
         cfg = cfg.replace(num_groups=groups)
@@ -1734,7 +2089,9 @@ def phase_main(dev, seed, card, arch="llama31-8b"):
                            generator=gen, device=dev)
     torch.cuda.synchronize()
     log(f"main: {arch} {cfg.param_count() / 1e9:.3f} B params "
-        f"(fp32) drawn in {time.perf_counter() - t0:.1f} s; "
+        f"({cfg.param_dtype}, compute {cfg.compute_dtype}, SOCKET scores "
+        f"{cfg.socket.score_dtype} in chunks of {cfg.socket.score_chunk}) "
+        f"drawn in {time.perf_counter() - t0:.1f} s; "
         f"{cfg.num_layers} layers ({n_attn} attention); batch {batch}, "
         f"prompt {prompt_len}, {steps} decode steps")
 
@@ -1758,8 +2115,17 @@ def phase_main(dev, seed, card, arch="llama31-8b"):
     if tuple(toks.shape) != (batch, steps + 1) or not bool(
             ((toks >= 0) & (toks < cfg.padded_vocab())).all()):
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+    if cfg.uses_moe:
+        expert = sum(t.numel() * t.element_size() for layer in params[
+            "layers"] for k, t in layer.get("moe", {}).items()
+            if k.startswith("w_"))
+        step_ms = decode_s / steps * 1e3
+        log(f"{arch}: a decode step ({step_ms:.2f} ms on the host's clock) "
+            f"reads every expert's weights, {expert / 1e9:.2f} GB "
+            f"({cfg.param_dtype}): {expert / step_ms / 1e9:.3f} TB/s")
     log(json.dumps({
-        "main_path": arch, "batch": batch, "prompt_len": prompt_len,
+        "main_path": arch, "numerics": numerics,
+        "batch": batch, "prompt_len": prompt_len,
         "decode_steps": steps, "prefill_s": prefill_s,
         "decode_s": decode_s,
         "decode_tokens_per_s": batch * steps / decode_s,
@@ -1768,74 +2134,92 @@ def phase_main(dev, seed, card, arch="llama31-8b"):
 
     # the same run on int8 plane bytes (socket.bits_storage "int8"): the
     # kernel forms the same words from their sign bits, so the scores, and
-    # with them every greedy token, equal the packed run's
-    cfg8 = cfg.replace(socket=dataclasses.replace(cfg.socket,
-                                                  bits_storage="int8"))
-    ss.LAUNCHES = 0
-    toks8, _, decode8_s = run_serve(cfg8, batch, prompt_len, steps,
-                                    seed=seed, prompt=prompt, params=params,
-                                    device=dev)
-    launches["socket_score[int8]"] = ss.LAUNCHES
-    if ss.LAUNCHES != expected["socket_score"]:
-        raise AssertionError(f"socket_score[int8]: {ss.LAUNCHES} launches, "
-                             f"expected {expected['socket_score']}")
-    if not torch.equal(toks8, toks):
-        raise AssertionError("int8 plane bytes gave other greedy tokens "
-                             "than packed words")
-    log(f"main path on int8 plane bytes: {ss.LAUNCHES} socket_score "
-        f"launches, greedy tokens equal to the packed run's; decode "
-        f"{batch * steps / decode8_s:.2f} tokens/s")
+    # with them every greedy token, equal the packed run's (f32 only: the
+    # scoring kernel's inputs are the same at bf16)
+    bf16 = is_bf16(cfg)
+    if not bf16:
+        cfg8 = cfg.replace(socket=dataclasses.replace(cfg.socket,
+                                                      bits_storage="int8"))
+        ss.LAUNCHES = 0
+        toks8, _, decode8_s = run_serve(cfg8, batch, prompt_len, steps,
+                                        seed=seed, prompt=prompt,
+                                        params=params, device=dev)
+        launches["socket_score[int8]"] = ss.LAUNCHES
+        if ss.LAUNCHES != expected["socket_score"]:
+            raise AssertionError(f"socket_score[int8]: {ss.LAUNCHES} "
+                                 f"launches, expected "
+                                 f"{expected['socket_score']}")
+        if not torch.equal(toks8, toks):
+            raise AssertionError("int8 plane bytes gave other greedy tokens "
+                                 "than packed words")
+        log(f"main path on int8 plane bytes: {ss.LAUNCHES} socket_score "
+            f"launches, greedy tokens equal to the packed run's; decode "
+            f"{batch * steps / decode8_s:.2f} tokens/s")
 
     # the prefill through the kernel and through the plain op
     capacity = prompt_len + steps
-    logits, caches, stats = prefill_routes(cfg, params, prompt, capacity,
-                                           dev)
+    logits, caches, stats, ref = prefill_routes(cfg, params, prompt,
+                                                capacity, dev)
     log(json.dumps({"main_path_prefill": arch, **stats, "card": card}))
     # decode step 0 again on a clone of the prefilled cache, kernel path vs
-    # the plain versions (both kernel flags off)
+    # the plain versions (both kernel flags off; at bf16 scoring from
+    # float32 u as the kernel does)
     cfg_plain = cfg.replace(socket=dataclasses.replace(
         cfg.socket, use_score_kernel=False, use_flash_decode=False))
+    if bf16:
+        cfg_plain = kernel_scoring(cfg_plain)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     if not torch.equal(tok[:, 0], toks[:, 0]):
         raise AssertionError("prefill is not deterministic: first token "
                              "differs between two runs")
     plain_caches = [{k: v.clone() for k, v in c.items()} for c in caches]
     serve_plain = make_serve_step(cfg_plain)
+    if bf16:
+        serve_f32 = make_serve_step(f32_reference(cfg))
+        f32_caches = ref[1]
+        torch.cuda.empty_cache()
+        lf, _ = serve_f32(params, f32_caches, tok, prompt_len)
     swapped, rerouted = [], []
-    with static_ties_shared(swapped) as to_plain, \
-            moe_routes_shared(rerouted) as moe_to_plain:
+    with paired(static_ties_shared, cfg, swapped) as to_plain, \
+            paired(moe_routes_shared, cfg, rerouted) as moe_to_plain:
         lk, _ = make_serve_step(cfg)(params, caches, tok, prompt_len)
         to_plain()
         moe_to_plain()
         lp, _ = serve_plain(params, plain_caches, tok, prompt_len)
     del caches
-    log(f"decode step 0: the plain top-k took the kernel route's selection "
-        f"in {len(swapped)} of {n_attn} layers (rows inside the "
-        f"score band: {swapped})"
-        + (f"; MoE tokens the plain route sent to the kernel route's "
-           f"experts: {rerouted}" if cfg.uses_moe else ""))
+    if not bf16:
+        log(f"decode step 0: the plain top-k took the kernel route's "
+            f"selection in {len(swapped)} of {n_attn} layers (rows inside "
+            f"the score band: {swapped})"
+            + (f"; MoE tokens the plain route sent to the kernel route's "
+               f"experts: {rerouted}" if cfg.uses_moe else ""))
     for name, t in (("kernel", lk), ("plain", lp)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"non-finite logits on the {name} path")
     err = (lk - lp).abs().max().item()
-    log(f"decode step 0, kernels vs plain versions: max|logits err| "
-        f"{err:.3e} (atol {LOGITS_ATOL}; max|logits| "
-        f"{lp.abs().max().item():.3f})")
-    if err > LOGITS_ATOL:
-        raise AssertionError(f"step-0 logits differ by {err:.3e} > "
-                             f"{LOGITS_ATOL}")
-    plain_toks = [tok, torch.argmax(lp[:, -1], dim=-1)[:, None]]
-    for t in range(1, steps):
-        lp, _ = serve_plain(params, plain_caches, plain_toks[-1],
-                            prompt_len + t)
-        plain_toks.append(torch.argmax(lp[:, -1], dim=-1)[:, None])
-    plain_toks = torch.cat(plain_toks, dim=1)
-    same = (plain_toks == toks)
-    prefix = [int(same[b].long().cumprod(0).sum().item())
-              for b in range(batch)]
-    log(f"greedy tokens shared by kernel and plain paths: "
-        f"{int(same.sum().item())}/{same.numel()} (identical prefix per "
-        f"request: {prefix})")
+    if bf16:
+        f32_distance_check("decode step 0", lk, lp, lf)
+    else:
+        log(f"decode step 0, kernels vs plain versions: max|logits err| "
+            f"{err:.3e} (atol {LOGITS_ATOL}; max|logits| "
+            f"{lp.abs().max().item():.3f})")
+        if err > LOGITS_ATOL:
+            raise AssertionError(f"step-0 logits differ by {err:.3e} > "
+                                 f"{LOGITS_ATOL}")
+    others = {"plain": (serve_plain, plain_caches, lp)}
+    if bf16:
+        others["float32"] = (serve_f32, f32_caches, lf)
+    for label, (serve, cache, lt) in others.items():
+        got = [tok, torch.argmax(lt[:, -1], dim=-1)[:, None]]
+        for t in range(1, steps):
+            lt, _ = serve(params, cache, got[-1], prompt_len + t)
+            got.append(torch.argmax(lt[:, -1], dim=-1)[:, None])
+        same = (torch.cat(got, dim=1) == toks)
+        prefix = [int(same[b].long().cumprod(0).sum().item())
+                  for b in range(batch)]
+        log(f"greedy tokens shared by the kernel path and the {label} "
+            f"path: {int(same.sum().item())}/{same.numel()} (identical "
+            f"prefix per request: {prefix})")
     return launches, params
 
 
@@ -1856,20 +2240,21 @@ def layer_kinds(cfg) -> list:
             for s in cfg.layer_specs]
 
 
-def draw_params(dev, seed, arch):
+def draw_params(dev, seed, arch, numerics="f32"):
     """The continuous card case's weights of ``arch``, drawn from
-    ``seed`` (logged with the depth the case cuts to)."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import card_continuous_case
+    ``seed`` at ``numerics``' parameter dtype (logged with the depth the
+    case cuts to)."""
+    from repro_torch.launch.serve import card_config, card_continuous_case
     from repro_torch.models import transformer as tfm
-    full = get_config(arch)
+    full = card_config(arch, numerics)
     cfg, _ = card_continuous_case(full, seed, 32)
     t0 = time.perf_counter()
     params = tfm.init_model(cfg, seed, dev)
     torch.cuda.synchronize()
     kinds = layer_kinds(cfg)
     moe = sum(s.mlp == "moe" for s in cfg.layer_specs)
-    log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params (fp32) drawn "
+    log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params "
+        f"({cfg.param_dtype}) drawn "
         f"in {time.perf_counter() - t0:.1f} s; {cfg.num_layers} of "
         f"{full.num_layers} layers ("
         + ", ".join(f"{kinds.count(k)} {k}" for k in
@@ -2170,7 +2555,7 @@ def pool_block_bytes_check(cfg, pages) -> int:
 
 def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
                      kv_dtype="auto", ref_tokens=None, legacy=False,
-                     num_groups=None, after=None):
+                     num_groups=None, after=None, numerics="f32"):
     """One continuous run of ``arch`` with ``backend`` on K/V pages stored
     as ``kv_dtype`` (see the module docstring, phases 5 to 7 and 5e), on
     the card case's weights ``params``; ``legacy``: whole-prompt bucketed
@@ -2178,18 +2563,19 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
     first layers of ``params``.  ``ref_tokens``: (label, the generated
     tokens of another run of the same case), whose agreement with this
     run's is logged (a number, not a gate).  ``after(engine, reqs)``: a
-    further check of the finished run.  Returns (the launches of the
-    kernels the run is read for, the generated tokens, the run's wall
-    seconds)."""
+    further check of the finished run.  ``numerics`` "bf16": the
+    deployment's (phase 5f), where the captured iteration's kernel and
+    plain routes are held to a float32 run of it on the same weights.
+    Returns (the launches of the kernels the run is read for, the
+    generated tokens, the run's wall seconds)."""
     import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import card_continuous_case
+    from repro_torch.launch.serve import card_config, card_continuous_case
     from repro_torch.runtime.steps import make_serve_step
     from repro_torch.serving.engine import ContinuousBatchingEngine
 
     new_tokens = 32
     name, counter, gate = FUSED[backend]
-    full = get_config(arch)
+    full = card_config(arch, numerics)
     cfg, reqs = card_continuous_case(full, seed, new_tokens, backend,
                                      kv_dtype, legacy=legacy)
     if num_groups is not None:
@@ -2294,7 +2680,8 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
                       prefill_padded_share=padded,
                       warmup_call_s=engine.warmup_s)
     log(json.dumps({
-        "continuous_path": arch, "backend": backend, "kv_dtype": kv_dtype,
+        "continuous_path": arch, "numerics": numerics, "backend": backend,
+        "kv_dtype": kv_dtype,
         "prefill": "whole-prompt buckets" if legacy else "chunked",
         "kv_bytes_per_block_id": block_bytes,
         "kv_bytes_per_block_id_auto": block_bytes_auto,
@@ -2325,15 +2712,22 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         gate: dataclasses.replace(getattr(cfg, gate),
                                   use_paged_kernel=False)})
     live = pos > 0                   # idle slots decode the trash page
+    lf = None
+    if is_bf16(cfg):
+        cfg_plain = kernel_scoring(cfg_plain)
+        torch.cuda.empty_cache()     # room for a widened expert stack
+        lf, _ = make_serve_step(f32_reference(cfg))(
+            params, widened(plain_pages), tokens, pos, bt)
+        lf = lf[live]
     forced, swapped, rerouted = None, [], []
-    with (socket_ties_shared(swapped) if backend == "socket_fused" else
-          contextlib.nullcontext()):
+    with (paired(socket_ties_shared, cfg, swapped)
+          if backend == "socket_fused" else contextlib.nullcontext()):
         if kv_dtype != "auto":
             forced = forced_logits_err(cfg, cfg_plain, params, kernel_pages,
                                        clone(plain_pages), tokens, pos, bt,
                                        live)
             kernel_pages = clone(plain_pages)
-        with moe_routes_shared(rerouted) as moe_to_plain:
+        with paired(moe_routes_shared, cfg, rerouted) as moe_to_plain:
             lk, _ = make_serve_step(cfg)(params, kernel_pages, tokens, pos,
                                          bt)
             del kernel_pages
@@ -2351,7 +2745,8 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         f"{snap['iteration'] + 1} ({len(snap['reqs'])} requests), {backend} "
         f"on {kv_dtype} pages, "
         f"kernels vs plain paged path: max|logits err| {err:.3e} "
-        + (f"(atol {LOGITS_ATOL}; " if forced is None else
+        + ("(not a gate at bf16: held to float32 below; " if lf is not None
+           else f"(atol {LOGITS_ATOL}; " if forced is None else
            "(not a gate: the two routes' rows round to the quantization "
            f"grid apart; layer by layer, teacher-forced: {forced:.3e}, "
            f"atol {LOGITS_ATOL}; ")
@@ -2364,6 +2759,10 @@ def phase_continuous(dev, seed, card, params, backend, arch="llama31-8b",
         + ("" if not cfg.uses_moe else
            f"; MoE tokens the plain path sent to the kernel path's "
            f"experts: {sum(rerouted)}"))
+    if lf is not None:
+        f32_distance_check(f"{arch} {backend} bf16 decode iteration", lk,
+                           lp, lf)
+        return {k: launches[k] for k in layers}, generated, m.wall_s
     gated = err if forced is None else forced
     if gated > LOGITS_ATOL:
         raise AssertionError(f"{arch} {backend} {kv_dtype}: continuous "
@@ -2659,9 +3058,11 @@ def probe_rows_check(label, rows, events, layers, every) -> None:
             raise AssertionError(f"{label}: probe row out of range: {r}")
 
 
-def phase_observability(dev, seed, card, params, f32_runs) -> dict:
+def phase_observability(dev, seed, card, params, f32_runs,
+                        num_groups=None) -> dict:
     """Phase 5c (see the module docstring): ``socket_fused`` fully
-    observed, then ``hard_lsh_fused`` and ``quest_fused`` with the probe;
+    observed, then ``hard_lsh_fused`` and ``quest_fused`` with the probe,
+    at ``num_groups`` groups (the depth of the phase-5 runs);
     ``f32_runs``: each backend's phase-5 f32 (tokens, wall seconds).
     Returns each run's paged-kernel launches."""
     import os
@@ -2699,6 +3100,8 @@ def phase_observability(dev, seed, card, params, f32_runs) -> dict:
             name = FUSED[backend][0]
             label = f"observability phase ({backend})"
             cfg, reqs = card_continuous_case(full, seed, new_tokens, backend)
+            if num_groups is not None:
+                cfg = cfg.replace(num_groups=num_groups)
             layers = cfg.num_layers
             traced = backend == "socket_fused"
             trace_path = os.path.join(tmp, f"{backend}.jsonl")
@@ -2712,8 +3115,9 @@ def phase_observability(dev, seed, card, params, f32_runs) -> dict:
                 obs.profiler = WindowProfiler(prof_dir,
                                               steps=OBS_PROFILE_STEPS,
                                               start_step=start)
-            engine = ContinuousBatchingEngine(cfg, params=params, device=dev,
-                                              obs=obs)
+            engine = ContinuousBatchingEngine(
+                cfg, params=dict(params, layers=params["layers"][:layers]),
+                device=dev, obs=obs)
             probe_s = []                 # each probe step's host seconds
             inner = engine._run_probe
 
@@ -3009,14 +3413,18 @@ def phase_all_global(dev, seed, card) -> dict:
     return launches
 
 
-def legacy_phase(dev, seed, card, params, arch, chunked, launches):
-    """Phase 7 for ``arch``: the legacy whole-prompt prefill run, its
-    tokens compared with the chunked f32 run's (``chunked[arch]``); its
-    launches land in ``launches`` as ``name[legacy arch]``."""
+def legacy_phase(dev, seed, card, params, arch, chunked, launches,
+                 num_groups=None):
+    """Phase 7 for ``arch``: the legacy whole-prompt prefill run (at
+    ``num_groups`` groups: the depth of the chunked run it is read
+    against), its tokens compared with the chunked f32 run's
+    (``chunked[arch]``); its launches land in ``launches`` as
+    ``name[legacy arch]``."""
     t0 = time.perf_counter()
     counts, _, _ = phase_continuous(dev, seed, card, params, "socket_fused",
                                     arch=arch, legacy=True,
-                                    ref_tokens=("chunked", chunked[arch]))
+                                    ref_tokens=("chunked", chunked[arch]),
+                                    num_groups=num_groups)
     launches.update({f"{k}[legacy {arch}]": v for k, v in counts.items()})
     gc.collect()
     torch.cuda.empty_cache()
@@ -3189,13 +3597,59 @@ def phase_state_moe(dev, seed, card) -> dict:
     return launches
 
 
+BF16_ARCHS = ("llama31-8b", "llama4-maverick-400b-a17b")
+
+
+def phase_bf16(dev, seed, card):
+    """Phase 5f (see the module docstring): the kernels on a bf16 model's
+    inputs, then llama31-8b and llama4-maverick's one group at the
+    deployment numerics through the static path and the engine.  Returns
+    ({kernel: its ``bf16`` entry}, the runs' launches, named
+    ``kernel[bf16]`` for llama31-8b's and ``kernel[bf16 arch ...]``
+    for llama4's)."""
+    t0 = time.perf_counter()
+    rows = bf16_attention_rows(dev, seed)
+    paged = paged_rows(dev, seed, "bf16", q_bf16=True)
+    paged.update(ring_rows(dev, seed, "bf16", q_bf16=True))
+    rows.update({name.split("[")[0]: row for name, row in paged.items()})
+    log(f"bf16 kernel cases: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    llama, llama4 = BF16_ARCHS
+    with phase_clock(f"{llama} bf16 static phase", dev):
+        counts, params = phase_main(dev, seed, card, llama, "bf16")
+    launches.update({f"{k}[bf16]": v for k, v in counts.items()})
+    for backend in FUSED:
+        with phase_clock(f"continuous phase ({llama} {backend}, bf16)", dev):
+            counts, _, _ = phase_continuous(dev, seed, card, params, backend,
+                                            numerics="bf16")
+        launches.update({f"{k}[bf16]": v for k, v in counts.items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock(f"{llama4} bf16 static phase", dev):
+        counts, params = phase_main(dev, seed, card, llama4, "bf16")
+    launches.update({f"{k}[bf16 {llama4} static]": v
+                     for k, v in counts.items()})
+    with phase_clock(f"continuous phase ({llama4} socket_fused, bf16)", dev):
+        counts, _, _ = phase_continuous(dev, seed, card, params,
+                                        "socket_fused", arch=llama4,
+                                        numerics="bf16")
+    launches.update({f"{k}[bf16 {llama4} auto]": v
+                     for k, v in counts.items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"bf16_launches": launches}))
+    return rows, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["state-moe"], default=None,
+    ap.add_argument("--only", choices=["state-moe", "bf16"], default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e); prints neither the kernels line nor the "
-                         "ok line")
+                         "(5e or 5f); prints neither the kernels line nor "
+                         "the ok line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3216,6 +3670,13 @@ def main(argv=None) -> int:
         phase_state_moe(dev, args.seed, card)
         log(f"state and MoE phase: {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.only == "bf16":
+        build_kernels()
+        t0 = time.perf_counter()
+        rows, _ = phase_bf16(dev, args.seed, card)
+        log(json.dumps({"bf16_kernels": rows}))
+        log(f"bf16 phase: {time.perf_counter() - t0:.1f} s")
+        return 0
     t0 = time.perf_counter()
     rows = phase_kernels(dev, args.seed)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
@@ -3224,7 +3685,8 @@ def main(argv=None) -> int:
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
     # the continuous runs: each fused backend on f32 pages, then on int8
     # and fp8 pages (entries name[int8], name[fp8]) on the same weights,
-    # those at QUANT_DEPTH layers
+    # all at QUANT_DEPTH layers (phase 5f runs the three at full depth, at
+    # bf16), as the observability and legacy runs read against them
     chunked = {}                # arch -> socket_fused f32 run's tokens
     f32_runs = {}               # backend -> its f32 run's (tokens, wall s)
     for backend in FUSED:
@@ -3233,7 +3695,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             counts, tokens, wall_s = phase_continuous(
                 dev, args.seed, card, params, backend, kv_dtype=kv_dtype,
-                num_groups=None if kv_dtype == "auto" else QUANT_DEPTH)
+                num_groups=QUANT_DEPTH)
             if auto is None:
                 f32_runs[backend] = (tokens, wall_s)
             auto = auto or tokens
@@ -3259,10 +3721,10 @@ def main(argv=None) -> int:
     log(f"sampling phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches.update(phase_observability(dev, args.seed, card, params,
-                                        f32_runs))
+                                        f32_runs, QUANT_DEPTH))
     log(f"observability phase: {time.perf_counter() - t0:.1f} s")
     legacy_phase(dev, args.seed, card, params, "llama31-8b", chunked,
-                 launches)
+                 launches, QUANT_DEPTH)
     del params                                  # llama31-8b's 32 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -3272,6 +3734,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches.update(phase_state_moe(dev, args.seed, card))
     log(f"state and MoE phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf16_rows, bf16_launches = phase_bf16(dev, args.seed, card)
+    # socket_score's inputs are the same at bf16 (bits, f32 u, bf16 vnorm):
+    # its entry holds the bf16 run's launches alone
+    bf16_rows.setdefault("socket_score", {})
+    for name, entry in bf16_rows.items():
+        rows[name]["bf16"] = dict(
+            entry, launches=bf16_launches.get(f"{name}[bf16]", 0))
+    launches.update(bf16_launches)
+    log(f"bf16 phase: {time.perf_counter() - t0:.1f} s")
     params = draw_params(dev, args.seed, "gemma3-27b")
     auto = None
     for kv_dtype in ("auto",) + QUANT_KV_DTYPES[1:]:

@@ -150,13 +150,15 @@ def log_normalizer(u: torch.Tensor, tau: float) -> torch.Tensor:
 def _score_block(cfg: SocketConfig, bits: torch.Tensor, u: torch.Tensor,
                  logz: torch.Tensor) -> torch.Tensor:
     l, p = cfg.num_tables, cfg.num_planes
-    sdt = getattr(torch, cfg.score_dtype)
+    # JAX rounds the ±1 signs (exact in any type) and u to score_dtype
+    # and accumulates in float32 (preferred_element_type): float32
+    # operands holding u's score_dtype values give its sums
     if cfg.bits_storage == "packed":
-        signs = hashing.unpack_signs(bits, l, p, dtype=sdt)
+        signs = hashing.unpack_signs(bits, l, p)
     else:
-        signs = bits.reshape(*bits.shape[:-1], l, p).to(sdt)
-    logits = torch.einsum("...nlp,...lp->...nl", signs,
-                          u.to(sdt)).float() / cfg.tau
+        signs = bits.reshape(*bits.shape[:-1], l, p).float()
+    ud = u.to(getattr(torch, cfg.score_dtype)).float()
+    logits = torch.einsum("...nlp,...lp->...nl", signs, ud) / cfg.tau
     z = torch.exp(logits - logz[..., None, :])        # (..., N, L)
     return torch.sum(z, dim=-1)
 

@@ -44,7 +44,7 @@ __all__ = ["paged_socket_attend", "launch_paged_socket_attend",
            "paged_quest_attend", "launch_paged_quest_attend",
            "paged_quest_plan",
            "paged_ring_attend", "launch_paged_ring_attend",
-           "paged_ring_plan", "KV_TYPES",
+           "paged_ring_plan", "KV_TYPES", "Q_TYPES",
            "LAUNCHES", "HARD_LSH_LAUNCHES", "QUEST_LAUNCHES", "RING_LAUNCHES",
            "SOURCE", "QUEST_SOURCE", "RING_SOURCE"]
 
@@ -224,12 +224,20 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
 
 
+# the query types the wrappers take (and Quest's page bounds); the
+# kernels read them as float32, as the TPU kernels cast them
+# (paged_attention.py:173, paged_quest.py:70-72)
+Q_TYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_pool(q, k_pages, v_pages, block_table, k_scale, v_scale) -> int:
-    """Checks q, the K/V pools (one of the KV_TYPES), their scale pools
-    and the table; returns the K/V element type code."""
+    """Checks q (one of Q_TYPES), the K/V pools (one of the KV_TYPES),
+    their scale pools and the table; returns the K/V element type code."""
     b, kvh, g, hd = q.shape
     nblocks, _, bs, _ = k_pages.shape
-    _check("q", q, torch.float32, (b, kvh, g, hd))
+    if q.dtype not in Q_TYPES:
+        raise TypeError(f"q must be one of {list(Q_TYPES)}, got {q.dtype}")
+    _check("q", q, q.dtype, (b, kvh, g, hd))
     if k_pages.dtype not in KV_TYPES:
         raise TypeError(f"k_pages must be one of {list(KV_TYPES)}, got "
                         f"{k_pages.dtype}")
@@ -248,6 +256,17 @@ def _check_pool(q, k_pages, v_pages, block_table, k_scale, v_scale) -> int:
         raise ValueError("the kernel indexes pool rows with int32: "
                          f"{nblocks * kvh * bs} rows")
     return KV_TYPES[k_pages.dtype]
+
+
+def _check_bounds(kmin_pages, kmax_pages, shape) -> None:
+    """Checks Quest's page bounds: float32 or bf16 (a bf16 model's pool
+    holds them in its compute dtype; the kernel reads them as float32, as
+    the TPU kernel casts them, paged_quest.py:71), both of ``shape``."""
+    if kmin_pages.dtype not in Q_TYPES:
+        raise TypeError(f"kmin_pages must be one of {list(Q_TYPES)}, got "
+                        f"{kmin_pages.dtype}")
+    _check("kmin_pages", kmin_pages, kmin_pages.dtype, shape)
+    _check("kmax_pages", kmax_pages, kmin_pages.dtype, shape)
 
 
 def _pools(k_pages, v_pages, k_scale, v_scale):
@@ -305,7 +324,8 @@ def _launch_fused(hard: bool, q, k_pages, v_pages, bits_pages, vnorm_pages,
     out, sel, eff = _outputs(q, nb, bs, nb * bs, with_selection)
     if b * kvh and nb:
         lib = _library()
-        tensors = [q.contiguous(), *_pools(k_pages, v_pages, k_scale, v_scale),
+        tensors = [q.float().contiguous(),
+                   *_pools(k_pages, v_pages, k_scale, v_scale),
                    bits_pages.contiguous(), vnorm_pages.contiguous(), *hashes,
                    bt, length, budget, out]
         shape = (kv_type, b, kvh, g, gs, hd, bs, w, nb, l, p)
@@ -330,7 +350,8 @@ def launch_paged_socket_attend(q, k_pages, v_pages, bits_pages, vnorm_pages,
                                window_tokens: int,
                                with_selection: bool = False,
                                k_scale=None, v_scale=None):
-    """Launch the CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
+    """Launch the CUDA kernel.  q (B, KVH, G, hd) f32 or bf16
+    (read as f32); k/v pages
     (NB, KVH, bs, hd) f32, bf16, int8 or float8_e4m3fn, with f32
     (NB, KVH, bs) k/v scales or none; bits int32 (NB, KVH, bs, W); vnorm
     bf16 (NB, KVH, bs); u f32 (B, KVH, GS, L, P); block_table (B, nb);
@@ -369,10 +390,11 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
                               window_tokens: int,
                               with_selection: bool = False,
                               k_scale=None, v_scale=None):
-    """Launch the Quest CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
+    """Launch the Quest CUDA kernel.  q (B, KVH, G, hd) f32 or bf16
+    (read as f32); k/v pages
     (NB, KVH, bs, hd) and their scales as in
-    :func:`launch_paged_socket_attend`; kmin/kmax f32 (NB, KVH,
-    bs / page_size, hd);
+    :func:`launch_paged_socket_attend`; kmin/kmax f32 or bf16 (read as
+    f32) (NB, KVH, bs / page_size, hd);
     block_table (B, nb); length, page_budget (B,) or scalars.  Returns f32
     (B, KVH, G, hd), plus the int32 (B, KVH, nb, bs) selected-rows mask
     when ``with_selection``."""
@@ -385,8 +407,7 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
                          f"{bs}")
     ppb = bs // page_size
     kv_type = _check_pool(q, k_pages, v_pages, block_table, k_scale, v_scale)
-    _check("kmin_pages", kmin_pages, torch.float32, (nblocks, kvh, ppb, hd))
-    _check("kmax_pages", kmax_pages, torch.float32, (nblocks, kvh, ppb, hd))
+    _check_bounds(kmin_pages, kmax_pages, (nblocks, kvh, ppb, hd))
     dev = q.device
     bt = block_table.to(device=dev, dtype=torch.int32).contiguous()
     length = _per_request(length, b, dev)
@@ -395,9 +416,10 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
     out, sel, eff = _outputs(q, nb, bs, nb * ppb, with_selection)
     if b * kvh and nb:
         lib = _quest_library()
-        tensors = [q.contiguous(), *_pools(k_pages, v_pages, k_scale, v_scale),
-                   kmin_pages.contiguous(), kmax_pages.contiguous(), bt,
-                   length, budget, out]
+        tensors = [q.float().contiguous(),
+                   *_pools(k_pages, v_pages, k_scale, v_scale),
+                   kmin_pages.float().contiguous(),
+                   kmax_pages.float().contiguous(), bt, length, budget, out]
         _call(lib.paged_quest_attend_launch, "paged_quest",
               lib.paged_quest_attend_error_string, [*tensors, sel, eff],
               kv_type, b, kvh, g, hd, bs, int(page_size), nb, float(scale),
@@ -409,7 +431,8 @@ def launch_paged_quest_attend(q, k_pages, v_pages, kmin_pages, kmax_pages,
 def launch_paged_ring_attend(q, k_pages, v_pages, block_table, pos, *,
                              window: int, softcap: float, scale: float,
                              k_scale=None, v_scale=None):
-    """Launch the ring CUDA kernel.  q (B, KVH, G, hd) f32; k/v pages
+    """Launch the ring CUDA kernel.  q (B, KVH, G, hd) f32 or bf16
+    (read as f32); k/v pages
     (NB, KVH, bs, hd) and their scales as in
     :func:`launch_paged_socket_attend`; block_table (B, ring_blocks), the
     ring slice; pos (B,) or a scalar.  Returns f32 (B, KVH, G, hd)."""
@@ -425,7 +448,8 @@ def launch_paged_ring_attend(q, k_pages, v_pages, block_table, pos, *,
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
     if b * kvh and rb:
         lib = _ring_library()
-        tensors = [q.contiguous(), *_pools(k_pages, v_pages, k_scale, v_scale),
+        tensors = [q.float().contiguous(),
+                   *_pools(k_pages, v_pages, k_scale, v_scale),
                    bt, pos, out]
         _call(lib.paged_ring_attend_launch, "paged_ring",
               lib.paged_ring_attend_error_string, tensors, kv_type, b, kvh, g,

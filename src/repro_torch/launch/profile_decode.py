@@ -31,10 +31,19 @@ layers (``moe``: routing, dispatch, combine) and its Mamba layers
 the innermost span whose device-side range holds its start
 (``spans_seen`` lists the spans the trace held); then mamba2-780m's (48
 Mamba layers at full width, no pool blocks; the same traffic and spans).
+Then the same at the deployment's bf16 numerics (``launch/specs.py``'s
+``dryrun_model_config`` for a 32K decode): llama31-8b's static and
+continuous rows again (no quantized-page rows), and llama4-maverick's
+one group (a dense and an MoE layer of 128 experts; ``BF16_ARCHS``,
+bf16 only), its expert products a part of their own.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         --arch jamba-v0.1-52b --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
+        --arch llama4-maverick-400b-a17b
+
+``run_bf16`` runs the bf16 rows alone (llama31-8b's, then llama4's).
 
 Needs a CUDA card.  Prints one JSON line per path.
 """
@@ -50,15 +59,14 @@ from collections import defaultdict
 
 import torch
 
-from repro_torch.configs import get_config
-from repro_torch.launch.serve import (apply_backend_arg, card_line,
-                                      card_continuous_case, device_name,
-                                      resolve_device)
+from repro_torch.launch.serve import (apply_backend_arg, card_config,
+                                      card_line, card_continuous_case,
+                                      device_name, resolve_device)
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 
 __all__ = ["kernel_part", "run_backend", "run_continuous", "run_llama",
-           "span_part", "main"]
+           "run_bf16", "run_later", "span_part", "main"]
 
 ARCH, BATCH, PROMPT_LEN, Q_CHUNK = "llama31-8b", 2, 8192, 512
 BACKENDS = ("socket", "dense")
@@ -68,6 +76,11 @@ CONTINUOUS_QUANT = (("socket_fused", "int8"), ("socket_fused", "fp8"))
 TRACED_STEPS, TIMED_STEPS = 4, 16
 # the continuous cases run after llama31-8b's, each on weights of its own
 LATER_ARCHS = ("gemma-7b", "gemma3-27b", "jamba-v0.1-52b", "mamba2-780m")
+# the cases at the deployment's bf16 numerics (launch/specs.py's
+# dryrun_model_config for a 32K decode): llama31-8b's static and
+# continuous rows again, then llama4-maverick's one group (bf16 only: it
+# is 73.7 GB in fp32)
+BF16_ARCHS = ("llama4-maverick-400b-a17b",)
 
 # kernel-name substrings -> part of the decode path (first match wins)
 PARTS = (
@@ -79,7 +92,7 @@ PARTS = (
     ("flash_decode", ("flash_decode_kernel",)),
     ("topk_sort", ("sort", "radix", "scan")),
     ("matmuls", ("gemm", "gemv", "sm90", "xmma", "cutlass", "splitk",
-                 "dot_kernel")),
+                 "dot_kernel", "nvjet")),
     ("gather_scatter", ("index", "gather", "scatter")),
 )
 
@@ -223,15 +236,16 @@ def run_backend(cfg, params, prompt, steps, timed_steps):
 
 
 def run_continuous(params, seed, steps, timed_steps, device,
-                   backend="socket_fused", arch=ARCH, kv_dtype="auto"):
+                   backend="socket_fused", arch=ARCH, kv_dtype="auto",
+                   numerics="f32"):
     """The continuous engine's full-width decode iteration of ``arch``
-    with ``backend`` on K/V pages stored as ``kv_dtype`` (see the module
-    docstring), replayed ``timed_steps`` times under CUDA events and
-    ``steps`` times under the profiler; ``params`` None draws the case's
-    weights from ``seed``."""
+    with ``backend`` on K/V pages stored as ``kv_dtype`` at ``numerics``
+    (see the module docstring), replayed ``timed_steps`` times under CUDA
+    events and ``steps`` times under the profiler; ``params`` None draws
+    the case's weights from ``seed``."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
-    cfg, reqs = card_continuous_case(get_config(arch), seed, 64, backend,
-                                     kv_dtype)
+    cfg, reqs = card_continuous_case(card_config(arch, numerics), seed, 64,
+                                     backend, kv_dtype)
     if params is None:
         params = tfm.init_model(cfg, seed, device)
     engine = ContinuousBatchingEngine(cfg, params=params, device=device)
@@ -274,7 +288,8 @@ def run_continuous(params, seed, steps, timed_steps, device,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--arch", action="append", choices=LATER_ARCHS,
+    ap.add_argument("--arch", action="append",
+                    choices=LATER_ARCHS + BF16_ARCHS,
                     help="run only these later continuous cases (again "
                          "for more), not llama31-8b's")
     args = ap.parse_args(argv)
@@ -285,22 +300,42 @@ def main(argv=None):
     card = card_line()
     if not args.arch:
         run_llama(args.seed, dev, card)
-    for arch in args.arch or LATER_ARCHS:
-        row = run_continuous(None, args.seed, TRACED_STEPS, TIMED_STEPS,
-                             dev, "socket_fused", arch=arch)
-        print(json.dumps({"arch": arch, "engine": "continuous",
-                          "backend": "socket_fused",
-                          "use_ring_kernel": arch == "gemma3-27b",
-                          "device": device_name(dev), "card": card, **row}),
-              flush=True)
-        gc.collect()                     # the arch's weights and pool
-        torch.cuda.empty_cache()
+        run_llama(args.seed, dev, card, "bf16")
+    for arch in args.arch or LATER_ARCHS + BF16_ARCHS:
+        run_later(arch, args.seed, dev, card)
 
 
-def run_llama(seed, dev, card):
+def run_later(arch, seed, dev, card):
+    """One later architecture's continuous row (``socket_fused``; at bf16
+    for ``BF16_ARCHS``) on weights of its own, freed after it."""
+    numerics = "bf16" if arch in BF16_ARCHS else "f32"
+    row = run_continuous(None, seed, TRACED_STEPS, TIMED_STEPS, dev,
+                         "socket_fused", arch=arch, numerics=numerics)
+    print(json.dumps({"arch": arch, "engine": "continuous",
+                      "backend": "socket_fused", "numerics": numerics,
+                      "use_ring_kernel": arch == "gemma3-27b",
+                      "device": device_name(dev), "card": card, **row}),
+          flush=True)
+    gc.collect()                         # the arch's weights and pool
+    torch.cuda.empty_cache()
+
+
+def run_bf16(seed, dev, card):
+    """The rows at the deployment's bf16 numerics: llama31-8b's
+    (:func:`run_llama` at "bf16"), then llama4-maverick's continuous
+    case."""
+    run_llama(seed, dev, card, "bf16")
+    for arch in BF16_ARCHS:
+        run_later(arch, seed, dev, card)
+
+
+def run_llama(seed, dev, card, numerics="f32"):
     """llama31-8b's static and continuous rows (see the module
-    docstring); its weights are freed at the end."""
-    base = get_config(ARCH).replace(attn_q_chunk=Q_CHUNK)
+    docstring) at ``numerics`` ("f32", or "bf16": the deployment's, its
+    quantized-page rows left out); its weights are freed at the end."""
+    base = card_config(ARCH, numerics)
+    if numerics == "f32":
+        base = base.replace(attn_q_chunk=Q_CHUNK)
     params = tfm.init_model(base, seed, dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     prompt = torch.randint(0, base.vocab_size, (BATCH, PROMPT_LEN),
@@ -309,16 +344,19 @@ def run_llama(seed, dev, card):
         cfg = apply_backend_arg(base, backend)
         row = run_backend(cfg, params, prompt, TRACED_STEPS, TIMED_STEPS)
         print(json.dumps({"arch": ARCH, "engine": "static",
+                          "numerics": numerics,
                           "backend": backend, "batch": BATCH,
                           "prompt_len": PROMPT_LEN,
                           "device": device_name(dev), "card": card,
                           **row}), flush=True)
     runs = [(b, "auto") for b in CONTINUOUS_BACKENDS] + \
-        list(CONTINUOUS_QUANT)
+        (list(CONTINUOUS_QUANT) if numerics == "f32" else [])
     for backend, kv_dtype in runs:
         row = run_continuous(params, seed, TRACED_STEPS, TIMED_STEPS,
-                             dev, backend, kv_dtype=kv_dtype)
+                             dev, backend, kv_dtype=kv_dtype,
+                             numerics=numerics)
         print(json.dumps({"arch": ARCH, "engine": "continuous",
+                          "numerics": numerics,
                           "backend": backend, "kv_dtype": kv_dtype,
                           "device": device_name(dev), "card": card, **row}),
               flush=True)

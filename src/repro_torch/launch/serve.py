@@ -81,7 +81,8 @@ from repro_torch.serving.obs.events import strict_dumps
 
 __all__ = ["run_serve", "run_continuous", "serving_ceiling",
            "make_poisson_requests",
-           "card_continuous_case", "card_prefix_case", "CARD_CASES",
+           "card_config", "card_continuous_case", "card_prefix_case",
+           "CARD_CASES",
            "CARD_PREEMPT_BLOCKS", "PREFIX_CASE",
            "resolve_device", "apply_backend_arg", "apply_kv_dtype",
            "device_name", "card_line", "SERVING_BACKENDS", "KV_DTYPES"]
@@ -239,7 +240,10 @@ def make_poisson_requests(cfg, num_requests: int, rate_rps: float,
 # fp32, where all 51.46 B would take 206 GB); mamba2-780m at full depth
 # (48 Mamba layers, 0.857 B, 3.4 GB; it holds no pool blocks at all);
 # mixtral-8x22b on 4 of its 56 layers (10.42 B, 41.7 GB), its prompts of
-# 6144 and 8192 tokens wrapping the 4096-token window's 256-block ring.
+# 6144 and 8192 tokens wrapping the 4096-token window's 256-block ring;
+# llama4-maverick-400b-a17b on 1 of its 24 groups (2 layers, one of them
+# MoE with 128 experts: 18.43 B, 36.9 GB in bf16, 73.7 GB in fp32, so it
+# runs at the deployment's bf16 numerics only).
 # The legacy case's prefill buckets are 2048, 4096
 # and max_context, so most prompts run padded (llama31-8b: 1024 and 3072;
 # gemma3-27b: 3072 and 6144) and their logits and rings are taken at the
@@ -252,7 +256,19 @@ CARD_CASES = {
     "jamba-v0.1-52b": ([1024, 2048, 3072, 4096], 264, 1536, 1),
     "mamba2-780m": ([1024, 2048, 3072, 4096], 264, 1536, None),
     "mixtral-8x22b": ([2048, 4096, 6144, 8192], 520, 2600, 4),
+    "llama4-maverick-400b-a17b": ([1024, 2048, 3072, 4096], 264, 1536, 1),
 }
+
+
+def card_config(arch: str, numerics: str = "f32"):
+    """``arch``'s registered config (``numerics`` "f32"), or the same at
+    the deployment numerics of a 32K decode ("bf16": ``launch/specs.py``'s
+    ``dryrun_model_config``): the card cases' two numerics."""
+    from repro_torch.launch.specs import SHAPES, dryrun_model_config
+    cfg = get_config(arch)
+    if numerics == "bf16":
+        cfg = dryrun_model_config(cfg, SHAPES["decode_32k"])
+    return cfg
 
 
 # a pool llama31-8b's continuous card case (32 new tokens) preempts

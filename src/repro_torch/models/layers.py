@@ -23,10 +23,11 @@ __all__ = ["rmsnorm", "init_rmsnorm", "apply_rope", "init_mlp", "apply_mlp",
 
 def normal(gen: torch.Generator, shape, stddev: float, dtype: str
            ) -> torch.Tensor:
-    """``N(0, stddev^2)`` samples drawn from ``gen`` on its device."""
+    """``N(0, stddev^2)`` samples drawn from ``gen`` on its device (scaled
+    in place: one float32 copy of a large expert stack at a time)."""
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * stddev).to(getattr(torch, dtype))
+    return x.mul_(stddev).to(getattr(torch, dtype))
 
 
 # --------------------------------------------------------------------- norm
@@ -106,7 +107,9 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor
                  ) -> torch.Tensor:
     cdt = getattr(torch, cfg.compute_dtype)
     x = params["table"][tokens].to(cdt)
-    return x * math.sqrt(cfg.d_model)
+    # the scale rounded to the compute dtype first, as JAX rounds it
+    # (sqrt(3072) is not a bf16 value)
+    return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cdt))
 
 
 def lm_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:

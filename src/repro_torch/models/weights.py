@@ -5,7 +5,8 @@ layer groups stacked along a leading axis (``repro.models.param``); the
 port keeps a plain dict with a per-layer list.  :func:`from_jax_params`
 takes the unboxed JAX tree **as numpy arrays** (the caller converts with
 ``np.asarray``; this module imports no JAX) and unstacks the groups,
-keeping every leaf's layout and dtype (``wq (d, h, hd)``, ``wo (h, hd,
+keeping every leaf's layout and dtype (bf16 leaves of a
+``param_dtype="bfloat16"`` tree bit for bit; ``wq (d, h, hd)``, ``wo (h, hd,
 d)``, ``hash_w (L, P, hd)``; a Mamba layer's ``mamba`` subtree with its
 float32 ``A_log``, ``dt_bias`` and ``D``; an MoE layer's ``moe`` subtree
 with its float32 router and ``(E, d, ff)`` experts): the hash planes are
@@ -30,7 +31,13 @@ __all__ = ["from_jax_params", "caches_to_numpy"]
 def _tensors(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _tensors(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bf16 torch can take: carry the 16-bit words as
+        # they are, bit for bit
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _take(tree: Any, g: int) -> Any:

@@ -8,7 +8,9 @@ decode backend's ``selected_rows`` and ``fused_paged``, and
 ``launch.serve.serving_ceiling`` equal the JAX package's (exact
 integers; where the JAX function raises, the port raises the same
 exception type).  At full gemma-7b geometry int8 pages hold at least
-1.8 x the bf16 pool's resident requests.  ``run_continuous(...,
+1.8 x the bf16 pool's resident requests.  The same holds at the
+deployment numerics (``launch/specs.py``'s ``dryrun_model_config``: bf16
+compute, so ``kv_dtype="auto"`` pages are bf16).  ``run_continuous(...,
 arrivals=)`` builds the request list the JAX launcher builds for the same
 seed (rebuilt here with numpy; no engine runs: the port's engine is
 replaced by a stub that records what it is given).
@@ -19,11 +21,13 @@ import pytest
 
 from repro.configs import get_config as jget
 from repro.launch import serve as jserve
+from repro.launch import specs as jspecs
 from repro.models import backends as jbk
 from repro.serving import paged as jpaged
 from repro_torch.configs import ARCHITECTURES
 from repro_torch.configs import get_config as tget
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import specs as tspecs
 from repro_torch.models import backends as tbk
 from repro_torch.serving import paged as tpaged
 
@@ -41,8 +45,11 @@ def _both(fn_j, fn_t):
     return out
 
 
-def _configs(arch, full, backend, kv_dtype, legacy):
+def _configs(arch, full, backend, kv_dtype, legacy, bf16=False):
     jc, tc = jget(arch), tget(arch)
+    if bf16:
+        jc = jspecs.dryrun_model_config(jc, jspecs.SHAPES["decode_32k"])
+        tc = tspecs.dryrun_model_config(tc, tspecs.SHAPES["decode_32k"])
     if not full:
         jc, tc = jc.smoke(), tc.smoke()
     jc = jserve.apply_kv_dtype(jserve.apply_backend_arg(jc, backend),
@@ -58,12 +65,28 @@ def _configs(arch, full, backend, kv_dtype, legacy):
 @pytest.mark.parametrize("full", [True, False], ids=["full", "smoke"])
 @pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
 def test_accounting_matches_jax(arch, full):
+    _accounting_matches_jax(arch, full, bf16=False)
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
+def test_accounting_matches_jax_at_bf16_compute(arch, full):
+    """The same at ``dryrun_model_config``'s numerics; ``auto`` pages
+    take bf16 K/V rows, as ``bf16`` pages do."""
+    _accounting_matches_jax(arch, full, bf16=True)
+    jc, tc = _configs(arch, full, "socket_fused", "auto", False, bf16=True)
+    bc = _configs(arch, full, "socket_fused", "bf16", False)[1]
+    assert tpaged.kv_row_bytes(tc) == tpaged.kv_row_bytes(bc)
+
+
+def _accounting_matches_jax(arch, full, bf16):
     checked = 0
     for backend in tserve.SERVING_BACKENDS:
         for kv_dtype in KV_DTYPES:
             for legacy in (False, True):
-                jc, tc = _configs(arch, full, backend, kv_dtype, legacy)
-                label = (arch, full, backend, kv_dtype, legacy)
+                jc, tc = _configs(arch, full, backend, kv_dtype, legacy,
+                                  bf16)
+                label = (arch, full, backend, kv_dtype, legacy, bf16)
                 for name in ("kv_row_bytes", "pool_block_bytes",
                              "gather_footprint"):
                     j, t = _both(lambda: getattr(jpaged, name)(jc),

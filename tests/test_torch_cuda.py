@@ -467,6 +467,81 @@ def test_paged_kernels_on_stored_pools_match_plain(dev, kind, kv_dtype):
                              scales=scales)
 
 
+# a bf16 model's query on bf16 pages (the deployment numerics): the main
+# shape, gemma-7b's hd 256 / G 1 and llama4-maverick's G 5
+BF16_Q_SHAPES = {"main": dict(kvh=8, g=4, hd=128),
+                 "gemma-7b-hd256-g1": dict(kvh=16, g=1, hd=256),
+                 "llama4-g5": dict(kvh=8, g=5, hd=128)}
+
+
+@pytest.mark.parametrize("kind,shape", [
+    (kind, shape) for kind in ("socket", "hard_lsh", "quest", "ring")
+    for shape in BF16_Q_SHAPES
+    # no sliding-window layer has a group of 5
+    if not (kind == "ring" and shape == "llama4-g5")])
+def test_paged_kernels_take_a_bf16_query(dev, kind, shape):
+    """Each paged kernel on a bf16 query and bf16 pages (Quest's page
+    bounds bf16 too): float32 out,
+    within ATTN_TOL of its plain version on the same inputs, SOCKET's and
+    hard LSH's selections equal to their own on the float32 query of the
+    same values, one launch."""
+    from repro_torch.kernels.paged_attention import cases, ops
+    gen = torch.Generator(device=dev).manual_seed(len(kind + shape))
+    kw = BF16_Q_SHAPES[shape]
+    lens = [1024, 3000, 2048, 5]
+
+    def bf16_q(sets):
+        return [(q.to(torch.bfloat16), *rest) for q, *rest in sets]
+
+    if kind == "ring":
+        sets, akw = cases.ring_case(gen, [40, 700, 2000, 3001],
+                                    hd=kw["hd"], g=kw["g"])
+        (case,), scales = cases.store_kv(sets, "bf16")
+        (case,) = bf16_q([case])
+        before = ops.RING_LAUNCHES
+        out = ops.paged_ring_attend(*case[:4], pos=case[4], **akw, **scales)
+        assert ops.RING_LAUNCHES == before + 1 and out.dtype == torch.float32
+        torch.cuda.synchronize()
+        cases.check_ring(out, case, akw, attn_tol=ATTN_TOL, scales=scales)
+        return
+    if kind == "quest":
+        sets, akw = cases.quest_case(gen, lens, nb=264, **kw)
+        (case,), scales = cases.store_kv(sets, "bf16", quest=True)
+        (case,) = bf16_q([case])
+        # a bf16 model's pool holds the page bounds in bf16 too
+        case = (*case[:3], case[3].bfloat16(), case[4].bfloat16(),
+                *case[5:])
+        before = ops.QUEST_LAUNCHES
+        out, sel = ops.paged_quest_attend(*case[:6], length=case[6],
+                                          page_budget=case[7],
+                                          with_selection=True, **akw,
+                                          **scales)
+        assert ops.QUEST_LAUNCHES == before + 1
+        assert out.dtype == torch.float32
+        torch.cuda.synchronize()
+        cases.check_quest(out, sel, case, akw, attn_tol=ATTN_TOL,
+                          scales=scales)
+        return
+    build = cases.paged_case if kind == "socket" else cases.hard_lsh_case
+    fn = (ops.paged_socket_attend if kind == "socket"
+          else ops.paged_hard_lsh_attend)
+    sets, akw = build(gen, lens, nb=264, **kw)
+    (case,), scales = cases.store_kv(sets, "bf16")
+    _, sel32 = fn(*case[:7], length=case[7], budget=case[8],
+                  with_selection=True, **akw, **scales)
+    (case,) = bf16_q([case])
+    out, sel = fn(*case[:7], length=case[7], budget=case[8],
+                  with_selection=True, **akw, **scales)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.equal(sel, sel32)
+    if kind == "socket":
+        cases.check_paged(out, sel, case, akw, ties=False, attn_tol=ATTN_TOL,
+                          score_tol=SCORE_TOL, scales=scales)
+    else:
+        cases.check_hard_lsh(out, sel, case, akw, attn_tol=ATTN_TOL,
+                             scales=scales)
+
+
 # the head dims of the all-global architectures: gemma-7b (MHA, KVH 16,
 # G 1, hd 256) and stablelm-12b (G 4, hd 160); the kernels size their
 # K/V chunk stages by hd (25 rows at hd 160 on f32 pages)

@@ -17,6 +17,7 @@ their selections, and the plain route's calls pair with them in order.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import os
 from unittest import mock
@@ -733,3 +734,128 @@ def test_profile_decode_span_part():
                                                 0) + ms
     assert parts == {"moe_experts": 2.5, "moe": 0.25, "mamba": 0.5,
                      "paged_attention": 0.125}
+
+
+# ------------------------------------------------------ bf16 numerics (5f)
+
+def test_bf16_configs_and_cases():
+    """Phase 5f's configs: the deployment numerics of ``launch/specs.py``;
+    the plain route the kernels are held to scores from float32 u; the
+    float32 yardstick runs every plain version in float32; llama4's card
+    case is one group (a dense and an MoE layer, 18.43 B parameters,
+    36.9 GB in bf16) with llama31-8b's traffic, no preemption; the
+    bf16-query cases name llama4's G 5."""
+    cs = _chip_smoke()
+    from repro_torch.launch.serve import (CARD_CASES, card_config,
+                                          card_continuous_case)
+    cfg = card_config("llama31-8b", "bf16")
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.socket.score_dtype,
+            cfg.socket.score_chunk, cfg.attn_q_chunk) == (
+        "bfloat16", "bfloat16", "bfloat16", 16384, 1024)
+    assert card_config("llama31-8b").compute_dtype == "float32"
+    assert cs.is_bf16(cfg)
+    with cs.paired(cs.moe_routes_shared, cfg, []) as to_plain:
+        assert to_plain() is None         # bf16: nothing paired
+    f32 = card_config("llama31-8b")
+    with cs.paired(cs.moe_routes_shared, f32, []) as to_plain:
+        to_plain()                        # f32: the routes paired
+    assert cs.kernel_scoring(cfg).socket.score_dtype == "float32"
+    fused, _ = card_continuous_case(cfg, 0, 32, "socket_fused")
+    ref = cs.f32_reference(fused)
+    assert ref.compute_dtype == "float32" and ref.param_dtype == "bfloat16"
+    assert not (ref.socket.use_paged_kernel or ref.socket.use_score_kernel
+                or ref.socket.use_flash_decode or ref.quest.use_paged_kernel
+                or ref.use_ring_kernel)
+    llama4 = "llama4-maverick-400b-a17b"
+    assert CARD_CASES[llama4][:3] == CARD_CASES["llama31-8b"][:3]
+    for new in (32, 64):
+        c4, reqs = card_continuous_case(card_config(llama4, "bf16"),
+                                        0, new, "socket_fused")
+        c4.serving.validate()
+    assert c4.num_layers == 2 and c4.uses_moe and c4.num_experts == 128
+    assert round(c4.param_count() / 1e9, 2) == 18.43
+    assert cs.STATIC_CASES[llama4] == (2, 4096, 16)
+    g5 = dict(cs.BF16_Q_EXTRA)["llama4 G 5"]
+    assert (g5["kvh"], g5["g"]) == (c4.num_kv_heads,
+                                    c4.num_heads // c4.num_kv_heads)
+    labels = {name: [label for label, _ in cases + cs.BF16_Q_EXTRA
+                     if label.startswith(cs.BF16_Q_CASES)]
+              for name, cases in cs.PAGED_CASES.items()}
+    assert all(len(v) == 3 for v in labels.values()), labels
+    sets = cs.bf16_queries([(torch.ones(2, 3), torch.ones(2))])
+    assert sets[0][0].dtype == torch.bfloat16 and \
+        sets[0][1].dtype == torch.float32
+    assert cs.bound_bf16(3.35e12, 0.0) == (1000.0, "bytes")
+    assert cs.bound_bf16(0.0, 989e12) == (1000.0, "operations")
+
+
+def test_f32_distance_check_holds_the_kernel_route():
+    """The bf16 gate: the kernel route's logits no farther from the
+    float32 run's than F64_RATIO x the plain route's; a route twice as far
+    again fails, as do non-finite logits."""
+    cs = _chip_smoke()
+    ref = torch.linspace(-3, 3, 64).reshape(2, 1, 32)
+    plain = ref + 0.01 * torch.cos(torch.arange(64.0)).reshape(2, 1, 32)
+    kernel = ref + 0.015 * torch.sin(torch.arange(64.0)).reshape(2, 1, 32)
+    out = cs.f32_distance_check("case", kernel.bfloat16(), plain, ref)
+    assert out["kernel_vs_f32"] <= cs.F64_RATIO * out["plain_vs_f32"]
+    far = ref + 2.5 * cs.F64_RATIO * (plain - ref)
+    with pytest.raises(AssertionError, match="more than"):
+        cs.f32_distance_check("case", far, plain, ref)
+    with pytest.raises(AssertionError, match="non-finite"):
+        cs.f32_distance_check("case", kernel * float("nan"), plain, ref)
+
+
+@pytest.mark.parametrize("arch", ["llama31-8b",
+                                  "llama4-maverick-400b-a17b"])
+def test_bf16_decode_iteration_against_f32(arch):
+    """Phase 5f's continuous check at smoke width: one captured decode
+    iteration of the bf16 engine (``socket_fused``), the kernel route's
+    logits (its wrapper's plain version on the CPU, on a bf16 query),
+    the plain route scoring from float32 u and the float32 run on the
+    widened pool: the distance gate holds, the float32 run's pool leaves
+    are float32 K/V beside the same bits, and the kernel and plain
+    routes agree as closely as the kernel's plain version does."""
+    cs = _chip_smoke()
+    from repro_torch.launch.serve import apply_backend_arg, card_config
+    from repro_torch.runtime.steps import make_serve_step
+    from repro_torch.serving import Request
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    cfg = apply_backend_arg(card_config(arch, "bf16").smoke(),
+                            "socket_fused")
+    engine = ContinuousBatchingEngine(cfg, device="cpu")
+    seen = {}
+
+    def hook(eng, it):
+        running = [eng.scheduler.running[s]
+                   for s in sorted(eng.scheduler.running)]
+        if len(running) < 2 or any(len(r.blocks) * cfg.serving.block_size
+                                   <= r.pos for r in running) or seen:
+            return
+        tokens, bt, pos = eng._batch_inputs(running)
+        pages, bt = cs.compact_pool(cfg, eng.pages, bt)
+        wide = cs.widened(pages)
+        assert wide[0]["k"].dtype == torch.float32
+        assert wide[0]["vnorm"].dtype == torch.bfloat16
+        assert torch.equal(wide[0]["bits"], pages[0]["bits"])
+        live = pos > 0
+        plain = cs.kernel_scoring(cfg.replace(socket=dataclasses.replace(
+            cfg.socket, use_paged_kernel=False)))
+        lf, _ = make_serve_step(cs.f32_reference(cfg))(
+            eng.params, wide, tokens, pos, bt)
+        clone = [{k: v.clone() for k, v in layer.items()}
+                 for layer in pages]
+        lk, _ = make_serve_step(cfg)(eng.params, clone, tokens, pos, bt)
+        lp, _ = make_serve_step(plain)(eng.params, pages, tokens, pos, bt)
+        assert lk.dtype == torch.bfloat16 and lf.dtype == torch.float32
+        seen.update(cs.f32_distance_check("smoke", lk[live], lp[live],
+                                          lf[live]))
+
+    engine.iter_hook = hook
+    rng = torch.Generator().manual_seed(3)
+    reqs = [Request(prompt=torch.randint(0, 256, (n,), generator=rng)
+                    .tolist(), max_new_tokens=6) for n in (20, 37, 9)]
+    with one_thread():
+        engine.run(reqs, realtime=False)
+    assert 0 < seen["plain_vs_f32"] and seen["kernel_vs_plain"] <= \
+        seen["plain_vs_f32"]

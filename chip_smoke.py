@@ -119,7 +119,7 @@ Phases, in order; the first failure raises and the script exits non-zero:
               the band fails.
 5. continuous — llama31-8b at full width on its first ``QUANT_DEPTH``
               (8) of 32 layers (the script's time limit: phase 5f runs
-              the three fused backends at full depth, at bf16), the same
+              ``socket_fused`` at full depth, at bf16), the same
               weights, through ``ContinuousBatchingEngine.warmup()`` and
               ``run(realtime=False)``, once with each fused backend
               (``socket_fused``, ``hard_lsh_fused``, ``quest_fused``): 8
@@ -144,7 +144,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               K/V pages (``serving.kv_dtype``; gemma-7b's phase 5d runs
               quantized pages at full depth), with the same gates; the
               K/V bytes a block id holds are logged.
-5a. prefix — the prefix cache on the same weights: 8 requests of
+5a. prefix — the prefix cache on the same weights, at ``QUANT_DEPTH``
+              layers (the script's time limit): 8 requests of
               ``rag_prompts`` (``launch/serve.py::card_prefix_case``),
               prompts of 3072 tokens sharing a 2300-token template (not a
               multiple of the 16-token page), chunks of 512, 16 greedy
@@ -166,7 +167,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               fill and the rows before it the source's (int8: the clones
               must reach ``k_scale`` and ``v_scale``).  The chunks saved,
               cold and warm TTFT and each clone's host ms are logged.
-5b. sampling — the 8 requests of phase 5 through ``socket_fused`` at
+5b. sampling — at ``QUANT_DEPTH`` layers (the script's time limit),
+              the 8 requests of phase 5 through ``socket_fused`` at
               temperature 0.8, top-p 0.95, sample seed --seed, 32 tokens,
               twice: the tokens must be identical and every id inside the
               vocabulary; then on the pool ``CARD_PREEMPT_BLOCKS`` names
@@ -272,7 +274,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               backend allowed); bounds at the bf16 tensor rate (entry
               ``bf16`` of each kernel's row).  Then llama31-8b at full
               width and depth (8.03 B, 16.1 GB) through phase 4's static
-              path and launch gates and the engine with ``socket_fused``,
+              path and launch gates and the engine with ``socket_fused``
+              and, at ``QUANT_DEPTH`` layers (the script's time limit),
               ``hard_lsh_fused`` and ``quest_fused`` (phase 5's traffic,
               bf16 pages), and llama4-maverick-400b-a17b at full width on
               1 of its 24 groups (a dense and an MoE layer of 128 experts:
@@ -320,6 +323,41 @@ Phases, in order; the first failure raises and the script exits non-zero:
               decode step); the decode-iteration logits check of phase 5;
               wall, TTFT, tokens/s and the greedy tokens' agreement with the
               chunked run of the same case (a number, not a gate) logged.
+8. train    — after phase 7, the training path (``loss_and_metrics``,
+              ``make_train_step``, ``Trainer``, ``launch.train``), every
+              attention layer's causal attention through ``flash_prefill``
+              (its autograd function: the CUDA kernel forward, the plain
+              version's gradient in query chunks backward).  8a:
+              llama31-8b at full width on 2 of its 32 layers (1.49 B
+              parameters, f32), one batch of 1 x 4096 tokens from
+              ``SyntheticLMSource``, forward and backward through the
+              kernel (``flash_prefill`` launched once a layer, no other
+              kernel) and through the plain op (no kernel): every
+              attention weight's gradient present and not all zero on the
+              kernel route, the losses within TRAIN_LOSS_RTOL and every
+              gradient leaf within TRAIN_GRAD_RTOL (relative L2) of the
+              plain route's (``grad_gate``).  8b: the same weights through
+              ``make_train_step`` at ``accum`` 2 (batches of 2 x 4096)
+              with 32-bit AdamW moments, 3 steps: launches layers x 2 x 3,
+              every loss, gradient norm and parameter finite, every
+              trainable leaf moved, the hash planes not, the step counter
+              3 (``train_step_gate``).  8c: llama31-8b at full width and
+              depth at ``dryrun_model_config(..., SHAPES["train_4k"])``
+              (bf16 weights and compute, ``remat_policy="full"``) with
+              8-bit moments, 3 steps of 1 x 4096 tokens: launches layers x
+              2 (the forward and its recomputation) x 3 and the gates of
+              8b; step time, tokens/s, model FLOPs/s (the JAX package's
+              ``model_flops_per_token``) over the bf16 peak and peak
+              memory logged, then one more step timed part by part
+              (``train_breakdown``).  8d: minitron-8b's smoke config (the
+              JAX package's runtime tests' config) through ``Trainer`` on
+              the card, uninterrupted and with a failure injected at step
+              7 (checkpoints every 5 steps, in a temporary directory):
+              the resumed run's losses, parameters and moments equal the
+              uninterrupted run's bit for bit (``trainer_resume_check``);
+              then ``python -m repro_torch.launch.train --smoke`` once as
+              a subprocess.  ``--only train`` builds the kernels and runs
+              this phase alone.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -336,6 +374,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -391,10 +430,11 @@ BF16_FLOP_PER_S = 989e12
 # runs
 QUANT_KV_DTYPES = ("bf16", "int8", "fp8")
 # llama31-8b's continuous runs at fp32 (phase 5 on f32, int8 and fp8
-# pages, and the observability and legacy runs read against them) take
-# its first 8 of 32 layers: with gemma-7b's phase (5d, at full depth on
-# bf16, int8 and fp8 pages too) and phase 5f (llama31-8b's three fused
-# backends at full depth at bf16) the script must stay well inside its
+# pages, the prefix and sampling phases, and the observability and legacy
+# runs read against phase 5) and its bf16 hard LSH and Quest runs (phase
+# 5f) take its first 8 of 32 layers: with gemma-7b's phase (5d, at full
+# depth on bf16, int8 and fp8 pages too), phase 5f's socket_fused at full
+# depth and the training phase (8) the script must stay well inside its
 # time limit on a slow host
 QUANT_DEPTH = 8
 TIMED_ITERS = 50
@@ -2868,12 +2908,23 @@ def free_engine(engine) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_prefix(dev, seed, card, params, backend, kv_dtype="auto") -> dict:
+def cut_depth(cfg, params, num_groups):
+    """``cfg`` and ``params`` cut to their first ``num_groups`` groups
+    (None: as they are)."""
+    if num_groups is None:
+        return cfg, params
+    cfg = cfg.replace(num_groups=num_groups)
+    return cfg, dict(params, layers=params["layers"][:cfg.num_layers])
+
+
+def phase_prefix(dev, seed, card, params, backend, kv_dtype="auto",
+                 num_groups=None) -> dict:
     """The prefix phase for ``backend`` on ``kv_dtype`` pages (see the
     module docstring): the RAG traffic of ``card_prefix_case`` cold (cache
     off), then warm (cache on: the shared template served alone first,
-    then the 8 requests, ``SharedPagesFrozen`` and ``clone_spy`` on).
-    Returns the launches of each run's paged kernel."""
+    then the 8 requests, ``SharedPagesFrozen`` and ``clone_spy`` on), at
+    ``num_groups`` groups.  Returns the launches of each run's paged
+    kernel."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import PREFIX_CASE, card_prefix_case
@@ -2885,6 +2936,7 @@ def phase_prefix(dev, seed, card, params, backend, kv_dtype="auto") -> dict:
     cfg, template, prompts = card_prefix_case(get_config("llama31-8b"),
                                               seed, new_tokens, backend,
                                               kv_dtype)
+    cfg, params = cut_depth(cfg, params, num_groups)
     bs = cfg.serving.block_size
     tail = backend != "quest_fused"      # Quest's bounds: page-aligned
     matched = PREFIX_CASE["template"] if tail else \
@@ -3216,11 +3268,12 @@ def phase_observability(dev, seed, card, params, f32_runs,
 
 # ---------------------------------------------------------- sampling phase
 
-def phase_sampling(dev, seed, card, params) -> dict:
+def phase_sampling(dev, seed, card, params, num_groups=None) -> dict:
     """The sampling phase (see the module docstring): phase 5's traffic
     through ``socket_fused`` at temperature 0.8, top-p 0.95, seeded from
     ``seed``, twice, then on the pool ``CARD_PREEMPT_BLOCKS`` names, which
-    preempts.  Returns each run's paged-kernel launches."""
+    preempts; at ``num_groups`` groups.  Returns each run's paged-kernel
+    launches."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import (CARD_PREEMPT_BLOCKS,
@@ -3235,8 +3288,9 @@ def phase_sampling(dev, seed, card, params) -> dict:
                           ("preempting", CARD_PREEMPT_BLOCKS)):
         cfg, reqs = card_continuous_case(full, seed, new_tokens,
                                          num_blocks=blocks)
+        cfg, run_params = cut_depth(cfg, params, num_groups)
         engine = ContinuousBatchingEngine(
-            cfg, params=params, device=dev, temperature=temperature,
+            cfg, params=run_params, device=dev, temperature=temperature,
             top_p=top_p, sample_seed=seed)
         reset_launches()
         engine.warmup()
@@ -3619,9 +3673,13 @@ def phase_bf16(dev, seed, card):
         counts, params = phase_main(dev, seed, card, llama, "bf16")
     launches.update({f"{k}[bf16]": v for k, v in counts.items()})
     for backend in FUSED:
+        # hard LSH and Quest at QUANT_DEPTH layers (the script's time
+        # limit): socket_fused keeps the full depth
+        groups = None if backend == "socket_fused" else QUANT_DEPTH
         with phase_clock(f"continuous phase ({llama} {backend}, bf16)", dev):
             counts, _, _ = phase_continuous(dev, seed, card, params, backend,
-                                            numerics="bf16")
+                                            numerics="bf16",
+                                            num_groups=groups)
         launches.update({f"{k}[bf16]": v for k, v in counts.items()})
     del params
     gc.collect()
@@ -3643,13 +3701,405 @@ def phase_bf16(dev, seed, card):
     return rows, launches
 
 
+# --------------------------------------------------------------- phase 8
+
+# The llama31-8b depth of phases 8a and 8b (2 of 32 layers at full width:
+# 1.49 B parameters, 5.9 GB in f32) and the training shape of 8a-8c.
+TRAIN_DEPTH = 2
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 3
+# Phase 8a, the kernel route's loss and gradients against the plain
+# route's on the same weights and batch (f32; both backwards are the
+# plain version's gradient, fed the kernel's or the plain op's forward).
+# Measured on an H100 (seed 0): the losses 6.9e-8 apart (relative), the
+# farthest gradient leaf 1.29e-6 (wq; relative L2).  The limits leave
+# about 20x headroom, as LOGITS_ATOL does; a dropped causal mask moves
+# the loss by O(1), and a detached kernel output leaves wq/wk/wv without
+# a gradient, which the gate fails first.
+TRAIN_LOSS_RTOL = 2e-6
+TRAIN_GRAD_RTOL = 3e-5
+_ATTN_WEIGHT = re.compile(r"\['attn'\]\['w[qkvo]'\]$")
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def plain_prefill(q, k, v, *, scale, window=0, softcap=0.0, q_chunk=0):
+    """The plain op in place of ``attention``'s ``flash_prefill`` (the
+    plain route of phase 8a): autograd through ``flash_prefill_ref`` in
+    the query chunks the kernel route's backward uses."""
+    from repro_torch.kernels.flash_prefill.ops import BACKWARD_Q_CHUNK
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    return flash_prefill_ref(q, k, v, scale=scale, window=window,
+                             softcap=softcap,
+                             q_chunk=q_chunk or BACKWARD_Q_CHUNK)
+
+
+def train_route(cfg, params, batch, op=None):
+    """``loss_and_metrics``' forward and backward through ``op`` in place
+    of ``attention``'s ``flash_prefill`` when given: (loss, {path:
+    gradient}, seconds)."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.runtime.steps import loss_and_grads
+    ctx = mock.patch.object(fp, "flash_prefill", op) if op else \
+        contextlib.nullcontext()
+    _sync(batch["tokens"])
+    t0 = time.perf_counter()
+    with ctx:
+        loss, _, grads = loss_and_grads(cfg, params, batch)
+    _sync(batch["tokens"])
+    return float(loss), grads, time.perf_counter() - t0
+
+
+def grad_gate(label, kernel, plain, loss_rtol=TRAIN_LOSS_RTOL,
+              grad_rtol=TRAIN_GRAD_RTOL) -> dict:
+    """Phase 8a's gate on (loss, {path: gradient}) of the kernel and the
+    plain route: every attention weight's gradient present and not all
+    zero on the kernel route (a detached kernel output leaves wq/wk/wv
+    with none), the losses within ``loss_rtol``, and every gradient leaf
+    within a relative L2 distance of ``grad_rtol``.  Returns the loss's
+    and the largest leaf distances by leaf name."""
+    (lk, gk), (lp, gp) = kernel, plain
+    attn = sorted(p for p in gp if _ATTN_WEIGHT.search(p))
+    if not attn:
+        raise AssertionError(f"{label}: no attention weights")
+    for path in attn:
+        g = gk.get(path)
+        if g is None or not bool(torch.any(g != 0)):
+            raise AssertionError(f"{label}: {path} has no gradient on the "
+                                 "kernel route (missing or all zero)")
+    if set(gk) != set(gp):
+        raise AssertionError(f"{label}: the routes' gradient leaves differ: "
+                             f"{sorted(set(gk) ^ set(gp))[:4]}")
+    loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
+    if not (math.isfinite(lk) and loss_rel <= loss_rtol):
+        raise AssertionError(f"{label}: loss {lk} on the kernel route, "
+                             f"{lp} on the plain route (rtol {loss_rtol})")
+    worst = {}
+    for path, g in gp.items():
+        rel = float(torch.linalg.vector_norm(gk[path].float() - g.float()) /
+                    torch.linalg.vector_norm(g.float()).clamp(min=1e-30))
+        if not rel <= grad_rtol:
+            raise AssertionError(f"{label}: {path}'s gradient {rel:.3e} "
+                                 f"from the plain route's (limit "
+                                 f"{grad_rtol})")
+        name = path.rsplit("[", 1)[1].strip("]'")
+        worst[name] = max(worst.get(name, 0.0), rel)
+    return {"loss_rel": loss_rel, "grad_rel_max": max(worst.values()),
+            "grad_rel_by_leaf": worst}
+
+
+def train_batch(cfg, rows, seq, seed, step, dev):
+    """``SyntheticLMSource``'s batch ``step`` of ``rows`` rows on
+    ``dev``."""
+    from repro_torch.data import DataConfig, SyntheticLMSource
+    src = SyntheticLMSource(DataConfig(seq_len=seq, global_batch=rows,
+                                       vocab_size=cfg.vocab_size, seed=seed))
+    return {k: torch.from_numpy(v).to(dev).long()
+            for k, v in src.batch(0, step, range(rows)).items()}
+
+
+def train_step_gate(label, params, opt_state, metrics_log, before,
+                    hash_before, steps) -> None:
+    """After ``steps`` train steps: every loss and gradient norm finite,
+    every parameter finite, every trainable leaf changed (its first
+    values ``before``), the hash planes unchanged and the step counter
+    at ``steps``."""
+    from repro_torch.optim.adamw import tree_leaves
+    for i, m in enumerate(metrics_log):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{label}: step {i} gave loss {m['loss']}, "
+                                 f"grad_norm {m['grad_norm']}")
+    for path, p in tree_leaves(params):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{label}: {path} is not finite")
+        if path in before and torch.equal(p.reshape(-1)[:before[path]
+                                                     .numel()],
+                                          before[path]):
+            raise AssertionError(f"{label}: {path} did not change")
+    for i, (lp, h) in enumerate(zip(params["layers"], hash_before)):
+        if h is not None and not torch.equal(lp["attn"]["hash_w"], h):
+            raise AssertionError(f"{label}: layer {i}'s hash planes moved")
+    if int(opt_state["step"]) != steps:
+        raise AssertionError(f"{label}: step counter "
+                             f"{int(opt_state['step'])}, expected {steps}")
+
+
+def _train_snapshot(params):
+    from repro_torch.optim.adamw import is_trainable_path, tree_leaves
+    before = {path: p.reshape(-1)[:4096].clone()
+              for path, p in tree_leaves(params) if is_trainable_path(path)}
+    hashes = [lp["attn"]["hash_w"].clone() if "attn" in lp else None
+              for lp in params["layers"]]
+    return before, hashes
+
+
+def train_flops_per_token(cfg, seq_len: int) -> float:
+    """The JAX package's ``model_flops_per_token(..., training=True)``:
+    6 x the active parameters, plus the attention products over the
+    causal half of each query's keys."""
+    attended = sum(seq_len / 2 if s.attn_type == "global" else
+                   min(cfg.sliding_window, seq_len / 2)
+                   for s in cfg.layer_specs if s.kind == "attn")
+    return 6.0 * cfg.active_param_count() + \
+        6.0 / 3 * 2 * 2 * cfg.num_heads * cfg.head_dim * attended * 3
+
+
+def run_train_steps(label, cfg, params, opt_state, step_fn, rows, seed,
+                    dev, steps=TRAIN_STEPS):
+    """``steps`` train steps on ``SyntheticLMSource``'s batches 0.. of
+    ``rows`` rows; returns (params, opt_state, [metrics with step_s])."""
+    out = []
+    for i in range(steps):
+        batch = train_batch(cfg, rows, TRAIN_SEQ, seed, i, dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        m = {k: float(v) for k, v in m.items()}
+        m["step_s"] = time.perf_counter() - t0
+        out.append(m)
+        log(f"{label} step {i}: loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.4f}, {m['step_s']:.3f} s")
+    return params, opt_state, out
+
+
+def train_breakdown(cfg, params, opt_state, step_fn, rows, seed, dev):
+    """One more train step with the device synchronised at each part's
+    edge: forward (``loss_and_metrics``), backward (to the optimizer's
+    entry), of it the plain attention backward
+    (``flash_prefill_ref_backward``), the optimizer update, and the
+    host's share (the batch drawn and copied, the metrics read).  The
+    synchronisations cost a little overlap; the gated steps have none."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.runtime import steps as st
+    parts = collections.defaultdict(float)
+    marks = {}
+
+    def timed(name, fn, edge=None):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if edge:
+                parts[edge] += t0 - marks.pop(edge, t0)
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            parts[name] += time.perf_counter() - t0
+            if name == "forward_s":
+                marks["backward_s"] = time.perf_counter()
+            return out
+        return wrapper
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    batch = train_batch(cfg, rows, TRAIN_SEQ, seed, TRAIN_STEPS, dev)
+    with mock.patch.object(st.tfm, "loss_and_metrics", timed(
+            "forward_s", st.tfm.loss_and_metrics)), \
+            mock.patch.object(st, "adamw_update", timed(
+                "optimizer_s", st.adamw_update, edge="backward_s")), \
+            mock.patch.object(fp, "flash_prefill_ref_backward", timed(
+                "attention_backward_s", fp.flash_prefill_ref_backward)):
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        float(m["loss"])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    out = dict(parts, step_s=wall)
+    out["host_s"] = wall - parts["forward_s"] - parts["backward_s"] - \
+        parts["optimizer_s"]
+    return params, opt_state, out
+
+
+def trainer_resume_check(label, straight, resumed, fail_at,
+                         ckpt_every) -> None:
+    """Phase 8d's gate on two Trainers of one config: ``resumed`` failed
+    once at step ``fail_at`` and rolled back to the last checkpoint;
+    every step's loss and its final parameters and optimizer state must
+    equal ``straight``'s (an uninterrupted run) bit for bit."""
+    from repro_torch.optim.adamw import tree_leaves
+    back = fail_at // ckpt_every * ckpt_every
+    want = list(range(fail_at)) + list(range(back, straight.step))
+    got = [m["step"] for m in resumed.metrics_log]
+    if resumed.rebuild_count != 1 or got != want:
+        raise AssertionError(f"{label}: {resumed.rebuild_count} rebuilds, "
+                             f"steps {got}, expected 1 and {want}")
+    losses = {m["step"]: m["loss"] for m in resumed.metrics_log}
+    ref = [m["loss"] for m in straight.metrics_log]
+    if [losses[s] for s in range(len(ref))] != ref:
+        raise AssertionError(f"{label}: the resumed run's losses "
+                             f"{[losses[s] for s in range(len(ref))]} are "
+                             f"not the uninterrupted run's {ref}")
+    for name in ("params", "opt_state"):
+        a = dict(tree_leaves(getattr(straight, name)))
+        b = dict(tree_leaves(getattr(resumed, name)))
+        for path, t in a.items():
+            pairs = t.items() if isinstance(t, dict) else [("", t)]
+            for k, x in pairs:
+                y = b[path][k] if k else b[path]
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{label}: {name} {path}{k} "
+                                         "differs after the resume")
+
+
+def train_cli(dev) -> dict:
+    """``python -m repro_torch.launch.train --smoke`` once, as a user
+    would run it (default device: the card)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "minitron-8b", "--smoke", "--steps", "20", "--batch", "8", "--seq",
+         "512"], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    if out["steps"] != 20 or not math.isfinite(out["loss_last10"]) or \
+            out["device"] != torch.cuda.get_device_name(dev):
+        raise AssertionError(f"launch.train printed {out}")
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_train(dev, seed, card) -> dict:
+    """Phase 8 (see the module docstring).  Returns the ``flash_prefill``
+    row's ``train`` entry: each case's launches, gate readings, step
+    times, the breakdown and the model FLOPs/s."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.specs import SHAPES, dryrun_model_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, init_adamw
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
+
+    entry = {}
+    # 8a: the kernel route's gradients against the plain route's
+    cfg = get_config("llama31-8b").replace(num_groups=TRAIN_DEPTH)
+    with phase_clock("train 8a (kernel-route gradients, f32)", dev):
+        params = tfm.init_model(cfg, seed, dev)
+        batch = train_batch(cfg, 1, TRAIN_SEQ, seed, 0, dev)
+        reset_launches()
+        lk, gk, sk = train_route(cfg, params, batch)
+        launches = read_launches()
+        launch_gate("train 8a", launches, "flash_prefill", cfg.num_layers, 1)
+        reset_launches()
+        lp, gp, sp = train_route(cfg, params, batch, plain_prefill)
+        if any(read_launches().values()):
+            raise AssertionError("train 8a: the plain route launched a "
+                                 f"kernel: {read_launches()}")
+        gate = grad_gate("train 8a", (lk, gk), (lp, gp))
+        del gk, gp
+        log(json.dumps({"train_8a": dict(
+            gate, loss_kernel=lk, loss_plain=lp, kernel_route_s=sk,
+            plain_route_s=sp, params_b=cfg.param_count() / 1e9,
+            layers=cfg.num_layers)}))
+    entry["8a"] = dict(gate, launches=launches["flash_prefill"],
+                       kernel_route_s=sk, plain_route_s=sp)
+    # 8b: the train step at f32, two microbatches, 32-bit moments
+    ocfg = AdamWConfig(state_bits=32)
+    with phase_clock("train 8b (train step, f32, accum 2)", dev):
+        opt = init_adamw(ocfg, params)
+        before, hashes = _train_snapshot(params)
+        reset_launches()
+        params, opt, ms = run_train_steps(
+            "train 8b", cfg, params, opt, make_train_step(cfg, ocfg, 2), 2,
+            seed, dev)
+        launches = read_launches()
+        launch_gate("train 8b", launches, "flash_prefill", cfg.num_layers,
+                    2 * TRAIN_STEPS)
+        train_step_gate("train 8b", params, opt, ms, before, hashes,
+                        TRAIN_STEPS)
+    entry["8b"] = dict(launches=launches["flash_prefill"],
+                       loss=[m["loss"] for m in ms],
+                       step_s=[m["step_s"] for m in ms])
+    del params, opt, before, hashes
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 8c: the deployment's training numerics at full depth
+    cfg = dryrun_model_config(get_config("llama31-8b"), SHAPES["train_4k"])
+    ocfg = AdamWConfig(state_bits=8)
+    with phase_clock("train 8c (bf16, remat full, 8-bit moments)", dev):
+        t0 = time.perf_counter()
+        params = tfm.init_model(cfg, seed, dev)
+        opt = init_adamw(ocfg, params)
+        torch.cuda.synchronize(dev)
+        log(f"train 8c: {cfg.param_count() / 1e9:.3f} B params "
+            f"({cfg.param_dtype}, {cfg.num_layers} layers, remat "
+            f"{cfg.remat_policy}) and 8-bit moments drawn in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+        step_fn = make_train_step(cfg, ocfg, 1)
+        before, hashes = _train_snapshot(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        params, opt, ms = run_train_steps("train 8c", cfg, params, opt,
+                                          step_fn, 1, seed, dev)
+        launches = read_launches()
+        # every attention layer's forward, and again in the backward
+        launch_gate("train 8c", launches, "flash_prefill", cfg.num_layers,
+                    2 * TRAIN_STEPS)
+        train_step_gate("train 8c", params, opt, ms, before, hashes,
+                        TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        step_s = min(m["step_s"] for m in ms[1:])
+        flops = train_flops_per_token(cfg, TRAIN_SEQ) * TRAIN_SEQ
+        params, opt, parts = train_breakdown(cfg, params, opt, step_fn, 1,
+                                             seed, dev)
+        c8 = dict(launches=launches["flash_prefill"],
+                  loss=[m["loss"] for m in ms],
+                  step_s=[m["step_s"] for m in ms], peak_gb=peak,
+                  tokens_per_s=TRAIN_SEQ / step_s,
+                  model_tflop_per_s=flops / step_s / 1e12,
+                  mfu_bf16=flops / step_s / BF16_FLOP_PER_S,
+                  breakdown=parts, card=card)
+        log(json.dumps({"train_8c": c8}))
+    entry["8c"] = c8
+    del params, opt, before, hashes, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 8d: the Trainer resumes on the card; the CLI runs
+    cfg = get_config("minitron-8b").smoke().replace(
+        num_groups=1, attention_backend="dense")
+    ocfg = AdamWConfig(schedule=ScheduleConfig(peak_lr=1e-3, warmup_steps=2,
+                                               decay_steps=10))
+    loop = TrainLoopConfig(total_steps=10, checkpoint_every=5)
+    data = DataConfig(seq_len=64, global_batch=2, vocab_size=cfg.vocab_size,
+                      seed=1)
+    with phase_clock("train 8d (Trainer resume, launch.train)", dev), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        straight = Trainer(cfg, ocfg, loop, data, d + "/a", device=dev)
+        straight.run()
+        resumed = Trainer(cfg, ocfg, loop, data, d + "/b", device=dev,
+                          injector=FailureInjector(
+                              {7: RuntimeError("injected failure")}))
+        resumed.run()
+        trainer_resume_check("train 8d", straight, resumed, 7, 5)
+        cli = train_cli(dev)
+        log(json.dumps({"train_8d": {
+            "losses": [m["loss"] for m in straight.metrics_log],
+            "resumed_steps": [m["step"] for m in resumed.metrics_log],
+            "cli": cli}}))
+    entry["8d"] = dict(cli_mean_step_s=cli["mean_step_s"],
+                       cli_process_s=cli["process_s"])
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["state-moe", "bf16"], default=None,
+    ap.add_argument("--only", choices=["state-moe", "bf16", "train"],
+                    default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e or 5f); prints neither the kernels line nor "
-                         "the ok line")
+                         "(5e, 5f or 8); prints neither the kernels line "
+                         "nor the ok line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3677,6 +4127,12 @@ def main(argv=None) -> int:
         log(json.dumps({"bf16_kernels": rows}))
         log(f"bf16 phase: {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.only == "train":
+        build_kernels()
+        t0 = time.perf_counter()
+        log(json.dumps({"train": phase_train(dev, args.seed, card)}))
+        log(f"train phase: {time.perf_counter() - t0:.1f} s")
+        return 0
     t0 = time.perf_counter()
     rows = phase_kernels(dev, args.seed)
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
@@ -3685,8 +4141,8 @@ def main(argv=None) -> int:
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
     # the continuous runs: each fused backend on f32 pages, then on int8
     # and fp8 pages (entries name[int8], name[fp8]) on the same weights,
-    # all at QUANT_DEPTH layers (phase 5f runs the three at full depth, at
-    # bf16), as the observability and legacy runs read against them
+    # all at QUANT_DEPTH layers (phase 5f runs socket_fused at full depth,
+    # at bf16), as the prefix, sampling, observability and legacy runs
     chunked = {}                # arch -> socket_fused f32 run's tokens
     f32_runs = {}               # backend -> its f32 run's (tokens, wall s)
     for backend in FUSED:
@@ -3713,11 +4169,12 @@ def main(argv=None) -> int:
                               ("socket_fused", "int8")):
         t0 = time.perf_counter()
         launches.update(phase_prefix(dev, args.seed, card, params, backend,
-                                     kv_dtype))
+                                     kv_dtype, QUANT_DEPTH))
         log(f"prefix phase ({backend}, {kv_dtype}): "
             f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches.update(phase_sampling(dev, args.seed, card, params))
+    launches.update(phase_sampling(dev, args.seed, card, params,
+                                   QUANT_DEPTH))
     log(f"sampling phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches.update(phase_observability(dev, args.seed, card, params,
@@ -3761,6 +4218,12 @@ def main(argv=None) -> int:
     chunked["gemma3-27b"] = auto
     legacy_phase(dev, args.seed, card, params, "gemma3-27b", chunked,
                  launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows["flash_prefill"]["train"] = phase_train(dev, args.seed, card)
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

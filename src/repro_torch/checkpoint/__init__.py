@@ -1,0 +1,5 @@
+"""Asynchronous, atomic checkpointing."""
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+
+__all__ = ["Checkpointer"]

@@ -13,8 +13,9 @@ config built here and one built there describe the same model.
 Cache plans resolve global attention layers to kind ``paged``,
 sliding-window ones to ``ring`` (each with the K/V page storage mode
 ``serving.kv_dtype``) and Mamba layers to ``state`` (never quantized).
-The JAX package's training and sharding knobs (``remat_policy``,
-``logical_pad_heads``, ``decode_cp_*``) are left out.
+The JAX package's sharding knobs (``logical_pad_heads``,
+``decode_cp_*``) are left out; they come with ROADMAP.md queue 1 item
+11's ``distributed/`` step.
 """
 
 from __future__ import annotations
@@ -218,6 +219,7 @@ class ModelConfig:
     # --- numerics ---------------------------------------------------------
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    remat_policy: str = "none"      # "none" | "full" | "dots"
     # --- sparse attention (the paper's technique) --------------------------
     attention_backend: str = "socket"
     socket: SocketSettings = SocketSettings()

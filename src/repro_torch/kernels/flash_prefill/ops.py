@@ -5,6 +5,15 @@ On CPU tensors it runs the plain version (:mod:`.ref`, query-chunked by
 (``flash_prefill.cu``, built on first use by
 :mod:`repro_torch.kernels.build`) or raises.  ``LAUNCHES`` counts kernel
 launches, so a run can show that it went through the kernel.
+
+Under autograd (an input that requires grad, grad mode on) the op is the
+:class:`FlashPrefill` function: its forward is the same kernel (or plain
+version), and its backward the plain version's gradient, recomputed one
+query chunk at a time (:func:`.ref.flash_prefill_ref_backward`; a
+hand-written backward kernel is ROADMAP.md queue 2 work).  The CUDA
+launch goes through ``ctypes``, so without the function autograd would
+see a tensor with no history, and every projection before the kernel
+would get no gradient.
 """
 
 from __future__ import annotations
@@ -15,10 +24,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.flash_prefill.ref import (flash_prefill_ref,
+                                                   flash_prefill_ref_backward)
 
-__all__ = ["flash_prefill", "launch_flash_prefill", "LAUNCHES", "SOURCE",
-           "HEAD_DIMS"]
+__all__ = ["flash_prefill", "launch_flash_prefill", "FlashPrefill",
+           "LAUNCHES", "SOURCE", "HEAD_DIMS", "BACKWARD_Q_CHUNK"]
 
 SOURCE = Path(__file__).with_name("flash_prefill.cu")
 LAUNCHES = 0
@@ -26,6 +36,9 @@ LAUNCHES = 0
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_Q = 64                    # the smallest query tile of any head dim
+# the backward's query chunk where the caller's q_chunk is 0: (BH, 1024,
+# S) f32 logits, 0.5 GB at llama31-8b's 32 heads and 4096 tokens
+BACKWARD_Q_CHUNK = 1024
 
 
 def _library() -> ctypes.CDLL:
@@ -90,6 +103,34 @@ def launch_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _forward(q, k, v, scale, window, softcap, q_chunk):
+    if q.is_cuda:
+        return launch_flash_prefill(q, k, v, scale=scale, window=window,
+                                    softcap=softcap)
+    return flash_prefill_ref(q, k, v, scale=scale, window=window,
+                             softcap=softcap, q_chunk=q_chunk)
+
+
+class FlashPrefill(torch.autograd.Function):
+    """The prefill op with a gradient: forward as :func:`flash_prefill`,
+    backward the plain version's gradient in query chunks of ``q_chunk``
+    (``BACKWARD_Q_CHUNK`` where it is 0), the grads of q/k/v in their
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, softcap, q_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(scale=scale, window=window, softcap=softcap,
+                        q_chunk=q_chunk or BACKWARD_Q_CHUNK)
+        return _forward(q, k, v, scale, window, softcap, q_chunk)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return flash_prefill_ref_backward(q, k, v, dout, **ctx.args) + \
+            (None,) * 4
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float, window: int = 0, softcap: float = 0.0,
                   q_chunk: int = 0) -> torch.Tensor:
@@ -97,9 +138,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd) -> f32 (BH, S, hd); ``window > 0`` keeps only the last ``window``
     keys of each query; ``softcap > 0`` caps the scaled scores at
     ``softcap * tanh(s / softcap)``.  ``q_chunk`` bounds the plain
-    version's logits (CPU tensors); the kernel ignores it."""
-    if q.is_cuda:
-        return launch_flash_prefill(q, k, v, scale=scale, window=window,
-                                    softcap=softcap)
-    return flash_prefill_ref(q, k, v, scale=scale, window=window,
-                             softcap=softcap, q_chunk=q_chunk)
+    version's logits (CPU tensors) and the backward's; the kernel
+    ignores it.  Differentiable through :class:`FlashPrefill` where an
+    input requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashPrefill.apply(q, k, v, scale, window, softcap, q_chunk)
+    return _forward(q, k, v, scale, window, softcap, q_chunk)

@@ -3,7 +3,7 @@
 A port of the first part of ``repro.launch.specs``: :class:`ShapeSpec`,
 ``SHAPES`` and :func:`dryrun_model_config`, field for field.  The rest
 of the JAX module (sharding rules and ``ShapeDtypeStruct`` specs for the
-dry run) comes with the training slice, ROADMAP.md queue 1 item 11.
+dry run) comes with ROADMAP.md queue 1 item 11's dry-run step.
 """
 
 from __future__ import annotations
@@ -36,16 +36,16 @@ SHAPES: Dict[str, ShapeSpec] = {
 
 def dryrun_model_config(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
     """Deployment numerics for ``shape``: bf16 parameters and compute,
-    SOCKET scores in bf16 in chunks of 16384 keys, and prefill attention
-    in query chunks of 1024 above 4096 tokens.  The JAX function also
-    sets ``remat_policy``, a training knob the port's config does not
-    have yet (it arrives with ROADMAP.md queue 1 item 11); every other
-    field it sets is set here the same way."""
+    every layer group rematerialised in the backward of a training shape
+    (``remat_policy="full"``), SOCKET scores in bf16 in chunks of 16384
+    keys, and prefill attention in query chunks of 1024 above 4096
+    tokens: every field the JAX function sets, set the same way."""
     sock = dataclasses.replace(cfg.socket, score_chunk=16384,
                                score_dtype="bfloat16")
     return cfg.replace(
         param_dtype="bfloat16",
         compute_dtype="bfloat16",
+        remat_policy="full" if shape.kind == "train" else "none",
         attn_q_chunk=1024 if shape.seq_len > 4096 else 0,
         socket=sock,
     )

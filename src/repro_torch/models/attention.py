@@ -7,7 +7,9 @@ Training/prefill over a whole prompt: causal attention through
 ``kernels/flash_prefill`` (the JAX package names its Pallas
 ``flash_prefill`` kernel as this attention's TPU fast path): the CUDA
 kernel on the card, its plain version, query-chunked by
-``cfg.attn_q_chunk``, on CPU tensors.  Local layers pass the sliding
+``cfg.attn_q_chunk``, on CPU tensors.  Under autograd (training) the op
+is ``flash_prefill``'s autograd function: the same forward, and the
+plain version's gradient, one query chunk at a time, backward.  Local layers pass the sliding
 window to it, and ``cfg.attn_logit_softcap`` its score cap.  The
 prefix-extension chunks of the chunked prefill attend with the plain
 masked softmax of :func:`_attn_chunk` (the TPU kernel computes no such

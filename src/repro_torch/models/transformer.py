@@ -1,6 +1,6 @@
-"""The decoder stack: init / prefill / decode entry points.
+"""The decoder stack: init / train / prefill / decode entry points.
 
-Port of the serving half of ``repro.models.transformer``.  The JAX
+Port of ``repro.models.transformer``.  The JAX
 package scans over stacked layer groups; here the stack is a Python list
 of per-layer parameter dicts (``params["layers"]``, in ``cfg.layer_specs``
 order) walked by a loop, and the decode caches — or the continuous
@@ -9,13 +9,25 @@ engine's page pool, which has the same per-layer list layout with
 dicts updated in place.  Mamba layers' caches are their recurrent
 state (``{"ssm", "conv"}``, one row per batch row, or in the pool one
 row per decode slot), also updated in place.
+
+Training (:func:`forward_train`, :func:`loss_and_metrics`) is plain
+autograd over the same loop; every attention layer's causal attention
+goes through the ``flash_prefill`` kernel and its autograd function
+(``kernels/flash_prefill/ops.py``).  ``cfg.remat_policy`` rematerialises
+each layer group in the backward, as the JAX package remats its scanned
+group body: ``"full"`` keeps only the group's input
+(``torch.utils.checkpoint``), ``"dots"`` also keeps the weight products'
+outputs (a selective-checkpoint policy, JAX's
+``dots_with_no_batch_dims_saveable``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
@@ -25,8 +37,8 @@ from repro_torch.models.layers import (apply_mlp, embed_tokens,
                                        init_embedding, init_mlp,
                                        init_rmsnorm, lm_head, rmsnorm)
 
-__all__ = ["init_model", "init_decode_caches", "prefill", "prefill_chunk",
-           "decode_step"]
+__all__ = ["init_model", "forward_train", "loss_and_metrics",
+           "init_decode_caches", "prefill", "prefill_chunk", "decode_step"]
 
 
 def _check_inputs(cfg: ModelConfig) -> None:
@@ -63,6 +75,25 @@ def _mlp(cfg: ModelConfig, params: Dict, spec: LayerSpec,
                                  rmsnorm(params["norm_mlp"], x))
         x = x + y
     return x
+
+
+def _block_train(cfg: ModelConfig, params: Dict, spec: LayerSpec,
+                 x: torch.Tensor, positions: torch.Tensor):
+    """One block's training forward: (x, MoE load-balance loss, router
+    z-loss), the losses 0 for a dense block."""
+    h = rmsnorm(params["norm_mix"], x)
+    if spec.kind == "attn":
+        h = attn.attention_train(cfg, params["attn"], h, positions,
+                                 spec.attn_type)
+    else:
+        h = mb.mamba_train(cfg, params["mamba"], h)
+    x = x + h
+    if spec.mlp == "moe":
+        y, aux = moe_mod.apply_moe(cfg, params["moe"],
+                                   rmsnorm(params["norm_mlp"], x))
+        return x + y, aux["moe_lb_loss"], aux["moe_z_loss"]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _mlp(cfg, params, spec, x), zero, zero
 
 
 def _block_prefill(cfg: ModelConfig, params: Dict, spec: LayerSpec,
@@ -139,6 +170,94 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> Dict:
         "layers": [_init_block(cfg, gen, spec) for spec in cfg.layer_specs],
         "final_norm": init_rmsnorm(cfg.d_model, gen.device),
     }
+
+
+# the weight products (no batch dimension) that ``remat_policy="dots"``
+# keeps: ``x @ w`` of a 3-D x dispatches to ``mm`` on the flattened rows
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` rematerialised in the backward as ``cfg.remat_policy``
+    says (the JAX package's ``_remat`` of its group body)."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(cfg.remat_policy)
+
+
+def forward_train(cfg: ModelConfig, params: Dict, batch: Dict):
+    """Full forward.  ``batch``: ``tokens`` (B, T) and optional
+    ``positions`` -> (padded-vocab logits (B, T, V), aux) with aux's
+    ``moe_lb_loss``/``moe_z_loss`` summed over the layers and divided by
+    the number of MoE layers (1 when there is none).
+
+    Each of the ``num_groups`` repeats of ``cfg.pattern`` is one
+    rematerialisation unit, the remainder layers are not rematerialised:
+    the JAX package's scan body and its loop over the remainder.  (JAX
+    also puts an ``optimization_barrier`` on the scan carry, an XLA
+    scheduling device with nothing to do in an eager backward.)"""
+    _check_inputs(cfg)
+    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    b, s, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    npat = len(cfg.pattern)
+
+    def group(x, lb, zl, *layers):
+        for spec, lp in zip(cfg.pattern, layers):
+            x, dlb, dzl = _block_train(cfg, lp, spec, x, positions)
+            lb, zl = lb + dlb, zl + dzl
+        return x, lb, zl
+
+    body = _remat(cfg, group)
+    lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.num_groups):
+        x, lb, zl = body(x, lb, zl,
+                         *params["layers"][g * npat:(g + 1) * npat])
+    for spec, lp in zip(cfg.remainder,
+                        params["layers"][cfg.num_groups * npat:]):
+        x, dlb, dzl = _block_train(cfg, lp, spec, x, positions)
+        lb, zl = lb + dlb, zl + dzl
+    x = rmsnorm(params["final_norm"], x)
+    logits = lm_head(cfg, params["embed"], x)
+    n_moe = sum(1 for sp in cfg.layer_specs if sp.mlp == "moe") or 1
+    return logits, {"moe_lb_loss": lb / n_moe, "moe_z_loss": zl / n_moe}
+
+
+def loss_and_metrics(cfg: ModelConfig, params: Dict, batch: Dict,
+                     lb_coef: float = 0.01):
+    """Causal-LM loss: ``batch["labels"]`` (B, T) int, -1 = padding.
+    Padded vocab entries are masked to -1e30, the log-softmax is taken in
+    f32, and the loss is ``ce + lb_coef * moe_lb_loss + moe_z_loss``.
+    Returns (loss, {"loss", "ce", "tokens", "moe_lb_loss"})."""
+    logits, aux = forward_train(cfg, params, batch)
+    labels = batch["labels"]
+    v = logits.shape[-1]
+    if v > cfg.vocab_size:
+        pad = torch.arange(v, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    valid = labels >= 0
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    token_ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long()
+                            )[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = -torch.where(valid, token_ll, 0.0).sum() / denom
+    loss = ce + lb_coef * aux["moe_lb_loss"] + aux["moe_z_loss"]
+    return loss, {"loss": loss, "ce": ce, "tokens": denom,
+                  "moe_lb_loss": aux["moe_lb_loss"]}
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,

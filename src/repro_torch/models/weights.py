@@ -13,7 +13,10 @@ with its float32 router and ``(E, d, ff)`` experts): the hash planes are
 copied, never re-sampled.  :func:`caches_to_numpy` lays the port's
 per-layer caches (Mamba layers' ``ssm``/``conv`` state among them) out as
 the JAX package's ``{"groups": {"slot_i": ...}, "remainder": ...}`` tree,
-so the two can be compared leaf by leaf.
+so the two can be compared leaf by leaf.  :func:`opt_state_from_jax`
+carries the JAX package's AdamW state (``init_adamw``/``adamw_update``:
+the step and the float32 or 8-bit ``{"q", "scale"}`` moments, as numpy)
+into the port's layout, so both optimizers can step from one state.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["from_jax_params", "caches_to_numpy"]
+__all__ = ["from_jax_params", "opt_state_from_jax", "caches_to_numpy"]
 
 
 def _tensors(tree: Any, device) -> Any:
@@ -43,7 +46,8 @@ def _tensors(tree: Any, device) -> Any:
 def _take(tree: Any, g: int) -> Any:
     if isinstance(tree, dict):
         return {k: _take(v, g) for k, v in tree.items()}
-    return tree[g]
+    # a frozen leaf's 0-d moment placeholder is not stacked
+    return tree if np.ndim(tree) == 0 else tree[g]
 
 
 def from_jax_params(cfg: ModelConfig, tree: Dict, device="cpu") -> Dict:
@@ -58,6 +62,16 @@ def from_jax_params(cfg: ModelConfig, tree: Dict, device="cpu") -> Dict:
         layers.append(_tensors(tree["remainder"][f"slot_{i}"], device))
     return {"embed": _tensors(tree["embed"], device), "layers": layers,
             "final_norm": _tensors(tree["final_norm"], device)}
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: Dict, device="cpu") -> Dict:
+    """The port's AdamW state from the JAX package's, as numpy: the step
+    and the ``m``/``v`` trees unstacked as :func:`from_jax_params`
+    unstacks parameters (8-bit moments' ``q``/``scale`` alike)."""
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device),
+            "m": from_jax_params(cfg, state["m"], device),
+            "v": from_jax_params(cfg, state["v"], device)}
 
 
 def _leaf_numpy(name: str, t: torch.Tensor) -> np.ndarray:

@@ -286,8 +286,7 @@ def test_dryrun_model_config_matches_jax(arch, shape):
     jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
     shared = set(jd) & set(td)
     assert set(td) <= set(jd) and set(jd) - shared == {
-        "remat_policy", "logical_pad_heads", "decode_cp_axes",
-        "decode_cp_batch_axes"}
+        "logical_pad_heads", "decode_cp_axes", "decode_cp_batch_axes"}
     for name in shared:
         assert td[name] == jd[name], name
     assert (tc.param_dtype, tc.compute_dtype, tc.socket.score_dtype,

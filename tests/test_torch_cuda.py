@@ -251,6 +251,89 @@ def test_flash_prefill_kernel_matches_plain(dev, label):
         atol=1e-5)
 
 
+# the training backward: (bh, bkv, s, hd, window, softcap, dtype, q_chunk)
+FLASH_PREFILL_GRAD_CASES = {
+    "hd128 G4 S 600": (8, 2, 600, 128, 0, 0.0, torch.float32, 0),
+    "hd128 window 100 chunk 128": (4, 2, 333, 128, 100, 0.0, torch.float32,
+                                   128),
+    "hd256 softcap": (4, 4, 200, 256, 0, 30.0, torch.float32, 64),
+    "hd128 bf16 chunk 96": (8, 2, 400, 128, 0, 0.0, torch.bfloat16, 96),
+}
+
+
+@pytest.mark.parametrize("label", list(FLASH_PREFILL_GRAD_CASES))
+def test_flash_prefill_function_backward_on_card(dev, label):
+    """Under autograd the op's forward is the kernel (one launch) and its
+    gradient, the plain version's in query chunks, equals plain autograd
+    of ``flash_prefill_ref`` on the card: grads in the inputs' dtypes,
+    rtol 1e-5 / atol 1e-6 at f32 (another chunking of the same sums),
+    within a bf16 ulp at bf16."""
+    from repro_torch.kernels.flash_prefill import ops
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    bh, bkv, s, hd, window, cap, dtype, chunk = \
+        FLASH_PREFILL_GRAD_CASES[label]
+    gen = torch.Generator(device=dev).manual_seed(s + hd + 1)
+    q, k, v = (torch.randn((n, s, hd), generator=gen, device=dev).to(dtype)
+               for n in (bh, bkv, bkv))
+    do = torch.randn((bh, s, hd), generator=gen, device=dev)
+    kw = dict(scale=1.0 / math.sqrt(hd), window=window, softcap=cap)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ops.LAUNCHES
+    out = ops.flash_prefill(*a, q_chunk=chunk, **kw)
+    ga = torch.autograd.grad(out, a, do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    b = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = flash_prefill_ref(*b, **kw)
+    gb = torch.autograd.grad(ref, b, do)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    for x, y, t in zip(ga, gb, (q, k, v)):
+        assert x.dtype == t.dtype and x.shape == t.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+        else:
+            torch.testing.assert_close(x.float(), y, rtol=2 ** -8,
+                                       atol=1e-5)
+
+
+def test_attention_train_gradients_through_the_kernel(dev):
+    """``attention_train`` on the card: the gradient of every attention
+    weight and of x flows through the kernel, equal to the plain op's
+    (the plain version in place of ``flash_prefill``)."""
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import ops
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    from repro_torch.models import attention as attn
+    cfg = get_config("llama31-8b").smoke().replace(head_dim=64)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = attn.init_attention(cfg, gen)
+    x = torch.randn((2, 100, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(100, device=dev).expand(2, 100)
+
+    def grads():
+        ws = [params[n].detach().clone().requires_grad_()
+              for n in ("wq", "wk", "wv", "wo")]
+        xs = x.clone().requires_grad_()
+        p = dict(params, **dict(zip(("wq", "wk", "wv", "wo"), ws)))
+        out = attn.attention_train(cfg, p, xs, pos, "global")
+        return torch.autograd.grad(out.square().sum(), [xs] + ws)
+
+    before = ops.LAUNCHES
+    kernel = grads()
+    assert ops.LAUNCHES == before + 1
+
+    def plain(q, k, v, *, scale, window=0, softcap=0.0, q_chunk=0):
+        return flash_prefill_ref(q, k, v, scale=scale, window=window,
+                                 softcap=softcap)
+
+    with mock.patch.object(ops, "flash_prefill", plain):
+        want = grads()
+    for g, w in zip(kernel, want):
+        assert bool(torch.any(g != 0))
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
 def test_flash_prefill_wrapper_raises_on_unsupported_cuda_inputs(dev):
     from repro_torch.kernels.flash_prefill import ops
     x = torch.zeros((4, 8, 48), device=dev)

@@ -859,3 +859,140 @@ def test_bf16_decode_iteration_against_f32(arch):
         engine.run(reqs, realtime=False)
     assert 0 < seen["plain_vs_f32"] and seen["kernel_vs_plain"] <= \
         seen["plain_vs_f32"]
+
+
+# ------------------------------------------------------ phase 8 (train)
+
+def _train_case(cs):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("llama31-8b").smoke()
+    params = tfm.init_model(cfg, 0)
+    return cfg, params, cs.train_batch(cfg, 2, 64, 0, 0, "cpu")
+
+
+def _noncausal(q, k, v, *, scale, window=0, softcap=0.0, q_chunk=0):
+    """Attention with the causal mask dropped: every query sees every
+    key."""
+    g = q.shape[0] // k.shape[0]
+    kk, vv = (t.float().repeat_interleave(g, 0) for t in (k, v))
+    return torch.softmax(q.float() @ kk.transpose(1, 2) * scale, -1) @ vv
+
+
+def test_train_grad_gate_passes_on_a_sound_route():
+    """Phase 8a's gate at smoke width: the op's autograd function (its
+    plain forward on the CPU, the chunked backward) against autograd
+    through the plain op."""
+    cs = _chip_smoke()
+    cfg, params, batch = _train_case(cs)
+    with one_thread():
+        lk, gk, _ = cs.train_route(cfg, params, batch)
+        lp, gp, _ = cs.train_route(cfg, params, batch, cs.plain_prefill)
+    gate = cs.grad_gate("smoke", (lk, gk), (lp, gp))
+    assert gate["grad_rel_max"] <= 1e-6
+    assert {"wq", "wk", "wv", "wo", "table"} <= set(gate["grad_rel_by_leaf"])
+
+
+@pytest.mark.parametrize("fault", ["detached", "no causal mask"])
+def test_train_grad_gate_catches_a_faulty_route(fault):
+    """A kernel route whose attention output is detached (its projections
+    get no gradient) or whose causal mask is dropped fails the gate."""
+    from repro_torch.kernels.flash_prefill import ops as fp
+    cs = _chip_smoke()
+    cfg, params, batch = _train_case(cs)
+    real = fp.flash_prefill
+
+    def detached(*a, **kw):
+        return real(*a, **kw).detach()
+
+    op = detached if fault == "detached" else _noncausal
+    with one_thread():
+        with mock.patch.object(fp, "flash_prefill", op):
+            lk, gk, _ = cs.train_route(cfg, params, batch)
+        lp, gp, _ = cs.train_route(cfg, params, batch, cs.plain_prefill)
+    match = "no gradient" if fault == "detached" else "loss|gradient"
+    with pytest.raises(AssertionError, match=match):
+        cs.grad_gate("smoke", (lk, gk), (lp, gp))
+
+
+def test_train_step_gate_and_its_faults():
+    """Phase 8b/8c's gate after real steps; a leaf that did not move, a
+    moved hash plane or a wrong step count fails it."""
+    from repro_torch.optim import AdamWConfig, init_adamw
+    from repro_torch.runtime.steps import make_train_step
+    cs = _chip_smoke()
+    cfg, params, _ = _train_case(cs)
+    ocfg = AdamWConfig(state_bits=8)
+    opt = init_adamw(ocfg, params)
+    before, hashes = cs._train_snapshot(params)
+    step = make_train_step(cfg, ocfg, accum=2)
+    log = []
+    with one_thread():
+        for i in range(2):
+            params, opt, m = step(params, opt, cs.train_batch(
+                cfg, 2, 32, 0, i, "cpu"))
+            log.append({k: float(v) for k, v in m.items()})
+    cs.train_step_gate("smoke", params, opt, log, before, hashes, 2)
+    with pytest.raises(AssertionError, match="step counter"):
+        cs.train_step_gate("smoke", params, opt, log, before, hashes, 3)
+    stale = dict(before)
+    path = "['layers'][0]['mlp']['w_up']"
+    stale[path] = params["layers"][0]["mlp"]["w_up"].reshape(-1)[:4096]
+    with pytest.raises(AssertionError, match="did not change"):
+        cs.train_step_gate("smoke", params, opt, log, stale, hashes, 2)
+    params["layers"][1]["attn"]["hash_w"].add_(1.0)
+    with pytest.raises(AssertionError, match="hash planes"):
+        cs.train_step_gate("smoke", params, opt, log, before, hashes, 2)
+
+
+def test_trainer_resume_check_on_the_cpu(tmp_path):
+    """Phase 8d's check on two CPU Trainers of its config: passes; a
+    resumed run that lost a bit of one parameter fails it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
+    cs = _chip_smoke()
+    cfg = get_config("minitron-8b").smoke().replace(
+        num_groups=1, attention_backend="dense")
+    ocfg = AdamWConfig(schedule=ScheduleConfig(peak_lr=1e-3, warmup_steps=2,
+                                               decay_steps=10))
+    loop = TrainLoopConfig(total_steps=10, checkpoint_every=5)
+    data = DataConfig(seq_len=64, global_batch=2, vocab_size=cfg.vocab_size,
+                      seed=1)
+    with one_thread():
+        straight = Trainer(cfg, ocfg, loop, data, str(tmp_path / "a"),
+                           device="cpu")
+        straight.run()
+        resumed = Trainer(cfg, ocfg, loop, data, str(tmp_path / "b"),
+                          device="cpu", injector=FailureInjector(
+                              {7: RuntimeError("injected")}))
+        resumed.run()
+    cs.trainer_resume_check("smoke", straight, resumed, 7, 5)
+    w = resumed.params["layers"][0]["mlp"]["w_down"]
+    w.view(torch.int32).reshape(-1)[0] ^= 1
+    with pytest.raises(AssertionError, match="differs after the resume"):
+        cs.trainer_resume_check("smoke", straight, resumed, 7, 5)
+    with pytest.raises(AssertionError, match="rebuilds"):
+        cs.trainer_resume_check("smoke", straight, resumed, 6, 5)
+
+
+def test_train_flops_per_token_is_the_jax_accounting():
+    """6 x the active parameters plus the attention term, as the JAX
+    package's ``model_flops_per_token(training=True)`` counts it
+    (llama31-8b at 4096 tokens; gemma3's windowed layers)."""
+    from repro_torch.configs import get_config
+    cs = _chip_smoke()
+    cfg = get_config("llama31-8b")
+    attn = 4 * 32 * 128 * 32 * 2048 * 6
+    assert cs.train_flops_per_token(cfg, 4096) == \
+        6.0 * cfg.active_param_count() + attn
+    g3 = get_config("gemma3-27b")
+    spans = [2048 if s.attn_type == "global" else min(g3.sliding_window,
+                                                      2048)
+             for s in g3.layer_specs]
+    assert cs.train_flops_per_token(g3, 4096) == \
+        6.0 * g3.active_param_count() + \
+        24.0 * g3.num_heads * g3.head_dim * sum(spans)

@@ -358,6 +358,54 @@ Phases, in order; the first failure raises and the script exits non-zero:
               then ``python -m repro_torch.launch.train --smoke`` once as
               a subprocess.  ``--only train`` builds the kernels and runs
               this phase alone.
+9. context-parallel — SOCKET decode with the cache's sequence axis over
+              4 ranks (``distributed/context_parallel.py``; one process a
+              rank started by ``launch.mesh.spawn_ranks``; NCCL, one rank
+              a card, where 4 cards are present, else gloo with every
+              rank on ``cuda:0`` and the collectives of CUDA tensors
+              through host memory; the backend, world, card count and
+              each rank's peak memory logged).  9a: the attention layer
+              at ``long_500k`` (llama31-8b's B 1, KVH 8, G 4, hd 128 at
+              N 524288; P 10, L 60, tau 0.4, sparsity 10, sink and window
+              128; N(0, 1) keys, of which graded warm keys, 14 % of
+              shard 0's rows down to 6 % of shard 3's, carry most of the
+              attention mass, so shard 0 holds 1.4 x k_local of them),
+              4 ranks of 131072 rows on a ``("data",)`` mesh
+              (kvhead and pooled selection, the whole cache valid), then
+              a 2x2 mesh with both axes as CP axes and a length that
+              leaves the last shard without a valid row: ``socket_score``
+              launched once on every rank; each rank's selection equal
+              to the plain version's for its shard, outside the
+              SCORE_TOL band (``cp_selection_gate``); each shard's
+              partials finite and an empty shard's merge weight 0
+              (``cp_partials_check``); every rank's merged output within
+              ATTN_TOL of ``context_parallel_socket_attend_ref`` and at
+              most CP_GLOBAL_REL (0.08) from the global route, where
+              dense attention must lie at least CP_GLOBAL_REL from it
+              (the inputs test the bound), both distances logged
+              (``cp_merge_gate``); a
+              rank's step, its merge and the global route in one
+              process timed (the four ranks sharing one card measure no
+              scaling).  9b: llama31-8b at full width, 4 of 32 layers,
+              f32, one 32768-token prompt from ``--seed``, 16 greedy
+              steps, 32800 cache rows over 4 ranks of 8200 (the new
+              tokens land on the last): each rank's ``prefill`` (in
+              turn: four prefills' activations at once do not fit beside
+              four ranks' weights on one card) and ``decode_step`` under
+              ``activate_mesh``; ``socket_score``
+              launched layers x steps and ``flash_prefill`` layers times
+              a rank, no other kernel (``cp_launch_gate``); the greedy
+              tokens equal, and every step's logits within LOGITS_ATOL,
+              of one process holding the whole cache on a 1x1 mesh, its
+              CP attend replaced by ``context_parallel_socket_attend_ref``
+              over 4 shards (``cp_logits_gate``; that reference scores
+              through the same ``socket_score``, so 9b holds the sharding
+              mechanics, the rank-local caches, owned writes and the
+              merge, and 9a holds the kernel against its plain version);
+              the distance to the non-CP route
+              logged, not gated (a union of local top-ks differs from a
+              global top-k by design).  ``--only cp`` builds the kernels
+              and runs this phase alone.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -434,8 +482,8 @@ QUANT_KV_DTYPES = ("bf16", "int8", "fp8")
 # runs read against phase 5) and its bf16 hard LSH and Quest runs (phase
 # 5f) take its first 8 of 32 layers: with gemma-7b's phase (5d, at full
 # depth on bf16, int8 and fp8 pages too), phase 5f's socket_fused at full
-# depth and the training phase (8) the script must stay well inside its
-# time limit on a slow host
+# depth and the training (8) and context-parallel (9) phases the script
+# must stay well inside its time limit on a slow host
 QUANT_DEPTH = 8
 TIMED_ITERS = 50
 GRAPH_REPLAYS = 4
@@ -4092,14 +4140,596 @@ def phase_train(dev, seed, card) -> dict:
     return entry
 
 
+# ------------------------------------------------------------ phase 9
+
+CP_WORLD = 4
+CP_N = 524288                  # long_500k's cache (launch/specs.py SHAPES)
+CP_GEOMETRY = dict(b=1, kvh=8, g=4, hd=128)   # llama31-8b's decode attention
+# 9a's runs: (mesh (data, model), CP axes, selection, "empty" for a length
+# that leaves the last shard without a valid row, else the whole cache)
+CP_RUNS = (((4, 1), ("data",), "kvhead", None),
+           ((4, 1), ("data",), "pooled", None),
+           ((2, 2), ("data", "model"), "kvhead", "empty"))
+# the CP route's relative distance to the global route at most this
+# (tests/test_distributed.py's bound for the JAX package's), and dense
+# attention's at least this (else the inputs do not test the bound)
+CP_GLOBAL_REL = 0.08
+# 9a's warm keys (``cp_inputs``): the share of each shard's rows, and
+# the most a warm key's logit is lifted.  At smaller sizes (CPU, 16384
+# and 65536 rows) these read 0.014-0.034 from the CP route to the global
+# route, 0.11-0.14 from dense attention and 0.37-0.45 from a route whose
+# budget is that of a shard's rows
+CP_WARM_SHARE = (0.14, 0.10, 0.10, 0.06)
+CP_WARM_MAX = 6.0
+CP_WARM, CP_TIMED = 2, 10
+# 9b: llama31-8b at full width, 4 of its 32 layers (4 ranks' replicated
+# f32 weights, 4 x 7.7 GB, and their prefill activations share one card
+# with the reference process), one 32768-token prompt, 16 greedy steps,
+# 32800 cache rows over 4 ranks of 8200 (the new tokens land on the last)
+CP_DEPTH = 4
+CP_PROMPT, CP_STEPS, CP_CAPACITY = 32768, 16, 32800
+CP_DEADLINE_S = 420
+
+
+def cp_socket_config(selection, **over):
+    """9a's SOCKET settings: the cells' (llama31-8b's ``SocketSettings``),
+    the plain version's scores in chunks of 16384 keys (its unpacked
+    signs stay bounded at 524288 keys)."""
+    from repro_torch.core import socket as sk
+    kw = dict(num_planes=10, num_tables=60, tau=0.4, sparsity=10.0,
+              sink_tokens=128, window_tokens=128, min_k=16,
+              score_chunk=16384)
+    kw.update(over)
+    return sk.SocketConfig(selection=selection, **kw)
+
+
+def cp_length(cut, n, shards) -> int:
+    """The global length of a run: the whole cache, or (``"empty"``)
+    1000 rows short of three shards, so the last shard has no valid row
+    and the third a partial one."""
+    return n if cut is None else (n // shards) * (shards - 1) - 1000
+
+
+def cp_inputs(dev, seed, n, shards, geo, cfg, shard=None) -> dict:
+    """9a's inputs, drawn on ``dev`` from ``seed``: hash planes, a query
+    per KV head along a random direction ``u`` (G heads around it), and
+    the K/V rows, hash bits and value norms of shard ``shard`` (each shard
+    from its own generator), or of the whole cache (``shard`` None: the
+    shards concatenated).  Keys are N(0, 1), so a logit is about N(0, 1);
+    a share ``CP_WARM_SHARE[s]`` of shard ``s``'s rows are warm keys,
+    ``a u`` added with ``a`` uniform in [0, CP_WARM_MAX] a head, which
+    lifts their logits by about ``a``.  The attention mass spreads over
+    thousands of keys of graded weight, and shard 0 holds 1.4 x
+    ``k_local`` warm keys at sparsity 10, so the global top-k takes more
+    of its rows than its local top-k can."""
+    from repro_torch.core import socket as sk
+    b, kvh, g, hd = geo["b"], geo["kvh"], geo["g"], geo["hd"]
+    gen = torch.Generator(device=dev).manual_seed(seed * 7919)
+    w = torch.randn(cfg.num_tables, cfg.num_planes, hd, generator=gen,
+                    device=dev)
+    hot = torch.randn(b, kvh, hd, generator=gen, device=dev)
+    unit = hot / hot.norm(dim=-1, keepdim=True)
+    q = hot[:, :, None, None, :] + 0.3 * torch.randn(
+        b, kvh, g, 1, hd, generator=gen, device=dev)
+    n_l = n // shards
+    parts = []
+    for s in (range(shards) if shard is None else (shard,)):
+        gs = torch.Generator(device=dev).manual_seed(seed * 7919 + 1 + s)
+        k = torch.randn(b, kvh, n_l, hd, generator=gs, device=dev)
+        v = torch.randn(b, kvh, n_l, hd, generator=gs, device=dev)
+        rows = torch.randperm(n_l, generator=gs, device=dev)[
+            :int(n_l * CP_WARM_SHARE[s])]
+        a = CP_WARM_MAX * torch.rand(b, kvh, rows.numel(), generator=gs,
+                                     device=dev)
+        k[:, :, rows] += a[..., None] * unit[:, :, None, :]
+        side = sk.precompute_key_hashes(cfg, w, k, v)
+        parts.append((k, v, side.bits, side.vnorm.float()))
+    k, v, bits, vnorm = (torch.cat(x, dim=2) if len(x) > 1 else x[0]
+                         for x in zip(*parts))
+    return dict(w=w, q=q, k=k, v=v, bits=bits, vnorm=vnorm)
+
+
+def cp_rank_selection(cfg, mesh, axes, data, n, length,
+                      use_score_kernel=True):
+    """A rank's SOCKET selection as its attend makes it: its shard's
+    scores (``socket_score`` on the card), its ``lo`` and the budget of
+    the global ``n`` from the functions the route calls."""
+    from repro_torch.distributed import context_parallel as cp
+    shards = mesh.extent(axes)
+    n_l = data["k"].shape[2]
+    scores = cp.local_scores(cfg, data["w"], data["q"], data["bits"],
+                             use_score_kernel=use_score_kernel)
+    return cp.local_select(cfg, scores, data["vnorm"],
+                           cp.shard_lo(mesh, axes, n_l), length,
+                           cp.local_budget(cfg, n, shards))
+
+
+def cp_selection_gate(label, cfg, sels, data, length, shards) -> int:
+    """Each rank's selection ``sels[s] = (idx, mask)`` (shard ``s``)
+    against the plain version's for that shard, computed here from the
+    whole cache with shard ``s``'s rows, ``lo = s * n / shards`` and the
+    budget of the global length: the same rows, but for rows whose plain
+    effective score lies within SCORE_TOL of the shard's top-k threshold
+    (both sum the same fp32 terms in other orders; the rule of
+    ``static_ties_shared``).  Returns the rows swapped inside the band."""
+    from repro_torch.core import socket as sk
+    from repro_torch.distributed import context_parallel as cp
+    n = data["k"].shape[2]
+    n_l = n // shards
+    k_local = max(cfg.min_k, -(-sk.topk_budget(cfg, n) // shards))
+    swapped = 0
+    for s in range(shards):
+        rows = slice(s * n_l, (s + 1) * n_l)
+        idx, mask = sels[s]
+        if idx.shape[-1] != k_local:
+            raise AssertionError(f"{label}: shard {s} selected "
+                                 f"{idx.shape[-1]} rows, the budget of the "
+                                 f"global length is {k_local}")
+        scores = cp.local_scores(cfg, data["w"], data["q"],
+                                 data["bits"][:, :, rows])
+        vnorm = data["vnorm"][:, :, rows]
+        pidx, pmask = cp.local_select(cfg, scores, vnorm, s * n_l, length,
+                                      k_local)
+        ksel = torch.zeros(scores.shape, dtype=torch.bool,
+                           device=scores.device).scatter_(-1, idx, mask)
+        psel = torch.zeros_like(ksel).scatter_(-1, pidx, pmask)
+        diff = psel != ksel
+        if not bool(diff.any()):
+            continue
+        gpos = s * n_l + torch.arange(n_l, device=scores.device)
+        eff = scores.float() * vnorm.float()
+        eff = torch.where((gpos < cfg.sink_tokens) |
+                          (gpos >= length - cfg.window_tokens),
+                          sk.FLT_MAX, eff)
+        eff = torch.where(gpos < length, eff, sk.NEG_INF)
+        thr = torch.sort(eff, dim=-1, descending=True).values[
+            ..., k_local - 1:k_local]
+        close = (eff - thr).abs() <= SCORE_TOL["atol"] + \
+            SCORE_TOL["rtol"] * thr.abs()
+        if bool((diff & ~close).any()) or \
+                not torch.equal(ksel.sum(-1), psel.sum(-1)):
+            raise AssertionError(
+                f"{label}: shard {s}'s selection differs from the plain "
+                f"version's outside the threshold band "
+                f"({int((diff & ~close).sum())} rows)")
+        swapped += int(diff.sum()) // 2
+    return swapped
+
+
+def cp_partials_check(label, parts, length, n) -> None:
+    """Each shard's online-softmax partials ``parts[s] = (m, l, o)`` are
+    finite, and a shard with no valid row has ``l = 0`` and ``o = 0``, so
+    its merge weight ``w = l e^{m - m*}`` is 0, never NaN."""
+    shards = len(parts)
+    m_star = torch.stack([parts[s][0] for s in range(shards)]).amax(0)
+    for s in range(shards):
+        m, l, o = parts[s]
+        w = l * torch.exp(m - m_star)
+        if not all(bool(torch.isfinite(t).all()) for t in (m, l, o, w)):
+            raise AssertionError(f"{label}: shard {s}'s partials are not "
+                                 "finite")
+        if s * (n // shards) >= length and (
+                bool(l.any()) or bool(o.any()) or bool(w.any())):
+            raise AssertionError(f"{label}: shard {s} holds no valid row "
+                                 "but its partials are not 0")
+
+
+def cp_merge_gate(label, outs, ref, glob, dense) -> dict:
+    """Every rank's merged output within ATTN_TOL of the plain
+    single-process version's, finite, and at most CP_GLOBAL_REL (relative
+    L2) from the global route's, while dense attention lies at least
+    CP_GLOBAL_REL from it (the inputs separate a sparse route from dense
+    attention, so the bound can fail)."""
+    err = max(check_close(f"{label}: rank {r}", out, ref, ATTN_TOL)
+              for r, out in enumerate(outs))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    to_global, to_dense = rel(outs[0], glob), rel(outs[0], dense)
+    if not to_global < CP_GLOBAL_REL:
+        raise AssertionError(f"{label}: relative distance to the global "
+                             f"route {to_global:.4f} >= {CP_GLOBAL_REL}")
+    dense_to_global = rel(dense, glob)
+    if not dense_to_global >= CP_GLOBAL_REL:
+        raise AssertionError(f"{label}: dense attention reads "
+                             f"{dense_to_global:.4f} from the global route, "
+                             f"inside the {CP_GLOBAL_REL} bound: the inputs "
+                             "do not test it")
+    log(f"  {label}: max |err| to the plain version {err:.3e}; relative "
+        f"distance to the global route {to_global:.4f} (limit "
+        f"{CP_GLOBAL_REL}), to dense attention {to_dense:.4f}; dense "
+        f"attention to the global route {dense_to_global:.4f}")
+    return dict(max_abs_err=err, rel_to_global=to_global,
+                rel_to_dense=to_dense, dense_to_global=dense_to_global)
+
+
+def cp_dense(data, length, scale) -> torch.Tensor:
+    """Dense attention over the whole cache's first ``length`` rows."""
+    from repro_torch.core import socket as sk
+    logits = torch.einsum("bhgtd,bhnd->bhgtn", data["q"],
+                          data["k"]) * scale
+    valid = torch.arange(logits.shape[-1], device=logits.device) < length
+    return torch.einsum(
+        "bhgtn,bhnd->bhgtd",
+        torch.softmax(torch.where(valid, logits, sk.NEG_INF), -1),
+        data["v"])
+
+
+def cp_timed_ms(fn, warm=CP_WARM, iters=CP_TIMED) -> float:
+    """Median host milliseconds of ``fn()`` on a rank, every call started
+    together on all ranks (a barrier) and ended with the device's work."""
+    import statistics
+    import torch.distributed as dist
+    times = []
+    for i in range(warm + iters):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def cp_attend_rank(rank, world, tmp, seed) -> None:
+    """9a on one rank: each run's attend (launches counted), its
+    selection and partials, a step and the merge timed."""
+    import torch.distributed as dist
+    from repro_torch.distributed import context_parallel as cp
+    from repro_torch.kernels.socket_score import ops as ss
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init9a", "cuda")
+    meshes = {shape: make_test_mesh(*shape)
+              for shape in sorted({r[0] for r in CP_RUNS})}
+    res = {"backend": backend, "device": str(dev)}
+    scale = 1.0 / math.sqrt(CP_GEOMETRY["hd"])
+    for i, (shape, axes, sel, cut) in enumerate(CP_RUNS):
+        mesh, cfg = meshes[shape], cp_socket_config(sel)
+        shard = mesh.index(axes)
+        length = cp_length(cut, CP_N, world)
+        data = cp_inputs(dev, seed, CP_N, world, CP_GEOMETRY, cfg, shard)
+        args = (cfg, mesh, axes, data["w"], data["q"], data["k"],
+                data["v"], data["bits"], data["vnorm"])
+        kw = dict(length=length, scale=scale, use_score_kernel=True)
+        dist.barrier()
+        ss.LAUNCHES = 0
+        out = cp.context_parallel_socket_attend(*args, **kw)
+        launches = ss.LAUNCHES
+        idx, mask = cp_rank_selection(cfg, mesh, axes, data, CP_N, length)
+        parts = cp.local_partials(data["q"], data["k"], data["v"], idx,
+                                  mask, scale)
+        step_ms = cp_timed_ms(
+            lambda: cp.context_parallel_socket_attend(*args, **kw))
+        merge_ms = cp_timed_ms(
+            lambda: cp.merge_partials(*parts, mesh.group(axes)))
+        res[i] = dict(shard=shard, out=out.cpu(), idx=idx.cpu(),
+                      mask=mask.cpu(), parts=[t.cpu() for t in parts],
+                      launches=launches, step_ms=step_ms, merge_ms=merge_ms,
+                      route=cp.comm_route(out, mesh.group(axes)))
+        del data, args, parts
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.save(res, os.path.join(tmp, f"cp_attend_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_cp_attend(dev, seed, card) -> dict:
+    """Phase 9a (see the module docstring)."""
+    import tempfile
+    from repro_torch.core import socket as sk
+    from repro_torch.distributed import context_parallel as cp
+    from repro_torch.launch.mesh import collective_backend, spawn_ranks
+    log(f"cp 9a: {CP_WORLD} ranks, backend "
+        f"{collective_backend(CP_WORLD, 'cuda')}, "
+        f"{torch.cuda.device_count()} card(s); {card}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(cp_attend_rank, CP_WORLD, (CP_WORLD, tmp, seed),
+                    deadline_s=CP_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"cp_attend_{r}.pt"))
+                 for r in range(CP_WORLD)]
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
+        f"{ranks[0]['backend']}, devices "
+        f"{[r['device'] for r in ranks]}, peak GB "
+        f"{[round(r['peak_gb'], 2) for r in ranks]}")
+    if torch.cuda.device_count() < CP_WORLD:
+        log(f"  the {CP_WORLD} ranks share one card: their times are that "
+            "card's under four processes, not a measure of scaling")
+    scale = 1.0 / math.sqrt(CP_GEOMETRY["hd"])
+    entry = {}
+    for i, (shape, axes, sel, cut) in enumerate(CP_RUNS):
+        cfg = cp_socket_config(sel)
+        length = cp_length(cut, CP_N, CP_WORLD)
+        label = f"cp 9a mesh {shape} axes {axes} {sel} length {length}"
+        got = sorted((r[i] for r in ranks), key=lambda x: x["shard"])
+        shards = [g["shard"] for g in got]
+        if shards != list(range(CP_WORLD)):
+            raise AssertionError(f"{label}: the ranks' shards {shards}")
+        if any(g["launches"] != 1 for g in got):
+            raise AssertionError(f"{label}: socket_score launches "
+                                 f"{[g['launches'] for g in got]}, one a "
+                                 "rank expected")
+        data = cp_inputs(dev, seed, CP_N, CP_WORLD, CP_GEOMETRY, cfg)
+        swapped = cp_selection_gate(
+            label, cfg, [(g["idx"].to(dev), g["mask"].to(dev)) for g in got],
+            data, length, CP_WORLD)
+        cp_partials_check(label, [[t.to(dev) for t in g["parts"]]
+                                  for g in got], length, CP_N)
+        args = (data["w"], data["q"], data["k"], data["v"], data["bits"],
+                data["vnorm"])
+        ref = cp.context_parallel_socket_attend_ref(
+            cfg, CP_WORLD, *args, length=length, scale=scale,
+            use_score_kernel=True)
+        side = sk.SocketCache(data["bits"], data["vnorm"])
+        glob = sk.socket_attend(cfg, data["w"], data["q"], data["k"],
+                                data["v"], side, length=length, scale=scale)
+        dense = cp_dense(data, length, scale)
+        gates = cp_merge_gate(label, [g["out"].to(dev) for g in got], ref,
+                              glob, dense)
+
+        def global_route():
+            return sk.socket_attend(cfg, data["w"], data["q"], data["k"],
+                                    data["v"], side, length=length,
+                                    scale=scale, use_kernel=True)
+
+        global_ms = back_to_back_ms(lambda: global_route(), [()], iters=5)
+        step = [g["step_ms"] for g in got]
+        merge = [g["merge_ms"] for g in got]
+        log(f"  {label}: band swaps {swapped}; a rank's step "
+            f"{max(step):.3f} ms (ranks {[round(x, 3) for x in step]}), "
+            f"its merge {max(merge):.3f} ms ({max(merge) / max(step):.1%} "
+            f"of the step; collectives through the "
+            f"{got[0]['route']}); the global route in one process "
+            f"{global_ms:.3f} ms")
+        entry[f"{shape[0]}x{shape[1]}-{'+'.join(axes)}-{sel}"] = dict(
+            gates, length=length, band_swaps=swapped, rank_step_ms=step,
+            merge_ms=merge, global_ms=global_ms, route=got[0]["route"],
+            launches=sum(g["launches"] for g in got))
+        del data, args, side, ref, glob, dense
+        gc.collect()
+        torch.cuda.empty_cache()
+    entry["backend"] = ranks[0]["backend"]
+    entry["peak_gb"] = [r["peak_gb"] for r in ranks]
+    return entry
+
+
+def cp_model_config(cp_axes=("data",)):
+    """9b's model: llama31-8b at full width, CP_DEPTH layers, f32, its
+    SOCKET scores through ``socket_score``; ``cp_axes`` () for the
+    single-process route."""
+    from repro_torch.launch.serve import card_config
+    cfg = card_config("llama31-8b").replace(
+        num_groups=CP_DEPTH, decode_cp_axes=cp_axes, decode_cp_batch_axes=())
+    return cfg.replace(socket=dataclasses.replace(
+        cfg.socket, use_score_kernel=True, use_flash_decode=True))
+
+
+@torch.no_grad()
+def cp_prefill(cfg, params, prompt):
+    """``prefill`` at CP_CAPACITY; returns (logits, caches, seconds)."""
+    from repro_torch.models import transformer as tfm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = tfm.prefill(cfg, params, {"tokens": prompt},
+                                 CP_CAPACITY)
+    torch.cuda.synchronize()
+    return logits, caches, time.perf_counter() - t0
+
+
+@torch.no_grad()
+def cp_drive(cfg, params, prompt, teacher=None, prefilled=None):
+    """``prefill`` (or ``prefilled``, :func:`cp_prefill`'s result) and
+    CP_STEPS greedy ``decode_step``s (``teacher``: step t feeds
+    ``teacher[:, t]`` instead of the last argmax); returns (tokens (1, 1 +
+    steps), each step's last-position logits, prefill s, each step's
+    s)."""
+    from repro_torch.models import transformer as tfm
+    logits, caches, prefill_s = prefilled or cp_prefill(cfg, params, prompt)
+    toks, steps = [torch.argmax(logits[:, -1], dim=-1)[:, None]], \
+        [logits[:, -1].float().cpu()]
+    step_s = []
+    for t in range(CP_STEPS):
+        t0 = time.perf_counter()
+        inp = toks[-1] if teacher is None else teacher[:, t:t + 1]
+        logits, caches = tfm.decode_step(cfg, params, caches, inp,
+                                         CP_PROMPT + t)
+        toks.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+        steps.append(logits[:, -1].float().cpu())     # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    return torch.cat(toks, dim=1).cpu(), steps, prefill_s, step_s
+
+
+def step_ms(step_s) -> str:
+    """A run's first decode step (collective groups set up on first use)
+    and the median of the rest, in ms."""
+    import statistics
+    return (f"{step_s[0] * 1e3:.2f} first, "
+            f"{statistics.median(step_s[1:]) * 1e3:.2f} median")
+
+
+def cp_prompt(cfg, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (1, CP_PROMPT), generator=gen,
+                         device=dev)
+
+
+def cp_model_rank(rank, world, tmp, seed) -> None:
+    """9b on one rank: prefill and greedy decode under the mesh, its
+    launches counted from 0."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init9b", "cuda")
+    cfg = cp_model_config()
+    params = tfm.init_model(cfg, seed, dev)
+    prompt = cp_prompt(cfg, seed, dev)
+    with activate_mesh(make_test_mesh(world, 1)):
+        dist.barrier()
+        reset_launches()
+        # the ranks prefill in turn: four 32768-token prefills' activations
+        # at once do not fit beside four ranks' weights on one card
+        for r in range(world):
+            if r == rank:
+                prefilled = cp_prefill(cfg, params, prompt)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        toks, steps, prefill_s, step_s = cp_drive(cfg, params, prompt,
+                                                  prefilled=prefilled)
+        launches = read_launches()
+    torch.save(dict(tokens=toks, logits=steps if rank == 0 else None,
+                    launches=launches, prefill_s=prefill_s, step_s=step_s,
+                    backend=backend, device=str(dev),
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9),
+               os.path.join(tmp, f"cp_model_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def cp_plain_attend(shards):
+    """A stand-in for ``context_parallel_socket_attend`` in one process
+    that holds the whole cache: ``context_parallel_socket_attend_ref``
+    over ``shards`` blocks (the same shard scoring, ``socket_score`` where
+    the config asks for it)."""
+    from repro_torch.distributed import context_parallel as cp
+
+    def attend(cfg, mesh, seq_axes, *args, batch_axes=(), **kw):
+        return cp.context_parallel_socket_attend_ref(cfg, shards, *args,
+                                                     **kw)
+    return attend
+
+
+def cp_launch_gate(label, ranks, layers) -> dict:
+    """9b's launches on the ranks: ``socket_score`` layers x steps a rank
+    (ranks x layers x steps in all), ``flash_prefill`` layers a rank, no
+    other kernel."""
+    want = {"socket_score": layers * CP_STEPS, "flash_prefill": layers}
+    for r, got in enumerate(ranks):
+        counts = got["launches"]
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        if bad:
+            raise AssertionError(f"{label}: rank {r} launched {bad}, "
+                                 f"expected {want} and no other kernel")
+    return {k: sum(g["launches"][k] for g in ranks) for k in want}
+
+
+def cp_logits_gate(label, toks, steps, ref_toks, ref_steps) -> float:
+    """The ranks' greedy tokens equal the reference's, and every step's
+    logits lie within LOGITS_ATOL of it."""
+    if not torch.equal(toks, ref_toks):
+        raise AssertionError(f"{label}: tokens {toks.tolist()} vs the "
+                             f"plain single-process route's "
+                             f"{ref_toks.tolist()}")
+    errs = [float((a.double() - b.double()).abs().max())
+            for a, b in zip(steps, ref_steps)]
+    if not max(errs) <= LOGITS_ATOL:
+        raise AssertionError(f"{label}: logits {max(errs):.3e} from the "
+                             f"plain route's (limit {LOGITS_ATOL})")
+    return max(errs)
+
+
+def phase_cp_model(dev, seed, card) -> dict:
+    """Phase 9b (see the module docstring)."""
+    import tempfile
+    from repro_torch.distributed import context_parallel as cp
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import Mesh, spawn_ranks
+    from repro_torch.models import transformer as tfm
+    cfg = cp_model_config()
+    label = (f"cp 9b llama31-8b {cfg.num_layers} of 32 layers, prompt "
+             f"{CP_PROMPT}, {CP_STEPS} steps, {CP_WORLD} ranks of "
+             f"{CP_CAPACITY // CP_WORLD} rows")
+    log(f"{label}: {cfg.param_count() / 1e9:.3f} B params (f32) a rank, "
+        f"depth cut to {CP_DEPTH} of 32 layers (4 ranks' replicated "
+        "weights and prefills and the reference share one card), widths "
+        f"as published; {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
+        "reserved")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(cp_model_rank, CP_WORLD, (CP_WORLD, tmp, seed),
+                    deadline_s=CP_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"cp_model_{r}.pt"))
+                 for r in range(CP_WORLD)]
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
+        f"{ranks[0]['backend']}, world {CP_WORLD}, "
+        f"{torch.cuda.device_count()} card(s), devices "
+        f"{[r['device'] for r in ranks]}; peak GB "
+        f"{[round(r['peak_gb'], 2) for r in ranks]}; prefill s "
+        f"{[round(r['prefill_s'], 2) for r in ranks]}; decode step ms "
+        f"{[step_ms(r['step_s']) for r in ranks]}")
+    launches = cp_launch_gate(label, ranks, cfg.num_layers)
+    toks = ranks[0]["tokens"]
+    for r, got in enumerate(ranks):
+        if not torch.equal(got["tokens"], toks):
+            raise AssertionError(f"{label}: rank {r}'s tokens differ")
+    params = tfm.init_model(cfg, seed, dev)
+    prompt = cp_prompt(cfg, seed, dev)
+    # one process on a 1x1 mesh holds the whole cache; its CP attend is
+    # the plain version over CP_WORLD shards
+    attend = cp.context_parallel_socket_attend
+    cp.context_parallel_socket_attend = cp_plain_attend(CP_WORLD)
+    try:
+        with activate_mesh(Mesh(("data", "model"), (1, 1))):
+            ref_toks, ref_steps, _, _ = cp_drive(cfg, params, prompt)
+    finally:
+        cp.context_parallel_socket_attend = attend
+    err = cp_logits_gate(label, toks, ranks[0]["logits"], ref_toks,
+                         ref_steps)
+    # the single-process (non-CP) route fed the same tokens: a union of
+    # local top-ks differs from the global top-k by design, so logged
+    plain_toks, plain_steps, prefill_s, step_s = cp_drive(
+        cp_model_config(()), params, prompt, teacher=toks)
+    dist_plain = max(float((a - b).abs().max())
+                     for a, b in zip(ranks[0]["logits"], plain_steps))
+    agree = float((plain_toks == toks).float().mean())
+    log(f"  {label}: tokens {toks[0].tolist()}; launches {launches}; "
+        f"logits max |err| {err:.3e} to the plain single-process route "
+        f"(limit {LOGITS_ATOL}); to the non-CP route (teacher-forced) "
+        f"{dist_plain:.3e}, greedy agreement {agree:.3f}; one process "
+        f"without CP: prefill {prefill_s:.2f} s, step ms "
+        f"{step_ms(step_s)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, logits_err=err,
+                dist_to_non_cp=dist_plain, non_cp_agreement=agree,
+                prefill_s=[r["prefill_s"] for r in ranks],
+                step_ms=[[x * 1e3 for x in r["step_s"]] for r in ranks],
+                non_cp_step_ms=[x * 1e3 for x in step_s],
+                peak_gb=[r["peak_gb"] for r in ranks],
+                backend=ranks[0]["backend"])
+
+
+def phase_cp(dev, seed, card) -> dict:
+    """Phase 9: 9a then 9b; returns the entries of the ``socket_score``
+    and ``flash_prefill`` rows."""
+    t0 = time.perf_counter()
+    attend = phase_cp_attend(dev, seed, card)
+    log(f"cp 9a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model = phase_cp_model(dev, seed, card)
+    log(f"cp 9b: {time.perf_counter() - t0:.1f} s")
+    return dict(socket_score=dict(attend, launches=model["launches"][
+                    "socket_score"], model=model),
+                flash_prefill=dict(launches=model["launches"][
+                    "flash_prefill"]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["state-moe", "bf16", "train"],
+    ap.add_argument("--only", choices=["state-moe", "bf16", "train", "cp"],
                     default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e, 5f or 8); prints neither the kernels line "
-                         "nor the ok line")
+                         "(5e, 5f, 8 or 9); prints neither the kernels "
+                         "line nor the ok line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4132,6 +4762,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(json.dumps({"train": phase_train(dev, args.seed, card)}))
         log(f"train phase: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.only == "cp":
+        build_kernels()
+        t0 = time.perf_counter()
+        log(json.dumps({"cp": phase_cp(dev, args.seed, card)}))
+        log(f"context-parallel phase: {time.perf_counter() - t0:.1f} s")
         return 0
     t0 = time.perf_counter()
     rows = phase_kernels(dev, args.seed)
@@ -4224,6 +4860,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rows["flash_prefill"]["train"] = phase_train(dev, args.seed, card)
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, entry in phase_cp(dev, args.seed, card).items():
+        rows[name]["cp"] = entry
+    log(f"context-parallel phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

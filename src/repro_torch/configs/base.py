@@ -13,9 +13,12 @@ config built here and one built there describe the same model.
 Cache plans resolve global attention layers to kind ``paged``,
 sliding-window ones to ``ring`` (each with the K/V page storage mode
 ``serving.kv_dtype``) and Mamba layers to ``state`` (never quantized).
-The JAX package's sharding knobs (``logical_pad_heads``,
-``decode_cp_*``) are left out; they come with ROADMAP.md queue 1 item
-11's ``distributed/`` step.
+``decode_cp_axes`` and ``decode_cp_batch_axes`` name the mesh axes of
+context-parallel SOCKET decode (``distributed/context_parallel.py``):
+under an active mesh that holds one of them, a rank keeps only its rows
+of each global layer's contiguous cache.  The JAX package's
+``logical_pad_heads`` is left out; it comes with the Trainer's mesh
+(ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -231,6 +234,10 @@ class ModelConfig:
     use_ring_kernel: bool = False
     # --- continuous-batching engine ----------------------------------------
     serving: ServingSettings = ServingSettings()
+    # context-parallel SOCKET decode: per-rank local top-k + all_reduce
+    # merge over these mesh axes (() = the single-process route)
+    decode_cp_axes: Tuple[str, ...] = ()
+    decode_cp_batch_axes: Tuple[str, ...] = ("pod", "data")
     # --- provenance ---------------------------------------------------------
     source: str = ""
 

@@ -39,6 +39,12 @@ pool.  The continuous engine's legacy whole-prompt prefill builds the
 ring at the pool's page-aligned capacity (``attention_prefill(...,
 paged=True)``), at each prompt's last real token.
 
+Context-parallel decode (``cfg.decode_cp_axes`` under an active mesh):
+every rank computes the whole prefill, and each global layer's
+contiguous cache holds only the rank's block of rows
+(:func:`~repro_torch.distributed.context_parallel.cache_shard`); the
+SOCKET backend's attend merges the ranks' partials.
+
 K/V are stored at ``serving.kv_dtype`` everywhere (static caches, pool
 pages and rings): int8/fp8 rows are quantized on write with per-row
 scales and dequantized where they are read — the chunk prefill attends
@@ -54,6 +60,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context_parallel as cp
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.models import backends
 from repro_torch.models.layers import (apply_rope, init_rmsnorm, normal,
@@ -197,7 +204,9 @@ def init_attention_cache(cfg: ModelConfig, batch: int, capacity: int,
                          ring_capacity: Optional[int] = None) -> Dict:
     """Allocate one layer's decode cache (zeros).  Local layers get a ring
     of ``min(capacity, window)`` K/V slots, or ``ring_capacity`` (the pool
-    layout's ``block_size``-row pages)."""
+    layout's ``block_size``-row pages).  Under context-parallel decode a
+    global layer's cache is this rank's block
+    (:func:`~repro_torch.distributed.context_parallel.cache_shard`)."""
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     if _window(cfg, attn_type) is not None:
         cap = ring_capacity if ring_capacity is not None else \
@@ -207,6 +216,9 @@ def init_attention_cache(cfg: ModelConfig, batch: int, capacity: int,
                                  device=device)
                 for name, s in backends.kv_leaf_specs(cfg).items()}
     backend = backends.get_backend(cfg.attention_backend)
+    shard = cp.cache_shard(cfg)
+    if shard is not None:
+        batch, capacity = shard.batch_rows(batch), shard.rows(capacity)
     return backend.init_cache(cfg, batch, cfg.num_kv_heads, capacity, dtype,
                               device)
 
@@ -249,6 +261,11 @@ def attention_prefill(cfg: ModelConfig, params: Dict, x: torch.Tensor,
             torch.where(valid, vc.gather(2, idx), 0))
     cache = init_attention_cache(cfg, x.shape[0], capacity, attn_type,
                                  dtype=kc.dtype, device=x.device)
+    shard = cp.cache_shard(cfg)
+    if shard is not None:
+        # every rank computes the whole prompt; its cache keeps (and
+        # hashes) only the rows it owns
+        kc, vc = shard.take(kc, capacity), shard.take(vc, capacity)
     backend = backends.get_backend(cfg.attention_backend)
     return y, backend.prefill_build(cfg, params, cache, kc, vc)
 
@@ -406,7 +423,7 @@ def attention_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     backend = backends.get_backend(cfg.attention_backend)
     spec = backend.cache_spec(cfg)
     if block_tables is None:
-        view = backends.ContiguousView(cache, spec)
+        view = backends.ContiguousView(cache, spec, cp.cache_shard(cfg))
     else:
         view = backends.PagedView(cache, spec, block_tables,
                                   cfg.serving.block_size)

@@ -202,7 +202,18 @@ class KVView:
 
 
 class ContiguousView(KVView):
-    """Each leaf is ``(B, KVH, rows, *suffix)``."""
+    """Each leaf is ``(B, KVH, rows, *suffix)``.
+
+    ``shard`` (a :class:`~repro_torch.distributed.context_parallel
+    .CacheShard`): under context-parallel decode the leaves hold only this
+    rank's block of the cache, and :meth:`write_token` writes only the
+    rows this rank owns (global token positions in, whole-batch values
+    in)."""
+
+    def __init__(self, arrays: Dict[str, torch.Tensor],
+                 spec: Dict[str, LeafSpec], shard=None):
+        super().__init__(arrays, spec)
+        self.shard = shard
 
     @property
     def n_tokens(self) -> int:
@@ -229,11 +240,30 @@ class ContiguousView(KVView):
         place."""
         a = self.arrays[name]
         gran = self.spec[name].granularity
-        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        if self.shard is not None:
+            self._write_owned(a, gran, pos, value)
+        elif isinstance(pos, torch.Tensor) and pos.ndim == 1:
             bidx = torch.arange(a.shape[0], device=a.device)
             _put(a, (bidx, slice(None), pos.to(a.device) // gran), value)
         else:
             _put(a, (slice(None), slice(None), int(pos) // gran), value)
+
+    def _write_owned(self, a: torch.Tensor, gran: int, pos: Pos,
+                     value: torch.Tensor) -> None:
+        """:meth:`write_token` on this rank's block: its batch rows of
+        ``value``, at the rows it holds (token ``t0`` is its first)."""
+        bl = a.shape[0]
+        b0 = self.shard.batch_index * bl
+        value = value[b0:b0 + bl]
+        t0 = self.shard.seq_index * a.shape[2] * gran
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            p = pos[b0:b0 + bl].to(a.device) - t0
+            own = (p >= 0) & (p < a.shape[2] * gran)
+            bidx = torch.arange(bl, device=a.device)[own]
+            _put(a, (bidx, slice(None), p[own] // gran), value[own])
+        elif 0 <= int(pos) - t0 < a.shape[2] * gran:
+            _put(a, (slice(None), slice(None), (int(pos) - t0) // gran),
+                 value)
 
     def rmw_token(self, name: str, pos: Pos, fn) -> None:
         a = self.arrays[name]

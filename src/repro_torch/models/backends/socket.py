@@ -21,8 +21,16 @@ on, and kvhead/pooled selection records
 :func:`~repro_torch.models.backends.probe.selection_stats` against the
 dequantized cached keys.  The plain selection is the fused kernel's but
 for rows inside the top-k threshold band (float rounding of the same
-fp32 sums in another order).  The context-parallel route comes with a
-later slice.
+fp32 sums in another order).
+
+Context-parallel route: on a ContiguousView under an active mesh whose
+axes ``cfg.decode_cp_axes`` names, each rank holds only its block of the
+cache and ``attend`` runs ``context_parallel_socket_attend``
+(``distributed/context_parallel.py``; its shard scored through
+``socket_score`` when ``use_score_kernel``; the local attend over at
+most ``k_local`` rows is plain torch, as the JAX package's is plain
+``jnp``).  A ragged length warns once and takes the global route over the cache
+gathered from the ranks.
 """
 
 from __future__ import annotations
@@ -31,9 +39,10 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core import socket as sk
+from repro_torch.distributed import context_parallel as cp
 from repro_torch.models.backends import base
 from repro_torch.models.backends import probe as bprobe
-from repro_torch.models.backends.base import KVView, LeafSpec
+from repro_torch.models.backends.base import ContiguousView, KVView, LeafSpec
 
 __all__ = ["SocketBackend", "socket_config_of"]
 
@@ -170,6 +179,37 @@ class SocketBackend(base.DecodeBackend):
                 and not bprobe.capturing():
             return self._attend_fused(cfg, params, q, view, length=length,
                                       scale=scale, budget=budget)
+
+        mesh = cp.cp_mesh(cfg) if isinstance(view, ContiguousView) else None
+        if mesh is not None and budget is None:
+            # local top-k on every sequence shard + all_reduce merge of
+            # the online-softmax partials: no rank scores or holds the
+            # whole cache
+            return cp.context_parallel_socket_attend(
+                scfg, mesh, cfg.decode_cp_axes, params["hash_w"], q,
+                base.dequant_leaf(cfg, view, "k"),
+                base.dequant_leaf(cfg, view, "v"), view.arrays["bits"],
+                view.arrays["vnorm"].float(), length=length, scale=scale,
+                batch_axes=cfg.decode_cp_batch_axes,
+                use_score_kernel=cfg.socket.use_score_kernel)
+        if mesh is not None:
+            # the context-parallel route merges per-shard top-ks under one
+            # scalar length; a ragged batch takes the global route over
+            # the whole cache, gathered from the ranks' blocks
+            from repro_torch.serving.obs import warn_once
+            warn_once(
+                "socket-ragged-cp-fallback",
+                "ragged decode + context-parallel SOCKET has no "
+                "context-parallel route yet; gathering the cache and "
+                "taking the global route for this step (scalar-length "
+                "decode keeps the context-parallel route)")
+            view = ContiguousView(
+                cp.gather_cache(mesh, cfg.decode_cp_axes,
+                                cfg.decode_cp_batch_axes, view.arrays),
+                view.spec)
+            n = view.n_tokens
+            budget = self._budget(cfg, length, n)
+
         scores = self._scores(cfg, params, q, view)
         vnorm = view.leaf("vnorm").float()
         kq = sk.topk_budget(scfg, n)

@@ -30,6 +30,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed import context_parallel as cp
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
@@ -266,7 +267,10 @@ def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
     ``ServingSettings``) switches to the paged-pool layout: local layers
     get full ``block_size``-row pages (the ring handler addresses them
     circularly; no window truncation) and Mamba layers one state row per
-    decode slot (``pool.max_batch``) instead of one per block."""
+    decode slot (``pool.max_batch``) instead of one per block.  Under
+    context-parallel decode each global layer's cache is this rank's
+    block (``distributed/context_parallel.py``)."""
+    cp.check_model(cfg)
     caches = []
     for spec in cfg.layer_specs:
         if spec.kind != "attn":
@@ -293,6 +297,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int,
     built at it, not at the padding's end.  ``paged``: build the caches
     in the pool's geometry (page-aligned local rings)."""
     _check_inputs(cfg)
+    cp.check_model(cfg)
     x = embed_tokens(cfg, params["embed"], batch["tokens"])
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)

@@ -284,6 +284,9 @@ class ContinuousBatchingEngine:
                for s in cfg.layer_specs):
             # resolves the backend (ValueError on unknown names)
             bk.get_backend(cfg.attention_backend).cache_spec(cfg)
+        if cfg.decode_cp_axes:
+            raise NotImplementedError(
+                "ragged decode + context-parallel SOCKET is a ROADMAP item")
 
     @property
     def chunked(self) -> bool:

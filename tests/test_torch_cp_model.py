@@ -1,0 +1,261 @@
+"""Context-parallel SOCKET decode through the port's model, held to the
+JAX package on the CPU.
+
+* ``run_serve``'s greedy tokens from a ``llama31-8b`` smoke model on 4
+  gloo ranks (``decode_cp_axes=("data",)``, one process a rank, one
+  intra-op thread each, every rank holding 16 of the 64 cache rows)
+  equal JAX's ``run_serve`` under ``activate_mesh`` on 4 host devices,
+  with the same weights through ``from_jax_params``; and equal one
+  process on a 1x1 mesh holding the whole cache, its CP attend replaced by
+  ``context_parallel_socket_attend_ref`` over ``WORLD`` shards.
+* Each rank's prefill cache is its block of the single-process cache:
+  K/V and value norms equal, hash bits bitwise; the decode steps wrote
+  their rows on the rank that owns them only (layer 0's equal to the
+  single-process decode's).
+* Under an active CP mesh, models with local, Mamba or non-SOCKET layers
+  raise naming ROADMAP item 11, and the continuous engine refuses
+  ``decode_cp_axes`` with the JAX engine's message.
+
+The JAX side runs with the kernel flags on, as ``test_torch_model.py``
+does; its CP route scores in plain XLA, and the port's through
+``socket_score``'s plain version on CPU tensors.  Its mesh is
+``repro.launch.mesh.make_test_mesh``'s with ``AxisType.Auto`` axes: this
+JAX's ``make_mesh`` makes Explicit axes, on which the JAX package's
+``lsc`` (``with_sharding_constraint``) raises.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from conftest import run_subprocess_devices
+
+ARCH, BATCH, PLEN, STEPS, WORLD = "llama31-8b", 2, 60, 4, 4
+CAP = PLEN + STEPS
+
+
+def _tcfg(**kw):
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH).smoke()
+    return cfg.replace(socket=dataclasses.replace(
+        cfg.socket, use_score_kernel=True, use_flash_decode=True), **kw)
+
+
+CP = dict(decode_cp_axes=("data",), decode_cp_batch_axes=())
+
+_JAX_SERVE = r"""
+import dataclasses
+import jax
+import numpy as np
+from repro.configs import get_config
+from repro.distributed.sharding import activate_mesh
+from repro.launch.serve import run_serve
+
+ARCH, PATH, BATCH, PLEN, STEPS, WORLD = ARGS
+
+jc = get_config(ARCH).smoke()
+jc = jc.replace(socket=dataclasses.replace(
+    jc.socket, use_score_kernel=True, use_flash_decode=True),
+    decode_cp_axes=("data",), decode_cp_batch_axes=())
+prompt = np.load(PATH + "/prompt.npy")
+# launch.mesh.make_test_mesh's mesh with Auto axes (see the docstring)
+mesh = jax.make_mesh((WORLD, 1), ("data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+with activate_mesh(mesh):
+    toks, _, _ = run_serve(jc, BATCH, PLEN, STEPS, seed=0, prompt=prompt)
+np.save(PATH + "/jax_tokens.npy", np.asarray(toks))
+print("OK")
+"""
+
+
+def _serve_rank(rank, world, tmp):
+    """One gloo rank: ``run_serve`` under the mesh, then its prefill
+    caches and the caches after ``STEPS`` decode steps."""
+    torch.set_num_threads(1)
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import transformer as tfm
+    init_rank(rank, world, f"file://{tmp}/init", device="cpu")
+    params = torch.load(os.path.join(tmp, "params.pt"))
+    prompt = torch.from_numpy(np.load(os.path.join(tmp, "prompt.npy")))
+    cfg = _tcfg(**CP)
+    with activate_mesh(make_test_mesh(world, 1)):
+        toks, _, _ = run_serve(cfg, BATCH, PLEN, STEPS, prompt=prompt,
+                               params=params, device="cpu")
+        _, caches = tfm.prefill(cfg, params, {"tokens": prompt}, CAP)
+        prefill = [{k: v.clone() for k, v in c.items()} for c in caches]
+        for t in range(STEPS):
+            tfm.decode_step(cfg, params, caches, toks[:, t:t + 1], PLEN + t)
+    torch.save({"tokens": toks, "prefill": prefill, "decoded": caches},
+               os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """JAX's tokens on 4 host devices and the 4 gloo ranks' results."""
+    import jax
+    from repro.configs import get_config as jget
+    from repro.models import param as pm
+    from repro.models import transformer as jtfm
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.weights import from_jax_params
+    tmp = str(tmp_path_factory.mktemp("cp_model"))
+    jparams = pm.unbox(jtfm.init_model(jget(ARCH).smoke(),
+                                       jax.random.PRNGKey(0)))
+    params = from_jax_params(_tcfg(),
+                             jax.tree_util.tree_map(np.asarray, jparams))
+    torch.save(params, os.path.join(tmp, "params.pt"))
+    prompt = np.random.default_rng(0).integers(
+        0, _tcfg().vocab_size, (BATCH, PLEN)).astype(np.int32)
+    np.save(os.path.join(tmp, "prompt.npy"), prompt)
+    spawn_ranks(_serve_rank, WORLD, (WORLD, tmp), deadline_s=240)
+    args = (ARCH, tmp, BATCH, PLEN, STEPS, WORLD)
+    run_subprocess_devices(_JAX_SERVE.replace("= ARGS", "= " + repr(args)),
+                           devices=WORLD, timeout=240)
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+             for r in range(WORLD)]
+    return params, torch.from_numpy(prompt), \
+        np.load(os.path.join(tmp, "jax_tokens.npy")), ranks
+
+
+def test_cp_greedy_tokens_match_jax_on_4_ranks(served):
+    _, _, jtoks, ranks = served
+    for r in ranks:
+        np.testing.assert_array_equal(r["tokens"].numpy(), jtoks)
+
+
+def test_in_process_mesh_takes_the_plain_route_and_matches(served):
+    """One process on a 1x1 mesh holds the whole cache; with its CP attend
+    replaced by ``context_parallel_socket_attend_ref`` over ``WORLD``
+    shards it gives the ranks' tokens."""
+    from repro_torch.distributed import context_parallel as cp
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import run_serve
+    params, prompt, jtoks, _ = served
+    calls = []
+    ref = cp.context_parallel_socket_attend_ref
+
+    def plain(cfg, mesh, seq_axes, *a, batch_axes=(), **kw):
+        calls.append(a[2].shape[2])
+        return ref(cfg, WORLD, *a, **kw)
+
+    cfg = _tcfg(**CP)
+    with activate_mesh(Mesh(("data", "model"), (1, 1))), \
+            pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cp, "context_parallel_socket_attend", plain)
+        toks, _, _ = run_serve(cfg, BATCH, PLEN, STEPS, prompt=prompt,
+                               params=params, device="cpu")
+    np.testing.assert_array_equal(toks.numpy(), jtoks)
+    # layers x (warm-up + steps) calls, each over the whole cache
+    assert calls == [CAP] * cfg.num_layers * (STEPS + 1)
+
+
+def test_each_rank_holds_its_block_of_the_cache(served):
+    """Prefill: rank r's leaves are rows [16 r, 16 r + 16) of the
+    single-process cache.  Decode: the new rows (60..63) are written on
+    rank 3 only, layer 0's as the single-process decode writes them."""
+    from repro_torch.models import transformer as tfm
+    params, prompt, _, ranks = served
+    cfg = _tcfg()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, caches = tfm.prefill(cfg, params, {"tokens": prompt}, CAP)
+        whole = [{k: v.clone() for k, v in c.items()} for c in caches]
+        toks = ranks[0]["tokens"]
+        for t in range(STEPS):
+            tfm.decode_step(cfg, params, caches, toks[:, t:t + 1], PLEN + t)
+    finally:
+        torch.set_num_threads(n)
+    n_l = CAP // WORLD
+    for r, got in enumerate(ranks):
+        rows = slice(r * n_l, (r + 1) * n_l)
+        for layer, (pre, dec) in enumerate(zip(got["prefill"],
+                                               got["decoded"])):
+            assert set(pre) == set(whole[layer])
+            for name, leaf in pre.items():
+                assert leaf.shape[2] == n_l, name
+                ref = whole[layer][name][:, :, rows]
+                if name == "bits":
+                    assert torch.equal(leaf, ref)
+                else:
+                    torch.testing.assert_close(leaf, ref, rtol=1e-5,
+                                               atol=1e-5)
+            for name in ("k", "v", "vnorm"):
+                diff = dec[name] != pre[name]
+                written = diff.reshape(*diff.shape[:3], -1).any(-1)
+                own = torch.zeros_like(written)
+                if r == WORLD - 1:
+                    own[:, :, PLEN - rows.start:] = True
+                assert torch.equal(written, own), (r, layer, name)
+            if r == WORLD - 1 and layer == 0:
+                # layer 0's new rows come from the same tokens' embeddings
+                # (deeper layers read attention outputs, and the CP
+                # route's union of local top-ks differs from the global
+                # top-k by design)
+                for name in ("k", "v"):
+                    torch.testing.assert_close(
+                        dec[name][:, :, PLEN - rows.start:],
+                        caches[0][name][:, :, PLEN:], rtol=1e-5, atol=1e-5)
+
+
+def test_write_token_writes_only_owned_rows():
+    """Scalar and ragged positions, with the batch split too: a rank
+    writes the rows and batch rows it owns and nothing else."""
+    from repro_torch.distributed.context_parallel import CacheShard
+    from repro_torch.models.backends import ContiguousView, LeafSpec
+    spec = {"k": LeafSpec(suffix=(2,))}
+    value = torch.arange(1, 4 * 3 * 2 + 1, dtype=torch.float32).reshape(
+        4, 3, 2)
+    for pos in (5, torch.tensor([5, 9, 11, 2])):
+        got = {}
+        for si in range(2):
+            for bi in range(2):
+                a = {"k": torch.zeros(2, 3, 6, 2)}
+                ContiguousView(a, spec, CacheShard(2, si, 2, bi)).write_token(
+                    "k", pos, value)
+                got[si, bi] = a["k"]
+        whole = torch.zeros(4, 3, 12, 2)
+        ContiguousView({"k": whole}, spec).write_token("k", pos, value)
+        for (si, bi), leaf in got.items():
+            assert torch.equal(
+                leaf, whole[2 * bi:2 * bi + 2, :, 6 * si:6 * si + 6])
+
+
+@pytest.mark.parametrize("arch,backend", [
+    ("gemma3-27b", "socket"), ("mamba2-780m", "socket"),
+    ("llama31-8b", "dense"), ("llama31-8b", "quest")])
+def test_cp_refuses_other_layers(arch, backend):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch).smoke().replace(attention_backend=backend, **CP)
+    tokens = torch.zeros(1, 8, dtype=torch.int64)
+    with activate_mesh(Mesh(("data", "model"), (2, 1))):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tfm.init_decode_caches(cfg, 1, 16)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tfm.prefill(cfg, {}, {"tokens": tokens}, 16)
+    # without a mesh the field changes nothing
+    assert len(tfm.init_decode_caches(cfg, 1, 16)) == cfg.num_layers
+
+
+def test_engine_refuses_cp_as_jax_does():
+    from repro.configs import get_config as jget
+    from repro.serving.engine import ContinuousBatchingEngine as JEngine
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    msgs = []
+    for engine, cfg in ((JEngine, jget(ARCH).smoke().replace(**CP)),
+                        (ContinuousBatchingEngine, _tcfg(**CP))):
+        with pytest.raises(NotImplementedError) as e:
+            engine._validate(cfg)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]

@@ -12,6 +12,10 @@ directly (no card), on hand-made scores with a tie at the threshold.
 The static phase's step-0 gate does the same with ``static_ties_shared``:
 the top-k calls of the kernel route (``socket_score``'s scores) keep
 their selections, and the plain route's calls pair with them in order.
+
+Phase 9's gates (context-parallel decode) run at smoke size on simulated
+ranks, sound and with a wrong ``lo``, a budget of the local rows and a
+-inf masked logit.
 """
 
 from __future__ import annotations
@@ -996,3 +1000,152 @@ def test_train_flops_per_token_is_the_jax_accounting():
     assert cs.train_flops_per_token(g3, 4096) == \
         6.0 * g3.active_param_count() + \
         24.0 * g3.num_heads * g3.head_dim * sum(spans)
+
+
+# ------------------------------------------- phase 9 (context-parallel)
+
+CP_N, CP_SHARDS = 1024, 4
+CP_GEO = dict(b=1, kvh=2, g=2, hd=32)
+
+
+def _cp_case(cs, selection="kvhead"):
+    """Phase 9a's inputs at smoke size (sinks and windows of 8 rows), the
+    length 3 shards less 40 rows (the last shard holds no valid row)."""
+    cfg = cs.cp_socket_config(selection, sink_tokens=8, window_tokens=8,
+                              score_chunk=0)
+    length = 3 * CP_N // CP_SHARDS - 40
+    whole = cs.cp_inputs("cpu", 0, CP_N, CP_SHARDS, CP_GEO, cfg)
+    return cfg, length, whole
+
+
+def _cp_ranks(cs, cfg, length):
+    """Each simulated rank's selection and partials, made by the
+    functions its attend calls (``socket_score``'s plain version)."""
+    from repro_torch.distributed import context_parallel as cp
+    from repro_torch.launch.mesh import Mesh
+    sels, parts = [], []
+    for rank in range(CP_SHARDS):
+        mesh = Mesh(("data", "model"), (CP_SHARDS, 1), rank=rank)
+        data = cs.cp_inputs("cpu", 0, CP_N, CP_SHARDS, CP_GEO, cfg,
+                            mesh.index(("data",)))
+        idx, mask = cs.cp_rank_selection(cfg, mesh, ("data",), data, CP_N,
+                                         length)
+        sels.append((idx, mask))
+        parts.append(cp.local_partials(data["q"], data["k"], data["v"],
+                                       idx, mask, CP_GEO["hd"] ** -0.5))
+    return sels, parts
+
+
+@pytest.mark.parametrize("selection", ["kvhead", "pooled"])
+def test_cp_gates_pass_on_the_sound_route(selection):
+    """Phase 9a's gates at smoke size: the ranks' selections, their
+    partials (the last shard empty) and the merge against the plain
+    single-process version and the global route, dense attention lying
+    outside the bound."""
+    from repro_torch.core import socket as sk
+    from repro_torch.distributed import context_parallel as cp
+    cs = _chip_smoke()
+    cfg, length, whole = _cp_case(cs, selection)
+    with one_thread():
+        sels, parts = _cp_ranks(cs, cfg, length)
+        assert cs.cp_selection_gate("smoke", cfg, sels, whole, length,
+                                    CP_SHARDS) == 0
+        cs.cp_partials_check("smoke", parts, length, CP_N)
+        args = tuple(whole[k] for k in ("w", "q", "k", "v", "bits",
+                                        "vnorm"))
+        scale = CP_GEO["hd"] ** -0.5
+        ref = cp.context_parallel_socket_attend_ref(
+            cfg, CP_SHARDS, *args, length=length, scale=scale)
+        glob = sk.socket_attend(cfg, *args[:4], sk.SocketCache(*args[4:]),
+                                length=length, scale=scale)
+        dense = cs.cp_dense(whole, length, scale)
+        gates = cs.cp_merge_gate("smoke", [cp.merge_partials_ref(parts)],
+                                 ref, glob, dense)
+    assert gates["rel_to_global"] < cs.CP_GLOBAL_REL <= \
+        gates["dense_to_global"]
+
+
+@pytest.mark.parametrize("fault", ["dense attention", "inputs too easy"])
+def test_cp_merge_gate_can_fail(fault):
+    """Phase 9a's inputs separate the routes: dense attention in place of
+    the CP route's output fails the bound to the global route, and inputs
+    on which dense attention lies inside the bound fail the gate."""
+    from repro_torch.core import socket as sk
+    from repro_torch.distributed import context_parallel as cp
+    cs = _chip_smoke()
+    cfg, length, whole = _cp_case(cs)
+    args = tuple(whole[k] for k in ("w", "q", "k", "v", "bits", "vnorm"))
+    scale = CP_GEO["hd"] ** -0.5
+    with one_thread():
+        ref = cp.context_parallel_socket_attend_ref(
+            cfg, CP_SHARDS, *args, length=length, scale=scale)
+        glob = sk.socket_attend(cfg, *args[:4], sk.SocketCache(*args[4:]),
+                                length=length, scale=scale)
+        dense = cs.cp_dense(whole, length, scale)
+    if fault == "dense attention":
+        with pytest.raises(AssertionError, match="distance to the global"):
+            cs.cp_merge_gate("smoke", [dense], dense, glob, dense)
+    else:
+        with pytest.raises(AssertionError, match="do not test"):
+            cs.cp_merge_gate("smoke", [ref], ref, glob, glob)
+
+
+@pytest.mark.parametrize("fault", ["wrong lo", "budget of the local n",
+                                   "-inf merge"])
+def test_cp_gates_catch_a_faulty_route(fault):
+    """A rank whose ``lo`` is 0 or whose budget is that of its own rows
+    fails the selection gate; one whose masked logits are -inf (its
+    selection sound) fails the partials check on the empty shard."""
+    from repro_torch.core import socket as sk
+    from repro_torch.distributed import context_parallel as cp
+    cs = _chip_smoke()
+    cfg, length, whole = _cp_case(cs)
+    patch = {
+        "wrong lo": mock.patch.object(cp, "shard_lo",
+                                      lambda mesh, axes, n_l: 0),
+        "budget of the local n": mock.patch.object(
+            cp, "local_budget", lambda cfg, n, shards: max(
+                cfg.min_k, -(-sk.topk_budget(cfg, n // shards) // shards))),
+        "-inf merge": mock.patch.object(cp, "MASKED_LOGIT",
+                                        float("-inf")),
+    }[fault]
+    with one_thread(), patch:
+        sels, parts = _cp_ranks(cs, cfg, length)
+    if fault == "-inf merge":
+        cs.cp_selection_gate("smoke", cfg, sels, whole, length, CP_SHARDS)
+        with pytest.raises(AssertionError, match="shard 3's partials"):
+            cs.cp_partials_check("smoke", parts, length, CP_N)
+    else:
+        with pytest.raises(AssertionError, match="selected|selection"):
+            cs.cp_selection_gate("smoke", cfg, sels, whole, length,
+                                 CP_SHARDS)
+
+
+def test_cp_model_gates():
+    """Phase 9b's launch gate (layers x steps ``socket_score`` and layers
+    ``flash_prefill`` launches a rank, nothing else) and logits gate
+    (tokens equal, logits within LOGITS_ATOL)."""
+    cs = _chip_smoke()
+    layers, steps = 4, cs.CP_STEPS
+    good = {"socket_score": layers * steps, "flash_prefill": layers,
+            "flash_decode": 0, "paged_attention": 0}
+    ranks = [{"launches": dict(good)} for _ in range(4)]
+    assert cs.cp_launch_gate("smoke", ranks, layers) == {
+        "socket_score": 4 * layers * steps, "flash_prefill": 4 * layers}
+    for name, wrong in (("socket_score", layers * steps - 1),
+                        ("flash_decode", 1), ("flash_prefill", 0)):
+        bad = [dict(r, launches=dict(good)) for r in ranks]
+        bad[2]["launches"][name] = wrong
+        with pytest.raises(AssertionError, match=name):
+            cs.cp_launch_gate("smoke", bad, layers)
+    toks = torch.tensor([[3, 1, 4]])
+    logits = [torch.randn(1, 8) for _ in range(3)]
+    assert cs.cp_logits_gate("smoke", toks, logits, toks.clone(),
+                             [x.clone() for x in logits]) == 0.0
+    with pytest.raises(AssertionError, match="tokens"):
+        cs.cp_logits_gate("smoke", toks, logits, torch.tensor([[3, 1, 5]]),
+                          logits)
+    off = [x.clone() for x in logits]
+    off[2][0, 5] += 2 * cs.LOGITS_ATOL
+    with pytest.raises(AssertionError, match="logits"):
+        cs.cp_logits_gate("smoke", toks, logits, toks, off)

@@ -406,6 +406,59 @@ Phases, in order; the first failure raises and the script exits non-zero:
               logged, not gated (a union of local top-ks differs from a
               global top-k by design).  ``--only cp`` builds the kernels
               and runs this phase alone.
+10. mesh-train — the sharded train step and the elastic Trainer over 4
+              ranks (``distributed/fsdp.py``, ``launch/specs.py``'s
+              shardings, ``runtime/train_loop.py``; ranks started as in
+              phase 9: NCCL with a card a rank where 4 cards are present,
+              else gloo with every rank on ``cuda:0``, the gathers and
+              reduce-scatters of CUDA tensors card to card through the
+              ranks' CUDA IPC mailboxes and the all-reduces staged
+              through host memory, each counted and logged; that layout
+              is a test rig, and its collective share is the rig's).  The single-process references run first and are
+              freed before the ranks start.  10a: llama31-8b at full
+              width, 2 of 32 layers (as 8a), f32, ``remat_policy="full"``,
+              a global batch of 4 x 1024 tokens from ``--seed`` with
+              labels padded on row prefixes of different lengths (the
+              ranks' valid-token counts differ), 2 steps, on mesh (4, 1)
+              with 8-bit moments and on (2, 2) with f32 moments at accum
+              2, one spawn for both: every rank's loss and gradient norm
+              at each step within TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL of the
+              single-process ``make_train_step`` on the same weights and
+              batches (``mesh_metrics_gate``; peak lr 1e-3, as the CPU
+              tests), each rank's parameter block of each leaf after 2
+              steps no farther (L2) from the reference's than
+              MESH_UPDATE_RTOL x the reference's own update of it
+              (``mesh_params_gate``; the largest element logged), the
+              8-bit case's moments within MESH_MOMENT_CODES codes at a
+              block's top of the reference's (``mesh_code_report``),
+              every parameter and moment block of
+              its spec's shard shape, ``flash_prefill`` launched layers x
+              microbatches x 2 x steps a rank and no other kernel.  10d
+              (same spawn): ``compressed_psum`` over the 4 ranks of one
+              llama31-8b layer's gradient shapes from the seed, 3 rounds:
+              each rank's int8 payloads and scales equal
+              ``compressed_psum_ref``'s, the means and error buffers
+              within COMPRESSION_TOL, the error feedback carried
+              (``compression_run``).  10b: llama31-8b at
+              ``dryrun_model_config(..., SHAPES["train_4k"])`` (bf16,
+              remat full), 8-bit moments, (4, 1), each rank's blocks
+              drawn as the Trainer draws them (``fsdp.init_shards``: a
+              unit of the model at a time), one 4096-token sequence
+              a rank, 3 steps, 8 of 32 layers on one card (all 32 with a
+              card a rank): step 0's loss finite and no farther from a
+              float32 run of the same weights than F64_RATIO x the
+              single-process bf16 forward's; step s, tokens/s, each
+              rank's peak memory (beside 8c's 57.20 GB), and, from the
+              last step run with the collectives timed, the step's share
+              in gathers, reduce-scatters and all-reduces logged.  10c:
+              the JAX package's elastic test's Trainer (minitron-8b
+              smoke, one group, dense backend) over the 4 ranks, 12 steps,
+              a checkpoint every 4, ``lose_device:2`` at step 6: one
+              rebuild, ranks 0 and 1 on the new mesh reach step 12, their
+              restored blocks equal their blocks of the step-4
+              checkpoint bit for bit, ranks 2 and 3 leave and exit 0
+              (``elastic_gate``).  ``--only mesh`` builds the kernels and
+              runs this phase alone.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -429,6 +482,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import Tuple
 from unittest import mock
 
 REPO = Path(__file__).resolve().parent
@@ -4722,13 +4776,845 @@ def phase_cp(dev, seed, card) -> dict:
                     "flash_prefill"]))
 
 
+# ------------------------------------------------------------ phase 10
+
+MESH_WORLD = 4
+MESH_DEADLINE_S = 600
+# 10a: llama31-8b at full width, 2 of its 32 layers (as 8a: all 32 in f32
+# need 128 GB for weights, gradients and moments), f32, remat full, a
+# global batch of 4 x 1024 tokens, 2 steps; each case (mesh (data,
+# model), moment bits, accum)
+MESH_DEPTH = 2
+MESH_ROWS, MESH_SEQ, MESH_STEPS = 4, 1024, 2
+MESH_CASES = (((4, 1), 8, 1), ((2, 2), 32, 2))
+# each row's share of labels padded (-1): the ranks' valid-token counts
+# differ, so a loss over a rank's own count would show
+MESH_PAD = (0.0, 0.375, 0.0625, 0.1875)
+# 10a's schedule: the CPU tests' (lr 5e-4 at step 1, 1e-3 at step 2), at
+# which each step moves every leaf well past the parameter gate's limit
+# (an unchanged leaf fails it).  10b, timed, takes the repo's default
+# (``ScheduleConfig()``, a deployment's warmup; its gate reads step 0)
+MESH_SCHEDULE = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=3)
+# 10a's parameter gate, both cases: a rank's block of each leaf no farther
+# (L2) from the single-process step's than this share of that step's own
+# update of the block (|p_ref - p_0|, L2); an unchanged leaf reads 1.  No
+# single element is gated: where a gradient element lies below Adam's eps
+# (1e-8) its update is lr x g / eps, so an absolute difference of 1e-10
+# in g (float32 sums of a rank's rows run in another order, partial sums
+# near 1e-3) moves it by 1 % of lr.  An 8-bit moment's code parts by one
+# where its quotient sits on a rounding edge, which moves that element's
+# update by up to several lr where the code is small (the cube root's
+# slope), so its bound is wider.  Readings at smoke width
+# (tests/test_torch_smoke_checks.py's faults, CPU): sound f32 2.3e-5 at
+# (2, 2), sound 8-bit 3.9e-4 at (4, 1); the 8-bit moments' block scales
+# gathered in another rank order 6.6e-2 at (4, 1), 0.147 at (2, 2); a
+# leaf never updated 1.  On the card (PERF.md): sound 8-bit 2.5e-4.
+MESH_UPDATE_RTOL = {32: 1e-3, 8: 1e-2}
+# 10a's 8-bit moments against one process's, the codes expanded: each
+# value within this many codes at the top of its block (one is
+# 1 - (126/127)^3 of the block's largest m, 1 - (126/127)^6 of v).  A
+# code that parts by one at step 1 moves m by at most one such code, and
+# step 2 rounds both routes' values again (about two in all); a code near
+# 0 parts by many for the same change (a root's slope near 0: -19 against
+# 16 at smoke width, 46 and 65 on the card), and step 2's gradients part
+# a little where step 1's updates parted.  Readings: sound m 0.23 and v
+# 0.38 codes at smoke width, 2.09 and 1.29 on the card; the block scales
+# in another rank order 38 and 19 at smoke width.
+MESH_MOMENT_CODES = 5
+MESH_TOP_CODE = {"m": 1 - (126 / 127) ** 3, "v": 1 - (126 / 127) ** 6}
+# 10b: the deployment numerics, 8 of 32 layers on one card (four ranks'
+# bf16 shards and 8-bit moments, each rank's gathered embedding, head
+# and their gradients, its 4096-token logits: ~14 GB a rank); all 32
+# where four cards hold the ranks
+MESH_TIMED_DEPTH = 8
+MESH_TIMED_SEQ, MESH_TIMED_STEPS = 4096, 3
+# 10c: the JAX package's elastic test (tests/test_distributed.py)
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_FAIL, ELASTIC_LOST = 12, 4, 6, 2
+# 10d: rounds of error feedback over one llama31-8b layer's gradients
+COMPRESSION_ROUNDS = 3
+COMPRESSION_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _dev_sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tree_to(tree, device):
+    """A copy of a tree of dicts and lists of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def end_rank() -> None:
+    """A rank's last call: its mailboxes closed, every rank past that (no
+    rank frees a mailbox another still maps), the group destroyed."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    collectives.close_mailboxes()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_ocfg(bits, schedule=None):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import ScheduleConfig
+    return AdamWConfig(state_bits=bits, schedule=ScheduleConfig(
+        **(MESH_SCHEDULE if schedule is None else schedule)))
+
+
+def mesh_batch(cfg, rows, seq, seed, step, dev):
+    """``train_batch`` with row ``r``'s first ``MESH_PAD[r]`` of labels
+    padded (-1)."""
+    batch = train_batch(cfg, rows, seq, seed, step, dev)
+    labels = batch["labels"].clone()
+    for r in range(rows):
+        labels[r, :int(seq * MESH_PAD[r % len(MESH_PAD)])] = -1
+    return {"tokens": batch["tokens"], "labels": labels}
+
+
+def mesh_train_run(cfg, ocfg, mesh, accum, params, batches, dev) -> dict:
+    """One rank's sharded run: its blocks of ``params`` and zero moments
+    (``launch/specs.py``'s shardings), one sharded step a batch, launches
+    counted from 0.  Returns the metrics (with ``step_s``), the parameter
+    blocks on the CPU (``{path: tensor}``), whether every parameter and
+    moment block has its spec's shard shape, and the launches."""
+    import torch.distributed as dist
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import specs as sp
+    from repro_torch.runtime.steps import make_train_step
+    psds, psh = sp.param_specs(cfg, mesh, {})
+    osds, osh = sp.opt_specs(ocfg, psds, psh, mesh, {})
+    flat_p, flat_o = fsdp.flat_tree(psh), fsdp.flat_tree(osh)
+    local = fsdp.shard_tree(params, flat_p, dev)
+    opt = fsdp.zeros_tree(osds, flat_o, dev)
+    step = make_train_step(cfg, ocfg, accum, grad_shardings=psh)
+    dist.barrier()
+    reset_launches()
+    metrics = []
+    for batch in batches:
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        _dev_sync(dev)
+        m = {k: float(v) for k, v in m.items()}
+        m["step_s"] = time.perf_counter() - t0
+        metrics.append(m)
+    launches = read_launches()
+    shapes = all(
+        tuple(t.shape) == flat[p].shard_shape(whole[p].shape)
+        for tree, flat, whole in ((local, flat_p, fsdp.flat_tree(psds)),
+                                  (opt, flat_o, fsdp.flat_tree(osds)))
+        for p, t in fsdp.flat_tree(tree).items())
+    codes = {p: t.cpu() for p, t in fsdp.flat_tree(opt).items()
+             if p.endswith(("['q']", "['scale']"))}
+    return dict(metrics=metrics, shapes=shapes, launches=launches,
+                params={p: t.cpu() for p, t in
+                        fsdp.flat_tree(local).items()}, codes=codes)
+
+
+def mesh_metrics_gate(label, ranks_metrics, ref_metrics) -> dict:
+    """Every rank's loss and gradient norm at every step within
+    TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL of the single-process step's on
+    the same weights and batches.  Returns the largest of each."""
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for r, ms in enumerate(ranks_metrics):
+        if len(ms) != len(ref_metrics):
+            raise AssertionError(f"{label}: rank {r} ran {len(ms)} steps, "
+                                 f"the reference {len(ref_metrics)}")
+        for i, (m, ref) in enumerate(zip(ms, ref_metrics)):
+            for k, tol in (("loss", TRAIN_LOSS_RTOL),
+                           ("grad_norm", TRAIN_GRAD_RTOL)):
+                rel = abs(m[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                if not (math.isfinite(m[k]) and rel <= tol):
+                    raise AssertionError(
+                        f"{label}: rank {r} step {i} {k} {m[k]!r}, one "
+                        f"process {ref[k]!r} (relative {rel:.3e}, limit "
+                        f"{tol})")
+                worst[k] = max(worst[k], rel)
+    return worst
+
+
+def mesh_params_gate(label, blocks, ref, init, shardings, bits) -> dict:
+    """Each rank's parameter blocks (``blocks[r]``: ``{path: tensor}``)
+    against their blocks of the single-process step's parameters
+    (``ref``) and of the initial ones (``init``; both ``{path: tensor}``;
+    ``shardings[r]``: rank ``r``'s ``{path: NamedSharding}``): each
+    block's L2 distance from the reference within MESH_UPDATE_RTOL[bits]
+    x the L2 size of the reference's own update of it, a frozen leaf's
+    block equal to it.  Returns the largest reading and its leaf, and
+    (logged, not gated) the largest element's distance over the largest
+    element of the leaf's update, with that element's own update over
+    the same (an element whose gradient lies below Adam's eps moves less
+    than the others)."""
+    worst = {"update_rel": 0.0, "update_leaf": None, "element_rel": 0.0,
+             "element_update": None, "element_leaf": None}
+    for r, got in enumerate(blocks):
+        if set(got) != set(ref):
+            raise AssertionError(f"{label}: rank {r}'s leaves differ: "
+                                 f"{sorted(set(got) ^ set(ref))[:4]}")
+        for path, t in got.items():
+            want = shardings[r][path].shard(ref[path]).to(t.device).float()
+            start = shardings[r][path].shard(init[path]).to(t.device).float()
+            diff = (t.float() - want).abs()
+            moved = (want - start).abs()
+            update = float(torch.linalg.vector_norm(moved))
+            dist_ = float(torch.linalg.vector_norm(diff))
+            if update == 0.0:
+                if dist_ != 0.0:
+                    raise AssertionError(
+                        f"{label}: rank {r}'s {path}, which one process "
+                        f"leaves unchanged, moved {dist_:.3e}")
+                continue
+            rel = dist_ / update
+            if not rel <= MESH_UPDATE_RTOL[bits]:
+                raise AssertionError(
+                    f"{label}: rank {r}'s {path} {dist_:.3e} from the "
+                    f"single-process step's (L2), {rel:.3e} of that step's "
+                    f"update {update:.3e} (limit {MESH_UPDATE_RTOL[bits]})")
+            if rel > worst["update_rel"]:
+                worst.update(update_rel=rel, update_leaf=path)
+            top = float(moved.max())
+            at = int(diff.argmax())
+            el = float(diff.reshape(-1)[at]) / top
+            if el > worst["element_rel"]:
+                worst.update(element_rel=el, element_leaf=path,
+                             element_update=float(moved.reshape(-1)[at]) /
+                             top)
+    return worst
+
+
+def mesh_code_report(label, blocks, ref, shardings) -> dict:
+    """How many 8-bit moment codes of the ranks' blocks (``blocks[r]``:
+    ``{path: tensor}``, each moment's ``q`` and ``scale``) differ from
+    their blocks of the single-process state's (``ref``, alike), the
+    largest difference, and for ``m`` and ``v`` the largest difference of
+    the moments themselves (the codes expanded, powers 3 and 6) over
+    their block's largest value: a code near 0 moves far for a small
+    change of the value (the root's slope), a fault moves the values.
+    Gated: those values within MESH_MOMENT_CODES codes at the top of a
+    block."""
+    from repro_torch.distributed.sharding import entry_axes
+    n = differ = worst = 0
+    value = {"m": 0.0, "v": 0.0}
+    for r, got in enumerate(blocks):
+        for path, t in got.items():
+            if not path.endswith("['q']"):
+                continue
+            want = shardings[r][path].shard(ref[path])
+            d = (t.int() - want.int()).abs()
+            n += d.numel()
+            differ += int((d > 0).sum())
+            worst = max(worst, int(d.max()))
+            spath = path[:-len("['q']")] + "['scale']"
+            sg, sw = got[spath], shardings[r][spath].shard(ref[spath])
+            # the scales of this rank's blocks of the row (its q may hold
+            # a share of the row's blocks; the scales hold the whole row)
+            qsh = shardings[r][path]
+            axes = entry_axes(qsh.spec[-1])
+            parts = qsh.mesh.extent(axes)
+            nbl = sg.shape[-1] // parts
+            lo = qsh.mesh.index(axes) * nbl if parts > 1 else 0
+            sg, sw = sg[..., lo:lo + nbl], sw[..., lo:lo + nbl]
+            kind = path[2]
+            power = 3 if kind == "m" else 6
+
+            def expand(q, scale):
+                a = q.float().unflatten(-1, (nbl, -1)) * scale[..., None]
+                return torch.sign(a) * a.abs().pow(power)
+
+            top = (torch.maximum(sg, sw) * 127.0).pow(power)[..., None]
+            rel = (expand(t, sg) - expand(want, sw)).abs() / \
+                top.clamp(min=1e-30)
+            value[kind] = max(value[kind], float(rel.max()))
+    for kind, v in value.items():
+        if not v <= MESH_MOMENT_CODES * MESH_TOP_CODE[kind]:
+            raise AssertionError(
+                f"{label}: an 8-bit {kind} moment {v:.3e} of its block's "
+                f"largest value from the single-process state's, "
+                f"{v / MESH_TOP_CODE[kind]:.1f} codes at the top of a block "
+                f"(limit {MESH_MOMENT_CODES})")
+    return dict(codes=n, differing=differ, max_code_diff=worst,
+                max_value_diff_of_block_max=value,
+                max_value_diff_codes={k: v / MESH_TOP_CODE[k]
+                                      for k, v in value.items()})
+
+
+def mesh_launch_gate(label, ranks, layers, calls) -> int:
+    """``flash_prefill`` launched ``layers`` x ``calls`` times on every
+    rank, and no other kernel."""
+    for r, got in enumerate(ranks):
+        launch_gate(f"{label} rank {r}", got["launches"], "flash_prefill",
+                    layers, calls)
+    return sum(got["launches"]["flash_prefill"] for got in ranks)
+
+
+def mesh_shardings(cfg, shape, rank) -> dict:
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import Mesh
+    return fsdp.flat_tree(sp.param_specs(
+        cfg, Mesh(("data", "model"), shape, rank=rank), {})[1])
+
+
+def mesh_opt_shardings(cfg, shape, rank, bits) -> dict:
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(("data", "model"), shape, rank=rank)
+    psds, psh = sp.param_specs(cfg, mesh, {})
+    return fsdp.flat_tree(sp.opt_specs(mesh_ocfg(bits), psds, psh, mesh,
+                                       {})[1])
+
+
+def mesh_config(arch="llama31-8b", depth=MESH_DEPTH):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(num_groups=depth, remat_policy="full")
+
+
+def compression_grads(seed, rank, rnd, dev) -> dict:
+    """Rank ``rank``'s gradients of one llama31-8b layer's shapes in
+    round ``rnd``, drawn from ``seed``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama31-8b")
+    d, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    shapes = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+              "wo": (h, hd, d), "w_gate": (d, ff), "w_up": (d, ff),
+              "w_down": (ff, d), "norm": (d,)}
+    gen = torch.Generator(device=dev).manual_seed(
+        seed * 7919 + 17 + 131 * rnd + rank)
+    return {k: torch.randn(s, generator=gen, device=dev) * 1e-3 * (rank + 1)
+            for k, s in shapes.items()}
+
+
+def compression_round_check(label, rank, rnd, synced, errors, grads,
+                            ref_errors) -> Tuple[dict, list]:
+    """Round ``rnd`` of rank ``rank``'s ``compressed_psum`` (its
+    ``synced`` mean and new ``errors``) against ``compressed_psum_ref``
+    over every rank's gradients of the round (``grads[r]``) and error
+    buffers (``ref_errors[r]``), a leaf at a time: the payloads and
+    scales of its corrected gradients equal the plain version's, the mean
+    and its error buffers within COMPRESSION_TOL.  Returns the largest
+    differences and the plain version's new error buffers."""
+    from repro_torch.distributed import compression as cm
+    worst = {"synced": 0.0, "errors": 0.0}
+    new_errors = [dict() for _ in grads]
+    for k in grads[rank]:
+        mean, errs, payloads = cm.compressed_psum_ref(
+            [{k: g[k]} for g in grads], [{k: e[k]} for e in ref_errors])
+        c = cm.compress_leaf(grads[rank][k].float() + ref_errors[rank][k])
+        if not (torch.equal(c["q"], payloads[rank][k]["q"]) and
+                torch.equal(c["scale"], payloads[rank][k]["scale"])):
+            raise AssertionError(f"{label}: rank {rank} round {rnd} {k}'s "
+                                 "payload is not the plain version's")
+        for name, got, ref in (("synced", synced[k], mean[k]),
+                               ("errors", errors[k], errs[rank][k])):
+            if not torch.allclose(got, ref, **COMPRESSION_TOL):
+                raise AssertionError(f"{label}: rank {rank} round {rnd} "
+                                     f"{name} {k} off the plain version")
+            worst[name] = max(worst[name], float((got - ref).abs().max()))
+        for r, e in enumerate(errs):
+            new_errors[r][k] = e[k]
+        del mean, errs, payloads
+    return worst, new_errors
+
+
+def compression_run(label, rank, world, dev, seed, group) -> dict:
+    """10d on one rank: COMPRESSION_ROUNDS rounds of ``compressed_psum``
+    over ``group``, each checked against the plain version
+    (:func:`compression_round_check`; every rank draws every rank's
+    gradients of the round) and timed; the error feedback must carry
+    (round 2's buffers are not round 1's)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import compression as cm
+    errors = ref_errors = None
+    worst = {"synced": 0.0, "errors": 0.0}
+    seconds, first = [], None
+    for rnd in range(COMPRESSION_ROUNDS):
+        grads = [compression_grads(seed, r, rnd, dev) for r in range(world)]
+        if errors is None:
+            errors = cm.init_error_buffers(grads[rank])
+            ref_errors = [cm.init_error_buffers(g) for g in grads]
+        if group is not None:
+            dist.barrier(group=group)
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        synced, errors = cm.compressed_psum(grads[rank], errors, group)
+        _dev_sync(dev)
+        seconds.append(time.perf_counter() - t0)
+        w, ref_errors = compression_round_check(
+            label, rank, rnd, synced, errors, grads, ref_errors)
+        worst = {k: max(worst[k], w[k]) for k in worst}
+        if rnd == 0:
+            first = errors["wq"].clone()
+        elif rnd == 1 and torch.equal(first, errors["wq"]):
+            raise AssertionError(f"{label}: the error buffers did not "
+                                 "carry")
+        del grads, synced
+    return dict(worst, round_s=seconds)
+
+
+def mesh_parity_rank(rank, world, tmp, seed) -> None:
+    """10a and 10d on one rank (see the module docstring)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init10a", "cuda")
+    meshes = {shape: make_test_mesh(*shape)
+              for shape in sorted({c[0] for c in MESH_CASES})}
+    cfg = mesh_config()
+    # the whole model on the host, each case's blocks cut from it
+    params = tree_to(tfm.init_model(cfg, seed, dev), "cpu")
+    torch.cuda.empty_cache()
+    batches = [mesh_batch(cfg, MESH_ROWS, MESH_SEQ, seed, i, dev)
+               for i in range(MESH_STEPS)]
+    res = {"backend": backend, "device": str(dev)}
+    for shape, bits, accum in MESH_CASES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = mesh_train_run(cfg, mesh_ocfg(bits), meshes[shape], accum,
+                             params, batches, dev)
+        run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        res[(shape, bits, accum)] = run
+        if rank == 0:
+            log(f"  mesh 10a rank 0, mesh {shape}, {bits}-bit moments, "
+                f"accum {accum}: step s "
+                f"{[round(m['step_s'], 3) for m in run['metrics']]}, peak "
+                f"{run['peak_gb']:.2f} GB; card to card "
+                f"{collectives.PEER_COPIED}, through host memory "
+                f"{collectives.HOST_STAGED}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["host_staged"] = dict(collectives.HOST_STAGED)
+    res["peer_copied"] = dict(collectives.PEER_COPIED)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["compression"] = compression_run(
+        "mesh 10d", rank, world, dev, seed, meshes[(4, 1)].group(("data",)))
+    torch.save(res, os.path.join(tmp, f"mesh10a_{rank}.pt"))
+    end_rank()
+
+
+def phase_mesh_parity(dev, seed, card) -> dict:
+    """Phases 10a and 10d (see the module docstring)."""
+    import tempfile
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.mesh import collective_backend, spawn_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import init_adamw
+    from repro_torch.runtime.steps import make_train_step
+    cfg = mesh_config()
+    label = (f"mesh 10a llama31-8b {cfg.num_layers} of 32 layers, f32, "
+             f"{MESH_ROWS} x {MESH_SEQ} tokens, {MESH_STEPS} steps")
+    log(f"{label}: {cfg.param_count() / 1e9:.3f} B params; depth cut to "
+        f"{MESH_DEPTH} of 32 layers (all 32 in f32 need 128 GB for weights, "
+        f"gradients and moments); {MESH_WORLD} ranks, backend "
+        f"{collective_backend(MESH_WORLD, 'cuda')}; {card}")
+    refs = {}
+    with phase_clock("mesh 10a single-process references", dev):
+        params = tfm.init_model(cfg, seed, dev)
+        init = {path: t.cpu() for path, t in fsdp.flat_tree(params).items()}
+        batches = [mesh_batch(cfg, MESH_ROWS, MESH_SEQ, seed, i, dev)
+                   for i in range(MESH_STEPS)]
+        for shape, bits, accum in MESH_CASES:
+            p = tree_to(params, dev)
+            ocfg = mesh_ocfg(bits)
+            opt = init_adamw(ocfg, p)
+            step = make_train_step(cfg, ocfg, accum)
+            ms = []
+            for b in batches:
+                p, opt, m = step(p, opt, b)
+                ms.append({k: float(v) for k, v in m.items()})
+            refs[shape, bits, accum] = (ms, {
+                path: t.cpu() for path, t in fsdp.flat_tree(p).items()}, {
+                path: t.cpu() for path, t in fsdp.flat_tree(opt).items()
+                if path.endswith(("['q']", "['scale']"))})
+            del p, opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(mesh_parity_rank, MESH_WORLD, (MESH_WORLD, tmp, seed),
+                    deadline_s=MESH_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"mesh10a_{r}.pt"),
+                            weights_only=False) for r in range(MESH_WORLD)]
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
+        f"{ranks[0]['backend']}, devices {[r['device'] for r in ranks]}; "
+        f"gathers and reduce-scatters card to card (a rank's mailbox): "
+        f"{ranks[0]['peer_copied']}; through host memory: "
+        f"{ranks[0]['host_staged']}")
+    entry = {}
+    for shape, bits, accum in MESH_CASES:
+        case = f"{shape[0]}x{shape[1]}-b{bits}-a{accum}"
+        name = f"mesh 10a {case}"
+        got = [r[shape, bits, accum] for r in ranks]
+        if not all(g["shapes"] for g in got):
+            raise AssertionError(f"{name}: a rank holds a block off its "
+                                 "spec's shard shape")
+        ref_ms, ref_params, ref_codes = refs.pop((shape, bits, accum))
+        worst = mesh_metrics_gate(name, [g["metrics"] for g in got], ref_ms)
+
+        def on_card(tree):        # the comparisons run on the card
+            return {p: t.to(dev) for p, t in tree.items()}
+
+        if ref_codes:
+            osh = [mesh_opt_shardings(cfg, shape, r, bits)
+                   for r in range(MESH_WORLD)]
+            report = mesh_code_report(name,
+                                      [on_card(g.pop("codes")) for g in got],
+                                      on_card(ref_codes), osh)
+            log(f"  {name}: 8-bit moments against one process's (values "
+                f"within {MESH_MOMENT_CODES} codes at a block's top): "
+                f"{report}")
+        perr = mesh_params_gate(
+            name, [on_card(g.pop("params")) for g in got],
+            on_card(ref_params), on_card(init),
+            [mesh_shardings(cfg, shape, r) for r in range(MESH_WORLD)], bits)
+        del ref_params, ref_codes
+        torch.cuda.empty_cache()
+        launches = mesh_launch_gate(name, got, cfg.num_layers,
+                                    accum * 2 * MESH_STEPS)
+        step_s = [[m["step_s"] for m in g["metrics"]] for g in got]
+        log(f"  {name}: losses {[m['loss'] for m in got[0]['metrics']]} "
+            f"(one process {[m['loss'] for m in ref_ms]}); largest "
+            f"relative loss {worst['loss']:.3e} (limit {TRAIN_LOSS_RTOL}), "
+            f"grad norm {worst['grad_norm']:.3e} (limit {TRAIN_GRAD_RTOL}); "
+            f"parameters: the largest block L2 distance "
+            f"{perr['update_rel']:.3e} of the one-process step's update "
+            f"({perr['update_leaf']}; limit {MESH_UPDATE_RTOL[bits]}); the "
+            f"largest element {perr['element_rel']:.3e} of its leaf's "
+            f"largest update ({perr['element_leaf']}; not gated), that "
+            f"element's own update {perr['element_update']:.3e} of it; "
+            f"flash_prefill {launches} launches "
+            f"({cfg.num_layers} layers x {accum} microbatches x 2 x "
+            f"{MESH_STEPS} steps a rank); a rank's step s {step_s[0]}; "
+            f"peak GB {[round(g['peak_gb'], 2) for g in got]}")
+        entry[case] = dict(worst, params=perr, launches=launches,
+                           step_s=step_s,
+                           peak_gb=[g["peak_gb"] for g in got])
+        del got
+    comp = [r["compression"] for r in ranks]
+    log(f"mesh 10d compressed_psum, {MESH_WORLD} ranks, one llama31-8b "
+        f"layer's gradient shapes, {COMPRESSION_ROUNDS} rounds: payloads "
+        "equal the plain version's; largest |synced - plain| "
+        f"{max(c['synced'] for c in comp):.3e}, |errors - plain| "
+        f"{max(c['errors'] for c in comp):.3e} (COMPRESSION_TOL "
+        f"{COMPRESSION_TOL}); a round on rank 0 "
+        f"{[round(x, 3) for x in comp[0]['round_s']]} s (an all-reduce "
+        "of float32, " + ("staged through host memory under gloo)"
+                          if ranks[0]["backend"] == "gloo" else
+                          "on the cards under NCCL)"))
+    entry["compression"] = dict(
+        synced_err=max(c["synced"] for c in comp),
+        errors_err=max(c["errors"] for c in comp),
+        round_s=[c["round_s"] for c in comp])
+    entry["backend"] = ranks[0]["backend"]
+    return entry
+
+
+def timed_mesh_config(depth):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import SHAPES, dryrun_model_config
+    return dryrun_model_config(get_config("llama31-8b"),
+                               SHAPES["train_4k"]).replace(num_groups=depth)
+
+
+def mesh_timed_rank(rank, world, tmp, seed, depth) -> None:
+    """10b on one rank: its blocks drawn as the Trainer draws them
+    (``fsdp.init_shards``), MESH_TIMED_STEPS steps of one 4096-token
+    sequence a rank, the last with the collectives timed."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, fsdp
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    from repro_torch.runtime.steps import make_train_step
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init10b", "cuda")
+    mesh = make_test_mesh(world, 1)
+    cfg = timed_mesh_config(depth)
+    ocfg = mesh_ocfg(8, schedule={})
+    psds, psh = sp.param_specs(cfg, mesh, {})
+    osds, osh = sp.opt_specs(ocfg, psds, psh, mesh, {})
+    # the Trainer's init: a unit of the model at a time, cut to this
+    # rank's blocks
+    local = fsdp.init_shards(cfg, seed, fsdp.flat_tree(psh), dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = fsdp.zeros_tree(osds, fsdp.flat_tree(osh), dev)
+    step = make_train_step(cfg, ocfg, 1, grad_shardings=psh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    reset_launches()
+    metrics = []
+    for i in range(MESH_TIMED_STEPS):
+        batch = train_batch(cfg, world, MESH_TIMED_SEQ, seed, i, dev)
+        timed = i == MESH_TIMED_STEPS - 1
+        collectives.TIMING["on"] = timed
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        torch.cuda.synchronize(dev)
+        m = {k: float(v) for k, v in m.items()}
+        m["step_s"] = time.perf_counter() - t0
+        metrics.append(m)
+        if rank == 0:
+            log(f"  mesh 10b rank 0 step {i}: loss {m['loss']:.6f}, "
+                f"{m['step_s']:.3f} s" + (" (collectives timed)" if timed
+                                          else ""))
+    collectives.TIMING["on"] = False
+    torch.save(dict(metrics=metrics, launches=read_launches(),
+                    collective_s=dict(collectives.SECONDS),
+                    host_staged=dict(collectives.HOST_STAGED),
+                    peer_copied=dict(collectives.PEER_COPIED),
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    backend=backend, device=str(dev)),
+               os.path.join(tmp, f"mesh10b_{rank}.pt"))
+    end_rank()
+
+
+def phase_mesh_timed(dev, seed, card) -> dict:
+    """Phase 10b (see the module docstring)."""
+    import tempfile
+    from repro_torch.launch.mesh import collective_backend, spawn_ranks
+    from repro_torch.models import transformer as tfm
+    backend = collective_backend(MESH_WORLD, "cuda")
+    depth = 32 if backend == "nccl" else MESH_TIMED_DEPTH
+    cfg = timed_mesh_config(depth)
+    label = (f"mesh 10b llama31-8b {cfg.num_layers} of 32 layers, bf16, "
+             f"remat full, 8-bit moments, (4, 1), {MESH_TIMED_SEQ} tokens a "
+             "rank")
+    log(f"{label}: {cfg.param_count() / 1e9:.3f} B params; "
+        + ("full depth, a card a rank" if depth == 32 else
+           f"depth cut to {depth} of 32 layers (four ranks' shards, "
+           "moments, gathered embedding and head and logits on one card)")
+        + f"; backend {backend}; {card}")
+    with phase_clock("mesh 10b single-process forwards (bf16, float32)",
+                     dev), torch.no_grad():
+        params = tfm.init_model(cfg, seed, dev)
+        batch = train_batch(cfg, MESH_WORLD, MESH_TIMED_SEQ, seed, 0, dev)
+        loss_bf16 = float(tfm.loss_and_metrics(cfg, params, batch)[0])
+        loss_f32 = float(tfm.loss_and_metrics(f32_reference(cfg), params,
+                                              batch)[0])
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(mesh_timed_rank, MESH_WORLD,
+                    (MESH_WORLD, tmp, seed, depth),
+                    deadline_s=MESH_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"mesh10b_{r}.pt"),
+                            weights_only=False) for r in range(MESH_WORLD)]
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
+        f"{ranks[0]['backend']}, devices {[r['device'] for r in ranks]}")
+    if torch.cuda.device_count() < MESH_WORLD:
+        log(f"  the {MESH_WORLD} ranks share one card: their times are that "
+            "card's under four processes, not a measure of scaling")
+    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    mesh_d = abs(losses[0] - loss_f32)
+    single_d = abs(loss_bf16 - loss_f32)
+    if not (all(math.isfinite(x) for x in losses) and
+            mesh_d <= F64_RATIO * single_d):
+        raise AssertionError(
+            f"{label}: step 0's loss {losses[0]!r} lies {mesh_d:.3e} from "
+            f"a float32 run of the same weights ({loss_f32!r}), more than "
+            f"{F64_RATIO} x the single-process bf16 step's {single_d:.3e}")
+    for r, got in enumerate(ranks):
+        if [m["loss"] for m in got["metrics"]] != losses:
+            raise AssertionError(f"{label}: rank {r}'s losses differ")
+    launches = mesh_launch_gate(label, ranks, cfg.num_layers,
+                                2 * MESH_TIMED_STEPS)
+    step_s = min(max(r["metrics"][i]["step_s"] for r in ranks)
+                 for i in range(1, MESH_TIMED_STEPS - 1)) \
+        if MESH_TIMED_STEPS > 2 else ranks[0]["metrics"][-1]["step_s"]
+    timed_s = max(r["metrics"][-1]["step_s"] for r in ranks)
+    coll = {k: max(r["collective_s"][k] for r in ranks)
+            for k in ranks[0]["collective_s"]}
+    tokens = MESH_WORLD * MESH_TIMED_SEQ
+    out = dict(loss=losses, loss_f32=loss_f32, loss_bf16_single=loss_bf16,
+               f32_distance=mesh_d, single_f32_distance=single_d,
+               step_s=step_s, tokens_per_s=tokens / step_s,
+               peak_gb=[r["peak_gb"] for r in ranks],
+               timed_step_s=timed_s, collective_s=coll,
+               collective_share={k: v / timed_s for k, v in coll.items()},
+               host_staged=ranks[0]["host_staged"],
+               peer_copied=ranks[0]["peer_copied"], launches=launches,
+               backend=ranks[0]["backend"], layers=cfg.num_layers,
+               card=card)
+    log(f"  {label}: losses {losses}; step 0 {mesh_d:.3e} from float32, "
+        f"the single-process bf16 step {single_d:.3e} (the mesh's at most "
+        f"{F64_RATIO}x); step {step_s:.3f} s, {tokens / step_s:.1f} "
+        f"tokens/s over {MESH_WORLD} ranks; each rank's peak GB "
+        f"{[round(r['peak_gb'], 2) for r in ranks]} (one process at full "
+        "depth, phase 8c: 57.20 GB); the instrumented step "
+        f"{timed_s:.3f} s, of it gathers {coll['all_gather']:.3f} s, "
+        f"reduce-scatters {coll['reduce_scatter']:.3f} s, all-reduces "
+        f"{coll['all_reduce']:.3f} s; flash_prefill {launches} launches; "
+        f"card to card {ranks[0]['peer_copied']}, through host memory "
+        f"{ranks[0]['host_staged']}")
+    log(json.dumps({"mesh_10b": out}))
+    return out
+
+
+def elastic_rank(rank, world, tmp, seed) -> None:
+    """10c on one rank: the Trainer over the 4 ranks, ELASTIC_LOST of
+    them lost at step ELASTIC_FAIL."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import init_rank
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init10c", "cuda")
+
+    class Spy(Trainer):
+        """Keeps a host copy of what each restore placed on this rank."""
+
+        def _setup(self, restore):
+            super()._setup(restore)
+            if restore and self.active:
+                from repro_torch.distributed import fsdp
+                self.restored = (self.step, {
+                    p: t.to("cpu", copy=True) for p, t in fsdp.flat_tree(
+                        {"params": self.params, "opt": self.opt_state}
+                    ).items()})
+
+    cfg = get_config("minitron-8b").smoke().replace(
+        num_groups=1, attention_backend="dense")
+    ocfg = AdamWConfig(schedule=ScheduleConfig(
+        peak_lr=1e-3, warmup_steps=2, decay_steps=ELASTIC_STEPS))
+    tr = Spy(cfg, ocfg, TrainLoopConfig(total_steps=ELASTIC_STEPS,
+                                        checkpoint_every=ELASTIC_EVERY,
+                                        seed=seed),
+             DataConfig(seq_len=32, global_batch=8,
+                        vocab_size=cfg.vocab_size),
+             os.path.join(tmp, "ckpt"), device=dev,
+             injector=FailureInjector(
+                 {ELASTIC_FAIL: f"lose_device:{ELASTIC_LOST}"}))
+    first = tr.mesh.size
+    log_ = tr.run()
+    torch.save(dict(first_mesh=first, active=tr.active, step=tr.step,
+                    rebuilds=tr.rebuild_count, steps=[m["step"] for m in
+                                                      log_],
+                    mesh=None if tr.mesh is None else list(tr.mesh.ranks),
+                    restored=getattr(tr, "restored", None),
+                    backend=backend),
+               os.path.join(tmp, f"mesh10c_{rank}.pt"))
+    end_rank()
+
+
+def elastic_gate(label, ranks, saved, shardings) -> None:
+    """10c's gates: every rank rebuilt once from a mesh of MESH_WORLD
+    ranks; the first MESH_WORLD - ELASTIC_LOST ranks on a mesh of them
+    reached ELASTIC_STEPS, their restored blocks (``ranks[r]["restored"]``)
+    equal to their blocks of the checkpoint ``saved`` (a whole tree;
+    ``shardings[r]``, rank r's ``{path: NamedSharding}`` on the new mesh)
+    bit for bit; the others left the loop at the rebuild."""
+    from repro_torch.distributed import fsdp
+    keep = MESH_WORLD - ELASTIC_LOST
+    whole = fsdp.flat_tree(saved["tree"])
+    for r, got in enumerate(ranks):
+        if got["first_mesh"] != MESH_WORLD or got["rebuilds"] != 1:
+            raise AssertionError(f"{label}: rank {r} started on "
+                                 f"{got['first_mesh']} ranks and rebuilt "
+                                 f"{got['rebuilds']} times")
+        if r >= keep:
+            if got["active"] or got["restored"] is not None:
+                raise AssertionError(f"{label}: rank {r} did not leave")
+            continue
+        if not got["active"] or got["step"] != ELASTIC_STEPS or \
+                got["mesh"] != list(range(keep)):
+            raise AssertionError(f"{label}: rank {r} ended at step "
+                                 f"{got['step']} on ranks {got['mesh']}")
+        step, tree = got["restored"]
+        if step != saved["step"] or set(tree) != set(whole):
+            raise AssertionError(f"{label}: rank {r} restored step {step}")
+        for path, t in tree.items():
+            want = shardings[r][path].shard(whole[path])
+            if t.dtype != want.dtype or not torch.equal(t, want):
+                raise AssertionError(f"{label}: rank {r}'s restored {path} "
+                                     "is not its block of the checkpoint")
+
+
+def phase_mesh_elastic(dev, seed, card) -> dict:
+    """Phase 10c (see the module docstring)."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import Mesh, spawn_ranks
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import ScheduleConfig
+    label = (f"mesh 10c elastic Trainer, minitron-8b smoke, {MESH_WORLD} -> "
+             f"{MESH_WORLD - ELASTIC_LOST} ranks at step {ELASTIC_FAIL}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(elastic_rank, MESH_WORLD, (MESH_WORLD, tmp, seed),
+                    deadline_s=MESH_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"mesh10c_{r}.pt"),
+                            weights_only=False) for r in range(MESH_WORLD)]
+        restored_step = ranks[0]["restored"][0]
+        saved = Checkpointer(os.path.join(tmp, "ckpt")).restore(
+            step=restored_step)
+    cfg = get_config("minitron-8b").smoke().replace(
+        num_groups=1, attention_backend="dense")
+    ocfg = AdamWConfig(schedule=ScheduleConfig(
+        peak_lr=1e-3, warmup_steps=2, decay_steps=ELASTIC_STEPS))
+    keep = MESH_WORLD - ELASTIC_LOST
+    shardings = []
+    for r in range(keep):
+        mesh = Mesh(("data", "model"), (keep, 1), rank=r, ranks=range(keep))
+        psds, psh = sp.param_specs(cfg, mesh, {})
+        shardings.append(fsdp.flat_tree({"params": psh, "opt": sp.opt_specs(
+            ocfg, psds, psh, mesh, {})[1]}))
+    elastic_gate(label, ranks, saved, shardings)
+    secs = time.perf_counter() - t0
+    log(f"  {label}: 1 rebuild, ranks {ranks[0]['mesh']} reached step "
+        f"{ELASTIC_STEPS} (steps {ranks[0]['steps']}), restored step "
+        f"{restored_step} bit for bit; ranks {list(range(keep, MESH_WORLD))} "
+        f"left and exited 0; backend {ranks[0]['backend']}; {secs:.1f} s")
+    return dict(steps=ranks[0]["steps"], restored_step=restored_step,
+                seconds=secs, backend=ranks[0]["backend"])
+
+
+def phase_mesh(dev, seed, card) -> dict:
+    """Phase 10: 10a and 10d, 10b, 10c; returns the ``flash_prefill``
+    row's ``mesh`` entry."""
+    out = {}
+    for name, fn in (("10a", phase_mesh_parity), ("10b", phase_mesh_timed),
+                     ("10c", phase_mesh_elastic)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"mesh {name}: {time.perf_counter() - t0:.1f} s")
+    out["launches"] = out["10b"]["launches"] + sum(
+        out["10a"][f"{shape[0]}x{shape[1]}-b{bits}-a{accum}"]["launches"]
+        for shape, bits, accum in MESH_CASES)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["state-moe", "bf16", "train", "cp"],
+    ap.add_argument("--only",
+                    choices=["state-moe", "bf16", "train", "cp", "mesh"],
                     default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e, 5f, 8 or 9); prints neither the kernels "
+                         "(5e, 5f, 8, 9 or 10); prints neither the kernels "
                          "line nor the ok line")
     args = ap.parse_args(argv)
 
@@ -4768,6 +5654,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(json.dumps({"cp": phase_cp(dev, args.seed, card)}))
         log(f"context-parallel phase: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.only == "mesh":
+        build_kernels()
+        t0 = time.perf_counter()
+        log(json.dumps({"mesh": phase_mesh(dev, args.seed, card)}))
+        log(f"mesh-train phase: {time.perf_counter() - t0:.1f} s")
         return 0
     t0 = time.perf_counter()
     rows = phase_kernels(dev, args.seed)
@@ -4864,6 +5756,9 @@ def main(argv=None) -> int:
     for name, entry in phase_cp(dev, args.seed, card).items():
         rows[name]["cp"] = entry
     log(f"context-parallel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["flash_prefill"]["mesh"] = phase_mesh(dev, args.seed, card)
+    log(f"mesh-train phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

@@ -16,8 +16,15 @@ Port of ``repro.checkpoint.checkpointer``.  Layout per step::
   ``torch.save``, so bf16 leaves and 8-bit moments' ``q``/``scale`` come
   back bit for bit; it is read back with ``weights_only=True``.
 * **placement**: ``restore(device=)`` puts every tensor on the caller's
-  device (the JAX function's resharding ``shardings=`` comes with
-  ROADMAP.md queue 1 item 11's ``distributed/`` step).
+  device.
+* **sharded**: on a mesh the tree is a rank's blocks.  ``save(...,
+  shardings=)`` gathers the tree a leaf at a time (collective: every
+  rank of the mesh calls it), each whole leaf copied to the host by the
+  rank given ``write=True`` and dropped by the others, and that rank
+  alone writes it;
+  ``restore(shardings=)`` reads the whole tree and keeps this rank's
+  block of each leaf (the JAX function's resharding restore), so a
+  checkpoint written on one mesh restores onto another.
 * **retention**: keeps the newest ``keep`` checkpoints.
 """
 
@@ -31,6 +38,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from repro_torch.distributed import fsdp
 
 __all__ = ["Checkpointer"]
 
@@ -83,11 +92,24 @@ class Checkpointer:
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
-             blocking: bool = False):
+             blocking: bool = False, shardings: Any = None,
+             write: bool = True):
         """Snapshot ``tree`` (dicts and lists of tensors and numbers) at
-        ``step``."""
+        ``step``.  ``shardings`` (a congruent tree of ``NamedSharding``):
+        ``tree`` is this rank's blocks, gathered a leaf at a time (every
+        rank of the mesh calls this); ``write`` False keeps no copy and
+        skips the file (the mesh's other ranks)."""
         self.wait()
-        host = _to_host(tree)
+        if shardings is None:
+            if not write:
+                return
+            host = _to_host(tree)
+        else:
+            # a leaf at a time, onto the host of the writing rank only
+            host = fsdp.gather_tree(tree, fsdp.flat_tree(shardings),
+                                    device="cpu", keep=write)
+            if not write:
+                return
         manifest = {"step": step, "extra": extra or {}, "time": time.time()}
 
         def _write():
@@ -124,10 +146,12 @@ class Checkpointer:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -------------------------------------------------------------- restore
-    def restore(self, step: Optional[int] = None, device=None) -> Dict:
+    def restore(self, step: Optional[int] = None, device=None,
+                shardings: Any = None) -> Dict:
         """Load a checkpoint (the newest when ``step`` is None); returns
         {"tree", "step", "extra"}, the tensors on ``device`` (the CPU when
-        None)."""
+        None).  ``shardings`` (a congruent tree of ``NamedSharding``):
+        each leaf is this rank's block of the saved one."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -137,6 +161,14 @@ class Checkpointer:
                                     f"{self.directory}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        tree = torch.load(os.path.join(d, "tree.pt"),
-                          map_location=device or "cpu", weights_only=True)
+        path = os.path.join(d, "tree.pt")
+        if shardings is None:
+            tree = torch.load(path, map_location=device or "cpu",
+                              weights_only=True)
+        else:
+            # mapped, not read: only this rank's blocks are copied out
+            tree = fsdp.shard_tree(
+                torch.load(path, map_location="cpu", weights_only=True,
+                           mmap=True),
+                fsdp.flat_tree(shardings), device or "cpu")
         return {"tree": tree, "step": step, "extra": manifest["extra"]}

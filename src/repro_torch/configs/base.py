@@ -16,9 +16,9 @@ sliding-window ones to ``ring`` (each with the K/V page storage mode
 ``decode_cp_axes`` and ``decode_cp_batch_axes`` name the mesh axes of
 context-parallel SOCKET decode (``distributed/context_parallel.py``):
 under an active mesh that holds one of them, a rank keeps only its rows
-of each global layer's contiguous cache.  The JAX package's
-``logical_pad_heads`` is left out; it comes with the Trainer's mesh
-(ROADMAP.md queue 1 item 11).
+of each global layer's contiguous cache.  ``logical_pad_heads``
+zero-pads the query heads to a multiple of 16 (``models/attention.py``'s
+``_eff_heads``), so a ``model`` axis can shard them.
 """
 
 from __future__ import annotations
@@ -223,6 +223,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     remat_policy: str = "none"      # "none" | "full" | "dots"
+    logical_pad_heads: bool = False # zero-pad heads to mesh divisibility
     # --- sparse attention (the paper's technique) --------------------------
     attention_backend: str = "socket"
     socket: SocketSettings = SocketSettings()

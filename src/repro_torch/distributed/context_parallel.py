@@ -25,8 +25,10 @@ in the merge, never NaN.  As in the JAX package the route ignores the
 ragged budget and the selection probe, and ``selection="qhead"`` sums
 scores over the group (kvhead selection).
 
-Under gloo the collectives of CUDA tensors go through host memory
-(:func:`comm_route`); NCCL moves them on the device.
+Under gloo (every rank on ``cuda:0``) the all-reduces of CUDA tensors
+go through host memory and the gathers card to card through the ranks'
+mailboxes (``distributed/collectives.py``'s :func:`comm_route`); NCCL
+moves them on the device.
 
 :func:`context_parallel_socket_attend_ref` is the plain single-process
 version: the whole cache, the shards looped in order, the merge in closed
@@ -49,6 +51,9 @@ import torch.distributed as dist
 
 from repro_torch.core import socket as sk
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import all_gather as _all_gather
+from repro_torch.distributed.collectives import all_reduce as _all_reduce
+from repro_torch.distributed.collectives import comm_route
 
 __all__ = ["context_parallel_socket_attend",
            "context_parallel_socket_attend_ref", "merge_partials",
@@ -59,52 +64,6 @@ __all__ = ["context_parallel_socket_attend",
 
 MASKED_LOGIT = -1e30     # a masked logit (JAX's constant), never -inf
 L_FLOOR = 1e-30          # the softmax normalizer's floor
-
-
-# ------------------------------------------------------------ collectives
-
-def comm_route(t: torch.Tensor, group=None) -> str:
-    """``"host"`` where a collective of ``t`` goes through host memory
-    (gloo on a CUDA tensor), else ``"device"``."""
-    if t.is_cuda and dist.get_backend(group) == "gloo":
-        return "host"
-    return "device"
-
-
-def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
-    """``t`` reduced over ``group`` (a new tensor; ``group`` None means a
-    group of this rank alone)."""
-    if group is None:
-        return t.clone()
-    if comm_route(t, group) == "host":
-        buf = t.detach().to("cpu", copy=True).contiguous()
-        dist.all_reduce(buf, op=op, group=group)
-        return buf.to(t.device)
-    buf = t.detach().clone().contiguous()
-    dist.all_reduce(buf, op=op, group=group)
-    return buf
-
-
-def _all_gather(t: torch.Tensor, mesh, axes: Sequence[str],
-                dim: int) -> torch.Tensor:
-    """The tensors ``t`` of this rank's group along ``axes``, concatenated
-    along ``dim`` in the order of the ranks' index along ``axes``; moved
-    as bytes, so any dtype crosses bit for bit."""
-    group = mesh.group(axes)
-    if group is None:
-        return t
-    members = mesh.members(axes)
-    order = sorted(members)               # the group's own rank order
-    raw = t.contiguous().view(torch.uint8)
-    host = comm_route(raw, group) == "host"
-    src = raw.cpu() if host else raw
-    parts = [torch.empty_like(src) for _ in members]
-    dist.all_gather(parts, src, group=group)
-    parts = [parts[order.index(r)] for r in members]
-    out = torch.cat(parts, dim=dim)
-    if host:
-        out = out.to(t.device)
-    return out.view(t.dtype)
 
 
 # ----------------------------------------------------------------- merges

@@ -5,12 +5,15 @@ of ranks (one process a rank) and knows each rank's coordinates, in the
 row-major order in which ``jax.make_mesh`` lays out devices, and the
 process group of every subset of its axes: the ranks that share this
 rank's coordinates on the other axes.  The groups are built with
-``dist.new_group`` from the rank grid when the mesh is made, by every
-rank in the same order (``new_group`` is collective).
+``dist.new_group`` from the rank grid by :meth:`Mesh.build_groups`, by
+every rank in the same order (``new_group`` is collective).
 
 :func:`make_test_mesh` builds the mesh over the initialised default
-process group.  :func:`make_production_mesh` raises: the production
-mesh comes with the dry run.
+process group; :func:`default_mesh_factory` the Trainer's ``(n, 1)``
+mesh over a list of ranks, which after a loss may be a subset of the
+world (the ranks off the mesh still join its ``new_group`` calls).
+:func:`make_production_mesh` raises: the production mesh comes with the
+dry run.
 
 Ranks start with :func:`spawn_ranks` (``torch.multiprocessing.spawn``
 joined against a deadline) and each calls :func:`init_rank`.  The
@@ -26,12 +29,13 @@ import datetime
 import itertools
 import math
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_test_mesh", "make_production_mesh",
+__all__ = ["Mesh", "default_mesh_factory", "make_test_mesh",
+           "make_production_mesh",
            "collective_backend", "init_rank", "spawn_ranks",
            "INIT_TIMEOUT_S"]
 
@@ -44,34 +48,48 @@ class Mesh:
     """A named grid of ranks (see the module docstring).
 
     ``shape`` maps axis name -> size in axis order, as JAX's
-    ``Mesh.shape`` does; ``coords`` this rank's coordinate on each axis.
+    ``Mesh.shape`` does.  ``ranks`` lists the global ranks of the grid's
+    positions in row-major order (``range(size)`` when None): a mesh over
+    a subset of the world, as the elastic Trainer rebuilds one.  ``rank``
+    is this process's global rank; ``coords`` its coordinate on each axis,
+    ``None`` when it is not on the mesh (:attr:`member` False).
     """
 
     def __init__(self, axis_names: Sequence[str], sizes: Sequence[int], *,
-                 rank: int = 0):
+                 rank: int = 0, ranks: Optional[Sequence[int]] = None):
         if len(axis_names) != len(sizes) or len(set(axis_names)) != \
                 len(axis_names):
             raise ValueError(f"mesh axes {axis_names} vs sizes {sizes}")
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               (int(s) for s in sizes)))
+        self.size = math.prod(self.shape.values())
+        self.ranks = list(range(self.size)) if ranks is None else \
+            [int(r) for r in ranks]
+        if len(self.ranks) != self.size or \
+                len(set(self.ranks)) != self.size:
+            raise ValueError(f"mesh {self.shape} over ranks {self.ranks}")
         self.rank = rank
-        self.coords = self.coords_of(rank)
+        self.member = rank in self.ranks
+        self.coords = self.coords_of(rank) if self.member else None
         self._groups: Dict[frozenset, object] = {}
+        self._built = False
 
     def coords_of(self, rank: int) -> Dict[str, int]:
-        """The coordinates of ``rank``, row-major over the axes."""
+        """The coordinates of global ``rank``, row-major over the axes."""
+        pos = self.ranks.index(rank)
         out = {}
         for name in reversed(self.axis_names):
-            out[name] = rank % self.shape[name]
-            rank //= self.shape[name]
+            out[name] = pos % self.shape[name]
+            pos //= self.shape[name]
         return {name: out[name] for name in self.axis_names}
 
     def rank_of(self, coords: Dict[str, int]) -> int:
-        r = 0
+        """The global rank at ``coords``."""
+        pos = 0
         for name in self.axis_names:
-            r = r * self.shape[name] + coords[name]
-        return r
+            pos = pos * self.shape[name] + coords[name]
+        return self.ranks[pos]
 
     def _axes(self, axes: Sequence[str]) -> Tuple[str, ...]:
         return tuple(a for a in axes if a in self.shape)
@@ -89,8 +107,8 @@ class Mesh:
         return idx
 
     def members(self, axes: Sequence[str]) -> List[int]:
-        """The ranks of this rank's group along ``axes``, in the order of
-        their :meth:`index` along ``axes``."""
+        """The global ranks of this rank's group along ``axes``, in the
+        order of their :meth:`index` along ``axes``."""
         axes = self._axes(axes)
         out = []
         for vals in itertools.product(*(range(self.shape[a]) for a in axes)):
@@ -104,11 +122,18 @@ class Mesh:
         the group is this rank alone."""
         if self.extent(axes) == 1:
             return None
-        return self._groups[frozenset(self._axes(axes))]
+        if not self._built:
+            raise RuntimeError("Mesh.group: build_groups() has not run")
+        return self._groups[frozenset(a for a in self._axes(axes)
+                                      if self.shape[a] > 1)]
 
     def build_groups(self) -> None:
         """Create the process group of every subset of axes with more
-        than one rank (collective: every rank calls it, in one order)."""
+        than one rank.  Collective over the whole world: every rank of the
+        default group calls it, in one order, those off the mesh too
+        (``dist.new_group`` needs them all); it runs once a mesh."""
+        if self._built:
+            return
         names = [a for a in self.axis_names if self.shape[a] > 1]
         for r in range(1, len(names) + 1):
             for axes in itertools.combinations(names, r):
@@ -124,6 +149,18 @@ class Mesh:
                     g = dist.new_group(sorted(ranks))
                     if self.rank in ranks:
                         self._groups[frozenset(axes)] = g
+        self._built = True
+
+
+def default_mesh_factory(ranks: Sequence[int]) -> Optional[Mesh]:
+    """A ``("data", "model")`` mesh of shape ``(n, 1)`` over ``ranks``;
+    ``None`` for one rank (the JAX Trainer's ``default_mesh_factory``).
+    Its groups are not built yet (:meth:`Mesh.build_groups`)."""
+    n = len(ranks)
+    if n <= 1:
+        return None
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return Mesh(("data", "model"), (n, 1), rank=rank, ranks=ranks)
 
 
 def make_test_mesh(data: int = 2, model: int = 2) -> Mesh:

@@ -45,6 +45,11 @@ contiguous cache holds only the rank's block of rows
 (:func:`~repro_torch.distributed.context_parallel.cache_shard`); the
 SOCKET backend's attend merges the ranks' partials.
 
+``cfg.logical_pad_heads`` zero-pads the query heads to a multiple of
+16 (:func:`_eff_heads`, llama4's 40 to 48), so a ``model`` mesh axis can
+shard them; the padded heads' ``wq`` and ``wo`` are zero, and every path
+takes the head count from ``wq``'s shape.
+
 K/V are stored at ``serving.kv_dtype`` everywhere (static caches, pool
 pages and rings): int8/fp8 rows are quantized on write with per-row
 scales and dequantized where they are read — the chunk prefill attends
@@ -63,8 +68,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import context_parallel as cp
 from repro_torch.kernels.flash_prefill import ops as fp_ops
 from repro_torch.models import backends
-from repro_torch.models.layers import (apply_rope, init_rmsnorm, normal,
-                                       rmsnorm, softcap)
+from repro_torch.models import param as pm
+from repro_torch.models.layers import (apply_rope, init_rmsnorm, rmsnorm,
+                                       softcap)
 
 __all__ = ["init_attention", "attention_train", "attention_prefill",
            "attention_prefill_chunk", "attention_decode",
@@ -80,25 +86,55 @@ def _window(cfg: ModelConfig, attn_type: str) -> Optional[int]:
     return cfg.sliding_window if attn_type == "local" else None
 
 
+def _eff_heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(num_heads, num_kv_heads) after the optional zero-padding of the
+    query heads to a multiple of 16 (``cfg.logical_pad_heads``), kept a
+    multiple of the KV heads."""
+    if not cfg.logical_pad_heads:
+        return cfg.num_heads, cfg.num_kv_heads
+    pad = 16
+    h = (cfg.num_heads + pad - 1) // pad * pad
+    kv = cfg.num_kv_heads
+    while h % kv:  # keep exact grouping
+        h += pad
+    return h, kv
+
+
 # ------------------------------------------------------------------ init
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator) -> Dict:
-    d, hd, h, kv = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    """Boxed ``wq``/``wk``/``wv``/``wo`` (at the padded head count of
+    :func:`_eff_heads`, the padded heads' ``wq`` columns and ``wo`` rows
+    zero, so the function is the unpadded one's), the optional q/k norms
+    and the SOCKET hash planes.  Every attention path reads the head
+    count from ``wq``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv = _eff_heads(cfg)
     s = 1.0 / math.sqrt(d)
+    dt = cfg.param_dtype
     params = {
-        "wq": normal(gen, (d, h, hd), s, cfg.param_dtype),
-        "wk": normal(gen, (d, kv, hd), s, cfg.param_dtype),
-        "wv": normal(gen, (d, kv, hd), s, cfg.param_dtype),
-        "wo": normal(gen, (h, hd, d), 1.0 / math.sqrt(h * hd),
-                     cfg.param_dtype),
+        "wq": pm.normal(gen, (d, h, hd), ("embed_w", "heads", None),
+                        stddev=s, dtype=dt),
+        "wk": pm.normal(gen, (d, kv, hd), ("embed_w", "kv_heads", None),
+                        stddev=s, dtype=dt),
+        "wv": pm.normal(gen, (d, kv, hd), ("embed_w", "kv_heads", None),
+                        stddev=s, dtype=dt),
+        "wo": pm.normal(gen, (h, hd, d), ("heads", None, "embed_w"),
+                        stddev=1.0 / math.sqrt(h * hd), dtype=dt),
     }
+    if cfg.logical_pad_heads and h != cfg.num_heads:
+        # zero the padded q heads and their output rows: an exact function
+        live = (torch.arange(h, device=gen.device) < cfg.num_heads).to(
+            params["wq"].value.dtype)
+        params["wq"].value = params["wq"].value * live[None, :, None]
+        params["wo"].value = params["wo"].value * live[:, None, None]
     if cfg.qk_norm:
         params["q_norm"] = init_rmsnorm(hd, gen.device)
         params["k_norm"] = init_rmsnorm(hd, gen.device)
     # SOCKET hyperplanes (Algorithm 1): data-agnostic, never trained.
     sset = cfg.socket
-    params["hash_w"] = normal(gen, (sset.num_tables, sset.num_planes, hd),
-                              1.0, "float32")
+    params["hash_w"] = pm.normal(
+        gen, (sset.num_tables, sset.num_planes, hd), ("tables", None, None))
     return params
 
 

@@ -4,7 +4,8 @@ Port of ``repro.models.layers`` with its conventions kept exactly:
 RMSNorm multiplies by ``(1 + scale)`` with eps 1e-6, RoPE is half-split
 (not interleaved), embeddings are scaled by ``sqrt(d_model)``, and
 ``lm_head`` returns padded-vocab logits.  Parameters are plain dicts of
-tensors, laid out as in the JAX package.
+tensors, laid out as in the JAX package; the ``init_*`` functions return
+them boxed with their logical axes (``models/param.py``).
 """
 
 from __future__ import annotations
@@ -16,24 +17,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import param as pm
 
 __all__ = ["rmsnorm", "init_rmsnorm", "apply_rope", "init_mlp", "apply_mlp",
-           "init_embedding", "embed_tokens", "lm_head", "softcap", "normal"]
-
-
-def normal(gen: torch.Generator, shape, stddev: float, dtype: str
-           ) -> torch.Tensor:
-    """``N(0, stddev^2)`` samples drawn from ``gen`` on its device (scaled
-    in place: one float32 copy of a large expert stack at a time)."""
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(stddev).to(getattr(torch, dtype))
+           "init_embedding", "embed_tokens", "lm_head", "softcap"]
 
 
 # --------------------------------------------------------------------- norm
 
 def init_rmsnorm(d: int, device) -> Dict:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    return {"scale": pm.ones((d,), (None,), device=device)}
 
 
 def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-6
@@ -71,11 +64,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     d, ff = cfg.d_model, cfg.d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    dt = cfg.param_dtype
     return {
-        "w_gate": normal(gen, (d, ff), 1.0 / math.sqrt(d), cfg.param_dtype),
-        "w_up": normal(gen, (d, ff), 1.0 / math.sqrt(d), cfg.param_dtype),
-        "w_down": normal(gen, (ff, d), 1.0 / math.sqrt(ff),
-                         cfg.param_dtype),
+        "w_gate": pm.normal(gen, (d, ff), ("embed_w", "mlp"), stddev=s_in,
+                            dtype=dt),
+        "w_up": pm.normal(gen, (d, ff), ("embed_w", "mlp"), stddev=s_in,
+                          dtype=dt),
+        "w_down": pm.normal(gen, (ff, d), ("mlp", "embed_w"), stddev=s_out,
+                            dtype=dt),
     }
 
 
@@ -96,10 +93,12 @@ def apply_mlp(cfg: ModelConfig, params: Dict, x: torch.Tensor
 
 def init_embedding(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     v = cfg.padded_vocab()
-    out = {"table": normal(gen, (v, cfg.d_model), 1.0, cfg.param_dtype)}
+    out = {"table": pm.normal(gen, (v, cfg.d_model), ("vocab", "embed_w"),
+                              dtype=cfg.param_dtype)}
     if not cfg.tie_embeddings:
-        out["head"] = normal(gen, (cfg.d_model, v),
-                             1.0 / math.sqrt(cfg.d_model), cfg.param_dtype)
+        out["head"] = pm.normal(gen, (cfg.d_model, v), ("embed_w", "vocab"),
+                                stddev=1.0 / math.sqrt(cfg.d_model),
+                                dtype=cfg.param_dtype)
     return out
 
 

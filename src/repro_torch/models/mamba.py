@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import normal
+from repro_torch.models import param as pm
 
 __all__ = ["init_mamba", "mamba_train", "mamba_decode", "init_mamba_cache"]
 
@@ -55,24 +55,24 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     d = cfg.d_model
     di, nh, st, conv_dim = _dims(cfg)
     dev = gen.device
+    dt_ = cfg.param_dtype
     proj_out = 2 * di + 2 * N_GROUPS * st + nh   # z, xc, B, C, dt
-    u = torch.rand((nh,), generator=gen, device=dev, dtype=torch.float32)
+    u = pm.uniform(gen, (nh,))
     dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt + torch.log(-torch.expm1(-dt))  # inverse softplus
     return {
-        "in_proj": normal(gen, (d, proj_out), 1.0 / math.sqrt(d),
-                          cfg.param_dtype),
-        "conv_w": normal(gen, (conv_dim, cfg.ssm_conv_width), 0.5,
-                         cfg.param_dtype),
-        "conv_b": torch.zeros((conv_dim,), device=dev,
-                              dtype=getattr(torch, cfg.param_dtype)),
-        "A_log": torch.log(torch.arange(1, nh + 1, device=dev,
-                                        dtype=torch.float32)),
-        "dt_bias": dt_bias,
-        "D": torch.ones((nh,), device=dev, dtype=torch.float32),
-        "norm_scale": torch.ones((di,), device=dev, dtype=torch.float32),
-        "out_proj": normal(gen, (di, d), 1.0 / math.sqrt(di),
-                           cfg.param_dtype),
+        "in_proj": pm.normal(gen, (d, proj_out), ("embed_w", "ssm_inner"),
+                             stddev=1.0 / math.sqrt(d), dtype=dt_),
+        "conv_w": pm.normal(gen, (conv_dim, cfg.ssm_conv_width),
+                            ("conv", None), stddev=0.5, dtype=dt_),
+        "conv_b": pm.zeros((conv_dim,), ("conv",), dtype=dt_, device=dev),
+        "A_log": pm.constant(torch.log(torch.arange(
+            1, nh + 1, device=dev, dtype=torch.float32)), ("ssm_heads",)),
+        "dt_bias": pm.constant(dt_bias, ("ssm_heads",)),
+        "D": pm.ones((nh,), ("ssm_heads",), device=dev),
+        "norm_scale": pm.ones((di,), ("ssm_inner",), device=dev),
+        "out_proj": pm.normal(gen, (di, d), ("ssm_inner", "embed_w"),
+                              stddev=1.0 / math.sqrt(di), dtype=dt_),
     }
 
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import normal
+from repro_torch.models import param as pm
 
 __all__ = ["init_moe", "apply_moe"]
 
@@ -38,11 +38,17 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     1/d)`` gate/up and ``N(0, 1/d_ff)`` down projections per expert."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    ff_axis = None if cfg.moe_parallelism == "ep" else "expert_mlp"
+    e_axis = "experts" if cfg.moe_parallelism == "ep" else None
+    dt = cfg.param_dtype
     return {
-        "router": normal(gen, (d, e), s_in, "float32"),
-        "w_gate": normal(gen, (e, d, ff), s_in, cfg.param_dtype),
-        "w_up": normal(gen, (e, d, ff), s_in, cfg.param_dtype),
-        "w_down": normal(gen, (e, ff, d), s_out, cfg.param_dtype),
+        "router": pm.normal(gen, (d, e), ("embed_w", None), stddev=s_in),
+        "w_gate": pm.normal(gen, (e, d, ff), (e_axis, "embed_w", ff_axis),
+                            stddev=s_in, dtype=dt),
+        "w_up": pm.normal(gen, (e, d, ff), (e_axis, "embed_w", ff_axis),
+                          stddev=s_in, dtype=dt),
+        "w_down": pm.normal(gen, (e, ff, d), (e_axis, ff_axis, "embed_w"),
+                            stddev=s_out, dtype=dt),
     }
 
 

@@ -34,11 +34,12 @@ from repro_torch.distributed import context_parallel as cp
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import param as pm
 from repro_torch.models.layers import (apply_mlp, embed_tokens,
                                        init_embedding, init_mlp,
                                        init_rmsnorm, lm_head, rmsnorm)
 
-__all__ = ["init_model", "forward_train", "loss_and_metrics",
+__all__ = ["init_model", "init_model_boxed", "param_axes", "forward_train", "loss_and_metrics",
            "init_decode_caches", "prefill", "prefill_chunk", "decode_step"]
 
 
@@ -157,6 +158,29 @@ def _block_decode(cfg: ModelConfig, params: Dict, spec: LayerSpec,
 
 # ------------------------------------------------------------------- model
 
+def init_model_boxed(cfg: ModelConfig, seed: int = 0, device="cpu") -> Dict:
+    """:func:`init_model`'s tree with every leaf a
+    :class:`~repro_torch.models.param.Boxed` carrying its logical axes
+    (the JAX package's, without the ``groups`` axis of its stacked
+    layers).  On the ``meta`` device it allocates nothing: the shapes,
+    dtypes and axes of a full-size model."""
+    return _init_units(cfg, seed, device, lambda path, unit: unit)
+
+
+def _init_units(cfg: ModelConfig, seed: int, device, place) -> Dict:
+    """The boxed tree, drawn a unit at a time (the embedding, each layer,
+    the final norm, in the generator's order) and each unit handed to
+    ``place(path, unit)`` as soon as it is drawn."""
+    _check_inputs(cfg)
+    gen = pm.generator(seed, device)
+    embed = place("['embed']", init_embedding(cfg, gen))
+    layers = [place(f"['layers'][{i}]", _init_block(cfg, gen, spec))
+              for i, spec in enumerate(cfg.layer_specs)]
+    return {"embed": embed, "layers": layers,
+            "final_norm": place("['final_norm']",
+                                init_rmsnorm(cfg.d_model, gen.device))}
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> Dict:
     """Parameters ``{embed, layers, final_norm}`` drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed``, with the JAX package's
@@ -164,13 +188,34 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> Dict:
     table and hash planes, unit norm scales).  The numbers differ from
     the JAX package's for the same seed; the tests carry the JAX weights
     across with :func:`repro_torch.models.weights.from_jax_params`."""
-    _check_inputs(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return {
-        "embed": init_embedding(cfg, gen),
-        "layers": [_init_block(cfg, gen, spec) for spec in cfg.layer_specs],
-        "final_norm": init_rmsnorm(cfg.d_model, gen.device),
-    }
+    return pm.unbox(init_model_boxed(cfg, seed, device))
+
+
+def init_model_placed(cfg: ModelConfig, seed: int, device, place) -> Dict:
+    """:func:`init_model`'s tensors, each leaf passed through ``place(path,
+    tensor)`` as soon as its unit is drawn (paths as
+    ``optim.adamw.tree_leaves`` writes them): with ``place`` keeping a
+    rank's block, the whole model is never on the device at once, only
+    its largest unit (``distributed/fsdp.py::init_shards``)."""
+    def unit(path, boxed):
+        return _map_paths(place, pm.unbox(boxed), path)
+
+    return _init_units(cfg, seed, device, unit)
+
+
+def _map_paths(fn, tree, path: str):
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{path}['{k}']")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_paths(fn, v, f"{path}[{i}]") for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """Every parameter's logical axes in :func:`init_model`'s layout (a
+    shape-only init: nothing is allocated)."""
+    return pm.axes_of(init_model_boxed(cfg, device="meta"))
 
 
 # the weight products (no batch dimension) that ``remat_policy="dots"``
@@ -198,7 +243,12 @@ def _remat(cfg: ModelConfig, fn):
     raise ValueError(cfg.remat_policy)
 
 
-def forward_train(cfg: ModelConfig, params: Dict, batch: Dict):
+def _whole(path: str, tree):
+    return tree
+
+
+def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
+                  gather=None):
     """Full forward.  ``batch``: ``tokens`` (B, T) and optional
     ``positions`` -> (padded-vocab logits (B, T, V), aux) with aux's
     ``moe_lb_loss``/``moe_z_loss`` summed over the layers and divided by
@@ -208,17 +258,26 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict):
     rematerialisation unit, the remainder layers are not rematerialised:
     the JAX package's scan body and its loop over the remainder.  (JAX
     also puts an ``optimization_barrier`` on the scan carry, an XLA
-    scheduling device with nothing to do in an eager backward.)"""
+    scheduling device with nothing to do in an eager backward.)
+
+    ``gather(path, subtree)``: where ``params`` are a rank's shards
+    (``distributed/fsdp.py``), the subtree at ``path`` (``"['embed']"``,
+    ``"['layers'][3]"``, ``"['final_norm']"``) with its leaves whole.  A
+    group's layers are gathered inside the group's rematerialised
+    function, so its backward gathers them again."""
     _check_inputs(cfg)
-    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    gather = gather or _whole
+    embed = gather("['embed']", params["embed"])
+    x = embed_tokens(cfg, embed, batch["tokens"])
     b, s, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     npat = len(cfg.pattern)
 
-    def group(x, lb, zl, *layers):
-        for spec, lp in zip(cfg.pattern, layers):
+    def group(x, lb, zl, first, *layers):
+        for i, (spec, lp) in enumerate(zip(cfg.pattern, layers)):
+            lp = gather(f"['layers'][{first + i}]", lp)
             x, dlb, dzl = _block_train(cfg, lp, spec, x, positions)
             lb, zl = lb + dlb, zl + dzl
         return x, lb, zl
@@ -226,25 +285,32 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict):
     body = _remat(cfg, group)
     lb = zl = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.num_groups):
-        x, lb, zl = body(x, lb, zl,
+        x, lb, zl = body(x, lb, zl, g * npat,
                          *params["layers"][g * npat:(g + 1) * npat])
-    for spec, lp in zip(cfg.remainder,
-                        params["layers"][cfg.num_groups * npat:]):
+    base = cfg.num_groups * npat
+    for i, spec in enumerate(cfg.remainder):
+        lp = gather(f"['layers'][{base + i}]", params["layers"][base + i])
         x, dlb, dzl = _block_train(cfg, lp, spec, x, positions)
         lb, zl = lb + dlb, zl + dzl
-    x = rmsnorm(params["final_norm"], x)
-    logits = lm_head(cfg, params["embed"], x)
+    x = rmsnorm(gather("['final_norm']", params["final_norm"]), x)
+    logits = lm_head(cfg, embed, x)
     n_moe = sum(1 for sp in cfg.layer_specs if sp.mlp == "moe") or 1
     return logits, {"moe_lb_loss": lb / n_moe, "moe_z_loss": zl / n_moe}
 
 
 def loss_and_metrics(cfg: ModelConfig, params: Dict, batch: Dict,
-                     lb_coef: float = 0.01):
+                     lb_coef: float = 0.01, gather=None,
+                     valid_tokens=None):
     """Causal-LM loss: ``batch["labels"]`` (B, T) int, -1 = padding.
     Padded vocab entries are masked to -1e30, the log-softmax is taken in
     f32, and the loss is ``ce + lb_coef * moe_lb_loss + moe_z_loss``.
-    Returns (loss, {"loss", "ce", "tokens", "moe_lb_loss"})."""
-    logits, aux = forward_train(cfg, params, batch)
+    Returns (loss, {"loss", "ce", "tokens", "moe_lb_loss"}).
+
+    Where ``batch`` is one rank's rows of a global batch,
+    ``valid_tokens`` is the global batch's valid-token count: ``ce`` is
+    then this rank's share of the global mean (``distributed/fsdp.py``);
+    ``gather`` goes to :func:`forward_train`."""
+    logits, aux = forward_train(cfg, params, batch, gather)
     labels = batch["labels"]
     v = logits.shape[-1]
     if v > cfg.vocab_size:
@@ -254,7 +320,8 @@ def loss_and_metrics(cfg: ModelConfig, params: Dict, batch: Dict,
     logp = torch.log_softmax(logits.float(), dim=-1)
     token_ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long()
                             )[..., 0]
-    denom = torch.clamp(valid.sum(), min=1)
+    denom = torch.clamp(valid.sum() if valid_tokens is None
+                        else valid_tokens, min=1)
     ce = -torch.where(valid, token_ll, 0.0).sum() / denom
     loss = ce + lb_coef * aux["moe_lb_loss"] + aux["moe_z_loss"]
     return loss, {"loss": loss, "ce": ce, "tokens": denom,

@@ -11,7 +11,7 @@ norm of every gradient given, bias-corrected moments, the new parameter
 computed in float32 and cast back to the parameter's dtype (there is no
 float32 master copy).
 
-Two differences of layout, not of result:
+Three differences of layout, not of result:
 
 * The update writes the parameters and the moments **in place** (under
   ``torch.no_grad``), a slab of rows at a time (``SLAB``), where JAX
@@ -19,6 +19,11 @@ Two differences of layout, not of result:
   (llama31-8b's 525 M-entry embedding) would otherwise be held several
   times over.  Each value's arithmetic is elementwise, so slabs change
   nothing.
+* On a mesh (``shardings``) every tensor is a rank's block: the
+  update runs on the blocks, and the global norm and an 8-bit moment
+  whose blocks of 16 straddle the shards take collectives
+  (:func:`_global_norm`, :class:`_Q8Row`), as XLA partitions JAX's
+  update.
 * JAX stacks its scanned layer groups along a leading axis, and
   ``wants_weight_decay`` judges a leaf by its rank there: a group
   layer's leaves have one axis more than the port's per-layer ones.
@@ -35,7 +40,10 @@ import re
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import entry_axes
 from repro_torch.optim import quantized_state as q8
 from repro_torch.optim.schedule import ScheduleConfig, learning_rate
 
@@ -126,10 +134,80 @@ def init_adamw(cfg: AdamWConfig, params) -> Dict[str, Any]:
             "m": tree_map(moment, params), "v": tree_map(moment, params)}
 
 
-def _global_norm(grads) -> torch.Tensor:
+def _global_norm(grads, shardings=None) -> torch.Tensor:
+    """The L2 norm of every gradient given.  With ``shardings`` (``{path:
+    NamedSharding}``) the gradients are a rank's blocks: each block's
+    squared sum counts once, on the rank that :meth:`owns` it (a block
+    replicated over an axis is not counted once a rank), and the sums are
+    all-reduced over the whole mesh (the identity on one rank)."""
     sums = [torch.sum(torch.square(g.to(torch.float32)))
-            for _, g in tree_leaves(grads) if g is not None]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+            for path, g in tree_leaves(grads)
+            if g is not None and (shardings is None or
+                                  shardings[path].owns())]
+    device = next(g for _, g in tree_leaves(grads) if g is not None).device
+    total = torch.sum(torch.stack(sums)) if sums else \
+        torch.zeros((), dtype=torch.float32, device=device)
+    if shardings is not None:
+        mesh = next(iter(shardings.values())).mesh
+        total = collectives.all_reduce(total, dist.ReduceOp.SUM,
+                                       mesh.group(mesh.axis_names))
+    return torch.sqrt(total)
+
+
+class _Q8Row:
+    """An 8-bit moment in JAX's global blocks of 16 along its
+    parameter's last dim, which may be sharded over ``axes`` (none: the
+    row is whole here).  ``q`` keeps the parameter's spec where the
+    padded dim divides (else it is whole on every rank) and ``scale``,
+    without the last entry, holds the whole row of block scales
+    (``fit_spec``).  Where this rank's columns are whole blocks of the
+    global row, it quantizes its blocks and all-gathers their scales;
+    otherwise it gathers the moment's row and quantizes it whole, as JAX
+    does.  On a row that is whole here every gather is the identity."""
+
+    def __init__(self, sharding, p: torch.Tensor):
+        self.mesh = None if sharding is None else sharding.mesh
+        self.axes = () if sharding is None or not p.ndim else \
+            entry_axes(sharding.spec[-1])
+        n = 1 if self.mesh is None else self.mesh.extent(self.axes)
+        self.i = 0 if n == 1 else self.mesh.index(self.axes)
+        self.dl = p.shape[-1] if p.ndim else 1
+        self.d = self.dl * n
+        blk = min(q8.BLOCK, self.d)
+        padded = q8.padded_dim(self.d)
+        self.q_sharded = padded % n == 0
+        self.ql = padded // n
+        self.nbl = self.dl // blk
+        self.whole_blocks = self.q_sharded and padded == self.d and \
+            self.dl % blk == 0
+
+    def _gather(self, t):
+        if self.mesh is None:
+            return t
+        return collectives.all_gather(t, self.mesh, self.axes, t.ndim - 1)
+
+    def read(self, qs, shape, power):
+        if self.whole_blocks:
+            cols = slice(self.i * self.nbl, (self.i + 1) * self.nbl)
+            return q8.dequantize({"q": qs["q"], "scale": qs["scale"][
+                ..., cols]}, shape, power=power)
+        q = self._gather(qs["q"]) if self.q_sharded else qs["q"]
+        row = q8.dequantize({"q": q, "scale": qs["scale"]},
+                            tuple(shape[:-1]) + (self.d,), power=power)
+        return row[..., self.i * self.dl:(self.i + 1) * self.dl].reshape(
+            shape)
+
+    def write(self, qs, x, power):
+        if self.whole_blocks:
+            new = q8.quantize(x, power=power)
+            qs["q"].copy_(new["q"])
+            qs["scale"].copy_(self._gather(new["scale"]))
+            return
+        new = q8.quantize(self._gather(x), power=power)
+        q = new["q"][..., self.i * self.ql:(self.i + 1) * self.ql] \
+            if self.q_sharded else new["q"]
+        qs["q"].copy_(q)
+        qs["scale"].copy_(new["scale"])
 
 
 def _slabs(shape) -> list:
@@ -142,15 +220,22 @@ def _slabs(shape) -> list:
 
 
 def adamw_update(cfg: AdamWConfig, grads, state, params,
-                 stacked_layers: int = 0
+                 stacked_layers: int = 0, shardings=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: ``params`` and the moments of ``state`` updated in
     place.  ``grads`` mirrors ``params``; a frozen leaf's gradient may be
     ``None``, and the global norm counts every gradient given.  Returns
-    (params, new state, {"grad_norm", "lr"})."""
+    (params, new state, {"grad_norm", "lr"}).
+
+    ``shardings`` (``{path: NamedSharding}`` of the parameters) makes
+    ``params``, ``grads`` and the moments a rank's blocks
+    (``distributed/fsdp.py``): the update runs on the blocks, the global
+    norm is all-reduced (:func:`_global_norm`) and an 8-bit moment of a
+    parameter whose last dim is sharded keeps JAX's global blocks of 16
+    (:class:`_Q8Row`)."""
     step = state["step"] + 1
     lr = learning_rate(cfg.schedule, step)
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, shardings)
     clip = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
@@ -160,24 +245,17 @@ def adamw_update(cfg: AdamWConfig, grads, state, params,
                                        device=stepf.device), stepf)
     is_q8 = cfg.state_bits == 8
 
-    def core(p, g, m, v, decay):
+    def advance(p, g, m_f, v_f, decay):
+        """The new parameter, written into ``p``; returns the new float32
+        moments."""
         g = g.to(torch.float32) * clip
-        m_f = q8.dequantize(m, p.shape, power=3) if is_q8 else m
-        v_f = q8.dequantize(v, p.shape, power=6) if is_q8 else v
         m_new = b1 * m_f + (1 - b1) * g
         v_new = b2 * v_f + (1 - b2) * torch.square(g)
         update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if decay:
             update = update + cfg.weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
-        if is_q8:
-            for old, new in ((m, q8.quantize(m_new, power=3)),
-                             (v, q8.quantize(v_new, power=6))):
-                old["q"].copy_(new["q"])
-                old["scale"].copy_(new["scale"])
-        else:
-            m.copy_(m_new)
-            v.copy_(v_new)
+        return m_new, v_new
 
     g_leaves = dict(tree_leaves(grads))
     m_leaves = dict(tree_leaves(state["m"]))
@@ -190,11 +268,19 @@ def adamw_update(cfg: AdamWConfig, grads, state, params,
             decay = bool(cfg.weight_decay) and wants_weight_decay(
                 path, jax_rank(path, p, stacked_layers))
             m, v = m_leaves[path], v_leaves[path]
+            io = _Q8Row(None if shardings is None else shardings[path], p)
             for sl in _slabs(p.shape):
-                if is_q8:
-                    core(p[sl], g[sl], {k: t[sl] for k, t in m.items()},
-                         {k: t[sl] for k, t in v.items()}, decay)
-                else:
-                    core(p[sl], g[sl], m[sl], v[sl], decay)
+                if not is_q8:
+                    m_new, v_new = advance(p[sl], g[sl], m[sl], v[sl], decay)
+                    m[sl].copy_(m_new)
+                    v[sl].copy_(v_new)
+                    continue
+                ms = {k: t[sl] for k, t in m.items()}
+                vs = {k: t[sl] for k, t in v.items()}
+                shape = p[sl].shape
+                m_new, v_new = advance(p[sl], g[sl], io.read(ms, shape, 3),
+                                       io.read(vs, shape, 6), decay)
+                io.write(ms, m_new, 3)
+                io.write(vs, v_new, 6)
     return params, {"step": step, "m": state["m"], "v": state["v"]}, \
         {"grad_norm": gnorm, "lr": lr}

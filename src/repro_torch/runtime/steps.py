@@ -8,9 +8,19 @@ microbatch.
 ``make_train_step`` supports gradient accumulation: the batch is split
 into ``accum`` microbatches run one after the other, their gradients
 summed in float32 buffers and divided by ``accum``, the loss averaged.
-The JAX function's ``grad_shardings`` (pinning the accumulators'
-sharding across devices) comes with ROADMAP.md queue 1 item 11's
-``distributed/`` step.
+
+The step is the sharded one, standing in for XLA's SPMD partitioning
+of JAX's jitted step: every rank holds only its blocks of the
+parameters and the moments (``grad_shardings``, the parameters'
+shardings as JAX's), takes its rows of the global batch, gathers each
+layer group's weights inside the group's rematerialised function and
+reduce-scatters their gradients in its backward
+(``distributed/fsdp.py``), keeps its float32 accumulators at its
+blocks' size and updates its blocks (``optim/adamw.py``).  Its losses
+and gradient norm are the global batch's, as one process computes
+them.  Without ``grad_shardings`` it runs on a one-rank mesh
+(``fsdp.one_rank_shardings``), where every block is the whole leaf and
+every collective the identity: one process's step is the same code.
 """
 
 from __future__ import annotations
@@ -18,8 +28,10 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives, fsdp
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.adamw import (is_trainable_path, tree_leaves,
@@ -29,11 +41,20 @@ __all__ = ["make_train_step", "loss_and_grads", "make_prefill_step",
            "make_chunk_prefill_step", "make_serve_step"]
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch):
+def loss_and_grads(cfg: ModelConfig, params, batch, shardings=None):
     """(loss, metrics, {path: gradient}) of :func:`tfm.loss_and_metrics`
     for every trainable leaf of ``params`` (JAX ``keystr`` paths, see
     :func:`repro_torch.optim.adamw.tree_leaves`); a leaf the loss does
-    not reach gets zeros.  The caller's tensors are not modified."""
+    not reach gets zeros.  The caller's tensors are not modified.
+
+    ``shardings`` (``{path: NamedSharding}``, a one-rank mesh's when
+    None): ``params`` are a rank's blocks and ``batch`` its rows of a
+    global batch; the gradients are its blocks' of the global loss, and
+    the loss and ``ce`` the global batch's (all-reduced over the batch
+    axes)."""
+    shardings = shardings or fsdp.one_rank_shardings(cfg)
+    mesh = fsdp.mesh_of(shardings)
+    valid = fsdp.global_tokens(batch["labels"], mesh)
     leaves = []
 
     def track(path, t):
@@ -45,16 +66,25 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
         return leaves[-1][1]
 
     loss, metrics = tfm.loss_and_metrics(cfg, tree_map(track, params),
-                                         batch)
+                                         batch,
+                                         gather=fsdp.gatherer(shardings),
+                                         valid_tokens=valid)
     grads = torch.autograd.grad(loss, [t for _, t in leaves],
                                 allow_unused=True)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    group = mesh.group(fsdp.BATCH_AXES)
+    if group is not None:
+        # this rank's share of the global mean: the sum is the global one
+        for k in ("loss", "ce"):
+            metrics[k] = collectives.all_reduce(metrics[k],
+                                                dist.ReduceOp.SUM, group)
+    return metrics["loss"], metrics, {
         path: torch.zeros_like(t) if g is None else g
         for (path, t), g in zip(leaves, grads)}
 
 
 def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
-                    accum: int = 1) -> Callable:
+                    accum: int = 1, grad_shardings=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``batch``: ``tokens`` and ``labels`` (B, T) tensors on the
@@ -62,18 +92,26 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     the moments are updated in place (:func:`adamw_update`) and
     returned.  ``metrics``: at ``accum == 1`` those of
     :func:`tfm.loss_and_metrics`, above it the mean ``loss``; with
-    ``grad_norm`` and ``lr`` of the update, all 0-d tensors."""
+    ``grad_norm`` and ``lr`` of the update, all 0-d tensors.
+
+    ``grad_shardings``: the tree of the parameters' shardings
+    (``launch/specs.py::param_specs``; a one-rank mesh's when None):
+    ``params`` and ``opt_state`` are this rank's blocks, ``batch`` is
+    the global batch on every rank, and B splits into ``accum``
+    microbatches of the batch axes' ranks' rows (see the module
+    docstring)."""
     stacked = cfg.num_groups * len(cfg.pattern)
+    shardings = fsdp.one_rank_shardings(cfg) if grad_shardings is None \
+        else fsdp.flat_tree(grad_shardings)
+    mesh = fsdp.mesh_of(shardings)
+    fsdp.check_model(cfg, mesh)
 
     def train_step(params, opt_state, batch):
         if accum == 1:
-            loss, metrics, grads = loss_and_grads(cfg, params, batch)
+            loss, metrics, grads = loss_and_grads(
+                cfg, params, fsdp.local_rows(cfg, batch, mesh, 1, 0),
+                shardings)
         else:
-            b = next(iter(batch.values())).shape[0]
-            if b % accum:
-                raise ValueError(f"batch {b} does not split into {accum} "
-                                 "microbatches")
-            mb = b // accum
             gsum = {path: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device)
                     for path, p in tree_leaves(params)
@@ -81,8 +119,9 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
             lsum = torch.zeros((), dtype=torch.float32,
                                device=gsum[next(iter(gsum))].device)
             for i in range(accum):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss_i, _, g = loss_and_grads(cfg, params, micro)
+                loss_i, _, g = loss_and_grads(
+                    cfg, params, fsdp.local_rows(cfg, batch, mesh, accum, i),
+                    shardings)
                 for path, gi in g.items():
                     gsum[path].add_(gi.to(torch.float32))
                 lsum = lsum + loss_i
@@ -92,7 +131,7 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
             metrics = {"loss": loss}
         params, opt_state, om = adamw_update(
             ocfg, tree_map(lambda path, _: grads.get(path), params),
-            opt_state, params, stacked_layers=stacked)
+            opt_state, params, stacked_layers=stacked, shardings=shardings)
         return params, opt_state, {**metrics, **om, "loss": loss}
 
     return train_step

@@ -285,7 +285,7 @@ def test_dryrun_model_config_matches_jax(arch, shape):
     tc = tspecs.dryrun_model_config(tget(arch), tspecs.SHAPES[shape])
     jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
     shared = set(jd) & set(td)
-    assert set(td) <= set(jd) and set(jd) - shared == {"logical_pad_heads"}
+    assert set(td) == set(jd) == shared
     for name in shared:
         assert td[name] == jd[name], name
     assert (td["decode_cp_axes"], td["decode_cp_batch_axes"]) == \

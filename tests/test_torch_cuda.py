@@ -305,9 +305,10 @@ def test_attention_train_gradients_through_the_kernel(dev):
     from repro_torch.kernels.flash_prefill import ops
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
     from repro_torch.models import attention as attn
+    from repro_torch.models import param as pm
     cfg = get_config("llama31-8b").smoke().replace(head_dim=64)
     gen = torch.Generator(device=dev).manual_seed(5)
-    params = attn.init_attention(cfg, gen)
+    params = pm.unbox(attn.init_attention(cfg, gen))
     x = torch.randn((2, 100, cfg.d_model), generator=gen, device=dev)
     pos = torch.arange(100, device=dev).expand(2, 100)
 

@@ -25,6 +25,7 @@ from repro.models import mamba as jmb
 from repro.models import param as pm
 from repro_torch.configs import get_config as tget
 from repro_torch.models import mamba as tmb
+from repro_torch.models import param as tpm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ["mamba2-780m", "jamba-v0.1-52b"]
@@ -59,7 +60,10 @@ def test_init_mamba_leaves_match_jax(arch):
     with the JAX package's moments; dt_bias is the inverse softplus of
     [1e-3, 1e-1]."""
     jc, tc, jp, _ = _setup(arch)
-    tp = tmb.init_mamba(tc, torch.Generator().manual_seed(0))
+    boxed = tmb.init_mamba(tc, torch.Generator().manual_seed(0))
+    tp = tpm.unbox(boxed)
+    # the logical axes ride along, one a dim
+    assert all(len(b.axes) == b.value.ndim for b in boxed.values())
     assert set(tp) == set(jp)
     for name, leaf in jp.items():
         assert tuple(tp[name].shape) == leaf.shape, name

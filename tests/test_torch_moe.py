@@ -25,6 +25,7 @@ from repro.models import param as pm
 from repro_torch.configs import get_config as tget
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.models import moe as tmoe
+from repro_torch.models import param as tpm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 NEW_ARCHS = ["jamba-v0.1-52b", "mamba2-780m", "mixtral-8x22b",
@@ -163,7 +164,10 @@ def test_init_moe_leaves_match_jax(arch):
     standard deviations."""
     jc, tc = jget(arch).smoke(), tget(arch).smoke()
     jp, _ = _params(jc)
-    tp = tmoe.init_moe(tc, torch.Generator().manual_seed(0))
+    boxed = tmoe.init_moe(tc, torch.Generator().manual_seed(0))
+    tp = tpm.unbox(boxed)
+    # the logical axes ride along, one a dim
+    assert all(len(b.axes) == b.value.ndim for b in boxed.values())
     assert set(tp) == set(jp)
     for name, leaf in jp.items():
         assert tuple(tp[name].shape) == leaf.shape, name

@@ -16,6 +16,15 @@ their selections, and the plain route's calls pair with them in order.
 Phase 9's gates (context-parallel decode) run at smoke size on simulated
 ranks, sound and with a wrong ``lo``, a budget of the local rows and a
 -inf masked logit.
+
+Phase 10's gates (the Trainer's mesh) run on 4 gloo CPU ranks at smoke
+width through the phase's own rank body, sound and with a gradient
+summed over the ``model`` axis, a global norm that counts a replicated
+block once a rank, and a loss over a rank's own valid-token count; and
+10a's 8-bit case, sound and with a leaf never updated and with 8-bit
+block scales gathered in another rank order (faults that only the
+parameter and moment gates see): each fault fails them.  The launch, compression and elastic gates run on
+hand-made results.
 """
 
 from __future__ import annotations
@@ -667,8 +676,9 @@ def test_moe_routes_shared_takes_the_kernel_route_inside_the_band():
     cs = _chip_smoke()
     from repro_torch.configs import get_config
     from repro_torch.models import moe
+    from repro_torch.models import param as pm
     cfg = get_config("mixtral-8x22b").smoke()
-    params = moe.init_moe(cfg, torch.Generator().manual_seed(0))
+    params = pm.unbox(moe.init_moe(cfg, torch.Generator().manual_seed(0)))
     x = torch.randn(64, cfg.d_model, generator=torch.Generator()
                     .manual_seed(1))
     # experts 0 and 2 score equally: the kernel route keeps expert 0 (the
@@ -1149,3 +1159,280 @@ def test_cp_model_gates():
     off[2][0, 5] += 2 * cs.LOGITS_ATOL
     with pytest.raises(AssertionError, match="logits"):
         cs.cp_logits_gate("smoke", toks, logits, toks, off)
+
+
+# ------------------------------------------------------------ phase 10
+
+MESH_FAULTS = ("gradient summed over model", "norm counts replicas",
+               "loss over local counts")
+# faults of the update, which only the parameter gate sees (step 2's
+# update reaches no gated loss), run on mesh (4, 1) with 8-bit moments:
+# the head never updated, and an 8-bit moment's block scales gathered in
+# another rank order (each rank reads another's scales at step 2)
+MESH_UPDATE_FAULTS = ("unchanged leaf", "wrong moment")
+
+
+def _mesh_smoke_cfg():
+    from repro_torch.configs import get_config
+    return get_config("llama31-8b").smoke().replace(remat_policy="full")
+
+
+@contextlib.contextmanager
+def _mesh_fault(fault):
+    """Phase 10's sharded step with one fault planted: each rank's
+    gradient also summed over the ``model`` axis (whose ranks computed the
+    same one), the global norm counting a replicated block once a rank,
+    or the loss divided by a rank's own valid-token count."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, fsdp
+    from repro_torch.distributed.sharding import NamedSharding
+    if fault is None:
+        yield
+        return
+    if fault == "gradient summed over model":
+        orig = fsdp.reduce_grad
+
+        def summed(grad, sharding):
+            grad = collectives.all_reduce(
+                grad, dist.ReduceOp.SUM, sharding.mesh.group(("model",)))
+            return orig(grad, sharding)
+        ctx = mock.patch.object(fsdp, "reduce_grad", summed)
+    elif fault == "norm counts replicas":
+        ctx = mock.patch.object(NamedSharding, "owns", lambda self: True)
+    elif fault == "unchanged leaf":
+        from repro_torch.optim import adamw
+        trainable = adamw.is_trainable_path
+        ctx = mock.patch.object(
+            adamw, "is_trainable_path",
+            lambda path: trainable(path) and path != "['embed']['head']")
+    elif fault == "wrong moment":
+        from repro_torch.optim import adamw
+        gather = adamw._Q8Row._gather
+
+        def rolled(self, t):
+            out = gather(self, t)
+            return out if out is t else out.roll(t.shape[-1], dims=-1)
+        ctx = mock.patch.object(adamw._Q8Row, "_gather", rolled)
+    else:
+        ctx = mock.patch.object(fsdp, "global_tokens",
+                                lambda labels, mesh: (labels >= 0).sum())
+    with ctx:
+        yield
+
+
+def _mesh_smoke_rank(rank, world, tmp):
+    """Phase 10a's rank body (``mesh_train_run``) at smoke width on a
+    gloo CPU rank: the sound step and each planted fault, mesh (2, 2),
+    accum 2."""
+    torch.set_num_threads(1)
+    cs = _chip_smoke()
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    init_rank(rank, world, f"file://{tmp}/init", device="cpu")
+    mesh = make_test_mesh(2, 2)
+    mesh41 = make_test_mesh(4, 1)
+    cfg = _mesh_smoke_cfg()
+    params = torch.load(os.path.join(tmp, "params.pt"), weights_only=True)
+    batches = [cs.mesh_batch(cfg, 4, 32, 0, i, "cpu") for i in range(2)]
+    res = {}
+    for fault in (None,) + MESH_FAULTS:
+        with _mesh_fault(fault):
+            res[fault] = cs.mesh_train_run(cfg, cs.mesh_ocfg(32), mesh, 2,
+                                           params, batches, "cpu")
+    for fault in (None,) + MESH_UPDATE_FAULTS:
+        with _mesh_fault(fault):
+            res["8-bit", fault] = cs.mesh_train_run(
+                cfg, cs.mesh_ocfg(8), mesh41, 1, params, batches, "cpu")
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """The ranks' runs (one spawn) and the single-process reference."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import init_adamw
+    from repro_torch.runtime.steps import make_train_step
+    cs = _chip_smoke()
+    tmp = str(tmp_path_factory.mktemp("mesh10"))
+    cfg = _mesh_smoke_cfg()
+    params = tfm.init_model(cfg, 7)
+    torch.save(params, os.path.join(tmp, "params.pt"))
+    spawn_ranks(_mesh_smoke_rank, 4, (4, tmp), deadline_s=240)
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    init = fsdp.flat_tree(params)
+    refs = {}
+    for bits, accum, shape in ((32, 2, (2, 2)), (8, 1, (4, 1))):
+        ocfg = cs.mesh_ocfg(bits)
+        p = tfm.init_model(cfg, 7)
+        opt = init_adamw(ocfg, p)
+        step = make_train_step(cfg, ocfg, accum)
+        metrics = []
+        with one_thread():
+            for i in range(2):
+                p, opt, m = step(p, opt,
+                                 cs.mesh_batch(cfg, 4, 32, 0, i, "cpu"))
+                metrics.append({k: float(v) for k, v in m.items()})
+        refs[bits] = dict(
+            metrics=metrics, params=fsdp.flat_tree(p),
+            opt=fsdp.flat_tree(opt),
+            shardings=[cs.mesh_shardings(cfg, shape, r) for r in range(4)],
+            opt_shardings=[cs.mesh_opt_shardings(cfg, shape, r, bits)
+                           for r in range(4)])
+    return cs, ranks, init, refs
+
+
+def _mesh_gates(cs, ranks, fault, init, ref, bits=32):
+    got = [r[fault if bits == 32 else ("8-bit", fault)] for r in ranks]
+    assert all(g["shapes"] for g in got)
+    cs.mesh_metrics_gate("smoke", [g["metrics"] for g in got],
+                         ref["metrics"])
+    return cs.mesh_params_gate("smoke", [g["params"] for g in got],
+                               ref["params"], init, ref["shardings"], bits)
+
+
+def test_mesh_gates_pass_on_the_sound_step(mesh_runs):
+    """Phase 10a's gates at smoke width: the sharded step on 4 gloo ranks
+    (mesh (2, 2), accum 2, padding that differs across ranks) against
+    the single-process step on the same weights and batches."""
+    cs, ranks, init, refs = mesh_runs
+    worst = _mesh_gates(cs, ranks, None, init, refs[32])
+    assert 0 < worst["update_rel"] <= cs.MESH_UPDATE_RTOL[32]
+    assert worst["element_rel"] < 1e-3
+    # each rank's valid tokens differ (the loss fault can show)
+    batch = cs.mesh_batch(_mesh_smoke_cfg(), 4, 32, 0, 0, "cpu")
+    assert len({int((batch["labels"][r] >= 0).sum()) for r in range(4)}) \
+        > 1
+
+
+@pytest.mark.parametrize("fault,gate", [
+    ("gradient summed over model", "grad_norm"),
+    ("norm counts replicas", "grad_norm"),
+    ("loss over local counts", "loss")])
+def test_mesh_gates_catch_a_faulty_step(mesh_runs, fault, gate):
+    cs, ranks, init, refs = mesh_runs
+    with pytest.raises(AssertionError, match=f"step 0 {gate} "):
+        _mesh_gates(cs, ranks, fault, init, refs[32])
+
+
+def test_mesh_gates_pass_on_the_sound_8bit_step(mesh_runs):
+    """10a's 8-bit case at smoke width: mesh (4, 1), accum 1, against the
+    single-process step; its moments against the reference's
+    (``mesh_code_report``): a few codes part, one of them by many (a sign
+    flip near 0 at step 2), while every value stays within
+    MESH_MOMENT_CODES codes at the top of its block."""
+    cs, ranks, init, refs = mesh_runs
+    worst = _mesh_gates(cs, ranks, None, init, refs[8], bits=8)
+    assert worst["update_rel"] <= cs.MESH_UPDATE_RTOL[8]
+    report = cs.mesh_code_report(
+        "smoke", [r["8-bit", None]["codes"] for r in ranks], refs[8]["opt"],
+        refs[8]["opt_shardings"])
+    assert 0 < report["differing"] < 1e-3 * report["codes"]
+    assert report["max_code_diff"] > 1
+    assert max(report["max_value_diff_codes"].values()) < \
+        cs.MESH_MOMENT_CODES
+
+
+@pytest.mark.parametrize("fault", MESH_UPDATE_FAULTS)
+def test_mesh_params_gate_catches_a_wrong_update(mesh_runs, fault):
+    """A leaf never updated and a wrong 8-bit moment fail the parameter
+    gate.  The wrong moment first reads its scales at step 2, whose update
+    reaches no gated loss: it passes the loss and norm gates, and fails
+    the moments' gate too (``mesh_code_report``).  (The leaf never
+    updated also moves step 2's loss; the parameter gate is held to it
+    alone here.)"""
+    cs, ranks, init, refs = mesh_runs
+    got = [r["8-bit", fault] for r in ranks]
+    if fault == "wrong moment":
+        cs.mesh_metrics_gate("smoke", [g["metrics"] for g in got],
+                             refs[8]["metrics"])
+    with pytest.raises(AssertionError, match="of that step's update"):
+        cs.mesh_params_gate("smoke", [g["params"] for g in got],
+                            refs[8]["params"], init, refs[8]["shardings"], 8)
+    if fault == "wrong moment":
+        with pytest.raises(AssertionError, match="codes at the top of a "):
+            cs.mesh_code_report("smoke", [g["codes"] for g in got],
+                                refs[8]["opt"], refs[8]["opt_shardings"])
+
+
+def test_mesh_launch_compression_and_elastic_gates():
+    """Phase 10's launch gate (layers x calls ``flash_prefill`` a rank,
+    nothing else), 10d's ``compression_round_check`` and
+    ``compression_run`` (sound, a mean off the plain version's, error
+    buffers that do not carry) and 10c's
+    ``elastic_gate`` (sound, a rank that did not leave, a restored block
+    that is not the checkpoint's) on hand-made results."""
+    from repro_torch.distributed import compression as cm
+    from repro_torch.distributed.sharding import named_sharding
+    from repro_torch.launch.mesh import Mesh
+    cs = _chip_smoke()
+    good = {"flash_prefill": 8, "socket_score": 0}
+    assert cs.mesh_launch_gate("smoke", [{"launches": dict(good)}] * 4, 2,
+                               4) == 32
+    with pytest.raises(AssertionError, match="flash_prefill"):
+        cs.mesh_launch_gate("smoke", [{"launches": dict(
+            good, flash_prefill=7)}], 2, 4)
+    with pytest.raises(AssertionError, match="other kernels"):
+        cs.mesh_launch_gate("smoke", [{"launches": dict(
+            good, socket_score=1)}], 2, 4)
+    # 10d: one round against the plain version, sound and off; a run at
+    # world 1 on small shapes, sound and with buffers that never carry
+    gen = torch.Generator().manual_seed(0)
+    grads = [{"wq": torch.randn(8, 16, generator=gen) * (r + 1),
+              "norm": torch.randn(16, generator=gen)} for r in range(4)]
+    zero = [cm.init_error_buffers(g) for g in grads]
+    mean, errs, _ = cm.compressed_psum_ref(grads, zero)
+    worst, new = cs.compression_round_check("smoke", 1, 0, mean, errs[1],
+                                            grads, zero)
+    assert worst == {"synced": 0.0, "errors": 0.0}
+    assert all(torch.equal(new[r][k], errs[r][k]) for r in range(4)
+               for k in grads[0])
+    with pytest.raises(AssertionError, match="synced wq"):
+        cs.compression_round_check("smoke", 1, 0, dict(
+            mean, wq=mean["wq"] + 1e-3), errs[1], grads, zero)
+
+    def small(seed, rank, rnd, dev):
+        g = torch.Generator().manual_seed(seed + 31 * rnd + rank)
+        return {"wq": torch.randn(8, 16, generator=g)}
+
+    with mock.patch.object(cs, "compression_grads", small):
+        run = cs.compression_run("smoke", 0, 1, "cpu", 0, None)
+        assert len(run["round_s"]) == cs.COMPRESSION_ROUNDS
+        psum = cm.compressed_psum
+        with mock.patch.object(cm, "compressed_psum", lambda g, e, group: (
+                psum(g, e, group)[0], e)), \
+                pytest.raises(AssertionError, match="errors wq"):
+            cs.compression_run("smoke", 0, 1, "cpu", 0, None)
+    # 10c: ranks 0-1 kept, 2-3 left; one leaf sharded over the new mesh
+    keep = cs.MESH_WORLD - cs.ELASTIC_LOST
+    whole = torch.arange(16.0).reshape(8, 2)
+    saved = {"step": cs.ELASTIC_EVERY,
+             "tree": {"params": {"w": whole}}}
+    shardings = [{"['params']['w']": named_sharding(
+        Mesh(("data", "model"), (keep, 1), rank=r, ranks=range(keep)),
+        ("embed_w", None), whole.shape)} for r in range(keep)]
+
+    def rank(r):
+        if r >= keep:
+            return dict(first_mesh=4, rebuilds=1, active=False,
+                        restored=None)
+        block = shardings[r]["['params']['w']"].shard(whole)
+        return dict(first_mesh=4, rebuilds=1, active=True,
+                    step=cs.ELASTIC_STEPS, mesh=list(range(keep)),
+                    restored=(cs.ELASTIC_EVERY,
+                              {"['params']['w']": block}))
+
+    ranks = [rank(r) for r in range(4)]
+    cs.elastic_gate("smoke", ranks, saved, shardings)
+    stayed = [dict(x) for x in ranks]
+    stayed[3] = dict(stayed[3], active=True)
+    with pytest.raises(AssertionError, match="leave"):
+        cs.elastic_gate("smoke", stayed, saved, shardings)
+    wrong = [dict(x) for x in ranks]
+    wrong[1] = dict(wrong[1], restored=(cs.ELASTIC_EVERY, {
+        "['params']['w']": whole[:4].clone()}))
+    with pytest.raises(AssertionError, match="block"):
+        cs.elastic_gate("smoke", wrong, saved, shardings)

@@ -352,11 +352,15 @@ def test_trainer_gives_up_after_repeated_failures(tmp_path):
 
 
 def test_trainer_on_more_devices_names_its_roadmap_item(tmp_path):
+    """A mesh over 2 ranks without an initialised process group raises a
+    clear error: the Trainer never drops to one rank quietly."""
+    from repro_torch.launch.mesh import Mesh
     cfg = _tiny(tget)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="initialised torch.distributed"):
         Trainer(cfg, tadam.AdamWConfig(), TrainLoopConfig(),
                 tdata.DataConfig(vocab_size=cfg.vocab_size), str(tmp_path),
-                device="cpu", num_devices=2)
+                device="cpu",
+                mesh_factory=lambda ranks: Mesh(("data", "model"), (2, 1)))
 
 
 # --------------------------------------------- straggler, retry, launcher

@@ -142,7 +142,7 @@ Phases, in order; the first failure raises and the script exits non-zero:
               and snapshot are freed before the next.  Each backend then
               runs again, the same traffic and depth, on int8 and on fp8
               K/V pages (``serving.kv_dtype``; gemma-7b's phase 5d runs
-              quantized pages at full depth), with the same gates; the
+              quantized pages at GEMMA7B_DEPTH), with the same gates; the
               K/V bytes a block id holds are logged.
 5a. prefix — the prefix cache on the same weights, at ``QUANT_DEPTH``
               layers (the script's time limit): 8 requests of
@@ -211,10 +211,12 @@ Phases, in order; the first failure raises and the script exits non-zero:
               (``STATIC_CASES``: batch 2, a 4096-token prompt, 16 greedy
               steps; at G 1 the wrong head order the prefill gate must
               catch reads the next head's K/V); then through the
-              continuous engine with phase 5's traffic and gates
-              (``socket_fused``, ``hard_lsh_fused`` and ``quest_fused`` on
-              f32 pages; then ``socket_fused`` on bf16, int8 and fp8
-              pages; 1536 blocks each); the resident requests
+              continuous engine with phase 5's traffic and gates at its
+              first GEMMA7B_DEPTH (14) of 28 layers (the script's time
+              limit) (``socket_fused``, ``hard_lsh_fused`` and
+              ``quest_fused`` on f32 pages; then ``socket_fused`` on
+              bf16, int8 and fp8 pages; 1536 blocks each); the resident
+              requests
               each page dtype fits in the bf16 pool's byte budget are
               logged and int8 must hold ``RESIDENCY_BAR`` (1.8) x bf16's;
               each run's greedy tokens' agreement with the bf16 run is
@@ -224,8 +226,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
               id takes in the engine's pool to
               ``serving.paged.pool_block_bytes``, and its kernel-vs-plain
               check copies only the blocks the captured batch reads
-              (``compact_pool``: gemma-7b's f32 pool, 23.5 GB, and a
-              clone of it do not fit beside its 37.3 GB of weights).
+              (``compact_pool``: gemma-7b's full-depth f32 pool, 23.5 GB,
+              and a clone of it do not fit beside its 37.3 GB of
+              weights).
               Seconds and peak memory are logged per run.
 5e. state and MoE — after gemma-7b's and minitron-8b's weights are freed:
               jamba-v0.1-52b (d_model 4096, 32/8 heads, 16 experts top-2
@@ -363,7 +366,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               rank started by ``launch.mesh.spawn_ranks``; NCCL, one rank
               a card, where 4 cards are present, else gloo with every
               rank on ``cuda:0`` and the collectives of CUDA tensors
-              through host memory; the backend, world, card count and
+              card to card through the ranks' CUDA IPC mailboxes; the
+              backend, world, card count and
               each rank's peak memory logged).  9a: the attention layer
               at ``long_500k`` (llama31-8b's B 1, KVH 8, G 4, hd 128 at
               N 524288; P 10, L 60, tau 0.4, sparsity 10, sink and window
@@ -410,10 +414,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
               ranks (``distributed/fsdp.py``, ``launch/specs.py``'s
               shardings, ``runtime/train_loop.py``; ranks started as in
               phase 9: NCCL with a card a rank where 4 cards are present,
-              else gloo with every rank on ``cuda:0``, the gathers and
-              reduce-scatters of CUDA tensors card to card through the
-              ranks' CUDA IPC mailboxes and the all-reduces staged
-              through host memory, each counted and logged; that layout
+              else gloo with every rank on ``cuda:0``, the collectives
+              of CUDA tensors card to card through the ranks' CUDA IPC
+              mailboxes, each counted and logged; that layout
               is a test rig, and its collective share is the rig's).  The single-process references run first and are
               freed before the ranks start.  10a: llama31-8b at full
               width, 2 of 32 layers (as 8a), f32, ``remat_policy="full"``,
@@ -459,6 +462,60 @@ Phases, in order; the first failure raises and the script exits non-zero:
               checkpoint bit for bit, ranks 2 and 3 leave and exit 0
               (``elastic_gate``).  ``--only mesh`` builds the kernels and
               runs this phase alone.
+11. parallel — the parallel forms the port had refused, over 4 ranks
+              started as in phase 10 (one card: gloo, every collective
+              card to card through the mailboxes; the rig's times).
+              11a (``--only ep``), expert parallelism: mixtral-8x22b at
+              full width (d 6144, 8 experts of d_ff 16384, ``tp``
+              storage) with ``moe_dispatch="alltoall"`` on a (2, 2)
+              mesh.  f32 parity, 1 of 56 layers, 4 x 128 tokens, 2
+              steps, 8-bit moments, capacity factor 2 (dropless at
+              model 2): loss and gradient norm within TRAIN_LOSS_RTOL /
+              TRAIN_GRAD_RTOL and each rank's blocks within
+              MESH_UPDATE_RTOL of one process whose MoE layers run the
+              plain exchange (``plain_exchange``:
+              ``apply_moe_alltoall_ref``, the aux losses averaged over
+              the ranks' token blocks as JAX's ``pmean``); each rank
+              stores a quarter of every expert leaf and gathers only its
+              4 experts (``expert_bytes_gate``, from the spied gathers'
+              shapes); ``flash_prefill`` layers x 2 x steps.  The drops
+              case: one MoE layer at capacity factor 1.0 on 2 x 512
+              tokens through the exchange (serving's layout, every rank
+              the whole batch): the ranks' drops the plain exchange's,
+              which drops some, and outputs within EP_DROP_REL of it
+              (``ep_drop_gate``).  bf16 timed (``SHAPES["train_4k"]``,
+              remat full, 8-bit moments, 2 of 56 layers, 4096 tokens a
+              data rank, 3 steps): losses finite and equal on every
+              rank; step s, tokens/s, peak GB a rank and, from the last
+              step run with the collectives timed, the all-to-alls'
+              seconds logged.  11b (``--only pipe``), the GPipe pipeline
+              (``distributed/pipeline.py``): llama31-8b's blocks as 4
+              stages, 8 microbatches of one row.  f32 parity, 2 layers a
+              stage, 512 tokens: the output and the gradients of the
+              input and of each stage's leaves within PIPE_OUT_REL /
+              PIPE_GRAD_REL (relative L2) of the sequential stack in one
+              process (``pipe_parity_gates``); each stage holds only its
+              layers.  bf16 timed at full depth (8 layers a stage, 4096
+              tokens a row, forward, 3 runs): outputs finite and equal
+              on every stage, each stage's ``stage_fn`` run once a
+              microbatch, the measured bubble (1 - a stage's busy s over
+              the forward's wall) logged beside (stages - 1) / (micro +
+              stages - 1).  11c (``--only cp-hybrid``), context-parallel
+              decode of hybrid SOCKET models (``decode_cp_axes``, every
+              rank the whole prefill, the ranks in turn): gemma3-27b 1
+              group (local and global layers) on 4 ranks and
+              jamba-v0.1-52b 1 of 4 groups (attention, Mamba, MoE) on 2,
+              both at bf16 with weights replicated per rank, a
+              CP_PROMPT-token prompt and CP_STEPS greedy steps: tokens
+              equal and logits within LOGITS_ATOL of one process whose
+              CP attend is the plain version over as many shards
+              (``cp_logits_gate``); each rank's prefill caches its block
+              of the global layers' and the whole rings and Mamba
+              states, bitwise the one process's (``cph_layout_gate``);
+              ``socket_score`` global layers x steps and
+              ``flash_prefill`` attention layers a rank, no other
+              kernel (``cph_launch_gate``).  The default run takes 11a,
+              11b and 11c after phase 10.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -534,10 +591,10 @@ QUANT_KV_DTYPES = ("bf16", "int8", "fp8")
 # llama31-8b's continuous runs at fp32 (phase 5 on f32, int8 and fp8
 # pages, the prefix and sampling phases, and the observability and legacy
 # runs read against phase 5) and its bf16 hard LSH and Quest runs (phase
-# 5f) take its first 8 of 32 layers: with gemma-7b's phase (5d, at full
-# depth on bf16, int8 and fp8 pages too), phase 5f's socket_fused at full
-# depth and the training (8) and context-parallel (9) phases the script
-# must stay well inside its time limit on a slow host
+# 5f) take its first 8 of 32 layers: with gemma-7b's phase (5d, on bf16,
+# int8 and fp8 pages too), phase 5f's socket_fused at full depth and the
+# training, context-parallel, mesh and parallel phases (8 to 11) the
+# script must stay well inside its time limit on a slow host
 QUANT_DEPTH = 8
 TIMED_ITERS = 50
 GRAPH_REPLAYS = 4
@@ -3462,6 +3519,10 @@ RESIDENCY_BAR = 1.8
 GEMMA7B_RUNS = (("socket_fused", "auto"), ("hard_lsh_fused", "auto"),
                 ("quest_fused", "auto"), ("socket_fused", "bf16"),
                 ("socket_fused", "int8"), ("socket_fused", "fp8"))
+# gemma-7b's continuous runs take its first 14 of 28 layers: with phase
+# 11 the whole script ran 1036 s at full depth, against its 1050 s
+# budget (its static run and the residency check keep full depth)
+GEMMA7B_DEPTH = 14
 
 
 def residency(block_bytes, pool_blocks, blocks_per_request) -> dict:
@@ -3542,7 +3603,7 @@ def phase_all_global(dev, seed, card) -> dict:
         with phase_clock(f"continuous phase ({label})", dev):
             counts, tokens[backend, kv_dtype], _ = phase_continuous(
                 dev, seed, card, params, backend, arch="gemma-7b",
-                kv_dtype=kv_dtype)
+                kv_dtype=kv_dtype, num_groups=GEMMA7B_DEPTH)
             gc.collect()
             torch.cuda.empty_cache()
         launches.update({f"{k}[gemma-7b {kv_dtype}]": v
@@ -5187,11 +5248,9 @@ def mesh_parity_rank(rank, world, tmp, seed) -> None:
                 f"accum {accum}: step s "
                 f"{[round(m['step_s'], 3) for m in run['metrics']]}, peak "
                 f"{run['peak_gb']:.2f} GB; card to card "
-                f"{collectives.PEER_COPIED}, through host memory "
-                f"{collectives.HOST_STAGED}")
+                f"{collectives.PEER_COPIED}")
         gc.collect()
         torch.cuda.empty_cache()
-    res["host_staged"] = dict(collectives.HOST_STAGED)
     res["peer_copied"] = dict(collectives.PEER_COPIED)
     del params
     gc.collect()
@@ -5250,9 +5309,8 @@ def phase_mesh_parity(dev, seed, card) -> dict:
                             weights_only=False) for r in range(MESH_WORLD)]
     log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
         f"{ranks[0]['backend']}, devices {[r['device'] for r in ranks]}; "
-        f"gathers and reduce-scatters card to card (a rank's mailbox): "
-        f"{ranks[0]['peer_copied']}; through host memory: "
-        f"{ranks[0]['host_staged']}")
+        f"collectives card to card (a rank's mailbox): "
+        f"{ranks[0]['peer_copied']}")
     entry = {}
     for shape, bits, accum in MESH_CASES:
         case = f"{shape[0]}x{shape[1]}-b{bits}-a{accum}"
@@ -5311,7 +5369,7 @@ def phase_mesh_parity(dev, seed, card) -> dict:
         f"{max(c['errors'] for c in comp):.3e} (COMPRESSION_TOL "
         f"{COMPRESSION_TOL}); a round on rank 0 "
         f"{[round(x, 3) for x in comp[0]['round_s']]} s (an all-reduce "
-        "of float32, " + ("staged through host memory under gloo)"
+        "of float32, " + ("through the ranks' mailboxes under gloo)"
                           if ranks[0]["backend"] == "gloo" else
                           "on the cards under NCCL)"))
     entry["compression"] = dict(
@@ -5374,7 +5432,6 @@ def mesh_timed_rank(rank, world, tmp, seed, depth) -> None:
     collectives.TIMING["on"] = False
     torch.save(dict(metrics=metrics, launches=read_launches(),
                     collective_s=dict(collectives.SECONDS),
-                    host_staged=dict(collectives.HOST_STAGED),
                     peer_copied=dict(collectives.PEER_COPIED),
                     peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                     backend=backend, device=str(dev)),
@@ -5447,7 +5504,6 @@ def phase_mesh_timed(dev, seed, card) -> dict:
                peak_gb=[r["peak_gb"] for r in ranks],
                timed_step_s=timed_s, collective_s=coll,
                collective_share={k: v / timed_s for k, v in coll.items()},
-               host_staged=ranks[0]["host_staged"],
                peer_copied=ranks[0]["peer_copied"], launches=launches,
                backend=ranks[0]["backend"], layers=cfg.num_layers,
                card=card)
@@ -5460,8 +5516,7 @@ def phase_mesh_timed(dev, seed, card) -> dict:
         f"{timed_s:.3f} s, of it gathers {coll['all_gather']:.3f} s, "
         f"reduce-scatters {coll['reduce_scatter']:.3f} s, all-reduces "
         f"{coll['all_reduce']:.3f} s; flash_prefill {launches} launches; "
-        f"card to card {ranks[0]['peer_copied']}, through host memory "
-        f"{ranks[0]['host_staged']}")
+        f"card to card {ranks[0]['peer_copied']}")
     log(json.dumps({"mesh_10b": out}))
     return out
 
@@ -5607,15 +5662,935 @@ def phase_mesh(dev, seed, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 11
+
+# 11a: mixtral-8x22b at full width (d 6144, 8 experts of d_ff 16384, its
+# published "tp" storage) with moe_dispatch="alltoall", as the JAX
+# package's dry run sets it for training cells, on a (2, 2) mesh
+EP_WORLD, EP_MESH = 4, (2, 2)
+EP_DEADLINE_S = 420
+# the f32 parity run: 1 of 56 layers (one layer is 2.5 B parameters),
+# 4 rows x 128 tokens, 2 steps, remat full, 8-bit moments, dropless: at
+# a capacity factor of ``model`` (2) a page holds every assignment a rank
+# makes (the JAX package's test takes 8 at model 4).  Four ranks' f32
+# shards, gathered experts and their gradients with 32-bit moments, or
+# 8 with its four times wider expert buffers, do not fit on one card
+EP_DEPTH = 1
+EP_ROWS, EP_SEQ, EP_STEPS = 4, 128, 2
+EP_CF = 2.0
+EP_BITS = 8
+# the drops case: one MoE layer's exchange at capacity factor 1.0 against
+# the plain single-process exchange (``apply_moe_alltoall_ref``), the same
+# products on the same card (a slot moved by an unstable sort moves a
+# token's output by its whole size)
+EP_DROP_ROWS, EP_DROP_SEQ = 2, 512
+EP_DROP_REL = 1e-6
+# the bf16 timed run: remat full, 8-bit moments, 2 of 56 layers, one
+# 2048-token row a data rank (four ranks' shards, gathered experts, their
+# gradients and a 4096-token row's expert buffers and logits do not fit
+# on one card), mixtral's capacity factor
+EP_TIMED_DEPTH = 2
+EP_TIMED_SEQ, EP_TIMED_STEPS = 2048, 3
+# 11b: llama31-8b's blocks as 4 stages, 8 microbatches of one row
+PIPE_STAGES, PIPE_MICRO = 4, 8
+PIPE_DEADLINE_S = 300
+# the f32 parity run: 2 layers a stage, 512 tokens a row
+PIPE_PER_STAGE, PIPE_SEQ = 2, 512
+# the output's and each gradient leaf's relative L2 distance from the
+# sequential stack's: a microbatch of one row runs other product shapes
+# than the whole batch (cuBLAS picks its kernels by shape), float32
+PIPE_OUT_REL, PIPE_GRAD_REL = 1e-5, 1e-4
+# the bf16 timed run: full depth (8 layers a stage), 4096 tokens a row,
+# forward, the first run a warm-up
+PIPE_TIMED_SEQ, PIPE_TIMED_RUNS = 4096, 3
+# 11c: hybrid SOCKET models under a CP mesh, weights replicated per rank
+# at bf16 (dryrun_model_config's decode numerics): (arch, groups, ranks);
+# gemma3-27b 1 of 10 groups (5 local, 1 global) on 4 ranks, ~8 GB a
+# rank; jamba-v0.1-52b 1 of 4 groups on 2 ranks, ~27 GB a rank (four
+# copies do not fit on one card).  CP_PROMPT tokens, CP_STEPS greedy
+# steps
+CPH_CASES = (("gemma3-27b", 1, 4), ("jamba-v0.1-52b", 1, 2))
+CPH_DEADLINE_S = 420
+
+
+def ep_config(depth=EP_DEPTH, dispatch="alltoall"):
+    from repro_torch.launch.serve import card_config
+    return card_config("mixtral-8x22b").replace(
+        num_groups=depth, moe_dispatch=dispatch, capacity_factor=EP_CF,
+        remat_policy="full")
+
+
+def ep_timed_config(depth=EP_TIMED_DEPTH):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import SHAPES, dryrun_model_config
+    return dryrun_model_config(get_config("mixtral-8x22b"),
+                               SHAPES["train_4k"]).replace(
+        num_groups=depth, moe_dispatch="alltoall")
+
+
+@contextlib.contextmanager
+def expert_spy():
+    """Records the shape and bytes of every expert leaf the sharded step
+    gathers (``fsdp.gather_experts``): a rank's own experts only."""
+    from repro_torch.distributed import fsdp
+    seen = []
+    orig = fsdp.gather_experts
+
+    def spy(local, sharding):
+        out = orig(local, sharding)
+        seen.append((tuple(out.shape), out.numel() * out.element_size()))
+        return out
+    fsdp.gather_experts = spy
+    try:
+        yield seen
+    finally:
+        fsdp.gather_experts = orig
+
+
+def expert_bytes_gate(label, cfg, blocks, gathered) -> dict:
+    """Each rank's stored block of every expert leaf is a quarter of the
+    leaf (``d_ff`` over ``model``, ``d`` over ``data``) and every expert
+    leaf it gathered for the exchange holds its E / model experts whole:
+    E / model x d x d_ff elements."""
+    e, model = cfg.num_experts, EP_MESH[1]
+    whole = e * cfg.d_model * cfg.d_ff
+    for r, (blk, seen) in enumerate(zip(blocks, gathered)):
+        leaves = {p: t for p, t in blk.items() if "['moe']['w_" in p}
+        if len(leaves) != 3 * cfg.num_layers:
+            raise AssertionError(f"{label}: rank {r} holds {len(leaves)} "
+                                 "expert leaves")
+        for p, n in leaves.items():
+            if n != whole // EP_WORLD:
+                raise AssertionError(f"{label}: rank {r}'s {p} holds {n} "
+                                     f"elements, not {whole // EP_WORLD}")
+        own = whole // model
+        bad = [s for s in seen if s[0][0] != e // model or
+               math.prod(s[0]) != own]
+        if not seen or bad:
+            raise AssertionError(f"{label}: rank {r} gathered expert "
+                                 f"leaves {bad or 'none'}, each must be its "
+                                 f"{e // model} experts ({own} elements)")
+    return {"stored_elements": whole // EP_WORLD,
+            "gathered_shape": gathered[0][0][0],
+            "gathered_bytes": gathered[0][0][1]}
+
+
+@contextlib.contextmanager
+def plain_exchange(mesh_shape=EP_MESH):
+    """One process's MoE layers (``T > 1``) through the plain exchange
+    (``apply_moe_alltoall_ref`` on a ``mesh_shape`` mesh): at a dropless
+    capacity factor global dispatch's outputs, and the aux losses the
+    mean of the ranks' token blocks' (JAX's ``pmean``), which the
+    global batch's load-balance loss is not."""
+    from repro_torch.models import moe
+    orig = moe.apply_moe
+
+    def plain(cfg, params, x, split=None):
+        if x.shape[1] > 1:
+            return moe.apply_moe_alltoall_ref(cfg, params, x, *mesh_shape)
+        return orig(cfg, params, x, split)
+    moe.apply_moe = plain
+    try:
+        yield
+    finally:
+        moe.apply_moe = orig
+
+
+def ep_parity_run(cfg, mesh, params, batches, dev) -> dict:
+    """One rank's sharded steps (``mesh_train_run``, EP_BITS moments,
+    accum 1) with the expert leaves it gathers recorded (their first
+    forward's) and each stored block's element count."""
+    with expert_spy() as seen:
+        run = mesh_train_run(cfg, mesh_ocfg(EP_BITS), mesh, 1, params,
+                             batches, dev)
+    run["gathered"] = seen[:3 * cfg.num_layers]
+    run["stored"] = {p: t.numel() for p, t in run["params"].items()}
+    return run
+
+
+def ep_drop_case(cfg, seed, dev, rows=EP_DROP_ROWS, seq=EP_DROP_SEQ):
+    """11a's drops case: ``cfg``'s MoE layer at capacity factor 1.0 (its
+    weights drawn from the seed) and a whole batch of tokens."""
+    from repro_torch.models import moe
+    from repro_torch.models import param as pm
+    cfg = cfg.replace(capacity_factor=1.0)
+    params = pm.unbox(moe.init_moe(cfg, pm.generator(seed + 5, dev)))
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    x = torch.randn(rows, seq, cfg.d_model, generator=gen, device=dev)
+    return cfg, params, x
+
+
+@contextlib.contextmanager
+def slot_spy():
+    """Counts the assignments ``models/moe.py``'s exchange drops (its
+    ``_sort_slots``'s keep masks)."""
+    from repro_torch.models import moe
+    dropped = [0]
+    orig = moe._sort_slots
+
+    def spy(ids, count, capacity):
+        keep, slot = orig(ids, count, capacity)
+        dropped[0] += int((~keep).sum())
+        return keep, slot
+    moe._sort_slots = spy
+    try:
+        yield dropped
+    finally:
+        moe._sort_slots = orig
+
+
+@torch.no_grad()
+def ep_drop_run(cfg, params, x, mesh) -> dict:
+    """The drops case through the exchange under ``mesh`` (every rank the
+    whole batch, serving's layout): the output and this rank's drops."""
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.models import moe
+    with activate_mesh(mesh), slot_spy() as dropped:
+        y, _ = moe.apply_moe(cfg, params, x)
+    return dict(y=y.cpu(), dropped=dropped[0])
+
+
+def ep_drop_gate(label, ranks, cfg, params, x) -> dict:
+    """Every rank's output within EP_DROP_REL (relative L2) of the plain
+    single-process exchange (``apply_moe_alltoall_ref``) and the ranks'
+    drops, summed, the reference's, which drops some: the same drops in
+    the same slots."""
+    from repro_torch.models import moe
+    with torch.no_grad(), slot_spy() as dropped:
+        ref, _ = moe.apply_moe_alltoall_ref(cfg, params, x, *EP_MESH)
+    ref = ref.cpu()
+    drops = sum(r["dropped"] for r in ranks)
+    if not dropped[0] or drops != dropped[0]:
+        raise AssertionError(f"{label}: the ranks dropped {drops} "
+                             f"assignments, the plain exchange "
+                             f"{dropped[0]} (it must drop some)")
+    worst = 0.0
+    for r, got in enumerate(ranks):
+        d = float((got["y"].double() - ref.double()).norm() /
+                  ref.double().norm())
+        if not d <= EP_DROP_REL:
+            raise AssertionError(f"{label}: rank {r}'s output {d:.3e} "
+                                 "(relative L2) from the plain exchange's "
+                                 f"(limit {EP_DROP_REL})")
+        worst = max(worst, d)
+    return dict(rel=worst, dropped=drops,
+                assignments=x.shape[0] * x.shape[1] *
+                cfg.num_experts_per_tok)
+
+
+def ep_rank(rank, world, tmp, seed) -> None:
+    """11a on one rank: the f32 parity run, the drops case, then the bf16
+    timed run."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, fsdp
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.steps import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init11a", "cuda")
+    mesh = make_test_mesh(*EP_MESH)
+    cfg = ep_config()
+    params = tree_to(tfm.init_model(cfg, seed, dev), "cpu")
+    torch.cuda.empty_cache()
+    batches = [train_batch(cfg, EP_ROWS, EP_SEQ, seed, i, dev)
+               for i in range(EP_STEPS)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = ep_parity_run(cfg, mesh, params, batches, dev)
+    run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    drop = ep_drop_run(*ep_drop_case(cfg, seed, dev), mesh)
+    gc.collect()
+    # the f32 runs' mailboxes (each its group's largest tensor) go before
+    # the bf16 run makes its own
+    collectives.close_mailboxes()
+    dist.barrier()
+    torch.cuda.empty_cache()
+    # the bf16 timed run: blocks drawn as the Trainer draws them
+    tcfg = ep_timed_config()
+    ocfg = mesh_ocfg(8, schedule={})
+    psds, psh = sp.param_specs(tcfg, mesh, {})
+    osds, osh = sp.opt_specs(ocfg, psds, psh, mesh, {})
+    local = fsdp.init_shards(tcfg, seed, fsdp.flat_tree(psh), dev)
+    opt = fsdp.zeros_tree(osds, fsdp.flat_tree(osh), dev)
+    step = make_train_step(tcfg, ocfg, 1, grad_shardings=psh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in collectives.SECONDS:
+        collectives.SECONDS[k] = 0.0
+    dist.barrier()
+    reset_launches()
+    metrics = []
+    for i in range(EP_TIMED_STEPS):
+        batch = train_batch(tcfg, EP_MESH[0], EP_TIMED_SEQ, seed, i, dev)
+        timed = i == EP_TIMED_STEPS - 1
+        collectives.TIMING["on"] = timed
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        torch.cuda.synchronize(dev)
+        m = {k: float(v) for k, v in m.items()}
+        m["step_s"] = time.perf_counter() - t0
+        metrics.append(m)
+        if rank == 0:
+            log(f"  ep 11a timed rank 0 step {i}: loss {m['loss']:.6f}, "
+                f"{m['step_s']:.3f} s" + (" (collectives timed)" if timed
+                                          else ""))
+    collectives.TIMING["on"] = False
+    timed_run = dict(metrics=metrics, launches=read_launches(),
+                     collective_s=dict(collectives.SECONDS),
+                     peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    torch.save(dict(parity=run, drop=drop, timed=timed_run, backend=backend,
+                    device=str(dev),
+                    peer_copied=dict(collectives.PEER_COPIED)),
+               os.path.join(tmp, f"ep11a_{rank}.pt"))
+    end_rank()
+
+
+def phase_ep(dev, seed, card) -> dict:
+    """Phase 11a (see the module docstring); returns the ``flash_prefill``
+    row's ``ep`` entry."""
+    import tempfile
+    from repro_torch.launch.mesh import collective_backend, spawn_ranks
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import init_adamw
+    from repro_torch.runtime.steps import make_train_step
+    cfg = ep_config()
+    label = (f"ep 11a mixtral-8x22b {cfg.num_layers} of 56 layers, f32, "
+             f"{EP_BITS}-bit moments, alltoall on {EP_MESH}, {EP_ROWS} x "
+             f"{EP_SEQ} tokens, {EP_STEPS} steps")
+    log(f"{label}: {cfg.param_count() / 1e9:.3f} B params, widths as "
+        f"published (d {cfg.d_model}, {cfg.num_experts} experts of d_ff "
+        f"{cfg.d_ff}, {cfg.moe_parallelism} storage); depth cut to "
+        f"{EP_DEPTH} (four ranks' f32 shards, gathered experts and their "
+        f"gradients on one card); capacity factor {EP_CF} "
+        f"(dropless at model {EP_MESH[1]}); backend "
+        f"{collective_backend(EP_WORLD, 'cuda')}; "
+        f"{card}")
+    with phase_clock("ep 11a one-process reference (the plain exchange)",
+                     dev), plain_exchange():
+        params = tfm.init_model(cfg, seed, dev)
+        init = {path: t.to("cpu", copy=True)
+                for path, t in fsdp_flat(params).items()}
+        ocfg = mesh_ocfg(EP_BITS)
+        opt = init_adamw(ocfg, params)
+        step = make_train_step(cfg, ocfg, 1)
+        ref_ms = []
+        for i in range(EP_STEPS):
+            params, opt, m = step(params, opt, train_batch(
+                cfg, EP_ROWS, EP_SEQ, seed, i, dev))
+            ref_ms.append({k: float(v) for k, v in m.items()})
+        ref = {path: t.cpu() for path, t in fsdp_flat(params).items()}
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(ep_rank, EP_WORLD, (EP_WORLD, tmp, seed),
+                    deadline_s=EP_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"ep11a_{r}.pt"),
+                            weights_only=False) for r in range(EP_WORLD)]
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
+        f"{ranks[0]['backend']}, devices {[r['device'] for r in ranks]}; "
+        f"collectives card to card: {ranks[0]['peer_copied']}")
+    got = [r["parity"] for r in ranks]
+    if not all(g["shapes"] for g in got):
+        raise AssertionError(f"{label}: a rank holds a block off its "
+                             "spec's shard shape")
+    worst = mesh_metrics_gate(label, [g["metrics"] for g in got], ref_ms)
+
+    def on_card(tree):
+        return {p: t.to(dev) for p, t in tree.items()}
+
+    perr = mesh_params_gate(
+        label, [on_card(g.pop("params")) for g in got], on_card(ref),
+        on_card(init), [ep_shardings(cfg, r) for r in range(EP_WORLD)],
+        EP_BITS)
+    del ref, init
+    torch.cuda.empty_cache()
+    experts = expert_bytes_gate(label, cfg, [g["stored"] for g in got],
+                                [g["gathered"] for g in got])
+    launches = mesh_launch_gate(label, got, cfg.num_layers, 2 * EP_STEPS)
+    dcfg, dparams, dx = ep_drop_case(cfg, seed, dev)
+    drops = ep_drop_gate(f"{label} drops case", [r["drop"] for r in ranks],
+                         dcfg, dparams, dx)
+    del dparams, dx
+    torch.cuda.empty_cache()
+    log(f"  {label} drops case (one MoE layer, capacity factor 1.0, "
+        f"{EP_DROP_ROWS} x {EP_DROP_SEQ} tokens): {drops['dropped']} of "
+        f"{drops['assignments']} assignments dropped, as the plain "
+        f"exchange drops them; outputs {drops['rel']:.3e} (relative L2, "
+        f"limit {EP_DROP_REL}) from its")
+    log(f"  {label}: losses {[m['loss'] for m in got[0]['metrics']]} (one "
+        f"process, the plain exchange: {[m['loss'] for m in ref_ms]}); "
+        f"largest relative loss {worst['loss']:.3e} (limit "
+        f"{TRAIN_LOSS_RTOL}), grad norm {worst['grad_norm']:.3e} (limit "
+        f"{TRAIN_GRAD_RTOL}); parameters: the largest block L2 distance "
+        f"{perr['update_rel']:.3e} of the one-process step's update "
+        f"({perr['update_leaf']}; limit {MESH_UPDATE_RTOL[EP_BITS]}); expert "
+        f"leaves: {experts}; flash_prefill {launches} launches; peak GB "
+        f"{[round(g['peak_gb'], 2) for g in got]}")
+    # the bf16 timed run
+    tcfg = ep_timed_config()
+    tlabel = (f"ep 11a mixtral-8x22b {tcfg.num_layers} of 56 layers, bf16, "
+              f"remat full, 8-bit moments, alltoall on {EP_MESH}, "
+              f"{EP_TIMED_SEQ} tokens a data rank")
+    timed = [r["timed"] for r in ranks]
+    losses = [m["loss"] for m in timed[0]["metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tlabel}: losses {losses}")
+    for r, t in enumerate(timed):
+        if [m["loss"] for m in t["metrics"]] != losses:
+            raise AssertionError(f"{tlabel}: rank {r}'s losses differ")
+    tlaunch = mesh_launch_gate(tlabel, timed, tcfg.num_layers,
+                               2 * EP_TIMED_STEPS)
+    step_s = min(max(t["metrics"][i]["step_s"] for t in timed)
+                 for i in range(1, EP_TIMED_STEPS - 1))
+    timed_s = max(t["metrics"][-1]["step_s"] for t in timed)
+    coll = {k: max(t["collective_s"][k] for t in timed)
+            for k in timed[0]["collective_s"]}
+    tokens = EP_MESH[0] * EP_TIMED_SEQ
+    out = dict(loss=losses, step_s=step_s, tokens_per_s=tokens / step_s,
+               peak_gb=[t["peak_gb"] for t in timed], timed_step_s=timed_s,
+               collective_s=coll,
+               all_to_all_share=coll["all_to_all"] / timed_s,
+               launches=tlaunch, layers=tcfg.num_layers)
+    log(f"  {tlabel}: {tcfg.param_count() / 1e9:.3f} B params; losses "
+        f"{losses}; step {step_s:.3f} s, {tokens / step_s:.1f} tokens/s "
+        f"over {EP_WORLD} ranks; peak GB "
+        f"{[round(t['peak_gb'], 2) for t in timed]}; the instrumented step "
+        f"{timed_s:.3f} s, of it all-to-alls {coll['all_to_all']:.3f} s "
+        f"({coll['all_to_all'] / timed_s:.3f}), gathers "
+        f"{coll['all_gather']:.3f} s, reduce-scatters "
+        f"{coll['reduce_scatter']:.3f} s, all-reduces "
+        f"{coll['all_reduce']:.3f} s; flash_prefill {tlaunch} launches; "
+        f"{card}")
+    if torch.cuda.device_count() < EP_WORLD:
+        log(f"  the {EP_WORLD} ranks share one card: their times are that "
+            "card's under four processes, and the all-to-all's share is "
+            "the mailbox rig's, not a deployment's")
+    return dict(parity=dict(worst, params=perr, experts=experts,
+                            launches=launches, drops=drops,
+                            peak_gb=[g["peak_gb"] for g in got]),
+                timed=out, launches=launches + tlaunch,
+                backend=ranks[0]["backend"], card=card)
+
+
+def fsdp_flat(tree) -> dict:
+    from repro_torch.distributed import fsdp
+    return fsdp.flat_tree(tree)
+
+
+def ep_shardings(cfg, rank) -> dict:
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import Mesh
+    return fsdp.flat_tree(sp.param_specs(
+        cfg, Mesh(("data", "model"), EP_MESH, rank=rank), {})[1])
+
+
+def pipe_config(depth, numerics="f32"):
+    from repro_torch.launch.serve import card_config
+    cfg = card_config("llama31-8b", numerics)
+    return cfg.replace(num_groups=depth)
+
+
+def pipe_stage_fn(cfg, seq, clock=None):
+    """One stage's layers (llama31-8b's blocks, ``stage_fn(params, x)``
+    with ``params`` the stage's list of layer dicts); ``clock`` collects
+    each call's seconds (the device synchronised around it)."""
+    from repro_torch.models import transformer as tfm
+    spec = cfg.pattern[0]
+
+    def stage_fn(params, x):
+        if clock is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        pos = torch.arange(seq, device=x.device).expand(x.shape[0], seq)
+        for lp in params:
+            x, _, _ = tfm._block_train(cfg, lp, spec, x, pos)
+        if clock is not None:
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter() - t0)
+        return x
+    return stage_fn
+
+
+def pipe_stage_params(cfg, seed, dev, stage, per_stage):
+    """(the embedding, this stage's layers as ``(1, ...)`` blocks): drawn a
+    unit at a time as ``init_model`` draws them, the other stages'
+    layers dropped."""
+    from repro_torch.models import transformer as tfm
+    lo, hi = stage * per_stage, (stage + 1) * per_stage
+
+    def place(path, t):
+        if path.startswith("['layers']"):
+            i = int(path.split("]")[1].lstrip("["))
+            return t[None] if lo <= i < hi else None
+        return t if path.startswith("['embed']") else None
+    tree = tfm.init_model_placed(cfg, seed, dev, place)
+    return tree["embed"], tree["layers"][lo:hi]
+
+
+def pipe_input(cfg, embed, seq, seed, dev):
+    from repro_torch.models.layers import embed_tokens
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, seq),
+                           generator=gen, device=dev)
+    return embed_tokens(cfg, embed, tokens)
+
+
+def pipe_parity_run(cfg, seed, dev, mesh, seq=PIPE_SEQ) -> dict:
+    """One stage's share of the f32 parity run: its layers' ``(1, ...)``
+    blocks drawn from the seed, the pipeline's output (stage 0's copy)
+    and the gradients of :func:`pipe_loss` (the input's on stage 0, this
+    stage's leaves'), launches counted from 0."""
+    import torch.distributed as dist
+    from repro_torch.distributed.pipeline import gpipe_forward
+    stage, per = mesh.index(("stage",)), cfg.num_layers // PIPE_STAGES
+    embed, layers = pipe_stage_params(cfg, seed, dev, stage, per)
+    x = pipe_input(cfg, embed, seq, seed, dev).detach().requires_grad_()
+    del embed
+    leaves = [t.requires_grad_() for lp in layers for t in lp_leaves(lp)]
+    dist.barrier()
+    reset_launches()
+    out = gpipe_forward(mesh, "stage", pipe_stage_fn(cfg, seq), layers, x,
+                        PIPE_MICRO)
+    grads = torch.autograd.grad(pipe_loss(out), [x] + leaves,
+                                allow_unused=True)
+    first = stage == 0
+    return dict(out=out.detach().cpu() if first else None,
+                gx=grads[0].cpu() if first else None,
+                g={p: g[0].cpu() for p, g in zip(lp_paths(layers, stage),
+                                                  grads[1:])
+                   if g is not None},
+                launches=read_launches(),
+                stage_bytes=sum(t.numel() * t.element_size()
+                                for t in leaves))
+
+
+def pipe_rank(rank, world, tmp, seed) -> None:
+    """11b on one rank (one stage): the f32 parity run with its
+    gradients, then the bf16 timed forwards at full depth."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.pipeline import gpipe_forward
+    from repro_torch.launch.mesh import Mesh, init_rank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init11b", "cuda")
+    mesh = Mesh(("stage",), (world,), rank=rank)
+    mesh.build_groups()
+    parity = pipe_parity_run(pipe_config(PIPE_STAGES * PIPE_PER_STAGE),
+                             seed, dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16 at full depth, forward: each stage's busy seconds
+    tcfg = pipe_config(32, "bf16")
+    per = tcfg.num_layers // PIPE_STAGES
+    embed, layers = pipe_stage_params(tcfg, seed, dev, rank, per)
+    x = pipe_input(tcfg, embed, PIPE_TIMED_SEQ, seed, dev)
+    del embed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    reset_launches()
+    with torch.no_grad():
+        for i in range(PIPE_TIMED_RUNS):
+            clock = []
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            y = gpipe_forward(mesh, "stage",
+                              pipe_stage_fn(tcfg, PIPE_TIMED_SEQ, clock),
+                              layers, x, PIPE_MICRO)
+            torch.cuda.synchronize(dev)
+            runs.append(dict(wall_s=time.perf_counter() - t0,
+                             busy_s=sum(clock), calls=len(clock),
+                             finite=bool(torch.isfinite(y).all()),
+                             digest=float(y.float().abs().sum())))
+    timed = dict(runs=runs, launches=read_launches(),
+                 peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                 layers=per)
+    torch.save(dict(parity=parity, timed=timed, backend=backend,
+                    device=str(dev),
+                    peer_copied=dict(collectives.PEER_COPIED)),
+               os.path.join(tmp, f"pipe11b_{rank}.pt"))
+    end_rank()
+
+
+def lp_leaves(lp) -> list:
+    return list(fsdp_flat(lp).values())
+
+
+def lp_paths(layers, stage) -> list:
+    """The global paths (``['layers'][i]...``) of a stage's leaves, in
+    :func:`lp_leaves` order."""
+    per = len(layers)
+    return [f"['layers'][{stage * per + i}]{p}"
+            for i, lp in enumerate(layers) for p in fsdp_flat(lp)]
+
+
+def pipe_loss(out):
+    return (out.float() ** 2).mean()
+
+
+def pipe_gate(label, got, want, rel) -> float:
+    """``got``'s relative L2 distance from ``want`` within ``rel``."""
+    d = float((got.double() - want.double()).norm() /
+              want.double().norm().clamp(min=1e-30))
+    if not (math.isfinite(d) and d <= rel):
+        raise AssertionError(f"{label}: relative L2 {d:.3e} from the "
+                             f"sequential stack's (limit {rel})")
+    return d
+
+
+def pipe_parity_gates(label, ranks, ref) -> dict:
+    """The ranks' output (every stage's: the broadcast), the input's
+    gradient and each stage's parameter gradients against the sequential
+    stack's."""
+    out = pipe_gate(f"{label} output", ranks[0]["out"], ref["out"],
+                    PIPE_OUT_REL)
+    gx = pipe_gate(f"{label} input gradient", ranks[0]["gx"], ref["gx"],
+                   PIPE_GRAD_REL)
+    worst, leaf = 0.0, None
+    seen = set()
+    for got in ranks:
+        for path, g in got["g"].items():
+            d = pipe_gate(f"{label} {path}", g, ref["g"][path],
+                          PIPE_GRAD_REL)
+            seen.add(path)
+            if d > worst:
+                worst, leaf = d, path
+    if seen != set(ref["g"]):
+        raise AssertionError(f"{label}: stages' leaves "
+                             f"{sorted(set(ref['g']) ^ seen)[:4]} missing")
+    return dict(out_rel=out, input_grad_rel=gx, grad_rel=worst,
+                grad_leaf=leaf)
+
+
+def pipe_reference(cfg, seed, dev, seq=PIPE_SEQ) -> dict:
+    """The sequential stack (every layer in one process) on the same
+    input: its output and the gradients of :func:`pipe_loss`."""
+    from repro_torch.models import transformer as tfm
+    params = tfm.init_model(cfg, seed, dev)
+    x = pipe_input(cfg, params["embed"], seq, seed, dev).detach()
+    x.requires_grad_()
+    leaves = [t.requires_grad_() for lp in params["layers"]
+              for t in lp_leaves(lp)]
+    out = pipe_stage_fn(cfg, seq)(params["layers"], x)
+    grads = torch.autograd.grad(pipe_loss(out), [x] + leaves,
+                                allow_unused=True)
+    paths = [f"['layers'][{i}]{p}" for i, lp in enumerate(params["layers"])
+             for p in fsdp_flat(lp)]
+    # the hash planes take no part in the training forward
+    return dict(out=out.detach().cpu(), gx=grads[0].cpu(),
+                g={p: g.cpu() for p, g in zip(paths, grads[1:])
+                   if g is not None})
+
+
+def phase_pipe(dev, seed, card) -> dict:
+    """Phase 11b (see the module docstring); returns the
+    ``flash_prefill`` row's ``pipe`` entry."""
+    import tempfile
+    from repro_torch.launch.mesh import collective_backend, spawn_ranks
+    cfg = pipe_config(PIPE_STAGES * PIPE_PER_STAGE)
+    label = (f"pipe 11b llama31-8b {cfg.num_layers} layers as "
+             f"{PIPE_STAGES} stages, {PIPE_MICRO} microbatches of 1 x "
+             f"{PIPE_SEQ} tokens, f32")
+    log(f"{label}: {PIPE_PER_STAGE} layers a stage (widths as published); "
+        f"backend {collective_backend(PIPE_STAGES, 'cuda')}; {card}")
+    with phase_clock("pipe 11b sequential reference", dev):
+        ref = pipe_reference(cfg, seed, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(pipe_rank, PIPE_STAGES, (PIPE_STAGES, tmp, seed),
+                    deadline_s=PIPE_DEADLINE_S)
+        ranks = [torch.load(os.path.join(tmp, f"pipe11b_{r}.pt"),
+                            weights_only=False) for r in range(PIPE_STAGES)]
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
+        f"{ranks[0]['backend']}, devices {[r['device'] for r in ranks]}; "
+        f"collectives card to card: {ranks[0]['peer_copied']}")
+    parity = [r["parity"] for r in ranks]
+    gates = pipe_parity_gates(label, parity, ref)
+    # every stage's prefill-op launches: its layers x microbatches
+    # forward (the backward takes the plain version's gradient)
+    launches = mesh_launch_gate(label, parity, PIPE_PER_STAGE, PIPE_MICRO)
+    stage_gb = [p["stage_bytes"] / 1e9 for p in parity]
+    log(f"  {label}: output {gates['out_rel']:.3e} (relative L2, limit "
+        f"{PIPE_OUT_REL}), input gradient {gates['input_grad_rel']:.3e}, "
+        f"worst parameter gradient {gates['grad_rel']:.3e} "
+        f"({gates['grad_leaf']}; limit {PIPE_GRAD_REL}) from the "
+        f"sequential stack; each stage holds {stage_gb} GB of weights "
+        f"(its {PIPE_PER_STAGE} layers); flash_prefill {launches} "
+        "launches")
+    timed = [r["timed"] for r in ranks]
+    tlabel = (f"pipe 11b llama31-8b 32 layers as {PIPE_STAGES} stages of "
+              f"{timed[0]['layers']}, bf16, {PIPE_MICRO} microbatches of 1 "
+              f"x {PIPE_TIMED_SEQ} tokens, forward")
+    for r, t in enumerate(timed):
+        if not all(run["finite"] for run in t["runs"]):
+            raise AssertionError(f"{tlabel}: rank {r}'s output not finite")
+        if [run["digest"] for run in t["runs"]] != \
+                [run["digest"] for run in timed[0]["runs"]]:
+            raise AssertionError(f"{tlabel}: rank {r}'s output differs "
+                                 "from rank 0's (the broadcast)")
+        if any(run["calls"] != PIPE_MICRO for run in t["runs"]):
+            raise AssertionError(f"{tlabel}: rank {r} ran its stage "
+                                 f"{[run['calls'] for run in t['runs']]} "
+                                 f"times a run, not {PIPE_MICRO}")
+    tlaunch = mesh_launch_gate(tlabel, timed, timed[0]["layers"],
+                               PIPE_MICRO * PIPE_TIMED_RUNS)
+    theory = (PIPE_STAGES - 1) / (PIPE_MICRO + PIPE_STAGES - 1)
+    walls = [min(run["wall_s"] for run in t["runs"][1:]) for t in timed]
+    busy = [min(run["busy_s"] for run in t["runs"][1:]) for t in timed]
+    wall = max(walls)
+    bubble = [1 - b / wall for b in busy]
+    tokens = PIPE_MICRO * PIPE_TIMED_SEQ
+    log(f"  {tlabel}: a forward {wall:.3f} s, {tokens / wall:.1f} tokens/s; "
+        f"each stage busy {[round(b, 3) for b in busy]} s; measured bubble "
+        f"(1 - busy / wall) {[round(b, 3) for b in bubble]}, GPipe's "
+        f"(stages - 1) / (micro + stages - 1) = {theory:.3f}; peak GB "
+        f"{[round(t['peak_gb'], 2) for t in timed]}; flash_prefill "
+        f"{tlaunch} launches; {card}")
+    if torch.cuda.device_count() < PIPE_STAGES:
+        log(f"  the {PIPE_STAGES} stages share one card: a busy stage's "
+            "kernels share it with the others', so the measured bubble is "
+            "the rig's, not a pipeline's across cards")
+    return dict(parity=dict(gates, launches=launches, stage_gb=stage_gb),
+                timed=dict(wall_s=wall, tokens_per_s=tokens / wall,
+                           busy_s=busy, bubble=bubble, bubble_theory=theory,
+                           peak_gb=[t["peak_gb"] for t in timed],
+                           launches=tlaunch),
+                launches=launches + tlaunch, backend=ranks[0]["backend"],
+                card=card)
+
+
+def cph_config(arch, groups, cp_axes=("data",)):
+    """11c's model: ``arch`` at full width, ``groups`` of its groups, bf16
+    (``dryrun_model_config``'s decode numerics), SOCKET scores through
+    ``socket_score``."""
+    from repro_torch.launch.serve import card_config
+    cfg = card_config(arch, "bf16").replace(
+        num_groups=groups, decode_cp_axes=cp_axes, decode_cp_batch_axes=())
+    return cfg.replace(socket=dataclasses.replace(
+        cfg.socket, use_score_kernel=True, use_flash_decode=True))
+
+
+def cache_digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def cache_layout(cfg, caches) -> list:
+    """Each layer's kind and, for each leaf, its shape, bytes and (but for
+    a global layer's block) digest."""
+    out = []
+    for spec, c in zip(cfg.layer_specs, caches):
+        kind = spec.kind if spec.kind != "attn" else spec.attn_type
+        out.append((kind, {k: (tuple(v.shape), v.numel() * v.element_size(),
+                               None if kind == "global" else cache_digest(v))
+                           for k, v in c.items()}))
+    return out
+
+
+def cph_rank(rank, world, tmp, seed, arch, groups) -> None:
+    """11c on one rank: prefill (the ranks in turn) and greedy decode
+    under the CP mesh, launches counted from 0, the prefill caches'
+    layout."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import init_rank, make_test_mesh
+    from repro_torch.models import transformer as tfm
+    backend, dev = init_rank(rank, world, f"file://{tmp}/init11c", "cuda")
+    cfg = cph_config(arch, groups)
+    params = tfm.init_model(cfg, seed, dev)
+    prompt = cp_prompt(cfg, seed, dev)
+    with activate_mesh(make_test_mesh(world, 1)):
+        dist.barrier()
+        reset_launches()
+        for r in range(world):
+            if r == rank:
+                prefilled = cp_prefill(cfg, params, prompt)
+                layout = cache_layout(cfg, prefilled[1])
+                torch.cuda.empty_cache()
+            dist.barrier()
+        toks, steps, prefill_s, step_s = cp_drive(cfg, params, prompt,
+                                                  prefilled=prefilled)
+        launches = read_launches()
+    torch.save(dict(tokens=toks, logits=steps if rank == 0 else None,
+                    launches=launches, prefill_s=prefill_s, step_s=step_s,
+                    layout=layout, backend=backend, device=str(dev),
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9),
+               os.path.join(tmp, f"cph_{rank}.pt"))
+    end_rank()
+
+
+def cph_layout_gate(label, cfg, ranks, ref_layout) -> dict:
+    """Each rank's prefill caches: a global layer's leaves its block
+    (CP_CAPACITY / ranks rows, that share of the one process's bytes);
+    a local layer's ring and a Mamba layer's state whole, bitwise equal
+    on every rank and to the one process's."""
+    world = len(ranks)
+    out = {"global": 0, "whole": 0}
+    for r, got in enumerate(ranks):
+        for i, ((kind, leaves), (rkind, ref)) in enumerate(
+                zip(got["layout"], ref_layout)):
+            if kind != rkind or set(leaves) != set(ref):
+                raise AssertionError(f"{label}: rank {r} layer {i}'s cache "
+                                     f"{kind} {sorted(leaves)}, one process "
+                                     f"{rkind} {sorted(ref)}")
+            for name, (shape, nbytes, digest) in leaves.items():
+                rshape, rbytes, rdigest = ref[name]
+                if kind == "global":
+                    want = list(rshape)
+                    want[2] //= world
+                    if list(shape) != want or nbytes * world != rbytes:
+                        raise AssertionError(
+                            f"{label}: rank {r} layer {i} {name}: {shape}, "
+                            f"{nbytes} B; its block is {tuple(want)}, "
+                            f"{rbytes // world} B")
+                    out["global"] += nbytes
+                elif shape != rshape or digest != rdigest:
+                    raise AssertionError(
+                        f"{label}: rank {r} layer {i} ({kind}) {name}: "
+                        f"{shape} {digest}, one process {rshape} {rdigest}")
+                else:
+                    out["whole"] += nbytes
+    return {k: v // world for k, v in out.items()}
+
+
+def cph_launch_gate(label, cfg, ranks) -> dict:
+    """11c's launches on every rank: ``socket_score`` global layers x
+    steps, ``flash_prefill`` attention layers (each rank's whole
+    prefill), no other kernel.  Returns a rank's."""
+    n_attn = sum(1 for s in cfg.layer_specs if s.kind == "attn")
+    n_glob = sum(1 for s in cfg.layer_specs if s.kind == "attn" and
+                 s.attn_type == "global")
+    want = {"socket_score": n_glob * CP_STEPS, "flash_prefill": n_attn}
+    for r, got in enumerate(ranks):
+        bad = {k: v for k, v in got["launches"].items()
+               if v != want.get(k, 0)}
+        if bad:
+            raise AssertionError(f"{label}: rank {r} launched {bad}, "
+                                 f"expected {want} and no other kernel")
+    return want
+
+
+def phase_cp_hybrid(dev, seed, card) -> dict:
+    """Phase 11c (see the module docstring); returns the ``socket_score``
+    and ``flash_prefill`` rows' ``cp_hybrid`` entries."""
+    import tempfile
+    from repro_torch.distributed import context_parallel as cp
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import Mesh, spawn_ranks
+    from repro_torch.models import transformer as tfm
+    entry = {}
+    for arch, groups, world in CPH_CASES:
+        cfg = cph_config(arch, groups)
+        kinds = collections.Counter(layer_kinds(cfg))
+        label = (f"cp-hybrid 11c {arch} {groups} group(s) ({dict(kinds)}), "
+                 f"bf16, prompt {CP_PROMPT}, {CP_STEPS} steps, {world} ranks")
+        log(f"{label}: {cfg.param_count() / 1e9:.3f} B params a rank "
+            f"(replicated), widths as published; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn_ranks(cph_rank, world, (world, tmp, seed, arch, groups),
+                        deadline_s=CPH_DEADLINE_S)
+            ranks = [torch.load(os.path.join(tmp, f"cph_{r}.pt"),
+                                weights_only=False) for r in range(world)]
+        log(f"  ranks ran in {time.perf_counter() - t0:.1f} s, backend "
+            f"{ranks[0]['backend']}; peak GB "
+            f"{[round(r['peak_gb'], 2) for r in ranks]}; prefill s "
+            f"{[round(r['prefill_s'], 2) for r in ranks]}; decode step ms "
+            f"{[step_ms(r['step_s']) for r in ranks]}")
+        want = cph_launch_gate(label, cfg, ranks)
+        toks = ranks[0]["tokens"]
+        for r, got in enumerate(ranks):
+            if not torch.equal(got["tokens"], toks):
+                raise AssertionError(f"{label}: rank {r}'s tokens differ")
+        params = tfm.init_model(cfg, seed, dev)
+        prompt = cp_prompt(cfg, seed, dev)
+        attend = cp.context_parallel_socket_attend
+        cp.context_parallel_socket_attend = cp_plain_attend(world)
+        try:
+            with activate_mesh(Mesh(("data", "model"), (1, 1))):
+                prefilled = cp_prefill(cfg, params, prompt)
+                ref_layout = cache_layout(cfg, prefilled[1])
+                ref_toks, ref_steps, _, _ = cp_drive(cfg, params, prompt,
+                                                     prefilled=prefilled)
+                del prefilled
+        finally:
+            cp.context_parallel_socket_attend = attend
+        err = cp_logits_gate(label, toks, ranks[0]["logits"], ref_toks,
+                             ref_steps)
+        held = cph_layout_gate(label, cfg, ranks, ref_layout)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {label}: tokens {toks[0].tolist()}; logits max |err| "
+            f"{err:.3e} to one process (its CP attend the plain version "
+            f"over {world} shards; limit {LOGITS_ATOL}); each rank holds "
+            f"{held['global'] / 1e6:.1f} MB of global caches (its block) "
+            f"and {held['whole'] / 1e6:.1f} MB of rings and Mamba state "
+            f"(whole, bitwise the one process's); launches a rank {want}; "
+            f"{card}")
+        entry[arch] = dict(
+            logits_err=err, held=held, world=world,
+            launches={k: sum(g["launches"][k] for g in ranks) for k in want},
+            prefill_s=[r["prefill_s"] for r in ranks],
+            step_ms=[[x * 1e3 for x in r["step_s"]] for r in ranks],
+            peak_gb=[r["peak_gb"] for r in ranks])
+    return dict(
+        socket_score=dict(launches=sum(e["launches"]["socket_score"]
+                                       for e in entry.values()),
+                          cases=entry),
+        flash_prefill=dict(launches=sum(e["launches"]["flash_prefill"]
+                                        for e in entry.values())))
+
+
+def phase_parallel(dev, seed, card, only=None) -> dict:
+    """Phase 11: 11a, 11b, 11c (``only``: one of them); returns the rows'
+    entries: ``flash_prefill``'s ``ep``, ``pipe`` and ``cp_hybrid``,
+    ``socket_score``'s ``cp_hybrid``."""
+    rows = {"flash_prefill": {}, "socket_score": {}}
+    for name, fn in (("ep", phase_ep), ("pipe", phase_pipe),
+                     ("cp-hybrid", phase_cp_hybrid)):
+        if only not in (None, name):
+            continue
+        t0 = time.perf_counter()
+        got = fn(dev, seed, card)
+        if name == "cp-hybrid":
+            rows["flash_prefill"]["cp_hybrid"] = got["flash_prefill"]
+            rows["socket_score"]["cp_hybrid"] = got["socket_score"]
+        else:
+            rows["flash_prefill"][name] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"parallel {name}: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only",
-                    choices=["state-moe", "bf16", "train", "cp", "mesh"],
+                    choices=["state-moe", "bf16", "train", "cp", "mesh",
+                             "ep", "pipe", "cp-hybrid"],
                     default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e, 5f, 8, 9 or 10); prints neither the kernels "
-                         "line nor the ok line")
+                         "(5e, 5f, 8, 9, 10, 11a, 11b or 11c); prints "
+                         "neither the kernels line nor the ok line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5660,6 +6635,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(json.dumps({"mesh": phase_mesh(dev, args.seed, card)}))
         log(f"mesh-train phase: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.only in ("ep", "pipe", "cp-hybrid"):
+        build_kernels()
+        t0 = time.perf_counter()
+        log(json.dumps({args.only: phase_parallel(dev, args.seed, card,
+                                                  args.only)}))
+        log(f"parallel phase ({args.only}): {time.perf_counter() - t0:.1f} s")
         return 0
     t0 = time.perf_counter()
     rows = phase_kernels(dev, args.seed)
@@ -5759,6 +6741,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rows["flash_prefill"]["mesh"] = phase_mesh(dev, args.seed, card)
     log(f"mesh-train phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, entries in phase_parallel(dev, args.seed, card).items():
+        rows[name].update(entries)
+    log(f"parallel phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The mesh collectives of four ranks on one card, two routes.
+"""The mesh collectives of four ranks on one card.
 
     python3 experiments/mesh_collectives.py [--mb 16 512 2048]
 
@@ -8,15 +8,13 @@ Needs a CUDA card.  Spawns 4 ranks on ``cuda:0`` under gloo (as
 ranks) and times ``distributed/collectives.py``'s ``all_gather`` and
 ``reduce_scatter`` of float32 tensors of each size (the whole gathered
 tensor, the whole tensor each rank reduces) over the ``("data",)`` axis
-of a (4, 1) mesh: card to card through the ranks' mailboxes (the route
-the port takes) and staged through host memory by gloo (the route it
-took before).  Each result is checked: the gather bit for bit against
-the blocks every rank drew, the reduce-scatter against the sum of every
-rank's tensor in the members' order (the card route's order) and within
-1e-6 relative of it for the host route.  Prints the card and one line a
-size and route: the median of 5 calls' host seconds on rank 0 (every
-call started together on all ranks and ended with the card's work) and
-GB/s of the tensor's bytes.
+of a (4, 1) mesh, card to card through the ranks' mailboxes (the one
+route of CUDA tensors under gloo).  Each result is checked: the gather
+bit for bit against the blocks every rank drew, the reduce-scatter
+against the sum of every rank's tensor in the members' order.  Prints
+the card and one line a size: the median of 5 calls' host seconds on
+rank 0 (every call started together on all ranks and ended with the
+card's work) and GB/s of the tensor's bytes.
 """
 
 from __future__ import annotations
@@ -27,7 +25,6 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from unittest import mock
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "src"))
@@ -74,30 +71,20 @@ def _rank(rank, world, tmp, sizes_mb):
             part = _draw(100 + r, numel, dev).narrow(
                 0, rank * (numel // world), numel // world)
             want = part.clone() if want is None else want.add_(part)
-        for route in ("card", "host"):
-            ctx = mock.patch.object(collectives, "peer_route",
-                                    lambda t, g: False) \
-                if route == "host" else mock.patch.object(
-                    collectives, "peer_route", collectives.peer_route)
-            with ctx:
-                g_s, got = _timed(lambda: collectives.all_gather(
-                    block, mesh, ("data",), 0), dev)
-                if not torch.equal(got, whole):
-                    raise AssertionError(f"{route} all_gather of {mb} MB "
-                                         "differs")
-                r_s, red = _timed(lambda: collectives.reduce_scatter(
-                    full, mesh, ("data",), 0), dev)
-                exact = torch.equal(red, want)
-                rel = float((red - want).abs().max() / want.abs().max())
-                if (route == "card" and not exact) or rel > 1e-6:
-                    raise AssertionError(f"{route} reduce_scatter of {mb} "
-                                         f"MB: {rel:.3e} from the sum")
-            nbytes = numel * 4
-            lines.append(f"{mb} MB {route}: all_gather {g_s:.4f} s "
-                         f"({nbytes / g_s / 1e9:.2f} GB/s), reduce_scatter "
-                         f"{r_s:.4f} s ({nbytes / r_s / 1e9:.2f} GB/s), "
-                         f"reduce_scatter equal to the ordered sum: "
-                         f"{exact}")
+        g_s, got = _timed(lambda: collectives.all_gather(
+            block, mesh, ("data",), 0), dev)
+        if not torch.equal(got, whole):
+            raise AssertionError(f"all_gather of {mb} MB differs")
+        r_s, red = _timed(lambda: collectives.reduce_scatter(
+            full, mesh, ("data",), 0), dev)
+        if not torch.equal(red, want):
+            rel = float((red - want).abs().max() / want.abs().max())
+            raise AssertionError(f"reduce_scatter of {mb} MB: {rel:.3e} "
+                                 "from the ordered sum")
+        nbytes = numel * 4
+        lines.append(f"{mb} MB card: all_gather {g_s:.4f} s "
+                     f"({nbytes / g_s / 1e9:.2f} GB/s), reduce_scatter "
+                     f"{r_s:.4f} s ({nbytes / r_s / 1e9:.2f} GB/s)")
         del block, whole, full, want
         torch.cuda.empty_cache()
     if rank == 0:

@@ -12,23 +12,28 @@ One route per backend and device:
 * **gloo on CUDA tensors**, which serves one layout only: every rank of
   the group on ``cuda:0``, ``launch.mesh.init_rank``'s layout when the
   cards do not cover the ranks (a test rig of several ranks on one
-  card, not a deployment).  The gather and the reduce-scatter go card
-  to card: each rank of the group keeps a mailbox on the card, opened
-  in the others through CUDA IPC (:class:`_Mailboxes`); a rank copies
-  its tensor into its mailbox and reads the others' after a barrier (a
-  gloo barrier of the group, and another before any mailbox is written
-  again).  Each is counted in :data:`PEER_COPIED`.  The all-reduce (the
-  CP merge's, the loss's and the norm's scalars) goes through host
-  memory: copied to the CPU, reduced there and copied back, each
-  counted in :data:`HOST_STAGED` (calls and bytes), which
-  ``chip_smoke.py`` logs beside the times.  Ranks of one gloo group on
-  different devices are refused.
+  card, not a deployment).  Every collective goes card to card: each
+  rank of the group keeps a mailbox on the card, opened in the others
+  through CUDA IPC (:class:`_Mailboxes`); a rank copies its tensor into
+  its mailbox and reads the others' after a barrier (a gloo barrier of
+  the group, and another before any mailbox is written again).  Each is
+  counted in :data:`PEER_COPIED`.  A reduction sums (or takes the
+  largest) in the members' index order, so every rank reads the same
+  bits.  Ranks of one gloo group on different devices are refused.
+
+Beside the gathers, reductions and the reduce-scatter: the all-to-all
+of JAX's ``all_to_all(..., tiled=True)`` (:func:`all_to_all`), the ring
+shift of its ``ppermute`` (:func:`permute`, ``isend``/``irecv`` pairs:
+blocking sends on a ring deadlock), a broadcast from one member and a
+sum onto one member.  The ``torch.autograd.Function`` classes at the
+end make them differentiable: an all-to-all's backward is the
+all-to-all of the gradients, a permute's the permute the other way.
 
 With ``TIMING["on"]`` each call synchronises the device before and after
 itself and adds its seconds to :data:`SECONDS` by kind (the share of a
-train step in gathers and reduce-scatters); the synchronisations cost
-the overlap of a collective with the work queued before it, so a step
-timed this way is not a gated step.
+train step in gathers, reduce-scatters and all-to-alls); the
+synchronisations cost the overlap of a collective with the work queued
+before it, so a step timed this way is not a gated step.
 """
 
 from __future__ import annotations
@@ -41,19 +46,21 @@ from typing import Dict, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["comm_route", "all_reduce", "all_gather",
-           "reduce_scatter", "close_mailboxes", "HOST_STAGED",
-           "PEER_COPIED", "TIMING", "SECONDS"]
+__all__ = ["comm_route", "all_reduce", "all_gather", "reduce_scatter",
+           "all_to_all", "permute", "broadcast", "reduce",
+           "close_mailboxes", "PEER_COPIED", "TIMING", "SECONDS",
+           "AllToAll", "Permute", "TakeBlock", "GatherBlocks",
+           "GatherRows", "SumGrad", "ScaleGrad", "MeanOver",
+           "BroadcastFrom"]
 
-# collectives of CUDA tensors staged through host memory (gloo): calls and
-# bytes moved to the host, since the process started
-HOST_STAGED: Dict[str, int] = {"calls": 0, "bytes": 0}
-# gathers and reduce-scatters of a group on one card through its ranks'
-# mailboxes: calls and the bytes each rank posted
+# collectives of a group on one card through its ranks' mailboxes: calls
+# and the bytes each rank posted
 PEER_COPIED: Dict[str, int] = {"calls": 0, "bytes": 0}
 TIMING = {"on": False}
 SECONDS: Dict[str, float] = {"all_reduce": 0.0, "all_gather": 0.0,
-                             "reduce_scatter": 0.0}
+                             "reduce_scatter": 0.0, "all_to_all": 0.0,
+                             "permute": 0.0, "broadcast": 0.0,
+                             "reduce": 0.0}
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -78,22 +85,11 @@ def _timed(fn):
 
 
 def comm_route(t: torch.Tensor, group=None) -> str:
-    """``"host"`` for gloo on a CUDA tensor (every rank on ``cuda:0``:
-    the all-reduce is staged through host memory, the gather and the
-    reduce-scatter go through the mailboxes), else ``"device"``."""
+    """``"mailbox"`` for gloo on a CUDA tensor (every rank on ``cuda:0``:
+    card to card through the ranks' mailboxes), else ``"device"``."""
     if t.is_cuda and dist.get_backend(group) == "gloo":
-        return "host"
+        return "mailbox"
     return "device"
-
-
-def _stage(t: torch.Tensor, group):
-    """(a copy of ``t`` the collective runs on, whether it is on the
-    host)."""
-    if comm_route(t, group) == "host":
-        HOST_STAGED["calls"] += 1
-        HOST_STAGED["bytes"] += t.numel() * t.element_size()
-        return t.detach().to("cpu", copy=True).contiguous(), True
-    return t.detach().clone().contiguous(), False
 
 
 class _Mailboxes:
@@ -149,17 +145,18 @@ def close_mailboxes() -> None:
         torch.cuda.synchronize()
 
 
-def _post(t: torch.Tensor, group) -> _Mailboxes:
-    """``t``'s bytes in this rank's mailbox, every rank's posted (a
-    barrier)."""
+def _post(t: torch.Tensor, group, write: bool = True) -> _Mailboxes:
+    """``t``'s bytes in this rank's mailbox (where ``write``), every
+    rank's posted (a barrier)."""
     raw = t.contiguous().view(-1).view(torch.uint8)
     box = _mailboxes(group)
     box.ensure(raw.numel(), t.device)
-    box.own[:raw.numel()].copy_(raw)
+    if write:
+        box.own[:raw.numel()].copy_(raw)
+        PEER_COPIED["calls"] += 1
+        PEER_COPIED["bytes"] += raw.numel()
     torch.cuda.synchronize(t.device)
     dist.barrier(group=group)
-    PEER_COPIED["calls"] += 1
-    PEER_COPIED["bytes"] += raw.numel()
     return box
 
 
@@ -175,15 +172,49 @@ def _done(t: torch.Tensor, group) -> None:
     dist.barrier(group=group)
 
 
+def _members(mesh, axes):
+    """(the group's global ranks in index order along ``axes``, the same
+    in the group's own rank order)."""
+    members = mesh.members(axes)
+    return members, sorted(members)
+
+
+_FOLD = {dist.ReduceOp.SUM: torch.Tensor.add_,
+         dist.ReduceOp.MAX: lambda a, b: torch.maximum(a, b, out=a),
+         dist.ReduceOp.MIN: lambda a, b: torch.minimum(a, b, out=a)}
+
+
+def _fold(box, order, ranks, t, op) -> torch.Tensor:
+    """The posted tensors of ``ranks``, reduced by ``op`` in that
+    order."""
+    if op not in _FOLD:
+        raise ValueError(f"reduction {op} has no mailbox route")
+    out = None
+    for r in ranks:
+        part = _read(box, order.index(r), t)
+        out = part.clone() if out is None else _FOLD[op](out, part)
+    return out
+
+
 @_timed
-def all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op, group, mesh=None, axes=None
+               ) -> torch.Tensor:
     """``t`` reduced over ``group`` (a new tensor; ``group`` None means a
-    group of this rank alone)."""
+    group of this rank alone).  On the mailbox route the members are
+    read in the order of their global rank, or of their index along
+    ``axes`` where ``mesh`` and ``axes`` are given."""
     if group is None:
         return t.clone()
-    buf, host = _stage(t, group)
+    if comm_route(t, group) == "mailbox":
+        order = sorted(dist.get_process_group_ranks(group))
+        ranks = order if mesh is None else mesh.members(axes)
+        box = _post(t, group)
+        out = _fold(box, order, ranks, t, op)
+        _done(t, group)
+        return out
+    buf = t.detach().clone().contiguous()
     dist.all_reduce(buf, op=op, group=group)
-    return buf.to(t.device) if host else buf
+    return buf
 
 
 @_timed
@@ -195,9 +226,8 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str],
     group = mesh.group(axes)
     if group is None:
         return t
-    members = mesh.members(axes)
-    order = sorted(members)               # the group's own rank order
-    if comm_route(t, group) == "host":
+    members, order = _members(mesh, axes)
+    if comm_route(t, group) == "mailbox":
         box = _post(t, group)
         out = torch.cat([_read(box, order.index(r), t) for r in members],
                         dim=dim)
@@ -219,9 +249,8 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str],
     group = mesh.group(axes)
     if group is None:
         return t
-    members = mesh.members(axes)
-    order = sorted(members)               # the group's own rank order
-    if comm_route(t, group) == "host":
+    members, order = _members(mesh, axes)
+    if comm_route(t, group) == "mailbox":
         box = _post(t, group)
         n = len(members)
         size = t.shape[dim] // n
@@ -240,3 +269,254 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str],
                       dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, x.detach().contiguous(), group=group)
     return out.movedim(0, dim)
+
+
+@_timed
+def all_to_all(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """JAX's ``all_to_all(t, axes, 0, 0, tiled=True)``: ``t``'s dim 0 in
+    ``extent(axes)`` equal blocks, block ``j`` sent to the member of
+    index ``j``; returns the blocks received, the one from the member of
+    index ``i`` at block ``i``.  Moved as bytes."""
+    group = mesh.group(axes)
+    if group is None:
+        return t
+    members, order = _members(mesh, axes)
+    n = len(members)
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does not "
+                         f"split into {n} blocks")
+    size = t.shape[0] // n
+    if comm_route(t, group) == "mailbox":
+        me = members.index(mesh.rank)
+        box = _post(t, group)
+        out = torch.cat([_read(box, order.index(r), t).narrow(
+            0, me * size, size) for r in members], dim=0)
+        _done(t, group)
+        return out
+    raw = t.contiguous().view(t.shape[0], -1).view(torch.uint8)
+    blocks = raw.chunk(n, dim=0)
+    # the group's rank q gets the block of the member it is
+    x = torch.cat([blocks[members.index(r)] for r in order], dim=0)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    got = out.chunk(n, dim=0)
+    out = torch.cat([got[order.index(r)] for r in members], dim=0)
+    return out.view(t.dtype).view(t.shape)
+
+
+@_timed
+def permute(t: torch.Tensor, mesh, axis: str, shift: int = 1
+            ) -> torch.Tensor:
+    """JAX's ``ppermute(t, axis, [(i, (i + shift) % n)])``: this rank's
+    ``t`` goes to the member ``shift`` places on along ``axis`` (a ring),
+    and the tensor of the member ``shift`` places back comes in."""
+    group = mesh.group((axis,))
+    n = mesh.extent((axis,))
+    if group is None or shift % n == 0:
+        return t
+    members, order = _members(mesh, (axis,))
+    i = members.index(mesh.rank)
+    src, dst = members[(i - shift) % n], members[(i + shift) % n]
+    if comm_route(t, group) == "mailbox":
+        box = _post(t, group)
+        out = _read(box, order.index(src), t).clone()
+        _done(t, group)
+        return out
+    raw = t.contiguous().view(-1).view(torch.uint8)
+    out = torch.empty_like(raw)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, raw, dst, group),
+        dist.P2POp(dist.irecv, out, src, group)])
+    for r in reqs:
+        r.wait()
+    return out.view(t.dtype).view(t.shape)
+
+
+@_timed
+def broadcast(t: torch.Tensor, mesh, axes: Sequence[str], src: int
+              ) -> torch.Tensor:
+    """The ``t`` of the member of index ``src`` along ``axes``, on every
+    member (each passes a tensor of that shape and dtype)."""
+    group = mesh.group(axes)
+    if group is None:
+        return t
+    members, order = _members(mesh, axes)
+    mine = members.index(mesh.rank) == src
+    if comm_route(t, group) == "mailbox":
+        box = _post(t, group, write=mine)
+        out = _read(box, order.index(members[src]), t).clone()
+        _done(t, group)
+        return out
+    buf = t.detach().clone().contiguous()
+    dist.broadcast(buf, src=members[src], group=group)
+    return buf
+
+
+@_timed
+def reduce(t: torch.Tensor, mesh, axes: Sequence[str], dst: int
+           ) -> torch.Tensor:
+    """On the member of index ``dst`` along ``axes``, the members' ``t``
+    summed (in their index order on the mailbox route); on the others,
+    zeros."""
+    group = mesh.group(axes)
+    if group is None:
+        return t
+    members, order = _members(mesh, axes)
+    mine = members.index(mesh.rank) == dst
+    if comm_route(t, group) == "mailbox":
+        box = _post(t, group)
+        out = _fold(box, order, members, t, dist.ReduceOp.SUM) if mine \
+            else torch.zeros_like(t)
+        _done(t, group)
+        return out
+    buf = t.detach().clone().contiguous()
+    dist.reduce(buf, dst=members[dst], op=dist.ReduceOp.SUM, group=group)
+    return buf if mine else torch.zeros_like(t)
+
+
+# ------------------------------------------------------------ autograd
+
+def _block(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    n = mesh.extent(axes)
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(axes) * size, size)
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`; backward: the all-to-all of the gradients."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_to_all(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.mesh, ctx.axes), None, None
+
+
+class Permute(torch.autograd.Function):
+    """:func:`permute`; backward: the permute the other way."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return permute(t, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return permute(g, ctx.mesh, ctx.axis, -ctx.shift), None, None, None
+
+
+class TakeBlock(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every member of
+    ``axes`` holds whole and alike; backward: the blocks' gradients
+    gathered over ``axes`` (each member's share of the whole
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block(t, mesh, axes, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), \
+            None, None, None
+
+
+class GatherBlocks(torch.autograd.Function):
+    """The members' blocks gathered along ``dim``, to be used alike on
+    every member; backward: this rank's block of the gradient (every
+    member computed the same one)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(t.contiguous(), mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(), None, \
+            None, None
+
+
+class GatherRows(torch.autograd.Function):
+    """The members' rows gathered along ``dim``, each member's use of
+    them a part of the whole (the members hold different rows of a
+    batch); backward: the parts' gradients reduce-scattered."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(t.contiguous(), mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.mesh, ctx.axes,
+                              ctx.dim), None, None, None
+
+
+class SumGrad(torch.autograd.Function):
+    """The identity; backward: the gradient summed over ``axes`` (a
+    tensor every member holds alike, each member's use of it a part)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), dist.ReduceOp.SUM,
+                          ctx.mesh.group(ctx.axes), ctx.mesh, ctx.axes), \
+            None, None
+
+
+class ScaleGrad(torch.autograd.Function):
+    """The identity; backward: the gradient divided by ``k`` (a value
+    computed alike on ``k`` members whose gradients are summed)."""
+
+    @staticmethod
+    def forward(ctx, t, k):
+        ctx.k = k
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.k, None
+
+
+class MeanOver(torch.autograd.Function):
+    """JAX's ``pmean`` over ``axes``: the members' values summed and
+    divided by their count; backward: the gradient divided by the count
+    (each member's share; the members' gradients are summed
+    downstream)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.n = mesh.extent(axes)
+        return all_reduce(t.detach(), dist.ReduceOp.SUM, mesh.group(axes),
+                          mesh, axes) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+class BroadcastFrom(torch.autograd.Function):
+    """:func:`broadcast` from the member of index ``src``, the result used
+    alike on every member; backward: the members' gradients averaged
+    onto ``src`` (JAX's cotangent of a replicated output), zeros on the
+    others."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, src):
+        ctx.mesh, ctx.axes, ctx.src = mesh, axes, src
+        return broadcast(t.contiguous(), mesh, axes, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.extent(ctx.axes)
+        return reduce(g.contiguous(), ctx.mesh, ctx.axes, ctx.src) / n, \
+            None, None, None

@@ -25,10 +25,15 @@ in the merge, never NaN.  As in the JAX package the route ignores the
 ragged budget and the selection probe, and ``selection="qhead"`` sums
 scores over the group (kvhead selection).
 
-Under gloo (every rank on ``cuda:0``) the all-reduces of CUDA tensors
-go through host memory and the gathers card to card through the ranks'
-mailboxes (``distributed/collectives.py``'s :func:`comm_route`); NCCL
-moves them on the device.
+Under gloo (every rank on ``cuda:0``) the all-reduces and the gathers
+of CUDA tensors go card to card through the ranks' mailboxes
+(``distributed/collectives.py``'s :func:`comm_route`); NCCL moves them
+on the device.
+
+Hybrid models decode under the same mesh (:func:`check_model`): only
+their global SOCKET layers are sharded; local rings, Mamba states and
+MoE layers are computed whole on every rank, each rank running the
+whole prefill.
 
 :func:`context_parallel_socket_attend_ref` is the plain single-process
 version: the whole cache, the shards looped in order, the merge in closed
@@ -276,18 +281,23 @@ def cp_mesh(cfg):
 
 
 def check_model(cfg) -> None:
-    """Context-parallel decode serves all-global-attention SOCKET models:
-    under an active CP mesh any other layer raises."""
+    """Context-parallel decode serves the SOCKET backend (the JAX
+    package's CP route, ``backends/socket.py``): under an active CP mesh
+    global layers of any other backend raise.  Every layout of it is served: global
+    layers hold their block of the cache, local layers their whole ring
+    and Mamba layers their whole state on every rank, and MoE layers
+    decode by global dispatch, replicated (what one process computes,
+    which is what XLA's partitioner gives JAX for those layers)."""
     if cp_mesh(cfg) is None:
         return
-    if cfg.attention_backend != "socket" or any(
-            s.kind != "attn" or s.attn_type != "global"
+    if cfg.attention_backend != "socket" and any(
+            s.kind == "attn" and s.attn_type == "global"
             for s in cfg.layer_specs):
         raise NotImplementedError(
-            "context-parallel decode serves all-global-attention SOCKET "
-            f"models; {cfg.name}'s local, Mamba or "
-            f"{cfg.attention_backend!r}-backend layers come with ROADMAP.md "
-            "queue 1 item 11")
+            "context-parallel decode serves the 'socket' backend; "
+            f"{cfg.name}'s {cfg.attention_backend!r} layers under a "
+            "context-parallel mesh come with ROADMAP.md queue 1 item 11's "
+            "'CP decode of the other backends'")
 
 
 @dataclasses.dataclass(frozen=True)

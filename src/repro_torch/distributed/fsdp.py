@@ -20,8 +20,19 @@ torch has none, so this module stands in for it, one process a rank:
   embedding and head, and under ``remat_policy="full"`` the backward
   gathers them again.  Every rank issues the same collectives in the
   same order: the model never branches on the rank.
-* The ``model`` axis shards storage only: its ranks compute on the
-  gathered weights (no Megatron split of the products).
+* The ``model`` axis shards storage only, its ranks computing on the
+  gathered weights, but for MoE under ``moe_dispatch="alltoall"``
+  (``models/moe.py``), the first compute split over ``model``: a rank
+  routes its slice of the tokens and runs its own ``E / model``
+  experts.  So the expert leaves (:func:`gather_experts`) gather only
+  this rank's experts: under ``moe_parallelism="ep"`` its block along
+  ``experts -> model``, gathered over the batch axes; under ``"tp"``
+  (``d_ff`` over ``model``) the ``d_ff`` shards of its own experts,
+  exchanged by an all-to-all over ``model``.  Their gradients are
+  reduced over the batch axes and never summed over ``model``: each
+  rank computed its own experts' whole gradient.  Every other leaf
+  keeps the rule above (the MoE layer's own collectives make every
+  ``model`` rank's gradient of it whole and alike).
 * **Batch**: every rank holds the global batch and takes its rows
   (:func:`local_rows`, through ``launch/specs.py::batch_specs``):
   microbatch ``j``'s block of the batch axes' index, as JAX's reshape
@@ -35,9 +46,9 @@ torch has none, so this module stands in for it, one process a rank:
   (:func:`global_tokens`), so padding (``labels = -1``) that differs
   across ranks gives JAX's number.
 
-MoE layers' load-balance loss and expert capacity are global-batch
-quantities (``models/moe.py``): under a data extent above 1 the step
-raises, naming ROADMAP.md queue 1 item 11's ``alltoall`` dispatch.
+MoE layers keep the JAX package's global-batch semantics under a data
+extent above 1: the capacity and the aux losses of each dispatch are
+those of the global batch (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ from repro_torch.distributed.sharding import NamedSharding, entry_axes
 __all__ = ["BATCH_AXES", "gather_param", "reduce_grad", "gatherer",
            "flat_tree", "shard_tree", "gather_tree", "init_shards",
            "one_rank_shardings", "zeros_tree", "local_rows",
-           "global_tokens", "batch_extent", "check_model", "mesh_of"]
+           "global_tokens", "batch_extent", "mesh_of", "gather_experts"]
 
 # the mesh axes a batch's rows are split over (the "batch" rule)
 BATCH_AXES = ("pod", "data")
@@ -148,12 +159,83 @@ def flat_tree(tree, path: str = "") -> Dict[str, object]:
     return out
 
 
-def gatherer(shardings: Dict[str, NamedSharding]):
+def _drop_model(sharding: NamedSharding) -> NamedSharding:
+    """``sharding`` with the ``model`` axis taken out of every entry."""
+    spec = []
+    for e in sharding.spec:
+        axes = tuple(a for a in entry_axes(e) if a != "model")
+        spec.append(None if not axes else axes[0] if len(axes) == 1
+                    else axes)
+    return NamedSharding(sharding.mesh, tuple(spec))
+
+
+def _model_dim(sharding: NamedSharding):
+    dims = [d for d, e in enumerate(sharding.spec)
+            if "model" in entry_axes(e)]
+    return dims[0] if dims else None
+
+
+class _GatherExperts(torch.autograd.Function):
+    """Forward: this rank's ``E / model`` experts of an expert leaf, whole
+    but for the expert axis; backward: their gradient onto this rank's
+    stored block (see the module docstring).  Under ``"tp"`` the
+    all-to-all over ``model`` moves the stored blocks before the gather
+    over the batch axes (and the gradients after the reduce-scatter), so
+    it carries a rank's share of the batch axes' dims only."""
+
+    @staticmethod
+    def forward(ctx, local, sharding):
+        mesh = sharding.mesh
+        rest = _drop_model(sharding)
+        fdim = _model_dim(sharding)
+        ctx.rest, ctx.fdim, ctx.mesh = rest, fdim, mesh
+        n = mesh.shape["model"]
+        if fdim is not None and fdim > 0:
+            # "tp": member j's d_ff shard of this rank's experts, for
+            # each j, along d_ff
+            got = collectives.all_to_all(local, mesh, ("model",))
+            local = torch.cat(got.chunk(n, dim=0), dim=fdim)
+        w = rest.gather(local)                     # whole over batch axes
+        if fdim is None:                           # replicated: cut it
+            e_local = w.shape[0] // n
+            m = mesh.index(("model",))
+            return w[m * e_local:(m + 1) * e_local].clone()
+        return w                                   # "ep": its own block
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, fdim = ctx.mesh, ctx.fdim
+        g = reduce_grad(grad, ctx.rest)
+        if fdim is None:
+            g = collectives.all_gather(g.contiguous(), mesh, ("model",), 0)
+        elif fdim > 0:
+            n = mesh.shape["model"]
+            g = collectives.all_to_all(
+                torch.cat(g.chunk(n, dim=fdim), dim=0).contiguous(), mesh,
+                ("model",))
+        return g, None
+
+
+def gather_experts(local: torch.Tensor, sharding: NamedSharding
+                   ) -> torch.Tensor:
+    return _GatherExperts.apply(local, sharding)
+
+
+def gatherer(shardings: Dict[str, NamedSharding], cfg=None):
     """``gather(path, subtree)`` for ``transformer.forward_train``: the
-    subtree of a rank's shards at ``path`` with each leaf whole."""
+    subtree of a rank's shards at ``path`` with each leaf whole; where
+    ``cfg``'s MoE layers take the all-to-all on this mesh, their expert
+    leaves as :func:`gather_experts` gives them."""
+    from repro_torch.models import moe
+    experts = cfg is not None and moe.alltoall_applies(
+        cfg, mesh_of(shardings))
+
     def gather(path, tree):
         if isinstance(tree, dict):
             return {k: gather(f"{path}['{k}']", v) for k, v in tree.items()}
+        if experts and path.endswith(tuple(f"['moe']['{n}']" for n in
+                                           moe.EXPERT_LEAVES)):
+            return gather_experts(tree, shardings[path])
         return gather_param(tree, shardings[path])
 
     return gather
@@ -251,14 +333,3 @@ def global_tokens(labels: torch.Tensor, mesh) -> torch.Tensor:
     if group is None:
         return count
     return collectives.all_reduce(count, dist.ReduceOp.SUM, group)
-
-
-def check_model(cfg, mesh) -> None:
-    """Raise for a model the sharded step cannot hold to JAX's yet."""
-    if cfg.uses_moe and batch_extent(mesh) > 1:
-        raise NotImplementedError(
-            "MoE layers under a mesh whose batch axes span "
-            f"{batch_extent(mesh)} ranks: the load-balance loss and the "
-            "expert capacity are global-batch quantities, which come with "
-            "the expert-parallel 'alltoall' dispatch (ROADMAP.md queue 1 "
-            "item 11)")

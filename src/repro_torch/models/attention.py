@@ -43,7 +43,8 @@ Context-parallel decode (``cfg.decode_cp_axes`` under an active mesh):
 every rank computes the whole prefill, and each global layer's
 contiguous cache holds only the rank's block of rows
 (:func:`~repro_torch.distributed.context_parallel.cache_shard`); the
-SOCKET backend's attend merges the ranks' partials.
+SOCKET backend's attend merges the ranks' partials.  Local layers keep
+their whole ring on every rank.
 
 ``cfg.logical_pad_heads`` zero-pads the query heads to a multiple of
 16 (:func:`_eff_heads`, llama4's 40 to 48), so a ``model`` mesh axis can

@@ -80,9 +80,10 @@ def _mlp(cfg: ModelConfig, params: Dict, spec: LayerSpec,
 
 
 def _block_train(cfg: ModelConfig, params: Dict, spec: LayerSpec,
-                 x: torch.Tensor, positions: torch.Tensor):
+                 x: torch.Tensor, positions: torch.Tensor, split=None):
     """One block's training forward: (x, MoE load-balance loss, router
-    z-loss), the losses 0 for a dense block."""
+    z-loss), the losses 0 for a dense block (``split``: see
+    :func:`forward_train`)."""
     h = rmsnorm(params["norm_mix"], x)
     if spec.kind == "attn":
         h = attn.attention_train(cfg, params["attn"], h, positions,
@@ -92,7 +93,7 @@ def _block_train(cfg: ModelConfig, params: Dict, spec: LayerSpec,
     x = x + h
     if spec.mlp == "moe":
         y, aux = moe_mod.apply_moe(cfg, params["moe"],
-                                   rmsnorm(params["norm_mlp"], x))
+                                   rmsnorm(params["norm_mlp"], x), split)
         return x + y, aux["moe_lb_loss"], aux["moe_z_loss"]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return _mlp(cfg, params, spec, x), zero, zero
@@ -248,7 +249,7 @@ def _whole(path: str, tree):
 
 
 def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
-                  gather=None):
+                  gather=None, split=None):
     """Full forward.  ``batch``: ``tokens`` (B, T) and optional
     ``positions`` -> (padded-vocab logits (B, T, V), aux) with aux's
     ``moe_lb_loss``/``moe_z_loss`` summed over the layers and divided by
@@ -264,7 +265,11 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
     (``distributed/fsdp.py``), the subtree at ``path`` (``"['embed']"``,
     ``"['layers'][3]"``, ``"['final_norm']"``) with its leaves whole.  A
     group's layers are gathered inside the group's rematerialised
-    function, so its backward gathers them again."""
+    function, so its backward gathers them again.  ``split``: the mesh
+    whose batch axes split the batch's rows over ranks (the sharded
+    step's), which the MoE layers' dispatch reads
+    (``models/moe.py``); it is held by the rematerialised function, so
+    the backward's recomputation takes the forward's route."""
     _check_inputs(cfg)
     gather = gather or _whole
     embed = gather("['embed']", params["embed"])
@@ -278,7 +283,7 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
     def group(x, lb, zl, first, *layers):
         for i, (spec, lp) in enumerate(zip(cfg.pattern, layers)):
             lp = gather(f"['layers'][{first + i}]", lp)
-            x, dlb, dzl = _block_train(cfg, lp, spec, x, positions)
+            x, dlb, dzl = _block_train(cfg, lp, spec, x, positions, split)
             lb, zl = lb + dlb, zl + dzl
         return x, lb, zl
 
@@ -290,7 +295,7 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
     base = cfg.num_groups * npat
     for i, spec in enumerate(cfg.remainder):
         lp = gather(f"['layers'][{base + i}]", params["layers"][base + i])
-        x, dlb, dzl = _block_train(cfg, lp, spec, x, positions)
+        x, dlb, dzl = _block_train(cfg, lp, spec, x, positions, split)
         lb, zl = lb + dlb, zl + dzl
     x = rmsnorm(gather("['final_norm']", params["final_norm"]), x)
     logits = lm_head(cfg, embed, x)
@@ -300,7 +305,7 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
 
 def loss_and_metrics(cfg: ModelConfig, params: Dict, batch: Dict,
                      lb_coef: float = 0.01, gather=None,
-                     valid_tokens=None):
+                     valid_tokens=None, split=None):
     """Causal-LM loss: ``batch["labels"]`` (B, T) int, -1 = padding.
     Padded vocab entries are masked to -1e30, the log-softmax is taken in
     f32, and the loss is ``ce + lb_coef * moe_lb_loss + moe_z_loss``.
@@ -309,8 +314,8 @@ def loss_and_metrics(cfg: ModelConfig, params: Dict, batch: Dict,
     Where ``batch`` is one rank's rows of a global batch,
     ``valid_tokens`` is the global batch's valid-token count: ``ce`` is
     then this rank's share of the global mean (``distributed/fsdp.py``);
-    ``gather`` goes to :func:`forward_train`."""
-    logits, aux = forward_train(cfg, params, batch, gather)
+    ``gather`` and ``split`` go to :func:`forward_train`."""
+    logits, aux = forward_train(cfg, params, batch, gather, split)
     labels = batch["labels"]
     v = logits.shape[-1]
     if v > cfg.vocab_size:

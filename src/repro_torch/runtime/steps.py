@@ -67,17 +67,22 @@ def loss_and_grads(cfg: ModelConfig, params, batch, shardings=None):
 
     loss, metrics = tfm.loss_and_metrics(cfg, tree_map(track, params),
                                          batch,
-                                         gather=fsdp.gatherer(shardings),
-                                         valid_tokens=valid)
+                                         gather=fsdp.gatherer(shardings,
+                                                              cfg),
+                                         valid_tokens=valid, split=mesh)
     grads = torch.autograd.grad(loss, [t for _, t in leaves],
                                 allow_unused=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     group = mesh.group(fsdp.BATCH_AXES)
     if group is not None:
-        # this rank's share of the global mean: the sum is the global one
-        for k in ("loss", "ce"):
-            metrics[k] = collectives.all_reduce(metrics[k],
-                                                dist.ReduceOp.SUM, group)
+        # ce is this rank's share of the global mean (the sum is the
+        # global one); the MoE aux losses are the global batch's already,
+        # and the first batch rank's sum is every rank's (the ranks' ce
+        # shares round the aux part apart)
+        ce = collectives.all_reduce(metrics["ce"], dist.ReduceOp.SUM, group)
+        metrics["loss"] = collectives.broadcast(
+            metrics["loss"] - metrics["ce"] + ce, mesh, fsdp.BATCH_AXES, 0)
+        metrics["ce"] = ce
     return metrics["loss"], metrics, {
         path: torch.zeros_like(t) if g is None else g
         for (path, t), g in zip(leaves, grads)}
@@ -104,7 +109,6 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     shardings = fsdp.one_rank_shardings(cfg) if grad_shardings is None \
         else fsdp.flat_tree(grad_shardings)
     mesh = fsdp.mesh_of(shardings)
-    fsdp.check_model(cfg, mesh)
 
     def train_step(params, opt_state, batch):
         if accum == 1:

@@ -12,8 +12,16 @@ JAX package on the CPU.
   K/V and value norms equal, hash bits bitwise; the decode steps wrote
   their rows on the rank that owns them only (layer 0's equal to the
   single-process decode's).
-* Under an active CP mesh, models with local, Mamba or non-SOCKET layers
-  raise naming ROADMAP item 11, and the continuous engine refuses
+* Hybrid SOCKET models (``gemma3-27b``'s local:global layers,
+  ``jamba-v0.1-52b``'s attention, Mamba and MoE layers, the all-Mamba
+  ``mamba2-780m``; their smoke configs at one group) decode under the
+  same mesh: prefill and greedy decode on the 4 ranks against JAX's
+  jitted ``make_prefill_step``/``make_serve_step`` under the mesh, greedy
+  tokens equal and every step's logits within ``LOGITS_ATOL``; each rank
+  holds its block of the global layers' caches and the whole rings and
+  Mamba states, those bitwise equal on every rank.
+* Under an active CP mesh, global layers of a non-SOCKET backend raise
+  naming ROADMAP item 11, and the continuous engine refuses
   ``decode_cp_axes`` with the JAX engine's message.
 
 The JAX side runs with the kernel flags on, as ``test_torch_model.py``
@@ -26,21 +34,29 @@ JAX's ``make_mesh`` makes Explicit axes, on which the JAX package's
 
 import dataclasses
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from conftest import run_subprocess_devices
+from conftest import SRC
 
 ARCH, BATCH, PLEN, STEPS, WORLD = "llama31-8b", 2, 60, 4, 4
 CAP = PLEN + STEPS
+HYBRIDS = ("gemma3-27b", "jamba-v0.1-52b", "mamba2-780m")
+# chip_smoke.py's end-to-end logits bound (float32, other summation
+# orders)
+LOGITS_ATOL = 1e-4
 
 
-def _tcfg(**kw):
+def _tcfg(arch=ARCH, **kw):
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH).smoke()
+    cfg = get_config(arch).smoke()
+    if arch != ARCH:
+        kw = dict(num_groups=1, **kw)
     return cfg.replace(socket=dataclasses.replace(
         cfg.socket, use_score_kernel=True, use_flash_decode=True), **kw)
 
@@ -55,7 +71,7 @@ from repro.configs import get_config
 from repro.distributed.sharding import activate_mesh
 from repro.launch.serve import run_serve
 
-ARCH, PATH, BATCH, PLEN, STEPS, WORLD = ARGS
+ARCH, PATH, BATCH, PLEN, STEPS, WORLD, HYBRIDS = ARGS
 
 jc = get_config(ARCH).smoke()
 jc = jc.replace(socket=dataclasses.replace(
@@ -68,6 +84,28 @@ mesh = jax.make_mesh((WORLD, 1), ("data", "model"),
 with activate_mesh(mesh):
     toks, _, _ = run_serve(jc, BATCH, PLEN, STEPS, seed=0, prompt=prompt)
 np.save(PATH + "/jax_tokens.npy", np.asarray(toks))
+
+import jax.numpy as jnp
+from repro.models import param as pm, transformer as tfm
+from repro.runtime.steps import make_prefill_step, make_serve_step
+for arch in HYBRIDS:
+    hc = get_config(arch).smoke().replace(num_groups=1)
+    hc = hc.replace(socket=dataclasses.replace(
+        hc.socket, use_score_kernel=True, use_flash_decode=True),
+        decode_cp_axes=("data",), decode_cp_batch_axes=())
+    params = pm.unbox(tfm.init_model(hc, jax.random.PRNGKey(0)))
+    with activate_mesh(mesh):
+        logits, caches = jax.jit(make_prefill_step(hc, PLEN + STEPS))(
+            params, {"tokens": jnp.asarray(prompt)})
+        serve = jax.jit(make_serve_step(hc))
+        logs, toks = [logits[:, -1]], [jnp.argmax(logits[:, -1], -1)[:, None]]
+        for t in range(STEPS):
+            logits, caches = serve(params, caches, toks[-1],
+                                   jnp.int32(PLEN + t))
+            logs.append(logits[:, -1])
+            toks.append(jnp.argmax(logits[:, -1], -1)[:, None])
+    np.savez(PATH + f"/jax_{arch}.npz", tokens=np.asarray(
+        jnp.concatenate(toks, 1)), logits=np.asarray(jnp.stack(logs)))
 print("OK")
 """
 
@@ -91,9 +129,31 @@ def _serve_rank(rank, world, tmp):
         prefill = [{k: v.clone() for k, v in c.items()} for c in caches]
         for t in range(STEPS):
             tfm.decode_step(cfg, params, caches, toks[:, t:t + 1], PLEN + t)
-    torch.save({"tokens": toks, "prefill": prefill, "decoded": caches},
-               os.path.join(tmp, f"rank{rank}.pt"))
+    out = {"tokens": toks, "prefill": prefill, "decoded": caches}
+    for arch in HYBRIDS:
+        hc = _tcfg(arch, **CP)
+        hp = torch.load(os.path.join(tmp, f"params_{arch}.pt"))
+        with activate_mesh(make_test_mesh(world, 1)):
+            out[arch] = _decode(hc, hp, prompt)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def _decode(cfg, params, prompt):
+    """Prefill and ``STEPS`` greedy steps: the tokens, each step's
+    last-position logits and the prefill's caches."""
+    from repro_torch.models import transformer as tfm
+    logits, caches = tfm.prefill(cfg, params, {"tokens": prompt}, CAP)
+    prefill = [{k: v.clone() for k, v in c.items()} for c in caches]
+    logs = [logits[:, -1]]
+    toks = [torch.argmax(logits[:, -1], -1)[:, None]]
+    for t in range(STEPS):
+        logits, caches = tfm.decode_step(cfg, params, caches, toks[-1],
+                                         PLEN + t)
+        logs.append(logits[:, -1])
+        toks.append(torch.argmax(logits[:, -1], -1)[:, None])
+    return {"tokens": torch.cat(toks, 1), "logits": torch.stack(logs),
+            "prefill": prefill}
 
 
 @pytest.fixture(scope="module")
@@ -114,18 +174,37 @@ def served(tmp_path_factory):
     prompt = np.random.default_rng(0).integers(
         0, _tcfg().vocab_size, (BATCH, PLEN)).astype(np.int32)
     np.save(os.path.join(tmp, "prompt.npy"), prompt)
-    spawn_ranks(_serve_rank, WORLD, (WORLD, tmp), deadline_s=240)
-    args = (ARCH, tmp, BATCH, PLEN, STEPS, WORLD)
-    run_subprocess_devices(_JAX_SERVE.replace("= ARGS", "= " + repr(args)),
-                           devices=WORLD, timeout=240)
+    for arch in HYBRIDS:
+        hp = pm.unbox(jtfm.init_model(jget(arch).smoke().replace(
+            num_groups=1), jax.random.PRNGKey(0)))
+        torch.save(from_jax_params(_tcfg(arch), jax.tree_util.tree_map(
+            np.asarray, hp)), os.path.join(tmp, f"params_{arch}.pt"))
+    args = (ARCH, tmp, BATCH, PLEN, STEPS, WORLD, HYBRIDS)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    # JAX's run beside the ranks'
+    jax_run = subprocess.Popen(
+        [sys.executable, "-c", _JAX_SERVE.replace("= ARGS",
+                                                  "= " + repr(args))],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        spawn_ranks(_serve_rank, WORLD, (WORLD, tmp), deadline_s=240)
+        _, err = jax_run.communicate(timeout=240)
+    finally:
+        if jax_run.poll() is None:
+            jax_run.kill()
+    assert jax_run.returncode == 0, err[-3000:]
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
              for r in range(WORLD)]
+    hybrids = {arch: dict(np.load(os.path.join(tmp, f"jax_{arch}.npz")))
+               for arch in HYBRIDS}
     return params, torch.from_numpy(prompt), \
-        np.load(os.path.join(tmp, "jax_tokens.npy")), ranks
+        np.load(os.path.join(tmp, "jax_tokens.npy")), ranks, hybrids
 
 
 def test_cp_greedy_tokens_match_jax_on_4_ranks(served):
-    _, _, jtoks, ranks = served
+    _, _, jtoks, ranks, _ = served
     for r in ranks:
         np.testing.assert_array_equal(r["tokens"].numpy(), jtoks)
 
@@ -138,7 +217,7 @@ def test_in_process_mesh_takes_the_plain_route_and_matches(served):
     from repro_torch.distributed.sharding import activate_mesh
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.serve import run_serve
-    params, prompt, jtoks, _ = served
+    params, prompt, jtoks, _, _ = served
     calls = []
     ref = cp.context_parallel_socket_attend_ref
 
@@ -162,7 +241,7 @@ def test_each_rank_holds_its_block_of_the_cache(served):
     single-process cache.  Decode: the new rows (60..63) are written on
     rank 3 only, layer 0's as the single-process decode writes them."""
     from repro_torch.models import transformer as tfm
-    params, prompt, _, ranks = served
+    params, prompt, _, ranks, _ = served
     cfg = _tcfg()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -206,6 +285,49 @@ def test_each_rank_holds_its_block_of_the_cache(served):
                         caches[0][name][:, :, PLEN:], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("arch", HYBRIDS)
+def test_cp_hybrid_decode_matches_jax(served, arch):
+    """Greedy tokens equal JAX's under the mesh on every rank, every
+    step's logits within LOGITS_ATOL."""
+    _, _, _, ranks, hybrids = served
+    want = hybrids[arch]
+    for r, got in enumerate(ranks):
+        got = got[arch]
+        np.testing.assert_array_equal(got["tokens"].numpy(), want["tokens"],
+                                      err_msg=r)
+        np.testing.assert_allclose(got["logits"].numpy(), want["logits"],
+                                   rtol=0, atol=LOGITS_ATOL, err_msg=r)
+
+
+@pytest.mark.parametrize("arch", HYBRIDS)
+def test_cp_hybrid_ranks_hold_blocks_rings_and_state(served, arch):
+    """Each rank's prefill caches: a global layer's leaves its block of
+    ``CAP / WORLD`` rows; a local layer's ring and a Mamba layer's state
+    whole (the single-process shapes) and bitwise equal on every rank."""
+    from repro_torch.models import transformer as tfm
+    _, _, _, ranks, _ = served
+    cfg = _tcfg(arch)
+    whole = tfm.init_decode_caches(cfg, BATCH, CAP)
+    kinds = set()
+    for layer, spec in enumerate(cfg.layer_specs):
+        glob = spec.kind == "attn" and spec.attn_type == "global"
+        kinds.add("global" if glob else spec.kind if spec.kind != "attn"
+                  else "local")
+        for name, ref in whole[layer].items():
+            leaves = [r[arch]["prefill"][layer][name] for r in ranks]
+            for leaf in leaves:
+                want = list(ref.shape)
+                if glob:
+                    want[2] = CAP // WORLD
+                assert list(leaf.shape) == want, (layer, name)
+            if not glob:
+                for leaf in leaves[1:]:
+                    assert torch.equal(leaf, leaves[0]), (layer, name)
+    assert kinds == {"gemma3-27b": {"global", "local"},
+                     "jamba-v0.1-52b": {"global", "mamba"},
+                     "mamba2-780m": {"mamba"}}[arch]
+
+
 def test_write_token_writes_only_owned_rows():
     """Scalar and ragged positions, with the batch split too: a rank
     writes the rows and batch rows it owns and nothing else."""
@@ -230,7 +352,6 @@ def test_write_token_writes_only_owned_rows():
 
 
 @pytest.mark.parametrize("arch,backend", [
-    ("gemma3-27b", "socket"), ("mamba2-780m", "socket"),
     ("llama31-8b", "dense"), ("llama31-8b", "quest")])
 def test_cp_refuses_other_layers(arch, backend):
     from repro_torch.configs import get_config

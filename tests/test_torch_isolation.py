@@ -68,6 +68,8 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.kernels.paged_attention.ops",
                  "repro_torch.kernels.paged_attention.cases",
                  "repro_torch.baselines.quest",
+                 "repro_torch.distributed.pipeline",
+                 "repro_torch.distributed.collectives",
                  "repro_torch.models.backends.hard_lsh",
                  "repro_torch.models.backends.quest"):
         assert name in names, name

@@ -36,8 +36,9 @@
   and error buffers within rtol 1e-6 / atol 1e-6, JAX's error buffers
   within ``ERROR_ULPS`` float32 ulps of the corrected gradient's largest
   value (XLA fuses the subtraction and the product).
-* **MoE** under a mesh whose data extent is above 1 raises, naming
-  ROADMAP item 11.
+
+MoE under a data mesh and the expert-parallel exchange are
+``test_torch_moe_alltoall.py``'s.
 """
 
 import functools
@@ -700,20 +701,6 @@ def test_padded_heads_match_jax():
         j = want[path].double()
         rel = float((g.double() - j).norm() / j.norm().clamp(min=1e-30))
         assert rel < 1e-4, (path, rel)
-
-
-def test_moe_under_a_data_mesh_names_its_roadmap_item():
-    from repro_torch.launch import specs as sp
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.optim import adamw as tadam
-    from repro_torch.runtime.steps import make_train_step
-    cfg = _tcfg("mixtral-8x22b")
-    _, psh = sp.param_specs(cfg, Mesh(("data", "model"), (2, 1)), {})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_train_step(cfg, tadam.AdamWConfig(), grad_shardings=psh)
-    # a model-only mesh splits no batch: allowed
-    _, psh = sp.param_specs(cfg, Mesh(("data", "model"), (1, 2)), {})
-    make_train_step(cfg, tadam.AdamWConfig(), grad_shardings=psh)
 
 
 def test_param_helpers_match_jax():

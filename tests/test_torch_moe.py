@@ -3,7 +3,8 @@
 tokens; the router's expert indices, probabilities and aux losses; decode
 dropless; first-come-first-served drops; ``init_moe``'s leaves;
 ``param_count``/``active_param_count`` of the four MoE and Mamba
-architectures (full and smoke); ``"alltoall"`` naming its ROADMAP item.
+architectures (full and smoke).  The ``"alltoall"`` exchange is
+``test_torch_moe_alltoall.py``'s.
 
 Tolerances (``tests/kernel_harness.py``'s policy): routing (expert
 indices, which assignments are kept) exact; float32 outputs, router
@@ -187,10 +188,3 @@ def test_param_counts_match_jax(arch):
         assert tc.param_count() == jc.param_count()
         assert tc.active_param_count() == jc.active_param_count()
         assert tc.uses_moe == jc.uses_moe
-
-
-def test_alltoall_dispatch_names_its_roadmap_item():
-    _, tc = _cfgs(moe_dispatch="alltoall")
-    _, tp = _params(_cfgs()[0])
-    with pytest.raises(NotImplementedError, match=r"item 11\b"):
-        tmoe.apply_moe(tc, tp, _t(_x((2, 8, 32))))

@@ -25,6 +25,19 @@ block once a rank, and a loss over a rank's own valid-token count; and
 block scales gathered in another rank order (faults that only the
 parameter and moment gates see): each fault fails them.  The launch, compression and elastic gates run on
 hand-made results.
+
+Phase 11's gates run at smoke width on the CPU, sound and with a planted
+fault each must fail: 11a's (the sharded step of ``mixtral-8x22b.smoke()``
+with ``"alltoall"`` on (2, 2) against one process's plain exchange at
+dropless capacity, the expert leaves' bytes, the drops case against the
+plain exchange) in the same spawn of 4 gloo ranks as phase 10's, with the
+expert gradients summed over ``model`` and with a slot sort that orders
+ties the other way; 11b's (``gpipe_forward`` of 4 stages of 2
+``llama31-8b.smoke()`` blocks against the sequential stack) in that spawn
+too, with a microbatch lost at a stage boundary; 11c's cache layout gate
+on ``gemma3-27b`` and ``jamba-v0.1-52b`` smoke prefills under a CP mesh
+computed in this process, with a rank whose ring was sliced and one
+whose global cache is whole.
 """
 
 from __future__ import annotations
@@ -1243,6 +1256,27 @@ def _mesh_smoke_rank(rank, world, tmp):
         with _mesh_fault(fault):
             res["8-bit", fault] = cs.mesh_train_run(
                 cfg, cs.mesh_ocfg(8), mesh41, 1, params, batches, "cpu")
+    # phase 11a: the exchange's sharded step and drops case
+    ecfg = _ep_smoke_cfg()
+    eparams = torch.load(os.path.join(tmp, "ep_params.pt"),
+                         weights_only=True)
+    ebatches = [cs.train_batch(ecfg, 4, 16, 0, i, "cpu") for i in range(2)]
+    for fault in (None, EP_FAULTS[0]):
+        with _ep_fault(fault):
+            res["ep", fault] = cs.ep_parity_run(ecfg, mesh, eparams,
+                                                ebatches, "cpu")
+    drop = cs.ep_drop_case(ecfg, 0, "cpu", rows=2, seq=32)
+    for fault in (None, EP_FAULTS[1]):
+        with _ep_fault(fault):
+            res["drop", fault] = cs.ep_drop_run(*drop, mesh)
+    # phase 11b: the pipeline's parity run
+    from repro_torch.launch.mesh import Mesh
+    stages = Mesh(("stage",), (4,), rank=rank)
+    stages.build_groups()
+    for fault in (None, PIPE_FAULT):
+        with _pipe_fault(fault):
+            res["pipe", fault] = cs.pipe_parity_run(
+                _pipe_smoke_cfg(), 0, "cpu", stages, seq=PIPE_SEQ)
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
@@ -1260,6 +1294,8 @@ def mesh_runs(tmp_path_factory):
     cfg = _mesh_smoke_cfg()
     params = tfm.init_model(cfg, 7)
     torch.save(params, os.path.join(tmp, "params.pt"))
+    torch.save(tfm.init_model(_ep_smoke_cfg(), 9),
+               os.path.join(tmp, "ep_params.pt"))
     spawn_ranks(_mesh_smoke_rank, 4, (4, tmp), deadline_s=240)
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
              for r in range(4)]
@@ -1283,6 +1319,36 @@ def mesh_runs(tmp_path_factory):
             opt_shardings=[cs.mesh_opt_shardings(cfg, shape, r, bits)
                            for r in range(4)])
     return cs, ranks, init, refs
+
+
+@pytest.fixture(scope="module")
+def ep_ref(mesh_runs):
+    """Phase 11a's one-process reference at smoke width: the step with
+    the plain exchange (``plain_exchange``) at the same (dropless)
+    capacity factor, from the ranks' weights and batches; the pipeline's
+    sequential stack."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import init_adamw
+    from repro_torch.runtime.steps import make_train_step
+    cs = mesh_runs[0]
+    cfg = _ep_smoke_cfg()
+    ocfg = cs.mesh_ocfg(cs.EP_BITS)
+    with one_thread():
+        p = tfm.init_model(cfg, 9)
+        init = fsdp.flat_tree(tfm.init_model(cfg, 9))
+        opt = init_adamw(ocfg, p)
+        step = make_train_step(cfg, ocfg, 1)
+        metrics = []
+        with cs.plain_exchange():
+            for i in range(2):
+                p, opt, m = step(p, opt, cs.train_batch(cfg, 4, 16, 0, i,
+                                                        "cpu"))
+                metrics.append({k: float(v) for k, v in m.items()})
+        pipe = cs.pipe_reference(_pipe_smoke_cfg(), 0, "cpu", seq=PIPE_SEQ)
+    return dict(metrics=metrics, params=fsdp.flat_tree(p), init=init,
+                shardings=[cs.ep_shardings(cfg, r) for r in range(4)],
+                pipe=pipe)
 
 
 def _mesh_gates(cs, ranks, fault, init, ref, bits=32):
@@ -1436,3 +1502,186 @@ def test_mesh_launch_compression_and_elastic_gates():
         "['params']['w']": whole[:4].clone()}))
     with pytest.raises(AssertionError, match="block"):
         cs.elastic_gate("smoke", wrong, saved, shardings)
+
+
+# ------------------------------------------------------------ phase 11
+
+# 11a's faults: each rank's expert gradients also summed over ``model``
+# (whose ranks hold other experts), and a slot sort that orders an id's
+# entries last index first (an unstable sort's freedom)
+EP_FAULTS = ("expert gradients summed over model", "unstable slot sort")
+PIPE_FAULT = "a microbatch lost"
+PIPE_SEQ = 16
+
+
+def _ep_smoke_cfg():
+    from repro_torch.configs import get_config
+    return get_config("mixtral-8x22b").smoke().replace(
+        num_groups=1, moe_dispatch="alltoall", capacity_factor=8.0,
+        remat_policy="full")
+
+
+def _pipe_smoke_cfg():
+    from repro_torch.configs import get_config
+    return get_config("llama31-8b").smoke().replace(num_groups=8)
+
+
+@contextlib.contextmanager
+def _ep_fault(fault):
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, fsdp
+    from repro_torch.models import moe
+    if fault is None:
+        yield
+        return
+    if fault == EP_FAULTS[0]:
+        orig = fsdp._GatherExperts.backward
+
+        def summed(ctx, grad):
+            grad = collectives.all_reduce(
+                grad.contiguous(), dist.ReduceOp.SUM,
+                ctx.mesh.group(("model",)))
+            return orig(ctx, grad)
+        ctx = mock.patch.object(fsdp._GatherExperts, "backward",
+                                staticmethod(summed))
+    else:
+        sort = moe._sort_slots
+
+        def reversed_ties(ids, count, capacity):
+            n = ids.numel()
+            back = torch.arange(n - 1, -1, -1, device=ids.device)
+            order = torch.argsort(ids * n + back)
+            flipped = torch.empty_like(ids)
+            flipped[order] = torch.arange(n, device=ids.device)
+            keep, slot = sort(ids, count, capacity)
+            # the same counts, each id's entries placed last index first
+            pos = flipped - (torch.cumsum(torch.bincount(
+                ids, minlength=count), 0) - torch.bincount(
+                ids, minlength=count))[ids]
+            keep = pos < capacity
+            return keep, torch.where(keep, pos,
+                                     torch.full_like(pos, capacity - 1))
+        ctx = mock.patch.object(moe, "_sort_slots", reversed_ties)
+    with ctx:
+        yield
+
+
+@contextlib.contextmanager
+def _pipe_fault(fault):
+    """The third ring shift of the forward delivers zeros: the
+    microbatch crossing that stage boundary is lost."""
+    from repro_torch.distributed import collectives
+    if fault is None:
+        yield
+        return
+    permute, calls = collectives.permute, [0]
+
+    def lossy(t, *args, **kw):
+        calls[0] += 1
+        out = permute(t, *args, **kw)
+        return torch.zeros_like(out) if calls[0] == 3 else out
+    with mock.patch.object(collectives, "permute", lossy):
+        yield
+
+
+def _ep_gates(cs, ranks, fault, ref):
+    got = [r["ep", fault] for r in ranks]
+    assert all(g["shapes"] for g in got)
+    worst = cs.mesh_metrics_gate("smoke", [g["metrics"] for g in got],
+                                 ref["metrics"])
+    perr = cs.mesh_params_gate("smoke", [g["params"] for g in got],
+                               ref["params"], ref["init"], ref["shardings"],
+                               cs.EP_BITS)
+    experts = cs.expert_bytes_gate("smoke", _ep_smoke_cfg(),
+                                   [g["stored"] for g in got],
+                                   [g["gathered"] for g in got])
+    return worst, perr, experts
+
+
+def test_ep_gates_pass_on_the_sound_exchange(mesh_runs, ep_ref):
+    """11a's gates at smoke width: the exchange's sharded step against
+    one process's plain exchange (loss, norm, each rank's blocks), each
+    rank's stored expert blocks a quarter of the leaf and its gathered
+    ones its 2 of 4 experts; the drops case's outputs and drops the
+    plain exchange's, which drops some."""
+    cs, ranks, _, _ = mesh_runs
+    worst, perr, experts = _ep_gates(cs, ranks, None, ep_ref)
+    assert perr["update_rel"] <= cs.MESH_UPDATE_RTOL[cs.EP_BITS]
+    assert experts["gathered_shape"] == (2, 64, 128)
+    drops = cs.ep_drop_gate("smoke", [r["drop", None] for r in ranks],
+                            *cs.ep_drop_case(_ep_smoke_cfg(), 0, "cpu",
+                                             rows=2, seq=32))
+    assert drops["dropped"] > 0 and drops["rel"] <= cs.EP_DROP_REL
+
+
+def test_ep_gates_catch_expert_gradients_summed_over_model(mesh_runs,
+                                                           ep_ref):
+    cs, ranks, _, _ = mesh_runs
+    with pytest.raises(AssertionError, match="step 0 grad_norm "):
+        _ep_gates(cs, ranks, EP_FAULTS[0], ep_ref)
+
+
+def test_ep_drop_gate_catches_an_unstable_slot_sort(mesh_runs):
+    """Ties ordered the other way keep as many assignments but not the
+    same ones: the drops count agrees, the outputs do not."""
+    cs, ranks, _, _ = mesh_runs
+    got = [r["drop", EP_FAULTS[1]] for r in ranks]
+    assert sum(g["dropped"] for g in got) == \
+        sum(r["drop", None]["dropped"] for r in ranks)
+    with pytest.raises(AssertionError, match="from the plain exchange"):
+        cs.ep_drop_gate("smoke", got, *cs.ep_drop_case(
+            _ep_smoke_cfg(), 0, "cpu", rows=2, seq=32))
+
+
+def test_pipe_gates(mesh_runs, ep_ref):
+    """11b's gates at smoke width: 4 stages of 2 blocks, 8 microbatches,
+    against the sequential stack, sound and with a microbatch lost."""
+    cs, ranks, _, _ = mesh_runs
+    gates = cs.pipe_parity_gates("smoke", [r["pipe", None] for r in ranks],
+                                 ep_ref["pipe"])
+    assert gates["out_rel"] <= cs.PIPE_OUT_REL
+    assert gates["grad_rel"] <= cs.PIPE_GRAD_REL
+    with pytest.raises(AssertionError, match="output"):
+        cs.pipe_parity_gates("smoke", [r["pipe", PIPE_FAULT] for r in ranks],
+                             ep_ref["pipe"])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "jamba-v0.1-52b"])
+def test_cph_layout_gate(arch):
+    """11c's cache layout gate on smoke prefills under a (2, 1) CP mesh
+    (a prefill needs no collective): sound, with a rank whose ring (or
+    Mamba state) was sliced, and with a rank whose global cache is whole
+    (one process's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tfm
+    cs = _chip_smoke()
+    cfg = get_config(arch).smoke().replace(
+        num_groups=1, decode_cp_axes=("data",), decode_cp_batch_axes=())
+    params = tfm.init_model(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 40),
+                           generator=torch.Generator().manual_seed(0))
+
+    def layout(mesh, cut=None):
+        with one_thread(), activate_mesh(mesh):
+            _, caches = tfm.prefill(cfg, params, {"tokens": tokens}, 48)
+        if cut is not None:
+            caches[cut] = {k: v[:, :, :v.shape[2] // 2] if v.ndim > 2
+                           else v for k, v in caches[cut].items()}
+        return {"layout": cs.cache_layout(cfg, caches)}
+
+    ref = layout(Mesh(("data", "model"), (1, 1)))["layout"]
+    ranks = [layout(Mesh(("data", "model"), (2, 1), rank=r))
+             for r in range(2)]
+    held = cs.cph_layout_gate("smoke", cfg, ranks, ref)
+    assert held["global"] > 0 and held["whole"] > 0
+    kinds = cs.layer_kinds(cfg)
+    whole = kinds.index("local" if "local" in kinds else "mamba")
+    sliced = [ranks[0], layout(Mesh(("data", "model"), (2, 1), rank=1),
+                               cut=whole)]
+    with pytest.raises(AssertionError, match=f"layer {whole} "):
+        cs.cph_layout_gate("smoke", cfg, sliced, ref)
+    glob = kinds.index("global")
+    with pytest.raises(AssertionError, match=f"layer {glob} "):
+        cs.cph_layout_gate("smoke", cfg, [ranks[0], {"layout": ref}], ref)

@@ -96,7 +96,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
               again through the kernel and once through its plain version
               (the same layout code, the op swapped for its plain version):
               last-token logits within LOGITS_ATOL, layer 0's K/V bit for
-              bit, SOCKET bits equal outside |proj| ~ 0; the times and
+              bit, each route's SOCKET bits its own keys' signs outside
+              |proj| ~ 0 (so equal where the keys are); the times and
               peak memory of both are logged.  Then layer by layer, each
               layer's kernel and plain op fed the kernel route's q/k/v:
               every layer's K/V within PREFILL_TOL (atol 1e-5); every
@@ -516,6 +517,31 @@ Phases, in order; the first failure raises and the script exits non-zero:
               ``flash_prefill`` attention layers a rank, no other
               kernel (``cph_launch_gate``).  The default run takes 11a,
               11b and 11c after phase 10.
+12. frontends — (``--only frontends`` runs it alone, no ``ok`` line)
+              the embeddings-input models through the static path on
+              Gaussian frame/patch embeddings drawn from the seed, and
+              the paper's baselines.  12a musicgen-medium at full width
+              (MHA, hd 64, G 1), f32, batch 4 x 1500 frames, 16 steps:
+              all 48 layers through ``phase_main`` (launch counts,
+              every layer's attention layer by layer, the routes'
+              logits distances logged), then the first
+              FRONTEND_GATE_DEPTH layers with its every gate (logits
+              within LOGITS_ATOL).  12b internvl2-26b at bf16: all 48
+              layers (38.6 GB) through the kernel route and the plain
+              route (``frontend_full_depth``: prefill s, decode step ms,
+              peak memory, launches gated, the routes' distance logged),
+              then ``phase_main``'s bf16 gates at FRONTEND_GATE_DEPTH
+              layers.  12c (``phase_baselines``) the oracle, hard LSH,
+              HashAttention, MagicPig, PQCache and SOCKET's
+              paper-literal form at one llama31-8b attention layer of
+              32768 keys (BASELINE_SHAPE), each held to the same
+              function on the CPU fed the same inputs (the first KV
+              head's slice), ``socket_score`` to
+              ``soft_scores_gather(bucket_probs_explicit)``; recall of
+              the oracle's top 10 %, bits a token and index build
+              seconds logged.  Its kernel cases (musicgen's
+              ``flash_decode`` and ``flash_prefill`` at hd 64 / G 1) run
+              in phase 3, timed into entry ``musicgen``.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -864,14 +890,18 @@ def socket_score_row(ss, ref_fn, dev, gen, name, kw, args, bits, u, vn,
 # the label of each kernel's case at gemma-7b's shapes (its static path's
 # for socket_score, flash_decode and flash_prefill; its continuous
 # lengths for the paged kernels), timed into entry ``gemma7b`` of the
-# kernel's row
+# kernel's row; and of flash_decode's and flash_prefill's cases at
+# musicgen-medium's static path (phase 12a: batch 4 x 24 heads of hd 64,
+# MHA, a 1500-frame prompt), timed into entry ``musicgen``
 GEMMA7B_TIMED = "gemma-7b hd 256, G 1"
+MUSICGEN_TIMED = "musicgen hd 64, G 1"
+CASE_ENTRIES = {GEMMA7B_TIMED: "gemma7b", MUSICGEN_TIMED: "musicgen"}
 
 
-def gemma7b_entry(label, row) -> dict:
-    """Entry ``gemma7b`` of a kernel's row: the case, its error and its
-    times beside its bound (the row's name, route and sources are the
-    kernel's)."""
+def case_entry(label, row) -> dict:
+    """Entry ``gemma7b`` or ``musicgen`` of a kernel's row: the case, its
+    error and its times beside its bound (the row's name, route and
+    sources are the kernel's)."""
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "back_to_back_ms", "bound_f32_ms")
     log(f"{label} timed: kernel {row['ms']:.4f} ms, bound "
@@ -963,7 +993,7 @@ def flash_decode_rows(dev, gen):
         log(f"flash_decode [{label}] BH={kw['bh']} K={kw['k']} G={kw['g']} "
             f"hd={kw['hd']} {str(kw['dtype'])[6:]}: max|err| {err:.3e} "
             f"(rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); {note}")
-        if label in ("main path", GEMMA7B_TIMED):
+        if label == "main path" or label in CASE_ENTRIES:
             bh, k, g, hd = kw["bh"], kw["k"], kw["g"], kw["hd"]
             sets = [cases.card_case(gen, **kw)
                     for _ in range(rotations(2 * bh * k * hd * 4))]
@@ -981,12 +1011,13 @@ def flash_decode_rows(dev, gen):
                                         attn_mask=m[:, None, None, :],
                                         scale=scale), sets)
             bms, by = bound(nbytes, flops)
-            if label == GEMMA7B_TIMED:
+            if label in CASE_ENTRIES:
                 # the main case's row comes first in CARD_CASES
-                rows["flash_decode"]["gemma7b"] = gemma7b_entry(label, dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms,
-                    back_to_back_ms=back_to_back_ms(kernel, sets)))
+                rows["flash_decode"][CASE_ENTRIES[label]] = case_entry(
+                    label, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                                back_to_back_ms=back_to_back_ms(kernel,
+                                                                sets)))
                 continue
             rows["flash_decode"] = dict(
                 name="flash_decode", route="cuda",
@@ -1078,7 +1109,7 @@ def phase_kernels(dev, seed):
             rows[name] = socket_score_row(ss, socket_score_ref, dev, gen,
                                           name, kw, args, bits, u, vn, err)
         if label == GEMMA7B_TIMED:
-            rows["socket_score"]["gemma7b"] = gemma7b_entry(
+            rows["socket_score"]["gemma7b"] = case_entry(
                 label, socket_score_row(ss, socket_score_ref, dev, gen,
                                         "socket_score", kw, args, bits, u,
                                         vn, err))
@@ -1102,6 +1133,9 @@ PREFILL_CASES = [
     ("stablelm hd 160, G 4", 32, 8, 2048, 160, 0, 0.0, torch.float32),
     # gemma-7b's static prefill: batch 2 x 16 heads, MHA
     ("gemma-7b hd 256, G 1", 32, 32, 4096, 256, 0, 0.0, torch.float32),
+    # musicgen-medium's static prefill (phase 12a): batch 4 x 24 heads of
+    # hd 64, MHA, a 1500-frame prompt
+    (MUSICGEN_TIMED, 96, 96, 1500, 64, 0, 0.0, torch.float32),
     ("bf16 inputs", 64, 16, 2048, 128, 0, 0.0, torch.bfloat16),
     ("ragged S 4100", 32, 8, 4100, 128, 0, 0.0, torch.float32),
     ("softcap 2, window 512", 32, 16, 2048, 128, 512, 2.0, torch.float32),
@@ -1206,8 +1240,8 @@ def flash_prefill_rows(dev, seed):
             f"{window} softcap {cap} {str(dtype)[6:]}: max|err| {err:.3e} "
             f"(atol {PREFILL_TOL['atol']}); bound {bms:.3f} ms ({by})")
         del out
-        if not label.startswith(("main path", "gemma3 local",
-                                 GEMMA7B_TIMED)):
+        if not label.startswith(("main path", "gemma3 local")) and \
+                label not in CASE_ENTRIES:
             continue
         sets = [case] + [inputs(bh, bkv, s, hd, dtype)
                          for _ in range(rotations(nbytes) - 1)]
@@ -1258,12 +1292,12 @@ def flash_prefill_rows(dev, seed):
             f"{flops / TF32_FLOP_PER_S * 1e3:.3f}, bf16 "
             f"{flops / BF16_FLOP_PER_S * 1e3:.3f} ms; f32 outside them "
             f"{flops / FP32_FLOP_PER_S * 1e3:.3f} ms)")
-        if label == GEMMA7B_TIMED:
-            rows["flash_prefill"]["gemma7b"] = gemma7b_entry(label, dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms,
-                bound_f32_ms=flops / FP32_FLOP_PER_S * 1e3,
-                back_to_back_ms=b2b))
+        if label in CASE_ENTRIES:
+            rows["flash_prefill"][CASE_ENTRIES[label]] = case_entry(
+                label, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                            bound_f32_ms=flops / FP32_FLOP_PER_S * 1e3,
+                            back_to_back_ms=b2b))
         if label.startswith("main path"):
             rows["flash_prefill"] = dict(
                 name="flash_prefill", route="cuda",
@@ -1797,7 +1831,7 @@ def paged_rows(dev, seed, kv_dtype="auto", q_bf16=False):
             key = name if kv_dtype == "auto" else f"{name}[{kv_dtype}]"
             if hd_timed:
                 # the main case's row comes first in PAGED_CASES
-                rows[key]["gemma7b"] = gemma7b_entry(label, dict(
+                rows[key]["gemma7b"] = case_entry(label, dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=None,
                     back_to_back_ms=back_to_back_ms(kernel, sets)))
@@ -1958,15 +1992,16 @@ def ring_timing(dev, gen, kw, kv_dtype, case, scales, err, note,
 # --------------------------------------------------------------- phase 4
 
 @torch.no_grad()
-def prefill_routes(cfg, params, prompt, capacity, dev):
+def prefill_routes(cfg, params, prompt, capacity, dev, gate_logits=True):
     """The static prefill three more times, the plain op swapped in for
     ``attention``'s reference to ``flash_prefill`` (the same head layout,
     flattening and merge):
 
     * through the kernel and through the plain op, each route's layers fed
       by its own earlier layers: the last-token logits within
-      LOGITS_ATOL, layer 0's K/V bit for bit, SOCKET bits bitwise outside
-      |proj| ~ 0; the deeper layers' K/V drift logged;
+      LOGITS_ATOL, layer 0's K/V bit for bit, each route's SOCKET bits
+      its own keys' signs outside |proj| ~ 0 (bitwise alike where the
+      keys are); the deeper layers' K/V drift logged;
     * layer by layer: every layer's call runs the kernel and the plain op
       on the same q/k/v, the kernel route's, and goes on with the
       kernel's output.  Both routes' K/V of a layer are then projected
@@ -1986,6 +2021,10 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
     float32 run of the same weights through the plain op instead
     (:func:`f32_distance_check`), and SOCKET's bits compare outside the
     band of the K rows' bf16 difference.
+
+    ``gate_logits`` False logs the free-running routes' logits distance
+    without gating it (a depth at which f32 routes part by more than
+    LOGITS_ATOL; phase 12a).
 
     Returns the kernel route's (logits, caches), the stats (times and
     peak memory of the first two) and, at bf16, the float32 run's
@@ -2033,8 +2072,10 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
 
     def prefill(op, config=cfg):
         with mock.patch.object(attention.fp_ops, "flash_prefill", op):
+            # token ids, or an embeddings-input model's embeddings
+            key = "tokens" if cfg.input_mode == "tokens" else "embeds"
             return make_prefill_step(config, capacity)(params,
-                                                       {"tokens": prompt})
+                                                       {key: prompt})
 
     def timed_prefill(route, op, stats):
         torch.cuda.synchronize()
@@ -2080,11 +2121,15 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
                  prefill_attention_by_layer=layers)
     w = layers[worst]
     log(f"prefill, kernel vs plain op: max|logits err| {err:.3e} ("
-        + ("not a gate at bf16" if ref else f"atol {LOGITS_ATOL}")
+        + ("not a gate at bf16" if ref else f"atol {LOGITS_ATOL}" if
+           gate_logits else "not a gate at this depth")
         + f"); layer 0 K/V {drift[0]:.1e}; free-running K/V "
         f"drift {max(drift):.3e} (not a gate); "
-        f"{stats['prefill_bit_flips']} SOCKET signs flipped, all among the "
-        f"{stats['prefill_bits_near_zero']} with |proj| ~ 0 (of "
+        f"{stats['prefill_bit_flips']} SOCKET signs differ between the "
+        f"routes, {stats['prefill_bit_flips_by_key_drift']} of them where "
+        f"the routes' keys part across zero and the rest among the "
+        f"{stats['prefill_bits_near_zero']} with |proj| ~ 0, each route's "
+        f"bits its own keys' signs (of "
         f"{stats['prefill_bits_layers_compared']} layers); kernel "
         f"{stats['prefill_s_kernel']:.3f} s, plain "
         f"{stats['prefill_s_plain']:.3f} s")
@@ -2109,7 +2154,8 @@ def prefill_routes(cfg, params, prompt, capacity, dev):
         f"the limit or more, one key too many "
         f"{min(r['next_key_ratio'] / r['limit'] for r in layers):.3g}x or "
         f"more")
-    if (err > LOGITS_ATOL and ref is None) or drift[0] != 0.0 or \
+    if (err > LOGITS_ATOL and ref is None and gate_logits) or \
+            drift[0] != 0.0 or \
             max(kv_err) > PREFILL_TOL["atol"] or \
             w["ratio_f64"] > w["limit"] or f64 > F64_RATIO:
         raise AssertionError(f"prefill routes differ: logits {err:.3e}, "
@@ -2136,40 +2182,54 @@ def tol_ratio(out, ref, tol=ATTN_TOL) -> float:
 
 def prefill_socket_checks(cfg, params, prompt, ck, cp):
     """SOCKET bits of the kernel route's caches ``ck`` and the plain
-    route's ``cp``: equal wherever a key's projection is clear of
-    rounding (|proj| > 1e-5 x the sum of |terms|).  At bf16 the
-    free-running routes' keys part after layer 0 (see
+    route's ``cp``: each route's bits equal the signs of its own keys'
+    projections wherever a projection is clear of rounding (|proj| >
+    1e-5 x the sum of |terms|, float64).  Where the routes' keys are
+    equal (layer 0, whose K/V are gated bit for bit) that holds the two
+    routes' bits equal outside the band; in deeper f32 layers the
+    free-running routes' keys part by the K/V drift (logged), which may
+    carry a projection across zero: such signs differ between the routes
+    and are counted, each route still held to its own keys.  At bf16 the
+    free-running routes' keys part after layer 0 by bf16 roundings (see
     :func:`f32_distance_check`), so only the layers whose K rows the two
     routes share are compared (layer 0 at least; the layer-by-layer run
     holds every layer's K/V)."""
     from repro_torch.core import hashing
     s, t = cfg.socket, prompt.shape[1]
-    flips, band, compared = 0, 0, 0
+    flips, band, drift, compared = 0, 0, 0, 0
     for i, (a, b) in enumerate(zip(ck, cp)):
         if "bits" not in a:                     # a Mamba layer's state
             continue
         if is_bf16(cfg) and not torch.equal(a["k"], b["k"]):
             continue
         compared += 1
-        sa = hashing.unpack_signs(a["bits"], s.num_tables,
-                                  s.num_planes)[:, :, :t]
-        sb = hashing.unpack_signs(b["bits"], s.num_tables,
-                                  s.num_planes)[:, :, :t]
         w = params["layers"][i]["attn"]["hash_w"].double()
-        keys = a["k"][:, :, :t].double()
-        proj = torch.einsum("bhnd,lpd->bhnlp", keys, w)
-        mag = torch.einsum("bhnd,lpd->bhnlp", keys.abs(), w.abs())
-        near = proj.abs() <= 1e-5 * mag
-        if bool((sa != sb)[~near].any()):
-            raise AssertionError(f"layer {i}: SOCKET bits of the kernel and "
-                                 "plain prefills differ where |proj| is "
-                                 "clear of rounding")
-        flips += int((sa != sb).sum().item())
-        band += int(near.sum().item())
-        del sa, sb, proj, mag, near
+        signs, near = {}, {}
+        for route, c in (("kernel", a), ("plain", b)):
+            got = hashing.unpack_signs(c["bits"], s.num_tables,
+                                       s.num_planes)[:, :, :t]
+            keys = c["k"][:, :, :t].double()
+            proj = torch.einsum("bhnd,lpd->bhnlp", keys, w)
+            mag = torch.einsum("bhnd,lpd->bhnlp", keys.abs(), w.abs())
+            near[route] = proj.abs() <= 1e-5 * mag
+            want = torch.where(proj >= 0, 1.0, -1.0)
+            if bool((got != want)[~near[route]].any()):
+                raise AssertionError(
+                    f"layer {i}: the {route} route's SOCKET bits differ "
+                    "from its keys' signs where |proj| is clear of "
+                    "rounding")
+            signs[route] = got
+            del proj, mag, want
+        differ = signs["kernel"] != signs["plain"]
+        flips += int(differ.sum().item())
+        band += int(near["kernel"].sum().item())
+        drift += int((differ & ~near["kernel"] & ~near["plain"]).sum()
+                     .item())
+        del signs, near, differ
     if not compared:
         raise AssertionError("no layer's SOCKET bits were compared")
     return dict(prefill_bit_flips=flips, prefill_bits_near_zero=band,
+                prefill_bit_flips_by_key_drift=drift,
                 prefill_bits_layers_compared=compared)
 
 
@@ -2250,26 +2310,40 @@ def widened(pages):
 
 # arch -> (batch, prompt length, greedy decode steps) of the static path:
 # llama31-8b (phases 4 and 5f), gemma-7b, MHA at hd 256 (phase 5d),
-# jamba's one attention layer among Mamba and MoE layers (phase 5e) and
-# llama4's group of a dense and an MoE layer (phase 5f, jamba's traffic)
+# jamba's one attention layer among Mamba and MoE layers (phase 5e),
+# llama4's group of a dense and an MoE layer (phase 5f, jamba's traffic),
+# and the embeddings-input models of phase 12: musicgen-medium on 30 s of
+# 50 Hz EnCodec frames (the clip length it generates), internvl2-26b on
+# its trained context (a few 256-patch image tiles and text), each 16
+# steps (32 put the whole script past its 1050 s budget on a slow host)
 STATIC_CASES = {"llama31-8b": (2, 8192, 32), "gemma-7b": (2, 4096, 16),
                 "jamba-v0.1-52b": (2, 4096, 16),
-                "llama4-maverick-400b-a17b": (2, 4096, 16)}
+                "llama4-maverick-400b-a17b": (2, 4096, 16),
+                "musicgen-medium": (4, 1500, 16),
+                "internvl2-26b": (2, 8192, 16)}
 
 
-def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
+def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32",
+               num_groups=None, int8_run=True, gate_logits=True):
     """The static path of ``arch`` at full width, and at the depth of its
     continuous card case (``CARD_CASES``: all of it but for jamba's and
-    llama4's one group; see the module docstring, phases 4, 5d, 5e and
-    5f), at ``numerics`` ("f32", or "bf16": the deployment's, phase 5f,
-    where the kernel and plain routes are held to a float32 run of the
-    same weights); returns (launches, the weights).  The attention
-    kernels' gates count the attention layers alone."""
+    llama4's one group; see the module docstring, phases 4, 5d, 5e, 5f
+    and 12) or ``num_groups`` groups, at ``numerics`` ("f32", or "bf16":
+    the deployment's, phase 5f, where the kernel and plain routes are
+    held to a float32 run of the same weights); an embeddings-input
+    model's prompt and step inputs are ``launch.serve``'s Gaussian
+    embeddings; ``int8_run`` also runs the path on int8 plane bytes (f32
+    only); ``gate_logits`` False logs the f32 routes' free-running
+    prefill and step-0 logits distances instead of gating them at
+    LOGITS_ATOL (every layer's attention stays gated); returns (launches,
+    the weights).  The attention kernels' gates
+    count the attention layers alone."""
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.launch.serve import (CARD_CASES, apply_backend_arg,
-                                          card_config, run_serve)
+                                          card_config, run_serve,
+                                          serve_inputs, step_input)
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.steps import make_serve_step
 
@@ -2277,15 +2351,14 @@ def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
     cfg = apply_backend_arg(card_config(arch, numerics), "socket")
     if numerics == "f32":
         cfg = cfg.replace(attn_q_chunk=512)
-    groups = CARD_CASES[arch][3]
+    groups = num_groups or (CARD_CASES[arch][3] if arch in CARD_CASES
+                            else None)
     if groups is not None:
         cfg = cfg.replace(num_groups=groups)
     n_attn = sum(s.kind == "attn" for s in cfg.layer_specs)
     t0 = time.perf_counter()
     params = tfm.init_model(cfg, seed, dev)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                           generator=gen, device=dev)
+    (prompt,) = serve_inputs(cfg, batch, prompt_len, seed, dev).values()
     torch.cuda.synchronize()
     log(f"main: {arch} {cfg.param_count() / 1e9:.3f} B params "
         f"({cfg.param_dtype}, compute {cfg.compute_dtype}, SOCKET scores "
@@ -2336,7 +2409,7 @@ def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
     # with them every greedy token, equal the packed run's (f32 only: the
     # scoring kernel's inputs are the same at bf16)
     bf16 = is_bf16(cfg)
-    if not bf16:
+    if int8_run and not bf16:
         cfg8 = cfg.replace(socket=dataclasses.replace(cfg.socket,
                                                       bits_storage="int8"))
         ss.LAUNCHES = 0
@@ -2358,7 +2431,7 @@ def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
     # the prefill through the kernel and through the plain op
     capacity = prompt_len + steps
     logits, caches, stats, ref = prefill_routes(cfg, params, prompt,
-                                                capacity, dev)
+                                                capacity, dev, gate_logits)
     log(json.dumps({"main_path_prefill": arch, **stats, "card": card}))
     # decode step 0 again on a clone of the prefilled cache, kernel path vs
     # the plain versions (both kernel flags off; at bf16 scoring from
@@ -2373,18 +2446,19 @@ def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
                              "differs between two runs")
     plain_caches = [{k: v.clone() for k, v in c.items()} for c in caches]
     serve_plain = make_serve_step(cfg_plain)
+    inp = step_input(cfg, tok, seed, 0)
     if bf16:
         serve_f32 = make_serve_step(f32_reference(cfg))
         f32_caches = ref[1]
         torch.cuda.empty_cache()
-        lf, _ = serve_f32(params, f32_caches, tok, prompt_len)
+        lf, _ = serve_f32(params, f32_caches, inp, prompt_len)
     swapped, rerouted = [], []
     with paired(static_ties_shared, cfg, swapped) as to_plain, \
             paired(moe_routes_shared, cfg, rerouted) as moe_to_plain:
-        lk, _ = make_serve_step(cfg)(params, caches, tok, prompt_len)
+        lk, _ = make_serve_step(cfg)(params, caches, inp, prompt_len)
         to_plain()
         moe_to_plain()
-        lp, _ = serve_plain(params, plain_caches, tok, prompt_len)
+        lp, _ = serve_plain(params, plain_caches, inp, prompt_len)
     del caches
     if not bf16:
         log(f"decode step 0: the plain top-k took the kernel route's "
@@ -2400,9 +2474,11 @@ def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
         f32_distance_check("decode step 0", lk, lp, lf)
     else:
         log(f"decode step 0, kernels vs plain versions: max|logits err| "
-            f"{err:.3e} (atol {LOGITS_ATOL}; max|logits| "
-            f"{lp.abs().max().item():.3f})")
-        if err > LOGITS_ATOL:
+            f"{err:.3e} ("
+            + (f"atol {LOGITS_ATOL}" if gate_logits else
+               "not a gate at this depth")
+            + f"; max|logits| {lp.abs().max().item():.3f})")
+        if err > LOGITS_ATOL and gate_logits:
             raise AssertionError(f"step-0 logits differ by {err:.3e} > "
                                  f"{LOGITS_ATOL}")
     others = {"plain": (serve_plain, plain_caches, lp)}
@@ -2411,7 +2487,8 @@ def phase_main(dev, seed, card, arch="llama31-8b", numerics="f32"):
     for label, (serve, cache, lt) in others.items():
         got = [tok, torch.argmax(lt[:, -1], dim=-1)[:, None]]
         for t in range(1, steps):
-            lt, _ = serve(params, cache, got[-1], prompt_len + t)
+            lt, _ = serve(params, cache, step_input(cfg, got[-1], seed, t),
+                          prompt_len + t)
             got.append(torch.argmax(lt[:, -1], dim=-1)[:, None])
         same = (torch.cat(got, dim=1) == toks)
         prefix = [int(same[b].long().cumprod(0).sum().item())
@@ -6581,15 +6658,514 @@ def phase_parallel(dev, seed, card, only=None) -> dict:
     return rows
 
 
+# -------------------------------------------------------------- phase 12
+
+# The depth at which phase 12 gates the two routes' logits, by arch.
+# musicgen-medium at f32: through all 48 layers of random weights the
+# free-running routes' logits part by 7.0e-4 (their K/V by 2.8e-5 after
+# one layer, 1.3e-4 after seven, 8.3e-4 after 47; an H100, seed 0) while
+# every layer's attention is within its gate (layer by layer): the
+# 48-layer run logs the distance, and LOGITS_ATOL is held at the first 4
+# layers (9.2e-5 at 8).  internvl2-26b at bf16: 48 layers (38.6 GB of
+# weights) run the kernel and plain routes for times, launches and their
+# distance; phase 5f's float32 yardstick at full depth would add its
+# prefill and decode loop (a 632-TFLOP prefill at float32) to the
+# script's time, so it runs at the first QUANT_DEPTH layers
+FRONTEND_GATE_DEPTH = {"musicgen-medium": 4, "internvl2-26b": QUANT_DEPTH}
+# 12c: one llama31-8b attention layer at decode_32k's length (8 KV heads
+# x 32768 keys, hd 128, G 4, f32); the CPU side of each gate reads the
+# first KV head's slice
+BASELINE_SHAPE = dict(kvh=8, n=32768, g=4, hd=128)
+BASELINE_TOP = 0.1            # the oracle's top share each recall reads
+# a sign whose projection lies within this share of the sum of its terms'
+# magnitudes (float64) may round either way on either device; as far
+# apart are a key's two nearest PQ centroids within float32 rounding
+SIGN_BAND = 1e-5
+PQ_BAND = 1e-5
+
+
+def frontend_full_depth(dev, seed, card, arch="internvl2-26b") -> dict:
+    """12b at full depth (bf16, the deployment numerics): the static path
+    through the kernels (``run_serve``: prefill s, decode step ms, peak
+    memory; launches gated at attention layers x calls) and through the
+    plain versions (kernel flags off, the plain prefill op; none of the
+    three kernels may launch), then decode step 0 through both routes
+    from one prefill's caches, whose logits distance is logged: at bf16
+    the routes part from layer 0 on (:func:`f32_distance_check`), so the
+    gate runs at FRONTEND_GATE_DEPTH's layers in :func:`phase_main`.
+    Returns the kernel route's launches."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.socket_score import ops as ss
+    from repro_torch.launch.serve import (apply_backend_arg, card_config,
+                                          run_serve, serve_inputs,
+                                          step_input)
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+
+    batch, prompt_len, steps = STATIC_CASES[arch]
+    cfg = apply_backend_arg(card_config(arch, "bf16"), "socket")
+    cfg_plain = kernel_scoring(cfg.replace(socket=dataclasses.replace(
+        cfg.socket, use_score_kernel=False, use_flash_decode=False)))
+    t0 = time.perf_counter()
+    params = tfm.init_model(cfg, seed, dev)
+    (prompt,) = serve_inputs(cfg, batch, prompt_len, seed, dev).values()
+    torch.cuda.synchronize()
+    log(f"{arch}: {cfg.param_count() / 1e9:.3f} B params ({cfg.param_dtype}"
+        f", {cfg.num_layers} layers) drawn in {time.perf_counter() - t0:.1f}"
+        f" s; batch {batch}, prompt {prompt_len}, {steps} decode steps")
+    out, expected = {}, {"socket_score": cfg.num_layers * (steps + 1),
+                         "flash_decode": cfg.num_layers * (steps + 1),
+                         "flash_prefill": cfg.num_layers}
+    for route, c, op in (("kernel", cfg, fp.flash_prefill),
+                         ("plain", cfg_plain, plain_prefill)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ss.LAUNCHES = fd.LAUNCHES = fp.LAUNCHES = 0
+        with mock.patch.object(attention.fp_ops, "flash_prefill", op):
+            toks, prefill_s, decode_s = run_serve(
+                c, batch, prompt_len, steps, seed=seed, prompt=prompt,
+                params=params, device=dev)
+        launches = {"socket_score": ss.LAUNCHES, "flash_decode": fd.LAUNCHES,
+                    "flash_prefill": fp.LAUNCHES}
+        want = expected if route == "kernel" else dict.fromkeys(expected, 0)
+        if launches != want:
+            raise AssertionError(f"{arch} {route} route: launches "
+                                 f"{launches}, expected {want}")
+        out[route] = dict(prefill_s=prefill_s,
+                          decode_step_ms=decode_s / steps * 1e3,
+                          decode_tokens_per_s=batch * steps / decode_s,
+                          max_memory_allocated_bytes=
+                          torch.cuda.max_memory_allocated(dev),
+                          launches=launches, tokens=toks)
+    # decode step 0 through both routes from one prefill's caches
+    _, caches = make_prefill_step(cfg, prompt_len + steps)(
+        params, {"embeds": prompt})
+    inp = step_input(cfg, out["kernel"]["tokens"][:, :1], seed, 0)
+    plain_caches = [{k: v.clone() for k, v in c.items()} for c in caches]
+    lk, _ = make_serve_step(cfg)(params, caches, inp, prompt_len)
+    del caches
+    lp, _ = make_serve_step(cfg_plain)(params, plain_caches, inp, prompt_len)
+    del plain_caches
+    torch.cuda.empty_cache()
+    lk, lp = lk.float(), lp.float()
+    if not (bool(torch.isfinite(lk).all()) and
+            bool(torch.isfinite(lp).all())):
+        raise AssertionError(f"{arch}: non-finite step-0 logits")
+    same = out["kernel"].pop("tokens") == out["plain"].pop("tokens")
+    stats = dict(
+        step0_logits_kernel_vs_plain=(lk - lp).abs().max().item(),
+        max_abs_logits=lp.abs().max().item(),
+        greedy_tokens_shared=f"{int(same.sum().item())}/{same.numel()}")
+    log(f"{arch} full depth, bf16: kernel route prefill "
+        f"{out['kernel']['prefill_s']:.3f} s, a decode step "
+        f"{out['kernel']['decode_step_ms']:.2f} ms, peak "
+        f"{out['kernel']['max_memory_allocated_bytes'] / 1e9:.2f} GB; plain "
+        f"route {out['plain']['prefill_s']:.3f} s, "
+        f"{out['plain']['decode_step_ms']:.2f} ms; kernel vs plain (not a "
+        f"gate at bf16): step 0 from one prefill's caches "
+        f"{stats['step0_logits_kernel_vs_plain']:.3e} (max|logits| "
+        f"{stats['max_abs_logits']:.3f}), greedy tokens shared "
+        f"{stats['greedy_tokens_shared']}")
+    log(json.dumps({"frontend_full_depth": arch, "numerics": "bf16",
+                    "layers": cfg.num_layers, "batch": batch,
+                    "prompt_len": prompt_len, "decode_steps": steps,
+                    **out, **stats, "card": card}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out["kernel"]["launches"]
+
+
+def on_card(label, t, dev) -> torch.Tensor:
+    """``t``, which must lie on ``dev`` (a baseline left on the CPU
+    fails), copied to the CPU."""
+    if t.device != torch.device(dev):
+        raise AssertionError(f"{label}: computed on {t.device}, not on "
+                             f"{dev}")
+    return t.detach().cpu()
+
+
+def equal_gate(label, card, cpu, dev) -> None:
+    """The card's integers (bits, bucket ids, counts, selections, codes)
+    equal to the CPU's from the same inputs."""
+    got = on_card(label, card, dev)
+    if got.shape != cpu.shape or not torch.equal(got, cpu):
+        bad = int((got != cpu).sum().item()) if got.shape == cpu.shape \
+            else "shape"
+        raise AssertionError(f"{label}: the card's values differ from the "
+                             f"CPU's ({bad} entries)")
+
+
+def close_gate(label, card, cpu, tol, dev, mag=None) -> float:
+    """The card's floats within ``tol`` of the CPU's from the same
+    inputs; returns max |err|.  ``mag``: for sums whose terms cancel (a
+    dot product), the sum of the terms' magnitudes (float64), the scale
+    their rounding takes in another summation order: the relative part
+    of ``tol`` reads it where it exceeds |the CPU's value|."""
+    got = on_card(label, card, dev)
+    if mag is None:
+        return check_close(label, got, cpu, tol)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite output")
+    err = (got.double() - cpu.double()).abs()
+    scale = torch.maximum(cpu.double().abs(), mag.double())
+    if not bool((err <= tol["atol"] + tol["rtol"] * scale).all()):
+        raise AssertionError(
+            f"{label}: max |err| {err.max().item():.3e} exceeds atol "
+            f"{tol['atol']} + rtol {tol['rtol']} * the terms' magnitude")
+    return float(err.max().item())
+
+
+def sign_gate(label, w, x, card_signs, cpu_signs, dev) -> int:
+    """Signs of ``W x`` (``w`` (L, P, d), ``x`` (..., d) on the CPU;
+    signs (..., L, P) bool, True where >= 0) on the card and on the CPU:
+    equal wherever the projection is clear of rounding (|proj| >
+    SIGN_BAND x the sum of |terms|, float64).  Returns the signs that
+    differ inside the band."""
+    got = on_card(label, card_signs, dev)
+    l, p, d = w.shape
+    wf, xf = w.double().reshape(l * p, d), x.double()
+    proj = (xf @ wf.T).reshape(*x.shape[:-1], l, p)
+    mag = (xf.abs() @ wf.abs().T).reshape(*x.shape[:-1], l, p)
+    differ = got != cpu_signs
+    if bool(differ[proj.abs() > SIGN_BAND * mag].any()):
+        raise AssertionError(f"{label}: signs differ where the projection "
+                             "is clear of rounding")
+    return int(differ.sum().item())
+
+
+def pq_code_gate(label, x, codebooks, card_codes, cpu_codes, dev) -> dict:
+    """PQ codes of points ``x`` (m, N, dsub) under ``codebooks`` (m, C,
+    dsub), all on the CPU: the card's equal to the CPU's but for points
+    whose two nearest centroids lie within float32 rounding of each other
+    (their squared distances, float64, within PQ_BAND of their sum).
+    Returns the points in the band and the codes that differ there."""
+    got = on_card(label, card_codes, dev)
+    d2 = ((x.double()[:, :, None] - codebooks.double()[:, None]) ** 2).sum(-1)
+    two = torch.topk(d2, 2, dim=-1, largest=False).values     # (m, N, 2)
+    band = (two[..., 1] - two[..., 0] <= PQ_BAND * two.sum(-1)).T  # (N, m)
+    differ = got != cpu_codes
+    if bool(differ[~band].any()):
+        raise AssertionError(f"{label}: {int(differ[~band].sum())} PQ codes "
+                             "differ outside the rounding band")
+    return dict(in_band=int(band.sum().item()),
+                differ_in_band=int(differ.sum().item()))
+
+
+@contextlib.contextmanager
+def selections(module, out):
+    """``module.value_aware_topk``'s selections appended to ``out``."""
+    real = module.value_aware_topk
+
+    def spy(*a, **kw):
+        idx, mask = real(*a, **kw)
+        out.append((idx, mask))
+        return idx, mask
+
+    with mock.patch.object(module, "value_aware_topk", spy):
+        yield
+
+
+def top_recall(scores, truth, k) -> float:
+    """Mean over rows of the share of the ``truth`` top-``k`` (a bool
+    mask) among ``scores``' top ``k`` (stable: ties by lowest index)."""
+    top = torch.sort(scores.float(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return torch.gather(truth, -1, top).float().mean().item()
+
+
+def baseline_inputs(dev, seed, kvh, n, g, hd):
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    keys = torch.randn((1, kvh, n, hd), generator=gen, device=dev)
+    values = torch.randn((1, kvh, n, hd), generator=gen, device=dev)
+    q = torch.randn((1, kvh, g, 1, hd), generator=gen, device=dev)
+    return gen, keys, values, q
+
+
+def phase_baselines(dev, seed, card) -> dict:
+    """12c: the paper's baselines and SOCKET's paper-literal scoring on
+    the card, at one llama31-8b attention layer at decode_32k's length
+    (BASELINE_SHAPE), each at the JAX package's default config, against
+    the same functions on the CPU fed the same inputs (the first KV
+    head's slice; where a function draws or hashes, the CPU side takes
+    the card's draw and bits): key and query signs equal outside the
+    rounding band (SIGN_BAND), bucket ids, counts and selections equal,
+    float scores within SCORE_TOL, attention outputs within ATTN_TOL, PQ's
+    Lloyd iterations step by step (assignments outside PQ_BAND equal,
+    centroids within SCORE_TOL where no assignment moved) and its codes
+    outside the band; ``socket_score``'s kernel within SCORE_TOL of
+    ``soft_scores_gather(bucket_ids, bucket_probs_explicit(u, tau))``
+    summed over the group (2^P corners a table).  Logged, not gated:
+    each scorer's recall of the oracle's top BASELINE_TOP, its bits a
+    token and each index build's seconds (random data: a smoke figure)."""
+    from repro_torch.baselines import (hard_lsh, hash_attn, magicpig,
+                                       oracle, pqcache)
+    from repro_torch.core import hashing, socket as sk
+    from repro_torch.kernels.socket_score import ops as ss
+    kvh, n, g, hd = (BASELINE_SHAPE[k] for k in ("kvh", "n", "g", "hd"))
+    gen, keys, values, q = baseline_inputs(dev, seed, kvh, n, g, hd)
+    scale = 1.0 / math.sqrt(hd)
+    k0, v0, q0 = (t[:, :1].cpu() for t in (keys, values, q))
+    qd, q0d = q[..., 0, :], q0[..., 0, :]                 # (1, H, G, hd)
+    gates, recall, bits, build_s, band = {}, {}, {}, {}, {}
+
+    def timed(name, fn):                # warm, then timed
+        fn()
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _dev_sync(dev)
+        build_s[name] = time.perf_counter() - t0
+        return out
+
+    def head0(t):
+        return t[:, :1]
+
+    # the oracle: exact scores and dense attention
+    truth_scores = oracle.score(oracle.build(None, None, keys[:, :, None],
+                                             values), qd)  # (1, H, G, N)
+    gates["oracle.score"] = close_gate(
+        "oracle.score", head0(truth_scores),
+        oracle.score(oracle.OracleState(k0[:, :, None]), q0d), SCORE_TOL,
+        dev, mag=oracle.score(oracle.OracleState(
+            k0[:, :, None].double().abs()), q0d.double().abs()))
+    gates["oracle.dense_attention"] = close_gate(
+        "oracle.dense_attention",
+        head0(oracle.dense_attention(q, keys, values, scale=scale)),
+        oracle.dense_attention(q0, k0, v0, scale=scale), ATTN_TOL, dev)
+    top = math.ceil(n * BASELINE_TOP)
+    truth = torch.zeros_like(truth_scores, dtype=torch.bool).scatter_(
+        -1, torch.sort(truth_scores, dim=-1, descending=True,
+                       stable=True).indices[..., :top], True)
+    bits["oracle"] = 16 * hd                             # a bf16 key
+
+    # SOCKET at P 10 / L 60 / tau 0.4: the paper-literal form
+    scfg = sk.SocketConfig(num_planes=10, num_tables=60, tau=0.4)
+    def socket_index():                 # Algorithm 1: draw, hash, pack
+        w = hashing.make_hash_params(gen, hd, 10, 60)
+        signs = hashing.hash_keys_signs(w, keys)
+        return w, signs, hashing.pack_signs(signs)
+
+    w, signs, packed = timed("socket", socket_index)
+    w0 = w.cpu()
+    band["socket keys"] = sign_gate("socket key signs", w0, k0,
+                                    head0(signs),
+                                    hashing.hash_keys_signs(w0, k0), dev)
+    ids = hashing.signs_to_bucket_ids(signs)              # (1, H, N, L)
+    equal_gate("signs_to_bucket_ids", head0(ids),
+               hashing.signs_to_bucket_ids(head0(signs).cpu()), dev)
+    u = sk.soft_hash_query(w, qd)                         # (1, H, G, L, P)
+    gates["soft_hash_query"] = close_gate(
+        "soft_hash_query", head0(u), sk.soft_hash_query(w0, q0d), SCORE_TOL,
+        dev, mag=torch.einsum("...d,lpd->...lp", q0d.double().abs(),
+                              w0.double().abs()) / math.sqrt(hd))
+    probs = sk.bucket_probs_explicit(u, scfg.tau)         # (1, H, G, L, R)
+    gates["bucket_probs_explicit"] = close_gate(
+        "bucket_probs_explicit", head0(probs),
+        sk.bucket_probs_explicit(head0(u).cpu(), scfg.tau), SCORE_TOL, dev)
+    gather = sk.soft_scores_gather(ids[:, :, None], probs)  # (1, H, G, N)
+    gates["soft_scores_gather"] = close_gate(
+        "soft_scores_gather", head0(gather),
+        sk.soft_scores_gather(head0(ids).cpu()[:, :, None],
+                              head0(probs).cpu()), SCORE_TOL, dev)
+    kernel = ss.socket_score(packed, u, None, num_tables=60, num_planes=10,
+                             tau=scfg.tau)                # (1, H, N)
+    gates["socket_score vs soft_scores_gather"] = check_close(
+        "socket_score against the paper-literal form", kernel,
+        gather.sum(2), SCORE_TOL)
+    recall["socket"] = top_recall(gather, truth, top)
+    bits["socket"] = 600
+
+    # hard LSH (P 2, L 300), HashAttention (128 bits), MagicPig (P 8, L 128)
+    def lsh_state(module, cfg, name):
+        st = timed(name, lambda: module.build(cfg, gen, keys, values))
+        l, p = st.w.shape[:2]
+        band[f"{name} keys"] = sign_gate(
+            f"{name} key signs", st.w.cpu(), k0,
+            hashing.unpack_signs(head0(st.packed), l, p) > 0,
+            hashing.hash_keys_signs(st.w.cpu(), k0), dev)
+        qs = hard_lsh.query_signs(st.w, qd)
+        band[f"{name} query"] = sign_gate(
+            f"{name} query signs", st.w.cpu(), q0d, head0(qs) > 0,
+            hard_lsh.query_signs(st.w.cpu(), q0d) > 0, dev)
+        grouped = dataclasses.replace(st, packed=st.packed[:, :, None])
+        cpu = dataclasses.replace(grouped, w=st.w.cpu(),
+                                  packed=head0(grouped.packed).cpu(),
+                                  **({"vnorm": head0(st.vnorm).cpu()}
+                                     if hasattr(st, "vnorm") else {}))
+        # the CPU side from the card's query signs
+        patch = mock.patch.object(hard_lsh, "query_signs",
+                                  lambda *a: head0(qs).cpu())
+        return st, grouped, cpu, patch
+
+    hcfg = hard_lsh.HardLSHConfig()
+    hst, hg, hcpu, patch = lsh_state(hard_lsh, hcfg, "hard_lsh")
+    gates["hard_lsh vnorm"] = close_gate(
+        "hard_lsh vnorm", head0(hst.vnorm),
+        torch.linalg.vector_norm(v0, dim=-1), SCORE_TOL, dev)
+    counts = hard_lsh.score(hg, hcfg, qd)
+    card_sel, cpu_sel = [], []
+    with selections(sk, card_sel):
+        out = hard_lsh.attend(hcfg, hst, q, keys, values, length=n,
+                              scale=scale)
+    with patch, selections(sk, cpu_sel):
+        equal_gate("hard_lsh.score", head0(counts),
+                   hard_lsh.score(hcpu, hcfg, q0d), dev)
+        cpu_out = hard_lsh.attend(
+            hcfg, dataclasses.replace(hcpu, packed=hcpu.packed[:, :, 0]), q0,
+            k0, v0, length=n, scale=scale)
+    for (ci, cm), (pi, pm) in zip(card_sel, cpu_sel):
+        equal_gate("hard_lsh.attend selection", head0(ci), pi, dev)
+        equal_gate("hard_lsh.attend selection mask", head0(cm), pm, dev)
+    gates["hard_lsh.attend"] = close_gate("hard_lsh.attend", head0(out),
+                                          cpu_out, ATTN_TOL, dev)
+    recall["hard_lsh"] = top_recall(counts, truth, top)
+    bits["hard_lsh"] = hcfg.bits_per_token
+
+    acfg = hash_attn.HashAttnConfig()
+    _, ag, acpu, patch = lsh_state(hash_attn, acfg, "hash_attn")
+    ascores = hash_attn.score(ag, acfg, qd)
+    with patch:
+        equal_gate("hash_attn.score", head0(ascores),
+                   hash_attn.score(acpu, acfg, q0d), dev)
+    recall["hash_attn"] = top_recall(ascores, truth, top)
+    bits["hash_attn"] = acfg.bits_per_token
+
+    mcfg = magicpig.MagicPigConfig()
+    _, mg, mcpu, patch = lsh_state(magicpig, mcfg, "magicpig")
+    mcounts = magicpig.collision_counts(mg, mcfg, qd)
+    est = magicpig.attend_estimate(mcfg, mg, qd, keys[:, :, None],
+                                   values[:, :, None], scale=scale)
+    with patch:
+        equal_gate("magicpig.collision_counts", head0(mcounts),
+                   magicpig.collision_counts(mcpu, mcfg, q0d), dev)
+        gates["magicpig.attend_estimate"] = close_gate(
+            "magicpig.attend_estimate", head0(est),
+            magicpig.attend_estimate(mcfg, mcpu, q0d, k0[:, :, None],
+                                     v0[:, :, None], scale=scale),
+            ATTN_TOL, dev)
+    cand = mcounts >= mcfg.min_collisions
+    recall["magicpig (candidates)"] = (cand & truth).sum().item() / \
+        truth.sum().item()
+    recall["magicpig candidate share"] = cand.float().mean().item()
+    bits["magicpig"] = mcfg.bits_per_token
+
+    # PQCache (m 16, 4 bits, 8 iterations): the full build timed, the
+    # first KV head's k-means step by step against the CPU
+    pcfg = pqcache.PQConfig()
+    pst = timed("pqcache", lambda: pqcache.build(pcfg, gen, keys, values))
+    pscores = pqcache.score(dataclasses.replace(
+        pst, codes=pst.codes[:, :, None]), pcfg, qd)
+    recall["pqcache"] = top_recall(pscores, truth, top)
+    bits["pqcache"] = pcfg.bits_per_token
+    m, c = pcfg.num_subspaces, pcfg.num_centroids
+    x = pqcache._subspaces(head0(keys).reshape(-1, hd), m)
+    x0 = x.cpu()
+    idx = pqcache._init_indices(gen, n, c, m)
+    cent = torch.gather(x, 1, idx[..., None].expand(m, c, x.shape[-1]))
+    moved = []
+    for it in range(pcfg.kmeans_iters):
+        new = pqcache._lloyd_step(x, cent)
+        c0 = cent.cpu()
+        # the step's assignments, outside the band equal on both sides
+        a_card = torch.argmin(pqcache._sq_dists(x, cent), -1).T
+        a_cpu = torch.argmin(pqcache._sq_dists(x0, c0), -1).T
+        band_it = pq_code_gate(f"pqcache step {it} assignments", x0, c0,
+                               a_card, a_cpu, dev)
+        stay = torch.ones((m, c), dtype=torch.bool)
+        for s_, j in (a_card.cpu() != a_cpu).nonzero().tolist():
+            stay[j, a_cpu[s_, j]] = stay[j, a_card[s_, j].item()] = False
+        moved.append(band_it["differ_in_band"])
+        check_close(f"pqcache step {it} centroids",
+                    on_card("pqcache centroids", new, dev)[stay],
+                    pqcache._lloyd_step(x0, c0)[stay], SCORE_TOL)
+        cent = new
+    codes = pqcache._encode(x, cent)
+    band["pqcache codes"] = pq_code_gate("pqcache codes", x0, cent.cpu(),
+                                         codes, pqcache._encode(x0,
+                                                                cent.cpu()),
+                                         dev)
+    state0 = pqcache.PQState(codebooks=cent, codes=codes.reshape(1, 1, n, m))
+    codes0 = codes.cpu().reshape(1, 1, 1, n, m)
+    gates["pqcache.score"] = close_gate(
+        "pqcache.score",
+        pqcache.score(dataclasses.replace(
+            state0, codes=state0.codes[:, :, None]), pcfg, head0(qd)),
+        pqcache.score(pqcache.PQState(codebooks=cent.cpu(), codes=codes0),
+                      pcfg, q0d), SCORE_TOL, dev,
+        mag=pqcache.score(pqcache.PQState(
+            codebooks=cent.cpu().double().abs(), codes=codes0), pcfg,
+            q0d.double().abs()))
+    band["pqcache assignments moved in band"] = moved
+    stats = dict(shape=BASELINE_SHAPE, top_share=BASELINE_TOP,
+                 max_abs_err=gates, in_band=band, recall=recall,
+                 bits_per_token=bits, build_s=build_s,
+                 pq_vs_socket_build=build_s["pqcache"] / build_s["socket"],
+                 card=card)
+    log(f"baselines at {BASELINE_SHAPE}: recall of the oracle's top "
+        f"{BASELINE_TOP:.0%} (random data: a smoke figure) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in recall.items())
+        + "; index build s " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         build_s.items())
+        + f" (PQ's k-means {stats['pq_vs_socket_build']:.1f}x SOCKET's "
+        f"hashing); signs and codes in the rounding band: {band}")
+    log(json.dumps({"baselines": stats}))
+    return stats
+
+
+def phase_frontends(dev, seed, card) -> dict:
+    """Phase 12: 12a musicgen-medium at full width (f32, ``phase_main``:
+    at 48 layers with the logits distances logged, then at
+    FRONTEND_GATE_DEPTH with every gate), 12b internvl2-26b at bf16
+    (:func:`frontend_full_depth` at 48 layers, then ``phase_main``'s gates
+    at FRONTEND_GATE_DEPTH), 12c the baselines (:func:`phase_baselines`).
+    Returns each kernel's ``frontends`` entry: its launches on each run's
+    main path."""
+    runs = {}
+    with phase_clock("frontends: musicgen-medium static (12a)", dev):
+        runs["musicgen-medium"], params = phase_main(
+            dev, seed, card, "musicgen-medium", "f32", int8_run=False,
+            gate_logits=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    depth = FRONTEND_GATE_DEPTH["musicgen-medium"]
+    with phase_clock(f"frontends: musicgen-medium gated at {depth} layers "
+                     "(12a)", dev):
+        runs[f"musicgen-medium at {depth} layers"], params = phase_main(
+            dev, seed, card, "musicgen-medium", "f32", num_groups=depth,
+            int8_run=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("frontends: internvl2-26b full depth (12b)", dev):
+        runs["internvl2-26b"] = frontend_full_depth(dev, seed, card)
+    depth = FRONTEND_GATE_DEPTH["internvl2-26b"]
+    with phase_clock(f"frontends: internvl2-26b gated at {depth} layers "
+                     "(12b)", dev):
+        runs[f"internvl2-26b at {depth} layers"], params = phase_main(
+            dev, seed, card, "internvl2-26b", "bf16", num_groups=depth)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("frontends: baselines (12c)", dev):
+        phase_baselines(dev, seed, card)
+    return {name: {"launches": {run: counts[name] for run, counts in
+                                runs.items()}}
+            for name in ("socket_score", "flash_decode", "flash_prefill")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only",
                     choices=["state-moe", "bf16", "train", "cp", "mesh",
-                             "ep", "pipe", "cp-hybrid"],
+                             "ep", "pipe", "cp-hybrid", "frontends"],
                     default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e, 5f, 8, 9, 10, 11a, 11b or 11c); prints "
+                         "(5e, 5f, 8, 9, 10, 11a, 11b, 11c or 12); prints "
                          "neither the kernels line nor the ok line")
     args = ap.parse_args(argv)
 
@@ -6635,6 +7211,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(json.dumps({"mesh": phase_mesh(dev, args.seed, card)}))
         log(f"mesh-train phase: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.only == "frontends":
+        build_kernels()
+        t0 = time.perf_counter()
+        log(json.dumps({"frontends": phase_frontends(dev, args.seed, card)}))
+        log(f"frontends phase: {time.perf_counter() - t0:.1f} s")
         return 0
     if args.only in ("ep", "pipe", "cp-hybrid"):
         build_kernels()
@@ -6745,6 +7327,10 @@ def main(argv=None) -> int:
     for name, entries in phase_parallel(dev, args.seed, card).items():
         rows[name].update(entries)
     log(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, entry in phase_frontends(dev, args.seed, card).items():
+        rows[name]["frontends"] = entry
+    log(f"frontends phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

@@ -5,6 +5,9 @@ Port of ``repro.core.socket`` (Algorithms 1-3 of the paper):
 * :func:`precompute_key_hashes`   — Algorithm 1 (prefill-time index build).
 * :func:`soft_hash_query`         — Algorithm 2 (query soft hashing).
 * :func:`soft_scores_factorized`  — the factorized form of eq. (3).
+* :func:`bucket_probs_explicit`, :func:`soft_scores_gather` — the
+  paper-literal form of eq. (3): a softmax over all ``2**P`` corners and
+  a gather of each key's bucket probability (reference only).
 * :func:`value_aware_topk`        — Algorithm 3 selection (value-norm
   weighted, with sink + local-window union).
 * :func:`sparse_attention_over_subset` — exact softmax attention over the
@@ -40,6 +43,8 @@ __all__ = [
     "precompute_key_hashes",
     "soft_hash_query",
     "log_normalizer",
+    "bucket_probs_explicit",
+    "soft_scores_gather",
     "soft_scores_factorized",
     "per_batch",
     "value_aware_topk",
@@ -143,9 +148,30 @@ def log_normalizer(u: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.sum(ax + torch.log1p(torch.exp(-2.0 * ax)), dim=-1)
 
 
+def bucket_probs_explicit(u: torch.Tensor, tau: float) -> torch.Tensor:
+    """Softmax over all ``R = 2**P`` corners (Algorithm 2 lines 4-7):
+    u ``(..., L, P)`` -> ``(..., L, R)`` probabilities, O(L 2^P) memory."""
+    corners = torch.from_numpy(hashing.hypercube_corners(u.shape[-1])).to(
+        u.device)
+    logits = torch.einsum("...lp,rp->...lr", u, corners) / tau
+    return torch.softmax(logits, dim=-1)
+
+
 # ---------------------------------------------------------------------------
-# Scoring — eq. (3), factorized form
+# Scoring — eq. (3), two equivalent forms
 # ---------------------------------------------------------------------------
+
+def soft_scores_gather(bucket_ids: torch.Tensor,
+                       probs: torch.Tensor) -> torch.Tensor:
+    """Paper-literal scores ``s_j = sum_l p(b_j^(l) | q)``: bucket ids
+    int ``(..., N, L)`` in ``[0, R)``, probs ``(..., L, R)`` ->
+    ``(..., N)``."""
+    n, l = bucket_ids.shape[-2:]
+    lead = torch.broadcast_shapes(bucket_ids.shape[:-2], probs.shape[:-2])
+    probs = probs[..., None, :, :].expand(*lead, n, l, probs.shape[-1])
+    ids = bucket_ids.expand(*lead, n, l)[..., None].long()
+    picked = torch.gather(probs, -1, ids)[..., 0]
+    return torch.sum(picked, dim=-1)
 
 def _score_block(cfg: SocketConfig, bits: torch.Tensor, u: torch.Tensor,
                  logz: torch.Tensor) -> torch.Tensor:

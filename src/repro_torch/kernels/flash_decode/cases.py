@@ -50,6 +50,10 @@ CARD_CASES = [
     # 72-byte rows: copied 8 bytes at a time into rows padded to 80
     ("hd 36 bf16, padded rows", dict(bh=4, k=300, g=4, hd=36,
                                      dtype=torch.bfloat16, dead_row=1)),
+    # musicgen-medium's static path (batch 4 x 24 heads of hd 64, MHA, a
+    # 1532-row cache, budget 256): one head a unit, 8 lanes a row
+    ("musicgen hd 64, G 1", dict(bh=96, k=256, g=1, hd=64,
+                                 dtype=torch.float32)),
 ]
 
 
@@ -147,7 +151,8 @@ def plan_note(plan: dict, label: str, *, bh: int, k: int, g: int, hd: int,
     note; raises AssertionError where it does not exercise what the
     case's label names: a cluster split (C >= 2) on the main path and at
     B 1, empty ranks (C > K) at "K < C", one rank or several waves at
-    "BH 256, K 64", one head a unit at G 1, three head groups at G 6, 16
+    "BH 256, K 64", one head a unit at G 1 (and at musicgen's hd 64 lanes
+    that hold the row exactly), three head groups at G 6, 16
     elements a lane on 2-byte K/V, lanes past hd at hd 160, rows padded
     in shared memory at "hd 36 bf16, padded rows"; and the fold's lanes,
     heads a unit, units, stage rows and row stride as
@@ -175,6 +180,8 @@ def plan_note(plan: dict, label: str, *, bh: int, k: int, g: int, hd: int,
         "K < C": c > k,
         "BH 256, K 64": c == 1 or waves > 1,
         "gemma-7b hd 256, G 1": plan["heads_per_unit"] == 1,
+        "musicgen hd 64, G 1": plan["heads_per_unit"] == 1 and
+        plan["lanes_per_row"] * geo["elems"] == hd,
         "mixtral G 6": -(-g // plan["heads_per_unit"]) == 3,
         "f16 K/V": plan["lanes_per_row"] * 16 == hd,
         "K < block, bf16 K/V": plan["lanes_per_row"] * 16 == hd,

@@ -40,6 +40,13 @@ card it raises unless ``--device cpu`` is given:
         --smoke --device cpu --engine continuous --backend socket_fused \\
         --trace t.jsonl --perfetto t.perfetto.json --probe-every 2 \\
         --metrics-json m.json --metrics-prom m.prom --profile-dir prof
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch musicgen-medium --smoke --device cpu
+
+The embeddings-input models (musicgen-medium, internvl2-26b) take
+Gaussian frame/patch embeddings in place of prompt and step tokens (the
+frontends are stubs) through the static engine; the continuous engine
+serves token models only, as the JAX package's does.
 
 Backends: ``socket`` turns on the contiguous-path kernels
 (``socket.use_score_kernel``: CUDA scoring, ``socket.use_flash_decode``:
@@ -79,7 +86,8 @@ from repro_torch.models.backends.kvquant import KV_DTYPES
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step
 from repro_torch.serving.obs.events import strict_dumps
 
-__all__ = ["run_serve", "run_continuous", "serving_ceiling",
+__all__ = ["run_serve", "serve_inputs", "step_input", "run_continuous",
+           "serving_ceiling",
            "make_poisson_requests",
            "card_config", "card_continuous_case", "card_prefix_case",
            "CARD_CASES",
@@ -159,6 +167,41 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def serve_inputs(cfg, batch: int, prompt_len: int, seed: int, device,
+                 prompt=None) -> dict:
+    """The static path's prefill batch: ``{"tokens"}`` (B, prompt_len)
+    int64 ids drawn from ``seed + 1`` (or ``prompt``), or for an
+    embeddings-input model ``{"embeds"}`` (B, prompt_len, d): the given
+    ``prompt`` or Gaussian frame/patch embeddings drawn from ``seed + 1``
+    at the compute dtype, on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if cfg.input_mode == "tokens":
+        if prompt is None:
+            prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                   generator=gen, device=device)
+        return {"tokens": torch.as_tensor(prompt).to(device=device,
+                                                     dtype=torch.int64)}
+    cdt = getattr(torch, cfg.compute_dtype)
+    if prompt is None:
+        prompt = torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                             device=device)
+    return {"embeds": torch.as_tensor(prompt).to(device=device, dtype=cdt)}
+
+
+def step_input(cfg, tok: torch.Tensor, seed: int, t: int) -> torch.Tensor:
+    """Decode step ``t``'s input: the greedy tokens ``tok`` (B, 1), or for
+    an embeddings-input model Gaussian (B, 1, d) embeddings drawn from
+    ``seed + 2 + t`` on ``tok``'s device at the compute dtype (the
+    frontend's next frame or patch; the greedy tokens are still
+    returned)."""
+    if cfg.input_mode == "tokens":
+        return tok
+    gen = torch.Generator(device=tok.device).manual_seed(seed + 2 + t)
+    return torch.randn((tok.shape[0], 1, cfg.d_model), generator=gen,
+                       device=tok.device).to(getattr(torch,
+                                                     cfg.compute_dtype))
+
+
 def run_serve(cfg, batch: int, prompt_len: int, decode_steps: int,
               seed: int = 0, prompt=None, params: Optional[dict] = None,
               device="cuda"):
@@ -168,7 +211,10 @@ def run_serve(cfg, batch: int, prompt_len: int, decode_steps: int,
     ``params``: optional parameters (e.g. from
     :func:`repro_torch.models.weights.from_jax_params`); by default they
     are drawn from ``seed``.  ``prompt``: optional (batch, prompt_len)
-    token array; by default drawn from ``seed``.
+    token array, or (batch, prompt_len, d) embeddings for an
+    embeddings-input model; by default drawn from ``seed``
+    (:func:`serve_inputs`).  An embeddings-input model's decode steps take
+    :func:`step_input`'s embeddings.
     """
     dev = resolve_device(device)
     # the reference computes in float32: no TF32 anywhere
@@ -177,35 +223,34 @@ def run_serve(cfg, batch: int, prompt_len: int, decode_steps: int,
     if params is None:
         params = tfm.init_model(cfg, seed, dev)
     capacity = prompt_len + decode_steps
-    if prompt is None:
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
-        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                               generator=gen, device=dev)
-    tokens = torch.as_tensor(prompt).to(device=dev, dtype=torch.int64)
+    batch_in = serve_inputs(cfg, batch, prompt_len, seed, dev, prompt)
 
     prefill = make_prefill_step(cfg, capacity)
     serve = make_serve_step(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": tokens})
+    logits, caches = prefill(params, batch_in)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
     toks = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
-    # warm-up step outside the timed loop (kernel builds, allocator); it
-    # writes row prompt_len in place, which timed step 0 rewrites with
-    # the same values, and moves copies of the Mamba layers' states on
+    # warm-up step outside the timed loop (kernel builds, allocator) on
+    # timed step 0's input; it writes row prompt_len in place, which timed
+    # step 0 rewrites with the same values, and moves copies of the Mamba
+    # layers' states on
     warm = [c if spec.kind == "attn" else {k: v.clone() for k, v in
                                            c.items()}
             for spec, c in zip(cfg.layer_specs, caches)]
-    serve(params, warm, toks[-1], prompt_len)
+    serve(params, warm, step_input(cfg, toks[-1], seed, 0), prompt_len)
     del warm
     _sync(dev)
 
     t0 = time.perf_counter()
     for t in range(decode_steps):
-        logits, caches = serve(params, caches, toks[-1], prompt_len + t)
+        logits, caches = serve(params, caches,
+                               step_input(cfg, toks[-1], seed, t),
+                               prompt_len + t)
         toks.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
     _sync(dev)
     decode_s = time.perf_counter() - t0

@@ -141,16 +141,19 @@ def _flat(tree, path: str = ""):
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, rules: Dict,
                 log: Optional[List[str]] = None):
     """(batch_sds, batch_shardings) of a train or prefill batch: int32
-    ``tokens`` (and ``labels`` for training) of (global_batch, seq_len),
-    rows over the batch axes."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode={cfg.input_mode!r}: embeddings-input frontends "
-            "come with a later slice (ROADMAP.md queue 1 item 11)")
+    ``tokens`` of (global_batch, seq_len), or for an embeddings-input
+    model bf16 ``embeds`` of (global_batch, seq_len, d_model), and int32
+    ``labels`` for training; rows over the batch axes."""
     b, s = shape.global_batch, shape.seq_len
-    names = ("tokens", "labels") if shape.kind == "train" else ("tokens",)
-    sds = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
-           for k in names}
-    sh = {k: shd.named_sharding(mesh, ("batch", "seq"), (b, s), rules, log)
-          for k in names}
+    if cfg.input_mode == "tokens":
+        inputs = {"tokens": ((b, s), torch.int32, ("batch", "seq"))}
+    else:
+        inputs = {"embeds": ((b, s, cfg.d_model), torch.bfloat16,
+                             ("batch", "seq", "embed"))}
+    if shape.kind == "train":
+        inputs["labels"] = ((b, s), torch.int32, ("batch", "seq"))
+    sds = {k: torch.empty(dims, dtype=dt, device="meta")
+           for k, (dims, dt, _) in inputs.items()}
+    sh = {k: shd.named_sharding(mesh, axes, dims, rules, log)
+          for k, (dims, _, axes) in inputs.items()}
     return sds, sh

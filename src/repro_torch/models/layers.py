@@ -92,9 +92,13 @@ def apply_mlp(cfg: ModelConfig, params: Dict, x: torch.Tensor
 # ------------------------------------------------------------ embeddings
 
 def init_embedding(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+    """``{table, head}``: an embeddings-input model has no table (its
+    frontend supplies the embeddings), a tied one no head."""
     v = cfg.padded_vocab()
-    out = {"table": pm.normal(gen, (v, cfg.d_model), ("vocab", "embed_w"),
-                              dtype=cfg.param_dtype)}
+    out = {}
+    if cfg.input_mode == "tokens":
+        out["table"] = pm.normal(gen, (v, cfg.d_model), ("vocab", "embed_w"),
+                                 dtype=cfg.param_dtype)
     if not cfg.tie_embeddings:
         out["head"] = pm.normal(gen, (cfg.d_model, v), ("embed_w", "vocab"),
                                 stddev=1.0 / math.sqrt(cfg.d_model),

@@ -43,11 +43,15 @@ __all__ = ["init_model", "init_model_boxed", "param_axes", "forward_train", "los
            "init_decode_caches", "prefill", "prefill_chunk", "decode_step"]
 
 
-def _check_inputs(cfg: ModelConfig) -> None:
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode={cfg.input_mode!r}: embeddings-input frontends "
-            "come with a later slice (ROADMAP.md queue 1)")
+def _input_embed(cfg: ModelConfig, embed: Dict,
+                 batch: Dict) -> torch.Tensor:
+    """The stack's input: ``batch["tokens"]`` (B, T) through the table,
+    or an embeddings-input model's ``batch["embeds"]`` (B, T, d) (the
+    frontend's output: frame or patch embeddings) at the compute
+    dtype."""
+    if cfg.input_mode == "tokens":
+        return embed_tokens(cfg, embed, batch["tokens"])
+    return batch["embeds"].to(getattr(torch, cfg.compute_dtype))
 
 
 # ------------------------------------------------------------------ blocks
@@ -172,7 +176,6 @@ def _init_units(cfg: ModelConfig, seed: int, device, place) -> Dict:
     """The boxed tree, drawn a unit at a time (the embedding, each layer,
     the final norm, in the generator's order) and each unit handed to
     ``place(path, unit)`` as soon as it is drawn."""
-    _check_inputs(cfg)
     gen = pm.generator(seed, device)
     embed = place("['embed']", init_embedding(cfg, gen))
     layers = [place(f"['layers'][{i}]", _init_block(cfg, gen, spec))
@@ -186,7 +189,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> Dict:
     """Parameters ``{embed, layers, final_norm}`` drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed``, with the JAX package's
     distributions (``N(0, 1/fan_in)`` projections, ``N(0, 1)`` embedding
-    table and hash planes, unit norm scales).  The numbers differ from
+    table and hash planes, unit norm scales); an embeddings-input model's
+    ``embed`` holds its untied ``head`` alone (no table).  The numbers differ from
     the JAX package's for the same seed; the tests carry the JAX weights
     across with :func:`repro_torch.models.weights.from_jax_params`."""
     return pm.unbox(init_model_boxed(cfg, seed, device))
@@ -250,7 +254,8 @@ def _whole(path: str, tree):
 
 def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
                   gather=None, split=None):
-    """Full forward.  ``batch``: ``tokens`` (B, T) and optional
+    """Full forward.  ``batch``: ``tokens`` (B, T), or ``embeds`` (B, T,
+    d) for an embeddings-input model, and optional
     ``positions`` -> (padded-vocab logits (B, T, V), aux) with aux's
     ``moe_lb_loss``/``moe_z_loss`` summed over the layers and divided by
     the number of MoE layers (1 when there is none).
@@ -270,10 +275,9 @@ def forward_train(cfg: ModelConfig, params: Dict, batch: Dict,
     step's), which the MoE layers' dispatch reads
     (``models/moe.py``); it is held by the rematerialised function, so
     the backward's recomputation takes the forward's route."""
-    _check_inputs(cfg)
     gather = gather or _whole
     embed = gather("['embed']", params["embed"])
-    x = embed_tokens(cfg, embed, batch["tokens"])
+    x = _input_embed(cfg, embed, batch)
     b, s, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
@@ -360,17 +364,17 @@ def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int,
             last_index=None, paged: bool = False):
-    """Process the prompt ``batch["tokens"]`` (B, T); returns (last-token
-    logits (B, 1, V_padded), per-layer caches).
+    """Process the prompt ``batch["tokens"]`` (B, T), or ``batch["embeds"]``
+    (B, T, d) for an embeddings-input model; returns (last-token logits
+    (B, 1, V_padded), per-layer caches).
 
     ``last_index``: optional ``(B,)`` last *real* prompt positions of
     bucket-padded prompts (the continuous engine's legacy whole-prompt
     prefill): the logits are taken there, and sliding-window rings are
     built at it, not at the padding's end.  ``paged``: build the caches
     in the pool's geometry (page-aligned local rings)."""
-    _check_inputs(cfg)
     cp.check_model(cfg)
-    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    x = _input_embed(cfg, params["embed"], batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches = []
@@ -401,9 +405,13 @@ def prefill_chunk(cfg: ModelConfig, params: Dict, caches: List[Dict],
     ``last_index``: the last real in-chunk index.
 
     Returns ``(logits (1, 1, V_padded) at last_index, caches)`` — the
-    logits mean something only on the final chunk.
+    logits mean something only on the final chunk.  Token models only,
+    as the continuous engine that calls it.
     """
-    _check_inputs(cfg)
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"input_mode={cfg.input_mode!r}: prefill_chunk takes token ids "
+            "(the continuous engine serves token models only)")
     x = embed_tokens(cfg, params["embed"], tokens)
     b, c, _ = x.shape
     positions = (history + torch.arange(c, device=x.device)).expand(b, c)
@@ -417,16 +425,19 @@ def prefill_chunk(cfg: ModelConfig, params: Dict, caches: List[Dict],
 
 def decode_step(cfg: ModelConfig, params: Dict, caches: List[Dict],
                 inputs: torch.Tensor, pos, block_tables=None):
-    """One token for the whole stack.  inputs: (B, 1) token ids; pos: int
-    or a ``(B,)`` tensor.
+    """One token for the whole stack.  inputs: (B, 1) token ids, or (B, 1,
+    d) embeddings for an embeddings-input model; pos: int or a ``(B,)``
+    tensor.
 
     ``block_tables``: per-request ``(B, blocks_per_seq)`` physical block
     ids — when given, ``caches`` is the serving engine's page pool and
     attention layers read and write it through ``PagedView`` (global) or
     ``RingView`` (local).  The caches
     are updated in place.  Returns (logits (B, 1, V_padded), caches)."""
-    _check_inputs(cfg)
-    x = embed_tokens(cfg, params["embed"], inputs)
+    if cfg.input_mode == "tokens":
+        x = embed_tokens(cfg, params["embed"], inputs)
+    else:
+        x = inputs.to(getattr(torch, cfg.compute_dtype))
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
         x, caches[i] = _block_decode(cfg, lp, spec, x, caches[i], pos,
                                      block_tables)

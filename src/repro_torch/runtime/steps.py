@@ -143,8 +143,9 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
 
 def make_prefill_step(cfg: ModelConfig, capacity: int,
                       paged: bool = False) -> Callable:
-    """(params, batch, last_index=None) -> (last-token logits, caches).
-    The continuous engine's legacy prefill pads prompts to a bucket and
+    """(params, batch, last_index=None) -> (last-token logits, caches);
+    ``batch`` holds ``tokens`` (B, T), or an embeddings-input model's
+    ``embeds`` (B, T, d).  The continuous engine's legacy prefill pads prompts to a bucket and
     passes each prompt's last *real* position as ``last_index`` (see
     :func:`tfm.prefill`), which also pins sliding-window rings to the
     prompt's true end.  ``paged=True`` builds caches in pool geometry
@@ -173,7 +174,8 @@ def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """(params, caches, inp, pos[, block_tables]) -> (logits, caches); the
-    caches are updated in place.  ``pos`` may be an int (static batch) or
+    caches are updated in place.  ``inp``: (B, 1) token ids, or (B, 1, d)
+    embeddings for an embeddings-input model.  ``pos`` may be an int (static batch) or
     a ``(B,)`` tensor (ragged continuous batch); ``block_tables``
     switches ``caches`` to the paged pool."""
     @torch.no_grad()

@@ -71,7 +71,15 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.distributed.pipeline",
                  "repro_torch.distributed.collectives",
                  "repro_torch.models.backends.hard_lsh",
-                 "repro_torch.models.backends.quest"):
+                 "repro_torch.models.backends.quest",
+                 "repro_torch.baselines.oracle",
+                 "repro_torch.baselines.hard_lsh",
+                 "repro_torch.baselines.hash_attn",
+                 "repro_torch.baselines.magicpig",
+                 "repro_torch.baselines.pqcache",
+                 "repro_torch.core.theory",
+                 "repro_torch.configs.musicgen_medium",
+                 "repro_torch.configs.internvl2_26b"):
         assert name in names, name
 
 

@@ -588,7 +588,8 @@ def _port_specs(tree):
 
 SPEC_ARCHS = [("llama31-8b", False), ("gemma-7b", False),
               ("jamba-v0.1-52b", False), ("mixtral-8x22b", False),
-              ("llama4-maverick-400b-a17b", True)]
+              ("llama4-maverick-400b-a17b", True),
+              ("musicgen-medium", False), ("internvl2-26b", False)]
 
 
 @pytest.mark.parametrize("arch,pad", SPEC_ARCHS,

@@ -15,7 +15,6 @@ norms equal; greedy tokens equal.
 """
 
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -87,8 +86,6 @@ def test_configs_match_jax(arch):
 
 
 def test_registry_names_later_slices():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tget("musicgen-medium")
     with pytest.raises(KeyError):
         tget("no-such-arch")
 
@@ -98,23 +95,16 @@ def test_registry_names_later_slices():
     ("llama4-maverick-400b-a17b", 7), ("jamba-v0.1-52b", 7),
     ("mamba2-780m", 7), ("musicgen-medium", 11), ("internvl2-26b", 11)])
 def test_later_archs_name_their_roadmap_item(arch, item):
-    """The architectures of ROADMAP.md queue 1 item 7 (Mamba and MoE
-    layers) are registered, their configs (full and smoke), parameter
-    counts and cache plans equal to the JAX package's; every architecture
-    the port does not build yet names the item that brings it, in the
-    registry and in the error."""
+    """The architectures of ROADMAP.md queue 1 items 7 (Mamba and MoE
+    layers) and 11 (the embeddings-input frontends) are registered, their
+    configs (full and smoke), sources, parameter counts and cache plans
+    equal to the JAX package's; no architecture is left for later."""
     from repro.configs.registry import ARCHITECTURES as JAX_ARCHS
     from repro_torch.configs.registry import ARCHITECTURES, LATER
-    assert set(LATER) == set(JAX_ARCHS) - set(ARCHITECTURES) == \
-        {"musicgen-medium", "internvl2-26b"}
-    if item == 7:
-        assert arch in ARCHITECTURES and tget(arch).source == \
-            jget(arch).source
-        _assert_config_matches_jax(arch)
-        return
-    assert re.search(rf"ROADMAP\.md queue 1 item {item}\b", LATER[arch])
-    with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
-        tget(arch)
+    assert LATER == {} and set(ARCHITECTURES) == set(JAX_ARCHS)
+    assert tget(arch).source == jget(arch).source
+    assert (item == 11) == (tget(arch).input_mode == "embeddings")
+    _assert_config_matches_jax(arch)
 
 
 @pytest.mark.parametrize("activation", ["swiglu", "geglu"])

@@ -38,6 +38,14 @@ too, with a microbatch lost at a stage boundary; 11c's cache layout gate
 on ``gemma3-27b`` and ``jamba-v0.1-52b`` smoke prefills under a CP mesh
 computed in this process, with a rank whose ring was sliced and one
 whose global cache is whole.
+
+Phase 12's gates: the baselines' (a PQ code moved outside the rounding
+band, a bit flipped in a bucket id, a sign flipped clear of rounding, a
+baseline's output left on the CPU: each must fail; codes and signs that
+part inside the band pass and are counted), its cases (musicgen's
+kernel shapes, the static cases of the two embeddings models), and the
+whole phase rehearsed at smoke width on the CPU (the wrappers' plain
+versions, launches counted around them).
 """
 
 from __future__ import annotations
@@ -1685,3 +1693,201 @@ def test_cph_layout_gate(arch):
     glob = kinds.index("global")
     with pytest.raises(AssertionError, match=f"layer {glob} "):
         cs.cph_layout_gate("smoke", cfg, [ranks[0], {"layout": ref}], ref)
+
+
+# ------------------------------------------------------------- phase 12
+
+def test_frontend_cases():
+    """Phase 12's shapes: musicgen's static path (batch 4 x 24 heads of hd
+    64, MHA, 1500 frames + 32 steps: budget 256) in flash_decode's card
+    cases and in the prefill cases, its plan one head a unit and 8 lanes
+    a row; internvl2 at its trained context; 12c at llama31-8b's
+    attention layer at decode_32k."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode import cases
+    from repro_torch.launch.specs import SHAPES
+    mg = get_config("musicgen-medium")
+    batch, plen, steps = cs.STATIC_CASES["musicgen-medium"]
+    assert (batch, plen, steps) == (4, 1500, 16)
+    assert cs.STATIC_CASES["internvl2-26b"] == (2, 8192, 16)
+    fd = dict(cases.CARD_CASES)[cs.MUSICGEN_TIMED]
+    assert (fd["bh"], fd["g"], fd["hd"], fd["k"]) == (
+        batch * mg.num_kv_heads, mg.num_heads // mg.num_kv_heads,
+        mg.head_dim, sk.topk_budget(mg.socket, plen + steps))
+    assert [c[1:5] for c in cs.PREFILL_CASES if c[0] == cs.MUSICGEN_TIMED
+            ] == [(96, 96, 1500, 64)]
+    geo = cases.decode_geometry(64, 1, 4)
+    plan = dict(cluster=2, smem_bytes=1, clusters_at_once=66, stages=4,
+                stage_rows=geo["stage_rows"], lanes_per_row=geo["lanes"],
+                heads_per_unit=geo["heads"], units=geo["units"],
+                row_stride=geo["stride"])
+    assert (geo["lanes"], geo["heads"]) == (8, 1)
+    cases.plan_note(plan, cs.MUSICGEN_TIMED, **fd)
+    llama = get_config("llama31-8b")
+    assert cs.BASELINE_SHAPE == dict(
+        kvh=llama.num_kv_heads, n=SHAPES["decode_32k"].seq_len,
+        g=llama.num_heads // llama.num_kv_heads, hd=llama.head_dim)
+    assert cs.FRONTEND_GATE_DEPTH == {"musicgen-medium": 4,
+                                      "internvl2-26b": cs.QUANT_DEPTH}
+
+
+def test_baseline_gates_catch_faults():
+    cs = _chip_smoke()
+    from repro_torch.core import hashing
+    gen = torch.Generator().manual_seed(0)
+    # bucket ids: equal passes, a bit flipped fails
+    ids = hashing.signs_to_bucket_ids(
+        torch.rand((1, 2, 30, 6, 10), generator=gen) < 0.5)
+    cs.equal_gate("ids", ids, ids.clone(), "cpu")
+    flipped = ids.clone()
+    flipped[0, 1, 7, 3] ^= 1 << 4
+    with pytest.raises(AssertionError, match="1 entries"):
+        cs.equal_gate("ids", flipped, ids, "cpu")
+    # a baseline left on the CPU
+    with pytest.raises(AssertionError, match="not on cuda"):
+        cs.equal_gate("ids", ids, ids, "cuda")
+    with pytest.raises(AssertionError, match="not on cuda"):
+        cs.close_gate("scores", ids.float(), ids.float(), cs.SCORE_TOL,
+                      "cuda")
+    # a dot product near zero: its rounding reads the terms' magnitude
+    ref = torch.tensor([1e-3, 5.0])
+    mag = torch.tensor([80.0, 80.0], dtype=torch.float64)
+    off = ref + torch.tensor([2e-5, 0.0])
+    with pytest.raises(AssertionError, match="exceeds"):
+        cs.close_gate("dot", off, ref, cs.SCORE_TOL, "cpu")
+    cs.close_gate("dot", off, ref, cs.SCORE_TOL, "cpu", mag=mag)
+    with pytest.raises(AssertionError, match="terms' magnitude"):
+        cs.close_gate("dot", ref + 2e-3, ref, cs.SCORE_TOL, "cpu", mag=mag)
+    # signs: a flip clear of rounding fails, one at a zero projection
+    # passes and is counted
+    w = torch.randn((4, 3, 8), generator=gen)
+    x = torch.randn((20, 8), generator=gen)
+    x[5] -= (x[5] @ w[2, 1]) / (w[2, 1] @ w[2, 1]) * w[2, 1]
+    signs = hashing.hash_keys_signs(w, x)
+    assert cs.sign_gate("signs", w, x, signs, signs.clone(), "cpu") == 0
+    near = signs.clone()
+    near[5, 2, 1] = ~near[5, 2, 1]
+    assert cs.sign_gate("signs", w, x, near, signs, "cpu") == 1
+    far = signs.clone()
+    far[6, 2, 1] = ~far[6, 2, 1]
+    with pytest.raises(AssertionError, match="clear of rounding"):
+        cs.sign_gate("signs", w, x, far, signs, "cpu")
+
+
+def test_pq_code_gate_holds_codes_outside_the_band():
+    cs = _chip_smoke()
+    from repro_torch.baselines import pqcache
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 40, 4), generator=gen)
+    books = torch.randn((2, 5, 4), generator=gen)
+    books[1, 2] = books[1, 0] + 0.25               # two close centroids
+    x[1, 3] = books[1, 0] + 0.125                  # midway: a tie
+    codes = pqcache._encode(x, books)
+    assert cs.pq_code_gate("codes", x, books, codes, codes.clone(),
+                           "cpu")["differ_in_band"] == 0
+    tie = codes.clone()
+    tie[3, 1] = 2 if int(codes[3, 1]) == 0 else 0
+    out = cs.pq_code_gate("codes", x, books, tie, codes, "cpu")
+    assert out == dict(in_band=out["in_band"], differ_in_band=1)
+    assert out["in_band"] >= 1
+    moved = codes.clone()
+    moved[9, 0] = (int(codes[9, 0]) + 1) % 5
+    with pytest.raises(AssertionError, match="outside the rounding band"):
+        cs.pq_code_gate("codes", x, books, moved, codes, "cpu")
+
+
+def test_phase_frontends_at_smoke_width():
+    """Phase 12 end to end on the CPU: the two models' smoke configs at
+    their numerics, 12c at a small shape; every gate runs (the card's side
+    is the CPU's here) and each run's launches are counted around the
+    wrappers."""
+    cs = _chip_smoke()
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    from repro_torch.kernels.socket_score import ops as ss
+    from repro_torch.launch import serve as sv
+    card_config = sv.card_config
+
+    def smoke(arch, numerics="f32"):
+        full = card_config(arch, numerics)
+        return full.smoke().replace(
+            param_dtype=full.param_dtype, compute_dtype=full.compute_dtype,
+            attn_q_chunk=16 if full.attn_q_chunk else 0,
+            socket=dataclasses.replace(full.smoke().socket,
+                                       score_dtype=full.socket.score_dtype))
+
+    def counting(mod, name):
+        real = getattr(mod, name)
+
+        def count(*a, **k):
+            mod.LAUNCHES += 1
+            return real(*a, **k)
+        return mock.patch.object(mod, name, count)
+
+    def noop(*a, **k):
+        return 0
+
+    with contextlib.ExitStack() as stack, one_thread():
+        for p in (mock.patch.object(sv, "card_config", smoke),
+                  counting(ss, "socket_score"), counting(fd, "flash_decode"),
+                  counting(fp, "flash_prefill"),
+                  mock.patch.object(fp, "launch_flash_prefill",
+                                    lambda q, k, v, **kw: flash_prefill_ref(
+                                        q, k, v, q_chunk=16, **kw)),
+                  mock.patch.dict(cs.STATIC_CASES, {
+                      "musicgen-medium": (2, 40, 4),
+                      "internvl2-26b": (2, 48, 4)}),
+                  mock.patch.object(cs, "BASELINE_SHAPE",
+                                    dict(kvh=2, n=256, g=4, hd=32)),
+                  mock.patch.dict(cs.FRONTEND_GATE_DEPTH, {
+                      "musicgen-medium": 1, "internvl2-26b": 1}),
+                  *(mock.patch.object(torch.cuda, name, noop) for name in (
+                      "synchronize", "reset_peak_memory_stats",
+                      "empty_cache", "max_memory_allocated",
+                      "memory_allocated"))):
+            stack.enter_context(p)
+        out = cs.phase_frontends("cpu", 0, "cpu")
+    # 2 attention layers x 5 decode calls (4 steps + the warm-up) and one
+    # prefill a layer; the gated internvl2 run at 1 layer
+    assert out["socket_score"]["launches"] == {
+        "musicgen-medium": 10, "musicgen-medium at 1 layers": 5,
+        "internvl2-26b": 10, "internvl2-26b at 1 layers": 5}
+    assert out["flash_prefill"]["launches"]["internvl2-26b"] == 2
+
+
+
+def test_prefill_socket_checks_hold_each_route_to_its_keys():
+    """The free-running prefill's bits check: each route's bits are its
+    own keys' signs outside |proj| ~ 0; keys that part across zero (deep
+    layers' drift) may give the routes other signs (counted), a bit
+    flipped clear of rounding fails."""
+    cs = _chip_smoke()
+    from repro_torch.configs import get_config
+    from repro_torch.core import hashing
+    cfg = get_config("llama31-8b").smoke()
+    gen = torch.Generator().manual_seed(3)
+    s = cfg.socket
+    w = torch.randn((s.num_tables, s.num_planes, cfg.head_dim),
+                    generator=gen)
+    keys = torch.randn((1, 2, 12, cfg.head_dim), generator=gen)
+
+    def cache(k):
+        return {"k": k, "bits": hashing.pack_signs(
+            hashing.hash_keys_signs(w, k))}
+
+    moved = keys.clone()
+    proj = keys[0, 1, 5] @ w[3, 2]
+    moved[0, 1, 5] -= 1.01 * proj * w[3, 2] / (w[3, 2] @ w[3, 2])
+    params = {"layers": [{"attn": {"hash_w": w}}]}
+    prompt = torch.zeros((1, 12))
+    out = cs.prefill_socket_checks(cfg, params, prompt, [cache(keys)],
+                                   [cache(moved)])
+    assert out["prefill_bit_flips_by_key_drift"] >= 1
+    bad = cache(keys)
+    signs = hashing.hash_keys_signs(w, keys)
+    signs[0, 0, 2, 1, 0] = ~signs[0, 0, 2, 1, 0]
+    bad["bits"] = hashing.pack_signs(signs)
+    with pytest.raises(AssertionError, match="plain route's SOCKET bits"):
+        cs.prefill_socket_checks(cfg, params, prompt, [cache(keys)], [bad])

@@ -91,10 +91,16 @@ def _batch(vocab, seed=0):
     return tok, lab
 
 
+def _key(x):
+    """The batch entry of inputs ``x``: token ids, or an embeddings-input
+    model's embeddings (floats)."""
+    return "tokens" if x.dtype.kind in "iu" else "embeds"
+
+
 def _jax_loss_grads(jc, jp, tok, lab):
     fn = jax.jit(jax.value_and_grad(
         lambda p: jtfm.loss_and_metrics(
-            jc, p, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)}),
+            jc, p, {_key(tok): jnp.asarray(tok), "labels": jnp.asarray(lab)}),
         has_aux=True))
     (loss, metrics), grads = fn(jp)
     return float(loss), {k: float(v) for k, v in metrics.items()}, grads
@@ -117,8 +123,9 @@ def _port_loss_grads(tc, tp, tok, lab):
         return t
 
     params = req(tp)
+    x = torch.from_numpy(tok)
     loss, metrics = ttfm.loss_and_metrics(
-        tc, params, {"tokens": torch.from_numpy(tok).long(),
+        tc, params, {_key(tok): x.long() if _key(tok) == "tokens" else x,
                      "labels": torch.from_numpy(lab).long()})
     grads = torch.autograd.grad(loss, [t for _, t in tracked])
     return float(loss.detach()), {k: float(v.detach()) for k, v in

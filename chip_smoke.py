@@ -10,7 +10,11 @@ Phases, in order; the first failure raises and the script exits non-zero:
 2. build    — builds the CUDA kernels from the sources in this checkout
               (nvcc, sm_90a, one process per source, all started together:
               socket_score.cu, flash_decode.cu, paged_attention.cu,
-              paged_quest.cu, paged_ring.cu, flash_prefill.cu).
+              paged_quest.cu, paged_ring.cu, flash_prefill.cu); phase 3
+              waits for the contiguous kernels' builds alone, and the
+              paged kernels' (paged_attention.cu's takes 90-130 s) go on
+              through phase 3's contiguous cases and phase 4, after
+              which phase 3's paged cases run.
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at edge shapes, with the tolerance
               stated; times kernel, plain version and (where one exists) the
@@ -213,7 +217,7 @@ Phases, in order; the first failure raises and the script exits non-zero:
               steps; at G 1 the wrong head order the prefill gate must
               catch reads the next head's K/V); then through the
               continuous engine with phase 5's traffic and gates at its
-              first GEMMA7B_DEPTH (14) of 28 layers (the script's time
+              first GEMMA7B_DEPTH (7) of 28 layers (the script's time
               limit) (``socket_fused``, ``hard_lsh_fused`` and
               ``quest_fused`` on f32 pages; then ``socket_fused`` on
               bf16, int8 and fp8 pages; 1536 blocks each); the resident
@@ -540,8 +544,31 @@ Phases, in order; the first failure raises and the script exits non-zero:
               ``soft_scores_gather(bucket_probs_explicit)``; recall of
               the oracle's top 10 %, bits a token and index build
               seconds logged.  Its kernel cases (musicgen's
-              ``flash_decode`` and ``flash_prefill`` at hd 64 / G 1) run
-              in phase 3, timed into entry ``musicgen``.
+              ``flash_decode`` and ``flash_prefill`` at hd 64 / G 1, and
+              ``socket_score`` at BH 96 / N 1516 / G 1) run in phase 3,
+              timed into entry ``musicgen``.
+13. dryrun  — (``--only dryrun`` runs it alone, no ``ok`` line) 13a: rank
+              0 of three production cells at ``decode_32k`` on the 16 x
+              16 mesh (``DRYRUN_CELLS``: llama31-8b ``base``, whose
+              cache splits over the sequence and is gathered before a
+              layer attends, and ``opt``, the context-parallel route;
+              gemma-7b ``base``, its cache split over the heads): each
+              cell's dry run on fake tensors (``launch/dryrun.py``;
+              in the full run made while the kernels build), then the
+              same step for real on the card through the
+              collectives' dry-run route, rank 0's parameter and cache
+              blocks drawn from the seed (8 of the 128 sequences): the
+              real run's FLOPs, kernel calls and collective bytes equal
+              the fake run's, its peak lies within DRYRUN_PEAK_REL of
+              ``hbm_per_device_gb``, DRYRUN_WARM warm and DRYRUN_TIMED
+              timed steps (CUDA events) each no faster than its floor
+              allows (DRYRUN_FLOOR_SHARE), the logits finite,
+              ``socket_score`` (and on ``base`` ``flash_decode``)
+              launched layers x steps; the roofline terms, step ms,
+              shares of the floor and of the memory term, the gathers'
+              seconds and each ``trace_s`` logged.  13b: each kernel
+              operator's host microseconds a call, through the
+              dispatcher and straight to the launch.
 
 The last line of output is ``{"ok": true, "device": {...}}``; the line before
 it lists every kernel's numbers as JSON.
@@ -573,8 +600,11 @@ sys.path.insert(0, str(REPO / "src"))
 
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, fp32 outside tensor cores
+from repro_torch.roofline import HW  # noqa: E402
+
+# the H100 SXM data sheet's rates (``repro_torch.roofline.HW``)
+HBM_BYTES_PER_S = HW["hbm_bw"]
+FP32_FLOP_PER_S = HW["fp32_flops"]     # fp32 outside the tensor cores
 SCORE_TOL = dict(rtol=1e-5, atol=1e-6)    # fp32, another summation order
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)     # fp32 online vs two-pass softmax
 # End-to-end step-0 logits, kernel path vs plain path: fp32 through 32
@@ -606,10 +636,10 @@ F64_RATIO = 2.0
 # plain version, checked before it is timed, within two bf16 ulps of the
 # value and 2**-8 absolute (a wrong mask or head order is off by ~0.1)
 BF16_SDPA_TOL = dict(rtol=2 ** -6, atol=2 ** -8)
-# H100 SXM data sheet, dense tensor-core rates (the prefill kernel's
-# 3xTF32 products run at TF32's)
-TF32_FLOP_PER_S = 495e12
-BF16_FLOP_PER_S = 989e12
+# dense tensor-core rates (the prefill kernel's 3xTF32 products run at
+# TF32's)
+TF32_FLOP_PER_S = HW["tf32_flops"]
+BF16_FLOP_PER_S = HW["peak_flops"]
 # the stored K/V page modes the paged kernels are checked in besides f32
 # (serving.kv_dtype); int8 and fp8 also get timed entries and main-path
 # runs
@@ -890,9 +920,10 @@ def socket_score_row(ss, ref_fn, dev, gen, name, kw, args, bits, u, vn,
 # the label of each kernel's case at gemma-7b's shapes (its static path's
 # for socket_score, flash_decode and flash_prefill; its continuous
 # lengths for the paged kernels), timed into entry ``gemma7b`` of the
-# kernel's row; and of flash_decode's and flash_prefill's cases at
-# musicgen-medium's static path (phase 12a: batch 4 x 24 heads of hd 64,
-# MHA, a 1500-frame prompt), timed into entry ``musicgen``
+# kernel's row; and of socket_score's, flash_decode's and flash_prefill's
+# cases at musicgen-medium's static path (phase 12a: batch 4 x 24 heads
+# of hd 64, MHA, a 1500-frame prompt and 16 steps), timed into entry
+# ``musicgen``
 GEMMA7B_TIMED = "gemma-7b hd 256, G 1"
 MUSICGEN_TIMED = "musicgen hd 64, G 1"
 CASE_ENTRIES = {GEMMA7B_TIMED: "gemma7b", MUSICGEN_TIMED: "musicgen"}
@@ -1035,31 +1066,56 @@ def flash_decode_rows(dev, gen):
     return rows
 
 
-def build_kernels() -> None:
-    """One nvcc per CUDA source, all started together; logs the times and
-    ptxas reports."""
+# the sources the static path's kernels build from (phase 3's first
+# part and phase 4 need these alone)
+CONTIGUOUS_SOURCES = ("socket_score", "flash_decode", "flash_prefill")
+
+
+def start_builds():
+    """One nvcc per CUDA source, all started together, each in a thread of
+    its own; returns (the start's clock, {source stem: future})."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_prefill import ops as fp
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.socket_score import ops as ss
-    t0 = time.perf_counter()
     sources = (ss.SOURCE, fd.SOURCE, pa.SOURCE, pa.QUEST_SOURCE,
                pa.RING_SOURCE, fp.SOURCE)
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
-        list(ex.map(build.load_library, sources))
-    log(f"build {' + '.join(s.name for s in sources)}: "
-        f"{time.perf_counter() - t0:.2f} s")
-    for stem, (secs, report) in build.BUILD_LOGS.items():
-        log(f"  nvcc {stem}: {secs:.2f} s\n  " +
-            report.replace("\n", "\n  "))
+    log(f"build {' + '.join(s.name for s in sources)}: started")
+    ex = concurrent.futures.ThreadPoolExecutor(len(sources))
+    futures = {s.stem: ex.submit(build.load_library, s) for s in sources}
+    ex.shutdown(wait=False)
+    return time.perf_counter(), futures
 
 
-def phase_kernels(dev, seed):
+def wait_builds(builds, stems=None) -> None:
+    """Wait for the builds of ``stems`` (every one left where None),
+    raising where one failed; logs each one's time and ptxas report."""
+    from repro_torch.kernels import build
+    t0, futures = builds
+    for stem in list(futures) if stems is None else stems:
+        if stem not in futures:
+            continue
+        futures.pop(stem).result()
+        secs, report = build.BUILD_LOGS.get(stem, (0.0, "built before"))
+        log(f"  nvcc {stem}: {secs:.2f} s (ready "
+            f"{time.perf_counter() - t0:.2f} s after the builds began)\n  "
+            + report.replace("\n", "\n  "))
+
+
+def build_kernels() -> None:
+    """Every kernel built (:func:`start_builds`, then waited for)."""
+    wait_builds(start_builds())
+
+
+def phase_kernels(dev, seed, builds):
+    """Phase 3's contiguous kernels (``socket_score``, ``flash_decode``,
+    ``flash_prefill``), once their builds are done; the paged kernels'
+    builds may still run (:func:`phase_paged_kernels`)."""
     from repro_torch.kernels.socket_score import ops as ss
     from repro_torch.kernels.socket_score.ref import socket_score_ref
 
-    build_kernels()
+    wait_builds(builds, CONTIGUOUS_SOURCES)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     rows = {}
@@ -1091,6 +1147,10 @@ def phase_kernels(dev, seed):
         # gemma-7b's static path: batch 2 x 16 KV heads, 4112 rows, G 1
         (GEMMA7B_TIMED, dict(bh=32, n=4112, g=1, l=L, p=P, int8=False,
                              vnorm=False)),
+        # musicgen-medium's (phase 12a): batch 4 x 24 heads, 1500 frames
+        # and 16 steps, MHA
+        (MUSICGEN_TIMED, dict(bh=96, n=1516, g=1, l=L, p=P, int8=False,
+                              vnorm=False)),
     ]
     for label, kw in score_cases:
         bits, u, vn = socket_score_case(dev, gen, **kw)
@@ -1108,14 +1168,22 @@ def phase_kernels(dev, seed):
             name = "socket_score" + ("[int8]" if kw["int8"] else "")
             rows[name] = socket_score_row(ss, socket_score_ref, dev, gen,
                                           name, kw, args, bits, u, vn, err)
-        if label == GEMMA7B_TIMED:
-            rows["socket_score"]["gemma7b"] = case_entry(
+        if label in CASE_ENTRIES:
+            rows["socket_score"][CASE_ENTRIES[label]] = case_entry(
                 label, socket_score_row(ss, socket_score_ref, dev, gen,
                                         "socket_score", kw, args, bits, u,
                                         vn, err))
 
     rows.update(flash_decode_rows(dev, gen))
     rows.update(flash_prefill_rows(dev, seed))
+    return rows
+
+
+def phase_paged_kernels(dev, seed, builds):
+    """Phase 3's paged kernels on every page dtype, once every build is
+    done (run after phase 4, which the paged kernels' builds overlap)."""
+    wait_builds(builds)
+    rows = {}
     for kv_dtype in ("auto",) + QUANT_KV_DTYPES:
         rows.update(paged_rows(dev, seed, kv_dtype))
         rows.update(ring_rows(dev, seed, kv_dtype))
@@ -3596,10 +3664,11 @@ RESIDENCY_BAR = 1.8
 GEMMA7B_RUNS = (("socket_fused", "auto"), ("hard_lsh_fused", "auto"),
                 ("quest_fused", "auto"), ("socket_fused", "bf16"),
                 ("socket_fused", "int8"), ("socket_fused", "fp8"))
-# gemma-7b's continuous runs take its first 14 of 28 layers: with phase
+# gemma-7b's continuous runs take its first 7 of 28 layers: with phase
 # 11 the whole script ran 1036 s at full depth, against its 1050 s
-# budget (its static run and the residency check keep full depth)
-GEMMA7B_DEPTH = 14
+# budget, and with phase 13 1044 s at 14 layers (its static run and the
+# residency check keep full depth)
+GEMMA7B_DEPTH = 7
 
 
 def residency(block_bytes, pool_blocks, blocks_per_request) -> dict:
@@ -3648,6 +3717,15 @@ def gemma7b_residency(seed, new_tokens=32) -> dict:
                     "blocks_per_request": per_req,
                     "int8_over_bf16": ratio, "bar": RESIDENCY_BAR}))
     return resident
+
+
+def card_memory(label, dev) -> None:
+    """Logs this process's allocated and reserved device memory and the
+    card's free memory (before ranks are spawned on the same card)."""
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"{label}: this process {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        f" GB allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
+        f"reserved; the card {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
 
 
 @contextlib.contextmanager
@@ -4845,6 +4923,7 @@ def phase_cp_model(dev, seed, card) -> dict:
         "reserved")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        card_memory("cp 9b before the ranks", dev)
         spawn_ranks(cp_model_rank, CP_WORLD, (CP_WORLD, tmp, seed),
                     deadline_s=CP_DEADLINE_S)
         ranks = [torch.load(os.path.join(tmp, f"cp_model_{r}.pt"))
@@ -5380,6 +5459,7 @@ def phase_mesh_parity(dev, seed, card) -> dict:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        card_memory("mesh 10a before the ranks", dev)
         spawn_ranks(mesh_parity_rank, MESH_WORLD, (MESH_WORLD, tmp, seed),
                     deadline_s=MESH_DEADLINE_S)
         ranks = [torch.load(os.path.join(tmp, f"mesh10a_{r}.pt"),
@@ -7156,17 +7236,292 @@ def phase_frontends(dev, seed, card) -> dict:
                                 runs.items()}}
             for name in ("socket_score", "flash_decode", "flash_prefill")}
 
+# ------------------------------------------------------------ phase 13
+
+# rank 0 of three production cells at decode_32k on the 16 x 16 mesh:
+# llama31-8b's 8 KV heads do not divide 16, so its cache is split over
+# the sequence ("base" gathers it before attending, "opt" takes the
+# context-parallel route); gemma-7b's 16 divide it (heads split)
+DRYRUN_SHAPE = "decode_32k"
+DRYRUN_CELLS = (("llama31-8b", "base"), ("llama31-8b", "opt"),
+                ("gemma-7b", "base"))
+DRYRUN_WARM = 2
+DRYRUN_TIMED = 6
+# the real peak against the dry run's hbm_per_device_gb: a miss is a
+# fault of the count
+DRYRUN_PEAK_REL = 0.10
+# a timed step may not beat its floor (the counted FLOPs at the bf16
+# peak, or the arguments read once at the HBM rate) by more than this
+DRYRUN_FLOOR_SHARE = 1.05
+# the kernels the dry run counts, and the shapes their host cost a call
+# is read at (the static path's)
+DRYRUN_KERNELS = ("socket_score", "flash_decode", "flash_prefill")
+
+
+def dryrun_count_gate(label, fake, real) -> None:
+    """The fake run and the real run count the same FLOPs, kernel calls
+    by operator and collective bytes by kind."""
+    for key in ("flops", "kernel_calls", "collective_bytes"):
+        if fake[key] != real[key]:
+            raise AssertionError(f"{label}: {key} counted {fake[key]} on "
+                                 f"fake tensors, {real[key]} on the card")
+
+
+def dryrun_peak_gate(label, peak_bytes, predicted_gb,
+                     rel=DRYRUN_PEAK_REL) -> float:
+    """The real peak within ``rel`` of the dry run's prediction; returns
+    the relative miss."""
+    got = peak_bytes / 2 ** 30
+    miss = abs(got - predicted_gb) / predicted_gb
+    if miss > rel:
+        raise AssertionError(f"{label}: peak {got:.3f} GiB is {miss:.1%} "
+                             f"from the dry run's {predicted_gb:.3f} "
+                             f"(limit {rel:.0%})")
+    return miss
+
+
+def dryrun_floor_ms(flops, argument_bytes) -> float:
+    """The least time of a step: its counted FLOPs at the bf16 peak, or
+    its arguments read once at the HBM rate."""
+    return max(flops / HW["peak_flops"], argument_bytes / HW["hbm_bw"]) * 1e3
+
+
+def dryrun_floor_gate(label, step_ms, floor_ms,
+                      share=DRYRUN_FLOOR_SHARE) -> float:
+    """No timed step beats its floor by more than ``share``; returns the
+    largest share of the floor."""
+    worst = max(floor_ms / ms for ms in step_ms)
+    if worst > share:
+        raise AssertionError(f"{label}: a step of {min(step_ms):.3f} ms "
+                             f"is {worst:.2f} x its floor {floor_ms:.3f} "
+                             f"ms (limit {share})")
+    return worst
+
+
+def logits_finite_gate(label, logits) -> None:
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+
+
+def dryrun_launch_gate(label, launches, layers, steps, flash_decode):
+    """``socket_score`` layers x steps times, ``flash_decode`` as often
+    where the cell attends off the context-parallel route (else never),
+    no other kernel."""
+    want = {"socket_score": layers * steps,
+            "flash_decode": layers * steps if flash_decode else 0}
+    got = {k: launches[k] for k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if got != want or others:
+        raise AssertionError(f"{label}: launches {got} (others {others}), "
+                             f"expected {want}")
+
+
+@torch.no_grad()
+def dryrun_fill(caches, gen):
+    """The cache blocks drawn from ``gen``: K/V normal in their dtype, the
+    hash words over every int32, the value norms positive."""
+    for layer in caches:
+        for name, t in layer.items():
+            if name == "bits":
+                t.copy_(torch.randint(-2 ** 31, 2 ** 31, t.shape,
+                                      generator=gen, device=t.device,
+                                      dtype=torch.int32))
+            elif name == "vnorm":
+                t.copy_(torch.rand(t.shape, generator=gen, device=t.device)
+                        + 0.5)
+            elif t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=gen, device=t.device))
+            else:
+                raise AssertionError(f"cache leaf {name} {t.dtype}")
+
+
+def dryrun_args(plan, dev, seed):
+    """Rank 0's arguments on the card: its parameter blocks drawn from
+    the seed (``fsdp.init_shards``), its cache blocks (:func:`dryrun_fill`),
+    the global batch's token ids, the last cache row."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import dryrun
+    params = fsdp.init_shards(plan.cfg, seed, fsdp.flat_tree(plan.params_sh),
+                              dev)
+    _, caches, inp, pos = dryrun.make_args(
+        plan, dev, leaf=lambda shape, dtype: torch.empty(
+            shape, dtype=dtype, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dryrun_fill(caches, gen)
+    inp = torch.randint(0, plan.cfg.vocab_size, inp.shape, generator=gen,
+                        device=dev, dtype=inp.dtype)
+    return params, caches, inp, pos
+
+
+def dryrun_fakes() -> dict:
+    """Each of ``DRYRUN_CELLS``' dry run on fake tensors: (counts, record)
+    by (arch, variant).  The host's alone, so the full run makes them
+    while the kernels build."""
+    from repro_torch.launch import dryrun
+    return {(arch, variant): dryrun.build_cell(arch, DRYRUN_SHAPE,
+                                               variant=variant)
+            for arch, variant in DRYRUN_CELLS}
+
+
+def dryrun_cell(dev, seed, card, arch, variant, fake) -> dict:
+    """Phase 13a for one cell: its dry run on fake tensors (``fake``:
+    :func:`dryrun_fakes`' counts and record), then rank 0's step for real
+    (counted once, warmed, timed, once more with the collectives timed),
+    each gate."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import dryrun
+    label = f"dryrun {arch} {DRYRUN_SHAPE} {variant}"
+    fake, rec = fake
+    rl = rec["roofline"]
+    log(f"{label}: fake run traced in {rec['trace_s']} s; "
+        f"{rec['hbm_per_device_gb']} GiB a device "
+        f"({rec['memory_analysis']}); {fake['flops'] / 1e9:.3f} GFLOP, "
+        f"{fake['bytes'] / 1e9:.3f} GB, collectives "
+        f"{rec['collective_bytes']}; roofline compute {rl['compute_s']:.6f}"
+        f" s, memory {rl['memory_s']:.6f} s, collective "
+        f"{rl['collective_s']:.6f} s, dominant {rl['dominant']}; kernels "
+        f"{rec['kernel_calls']} (computed from {card}'s data sheet, not "
+        "measured)")
+    plan = dryrun.plan_cell(arch, DRYRUN_SHAPE, variant=variant)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    args = dryrun_args(plan, dev, seed)
+    torch.cuda.synchronize()
+    log(f"{label}: rank 0's blocks drawn in {time.perf_counter() - t0:.1f}"
+        f" s, {(torch.cuda.memory_allocated(dev) - base) / 2 ** 30:.3f} "
+        "GiB")
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = dryrun.make_step(plan)
+    reset_launches()
+    real = dryrun.count_step(step, args, plan.chips)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    dryrun_count_gate(label, fake, real)
+    miss = dryrun_peak_gate(label, peak, rec["hbm_per_device_gb"])
+    params, caches, inp, pos = args
+    ms = []
+    with collectives.dry_run():
+        for _ in range(DRYRUN_WARM):
+            step(params, caches, inp, pos)
+        for _ in range(DRYRUN_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, caches = step(params, caches, inp, pos)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        logits_finite_gate(label, logits)
+        collectives.TIMING["on"] = True
+        seconds = dict.fromkeys(collectives.SECONDS, 0.0)
+        collectives.SECONDS.update(seconds)
+        try:
+            step(params, caches, inp, pos)
+        finally:
+            collectives.TIMING["on"] = False
+        gathers = collectives.SECONDS["all_gather"]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    layers = plan.cfg.num_layers
+    steps = 1 + DRYRUN_WARM + DRYRUN_TIMED + 1
+    dryrun_launch_gate(label, launches, layers, steps, variant == "base")
+    floor = dryrun_floor_ms(real["flops"],
+                            rec["memory_analysis"]["argument_size_in_bytes"])
+    share = dryrun_floor_gate(label, ms, floor)
+    mem_ms = rl["memory_s"] * 1e3
+    log(f"{label}: counts equal on the card ({real['flops']} FLOP, "
+        f"kernels {real['kernel_calls']}); peak {peak / 2 ** 30:.3f} GiB "
+        f"({miss:.1%} from the dry run's {rec['hbm_per_device_gb']}); "
+        f"steps {[round(x, 3) for x in ms]} ms; floor {floor:.4f} ms "
+        f"(largest share {share:.4f}); memory term {mem_ms:.3f} ms "
+        f"(share {mem_ms / min(ms):.4f}); gathers {gathers:.4f} s of a "
+        f"step timed with the collectives synchronised; launches "
+        f"{ {k: launches[k] for k in DRYRUN_KERNELS} }; {card}")
+    del params, caches, inp, args, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches={k: launches[k] for k in DRYRUN_KERNELS},
+                step_ms=ms, floor_ms=floor, floor_share=share,
+                peak_gib=peak / 2 ** 30,
+                predicted_gib=rec["hbm_per_device_gb"],
+                gather_s=gathers, trace_s=rec["trace_s"], roofline=rl)
+
+
+def operator_host_us(dev, seed) -> dict:
+    """Phase 13b: the host's microseconds a call of each kernel operator's
+    wrapper at the static path's shapes, through the dispatcher (as a
+    fake run or a counting mode calls it) and as the port calls it on
+    plain CUDA tensors, straight to the C launch
+    (``build.dispatch_free``), in one run."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_decode import cases
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_prefill import ops as fp
+    from repro_torch.kernels.socket_score import ops as ss
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(bh=16, n=8224, g=4, l=60, p=10, int8=False, vnorm=False)
+    score = [socket_score_case(dev, gen, **kw)[:2] for _ in range(4)]
+    decode_kw = dict(cases.CARD_CASES)["main path"]
+    decode = [cases.card_case(gen, **decode_kw) for _ in range(4)]
+    qp = torch.randn((64, 512, 128), generator=gen, device=dev)
+    kp = torch.randn((16, 512, 128), generator=gen, device=dev)
+    calls = {
+        "socket_score": (functools.partial(
+            ss.launch_socket_score, vnorm=None, num_tables=60, num_planes=10,
+            tau=0.4), score),
+        "flash_decode": (functools.partial(fd.launch_flash_decode,
+                                           scale=0.088), decode),
+        "flash_prefill": (functools.partial(fp.launch_flash_prefill,
+                                            scale=0.088),
+                          [(qp, kp, kp)] * 4),
+    }
+    out = {}
+    for name, (fn, sets) in calls.items():
+        with mock.patch.object(build, "dispatch_free", lambda t: False):
+            op = host_us(fn, sets)
+        direct = host_us(fn, sets)
+        out[name] = dict(operator=op, direct=direct)
+        log(f"{name}: host {op:.1f} us a call through the operator, "
+            f"{direct:.1f} us straight to the launch")
+    return out
+
+
+def phase_dryrun(dev, seed, card, fakes=None) -> dict:
+    """Phase 13: 13a rank 0 of each of ``DRYRUN_CELLS`` for real
+    (:func:`dryrun_cell`; ``fakes`` their dry runs, made here where
+    None), 13b the operators' host cost a call.  Returns each counted
+    kernel's ``dryrun`` entry: its launches in each cell's run and its
+    host microseconds a call."""
+    fakes = fakes or dryrun_fakes()
+    cells = {}
+    for arch, variant in DRYRUN_CELLS:
+        with phase_clock(f"dryrun: {arch} {variant} (13a)", dev):
+            cells[f"{arch} {variant}"] = dryrun_cell(
+                dev, seed, card, arch, variant, fakes[arch, variant])
+    log(json.dumps({"dryrun_cells": {
+        c: {k: v for k, v in r.items() if k != "launches"}
+        for c, r in cells.items()}}))
+    host = operator_host_us(dev, seed)
+    return {name: dict(launches={c: r["launches"][name]
+                                 for c, r in cells.items()},
+                       host_us=host[name])
+            for name in DRYRUN_KERNELS}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only",
                     choices=["state-moe", "bf16", "train", "cp", "mesh",
-                             "ep", "pipe", "cp-hybrid", "frontends"],
+                             "ep", "pipe", "cp-hybrid", "frontends",
+                             "dryrun"],
                     default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e, 5f, 8, 9, 10, 11a, 11b, 11c or 12); prints "
-                         "neither the kernels line nor the ok line")
+                         "(5e, 5f, 8, 9, 10, 11a, 11b, 11c, 12 or 13); "
+                         "prints neither the kernels line nor the ok line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -7218,6 +7573,12 @@ def main(argv=None) -> int:
         log(json.dumps({"frontends": phase_frontends(dev, args.seed, card)}))
         log(f"frontends phase: {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.only == "dryrun":
+        build_kernels()
+        t0 = time.perf_counter()
+        log(json.dumps({"dryrun": phase_dryrun(dev, args.seed, card)}))
+        log(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.only in ("ep", "pipe", "cp-hybrid"):
         build_kernels()
         t0 = time.perf_counter()
@@ -7226,11 +7587,26 @@ def main(argv=None) -> int:
         log(f"parallel phase ({args.only}): {time.perf_counter() - t0:.1f} s")
         return 0
     t0 = time.perf_counter()
-    rows = phase_kernels(dev, args.seed)
-    log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    builds = start_builds()
+    fakes = dryrun_fakes()
+    log(f"dryrun: the fake runs, beside the builds: "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = phase_kernels(dev, args.seed, builds)
+    log(f"kernel phase (contiguous kernels): "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches, params = phase_main(dev, args.seed, card)
     log(f"main phase: {time.perf_counter() - t0:.1f} s")
+    # the paged cases on an empty card (beside llama31-8b's 32 GB they
+    # left the parent holding memory phase 10's ranks needed), the same
+    # weights drawn again after them
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows.update(phase_paged_kernels(dev, args.seed, builds))
+    log(f"kernel phase (paged kernels): {time.perf_counter() - t0:.1f} s")
+    params = draw_params(dev, args.seed, "llama31-8b")
     # the continuous runs: each fused backend on f32 pages, then on int8
     # and fp8 pages (entries name[int8], name[fp8]) on the same weights,
     # all at QUANT_DEPTH layers (phase 5f runs socket_fused at full depth,
@@ -7331,6 +7707,10 @@ def main(argv=None) -> int:
     for name, entry in phase_frontends(dev, args.seed, card).items():
         rows[name]["frontends"] = entry
     log(f"frontends phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, entry in phase_dryrun(dev, args.seed, card, fakes).items():
+        rows[name]["dryrun"] = entry
+    log(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(row, launches=launches[name]) for name, row in
                rows.items()]
     log(card)

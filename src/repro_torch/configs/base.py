@@ -263,6 +263,10 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     @property
+    def uses_attention(self) -> bool:
+        return any(s.kind == "attn" for s in self.layer_specs)
+
+    @property
     def uses_moe(self) -> bool:
         return any(s.mlp == "moe" for s in self.layer_specs)
 

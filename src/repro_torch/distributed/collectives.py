@@ -29,6 +29,21 @@ sum onto one member.  The ``torch.autograd.Function`` classes at the
 end make them differentiable: an all-to-all's backward is the
 all-to-all of the gradients, a permute's the permute the other way.
 
+**The dry run** (:func:`dry_run`, a context manager): no process group
+and no other rank.  Each collective of a group of more than one rank
+records its kind, named as XLA names it (``all-gather``,
+``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+``collective-permute``, ``collective-broadcast``), and its result's
+bytes in the route's records (``roofline.collective_bytes`` sums them,
+as the JAX package sums the result shapes of its HLO's collectives),
+and returns a tensor of the result's shape with finite data that is not
+a model's: a gather tiles this rank's block, a reduction or a
+reduce-scatter returns this rank's part of its input, an all-to-all, a
+permute or a broadcast its input.  ``launch/dryrun.py`` runs one rank
+of the production mesh on it, on fake tensors on the CPU and for real
+on the card alike; :meth:`repro_torch.launch.mesh.Mesh.group` hands it
+a :class:`DryGroup` while its groups are unbuilt.
+
 With ``TIMING["on"]`` each call synchronises the device before and after
 itself and adds its seconds to :data:`SECONDS` by kind (the share of a
 train step in gathers, reduce-scatters and all-to-alls); the
@@ -38,15 +53,17 @@ before it, so a step timed this way is not a gated step.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import socket
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["comm_route", "all_reduce", "all_gather", "reduce_scatter",
+__all__ = ["comm_route", "dry_run", "dry_run_active", "DryGroup",
+           "all_reduce", "all_gather", "reduce_scatter",
            "all_to_all", "permute", "broadcast", "reduce",
            "close_mailboxes", "PEER_COPIED", "TIMING", "SECONDS",
            "AllToAll", "Permute", "TakeBlock", "GatherBlocks",
@@ -61,6 +78,39 @@ SECONDS: Dict[str, float] = {"all_reduce": 0.0, "all_gather": 0.0,
                              "reduce_scatter": 0.0, "all_to_all": 0.0,
                              "permute": 0.0, "broadcast": 0.0,
                              "reduce": 0.0}
+
+
+_DRY: Dict[str, object] = {"records": None}
+
+
+@contextlib.contextmanager
+def dry_run():
+    """The dry-run route (module docstring) for the calls inside; yields
+    its list of ``(kind, result bytes)`` records."""
+    prev = _DRY["records"]
+    records: List[Tuple[str, int]] = []
+    _DRY["records"] = records
+    try:
+        yield records
+    finally:
+        _DRY["records"] = prev
+
+
+def dry_run_active() -> bool:
+    return _DRY["records"] is not None
+
+
+class DryGroup:
+    """The stand-in process group of ``axes`` on the dry-run route."""
+
+    def __init__(self, mesh, axes):
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.size = mesh.extent(self.axes)
+
+
+def _dry(kind: str, out: torch.Tensor) -> torch.Tensor:
+    _DRY["records"].append((kind, out.numel() * out.element_size()))
+    return out
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -205,6 +255,8 @@ def all_reduce(t: torch.Tensor, op, group, mesh=None, axes=None
     ``axes`` where ``mesh`` and ``axes`` are given."""
     if group is None:
         return t.clone()
+    if isinstance(group, DryGroup):
+        return _dry("all-reduce", t.clone())
     if comm_route(t, group) == "mailbox":
         order = sorted(dist.get_process_group_ranks(group))
         ranks = order if mesh is None else mesh.members(axes)
@@ -226,6 +278,8 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str],
     group = mesh.group(axes)
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        return _dry("all-gather", torch.cat([t] * group.size, dim=dim))
     members, order = _members(mesh, axes)
     if comm_route(t, group) == "mailbox":
         box = _post(t, group)
@@ -249,6 +303,8 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Sequence[str],
     group = mesh.group(axes)
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        return _dry("reduce-scatter", _block(t, mesh, axes, dim).contiguous())
     members, order = _members(mesh, axes)
     if comm_route(t, group) == "mailbox":
         box = _post(t, group)
@@ -280,6 +336,8 @@ def all_to_all(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     group = mesh.group(axes)
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        return _dry("all-to-all", t.clone())
     members, order = _members(mesh, axes)
     n = len(members)
     if t.shape[0] % n:
@@ -314,6 +372,8 @@ def permute(t: torch.Tensor, mesh, axis: str, shift: int = 1
     n = mesh.extent((axis,))
     if group is None or shift % n == 0:
         return t
+    if isinstance(group, DryGroup):
+        return _dry("collective-permute", t.clone())
     members, order = _members(mesh, (axis,))
     i = members.index(mesh.rank)
     src, dst = members[(i - shift) % n], members[(i + shift) % n]
@@ -340,6 +400,8 @@ def broadcast(t: torch.Tensor, mesh, axes: Sequence[str], src: int
     group = mesh.group(axes)
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        return _dry("collective-broadcast", t.clone())
     members, order = _members(mesh, axes)
     mine = members.index(mesh.rank) == src
     if comm_route(t, group) == "mailbox":
@@ -361,6 +423,8 @@ def reduce(t: torch.Tensor, mesh, axes: Sequence[str], dst: int
     group = mesh.group(axes)
     if group is None:
         return t
+    if isinstance(group, DryGroup):
+        return _dry("all-reduce", t.clone())
     members, order = _members(mesh, axes)
     mine = members.index(mesh.rank) == dst
     if comm_route(t, group) == "mailbox":

@@ -49,6 +49,18 @@ torch has none, so this module stands in for it, one process a rank:
 MoE layers keep the JAX package's global-batch semantics under a data
 extent above 1: the capacity and the aux losses of each dispatch are
 those of the global batch (``models/moe.py``).
+
+The sharded prefill and serve steps (``runtime/steps.py``) use the same
+parameter gathers, and :class:`CacheBlocks` for the decode caches laid
+out by ``launch/specs.py::cache_specs``: a rank holds its block of each
+leaf.  Its rows are the batch's rows it serves (the cache's batch axes
+split the batch alike).  The ``model`` axis shards storage here too:
+before a layer attends, :meth:`CacheBlocks.open` gathers its block over
+every other sharded axis (the KV heads, or the sequence where the heads
+do not divide ``model``) and :meth:`CacheBlocks.close` writes the
+step's rows back into the block; a global SOCKET layer's sequence axes
+under ``cfg.decode_cp_axes`` stay split, the context-parallel route
+attending its block.
 """
 
 from __future__ import annotations
@@ -64,7 +76,8 @@ from repro_torch.distributed.sharding import NamedSharding, entry_axes
 __all__ = ["BATCH_AXES", "gather_param", "reduce_grad", "gatherer",
            "flat_tree", "shard_tree", "gather_tree", "init_shards",
            "one_rank_shardings", "zeros_tree", "local_rows",
-           "global_tokens", "batch_extent", "mesh_of", "gather_experts"]
+           "global_tokens", "batch_extent", "mesh_of", "gather_experts",
+           "CacheBlocks"]
 
 # the mesh axes a batch's rows are split over (the "batch" rule)
 BATCH_AXES = ("pod", "data")
@@ -333,3 +346,80 @@ def global_tokens(labels: torch.Tensor, mesh) -> torch.Tensor:
     if group is None:
         return count
     return collectives.all_reduce(count, dist.ReduceOp.SUM, group)
+
+
+class CacheBlocks:
+    """This rank's blocks of the decode caches, ``shardings`` the
+    per-layer list of each leaf's :class:`NamedSharding`
+    (``cache_specs``): see the module docstring.  ``rows_axes`` are the
+    mesh axes of the caches' batch dim, which split the step's rows."""
+
+    def __init__(self, cfg, shardings):
+        self.shardings = shardings
+        first = next(iter(shardings[0].values()))
+        self.mesh = first.mesh
+        self.rows_axes = tuple(a for a in entry_axes(first.spec[0])
+                               if self.mesh.shape.get(a, 1) > 1)
+        # the axes context_parallel.cp_mesh finds on this mesh
+        cp_seq = tuple(a for a in cfg.decode_cp_axes if a in self.mesh.shape
+                       ) if cfg.attention_backend == "socket" else ()
+        self._dims = []
+        for spec, layer in zip(cfg.layer_specs, shardings):
+            cp_layer = spec.kind == "attn" and spec.attn_type == "global"
+            self._dims.append({name: self._split_dims(
+                sh, cp_seq if cp_layer else ()) for name, sh in
+                layer.items()})
+
+    def _split_dims(self, sh: NamedSharding, cp_seq) -> list:
+        """(dim, axes) of each dim past the batch dim that is split over
+        more than one rank, but for the context-parallel sequence dim."""
+        out = []
+        for d, e in enumerate(sh.spec):
+            axes = entry_axes(e)
+            if d == 0 or self.mesh.extent(axes) == 1 or \
+                    (d == 2 and cp_seq and axes == cp_seq):
+                continue
+            out.append((d, axes))
+        return out
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (dim 0) of a whole-batch tensor."""
+        return _block(t, self.mesh, self.rows_axes, 0)[0]
+
+    def open(self, i: int, block: Dict) -> Dict:
+        """Layer ``i``'s cache whole over its split dims (the block
+        itself where none is split)."""
+        dims = self._dims[i]
+        if not any(dims.values()):
+            return block
+        out = {}
+        for name, t in block.items():
+            for d, axes in dims[name]:
+                t = collectives.all_gather(t, self.mesh, axes, d)
+            out[name] = t
+        return out
+
+    def close(self, i: int, block: Dict, whole: Dict) -> Dict:
+        """Write ``whole``'s rows back into ``block`` (in place)."""
+        dims = self._dims[i]
+        if not any(dims.values()):
+            return whole
+        for name, t in block.items():
+            w = whole[name]
+            for d, axes in dims[name]:
+                w = _block(w, self.mesh, axes, d)[0]
+            t.copy_(w)
+        return block
+
+    def cut(self, i: int, cache: Dict) -> Dict:
+        """This rank's block of layer ``i``'s cache built whole over its
+        split dims (the sharded prefill)."""
+        dims = self._dims[i]
+        if not any(dims.values()):
+            return cache
+        out = {}
+        for name, t in cache.items():
+            for d, axes in dims[name]:
+                t = _block(t, self.mesh, axes, d)[0]
+            out[name] = t.clone() if dims[name] else t
+        return out

@@ -10,6 +10,9 @@ directories) and the flags, so an edited source or header is always
 rebuilt.  A build may add preprocessor ``defines`` (a diagnostic build
 of a source beside its shipped one; they enter the hash too).  Nothing
 is compiled at import: :func:`load_library` builds on first use.
+
+:func:`dispatch_free` tells a wrapper whether its call may go straight
+to the launch, skipping its ``torch.library`` operator.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
+import torch
+
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "included_headers",
-           "build_library", "load_library", "BUILD_LOGS"]
+           "build_library", "load_library", "dispatch_free", "BUILD_LOGS"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS: List[str] = [
@@ -106,3 +111,14 @@ def load_library(source: Path, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     if key not in _LOADED:
         _LOADED[key] = ctypes.CDLL(str(build_library(*key)))
     return _LOADED[key]
+
+
+def dispatch_free(t: torch.Tensor) -> bool:
+    """Whether a kernel call on ``t`` goes straight to its launch rather
+    than through its ``torch.library`` operator: ``t`` a plain CUDA
+    tensor and no dispatch mode active.  Fake tensors (the dry run) and
+    the counting modes (``FlopCounterMode``, the dry run's byte count)
+    need the operator; on a host-bound decode step the dispatcher costs
+    8-26 us a call (PERF.md)."""
+    return t.is_cuda and type(t) is torch.Tensor and \
+        torch._C._len_torch_dispatch_stack() == 0

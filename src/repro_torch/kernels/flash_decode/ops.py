@@ -1,10 +1,16 @@
 """Public wrapper of the flash-decode kernel, accepting the model's
 ``(B, KVH, ...)`` layout or the flat ``(BH, ...)`` one.
 
-On CPU tensors it runs the plain version (:mod:`.ref`); on CUDA tensors
-it launches the CUDA kernel ``flash_decode.cu`` (built on first use by
-:mod:`repro_torch.kernels.build`; one launch a call, counted in
-``LAUNCHES``) or raises.  :func:`flash_decode_plan` reports the shape a
+On CPU tensors it runs the plain version (:mod:`.ref`); on plain CUDA
+tensors it launches the CUDA kernel ``flash_decode.cu`` (built on first
+use by :mod:`repro_torch.kernels.build`; one launch a call, counted in
+``LAUNCHES``) or raises; on any other device, or under a dispatch mode
+(:func:`~repro_torch.kernels.build.dispatch_free`), it calls the
+operator ``repro_torch::flash_decode``, whose CUDA implementation is the
+same launch and whose fake implementation (``meta`` and fake tensors:
+the dry run) only checks shapes; its FLOP
+formula (:func:`flash_decode_flops`) counts the bound's operations with
+every row of the mask kept.  :func:`flash_decode_plan` reports the shape a
 launch takes (C, clusters at once, shared memory, stages).
 """
 
@@ -14,11 +20,13 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 __all__ = ["flash_decode", "launch_flash_decode", "flash_decode_plan",
+           "flash_decode_flops",
            "LAUNCHES", "SOURCE", "MAX_HEAD_DIM", "MAX_HEADS"]
 
 SOURCE = Path(__file__).with_name("flash_decode.cu")
@@ -71,11 +79,62 @@ def flash_decode_plan(q: torch.Tensor, k: torch.Tensor) -> dict:
                      "units", "row_stride"), info))
 
 
+def _ctypes_launch(q, k, v, mask, out, scale) -> None:
+    """One launch of the kernel into ``out`` (the C call)."""
+    bh, g, hd = q.shape
+    lib = _library()
+    dev = q.device
+    with torch.cuda.device(dev):
+        err = lib.flash_decode_launch(
+            q.data_ptr(), _TYPES[q.dtype], k.data_ptr(), v.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), _TYPES[k.dtype], bh,
+            k.shape[1], g, hd, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_decode kernel launch failed: " +
+                           lib.flash_decode_error_string(err).decode())
+
+
+def _cuda_op(q, k, v, mask, out, scale) -> None:
+    """``repro_torch::flash_decode`` on CUDA tensors: build (on first
+    use), launch, count the launch."""
+    global LAUNCHES
+    _ctypes_launch(q, k, v, mask, out, scale)
+    LAUNCHES += 1
+
+
+def _fake_op(q, k, v, mask, out, scale) -> None:
+    if out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
+
+
+def flash_decode_flops(bh: int, k: int, g: int, hd: int) -> int:
+    """The bound's operations with all ``k`` rows kept: q.k, p.v and the
+    softmax's four a (row, head)."""
+    return bh * k * g * (4 * hd + 4)
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("flash_decode(Tensor q, Tensor k, Tensor v, Tensor mask, "
+            "Tensor(a!) out, float scale) -> ()")
+_OPS.impl("flash_decode", _cuda_op, "CUDA")
+torch.library.register_fake("repro_torch::flash_decode", _fake_op, lib=_OPS)
+
+# the wrapper's call under a fake run or a counting mode (``_cuda_op`` on
+# plain CUDA tensors: ``build.dispatch_free``)
+_OP = torch.ops.repro_torch.flash_decode
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _flop_formula(q, k, *args, out_shape=None, **kw) -> int:
+    return flash_decode_flops(q[0], k[1], q[1], q[2])
+
+
 def launch_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor, *, scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on flat CUDA tensors: q (BH, G, hd);
-    k/v (BH, K, hd) of one dtype; mask (BH, K) bool -> f32 (BH, G, hd)."""
-    global LAUNCHES
+    """Launch the CUDA kernel through the operator on flat CUDA tensors:
+    q (BH, G, hd); k/v (BH, K, hd) of one dtype; mask (BH, K) bool -> f32
+    (BH, G, hd)."""
     bh, g, hd = q.shape
     kk = k.shape[1]
     if k.shape != (bh, kk, hd) or v.shape != k.shape:
@@ -104,17 +163,8 @@ def launch_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((bh, g, hd), dtype=torch.float32, device=q.device)
     if bh == 0:
         return out
-    lib = _library()
-    dev = q.device
-    with torch.cuda.device(dev):
-        err = lib.flash_decode_launch(
-            q.data_ptr(), _TYPES[q.dtype], k.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), _TYPES[k.dtype], bh, kk, g, hd,
-            float(scale), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("flash_decode kernel launch failed: " +
-                           lib.flash_decode_error_string(err).decode())
-    LAUNCHES += 1
+    (_cuda_op if build.dispatch_free(q) else _OP)(q, k, v, mask, out,
+                                                  float(scale))
     return out
 
 
@@ -137,7 +187,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m2 = mask.reshape(b * kvh, mask.shape[-1])
     else:
         q2, k2, v2, m2 = q, k, v, mask
-    if q2.is_cuda:
+    if q2.device.type != "cpu":
         out = launch_flash_decode(q2, k2, v2, m2, scale=scale)
     else:
         out = flash_decode_ref(q2, k2, v2, m2, scale=scale)

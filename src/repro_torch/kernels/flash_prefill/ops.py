@@ -1,10 +1,16 @@
 """Public wrapper of the causal flash-attention prefill kernel.
 
 On CPU tensors it runs the plain version (:mod:`.ref`, query-chunked by
-``q_chunk``); on CUDA tensors it launches the CUDA kernel
+``q_chunk``); on plain CUDA tensors it launches the CUDA kernel
 (``flash_prefill.cu``, built on first use by
-:mod:`repro_torch.kernels.build`) or raises.  ``LAUNCHES`` counts kernel
-launches, so a run can show that it went through the kernel.
+:mod:`repro_torch.kernels.build`) or raises; on any other device, or
+under a dispatch mode (:func:`~repro_torch.kernels.build.dispatch_free`),
+it calls the operator ``repro_torch::flash_prefill``, whose CUDA
+implementation is the same launch and whose fake implementation
+(``meta`` and fake tensors: the dry run) only checks shapes; its FLOP
+formula (:func:`flash_prefill_flops`) counts the bound's operations, 4 x
+hd a kept (query, key) pair.  ``LAUNCHES`` counts kernel launches, so a
+run can show that it went through the kernel.
 
 Under autograd (an input that requires grad, grad mode on) the op is the
 :class:`FlashPrefill` function: its forward is the same kernel (or plain
@@ -22,12 +28,14 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_prefill.ref import (flash_prefill_ref,
                                                    flash_prefill_ref_backward)
 
 __all__ = ["flash_prefill", "launch_flash_prefill", "FlashPrefill",
+           "flash_prefill_flops",
            "LAUNCHES", "SOURCE", "HEAD_DIMS", "BACKWARD_Q_CHUNK"]
 
 SOURCE = Path(__file__).with_name("flash_prefill.cu")
@@ -55,17 +63,75 @@ def _library() -> ctypes.CDLL:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the kernel's vector loads)."""
+    """``t`` contiguous and, on the card, 16-byte aligned (the kernel's
+    vector loads)."""
     t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if t.device.type != "cuda" or t.data_ptr() % 16 == 0 \
+        else t.clone()
+
+
+def _ctypes_launch(q, k, v, out, scale, window, softcap) -> None:
+    """One launch of the kernel into ``out`` (the C call)."""
+    bh, s, hd = q.shape
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_prefill_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], bh, k.shape[0], s, hd, float(scale),
+            int(window), float(softcap), stream)
+    if err != 0:
+        raise RuntimeError("flash_prefill kernel launch failed: " +
+                           lib.flash_prefill_error_string(err).decode())
+
+
+def _cuda_op(q, k, v, out, scale, window, softcap) -> None:
+    """``repro_torch::flash_prefill`` on CUDA tensors: build (on first
+    use), launch, count the launch."""
+    global LAUNCHES
+    _ctypes_launch(q, k, v, out, scale, window, softcap)
+    LAUNCHES += 1
+
+
+def _fake_op(q, k, v, out, scale, window, softcap) -> None:
+    if out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
+
+
+def flash_prefill_flops(bh: int, s: int, hd: int, window: int = 0) -> int:
+    """The bound's operations: 4 x hd (q.k and p.v) for each kept (query,
+    key) pair of the causal (or windowed) function."""
+    if not window or window >= s:
+        keys = s * (s + 1) // 2
+    else:
+        keys = window * (window + 1) // 2 + (s - window) * window
+    return 4 * hd * bh * keys
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("flash_prefill(Tensor q, Tensor k, Tensor v, Tensor(a!) out, "
+            "float scale, int window, float softcap) -> ()")
+_OPS.impl("flash_prefill", _cuda_op, "CUDA")
+torch.library.register_fake("repro_torch::flash_prefill", _fake_op,
+                            lib=_OPS)
+
+# the wrapper's call under a fake run or a counting mode (``_cuda_op`` on
+# plain CUDA tensors: ``build.dispatch_free``)
+_OP = torch.ops.repro_torch.flash_prefill
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_prefill)
+def _flop_formula(q, k, v, out, scale, window, *args, out_shape=None,
+                  **kw) -> int:
+    return flash_prefill_flops(q[0], q[1], q[2], window)
 
 
 def launch_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
-    """Launch the CUDA kernel: q (BH, S, hd); k/v (BKV, S, hd), one dtype
-    (f32 or bf16), BH a multiple of BKV -> f32 (BH, S, hd)."""
-    global LAUNCHES
+    """Launch the CUDA kernel through the operator: q (BH, S, hd); k/v
+    (BKV, S, hd), one dtype (f32 or bf16), BH a multiple of BKV -> f32
+    (BH, S, hd)."""
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}: expected (BH, S, hd) and two "
@@ -81,7 +147,7 @@ def launch_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"kernel takes one of {tuple(_DTYPES)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
+    if not (q.device == k.device == v.device) or q.device.type == "cpu":
         raise ValueError("q, k and v must be on one CUDA device")
     if -(-s // BLOCK_Q) > 65535 or bh > 2 ** 31 - 1:
         raise ValueError(f"S={s}, BH={bh} exceed the kernel's grid")
@@ -89,22 +155,13 @@ def launch_flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((bh, s, hd), dtype=torch.float32, device=q.device)
     if s == 0 or bh == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_prefill_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], bh, bkv, s, hd, float(scale), int(window),
-            float(softcap), stream)
-    if err != 0:
-        raise RuntimeError("flash_prefill kernel launch failed: " +
-                           lib.flash_prefill_error_string(err).decode())
-    LAUNCHES += 1
+    (_cuda_op if build.dispatch_free(q) else _OP)(
+        q, k, v, out, float(scale), int(window), float(softcap))
     return out
 
 
 def _forward(q, k, v, scale, window, softcap, q_chunk):
-    if q.is_cuda:
+    if q.device.type != "cpu":
         return launch_flash_prefill(q, k, v, scale=scale, window=window,
                                     softcap=softcap)
     return flash_prefill_ref(q, k, v, scale=scale, window=window,

@@ -2,12 +2,19 @@
 
 Accepts the model's layouts and flattens to the kernel's ``(BH, ...)``
 convention.  On CPU tensors it runs the plain version (:mod:`.ref`); on
-CUDA tensors it launches the CUDA kernel (``socket_score.cu``, built on
-first use by :mod:`repro_torch.kernels.build`) or raises.  ``LAUNCHES``
-counts kernel launches, so a run can show that it went through the
-kernel.  :func:`key_runs` is the host's copy of how the kernel splits a
-row's keys over the C ranks of its cluster, :func:`socket_score_plan`
-the shape a launch takes (C, shared memory, the instance).
+plain CUDA tensors it launches the CUDA kernel (``socket_score.cu``,
+built on first use by :mod:`repro_torch.kernels.build`) or raises; on
+any other device, or under a dispatch mode
+(:func:`~repro_torch.kernels.build.dispatch_free`), it calls the
+operator ``repro_torch::socket_score``, whose CUDA implementation is the
+same launch and whose fake implementation (``meta`` and fake tensors:
+the dry run, ``launch/dryrun.py``) only checks shapes; its FLOP formula
+(:func:`socket_score_flops`) counts the operations of the bound in
+``PERF.md``'s table.  ``LAUNCHES`` counts kernel launches, so a run can
+show that it went through the kernel.  :func:`key_runs` is the host's
+copy of how the kernel splits a row's keys over the C ranks of its
+cluster, :func:`socket_score_plan` the shape a launch takes (C, shared
+memory, the instance).
 :func:`table_dump` runs a diagnostic build of the same source that also
 returns each rank's split tables as it held them (``tables_of_dump``
 reads them out).
@@ -20,11 +27,13 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.socket_score.ref import socket_score_ref
 
 __all__ = ["socket_score", "launch_socket_score", "socket_score_plan",
+           "socket_score_flops",
            "key_runs", "table_dump", "tables_of_dump", "LAUNCHES", "SOURCE",
            "THREADS", "DUMP_DEFINE"]
 
@@ -88,15 +97,69 @@ def socket_score_plan(bits: torch.Tensor, g: int, *, num_tables: int,
                 resident=bool(info[5]), tables_a_chunk=info[6])
 
 
+def _ctypes_launch(lib, bits, u, vnorm, out, num_tables, num_planes,
+                   tau) -> None:
+    """One launch of ``lib``'s kernel into ``out`` (the C call)."""
+    bh, n, w = bits.shape
+    dev = bits.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.socket_score_launch(
+            bits.data_ptr(), int(bits.dtype == torch.int8), u.data_ptr(),
+            vnorm.data_ptr() if vnorm is not None else None,
+            out.data_ptr(), bh, n, w, u.shape[1], num_tables, num_planes,
+            float(tau), stream)
+    if err != 0:
+        raise RuntimeError("socket_score kernel launch failed: " +
+                           lib.socket_score_error_string(err).decode())
+
+
+def _cuda_op(bits, u, vnorm, out, num_tables, num_planes, tau) -> None:
+    """``repro_torch::socket_score`` on CUDA tensors: build (on first
+    use), launch, count the launch."""
+    global LAUNCHES
+    _ctypes_launch(_library(), bits, u, vnorm, out, num_tables, num_planes,
+                   tau)
+    LAUNCHES += 1
+
+
+def _fake_op(bits, u, vnorm, out, num_tables, num_planes, tau) -> None:
+    if out.shape != bits.shape[:2]:
+        raise ValueError(f"out {tuple(out.shape)} != {tuple(bits.shape[:2])}")
+
+
+def socket_score_flops(bh: int, n: int, g: int, num_tables: int) -> int:
+    """The operations the function needs (the bound's count): a (key, g,
+    l) term is one multiply-add of two table lookups."""
+    return bh * n * g * num_tables * 2
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("socket_score(Tensor bits, Tensor u, Tensor? vnorm, "
+            "Tensor(a!) out, int num_tables, int num_planes, float tau) "
+            "-> ()")
+_OPS.impl("socket_score", _cuda_op, "CUDA")
+torch.library.register_fake("repro_torch::socket_score", _fake_op, lib=_OPS)
+
+# the wrapper's call under a fake run or a counting mode (``_cuda_op`` on
+# plain CUDA tensors: ``build.dispatch_free``)
+_OP = torch.ops.repro_torch.socket_score
+
+
+@register_flop_formula(torch.ops.repro_torch.socket_score)
+def _flop_formula(bits, u, vnorm, out, num_tables, *args, out_shape=None,
+                  **kw) -> int:
+    return socket_score_flops(bits[0], bits[1], u[1], num_tables)
+
+
 def launch_socket_score(bits: torch.Tensor, u: torch.Tensor,
                         vnorm: Optional[torch.Tensor], *, num_tables: int,
                         num_planes: int, tau: float,
                         _lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on flat ``(BH, ...)`` CUDA tensors
-    (``_lib``: another build of the source, which counts no launch)."""
-    global LAUNCHES
+    """Launch the CUDA kernel on flat ``(BH, ...)`` CUDA tensors through
+    the operator (``_lib``: another build of the source, launched
+    directly, which counts no launch)."""
     bh, n, w = bits.shape
-    g = u.shape[1]
     l, p = num_tables, num_planes
     if bits.dtype == torch.int8:
         if w != l * p:
@@ -122,18 +185,11 @@ def launch_socket_score(bits: torch.Tensor, u: torch.Tensor,
     out = torch.empty((bh, n), dtype=torch.float32, device=dev)
     if n == 0 or bh == 0:
         return out
-    lib = _library() if _lib is None else _lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.socket_score_launch(
-            bits.data_ptr(), int(bits.dtype == torch.int8), u.data_ptr(),
-            vnorm.data_ptr() if vnorm is not None else None,
-            out.data_ptr(), bh, n, w, g, l, p, float(tau), stream)
-    if err != 0:
-        raise RuntimeError("socket_score kernel launch failed: " +
-                           lib.socket_score_error_string(err).decode())
-    if _lib is None:
-        LAUNCHES += 1
+    if _lib is not None:
+        _ctypes_launch(_lib, bits, u, vnorm, out, l, p, tau)
+    else:
+        (_cuda_op if build.dispatch_free(bits) else _OP)(
+            bits, u, vnorm, out, l, p, float(tau))
     return out
 
 
@@ -198,7 +254,7 @@ def socket_score(bits: torch.Tensor, u: torch.Tensor,
     if u.shape[-2:] != (num_tables, num_planes):
         raise ValueError(f"u shape {tuple(u.shape)} does not end in "
                          f"(L, P) = {(num_tables, num_planes)}")
-    if bits.is_cuda:
+    if bits.device.type != "cpu":
         out = launch_socket_score(bits, u, vnorm, num_tables=num_tables,
                                   num_planes=num_planes, tau=tau)
     else:

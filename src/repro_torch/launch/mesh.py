@@ -12,8 +12,9 @@ every rank in the same order (``new_group`` is collective).
 process group; :func:`default_mesh_factory` the Trainer's ``(n, 1)``
 mesh over a list of ranks, which after a loss may be a subset of the
 world (the ranks off the mesh still join its ``new_group`` calls).
-:func:`make_production_mesh` raises: the production mesh comes with the
-dry run.
+:func:`make_production_mesh` the 16 x 16 (or 2 x 16 x 16) mesh of the
+dry run, for one rank, its groups unbuilt: :meth:`Mesh.group` gives the
+collectives' dry-run route a stand-in group while that route is on.
 
 Ranks start with :func:`spawn_ranks` (``torch.multiprocessing.spawn``
 joined against a deadline) and each calls :func:`init_rank`.  The
@@ -33,6 +34,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed import collectives
 
 __all__ = ["Mesh", "default_mesh_factory", "make_test_mesh",
            "make_production_mesh",
@@ -122,6 +125,8 @@ class Mesh:
         the group is this rank alone."""
         if self.extent(axes) == 1:
             return None
+        if not self._built and collectives.dry_run_active():
+            return collectives.DryGroup(self, self._axes(axes))
         if not self._built:
             raise RuntimeError("Mesh.group: build_groups() has not run")
         return self._groups[frozenset(a for a in self._axes(axes)
@@ -178,10 +183,17 @@ def make_test_mesh(data: int = 2, model: int = 2) -> Mesh:
     return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the production mesh comes with the dry run (ROADMAP.md queue 1 "
-        "item 11: launch/dryrun.py and launch/mesh.py's production mesh)")
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The production mesh: 16 x 16 = 256 cards, ``("data", "model")``;
+    two pods, 2 x 16 x 16 = 512, ``("pod", "data", "model")``, the
+    ``pod`` axis the slow cross-pod data parallelism (JAX's shapes and
+    axes, its row-major rank order).  ``rank`` is the rank this process
+    plays.  Its groups are not built: the dry run (``launch/dryrun.py``)
+    runs one rank's step on the collectives' dry-run route, which needs
+    none."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(axes, shape, rank=rank)
 
 
 def collective_backend(world: int, device: str) -> str:

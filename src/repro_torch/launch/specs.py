@@ -1,17 +1,18 @@
 """Input shapes, the deployment numerics of a run, and the shardings of
 the parameters, the optimizer state and the batch on a mesh.
 
-Port of ``repro.launch.specs``: :class:`ShapeSpec`, ``SHAPES`` and
-:func:`dryrun_model_config`, field for field, and the Trainer's specs,
-:func:`scalar_sharding`, :func:`param_specs`, :func:`opt_specs` and
-:func:`batch_specs`.  Nothing here allocates: the stand-ins of JAX's
+Port of ``repro.launch.specs``, function for function: :class:`ShapeSpec`,
+``SHAPES``, :func:`dryrun_model_config`, :func:`arch_rules`,
+:func:`scalar_sharding`, :func:`param_specs`, :func:`opt_specs`,
+:func:`batch_specs`, :func:`decode_input_specs`, :func:`cache_specs` and
+:func:`input_specs`.  Nothing here allocates: the stand-ins of JAX's
 ``ShapeDtypeStruct`` are tensors on the ``meta`` device, built by the
-real init functions (``init_model_boxed`` and ``init_adamw``), so the
-specs of a full-size model cost nothing.  Trees are in the port's
-per-layer layout; a layer's specs are those of JAX's stacked group
-leaves without their leading ``groups`` entry.  ``arch_rules``,
-``decode_input_specs``, ``cache_specs`` and ``input_specs`` come with
-the dry run (ROADMAP.md queue 1 item 11).
+real init functions (``init_model_boxed``, ``init_adamw`` and
+``init_decode_caches``), so the specs of a full-size model cost
+nothing.  Trees are in the port's per-layer layout; a layer's specs are
+those of JAX's stacked group leaves without their leading ``groups``
+entry.  The SOCKET bit cache is ``int32`` (the port packs the ``uint32``
+bit pattern of JAX's words into it).
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ from repro_torch.models import param as pm
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.adamw import AdamWConfig, init_adamw, tree_map
 
-__all__ = ["ShapeSpec", "SHAPES", "dryrun_model_config", "scalar_sharding",
-           "param_specs", "opt_specs", "batch_specs"]
+__all__ = ["ShapeSpec", "SHAPES", "dryrun_model_config", "arch_rules",
+           "scalar_sharding", "param_specs", "opt_specs", "batch_specs",
+           "decode_input_specs", "cache_specs", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +67,31 @@ def dryrun_model_config(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
         attn_q_chunk=1024 if shape.seq_len > 4096 else 0,
         socket=sock,
     )
+
+
+def arch_rules(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Dict:
+    """Per-(arch, shape) overrides of the logical sharding rules (the JAX
+    function's): at long context the cache's sequence over ``data`` (and
+    ``model`` where the KV heads do not divide it) and batch-1
+    activations replicated; elsewhere, KV heads that ``model`` does not
+    divide put the cache's sequence on it instead; the 8-bit
+    optimizer-state flats' rules."""
+    rules: Dict = {}
+    model_size = mesh.shape.get("model", 1)
+    kv_div = cfg.num_kv_heads and cfg.num_kv_heads % model_size == 0
+    if shape.kind in ("decode", "prefill"):
+        if shape.long_context:
+            rules["cache_seq_cp"] = ("data", "model") if not kv_div \
+                else ("pod", "data")
+            rules["cache_heads"] = ("model",) if kv_div else None
+            rules["batch"] = None
+            rules["cache_batch"] = None
+        elif not kv_div and cfg.num_kv_heads:
+            rules["cache_seq"] = ("model",)
+            rules["cache_heads"] = None
+    rules["q8_flat"] = ("pod", "data", "model")
+    rules["q8_scale"] = ("data", "model")
+    return rules
 
 
 def scalar_sharding(mesh) -> NamedSharding:
@@ -157,3 +184,61 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, rules: Dict,
     sh = {k: shd.named_sharding(mesh, axes, dims, rules, log)
           for k, (dims, _, axes) in inputs.items()}
     return sds, sh
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                       rules: Dict, log: Optional[List[str]] = None):
+    """(inp, sharding) of a decode step's input: int32 token ids (B, 1),
+    or an embeddings-input model's bf16 (B, 1, d_model); rows over the
+    batch axes."""
+    b = shape.global_batch
+    if cfg.input_mode == "tokens":
+        dims, dt, axes = (b, 1), torch.int32, ("batch", None)
+    else:
+        dims, dt, axes = (b, 1, cfg.d_model), torch.bfloat16, \
+            ("batch", None, "embed")
+    return (torch.empty(dims, dtype=dt, device="meta"),
+            shd.named_sharding(mesh, axes, dims, rules, log))
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, rules: Dict,
+                log: Optional[List[str]] = None):
+    """(caches, shardings) of the decode caches: ``init_decode_caches``'
+    per-layer list of ``meta`` leaves (the global batch at the shape's
+    length) and each leaf's sharding from
+    :func:`~repro_torch.models.transformer.decode_cache_axes`."""
+    sds = tfm.init_decode_caches(cfg, shape.global_batch, shape.seq_len,
+                                 device="meta",
+                                 long_context=shape.long_context)
+    axes = tfm.decode_cache_axes(cfg, shape.long_context)
+    if len(sds) != len(axes) or any(set(c) != set(a)
+                                    for c, a in zip(sds, axes)):
+        raise ValueError("cache leaves and axes differ: "
+                         f"{[sorted(c) for c in sds]} vs "
+                         f"{[sorted(a) for a in axes]}")
+    return sds, _map2(lambda v, a: shd.named_sharding(
+        mesh, a, v.shape, rules, log), sds, axes)
+
+
+def input_specs(arch: str, shape_name: str = "train_4k"):
+    """Shape-only stand-ins (``meta`` tensors) for every model input of
+    one cell on the production 16 x 16 mesh: ``{"batch": ...}`` for a
+    train or prefill shape (no ``labels`` for prefill), else the
+    ``caches``, ``inp`` and ``pos`` of ``runtime.steps.make_serve_step``
+    (``pos`` a 0-d int32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+
+    shape = SHAPES[shape_name]
+    mesh = make_production_mesh()
+    cfg = dryrun_model_config(get_config(arch), shape)
+    rules = arch_rules(cfg, shape, mesh)
+    if shape.kind in ("train", "prefill"):
+        sds, _ = batch_specs(cfg, shape, mesh, rules)
+        if shape.kind == "prefill":
+            sds.pop("labels", None)
+        return {"batch": sds}
+    caches, _ = cache_specs(cfg, shape, mesh, rules)
+    inp, _ = decode_input_specs(cfg, shape, mesh, rules)
+    return {"caches": caches, "inp": inp,
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}

@@ -75,7 +75,7 @@ from repro_torch.models.layers import (apply_rope, init_rmsnorm, rmsnorm,
 
 __all__ = ["init_attention", "attention_train", "attention_prefill",
            "attention_prefill_chunk", "attention_decode",
-           "init_attention_cache"]
+           "init_attention_cache", "cache_logical_axes"]
 
 NEG_INF = -1e30
 
@@ -258,6 +258,19 @@ def init_attention_cache(cfg: ModelConfig, batch: int, capacity: int,
         batch, capacity = shard.batch_rows(batch), shard.rows(capacity)
     return backend.init_cache(cfg, batch, cfg.num_kv_heads, capacity, dtype,
                               device)
+
+
+def cache_logical_axes(cfg: ModelConfig, attn_type: str,
+                       long_context: bool = False) -> Dict:
+    """Logical axis names mirroring :func:`init_attention_cache` (the
+    JAX function's): local rings over ``cache_seq``; a global layer's
+    leaves over ``cache_seq_cp`` at long context, else ``cache_seq``."""
+    if _window(cfg, attn_type) is not None:
+        return {name: ("cache_batch", "cache_heads", "cache_seq") +
+                (None,) * len(s.suffix)
+                for name, s in backends.kv_leaf_specs(cfg).items()}
+    seq = "cache_seq_cp" if long_context else "cache_seq"
+    return backends.get_backend(cfg.attention_backend).cache_axes(cfg, seq)
 
 
 # ---------------------------------------------------------------- prefill

@@ -596,6 +596,12 @@ class DecodeBackend:
                     dtype=s.leaf_dtype(dtype), device=device)
                 for name, s in self.cache_spec(cfg).items()}
 
+    def cache_axes(self, cfg, seq_axis: str) -> Dict[str, Tuple]:
+        """Logical sharding axes mirroring :meth:`init_cache`."""
+        return {name: ("cache_batch", "cache_heads", seq_axis) +
+                (None,) * len(s.suffix)
+                for name, s in self.cache_spec(cfg).items()}
+
     def prefill_build(self, cfg, params, cache: Dict[str, torch.Tensor],
                       kc: torch.Tensor, vc: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:

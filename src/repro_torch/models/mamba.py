@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import param as pm
 
-__all__ = ["init_mamba", "mamba_train", "mamba_decode", "init_mamba_cache"]
+__all__ = ["init_mamba", "mamba_train", "mamba_decode", "init_mamba_cache",
+           "mamba_cache_logical_axes"]
 
 N_GROUPS = 1  # B/C shared across heads (mamba2 default n_groups=1)
 
@@ -269,6 +270,12 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=None,
         "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_dim),
                             dtype=dtype, device=device),
     }
+
+
+def mamba_cache_logical_axes() -> Dict:
+    """Logical axis names mirroring :func:`init_mamba_cache`."""
+    return {"ssm": ("cache_batch", "ssm_heads", None, None),
+            "conv": ("cache_batch", None, "conv")}
 
 
 def mamba_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,

@@ -131,7 +131,7 @@ def _dispatch_ffn(cfg: ModelConfig, params: Dict, x2d: torch.Tensor,
     sorted_token = flat_token[order]
     sorted_prob = flat_prob[order]
 
-    counts = torch.bincount(sorted_expert, minlength=e)
+    counts = _counts(sorted_expert, e)
     starts = torch.cumsum(counts, dim=0) - counts
     pos_in_expert = torch.arange(n * k, device=dev) - starts[sorted_expert]
     keep = pos_in_expert < capacity
@@ -166,6 +166,15 @@ def _capacity_for(cfg: ModelConfig, n: int, t: int) -> int:
         capacity = int(math.ceil(n * k / e * cfg.capacity_factor))
         capacity = max(capacity, 4)
     return min(capacity, n * k)
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in ``[0, n)``, at its
+    fixed size ``n`` (bincount's size depends on the data, which a
+    shape-only run, ``launch/dryrun.py``, cannot read)."""
+    ids = ids.long()
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
 
 
 def alltoall_applies(cfg: ModelConfig, mesh) -> bool:
@@ -247,7 +256,7 @@ def _sort_slots(ids: torch.Tensor, count: int, capacity: int):
     n = ids.numel()
     order = torch.argsort(ids, stable=True)
     inv = torch.argsort(order, stable=True)
-    counts = torch.bincount(ids, minlength=count)
+    counts = _counts(ids, count)
     starts = torch.cumsum(counts, dim=0) - counts
     pos = (torch.arange(n, device=ids.device) - starts[ids[order]])[inv]
     keep = pos < capacity
@@ -264,7 +273,7 @@ def _grouped_ffn(cfg: ModelConfig, wg, wu, wd, tokens2d: torch.Tensor,
     cdt, dev = tokens2d.dtype, tokens2d.device
     order = torch.argsort(expert_ids, stable=True)
     sorted_e = expert_ids[order]
-    counts = torch.bincount(sorted_e, minlength=e_count)
+    counts = _counts(sorted_e, e_count)
     starts = torch.cumsum(counts, dim=0) - counts
     pos = torch.arange(n, device=dev) - starts[sorted_e]
     keep = pos < capacity

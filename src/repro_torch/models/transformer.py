@@ -39,8 +39,10 @@ from repro_torch.models.layers import (apply_mlp, embed_tokens,
                                        init_embedding, init_mlp,
                                        init_rmsnorm, lm_head, rmsnorm)
 
-__all__ = ["init_model", "init_model_boxed", "param_axes", "forward_train", "loss_and_metrics",
-           "init_decode_caches", "prefill", "prefill_chunk", "decode_step"]
+__all__ = ["init_model", "init_model_boxed", "param_axes", "forward_train",
+           "loss_and_metrics", "init_decode_caches", "decode_cache_axes",
+           "prefill", "prefill_chunk", "decode_step",
+           "model_flops_per_token"]
 
 
 def _input_embed(cfg: ModelConfig, embed: Dict,
@@ -73,12 +75,12 @@ def _init_block(cfg: ModelConfig, gen: torch.Generator,
 
 
 def _mlp(cfg: ModelConfig, params: Dict, spec: LayerSpec,
-         x: torch.Tensor) -> torch.Tensor:
+         x: torch.Tensor, split=None) -> torch.Tensor:
     if spec.mlp == "dense":
         x = x + apply_mlp(cfg, params["mlp"], rmsnorm(params["norm_mlp"], x))
     elif spec.mlp == "moe":
         y, _ = moe_mod.apply_moe(cfg, params["moe"],
-                                 rmsnorm(params["norm_mlp"], x))
+                                 rmsnorm(params["norm_mlp"], x), split)
         x = x + y
     return x
 
@@ -105,7 +107,7 @@ def _block_train(cfg: ModelConfig, params: Dict, spec: LayerSpec,
 
 def _block_prefill(cfg: ModelConfig, params: Dict, spec: LayerSpec,
                    x: torch.Tensor, positions: torch.Tensor, capacity: int,
-                   last_index=None, paged: bool = False):
+                   last_index=None, paged: bool = False, split=None):
     h = rmsnorm(params["norm_mix"], x)
     if spec.kind == "attn":
         h, cache = attn.attention_prefill(cfg, params["attn"], h, positions,
@@ -114,7 +116,7 @@ def _block_prefill(cfg: ModelConfig, params: Dict, spec: LayerSpec,
     else:
         h, cache = mb.mamba_train(cfg, params["mamba"], h,
                                   return_state=True, last_index=last_index)
-    return _mlp(cfg, params, spec, x + h), cache
+    return _mlp(cfg, params, spec, x + h, split), cache
 
 
 def _block_prefill_chunk(cfg: ModelConfig, params: Dict, spec: LayerSpec,
@@ -146,7 +148,8 @@ def _block_prefill_chunk(cfg: ModelConfig, params: Dict, spec: LayerSpec,
 
 
 def _block_decode(cfg: ModelConfig, params: Dict, spec: LayerSpec,
-                  x: torch.Tensor, cache: Dict, pos, block_tables=None):
+                  x: torch.Tensor, cache: Dict, pos, block_tables=None,
+                  split=None):
     h = rmsnorm(params["norm_mix"], x)
     if spec.kind == "attn":
         h, cache = attn.attention_decode(cfg, params["attn"], h, cache, pos,
@@ -158,7 +161,7 @@ def _block_decode(cfg: ModelConfig, params: Dict, spec: LayerSpec,
         h, new = mb.mamba_decode(cfg, params["mamba"], h, cache)
         for name in ("ssm", "conv"):
             cache[name].copy_(new[name])
-    return _mlp(cfg, params, spec, x + h), cache
+    return _mlp(cfg, params, spec, x + h, split), cache
 
 
 # ------------------------------------------------------------------- model
@@ -338,14 +341,17 @@ def loss_and_metrics(cfg: ModelConfig, params: Dict, batch: Dict,
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
-                       device="cpu", pool=None) -> List[Dict]:
+                       device="cpu", pool=None, *,
+                       long_context: bool = False) -> List[Dict]:
     """One zero cache dict per layer, at ``capacity`` tokens.  ``pool`` (a
     ``ServingSettings``) switches to the paged-pool layout: local layers
     get full ``block_size``-row pages (the ring handler addresses them
     circularly; no window truncation) and Mamba layers one state row per
     decode slot (``pool.max_batch``) instead of one per block.  Under
     context-parallel decode each global layer's cache is this rank's
-    block (``distributed/context_parallel.py``)."""
+    block (``distributed/context_parallel.py``).  ``long_context`` is
+    the JAX argument: it changes no leaf, only the axes
+    (:func:`decode_cache_axes`) that place the caches."""
     cp.check_model(cfg)
     caches = []
     for spec in cfg.layer_specs:
@@ -363,7 +369,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int,
-            last_index=None, paged: bool = False):
+            last_index=None, paged: bool = False, gather=None, split=None,
+            cache_blocks=None):
     """Process the prompt ``batch["tokens"]`` (B, T), or ``batch["embeds"]``
     (B, T, d) for an embeddings-input model; returns (last-token logits
     (B, 1, V_padded), per-layer caches).
@@ -372,23 +379,34 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int,
     bucket-padded prompts (the continuous engine's legacy whole-prompt
     prefill): the logits are taken there, and sliding-window rings are
     built at it, not at the padding's end.  ``paged``: build the caches
-    in the pool's geometry (page-aligned local rings)."""
+    in the pool's geometry (page-aligned local rings).
+
+    The sharded step (``runtime/steps.py``): ``gather(path, subtree)``
+    gives each unit's weights whole from a rank's blocks (as in
+    :func:`forward_train`), ``split`` is the mesh whose batch axes split
+    ``batch``'s rows (the MoE layers' dispatch reads it), and
+    ``cache_blocks.cut(i, cache)`` keeps layer ``i``'s cache block
+    (``distributed/fsdp.py::CacheBlocks``)."""
     cp.check_model(cfg)
-    x = _input_embed(cfg, params["embed"], batch)
+    gather = gather or _whole
+    embed = gather("['embed']", params["embed"])
+    x = _input_embed(cfg, embed, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches = []
-    for spec, lp in zip(cfg.layer_specs, params["layers"]):
-        x, cache = _block_prefill(cfg, lp, spec, x, positions, capacity,
-                                  last_index, paged)
-        caches.append(cache)
+    for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
+        x, cache = _block_prefill(cfg, gather(f"['layers'][{i}]", lp), spec,
+                                  x, positions, capacity, last_index, paged,
+                                  split)
+        caches.append(cache if cache_blocks is None
+                      else cache_blocks.cut(i, cache))
     if last_index is None:
         x = x[:, -1:]
     else:
         li = torch.as_tensor(last_index, device=x.device).long()
         x = x[torch.arange(b, device=x.device), li][:, None]
-    x = rmsnorm(params["final_norm"], x)
-    return lm_head(cfg, params["embed"], x), caches
+    x = rmsnorm(gather("['final_norm']", params["final_norm"]), x)
+    return lm_head(cfg, embed, x), caches
 
 
 def prefill_chunk(cfg: ModelConfig, params: Dict, caches: List[Dict],
@@ -424,7 +442,8 @@ def prefill_chunk(cfg: ModelConfig, params: Dict, caches: List[Dict],
 
 
 def decode_step(cfg: ModelConfig, params: Dict, caches: List[Dict],
-                inputs: torch.Tensor, pos, block_tables=None):
+                inputs: torch.Tensor, pos, block_tables=None, gather=None,
+                split=None, cache_blocks=None):
     """One token for the whole stack.  inputs: (B, 1) token ids, or (B, 1,
     d) embeddings for an embeddings-input model; pos: int or a ``(B,)``
     tensor.
@@ -433,13 +452,65 @@ def decode_step(cfg: ModelConfig, params: Dict, caches: List[Dict],
     ids — when given, ``caches`` is the serving engine's page pool and
     attention layers read and write it through ``PagedView`` (global) or
     ``RingView`` (local).  The caches
-    are updated in place.  Returns (logits (B, 1, V_padded), caches)."""
+    are updated in place.  Returns (logits (B, 1, V_padded), caches).
+
+    The sharded step: ``gather`` and ``split`` as in :func:`prefill`;
+    ``cache_blocks.open(i, block)`` gives layer ``i``'s cache whole
+    over the axes it attends across, and ``cache_blocks.close(i, block,
+    whole)`` writes the step's rows back into the block."""
+    gather = gather or _whole
+    embed = gather("['embed']", params["embed"])
     if cfg.input_mode == "tokens":
-        x = embed_tokens(cfg, params["embed"], inputs)
+        x = embed_tokens(cfg, embed, inputs)
     else:
         x = inputs.to(getattr(torch, cfg.compute_dtype))
     for i, (spec, lp) in enumerate(zip(cfg.layer_specs, params["layers"])):
-        x, caches[i] = _block_decode(cfg, lp, spec, x, caches[i], pos,
-                                     block_tables)
-    x = rmsnorm(params["final_norm"], x)
-    return lm_head(cfg, params["embed"], x), caches
+        lp = gather(f"['layers'][{i}]", lp)
+        if cache_blocks is None:
+            x, caches[i] = _block_decode(cfg, lp, spec, x, caches[i], pos,
+                                         block_tables, split)
+            continue
+        whole = cache_blocks.open(i, caches[i])
+        x, whole = _block_decode(cfg, lp, spec, x, whole, pos, block_tables,
+                                 split)
+        caches[i] = cache_blocks.close(i, caches[i], whole)
+    x = rmsnorm(gather("['final_norm']", params["final_norm"]), x)
+    return lm_head(cfg, embed, x), caches
+
+
+def _block_cache_axes(cfg: ModelConfig, spec: LayerSpec,
+                      long_context: bool) -> Dict:
+    if spec.kind == "attn":
+        return attn.cache_logical_axes(cfg, spec.attn_type, long_context)
+    return mb.mamba_cache_logical_axes()
+
+
+def decode_cache_axes(cfg: ModelConfig, long_context: bool = False
+                      ) -> List[Dict]:
+    """Each layer's cache leaves' logical axes, in
+    :func:`init_decode_caches`' per-layer layout: JAX's stacked group
+    axes without their leading ``groups`` entry."""
+    return [_block_cache_axes(cfg, spec, long_context)
+            for spec in cfg.layer_specs]
+
+
+# ------------------------------------------------------------- accounting
+
+def model_flops_per_token(cfg: ModelConfig, seq_len: int,
+                          training: bool = True) -> float:
+    """The JAX package's MODEL_FLOPS: 6 (training) or 2 x the active
+    parameters, plus the attention products over each attention layer's
+    span (half the sequence, or the window), for the roofline's
+    useful-compute ratio."""
+    n_active = cfg.active_param_count()
+    mult = 6.0 if training else 2.0
+    flops = mult * n_active
+    attended = 0.0
+    for spec in cfg.layer_specs:
+        if spec.kind != "attn":
+            continue
+        span = seq_len / 2 if spec.attn_type == "global" else min(
+            cfg.sliding_window, seq_len / 2)
+        attended += span
+    flops += mult / 3 * 2 * 2 * cfg.num_heads * cfg.head_dim * attended * 3
+    return flops

@@ -21,6 +21,18 @@ and gradient norm are the global batch's, as one process computes
 them.  Without ``grad_shardings`` it runs on a one-rank mesh
 (``fsdp.one_rank_shardings``), where every block is the whole leaf and
 every collective the identity: one process's step is the same code.
+
+``make_prefill_step`` and ``make_serve_step`` take the same parameter
+shardings and the caches' (``launch/specs.py::cache_specs``), and are
+then one rank's step on the mesh, as JAX's ``pjit`` of them is the
+partitioned one: the rank holds its parameter blocks and gathers each
+unit's weights as it reaches it, takes its rows of the batch (the rows
+the caches' batch axes give it), holds its cache blocks
+(:class:`~repro_torch.distributed.fsdp.CacheBlocks`: gathered over the
+other split axes before a layer attends, or left split along a global
+SOCKET layer's context-parallel axes) and returns the whole batch's
+logits, gathered over the batch axes (JAX's replicated output).
+Without shardings each is the single-process step.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives, fsdp
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.adamw import (is_trainable_path, tree_leaves,
@@ -141,20 +154,64 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     return train_step
 
 
+def _sharded(cfg: ModelConfig, param_shardings, cache_shardings, rules):
+    """(config, gather, cache blocks, MoE split, the mesh context) of the
+    sharded prefill and serve steps (see the module docstring).  The step
+    takes this rank's rows itself, so the context-parallel route splits
+    no batch axis of its own: the config's ``decode_cp_batch_axes`` is
+    empty."""
+    cfg = cfg.replace(decode_cp_batch_axes=())
+    shardings = fsdp.flat_tree(param_shardings)
+    blocks = fsdp.CacheBlocks(cfg, cache_shardings)
+    mesh = blocks.mesh
+    split = mesh if blocks.rows_axes else None
+
+    def context():
+        return shd.activate_mesh(mesh, rules)
+
+    return cfg, fsdp.gatherer(shardings, cfg), blocks, split, context
+
+
+def _whole_rows(blocks, logits):
+    return collectives.all_gather(logits, blocks.mesh, blocks.rows_axes, 0)
+
+
 def make_prefill_step(cfg: ModelConfig, capacity: int,
-                      paged: bool = False) -> Callable:
+                      paged: bool = False, param_shardings=None,
+                      cache_shardings=None, rules=None) -> Callable:
     """(params, batch, last_index=None) -> (last-token logits, caches);
     ``batch`` holds ``tokens`` (B, T), or an embeddings-input model's
     ``embeds`` (B, T, d).  The continuous engine's legacy prefill pads prompts to a bucket and
     passes each prompt's last *real* position as ``last_index`` (see
     :func:`tfm.prefill`), which also pins sliding-window rings to the
     prompt's true end.  ``paged=True`` builds caches in pool geometry
-    (page-aligned rings)."""
+    (page-aligned rings).
+
+    ``param_shardings`` and ``cache_shardings`` (both or neither; the
+    mesh's ``rules``): one rank's step on the mesh (module docstring):
+    ``params`` its blocks, ``batch`` the global batch, the caches its
+    blocks, the logits the whole batch's."""
+    if param_shardings is None:
+        @torch.no_grad()
+        def prefill_step(params, batch, last_index=None):
+            return tfm.prefill(cfg, params, batch, capacity=capacity,
+                               last_index=last_index, paged=paged)
+        return prefill_step
+    cfg, gather, blocks, split, context = _sharded(
+        cfg, param_shardings, cache_shardings, rules)
+
     @torch.no_grad()
-    def prefill_step(params, batch, last_index=None):
-        return tfm.prefill(cfg, params, batch, capacity=capacity,
-                           last_index=last_index, paged=paged)
-    return prefill_step
+    def sharded_prefill_step(params, batch, last_index=None):
+        rows = {k: blocks.rows(v) for k, v in batch.items()}
+        if last_index is not None:
+            last_index = blocks.rows(torch.as_tensor(last_index))
+        with context():
+            logits, caches = tfm.prefill(
+                cfg, params, rows, capacity=capacity, last_index=last_index,
+                paged=paged, gather=gather, split=split,
+                cache_blocks=blocks)
+        return _whole_rows(blocks, logits), caches
+    return sharded_prefill_step
 
 
 def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
@@ -172,14 +229,34 @@ def make_chunk_prefill_step(cfg: ModelConfig) -> Callable:
     return chunk_step
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, param_shardings=None,
+                    cache_shardings=None, rules=None) -> Callable:
     """(params, caches, inp, pos[, block_tables]) -> (logits, caches); the
     caches are updated in place.  ``inp``: (B, 1) token ids, or (B, 1, d)
     embeddings for an embeddings-input model.  ``pos`` may be an int (static batch) or
     a ``(B,)`` tensor (ragged continuous batch); ``block_tables``
-    switches ``caches`` to the paged pool."""
+    switches ``caches`` to the paged pool.
+
+    ``param_shardings`` and ``cache_shardings`` (both or neither; the
+    mesh's ``rules``): one rank's step on the mesh over the static
+    caches (module docstring): ``params`` and ``caches`` its blocks,
+    ``inp`` the whole batch's, the logits the whole batch's."""
+    if param_shardings is None:
+        @torch.no_grad()
+        def serve_step(params, caches, inp, pos, block_tables=None):
+            return tfm.decode_step(cfg, params, caches, inp, pos,
+                                   block_tables=block_tables)
+        return serve_step
+    cfg, gather, blocks, split, context = _sharded(
+        cfg, param_shardings, cache_shardings, rules)
+
     @torch.no_grad()
-    def serve_step(params, caches, inp, pos, block_tables=None):
-        return tfm.decode_step(cfg, params, caches, inp, pos,
-                               block_tables=block_tables)
-    return serve_step
+    def sharded_serve_step(params, caches, inp, pos):
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            pos = blocks.rows(pos)
+        with context():
+            logits, caches = tfm.decode_step(
+                cfg, params, caches, blocks.rows(inp), pos, gather=gather,
+                split=split, cache_blocks=blocks)
+        return _whole_rows(blocks, logits), caches
+    return sharded_serve_step

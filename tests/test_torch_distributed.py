@@ -294,8 +294,12 @@ def test_default_rules_and_errors_match_jax():
         with pytest.raises(ValueError):
             shd.lsc(x, "batch")
     assert shd.current_mesh() is None and shd.fallback_log() == []
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmesh.make_production_mesh()
+    # the production mesh is built (the dry run's); its groups are not,
+    # and outside the collectives' dry-run route asking for one raises
+    prod = tmesh.make_production_mesh()
+    assert prod.shape == {"data": 16, "model": 16}
+    with pytest.raises(RuntimeError, match="build_groups"):
+        prod.group(("data",))
 
 
 # ---------------------------------------------------- the CP attend

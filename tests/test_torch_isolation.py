@@ -79,7 +79,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.baselines.pqcache",
                  "repro_torch.core.theory",
                  "repro_torch.configs.musicgen_medium",
-                 "repro_torch.configs.internvl2_26b"):
+                 "repro_torch.configs.internvl2_26b",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.roofline.analysis"):
         assert name in names, name
 
 

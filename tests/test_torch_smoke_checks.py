@@ -46,6 +46,12 @@ part inside the band pass and are counted), its cases (musicgen's
 kernel shapes, the static cases of the two embeddings models), and the
 whole phase rehearsed at smoke width on the CPU (the wrappers' plain
 versions, launches counted around them).
+
+Phase 13's gates (the dry run's rank 0 on the card): a count of a smoke
+decode step on fake tensors against the same step with one more
+operator call, a peak 20 % from the prediction, a step timed below its
+floor, a non-finite logit and a kernel launched once too often: each
+must fail, and the sound cases pass.
 """
 
 from __future__ import annotations
@@ -1891,3 +1897,78 @@ def test_prefill_socket_checks_hold_each_route_to_its_keys():
     bad["bits"] = hashing.pack_signs(signs)
     with pytest.raises(AssertionError, match="plain route's SOCKET bits"):
         cs.prefill_socket_checks(cfg, params, prompt, [cache(keys)], [bad])
+
+
+def _smoke_decode_counts(extra_call: bool):
+    """``count_step`` of llama31-8b's smoke config at ``decode_32k`` on
+    rank 0 of the 16 x 16 mesh, on fake tensors; with ``extra_call`` the
+    step calls ``flash_decode`` once more."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.launch import dryrun
+    plan = dryrun.plan_cell("llama31-8b", "decode_32k", smoke=True)
+    step = dryrun.make_step(plan)
+
+    def faulty(*args):
+        q = torch.zeros((4, 2, 16), device="meta")
+        kv = torch.zeros((4, 9, 16), device="meta")
+        fd.flash_decode(q, kv, kv, torch.ones((4, 9), dtype=torch.bool,
+                                              device="meta"), scale=0.25)
+        return step(*args)
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        args = dryrun.make_args(plan, "meta")
+        return dryrun.count_step(faulty if extra_call else step, args,
+                                 plan.chips)
+
+
+def test_dryrun_gates_catch_faults():
+    """Phase 13's gates: sound cases pass; a FLOP count off by one
+    operator call, a peak 20 % from the prediction, a step faster than
+    its floor allows, a NaN logit and an extra launch each fail."""
+    cs = _chip_smoke()
+    assert cs.DRYRUN_CELLS == (("llama31-8b", "base"), ("llama31-8b", "opt"),
+                               ("gemma-7b", "base"))
+    assert cs.DRYRUN_SHAPE == "decode_32k"
+    sound = _smoke_decode_counts(False)
+    cs.dryrun_count_gate("sound", sound, _smoke_decode_counts(False))
+    with pytest.raises(AssertionError, match="flops counted"):
+        cs.dryrun_count_gate("one call more", sound,
+                             _smoke_decode_counts(True))
+    moved = dict(sound, collective_bytes=dict(
+        sound["collective_bytes"], total=sound["collective_bytes"]["total"]
+        + 2))
+    with pytest.raises(AssertionError, match="collective_bytes counted"):
+        cs.dryrun_count_gate("bytes moved", sound, moved)
+
+    pred = 7.102
+    assert cs.dryrun_peak_gate("sound", 1.04 * pred * 2 ** 30, pred) < 0.05
+    for off in (1.2, 0.8):
+        with pytest.raises(AssertionError, match="from the dry run's"):
+            cs.dryrun_peak_gate("peak off", off * pred * 2 ** 30, pred)
+
+    floor = cs.dryrun_floor_ms(989e12 * 1e-3, 3.35e12 * 2e-3)
+    assert floor == pytest.approx(2.0)
+    assert cs.dryrun_floor_ms(989e12 * 3e-3, 1.0) == pytest.approx(3.0)
+    assert cs.dryrun_floor_gate("sound", [2.0, 40.0], floor) == \
+        pytest.approx(1.0)
+    with pytest.raises(AssertionError, match="its floor"):
+        cs.dryrun_floor_gate("too fast", [40.0, 1.8], floor)
+
+    cs.logits_finite_gate("sound", torch.zeros(2, 1, 8))
+    bad = torch.zeros(2, 1, 8)
+    bad[1, 0, 3] = float("nan")
+    with pytest.raises(AssertionError, match="non-finite"):
+        cs.logits_finite_gate("nan", bad)
+
+    launches = dict(socket_score=320, flash_decode=320, flash_prefill=0,
+                    paged_attention=0)
+    cs.dryrun_launch_gate("sound", launches, 32, 10, True)
+    cs.dryrun_launch_gate("cp", dict(launches, flash_decode=0), 32, 10,
+                          False)
+    for bad_launches, base in ((dict(launches, socket_score=321), True),
+                               (launches, False),
+                               (dict(launches, flash_prefill=1), True)):
+        with pytest.raises(AssertionError, match="launches"):
+            cs.dryrun_launch_gate("fault", bad_launches, 32, 10, base)

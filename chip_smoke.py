@@ -34,7 +34,11 @@ Phases, in order; the first failure raises and the script exits non-zero:
               every case of its ``cases.CARD_CASES`` (the static path's
               shape, B 1, stablelm hd 160, gemma-7b hd 256 / G 1, mixtral
               G 6, K < C, BH 256 / K 64, bf16 and f16 K/V, fully masked
-              rows, which must return exactly 0), each logged with its
+              rows, which must return exactly 0; its softmax partials
+              ``m``/``l``, the context-parallel ranks' merge input, within
+              ATTN_TOL of the plain version's, the output launched with
+              them bit-equal to the output without, and a fully masked
+              row's exactly (-1e30, 0)), each logged with its
               launch plan (``ops.flash_decode_plan``: C, clusters at once,
               shared memory, stages) and failing where the plan does not
               exercise its label; timed at the main shape with the host's
@@ -413,8 +417,29 @@ Phases, in order; the first failure raises and the script exits non-zero:
               merge, and 9a holds the kernel against its plain version);
               the distance to the non-CP route
               logged, not gated (a union of local top-ks differs from a
-              global top-k by design).  ``--only cp`` builds the kernels
-              and runs this phase alone.
+              global top-k by design).  9c, in 9b's spawn on its weights
+              and prompt: the ``dense``, ``hard_lsh`` and ``quest``
+              backends in turn (their CP routes: a global selection from
+              the ranks' gathered values, each rank attending the
+              selected rows it holds through ``flash_decode`` with its
+              softmax partials, the partials merged; dense by plain
+              partials), 8 greedy steps each at 32832 cache rows over 4
+              ranks of 8208 (whole Quest pages of 16): ``flash_decode``
+              launched layers x steps a rank for hard LSH and Quest and
+              not at all for dense, ``flash_prefill`` layers a rank, no
+              other kernel; the greedy tokens equal, and every step's
+              logits within LOGITS_ATOL, of one process holding the
+              whole cache on the global route (the route is meant to
+              equal it); layer 0's selection at every step equal to that
+              process's bit for bit (``cpb_selection_gate``); each
+              rank's Quest bounds after decode its block of that
+              process's (``cpb_bounds_gate``: bitwise, but within
+              CPB_BOUNDS_TOL on the pages the steps wrote past layer 0);
+              a rank's step ms and the share of its gathers and merges
+              in it (collectives timed) and the bytes it posted logged,
+              not gated.  ``--only cp`` builds the kernels and runs this
+              phase alone; ``--only cp-backends`` runs 9c alone (its own
+              spawn, no ``ok`` line).
 10. mesh-train — the sharded train step and the elastic Trainer over 4
               ranks (``distributed/fsdp.py``, ``launch/specs.py``'s
               shardings, ``runtime/train_loop.py``; ranks started as in
@@ -998,10 +1023,36 @@ def build_report(source, name):
     return counts, dict(registers=max(regs), spill_stores=max(spills))
 
 
+def flash_decode_partials_check(label, fd, q, kk, vv, mask, scale, out,
+                                kw):
+    """The kernel's softmax partials (``partials=True``, the
+    context-parallel ranks' merge input) against the plain version's on
+    one case, within ATTN_TOL: the output of that launch equal to ``out``
+    (the launch without them) bit for bit, and a fully masked row's m
+    exactly -1e30 and l exactly 0.  Returns the m and l errors."""
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    got, ml = fd.launch_flash_decode(q, kk, vv, mask, scale=scale,
+                                     partials=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, out):
+        raise AssertionError(f"flash_decode[{label}]: the output with the "
+                             "partials differs from the output without")
+    _, m, l = flash_decode_ref(q, kk, vv, mask, scale=scale, partials=True)
+    errs = (check_close(f"flash_decode[{label}] m", ml[..., 0], m, ATTN_TOL),
+            check_close(f"flash_decode[{label}] l", ml[..., 1], l, ATTN_TOL))
+    dead = kw.get("dead_row")
+    if dead is not None and not (bool((ml[dead, :, 0] == -1e30).all()) and
+                                 bool((ml[dead, :, 1] == 0).all())):
+        raise AssertionError(f"flash_decode[{label}]: a fully masked row's "
+                             f"partials {ml[dead].tolist()}, not (-1e30, 0)")
+    return errs
+
+
 def flash_decode_rows(dev, gen):
     """``flash_decode`` against its plain version on every case of
     ``cases.CARD_CASES`` (within ATTN_TOL; a fully masked row must return
-    exactly 0), each logged with its launch plan and failing where the
+    exactly 0; its softmax partials too, :func:`flash_decode_partials_check`),
+    each logged with its launch plan and failing where the
     plan does not exercise its label; the main case timed beside its
     bound, the plain version, SDPA with a bool mask and the host's
     microseconds a call."""
@@ -1020,10 +1071,13 @@ def flash_decode_rows(dev, gen):
                 out[kw["dead_row"]].abs().max().item() != 0.0:
             raise AssertionError(f"flash_decode[{label}]: a fully masked "
                                  "row must return 0")
+        ml_err = flash_decode_partials_check(label, fd, q, kk, vv, mask,
+                                             scale, out, kw)
         note = cases.plan_note(fd.flash_decode_plan(q, kk), label, **kw)
         log(f"flash_decode [{label}] BH={kw['bh']} K={kw['k']} G={kw['g']} "
             f"hd={kw['hd']} {str(kw['dtype'])[6:]}: max|err| {err:.3e} "
-            f"(rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); {note}")
+            f"(rtol {ATTN_TOL['rtol']}, atol {ATTN_TOL['atol']}); m/l "
+            f"max|err| {ml_err[0]:.3e} / {ml_err[1]:.3e}; {note}")
         if label == "main path" or label in CASE_ENTRIES:
             bh, k, g, hd = kw["bh"], kw["k"], kw["g"], kw["hd"]
             sets = [cases.card_case(gen, **kw)
@@ -4438,7 +4492,13 @@ CP_WARM, CP_TIMED = 2, 10
 # 32800 cache rows over 4 ranks of 8200 (the new tokens land on the last)
 CP_DEPTH = 4
 CP_PROMPT, CP_STEPS, CP_CAPACITY = 32768, 16, 32800
-CP_DEADLINE_S = 420
+CP_DEADLINE_S = 600
+# 9c: the dense, hard-LSH and Quest backends on 9b's ranks and weights,
+# the same prompt, 8 greedy steps each, 32832 cache rows over 4 ranks of
+# 8208 (whole Quest pages of 16 rows a rank; the new tokens land on the
+# last rank)
+CPB_BACKENDS = ("dense", "hard_lsh", "quest")
+CPB_STEPS, CPB_CAPACITY = 8, 32832
 
 
 def cp_socket_config(selection, **over):
@@ -4682,7 +4742,7 @@ def cp_attend_rank(rank, world, tmp, seed) -> None:
         del data, args, parts
     res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     torch.save(res, os.path.join(tmp, f"cp_attend_{rank}.pt"))
-    dist.destroy_process_group()
+    end_rank()
 
 
 def phase_cp_attend(dev, seed, card) -> dict:
@@ -4765,42 +4825,52 @@ def phase_cp_attend(dev, seed, card) -> dict:
     return entry
 
 
-def cp_model_config(cp_axes=("data",)):
-    """9b's model: llama31-8b at full width, CP_DEPTH layers, f32, its
-    SOCKET scores through ``socket_score``; ``cp_axes`` () for the
-    single-process route."""
+def cp_model_config(cp_axes=("data",), backend="socket"):
+    """9b's model (9c's with ``backend``): llama31-8b at full width,
+    CP_DEPTH layers, f32, its SOCKET scores through ``socket_score`` and
+    its selections attended through ``flash_decode``; ``cp_axes`` () for
+    the single-process (global) route."""
     from repro_torch.launch.serve import card_config
     cfg = card_config("llama31-8b").replace(
-        num_groups=CP_DEPTH, decode_cp_axes=cp_axes, decode_cp_batch_axes=())
+        num_groups=CP_DEPTH, decode_cp_axes=cp_axes, decode_cp_batch_axes=(),
+        attention_backend=backend)
     return cfg.replace(socket=dataclasses.replace(
         cfg.socket, use_score_kernel=True, use_flash_decode=True))
 
 
+def cp_run_shape(cfg):
+    """(decode steps, cache rows) of 9b's run (SOCKET) or a 9c run."""
+    if cfg.attention_backend == "socket":
+        return CP_STEPS, CP_CAPACITY
+    return CPB_STEPS, CPB_CAPACITY
+
+
 @torch.no_grad()
 def cp_prefill(cfg, params, prompt):
-    """``prefill`` at CP_CAPACITY; returns (logits, caches, seconds)."""
+    """``prefill`` at the run's capacity; returns (logits, caches,
+    seconds)."""
     from repro_torch.models import transformer as tfm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = tfm.prefill(cfg, params, {"tokens": prompt},
-                                 CP_CAPACITY)
+                                 cp_run_shape(cfg)[1])
     torch.cuda.synchronize()
     return logits, caches, time.perf_counter() - t0
 
 
 @torch.no_grad()
 def cp_drive(cfg, params, prompt, teacher=None, prefilled=None):
-    """``prefill`` (or ``prefilled``, :func:`cp_prefill`'s result) and
-    CP_STEPS greedy ``decode_step``s (``teacher``: step t feeds
+    """``prefill`` (or ``prefilled``, :func:`cp_prefill`'s result) and the
+    run's greedy ``decode_step``s (``teacher``: step t feeds
     ``teacher[:, t]`` instead of the last argmax); returns (tokens (1, 1 +
     steps), each step's last-position logits, prefill s, each step's
-    s)."""
+    s, the caches after the steps)."""
     from repro_torch.models import transformer as tfm
     logits, caches, prefill_s = prefilled or cp_prefill(cfg, params, prompt)
     toks, steps = [torch.argmax(logits[:, -1], dim=-1)[:, None]], \
         [logits[:, -1].float().cpu()]
     step_s = []
-    for t in range(CP_STEPS):
+    for t in range(cp_run_shape(cfg)[0]):
         t0 = time.perf_counter()
         inp = toks[-1] if teacher is None else teacher[:, t:t + 1]
         logits, caches = tfm.decode_step(cfg, params, caches, inp,
@@ -4808,7 +4878,7 @@ def cp_drive(cfg, params, prompt, teacher=None, prefilled=None):
         toks.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
         steps.append(logits[:, -1].float().cpu())     # waits for the step
         step_s.append(time.perf_counter() - t0)
-    return torch.cat(toks, dim=1).cpu(), steps, prefill_s, step_s
+    return torch.cat(toks, dim=1).cpu(), steps, prefill_s, step_s, caches
 
 
 def step_ms(step_s) -> str:
@@ -4825,10 +4895,79 @@ def cp_prompt(cfg, seed, dev):
                          device=dev)
 
 
-def cp_model_rank(rank, world, tmp, seed) -> None:
-    """9b on one rank: prefill and greedy decode under the mesh, its
-    launches counted from 0."""
+@contextlib.contextmanager
+def layer0_selections(layers):
+    """Records layer 0's selection ``(idx, mask)`` at every decode step
+    (the first of every ``layers`` calls) of the global top-k
+    (``core/socket.py::top_of_scores``: hard LSH) and of Quest's page
+    top-k (``baselines/quest.py::select_pages``), which the CP routes and
+    the global routes both call."""
+    from repro_torch.baselines import quest as qm
+    from repro_torch.core import socket as sk
+    got, calls = [], [0]
+
+    def spy(fn):
+        def wrapped(*args, **kw):
+            idx, mask = fn(*args, **kw)
+            if calls[0] % layers == 0:
+                got.append((idx.clone(), mask.clone()))
+            calls[0] += 1
+            return idx, mask
+        return wrapped
+    with mock.patch.object(sk, "top_of_scores", spy(sk.top_of_scores)), \
+            mock.patch.object(qm, "select_pages", spy(qm.select_pages)):
+        yield got
+
+
+def cp_rank_run(cfg, params, prompt, rank, world) -> dict:
+    """One run on a rank, 9b's (SOCKET) or a 9c backend's: the ranks
+    prefill in turn (four 32768-token prefills' activations at once do
+    not fit beside four ranks' weights on one card), then decode under
+    the mesh, the launches counted from 0.  A 9c run also keeps layer
+    0's selection at every step, Quest's bounds after the steps, and the
+    seconds and bytes of the steps' collectives (each collective
+    synchronised and timed: ``collectives.TIMING``)."""
     import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    dist.barrier()
+    reset_launches()
+    for r in range(world):
+        if r == rank:
+            prefilled = cp_prefill(cfg, params, prompt)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out = {}
+    if cfg.attention_backend == "socket":
+        toks, steps, prefill_s, step_s = cp_drive(
+            cfg, params, prompt, prefilled=prefilled)[:4]
+    else:
+        collectives.SECONDS.update(dict.fromkeys(collectives.SECONDS, 0.0))
+        posted = collectives.PEER_COPIED["bytes"]
+        collectives.TIMING["on"] = True
+        try:
+            with layer0_selections(cfg.num_layers) as sels:
+                toks, steps, prefill_s, step_s, caches = cp_drive(
+                    cfg, params, prompt, prefilled=prefilled)
+        finally:
+            collectives.TIMING["on"] = False
+        out.update(
+            selections=[(i.cpu(), m.cpu()) for i, m in sels],
+            bounds=[{k: c[k].cpu() for k in ("kmin", "kmax")}
+                    for c in caches] if "kmin" in caches[0] else None,
+            collective_s=dict(collectives.SECONDS),
+            posted_bytes=collectives.PEER_COPIED["bytes"] - posted)
+        del caches
+    launches = read_launches()
+    del prefilled
+    torch.cuda.empty_cache()
+    out.update(tokens=toks, logits=steps if rank == 0 else None,
+               launches=launches, prefill_s=prefill_s, step_s=step_s)
+    return out
+
+
+def cp_model_rank(rank, world, tmp, seed, runs) -> None:
+    """9b and 9c on one rank, one weight draw: a :func:`cp_rank_run` for
+    each of ``runs`` ("socket" is 9b's, a backend's name a 9c run)."""
     from repro_torch.distributed.sharding import activate_mesh
     from repro_torch.launch.mesh import init_rank, make_test_mesh
     from repro_torch.models import transformer as tfm
@@ -4838,25 +4977,14 @@ def cp_model_rank(rank, world, tmp, seed) -> None:
     cfg = cp_model_config()
     params = tfm.init_model(cfg, seed, dev)
     prompt = cp_prompt(cfg, seed, dev)
+    out = dict(backend=backend, device=str(dev))
     with activate_mesh(make_test_mesh(world, 1)):
-        dist.barrier()
-        reset_launches()
-        # the ranks prefill in turn: four 32768-token prefills' activations
-        # at once do not fit beside four ranks' weights on one card
-        for r in range(world):
-            if r == rank:
-                prefilled = cp_prefill(cfg, params, prompt)
-                torch.cuda.empty_cache()
-            dist.barrier()
-        toks, steps, prefill_s, step_s = cp_drive(cfg, params, prompt,
-                                                  prefilled=prefilled)
-        launches = read_launches()
-    torch.save(dict(tokens=toks, logits=steps if rank == 0 else None,
-                    launches=launches, prefill_s=prefill_s, step_s=step_s,
-                    backend=backend, device=str(dev),
-                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9),
-               os.path.join(tmp, f"cp_model_{rank}.pt"))
-    dist.destroy_process_group()
+        for run in runs:
+            out[run] = cp_rank_run(cp_model_config(backend=run), params,
+                                   prompt, rank, world)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.save(out, os.path.join(tmp, f"cp_model_{rank}.pt"))
+    end_rank()
 
 
 def cp_plain_attend(shards):
@@ -4872,11 +5000,12 @@ def cp_plain_attend(shards):
     return attend
 
 
-def cp_launch_gate(label, ranks, layers) -> dict:
+def cp_launch_gate(label, ranks, layers, want=None) -> dict:
     """9b's launches on the ranks: ``socket_score`` layers x steps a rank
     (ranks x layers x steps in all), ``flash_prefill`` layers a rank, no
-    other kernel."""
-    want = {"socket_score": layers * CP_STEPS, "flash_prefill": layers}
+    other kernel; or ``want``'s counts a rank and no other kernel."""
+    want = want or {"socket_score": layers * CP_STEPS,
+                    "flash_prefill": layers}
     for r, got in enumerate(ranks):
         counts = got["launches"]
         bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
@@ -4901,8 +5030,137 @@ def cp_logits_gate(label, toks, steps, ref_toks, ref_steps) -> float:
     return max(errs)
 
 
-def phase_cp_model(dev, seed, card) -> dict:
-    """Phase 9b (see the module docstring)."""
+def cpb_selection_gate(label, runs, ref_sels, steps) -> None:
+    """9c: every rank's layer-0 selection at each of ``steps`` steps
+    (indices and mask) equal to the global route's in one process, bit
+    for bit."""
+    if len(ref_sels) != steps:
+        raise AssertionError(f"{label}: the global route recorded "
+                             f"{len(ref_sels)} layer-0 selections, not "
+                             f"{steps}")
+    for r, got in enumerate(runs):
+        sels = got["selections"]
+        if len(sels) != steps:
+            raise AssertionError(f"{label}: rank {r} recorded {len(sels)} "
+                                 f"layer-0 selections, not {steps}")
+        for t, ((i, m), (ri, rm)) in enumerate(zip(sels, ref_sels)):
+            ri, rm = ri.cpu(), rm.cpu()
+            if not (torch.equal(i, ri) and torch.equal(m, rm)):
+                raise AssertionError(
+                    f"{label}: rank {r}'s layer-0 selection at step {t} "
+                    f"differs from one process's in "
+                    f"{int((i != ri).sum())} indices and "
+                    f"{int((m != rm).sum())} mask entries")
+
+
+# 9c: Quest's bounds after decode against one process's, on the pages the
+# steps wrote in layers past the first (their keys come from attention
+# outputs merged in another order than one process's softmax: f32
+# rounding); every other page, and every page of layer 0, bit for bit
+CPB_BOUNDS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def cpb_bounds_gate(label, runs, ref_caches, written) -> float:
+    """9c: each rank's Quest bounds after decode (``bounds``, a
+    ``{kmin, kmax}`` a layer) are its block of one process's
+    (``ref_caches``): bitwise but on the ``written`` global pages of
+    layers past the first, within CPB_BOUNDS_TOL there.  Returns the
+    largest difference on those pages."""
+    worst = 0.0
+    for r, got in enumerate(runs):
+        for layer, bounds in enumerate(got["bounds"]):
+            for name, leaf in bounds.items():
+                pages = leaf.shape[2]
+                ref = ref_caches[layer][name][:, :, r * pages:
+                                              (r + 1) * pages].cpu()
+                near = torch.zeros(pages, dtype=torch.bool)
+                if layer:
+                    for p in written:
+                        if r * pages <= p < (r + 1) * pages:
+                            near[p - r * pages] = True
+                if not torch.equal(leaf[:, :, ~near], ref[:, :, ~near]):
+                    raise AssertionError(
+                        f"{label}: rank {r}'s layer {layer} {name} differs "
+                        "from its block of one process's")
+                if near.any():
+                    a, b = leaf[:, :, near], ref[:, :, near]
+                    if not torch.allclose(a, b, **CPB_BOUNDS_TOL):
+                        raise AssertionError(
+                            f"{label}: rank {r}'s layer {layer} {name} on "
+                            "the pages the steps wrote: "
+                            f"{float((a - b).abs().max()):.3e} from one "
+                            f"process's (tolerance {CPB_BOUNDS_TOL})")
+                    worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def cpb_collective_note(runs) -> str:
+    """A rank's decode step ms and the share of its gathers and merges
+    in it (the steps' all_gather and all_reduce seconds, timed), and the
+    bytes each rank posted a step."""
+    parts = []
+    for r, got in enumerate(runs):
+        total = sum(got["step_s"])
+        cs = got["collective_s"]
+        parts.append(
+            f"rank {r}: step ms {step_ms(got['step_s'])}, gathers "
+            f"{cs['all_gather'] / total:.3f} and merges "
+            f"{cs['all_reduce'] / total:.3f} of the steps' "
+            f"{total * 1e3:.1f} ms, "
+            f"{got['posted_bytes'] / len(got['step_s']):.0f} B posted a "
+            "step")
+    return "; ".join(parts)
+
+
+def cp_backend_check(label, ranks, backend, params, prompt) -> dict:
+    """9c's gates for one backend (module docstring) against one process
+    holding the whole cache on the global route; the run's numbers."""
+    cfg = cp_model_config(backend=backend)
+    runs = [r[backend] for r in ranks]
+    want = {"flash_prefill": cfg.num_layers}
+    if backend != "dense":
+        want["flash_decode"] = cfg.num_layers * CPB_STEPS
+    launches = cp_launch_gate(label, runs, cfg.num_layers, want)
+    toks = runs[0]["tokens"]
+    for r, got in enumerate(runs):
+        if not torch.equal(got["tokens"], toks):
+            raise AssertionError(f"{label}: rank {r}'s tokens differ")
+    reset_launches()
+    with layer0_selections(cfg.num_layers) as ref_sels:
+        ref_toks, ref_steps, prefill_s, step_s, caches = cp_drive(
+            cp_model_config((), backend), params, prompt)
+    err = cp_logits_gate(label, toks, runs[0]["logits"], ref_toks,
+                         ref_steps)
+    entry = dict(launches=launches, logits_err=err,
+                 prefill_s=[g["prefill_s"] for g in runs],
+                 step_ms=[[x * 1e3 for x in g["step_s"]] for g in runs],
+                 collective_s=[g["collective_s"] for g in runs],
+                 posted_bytes=[g["posted_bytes"] for g in runs],
+                 global_step_ms=[x * 1e3 for x in step_s],
+                 global_launches=read_launches())
+    if backend != "dense":
+        cpb_selection_gate(label, runs, ref_sels, CPB_STEPS)
+    if backend == "quest":
+        ps = cfg.quest.page_size
+        written = {p // ps for p in range(CP_PROMPT, CP_PROMPT + CPB_STEPS)}
+        entry["bounds_err"] = cpb_bounds_gate(label, runs, caches, written)
+    del caches, ref_sels
+    log(f"  {label}: tokens {toks[0].tolist()}; launches {launches}; "
+        f"logits max |err| {err:.3e} to the global route (limit "
+        f"{LOGITS_ATOL}); layer-0 selections "
+        f"{'equal at every step' if backend != 'dense' else 'none (dense)'}"
+        + (f"; Quest bounds on the written pages {entry['bounds_err']:.3e}"
+           if backend == "quest" else "")
+        + f"; {cpb_collective_note(runs)}; one process on the global "
+        f"route: prefill {prefill_s:.2f} s, step ms {step_ms(step_s)}")
+    return entry
+
+
+def phase_cp_model(dev, seed, card, runs=("socket",) + CPB_BACKENDS
+                   ) -> dict:
+    """Phases 9b and 9c (see the module docstring): one spawn of the
+    ranks, a run each of ``runs``; returns 9b's entry (``socket``) and
+    9c's (``backends``, by name) where they ran."""
     import tempfile
     from repro_torch.distributed import context_parallel as cp
     from repro_torch.distributed.sharding import activate_mesh
@@ -4915,7 +5173,7 @@ def phase_cp_model(dev, seed, card) -> dict:
     log(f"{label}: {cfg.param_count() / 1e9:.3f} B params (f32) a rank, "
         f"depth cut to {CP_DEPTH} of 32 layers (4 ranks' replicated "
         "weights and prefills and the reference share one card), widths "
-        f"as published; {card}")
+        f"as published; runs {runs}; {card}")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
@@ -4924,7 +5182,7 @@ def phase_cp_model(dev, seed, card) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         card_memory("cp 9b before the ranks", dev)
-        spawn_ranks(cp_model_rank, CP_WORLD, (CP_WORLD, tmp, seed),
+        spawn_ranks(cp_model_rank, CP_WORLD, (CP_WORLD, tmp, seed, runs),
                     deadline_s=CP_DEADLINE_S)
         ranks = [torch.load(os.path.join(tmp, f"cp_model_{r}.pt"))
                  for r in range(CP_WORLD)]
@@ -4933,64 +5191,101 @@ def phase_cp_model(dev, seed, card) -> dict:
         f"{torch.cuda.device_count()} card(s), devices "
         f"{[r['device'] for r in ranks]}; peak GB "
         f"{[round(r['peak_gb'], 2) for r in ranks]}; prefill s "
-        f"{[round(r['prefill_s'], 2) for r in ranks]}; decode step ms "
-        f"{[step_ms(r['step_s']) for r in ranks]}")
-    launches = cp_launch_gate(label, ranks, cfg.num_layers)
-    toks = ranks[0]["tokens"]
-    for r, got in enumerate(ranks):
-        if not torch.equal(got["tokens"], toks):
-            raise AssertionError(f"{label}: rank {r}'s tokens differ")
+        + "; ".join(f"{run} {[round(r[run]['prefill_s'], 2) for r in ranks]}"
+                    for run in runs))
     params = tfm.init_model(cfg, seed, dev)
     prompt = cp_prompt(cfg, seed, dev)
-    # one process on a 1x1 mesh holds the whole cache; its CP attend is
-    # the plain version over CP_WORLD shards
-    attend = cp.context_parallel_socket_attend
-    cp.context_parallel_socket_attend = cp_plain_attend(CP_WORLD)
-    try:
-        with activate_mesh(Mesh(("data", "model"), (1, 1))):
-            ref_toks, ref_steps, _, _ = cp_drive(cfg, params, prompt)
-    finally:
-        cp.context_parallel_socket_attend = attend
-    err = cp_logits_gate(label, toks, ranks[0]["logits"], ref_toks,
-                         ref_steps)
-    # the single-process (non-CP) route fed the same tokens: a union of
-    # local top-ks differs from the global top-k by design, so logged
-    plain_toks, plain_steps, prefill_s, step_s = cp_drive(
-        cp_model_config(()), params, prompt, teacher=toks)
-    dist_plain = max(float((a - b).abs().max())
-                     for a, b in zip(ranks[0]["logits"], plain_steps))
-    agree = float((plain_toks == toks).float().mean())
-    log(f"  {label}: tokens {toks[0].tolist()}; launches {launches}; "
-        f"logits max |err| {err:.3e} to the plain single-process route "
-        f"(limit {LOGITS_ATOL}); to the non-CP route (teacher-forced) "
-        f"{dist_plain:.3e}, greedy agreement {agree:.3f}; one process "
-        f"without CP: prefill {prefill_s:.2f} s, step ms "
-        f"{step_ms(step_s)}")
+    out = {}
+    if "socket" in runs:
+        socket_runs = [r["socket"] for r in ranks]
+        log(f"  9b decode step ms "
+            f"{[step_ms(r['step_s']) for r in socket_runs]}")
+        launches = cp_launch_gate(label, socket_runs, cfg.num_layers)
+        toks = socket_runs[0]["tokens"]
+        for r, got in enumerate(socket_runs):
+            if not torch.equal(got["tokens"], toks):
+                raise AssertionError(f"{label}: rank {r}'s tokens differ")
+        # one process on a 1x1 mesh holds the whole cache; its CP attend
+        # is the plain version over CP_WORLD shards
+        attend = cp.context_parallel_socket_attend
+        cp.context_parallel_socket_attend = cp_plain_attend(CP_WORLD)
+        try:
+            with activate_mesh(Mesh(("data", "model"), (1, 1))):
+                ref_toks, ref_steps = cp_drive(cfg, params, prompt)[:2]
+        finally:
+            cp.context_parallel_socket_attend = attend
+        err = cp_logits_gate(label, toks, socket_runs[0]["logits"],
+                             ref_toks, ref_steps)
+        # the single-process (non-CP) route fed the same tokens: a union
+        # of local top-ks differs from the global top-k by design, so
+        # logged
+        plain_toks, plain_steps, prefill_s, step_s = cp_drive(
+            cp_model_config(()), params, prompt, teacher=toks)[:4]
+        dist_plain = max(float((a - b).abs().max()) for a, b in
+                         zip(socket_runs[0]["logits"], plain_steps))
+        agree = float((plain_toks == toks).float().mean())
+        log(f"  {label}: tokens {toks[0].tolist()}; launches {launches}; "
+            f"logits max |err| {err:.3e} to the plain single-process route "
+            f"(limit {LOGITS_ATOL}); to the non-CP route (teacher-forced) "
+            f"{dist_plain:.3e}, greedy agreement {agree:.3f}; one process "
+            f"without CP: prefill {prefill_s:.2f} s, step ms "
+            f"{step_ms(step_s)}")
+        out["socket"] = dict(
+            launches=launches, logits_err=err, dist_to_non_cp=dist_plain,
+            non_cp_agreement=agree,
+            prefill_s=[r["prefill_s"] for r in socket_runs],
+            step_ms=[[x * 1e3 for x in r["step_s"]] for r in socket_runs],
+            non_cp_step_ms=[x * 1e3 for x in step_s],
+            peak_gb=[r["peak_gb"] for r in ranks],
+            backend=ranks[0]["backend"])
+    backends = [run for run in runs if run != "socket"]
+    if backends:
+        out["backends"] = {}
+    for backend in backends:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["backends"][backend] = cp_backend_check(
+            f"cp 9c {backend} llama31-8b {cfg.num_layers} of 32 layers, "
+            f"prompt {CP_PROMPT}, {CPB_STEPS} steps, {CP_WORLD} ranks of "
+            f"{CPB_CAPACITY // CP_WORLD} rows", ranks, backend, params,
+            prompt)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, logits_err=err,
-                dist_to_non_cp=dist_plain, non_cp_agreement=agree,
-                prefill_s=[r["prefill_s"] for r in ranks],
-                step_ms=[[x * 1e3 for x in r["step_s"]] for r in ranks],
-                non_cp_step_ms=[x * 1e3 for x in step_s],
-                peak_gb=[r["peak_gb"] for r in ranks],
-                backend=ranks[0]["backend"])
+    return out
 
 
 def phase_cp(dev, seed, card) -> dict:
-    """Phase 9: 9a then 9b; returns the entries of the ``socket_score``
-    and ``flash_prefill`` rows."""
+    """Phase 9: 9a, then 9b and 9c in one spawn; returns the entries of
+    the ``socket_score``, ``flash_prefill`` and ``flash_decode`` rows."""
     t0 = time.perf_counter()
     attend = phase_cp_attend(dev, seed, card)
     log(f"cp 9a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     model = phase_cp_model(dev, seed, card)
-    log(f"cp 9b: {time.perf_counter() - t0:.1f} s")
-    return dict(socket_score=dict(attend, launches=model["launches"][
-                    "socket_score"], model=model),
-                flash_prefill=dict(launches=model["launches"][
-                    "flash_prefill"]))
+    log(f"cp 9b and 9c: {time.perf_counter() - t0:.1f} s")
+    return cp_entries(model, attend)
+
+
+def cp_entries(model, attend=None) -> dict:
+    """The kernel rows' entries of phase 9b's and 9c's runs (``model``,
+    :func:`phase_cp_model`'s) and 9a's (``attend``)."""
+    out = {}
+    if "socket" in model:
+        sock = model["socket"]
+        out["socket_score"] = dict(attend or {}, launches=sock["launches"][
+            "socket_score"], model=sock)
+        out["flash_prefill"] = dict(launches=sock["launches"][
+            "flash_prefill"])
+    backends = model.get("backends", {})
+    if backends:
+        out.setdefault("flash_prefill", {})["cp_backends"] = sum(
+            b["launches"]["flash_prefill"] for b in backends.values())
+        out["flash_decode"] = dict(
+            launches=sum(b["launches"].get("flash_decode", 0)
+                         for b in backends.values()),
+            backends=backends)
+    return out
 
 
 # ------------------------------------------------------------ phase 10
@@ -6580,8 +6875,8 @@ def cph_rank(rank, world, tmp, seed, arch, groups) -> None:
                 layout = cache_layout(cfg, prefilled[1])
                 torch.cuda.empty_cache()
             dist.barrier()
-        toks, steps, prefill_s, step_s = cp_drive(cfg, params, prompt,
-                                                  prefilled=prefilled)
+        toks, steps, prefill_s, step_s = cp_drive(
+            cfg, params, prompt, prefilled=prefilled)[:4]
         launches = read_launches()
     torch.save(dict(tokens=toks, logits=steps if rank == 0 else None,
                     launches=launches, prefill_s=prefill_s, step_s=step_s,
@@ -6660,6 +6955,7 @@ def phase_cp_hybrid(dev, seed, card) -> dict:
             f"(replicated), widths as published; {card}")
         gc.collect()
         torch.cuda.empty_cache()
+        card_memory(f"cp-hybrid 11c {arch} before the ranks", dev)
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             spawn_ranks(cph_rank, world, (world, tmp, seed, arch, groups),
@@ -6684,8 +6980,10 @@ def phase_cp_hybrid(dev, seed, card) -> dict:
             with activate_mesh(Mesh(("data", "model"), (1, 1))):
                 prefilled = cp_prefill(cfg, params, prompt)
                 ref_layout = cache_layout(cfg, prefilled[1])
-                ref_toks, ref_steps, _, _ = cp_drive(cfg, params, prompt,
-                                                     prefilled=prefilled)
+                # the caches after the steps are not kept: the next
+                # case's ranks need the card
+                ref_toks, ref_steps = cp_drive(cfg, params, prompt,
+                                               prefilled=prefilled)[:2]
                 del prefilled
         finally:
             cp.context_parallel_socket_attend = attend
@@ -7515,12 +7813,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only",
-                    choices=["state-moe", "bf16", "train", "cp", "mesh",
-                             "ep", "pipe", "cp-hybrid", "frontends",
-                             "dryrun"],
+                    choices=["state-moe", "bf16", "train", "cp",
+                             "cp-backends", "mesh", "ep", "pipe",
+                             "cp-hybrid", "frontends", "dryrun"],
                     default=None,
                     help="build the kernels and run this phase alone "
-                         "(5e, 5f, 8, 9, 10, 11a, 11b, 11c, 12 or 13); "
+                         "(5e, 5f, 8, 9, 9c, 10, 11a, 11b, 11c, 12 or 13); "
                          "prints neither the kernels line nor the ok line")
     args = ap.parse_args(argv)
 
@@ -7560,6 +7858,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(json.dumps({"cp": phase_cp(dev, args.seed, card)}))
         log(f"context-parallel phase: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.only == "cp-backends":
+        build_kernels()
+        t0 = time.perf_counter()
+        log(json.dumps({"cp-backends": cp_entries(phase_cp_model(
+            dev, args.seed, card, runs=CPB_BACKENDS))}))
+        log(f"context-parallel phase 9c: {time.perf_counter() - t0:.1f} s")
         return 0
     if args.only == "mesh":
         build_kernels()

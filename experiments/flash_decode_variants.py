@@ -112,12 +112,12 @@ _CLOCK = [
     ("  if (nranks == 1) {                      // the CTA's state is the output\n",
      "  CLK(3);\n"
      "  if (nranks == 1) {                      // the CTA's state is the output\n"),
-    ("      out[bh * g * hd + i] = fold.sacc[i] / fmaxf(fold.sl[i / hd], 1e-30f);\n"
+    ("        ml[(bh * g + gg) * 2 + 1] = fold.sl[gg];\n      }\n"
      "    return;\n",
-     "      out[bh * g * hd + i] = fold.sacc[i] / fmaxf(fold.sl[i / hd], 1e-30f);\n"
+     "        ml[(bh * g + gg) * 2 + 1] = fold.sl[gg];\n      }\n"
      "    CLK(4);\n    return;\n"),
-    ("  paged::merge_ranks(cluster, rank, nranks, fold, g, hd, out + bh * g * hd);\n}",
-     "  paged::merge_ranks(cluster, rank, nranks, fold, g, hd, out + bh * g * hd);\n"
+    ("                     ml == nullptr ? nullptr : ml + bh * g * 2);\n}",
+     "                     ml == nullptr ? nullptr : ml + bh * g * 2);\n"
      "  CLK(4);\n}"),
     ("const char* flash_decode_error_string(int code) {",
      "int flash_decode_phase_clock(unsigned long long* host, int n) {\n"
@@ -461,7 +461,7 @@ def build_all(only) -> list:
 def bind(lib_path: Path):
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_decode_launch.argtypes = [p, i, p, p, p, p] + [i] * 5 + \
+    lib.flash_decode_launch.argtypes = [p, i, p, p, p, p, p] + [i] * 5 + \
         [ctypes.c_float, p]
     lib.flash_decode_plan.argtypes = [i] * 5 + [p]
     lib.flash_decode_error_string.argtypes = [i]
@@ -476,7 +476,8 @@ def runner(lib, scale: float):
         out = torch.empty((bh, g, hd), device=q.device)
         err = lib.flash_decode_launch(
             q.data_ptr(), 0, k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), 0, bh, k.shape[1], g, hd, ctypes.c_float(scale),
+            out.data_ptr(), None, 0, bh, k.shape[1], g, hd,
+            ctypes.c_float(scale),
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(lib.flash_decode_error_string(err).decode())

@@ -29,7 +29,8 @@ import torch
 from repro_torch.core import socket as sk
 
 __all__ = ["QuestConfig", "QuestState", "build", "score_pages",
-           "token_scores", "page_budget", "select_tokens", "attend"]
+           "token_scores", "page_budget", "group_page_scores",
+           "select_pages", "select_tokens", "attend"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +96,13 @@ def page_budget(cfg: QuestConfig, n_pages: int, n: int) -> int:
 
 
 def group_page_scores(cfg: QuestConfig, state: QuestState, q: torch.Tensor,
-                      length) -> torch.Tensor:
+                      length, first_page: int = 0) -> torch.Tensor:
     """Effective page scores ``(B, KVH, n_pages)`` f32 of query ``q``
     ``(B, KVH, G, 1, hd)`` against stats ``(B, KVH, n_pages, hd)``: the
     bound summed over the group (float64, rounded once), sink and window
-    pages forced to FLT_MAX, pages at or past ``length`` -1e30."""
+    pages forced to FLT_MAX, pages at or past ``length`` -1e30.  The
+    stats' first page is global page ``first_page`` (a context-parallel
+    rank's block of the cache); each score reads its own page alone."""
     ps = cfg.page_size
     n_pages = state.kmin.shape[-2]
     state_g = QuestState(kmin=state.kmin[..., None, :, :],
@@ -108,7 +111,7 @@ def group_page_scores(cfg: QuestConfig, state: QuestState, q: torch.Tensor,
     scores = terms.double().sum(dim=(-1, 2)).float()  # (B,KVH,n_pages)
     dev = scores.device
     length = sk.per_batch(torch.as_tensor(length, device=dev), 3)
-    page_start = torch.arange(n_pages, device=dev) * ps
+    page_start = (first_page + torch.arange(n_pages, device=dev)) * ps
     valid = page_start < length
     forced = (page_start < cfg.sink_tokens) | (
         page_start >= length - cfg.window_tokens - ps)
@@ -129,11 +132,19 @@ def select_tokens(cfg: QuestConfig, state: QuestState, q: torch.Tensor, *,
     the lowest page first.  Returns (idx ``(B,KVH,k_pages*ps)`` int64,
     validity mask of the same shape).
     """
-    b, kvh = q.shape[:2]
-    ps = cfg.page_size
     if k_pages is None:
         k_pages = page_budget(cfg, state.kmin.shape[-2], n)
-    eff = group_page_scores(cfg, state, q, length)
+    return select_pages(cfg, group_page_scores(cfg, state, q, length),
+                        k_pages=k_pages, length=length, n=n)
+
+
+def select_pages(cfg: QuestConfig, eff: torch.Tensor, *, k_pages: int,
+                 length, n: int):
+    """:func:`select_tokens` from the effective page scores ``eff``
+    ``(B, KVH, n_pages)`` of :func:`group_page_scores`: the top
+    ``k_pages`` pages (a stable sort), expanded to token indices."""
+    b, kvh = eff.shape[:2]
+    ps = cfg.page_size
     top_pages = torch.sort(eff, dim=-1, descending=True,
                            stable=True).indices[..., :k_pages]
     offs = torch.arange(ps, device=eff.device)

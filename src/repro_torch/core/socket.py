@@ -48,6 +48,8 @@ __all__ = [
     "soft_scores_factorized",
     "per_batch",
     "value_aware_topk",
+    "value_aware_scores",
+    "top_of_scores",
     "sparse_attention_over_subset",
     "socket_attend",
 ]
@@ -233,20 +235,45 @@ def value_aware_topk(cfg: SocketConfig, scores: torch.Tensor,
 
     Returns (indices ``(..., k)`` int64, validity mask ``(..., k)`` bool).
     """
-    pos = torch.arange(n_total, device=scores.device)
+    eff = value_aware_scores(cfg, scores, vnorm, length=length,
+                             rows=n_total)
+    return top_of_scores(eff, k=k, budget=budget)
+
+
+def value_aware_scores(cfg: SocketConfig, scores: torch.Tensor,
+                       vnorm: torch.Tensor, *, length: Length, lo: int = 0,
+                       rows: Optional[int] = None) -> torch.Tensor:
+    """The f32 values :func:`value_aware_topk` ranks, for ``rows`` keys
+    (``scores``' last axis when None) whose first is global position
+    ``lo`` (a context-parallel rank's block of the cache): ``score *
+    ||v||``, sinks and the trailing window at ``FLT_MAX``, positions at
+    or past ``length`` at ``NEG_INF``.  Each value reads its own row
+    alone, so the blocks' values put together are the whole cache's bit
+    for bit."""
+    n = scores.shape[-1] if rows is None else rows
+    pos = lo + torch.arange(n, device=scores.device)
     length = per_batch(length, scores.ndim)
     valid = pos < length
     eff = scores.float() * vnorm.float()
     forced = (pos < cfg.sink_tokens) | (pos >= length - cfg.window_tokens)
     eff = torch.where(forced, FLT_MAX, eff)
-    eff = torch.where(valid, eff, NEG_INF)
+    return torch.where(valid, eff, NEG_INF)
+
+
+def top_of_scores(eff: torch.Tensor, *, k: int,
+                  budget: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` of :func:`value_aware_scores`' values along the last
+    axis (a stable sort: ties keep the lowest index first); a slot is
+    valid where its value is not masked and, under a ``(B,)`` ``budget``,
+    its rank is below the request's budget."""
     top_vals, top_idx = torch.sort(eff, dim=-1, descending=True, stable=True)
     top_vals, top_idx = top_vals[..., :k], top_idx[..., :k]
     mask = top_vals > NEG_INF / 2
     if budget is not None:
-        budget = per_batch(torch.as_tensor(budget, device=scores.device),
-                           scores.ndim)
-        mask = mask & (torch.arange(k, device=scores.device) < budget)
+        budget = per_batch(torch.as_tensor(budget, device=eff.device),
+                           eff.ndim)
+        mask = mask & (torch.arange(k, device=eff.device) < budget)
     return top_idx, mask
 
 

@@ -16,8 +16,11 @@ One route per backend and device:
   rank of the group keeps a mailbox on the card, opened in the others
   through CUDA IPC (:class:`_Mailboxes`); a rank copies its tensor into
   its mailbox and reads the others' after a barrier (a gloo barrier of
-  the group, and another before any mailbox is written again).  Each is
-  counted in :data:`PEER_COPIED`.  A reduction sums (or takes the
+  the group, and another before any mailbox is written again).  No rank
+  frees a buffer another may still map: a grown mailbox's old buffer
+  outlives every rank's view of it, and :func:`close_mailboxes` drops
+  every view before any buffer.  Each is counted in
+  :data:`PEER_COPIED`.  A reduction sums (or takes the
   largest) in the members' index order, so every rank reads the same
   bits.  Ranks of one gloo group on different devices are refused.
 
@@ -146,7 +149,22 @@ class _Mailboxes:
     """Each rank's byte buffer on the one card of a group, and every
     other rank's opened through CUDA IPC; grown (a collective over the
     group) when a tensor needs more, which every rank asks for at the
-    same call, the tensors of a group's collectives being of one size."""
+    same call, the tensors of a group's collectives being of one size.
+
+    Growing never frees or unmaps a buffer another rank may still hold:
+    each rank drops its views of the others' buffers, posts its new
+    buffer (a collective of the group: past it, every rank has dropped
+    its views), and only then frees its old one.  It posts one share of
+    the buffer a peer: torch keeps an unsigned reference count a share,
+    which its consumer counts down once, so one share opened by three
+    peers wraps below zero and the buffer stays in torch's limbo to the
+    process's end ("Producer process has been terminated before all
+    shared CUDA tensors released").  Releasing a view opens the
+    producer's reference-count file in ``/dev/shm`` by name; meeting the
+    producer's own close of that file, both processes can count it down
+    to zero, and the second unlink aborts ("could not unlink the shared
+    memory file").  ``experiments/mailbox_churn.py`` counts the aborts
+    and those warnings over many starts."""
 
     def __init__(self, group):
         self.group = group
@@ -158,22 +176,26 @@ class _Mailboxes:
         if nbytes <= self.nbytes:
             return
         from torch.multiprocessing.reductions import reduce_tensor
-        self.peers, self.own = [], None
+        self.peers = []                 # this rank's views of the others'
         torch.cuda.synchronize(device)
         own = torch.empty(nbytes, dtype=torch.uint8, device=device)
-        posted = [None] * dist.get_world_size(self.group)
+        me, world = dist.get_rank(self.group), dist.get_world_size(self.group)
+        # a share of its own for each peer: torch keeps one reference
+        # count a share, which the one process opening it counts down once
+        posted = [None] * world
         dist.all_gather_object(
             posted, (socket.gethostname(), own.device.index,
-                     reduce_tensor(own)), group=self.group)
-        me = dist.get_rank(self.group)
+                     [None if g == me else reduce_tensor(own)
+                      for g in range(world)]), group=self.group)
+        # every rank has dropped its views: the old buffer may go
+        self.own, self.nbytes = own, nbytes
         if len({p[:2] for p in posted}) != 1:
             raise RuntimeError(
                 "a gloo group of CUDA tensors on more than one device: "
                 f"{[p[:2] for p in posted]} (launch.mesh.init_rank puts "
                 "every gloo rank on cuda:0)")
-        self.peers = [own if g == me else fn(*args)
-                      for g, (_, _, (fn, args)) in enumerate(posted)]
-        self.own, self.nbytes = own, nbytes
+        self.peers = [own if g == me else shares[me][0](*shares[me][1])
+                      for g, (_, _, shares) in enumerate(posted)]
 
 
 _MAILBOXES: Dict[object, _Mailboxes] = {}
@@ -187,12 +209,26 @@ def _mailboxes(group) -> _Mailboxes:
 
 def close_mailboxes() -> None:
     """Drop this rank's mailboxes and its views of the others' (call on
-    every rank, then a barrier, before the processes end)."""
+    every rank of the world together, before the processes end): every
+    rank's views first, then, past a barrier, the buffers, released to
+    the card (``torch.cuda.ipc_collect``) before a second barrier, so no
+    rank frees a buffer another still maps, and none ends while another
+    frees."""
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
     for box in _MAILBOXES.values():
-        box.peers, box.own, box.nbytes = [], None, 0
-    _MAILBOXES.clear()
-    if torch.cuda.is_available():
+        box.peers = []
+    if cuda:
         torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.barrier()                  # every rank's views dropped
+    for box in _MAILBOXES.values():
+        box.own, box.nbytes = None, 0
+    _MAILBOXES.clear()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.ipc_collect()
+    if dist.is_initialized():
+        dist.barrier()                  # every rank's buffers freed
 
 
 def _post(t: torch.Tensor, group, write: bool = True) -> _Mailboxes:

@@ -1,6 +1,7 @@
-"""Context-parallel SOCKET decode: sequence-sharded KV + distributed merge.
+"""Context-parallel decode: sequence-sharded KV + distributed merge.
 
-Port of ``repro.distributed.context_parallel``.  For ``long_500k`` (batch
+Port of ``repro.distributed.context_parallel`` (the SOCKET route), and
+the routes of the other backends (below).  For ``long_500k`` (batch
 1, a 524288-token cache) the KV cache and the SOCKET side-cache shard
 their *sequence* axis over ranks, one process a rank, each holding only
 its rows ``[lo, lo + n_l)`` of every global layer's contiguous cache.  One
@@ -30,10 +31,36 @@ of CUDA tensors go card to card through the ranks' mailboxes
 (``distributed/collectives.py``'s :func:`comm_route`); NCCL moves them
 on the device.
 
-Hybrid models decode under the same mesh (:func:`check_model`): only
-their global SOCKET layers are sharded; local rings, Mamba states and
-MoE layers are computed whole on every rank, each rank running the
-whole prefill.
+**The other backends** (``dense``, ``hard_lsh``, ``quest``), where the
+JAX package hands the sharded arrays to XLA's partitioner, so their
+result is the global route's; each rank computes it from its block
+(:class:`Frame`, built by :func:`frame`):
+
+* ``hard_lsh``: a rank scores its rows (hard collision counts summed over
+  the group) and computes their value-aware values at global positions
+  (``core/socket.py::value_aware_scores``); the ``(B, KVH, N / shards)``
+  f32 blocks are gathered into ``(B, KVH, N)`` (:meth:`Frame.gather`)
+  and every rank runs the global route's stable sort and budget mask
+  (``top_of_scores``);
+* ``quest``: a rank scores its own pages at global page starts
+  (``baselines/quest.py::group_page_scores``), the page scores are
+  gathered and every rank runs the global page top-k and expansion
+  (``select_pages``);
+
+so the selection is the global route's bit for bit (each value reads
+its own row, and one sort runs on the same values), for a scalar or a
+ragged ``(B,)`` length and a per-request budget alike.  A rank then
+attends the selected rows it holds (:meth:`Frame.owned`: the rest
+masked) through ``flash_decode`` with its softmax partials where
+``use_flash_decode`` (else :func:`partials`), and the ranks' partials
+are merged (:meth:`Frame.merge`: :func:`merge_partials`).  ``dense``:
+:func:`partials` over a rank's valid rows, then the same merge.  Quest
+needs ``page_size`` to divide a rank's rows (:meth:`CacheShard.rows`
+raises otherwise); the JAX partitioner has no such limit.
+
+Hybrid models decode under the same mesh: only their global layers are
+sharded; local rings, Mamba states and MoE layers are computed whole on
+every rank, each rank running the whole prefill.
 
 :func:`context_parallel_socket_attend_ref` is the plain single-process
 version: the whole cache, the shards looped in order, the merge in closed
@@ -63,9 +90,9 @@ from repro_torch.distributed.collectives import comm_route
 __all__ = ["context_parallel_socket_attend",
            "context_parallel_socket_attend_ref", "merge_partials",
            "merge_partials_ref", "local_scores", "local_select",
-           "local_partials", "local_budget", "shard_lo", "comm_route",
-           "cp_mesh", "check_model", "CacheShard", "cache_shard",
-           "gather_cache", "MASKED_LOGIT", "L_FLOOR"]
+           "local_partials", "partials", "local_budget", "shard_lo",
+           "comm_route", "cp_mesh", "Frame", "frame", "CacheShard",
+           "cache_shard", "gather_cache", "MASKED_LOGIT", "L_FLOOR"]
 
 MASKED_LOGIT = -1e30     # a masked logit (JAX's constant), never -inf
 L_FLOOR = 1e-30          # the softmax normalizer's floor
@@ -150,16 +177,9 @@ def local_select(cfg: sk.SocketConfig, scores: torch.Tensor,
     if k_budget > n_loc:
         raise ValueError(f"k_local {k_budget} exceeds the shard's {n_loc} "
                          "rows (top_k needs k <= the shard's rows)")
-    gpos = lo + torch.arange(n_loc, device=scores.device)
-    glen = int(global_length)
-    valid = gpos < glen
-    forced = (gpos < cfg.sink_tokens) | (gpos >= glen - cfg.window_tokens)
-    eff = scores.float() * vnorm.float()
-    eff = torch.where(forced, sk.FLT_MAX, eff)
-    eff = torch.where(valid, eff, sk.NEG_INF)
-    idx = torch.sort(eff, dim=-1, descending=True, stable=True).indices
-    idx = idx[..., :k_budget]
-    return idx, valid[idx]
+    eff = sk.value_aware_scores(cfg, scores, vnorm,
+                                length=int(global_length), lo=lo)
+    return sk.top_of_scores(eff, k=k_budget)
 
 
 def local_partials(q: torch.Tensor, k_loc: torch.Tensor,
@@ -169,9 +189,16 @@ def local_partials(q: torch.Tensor, k_loc: torch.Tensor,
     k/v (B,KVH,Nl,hd), idx/sel_mask (B,KVH,K).  Returns (m, l, o):
     (B,KVH,G,1,1), (B,KVH,G,1,1), (B,KVH,G,1,hd) float32."""
     rows = idx[..., None].expand(*idx.shape, k_loc.shape[-1])
-    k_sel = torch.gather(k_loc, 2, rows)
-    v_sel = torch.gather(v_loc, 2, rows)
-    keep = sel_mask[:, :, None, None, :]
+    return partials(q, torch.gather(k_loc, 2, rows),
+                    torch.gather(v_loc, 2, rows), sel_mask, scale)
+
+
+def partials(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
+             keep: torch.Tensor, scale: float):
+    """Plain partial attention of q (B,KVH,G,1,hd) over rows k/v
+    (B,KVH,K,hd), those where ``keep`` (B|1, KVH|1, K) holds.  Returns
+    (m, l, o) as :func:`local_partials`."""
+    keep = keep[:, :, None, None, :]
     logits = torch.einsum("bhgtd,bhkd->bhgtk", q.float(),
                           k_sel.float()) * scale
     logits = torch.where(keep, logits, MASKED_LOGIT)
@@ -280,24 +307,67 @@ def cp_mesh(cfg):
     return mesh
 
 
-def check_model(cfg) -> None:
-    """Context-parallel decode serves the SOCKET backend (the JAX
-    package's CP route, ``backends/socket.py``): under an active CP mesh
-    global layers of any other backend raise.  Every layout of it is served: global
-    layers hold their block of the cache, local layers their whole ring
-    and Mamba layers their whole state on every rank, and MoE layers
-    decode by global dispatch, replicated (what one process computes,
-    which is what XLA's partitioner gives JAX for those layers)."""
-    if cp_mesh(cfg) is None:
-        return
-    if cfg.attention_backend != "socket" and any(
-            s.kind == "attn" and s.attn_type == "global"
-            for s in cfg.layer_specs):
-        raise NotImplementedError(
-            "context-parallel decode serves the 'socket' backend; "
-            f"{cfg.name}'s {cfg.attention_backend!r} layers under a "
-            "context-parallel mesh come with ROADMAP.md queue 1 item 11's "
-            "'CP decode of the other backends'")
+@dataclasses.dataclass(frozen=True)
+class Frame:
+    """One global layer's decode step on this rank under a CP mesh: the
+    mesh, its CP and batch axes, and this rank's block of the cache,
+    ``n_l`` rows (global rows ``[lo, lo + n_l)`` of ``n``) of ``b_l``
+    batch rows (``[b_lo, b_lo + b_l)`` of the whole batch)."""
+
+    mesh: object
+    seq_axes: Tuple[str, ...]
+    batch_axes: Tuple[str, ...]
+    n_l: int
+    b_l: int
+
+    @property
+    def n(self) -> int:
+        return self.n_l * self.mesh.extent(self.seq_axes)
+
+    @property
+    def lo(self) -> int:
+        return shard_lo(self.mesh, self.seq_axes, self.n_l)
+
+    def local(self, x):
+        """This rank's batch rows of a whole-batch tensor (the query, a
+        ``(B,)`` length); a scalar passes through."""
+        if isinstance(x, torch.Tensor) and x.ndim:
+            b_lo = self.mesh.index(self.batch_axes) * self.b_l
+            return x[b_lo:b_lo + self.b_l]
+        return x
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``(B_l, KVH, ·)`` blocks of per-row (or per-page)
+        values put together along the last axis in rank order (one
+        ``all_gather`` over the CP axes), bit for bit."""
+        return _all_gather(block, self.mesh, self.seq_axes, block.ndim - 1)
+
+    def owned(self, idx: torch.Tensor, sel_mask: torch.Tensor):
+        """The selection's global rows ``idx`` that this rank holds: (their
+        local rows, 0 where it does not hold them; the mask of those it
+        holds and the selection keeps)."""
+        loc = idx - self.lo
+        own = sel_mask & (loc >= 0) & (loc < self.n_l)
+        return torch.where(own, loc, 0), own
+
+    def merge(self, m, l, o, dtype) -> torch.Tensor:
+        """The ranks' partials merged (:func:`merge_partials`), then the
+        whole batch gathered over the batch axes."""
+        out = merge_partials(m, l, o, self.mesh.group(self.seq_axes))
+        return _all_gather(out.to(dtype), self.mesh, self.batch_axes, 0)
+
+
+def frame(cfg, view) -> Optional[Frame]:
+    """This rank's :class:`Frame` for a global layer's contiguous
+    ``view`` (a ``ContiguousView`` of its block) under an active mesh
+    whose axes ``cfg.decode_cp_axes`` names; else None."""
+    mesh = cp_mesh(cfg)
+    if mesh is None:
+        return None
+    seq, batch = _axes_of(mesh, cfg.decode_cp_axes,
+                          cfg.decode_cp_batch_axes)
+    k = view.arrays["k"]
+    return Frame(mesh, seq, batch, k.shape[2], k.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,11 +381,20 @@ class CacheShard:
     batch_shards: int = 1
     batch_index: int = 0
 
-    def rows(self, capacity: int) -> int:
+    def rows(self, capacity: int, page: int = 1) -> int:
+        """A rank's cache rows; raises unless they are whole pages of
+        ``page`` rows (Quest's ``page_size``: a page's bounds on one
+        rank)."""
         if capacity % self.seq_shards:
             raise ValueError(f"capacity {capacity} does not split into "
                              f"{self.seq_shards} context-parallel shards")
-        return capacity // self.seq_shards
+        rows = capacity // self.seq_shards
+        if rows % page:
+            raise ValueError(f"quest page_size {page} does not divide a "
+                             f"rank's {rows} cache rows (capacity "
+                             f"{capacity} over {self.seq_shards} "
+                             "context-parallel shards)")
+        return rows
 
     def batch_rows(self, batch: int) -> int:
         if batch % self.batch_shards:
@@ -338,7 +417,6 @@ def cache_shard(cfg) -> Optional[CacheShard]:
     mesh = cp_mesh(cfg)
     if mesh is None:
         return None
-    check_model(cfg)
     seq, batch = _axes_of(mesh, cfg.decode_cp_axes,
                           cfg.decode_cp_batch_axes)
     return CacheShard(mesh.extent(seq), mesh.index(seq),

@@ -7,7 +7,10 @@
 // top-k, sink and window selection), with a validity mask.  Per row
 // s = q.k * scale, a masked row's logit -1e30 and its p 0, an fp32 online
 // softmax (m, l, acc), and the output acc / max(l, 1e-30): a row whose
-// mask is all false returns 0.
+// mask is all false returns 0.  Where the caller asks for them, the same
+// epilogue also writes each query head's softmax partials, the row max m
+// and the normalizer l (a row with no kept entry: m -1e30, l 0), which a
+// context-parallel rank merges with the other ranks' partials.
 //
 // What bounds it on this card: bytes.  The function must read each kept K
 // and V row once (2 * hd * 4 bytes in f32), q, the mask and the output: at
@@ -54,7 +57,8 @@
 //
 // Layouts (all contiguous): q (BH, G, hd) f32, bf16 or f16 (q_type); k, v
 // (BH, K, hd) of one type, f32, bf16 or f16 (kv_type); mask (BH, K) bytes,
-// nonzero where the row is kept; out f32 (BH, G, hd).  hd <= 256, G <= 32.
+// nonzero where the row is kept; out f32 (BH, G, hd); ml f32 (BH, G, 2),
+// (m, l) a head, or null.  hd <= 256, G <= 32.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -189,7 +193,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_kernel(const void* __restrict__ q, int q_type,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const unsigned char* __restrict__ mask,
-                    float* __restrict__ out, int nbh, int kk, int g, int hd,
+                    float* __restrict__ out, float* __restrict__ ml,
+                    int nbh, int kk, int g, int hd,
                     float scale, Geom geo) {
   extern __shared__ __align__(128) unsigned char smem[];
   // the grid's rows of clusters: bh = blockIdx.z * gridDim.y + blockIdx.y
@@ -427,9 +432,15 @@ flash_decode_kernel(const void* __restrict__ q, int q_type,
     __syncthreads();
     for (int i = tid; i < g * hd; i += kThreads)
       out[bh * g * hd + i] = fold.sacc[i] / fmaxf(fold.sl[i / hd], 1e-30f);
+    if (ml != nullptr)
+      for (int gg = tid; gg < g; gg += kThreads) {
+        ml[(bh * g + gg) * 2] = fold.sm[gg];
+        ml[(bh * g + gg) * 2 + 1] = fold.sl[gg];
+      }
     return;
   }
-  paged::merge_ranks(cluster, rank, nranks, fold, g, hd, out + bh * g * hd);
+  paged::merge_ranks(cluster, rank, nranks, fold, g, hd, out + bh * g * hd,
+                     ml == nullptr ? nullptr : ml + bh * g * 2);
 }
 
 // Query heads a unit holds: 2 where there are two or more (each staged
@@ -560,13 +571,14 @@ inline int elem_size(int type) { return type == kF32 ? 4 : 2; }
 
 extern "C" {
 
-// Pointers as in the layouts above; q of the type q_type names, k and v
-// of the type kv_type names (0 f32, 1 bf16, 2 f16).  Returns the launch's
+// Pointers as in the layouts above (ml may be null); q of the type q_type
+// names, k and v of the type kv_type names (0 f32, 1 bf16, 2 f16).
+// Returns the launch's
 // cudaError_t (cudaErrorInvalidValue for an unknown type), or a negative
 // code that flash_decode_error_string explains.
 int flash_decode_launch(const void* q, int q_type, const void* k,
                         const void* v, const unsigned char* mask, float* out,
-                        int kv_type, int nbh, int kk, int g, int hd,
+                        float* ml, int kv_type, int nbh, int kk, int g, int hd,
                         float scale, void* stream) {
   if (nbh == 0) return 0;
   if (q_type < kF32 || q_type > kF16)
@@ -583,8 +595,8 @@ int flash_decode_launch(const void* q, int q_type, const void* k,
     kernel = kernel_of<T>(heads_a_unit(g));
     return 0;
   });
-  void* args[] = {&q, &q_type, &k, &v, &mask, &out, &nbh, &kk, &g, &hd,
-                  &scale, &pl.geo};
+  void* args[] = {&q, &q_type, &k, &v, &mask, &out, &ml, &nbh, &kk, &g,
+                  &hd, &scale, &pl.geo};
   const cudaError_t err = cudaLaunchKernelExC(&pl.launch.cfg, kernel, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

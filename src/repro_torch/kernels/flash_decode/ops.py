@@ -12,6 +12,12 @@ the dry run) only checks shapes; its FLOP
 formula (:func:`flash_decode_flops`) counts the bound's operations with
 every row of the mask kept.  :func:`flash_decode_plan` reports the shape a
 launch takes (C, clusters at once, shared memory, stages).
+
+``partials=True`` also returns the kernel's softmax partials, each query
+head's row max ``m`` and normalizer ``l`` (f32; a head with no kept row
+gives m -1e30 and l 0), written by the same launch's epilogue into an
+``(BH, G, 2)`` tensor: what a context-parallel rank merges with the
+other ranks' (``distributed/context_parallel.py::merge_partials``).
 """
 
 from __future__ import annotations
@@ -43,8 +49,8 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load_library(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode_launch.argtypes = [p, i, p, p, p, p] + [i] * 5 + \
-            [ctypes.c_float, p]
+        lib.flash_decode_launch.argtypes = [p, i, p, p, p, p, p] + \
+            [i] * 5 + [ctypes.c_float, p]
         lib.flash_decode_launch.restype = i
         lib.flash_decode_plan.argtypes = [i] * 5 + [p]
         lib.flash_decode_plan.restype = i
@@ -79,15 +85,17 @@ def flash_decode_plan(q: torch.Tensor, k: torch.Tensor) -> dict:
                      "units", "row_stride"), info))
 
 
-def _ctypes_launch(q, k, v, mask, out, scale) -> None:
-    """One launch of the kernel into ``out`` (the C call)."""
+def _ctypes_launch(q, k, v, mask, out, scale, ml=None) -> None:
+    """One launch of the kernel into ``out`` (and ``ml`` where given: the
+    C call)."""
     bh, g, hd = q.shape
     lib = _library()
     dev = q.device
     with torch.cuda.device(dev):
         err = lib.flash_decode_launch(
             q.data_ptr(), _TYPES[q.dtype], k.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), _TYPES[k.dtype], bh,
+            mask.data_ptr(), out.data_ptr(),
+            None if ml is None else ml.data_ptr(), _TYPES[k.dtype], bh,
             k.shape[1], g, hd, float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -95,15 +103,15 @@ def _ctypes_launch(q, k, v, mask, out, scale) -> None:
                            lib.flash_decode_error_string(err).decode())
 
 
-def _cuda_op(q, k, v, mask, out, scale) -> None:
+def _cuda_op(q, k, v, mask, out, scale, ml=None) -> None:
     """``repro_torch::flash_decode`` on CUDA tensors: build (on first
     use), launch, count the launch."""
     global LAUNCHES
-    _ctypes_launch(q, k, v, mask, out, scale)
+    _ctypes_launch(q, k, v, mask, out, scale, ml)
     LAUNCHES += 1
 
 
-def _fake_op(q, k, v, mask, out, scale) -> None:
+def _fake_op(q, k, v, mask, out, scale, ml=None) -> None:
     if out.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} != q {tuple(q.shape)}")
 
@@ -116,7 +124,7 @@ def flash_decode_flops(bh: int, k: int, g: int, hd: int) -> int:
 
 _OPS = torch.library.Library("repro_torch", "FRAGMENT")
 _OPS.define("flash_decode(Tensor q, Tensor k, Tensor v, Tensor mask, "
-            "Tensor(a!) out, float scale) -> ()")
+            "Tensor(a!) out, float scale, Tensor(b!)? ml=None) -> ()")
 _OPS.impl("flash_decode", _cuda_op, "CUDA")
 torch.library.register_fake("repro_torch::flash_decode", _fake_op, lib=_OPS)
 
@@ -131,10 +139,12 @@ def _flop_formula(q, k, *args, out_shape=None, **kw) -> int:
 
 
 def launch_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        mask: torch.Tensor, *, scale: float) -> torch.Tensor:
+                        mask: torch.Tensor, *, scale: float,
+                        partials: bool = False):
     """Launch the CUDA kernel through the operator on flat CUDA tensors:
     q (BH, G, hd); k/v (BH, K, hd) of one dtype; mask (BH, K) bool -> f32
-    (BH, G, hd)."""
+    (BH, G, hd), or with ``partials`` (that, ml f32 (BH, G, 2): each
+    head's (m, l))."""
     bh, g, hd = q.shape
     kk = k.shape[1]
     if k.shape != (bh, kk, hd) or v.shape != k.shape:
@@ -161,20 +171,24 @@ def launch_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, mask = q.contiguous(), k.contiguous(), v.contiguous(), \
         mask.contiguous()
     out = torch.empty((bh, g, hd), dtype=torch.float32, device=q.device)
-    if bh == 0:
-        return out
-    (_cuda_op if build.dispatch_free(q) else _OP)(q, k, v, mask, out,
-                                                  float(scale))
-    return out
+    ml = torch.empty((bh, g, 2), dtype=torch.float32, device=q.device) \
+        if partials else None
+    if bh:
+        (_cuda_op if build.dispatch_free(q) else _OP)(q, k, v, mask, out,
+                                                      float(scale), ml)
+    return (out, ml) if partials else out
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 mask: torch.Tensor, *, scale: float) -> torch.Tensor:
+                 mask: torch.Tensor, *, scale: float,
+                 partials: bool = False):
     """Sparse decode attention.
 
     q (B, KVH, G, 1, hd) or (BH, G, hd); k/v (B, KVH, K, hd) or
     (BH, K, hd); mask (B, KVH, K) / (BH, K).  Returns the output in q's
-    layout: (B, KVH, G, 1, hd) in q's dtype, or f32 (BH, G, hd).
+    layout: (B, KVH, G, 1, hd) in q's dtype, or f32 (BH, G, hd).  With
+    ``partials``: (the output in f32, m, l), m and l f32 (B, KVH, G, 1, 1)
+    or (BH, G), the softmax partials of the module docstring.
     """
     orig5 = q.ndim == 5
     if orig5:
@@ -188,9 +202,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         q2, k2, v2, m2 = q, k, v, mask
     if q2.device.type != "cpu":
-        out = launch_flash_decode(q2, k2, v2, m2, scale=scale)
+        got = launch_flash_decode(q2, k2, v2, m2, scale=scale,
+                                  partials=partials)
+        if partials:
+            got = (got[0], got[1][..., 0], got[1][..., 1])
     else:
-        out = flash_decode_ref(q2, k2, v2, m2, scale=scale)
+        got = flash_decode_ref(q2, k2, v2, m2, scale=scale,
+                               partials=partials)
+    if not partials:
+        return got.reshape(b, kvh, g, 1, hd).to(q.dtype) if orig5 else got
+    out, m, l = got
     if orig5:
-        out = out.reshape(b, kvh, g, 1, hd).to(q.dtype)
-    return out
+        out = out.reshape(b, kvh, g, 1, hd)
+        m, l = m.reshape(b, kvh, g, 1, 1), l.reshape(b, kvh, g, 1, 1)
+    return out, m, l

@@ -433,13 +433,16 @@ __device__ __forceinline__ void fold_list(const Fold& f, int k_lo, int k_hi,
 }
 
 // Merge the C ranks' (m, l, acc) over distributed shared memory; each rank
-// writes its share of the output ob (G, hd) = acc / max(l, 1e-30).  Two
+// writes its share of the output ob (G, hd) = acc / max(l, 1e-30), and
+// where ml is not null the merged row max and normalizer of each head,
+// ml (G, 2), from the rank that writes the head's first element.  Two
 // cluster barriers: every rank's state final, and no rank leaving while
 // another reads it.
 __device__ __forceinline__ void merge_ranks(cg::cluster_group& cluster,
                                             int rank, int nranks,
                                             const Fold& f, int g, int hd,
-                                            float* __restrict__ ob) {
+                                            float* __restrict__ ob,
+                                            float* __restrict__ ml = nullptr) {
   __syncthreads();
   cluster.sync();                         // every rank's state final
   const int ne = g * hd, share = (ne + nranks - 1) / nranks;
@@ -457,6 +460,10 @@ __device__ __forceinline__ void merge_ranks(cg::cluster_group& cluster,
       a += cluster.map_shared_rank(f.sacc, rr)[i] * e;
     }
     ob[i] = a / fmaxf(l, 1e-30f);
+    if (ml != nullptr && i == gg * hd) {
+      ml[2 * gg] = m;
+      ml[2 * gg + 1] = l;
+    }
   }
   cluster.sync();                         // no rank leaves while read
 }

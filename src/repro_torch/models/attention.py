@@ -42,9 +42,9 @@ paged=True)``), at each prompt's last real token.
 Context-parallel decode (``cfg.decode_cp_axes`` under an active mesh):
 every rank computes the whole prefill, and each global layer's
 contiguous cache holds only the rank's block of rows
-(:func:`~repro_torch.distributed.context_parallel.cache_shard`); the
-SOCKET backend's attend merges the ranks' partials.  Local layers keep
-their whole ring on every rank.
+(:func:`~repro_torch.distributed.context_parallel.cache_shard`); every
+backend's attend merges the ranks' partials.  Local layers keep their
+whole ring on every rank.
 
 ``cfg.logical_pad_heads`` zero-pads the query heads to a multiple of
 16 (:func:`_eff_heads`, llama4's 40 to 48), so a ``model`` mesh axis can
@@ -255,7 +255,9 @@ def init_attention_cache(cfg: ModelConfig, batch: int, capacity: int,
     backend = backends.get_backend(cfg.attention_backend)
     shard = cp.cache_shard(cfg)
     if shard is not None:
-        batch, capacity = shard.batch_rows(batch), shard.rows(capacity)
+        # a rank holds whole pages of the coarsest leaf (Quest's bounds)
+        page = max(s.granularity for s in backend.cache_spec(cfg).values())
+        batch, capacity = shard.batch_rows(batch), shard.rows(capacity, page)
     return backend.init_cache(cfg, batch, cfg.num_kv_heads, capacity, dtype,
                               device)
 

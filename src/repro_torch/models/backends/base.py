@@ -57,7 +57,8 @@ __all__ = ["LeafSpec", "LayerCacheSpec", "KVView", "ContiguousView",
            "PagedKVCacheHandler", "kv_quant_mode", "kv_leaf_specs",
            "kv_scales_of", "effective_keys", "write_prefill_kv",
            "quantize_kv", "write_token_kv", "gather_kv_rows",
-           "dequant_leaf", "subset_attention", "gather_block_leaf",
+           "dequant_leaf", "subset_attention", "subset_partials",
+           "cp_subset_attend", "gather_block_leaf",
            "write_chunk_blocks", "write_chunk_rows", "ring_write_page",
            "ring_write_chunk"]
 
@@ -206,9 +207,9 @@ class ContiguousView(KVView):
 
     ``shard`` (a :class:`~repro_torch.distributed.context_parallel
     .CacheShard`): under context-parallel decode the leaves hold only this
-    rank's block of the cache, and :meth:`write_token` writes only the
-    rows this rank owns (global token positions in, whole-batch values
-    in)."""
+    rank's block of the cache, and :meth:`write_token` and
+    :meth:`rmw_token` write only the rows this rank owns (global token
+    positions in, whole-batch values in)."""
 
     def __init__(self, arrays: Dict[str, torch.Tensor],
                  spec: Dict[str, LeafSpec], shard=None):
@@ -268,13 +269,32 @@ class ContiguousView(KVView):
     def rmw_token(self, name: str, pos: Pos, fn) -> None:
         a = self.arrays[name]
         gran = self.spec[name].granularity
-        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        if self.shard is not None:
+            self._rmw_owned(a, gran, pos, fn)
+        elif isinstance(pos, torch.Tensor) and pos.ndim == 1:
             bidx = torch.arange(a.shape[0], device=a.device)
             row = pos.to(a.device) // gran
             a[bidx, :, row] = fn(a[bidx, :, row]).to(a.dtype)
         else:
             row = int(pos) // gran
             a[:, :, row] = fn(a[:, :, row]).to(a.dtype)
+
+    def _rmw_owned(self, a: torch.Tensor, gran: int, pos: Pos, fn) -> None:
+        """:meth:`rmw_token` on this rank's block: ``fn`` sees whole-batch
+        rows (this rank's rows where it holds them, zeros elsewhere), and
+        only the rows it holds are written, at their local rows."""
+        bl = a.shape[0]
+        b0 = self.shard.batch_index * bl
+        t0 = self.shard.seq_index * a.shape[2] * gran
+        p = torch.as_tensor(pos, device=a.device).long().expand(
+            bl * self.shard.batch_shards)[b0:b0 + bl] - t0
+        own = (p >= 0) & (p < a.shape[2] * gran)
+        bidx = torch.arange(bl, device=a.device)[own]
+        row = p[own] // gran
+        whole = a.new_zeros((bl * self.shard.batch_shards, *a.shape[1:2],
+                             *a.shape[3:]))
+        whole[b0 + bidx] = a[bidx, :, row]
+        a[bidx, :, row] = fn(whole)[b0 + bidx].to(a.dtype)
 
 
 class PagedView(KVView):
@@ -557,6 +577,38 @@ def dequant_leaf(cfg, view: KVView, name: str) -> torch.Tensor:
     if name in ("k", "v") and kvquant.is_quantized(kv_quant_mode(cfg)):
         return kvquant.dequantize(a, view.leaf(name + "_scale"))
     return a
+
+
+def subset_partials(cfg, q: torch.Tensor, k_sel: torch.Tensor,
+                    v_sel: torch.Tensor, sel_mask: torch.Tensor, *,
+                    scale: float):
+    """:func:`subset_attention`'s softmax partials ``(m, l, o)`` f32 (the
+    ``flash_decode`` kernel's, with its partials, where
+    ``cfg.socket.use_flash_decode``; else the plain ones): what a
+    context-parallel rank merges with the others'."""
+    if cfg.socket.use_flash_decode:
+        from repro_torch.kernels.flash_decode import ops as fd_ops
+        o, m, l = fd_ops.flash_decode(q, k_sel, v_sel, sel_mask,
+                                      scale=scale, partials=True)
+        return m, l, o
+    from repro_torch.distributed.context_parallel import partials
+    return partials(q, k_sel, v_sel, sel_mask, scale)
+
+
+def cp_subset_attend(cfg, fr, q: torch.Tensor, view: KVView,
+                     idx: torch.Tensor, sel_mask: torch.Tensor, *,
+                     scale: float, dtype) -> torch.Tensor:
+    """Context-parallel attention over a global selection ``idx`` /
+    ``sel_mask`` ``(B_l, KVH, K)`` of this rank's batch rows (``q``
+    ``(B_l, KVH, G, 1, hd)``): the rows this rank holds in its block
+    ``view`` (the rest masked, :meth:`Frame.owned`), their partials
+    (:func:`subset_partials`), merged over the ranks (``fr``: a
+    :class:`~repro_torch.distributed.context_parallel.Frame`).  Returns
+    the whole batch's output in ``dtype``."""
+    loc, own = fr.owned(idx, sel_mask)
+    k_sel, v_sel = gather_kv_rows(cfg, view, loc)
+    m, l, o = subset_partials(cfg, q, k_sel, v_sel, own, scale=scale)
+    return fr.merge(m, l, o, dtype)
 
 
 def subset_attention(cfg, q: torch.Tensor, k_sel: torch.Tensor,

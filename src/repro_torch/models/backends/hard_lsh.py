@@ -15,6 +15,13 @@ PagedView decode runs as ONE fused CUDA pass
 A probe shadow step (``probe.capturing()``) takes the plain route and
 records :func:`~repro_torch.models.backends.probe.selection_stats`; the
 plain selection is the fused kernel's bit for bit.
+
+Context-parallel route (a ContiguousView under an active mesh whose axes
+``cfg.decode_cp_axes`` names): each rank computes its block's value-aware
+values at global positions, the blocks are gathered and every rank
+selects as the global route does, then attends the selected rows it
+holds and the ranks' partials are merged
+(``distributed/context_parallel.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core import socket as sk
+from repro_torch.distributed import context_parallel as cp
 from repro_torch.models.backends import base
 from repro_torch.models.backends import probe as bprobe
 from repro_torch.models.backends.socket import SocketBackend, socket_config_of
@@ -78,6 +86,21 @@ class HardLSHBackend(SocketBackend):
             v_scale=base.kv_scales_of(view.arrays, "v"))
         return out.to(q.dtype)
 
+    def _attend_cp(self, cfg, params, q, view, fr, *, length, scale):
+        """The context-parallel route (module docstring) on this rank's
+        block ``view``."""
+        scfg = socket_config_of(cfg)
+        q_l, length_l = fr.local(q), fr.local(length)
+        scores = torch.sum(_hard_collision_scores(
+            scfg, view.leaf("bits"), _query_signs(params, q_l)), dim=2)
+        eff = fr.gather(sk.value_aware_scores(
+            scfg, scores, view.leaf("vnorm"), length=length_l, lo=fr.lo))
+        idx, sel_mask = sk.top_of_scores(
+            eff, k=sk.topk_budget(scfg, fr.n),
+            budget=self._budget(cfg, length_l, fr.n))
+        return base.cp_subset_attend(cfg, fr, q_l, view, idx, sel_mask,
+                                     scale=scale, dtype=q.dtype)
+
     def attend(self, cfg, params, q, view, *, length, scale):
         scfg = socket_config_of(cfg)
         n = view.n_tokens
@@ -86,6 +109,11 @@ class HardLSHBackend(SocketBackend):
                 and not bprobe.capturing():
             return self._attend_fused(cfg, params, q, view, length=length,
                                       scale=scale, budget=budget)
+        fr = cp.frame(cfg, view) if isinstance(view, base.ContiguousView) \
+            else None
+        if fr is not None:
+            return self._attend_cp(cfg, params, q, view, fr, length=length,
+                                   scale=scale)
         scores = _hard_collision_scores(scfg, view.leaf("bits"),
                                         _query_signs(params, q))
         scores = torch.sum(scores, dim=2)                # sum over group

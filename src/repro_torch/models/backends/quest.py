@@ -16,6 +16,14 @@ records :func:`~repro_torch.models.backends.probe.selection_stats` (the
 budget is page-granular and folded into the selection mask, so the
 reported budget is the static selection width); the plain page
 selection is the fused kernel's bit for bit.
+
+Context-parallel route (a ContiguousView under an active mesh whose axes
+``cfg.decode_cp_axes`` names): a rank's cache holds whole pages of its
+rows (``page_size`` must divide them), ``append`` updates a page's
+bounds on the rank that holds it, and ``attend`` scores a rank's pages
+at their global starts, gathers the page scores, selects as the global
+route does, attends the selected rows it holds and merges the ranks'
+partials (``distributed/context_parallel.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.baselines import quest as quest_mod
+from repro_torch.distributed import context_parallel as cp
 from repro_torch.models.backends import base
 from repro_torch.models.backends import probe as bprobe
 from repro_torch.models.backends.base import KVView, LeafSpec
@@ -118,12 +127,34 @@ class QuestBackend(base.DecodeBackend):
     def fused_paged(self, cfg):
         return bool(cfg.quest.use_paged_kernel)
 
+    def _attend_cp(self, cfg, q, view, fr, *, length, scale):
+        """The context-parallel route (module docstring) on this rank's
+        block ``view``."""
+        qcfg = self.quest_config(cfg)
+        q_l, length_l = fr.local(q), fr.local(length)
+        state = quest_mod.QuestState(kmin=view.leaf("kmin"),
+                                     kmax=view.leaf("kmax"))
+        eff = fr.gather(quest_mod.group_page_scores(
+            qcfg, state, q_l, length_l,
+            first_page=fr.lo // qcfg.page_size))
+        idx, sel_mask = quest_mod.select_pages(
+            qcfg, eff, k_pages=quest_mod.page_budget(qcfg, eff.shape[-1],
+                                                     fr.n),
+            length=length_l, n=fr.n)
+        return base.cp_subset_attend(cfg, fr, q_l, view, idx, sel_mask,
+                                     scale=scale, dtype=q.dtype)
+
     def attend(self, cfg, params, q, view: KVView, *, length, scale):
         if cfg.quest.use_paged_kernel and isinstance(view, base.PagedView) \
                 and not bprobe.capturing():
             return self._attend_fused(cfg, params, q, view, length=length,
                                       scale=scale)
         del params
+        fr = cp.frame(cfg, view) if isinstance(view, base.ContiguousView) \
+            else None
+        if fr is not None:
+            return self._attend_cp(cfg, q, view, fr, length=length,
+                                   scale=scale)
         qcfg = self.quest_config(cfg)
         state = quest_mod.QuestState(kmin=view.leaf("kmin"),
                                      kmax=view.leaf("kmax"))

@@ -30,7 +30,6 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.distributed import context_parallel as cp
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
@@ -352,7 +351,6 @@ def init_decode_caches(cfg: ModelConfig, batch: int, capacity: int,
     block (``distributed/context_parallel.py``).  ``long_context`` is
     the JAX argument: it changes no leaf, only the axes
     (:func:`decode_cache_axes`) that place the caches."""
-    cp.check_model(cfg)
     caches = []
     for spec in cfg.layer_specs:
         if spec.kind != "attn":
@@ -387,7 +385,6 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict, capacity: int,
     ``batch``'s rows (the MoE layers' dispatch reads it), and
     ``cache_blocks.cut(i, cache)`` keeps layer ``i``'s cache block
     (``distributed/fsdp.py::CacheBlocks``)."""
-    cp.check_model(cfg)
     gather = gather or _whole
     embed = gather("['embed']", params["embed"])
     x = _input_embed(cfg, embed, batch)

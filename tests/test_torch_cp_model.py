@@ -1,5 +1,5 @@
-"""Context-parallel SOCKET decode through the port's model, held to the
-JAX package on the CPU.
+"""Context-parallel decode through the port's model, held to the JAX
+package on the CPU.
 
 * ``run_serve``'s greedy tokens from a ``llama31-8b`` smoke model on 4
   gloo ranks (``decode_cp_axes=("data",)``, one process a rank, one
@@ -20,8 +20,17 @@ JAX package on the CPU.
   tokens equal and every step's logits within ``LOGITS_ATOL``; each rank
   holds its block of the global layers' caches and the whole rings and
   Mamba states, those bitwise equal on every rank.
-* Under an active CP mesh, global layers of a non-SOCKET backend raise
-  naming ROADMAP item 11, and the continuous engine refuses
+* The ``dense``, ``hard_lsh`` and ``quest`` backends decode
+  ``llama31-8b``'s smoke model under the same mesh: prefill, ``STEPS``
+  greedy steps and one step at a ragged ``(B,)`` position on the 4 ranks
+  against JAX's jitted ``make_prefill_step``/``make_serve_step`` under
+  the mesh (where XLA's partitioner gives the global route's result),
+  greedy tokens equal and every step's logits within ``LOGITS_ATOL``;
+  each rank's prefill cache is its block of one process's (Quest's page
+  bounds bitwise), and the decode steps wrote K/V and Quest's bounds on
+  the rank that owns the row only, as one process writes them.
+* Under an active CP mesh no backend raises (the in-process mesh allots
+  each global layer its block), and the continuous engine refuses
   ``decode_cp_axes`` with the JAX engine's message.
 
 The JAX side runs with the kernel flags on, as ``test_torch_model.py``
@@ -47,6 +56,10 @@ from conftest import SRC
 ARCH, BATCH, PLEN, STEPS, WORLD = "llama31-8b", 2, 60, 4, 4
 CAP = PLEN + STEPS
 HYBRIDS = ("gemma3-27b", "jamba-v0.1-52b", "mamba2-780m")
+BACKENDS = ("dense", "hard_lsh", "quest")
+# the backends' last step: each request at its own position (its row's
+# K/V rewritten there), a ragged length and, for hard LSH, budget
+RAGGED = (CAP - 1, CAP - 3)
 # chip_smoke.py's end-to-end logits bound (float32, other summation
 # orders)
 LOGITS_ATOL = 1e-4
@@ -71,7 +84,7 @@ from repro.configs import get_config
 from repro.distributed.sharding import activate_mesh
 from repro.launch.serve import run_serve
 
-ARCH, PATH, BATCH, PLEN, STEPS, WORLD, HYBRIDS = ARGS
+ARCH, PATH, BATCH, PLEN, STEPS, WORLD, HYBRIDS, BACKENDS, RAGGED = ARGS
 
 jc = get_config(ARCH).smoke()
 jc = jc.replace(socket=dataclasses.replace(
@@ -88,24 +101,34 @@ np.save(PATH + "/jax_tokens.npy", np.asarray(toks))
 import jax.numpy as jnp
 from repro.models import param as pm, transformer as tfm
 from repro.runtime.steps import make_prefill_step, make_serve_step
-for arch in HYBRIDS:
-    hc = get_config(arch).smoke().replace(num_groups=1)
+
+
+def drive(hc, name, ragged):
     hc = hc.replace(socket=dataclasses.replace(
         hc.socket, use_score_kernel=True, use_flash_decode=True),
         decode_cp_axes=("data",), decode_cp_batch_axes=())
     params = pm.unbox(tfm.init_model(hc, jax.random.PRNGKey(0)))
+    positions = [jnp.int32(PLEN + t) for t in range(STEPS)]
+    if ragged:
+        positions.append(jnp.asarray(RAGGED, jnp.int32))
     with activate_mesh(mesh):
         logits, caches = jax.jit(make_prefill_step(hc, PLEN + STEPS))(
             params, {"tokens": jnp.asarray(prompt)})
         serve = jax.jit(make_serve_step(hc))
         logs, toks = [logits[:, -1]], [jnp.argmax(logits[:, -1], -1)[:, None]]
-        for t in range(STEPS):
-            logits, caches = serve(params, caches, toks[-1],
-                                   jnp.int32(PLEN + t))
+        for pos in positions:
+            logits, caches = serve(params, caches, toks[-1], pos)
             logs.append(logits[:, -1])
             toks.append(jnp.argmax(logits[:, -1], -1)[:, None])
-    np.savez(PATH + f"/jax_{arch}.npz", tokens=np.asarray(
+    np.savez(PATH + f"/jax_{name}.npz", tokens=np.asarray(
         jnp.concatenate(toks, 1)), logits=np.asarray(jnp.stack(logs)))
+
+
+for arch in HYBRIDS:
+    drive(get_config(arch).smoke().replace(num_groups=1), arch, False)
+for backend in BACKENDS:
+    drive(get_config(ARCH).smoke().replace(attention_backend=backend),
+          backend, True)
 print("OK")
 """
 
@@ -135,25 +158,38 @@ def _serve_rank(rank, world, tmp):
         hp = torch.load(os.path.join(tmp, f"params_{arch}.pt"))
         with activate_mesh(make_test_mesh(world, 1)):
             out[arch] = _decode(hc, hp, prompt)
+    for backend in BACKENDS:
+        with activate_mesh(make_test_mesh(world, 1)):
+            out[backend] = _decode(_tcfg(attention_backend=backend, **CP),
+                                   params, prompt, ragged=True)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
 
-def _decode(cfg, params, prompt):
-    """Prefill and ``STEPS`` greedy steps: the tokens, each step's
-    last-position logits and the prefill's caches."""
+def _positions(ragged):
+    """The decode steps' positions: ``STEPS`` scalar ones, then (where
+    ``ragged``) the ``(B,)`` position ``RAGGED``."""
+    return [PLEN + t for t in range(STEPS)] + (
+        [torch.tensor(RAGGED)] if ragged else [])
+
+
+def _decode(cfg, params, prompt, ragged=False, teacher=None):
+    """Prefill and the greedy steps of :func:`_positions` (``teacher``:
+    step t feeds ``teacher[:, t]``): the tokens, each step's
+    last-position logits, the prefill's caches and the caches after the
+    steps."""
     from repro_torch.models import transformer as tfm
     logits, caches = tfm.prefill(cfg, params, {"tokens": prompt}, CAP)
     prefill = [{k: v.clone() for k, v in c.items()} for c in caches]
     logs = [logits[:, -1]]
     toks = [torch.argmax(logits[:, -1], -1)[:, None]]
-    for t in range(STEPS):
-        logits, caches = tfm.decode_step(cfg, params, caches, toks[-1],
-                                         PLEN + t)
+    for t, pos in enumerate(_positions(ragged)):
+        inp = toks[-1] if teacher is None else teacher[:, t:t + 1]
+        logits, caches = tfm.decode_step(cfg, params, caches, inp, pos)
         logs.append(logits[:, -1])
         toks.append(torch.argmax(logits[:, -1], -1)[:, None])
     return {"tokens": torch.cat(toks, 1), "logits": torch.stack(logs),
-            "prefill": prefill}
+            "prefill": prefill, "decoded": caches}
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +215,7 @@ def served(tmp_path_factory):
             num_groups=1), jax.random.PRNGKey(0)))
         torch.save(from_jax_params(_tcfg(arch), jax.tree_util.tree_map(
             np.asarray, hp)), os.path.join(tmp, f"params_{arch}.pt"))
-    args = (ARCH, tmp, BATCH, PLEN, STEPS, WORLD, HYBRIDS)
+    args = (ARCH, tmp, BATCH, PLEN, STEPS, WORLD, HYBRIDS, BACKENDS, RAGGED)
     env = dict(os.environ)
     env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
@@ -198,7 +234,7 @@ def served(tmp_path_factory):
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
              for r in range(WORLD)]
     hybrids = {arch: dict(np.load(os.path.join(tmp, f"jax_{arch}.npz")))
-               for arch in HYBRIDS}
+               for arch in HYBRIDS + BACKENDS}
     return params, torch.from_numpy(prompt), \
         np.load(os.path.join(tmp, "jax_tokens.npy")), ranks, hybrids
 
@@ -354,19 +390,98 @@ def test_write_token_writes_only_owned_rows():
 @pytest.mark.parametrize("arch,backend", [
     ("llama31-8b", "dense"), ("llama31-8b", "quest")])
 def test_cp_refuses_other_layers(arch, backend):
+    """No backend is refused under an active CP mesh any more: each
+    global layer's cache is this rank's block, and the prefill keeps the
+    rows the rank owns (rank 0 of an in-process (2, 1) mesh: the first
+    half, equal to one process's)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import activate_mesh
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer as tfm
     cfg = get_config(arch).smoke().replace(attention_backend=backend, **CP)
+    params = tfm.init_model(cfg, 0, "cpu")
     tokens = torch.zeros(1, 8, dtype=torch.int64)
     with activate_mesh(Mesh(("data", "model"), (2, 1))):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tfm.init_decode_caches(cfg, 1, 16)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tfm.prefill(cfg, {}, {"tokens": tokens}, 16)
+        caches = tfm.init_decode_caches(cfg, 1, 16)
+        _, blocks = tfm.prefill(cfg, params, {"tokens": tokens}, 16)
     # without a mesh the field changes nothing
-    assert len(tfm.init_decode_caches(cfg, 1, 16)) == cfg.num_layers
+    whole = tfm.init_decode_caches(cfg, 1, 16)
+    _, ref = tfm.prefill(cfg, params, {"tokens": tokens}, 16)
+    assert len(caches) == len(whole) == cfg.num_layers
+    for got, block, want, full in zip(caches, blocks, whole, ref):
+        assert set(got) == set(want)
+        for name, leaf in want.items():
+            rows = leaf.shape[2] // 2
+            assert got[name].shape[2] == block[name].shape[2] == rows
+            assert torch.equal(block[name], full[name][:, :, :rows]), name
+
+
+def _whole_run(backend, ranks):
+    """One process holding the whole cache, without CP, fed the ranks'
+    tokens: its prefill caches and its caches after the steps."""
+    params, prompt = ranks["params"], ranks["prompt"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _decode(_tcfg(attention_backend=backend), params, prompt,
+                       ragged=True, teacher=ranks["tokens"])
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_cp_backend_decode_matches_jax(served, backend):
+    """Greedy tokens equal JAX's under the mesh on every rank (the ragged
+    step included), every step's logits within LOGITS_ATOL."""
+    _, _, _, ranks, jax_runs = served
+    want = jax_runs[backend]
+    for r, got in enumerate(ranks):
+        got = got[backend]
+        np.testing.assert_array_equal(got["tokens"].numpy(), want["tokens"],
+                                      err_msg=r)
+        np.testing.assert_allclose(got["logits"].numpy(), want["logits"],
+                                   rtol=0, atol=LOGITS_ATOL, err_msg=r)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_cp_backend_ranks_hold_their_blocks(served, backend):
+    """Prefill: rank r's leaves are rows [16 r, 16 r + 16) of one
+    process's cache (Quest's page bounds and hard LSH's bits bitwise).
+    Decode: the rows the steps write (60..63) change on rank 3 only, and
+    its K/V and Quest bounds are one process's (fed the same tokens) at
+    those rows: layer 0's bitwise (its new keys come from the tokens'
+    embeddings), deeper layers' within 1e-5."""
+    params, prompt, _, ranks, _ = served
+    whole = _whole_run(backend, dict(params=params, prompt=prompt,
+                                     tokens=ranks[0][backend]["tokens"]))
+    n_l = CAP // WORLD
+    for r, got in enumerate(ranks):
+        got = got[backend]
+        for layer in range(len(got["prefill"])):
+            pre, dec = got["prefill"][layer], got["decoded"][layer]
+            assert set(pre) == set(whole["prefill"][layer])
+            for name, leaf in pre.items():
+                gran = n_l // leaf.shape[2]
+                rows = slice(r * n_l // gran, (r + 1) * n_l // gran)
+                ref = whole["prefill"][layer][name][:, :, rows]
+                if name in ("bits", "kmin", "kmax"):
+                    assert torch.equal(leaf, ref), (r, layer, name)
+                else:
+                    torch.testing.assert_close(leaf, ref, rtol=1e-5,
+                                               atol=1e-5)
+                diff = dec[name] != leaf
+                written = diff.reshape(*diff.shape[:3], -1).any(-1)
+                if r < WORLD - 1:
+                    assert not bool(written.any()), (r, layer, name)
+                    continue
+                tail = slice((PLEN - r * n_l) // gran, None)
+                assert not bool(written[:, :, :tail.start].any()), name
+                want = whole["decoded"][layer][name][:, :, rows][:, :, tail]
+                if layer == 0:
+                    assert torch.equal(dec[name][:, :, tail], want), name
+                else:
+                    torch.testing.assert_close(dec[name][:, :, tail], want,
+                                               rtol=1e-5, atol=1e-5)
 
 
 def test_engine_refuses_cp_as_jax_does():

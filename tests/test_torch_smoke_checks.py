@@ -15,7 +15,11 @@ their selections, and the plain route's calls pair with them in order.
 
 Phase 9's gates (context-parallel decode) run at smoke size on simulated
 ranks, sound and with a wrong ``lo``, a budget of the local rows and a
--inf masked logit.
+-inf masked logit.  Phase 9c's (the other backends' CP routes): a rank's
+layer-0 selection with one index moved, one mask entry flipped or a
+step missing, and Quest bounds off by a key's rounding on a page the
+steps did not write or off by more than the tolerance on one they did:
+each must fail.
 
 Phase 10's gates (the Trainer's mesh) run on 4 gloo CPU ranks at smoke
 width through the phase's own rank body, sound and with a gradient
@@ -1186,6 +1190,50 @@ def test_cp_model_gates():
     off[2][0, 5] += 2 * cs.LOGITS_ATOL
     with pytest.raises(AssertionError, match="logits"):
         cs.cp_logits_gate("smoke", toks, logits, toks, off)
+
+
+def test_cp_backend_gates():
+    """Phase 9c's selection and Quest bounds gates, sound and faulty."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    steps = 3
+    ref = [(torch.randperm(40, generator=gen)[:12].reshape(1, 2, 6),
+            torch.rand((1, 2, 6), generator=gen) < 0.8)
+           for _ in range(steps)]
+    runs = [dict(selections=[(i.clone(), m.clone()) for i, m in ref])
+            for _ in range(4)]
+    cs.cpb_selection_gate("smoke", runs, ref, steps)
+    moved = [dict(r) for r in runs]
+    moved[1] = dict(selections=[(i.clone(), m.clone()) for i, m in ref])
+    moved[1]["selections"][2][0][0, 1, 3] += 1
+    flipped = [dict(r) for r in runs]
+    flipped[3] = dict(selections=[(i.clone(), m.clone()) for i, m in ref])
+    flipped[3]["selections"][0][1][0, 0, 0] ^= True
+    short = [dict(r) for r in runs]
+    short[0] = dict(selections=runs[0]["selections"][:2])
+    for bad, match in ((moved, "step 2"), (flipped, "step 0"),
+                       (short, "recorded 2")):
+        with pytest.raises(AssertionError, match=match):
+            cs.cpb_selection_gate("smoke", bad, ref, steps)
+    # Quest bounds: 2 layers, 4 ranks of 3 pages; the steps wrote page 10
+    whole = [{k: torch.randn((1, 2, 12, 8), generator=gen)
+              for k in ("kmin", "kmax")} for _ in range(2)]
+    blocks = [dict(bounds=[{k: v[:, :, 3 * r:3 * r + 3].clone()
+                            for k, v in layer.items()} for layer in whole])
+              for r in range(4)]
+    assert cs.cpb_bounds_gate("smoke", blocks, whole, {10}) == 0.0
+    near = [dict(bounds=[{k: v.clone() for k, v in layer.items()}
+                         for layer in b["bounds"]]) for b in blocks]
+    near[3]["bounds"][1]["kmax"][:, :, 1] += 1e-6
+    assert 0 < cs.cpb_bounds_gate("smoke", near, whole, {10}) < 2e-6
+    for rank, layer, page, off in ((3, 0, 1, 1e-6), (2, 1, 0, 1e-6),
+                                   (3, 1, 1, 1e-3)):
+        bad = [dict(bounds=[{k: v.clone() for k, v in lay.items()}
+                            for lay in b["bounds"]]) for b in blocks]
+        bad[rank]["bounds"][layer]["kmin"][:, :, page] += off
+        with pytest.raises(AssertionError, match=f"rank {rank}'s layer "
+                                                 f"{layer} kmin"):
+            cs.cpb_bounds_gate("smoke", bad, whole, {10})
 
 
 # ------------------------------------------------------------ phase 10
